@@ -1,0 +1,180 @@
+"""Sana one-step backend: prompt catalog, frozen DiT + DC-AE, adapter batches.
+
+Port of ``hyperscalees_t2i_tpu/backends/sana_backend.py`` (one-step mode).
+Prompt embeddings are synthesized from each prompt's ``stable_text_seed``;
+loading an encoded-prompt cache is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..device import DeviceLike, generator_for, resolve_device
+from ..lora import LoRASpec, init_lora
+from ..models import dcae, sana
+from ..ops.quant import maybe_quantize_tree
+from ..rungs import PROMPT_EMBED_LEN
+from ..utils.pytree import cast_floating, resolve_float_dtype, tree_map
+from ..utils.seeding import stable_text_seed
+
+Params = Dict[str, Any]
+PROMPT_EMBED_SEED = 1234
+
+
+@dataclasses.dataclass
+class SanaBackendConfig:
+    model: sana.SanaConfig = dataclasses.field(default_factory=sana.SanaConfig)
+    vae: dcae.DCAEConfig = dataclasses.field(default_factory=dcae.DCAEConfig)
+    guidance_scale: float = 1.0
+    width_latent: int = 32
+    height_latent: int = 32
+    lora_r: int = 8
+    lora_alpha: float = 16.0
+    lora_targets: Tuple[str, ...] = sana.SANA_LORA_TARGETS
+    seed_params: int = 0
+    prompt_embed_len: int = PROMPT_EMBED_LEN
+
+
+class SanaBackend:
+    """Holds the frozen :class:`~..models.sana.SanaTransformer` and
+    :class:`~..models.dcae.DCAEDecoder` on ``device`` and generates images
+    for lane-stacked adapter batches.
+
+    ``params``/``vae_params`` are parameter trees in the JAX package's layout
+    (float or int8 nodes); missing ones are drawn from ``cfg.seed_params`` by
+    :meth:`setup`, which also builds the modules."""
+
+    def __init__(
+        self,
+        cfg: SanaBackendConfig,
+        device: DeviceLike = None,
+        params: Optional[Params] = None,
+        vae_params: Optional[Params] = None,
+        prompts: Optional[Sequence[str]] = None,
+    ):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.name = "sana_one_step"
+        self._params = params
+        self._vae_params = vae_params
+        self.prompts: List[str] = list(prompts) if prompts else []
+        self.model: Optional[sana.SanaTransformer] = None
+        self.vae: Optional[dcae.DCAEDecoder] = None
+        self.param_shapes: Optional[Params] = None
+        self.prompt_embeds: Optional[torch.Tensor] = None  # [P, Ltxt, caption_dim] f32
+        self.prompt_mask: Optional[torch.Tensor] = None  # [P, Ltxt] bool
+        self._spec = LoRASpec(rank=cfg.lora_r, alpha=cfg.lora_alpha, targets=cfg.lora_targets)
+
+    # -- setup ---------------------------------------------------------------
+    def setup(self) -> None:
+        if self.model is None:
+            params = self._params
+            if params is None:
+                params = sana.init_sana(self.cfg.model, generator_for(self.device, self.cfg.seed_params))
+            # meta tensors: the tree's structure and shapes, for init_lora
+            self.param_shapes = tree_map(
+                lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), params
+            )
+            self.model = sana.SanaTransformer(self.cfg.model, params).to(self.device)
+            self._params = None
+        if self.vae is None:
+            vp = self._vae_params
+            if vp is None:
+                vp = dcae.init_decoder(self.cfg.vae, generator_for(self.device, self.cfg.seed_params + 1))
+            self.vae = dcae.DCAEDecoder(self.cfg.vae, vp).to(self.device)
+            self._vae_params = None
+        if self.prompt_embeds is None:
+            self._synthesize_prompts()
+
+    def _synthesize_prompts(self) -> None:
+        """Deterministic placeholder embeddings, one generator per prompt
+        seeded from its text (a real deployment loads encoded prompts)."""
+        self.prompts = self.prompts or ["a photo of a cat"]
+        L, D = self.cfg.prompt_embed_len, self.cfg.model.caption_dim
+        embeds = []
+        for p in self.prompts:
+            g = torch.Generator(device="cpu").manual_seed(PROMPT_EMBED_SEED * 2**32 + stable_text_seed(p))
+            embeds.append(torch.randn((L, D), generator=g))
+        self.prompt_embeds = torch.stack(embeds).to(self.device)
+        self.prompt_mask = torch.ones((len(self.prompts), L), dtype=torch.bool, device=self.device)
+
+    # -- protocol ------------------------------------------------------------
+    def init_theta(self, generator: torch.Generator) -> Dict[str, Dict[str, torch.Tensor]]:
+        return init_lora(self.param_shapes, self._spec, generator, device=torch.device("cpu"))
+
+    @property
+    def lora_scale(self) -> float:
+        return self._spec.scale
+
+    @property
+    def num_items(self) -> int:
+        return len(self.prompts)
+
+    @property
+    def texts(self) -> List[str]:
+        return self.prompts
+
+    def generate_p(
+        self,
+        stacked_theta: Optional[Params],
+        flat_ids: Any,
+        seeds: Sequence[int],
+        noise: Optional[torch.Tensor] = None,
+        guidance_scale: Optional[float] = None,
+    ) -> torch.Tensor:
+        """``[n, b]`` prompt indices with ``n`` lane-stacked adapters and ``n``
+        seeds → images ``[n, b, H, W, 3]``. Image ``j`` of lane ``i`` draws its
+        noise from ``(seeds[i], j)``; ``noise [n, b, h, w, C]`` replaces the
+        draw (parity tests inject the JAX package's noise)."""
+        cfg = self.cfg
+        ids = torch.as_tensor(flat_ids, dtype=torch.long, device=self.device)
+        n, b = ids.shape
+        if len(seeds) != n:
+            raise ValueError(f"{n} lanes but {len(seeds)} seeds")
+        hw = (cfg.height_latent, cfg.width_latent)
+        shape = (*hw, cfg.model.in_channels)
+        if noise is None:
+            noise = torch.cat([sana.per_image_normal(s, range(b), shape, self.device) for s in seeds])
+        else:
+            noise = noise.reshape(n * b, *shape)
+        flat = ids.reshape(-1)
+        latents = sana.one_step_generate(
+            self.model, self.prompt_embeds[flat], self.prompt_mask[flat],
+            guidance_scale=cfg.guidance_scale if guidance_scale is None else guidance_scale,
+            latent_hw=hw, lora=stacked_theta, lora_scale=self.lora_scale, noise=noise,
+        )
+        images = dcae.decode(self.vae, latents / cfg.vae.scaling_factor)
+        return images.reshape(n, b, *images.shape[1:])
+
+    def generate(self, theta: Optional[Params], flat_ids: Sequence[int], seed: int) -> torch.Tensor:
+        """One adapter, one request: ``[b]`` prompt indices → ``[b, H, W, 3]``."""
+        stacked = None
+        if theta is not None:
+            stacked = {k: {f: t.to(self.device)[None] for f, t in v.items()} for k, v in theta.items()}
+        return self.generate_p(stacked, [list(flat_ids)], [seed])[0]
+
+
+def build_serve_backend(
+    bcfg: SanaBackendConfig,
+    base_quant: str,
+    device: DeviceLike = None,
+    prompts: Optional[Sequence[str]] = None,
+    param_dtype: Any = "bfloat16",
+    seed: int = 0,
+) -> SanaBackend:
+    """The serving backend as the JAX package's ``bench.py`` builds it:
+    random weights from ``seed`` on the device, every float leaf cast to
+    ``param_dtype``, then the ``base_quant`` knob (``"int8"`` quantizes every
+    kernel of at least ``ops.quant.DEFAULT_MIN_SIZE`` elements)."""
+    dev = resolve_device(device)
+    params = sana.init_sana(bcfg.model, generator_for(dev, seed))
+    dtype = resolve_float_dtype(param_dtype)
+    params = maybe_quantize_tree(cast_floating(params, dtype), base_quant)
+    vae = dcae.init_decoder(bcfg.vae, generator_for(dev, seed + 1))
+    vae = maybe_quantize_tree(cast_floating(vae, dtype), base_quant)
+    backend = SanaBackend(bcfg, dev, params=params, vae_params=vae, prompts=prompts)
+    backend.setup()
+    return backend

@@ -1,0 +1,68 @@
+"""Nested-dict parameter trees: dtype knobs and leaf-wise maps.
+
+Parameter trees are plain nested ``dict``/``list`` structures of tensors, the
+same structure as the JAX package's pytrees (so weights move across leaf by
+leaf). Dict leaves are visited in sorted key order, the order JAX flattens
+dicts in.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Iterator, List, Tuple
+
+import torch
+
+Tree = Any
+
+
+def resolve_float_dtype(name: str) -> torch.dtype:
+    """``"float32"``/``"bfloat16"`` (aliases ``"f32"``/``"bf16"``) → torch
+    dtype. Unknown names raise."""
+    if name in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    if name in ("float32", "f32"):
+        return torch.float32
+    raise ValueError(f"dtype knob must be float32 or bfloat16, got {name!r}")
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Tree) -> Tree:
+    """Apply ``fn`` to every non-container leaf, keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves_with_path(tree: Tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """``(path, leaf)`` pairs, dict keys sorted, path parts joined by ``/``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves_with_path(tree[k], f"{prefix}/{k}" if prefix else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves_with_path(v, f"{prefix}/{i}" if prefix else str(i))
+    else:
+        yield prefix, tree
+
+
+def tree_leaves(tree: Tree) -> List[Any]:
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def tree_structure(tree: Tree) -> Any:
+    """A hashable description of the container structure (leaves elided)."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, tree_structure(tree[k])) for k in sorted(tree)))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__, tuple(tree_structure(v) for v in tree))
+    return "*"
+
+
+def cast_floating(tree: Tree, dtype: torch.dtype) -> Tree:
+    """Cast every floating tensor leaf to ``dtype``; integer leaves (the int8
+    ``q8`` kernels) are untouched."""
+    return tree_map(
+        lambda x: x.to(dtype) if torch.is_tensor(x) and x.is_floating_point() else x,
+        tree,
+    )
