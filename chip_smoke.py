@@ -6,31 +6,43 @@
 Phases (any failure raises, and the script exits non-zero before printing a
 result):
 
-1. build every CUDA kernel of the serving path from ``csrc/`` with ``nvcc``
-   (one process per source, all at once);
+1. build every CUDA kernel from ``csrc/`` with ``nvcc`` (one process per
+   source, all at once): K1 ``int8_matmul``, K2 ``lora_chain``, K3
+   ``fused_qlora``;
 2. hold each kernel against its plain PyTorch version on the card at every
-   shape the flagship serving path gives it, in bf16 and f32, and time the
-   kernel, the plain version, one PyTorch library call computing the same
-   function (``library_ms``, a yardstick the port never calls) and the
-   card's lower bound for the work;
-3. check the port end to end on a small input: the tiny rung with an int8
-   base in f32 on the card against the same request on the CPU (the CPU
-   path is the one the tests hold against the JAX package);
-4. the main path: the flagship serving backend (Sana-Sprint 1.6B at full
-   width, DC-AE decoding to 1024×1024, bf16 compute, int8 base, random
-   weights from a seed) behind ``ServeEngine`` with ``SERVE_PLAN
-   ["flagship"]``; two tenants' adapters, four requests through
-   ``submit``/``flush``. Kernel launch counters are set to 0 just before and
-   read just after; every kernel must have launched the expected number of
-   times. Images must be ``[1, 1024, 1024, 3]``, finite, in [0, 1], differ
-   between tenants, and a request served in a batch must match it served
-   alone.
+   shape its main path gives it, in the main-path dtype and in f32, and time
+   the kernel, the plain version, one PyTorch library call computing the
+   same function (``library_ms``, a yardstick the port never calls) and the
+   card's lower bound for the work: K1 at the flagship DiT, DC-AE, CLIP-B/32
+   and CLIP-H/14 shapes; K2 and K3 at the flagship's LoRA-adapted sites;
+3. check the port end to end on small inputs against the same work on the
+   CPU (the CPU path is the one the tests hold against the JAX package): the
+   tiny rung served in f32 with an int8 base; one tiny-rung ES step in f32
+   with an int8 base (K3 at the adapted sites) and one ``small``-rung ES
+   step in f32 with a float base (K2 there), both with ``pop_fuse``: θ′ and
+   reward rows, and the card's launches exactly as derived;
+4. K2's path: the flagship ES epoch step (as in 6) over a bf16 base, whose
+   164 adapted DiT sites per image run K2; one warm-up and two timed
+   epochs, K2 counted as in 6;
+5. the serving path: the flagship serving backend (Sana-Sprint 1.6B at full
+   width, DC-AE to 1024×1024, bf16, int8 base, random weights from a seed)
+   behind ``ServeEngine``, four requests; K1 must launch the expected number
+   of times, images must be finite in [0, 1], differ between tenants, and
+   batched must equal solo;
+6. the main path: one EGGROLL-ES epoch step of the flagship rung
+   (``RUNG_PLAN``/``RUNG_OPT["flagship"]``: pop 4, 4 prompts, member_batch
+   1, reward_tile 1, bf16 noise store, int8 DiT + DC-AE + CLIP-B/32 +
+   CLIP-H/14 at their published widths, bf16 towers), one warm-up epoch
+   then two timed epochs. Launch counters are set to 0 just before the
+   timed epochs and read just after; K3 and K1 must have launched exactly
+   the counts derived from the module trees. Reward rows must be ``[4, 4]``
+   and finite, θ′ finite, ‖Δθ‖ > 0.
 
-Output: the per-shape kernel table and the serving numbers on stdout, a
-JSON copy in ``build/chip_smoke.json``, then the card's name and power
-limit, a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line. Without a CUDA device, or outside a checkout of the repository, it
-exits non-zero and prints no result.
+Output: the per-shape kernel tables and the path numbers on stdout, a JSON
+copy in ``build/chip_smoke.json``, then the card's name and power limit, a
+``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
+Without a CUDA device, or outside a checkout of the repository, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -49,29 +61,52 @@ ROOT = Path(__file__).resolve().parent
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES_S = 3.35e12
 
-# K1 call shapes on the flagship serving path, per image:
-# (site, tokens T, din, dout, activation dtype on the main path, calls)
+# K1 call shapes per image: (site, tokens T, din, dout, activation dtype on
+# the main path, calls per served image, calls per ES image). On the ES path
+# the 164 LoRA-adapted DiT sites run K3 instead, and the reward towers'
+# image sides run K1.
 K1_SHAPES = [
-    ("time/guidance linear_1", 1, 256, 2240, "float32", 2),
-    ("time/guidance linear_2", 1, 2240, 2240, "float32", 2),
+    ("time/guidance linear_1", 1, 256, 2240, "float32", 2, 2),
+    ("time/guidance linear_2", 1, 2240, 2240, "float32", 2, 2),
+    ("time_embed/linear", 1, 2240, 13440, "float32", 1, 0),
+    ("caption_proj/linear_1", 32, 2304, 2240, "bfloat16", 1, 0),
+    ("caption_proj/linear_2 + attn2 k,v", 32, 2240, 2240, "bfloat16", 1 + 40, 0),
+    ("attn1 q,k,v,out + attn2 q,out", 1024, 2240, 2240, "bfloat16", 120, 0),
+    ("ff conv_inverted", 1024, 2240, 11200, "bfloat16", 20, 20),
+    ("ff conv_point", 1024, 5600, 2240, "bfloat16", 20, 20),
+    ("patch_embed", 1024, 32, 2240, "bfloat16", 1, 1),
+    ("proj_out", 1024, 2240, 32, "bfloat16", 1, 0),
+    ("dcae s0 qkv", 1024, 1024, 3072, "bfloat16", 2, 2),
+    ("dcae s0 proj", 1024, 1024, 1024, "bfloat16", 2, 2),
+    ("dcae s0 conv_inverted", 1024, 1024, 4096, "bfloat16", 2, 2),
+    ("dcae s0 conv_point", 1024, 2048, 1024, "bfloat16", 2, 2),
+    ("dcae s1 qkv", 4096, 1024, 3072, "bfloat16", 2, 2),
+    ("dcae s1 proj", 4096, 1024, 1024, "bfloat16", 2, 2),
+    ("dcae s1 conv_inverted", 4096, 1024, 4096, "bfloat16", 2, 2),
+    ("dcae s1 conv_point", 4096, 2048, 1024, "bfloat16", 2, 2),
+    ("clip-b patch_embed", 49, 3072, 768, "bfloat16", 0, 1),
+    ("clip-b q,k,v,out", 50, 768, 768, "bfloat16", 0, 48),
+    ("clip-b fc1", 50, 768, 3072, "bfloat16", 0, 12),
+    ("clip-b fc2", 50, 3072, 768, "bfloat16", 0, 12),
+    ("clip-b visual_projection", 1, 768, 512, "bfloat16", 0, 1),
+    ("clip-h patch_embed", 256, 588, 1280, "bfloat16", 0, 1),
+    ("clip-h q,k,v,out", 257, 1280, 1280, "bfloat16", 0, 128),
+    ("clip-h fc1", 257, 1280, 5120, "bfloat16", 0, 32),
+    ("clip-h fc2", 257, 5120, 1280, "bfloat16", 0, 32),
+    ("clip-h visual_projection", 1, 1280, 1024, "bfloat16", 0, 1),
+]
+# The flagship's LoRA-adapted DiT sites (r_l 8, r_e 4), per ES image: K3
+# over the int8 base (the main path), K2 over a bf16 base (K2's path).
+CHAIN_SHAPES = [
     ("time_embed/linear", 1, 2240, 13440, "float32", 1),
     ("caption_proj/linear_1", 32, 2304, 2240, "bfloat16", 1),
     ("caption_proj/linear_2 + attn2 k,v", 32, 2240, 2240, "bfloat16", 1 + 40),
     ("attn1 q,k,v,out + attn2 q,out", 1024, 2240, 2240, "bfloat16", 120),
-    ("ff conv_inverted", 1024, 2240, 11200, "bfloat16", 20),
-    ("ff conv_point", 1024, 5600, 2240, "bfloat16", 20),
-    ("patch_embed", 1024, 32, 2240, "bfloat16", 1),
     ("proj_out", 1024, 2240, 32, "bfloat16", 1),
-    ("dcae s0 qkv", 1024, 1024, 3072, "bfloat16", 2),
-    ("dcae s0 proj", 1024, 1024, 1024, "bfloat16", 2),
-    ("dcae s0 conv_inverted", 1024, 1024, 4096, "bfloat16", 2),
-    ("dcae s0 conv_point", 1024, 2048, 1024, "bfloat16", 2),
-    ("dcae s1 qkv", 4096, 1024, 3072, "bfloat16", 2),
-    ("dcae s1 proj", 4096, 1024, 1024, "bfloat16", 2),
-    ("dcae s1 conv_inverted", 4096, 1024, 4096, "bfloat16", 2),
-    ("dcae s1 conv_point", 4096, 2048, 1024, "bfloat16", 2),
 ]
+R_L, R_E, LORA_SCALE = 8, 4, 2.0
 N_REQUESTS = 4
+TIMED_EPOCHS = 2
 
 
 def log(msg: str) -> None:
@@ -95,25 +130,43 @@ def time_ms(torch, fns, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(dt_name: str, flop: float, nbytes: float):
+    t_ops = flop / PEAK_FLOPS[dt_name] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_close(name, out, ref, dt_name, torch):
+    """bf16 within 2⁻⁷ of the largest output, f32 within 1e-5 of it."""
+    ref = ref.float()
+    err = float((out.float() - ref).abs().max())
+    ref_max = float(ref.abs().max())
+    tol = (2 ** -7 if dt_name == "bfloat16" else 1e-5) * ref_max
+    if not (err <= tol and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"{name}: max abs err {err} > {tol} (or not finite)")
+    return err, tol, ref_max
+
+
 def phase_build():
     from hyperscalees_t2i_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all(["int8_matmul"])
+    logs = _build.build_all(["int8_matmul", "lora_chain", "fused_qlora"])
     dt = time.perf_counter() - t0
     for name, text in logs.items():
-        ptxas = [l.strip() for l in text.splitlines() if "registers" in l or "smem" in l]
-        log(f"[build] {name}: built in {dt:.1f} s; {' | '.join(ptxas) or text.strip()}")
+        ptxas = sorted({l.split(":", 1)[-1].strip() for l in text.splitlines() if "registers" in l})
+        log(f"[build] {name}: {' | '.join(ptxas) or text.strip()}")
+    log(f"[build] three kernels built in {dt:.1f} s (one nvcc per source, in parallel)")
     return dt
 
 
-def phase_kernel_check(torch):
+def phase_k1_check(torch):
     from hyperscalees_t2i_tpu_torch.ops.quant_mm import int8_matmul, int8_matmul_reference
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
     rows = []
-    for site, T, din, dout, main_dt, calls in K1_SHAPES:
+    for site, T, din, dout, main_dt, serve_calls, es_calls in K1_SHAPES:
         for dt_name in ("bfloat16", "float32"):
             dt = getattr(torch, dt_name)
             esize = torch.tensor([], dtype=dt).element_size()
@@ -128,33 +181,99 @@ def phase_kernel_check(torch):
             x, q8, scale, _ = sets[0]
             out = int8_matmul(x, q8, scale)
             torch.cuda.synchronize()
-            ref = int8_matmul_reference(x, q8, scale).float()
-            err = float((out.float() - ref).abs().max())
-            ref_max = float(ref.abs().max())
-            tol = (2 ** -7 if dt == torch.bfloat16 else 1e-5) * ref_max
-            if not (err <= tol and bool(torch.isfinite(out).all())):
-                raise AssertionError(f"int8_matmul disagrees at {site} {T}x{din}x{dout} {dt_name}: "
-                                     f"max abs err {err} > {tol}")
+            err, tol, ref_max = check_close(f"int8_matmul at {site} {T}x{din}x{dout} {dt_name}",
+                                            out, int8_matmul_reference(x, q8, scale), dt_name, torch)
             reps = 20 if T * din * dout < 5e9 else 10
             ms = time_ms(torch, [lambda s=s: int8_matmul(s[0], s[1], s[2]) for s in sets], reps)
             plain = time_ms(torch, [lambda s=s: int8_matmul_reference(s[0], s[1], s[2]) for s in sets], reps)
             lib = time_ms(torch, [lambda s=s: torch.matmul(s[0], s[3]) for s in sets], reps)
             flop = 2.0 * T * din * dout
-            t_ops = flop / PEAK_FLOPS[dt_name] * 1e3
-            t_bytes = call_bytes / PEAK_BYTES_S * 1e3
+            b_ms, b_by = bound(dt_name, flop, call_bytes)
+            main = dt_name == main_dt
             rows.append(dict(
-                site=site, T=T, din=din, dout=dout, dtype=dt_name, main_path=dt_name == main_dt,
-                calls_per_image=calls if dt_name == main_dt else 0,
+                site=site, T=T, din=din, dout=dout, dtype=dt_name, main_path=main,
+                calls_per_image=serve_calls if main else 0, calls_per_es_image=es_calls if main else 0,
                 max_abs_err=err, tol=tol, ref_max=ref_max, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-                tflops=flop / ms / 1e9,
+                bound_ms=b_ms, bound_by=b_by, tflops=flop / ms / 1e9,
             ))
-            r = rows[-1]
-            log(f"[k1] {site:34s} T={T:5d} {din:5d}x{dout:5d} {dt_name:8s} "
-                f"{'main' if r['main_path'] else '    '} err={err:.3g} rel={err / ref_max:.3g} (tol {tol:.3g}) "
-                f"ms={ms:.4f} plain={plain:.4f} library={lib:.4f} bound={r['bound_ms']:.4f} "
-                f"({r['bound_by']}) {r['tflops']:.1f} TFLOP/s")
-            del sets, x, q8, scale, out, ref
+            log(f"[k1] {site:34s} T={T:5d} {din:5d}x{dout:5d} {dt_name:8s} {'main' if main else '    '} "
+                f"err={err:.3g} rel={err / ref_max:.3g} ms={ms:.4f} plain={plain:.4f} library={lib:.4f} "
+                f"bound={b_ms:.4f} ({b_by}) {flop / ms / 1e9:.1f} TFLOP/s")
+            del sets, x, q8, scale, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _factor(torch, g, m, n, ndt):
+    from hyperscalees_t2i_tpu_torch.lora import FactoredDelta
+
+    return FactoredDelta(torch.randn(m, n, generator=g, device="cuda") / math.sqrt(m),
+                         torch.randn(m, R_E, generator=g, device="cuda").to(ndt),
+                         torch.randn(n, R_E, generator=g, device="cuda").to(ndt),
+                         torch.full((), 0.01 / math.sqrt(R_E), device="cuda"))
+
+
+def phase_chain_check(torch):
+    """K2 and K3 at the flagship's adapted-site shapes: error against the
+    plain version, kernel / plain / library ms, and the bound."""
+    from hyperscalees_t2i_tpu_torch.lora import effective_factor
+    from hyperscalees_t2i_tpu_torch.ops.fused_lora import member_lora_delta, member_lora_delta_reference
+    from hyperscalees_t2i_tpu_torch.ops.fused_qlora import fused_qlora_matmul, fused_qlora_reference
+
+    g = torch.Generator(device="cuda").manual_seed(4321)
+    rows = {"lora_chain": [], "fused_qlora": []}
+    for site, T, din, dout, main_dt, calls in CHAIN_SHAPES:
+        for dt_name in ("bfloat16", "float32"):
+            main = dt_name == main_dt
+            dt = getattr(torch, dt_name)
+            ndt = torch.bfloat16 if main else torch.float32  # the main path stores noise bf16
+            esize, nsize = dt.itemsize, ndt.itemsize
+            fac_bytes = 4 * (din * R_L + R_L * dout) + nsize * (din + 2 * R_L + dout) * R_E + 8
+            chain_flop = 2.0 * T * ((din + dout) * (R_L + R_E) + 2 * R_L * R_E)
+            call_bytes = (T * din + T * dout) * esize + din * dout + fac_bytes
+            sets = []
+            for _ in range(max(1, min(8, math.ceil(100e6 / call_bytes)))):  # as for K1: beyond L2
+                x = torch.randn(T, din, generator=g, device="cuda").to(dt)
+                a, b = _factor(torch, g, din, R_L, ndt), _factor(torch, g, R_L, dout, ndt)
+                q8 = torch.randint(-127, 128, (din, dout), generator=g, device="cuda", dtype=torch.int8)
+                scale = torch.rand(1, dout, generator=g, device="cuda") * (2.0 / (127 * math.sqrt(din)))
+                sets.append(dict(x=x, a=a, b=b, q8=q8, scale=scale, w=(q8.float() * scale).to(dt),
+                                 ak=effective_factor(a, dt), bk=effective_factor(b, dt)))
+            for name, kernel, plain, lib, flop, nbytes in (
+                ("lora_chain",
+                 lambda s: member_lora_delta(s["x"], s["a"], s["b"], LORA_SCALE),
+                 lambda s: member_lora_delta_reference(s["x"], s["a"], s["b"], LORA_SCALE),
+                 lambda s: torch.matmul(torch.matmul(s["x"], s["ak"]), s["bk"]) * LORA_SCALE,
+                 chain_flop, (T * din + T * dout) * esize + fac_bytes),
+                ("fused_qlora",
+                 lambda s: fused_qlora_matmul(s["x"], s["q8"], s["scale"], s["a"], s["b"], LORA_SCALE),
+                 lambda s: fused_qlora_reference(s["x"], s["q8"], s["scale"], s["a"], s["b"], LORA_SCALE),
+                 lambda s: torch.addmm(torch.matmul(s["x"], s["w"]), torch.matmul(s["x"], s["ak"]), s["bk"],
+                                       alpha=LORA_SCALE),
+                 chain_flop + 2.0 * T * din * dout,
+                 (T * din + T * dout) * esize + din * dout + 4 * dout + fac_bytes),
+            ):
+                s0 = sets[0]
+                out = kernel(s0)
+                torch.cuda.synchronize()
+                err, tol, ref_max = check_close(f"{name} at {site} {T}x{din}x{dout} {dt_name}",
+                                                out, plain(s0), dt_name, torch)
+                reps = 20 if T * din * dout < 5e9 else 10
+                ms = time_ms(torch, [lambda s=s: kernel(s) for s in sets], reps)
+                plain_ms = time_ms(torch, [lambda s=s: plain(s) for s in sets], reps)
+                lib_ms = time_ms(torch, [lambda s=s: lib(s) for s in sets], reps)
+                b_ms, b_by = bound(dt_name, flop, nbytes)
+                rows[name].append(dict(
+                    site=site, T=T, din=din, dout=dout, dtype=dt_name, noise_dtype=str(ndt).split(".")[-1],
+                    main_path=main, calls_per_image=calls if main else 0, max_abs_err=err, tol=tol,
+                    ref_max=ref_max, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                    tflops=flop / ms / 1e9,
+                ))
+                log(f"[{'k2' if name == 'lora_chain' else 'k3'}] {site:34s} T={T:5d} {din:5d}x{dout:5d} "
+                    f"{dt_name:8s} {'main' if main else '    '} err={err:.3g} rel={err / ref_max:.3g} "
+                    f"ms={ms:.4f} plain={plain_ms:.4f} library={lib_ms:.4f} bound={b_ms:.4f} ({b_by}) "
+                    f"{flop / ms / 1e9:.1f} TFLOP/s")
+            del sets
     torch.cuda.empty_cache()
     return rows
 
@@ -191,16 +310,154 @@ def phase_small_reference(torch):
         with torch.inference_mode():
             outs[dev.type] = b.generate(theta, [0, 1], seed=11).float().cpu()
     err = float((outs["cuda"] - outs["cpu"]).abs().max())
-    log(f"[small] tiny rung f32 int8, card vs CPU: max abs diff {err:.3g} (tol 1e-4) "
+    log(f"[small] tiny rung served, f32 int8, card vs CPU: max abs diff {err:.3g} (tol 1e-4) "
         f"shape {tuple(outs['cuda'].shape)}")
     if not err <= 1e-4:
         raise AssertionError(f"card and CPU disagree on the tiny rung: {err}")
     return err
 
 
+def _es_parts(torch, scale, dev, trees):
+    """The ``scale`` rung's ES backend and reward suite in f32 on ``dev``
+    from shared weight trees."""
+    import dataclasses
+
+    from hyperscalees_t2i_tpu_torch.backends.sana_backend import SanaBackend
+    from hyperscalees_t2i_tpu_torch.models import clip
+    from hyperscalees_t2i_tpu_torch.rewards.suite import make_clip_reward_fn
+    from hyperscalees_t2i_tpu_torch.rungs import sana_rung_model
+    from hyperscalees_t2i_tpu_torch.utils.pytree import tree_map
+
+    spec = sana_rung_model(scale, tower_dtype="float32")
+    bcfg = dataclasses.replace(
+        spec["bcfg"], model=dataclasses.replace(spec["bcfg"].model, compute_dtype=torch.float32),
+        vae=dataclasses.replace(spec["bcfg"].vae, compute_dtype=torch.float32))
+    on = lambda t: tree_map(lambda a: a.to(dev), t)  # noqa: E731
+    backend = SanaBackend(bcfg, dev, params=on(trees["params"]), vae_params=on(trees["vae"]),
+                          prompts=trees["prompts"])
+    backend.setup()
+    reward = make_clip_reward_fn(clip.CLIPModel(spec["clip_b"], on(trees["clip"])), trees["table"].to(dev),
+                                 pick_model=clip.CLIPModel(spec["clip_h"], on(trees["pick"])),
+                                 pick_text_embeds=trees["ptable"].to(dev))
+    return backend, reward
+
+
+def phase_es_reference(torch, scale: str, int8: bool):
+    """One ES step of the ``scale`` rung in f32 (TF32 off, ``pop_fuse``) on
+    the card against the same step on the CPU: the same weights, θ, ES noise
+    and generation noise; θ′ and the step's own reward rows within 1e-4.
+    ``int8`` quantizes every kernel (min_size 0), so the adapted sites run
+    K3; a float base runs K2 there. The card's launches must be exactly the
+    counts derived from the module trees."""
+    from hyperscalees_t2i_tpu_torch.es.noiser import sample_noise
+    from hyperscalees_t2i_tpu_torch.models import clip, dcae, sana
+    from hyperscalees_t2i_tpu_torch.ops.quant import quantize_tree
+    from hyperscalees_t2i_tpu_torch.rewards.suite import clip_text_embed_table, pickscore_text_embeds
+    from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, PROMPT_TOKEN_LEN, RUNG_PLAN, sana_rung_model
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+    from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
+    from hyperscalees_t2i_tpu_torch.utils.pytree import tree_map
+
+    _, pop, m, mb = RUNG_PLAN[scale]
+    spec = sana_rung_model(scale, tower_dtype="float32")
+    g = torch.Generator().manual_seed(21)
+    prompts = BENCH_PROMPT_SET[:6]
+    cparams, pparams = clip.init_clip(spec["clip_b"], g), clip.init_clip(spec["clip_h"], g)
+    ids = torch.randint(0, spec["clip_b"].vocab_size, (len(prompts) + 2, PROMPT_TOKEN_LEN), generator=g)
+    pids = torch.randint(0, spec["clip_h"].vocab_size, (len(prompts), PROMPT_TOKEN_LEN), generator=g)
+    with torch.inference_mode():
+        table = clip_text_embed_table(clip.CLIPModel(spec["clip_b"], cparams), ids)
+        ptable = pickscore_text_embeds(clip.CLIPModel(spec["clip_h"], pparams), pids)
+    q = (lambda t: quantize_tree(t, min_size=0)) if int8 else (lambda t: t)  # noqa: E731
+    trees = dict(params=q(sana.init_sana(spec["bcfg"].model, g)), vae=q(dcae.init_decoder(spec["bcfg"].vae, g)),
+                 clip=q(cparams), pick=q(pparams), table=table, ptable=ptable, prompts=prompts)
+    tc = TrainConfig(pop_size=pop, sigma=0.01, egg_rank=4, member_batch=mb, pop_fuse=True)
+    outs = {}
+    for dev in (torch.device("cpu"), torch.device("cuda")):
+        backend, suite = _es_parts(torch, scale, dev, trees)
+        reward = RecordingReward(suite)
+        if dev.type == "cpu":
+            theta = backend.init_theta(torch.Generator().manual_seed(22))
+            theta = {k: {f: v + 0.05 * torch.randn(v.shape, generator=g) for f, v in d.items()}
+                     for k, d in theta.items()}
+            noise = sample_noise(torch.Generator().manual_seed(23), theta, pop, tc.es_config())
+            flat = backend.step_info(0, m, 1).flat_ids
+            gen_noise = torch.randn(len(flat), *backend.noise_shape, generator=g)
+        else:
+            expected, per = expected_es_launches(backend, suite, tc, len(flat))
+            torch.cuda.synchronize()
+            _reset_counters()
+        step = make_es_step(backend, reward, tc, m, 1, device=dev)
+        theta_new, metrics, _ = step(theta, flat, 0, noise=noise, gen_noise=gen_noise)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launches = _counters()
+        calls_per_chunk = len(reward.rows) // -(-pop // mb)
+        rows = reward_rows(torch, reward.rows, calls_per_chunk, len(flat) // calls_per_chunk)
+        outs[dev.type] = (tree_map(lambda a: a.float().cpu(), theta_new), rows.float().cpu())
+        del backend, suite, reward, step
+    th_err = max(float((outs["cuda"][0][k][f] - outs["cpu"][0][k][f]).abs().max())
+                 for k in outs["cpu"][0] for f in outs["cpu"][0][k])
+    row_err = float((outs["cuda"][1] - outs["cpu"][1]).abs().max())
+    base = "int8" if int8 else "float"
+    log(f"[es-{scale}] {scale} ES step f32 {base} base pop_fuse, card vs CPU: θ′ max abs diff {th_err:.3g}, "
+        f"reward rows {tuple(outs['cuda'][1].shape)} max abs diff {row_err:.3g} (tol 1e-4); "
+        f"launches {launches} expected {expected}")
+    if tuple(outs["cuda"][1].shape) != (pop, len(flat)):
+        raise AssertionError(f"{scale} reward rows {tuple(outs['cuda'][1].shape)} are not [{pop}, {len(flat)}]")
+    if not (th_err <= 1e-4 and row_err <= 1e-4):
+        raise AssertionError(f"card and CPU disagree on the {scale} ES step: θ′ {th_err}, rows {row_err}")
+    kernel = "fused_qlora" if int8 else "lora_chain"
+    if launches != expected or launches[kernel] == 0:
+        raise AssertionError(f"{scale} ES step launched {launches}, expected {expected}")
+    torch.cuda.empty_cache()
+    return {"base": base, "theta_max_abs": th_err, "rows_max_abs": row_err, "launches": launches,
+            "expected": expected, "per_call": per}
+
+
+def _reset_counters():
+    from hyperscalees_t2i_tpu_torch.ops.fused_lora import member_lora_delta
+    from hyperscalees_t2i_tpu_torch.ops.fused_qlora import fused_qlora_matmul
+    from hyperscalees_t2i_tpu_torch.ops.quant_mm import int8_matmul
+
+    int8_matmul.launches = member_lora_delta.launches = fused_qlora_matmul.launches = 0
+
+
+def _counters():
+    from hyperscalees_t2i_tpu_torch.ops.fused_lora import member_lora_delta
+    from hyperscalees_t2i_tpu_torch.ops.fused_qlora import fused_qlora_matmul
+    from hyperscalees_t2i_tpu_torch.ops.quant_mm import int8_matmul
+
+    return {"int8_matmul": int8_matmul.launches, "lora_chain": member_lora_delta.launches,
+            "fused_qlora": fused_qlora_matmul.launches}
+
+
+def expected_es_launches(backend, reward, tc, batch: int):
+    """Kernel launches of one ES step, derived from the module trees: every
+    generate → decode → reward call (one per member chunk and image tile)
+    launches, per LoRA-read DiT site, K3 (int8 node) or K2 (float node),
+    and K1 at every other int8 matmul site of the DiT, the decoder and the
+    reward towers' image sides (their text sides ran once, at build)."""
+    from hyperscalees_t2i_tpu_torch.parallel.pop_eval import effective_reward_tile
+
+    adapted = backend.model.lora_sites()
+    modules = dict(backend.model.named_modules())
+    k3 = sum(1 for n in adapted if hasattr(modules[n], "q8"))
+    k2 = len(adapted) - k3
+    k1 = sum(1 for n, m in modules.items() if hasattr(m, "q8") and n not in adapted)
+    k1 += sum(1 for m in backend.vae.modules() if hasattr(m, "q8"))
+    for tower in (reward.clip_model, reward.pick_model):
+        if tower is not None:
+            image_side = [tower.patch_embed, tower.vision, tower.visual_projection]
+            k1 += sum(1 for part in image_side for m in part.modules() if hasattr(m, "q8"))
+    calls = -(-tc.pop_size // tc.member_batch) * (batch // (effective_reward_tile(batch, tc.reward_tile) or batch))
+    return ({"int8_matmul": k1 * calls, "lora_chain": k2 * calls, "fused_qlora": k3 * calls},
+            {"k1_per_call": k1, "k2_per_call": k2, "k3_per_call": k3, "calls": calls})
+
+
 def stage_breakdown(torch, backend, theta, reps: int = 3):
-    """Device time of one image's two stages, DiT + one-step sampler and
-    DC-AE decode, by CUDA events around each (mean of ``reps`` warm runs)."""
+    """Device time of one served image's two stages, DiT + one-step sampler
+    and DC-AE decode, by CUDA events around each (mean of ``reps`` warm runs)."""
     from hyperscalees_t2i_tpu_torch.models import dcae, sana
 
     cfg = backend.cfg
@@ -228,7 +485,6 @@ def stage_breakdown(torch, backend, theta, reps: int = 3):
 
 def phase_serve(torch):
     from hyperscalees_t2i_tpu_torch.backends.sana_backend import build_serve_backend
-    from hyperscalees_t2i_tpu_torch.ops.quant_mm import int8_matmul
     from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, RUNG_BASE_QUANT, SERVE_PLAN, sana_rung_model
     from hyperscalees_t2i_tpu_torch.serve import ServeConfig, ServeEngine
 
@@ -253,18 +509,18 @@ def phase_serve(torch):
         f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
     torch.cuda.synchronize()
-    int8_matmul.launches = 0
+    _reset_counters()
     t0 = time.perf_counter()
     reqs = [eng.submit(f"tenant{i % 2}", [i // 2], seed=i // 2) for i in range(N_REQUESTS)]
     results = eng.flush()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"int8_matmul": int8_matmul.launches}
+    launches = _counters()
 
     images_per_req = plan["images_per_request"]
-    expected = len(routed) * N_REQUESTS * images_per_req
-    if launches["int8_matmul"] != expected:
-        raise AssertionError(f"int8_matmul launched {launches['int8_matmul']} times, expected {expected}")
+    expected = {"int8_matmul": len(routed) * N_REQUESTS * images_per_req, "lora_chain": 0, "fused_qlora": 0}
+    if launches != expected:
+        raise AssertionError(f"serving launched {launches}, expected {expected}")
     if [r.request.request_id for r in results] != [r.request_id for r in reqs] or not all(r.ok for r in results):
         raise AssertionError("not every request was served")
     for r in results:
@@ -293,27 +549,194 @@ def phase_serve(torch):
     )
     log(f"[serve] {N_REQUESTS} requests in {wall:.3f} s = {stats['images_per_s']:.3f} images/s; "
         f"per-batch latency {', '.join(f'{s:.3f}' for s in stats['batch_latency_s'])} s; "
-        f"solo {stats['solo_latency_s']:.3f} s; int8_matmul launches {launches['int8_matmul']} "
-        f"(expected {expected}); batched vs solo max abs {solo_diff:.3g}; tenants differ by {tenant_diff:.3g}")
+        f"solo {stats['solo_latency_s']:.3f} s; launches {launches} (expected {expected}); "
+        f"batched vs solo max abs {solo_diff:.3g}; tenants differ by {tenant_diff:.3g}")
+    del eng, backend
+    torch.cuda.empty_cache()
     return stats
 
 
-def kernel_summary(rows, launches):
+def reward_rows(torch, calls, calls_per_chunk: int, tile: int):
+    """``[pop, B]`` rows from the reward calls of one step, in call order:
+    each member chunk makes ``calls_per_chunk`` calls, one per image tile,
+    each of ``[lanes · tile]`` rewards, lane-major."""
+    chunks = []
+    for i in range(0, len(calls), calls_per_chunk):
+        tiles = calls[i:i + calls_per_chunk]
+        chunks.append(torch.cat([t.reshape(t.numel() // tile, tile) for t in tiles], dim=1))
+    return torch.cat(chunks)
+
+
+class RecordingReward:
+    """The reward suite, keeping each call's ``combined`` row (the step's
+    ``[pop, B]`` rows, in call order)."""
+
+    def __init__(self, suite):
+        self.suite, self.rows = suite, []
+
+    def __call__(self, images, prompt_ids):
+        out = self.suite(images, prompt_ids)
+        self.rows.append(out["combined"])
+        return out
+
+
+def es_stage_breakdown(torch, backend, reward, theta, noise, tc, tag: str, reps: int = 2):
+    """One member's work on one image. Stage times by CUDA events (the
+    stream's time from the first to the last launch of a stage, gaps
+    included; mean of ``reps`` warm runs): generation (DiT + sampler with
+    the member's factored adapter), DC-AE decode, and the reward (resize +
+    both towers). Then one run under ``torch.profiler``: device time per
+    kernel name, and the busy time of the device; the idle share is one
+    minus that busy time over the unprofiled stages' total."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperscalees_t2i_tpu_torch.es.noiser import factored_member_theta
+    from hyperscalees_t2i_tpu_torch.models import dcae, sana
+
+    cfg = backend.cfg
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    acc = [0.0, 0.0, 0.0]
+    lat_noise = torch.randn(1, *backend.noise_shape, device="cuda")
+
+    def one():
+        ev[0].record()
+        lat = sana.one_step_generate(backend.model, backend.prompt_embeds[:1], backend.prompt_mask[:1],
+                                     guidance_scale=cfg.guidance_scale,
+                                     latent_hw=(cfg.height_latent, cfg.width_latent), lora=theta_k,
+                                     lora_scale=backend.lora_scale, noise=lat_noise)
+        ev[1].record()
+        images = dcae.decode(backend.vae, lat / cfg.vae.scaling_factor)
+        ev[2].record()
+        reward(images, torch.zeros(1, dtype=torch.long, device="cuda"))
+        ev[3].record()
+        torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        theta_k = factored_member_theta(theta, noise, 0, tc.pop_size, tc.es_config())
+        for i in range(reps + 1):
+            one()
+            if i:  # the first run warms up
+                for j in range(3):
+                    acc[j] += ev[j].elapsed_time(ev[j + 1]) / reps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            one()
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    busy = sum(ms for ms, _ in kernels.values())
+    top = sorted(((ms, n, name[:100]) for name, (ms, n) in kernels.items()), reverse=True)[:12]
+    n_kernels = sum(n for _, n in kernels.values())
+    out = {"generation": acc[0], "decode": acc[1], "reward": acc[2], "device_busy_profiled": busy,
+           "idle_share": 1.0 - busy / sum(acc), "device_kernels": n_kernels,
+           "top_kernels": [dict(name=t, ms=m, launches=n) for m, n, t in top]}
+    log(f"[{tag}] one member, one image, device time: generation {acc[0]:.2f} ms, decode {acc[1]:.2f} ms, "
+        f"reward {acc[2]:.2f} ms; {n_kernels} kernels busy {busy:.2f} ms (profiled) = idle share "
+        f"{out['idle_share']:.3f}")
+    for m, n, t in top:
+        log(f"[{tag}]   {m:9.3f} ms {n:5d} launches  {t}")
+    return out
+
+
+def phase_es_flagship(torch, base_quant=None):
+    """The flagship ES epoch step: with the rung's int8 base (the main
+    path: K3 at the adapted sites, K1 elsewhere) or, ``base_quant="off"``,
+    a bf16 base (K2's path: K2 at the adapted sites, no int8 site)."""
+    from hyperscalees_t2i_tpu_torch.backends.sana_backend import build_train_backend
+    from hyperscalees_t2i_tpu_torch.es.noiser import sample_noise
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+    from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
+
+    _, pop, m, mb = RUNG_PLAN["flagship"]
+    opt = rung_opt("flagship")
+    if base_quant is not None:
+        opt["base_quant"] = base_quant
+    tag = "es" if opt["base_quant"] == "int8" else f"es-{opt['base_quant']}"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    backend, suite = build_train_backend("flagship", device="cuda", base_quant=opt["base_quant"], seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reward = RecordingReward(suite)
+    tc = TrainConfig(pop_size=pop, sigma=0.01, egg_rank=4, member_batch=mb, promptnorm=True,
+                     reward_tile=opt["reward_tile"], noise_dtype=opt["noise_dtype"], pop_fuse=opt["pop_fuse"])
+    info = backend.step_info(0, m, 1)
+    B = len(info.flat_ids)
+    expected1, per = expected_es_launches(backend, suite, tc, B)
+    step = make_es_step(backend, reward, tc, len(info.unique_ids), 1, device="cuda", stateful_delta=True)
+    theta = backend.init_theta(torch.Generator().manual_seed(1))  # a fresh run's θ: b = 0
+    delta = {k: {f: torch.zeros_like(t) for f, t in d.items()} for k, d in theta.items()}
+    log(f"[{tag}] flagship ES backend ({opt['base_quant']} base) built in {build_s:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; per generate→reward call: "
+        f"K3 {per['k3_per_call']}, K1 {per['k1_per_call']}, K2 {per['k2_per_call']}; {per['calls']} calls per epoch")
+
+    t0 = time.perf_counter()
+    theta, delta, metrics, opt_scores = step(theta, delta, info.flat_ids, 100)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    reward.rows.clear()
+
+    torch.cuda.synchronize()
+    _reset_counters()
+    epoch_s = []
+    for e in range(TIMED_EPOCHS):
+        reward.rows.clear()
+        t0 = time.perf_counter()
+        theta, delta, metrics, opt_scores = step(theta, delta, info.flat_ids, 101 + e)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+    launches = _counters()
+    expected = {k: v * TIMED_EPOCHS for k, v in expected1.items()}
+    if launches != expected:
+        raise AssertionError(f"flagship ES epoch ({opt['base_quant']} base) launched {launches}, expected {expected}")
+    calls_per_chunk = per["calls"] // -(-pop // mb)
+    rows = reward_rows(torch, reward.rows, calls_per_chunk, B // calls_per_chunk)
+    if tuple(rows.shape) != (pop, B) or not bool(torch.isfinite(rows).all()):
+        raise AssertionError(f"reward rows {tuple(rows.shape)} not [{pop}, {B}] and finite")
+    if not all(bool(torch.isfinite(t).all()) for d in theta.values() for t in d.values()):
+        raise AssertionError("θ′ not finite")
+    delta_norm = float(metrics["delta_norm"])
+    if not delta_norm > 0:
+        raise AssertionError(f"the update is zero (delta_norm {delta_norm})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    noise = sample_noise(torch.Generator(device="cuda").manual_seed(5), theta, pop, tc.es_config())
+    breakdown = es_stage_breakdown(torch, backend, suite, theta, noise, tc, tag)
+    stats = dict(
+        plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s, warmup_epoch_s=warm_s,
+        epoch_s=epoch_s, images_per_epoch=pop * B, images_per_s=[pop * B / s for s in epoch_s],
+        peak_mem_gib=peak, launches=launches, expected_launches=expected, per_call=per,
+        reward_rows=rows.float().cpu().tolist(), opt_scores=[float(s) for s in opt_scores],
+        delta_norm=delta_norm, theta_norm=float(metrics["theta_norm"]),
+        member_breakdown_ms=breakdown,
+        metrics={k: (float(v) if v.numel() == 1 else v.float().cpu().tolist()) for k, v in metrics.items()},
+    )
+    log(f"[{tag}] flagship epochs {', '.join(f'{s:.3f}' for s in epoch_s)} s (warm-up {warm_s:.3f} s) = "
+        f"{', '.join(f'{x:.3f}' for x in stats['images_per_s'])} images/s; peak device memory {peak:.2f} GiB; "
+        f"launches {launches} (expected {expected}); reward rows {tuple(rows.shape)}; "
+        f"delta_norm {delta_norm:.4g}, theta_norm {stats['theta_norm']:.4g}")
+    del backend, suite, reward, step
+    torch.cuda.empty_cache()
+    return stats
+
+
+def kernel_summary(name, rows, launches, calls_key, replaces, scope):
     """One entry per kernel: its calls for one flagship image, summed."""
-    main = [r for r in rows if r["main_path"]]
-    total = lambda key: sum(r[key] * r["calls_per_image"] for r in main)  # noqa: E731
-    ops_ms = sum(r["bound_ms"] * r["calls_per_image"] for r in main if r["bound_by"] == "operations")
-    bytes_ms = sum(r["bound_ms"] * r["calls_per_image"] for r in main if r["bound_by"] == "bytes")
+    main = [r for r in rows if r["main_path"] and r[calls_key]]
+    total = lambda key: sum(r[key] * r[calls_key] for r in main)  # noqa: E731
+    ops_ms = sum(r["bound_ms"] * r[calls_key] for r in main if r["bound_by"] == "operations")
+    bytes_ms = sum(r["bound_ms"] * r[calls_key] for r in main if r["bound_by"] == "bytes")
     return {
-        "name": "int8_matmul", "route": "cuda",
-        "source": "hyperscalees_t2i_tpu_torch/csrc/int8_matmul.cu",
-        "replaces": "hyperscalees_t2i_tpu/ops/quant_mm.py:86",
-        "launches": launches["int8_matmul"],
+        "name": name, "route": "cuda",
+        "source": f"hyperscalees_t2i_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in main),
         "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": total("library_ms"),
-        "scope": f"one flagship image's {sum(r['calls_per_image'] for r in main)} calls",
+        "scope": f"{scope}: {sum(r[calls_key] for r in main)} calls",
     }
 
 
@@ -336,26 +759,52 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     log(f"[card] {torch.cuda.get_device_name(0)}; torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
+    t_start = time.perf_counter()
     build_s = phase_build()
-    rows = phase_kernel_check(torch)
+    k1_rows = phase_k1_check(torch)
+    chain_rows = phase_chain_check(torch)
     small_err = phase_small_reference(torch)
+    es_tiny = phase_es_reference(torch, "tiny", int8=True)
+    es_small = phase_es_reference(torch, "small", int8=False)
+    es_float = phase_es_flagship(torch, base_quant="off")
     serve = phase_serve(torch)
-    kern = kernel_summary(rows, serve["launches"])
-    if kern["launches"] != serve["k1_calls_per_image"] * serve["images"]:
-        raise AssertionError("kernel table and launch count disagree")
+    es = phase_es_flagship(torch)
+
+    kernels = [
+        kernel_summary("int8_matmul", k1_rows, es["launches"]["int8_matmul"], "calls_per_es_image",
+                       "hyperscalees_t2i_tpu/ops/quant_mm.py:86", "one flagship ES image (DiT, DC-AE, both towers)"),
+        kernel_summary("lora_chain", chain_rows["lora_chain"], es_float["launches"]["lora_chain"],
+                       "calls_per_image", "hyperscalees_t2i_tpu/ops/fused_lora.py:80",
+                       "the LoRA deltas of one flagship ES image over a bf16 base"),
+        kernel_summary("fused_qlora", chain_rows["fused_qlora"], es["launches"]["fused_qlora"],
+                       "calls_per_image", "hyperscalees_t2i_tpu/ops/fused_qlora.py:201",
+                       "one flagship ES image's adapted sites"),
+    ]
+    k1_serve = kernel_summary("int8_matmul", k1_rows, serve["launches"]["int8_matmul"], "calls_per_image",
+                              "hyperscalees_t2i_tpu/ops/quant_mm.py:86", "one flagship served image")
+    for k, run in ((kernels[1], es_float), (kernels[2], es)):
+        if k["launches"] != sum(r["calls_per_image"] for r in chain_rows[k["name"]]) * \
+                run["images_per_epoch"] * TIMED_EPOCHS:
+            raise AssertionError(f"{k['name']} table and launch count disagree")
+    if kernels[0]["launches"] != sum(r["calls_per_es_image"] for r in k1_rows) * es["images_per_epoch"] * TIMED_EPOCHS:
+        raise AssertionError("K1 table and launch count disagree")
 
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, device=torch.cuda.get_device_name(0), torch=torch.__version__, build_s=build_s,
-        k1_shapes=rows, small_reference_max_abs=small_err, serve=serve, kernels=[kern],
+        k1_shapes=k1_rows, chain_shapes=chain_rows, small_reference_max_abs=small_err, es_tiny=es_tiny,
+        es_small=es_small, es_flagship_float=es_float, serve=serve, es_flagship=es, kernels=kernels, k1_serving=k1_serve,
+        wall_s=time.perf_counter() - t_start,
     ), indent=1))
-    log(f"[done] per-image K1 (main-path shapes): {kern['ms']:.3f} ms kernel, {kern['plain_ms']:.3f} ms plain, "
-        f"{kern['library_ms']:.3f} ms library, {kern['bound_ms']:.3f} ms bound ({kern['bound_by']})")
+    for k in kernels + [k1_serve]:
+        log(f"[done] {k['name']} ({k['scope']}): {k['ms']:.3f} ms kernel, {k['plain_ms']:.3f} ms plain, "
+            f"{k['library_ms']:.3f} ms library, {k['bound_ms']:.3f} ms bound ({k['bound_by']}); "
+            f"launches {k['launches']}")
     print(smi)
-    print(json.dumps({"kernels": [kern]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+                                             "count": 1}}))
     return 0
 
 

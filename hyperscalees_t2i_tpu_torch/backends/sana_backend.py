@@ -3,6 +3,10 @@
 Port of ``hyperscalees_t2i_tpu/backends/sana_backend.py`` (one-step mode).
 Prompt embeddings are synthesized from each prompt's ``stable_text_seed``;
 loading an encoded-prompt cache is not ported yet.
+
+:func:`build_serve_backend` builds the serving backend;
+:func:`build_train_backend` the backend and the reward suite of one ES rung,
+in the order the JAX package's ``bench.py`` builds them.
 """
 
 from __future__ import annotations
@@ -14,11 +18,12 @@ import torch
 
 from ..device import DeviceLike, generator_for, resolve_device
 from ..lora import LoRASpec, init_lora
-from ..models import dcae, sana
+from ..models import clip, dcae, sana
 from ..ops.quant import maybe_quantize_tree
-from ..rungs import PROMPT_EMBED_LEN
+from ..rungs import BENCH_PROMPT_SET, PROMPT_EMBED_LEN, PROMPT_TOKEN_LEN, rung_opt, sana_rung_model
 from ..utils.pytree import cast_floating, resolve_float_dtype, tree_map
 from ..utils.seeding import stable_text_seed
+from .base import StepInfo, default_step_info
 
 Params = Dict[str, Any]
 PROMPT_EMBED_SEED = 1234
@@ -117,26 +122,35 @@ class SanaBackend:
     def texts(self) -> List[str]:
         return self.prompts
 
+    def step_info(self, seed: int, num_unique: int, repeats: int) -> StepInfo:
+        return default_step_info(seed, self.num_items, num_unique, repeats, self.prompts)
+
+    @property
+    def noise_shape(self) -> Tuple[int, int, int]:
+        return (self.cfg.height_latent, self.cfg.width_latent, self.cfg.model.in_channels)
+
     def generate_p(
         self,
         stacked_theta: Optional[Params],
         flat_ids: Any,
-        seeds: Sequence[int],
+        seeds: Optional[Sequence[int]],
         noise: Optional[torch.Tensor] = None,
         guidance_scale: Optional[float] = None,
     ) -> torch.Tensor:
         """``[n, b]`` prompt indices with ``n`` lane-stacked adapters and ``n``
         seeds → images ``[n, b, H, W, 3]``. Image ``j`` of lane ``i`` draws its
         noise from ``(seeds[i], j)``; ``noise [n, b, h, w, C]`` replaces the
-        draw (parity tests inject the JAX package's noise)."""
+        draw (ES training shares one epoch noise across members; parity tests
+        inject the JAX package's noise). The lanes' adapter may also be one
+        ES member chunk: ``lora.FactoredDelta`` leaves, laned or not."""
         cfg = self.cfg
         ids = torch.as_tensor(flat_ids, dtype=torch.long, device=self.device)
         n, b = ids.shape
-        if len(seeds) != n:
-            raise ValueError(f"{n} lanes but {len(seeds)} seeds")
         hw = (cfg.height_latent, cfg.width_latent)
-        shape = (*hw, cfg.model.in_channels)
+        shape = self.noise_shape
         if noise is None:
+            if seeds is None or len(seeds) != n:
+                raise ValueError(f"{n} lanes need {n} seeds or explicit noise, got seeds {seeds}")
             noise = torch.cat([sana.per_image_normal(s, range(b), shape, self.device) for s in seeds])
         else:
             noise = noise.reshape(n * b, *shape)
@@ -178,3 +192,47 @@ def build_serve_backend(
     backend = SanaBackend(bcfg, dev, params=params, vae_params=vae, prompts=prompts)
     backend.setup()
     return backend
+
+
+def build_train_backend(scale: str, device: DeviceLike = None, base_quant: Optional[str] = None, seed: int = 0):
+    """The generator backend and the reward suite of one ES rung, built as
+    the JAX package's ``bench.py`` builds them over ``BENCH_PROMPT_SET``:
+    random weights from ``seed`` on the device, float leaves cast to bf16;
+    the CLIP text tables from random token ids (``PROMPT_TOKEN_LEN``
+    tokens; the towers run in the rung's ``tower_dtype``) while the towers
+    are still float; then the ``base_quant`` knob on the DiT, the DC-AE
+    decoder and both CLIP trees. ``base_quant`` defaults to the rung's
+    ``RUNG_OPT``; ``"off"`` keeps a float base, whose adapted sites run K2
+    instead of K3. Returns ``(backend, reward_fn)``."""
+    from ..rewards.suite import clip_text_embed_table, make_clip_reward_fn, pickscore_text_embeds
+
+    opt = rung_opt(scale)
+    base_quant = opt["base_quant"] if base_quant is None else base_quant
+    dev = resolve_device(device)
+    spec = sana_rung_model(scale, tower_dtype=opt["tower_dtype"])
+    bcfg, clip_b, clip_h = spec["bcfg"], spec["clip_b"], spec["clip_h"]
+    dtype = torch.bfloat16
+    prompts = list(BENCH_PROMPT_SET)
+    M = len(prompts)
+
+    params = cast_floating(sana.init_sana(bcfg.model, generator_for(dev, seed)), dtype)
+    vae = cast_floating(dcae.init_decoder(bcfg.vae, generator_for(dev, seed + 1)), dtype)
+    g = generator_for(dev, seed + 2)
+    cparams = cast_floating(clip.init_clip(clip_b, g), dtype)
+    ids = torch.randint(0, clip_b.vocab_size, (M + 2, PROMPT_TOKEN_LEN), generator=g, device=dev)
+    with torch.inference_mode():
+        table = clip_text_embed_table(clip.CLIPModel(clip_b, cparams), ids)
+    pick_model = ptable = None
+    if clip_h is not None:
+        pparams = cast_floating(clip.init_clip(clip_h, g), dtype)
+        pids = torch.randint(0, clip_h.vocab_size, (M, PROMPT_TOKEN_LEN), generator=g, device=dev)
+        with torch.inference_mode():
+            ptable = pickscore_text_embeds(clip.CLIPModel(clip_h, pparams), pids)
+        pick_model = clip.CLIPModel(clip_h, maybe_quantize_tree(pparams, base_quant))
+        del pparams
+    clip_model = clip.CLIPModel(clip_b, maybe_quantize_tree(cparams, base_quant))
+    backend = SanaBackend(bcfg, dev, params=maybe_quantize_tree(params, base_quant),
+                          vae_params=maybe_quantize_tree(vae, base_quant), prompts=prompts)
+    del params, vae, cparams
+    backend.setup()
+    return backend, make_clip_reward_fn(clip_model, table, pick_model=pick_model, pick_text_embeds=ptable)

@@ -1,5 +1,29 @@
-"""ES member-axis helpers (serving part so far)."""
+"""EGGROLL-ES: noise, member perturbations, update, fitness shaping, caps,
+prompt sampling."""
 
-from .noiser import lane_slice, stacked_adapter_theta
+from .caps import cap_step_norm, cap_theta_norm, global_norm
+from .noiser import (
+    DenseNoise,
+    EggRollConfig,
+    LowRankNoise,
+    base_pop_size,
+    es_update,
+    factored_member_theta,
+    fitness_coeffs,
+    lane_slice,
+    materialize_member_eps,
+    member_signs_and_bases,
+    perturb_member,
+    sample_noise,
+    stacked_adapter_theta,
+)
+from .sampling import epoch_seed, mix_seed, repeat_batches, sample_indices_unique
+from .scoring import prompt_normalized_scores, standardize_fitness, standardize_fitness_masked
 
-__all__ = ["lane_slice", "stacked_adapter_theta"]
+__all__ = [
+    "DenseNoise", "EggRollConfig", "LowRankNoise", "base_pop_size", "cap_step_norm", "cap_theta_norm",
+    "epoch_seed", "es_update", "factored_member_theta", "fitness_coeffs", "global_norm", "lane_slice",
+    "materialize_member_eps", "member_signs_and_bases", "mix_seed", "perturb_member",
+    "prompt_normalized_scores", "repeat_batches", "sample_indices_unique", "sample_noise",
+    "stacked_adapter_theta", "standardize_fitness", "standardize_fitness_masked",
+]

@@ -1,16 +1,220 @@
-"""Member-axis slicing of stacked adapter trees (the serving part of
-``hyperscalees_t2i_tpu/es/noiser.py``; the ES noise and update come with the
-training slice)."""
+"""EGGROLL low-rank ES noise, member perturbations and the update.
+
+Port of ``hyperscalees_t2i_tpu/es/noiser.py``. θ is the flat LoRA adapter
+dict ``{path: {"a", "b"}}``; its noise is a tree of the same structure whose
+leaves are :class:`LowRankNoise` (2D ``[m, n]`` leaves: ``U [base, m, r]``,
+``V [base, n, r]``; stacked 3D ``[L, m, n]`` leaves: ``U [base, L, m, r]``)
+or :class:`DenseNoise` (any other rank: ``E [base, *shape]``). Member ``k``
+uses base sample ``b_k`` with sign ``s_k`` (antithetic layout
+``[e_0..e_{h-1}, −e_0..−e_{h-1}, (+e_h if odd)]``), and
+``ε_k = s_k·U_b V_bᵀ/√r``. The update contracts the fitness into the
+factors, so no ``[pop, D]`` matrix ever exists.
+
+Draws come from an explicit ``torch.Generator``: they are not
+``jax.random``'s numbers, so the tests hand the JAX package's draws to the
+port (``weights.from_jax.tree_from_numpy``). Every contraction upcasts the
+(possibly bf16) noise store to f32.
+
+The pod-sharded update (``es_partial_delta``/``apply_es_delta``) comes with
+multi-GPU training.
+"""
 
 from __future__ import annotations
 
-from typing import Any, Union
+import dataclasses
+import math
+from typing import Any, List, NamedTuple, Tuple, Union
 
+import numpy as np
 import torch
 
-from ..utils.pytree import tree_leaves, tree_map
+from ..utils.pytree import resolve_float_dtype, tree_leaves, tree_leaves_with_path, tree_map, tree_replace_leaves
 
 Index = Union[int, slice]
+
+
+@dataclasses.dataclass(frozen=True)
+class EggRollConfig:
+    """Static ES hyperparameters. ``lr = lr_scale·σ`` (the reference code's
+    behaviour, which the JAX package reproduces)."""
+
+    sigma: float = 0.01
+    lr_scale: float = 1.0
+    rank: int = 1
+    antithetic: bool = True
+    noise_dtype: str = "float32"
+
+    def __post_init__(self) -> None:
+        resolve_float_dtype(self.noise_dtype)
+
+    @property
+    def lr(self) -> float:
+        return self.lr_scale * self.sigma
+
+    @property
+    def noise_torch_dtype(self) -> torch.dtype:
+        return resolve_float_dtype(self.noise_dtype)
+
+
+class LowRankNoise(NamedTuple):
+    """Factored noise of one 2D or stacked-3D leaf: ``ε_b = U[b] @ V[b]ᵀ/√r``."""
+
+    U: torch.Tensor  # [base, (L,) m, r]
+    V: torch.Tensor  # [base, (L,) n, r]
+
+
+class DenseNoise(NamedTuple):
+    """Dense noise of one leaf of any other rank: ``ε_b = E[b]``."""
+
+    E: torch.Tensor  # [base, *leaf.shape]
+
+
+def _is_noise(x: Any) -> bool:
+    return isinstance(x, (LowRankNoise, DenseNoise))
+
+
+def base_pop_size(pop_size: int, antithetic: bool) -> int:
+    """Independently drawn base samples: ``⌈pop/2⌉`` antithetic, else pop."""
+    if not antithetic:
+        return pop_size
+    return pop_size // 2 + pop_size % 2
+
+
+def member_signs_and_bases(pop_size: int, antithetic: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """Member ``k`` → (sign ``s_k``, base sample ``b_k``), in the layout
+    ``[e_0..e_{h-1}, −e_0..−e_{h-1}, (+e_h if odd)]``."""
+    if not antithetic:
+        return np.ones(pop_size, np.float32), np.arange(pop_size, dtype=np.int64)
+    half = pop_size // 2
+    signs = np.ones(pop_size, np.float32)
+    signs[half:2 * half] = -1.0
+    bases = np.concatenate([np.arange(half), np.arange(half), np.full(pop_size % 2, half)]).astype(np.int64)
+    return signs, bases
+
+
+def sample_noise(generator: torch.Generator, theta: Any, pop_size: int, cfg: EggRollConfig) -> Any:
+    """Factored population noise for ``theta``: f32 standard normals from
+    ``generator`` (on its device), leaf by leaf in flattening order (``U``
+    then ``V``), cast to the store dtype."""
+    base = base_pop_size(pop_size, cfg.antithetic)
+    dev, ndt = generator.device, cfg.noise_torch_dtype
+
+    def draw(shape):
+        return torch.randn(shape, generator=generator, device=dev, dtype=torch.float32).to(ndt)
+
+    def one(leaf: torch.Tensor):
+        if leaf.ndim in (2, 3):
+            *stack, m, n = leaf.shape
+            return LowRankNoise(U=draw((base, *stack, m, cfg.rank)), V=draw((base, *stack, n, cfg.rank)))
+        return DenseNoise(E=draw((base, *leaf.shape)))
+
+    return tree_map(one, theta)
+
+
+def _noise_pairs(theta: Any, noise: Any) -> List[Tuple[torch.Tensor, Any]]:
+    """``(θ leaf, noise node)`` pairs in flattening order; raises naming the
+    mismatch when ``noise`` was not sampled for a θ of this structure."""
+    t = list(tree_leaves_with_path(theta))
+    n = list(tree_leaves_with_path(noise, is_leaf=_is_noise))
+    if [p for p, _ in t] != [p for p, _ in n]:
+        raise ValueError(
+            "noise tree structure does not match theta (was the noise sampled from a "
+            f"different adapter tree?): theta {[p for p, _ in t]}, noise {[p for p, _ in n]}"
+        )
+    bad = [p for p, x in n if not _is_noise(x)]
+    if bad:
+        raise ValueError(f"noise leaves must be LowRankNoise/DenseNoise nodes; got raw leaves at {bad}")
+    return [(tl, nl) for (_, tl), (_, nl) in zip(t, n)]
+
+
+def _member(pop_size: int, cfg: EggRollConfig, k: int) -> Tuple[float, int]:
+    signs, bases = member_signs_and_bases(pop_size, cfg.antithetic)
+    return float(signs[k]), int(bases[k])
+
+
+def materialize_member_eps(theta: Any, noise: Any, k: int, pop_size: int, cfg: EggRollConfig) -> Any:
+    """Member ``k``'s full perturbation ``ε_k`` (f32), shaped like θ."""
+    s, b = _member(pop_size, cfg, k)
+    inv_sqrt_r = 1.0 / math.sqrt(cfg.rank)
+    out = []
+    for _, fac in _noise_pairs(theta, noise):
+        if isinstance(fac, LowRankNoise):
+            eps = (fac.U[b].to(torch.float32) @ fac.V[b].to(torch.float32).transpose(-1, -2)) * inv_sqrt_r
+        else:
+            eps = fac.E[b].to(torch.float32)
+        out.append(s * eps)
+    return tree_replace_leaves(theta, out)
+
+
+def perturb_member(theta: Any, noise: Any, k: int, pop_size: int, cfg: EggRollConfig) -> Any:
+    """``θ_k = θ + σ·ε_k``, materialized (cast to θ's dtype before the add)."""
+    eps = materialize_member_eps(theta, noise, k, pop_size, cfg)
+    leaves = [t + cfg.sigma * e.to(t.dtype) for t, e in zip(tree_leaves(theta), tree_leaves(eps))]
+    return tree_replace_leaves(theta, leaves)
+
+
+def factored_member_theta(theta: Any, noise: Any, k: Union[int, List[int]], pop_size: int,
+                          cfg: EggRollConfig) -> Any:
+    """Member ``k``'s adapter with the perturbation kept factored: each
+    low-rank-noised leaf becomes ``lora.FactoredDelta(w=θ leaf, u=U[b],
+    v=V[b], c=σ·s_k/√r)`` (``c`` computed in f32); dense-noised leaves are
+    materialized as ``θ + σ·s·E[b]``.
+
+    ``k`` may be a list of members: ``u``, ``v`` and ``c`` then carry a
+    leading lane axis (one lane per member, in order), dense-noised leaves
+    a lane-stacked ``[lanes, ...]`` value, and the forward's rows must be
+    grouped lane-major."""
+    from ..lora import FactoredDelta
+
+    members = [k] if isinstance(k, int) else list(k)
+    sb = [_member(pop_size, cfg, m) for m in members]
+    idx = torch.tensor([b for _, b in sb])
+    signs = torch.tensor([s for s, _ in sb], dtype=torch.float32)
+    c_scale = torch.tensor(cfg.sigma / math.sqrt(cfg.rank), dtype=torch.float32)
+    out = []
+    for t, fac in _noise_pairs(theta, noise):
+        dev = t.device
+        if isinstance(fac, LowRankNoise):
+            u, v = fac.U[idx.to(fac.U.device)], fac.V[idx.to(fac.V.device)]
+            c = (c_scale * signs).to(dev)
+            if isinstance(k, int):
+                u, v, c = u[0], v[0], c[0]
+            out.append(FactoredDelta(w=t, u=u, v=v, c=c))
+        else:
+            e = fac.E[idx.to(fac.E.device)].to(torch.float32)
+            s = signs.to(dev).reshape(-1, *([1] * (e.ndim - 1)))
+            val = t + (cfg.sigma * s * e).to(t.dtype)
+            out.append(val[0] if isinstance(k, int) else val)
+    return tree_replace_leaves(theta, out)
+
+
+def fitness_coeffs(fitness: torch.Tensor, pop_size: int, cfg: EggRollConfig) -> torch.Tensor:
+    """Per-base coefficients ``c_b = Σ_{k: b_k=b} f_k·s_k`` (f32)."""
+    signs, bases = member_signs_and_bases(pop_size, cfg.antithetic)
+    w = fitness.to(torch.float32) * torch.from_numpy(signs).to(fitness.device)
+    c = torch.zeros(base_pop_size(pop_size, cfg.antithetic), dtype=torch.float32, device=fitness.device)
+    return c.index_add_(0, torch.from_numpy(bases).to(fitness.device), w)
+
+
+def es_update(theta: Any, noise: Any, fitness: torch.Tensor, pop_size: int, cfg: EggRollConfig) -> Any:
+    """``θ' = θ + lr·mean_k(f_k·ε_k)`` in factored form: per low-rank leaf
+    ``Σ_b c_b U_b V_bᵀ/(pop·√r)``, per dense leaf ``Σ_b c_b E_b/pop``, the
+    contractions in f32 over the upcast noise; the delta is cast to θ's
+    dtype before ``t + lr·delta``."""
+    c = fitness_coeffs(fitness, pop_size, cfg)
+    inv = 1.0 / (pop_size * math.sqrt(cfg.rank))
+    out = []
+    for t, fac in _noise_pairs(theta, noise):
+        cc = c.to(t.device)
+        if isinstance(fac, LowRankNoise):
+            U, V = fac.U.to(torch.float32), fac.V.to(torch.float32)
+            cu = U * cc.reshape(-1, *([1] * (U.ndim - 1)))
+            delta = (cu @ V.transpose(-1, -2)).sum(0) * inv
+        else:
+            E = fac.E.to(torch.float32)
+            delta = (E * cc.reshape(-1, *([1] * (E.ndim - 1)))).sum(0) / pop_size
+        out.append(t + cfg.lr * delta.to(t.dtype))
+    return tree_replace_leaves(theta, out)
 
 
 def lane_slice(stacked: Any, k: Index) -> Any:

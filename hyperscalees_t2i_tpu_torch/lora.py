@@ -1,10 +1,12 @@
 """LoRA adapters as flat dicts of factors, applied inside the forward pass.
 
-Port of the serving half of ``hyperscalees_t2i_tpu/lora.py``. An adapter is
+Port of ``hyperscalees_t2i_tpu/lora.py``. An adapter is
 ``{path: {"a": A, "b": B}}`` keyed by the kernel's parameter path (without
 the trailing ``/kernel``): ``a [.., din, r]``, ``b [.., r, dout]``, stacked
 ``[L, ..]`` for scan-stacked layers. Every adapted dense computes
-``y = x @ W + (alpha/r)·(x @ A) @ B`` and never forms ``W + ΔW``.
+``y = x @ W + (alpha/r)·(x @ A) @ B`` and never forms ``W + ΔW``. Under
+ES training a factor may arrive as a :class:`FactoredDelta`, the member's
+perturbation kept factored (``models/nn.py`` routes those to the kernels).
 
 :func:`init_lora` builds the same tree structure, from the same target
 regexes over the same paths, as the JAX package, so adapters move between
@@ -16,13 +18,77 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from .utils.pytree import tree_leaves_with_path
 
 Adapter = Dict[str, Dict[str, torch.Tensor]]
+
+
+class FactoredDelta(NamedTuple):
+    """A LoRA factor carrying its ES perturbation in factored form:
+    ``w_k = w + c · u @ vᵀ`` without a materialized ``w_k``.
+
+    ``w [.., m, n]`` is the unperturbed factor (θ, shared by every member),
+    ``u [.., m, r_e]`` and ``v [.., n, r_e]`` are the member's slices of the
+    EGGROLL noise factors (in the noise store's dtype), ``c`` the member's
+    f32 coefficient ``σ·s_k/√r_e``. Several members evaluated together carry
+    a leading lane axis on ``u``, ``v`` and ``c`` (``c [lanes]``); their rows
+    of ``x`` are grouped lane-major, as in :func:`lora_delta`."""
+
+    w: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    c: torch.Tensor
+
+
+def effective_factor(f: Any, dtype: torch.dtype) -> torch.Tensor:
+    """``w + c·u@vᵀ`` in f32 (the noise upcast before the product), cast to
+    ``dtype``; ``[lanes, m, n]`` for a laned factor. Raw factors are cast."""
+    if not isinstance(f, FactoredDelta):
+        return f.to(dtype)
+    d = f.u.to(torch.float32) @ f.v.to(torch.float32).transpose(-1, -2)
+    c = f.c.to(torch.float32)
+    if c.ndim:
+        c = c.reshape(-1, *([1] * (d.ndim - 1)))
+    return (f.w.to(torch.float32) + c * d).to(dtype)
+
+
+def _lane_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a 2D ``w``, or lane ``i``'s ``w[i]`` applied to the
+    ``i``-th of ``lanes`` equal row groups of ``x`` for a ``[lanes, m, n]``
+    ``w``."""
+    if w.ndim == 2:
+        return x @ w
+    n = w.shape[0]
+    if x.shape[0] % n:
+        raise ValueError(f"{x.shape[0]} rows do not split into {n} lanes")
+    y = torch.bmm(x.reshape(n, -1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def matmul_factored(x: torch.Tensor, f: Any) -> torch.Tensor:
+    """``x @ f`` for a raw factor or a :class:`FactoredDelta` (applied through
+    :func:`effective_factor`, in x's dtype)."""
+    return _lane_matmul(x, effective_factor(f, x.dtype))
+
+
+def fused_lora_delta(x: torch.Tensor, leaf: Dict[str, Any], scale: float) -> torch.Tensor:
+    """``scale·(x@a_k)@b_k`` where either factor may be a
+    :class:`FactoredDelta`. Both factored over 2D ``w`` (every layer-sliced
+    dense site): the chain kernel K2 (``ops.fused_lora.member_lora_delta``).
+    Any other mix: two products with the perturbed factors built at the
+    point of use (:func:`matmul_factored`)."""
+    a, b = leaf["a"], leaf["b"]
+    if (isinstance(a, FactoredDelta) and isinstance(b, FactoredDelta)
+            and a.w.ndim == 2 and b.w.ndim == 2):
+        from .ops.fused_lora import member_lora_delta
+
+        return member_lora_delta(x, a, b, scale)
+    h = matmul_factored(x, a)
+    return matmul_factored(h, b) * scale
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,12 +152,20 @@ def lookup(lora: Optional[Dict[str, Any]], path: str) -> Optional[Dict[str, torc
     return lora.get(path)
 
 
-def slice_layer(leaf: Optional[Dict[str, torch.Tensor]], i: int) -> Optional[Dict[str, torch.Tensor]]:
-    """Layer ``i`` of stacked ``[.., L, m, n]`` factors. The layer axis is the
-    third from last, so a lane-stacked ``[A, L, m, n]`` leaf gives ``[A, m, n]``."""
+def _slice_factor(f: Any, i: int) -> Any:
+    if isinstance(f, FactoredDelta):
+        # w, u and v carry the layer stack; c is per member, not per layer
+        return FactoredDelta(f.w.select(-3, i), f.u.select(-3, i), f.v.select(-3, i), f.c)
+    return f.select(-3, i)
+
+
+def slice_layer(leaf: Optional[Dict[str, Any]], i: int) -> Optional[Dict[str, Any]]:
+    """Layer ``i`` of stacked ``[.., L, m, n]`` factors, raw or
+    :class:`FactoredDelta`. The layer axis is the third from last, so a
+    lane-stacked ``[A, L, m, n]`` leaf gives ``[A, m, n]``."""
     if leaf is None:
         return None
-    return {"a": leaf["a"].select(-3, i), "b": leaf["b"].select(-3, i)}
+    return {"a": _slice_factor(leaf["a"], i), "b": _slice_factor(leaf["b"], i)}
 
 
 def lora_delta(x: torch.Tensor, leaf: Optional[Dict[str, torch.Tensor]], scale: float) -> Optional[torch.Tensor]:
@@ -104,15 +178,7 @@ def lora_delta(x: torch.Tensor, leaf: Optional[Dict[str, torch.Tensor]], scale: 
     matmul."""
     if leaf is None:
         return None
-    a = leaf["a"].to(x.dtype)
-    b = leaf["b"].to(x.dtype)
-    if a.ndim == 2:
-        return ((x @ a) @ b) * scale
-    n = a.shape[0]
-    if x.shape[0] % n:
-        raise ValueError(f"{x.shape[0]} rows do not split into {n} adapter lanes")
-    d = torch.bmm(torch.bmm(x.reshape(n, -1, x.shape[-1]), a), b) * scale
-    return d.reshape(*x.shape[:-1], b.shape[-1])
+    return _lane_matmul(_lane_matmul(x, leaf["a"].to(x.dtype)), leaf["b"].to(x.dtype)) * scale
 
 
 def stack_adapters(trees: Sequence[Adapter]) -> Adapter:

@@ -21,8 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..lora import lora_delta
-from ..ops.fused_qlora import conv_kernel_q8_matmul
+from ..lora import FactoredDelta, fused_lora_delta, lora_delta
+from ..ops.fused_qlora import conv_kernel_q8_matmul, fused_qlora_applies, fused_qlora_dense
 from ..ops.quant import dequantize_kernel
 from ..ops.quant_mm import dequant_matmul
 
@@ -36,13 +36,25 @@ Params = Dict[str, Any]
 def dense(p: Params, x: torch.Tensor, lora: Optional[Params] = None, lora_scale: float = 1.0) -> torch.Tensor:
     """``y = x @ W (+ b) (+ lora_scale·(x@A)@B)``; ``W`` float or int8, the
     adapter one ``{"a", "b"}`` leaf or a lane-stacked batch
-    (:func:`~..lora.lora_delta`)."""
+    (:func:`~..lora.lora_delta`).
+
+    Under ES training (``pop_fuse``) the factors arrive as
+    ``lora.FactoredDelta``: an int8 per-channel node with both factors
+    factored runs the fused kernel K3 (``ops.fused_qlora``), a float node
+    the chain kernel K2 for the delta (``lora.fused_lora_delta``); other
+    mixes compose the dequant or float matmul with ``matmul_factored``."""
     if "kernel" in p:
         y = x @ p["kernel"].to(x.dtype)
+    elif lora is not None and fused_qlora_applies(lora):
+        y = fused_qlora_dense(x, p["kernel_q8"], lora, lora_scale)
+        lora = None  # consumed by the fused resolution
     else:
         y = dequant_matmul(x, p["kernel_q8"])
     if lora is not None:
-        y = y + lora_delta(x, lora, lora_scale)
+        if isinstance(lora["a"], FactoredDelta) or isinstance(lora["b"], FactoredDelta):
+            y = y + fused_lora_delta(x, lora, lora_scale)
+        else:
+            y = y + lora_delta(x, lora, lora_scale)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y

@@ -192,6 +192,17 @@ class SanaTransformer(tnn.Module):
         self.register_buffer("scale_shift_table", params["scale_shift_table"])
         self.proj_out = nn.Dense(params["proj_out"])
 
+    def lora_sites(self) -> Dict[str, str]:
+        """Module name → adapter path of every dense site to which the
+        forward hands an adapter leaf. The time and guidance MLP embedders
+        read none, as in the JAX package, though θ holds factors for them."""
+        sites = {"time_embed_linear": "time_embed/linear", "proj_out": "proj_out"}
+        sites.update({f"caption_proj.{k}": f"caption_proj/{k}" for k in self.caption_proj})
+        for i in range(len(self.blocks)):
+            for site in ("attn1", "attn2"):
+                sites.update({f"blocks.{i}.{site}.{k}": f"blocks/{site}/{k}" for k in _ATTN})
+        return sites
+
     def forward(
         self,
         latents: torch.Tensor,  # [B, H, W, C_in]

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 into ``build/torch_kernels/lib<name>-<hash>.so`` at the root of the checkout
 (a directory ``.gitignore`` lists), then loaded with ``ctypes``. The hash
-covers the source and the flags, so an edited source is rebuilt and a
-finished build is reused. :func:`build_all` starts one ``nvcc`` per source,
-all at once, and waits for them together.
+covers the source, the ``csrc/`` headers it includes (``lora_chain.cuh`` is
+shared by two kernels) and the flags, so an edited source or header is
+rebuilt and a finished build is reused. :func:`build_all` starts one
+``nvcc`` per source, all at once, and waits for them together.
 
 Nothing here runs at import: the CPU tests import every module of the port,
 and this machine-independent module only touches ``nvcc`` when a kernel is
@@ -17,11 +18,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, List, Tuple
+from typing import Any, Dict, Iterable, List, Sequence, Tuple
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -33,6 +35,7 @@ NVCC_FLAGS = (
 
 # name -> loaded library (one load per process)
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[str, str], Any] = {}
 
 
 def _nvcc() -> str:
@@ -45,10 +48,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes with
+    ``#include "..."``, directly or through another header."""
+    files: List[Path] = []
+    todo = [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            todo.append(path.parent / inc.decode())
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The build of ``csrc/<name>.cu``, named by a hash of its source, the
+    headers it includes and the flags: editing any of them rebuilds."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> Tuple[Path, Path, subprocess.Popen]:
@@ -95,3 +119,16 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: Sequence[Any]) -> Any:
+    """The C function ``symbol`` of ``csrc/<name>.cu`` with its argument
+    types set (``ctypes.c_void_p`` for pointers and the stream, so 64-bit
+    values are not cut) and an ``int`` (a ``cudaError_t``) result."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _ENTRIES[(name, symbol)] = fn
+    return fn

@@ -36,12 +36,9 @@ def int8_matmul_reference(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor
 
 
 def _entry(dtype: torch.dtype):
-    from ._build import load
+    from ._build import entry
 
-    fn = getattr(load(_KERNEL_SOURCE), _ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return entry(_KERNEL_SOURCE, _ENTRY[dtype], [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def int8_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

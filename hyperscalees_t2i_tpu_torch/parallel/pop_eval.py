@@ -1,16 +1,85 @@
-"""The multi-tenant serving generator (port of
-``make_adapter_batch_generator`` from
-``hyperscalees_t2i_tpu/parallel/pop_eval.py``)."""
+"""Member-batched evaluation on one device (port of
+``hyperscalees_t2i_tpu/parallel/pop_eval.py``): the ES population evaluator
+and the multi-tenant serving generator. The mesh-sharded and ``host_slice``
+variants come with multi-GPU training."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
-from ..es.noiser import stacked_adapter_theta
+from ..es.noiser import EggRollConfig, factored_member_theta, perturb_member, stacked_adapter_theta
+from ..lora import stack_adapters
 
 GenerateFn = Callable[..., torch.Tensor]
+RewardFn = Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]
+
+
+def effective_reward_tile(batch: int, reward_tile: int) -> int:
+    """Largest divisor of ``batch`` that is ≤ ``reward_tile`` (0 = untiled)."""
+    if reward_tile <= 0 or reward_tile >= batch:
+        return 0
+    tile = reward_tile
+    while batch % tile:
+        tile -= 1
+    return tile
+
+
+def make_population_evaluator(
+    generate_p: GenerateFn,
+    reward_fn: RewardFn,
+    pop_size: int,
+    es_cfg: EggRollConfig,
+    member_batch: int,
+    reward_tile: int = 0,
+    pop_fuse: bool = False,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """``eval_pop(theta, noise, flat_ids [B], gen_noise [B, *noise_shape])
+    → rewards``, every reward leaf ``[pop_size, B]``.
+
+    Members run in chunks of ``member_batch`` lanes: one chunk's adapter is
+    ``factored_member_theta`` over the chunk's members (``pop_fuse``: the
+    perturbation stays factored, ``lora.FactoredDelta`` leaves with a lane
+    axis when the chunk has several members) or the chunk's materialized
+    ``perturb_member`` adapters, lane-stacked. Every base matmul of a chunk
+    takes all its lanes' rows at once. Each member sees the same epoch
+    noise ``gen_noise`` (common random numbers). ``reward_tile`` runs
+    generate → decode → reward over image tiles of that size (rounded down
+    to a divisor of ``B``); image ``i`` keeps its own noise row, so tiling
+    does not change a reward."""
+    if member_batch < 1:
+        raise ValueError(f"member_batch must be >= 1, got {member_batch}")
+
+    def chunk_theta(theta, noise, members):
+        if pop_fuse:
+            return factored_member_theta(theta, noise, members[0] if len(members) == 1 else members,
+                                         pop_size, es_cfg)
+        thetas = [perturb_member(theta, noise, k, pop_size, es_cfg) for k in members]
+        return thetas[0] if len(thetas) == 1 else stack_adapters(thetas)
+
+    def eval_pop(theta, noise, flat_ids, gen_noise):
+        ids = torch.as_tensor(flat_ids, dtype=torch.long)
+        B = ids.shape[0]
+        tile = effective_reward_tile(B, reward_tile) or B
+        chunks = []
+        for k0 in range(0, pop_size, member_batch):
+            members = list(range(k0, min(k0 + member_batch, pop_size)))
+            n = len(members)
+            theta_k = chunk_theta(theta, noise, members)
+            tiles = []
+            for i0 in range(0, B, tile):
+                t_ids = ids[i0:i0 + tile]
+                t_noise = gen_noise[i0:i0 + tile]
+                images = generate_p(theta_k, t_ids.expand(n, -1), None,
+                                    noise=t_noise.expand(n, *t_noise.shape))
+                r = reward_fn(images.reshape(n * t_ids.shape[0], *images.shape[2:]),
+                              t_ids.to(images.device).repeat(n))
+                tiles.append({k: v.reshape(n, -1) for k, v in r.items()})
+            chunks.append({k: torch.cat([t[k] for t in tiles], dim=1) for k in tiles[0]})
+        return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+
+    return eval_pop
 
 
 def make_adapter_batch_generator(

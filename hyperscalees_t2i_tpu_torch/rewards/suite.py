@@ -1,0 +1,115 @@
+"""Batched CLIP/PickScore rewards (port of
+``hyperscalees_t2i_tpu/rewards/suite.py``).
+
+- CLIP-B/32 cosine similarities against the aesthetic text, the image's own
+  prompt and the negative text, each mapped ``(s+1)/2`` into [0, 1];
+  ``no_artifacts = 1 − sim(negative)``.
+- PickScore v1: ``exp(logit_scale)·dot(text̂, imĝ)`` with the CLIP-H towers;
+  zeros without them.
+- ``combined = 0.3·aesthetic + 0.3·align + 0.2·no_artifacts + 0.2·pick``.
+
+Text tables are built once, before the towers are quantized. Tokenizing
+real prompts (``tokenize_with_hf``) is not ported: no tokenizer is available
+offline, and the rungs build their tables from random token ids.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from ..models import clip as clip_mod
+
+AESTHETIC_TEXT = "a high quality, professional, beautiful, aesthetically pleasing image"
+NEGATIVE_TEXT = "blurry, low resolution, noisy, pixelated, washed out colors, oversaturated "
+
+
+@dataclasses.dataclass(frozen=True)
+class RewardWeights:
+    aesthetic: float = 0.3
+    align: float = 0.3
+    no_artifacts: float = 0.2
+    pickscore: float = 0.2
+
+
+def _normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    n = torch.linalg.vector_norm(x.to(torch.float32), dim=-1, keepdim=True)
+    return x / n.clamp_min(eps)
+
+
+def clip_text_embed_table(model: clip_mod.CLIPModel, input_ids: torch.Tensor,
+                          eot_index: Optional[torch.Tensor] = None,
+                          attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The normalized CLIP text table ``[M+2, P]`` (rows: the M prompts, the
+    aesthetic text, the negative text), built once per run."""
+    return _normalize(clip_mod.text_features(model, input_ids, eot_index, attention_mask))
+
+
+def pickscore_text_embeds(model: clip_mod.CLIPModel, input_ids: torch.Tensor,
+                          eot_index: Optional[torch.Tensor] = None,
+                          attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Normalized PickScore text embeddings per prompt, ``[M, P]``."""
+    return _normalize(clip_mod.text_features(model, input_ids, eot_index, attention_mask))
+
+
+def compute_rewards_batch(
+    clip_model: clip_mod.CLIPModel,
+    images: torch.Tensor,  # [B, H, W, 3] in [0, 1]
+    clip_text_table: torch.Tensor,  # [M+2, P] normalized
+    prompt_ids: torch.Tensor,  # [B] row of each image's prompt in the table
+    weights: RewardWeights = RewardWeights(),
+    pick_model: Optional[clip_mod.CLIPModel] = None,
+    pick_text_embeds: Optional[torch.Tensor] = None,  # [M, P2] normalized
+) -> Dict[str, torch.Tensor]:
+    """Per-image rewards, every value a ``[B]`` f32 tensor."""
+    M = clip_text_table.shape[0] - 2
+    pixels = clip_mod.preprocess_images(images, clip_model.cfg)
+    img = _normalize(clip_mod.image_features(clip_model, pixels))
+    table = clip_text_table.to(img.dtype)
+    to01 = lambda s: (s + 1.0) / 2.0  # noqa: E731
+    clip_aesthetic = to01(img @ table[M])
+    clip_text = to01((img * table[prompt_ids]).sum(-1))
+    no_artifacts = 1.0 - to01(img @ table[M + 1])
+    if pick_model is not None and pick_text_embeds is not None:
+        pimg = _normalize(clip_mod.image_features(pick_model, clip_mod.preprocess_images(images, pick_model.cfg)))
+        pickscore = torch.exp(pick_model.logit_scale.to(torch.float32)) * (
+            pimg * pick_text_embeds.to(pimg.dtype)[prompt_ids]).sum(-1)
+    else:
+        pickscore = torch.zeros(images.shape[0], dtype=torch.float32, device=images.device)
+    combined = (weights.aesthetic * clip_aesthetic + weights.align * clip_text
+                + weights.no_artifacts * no_artifacts + weights.pickscore * pickscore)
+    out = dict(clip_aesthetic=clip_aesthetic, clip_text=clip_text, no_artifacts=no_artifacts,
+               pickscore=pickscore, combined=combined)
+    return {k: v.to(torch.float32) for k, v in out.items()}
+
+
+class RewardSuite:
+    """The trainer's reward object: ``suite(images, prompt_ids)`` → the
+    reward dict. The towers are modules holding their frozen weights."""
+
+    def __init__(self, clip_model: clip_mod.CLIPModel, clip_text_table: torch.Tensor,
+                 weights: RewardWeights = RewardWeights(),
+                 pick_model: Optional[clip_mod.CLIPModel] = None,
+                 pick_text_embeds: Optional[torch.Tensor] = None):
+        self.clip_model = clip_model
+        self.clip_text_table = clip_text_table
+        self.weights = weights
+        have_pick = pick_model is not None and pick_text_embeds is not None
+        self.pick_model = pick_model if have_pick else None
+        self.pick_text_embeds = pick_text_embeds if have_pick else None
+
+    def __call__(self, images: torch.Tensor, prompt_ids: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return compute_rewards_batch(
+            self.clip_model, images, self.clip_text_table, prompt_ids, self.weights,
+            self.pick_model, self.pick_text_embeds,
+        )
+
+
+def make_clip_reward_fn(clip_model: clip_mod.CLIPModel, clip_text_table: torch.Tensor,
+                        weights: RewardWeights = RewardWeights(),
+                        pick_model: Optional[clip_mod.CLIPModel] = None,
+                        pick_text_embeds: Optional[torch.Tensor] = None) -> RewardSuite:
+    """Bind the reward towers into the trainer's reward-function contract."""
+    return RewardSuite(clip_model, clip_text_table, weights, pick_model, pick_text_embeds)

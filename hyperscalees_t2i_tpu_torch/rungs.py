@@ -1,5 +1,5 @@
-"""Model geometries and serving plans per rung (the port's copy of the Sana
-part of ``hyperscalees_t2i_tpu/rungs.py``).
+"""Model geometries, ES plans, knobs and serving plans per rung (the port's
+copy of the Sana part of ``hyperscalees_t2i_tpu/rungs.py``).
 
 Module-level code is stdlib-only; :func:`sana_rung_model` imports the model
 configs when called.
@@ -18,9 +18,44 @@ SERVE_PLAN = {
     "flagship": {"adapter_batch": 2, "images_per_request": 1, "member_batch": 1},
 }
 
-# the frozen base's storage per rung (the JAX package's RUNG_OPT base_quant):
-# the small rungs stay float, the big ones store kernels int8
-RUNG_BASE_QUANT = {"tiny": "off", "small": "off", "mid": "int8", "flagship": "int8"}
+# ES plan per rung: (scale, population, prompts per epoch, member_batch)
+RUNG_PLAN = {
+    "tiny": ("tiny", 4, 4, 1),
+    "small": ("small", 4, 4, 1),
+    "popscale": ("small", 128, 4, 8),
+    "mid": ("mid", 4, 4, 1),
+    "flagship": ("flagship", 4, 4, 1),
+    "midpop": ("mid", 32, 4, 8),
+    "flagpop": ("flagship", 16, 4, 4),
+}
+
+# Per-rung knobs (the Sana part of the JAX package's RUNG_OPT): member-interior
+# reward tiling, the factored-noise store dtype, the reward towers' compute
+# dtype, the factored member path (pop_fuse) and the frozen base's storage.
+# The JAX package's remat knob has no counterpart: nothing is differentiated.
+DEFAULT_OPT = {
+    "reward_tile": 0, "noise_dtype": "float32", "tower_dtype": "float32",
+    "pop_fuse": False, "base_quant": "off",
+}
+_BIG_OPT = {"noise_dtype": "bfloat16", "tower_dtype": "bfloat16", "base_quant": "int8"}
+RUNG_OPT = {
+    "tiny": dict(DEFAULT_OPT),
+    "small": dict(DEFAULT_OPT),
+    "popscale": {**DEFAULT_OPT, "pop_fuse": True, "base_quant": "int8"},
+    "mid": {**DEFAULT_OPT, **_BIG_OPT, "reward_tile": 2, "pop_fuse": True},
+    "midpop": {**DEFAULT_OPT, **_BIG_OPT, "reward_tile": 2, "pop_fuse": True},
+    "flagship": {**DEFAULT_OPT, **_BIG_OPT, "reward_tile": 1, "pop_fuse": True},
+    "flagpop": {**DEFAULT_OPT, **_BIG_OPT, "reward_tile": 1, "pop_fuse": True},
+}
+
+
+def rung_opt(rung: str) -> Dict[str, Any]:
+    """The rung's knobs (all off for an unknown rung)."""
+    return dict(RUNG_OPT.get(rung, DEFAULT_OPT))
+
+
+# the frozen base's storage per serving rung
+RUNG_BASE_QUANT = {r: RUNG_OPT[r]["base_quant"] for r in SERVE_PLAN}
 
 BENCH_PROMPT_SET = [
     "a photo of a cat wearing a tiny hat",
@@ -34,14 +69,28 @@ BENCH_PROMPT_SET = [
 ]
 
 PROMPT_EMBED_LEN = 32  # Ltxt
+PROMPT_TOKEN_LEN = 8  # Ltok of the synthesized CLIP text tables
 
 
-def sana_rung_model(scale: str) -> Dict[str, Any]:
-    """``{"bcfg": SanaBackendConfig}`` for ``tiny``/``small``/``mid``/``flagship``
-    (flagship = Sana-Sprint 1.6B defaults, 32×32 latents → 1024px)."""
+def small_clip_cfg(clip_mod: Any):
+    """The ~15M-parameter CLIP reward tower of the ``small`` rungs."""
+    tower = clip_mod.CLIPTowerConfig(256, 4, 4, 1024)
+    return clip_mod.CLIPConfig(vision=tower, text=tower, image_size=128, patch_size=32, projection_dim=256)
+
+
+def sana_rung_model(scale: str, tower_dtype: str = "float32") -> Dict[str, Any]:
+    """``{"bcfg", "clip_b", "clip_h"}`` for ``tiny``/``small``/``mid``/
+    ``flagship`` (flagship = Sana-Sprint 1.6B defaults, 32×32 latents →
+    1024px, CLIP-B/32 and CLIP-H/14 at their published widths); ``clip_h``
+    is ``None`` where the rung has no PickScore tower. ``tower_dtype`` is
+    the reward towers' compute dtype."""
+    import dataclasses
+
     from .backends.sana_backend import SanaBackendConfig
-    from .models import dcae, sana
+    from .models import clip, dcae, sana
+    from .utils.pytree import resolve_float_dtype
 
+    tower = lambda cfg: dataclasses.replace(cfg, compute_dtype=resolve_float_dtype(tower_dtype))  # noqa: E731
     if scale == "tiny":
         model = sana.SanaConfig(
             in_channels=4, out_channels=4, d_model=32, n_layers=2, n_heads=4,
@@ -49,6 +98,10 @@ def sana_rung_model(scale: str) -> Dict[str, Any]:
         )
         vae = dcae.DCAEConfig(latent_channels=4, channels=(16, 16, 8), blocks_per_stage=(1, 1, 1), attn_stages=())
         bcfg = SanaBackendConfig(model=model, vae=vae, width_latent=8, height_latent=8)
+        t = clip.CLIPTowerConfig(32, 2, 2, 64)
+        clip_b = tower(clip.CLIPConfig(vision=t, text=t, image_size=32, patch_size=16,
+                                       vocab_size=64, max_positions=8, projection_dim=32))
+        clip_h = clip_b
     elif scale == "small":
         model = sana.SanaConfig(
             in_channels=8, out_channels=8, d_model=384, n_layers=4, n_heads=12,
@@ -56,14 +109,18 @@ def sana_rung_model(scale: str) -> Dict[str, Any]:
         )
         vae = dcae.DCAEConfig(latent_channels=8, channels=(128, 128, 64, 32), blocks_per_stage=(1, 1, 1, 1), attn_stages=(0,))
         bcfg = SanaBackendConfig(model=model, vae=vae, width_latent=16, height_latent=16)
+        clip_b = tower(small_clip_cfg(clip))
+        clip_h = clip_b
     elif scale == "mid":
         model = sana.SanaConfig(
             d_model=1152, n_layers=12, n_heads=36, cross_n_heads=16, caption_dim=2304, ff_ratio=2.5,
         )
         vae = dcae.DCAEConfig(channels=(512, 512, 256, 256, 128, 64))
         bcfg = SanaBackendConfig(model=model, vae=vae, width_latent=16, height_latent=16)
+        clip_b, clip_h = tower(clip.CLIP_B32), None
     elif scale == "flagship":
         bcfg = SanaBackendConfig(width_latent=32, height_latent=32)
+        clip_b, clip_h = tower(clip.CLIP_B32), tower(clip.CLIP_H14)
     else:
         raise ValueError(f"unknown sana rung scale: {scale!r}")
-    return {"bcfg": bcfg}
+    return {"bcfg": bcfg, "clip_b": clip_b, "clip_h": clip_h}

@@ -8,7 +8,7 @@ dicts in.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -26,28 +26,51 @@ def resolve_float_dtype(name: str) -> torch.dtype:
 
 
 def tree_map(fn: Callable[[Any], Any], tree: Tree) -> Tree:
-    """Apply ``fn`` to every non-container leaf, keeping the structure."""
+    """Apply ``fn`` to every non-container leaf, keeping the structure.
+    Named tuples (the ES noise nodes, ``lora.FactoredDelta``) are
+    containers."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
-def tree_leaves_with_path(tree: Tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """``(path, leaf)`` pairs, dict keys sorted, path parts joined by ``/``."""
-    if isinstance(tree, dict):
+def tree_leaves_with_path(tree: Tree, prefix: str = "",
+                          is_leaf: Optional[Callable[[Any], bool]] = None) -> Iterator[Tuple[str, Any]]:
+    """``(path, leaf)`` pairs, dict keys sorted, path parts joined by ``/``;
+    a node that ``is_leaf`` accepts is a leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        yield prefix, tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from tree_leaves_with_path(tree[k], f"{prefix}/{k}" if prefix else str(k))
+            yield from tree_leaves_with_path(tree[k], f"{prefix}/{k}" if prefix else str(k), is_leaf)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from tree_leaves_with_path(v, f"{prefix}/{i}" if prefix else str(i))
+            yield from tree_leaves_with_path(v, f"{prefix}/{i}" if prefix else str(i), is_leaf)
     else:
         yield prefix, tree
 
 
 def tree_leaves(tree: Tree) -> List[Any]:
     return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def tree_replace_leaves(tree: Tree, values: List[Any]) -> Tree:
+    """``tree``'s structure with its leaves replaced by ``values``, given in
+    flattening order (dict keys sorted)."""
+    it = iter(values)
+
+    def walk(t: Tree) -> Tree:
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return next(it)
+
+    return walk(tree)
 
 
 def tree_structure(tree: Tree) -> Any:

@@ -2,12 +2,14 @@
 
 The input is a JAX parameter tree already converted leaf by leaf to numpy
 (``jax.tree_util.tree_map(np.asarray, params)``): nested dicts and lists,
-stacked ``[L, ...]`` leaves, ``kernel_q8`` dicts, HWIO conv kernels, and the
-flat LoRA dict ``{path: {"a", "b"}}``. The port keeps the same layout, so
-the conversion is leaf by leaf; the module constructors then slice the
-stacked layers and turn the kernels of the convs that run through
-``F.conv2d`` from HWIO into OIHW. This module imports neither ``jax`` nor
-the JAX package.
+stacked ``[L, ...]`` leaves, ``kernel_q8`` dicts, HWIO conv kernels, the
+flat LoRA dict ``{path: {"a", "b"}}``, ES noise trees and factored adapter
+leaves. The port keeps the same layout, so the conversion is leaf by leaf;
+the module constructors then slice the stacked layers and turn the kernels
+of the convs that run through ``F.conv2d`` from HWIO into OIHW. This module
+imports neither ``jax`` nor the JAX package: the JAX package's named-tuple
+nodes (``LowRankNoise``, ``DenseNoise``, ``FactoredDelta``) are recognized
+by their field names and become the port's classes of the same name.
 """
 
 from __future__ import annotations
@@ -18,24 +20,39 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models import dcae, sana
-from ..utils.pytree import tree_map
+from ..es.noiser import DenseNoise, LowRankNoise
+from ..lora import FactoredDelta
+from ..models import clip, dcae, sana
+
+_NODE_TYPES = {cls._fields: cls for cls in (LowRankNoise, DenseNoise, FactoredDelta)}
 
 
 def tensor_from_numpy(arr: Any, device: torch.device) -> torch.Tensor:
     """One numpy leaf → tensor on ``device`` (ml_dtypes bfloat16 included)."""
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)).view(torch.bfloat16)
+        t = torch.from_numpy(np.array(arr, order="C").view(np.uint16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(np.array(arr, order="C"))  # a writable copy
     return t.to(device)
 
 
 def tree_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
-    """A numpy tree → the same tree of tensors on ``device``."""
+    """A numpy tree → the same tree of tensors on ``device``; the JAX
+    package's ``LowRankNoise``/``DenseNoise``/``FactoredDelta`` nodes become
+    the port's."""
     dev = resolve_device(device)
-    return tree_map(lambda a: tensor_from_numpy(a, dev), tree)
+
+    def walk(t: Any) -> Any:
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return _NODE_TYPES[tuple(t._fields)](*(walk(v) for v in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return tensor_from_numpy(t, dev)
+
+    return walk(tree)
 
 
 def sana_from_jax(tree: Any, cfg: sana.SanaConfig, device: DeviceLike = None) -> sana.SanaTransformer:
@@ -44,6 +61,10 @@ def sana_from_jax(tree: Any, cfg: sana.SanaConfig, device: DeviceLike = None) ->
 
 def dcae_from_jax(tree: Any, cfg: dcae.DCAEConfig, device: DeviceLike = None) -> dcae.DCAEDecoder:
     return dcae.DCAEDecoder(cfg, tree_from_numpy(tree, device))
+
+
+def clip_from_jax(tree: Any, cfg: clip.CLIPConfig, device: DeviceLike = None) -> clip.CLIPModel:
+    return clip.CLIPModel(cfg, tree_from_numpy(tree, device))
 
 
 def adapter_from_jax(lora: Dict[str, Dict[str, Any]], device: DeviceLike = None) -> Dict[str, Dict[str, torch.Tensor]]:
