@@ -8,13 +8,16 @@ result):
 
 1. build every CUDA kernel from ``csrc/`` with ``nvcc`` (one process per
    source, all at once): K1 ``int8_matmul``, K2 ``lora_chain``, K3
-   ``fused_qlora``;
+   ``fused_qlora``, K4 ``decode_attention``;
 2. hold each kernel against its plain PyTorch version on the card at every
    shape its main path gives it, in the main-path dtype and in f32, and time
    the kernel, the plain version, one PyTorch library call computing the
    same function (``library_ms``, a yardstick the port never calls) and the
    card's lower bound for the work: K1 at the flagship DiT, DC-AE, CLIP-B/32
    and CLIP-H/14 shapes; K2 and K3 at the flagship's LoRA-adapted sites;
+   K4 at the ten VAR-d16 scale shapes, plus a masked dh-128 cross-attention
+   shape (Infinity's geometry), a multi-tile kv case, NaN garbage past
+   ``kv_len`` and an all-masked row;
 3. check the port end to end on small inputs against the same work on the
    CPU (the CPU path is the one the tests hold against the JAX package): the
    tiny rung served in f32 with an int8 base; one tiny-rung ES step in f32
@@ -29,7 +32,14 @@ result):
    behind ``ServeEngine``, four requests; K1 must launch the expected number
    of times, images must be finite in [0, 1], differ between tenants, and
    batched must equal solo;
-6. the main path: one EGGROLL-ES epoch step of the flagship rung
+6. the VAR path (K4): the tiny VAR geometry in f32 on the card against the
+   CPU (one ``generate`` with injected Gumbel noise: token ids equal, images
+   within 1e-4; one ES step: θ′ and reward rows within 1e-4, K4 launches as
+   derived), then one warm-up and two timed ES epochs of ``RUNG_PLAN["ar_d16"]``
+   (VAR-d16 at its published geometry, bf16, float base, pop 16, 4 classes,
+   member_batch 4; CLIP-B/32 and CLIP-H/14 rewards): K4 must launch exactly
+   2 × 4 × 160 times, reward rows ``[16, 4]`` finite, θ′ finite, ‖Δθ‖ > 0;
+7. the Sana main path: one EGGROLL-ES epoch step of the flagship rung
    (``RUNG_PLAN``/``RUNG_OPT["flagship"]``: pop 4, 4 prompts, member_batch
    1, reward_tile 1, bf16 noise store, int8 DiT + DC-AE + CLIP-B/32 +
    CLIP-H/14 at their published widths, bf16 towers), one warm-up epoch
@@ -105,6 +115,11 @@ CHAIN_SHAPES = [
     ("proj_out", 1024, 2240, 32, "bfloat16", 1),
 ]
 R_L, R_E, LORA_SCALE = 8, 4, 2.0
+# K4 on the VAR-d16 path: per scale, (queries pn², kv_len) against a 680-position
+# cache of 32 rows (4 lanes × 4 images × cond/uncond), 16 heads of 64; each
+# shape runs once per layer (16) per generate call
+VAR_PATCH_NUMS = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
+VAR_ROWS, VAR_HEADS, VAR_DH, VAR_DEPTH = 32, 16, 64, 16
 N_REQUESTS = 4
 TIMED_EPOCHS = 2
 
@@ -151,12 +166,12 @@ def phase_build():
     from hyperscalees_t2i_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all(["int8_matmul", "lora_chain", "fused_qlora"])
+    logs = _build.build_all(["int8_matmul", "lora_chain", "fused_qlora", "decode_attention"])
     dt = time.perf_counter() - t0
     for name, text in logs.items():
         ptxas = sorted({l.split(":", 1)[-1].strip() for l in text.splitlines() if "registers" in l})
         log(f"[build] {name}: {' | '.join(ptxas) or text.strip()}")
-    log(f"[build] three kernels built in {dt:.1f} s (one nvcc per source, in parallel)")
+    log(f"[build] four kernels built in {dt:.1f} s (one nvcc per source, in parallel)")
     return dt
 
 
@@ -416,20 +431,23 @@ def phase_es_reference(torch, scale: str, int8: bool):
 
 
 def _reset_counters():
+    from hyperscalees_t2i_tpu_torch.ops.attention import decode_attention
     from hyperscalees_t2i_tpu_torch.ops.fused_lora import member_lora_delta
     from hyperscalees_t2i_tpu_torch.ops.fused_qlora import fused_qlora_matmul
     from hyperscalees_t2i_tpu_torch.ops.quant_mm import int8_matmul
 
     int8_matmul.launches = member_lora_delta.launches = fused_qlora_matmul.launches = 0
+    decode_attention.launches = 0
 
 
 def _counters():
+    from hyperscalees_t2i_tpu_torch.ops.attention import decode_attention
     from hyperscalees_t2i_tpu_torch.ops.fused_lora import member_lora_delta
     from hyperscalees_t2i_tpu_torch.ops.fused_qlora import fused_qlora_matmul
     from hyperscalees_t2i_tpu_torch.ops.quant_mm import int8_matmul
 
     return {"int8_matmul": int8_matmul.launches, "lora_chain": member_lora_delta.launches,
-            "fused_qlora": fused_qlora_matmul.launches}
+            "fused_qlora": fused_qlora_matmul.launches, "decode_attention": decode_attention.launches}
 
 
 def expected_es_launches(backend, reward, tc, batch: int):
@@ -451,7 +469,7 @@ def expected_es_launches(backend, reward, tc, batch: int):
             image_side = [tower.patch_embed, tower.vision, tower.visual_projection]
             k1 += sum(1 for part in image_side for m in part.modules() if hasattr(m, "q8"))
     calls = -(-tc.pop_size // tc.member_batch) * (batch // (effective_reward_tile(batch, tc.reward_tile) or batch))
-    return ({"int8_matmul": k1 * calls, "lora_chain": k2 * calls, "fused_qlora": k3 * calls},
+    return ({"int8_matmul": k1 * calls, "lora_chain": k2 * calls, "fused_qlora": k3 * calls, "decode_attention": 0},
             {"k1_per_call": k1, "k2_per_call": k2, "k3_per_call": k3, "calls": calls})
 
 
@@ -518,7 +536,8 @@ def phase_serve(torch):
     launches = _counters()
 
     images_per_req = plan["images_per_request"]
-    expected = {"int8_matmul": len(routed) * N_REQUESTS * images_per_req, "lora_chain": 0, "fused_qlora": 0}
+    expected = {"int8_matmul": len(routed) * N_REQUESTS * images_per_req, "lora_chain": 0, "fused_qlora": 0,
+                "decode_attention": 0}
     if launches != expected:
         raise AssertionError(f"serving launched {launches}, expected {expected}")
     if [r.request.request_id for r in results] != [r.request_id for r in reqs] or not all(r.ok for r in results):
@@ -580,6 +599,19 @@ class RecordingReward:
         return out
 
 
+def device_kernels(torch, prof):
+    """Device time and launches per kernel name of a ``torch.profiler`` run:
+    ``({name: (ms, launches)}, busy ms, launches, the 12 largest as (ms,
+    launches, name))``."""
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    top = sorted(((ms, n, name[:100]) for name, (ms, n) in kernels.items()), reverse=True)[:12]
+    return kernels, sum(ms for ms, _ in kernels.values()), sum(n for _, n in kernels.values()), top
+
+
 def es_stage_breakdown(torch, backend, reward, theta, noise, tc, tag: str, reps: int = 2):
     """One member's work on one image. Stage times by CUDA events (the
     stream's time from the first to the last launch of a stage, gaps
@@ -620,14 +652,7 @@ def es_stage_breakdown(torch, backend, reward, theta, noise, tc, tag: str, reps:
                     acc[j] += ev[j].elapsed_time(ev[j + 1]) / reps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             one()
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, n = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
-    busy = sum(ms for ms, _ in kernels.values())
-    top = sorted(((ms, n, name[:100]) for name, (ms, n) in kernels.items()), reverse=True)[:12]
-    n_kernels = sum(n for _, n in kernels.values())
+    kernels, busy, n_kernels, top = device_kernels(torch, prof)
     out = {"generation": acc[0], "decode": acc[1], "reward": acc[2], "device_busy_profiled": busy,
            "idle_share": 1.0 - busy / sum(acc), "device_kernels": n_kernels,
            "top_kernels": [dict(name=t, ms=m, launches=n) for m, n, t in top]}
@@ -637,6 +662,55 @@ def es_stage_breakdown(torch, backend, reward, theta, noise, tc, tag: str, reps:
     for m, n, t in top:
         log(f"[{tag}]   {m:9.3f} ms {n:5d} launches  {t}")
     return out
+
+
+def timed_epochs(torch, step, theta, flat_ids, reward, expected1, pop: int, calls_per_chunk: int, tag: str,
+                 what: str):
+    """One warm-up epoch of the stateful ``step``, then ``TIMED_EPOCHS``
+    timed ones (host clock around work that ends in a synchronize), with
+    the launch counters set to 0 just before them and read just after.
+    Checks the launches against ``expected1`` per epoch, the last epoch's
+    reward rows ``[pop, B]`` finite, θ′ finite and ‖Δθ‖ > 0. Returns
+    ``(θ′, stats)``."""
+    B = len(flat_ids)
+    delta = {k: {f: torch.zeros_like(t) for f, t in d.items()} for k, d in theta.items()}
+    t0 = time.perf_counter()
+    theta, delta, metrics, opt_scores = step(theta, delta, flat_ids, 100)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    _reset_counters()
+    epoch_s = []
+    for e in range(TIMED_EPOCHS):
+        reward.rows.clear()
+        t0 = time.perf_counter()
+        theta, delta, metrics, opt_scores = step(theta, delta, flat_ids, 101 + e)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+    launches = _counters()
+    expected = {k: v * TIMED_EPOCHS for k, v in expected1.items()}
+    if launches != expected:
+        raise AssertionError(f"{what} launched {launches}, expected {expected}")
+    rows = reward_rows(torch, reward.rows, calls_per_chunk, B // calls_per_chunk)
+    if tuple(rows.shape) != (pop, B) or not bool(torch.isfinite(rows).all()):
+        raise AssertionError(f"reward rows {tuple(rows.shape)} not [{pop}, {B}] and finite")
+    if not all(bool(torch.isfinite(t).all()) for d in theta.values() for t in d.values()):
+        raise AssertionError("θ′ not finite")
+    delta_norm = float(metrics["delta_norm"])
+    if not delta_norm > 0:
+        raise AssertionError(f"the update is zero (delta_norm {delta_norm})")
+    stats = dict(
+        warmup_epoch_s=warm_s, epoch_s=epoch_s, images_per_epoch=pop * B,
+        images_per_s=[pop * B / s for s in epoch_s], peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches, expected_launches=expected, reward_rows=rows.float().cpu().tolist(),
+        opt_scores=[float(s) for s in opt_scores], delta_norm=delta_norm, theta_norm=float(metrics["theta_norm"]),
+        metrics={k: (float(v) if v.numel() == 1 else v.float().cpu().tolist()) for k, v in metrics.items()},
+    )
+    log(f"[{tag}] {what}: epochs {', '.join(f'{s:.3f}' for s in epoch_s)} s (warm-up {warm_s:.3f} s) = "
+        f"{', '.join(f'{x:.3f}' for x in stats['images_per_s'])} images/s; peak device memory "
+        f"{stats['peak_mem_gib']:.2f} GiB; launches {launches} (expected {expected}); reward rows "
+        f"{tuple(rows.shape)}; delta_norm {delta_norm:.4g}, theta_norm {stats['theta_norm']:.4g}")
+    return theta, stats
 
 
 def phase_es_flagship(torch, base_quant=None):
@@ -666,63 +740,318 @@ def phase_es_flagship(torch, base_quant=None):
     B = len(info.flat_ids)
     expected1, per = expected_es_launches(backend, suite, tc, B)
     step = make_es_step(backend, reward, tc, len(info.unique_ids), 1, device="cuda", stateful_delta=True)
-    theta = backend.init_theta(torch.Generator().manual_seed(1))  # a fresh run's θ: b = 0
-    delta = {k: {f: torch.zeros_like(t) for f, t in d.items()} for k, d in theta.items()}
     log(f"[{tag}] flagship ES backend ({opt['base_quant']} base) built in {build_s:.1f} s; device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; per generate→reward call: "
         f"K3 {per['k3_per_call']}, K1 {per['k1_per_call']}, K2 {per['k2_per_call']}; {per['calls']} calls per epoch")
-
-    t0 = time.perf_counter()
-    theta, delta, metrics, opt_scores = step(theta, delta, info.flat_ids, 100)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    reward.rows.clear()
-
-    torch.cuda.synchronize()
-    _reset_counters()
-    epoch_s = []
-    for e in range(TIMED_EPOCHS):
-        reward.rows.clear()
-        t0 = time.perf_counter()
-        theta, delta, metrics, opt_scores = step(theta, delta, info.flat_ids, 101 + e)
-        torch.cuda.synchronize()
-        epoch_s.append(time.perf_counter() - t0)
-    launches = _counters()
-    expected = {k: v * TIMED_EPOCHS for k, v in expected1.items()}
-    if launches != expected:
-        raise AssertionError(f"flagship ES epoch ({opt['base_quant']} base) launched {launches}, expected {expected}")
-    calls_per_chunk = per["calls"] // -(-pop // mb)
-    rows = reward_rows(torch, reward.rows, calls_per_chunk, B // calls_per_chunk)
-    if tuple(rows.shape) != (pop, B) or not bool(torch.isfinite(rows).all()):
-        raise AssertionError(f"reward rows {tuple(rows.shape)} not [{pop}, {B}] and finite")
-    if not all(bool(torch.isfinite(t).all()) for d in theta.values() for t in d.values()):
-        raise AssertionError("θ′ not finite")
-    delta_norm = float(metrics["delta_norm"])
-    if not delta_norm > 0:
-        raise AssertionError(f"the update is zero (delta_norm {delta_norm})")
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    theta = backend.init_theta(torch.Generator().manual_seed(1))  # a fresh run's θ: b = 0
+    theta, run = timed_epochs(torch, step, theta, info.flat_ids, reward, expected1, pop,
+                              per["calls"] // -(-pop // mb), tag, f"flagship ES epoch ({opt['base_quant']} base)")
     noise = sample_noise(torch.Generator(device="cuda").manual_seed(5), theta, pop, tc.es_config())
     breakdown = es_stage_breakdown(torch, backend, suite, theta, noise, tc, tag)
-    stats = dict(
-        plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s, warmup_epoch_s=warm_s,
-        epoch_s=epoch_s, images_per_epoch=pop * B, images_per_s=[pop * B / s for s in epoch_s],
-        peak_mem_gib=peak, launches=launches, expected_launches=expected, per_call=per,
-        reward_rows=rows.float().cpu().tolist(), opt_scores=[float(s) for s in opt_scores],
-        delta_norm=delta_norm, theta_norm=float(metrics["theta_norm"]),
-        member_breakdown_ms=breakdown,
-        metrics={k: (float(v) if v.numel() == 1 else v.float().cpu().tolist()) for k, v in metrics.items()},
-    )
-    log(f"[{tag}] flagship epochs {', '.join(f'{s:.3f}' for s in epoch_s)} s (warm-up {warm_s:.3f} s) = "
-        f"{', '.join(f'{x:.3f}' for x in stats['images_per_s'])} images/s; peak device memory {peak:.2f} GiB; "
-        f"launches {launches} (expected {expected}); reward rows {tuple(rows.shape)}; "
-        f"delta_norm {delta_norm:.4g}, theta_norm {stats['theta_norm']:.4g}")
+    stats = dict(plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s, per_call=per,
+                 member_breakdown_ms=breakdown, **run)
+    del backend, suite, reward, step
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _k4_inputs(torch, g, B, nq, L, H, dh, dt, kv_len=None):
+    """Main-path-like K4 inputs: unit-norm keys, queries of norm 4 (QK-l2
+    with the initial log-4 scale), normal values; the cache past ``kv_len``
+    holds NaN, which the kernel must never read."""
+    from hyperscalees_t2i_tpu_torch.models.nn import l2_normalize
+
+    q = (l2_normalize(torch.randn(B, nq, H, dh, generator=g, device="cuda")) * 4.0).to(dt)
+    k = l2_normalize(torch.randn(B, L, H, dh, generator=g, device="cuda")).to(dt)
+    v = torch.randn(B, L, H, dh, generator=g, device="cuda").to(dt)
+    if kv_len is not None and kv_len < L:
+        k[:, kv_len:] = float("nan")
+        v[:, kv_len:] = float("nan")
+    return q, k, v
+
+
+def phase_k4_check(torch):
+    """K4 at the VAR-d16 scale shapes (bf16, the main path, and f32): error
+    against the plain version, kernel / plain / library ms and the bound;
+    then the cases off the main path (masked dh-128 cross-attention, a
+    multi-tile kv prefix with ragged query tiles, an all-masked row)."""
+    import torch.nn.functional as F
+
+    from hyperscalees_t2i_tpu_torch.ops.attention import decode_attention, naive_masked_attention
+
+    g = torch.Generator(device="cuda").manual_seed(777)
+    B, H, dh, L = VAR_ROWS, VAR_HEADS, VAR_DH, sum(p * p for p in VAR_PATCH_NUMS)
+    rows, pos = [], 0
+    for si, pn in enumerate(VAR_PATCH_NUMS):
+        nq, kv = pn * pn, pos + pn * pn
+        pos = kv
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            esize = dt.itemsize
+            nbytes = (2 * B * nq * H * dh + 2 * B * kv * H * dh) * esize
+            flop = 4.0 * B * H * nq * kv * dh
+            sets = [_k4_inputs(torch, g, B, nq, L, H, dh, dt, kv)
+                    for _ in range(max(1, min(8, math.ceil(100e6 / nbytes))))]
+            q, k, v = sets[0]
+            out = decode_attention(q, k, v, kv_len=kv, sm_scale=1.0)
+            torch.cuda.synchronize()
+            err, tol, ref_max = check_close(f"decode_attention at scale {si} nq={nq} kv={kv} {dt_name}", out,
+                                            naive_masked_attention(q, k, v, kv, None, 1.0), dt_name, torch)
+            reps = 20
+            ms = time_ms(torch, [lambda s=s: decode_attention(s[0], s[1], s[2], kv_len=kv, sm_scale=1.0)
+                                 for s in sets], reps)
+            plain = time_ms(torch, [lambda s=s: naive_masked_attention(s[0], s[1], s[2], kv, None, 1.0)
+                                    for s in sets], reps)
+            lib = time_ms(torch, [lambda s=s: F.scaled_dot_product_attention(
+                s[0].transpose(1, 2), s[1][:, :kv].transpose(1, 2), s[2][:, :kv].transpose(1, 2), scale=1.0)
+                for s in sets], reps)
+            b_ms, b_by = bound(dt_name, flop, nbytes)
+            main = dt_name == "bfloat16"
+            rows.append(dict(
+                site=f"scale {si} (pn {pn})", nq=nq, kv_len=kv, B=B, H=H, dh=dh, dtype=dt_name, main_path=main,
+                calls_per_call=VAR_DEPTH if main else 0, max_abs_err=err, tol=tol, ref_max=ref_max, ms=ms,
+                plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by, gbytes_s=nbytes / ms / 1e6,
+            ))
+            log(f"[k4] scale {si} nq={nq:4d} kv={kv:4d} {dt_name:8s} {'main' if main else '    '} "
+                f"err={err:.3g} rel={err / ref_max:.3g} ms={ms:.4f} plain={plain:.4f} library={lib:.4f} "
+                f"bound={b_ms:.4f} ({b_by}) {nbytes / ms / 1e6:.1f} GB/s")
+            del sets, q, k, v, out
+
+    extra = []
+    for name, (Bx, nq, L2, Hx, dhx, kv, lens) in (
+        ("masked cross-attention dh 128", (4, 256, 512, 16, 128, 512, (512, 300, 77, 1))),
+        ("multi-tile kv, ragged q tiles", (3, 100, 1200, 4, 64, 1000, None)),
+        ("all-masked row", (2, 9, 96, 2, 64, 70, (70, 0))),
+    ):
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            q, k, v = _k4_inputs(torch, g, Bx, nq, L2, Hx, dhx, dt, kv)
+            mask = None
+            if lens is not None:
+                mask = torch.arange(L2, device="cuda")[None, :] < torch.tensor(lens, device="cuda")[:, None]
+            out = decode_attention(q, k, v, kv_len=kv, kv_mask=mask, sm_scale=1.0 / math.sqrt(dhx))
+            torch.cuda.synchronize()
+            ref = naive_masked_attention(q, k, v, kv, mask, 1.0 / math.sqrt(dhx))
+            err, tol, _ = check_close(f"decode_attention {name} {dt_name}", out, ref, dt_name, torch)
+            if lens is not None and 0 in lens:  # JAX's answer: a uniform average of V over the prefix
+                row = lens.index(0)
+                uni = v[row, :kv].float().mean(dim=0)[None].expand(nq, Hx, dhx)
+                check_close(f"decode_attention all-masked row {dt_name}", out[row], uni, dt_name, torch)
+            extra.append(dict(case=name, dtype=dt_name, max_abs_err=err, tol=tol))
+            log(f"[k4] {name:32s} {dt_name:8s} err={err:.3g} (tol {tol:.3g})")
+    torch.cuda.empty_cache()
+    return rows, extra
+
+
+class _RecordIds:
+    """Wraps ``models.var.sample_top_k_top_p`` to keep every sampled id."""
+
+    def __init__(self):
+        from hyperscalees_t2i_tpu_torch.models import var as var_mod
+
+        self.mod, self.orig, self.ids = var_mod, var_mod.sample_top_k_top_p, []
+
+    def __enter__(self):
+        def rec(*a, **kw):
+            out = self.orig(*a, **kw)
+            self.ids.append(out.cpu())
+            return out
+
+        self.mod.sample_top_k_top_p = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.sample_top_k_top_p = self.orig
+
+
+def phase_var_reference(torch):
+    """The tiny VAR geometry in f32 on the card against the CPU, on the same
+    weights: one ``generate`` (two lanes with different adapters, injected
+    Gumbel noise): token ids equal, images within 1e-4; one ES step (pop 4,
+    member_batch 2): θ′ and reward rows within 1e-4, K4 launches exactly
+    calls × scales × depth."""
+    from hyperscalees_t2i_tpu_torch.backends.var_backend import VarBackend
+    from hyperscalees_t2i_tpu_torch.es.noiser import sample_noise
+    from hyperscalees_t2i_tpu_torch.lora import stack_adapters
+    from hyperscalees_t2i_tpu_torch.models import clip, var as var_mod
+    from hyperscalees_t2i_tpu_torch.ops.sampling import gumbel_from_uniform
+    from hyperscalees_t2i_tpu_torch.rewards.suite import clip_text_embed_table, make_clip_reward_fn
+    from hyperscalees_t2i_tpu_torch.rungs import PROMPT_TOKEN_LEN, var_rung_model
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+    from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
+    from hyperscalees_t2i_tpu_torch.utils.pytree import tree_map
+
+    spec = var_rung_model("tiny")
+    bcfg, ccfg = spec["bcfg"], spec["clip_b"]
+    g = torch.Generator().manual_seed(31)
+    params = var_mod.init_var(bcfg.model, g)
+    cparams = clip.init_clip(ccfg, g)
+    tids = torch.randint(0, ccfg.vocab_size, (bcfg.model.num_classes + 2, PROMPT_TOKEN_LEN), generator=g)
+    with torch.inference_mode():
+        table = clip_text_embed_table(clip.CLIPModel(ccfg, cparams), tids)
+    pop, m, mb = 4, 4, 2
+    tc = TrainConfig(pop_size=pop, sigma=0.01, egg_rank=4, member_batch=mb)
+    outs = {}
+    for dev in (torch.device("cpu"), torch.device("cuda")):
+        on = lambda t: tree_map(lambda a: a.to(dev), t)  # noqa: E731
+        backend = VarBackend(bcfg, dev, params=on(params))
+        backend.setup()
+        suite = RecordingReward(make_clip_reward_fn(clip.CLIPModel(ccfg, on(cparams)), table.to(dev)))
+        if dev.type == "cpu":
+            gen = torch.Generator().manual_seed(32)
+            thetas = []
+            for i in range(2):
+                th = backend.init_theta(gen)
+                thetas.append({k: {f: v + 0.1 * torch.randn(v.shape, generator=gen) for f, v in d.items()}
+                               for k, d in th.items()})
+            lanes_noise = gumbel_from_uniform(torch.rand(2, 2, *backend.noise_shape, generator=gen))
+            theta = thetas[0]
+            noise = sample_noise(torch.Generator().manual_seed(33), theta, pop, tc.es_config())
+            flat = backend.step_info(0, m, 1).flat_ids
+            gen_noise = backend.sample_gen_noise(gen, len(flat))
+        with torch.inference_mode(), _RecordIds() as rec:
+            images = backend.generate_p(on(stack_adapters(thetas)), [[0, 1], [2, 3]], None, noise=lanes_noise.to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            _reset_counters()
+        step = make_es_step(backend, suite, tc, m, 1, device=dev)
+        theta_new, metrics, _ = step(theta, flat, 0, noise=noise, gen_noise=gen_noise)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launches = _counters()
+        rows = reward_rows(torch, suite.rows, 1, len(flat))
+        outs[dev.type] = (images.float().cpu(), torch.cat([i.reshape(-1) for i in rec.ids]),
+                          tree_map(lambda a: a.float().cpu(), theta_new), rows.float().cpu(),
+                          float(metrics["delta_norm"]))
+        del backend, suite, step
+    calls = -(-pop // mb)
+    expected = {"int8_matmul": 0, "lora_chain": 0, "fused_qlora": 0,
+                "decode_attention": calls * len(bcfg.model.patch_nums) * bcfg.model.depth}
+    img_err = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
+    ids_equal = bool(torch.equal(outs["cuda"][1], outs["cpu"][1]))
+    th_err = max(float((outs["cuda"][2][k][f] - outs["cpu"][2][k][f]).abs().max())
+                 for k in outs["cpu"][2] for f in outs["cpu"][2][k])
+    row_err = float((outs["cuda"][3] - outs["cpu"][3]).abs().max())
+    log(f"[var-tiny] generate, 2 lanes × 2 images, card vs CPU: ids equal {ids_equal} "
+        f"({outs['cpu'][1].numel()} tokens), images max abs diff {img_err:.3g} (tol 1e-4); ES step: θ′ "
+        f"{th_err:.3g}, reward rows {tuple(outs['cuda'][3].shape)} {row_err:.3g} (tol 1e-4), ‖Δθ‖ "
+        f"{outs['cuda'][4]:.4g} (CPU {outs['cpu'][4]:.4g}); launches {launches} expected {expected}")
+    if not ids_equal or not img_err <= 1e-4:
+        raise AssertionError(f"card and CPU disagree on the tiny VAR generate: ids equal {ids_equal}, images {img_err}")
+    if tuple(outs["cuda"][3].shape) != (pop, len(flat)) or not (th_err <= 1e-4 and row_err <= 1e-4):
+        raise AssertionError(f"card and CPU disagree on the tiny VAR ES step: θ′ {th_err}, rows {row_err}")
+    if not outs["cuda"][4] > 0:
+        raise AssertionError("the tiny VAR ES step made no update")
+    if launches != expected:
+        raise AssertionError(f"tiny VAR ES step launched {launches}, expected {expected}")
+    torch.cuda.empty_cache()
+    return {"images_max_abs": img_err, "ids_equal": ids_equal, "tokens": int(outs["cpu"][1].numel()),
+            "theta_max_abs": th_err, "rows_max_abs": row_err, "delta_norm": outs["cuda"][4], "launches": launches,
+            "expected": expected}
+
+
+def var_stage_breakdown(torch, backend, reward, theta, noise, tc, ids, gen_noise, reps: int = 2):
+    """One generate → decode → reward call of the epoch (a chunk of
+    ``member_batch`` members, each on the epoch's images). Stage times by
+    CUDA events (mean of ``reps`` warm runs): generation (transformer, K4,
+    sampling, VQ pyramid), decode (the CompVis decoder), reward (resize +
+    both towers). Then one run under ``torch.profiler``: device time per
+    kernel name, busy time, idle share, and K4's time in situ."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperscalees_t2i_tpu_torch.es.noiser import perturb_member
+    from hyperscalees_t2i_tpu_torch.lora import stack_adapters
+    from hyperscalees_t2i_tpu_torch.models import msvq, var as var_mod
+
+    n = tc.member_batch
+    cfg = backend.cfg
+    labels = backend._pool[ids].expand(n, -1)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    acc = [0.0, 0.0, 0.0]
+
+    def one():
+        ev[0].record()
+        f_hat = var_mod.generate(backend.model, labels, gen_noise.expand(n, *gen_noise.shape), cfg_scale=cfg.cfg_scale,
+                                 top_k=cfg.top_k, top_p=cfg.top_p, lora=theta_k, lora_scale=backend.lora_scale,
+                                 decode=False)
+        ev[1].record()
+        images = msvq.decode_img(backend.model.vq, f_hat.reshape(-1, *f_hat.shape[2:]))
+        ev[2].record()
+        reward(images, ids.repeat(n))
+        ev[3].record()
+        torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        theta_k = stack_adapters([perturb_member(theta, noise, k, tc.pop_size, tc.es_config()) for k in range(n)])
+        theta_k = {k: {f: t.to("cuda") for f, t in d.items()} for k, d in theta_k.items()}
+        for i in range(reps + 1):
+            one()
+            if i:  # the first run warms up
+                for j in range(3):
+                    acc[j] += ev[j].elapsed_time(ev[j + 1]) / reps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            one()
+    kernels, busy, n_kernels, top = device_kernels(torch, prof)
+    k4 = [(ms, cnt) for name, (ms, cnt) in kernels.items() if "decode_attention" in name]
+    out = {"generation": acc[0], "decode": acc[1], "reward": acc[2], "device_busy_profiled": busy,
+           "idle_share": 1.0 - busy / sum(acc), "device_kernels": n_kernels,
+           "k4_in_situ_ms": sum(ms for ms, _ in k4), "k4_in_situ_launches": sum(c for _, c in k4),
+           "top_kernels": [dict(name=t, ms=m_, launches=c) for m_, c, t in top]}
+    log(f"[var] one generate call ({n} lanes × {ids.numel()} images), device time: generation {acc[0]:.2f} ms, "
+        f"decode {acc[1]:.2f} ms, reward {acc[2]:.2f} ms; {out['device_kernels']} kernels busy {busy:.2f} ms "
+        f"(profiled) = idle share {out['idle_share']:.3f}; K4 in situ {out['k4_in_situ_ms']:.2f} ms over "
+        f"{out['k4_in_situ_launches']} launches")
+    for m_, c, t in top:
+        log(f"[var]   {m_:9.3f} ms {c:5d} launches  {t}")
+    return out
+
+
+def phase_var_es(torch):
+    """The VAR-d16 ES epoch step (``RUNG_PLAN``/``RUNG_OPT["ar_d16"]``): one
+    warm-up, then two timed epochs with the launch counters set to 0 just
+    before and read just after; K4 must launch 160 times per generate call."""
+    from hyperscalees_t2i_tpu_torch.backends.var_backend import build_train_backend
+    from hyperscalees_t2i_tpu_torch.es.noiser import sample_noise
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+    from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
+
+    scale, pop, m, mb = RUNG_PLAN["ar_d16"]
+    opt = rung_opt("ar_d16")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    backend, suite = build_train_backend(scale, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reward = RecordingReward(suite)
+    tc = TrainConfig(pop_size=pop, sigma=0.01, egg_rank=4, member_batch=mb, promptnorm=True,
+                     reward_tile=opt["reward_tile"], noise_dtype=opt["noise_dtype"], pop_fuse=opt["pop_fuse"])
+    info = backend.step_info(0, m, 1)
+    B = len(info.flat_ids)
+    mcfg = backend.cfg.model
+    calls = -(-pop // mb)
+    per_call = len(mcfg.patch_nums) * mcfg.depth
+    expected1 = {"int8_matmul": 0, "lora_chain": 0, "fused_qlora": 0, "decode_attention": per_call * calls}
+    step = make_es_step(backend, reward, tc, len(info.unique_ids), 1, device="cuda", stateful_delta=True)
+    log(f"[var] VAR-d16 ES backend built in {build_s:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; {calls} generate calls per epoch of {mb} lanes × {B} "
+        f"images × 2 (CFG) = {2 * mb * B} rows; K4 {per_call} per call")
+    theta = backend.init_theta(torch.Generator().manual_seed(1))  # a fresh run's θ: b = 0
+    theta, run = timed_epochs(torch, step, theta, info.flat_ids, reward, expected1, pop, 1, "var", "VAR-d16 ES epoch")
+    noise = sample_noise(torch.Generator(device="cuda").manual_seed(5), theta, pop, tc.es_config())
+    ids = torch.as_tensor(info.flat_ids, device="cuda")
+    gen_noise = backend.sample_gen_noise(torch.Generator(device="cuda").manual_seed(6), B)
+    breakdown = var_stage_breakdown(torch, backend, suite, theta, noise, tc, ids, gen_noise)
+    stats = dict(plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s,
+                 per_call={"k4_per_call": per_call, "calls": calls}, call_breakdown_ms=breakdown, **run)
     del backend, suite, reward, step
     torch.cuda.empty_cache()
     return stats
 
 
 def kernel_summary(name, rows, launches, calls_key, replaces, scope):
-    """One entry per kernel: its calls for one flagship image, summed."""
+    """One entry per kernel: its main-path calls per unit of its path (one
+    flagship image, one VAR generate call), summed."""
     main = [r for r in rows if r["main_path"] and r[calls_key]]
     total = lambda key: sum(r[key] * r[calls_key] for r in main)  # noqa: E731
     ops_ms = sum(r["bound_ms"] * r[calls_key] for r in main if r["bound_by"] == "operations")
@@ -763,11 +1092,14 @@ def main() -> int:
     build_s = phase_build()
     k1_rows = phase_k1_check(torch)
     chain_rows = phase_chain_check(torch)
+    k4_rows, k4_extra = phase_k4_check(torch)
     small_err = phase_small_reference(torch)
     es_tiny = phase_es_reference(torch, "tiny", int8=True)
     es_small = phase_es_reference(torch, "small", int8=False)
+    var_tiny = phase_var_reference(torch)
     es_float = phase_es_flagship(torch, base_quant="off")
     serve = phase_serve(torch)
+    var_es = phase_var_es(torch)
     es = phase_es_flagship(torch)
 
     kernels = [
@@ -779,6 +1111,9 @@ def main() -> int:
         kernel_summary("fused_qlora", chain_rows["fused_qlora"], es["launches"]["fused_qlora"],
                        "calls_per_image", "hyperscalees_t2i_tpu/ops/fused_qlora.py:201",
                        "one flagship ES image's adapted sites"),
+        kernel_summary("decode_attention", k4_rows, var_es["launches"]["decode_attention"], "calls_per_call",
+                       "hyperscalees_t2i_tpu/ops/attention.py:58",
+                       "one VAR-d16 generate call (32 rows, 10 scales x 16 layers)"),
     ]
     k1_serve = kernel_summary("int8_matmul", k1_rows, serve["launches"]["int8_matmul"], "calls_per_image",
                               "hyperscalees_t2i_tpu/ops/quant_mm.py:86", "one flagship served image")
@@ -788,14 +1123,19 @@ def main() -> int:
             raise AssertionError(f"{k['name']} table and launch count disagree")
     if kernels[0]["launches"] != sum(r["calls_per_es_image"] for r in k1_rows) * es["images_per_epoch"] * TIMED_EPOCHS:
         raise AssertionError("K1 table and launch count disagree")
+    if kernels[3]["launches"] != sum(r["calls_per_call"] for r in k4_rows) * var_es["per_call"]["calls"] * TIMED_EPOCHS:
+        raise AssertionError("K4 table and launch count disagree")
 
+    wall_s = time.perf_counter() - t_start
+    log(f"[done] every phase passed in {wall_s:.1f} s (kernel build included)")
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, device=torch.cuda.get_device_name(0), torch=torch.__version__, build_s=build_s,
-        k1_shapes=k1_rows, chain_shapes=chain_rows, small_reference_max_abs=small_err, es_tiny=es_tiny,
-        es_small=es_small, es_flagship_float=es_float, serve=serve, es_flagship=es, kernels=kernels, k1_serving=k1_serve,
-        wall_s=time.perf_counter() - t_start,
+        k1_shapes=k1_rows, chain_shapes=chain_rows, k4_shapes=k4_rows, k4_cases=k4_extra,
+        small_reference_max_abs=small_err, es_tiny=es_tiny, es_small=es_small, var_tiny=var_tiny,
+        es_flagship_float=es_float, serve=serve, var_es=var_es, es_flagship=es, kernels=kernels, k1_serving=k1_serve,
+        wall_s=wall_s,
     ), indent=1))
     for k in kernels + [k1_serve]:
         log(f"[done] {k['name']} ({k['scope']}): {k['ms']:.3f} ms kernel, {k['plain_ms']:.3f} ms plain, "

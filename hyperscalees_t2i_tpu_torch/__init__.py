@@ -2,14 +2,18 @@
 
 The JAX package ``hyperscalees_t2i_tpu`` beside this one is the reference;
 this package imports neither it nor ``jax``. Module names follow the JAX
-package so each unit's counterpart is easy to find. What is ported so far is
-the Sana-Sprint serving path:
+package so each unit's counterpart is easy to find. What is ported so far:
 
-``serve.engine.ServeEngine`` → ``parallel.pop_eval.make_adapter_batch_generator``
-→ ``backends.sana_backend.SanaBackend.generate_p`` → ``models.sana`` (DiT +
-one-step sampler) and ``models.dcae`` (decoder), with every int8 dense site
-going through the hand-written CUDA kernel in ``csrc/int8_matmul.cu``
-(``ops.quant_mm.int8_matmul``).
+- Sana-Sprint serving: ``serve.engine.ServeEngine`` →
+  ``parallel.pop_eval.make_adapter_batch_generator`` →
+  ``backends.sana_backend.SanaBackend.generate_p`` → ``models.sana`` (DiT +
+  one-step sampler) and ``models.dcae`` (decoder), every int8 dense site on
+  the CUDA kernel ``csrc/int8_matmul.cu`` (K1);
+- the EGGROLL-ES epoch (``train.trainer.make_es_step``) over the Sana
+  backend (K3 ``csrc/fused_qlora.cu``, K2 ``csrc/lora_chain.cu``) and over
+  the VAR backend (``backends.var_backend`` → ``models.var`` →
+  ``models.msvq``), whose KV-cache attention is K4
+  ``csrc/decode_attention.cu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit CPU request they raise (:mod:`.device`).

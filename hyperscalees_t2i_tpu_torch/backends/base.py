@@ -75,6 +75,11 @@ class GeneratorBackend(Protocol):
         """Shape of one image's generation noise."""
         ...
 
+    def sample_gen_noise(self, generator: torch.Generator, count: int) -> torch.Tensor:
+        """One ES epoch's generation noise ``[count, *noise_shape]``, drawn
+        from ``generator`` on its device; every member shares it."""
+        ...
+
     def generate_p(
         self,
         stacked_theta: Optional[Adapter],

@@ -18,9 +18,9 @@ import torch
 
 from ..device import DeviceLike, generator_for, resolve_device
 from ..lora import LoRASpec, init_lora
-from ..models import clip, dcae, sana
+from ..models import dcae, sana
 from ..ops.quant import maybe_quantize_tree
-from ..rungs import BENCH_PROMPT_SET, PROMPT_EMBED_LEN, PROMPT_TOKEN_LEN, rung_opt, sana_rung_model
+from ..rungs import BENCH_PROMPT_SET, PROMPT_EMBED_LEN, rung_opt, sana_rung_model
 from ..utils.pytree import cast_floating, resolve_float_dtype, tree_map
 from ..utils.seeding import stable_text_seed
 from .base import StepInfo, default_step_info
@@ -129,6 +129,11 @@ class SanaBackend:
     def noise_shape(self) -> Tuple[int, int, int]:
         return (self.cfg.height_latent, self.cfg.width_latent, self.cfg.model.in_channels)
 
+    def sample_gen_noise(self, generator: torch.Generator, count: int) -> torch.Tensor:
+        """One ES epoch's latent noise ``[count, h, w, C]``: standard normals
+        from ``generator``."""
+        return torch.randn((count, *self.noise_shape), generator=generator, device=generator.device)
+
     def generate_p(
         self,
         stacked_theta: Optional[Params],
@@ -204,35 +209,22 @@ def build_train_backend(scale: str, device: DeviceLike = None, base_quant: Optio
     decoder and both CLIP trees. ``base_quant`` defaults to the rung's
     ``RUNG_OPT``; ``"off"`` keeps a float base, whose adapted sites run K2
     instead of K3. Returns ``(backend, reward_fn)``."""
-    from ..rewards.suite import clip_text_embed_table, make_clip_reward_fn, pickscore_text_embeds
+    from ..rewards.suite import build_random_reward_suite
 
     opt = rung_opt(scale)
     base_quant = opt["base_quant"] if base_quant is None else base_quant
     dev = resolve_device(device)
     spec = sana_rung_model(scale, tower_dtype=opt["tower_dtype"])
-    bcfg, clip_b, clip_h = spec["bcfg"], spec["clip_b"], spec["clip_h"]
+    bcfg = spec["bcfg"]
     dtype = torch.bfloat16
     prompts = list(BENCH_PROMPT_SET)
-    M = len(prompts)
 
     params = cast_floating(sana.init_sana(bcfg.model, generator_for(dev, seed)), dtype)
     vae = cast_floating(dcae.init_decoder(bcfg.vae, generator_for(dev, seed + 1)), dtype)
-    g = generator_for(dev, seed + 2)
-    cparams = cast_floating(clip.init_clip(clip_b, g), dtype)
-    ids = torch.randint(0, clip_b.vocab_size, (M + 2, PROMPT_TOKEN_LEN), generator=g, device=dev)
-    with torch.inference_mode():
-        table = clip_text_embed_table(clip.CLIPModel(clip_b, cparams), ids)
-    pick_model = ptable = None
-    if clip_h is not None:
-        pparams = cast_floating(clip.init_clip(clip_h, g), dtype)
-        pids = torch.randint(0, clip_h.vocab_size, (M, PROMPT_TOKEN_LEN), generator=g, device=dev)
-        with torch.inference_mode():
-            ptable = pickscore_text_embeds(clip.CLIPModel(clip_h, pparams), pids)
-        pick_model = clip.CLIPModel(clip_h, maybe_quantize_tree(pparams, base_quant))
-        del pparams
-    clip_model = clip.CLIPModel(clip_b, maybe_quantize_tree(cparams, base_quant))
+    reward = build_random_reward_suite(spec["clip_b"], spec["clip_h"], len(prompts), generator_for(dev, seed + 2),
+                                       dtype, base_quant)
     backend = SanaBackend(bcfg, dev, params=maybe_quantize_tree(params, base_quant),
                           vae_params=maybe_quantize_tree(vae, base_quant), prompts=prompts)
-    del params, vae, cparams
+    del params, vae
     backend.setup()
-    return backend, make_clip_reward_fn(clip_model, table, pick_model=pick_model, pick_text_embeds=ptable)
+    return backend, reward

@@ -1,0 +1,186 @@
+"""VAR backend: class-conditional ES over the next-scale AR generator.
+
+Port of ``hyperscalees_t2i_tpu/backends/var_backend.py``. A class pool is
+the catalog: catalog item ``i`` is class ``class_pool[i]``, prompted to the
+rewards as "a photo of {name}". Names come from a labels file (one per
+line) or fall back to ``class_{i}``; nothing is downloaded.
+
+Generation noise is Gumbel noise ``[L, V]`` per image (the JAX package's
+``jax.random.categorical`` keys): image ``j`` of a served lane draws it
+from ``(seed, j)`` only, and an ES epoch draws one ``[B, L, V]`` block that
+every member shares (:meth:`VarBackend.sample_gen_noise`).
+
+:func:`build_train_backend` builds the backend and the reward suite of the
+``ar_d16`` rung (``rungs.var_rung_model``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..device import DeviceLike, generator_for, resolve_device
+from ..lora import LoRASpec, init_lora
+from ..models import var as var_mod
+from ..ops.sampling import gumbel_from_uniform
+from ..rungs import rung_opt, var_rung_model
+from ..utils.pytree import cast_floating, resolve_float_dtype, tree_map
+from ..utils.seeding import item_seed
+from .base import StepInfo, default_step_info
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass
+class VarBackendConfig:
+    model: var_mod.VARConfig = dataclasses.field(default_factory=var_mod.VARConfig)
+    class_pool: Optional[Tuple[int, ...]] = None  # None → all classes
+    labels_path: Optional[str] = None
+    cfg_scale: float = 4.0
+    top_k: int = 900
+    top_p: float = 0.96
+    lora_r: int = 8
+    lora_alpha: float = 16.0
+    lora_targets: Tuple[str, ...] = var_mod.VAR_LORA_TARGETS
+    seed_params: int = 0
+
+
+def load_class_names(num_classes: int, labels_path: Optional[str]) -> List[str]:
+    """Class names for the reward prompts: ``labels_path`` when it holds at
+    least ``num_classes`` names, else ``class_{i}`` placeholders."""
+    if labels_path and Path(labels_path).exists():
+        names = [l.strip() for l in Path(labels_path).read_text().splitlines() if l.strip()]
+        if len(names) >= num_classes:
+            return names[:num_classes]
+    return [f"class_{i}" for i in range(num_classes)]
+
+
+def per_image_gumbel(seed: int, item_index: Sequence[int], shape: Tuple[int, ...],
+                     device: torch.device) -> torch.Tensor:
+    """``[len(item_index), *shape]`` standard Gumbel draws; image ``i`` from a
+    CPU generator seeded by ``(seed, item_index[i])`` only."""
+    out = []
+    for idx in item_index:
+        g = torch.Generator(device="cpu").manual_seed(item_seed(seed, int(idx)))
+        out.append(gumbel_from_uniform(torch.rand(shape, generator=g)))
+    return torch.stack(out).to(device)
+
+
+class VarBackend:
+    """Holds the frozen :class:`~..models.var.VARTransformer` (with its VQ-VAE)
+    on ``device`` and generates images for lane-stacked adapter batches.
+    ``params`` is a tree in the JAX package's layout; a missing one is drawn
+    from ``cfg.seed_params`` by :meth:`setup`."""
+
+    def __init__(self, cfg: VarBackendConfig, device: DeviceLike = None, params: Optional[Params] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.name = "var"
+        self._params = params
+        self.model: Optional[var_mod.VARTransformer] = None
+        self.param_shapes: Optional[Params] = None
+        self._spec = LoRASpec(rank=cfg.lora_r, alpha=cfg.lora_alpha, targets=cfg.lora_targets)
+        pool = cfg.class_pool or tuple(range(cfg.model.num_classes))
+        self.class_pool: Tuple[int, ...] = tuple(int(c) for c in pool)
+        names = load_class_names(cfg.model.num_classes, cfg.labels_path)
+        self.prompts = [f"a photo of {names[c]}" for c in self.class_pool]
+        self._pool = torch.tensor(self.class_pool, dtype=torch.long, device=self.device)
+
+    def setup(self) -> None:
+        if self.model is None:
+            params = self._params
+            if params is None:
+                params = var_mod.init_var(self.cfg.model, generator_for(self.device, self.cfg.seed_params))
+            self.param_shapes = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), params)
+            self.model = var_mod.VARTransformer(self.cfg.model, params).to(self.device)
+            self._params = None
+
+    # -- protocol ------------------------------------------------------------
+    def init_theta(self, generator: torch.Generator) -> Dict[str, Dict[str, torch.Tensor]]:
+        return init_lora(self.param_shapes, self._spec, generator, device=torch.device("cpu"))
+
+    @property
+    def lora_scale(self) -> float:
+        return self._spec.scale
+
+    @property
+    def num_items(self) -> int:
+        return len(self.class_pool)
+
+    @property
+    def texts(self) -> List[str]:
+        return self.prompts
+
+    def step_info(self, seed: int, num_unique: int, repeats: int) -> StepInfo:
+        return default_step_info(seed, self.num_items, num_unique, repeats, self.prompts)
+
+    @property
+    def noise_shape(self) -> Tuple[int, int]:
+        return (self.cfg.model.seq_len, self.cfg.model.vq.vocab_size)
+
+    def sample_gen_noise(self, generator: torch.Generator, count: int) -> torch.Tensor:
+        """One ES epoch's sampling noise ``[count, L, V]``: standard Gumbel
+        ``-log(-log U)`` from ``generator``."""
+        u = torch.rand((count, *self.noise_shape), generator=generator, device=generator.device)
+        return gumbel_from_uniform(u)
+
+    def generate_p(
+        self,
+        stacked_theta: Optional[Params],
+        flat_ids: Any,
+        seeds: Optional[Sequence[int]],
+        noise: Optional[torch.Tensor] = None,
+        guidance_scale: Optional[float] = None,
+    ) -> torch.Tensor:
+        """``[n, b]`` catalog indices with ``n`` lane-stacked adapters and
+        ``n`` seeds → images ``[n, b, H, W, 3]``. Image ``j`` of lane ``i``
+        draws its Gumbel noise from ``(seeds[i], j)``; ``noise [n, b, L,
+        V]`` replaces the draw. ``guidance_scale`` overrides the CFG scale."""
+        cfg = self.cfg
+        ids = torch.as_tensor(flat_ids, dtype=torch.long, device=self.device)
+        n, b = ids.shape
+        if noise is None:
+            if seeds is None or len(seeds) != n:
+                raise ValueError(f"{n} lanes need {n} seeds or explicit noise, got seeds {seeds}")
+            noise = torch.stack([per_image_gumbel(s, range(b), self.noise_shape, self.device) for s in seeds])
+        else:
+            noise = noise.reshape(n, b, *self.noise_shape)
+        return var_mod.generate(
+            self.model, self._pool[ids], noise,
+            cfg_scale=cfg.cfg_scale if guidance_scale is None else guidance_scale,
+            top_k=cfg.top_k, top_p=cfg.top_p, lora=stacked_theta, lora_scale=self.lora_scale,
+        )
+
+    def generate(self, theta: Optional[Params], flat_ids: Sequence[int], seed: int) -> torch.Tensor:
+        """One adapter, one request: ``[b]`` catalog indices → ``[b, H, W, 3]``."""
+        stacked = None
+        if theta is not None:
+            stacked = {k: {f: t.to(self.device)[None] for f, t in v.items()} for k, v in theta.items()}
+        return self.generate_p(stacked, [list(flat_ids)], [seed])[0]
+
+
+def build_train_backend(scale: str = "d16", device: DeviceLike = None, seed: int = 0):
+    """The VAR backend and the reward suite of the ``ar_d16`` rung, as the
+    JAX package's ``bench.py`` and ``train/cli.py`` build them: random
+    weights from ``seed`` on the device, the transformer's and VQ-VAE's
+    float leaves cast to bf16 (``"d16"``; ``"tiny"`` stays f32), a 16-class
+    pool (``class_{i}`` names), CLIP-B/32 and the CLIP-H/14 PickScore tower
+    at their published widths (``"d16"``) with text tables from random
+    token ids, both towers' weights and compute in the rung's
+    ``tower_dtype`` (f32). The float base is kept (``RUNG_OPT["ar_d16"]``).
+    Returns ``(backend, reward_fn)``."""
+    from ..rewards.suite import build_random_reward_suite
+
+    opt = rung_opt("ar_d16")
+    dev = resolve_device(device)
+    spec = var_rung_model(scale, tower_dtype=opt["tower_dtype"])
+    bcfg = spec["bcfg"]
+    params = cast_floating(var_mod.init_var(bcfg.model, generator_for(dev, seed)), bcfg.model.compute_dtype)
+    backend = VarBackend(bcfg, dev, params=params)
+    del params
+    backend.setup()
+    return backend, build_random_reward_suite(spec["clip_b"], spec["clip_h"], backend.num_items,
+                                              generator_for(dev, seed + 2), resolve_float_dtype(opt["tower_dtype"]))

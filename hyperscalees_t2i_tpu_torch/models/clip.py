@@ -27,6 +27,7 @@ from torch import nn as tnn
 
 from ..utils.pytree import tree_map
 from . import nn
+from .resize import resize
 
 Params = Dict[str, Any]
 
@@ -198,42 +199,13 @@ class CLIPModel(tnn.Module):
         self.register_buffer("logit_scale", params["logit_scale"])
 
 
-def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
-    out = ((1.5 * x - 2.5) * x) * x + 1.0
-    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return torch.where(x >= 2.0, torch.zeros_like(x), out)
-
-
-def resize_weights(in_size: int, out_size: int, device: Any = None) -> torch.Tensor:
-    """``[in_size, out_size]`` weights of ``jax.image.resize(..., "bicubic")``
-    along one axis: Keys cubic (a = −0.5), half-pixel centres, the kernel
-    widened by the downsampling factor (antialiasing), each output's
-    weights normalized to sum to 1, computed in f32 as
-    ``jax.image.scale_and_translate`` computes them."""
-    f32 = torch.float32
-    inv_scale = torch.tensor(1.0 / (out_size / in_size), dtype=f32)
-    kernel_scale = torch.maximum(inv_scale, torch.tensor(1.0))
-    sample_f = (torch.arange(out_size, dtype=f32) + 0.5) * inv_scale - 0.0 - 0.5
-    x = (sample_f[None, :] - torch.arange(in_size, dtype=f32)[:, None]).abs() / kernel_scale
-    w = _keys_cubic(x)
-    total = w.sum(dim=0, keepdim=True)
-    w = torch.where(total.abs() > 1000.0 * torch.finfo(f32).eps,
-                    w / torch.where(total != 0, total, torch.ones_like(total)), torch.zeros_like(w))
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
-
-
 def preprocess_images(images: torch.Tensor, cfg: CLIPConfig) -> torch.Tensor:
     """``[B, H, W, 3]`` in [0, 1] → normalized ``[B, S, S, 3]``: cast to the
     tower dtype, resized there (antialiased bicubic, as the JAX package's
     ``jax.image.resize``), mean/std normalized in f32, output in the tower
     dtype."""
     s, dt = cfg.image_size, cfg.compute_dtype
-    images = images.to(dt)
-    if images.shape[1] != s:
-        images = torch.einsum("bhwc,hy->bywc", images, resize_weights(images.shape[1], s, images.device).to(dt))
-    if images.shape[2] != s:
-        images = torch.einsum("bywc,wx->byxc", images, resize_weights(images.shape[2], s, images.device).to(dt))
+    images = resize(images.to(dt), s, s, "cubic")
     mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=torch.float32, device=images.device)
     std = torch.tensor(CLIP_IMAGE_STD, dtype=torch.float32, device=images.device)
     return ((images.to(torch.float32) - mean) / std).to(dt)

@@ -113,6 +113,53 @@ def rms_norm(x: torch.Tensor, p: Optional[Params] = None, eps: float = 1e-6) -> 
     return y.to(dtype)
 
 
+def group_norm(x: torch.Tensor, p: Optional[Params] = None, groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
+    """GroupNorm over NHWC in f32 (the CompVis-VAE normalizer): ``min(groups,
+    C)`` groups, lowered until they divide C; population variance."""
+    dtype = x.dtype
+    B, H, W, C = x.shape
+    g = min(groups, C)
+    while C % g:
+        g -= 1
+    xg = x.to(torch.float32).reshape(B, H, W, g, C // g)
+    mu = xg.mean(dim=(1, 2, 4), keepdim=True)
+    var = xg.var(dim=(1, 2, 4), unbiased=False, keepdim=True)
+    y = ((xg - mu) * torch.rsqrt(var + eps)).reshape(B, H, W, C)
+    if p is not None and "scale" in p:
+        y = y * p["scale"]
+    if p is not None and "bias" in p:
+        y = y + p["bias"]
+    return y.to(dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """GELU with the tanh approximation (``jax.nn.gelu(approximate=True)``)."""
+    return F.gelu(x, approximate="tanh")
+
+
+MAX_QK_SCALE_MUL = math.log(100.0)
+
+
+def l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    """f32 unit norm over the last axis, ``x · rsqrt(Σx² + 1e-24)``; returns
+    f32."""
+    x = x.to(torch.float32)
+    return x * torch.rsqrt((x * x).sum(-1, keepdim=True) + 1e-24)
+
+
+def q_l2(q: torch.Tensor, scale_mul_h: torch.Tensor) -> torch.Tensor:
+    """``normalize(q) · exp(min(scale_mul, log 100))`` per head (``q
+    [..., H, dh]``, ``scale_mul_h [H]``), in q's dtype."""
+    sm = torch.exp(torch.clamp(scale_mul_h.to(torch.float32), max=MAX_QK_SCALE_MUL))
+    return (l2_normalize(q) * sm[:, None]).to(q.dtype)
+
+
+def qk_l2(q: torch.Tensor, k: torch.Tensor, scale_mul_h: torch.Tensor):
+    """QK-l2 attention's inputs: :func:`q_l2` for q, unit-norm k (the AR
+    caches store the normalized k); the softmax scale becomes 1."""
+    return q_l2(q, scale_mul_h), l2_normalize(k).to(k.dtype)
+
+
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0, scale: float = 1.0) -> torch.Tensor:
     """Sinusoidal features ``[B, dim]`` in f32, cos|sin order."""
     half = dim // 2

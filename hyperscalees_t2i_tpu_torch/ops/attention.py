@@ -1,0 +1,131 @@
+"""Decode attention against a partially filled KV cache, and its CUDA kernel (K4).
+
+Port of ``hyperscalees_t2i_tpu/ops/attention.py``. There the Pallas kernel
+``_flash_kernel`` runs online-softmax attention of a query block against the
+first ``kv_len`` positions of a KV cache, with the kv axis as a sequential
+grid dimension over head-major, block-padded copies. Here the kernel is
+``csrc/decode_attention.cu`` (its note says what bounds it and how it is
+laid out), built by ``nvcc`` at first use and called through ``ctypes`` on
+PyTorch's current stream. It reads q, K and V in place through their strides
+and reads nothing past ``kv_len``.
+
+- :func:`decode_attention` — the wrapper. A CPU tensor takes the plain
+  version :func:`naive_masked_attention`; a CUDA tensor launches the kernel
+  or raises. ``decode_attention.launches`` counts kernel launches.
+
+Shapes are the models' cache layout: queries ``[B, nq, H, dh]``, KV cache
+``[B, L, H, dh]`` with the first ``kv_len`` positions valid, an optional
+bool key mask ``[B, L]`` (padded text in cross-attention). A masked logit is
+the finite ``NEG_INF``, so a row whose every key is masked averages V
+uniformly over the prefix, as the JAX package's plain path does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 128  # csrc/decode_attention.cu's limit
+_ENTRY = {torch.bfloat16: "hses_decode_attention_bf16", torch.float32: "hses_decode_attention_f32"}
+# q, k, v, mask, out; B, nq, H, dh, kv_len; strides of q, k, v (batch,
+# position, head), the mask's batch stride, out's strides; scale; stream
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 13
+             + [ctypes.c_float, ctypes.c_void_p])
+
+
+def naive_masked_attention(
+    q: torch.Tensor,  # [B, nq, H, dh]
+    k: torch.Tensor,  # [B, L, H, dh]
+    v: torch.Tensor,  # [B, L, H, dh]
+    kv_len: Optional[int],
+    kv_mask: Optional[torch.Tensor],
+    sm_scale: float,
+) -> torch.Tensor:
+    """Plain version (``_naive_masked_attention``): the valid prefix sliced,
+    f32 logits times ``sm_scale``, masked keys at ``NEG_INF``, f32 softmax,
+    f32 ``P @ V``, cast to q's dtype."""
+    if kv_len is not None and kv_len < k.shape[1]:
+        k, v = k[:, :kv_len], v[:, :kv_len]
+        if kv_mask is not None:
+            kv_mask = kv_mask[:, :kv_len]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), k.to(torch.float32)) * sm_scale
+    if kv_mask is not None:
+        s = torch.where(kv_mask[:, None, None, :], s, torch.full((), NEG_INF, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32)).to(q.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int, kv_mask: Optional[torch.Tensor]) -> None:
+    if q.dtype not in _ENTRY:
+        raise TypeError(f"decode_attention takes bf16 or f32, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share a dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"q [B,nq,H,dh], k and v [B,L,H,dh] expected, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, _, H, dh = q.shape
+    if (k.shape[0], k.shape[2], k.shape[3]) != (B, H, dh):
+        raise ValueError(f"q {tuple(q.shape)} and cache {tuple(k.shape)} disagree on B, H or dh")
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"decode_attention's kernel takes head dims up to {MAX_HEAD_DIM}, got {dh}")
+    if not 1 <= kv_len <= k.shape[1]:
+        raise ValueError(f"kv_len {kv_len} outside 1..{k.shape[1]}")
+    if kv_mask is not None:
+        if kv_mask.dtype != torch.bool or kv_mask.ndim != 2 or kv_mask.shape[0] != B or kv_mask.shape[1] < kv_len:
+            raise ValueError(f"kv_mask must be bool [B, >= kv_len], got {kv_mask.dtype} {tuple(kv_mask.shape)}")
+    devices = {t.device for t in (q, k, v) + ((kv_mask,) if kv_mask is not None else ())}
+    if len(devices) != 1:
+        raise ValueError(f"q, k, v and the mask lie on different devices: {sorted(map(str, devices))}")
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, nq, H, dh]
+    k_cache: torch.Tensor,  # [B, L, H, dh]
+    v_cache: torch.Tensor,
+    kv_len: Optional[int] = None,
+    kv_mask: Optional[torch.Tensor] = None,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Masked attention of a query block against the first ``kv_len``
+    (default: all) positions of a KV cache → ``[B, nq, H, dh]`` in q's
+    dtype. ``sm_scale`` defaults to ``1/sqrt(dh)``. On the CPU this is the
+    plain version; on CUDA the kernel runs on the current stream (bf16 or
+    f32, ``dh`` ≤ 128, the head dimension contiguous), and anything it does
+    not take raises."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    L = k_cache.shape[1]
+    kv_len = L if kv_len is None else int(kv_len)
+    if q.device.type == "cpu":
+        return naive_masked_attention(q, k_cache, v_cache, kv_len, kv_mask, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on cuda or cpu tensors, got {q.device}")
+    _check(q, k_cache, v_cache, kv_len, kv_mask)
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k_cache, v_cache))
+    B, nq, H, dh = q.shape
+    out = torch.empty(B, nq, H, dh, dtype=q.dtype, device=q.device)
+    if B == 0 or nq == 0 or H == 0:
+        return out
+    mask = None
+    if kv_mask is not None:
+        mask = kv_mask if kv_mask.stride(-1) == 1 else kv_mask.contiguous()
+    from ._build import entry
+
+    fn = entry("decode_attention", _ENTRY[q.dtype], _ARGTYPES)
+    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               mask.stride(0) if mask is not None else 0, *out.stride()[:3]]
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr() if mask is not None else None,
+                 out.data_ptr(), B, nq, H, dh, kv_len, *strides, float(sm_scale),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

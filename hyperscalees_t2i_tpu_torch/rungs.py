@@ -1,8 +1,8 @@
 """Model geometries, ES plans, knobs and serving plans per rung (the port's
-copy of the Sana part of ``hyperscalees_t2i_tpu/rungs.py``).
+copy of the Sana and VAR parts of ``hyperscalees_t2i_tpu/rungs.py``).
 
-Module-level code is stdlib-only; :func:`sana_rung_model` imports the model
-configs when called.
+Module-level code is stdlib-only; :func:`sana_rung_model` and
+:func:`var_rung_model` import the model configs when called.
 """
 
 from __future__ import annotations
@@ -27,6 +27,10 @@ RUNG_PLAN = {
     "flagship": ("flagship", 4, 4, 1),
     "midpop": ("mid", 32, 4, 8),
     "flagpop": ("flagship", 16, 4, 4),
+    # VAR next-scale AR, the path of the decode-attention kernel K4: the JAX
+    # package's "ar" plan (pop 16, 4 classes, member_batch 4) at VAR-d16's
+    # published geometry instead of its cut ar_small one, hence its own key
+    "ar_d16": ("d16", 16, 4, 4),
 }
 
 # Per-rung knobs (the Sana part of the JAX package's RUNG_OPT): member-interior
@@ -46,6 +50,7 @@ RUNG_OPT = {
     "midpop": {**DEFAULT_OPT, **_BIG_OPT, "reward_tile": 2, "pop_fuse": True},
     "flagship": {**DEFAULT_OPT, **_BIG_OPT, "reward_tile": 1, "pop_fuse": True},
     "flagpop": {**DEFAULT_OPT, **_BIG_OPT, "reward_tile": 1, "pop_fuse": True},
+    "ar_d16": dict(DEFAULT_OPT),  # the JAX package's "ar" knobs
 }
 
 
@@ -123,4 +128,37 @@ def sana_rung_model(scale: str, tower_dtype: str = "float32") -> Dict[str, Any]:
         clip_b, clip_h = tower(clip.CLIP_B32), tower(clip.CLIP_H14)
     else:
         raise ValueError(f"unknown sana rung scale: {scale!r}")
+    return {"bcfg": bcfg, "clip_b": clip_b, "clip_h": clip_h}
+
+
+def var_rung_model(scale: str, tower_dtype: str = "float32") -> Dict[str, Any]:
+    """``{"bcfg", "clip_b", "clip_h"}`` of a VAR rung: ``tiny`` (the JAX
+    package's ``train/cli.py --model_scale tiny`` geometry, f32, a tiny CLIP
+    tower and no PickScore tower) or ``d16`` (VAR-d16 over the
+    ``vae_ch160v4096z32`` VQ-VAE, bf16, a 16-class pool, CLIP-B/32 and
+    CLIP-H/14 at their published widths)."""
+    import dataclasses
+
+    import torch
+
+    from .backends.var_backend import VarBackendConfig
+    from .models import clip, msvq, var
+    from .utils.pytree import resolve_float_dtype
+
+    tower = lambda cfg: dataclasses.replace(cfg, compute_dtype=resolve_float_dtype(tower_dtype))  # noqa: E731
+    if scale == "tiny":
+        vq = msvq.MSVQConfig(vocab_size=64, c_vae=8, patch_nums=(1, 2, 4), phi_partial=2, ch=8, ch_mult=(1, 1),
+                             num_res_blocks=1, compute_dtype=torch.float32)
+        model = var.VARConfig(vq=vq, num_classes=10, depth=2, d_model=32, n_heads=4, ff_ratio=2.0,
+                              patch_nums=(1, 2, 4), compute_dtype=torch.float32)
+        bcfg = VarBackendConfig(model=model)
+        t = clip.CLIPTowerConfig(16, 2, 2, 32)
+        clip_b = tower(clip.CLIPConfig(vision=t, text=t, image_size=32, patch_size=16, vocab_size=49408,
+                                       max_positions=77, projection_dim=16))
+        clip_h = None
+    elif scale == "d16":
+        bcfg = VarBackendConfig(model=var.VARConfig(), class_pool=tuple(range(16)))
+        clip_b, clip_h = tower(clip.CLIP_B32), tower(clip.CLIP_H14)
+    else:
+        raise ValueError(f"unknown var rung scale: {scale!r}")
     return {"bcfg": bcfg, "clip_b": clip_b, "clip_h": clip_h}

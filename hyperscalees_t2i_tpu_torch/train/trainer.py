@@ -112,8 +112,7 @@ def make_es_step(backend: Any, reward_fn: Any, tc: TrainConfig, num_unique: int,
             else:
                 noise = tree_map(to_dev, noise)
             if gen_noise is None:
-                g = generator_for(dev, mix_seed(seed, 2, 0))
-                gen_noise = torch.randn((ids.numel(), *backend.noise_shape), generator=g, device=dev)
+                gen_noise = backend.sample_gen_noise(generator_for(dev, mix_seed(seed, 2, 0)), ids.numel())
             rewards = eval_pop(theta, noise, ids, gen_noise.to(dev, torch.float32))
             return _combine_and_update(theta, prev_delta, noise, rewards, tc=tc, es_cfg=es_cfg,
                                        pop=pop, num_unique=num_unique, repeats=repeats)

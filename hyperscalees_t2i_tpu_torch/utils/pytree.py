@@ -28,7 +28,9 @@ def resolve_float_dtype(name: str) -> torch.dtype:
 def tree_map(fn: Callable[[Any], Any], tree: Tree) -> Tree:
     """Apply ``fn`` to every non-container leaf, keeping the structure.
     Named tuples (the ES noise nodes, ``lora.FactoredDelta``) are
-    containers."""
+    containers; ``None`` stays ``None``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -42,6 +44,8 @@ def tree_leaves_with_path(tree: Tree, prefix: str = "",
                           is_leaf: Optional[Callable[[Any], bool]] = None) -> Iterator[Tuple[str, Any]]:
     """``(path, leaf)`` pairs, dict keys sorted, path parts joined by ``/``;
     a node that ``is_leaf`` accepts is a leaf."""
+    if tree is None:
+        return
     if is_leaf is not None and is_leaf(tree):
         yield prefix, tree
     elif isinstance(tree, dict):
@@ -64,6 +68,8 @@ def tree_replace_leaves(tree: Tree, values: List[Any]) -> Tree:
     it = iter(values)
 
     def walk(t: Tree) -> Tree:
+        if t is None:
+            return None
         if isinstance(t, dict):
             return {k: walk(t[k]) for k in sorted(t)}
         if isinstance(t, (list, tuple)):
@@ -75,6 +81,8 @@ def tree_replace_leaves(tree: Tree, values: List[Any]) -> Tree:
 
 def tree_structure(tree: Tree) -> Any:
     """A hashable description of the container structure (leaves elided)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return ("dict", tuple((k, tree_structure(tree[k])) for k in sorted(tree)))
     if isinstance(tree, (list, tuple)):

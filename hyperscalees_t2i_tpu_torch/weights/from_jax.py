@@ -9,7 +9,9 @@ the module constructors then slice the stacked layers and turn the kernels
 of the convs that run through ``F.conv2d`` from HWIO into OIHW. This module
 imports neither ``jax`` nor the JAX package: the JAX package's named-tuple
 nodes (``LowRankNoise``, ``DenseNoise``, ``FactoredDelta``) are recognized
-by their field names and become the port's classes of the same name.
+by their field names and become the port's classes of the same name;
+``None`` leaves (the VQ decoder's ``"attn_1"`` without mid attention) and
+lists are carried across unchanged.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..es.noiser import DenseNoise, LowRankNoise
 from ..lora import FactoredDelta
-from ..models import clip, dcae, sana
+from ..models import clip, dcae, msvq, sana, var
 
 _NODE_TYPES = {cls._fields: cls for cls in (LowRankNoise, DenseNoise, FactoredDelta)}
 
@@ -40,10 +42,12 @@ def tensor_from_numpy(arr: Any, device: torch.device) -> torch.Tensor:
 def tree_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
     """A numpy tree → the same tree of tensors on ``device``; the JAX
     package's ``LowRankNoise``/``DenseNoise``/``FactoredDelta`` nodes become
-    the port's."""
+    the port's; ``None`` stays ``None``."""
     dev = resolve_device(device)
 
     def walk(t: Any) -> Any:
+        if t is None:
+            return None
         if isinstance(t, dict):
             return {k: walk(v) for k, v in t.items()}
         if isinstance(t, tuple) and hasattr(t, "_fields"):
@@ -65,6 +69,15 @@ def dcae_from_jax(tree: Any, cfg: dcae.DCAEConfig, device: DeviceLike = None) ->
 
 def clip_from_jax(tree: Any, cfg: clip.CLIPConfig, device: DeviceLike = None) -> clip.CLIPModel:
     return clip.CLIPModel(cfg, tree_from_numpy(tree, device))
+
+
+def var_from_jax(tree: Any, cfg: var.VARConfig, device: DeviceLike = None) -> var.VARTransformer:
+    """The VAR tree (its ``"vq"`` subtree included) as the port's module."""
+    return var.VARTransformer(cfg, tree_from_numpy(tree, device))
+
+
+def msvq_from_jax(tree: Any, cfg: msvq.MSVQConfig, device: DeviceLike = None) -> msvq.MSVQ:
+    return msvq.MSVQ(cfg, tree_from_numpy(tree, device))
 
 
 def adapter_from_jax(lora: Dict[str, Dict[str, Any]], device: DeviceLike = None) -> Dict[str, Dict[str, torch.Tensor]]:
