@@ -8,7 +8,9 @@ result):
 
 1. build every CUDA kernel from ``csrc/`` with ``nvcc`` (one process per
    source, all at once): K1 ``int8_matmul``, K2 ``lora_chain``, K3
-   ``fused_qlora``, K4 ``decode_attention``;
+   ``fused_qlora``, K4 ``decode_attention``; log each K1 route's registers,
+   spills and shared memory, and count the tensor-core instructions
+   (``HMMA``) in K1's SASS (none in a bf16 route fails);
 2. hold each kernel against its plain PyTorch version on the card at every
    shape its main path gives it, in the main-path dtype and in f32, and time
    the kernel, the plain version, one PyTorch library call computing the
@@ -17,7 +19,8 @@ result):
    and CLIP-H/14 shapes; K2 and K3 at the flagship's LoRA-adapted sites;
    K4 at the ten VAR-d16 scale shapes, plus a masked dh-128 cross-attention
    shape (Infinity's geometry), a multi-tile kv case, NaN garbage past
-   ``kv_len`` and an all-masked row;
+   ``kv_len`` and an all-masked row; K1's batch invariance, bitwise: rows
+   of an M = 1024 call against the same rows alone;
 3. check the port end to end on small inputs against the same work on the
    CPU (the CPU path is the one the tests hold against the JAX package): the
    tiny rung served in f32 with an int8 base; one tiny-rung ES step in f32
@@ -57,6 +60,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
@@ -162,6 +166,47 @@ def check_close(name, out, ref, dt_name, torch):
     return err, tol, ref_max
 
 
+def _demangle(names):
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            return out.stdout.splitlines()
+    except OSError:
+        pass
+    return list(names)
+
+
+def k1_routes(text: str):
+    """Per K1 kernel (template instance), ``-Xptxas -v``'s registers,
+    barriers, stack and spill line from the compiler output."""
+    routes, name = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            routes[name] = []
+        elif name and ("registers" in line or "spill" in line):
+            routes[name].append(line.split(":", 1)[-1].strip() if "registers" in line else line.strip())
+    return dict(zip(_demangle(list(routes)), (" | ".join(v) for v in routes.values())))
+
+
+def k1_sass_hmma():
+    """Tensor-core instructions (``HMMA``) per kernel in the built K1
+    library's SASS, by ``cuobjdump`` from the toolkit that built it."""
+    from hyperscalees_t2i_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path("int8_matmul"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    return dict(zip(_demangle(list(counts)), counts.values()))
+
+
 def phase_build():
     from hyperscalees_t2i_tpu_torch.ops import _build
 
@@ -169,10 +214,55 @@ def phase_build():
     logs = _build.build_all(["int8_matmul", "lora_chain", "fused_qlora", "decode_attention"])
     dt = time.perf_counter() - t0
     for name, text in logs.items():
+        if name == "int8_matmul" and text != "(cached)":
+            continue
         ptxas = sorted({l.split(":", 1)[-1].strip() for l in text.splitlines() if "registers" in l})
         log(f"[build] {name}: {' | '.join(ptxas) or text.strip()}")
-    log(f"[build] four kernels built in {dt:.1f} s (one nvcc per source, in parallel)")
-    return dt
+    routes = k1_routes(logs["int8_matmul"])
+    for fn, line in routes.items():
+        log(f"[build] int8_matmul {fn}: {line}")
+    hmma = k1_sass_hmma()
+    for fn, n in hmma.items():
+        log(f"[build] int8_matmul SASS {fn}: {n} HMMA")
+    mma = {fn: n for fn, n in hmma.items() if "int8_mma_kernel" in fn}
+    if not mma or min(mma.values()) == 0:
+        raise AssertionError(f"K1's bf16 route has no tensor-core (HMMA) instruction in its SASS: {hmma}")
+    from hyperscalees_t2i_tpu_torch.ops import quant_mm as qm
+
+    tile_smem = _build.entry("int8_matmul", "hses_int8_matmul_smem", [ctypes.c_int])
+    smem = {name: tile_smem(tile) for name, tile in
+            (("128x128", qm.MMA_128x128), ("64x64", qm.MMA_64x64), ("16x64", qm.MMA_16x64))}
+    log(f"[build] int8_matmul bf16 dynamic shared memory per block: {smem} bytes")
+    log(f"[build] four kernels built in {dt:.1f} s (one nvcc per source, in parallel); "
+        f"K1 SASS: {sum(mma.values())} HMMA over {len(mma)} bf16 kernels")
+    return dict(build_s=dt, k1_ptxas=routes, k1_hmma=hmma, k1_smem_bytes=smem)
+
+
+def phase_k1_invariance(torch):
+    """Bitwise batch invariance: the first M rows of one call at M = 1024
+    equal a call on those M rows alone (M = 1, 2, 50, 257), and the last
+    row alone, at a DiT shape, a CLIP-H shape and CLIP-H's K = 588 patch
+    shape, in bf16 and f32. Raises on any difference."""
+    from hyperscalees_t2i_tpu_torch.ops.quant_mm import int8_matmul
+
+    g = torch.Generator(device="cuda").manual_seed(99)
+    checked = 0
+    for din, dout in ((2240, 2240), (1280, 1280), (588, 1280)):
+        q8 = torch.randint(-127, 128, (din, dout), generator=g, device="cuda", dtype=torch.int8)
+        scale = torch.rand(1, dout, generator=g, device="cuda") * (2.0 / (127 * math.sqrt(din)))
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(1024, din, generator=g, device="cuda").to(dt)
+            full = int8_matmul(x, q8, scale)
+            for lo, hi in ((0, 1), (0, 2), (0, 50), (0, 257), (1023, 1024)):
+                part = int8_matmul(x[lo:hi], q8, scale)
+                if not torch.equal(part, full[lo:hi]):
+                    diff = float((part.float() - full[lo:hi].float()).abs().max())
+                    raise AssertionError(f"int8_matmul {din}x{dout} {dt}: rows {lo}:{hi} alone differ from "
+                                         f"the same rows at M=1024 (max abs {diff})")
+                checked += 1
+    torch.cuda.synchronize()
+    log(f"[k1] batch invariance: {checked} row ranges bitwise equal to the M=1024 call (bf16 and f32)")
+    return checked
 
 
 def phase_k1_check(torch):
@@ -216,6 +306,47 @@ def phase_k1_check(torch):
                 f"bound={b_ms:.4f} ({b_by}) {flop / ms / 1e9:.1f} TFLOP/s")
             del sets, x, q8, scale, out
     torch.cuda.empty_cache()
+    return rows
+
+
+def k1_tile_sweep(torch):
+    """Every bf16 tile of K1 at each main-path bf16 shape: the numbers behind
+    ``ops.quant_mm._plan``'s tile rule (PERF.md). Each tile is launched by
+    the wrapper's own ``_launch`` with the plan's tile overridden (so these
+    launches are not counted), and must give bitwise the planned tile's
+    output. Not part of ``main``; run it after ``phase_build``."""
+    from hyperscalees_t2i_tpu_torch.ops import quant_mm as qm
+
+    g = torch.Generator(device="cuda").manual_seed(77)
+    tiles = {"128x128": qm.MMA_128x128, "64x64": qm.MMA_64x64, "16x64": qm.MMA_16x64}
+    rows = []
+    for site, T, din, dout, main_dt, _, _ in K1_SHAPES:
+        if main_dt != "bfloat16":
+            continue
+        call_bytes = 2 * T * din + din * dout + 4 * dout + 2 * T * dout
+        sets = []
+        for _ in range(max(1, min(8, math.ceil(100e6 / call_bytes)))):
+            sets.append((torch.randn(T, din, generator=g, device="cuda").to(torch.bfloat16),
+                         torch.randint(-127, 128, (din, dout), generator=g, device="cuda", dtype=torch.int8),
+                         torch.rand(1, dout, generator=g, device="cuda") * 0.01))
+        ref = qm.int8_matmul(*sets[0])
+        res = dict(site=site, T=T, din=din, dout=dout, plan=qm._plan(T, din, dout, torch.bfloat16).tile)
+        for name, tile in tiles.items():
+            outs = [torch.empty(T, dout, dtype=torch.bfloat16, device="cuda") for _ in sets]
+
+            def call(i, tile=tile):
+                x, q8, sc = sets[i]
+                plan = qm._plan(T, din, dout, torch.bfloat16, x.data_ptr(), q8.data_ptr())._replace(tile=tile)
+                qm._launch(x, q8, sc, outs[i], T, plan)
+            call(0)
+            torch.cuda.synchronize()
+            if not torch.equal(outs[0], ref):
+                raise AssertionError(f"K1 tile {name} differs bitwise from the planned tile at {site}")
+            res[name] = time_ms(torch, [lambda i=i: call(i) for i in range(len(sets))], 20)
+        rows.append(res)
+        log(f"[k1-tiles] {site:34s} T={T:5d} {din:5d}x{dout:5d} plan={res['plan']} " +
+            " ".join(f"{n}={res[n]:.4f}" for n in tiles))
+        del sets
     return rows
 
 
@@ -1089,8 +1220,9 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     log(f"[card] {torch.cuda.get_device_name(0)}; torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
     t_start = time.perf_counter()
-    build_s = phase_build()
+    build = phase_build()
     k1_rows = phase_k1_check(torch)
+    k1_invariant = phase_k1_invariance(torch)
     chain_rows = phase_chain_check(torch)
     k4_rows, k4_extra = phase_k4_check(torch)
     small_err = phase_small_reference(torch)
@@ -1131,7 +1263,8 @@ def main() -> int:
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        card=smi, device=torch.cuda.get_device_name(0), torch=torch.__version__, build_s=build_s,
+        card=smi, device=torch.cuda.get_device_name(0), torch=torch.__version__, **build,
+        k1_invariant_ranges=k1_invariant,
         k1_shapes=k1_rows, chain_shapes=chain_rows, k4_shapes=k4_rows, k4_cases=k4_extra,
         small_reference_max_abs=small_err, es_tiny=es_tiny, es_small=es_small, var_tiny=var_tiny,
         es_flagship_float=es_float, serve=serve, var_es=var_es, es_flagship=es, kernels=kernels, k1_serving=k1_serve,

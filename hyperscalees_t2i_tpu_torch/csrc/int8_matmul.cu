@@ -1,87 +1,296 @@
-// W8A16 dequant-matmul for Hopper: out = x @ (q8 * scale).
+// W8A16 dequant-matmul for Hopper: out[M, N] = (x[M, K] @ q8[K, N]) * scale[N].
 //
 // Replaces the TPU kernel hyperscalees_t2i_tpu/ops/quant_mm.py:_int8_mm_kernel
-// (launched by _pallas_int8_matmul). That kernel holds one token tile of x and
-// the whole [din, dout] int8 kernel in VMEM and dequantizes it there. A Hopper
-// block has at most 227 KB of shared memory, so this kernel instead tiles the
-// reduction axis K in a loop through shared memory and tiles the output in
-// 64x64 blocks spread over the SMs.
+// (launched by _pallas_int8_matmul through pl.pallas_call). That kernel holds
+// one token tile of x and the whole s8 [K, N] kernel in VMEM and dequantizes
+// it there, so no dequantized copy of the weight ever reaches HBM. This one
+// keeps that property: q8 moves as raw bytes into shared memory and becomes
+// bf16 there; the per-column scale is applied once in the f32 epilogue
+// (x@(q*s) == (x@q)*s up to rounding).
 //
-// Arithmetic: x (bf16 or f32) and q8 (s8, sign-extended) are widened to f32,
-// the products are summed in f32 over K in a fixed order, and the per-column
-// scale is applied once in the epilogue: x@(q*s) == (x@q)*s up to rounding.
-// Every output element is summed in the same order whatever the number of
-// rows, so a row's result does not depend on the other rows in the call.
+// What bounds it on the H100 (989 TFLOP/s bf16 tensor cores, 3.35 TB/s):
+// - M >= 1024 (the DiT and DC-AE shapes): operations. 2MKN flop against
+//   K*N + 2M(K+N) bytes is 300-2000 flop a byte, above the card's 295.
+// - M <= 50 (timestep, caption, CLIP-B/32, the projections): the bytes of
+//   the s8 weight; M = 256/257 (CLIP-H) sits near the balance point.
+// - At every M <= 257 the work is a few microseconds, so launch latency and
+//   filling 132 SMs matter more than the inner loop.
 //
-// What bounds it: at the serving shapes (T = 1024..4096 tokens, K, N ~ 2k-11k)
-// the work is compute-bound on the card (~300 flop per byte of the int8 base);
-// at T = 1 and T = 32 it is bound by reading the int8 kernel. This first
-// version multiplies with f32 FMAs on the CUDA cores (67 TFLOP/s peak), not
-// the tensor cores (989 TFLOP/s bf16), so it sits far above the compute bound
-// at large T. It reads each int8 weight once per 64-row tile of x and never
-// writes a dequantized copy to device memory. Tensor-core (mma/wgmma) tiles,
-// TMA loads and a pipelined K loop are the next steps.
+// Design.
+// - bf16 x: tensor cores through mma.sync.m16n8k16 (bf16 in, f32 sums).
+//   s8 values are exact in bf16 and each bf16 product is exact in f32, so
+//   converting q8 loses nothing. The K loop streams 64-deep stages through a
+//   4-stage ring in shared memory filled by cp.async, one barrier a stage:
+//   x tiles (16-byte copies, or 8-byte where K % 8 or x's alignment forbids
+//   them, or element loads) in rows padded by 16 bytes so ldmatrix reads
+//   them without bank conflicts; q8 tiles as raw bytes (16 a copy). The s8
+//   values become bf16 in registers (the faster of the two ways): a warp's
+//   four n8 tiles take four adjacent columns, so one 32-bit shared read of a
+//   q8 row serves all four, a byte permute pairs rows k and k+1, and an exact
+//   magic-number conversion (no I2F) gives the bf16 pairs of the B fragment.
+//   The same column order gives each thread 8 adjacent outputs, stored as
+//   16 bytes. Tiles by M, chosen in Python (ops/quant_mm.py:_plan): 128x128
+//   with 8 warps (64x32 each) from 120 blocks (0.9 of a wave) up, else 64x64
+//   with 4 warps, else 16x64 with 2 warps, so M <= 50 still puts 48-210
+//   blocks on the card.
+// - f32 x (the T = 1 timestep sites and f32 checks): CUDA-core f32 FMAs,
+//   64x64 tiles for M > 8 and, for M <= 8, blocks of 32 columns whose 16
+//   warps take alternate 32-deep K chunks.
+//
+// Batch invariance, bitwise: a row's result never depends on the other rows
+// in the call. The tile may depend on M, but the order of each output's sum
+// over k depends only on (K, N, dtype): bf16 sums k16 mma steps in ascending
+// k; f32 sums each 32-deep K chunk with FMAs in ascending k from zero and
+// adds the chunk sums in ascending order, in both f32 layouts. K is never
+// split across blocks.
+//
+// Left for later: wgmma with TMA loads and mbarriers, a warp-specialised
+// producer/consumer pipeline, and a persistent grid with tile rasterisation
+// (the N = 2240 shapes give 144 blocks of 128x128 for 132 SMs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_mma.cuh"
+
 namespace {
 
-constexpr int BM = 64;   // rows of x per block
-constexpr int BN = 64;   // output columns per block
-constexpr int BK = 32;   // reduction depth per shared-memory stage
-constexpr int THREADS = 256;  // 16 x 16 threads, each owning 4 x 4 outputs
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// ---------------------------------------------------------------- bf16 route
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-    return __float2bfloat16(v);
+constexpr int BK = 64;      // reduction depth of one pipeline stage
+constexpr int STAGES = 4;   // cp.async ring depth
+constexpr int PAD = 8;      // bf16 elements of padding per shared x row (16 bytes)
+
+// One block's output tile, its warps' layout, and its shared memory: a ring
+// of x tiles [BM][BK + 8] bf16 and raw q8 tiles [BK][BN + 16] s8. A warp
+// owns WTM x 32 outputs; its four n8 tiles take 4 adjacent columns (fragment
+// column c of tile j is column 4c + j of the warp's 32), so one 32-bit read
+// of a q8 row feeds all four, and the 16 bytes of row padding put the reads
+// of a warp on distinct banks.
+template <int BM_, int BN_, int WARPS_M_, int WARPS_N_, int MIN_BLOCKS_>
+struct Tile {
+    static constexpr int BM = BM_, BN = BN_, WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
+    static constexpr int THREADS = 32 * WARPS_M * WARPS_N, MIN_BLOCKS = MIN_BLOCKS_;
+    static constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;  // one warp's output tile
+    static constexpr int MI = WTM / 16;                           // m16 tiles per warp
+    static constexpr int AS = BK + PAD;                           // x row stride, elements
+    static constexpr int RS = BN + 16;                            // q8 row stride, bytes
+    static constexpr int A_BYTES = STAGES * BM * AS * 2;
+    static constexpr int SMEM = A_BYTES + STAGES * BK * RS;
+    static_assert(WTM % 16 == 0 && WTN == 32, "a warp owns 16k rows and 32 columns");
+};
+using TileL = Tile<128, 128, 2, 4, 2>;  // 110,592 B shared, 2 blocks an SM
+using TileM = Tile<64, 64, 2, 2, 3>;    // 57,344 B
+using TileS = Tile<16, 64, 1, 2, 4>;    // 29,696 B
+
+// AV: elements of x per copy (8: 16-byte cp.async, 4: 8-byte cp.async,
+// 1: plain loads). BV: q8 in 16-byte cp.async (else plain byte loads).
+template <class T, int AV, bool BV>
+__global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
+int8_mma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
+                const float* __restrict__ scale, bf16* __restrict__ out, int M, int K, int N) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    bf16* As = reinterpret_cast<bf16*>(smem);                      // [STAGES][BM][AS]
+    int8_t* Braw = reinterpret_cast<int8_t*>(smem + T::A_BYTES);  // [STAGES][BK][RS]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
+    const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN;
+    const int ktiles = (K + BK - 1) / BK;
+
+    auto load_stage = [&](int stage, int kt) {
+        const int k0 = kt * BK;
+        bf16* a = As + stage * T::BM * T::AS;
+        if constexpr (AV > 1) {
+            constexpr int CPR = BK / AV;
+#pragma unroll
+            for (int i = tid; i < T::BM * CPR; i += T::THREADS) {
+                const int r = i / CPR, c = (i % CPR) * AV, gr = m0 + r, gk = k0 + c;
+                const bool ok = gr < M && gk < K;
+                const bf16* src = ok ? x + (int64_t)gr * K + gk : x;
+                if constexpr (AV == 8) hses::cp_async16(a + r * T::AS + c, src, ok ? 16 : 0);
+                else hses::cp_async8(a + r * T::AS + c, src, ok ? 8 : 0);
+            }
+        } else {
+            for (int i = tid; i < T::BM * BK; i += T::THREADS) {
+                const int r = i / BK, c = i % BK, gr = m0 + r, gk = k0 + c;
+                a[r * T::AS + c] = (gr < M && gk < K) ? x[(int64_t)gr * K + gk] : __float2bfloat16(0.f);
+            }
+        }
+        int8_t* b = Braw + stage * BK * T::RS;
+        if constexpr (BV) {
+            constexpr int CPR = T::BN / 16;
+#pragma unroll
+            for (int i = tid; i < BK * CPR; i += T::THREADS) {
+                const int r = i / CPR, c = (i % CPR) * 16, gk = k0 + r, gn = n0 + c;
+                const bool ok = gk < K && gn < N;
+                hses::cp_async16(b + r * T::RS + c, ok ? q + (int64_t)gk * N + gn : q, ok ? 16 : 0);
+            }
+        } else {
+            for (int i = tid; i < BK * T::BN; i += T::THREADS) {
+                const int r = i / T::BN, c = i % T::BN, gk = k0 + r, gn = n0 + c;
+                b[r * T::RS + c] = (gk < K && gn < N) ? q[(int64_t)gk * N + gn] : (int8_t)0;
+            }
+        }
+    };
+
+    float acc[T::MI][4][4];
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+        if (s < ktiles) load_stage(s, s);
+        hses::cp_async_commit();
+    }
+    const int krow = 2 * (lane & 3), bcol = wn * 32 + 4 * (lane >> 2);
+    for (int kt = 0; kt < ktiles; ++kt) {
+        const int stage = kt % STAGES;
+        hses::cp_async_wait<STAGES - 2>();
+        __syncthreads();  // tile kt landed for all; stage kt-1 is free to refill
+        {
+            const int nk = kt + STAGES - 1;
+            if (nk < ktiles) load_stage(nk % STAGES, nk);
+            hses::cp_async_commit();
+        }
+        const bf16* a = As + stage * T::BM * T::AS;
+        const int8_t* b = Braw + stage * BK * T::RS + bcol;
+#pragma unroll
+        for (int kk = 0; kk < BK; kk += 16) {
+            uint32_t af[T::MI][4], bfr[4][2];
+#pragma unroll
+            for (int mi = 0; mi < T::MI; ++mi)
+                hses::ldmatrix_x4(af[mi], a + (wm * T::WTM + mi * 16 + (lane & 15)) * T::AS + kk + (lane >> 4) * 8);
+            const uint32_t w0 = *reinterpret_cast<const uint32_t*>(b + (kk + krow) * T::RS);
+            const uint32_t w1 = *reinterpret_cast<const uint32_t*>(b + (kk + krow + 1) * T::RS);
+            const uint32_t w8 = *reinterpret_cast<const uint32_t*>(b + (kk + krow + 8) * T::RS);
+            const uint32_t w9 = *reinterpret_cast<const uint32_t*>(b + (kk + krow + 9) * T::RS);
+            // interleave rows k, k+1 byte by byte: tile j's pair is byte j of each
+            hses::s8x4_to_bf16x4(__byte_perm(w0, w1, 0x5140), bfr[0][0], bfr[1][0]);
+            hses::s8x4_to_bf16x4(__byte_perm(w0, w1, 0x7362), bfr[2][0], bfr[3][0]);
+            hses::s8x4_to_bf16x4(__byte_perm(w8, w9, 0x5140), bfr[0][1], bfr[1][1]);
+            hses::s8x4_to_bf16x4(__byte_perm(w8, w9, 0x7362), bfr[2][1], bfr[3][1]);
+#pragma unroll
+            for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+                for (int ni = 0; ni < 4; ++ni) hses::mma_bf16_16816(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
+        }
+    }
+    hses::cp_async_wait<0>();
+
+    // epilogue: a thread holds 8 adjacent columns, 8(lane%4) + {0..7}, of
+    // rows lane/4 and lane/4 + 8: column 8(lane%4) + j is tile j's c0 (c2),
+    // column 8(lane%4) + 4 + j its c1 (c3)
+    const int c = n0 + wn * 32 + 8 * (lane & 3);
+    float sc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sc[e] = c + e < N ? scale[c + e] : 0.f;
+    const bool vec = (N & 7) == 0 && c + 8 <= N;
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int rr = m0 + wm * T::WTM + mi * 16 + (lane >> 2) + 8 * h;
+            if (rr >= M || c >= N) continue;
+            float v[8];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                v[j] = acc[mi][j][2 * h] * sc[j];
+                v[4 + j] = acc[mi][j][2 * h + 1] * sc[4 + j];
+            }
+            bf16* o = out + (int64_t)rr * N + c;
+            if (vec) {
+                uint4 p;
+                __nv_bfloat162 t0 = __floats2bfloat162_rn(v[0], v[1]), t1 = __floats2bfloat162_rn(v[2], v[3]);
+                __nv_bfloat162 t2 = __floats2bfloat162_rn(v[4], v[5]), t3 = __floats2bfloat162_rn(v[6], v[7]);
+                p.x = *reinterpret_cast<uint32_t*>(&t0);
+                p.y = *reinterpret_cast<uint32_t*>(&t1);
+                p.z = *reinterpret_cast<uint32_t*>(&t2);
+                p.w = *reinterpret_cast<uint32_t*>(&t3);
+                *reinterpret_cast<uint4*>(o) = p;
+            } else {
+#pragma unroll
+                for (int e = 0; e < 8; ++e)
+                    if (c + e < N) o[e] = __float2bfloat16(v[e]);
+            }
+        }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-int8_mm_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
-               const float* __restrict__ scale, T* __restrict__ out,
-               int M, int K, int N) {
-    // x tile stored transposed ([k][row]) and padded by one column so the
-    // transposing store hits 32 different banks.
-    __shared__ float xs[BK][BM + 1];
-    __shared__ float ws[BK][BN];
+template <class T, int AV, bool BV>
+int launch_mma(const void* x, const void* q, const void* scale, void* out, int M, int K, int N,
+               cudaStream_t stream) {
+    auto kernel = int8_mma_kernel<T, AV, BV>;
+    constexpr int smem = T::SMEM;
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const dim3 grid((M + T::BM - 1) / T::BM, (N + T::BN - 1) / T::BN);
+    if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
+    kernel<<<grid, T::THREADS, smem, stream>>>((const bf16*)x, (const int8_t*)q, (const float*)scale,
+                                               (bf16*)out, M, K, N);
+    return (int)cudaGetLastError();
+}
 
-    const int tid = threadIdx.x;
-    const int tx = tid % 16;  // output columns tx, tx+16, tx+32, tx+48
-    const int ty = tid / 16;  // output rows    ty, ty+16, ty+32, ty+48
-    const int row0 = blockIdx.y * BM;
-    const int col0 = blockIdx.x * BN;
+template <class T>
+int launch_tile(const void* x, const void* q, const void* scale, void* out, int M, int K, int N,
+                int a_vec, int b_vec, cudaStream_t s) {
+    if (b_vec == 16) {
+        if (a_vec == 8) return launch_mma<T, 8, true>(x, q, scale, out, M, K, N, s);
+        if (a_vec == 4) return launch_mma<T, 4, true>(x, q, scale, out, M, K, N, s);
+        return launch_mma<T, 1, true>(x, q, scale, out, M, K, N, s);
+    }
+    if (a_vec == 8) return launch_mma<T, 8, false>(x, q, scale, out, M, K, N, s);
+    if (a_vec == 4) return launch_mma<T, 4, false>(x, q, scale, out, M, K, N, s);
+    return launch_mma<T, 1, false>(x, q, scale, out, M, K, N, s);
+}
 
+// ----------------------------------------------------------------- f32 route
+
+constexpr int KC = 32;  // depth of one f32 K chunk: FMAs inside, adds across
+
+// M > 8: 64x64 tiles, 16x16 threads each owning 4x4 outputs.
+constexpr int FBM = 64, FBN = 64, FTHREADS = 256;
+
+__global__ void __launch_bounds__(FTHREADS)
+f32_tile_kernel(const float* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ scale,
+                float* __restrict__ out, int M, int K, int N) {
+    __shared__ float xs[KC][FBM + 1];  // transposed [k][row], padded against bank conflicts
+    __shared__ float ws[KC][FBN];
+    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+    const int row0 = blockIdx.x * FBM, col0 = blockIdx.y * FBN;
     float acc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-    for (int k0 = 0; k0 < K; k0 += BK) {
+    for (int k0 = 0; k0 < K; k0 += KC) {
 #pragma unroll
-        for (int it = 0; it < (BM * BK) / THREADS; ++it) {
-            const int i = tid + it * THREADS;
-            const int r = i / BK, c = i % BK;
-            const int gr = row0 + r, gc = k0 + c;
-            xs[c][r] = (gr < M && gc < K) ? to_f32(x[(int64_t)gr * K + gc]) : 0.f;
+        for (int it = 0; it < (FBM * KC) / FTHREADS; ++it) {
+            const int i = tid + it * FTHREADS, r = i / KC, c = i % KC, gr = row0 + r, gc = k0 + c;
+            xs[c][r] = (gr < M && gc < K) ? x[(int64_t)gr * K + gc] : 0.f;
         }
 #pragma unroll
-        for (int it = 0; it < (BK * BN) / THREADS; ++it) {
-            const int i = tid + it * THREADS;
-            const int r = i / BN, c = i % BN;
-            const int gr = k0 + r, gc = col0 + c;
-            ws[r][c] = (gr < K && gc < N) ? (float)(int8_t)q[(int64_t)gr * N + gc] : 0.f;
+        for (int it = 0; it < (KC * FBN) / FTHREADS; ++it) {
+            const int i = tid + it * FTHREADS, r = i / FBN, c = i % FBN, gr = k0 + r, gc = col0 + c;
+            ws[r][c] = (gr < K && gc < N) ? (float)q[(int64_t)gr * N + gc] : 0.f;
         }
         __syncthreads();
+        float part[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) part[i][j] = 0.f;
 #pragma unroll 8
-        for (int kk = 0; kk < BK; ++kk) {
+        for (int kk = 0; kk < KC; ++kk) {
             float a[4], b[4];
 #pragma unroll
             for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
@@ -90,11 +299,14 @@ int8_mm_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
 #pragma unroll
             for (int i = 0; i < 4; ++i)
 #pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+                for (int j = 0; j < 4; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
         __syncthreads();
     }
-
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
         const int c = col0 + tx + 16 * j;
@@ -103,31 +315,130 @@ int8_mm_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
             const int r = row0 + ty + 16 * i;
-            if (r < M) out[(int64_t)r * N + c] = from_f32<T>(acc[i][j] * s);
+            if (r < M) out[(int64_t)r * N + c] = acc[i][j] * s;
         }
     }
 }
 
-template <typename T>
-int launch(const void* x, const void* q, const void* scale, void* out,
-           int M, int K, int N, void* stream) {
-    if (M <= 0 || N <= 0) return (int)cudaSuccess;
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    int8_mm_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const T*)x, (const int8_t*)q, (const float*)scale, (T*)out, M, K, N);
-    return (int)cudaGetLastError();
+// M <= 8: 32 columns a block (one a lane); warp w sums K chunks w, w+16, ...
+// for all 8 rows, then the chunk sums are added in ascending chunk order by
+// the thread that owns (row = warp, column = lane). A warp loads its chunk's
+// 32 weights into registers before the first FMA, so one memory latency
+// covers the chunk.
+constexpr int FR = 8, FWARPS = 16;
+
+__global__ void __launch_bounds__(32 * FWARPS)
+f32_rows_kernel(const float* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ scale,
+                float* __restrict__ out, int M, int K, int N) {
+    __shared__ __align__(16) float xs[FWARPS][FR][KC];  // each warp's x chunk
+    __shared__ float parts[FWARPS][FR][32];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int col = blockIdx.x * 32 + lane;
+    const int nchunks = (K + KC - 1) / KC;
+    float total = 0.f;
+    for (int c0 = 0; c0 < nchunks; c0 += FWARPS) {
+        const int chunk = c0 + warp;
+        float part[FR];
+#pragma unroll
+        for (int m = 0; m < FR; ++m) part[m] = 0.f;
+        if (chunk < nchunks) {
+            const int k0 = chunk * KC;
+            int8_t w8[KC];
+#pragma unroll
+            for (int kk = 0; kk < KC; ++kk) {
+                const int k = k0 + kk;
+                w8[kk] = (k < K && col < N) ? q[(int64_t)k * N + col] : (int8_t)0;
+            }
+#pragma unroll
+            for (int m = 0; m < FR; ++m)
+                xs[warp][m][lane] = (m < M && k0 + lane < K) ? x[(int64_t)m * K + k0 + lane] : 0.f;
+            __syncwarp();
+#pragma unroll
+            for (int kk = 0; kk < KC; kk += 4) {
+#pragma unroll
+                for (int m = 0; m < FR; ++m) {
+                    const float4 xv = *reinterpret_cast<const float4*>(&xs[warp][m][kk]);
+                    part[m] = fmaf(xv.x, (float)w8[kk], part[m]);
+                    part[m] = fmaf(xv.y, (float)w8[kk + 1], part[m]);
+                    part[m] = fmaf(xv.z, (float)w8[kk + 2], part[m]);
+                    part[m] = fmaf(xv.w, (float)w8[kk + 3], part[m]);
+                }
+            }
+            __syncwarp();
+        }
+#pragma unroll
+        for (int m = 0; m < FR; ++m) parts[warp][m][lane] = part[m];
+        __syncthreads();
+        if (warp < FR) {
+#pragma unroll
+            for (int w = 0; w < FWARPS; ++w)
+                if (c0 + w < nchunks) total += parts[w][warp][lane];
+        }
+        __syncthreads();
+    }
+    if (warp < M && col < N) out[(int64_t)warp * N + col] = total * scale[col];
 }
 
 }  // namespace
 
+// Tile ids of ops/quant_mm.py:_plan. bk: the plan's depth of one stage of
+// the k sum, refused unless it is this route's own (BK, KC), so the plan
+// that the CPU tests check is the order the kernel sums in. a_vec / b_vec:
+// elements of x / bytes of q8 per copy, checked here against K, N and the
+// pointers' alignment.
+enum { F32_ROWS8 = 0, F32_TILE = 1, MMA_128x128 = 2, MMA_64x64 = 3, MMA_16x64 = 4 };
+
 // x [M, K] bf16 row-major, q [K, N] s8 row-major, scale [N] f32, out [M, N] bf16.
-extern "C" int hses_int8_matmul_bf16(const void* x, const void* q, const void* scale,
-                                     void* out, int M, int K, int N, void* stream) {
-    return launch<__nv_bfloat16>(x, q, scale, out, M, K, N, stream);
+extern "C" int hses_int8_matmul_bf16(const void* x, const void* q, const void* scale, void* out,
+                                     int M, int K, int N, int tile, int bk, int a_vec, int b_vec,
+                                     void* stream) {
+    if (bk != BK) return (int)cudaErrorInvalidValue;
+    if (M <= 0 || N <= 0) return (int)cudaSuccess;
+    const uintptr_t xa = (uintptr_t)x, qa = (uintptr_t)q;
+    const bool a_ok = a_vec == 1 || (a_vec == 8 && K % 8 == 0 && xa % 16 == 0) ||
+                      (a_vec == 4 && K % 4 == 0 && xa % 8 == 0);
+    const bool b_ok = b_vec == 1 || (b_vec == 16 && N % 16 == 0 && qa % 16 == 0);
+    if (!a_ok || !b_ok) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (tile) {
+        case MMA_128x128: return launch_tile<TileL>(x, q, scale, out, M, K, N, a_vec, b_vec, s);
+        case MMA_64x64: return launch_tile<TileM>(x, q, scale, out, M, K, N, a_vec, b_vec, s);
+        case MMA_16x64: return launch_tile<TileS>(x, q, scale, out, M, K, N, a_vec, b_vec, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
-// The same with x and out in f32.
-extern "C" int hses_int8_matmul_f32(const void* x, const void* q, const void* scale,
-                                    void* out, int M, int K, int N, void* stream) {
-    return launch<float>(x, q, scale, out, M, K, N, stream);
+// The same with x and out in f32 (a_vec and b_vec are not used).
+extern "C" int hses_int8_matmul_f32(const void* x, const void* q, const void* scale, void* out,
+                                    int M, int K, int N, int tile, int bk, int a_vec, int b_vec,
+                                    void* stream) {
+    (void)a_vec;
+    (void)b_vec;
+    if (bk != KC) return (int)cudaErrorInvalidValue;
+    if (M <= 0 || N <= 0) return (int)cudaSuccess;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (tile == F32_ROWS8) {
+        if (M > FR) return (int)cudaErrorInvalidValue;
+        f32_rows_kernel<<<(N + 31) / 32, 32 * FWARPS, 0, s>>>((const float*)x, (const int8_t*)q,
+                                                              (const float*)scale, (float*)out, M, K, N);
+    } else if (tile == F32_TILE) {
+        const dim3 grid((M + FBM - 1) / FBM, (N + FBN - 1) / FBN);
+        if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
+        f32_tile_kernel<<<grid, FTHREADS, 0, s>>>((const float*)x, (const int8_t*)q, (const float*)scale,
+                                                  (float*)out, M, K, N);
+    } else {
+        return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of a bf16 tile's block, in bytes (-1 for any other
+// tile id; the f32 routes' shared memory is static and in ptxas's report).
+extern "C" int hses_int8_matmul_smem(int tile) {
+    switch (tile) {
+        case MMA_128x128: return TileL::SMEM;
+        case MMA_64x64: return TileM::SMEM;
+        case MMA_16x64: return TileS::SMEM;
+        default: return -1;
+    }
 }

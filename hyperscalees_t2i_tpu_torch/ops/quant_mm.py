@@ -9,6 +9,9 @@ first use and called through ``ctypes`` on PyTorch's current stream.
 - :func:`int8_matmul` — the wrapper. A CPU tensor takes the plain version
   :func:`int8_matmul_reference`; a CUDA tensor launches the kernel or raises.
   ``int8_matmul.launches`` counts kernel launches (and nothing else).
+- :func:`_plan` — the kernel's route for one call (tile, depth of a stage of
+  the k sum, copy widths), a pure function of the shape, dtype and pointers
+  so that the CPU tests can hold it to the kernel's batch-invariance rule.
 - :func:`dequant_matmul` — the contract every int8 dense site resolves
   through (``models.nn.dense``, the 1×1 and patch convs of
   ``ops.fused_qlora.conv_kernel_q8_matmul``): 2D per-channel nodes go to
@@ -19,7 +22,7 @@ first use and called through ``ctypes`` on PyTorch's current stream.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -27,6 +30,52 @@ from .quant import dequantize_kernel
 
 _KERNEL_SOURCE = "int8_matmul"
 _ENTRY = {torch.bfloat16: "hses_int8_matmul_bf16", torch.float32: "hses_int8_matmul_f32"}
+
+
+# Tile ids of csrc/int8_matmul.cu's C entries
+F32_ROWS8, F32_TILE, MMA_128x128, MMA_64x64, MMA_16x64 = range(5)
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+# (id, BM, BN, least blocks): 128×128 from 0.9 of a wave, 64×64 from 100 blocks
+_MMA_TILES = ((MMA_128x128, 128, 128, int(0.9 * _SMS)), (MMA_64x64, 64, 64, 100))
+
+
+class Plan(NamedTuple):
+    tile: int
+    bk: int     # depth of one stage of each output's k sum; the C entry refuses any but its own
+    a_vec: int  # elements of x per copy (8: 16-byte, 4: 8-byte cp.async, 1: element loads); 0 for f32
+    b_vec: int  # bytes of q8 per copy (16: cp.async, 1: element loads); 0 for f32
+
+
+def _plan(M: int, K: int, N: int, dtype: torch.dtype, x_ptr: int = 0, q_ptr: int = 0) -> Plan:
+    """The kernel's route for ``x[M, K] @ q8[K, N]``.
+
+    The tile may follow M: bf16 takes the 128×128 tile where it gives at
+    least 0.9 of a wave of the card's SMs (≥ 118 blocks), else 64×64 where
+    that gives ≥ 100 blocks, else 16×64 (M ≤ 50 lands there); f32 takes
+    the 8-row layout at M ≤ 8, else 64×64.
+    The order of each output's sum over k may not: bf16 sums 16-deep mma
+    steps in ascending k through 64-deep stages, f32 sums 32-deep FMA chunks
+    in ascending order, whatever the tile; ``bk`` is that depth, and the C
+    entry runs only at its own. 16-byte copies of x need K % 8 and a
+    16-byte-aligned x, 8-byte copies K % 4 and 8-byte alignment; 16-byte
+    copies of q8 need N % 16 and a 16-byte-aligned q8."""
+    if dtype == torch.float32:
+        return Plan(F32_ROWS8 if M <= 8 else F32_TILE, 32, 0, 0)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"int8_matmul takes bf16 or f32 activations, got {dtype}")
+    tile = MMA_16x64
+    for tid, bm, bn, least in _MMA_TILES:
+        if -(-M // bm) * -(-N // bn) >= least:
+            tile = tid
+            break
+    if K % 8 == 0 and x_ptr % 16 == 0:
+        a_vec = 8
+    elif K % 4 == 0 and x_ptr % 8 == 0:
+        a_vec = 4
+    else:
+        a_vec = 1
+    b_vec = 16 if N % 16 == 0 and q_ptr % 16 == 0 else 1
+    return Plan(tile, 64, a_vec, b_vec)
 
 
 def int8_matmul_reference(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -38,7 +87,20 @@ def int8_matmul_reference(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor
 def _entry(dtype: torch.dtype):
     from ._build import entry
 
-    return entry(_KERNEL_SOURCE, _ENTRY[dtype], [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    return entry(_KERNEL_SOURCE, _ENTRY[dtype], [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+
+
+def _launch(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor, out: torch.Tensor, rows: int,
+            plan: Plan) -> None:
+    """One launch of the kernel by ``plan`` on x's device and current stream."""
+    din, dout = q8.shape
+    with torch.cuda.device(x.device):
+        err = _entry(x.dtype)(
+            x.data_ptr(), q8.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, din, dout,
+            plan.tile, plan.bk, plan.a_vec, plan.b_vec, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"int8_matmul kernel launch failed: cudaError {err}")
 
 
 def int8_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -72,13 +134,7 @@ def int8_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch
         return out
     if rows >= 2**31 or din >= 2**31 or dout >= 2**31:
         raise ValueError("int8_matmul dimensions must fit in 32 bits")
-    with torch.cuda.device(x.device):
-        err = _entry(x.dtype)(
-            x.data_ptr(), q8.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            rows, din, dout, torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"int8_matmul kernel launch failed: cudaError {err}")
+    _launch(x, q8, scale, out, rows, _plan(rows, din, dout, x.dtype, x.data_ptr(), q8.data_ptr()))
     int8_matmul.launches += 1
     return out
 

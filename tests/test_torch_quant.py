@@ -15,7 +15,7 @@ import torch
 from hyperscalees_t2i_tpu.ops import quant as jquant
 from hyperscalees_t2i_tpu.ops.quant_mm import int8_matmul as jint8_matmul
 from hyperscalees_t2i_tpu_torch.ops import quant as tquant
-from hyperscalees_t2i_tpu_torch.ops.quant_mm import dequant_matmul, int8_matmul, int8_matmul_reference
+from hyperscalees_t2i_tpu_torch.ops.quant_mm import _plan, dequant_matmul, int8_matmul, int8_matmul_reference
 
 torch.set_num_threads(1)
 
@@ -93,17 +93,87 @@ def test_int8_matmul_reference_casts_to_x_dtype():
     assert torch.equal(y, int8_matmul_reference(x, q8, scale))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("M,K,N", [(1, 256, 2240), (37, 48, 40), (1024, 2240, 130)])
-def test_int8_matmul_kernel_matches_reference_on_card(dtype, M, K, N):
-    """The CUDA kernel against its plain version on the card (ragged M and N
-    edges); bf16 within two bf16 ulps of the largest output, f32 1e-5."""
+# (M, K, N) of every K1 call site on the port's paths (chip_smoke.K1_SHAPES)
+K1_SITE_SHAPES = [
+    (1, 256, 2240), (1, 2240, 2240), (1, 2240, 13440), (32, 2304, 2240), (32, 2240, 2240),
+    (1024, 2240, 2240), (1024, 2240, 11200), (1024, 5600, 2240), (1024, 32, 2240), (1024, 2240, 32),
+    (1024, 1024, 3072), (1024, 1024, 1024), (1024, 1024, 4096), (1024, 2048, 1024),
+    (4096, 1024, 3072), (4096, 1024, 1024), (4096, 1024, 4096), (4096, 2048, 1024),
+    (49, 3072, 768), (50, 768, 768), (50, 768, 3072), (50, 3072, 768), (1, 768, 512),
+    (256, 588, 1280), (257, 1280, 1280), (257, 1280, 5120), (257, 5120, 1280), (1, 1280, 1024),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,N", sorted({(k, n) for _, k, n in K1_SITE_SHAPES}))
+def test_int8_matmul_plan_sum_order_ignores_m_and_copies_respect_alignment(K, N, dtype):
+    """The kernel's batch invariance rests on its plan: the tile may follow
+    M, the depth of a stage of the k sum (``bk``, which the C entry refuses
+    unless it is the route's own) may not. And a 16-byte copy of x is
+    planned only where K % 8 and x's address allow it (8-byte: K % 4 and
+    8-byte alignment), a 16-byte copy of q8 only where N % 16 and q8's
+    address allow it."""
+    depths = set()
+    for M in (1, 2, 50, 257, 1024, 4096):
+        for x_ptr in (0, 8, 2, 4096 + 2 * K):  # aligned, 8-aligned, 2-aligned, one row in
+            for q_ptr in (0, 4):
+                p = _plan(M, K, N, dtype, x_ptr, q_ptr)
+                depths.add(p.bk)
+                if dtype == torch.float32:
+                    assert p.tile == (0 if M <= 8 else 1) and p.a_vec == p.b_vec == 0
+                    continue
+                assert p.tile in (2, 3, 4)
+                assert p.a_vec in (1, 4, 8) and p.b_vec in (1, 16)
+                if p.a_vec == 8:
+                    assert K % 8 == 0 and x_ptr % 16 == 0
+                if p.a_vec == 4:
+                    assert K % 4 == 0 and x_ptr % 8 == 0
+                if p.b_vec == 16:
+                    assert N % 16 == 0 and q_ptr % 16 == 0
+    assert depths == {64 if dtype == torch.bfloat16 else 32}
+    # the widest copy is taken where it is allowed
+    p = _plan(1024, K, N, dtype, 0, 0)
+    if dtype == torch.bfloat16:
+        assert p.a_vec == (8 if K % 8 == 0 else 4 if K % 4 == 0 else 1)
+        assert p.b_vec == (16 if N % 16 == 0 else 1)
+
+
+def test_int8_matmul_plan_fills_the_card():
+    """The 128×128 tile only from 0.9 of a wave of 132 SMs; at M ≤ 50 the
+    16×64 tile; CLIP-H's M = 257 takes 64×64 (≥ 100 blocks) except at N =
+    5120, where 128×128 gives 120 blocks."""
+    bf = torch.bfloat16
+    assert _plan(1024, 2240, 2240, bf).tile == 2  # 8 × 18 = 144 blocks
+    assert _plan(257, 1280, 5120, bf).tile == 2   # 3 × 40 = 120
+    assert _plan(1024, 1024, 1024, bf).tile == 3  # 8 × 8 = 64 blocks at 128×128
+    assert _plan(257, 1280, 1280, bf).tile == 3   # 5 × 20 = 100
+    for M, K, N in ((1, 768, 512), (32, 2240, 2240), (50, 768, 768), (1024, 2240, 32)):
+        assert _plan(M, K, N, bf).tile == 4
+    with pytest.raises(TypeError):
+        _plan(4, 8, 8, torch.float16)
+
+
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (the kernel has no CPU mode)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("M,K,N,offset", [
+    (1, 256, 2240, 0), (37, 48, 40, 0), (1024, 2240, 130, 0),
+    (257, 588, 1280, 0), (50, 768, 768, 0), (1, 2240, 2240, 0), (1024, 32, 2240, 0), (1024, 2240, 32, 0),
+    (256, 588, 1280, 1),  # x[1:] of a contiguous tensor: rows start 1176 bytes in, 8-byte aligned
+])
+def test_int8_matmul_kernel_matches_reference_on_card(dtype, M, K, N, offset):
+    """The CUDA kernel against its plain version on the card (ragged M and N
+    edges, K = 588 and K = 32, N = 32, a view with a storage offset); bf16
+    within two bf16 ulps of the largest output, f32 1e-5."""
+    _card()
     g = torch.Generator(device="cuda").manual_seed(0)
     dt = getattr(torch, dtype)
-    x = torch.randn(M, K, generator=g, device="cuda").to(dt)
+    x = torch.randn(M + offset, K, generator=g, device="cuda").to(dt)[offset:]
+    assert x.is_contiguous() and x.storage_offset() == offset * K
     q8 = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
     scale = torch.rand(1, N, generator=g, device="cuda") * 0.01
     before = int8_matmul.launches
@@ -113,3 +183,21 @@ def test_int8_matmul_kernel_matches_reference_on_card(dtype, M, K, N):
     ref = int8_matmul_reference(x, q8, scale).float()
     tol = (2 ** -7 if dt == torch.bfloat16 else 1e-5) * float(ref.abs().max())
     assert float((out.float() - ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("K,N", [(2240, 2240), (588, 1280), (768, 3072)])
+def test_int8_matmul_kernel_is_batch_invariant_bitwise_on_card(dtype, K, N):
+    """Rows of one call equal, bit for bit, the same rows in a call of
+    another size: the tile follows M (different kernels at M = 1, 2, 50,
+    257, 1024), the order of the k sum does not."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dt = getattr(torch, dtype)
+    x = torch.randn(1024, K, generator=g, device="cuda").to(dt)
+    q8 = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+    scale = torch.rand(1, N, generator=g, device="cuda") * 0.01
+    full = int8_matmul(x, q8, scale)
+    for lo, hi in ((0, 1), (0, 2), (0, 50), (0, 257), (700, 701), (1023, 1024)):
+        assert torch.equal(int8_matmul(x[lo:hi], q8, scale), full[lo:hi]), (lo, hi)
