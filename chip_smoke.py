@@ -8,19 +8,23 @@ result):
 
 1. build every CUDA kernel from ``csrc/`` with ``nvcc`` (one process per
    source, all at once): K1 ``int8_matmul``, K2 ``lora_chain``, K3
-   ``fused_qlora``, K4 ``decode_attention``; log each K1 route's registers,
-   spills and shared memory, and count the tensor-core instructions
-   (``HMMA``) in K1's SASS (none in a bf16 route fails);
+   ``fused_qlora``, K4 ``decode_attention``; log each K1 and K3 route's
+   registers, spills and shared memory, and count the tensor-core
+   instructions (``HMMA``) in K1's and K3's SASS (none in a bf16 route
+   fails);
 2. hold each kernel against its plain PyTorch version on the card at every
    shape its main path gives it, in the main-path dtype and in f32, and time
    the kernel, the plain version, one PyTorch library call computing the
    same function (``library_ms``, a yardstick the port never calls) and the
    card's lower bound for the work: K1 at the flagship DiT, DC-AE, CLIP-B/32
-   and CLIP-H/14 shapes; K2 and K3 at the flagship's LoRA-adapted sites;
+   and CLIP-H/14 shapes; K2 and K3 at the flagship's LoRA-adapted sites (K3
+   also with q8 = 0 against the plain chain alone);
    K4 at the ten VAR-d16 scale shapes, plus a masked dh-128 cross-attention
    shape (Infinity's geometry), a multi-tile kv case, NaN garbage past
    ``kv_len`` and an all-masked row; K1's batch invariance, bitwise: rows
-   of an M = 1024 call against the same rows alone;
+   of an M = 1024 call against the same rows alone; K3's batch and lane
+   invariance, bitwise: rows and lanes of a 4-lane call against the same
+   rows and lanes alone, at T = 1024 and 32;
 3. check the port end to end on small inputs against the same work on the
    CPU (the CPU path is the one the tests hold against the JAX package): the
    tiny rung served in f32 with an int8 base; one tiny-rung ES step in f32
@@ -119,6 +123,16 @@ CHAIN_SHAPES = [
     ("proj_out", 1024, 2240, 32, "bfloat16", 1),
 ]
 R_L, R_E, LORA_SCALE = 8, 4, 2.0
+# K3's ms per call at each main-path shape before its tensor-core redesign:
+# the f32-FMA kernel of commit 447f2c6, as its PERF.md records it (NVIDIA
+# H100 80GB HBM3, 700 W). A record, printed beside this run's times.
+K3_BEFORE_MS = {
+    "time_embed/linear": 0.4348,
+    "caption_proj/linear_1": 0.4708,
+    "caption_proj/linear_2 + attn2 k,v": 0.4666,
+    "attn1 q,k,v,out + attn2 q,out": 1.1441,
+    "proj_out": 0.3777,
+}
 # K4 on the VAR-d16 path: per scale, (queries pn², kv_len) against a 680-position
 # cache of 32 rows (4 lanes × 4 images × cond/uncond), 16 heads of 64; each
 # shape runs once per layer (16) per generate call
@@ -176,8 +190,8 @@ def _demangle(names):
     return list(names)
 
 
-def k1_routes(text: str):
-    """Per K1 kernel (template instance), ``-Xptxas -v``'s registers,
+def kernel_routes(text: str):
+    """Per kernel (template instance), ``-Xptxas -v``'s registers,
     barriers, stack and spill line from the compiler output."""
     routes, name = {}, None
     for line in text.splitlines():
@@ -189,13 +203,13 @@ def k1_routes(text: str):
     return dict(zip(_demangle(list(routes)), (" | ".join(v) for v in routes.values())))
 
 
-def k1_sass_hmma():
-    """Tensor-core instructions (``HMMA``) per kernel in the built K1
-    library's SASS, by ``cuobjdump`` from the toolkit that built it."""
+def sass_hmma(source: str):
+    """Tensor-core instructions (``HMMA``) per kernel in the built library of
+    ``csrc/<source>.cu``'s SASS, by ``cuobjdump`` from the toolkit that built it."""
     from hyperscalees_t2i_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(_build.library_path("int8_matmul"))],
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path(source))],
                           capture_output=True, text=True, timeout=300, check=True).stdout
     counts, name = {}, None
     for line in sass.splitlines():
@@ -209,33 +223,41 @@ def k1_sass_hmma():
 
 def phase_build():
     from hyperscalees_t2i_tpu_torch.ops import _build
+    from hyperscalees_t2i_tpu_torch.ops import quant_mm as qm
 
     t0 = time.perf_counter()
     logs = _build.build_all(["int8_matmul", "lora_chain", "fused_qlora", "decode_attention"])
     dt = time.perf_counter() - t0
+    routed = {"int8_matmul": "int8_mma_kernel", "fused_qlora": "qlora_mma_kernel"}
     for name, text in logs.items():
-        if name == "int8_matmul" and text != "(cached)":
+        if name in routed and text != "(cached)":
             continue
         ptxas = sorted({l.split(":", 1)[-1].strip() for l in text.splitlines() if "registers" in l})
         log(f"[build] {name}: {' | '.join(ptxas) or text.strip()}")
-    routes = k1_routes(logs["int8_matmul"])
-    for fn, line in routes.items():
-        log(f"[build] int8_matmul {fn}: {line}")
-    hmma = k1_sass_hmma()
-    for fn, n in hmma.items():
-        log(f"[build] int8_matmul SASS {fn}: {n} HMMA")
-    mma = {fn: n for fn, n in hmma.items() if "int8_mma_kernel" in fn}
-    if not mma or min(mma.values()) == 0:
-        raise AssertionError(f"K1's bf16 route has no tensor-core (HMMA) instruction in its SASS: {hmma}")
-    from hyperscalees_t2i_tpu_torch.ops import quant_mm as qm
-
-    tile_smem = _build.entry("int8_matmul", "hses_int8_matmul_smem", [ctypes.c_int])
-    smem = {name: tile_smem(tile) for name, tile in
-            (("128x128", qm.MMA_128x128), ("64x64", qm.MMA_64x64), ("16x64", qm.MMA_16x64))}
-    log(f"[build] int8_matmul bf16 dynamic shared memory per block: {smem} bytes")
-    log(f"[build] four kernels built in {dt:.1f} s (one nvcc per source, in parallel); "
-        f"K1 SASS: {sum(mma.values())} HMMA over {len(mma)} bf16 kernels")
-    return dict(build_s=dt, k1_ptxas=routes, k1_hmma=hmma, k1_smem_bytes=smem)
+    tiles = (("128x128", qm.MMA_128x128), ("64x64", qm.MMA_64x64), ("16x64", qm.MMA_16x64))
+    out = dict(build_s=dt)
+    for name, mma_kernel in routed.items():
+        tag = "k1" if name == "int8_matmul" else "k3"
+        routes = kernel_routes(logs[name])
+        for fn, line in routes.items():
+            log(f"[build] {name} {fn}: {line}")
+        hmma = sass_hmma(name)
+        for fn, n in hmma.items():
+            log(f"[build] {name} SASS {fn}: {n} HMMA")
+        mma = {fn: n for fn, n in hmma.items() if mma_kernel in fn}
+        if not mma or min(mma.values()) == 0:
+            raise AssertionError(f"{name}'s bf16 route has no tensor-core (HMMA) instruction in its SASS: {hmma}")
+        if name == "int8_matmul":
+            tile_smem = _build.entry(name, "hses_int8_matmul_smem", [ctypes.c_int])
+            smem = {t: tile_smem(tid) for t, tid in tiles}
+        else:
+            tile_smem = _build.entry(name, "hses_fused_qlora_smem", [ctypes.c_int, ctypes.c_int])
+            smem = {f"{t}{' wide' if wide else ''}": tile_smem(tid, wide) for t, tid in tiles for wide in (0, 1)}
+        log(f"[build] {name} bf16 dynamic shared memory per block: {smem} bytes; "
+            f"SASS: {sum(mma.values())} HMMA over {len(mma)} bf16 kernels")
+        out.update({f"{tag}_ptxas": routes, f"{tag}_hmma": hmma, f"{tag}_smem_bytes": smem})
+    log(f"[build] four kernels built in {dt:.1f} s (one nvcc per source, in parallel)")
+    return out
 
 
 def phase_k1_invariance(torch):
@@ -350,18 +372,116 @@ def k1_tile_sweep(torch):
     return rows
 
 
-def _factor(torch, g, m, n, ndt):
+def k3_tile_sweep(torch):
+    """Every bf16 tile of K3 at each main-path bf16 K3 shape: the numbers
+    behind ``ops.fused_qlora._plan``'s tile rule (PERF.md). Launched by the
+    wrapper's own ``_launch`` with the plan's tile overridden (not counted);
+    each tile must give bitwise the planned tile's output. Not part of
+    ``main``; run it after ``phase_build``."""
+    from hyperscalees_t2i_tpu_torch.ops import fused_qlora as fq
+    from hyperscalees_t2i_tpu_torch.ops import quant_mm as qm
+    from hyperscalees_t2i_tpu_torch.ops.fused_lora import chain_launch_args
+
+    g = torch.Generator(device="cuda").manual_seed(78)
+    tiles = {"128x128": qm.MMA_128x128, "64x64": qm.MMA_64x64, "16x64": qm.MMA_16x64}
+    bf = torch.bfloat16
+    rows = []
+    for site, T, din, dout, main_dt, _ in CHAIN_SHAPES:
+        if main_dt != "bfloat16":
+            continue
+        call_bytes = 4 * T * din + din * dout + 4 * dout + 4 * T * dout
+        sets = []
+        for _ in range(max(1, min(8, math.ceil(100e6 / call_bytes)))):
+            x = torch.randn(T, din, generator=g, device="cuda").to(bf)
+            a, b = _factor(torch, g, din, R_L, bf), _factor(torch, g, R_L, dout, bf)
+            q8 = torch.randint(-127, 128, (din, dout), generator=g, device="cuda", dtype=torch.int8)
+            sc = torch.rand(1, dout, generator=g, device="cuda") * 0.01
+            args, ndt, keep = chain_launch_args(x, a, b, T)
+            sets.append((x, q8, sc, args, ndt, keep, fq.fused_qlora_matmul(x, q8, sc, a, b, LORA_SCALE)))
+        res = dict(site=site, T=T, din=din, dout=dout, plan=fq._plan(T, 1, din, dout, bf).tile)
+        for name, tile in tiles.items():
+            outs = [torch.empty(T, dout, dtype=bf, device="cuda") for _ in sets]
+
+            def call(i, tile=tile):
+                x, q8, sc, args, ndt, _, _ = sets[i]
+                plan = fq._plan(T, 1, din, dout, bf, x.data_ptr(), q8.data_ptr())._replace(tile=tile)
+                fq._launch(x, q8, sc, outs[i], args, ndt, LORA_SCALE, plan)
+            call(0)
+            torch.cuda.synchronize()
+            if not torch.equal(outs[0], sets[0][-1]):
+                raise AssertionError(f"K3 tile {name} differs bitwise from the planned tile at {site}")
+            res[name] = time_ms(torch, [lambda i=i: call(i) for i in range(len(sets))], 20)
+        rows.append(res)
+        log(f"[k3-tiles] {site:34s} T={T:5d} {din:5d}x{dout:5d} plan={res['plan']} " +
+            " ".join(f"{n}={res[n]:.4f}" for n in tiles))
+        del sets
+    return rows
+
+
+def _factor(torch, g, m, n, ndt, lanes=0):
     from hyperscalees_t2i_tpu_torch.lora import FactoredDelta
 
+    sh = (lanes,) if lanes else ()
+    c = torch.full((), 0.01 / math.sqrt(R_E), device="cuda")
+    if lanes:
+        c = c * (1 + torch.rand(lanes, generator=g, device="cuda"))
     return FactoredDelta(torch.randn(m, n, generator=g, device="cuda") / math.sqrt(m),
-                         torch.randn(m, R_E, generator=g, device="cuda").to(ndt),
-                         torch.randn(n, R_E, generator=g, device="cuda").to(ndt),
-                         torch.full((), 0.01 / math.sqrt(R_E), device="cuda"))
+                         torch.randn(*sh, m, R_E, generator=g, device="cuda").to(ndt),
+                         torch.randn(*sh, n, R_E, generator=g, device="cuda").to(ndt), c)
+
+
+def _lane(f, i):
+    """Lane ``i`` of a laned factor, as a factor without lanes."""
+    from hyperscalees_t2i_tpu_torch.lora import FactoredDelta
+
+    return FactoredDelta(f.w, f.u[i], f.v[i], f.c[i])
+
+
+def phase_k3_invariance(torch):
+    """Bitwise batch and lane invariance of K3 at 1024×2240×2240 and
+    32×2240×2240, bf16 and f32 (noise in x's dtype): each lane of a 4-lane
+    call against that lane alone (at T = 32 the two calls take different
+    tiles), and row ranges of a lane against the same rows alone (at f32,
+    ≤ 8 rows take the other layout). Raises on any difference."""
+    from hyperscalees_t2i_tpu_torch.ops.fused_qlora import _plan, fused_qlora_matmul
+
+    g = torch.Generator(device="cuda").manual_seed(98)
+    din = dout = 2240
+    lanes, checked, tiles = 4, 0, set()
+    q8 = torch.randint(-127, 128, (din, dout), generator=g, device="cuda", dtype=torch.int8)
+    scale = torch.rand(1, dout, generator=g, device="cuda") * (2.0 / (127 * math.sqrt(din)))
+    for T, ranges in ((1024, ((0, 1), (0, 2), (0, 50), (0, 257), (1023, 1024))),
+                      (32, ((0, 1), (0, 2), (0, 9), (31, 32)))):
+        for dt in (torch.bfloat16, torch.float32):
+            a, b = _factor(torch, g, din, R_L, dt, lanes), _factor(torch, g, R_L, dout, dt, lanes)
+            x = torch.randn(lanes * T, din, generator=g, device="cuda").to(dt)
+            full = fused_qlora_matmul(x, q8, scale, a, b, LORA_SCALE)
+            tiles.add((T, str(dt), _plan(T, lanes, din, dout, dt).tile, _plan(T, 1, din, dout, dt).tile))
+            for i in range(lanes):
+                al, bl = _lane(a, i), _lane(b, i)
+                xi = x[i * T:(i + 1) * T]
+                solo = fused_qlora_matmul(xi, q8, scale, al, bl, LORA_SCALE)
+                pairs = [(f"lane {i} of {lanes}", solo, full[i * T:(i + 1) * T])]
+                if i == 0:
+                    pairs += [(f"rows {lo}:{hi}", fused_qlora_matmul(xi[lo:hi], q8, scale, al, bl, LORA_SCALE),
+                               solo[lo:hi]) for lo, hi in ranges]
+                for what, got, want in pairs:
+                    if not torch.equal(got, want):
+                        diff = float((got.float() - want.float()).abs().max())
+                        raise AssertionError(f"fused_qlora {T}x{din}x{dout} {dt}: {what} alone differs from the "
+                                             f"same rows in the larger call (max abs {diff})")
+                    checked += 1
+    torch.cuda.synchronize()
+    log(f"[k3] batch and lane invariance: {checked} row ranges and lanes bitwise equal (bf16 and f32); "
+        f"(T, dtype, tile with {lanes} lanes, tile alone): {sorted(tiles)}")
+    return checked
 
 
 def phase_chain_check(torch):
     """K2 and K3 at the flagship's adapted-site shapes: error against the
-    plain version, kernel / plain / library ms, and the bound."""
+    plain version, kernel / plain / library ms, and the bound; K3 also with
+    q8 = 0 against the plain chain (its error alone), and beside its
+    main-path rows the recorded ms of the design it replaced."""
     from hyperscalees_t2i_tpu_torch.lora import effective_factor
     from hyperscalees_t2i_tpu_torch.ops.fused_lora import member_lora_delta, member_lora_delta_reference
     from hyperscalees_t2i_tpu_torch.ops.fused_qlora import fused_qlora_matmul, fused_qlora_reference
@@ -404,6 +524,19 @@ def phase_chain_check(torch):
                 torch.cuda.synchronize()
                 err, tol, ref_max = check_close(f"{name} at {site} {T}x{din}x{dout} {dt_name}",
                                                 out, plain(s0), dt_name, torch)
+                extra = {}
+                if name == "fused_qlora":
+                    # the chain alone (q8 = 0), so that its error cannot hide under the base term's size
+                    out0 = fused_qlora_matmul(s0["x"], torch.zeros_like(s0["q8"]), s0["scale"], s0["a"], s0["b"],
+                                              LORA_SCALE)
+                    torch.cuda.synchronize()
+                    c_err, c_tol, _ = check_close(f"fused_qlora chain only (q8 = 0) at {site} {T}x{din}x{dout} "
+                                                  f"{dt_name}", out0,
+                                                  member_lora_delta_reference(s0["x"], s0["a"], s0["b"], LORA_SCALE),
+                                                  dt_name, torch)
+                    extra = dict(chain_only_max_abs_err=c_err, chain_only_tol=c_tol)
+                    if main:
+                        extra["before_ms"] = K3_BEFORE_MS[site]
                 reps = 20 if T * din * dout < 5e9 else 10
                 ms = time_ms(torch, [lambda s=s: kernel(s) for s in sets], reps)
                 plain_ms = time_ms(torch, [lambda s=s: plain(s) for s in sets], reps)
@@ -413,12 +546,14 @@ def phase_chain_check(torch):
                     site=site, T=T, din=din, dout=dout, dtype=dt_name, noise_dtype=str(ndt).split(".")[-1],
                     main_path=main, calls_per_image=calls if main else 0, max_abs_err=err, tol=tol,
                     ref_max=ref_max, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                    tflops=flop / ms / 1e9,
+                    tflops=flop / ms / 1e9, **extra,
                 ))
                 log(f"[{'k2' if name == 'lora_chain' else 'k3'}] {site:34s} T={T:5d} {din:5d}x{dout:5d} "
                     f"{dt_name:8s} {'main' if main else '    '} err={err:.3g} rel={err / ref_max:.3g} "
                     f"ms={ms:.4f} plain={plain_ms:.4f} library={lib_ms:.4f} bound={b_ms:.4f} ({b_by}) "
-                    f"{flop / ms / 1e9:.1f} TFLOP/s")
+                    f"{flop / ms / 1e9:.1f} TFLOP/s" +
+                    (f"; chain only err={extra['chain_only_max_abs_err']:.3g} (tol {extra['chain_only_tol']:.3g})"
+                     if extra else "") + (f"; before {extra['before_ms']:.4f}" if "before_ms" in extra else ""))
             del sets
     torch.cuda.empty_cache()
     return rows
@@ -1224,6 +1359,7 @@ def main() -> int:
     k1_rows = phase_k1_check(torch)
     k1_invariant = phase_k1_invariance(torch)
     chain_rows = phase_chain_check(torch)
+    k3_invariant = phase_k3_invariance(torch)
     k4_rows, k4_extra = phase_k4_check(torch)
     small_err = phase_small_reference(torch)
     es_tiny = phase_es_reference(torch, "tiny", int8=True)
@@ -1264,7 +1400,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, device=torch.cuda.get_device_name(0), torch=torch.__version__, **build,
-        k1_invariant_ranges=k1_invariant,
+        k1_invariant_ranges=k1_invariant, k3_invariant_ranges=k3_invariant,
         k1_shapes=k1_rows, chain_shapes=chain_rows, k4_shapes=k4_rows, k4_cases=k4_extra,
         small_reference_max_abs=small_err, es_tiny=es_tiny, es_small=es_small, var_tiny=var_tiny,
         es_flagship_float=es_float, serve=serve, var_es=var_es, es_flagship=es, kernels=kernels, k1_serving=k1_serve,

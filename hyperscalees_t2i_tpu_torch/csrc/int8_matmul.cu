@@ -19,7 +19,8 @@
 // Design.
 // - bf16 x: tensor cores through mma.sync.m16n8k16 (bf16 in, f32 sums).
 //   s8 values are exact in bf16 and each bf16 product is exact in f32, so
-//   converting q8 loses nothing. The K loop streams 64-deep stages through a
+//   converting q8 loses nothing. The K loop (int8_tile.cuh, shared with K3
+//   in fused_qlora.cu) streams 64-deep stages through a
 //   4-stage ring in shared memory filled by cp.async, one barrier a stage:
 //   x tiles (16-byte copies, or 8-byte where K % 8 or x's alignment forbids
 //   them, or element loads) in rows padded by 16 bytes so ldmatrix reads
@@ -52,7 +53,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "int8_mma.cuh"
+#include "int8_tile.cuh"
 
 namespace {
 
@@ -60,130 +61,23 @@ using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------- bf16 route
 
-constexpr int BK = 64;      // reduction depth of one pipeline stage
-constexpr int STAGES = 4;   // cp.async ring depth
-constexpr int PAD = 8;      // bf16 elements of padding per shared x row (16 bytes)
+// The tiles and the K loop are int8_tile.cuh's, shared with K3.
+using TileL = hses::MmaTile<128, 128, 2, 4, 2>;  // 110,592 B shared, 2 blocks an SM
+using TileM = hses::MmaTile<64, 64, 2, 2, 3>;    // 57,344 B
+using TileS = hses::MmaTile<16, 64, 1, 2, 4>;    // 29,696 B
+constexpr int BK = hses::MMA_BK;
 
-// One block's output tile, its warps' layout, and its shared memory: a ring
-// of x tiles [BM][BK + 8] bf16 and raw q8 tiles [BK][BN + 16] s8. A warp
-// owns WTM x 32 outputs; its four n8 tiles take 4 adjacent columns (fragment
-// column c of tile j is column 4c + j of the warp's 32), so one 32-bit read
-// of a q8 row feeds all four, and the 16 bytes of row padding put the reads
-// of a warp on distinct banks.
-template <int BM_, int BN_, int WARPS_M_, int WARPS_N_, int MIN_BLOCKS_>
-struct Tile {
-    static constexpr int BM = BM_, BN = BN_, WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
-    static constexpr int THREADS = 32 * WARPS_M * WARPS_N, MIN_BLOCKS = MIN_BLOCKS_;
-    static constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;  // one warp's output tile
-    static constexpr int MI = WTM / 16;                           // m16 tiles per warp
-    static constexpr int AS = BK + PAD;                           // x row stride, elements
-    static constexpr int RS = BN + 16;                            // q8 row stride, bytes
-    static constexpr int A_BYTES = STAGES * BM * AS * 2;
-    static constexpr int SMEM = A_BYTES + STAGES * BK * RS;
-    static_assert(WTM % 16 == 0 && WTN == 32, "a warp owns 16k rows and 32 columns");
-};
-using TileL = Tile<128, 128, 2, 4, 2>;  // 110,592 B shared, 2 blocks an SM
-using TileM = Tile<64, 64, 2, 2, 3>;    // 57,344 B
-using TileS = Tile<16, 64, 1, 2, 4>;    // 29,696 B
-
-// AV: elements of x per copy (8: 16-byte cp.async, 4: 8-byte cp.async,
-// 1: plain loads). BV: q8 in 16-byte cp.async (else plain byte loads).
 template <class T, int AV, bool BV>
 __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
 int8_mma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
                 const float* __restrict__ scale, bf16* __restrict__ out, int M, int K, int N) {
     extern __shared__ __align__(16) unsigned char smem[];
-    bf16* As = reinterpret_cast<bf16*>(smem);                      // [STAGES][BM][AS]
-    int8_t* Braw = reinterpret_cast<int8_t*>(smem + T::A_BYTES);  // [STAGES][BK][RS]
-
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
     const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN;
-    const int ktiles = (K + BK - 1) / BK;
-
-    auto load_stage = [&](int stage, int kt) {
-        const int k0 = kt * BK;
-        bf16* a = As + stage * T::BM * T::AS;
-        if constexpr (AV > 1) {
-            constexpr int CPR = BK / AV;
-#pragma unroll
-            for (int i = tid; i < T::BM * CPR; i += T::THREADS) {
-                const int r = i / CPR, c = (i % CPR) * AV, gr = m0 + r, gk = k0 + c;
-                const bool ok = gr < M && gk < K;
-                const bf16* src = ok ? x + (int64_t)gr * K + gk : x;
-                if constexpr (AV == 8) hses::cp_async16(a + r * T::AS + c, src, ok ? 16 : 0);
-                else hses::cp_async8(a + r * T::AS + c, src, ok ? 8 : 0);
-            }
-        } else {
-            for (int i = tid; i < T::BM * BK; i += T::THREADS) {
-                const int r = i / BK, c = i % BK, gr = m0 + r, gk = k0 + c;
-                a[r * T::AS + c] = (gr < M && gk < K) ? x[(int64_t)gr * K + gk] : __float2bfloat16(0.f);
-            }
-        }
-        int8_t* b = Braw + stage * BK * T::RS;
-        if constexpr (BV) {
-            constexpr int CPR = T::BN / 16;
-#pragma unroll
-            for (int i = tid; i < BK * CPR; i += T::THREADS) {
-                const int r = i / CPR, c = (i % CPR) * 16, gk = k0 + r, gn = n0 + c;
-                const bool ok = gk < K && gn < N;
-                hses::cp_async16(b + r * T::RS + c, ok ? q + (int64_t)gk * N + gn : q, ok ? 16 : 0);
-            }
-        } else {
-            for (int i = tid; i < BK * T::BN; i += T::THREADS) {
-                const int r = i / T::BN, c = i % T::BN, gk = k0 + r, gn = n0 + c;
-                b[r * T::RS + c] = (gk < K && gn < N) ? q[(int64_t)gk * N + gn] : (int8_t)0;
-            }
-        }
-    };
-
     float acc[T::MI][4][4];
-#pragma unroll
-    for (int mi = 0; mi < T::MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-        if (s < ktiles) load_stage(s, s);
-        hses::cp_async_commit();
-    }
-    const int krow = 2 * (lane & 3), bcol = wn * 32 + 4 * (lane >> 2);
-    for (int kt = 0; kt < ktiles; ++kt) {
-        const int stage = kt % STAGES;
-        hses::cp_async_wait<STAGES - 2>();
-        __syncthreads();  // tile kt landed for all; stage kt-1 is free to refill
-        {
-            const int nk = kt + STAGES - 1;
-            if (nk < ktiles) load_stage(nk % STAGES, nk);
-            hses::cp_async_commit();
-        }
-        const bf16* a = As + stage * T::BM * T::AS;
-        const int8_t* b = Braw + stage * BK * T::RS + bcol;
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            uint32_t af[T::MI][4], bfr[4][2];
-#pragma unroll
-            for (int mi = 0; mi < T::MI; ++mi)
-                hses::ldmatrix_x4(af[mi], a + (wm * T::WTM + mi * 16 + (lane & 15)) * T::AS + kk + (lane >> 4) * 8);
-            const uint32_t w0 = *reinterpret_cast<const uint32_t*>(b + (kk + krow) * T::RS);
-            const uint32_t w1 = *reinterpret_cast<const uint32_t*>(b + (kk + krow + 1) * T::RS);
-            const uint32_t w8 = *reinterpret_cast<const uint32_t*>(b + (kk + krow + 8) * T::RS);
-            const uint32_t w9 = *reinterpret_cast<const uint32_t*>(b + (kk + krow + 9) * T::RS);
-            // interleave rows k, k+1 byte by byte: tile j's pair is byte j of each
-            hses::s8x4_to_bf16x4(__byte_perm(w0, w1, 0x5140), bfr[0][0], bfr[1][0]);
-            hses::s8x4_to_bf16x4(__byte_perm(w0, w1, 0x7362), bfr[2][0], bfr[3][0]);
-            hses::s8x4_to_bf16x4(__byte_perm(w8, w9, 0x5140), bfr[0][1], bfr[1][1]);
-            hses::s8x4_to_bf16x4(__byte_perm(w8, w9, 0x7362), bfr[2][1], bfr[3][1]);
-#pragma unroll
-            for (int mi = 0; mi < T::MI; ++mi)
-#pragma unroll
-                for (int ni = 0; ni < 4; ++ni) hses::mma_bf16_16816(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
-        }
-    }
-    hses::cp_async_wait<0>();
+    hses::NoExtra none;
+    hses::int8_mma_mainloop<T, AV, BV>(x, q, M, K, N, m0, n0, smem, acc, none);
 
     // epilogue: a thread holds 8 adjacent columns, 8(lane%4) + {0..7}, of
     // rows lane/4 and lane/4 + 8: column 8(lane%4) + j is tile j's c0 (c2),
@@ -227,7 +121,7 @@ template <class T, int AV, bool BV>
 int launch_mma(const void* x, const void* q, const void* scale, void* out, int M, int K, int N,
                cudaStream_t stream) {
     auto kernel = int8_mma_kernel<T, AV, BV>;
-    constexpr int smem = T::SMEM;
+    constexpr int smem = T::RING;
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (e != cudaSuccess) return (int)e;
@@ -436,9 +330,9 @@ extern "C" int hses_int8_matmul_f32(const void* x, const void* q, const void* sc
 // tile id; the f32 routes' shared memory is static and in ptxas's report).
 extern "C" int hses_int8_matmul_smem(int tile) {
     switch (tile) {
-        case MMA_128x128: return TileL::SMEM;
-        case MMA_64x64: return TileM::SMEM;
-        case MMA_16x64: return TileS::SMEM;
+        case MMA_128x128: return TileL::RING;
+        case MMA_64x64: return TileM::RING;
+        case MMA_16x64: return TileS::RING;
         default: return -1;
     }
 }

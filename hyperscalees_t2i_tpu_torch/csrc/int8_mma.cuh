@@ -1,6 +1,7 @@
-// PTX building blocks of the int8 dequant-matmul's tensor-core route
-// (int8_matmul.cu): asynchronous global-to-shared copies, ldmatrix, the
-// bf16 m16n8k16 mma with f32 accumulators, and s8 -> bf16 conversion.
+// PTX building blocks of the tensor-core routes of the int8 dequant-matmul
+// (int8_matmul.cu) and of the fused int8 + LoRA matmul (fused_qlora.cu):
+// asynchronous global-to-shared copies, ldmatrix, the bf16 m16n8k16 mma
+// with f32 accumulators, and s8 -> bf16 conversion.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,6 +33,13 @@ __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_gr
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)) : "memory");
+}
+// Two 8x8 b16 matrices, transposed; lanes 8i..8i+7 give the row addresses
+// of matrix i. Thread t receives rows 2(t%4), 2(t%4)+1, column t/4 of each:
+// from a k-major [k][n] tile, the col-major B fragment of mma.m16n8k16.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+                 : "=r"(r0), "=r"(r1) : "r"(smem_addr(p)) : "memory");
 }
 // d[16x8] += a[16x16] (row-major fragment) @ b[16x8] (col-major fragment),
 // bf16 inputs, f32 sums.

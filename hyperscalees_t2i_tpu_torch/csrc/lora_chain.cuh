@@ -132,4 +132,36 @@ __device__ __forceinline__ float chain_at(const EpilogueSmem<ROWS, COLS>& e, int
     return fmaf(cb, t, s);
 }
 
+// d of the 8 adjacent columns [col, col + 8) of one row, each summed in
+// chain_at's order (so bitwise chain_at's value): b.w's row slices are read
+// 16 bytes at a time. col % 4 == 0; ROWS even keeps e.bw 16-byte aligned.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void chain_row8(const EpilogueSmem<ROWS, COLS>& e, int r_l, int r_e,
+                                           float cb, int row, int col, float (&d)[8]) {
+    static_assert(ROWS % 2 == 0 && COLS % 4 == 0, "e.bw rows must be 16-byte aligned");
+    float s[8], t[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = t[i] = 0.f;
+    for (int l = 0; l < r_l; ++l) {
+        const float a = e.xa[row][l];
+        const float4 b0 = *reinterpret_cast<const float4*>(&e.bw[l][col]);
+        const float4 b1 = *reinterpret_cast<const float4*>(&e.bw[l][col + 4]);
+        s[0] = fmaf(a, b0.x, s[0]);
+        s[1] = fmaf(a, b0.y, s[1]);
+        s[2] = fmaf(a, b0.z, s[2]);
+        s[3] = fmaf(a, b0.w, s[3]);
+        s[4] = fmaf(a, b1.x, s[4]);
+        s[5] = fmaf(a, b1.y, s[5]);
+        s[6] = fmaf(a, b1.z, s[6]);
+        s[7] = fmaf(a, b1.w, s[7]);
+    }
+    for (int j = 0; j < r_e; ++j) {
+        const float b = e.xb[row][j];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) t[i] = fmaf(b, e.bv[col + i][j], t[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) d[i] = fmaf(cb, t[i], s[i]);
+}
+
 }  // namespace lora_chain

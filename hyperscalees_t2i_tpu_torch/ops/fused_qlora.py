@@ -5,10 +5,12 @@ Port of ``hyperscalees_t2i_tpu/ops/fused_qlora.py``. There the Pallas kernel
 ``_qlora_kernel`` dequantizes one ``[din, bn]`` s8 base tile in VMEM and
 runs the member's perturbed-LoRA chain against the same token tile. Here the
 kernel is ``csrc/fused_qlora.cu`` (its note says what bounds it and how it
-is tiled), built by ``nvcc`` at first use and called through ``ctypes`` on
-PyTorch's current stream. It tiles ``din`` itself, so the JAX package's VMEM
-budget (``_fit_blocks``) has no counterpart. The routing switch
-``HSES_FUSED_QLORA`` is not ported: routing is always on.
+is tiled): the base term on K1's tensor-core mainloop (``csrc/int8_tile.cuh``)
+with the thin products as extra mma columns, built by ``nvcc`` at first use
+and called through ``ctypes`` on PyTorch's current stream. It tiles ``din``
+itself, so the JAX package's VMEM budget (``_fit_blocks``) has no
+counterpart. The routing switch ``HSES_FUSED_QLORA`` is not ported: routing
+is always on.
 
 - :func:`fused_qlora_applies` / :func:`fused_qlora_dense` — what
   ``models.nn.dense`` calls at an int8 site whose adapter leaf carries both
@@ -17,7 +19,11 @@ budget (``_fit_blocks``) has no counterpart. The routing switch
   ``dequant_matmul + lora.fused_lora_delta``.
 - :func:`fused_qlora_matmul` — the kernel's wrapper. A CPU tensor takes the
   plain version :func:`fused_qlora_reference`; a CUDA tensor launches the
-  kernel or raises. ``fused_qlora_matmul.launches`` counts kernel launches.
+  kernel once or raises. ``fused_qlora_matmul.launches`` counts kernel
+  launches.
+- :func:`_plan` — the kernel's route for one call, a pure function of the
+  shape, lanes, dtype and pointers, so that the CPU tests can hold it to the
+  kernel's batch- and lane-invariance rule.
 - :func:`conv_kernel_q8_matmul` — 1×1 and patch convs as int8 matmuls.
 
 ES needs no gradient, so there is no backward kernel: the step runs under
@@ -27,12 +33,31 @@ ES needs no gradient, so there is no backward kernel: the step runs under
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from .fused_lora import CHAIN_ARGTYPES, DTYPE_NAMES, chain_launch_args, chain_reference
-from .quant_mm import dequant_matmul
+from .quant_mm import F32_ROWS8, F32_TILE, Plan, copy_widths, dequant_matmul, mma_tile
+
+
+def _plan(rows_per_lane: int, lanes: int, K: int, N: int, dtype: torch.dtype, x_ptr: int = 0,
+          q_ptr: int = 0) -> Plan:
+    """The kernel's route for ``lanes`` groups of ``x[rows_per_lane, K]``
+    against ``q8[K, N]``.
+
+    The tile may follow the rows, the lanes and N: bf16 takes K1's rule
+    (``quant_mm.mma_tile``) over ``lanes × ⌈rows_per_lane / BM⌉ × ⌈N / BN⌉``
+    blocks: 128×128 at T = 1024 (144 blocks at N = 2240), 16×64 at T = 32
+    (70); f32 the 8-row layout at ≤ 8 rows a lane, else 64×64. The order of
+    each output's sum over k may not: ``bk`` is the depth of one stage of it
+    (64: k16 mma steps in ascending k; 32: FMA chunks added in order), and
+    the C entry runs only at its own. Copy widths as K1's."""
+    if dtype == torch.float32:
+        return Plan(F32_ROWS8 if rows_per_lane <= 8 else F32_TILE, 32, 0, 0)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"fused_qlora_matmul takes bf16 or f32 activations, got {dtype}")
+    return Plan(mma_tile(rows_per_lane, lanes, N), 64, *copy_widths(K, N, x_ptr, q_ptr))
 
 
 def fused_qlora_reference(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
@@ -44,6 +69,21 @@ def fused_qlora_reference(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor
     w = q8.to(torch.float32) * scale.to(torch.float32)
     y = x3 @ w + lora_scale * chain_reference(x3, a, b)
     return y.reshape(*x.shape[:-1], q8.shape[-1]).to(x.dtype)
+
+
+def _launch(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor, out: torch.Tensor, args: List[Any],
+            ndt: torch.dtype, lora_scale: float, plan: Plan) -> None:
+    """One launch of the kernel by ``plan`` on x's device and current stream;
+    ``args`` are :func:`chain_launch_args`'s."""
+    from ._build import entry
+
+    fn = entry("fused_qlora", f"hses_fused_qlora_{DTYPE_NAMES[x.dtype]}_{DTYPE_NAMES[ndt]}",
+               [ctypes.c_void_p] * 4 + CHAIN_ARGTYPES + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), q8.data_ptr(), scale.data_ptr(), out.data_ptr(), *args, float(lora_scale),
+                 plan.tile, plan.bk, plan.a_vec, plan.b_vec, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_qlora kernel launch failed: cudaError {err}")
 
 
 def fused_qlora_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
@@ -80,15 +120,9 @@ def fused_qlora_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
     out = torch.empty(*x.shape[:-1], dout, dtype=x.dtype, device=x.device)
     if rows == 0 or dout == 0:
         return out
-    from ._build import entry
-
-    fn = entry("fused_qlora", f"hses_fused_qlora_{DTYPE_NAMES[x.dtype]}_{DTYPE_NAMES[ndt]}",
-               [ctypes.c_void_p] * 4 + CHAIN_ARGTYPES + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), q8.data_ptr(), scale.data_ptr(), out.data_ptr(), *args,
-                 float(lora_scale), torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_qlora kernel launch failed: cudaError {err}")
+    rows_per_lane, lanes = args[8:10]  # after the factors' 8 pointers
+    plan = _plan(rows_per_lane, lanes, din, dout, x.dtype, x.data_ptr(), q8.data_ptr())
+    _launch(x, q8, scale, out, args, ndt, lora_scale, plan)
     fused_qlora_matmul.launches += 1
     return out
 

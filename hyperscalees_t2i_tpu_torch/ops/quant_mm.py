@@ -46,6 +46,30 @@ class Plan(NamedTuple):
     b_vec: int  # bytes of q8 per copy (16: cp.async, 1: element loads); 0 for f32
 
 
+def mma_tile(rows_per_lane: int, lanes: int, N: int, tiles=_MMA_TILES) -> int:
+    """The first of ``tiles`` (id, BM, BN, least blocks) whose grid of
+    ``lanes × ⌈rows_per_lane / BM⌉ × ⌈N / BN⌉`` blocks reaches its least
+    count, else the 16×64 tile."""
+    for tid, bm, bn, least in tiles:
+        if lanes * -(-rows_per_lane // bm) * -(-N // bn) >= least:
+            return tid
+    return MMA_16x64
+
+
+def copy_widths(K: int, N: int, x_ptr: int, q_ptr: int):
+    """``(a_vec, b_vec)``: 16-byte copies of bf16 x need K % 8 and a
+    16-byte-aligned x, 8-byte copies K % 4 and 8-byte alignment, else
+    element loads; 16-byte copies of q8 need N % 16 and a 16-byte-aligned
+    q8, else byte loads."""
+    if K % 8 == 0 and x_ptr % 16 == 0:
+        a_vec = 8
+    elif K % 4 == 0 and x_ptr % 8 == 0:
+        a_vec = 4
+    else:
+        a_vec = 1
+    return a_vec, 16 if N % 16 == 0 and q_ptr % 16 == 0 else 1
+
+
 def _plan(M: int, K: int, N: int, dtype: torch.dtype, x_ptr: int = 0, q_ptr: int = 0) -> Plan:
     """The kernel's route for ``x[M, K] @ q8[K, N]``.
 
@@ -56,26 +80,12 @@ def _plan(M: int, K: int, N: int, dtype: torch.dtype, x_ptr: int = 0, q_ptr: int
     The order of each output's sum over k may not: bf16 sums 16-deep mma
     steps in ascending k through 64-deep stages, f32 sums 32-deep FMA chunks
     in ascending order, whatever the tile; ``bk`` is that depth, and the C
-    entry runs only at its own. 16-byte copies of x need K % 8 and a
-    16-byte-aligned x, 8-byte copies K % 4 and 8-byte alignment; 16-byte
-    copies of q8 need N % 16 and a 16-byte-aligned q8."""
+    entry runs only at its own. Copy widths as :func:`copy_widths`."""
     if dtype == torch.float32:
         return Plan(F32_ROWS8 if M <= 8 else F32_TILE, 32, 0, 0)
     if dtype != torch.bfloat16:
         raise TypeError(f"int8_matmul takes bf16 or f32 activations, got {dtype}")
-    tile = MMA_16x64
-    for tid, bm, bn, least in _MMA_TILES:
-        if -(-M // bm) * -(-N // bn) >= least:
-            tile = tid
-            break
-    if K % 8 == 0 and x_ptr % 16 == 0:
-        a_vec = 8
-    elif K % 4 == 0 and x_ptr % 8 == 0:
-        a_vec = 4
-    else:
-        a_vec = 1
-    b_vec = 16 if N % 16 == 0 and q_ptr % 16 == 0 else 1
-    return Plan(tile, 64, a_vec, b_vec)
+    return Plan(mma_tile(M, 1, N), 64, *copy_widths(K, N, x_ptr, q_ptr))
 
 
 def int8_matmul_reference(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
