@@ -8,9 +8,9 @@ result):
 
 1. build every CUDA kernel from ``csrc/`` with ``nvcc`` (one process per
    source, all at once): K1 ``int8_matmul``, K2 ``lora_chain``, K3
-   ``fused_qlora``, K4 ``decode_attention``; log each K1 and K3 route's
+   ``fused_qlora``, K4 ``decode_attention``; log each K1, K2 and K3 route's
    registers, spills and shared memory, and count the tensor-core
-   instructions (``HMMA``) in K1's and K3's SASS (none in a bf16 route
+   instructions (``HMMA``) in K1's, K2's and K3's SASS (none in a bf16 route
    fails);
 2. hold each kernel against its plain PyTorch version on the card at every
    shape its main path gives it, in the main-path dtype and in f32, and time
@@ -18,13 +18,15 @@ result):
    same function (``library_ms``, a yardstick the port never calls) and the
    card's lower bound for the work: K1 at the flagship DiT, DC-AE, CLIP-B/32
    and CLIP-H/14 shapes; K2 and K3 at the flagship's LoRA-adapted sites (K3
-   also with q8 = 0 against the plain chain alone);
+   also with q8 = 0 against the plain chain alone), each also by its device
+   time under ``torch.profiler`` (``device_ms``, beside the plain version's)
+   and its wrapper's host time a call (``host_us``);
    K4 at the ten VAR-d16 scale shapes, plus a masked dh-128 cross-attention
    shape (Infinity's geometry), a multi-tile kv case, NaN garbage past
    ``kv_len`` and an all-masked row; K1's batch invariance, bitwise: rows
    of an M = 1024 call against the same rows alone; K3's batch and lane
    invariance, bitwise: rows and lanes of a 4-lane call against the same
-   rows and lanes alone, at T = 1024 and 32;
+   rows and lanes alone, at T = 1024 and 32; K2's the same;
 3. check the port end to end on small inputs against the same work on the
    CPU (the CPU path is the one the tests hold against the JAX package): the
    tiny rung served in f32 with an int8 base; one tiny-rung ES step in f32
@@ -133,6 +135,16 @@ K3_BEFORE_MS = {
     "attn1 q,k,v,out + attn2 q,out": 1.1441,
     "proj_out": 0.3777,
 }
+# K2's ms per call at each main-path shape before its redesign for Hopper:
+# PR 2's kernel as PR 6's run 15 measured it (NVIDIA H100 80GB HBM3, 700 W;
+# noise bf16). A record, printed beside this run's times.
+K2_BEFORE_MS = {
+    "time_embed/linear": 0.6813,
+    "caption_proj/linear_1": 0.3598,
+    "caption_proj/linear_2 + attn2 k,v": 0.3438,
+    "attn1 q,k,v,out + attn2 q,out": 0.4378,
+    "proj_out": 0.2381,
+}
 # K4 on the VAR-d16 path: per scale, (queries pn², kv_len) against a 680-position
 # cache of 32 rows (4 lanes × 4 images × cond/uncond), 16 heads of 64; each
 # shape runs once per layer (16) per generate call
@@ -163,20 +175,79 @@ def time_ms(torch, fns, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fns, reps: int, marker=None) -> float:
+    """Mean device time of one call under ``torch.profiler``, over ``reps``
+    calls rotating over ``fns``: with ``marker``, the mean duration of the
+    kernels whose name holds it (one a call; the profiler may drop an event,
+    so at least half must be seen); without, every kernel's duration summed
+    and divided by ``reps``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the trace may open late and miss a whole window of short calls: try again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            for i in range(reps):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        total, n = 0.0, 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and (marker is None or marker in e.name):
+                total += (e.time_range.end - e.time_range.start) / 1e3
+                n += 1
+        if marker is None and n:
+            return total / reps
+        if marker is not None and reps // 2 <= n <= reps:
+            return total / n
+    raise AssertionError(f"the profiler saw {n} kernels named *{marker or ''}* for {reps} calls")
+
+
+def host_us(torch, fns, reps: int) -> float:
+    """Host time of one call, µs: the host clock around ``reps`` calls
+    (rotating over ``fns``) that are only enqueued, after a synchronize."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fns[i % len(fns)]()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
 def bound(dt_name: str, flop: float, nbytes: float):
     t_ops = flop / PEAK_FLOPS[dt_name] * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_close(name, out, ref, dt_name, torch):
-    """bf16 within 2⁻⁷ of the largest output, f32 within 1e-5 of it."""
+def check_close(name, out, ref, dt_name, torch, again=None):
+    """bf16 within 2⁻⁷ of the largest output, f32 within 1e-5 of it.
+
+    On a failure the message names the worst element, its kernel and plain
+    values and, where ``again`` (a callable giving a second ``(out, ref)``
+    from the same inputs) is given, both values computed once more, so a
+    fault in the kernel and one in the plain version tell themselves apart.
+    The check fails all the same."""
     ref = ref.float()
-    err = float((out.float() - ref).abs().max())
+    diff = (out.float() - ref).abs()
+    err = float(diff.max())
     ref_max = float(ref.abs().max())
     tol = (2 ** -7 if dt_name == "bfloat16" else 1e-5) * ref_max
     if not (err <= tol and bool(torch.isfinite(out).all())):
-        raise AssertionError(f"{name}: max abs err {err} > {tol} (or not finite)")
+        i = int(torch.nan_to_num(diff, nan=float("inf")).flatten().argmax())
+        where = f"element {i}: kernel {float(out.flatten()[i])}, plain {float(ref.flatten()[i])}"
+        if again is not None:
+            out2, ref2 = again()
+            torch.cuda.synchronize()
+            where += (f"; computed again: kernel {float(out2.flatten()[i])}, plain {float(ref2.flatten()[i])}"
+                      f" (kernel again max abs diff {float((out2.float() - out.float()).abs().max())},"
+                      f" plain again {float((ref2.float() - ref).abs().max())})")
+        raise AssertionError(f"{name}: max abs err {err} > {tol} (or not finite); largest |plain| {ref_max}; {where}")
     return err, tol, ref_max
 
 
@@ -223,12 +294,14 @@ def sass_hmma(source: str):
 
 def phase_build():
     from hyperscalees_t2i_tpu_torch.ops import _build
+    from hyperscalees_t2i_tpu_torch.ops import fused_lora as fl
     from hyperscalees_t2i_tpu_torch.ops import quant_mm as qm
 
     t0 = time.perf_counter()
     logs = _build.build_all(["int8_matmul", "lora_chain", "fused_qlora", "decode_attention"])
     dt = time.perf_counter() - t0
-    routed = {"int8_matmul": "int8_mma_kernel", "fused_qlora": "qlora_mma_kernel"}
+    routed = {"int8_matmul": "int8_mma_kernel", "lora_chain": "lora_chain_mma_kernel",
+              "fused_qlora": "qlora_mma_kernel"}
     for name, text in logs.items():
         if name in routed and text != "(cached)":
             continue
@@ -237,7 +310,7 @@ def phase_build():
     tiles = (("128x128", qm.MMA_128x128), ("64x64", qm.MMA_64x64), ("16x64", qm.MMA_16x64))
     out = dict(build_s=dt)
     for name, mma_kernel in routed.items():
-        tag = "k1" if name == "int8_matmul" else "k3"
+        tag = {"int8_matmul": "k1", "lora_chain": "k2", "fused_qlora": "k3"}[name]
         routes = kernel_routes(logs[name])
         for fn, line in routes.items():
             log(f"[build] {name} {fn}: {line}")
@@ -250,10 +323,14 @@ def phase_build():
         if name == "int8_matmul":
             tile_smem = _build.entry(name, "hses_int8_matmul_smem", [ctypes.c_int])
             smem = {t: tile_smem(tid) for t, tid in tiles}
+        elif name == "lora_chain":
+            route_smem = _build.entry(name, "hses_lora_chain_smem", [ctypes.c_int, ctypes.c_int])
+            smem = {"bf16 32 rows": route_smem(fl.MMA_ROWS32, 0), "bf16 32 rows wide": route_smem(fl.MMA_ROWS32, 1),
+                    "f32 8 rows (most)": route_smem(fl.F32_ROWS8, 0)}
         else:
             tile_smem = _build.entry(name, "hses_fused_qlora_smem", [ctypes.c_int, ctypes.c_int])
             smem = {f"{t}{' wide' if wide else ''}": tile_smem(tid, wide) for t, tid in tiles for wide in (0, 1)}
-        log(f"[build] {name} bf16 dynamic shared memory per block: {smem} bytes; "
+        log(f"[build] {name} dynamic shared memory per block: {smem} bytes; "
             f"SASS: {sum(mma.values())} HMMA over {len(mma)} bf16 kernels")
         out.update({f"{tag}_ptxas": routes, f"{tag}_hmma": hmma, f"{tag}_smem_bytes": smem})
     log(f"[build] four kernels built in {dt:.1f} s (one nvcc per source, in parallel)")
@@ -308,8 +385,9 @@ def phase_k1_check(torch):
             x, q8, scale, _ = sets[0]
             out = int8_matmul(x, q8, scale)
             torch.cuda.synchronize()
-            err, tol, ref_max = check_close(f"int8_matmul at {site} {T}x{din}x{dout} {dt_name}",
-                                            out, int8_matmul_reference(x, q8, scale), dt_name, torch)
+            err, tol, ref_max = check_close(
+                f"int8_matmul at {site} {T}x{din}x{dout} {dt_name}", out, int8_matmul_reference(x, q8, scale),
+                dt_name, torch, again=lambda: (int8_matmul(x, q8, scale), int8_matmul_reference(x, q8, scale)))
             reps = 20 if T * din * dout < 5e9 else 10
             ms = time_ms(torch, [lambda s=s: int8_matmul(s[0], s[1], s[2]) for s in sets], reps)
             plain = time_ms(torch, [lambda s=s: int8_matmul_reference(s[0], s[1], s[2]) for s in sets], reps)
@@ -437,51 +515,76 @@ def _lane(f, i):
     return FactoredDelta(f.w, f.u[i], f.v[i], f.c[i])
 
 
-def phase_k3_invariance(torch):
-    """Bitwise batch and lane invariance of K3 at 1024×2240×2240 and
-    32×2240×2240, bf16 and f32 (noise in x's dtype): each lane of a 4-lane
-    call against that lane alone (at T = 32 the two calls take different
-    tiles), and row ranges of a lane against the same rows alone (at f32,
-    ≤ 8 rows take the other layout). Raises on any difference."""
-    from hyperscalees_t2i_tpu_torch.ops.fused_qlora import _plan, fused_qlora_matmul
-
-    g = torch.Generator(device="cuda").manual_seed(98)
+def _lane_invariance(torch, tag: str, name: str, g, call, plan_of):
+    """Bitwise batch and lane invariance of ``call(x, a, b)`` at
+    1024×2240×2240 and 32×2240×2240, bf16 and f32 (noise in x's dtype): each
+    lane of a 4-lane call against that lane alone, and row ranges of a lane
+    against the same rows alone. ``plan_of(T, lanes, dtype)`` names the plan
+    each call takes (logged: the pairs compared take different plans).
+    Raises on any difference."""
     din = dout = 2240
-    lanes, checked, tiles = 4, 0, set()
-    q8 = torch.randint(-127, 128, (din, dout), generator=g, device="cuda", dtype=torch.int8)
-    scale = torch.rand(1, dout, generator=g, device="cuda") * (2.0 / (127 * math.sqrt(din)))
+    lanes, checked, plans = 4, 0, set()
     for T, ranges in ((1024, ((0, 1), (0, 2), (0, 50), (0, 257), (1023, 1024))),
                       (32, ((0, 1), (0, 2), (0, 9), (31, 32)))):
         for dt in (torch.bfloat16, torch.float32):
             a, b = _factor(torch, g, din, R_L, dt, lanes), _factor(torch, g, R_L, dout, dt, lanes)
             x = torch.randn(lanes * T, din, generator=g, device="cuda").to(dt)
-            full = fused_qlora_matmul(x, q8, scale, a, b, LORA_SCALE)
-            tiles.add((T, str(dt), _plan(T, lanes, din, dout, dt).tile, _plan(T, 1, din, dout, dt).tile))
+            full = call(x, a, b)
+            plans.add((T, str(dt), plan_of(T, lanes, dt), plan_of(T, 1, dt)))
             for i in range(lanes):
                 al, bl = _lane(a, i), _lane(b, i)
                 xi = x[i * T:(i + 1) * T]
-                solo = fused_qlora_matmul(xi, q8, scale, al, bl, LORA_SCALE)
+                solo = call(xi, al, bl)
                 pairs = [(f"lane {i} of {lanes}", solo, full[i * T:(i + 1) * T])]
                 if i == 0:
-                    pairs += [(f"rows {lo}:{hi}", fused_qlora_matmul(xi[lo:hi], q8, scale, al, bl, LORA_SCALE),
-                               solo[lo:hi]) for lo, hi in ranges]
+                    pairs += [(f"rows {lo}:{hi}", call(xi[lo:hi], al, bl), solo[lo:hi]) for lo, hi in ranges]
                 for what, got, want in pairs:
                     if not torch.equal(got, want):
                         diff = float((got.float() - want.float()).abs().max())
-                        raise AssertionError(f"fused_qlora {T}x{din}x{dout} {dt}: {what} alone differs from the "
+                        raise AssertionError(f"{name} {T}x{din}x{dout} {dt}: {what} alone differs from the "
                                              f"same rows in the larger call (max abs {diff})")
                     checked += 1
     torch.cuda.synchronize()
-    log(f"[k3] batch and lane invariance: {checked} row ranges and lanes bitwise equal (bf16 and f32); "
-        f"(T, dtype, tile with {lanes} lanes, tile alone): {sorted(tiles)}")
+    log(f"[{tag}] batch and lane invariance: {checked} row ranges and lanes bitwise equal (bf16 and f32); "
+        f"(T, dtype, plan with {lanes} lanes, plan alone): {sorted(plans)}")
     return checked
+
+
+def phase_k3_invariance(torch):
+    """K3's bitwise batch and lane invariance (``_lane_invariance``): at
+    T = 32 a 4-lane call and one lane alone take different tiles; at f32,
+    ≤ 8 rows take the other layout."""
+    from hyperscalees_t2i_tpu_torch.ops.fused_qlora import _plan, fused_qlora_matmul
+
+    g = torch.Generator(device="cuda").manual_seed(98)
+    din = dout = 2240
+    q8 = torch.randint(-127, 128, (din, dout), generator=g, device="cuda", dtype=torch.int8)
+    scale = torch.rand(1, dout, generator=g, device="cuda") * (2.0 / (127 * math.sqrt(din)))
+    return _lane_invariance(torch, "k3", "fused_qlora", g,
+                            lambda x, a, b: fused_qlora_matmul(x, q8, scale, a, b, LORA_SCALE),
+                            lambda T, n, dt: _plan(T, n, din, dout, dt).tile)
+
+
+def phase_k2_invariance(torch):
+    """K2's bitwise batch and lane invariance (``_lane_invariance``): a
+    4-lane call and one lane alone take different column groups (1024 and
+    560 columns at T = 1024, 72 and 64 at T = 32)."""
+    from hyperscalees_t2i_tpu_torch.ops.fused_lora import _plan, member_lora_delta
+
+    g = torch.Generator(device="cuda").manual_seed(97)
+    return _lane_invariance(torch, "k2", "lora_chain", g, lambda x, a, b: member_lora_delta(x, a, b, LORA_SCALE),
+                            lambda T, n, dt: _plan(T, n, 2240, 2240, dt).cols)
 
 
 def phase_chain_check(torch):
     """K2 and K3 at the flagship's adapted-site shapes: error against the
     plain version, kernel / plain / library ms, and the bound; K3 also with
-    q8 = 0 against the plain chain (its error alone), and beside its
-    main-path rows the recorded ms of the design it replaced."""
+    q8 = 0 against the plain chain (its error alone), and beside the
+    main-path rows the recorded ms of the design each replaced. ``ms`` is
+    CUDA events around 20 back-to-back calls, which below ≈ 30 µs reads the
+    host's pace; ``device_ms`` is the kernel's own duration under
+    ``torch.profiler`` (``plain_device_ms`` the plain version's kernels,
+    summed), and ``host_us`` the wrapper's host time a call."""
     from hyperscalees_t2i_tpu_torch.lora import effective_factor
     from hyperscalees_t2i_tpu_torch.ops.fused_lora import member_lora_delta, member_lora_delta_reference
     from hyperscalees_t2i_tpu_torch.ops.fused_qlora import fused_qlora_matmul, fused_qlora_reference
@@ -505,13 +608,13 @@ def phase_chain_check(torch):
                 scale = torch.rand(1, dout, generator=g, device="cuda") * (2.0 / (127 * math.sqrt(din)))
                 sets.append(dict(x=x, a=a, b=b, q8=q8, scale=scale, w=(q8.float() * scale).to(dt),
                                  ak=effective_factor(a, dt), bk=effective_factor(b, dt)))
-            for name, kernel, plain, lib, flop, nbytes in (
-                ("lora_chain",
+            for name, marker, kernel, plain, lib, flop, nbytes in (
+                ("lora_chain", "::lora_chain_",
                  lambda s: member_lora_delta(s["x"], s["a"], s["b"], LORA_SCALE),
                  lambda s: member_lora_delta_reference(s["x"], s["a"], s["b"], LORA_SCALE),
                  lambda s: torch.matmul(torch.matmul(s["x"], s["ak"]), s["bk"]) * LORA_SCALE,
                  chain_flop, (T * din + T * dout) * esize + fac_bytes),
-                ("fused_qlora",
+                ("fused_qlora", "::qlora_",
                  lambda s: fused_qlora_matmul(s["x"], s["q8"], s["scale"], s["a"], s["b"], LORA_SCALE),
                  lambda s: fused_qlora_reference(s["x"], s["q8"], s["scale"], s["a"], s["b"], LORA_SCALE),
                  lambda s: torch.addmm(torch.matmul(s["x"], s["w"]), torch.matmul(s["x"], s["ak"]), s["bk"],
@@ -523,7 +626,8 @@ def phase_chain_check(torch):
                 out = kernel(s0)
                 torch.cuda.synchronize()
                 err, tol, ref_max = check_close(f"{name} at {site} {T}x{din}x{dout} {dt_name}",
-                                                out, plain(s0), dt_name, torch)
+                                                out, plain(s0), dt_name, torch,
+                                                again=lambda: (kernel(s0), plain(s0)))
                 extra = {}
                 if name == "fused_qlora":
                     # the chain alone (q8 = 0), so that its error cannot hide under the base term's size
@@ -535,25 +639,32 @@ def phase_chain_check(torch):
                                                   member_lora_delta_reference(s0["x"], s0["a"], s0["b"], LORA_SCALE),
                                                   dt_name, torch)
                     extra = dict(chain_only_max_abs_err=c_err, chain_only_tol=c_tol)
-                    if main:
-                        extra["before_ms"] = K3_BEFORE_MS[site]
+                if main:
+                    extra["before_ms"] = (K2_BEFORE_MS if name == "lora_chain" else K3_BEFORE_MS)[site]
                 reps = 20 if T * din * dout < 5e9 else 10
-                ms = time_ms(torch, [lambda s=s: kernel(s) for s in sets], reps)
-                plain_ms = time_ms(torch, [lambda s=s: plain(s) for s in sets], reps)
+                kernel_fns = [lambda s=s: kernel(s) for s in sets]
+                plain_fns = [lambda s=s: plain(s) for s in sets]
+                ms = time_ms(torch, kernel_fns, reps)
+                plain_ms = time_ms(torch, plain_fns, reps)
                 lib_ms = time_ms(torch, [lambda s=s: lib(s) for s in sets], reps)
+                dev_ms = device_ms(torch, kernel_fns, reps, marker)
+                plain_dev_ms = device_ms(torch, plain_fns, reps)
+                h_us = host_us(torch, kernel_fns, reps)
                 b_ms, b_by = bound(dt_name, flop, nbytes)
                 rows[name].append(dict(
                     site=site, T=T, din=din, dout=dout, dtype=dt_name, noise_dtype=str(ndt).split(".")[-1],
                     main_path=main, calls_per_image=calls if main else 0, max_abs_err=err, tol=tol,
                     ref_max=ref_max, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                    tflops=flop / ms / 1e9, **extra,
+                    device_ms=dev_ms, plain_device_ms=plain_dev_ms, host_us=h_us, tflops=flop / ms / 1e9, **extra,
                 ))
                 log(f"[{'k2' if name == 'lora_chain' else 'k3'}] {site:34s} T={T:5d} {din:5d}x{dout:5d} "
                     f"{dt_name:8s} {'main' if main else '    '} err={err:.3g} rel={err / ref_max:.3g} "
                     f"ms={ms:.4f} plain={plain_ms:.4f} library={lib_ms:.4f} bound={b_ms:.4f} ({b_by}) "
+                    f"device_ms={dev_ms:.4f} plain_device_ms={plain_dev_ms:.4f} host_us={h_us:.1f} "
                     f"{flop / ms / 1e9:.1f} TFLOP/s" +
                     (f"; chain only err={extra['chain_only_max_abs_err']:.3g} (tol {extra['chain_only_tol']:.3g})"
-                     if extra else "") + (f"; before {extra['before_ms']:.4f}" if "before_ms" in extra else ""))
+                     if "chain_only_tol" in extra else "") +
+                    (f"; before {extra['before_ms']:.4f}" if "before_ms" in extra else ""))
             del sets
     torch.cuda.empty_cache()
     return rows
@@ -919,12 +1030,18 @@ def es_stage_breakdown(torch, backend, reward, theta, noise, tc, tag: str, reps:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             one()
     kernels, busy, n_kernels, top = device_kernels(torch, prof)
+    in_situ = {}  # the port's kernels: (ms, launches) summed over their routes
+    for kname, markers in (("int8_matmul", ("::int8_mma_kernel", "::f32_tile_kernel", "::f32_rows_kernel")),
+                           ("lora_chain", ("::lora_chain_",)), ("fused_qlora", ("::qlora_",))):
+        hits = [v for name, v in kernels.items() if any(m in name for m in markers)]
+        in_situ[kname] = {"ms": sum(m for m, _ in hits), "launches": sum(n for _, n in hits)}
     out = {"generation": acc[0], "decode": acc[1], "reward": acc[2], "device_busy_profiled": busy,
-           "idle_share": 1.0 - busy / sum(acc), "device_kernels": n_kernels,
+           "idle_share": 1.0 - busy / sum(acc), "device_kernels": n_kernels, "in_situ": in_situ,
            "top_kernels": [dict(name=t, ms=m, launches=n) for m, n, t in top]}
     log(f"[{tag}] one member, one image, device time: generation {acc[0]:.2f} ms, decode {acc[1]:.2f} ms, "
         f"reward {acc[2]:.2f} ms; {n_kernels} kernels busy {busy:.2f} ms (profiled) = idle share "
-        f"{out['idle_share']:.3f}")
+        f"{out['idle_share']:.3f}; in situ " +
+        ", ".join(f"{k} {v['ms']:.2f} ms over {v['launches']}" for k, v in in_situ.items()))
     for m, n, t in top:
         log(f"[{tag}]   {m:9.3f} ms {n:5d} launches  {t}")
     return out
@@ -1332,6 +1449,7 @@ def kernel_summary(name, rows, launches, calls_key, replaces, scope):
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": total("library_ms"),
         "scope": f"{scope}: {sum(r[calls_key] for r in main)} calls",
+        **({"device_ms": total("device_ms")} if all("device_ms" in r for r in main) else {}),
     }
 
 
@@ -1359,6 +1477,7 @@ def main() -> int:
     k1_rows = phase_k1_check(torch)
     k1_invariant = phase_k1_invariance(torch)
     chain_rows = phase_chain_check(torch)
+    k2_invariant = phase_k2_invariance(torch)
     k3_invariant = phase_k3_invariance(torch)
     k4_rows, k4_extra = phase_k4_check(torch)
     small_err = phase_small_reference(torch)
@@ -1400,14 +1519,15 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, device=torch.cuda.get_device_name(0), torch=torch.__version__, **build,
-        k1_invariant_ranges=k1_invariant, k3_invariant_ranges=k3_invariant,
+        k1_invariant_ranges=k1_invariant, k2_invariant_ranges=k2_invariant, k3_invariant_ranges=k3_invariant,
         k1_shapes=k1_rows, chain_shapes=chain_rows, k4_shapes=k4_rows, k4_cases=k4_extra,
         small_reference_max_abs=small_err, es_tiny=es_tiny, es_small=es_small, var_tiny=var_tiny,
         es_flagship_float=es_float, serve=serve, var_es=var_es, es_flagship=es, kernels=kernels, k1_serving=k1_serve,
         wall_s=wall_s,
     ), indent=1))
     for k in kernels + [k1_serve]:
-        log(f"[done] {k['name']} ({k['scope']}): {k['ms']:.3f} ms kernel, {k['plain_ms']:.3f} ms plain, "
+        log(f"[done] {k['name']} ({k['scope']}): {k['ms']:.3f} ms kernel"
+            + (f" ({k['device_ms']:.3f} ms device time)" if "device_ms" in k else "") + f", {k['plain_ms']:.3f} ms plain, "
             f"{k['library_ms']:.3f} ms library, {k['bound_ms']:.3f} ms bound ({k['bound_by']}); "
             f"launches {k['launches']}")
     print(smi)

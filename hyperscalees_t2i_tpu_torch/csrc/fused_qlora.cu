@@ -127,51 +127,12 @@ struct ThinColumns {
     }
 
     // rows [64 m, 64 m + 64) of a.w and of the lane's a.u into raw stage m
-    // (zeros past K). On the main path (quads): 16-byte cp.async of a.w
-    // rows, 8-byte (bf16) or 16-byte (f32) ones of a.u rows, chunk c of row
-    // kk at thread tid + i * THREADS = 64 c + kk, so a warp copies one chunk
-    // column. Other ranks or alignments: plain 4- and 2-byte copies.
+    // (lora_chain.cuh, shared with K2)
     __device__ __forceinline__ void load(int m) {
-        const int k0 = m * BK, r_l = f.r_l, r_e = f.r_e;
-        const char* gu = lane_au();
-        uint32_t* d = raw(m);
-        if (quads) {
-            const int cw = r_l / 4, cn = cw + r_e / 4;
-#pragma unroll
-            for (int i = 0; i < (BK * HALF / 4 + T::THREADS - 1) / T::THREADS; ++i) {
-                const int e = threadIdx.x + i * T::THREADS, c = e / BK, kk = e % BK, k = k0 + kk;
-                if (c < cn) {
-                    const int n = k < K ? 1 : 0;
-                    if (c < cw) {
-                        hses::cp_async16(d + kk * HALF + 4 * c, n ? f.aw + (int64_t)k * r_l + 4 * c : f.aw, 16 * n);
-                    } else if (au_f32) {
-                        hses::cp_async16(d + kk * HALF + r_l + 4 * (c - cw),
-                                         n ? gu + ((int64_t)k * r_e + 4 * (c - cw)) * 4 : gu, 16 * n);
-                    } else {
-                        hses::cp_async8(d + kk * HALF + r_l + 2 * (c - cw),
-                                        n ? gu + ((int64_t)k * r_e + 4 * (c - cw)) * 2 : gu, 8 * n);
-                    }
-                }
-            }
-            return;
-        }
-        for (int i = threadIdx.x; i < BK * r_l; i += T::THREADS) {
-            const int kk = i / r_l, w = i % r_l, k = k0 + kk;
-            d[kk * HALF + w] = k < K ? __float_as_uint(f.aw[(int64_t)k * r_l + w]) : 0u;
-        }
-        const int uh = r_e * (au_f32 ? 2 : 1);  // 2-byte halves of an a.u row
-        for (int i = threadIdx.x; i < BK * uh; i += T::THREADS) {
-            const int kk = i / uh, j = i % uh, k = k0 + kk;
-            reinterpret_cast<unsigned short*>(d + kk * HALF + r_l)[j] =
-                k < K ? reinterpret_cast<const unsigned short*>(gu)[(int64_t)k * uh + j] : (unsigned short)0;
-        }
+        load_thin_raw<BK, HALF, T::THREADS>(raw(m), f, lane_au(), au_f32, quads, m * BK, K, threadIdx.x);
     }
 
-    static __device__ __forceinline__ uint32_t hi_lo(uint32_t bits) {
-        const float v = __uint_as_float(bits);
-        const bf16 hi = __float2bfloat16_rn(v), lo = __float2bfloat16_rn(v - __bfloat162float(hi));
-        return (uint32_t)__bfloat16_as_ushort(hi) | (uint32_t)__bfloat16_as_ushort(lo) << 16;
-    }
+    static __device__ __forceinline__ uint32_t hi_lo(uint32_t bits) { return thin_hi_lo(bits); }
 
     // raw stage m into slot m: word (kk, p) = bf16 hi | bf16 lo << 16, four
     // adjacent words (a quad q) a thread, thread tid + i * THREADS = 64 q + kk

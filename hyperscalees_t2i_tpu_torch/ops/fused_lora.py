@@ -3,15 +3,37 @@
 Port of ``hyperscalees_t2i_tpu/ops/fused_lora.py``. There the Pallas kernel
 ``_chain_kernel`` runs the four thin products of one member's factored
 adapter leaf on a VMEM-resident token tile. Here the kernel is
-``csrc/lora_chain.cu`` (its note says what bounds it and how it is tiled),
-built by ``nvcc`` at first use and called through ``ctypes`` on PyTorch's
-current stream. It serves the LoRA delta of every float base site whose
-adapter leaf carries both factors as ``lora.FactoredDelta`` (ES training
-with ``pop_fuse`` over a float base).
+``csrc/lora_chain.cu``, built by ``nvcc`` at first use and called through
+``ctypes`` on PyTorch's current stream. It serves the LoRA delta of every
+float base site whose adapter leaf carries both factors as
+``lora.FactoredDelta`` (ES training with ``pop_fuse`` over a float base).
+
+What bounds it: bytes in principle — a call reads x once and writes its
+output once, about 12 flops a byte in bf16, 2.8 µs of HBM traffic on an
+H100 at 1024×2240×2240 and under a microsecond at T ≤ 32. In practice a
+call takes as long as one block's chain of dependent steps (its k walk,
+then its epilogue), so the grid (:func:`_plan`) spreads each call over the
+card: lanes × row tiles × column groups, one wave of 132 SMs where the
+rows allow (128 blocks at 1024×2240×2240, 35 at T = 32, 130 at T = 1),
+every block summing its rows' thin products over all of din itself. bf16 x
+runs the thin products on the tensor cores, f32 x on the CUDA cores (the
+csrc note has the design; PERF.md §6 the measured times).
+
+Why the result is bitwise row- and lane-invariant: the order of each
+output's sum over din is fixed by three numbers that no call changes:
+``bk`` (64: warp-stages of four k16 mma steps; 32: FMA chunks), the warps
+``W`` = 8 that split the k walk (warp w takes stages w, w + W, …) and
+their ascending order when their partial sums are added (f32: chunk sums
+added in ascending chunk order). The plan may follow the rows, lanes and
+dout with its column group; the C entry refuses a ``bk`` or ``W`` other
+than its route's own, so the order the CPU tests check is the kernel's.
 
 - :func:`member_lora_delta` — the wrapper. A CPU tensor takes the plain
   version :func:`member_lora_delta_reference`; a CUDA tensor launches the
-  kernel or raises. ``member_lora_delta.launches`` counts kernel launches.
+  kernel once or raises. ``member_lora_delta.launches`` counts kernel
+  launches.
+- :func:`_plan` — the kernel's route for one call, a pure function of the
+  rows per lane, lanes, din, dout, dtype and x's address.
 - :func:`chain_launch_args` — the checks and the C arguments of the factors,
   shared with the fused int8 kernel K3 (``ops/fused_qlora.py``).
 
@@ -22,9 +44,11 @@ rows are then grouped lane-major, one equal group per lane.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, List, Tuple
+from typing import Any, List, NamedTuple, Tuple
 
 import torch
+
+from .quant_mm import copy_widths
 
 MAX_RANK = 16  # r_l and r_e limits of csrc/lora_chain.cuh
 DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -32,6 +56,45 @@ DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # pointers of a.w, a.u, a.v, b.w, b.u, b.v, c_a, c_b; rows per lane, lanes,
 # din, dout, r_l, r_e; lane strides of a.u, a.v, b.u, b.v
 CHAIN_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 4)
+
+# Route ids of csrc/lora_chain.cu's C entries, and its fixed sum order
+MMA_ROWS32, F32_ROWS8 = 0, 1
+WARPS = 8          # W: warp w sums stages (chunks) w, w + W, …; partial sums added in ascending order
+MAX_COLS = 1024    # widest column group of a block
+_MIN_COLS = 64     # narrowest group where the columns allow
+_SMS = 132         # streaming multiprocessors of an H100 SXM
+
+
+class ChainPlan(NamedTuple):
+    route: int  # MMA_ROWS32 (bf16 x: 32-row tiles on the tensor cores) or F32_ROWS8 (f32 x: 8-row tiles)
+    rows: int   # rows of a lane per block
+    cols: int   # output columns per block, a multiple of 8
+    bk: int     # depth of one stage of each output's k sum: 64 (bf16), 32 (f32); the C entry refuses others
+    warps: int  # W; the C entry refuses any other
+    a_vec: int  # elements of bf16 x per copy (8: 16-byte, 4: 8-byte cp.async, 1: element loads); 0 for f32
+
+
+def _plan(rows_per_lane: int, lanes: int, K: int, N: int, dtype: torch.dtype, x_ptr: int = 0) -> ChainPlan:
+    """The kernel's route for ``lanes`` groups of ``x[rows_per_lane, K]``
+    against a chain of ``N`` output columns.
+
+    bf16: 32-row tiles; f32: 8-row tiles. The column group takes what the
+    row tiles leave of one wave of the card's SMs, ``⌊132 / (lanes ·
+    ⌈rows / tile⌉)⌋`` groups, rounded to a multiple of 8 columns, at least
+    64 and at most 1024: 4 groups of 560 at T = 1024 (128 blocks), 35 of 64
+    at T = 32, 130 of 104 at T = 1 and dout 13440. ``bk`` and ``warps`` fix
+    the sum order and are the same for every call of a dtype. Copy widths
+    of x as K1's (``quant_mm.copy_widths``)."""
+    if dtype == torch.float32:
+        route, rows, bk, a_vec = F32_ROWS8, 8, 32, 0
+    elif dtype == torch.bfloat16:
+        route, rows, bk = MMA_ROWS32, 32, 64
+        a_vec = copy_widths(K, 0, x_ptr, 0)[0]
+    else:
+        raise TypeError(f"member_lora_delta takes bf16 or f32 activations, got {dtype}")
+    groups = max(1, _SMS // (lanes * -(-rows_per_lane // rows)))
+    cols = min(MAX_COLS, max(_MIN_COLS, 8 * -(-N // (8 * groups))))
+    return ChainPlan(route, rows, cols, bk, WARPS, a_vec)
 
 
 def _lanes(f: Any) -> int:
@@ -123,12 +186,27 @@ def chain_launch_args(x: torch.Tensor, a: Any, b: Any, rows: int) -> Tuple[List[
     return args, ndt, keep
 
 
+def _launch(x: torch.Tensor, out: torch.Tensor, args: List[Any], ndt: torch.dtype, scale: float,
+            plan: ChainPlan) -> None:
+    """One launch of the kernel by ``plan`` on x's device and current stream;
+    ``args`` are :func:`chain_launch_args`'s."""
+    from ._build import entry
+
+    fn = entry("lora_chain", f"hses_lora_chain_{DTYPE_NAMES[x.dtype]}_{DTYPE_NAMES[ndt]}",
+               [ctypes.c_void_p] * 2 + CHAIN_ARGTYPES + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), out.data_ptr(), *args, float(scale), plan.route, plan.bk, plan.warps, plan.cols,
+                 plan.a_vec, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lora_chain kernel launch failed: cudaError {err}")
+
+
 def member_lora_delta(x: torch.Tensor, a: Any, b: Any, scale: float) -> torch.Tensor:
     """``scale·(x@a_k)@b_k`` for one member's (or a lane group's) factored
     2D adapter leaf. ``x``: ``[..., din]`` bf16 or f32; ``a.w [din, r_l]``,
     ``b.w [r_l, dout]``; returns ``[..., dout]`` in x's dtype. On the CPU
-    this is the plain version; on CUDA the kernel runs on the current
-    stream, and anything it does not take raises."""
+    this is the plain version; on CUDA the kernel runs once on the current
+    stream, by :func:`_plan`, and anything it does not take raises."""
     if x.device.type == "cpu":
         return member_lora_delta_reference(x, a, b, scale)
     if x.device.type != "cuda":
@@ -136,20 +214,17 @@ def member_lora_delta(x: torch.Tensor, a: Any, b: Any, scale: float) -> torch.Te
     if x.dtype not in DTYPE_NAMES:
         raise TypeError(f"member_lora_delta takes bf16 or f32 activations, got {x.dtype}")
     x = x.contiguous()
-    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    din = x.shape[-1]
+    rows = x.numel() // din if din else 0
     args, ndt, _keep = chain_launch_args(x, a, b, rows)
-    out = torch.empty(*x.shape[:-1], b.w.shape[-1], dtype=x.dtype, device=x.device)
-    if rows == 0:
+    dout = b.w.shape[-1]
+    out = torch.empty(*x.shape[:-1], dout, dtype=x.dtype, device=x.device)
+    if rows == 0 or dout == 0:
         return out
-    from ._build import entry
-
-    fn = entry("lora_chain", f"hses_lora_chain_{DTYPE_NAMES[x.dtype]}_{DTYPE_NAMES[ndt]}",
-               [ctypes.c_void_p] * 2 + CHAIN_ARGTYPES + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), out.data_ptr(), *args, float(scale),
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lora_chain kernel launch failed: cudaError {err}")
+    if rows >= 2**31 or din >= 2**31 or dout >= 2**31:
+        raise ValueError("member_lora_delta dimensions must fit in 32 bits")
+    rows_per_lane, lanes = args[8:10]  # after the factors' 8 pointers
+    _launch(x, out, args, ndt, scale, _plan(rows_per_lane, lanes, din, dout, x.dtype, x.data_ptr()))
     member_lora_delta.launches += 1
     return out
 
