@@ -8,10 +8,9 @@ result):
 
 1. build every CUDA kernel from ``csrc/`` with ``nvcc`` (one process per
    source, all at once): K1 ``int8_matmul``, K2 ``lora_chain``, K3
-   ``fused_qlora``, K4 ``decode_attention``; log each K1, K2 and K3 route's
-   registers, spills and shared memory, and count the tensor-core
-   instructions (``HMMA``) in K1's, K2's and K3's SASS (none in a bf16 route
-   fails);
+   ``fused_qlora``, K4 ``decode_attention``; log each route's registers,
+   spills and shared memory, and count the tensor-core instructions
+   (``HMMA``) in each kernel's SASS (none in a bf16 route fails);
 2. hold each kernel against its plain PyTorch version on the card at every
    shape its main path gives it, in the main-path dtype and in f32, and time
    the kernel, the plain version, one PyTorch library call computing the
@@ -21,9 +20,12 @@ result):
    also with q8 = 0 against the plain chain alone), each also by its device
    time under ``torch.profiler`` (``device_ms``, beside the plain version's)
    and its wrapper's host time a call (``host_us``);
-   K4 at the ten VAR-d16 scale shapes, plus a masked dh-128 cross-attention
-   shape (Infinity's geometry), a multi-tile kv case, NaN garbage past
-   ``kv_len`` and an all-masked row; K1's batch invariance, bitwise: rows
+   K4 at the ten VAR-d16 scale shapes (also by ``device_ms`` and
+   ``host_us``), plus a masked dh-128 cross-attention shape (Infinity's
+   geometry), a multi-tile kv case, NaN garbage past ``kv_len`` and an
+   all-masked row; K4's invariance, bitwise: a row range, query ranges and a
+   single query of VAR-d16's last scale alone against the full call; K1's
+   batch invariance, bitwise: rows
    of an M = 1024 call against the same rows alone; K3's batch and lane
    invariance, bitwise: rows and lanes of a 4-lane call against the same
    rows and lanes alone, at T = 1024 and 32; K2's the same;
@@ -150,6 +152,11 @@ K2_BEFORE_MS = {
 # shape runs once per layer (16) per generate call
 VAR_PATCH_NUMS = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
 VAR_ROWS, VAR_HEADS, VAR_DH, VAR_DEPTH = 32, 16, 64, 16
+# K4's bf16 ms per call at each VAR-d16 scale before its redesign for Hopper:
+# the f32-FMA kernel of commit 44078f4, as this script's phase_k4_check
+# measured it on an NVIDIA H100 80GB HBM3 at 700 W. A record, printed beside
+# this run's times.
+K4_BEFORE_MS = (0.0408, 0.0289, 0.0529, 0.0418, 0.0580, 0.0903, 0.1387, 0.3196, 0.7547, 1.5761)
 N_REQUESTS = 4
 TIMED_EPOCHS = 2
 
@@ -301,16 +308,13 @@ def phase_build():
     logs = _build.build_all(["int8_matmul", "lora_chain", "fused_qlora", "decode_attention"])
     dt = time.perf_counter() - t0
     routed = {"int8_matmul": "int8_mma_kernel", "lora_chain": "lora_chain_mma_kernel",
-              "fused_qlora": "qlora_mma_kernel"}
-    for name, text in logs.items():
-        if name in routed and text != "(cached)":
-            continue
-        ptxas = sorted({l.split(":", 1)[-1].strip() for l in text.splitlines() if "registers" in l})
-        log(f"[build] {name}: {' | '.join(ptxas) or text.strip()}")
+              "fused_qlora": "qlora_mma_kernel", "decode_attention": "decode_attention_mma_kernel"}
     tiles = (("128x128", qm.MMA_128x128), ("64x64", qm.MMA_64x64), ("16x64", qm.MMA_16x64))
     out = dict(build_s=dt)
     for name, mma_kernel in routed.items():
-        tag = {"int8_matmul": "k1", "lora_chain": "k2", "fused_qlora": "k3"}[name]
+        tag = {"int8_matmul": "k1", "lora_chain": "k2", "fused_qlora": "k3", "decode_attention": "k4"}[name]
+        if logs[name] == "(cached)":
+            log(f"[build] {name}: (cached)")
         routes = kernel_routes(logs[name])
         for fn, line in routes.items():
             log(f"[build] {name} {fn}: {line}")
@@ -327,6 +331,11 @@ def phase_build():
             route_smem = _build.entry(name, "hses_lora_chain_smem", [ctypes.c_int, ctypes.c_int])
             smem = {"bf16 32 rows": route_smem(fl.MMA_ROWS32, 0), "bf16 32 rows wide": route_smem(fl.MMA_ROWS32, 1),
                     "f32 8 rows (most)": route_smem(fl.F32_ROWS8, 0)}
+        elif name == "decode_attention":
+            route_smem = _build.entry(name, "hses_decode_attention_smem", [ctypes.c_int] * 4)
+            smem = {f"bf16 {rows} rows dh {dh} {st} stages": route_smem(1, rows, dh, st)
+                    for dh, st in ((64, 2), (64, 3), (128, 3)) for rows in (16, 32, 64, 128)}
+            smem.update({f"f32 dh {dh}": route_smem(0, 64, dh, 1) for dh in (64, 128)})
         else:
             tile_smem = _build.entry(name, "hses_fused_qlora_smem", [ctypes.c_int, ctypes.c_int])
             smem = {f"{t}{' wide' if wide else ''}": tile_smem(tid, wide) for t, tid in tiles for wide in (0, 1)}
@@ -1155,7 +1164,11 @@ def _k4_inputs(torch, g, B, nq, L, H, dh, dt, kv_len=None):
 
 def phase_k4_check(torch):
     """K4 at the VAR-d16 scale shapes (bf16, the main path, and f32): error
-    against the plain version, kernel / plain / library ms and the bound;
+    against the plain version, kernel / plain / library ms and the bound,
+    with NaN in the cache past ``kv_len``; ``device_ms`` (the kernel's
+    duration under ``torch.profiler``, beside the plain version's
+    ``plain_device_ms``) and ``host_us`` (the wrapper's host time a call)
+    as in ``phase_chain_check``, and beside the bf16 rows ``K4_BEFORE_MS``;
     then the cases off the main path (masked dh-128 cross-attention, a
     multi-tile kv prefix with ragged query tiles, an all-masked row)."""
     import torch.nn.functional as F
@@ -1181,23 +1194,30 @@ def phase_k4_check(torch):
             err, tol, ref_max = check_close(f"decode_attention at scale {si} nq={nq} kv={kv} {dt_name}", out,
                                             naive_masked_attention(q, k, v, kv, None, 1.0), dt_name, torch)
             reps = 20
-            ms = time_ms(torch, [lambda s=s: decode_attention(s[0], s[1], s[2], kv_len=kv, sm_scale=1.0)
-                                 for s in sets], reps)
-            plain = time_ms(torch, [lambda s=s: naive_masked_attention(s[0], s[1], s[2], kv, None, 1.0)
-                                    for s in sets], reps)
+            kernel_fns = [lambda s=s: decode_attention(s[0], s[1], s[2], kv_len=kv, sm_scale=1.0) for s in sets]
+            plain_fns = [lambda s=s: naive_masked_attention(s[0], s[1], s[2], kv, None, 1.0) for s in sets]
+            ms = time_ms(torch, kernel_fns, reps)
+            plain = time_ms(torch, plain_fns, reps)
             lib = time_ms(torch, [lambda s=s: F.scaled_dot_product_attention(
                 s[0].transpose(1, 2), s[1][:, :kv].transpose(1, 2), s[2][:, :kv].transpose(1, 2), scale=1.0)
                 for s in sets], reps)
+            dev_ms = device_ms(torch, kernel_fns, reps, "decode_attention")
+            plain_dev_ms = device_ms(torch, plain_fns, reps)
+            h_us = host_us(torch, kernel_fns, reps)
             b_ms, b_by = bound(dt_name, flop, nbytes)
             main = dt_name == "bfloat16"
+            before = dict(before_ms=K4_BEFORE_MS[si]) if main else {}
             rows.append(dict(
                 site=f"scale {si} (pn {pn})", nq=nq, kv_len=kv, B=B, H=H, dh=dh, dtype=dt_name, main_path=main,
                 calls_per_call=VAR_DEPTH if main else 0, max_abs_err=err, tol=tol, ref_max=ref_max, ms=ms,
-                plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by, gbytes_s=nbytes / ms / 1e6,
+                plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by, device_ms=dev_ms,
+                plain_device_ms=plain_dev_ms, host_us=h_us, gbytes_s=nbytes / ms / 1e6, **before,
             ))
             log(f"[k4] scale {si} nq={nq:4d} kv={kv:4d} {dt_name:8s} {'main' if main else '    '} "
                 f"err={err:.3g} rel={err / ref_max:.3g} ms={ms:.4f} plain={plain:.4f} library={lib:.4f} "
-                f"bound={b_ms:.4f} ({b_by}) {nbytes / ms / 1e6:.1f} GB/s")
+                f"bound={b_ms:.4f} ({b_by}) device_ms={dev_ms:.4f} plain_device_ms={plain_dev_ms:.4f} "
+                f"host_us={h_us:.1f} {nbytes / dev_ms / 1e6:.1f} GB/s (device)" +
+                (f"; before {before['before_ms']:.4f}" if main else ""))
             del sets, q, k, v, out
 
     extra = []
@@ -1224,6 +1244,75 @@ def phase_k4_check(torch):
             log(f"[k4] {name:32s} {dt_name:8s} err={err:.3g} (tol {tol:.3g})")
     torch.cuda.empty_cache()
     return rows, extra
+
+
+def phase_k4_invariance(torch):
+    """Bitwise invariance of K4's bf16 route at VAR-d16's last scale (32
+    rows, 256 queries, 680 keys): a row range, a query range off the query
+    tiles' grid, a query range the plan tiles otherwise and a single query,
+    each alone, against the same outputs of the full call. Raises on any
+    difference."""
+    from hyperscalees_t2i_tpu_torch.ops.attention import _plan, decode_attention
+
+    g = torch.Generator(device="cuda").manual_seed(96)
+    L = sum(p * p for p in VAR_PATCH_NUMS)
+    nq = VAR_PATCH_NUMS[-1] ** 2
+    q, k, v = _k4_inputs(torch, g, VAR_ROWS, nq, L, VAR_HEADS, VAR_DH, torch.bfloat16, L)
+    full = decode_attention(q, k, v, kv_len=L, sm_scale=1.0)
+    plans = [("full", _plan(nq, L, VAR_DH, torch.bfloat16).rows)]
+    for what, rs, qs in (("rows 5:9", slice(5, 9), slice(None)), ("queries 37:137", slice(None), slice(37, 137)),
+                         ("queries 0:36", slice(None), slice(0, 36)), ("query 200", slice(None), slice(200, 201))):
+        part = decode_attention(q[rs, qs], k[rs], v[rs], kv_len=L, sm_scale=1.0)
+        if not torch.equal(part, full[rs, qs]):
+            diff = float((part.float() - full[rs, qs].float()).abs().max())
+            raise AssertionError(f"decode_attention {what} alone differs from the full scale-9 call (max abs {diff})")
+        plans.append((what, _plan(part.shape[1], L, VAR_DH, torch.bfloat16).rows))
+    torch.cuda.synchronize()
+    log(f"[k4] invariance: {len(plans) - 1} parts of the VAR-d16 scale-9 call bitwise equal to it alone; "
+        f"(part, rows per block): {plans}")
+    return len(plans) - 1
+
+
+def k4_tile_sweep(torch):
+    """Every rows-per-block and ring depth of K4's bf16 route at each VAR-d16
+    scale, by device time (``device_ms``): the numbers behind
+    ``ops.attention._plan``'s rule (PERF.md). Launched by the wrapper's own
+    ``_launch`` with the plan overridden (not counted); each must give
+    bitwise the planned output. Not part of ``main``; run it after
+    ``phase_build``."""
+    from hyperscalees_t2i_tpu_torch.ops import attention as at
+
+    g = torch.Generator(device="cuda").manual_seed(79)
+    B, H, dh, L = VAR_ROWS, VAR_HEADS, VAR_DH, sum(p * p for p in VAR_PATCH_NUMS)
+    out, pos = [], 0
+    for si, pn in enumerate(VAR_PATCH_NUMS):
+        nq, kv = pn * pn, pos + pn * pn
+        pos = kv
+        nbytes = 2 * (2 * B * nq * H * dh + 2 * B * kv * H * dh)
+        sets = [_k4_inputs(torch, g, B, nq, L, H, dh, torch.bfloat16, kv)
+                for _ in range(max(1, min(8, math.ceil(100e6 / nbytes))))]
+        plan = at._plan(nq, kv, dh, torch.bfloat16)
+        ref = at.decode_attention(sets[0][0], sets[0][1], sets[0][2], kv_len=kv, sm_scale=1.0)
+        times = {}
+        for rows in (16, 32, 64, 128):
+            for stages in (2, 3):
+                outs = [torch.empty_like(s[0]) for s in sets]
+
+                def call(i, p=plan._replace(rows=rows, stages=stages)):
+                    at._launch(sets[i][0], sets[i][1], sets[i][2], None, outs[i], kv, 1.0, p)
+                call(0)
+                torch.cuda.synchronize()
+                if not torch.equal(outs[0], ref):
+                    raise AssertionError(f"K4 at {rows} rows, {stages} stages differs bitwise from the plan at "
+                                         f"scale {si}")
+                times[f"{rows}x{stages}"] = device_ms(torch, [lambda i=i: call(i) for i in range(len(sets))], 20,
+                                                      "decode_attention")
+        planned = f"{plan.rows}x{plan.stages}"
+        out.append(dict(scale=si, nq=nq, kv_len=kv, plan=planned, device_ms=times))
+        log(f"[k4-tiles] scale {si} nq={nq:4d} kv={kv:4d} plan={planned} (rows x stages); device ms: " +
+            " ".join(f"{name}={ms:.4f}" for name, ms in times.items()))
+        del sets
+    return out
 
 
 class _RecordIds:
@@ -1480,6 +1569,7 @@ def main() -> int:
     k2_invariant = phase_k2_invariance(torch)
     k3_invariant = phase_k3_invariance(torch)
     k4_rows, k4_extra = phase_k4_check(torch)
+    k4_invariant = phase_k4_invariance(torch)
     small_err = phase_small_reference(torch)
     es_tiny = phase_es_reference(torch, "tiny", int8=True)
     es_small = phase_es_reference(torch, "small", int8=False)
@@ -1520,6 +1610,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, device=torch.cuda.get_device_name(0), torch=torch.__version__, **build,
         k1_invariant_ranges=k1_invariant, k2_invariant_ranges=k2_invariant, k3_invariant_ranges=k3_invariant,
+        k4_invariant_parts=k4_invariant,
         k1_shapes=k1_rows, chain_shapes=chain_rows, k4_shapes=k4_rows, k4_cases=k4_extra,
         small_reference_max_abs=small_err, es_tiny=es_tiny, es_small=es_small, var_tiny=var_tiny,
         es_flagship_float=es_float, serve=serve, var_es=var_es, es_flagship=es, kernels=kernels, k1_serving=k1_serve,

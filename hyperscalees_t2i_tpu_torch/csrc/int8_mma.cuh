@@ -1,5 +1,6 @@
 // PTX building blocks of the tensor-core routes of the int8 dequant-matmul
-// (int8_matmul.cu) and of the fused int8 + LoRA matmul (fused_qlora.cu):
+// (int8_matmul.cu), the fused int8 + LoRA matmul (fused_qlora.cu), the LoRA
+// chain (lora_chain.cu) and decode attention (decode_attention.cu):
 // asynchronous global-to-shared copies, ldmatrix, the bf16 m16n8k16 mma
 // with f32 accumulators, and s8 -> bf16 conversion.
 #pragma once
@@ -40,6 +41,14 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const void* p) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                  : "=r"(r0), "=r"(r1) : "r"(smem_addr(p)) : "memory");
+}
+// Four 8x8 b16 matrices, transposed: two ldmatrix_x2_trans in one. From a
+// k-major [k][n] tile with lanes 0-15 at rows k .. k + 15 of column n and
+// lanes 16-31 at the same rows of column n + 8, r[0], r[1] are the col-major
+// B fragment of n8 tile n and r[2], r[3] that of n8 tile n + 8.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)) : "memory");
 }
 // d[16x8] += a[16x16] (row-major fragment) @ b[16x8] (col-major fragment),
 // bf16 inputs, f32 sums.

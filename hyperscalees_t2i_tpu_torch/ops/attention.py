@@ -7,11 +7,21 @@ grid dimension over head-major, block-padded copies. Here the kernel is
 ``csrc/decode_attention.cu`` (its note says what bounds it and how it is
 laid out), built by ``nvcc`` at first use and called through ``ctypes`` on
 PyTorch's current stream. It reads q, K and V in place through their strides
-and reads nothing past ``kv_len``.
+and reads nothing past ``kv_len``. bf16 runs on the tensor cores
+(FlashAttention-2 on ``mma.sync``, P rounded to bf16), f32 on the CUDA cores.
 
 - :func:`decode_attention` — the wrapper. A CPU tensor takes the plain
   version :func:`naive_masked_attention`; a CUDA tensor launches the kernel
-  or raises. ``decode_attention.launches`` counts kernel launches.
+  once by :func:`_plan` or raises. ``decode_attention.launches`` counts
+  kernel launches.
+- :func:`_plan` — the kernel's route for one call, a pure function of nq,
+  kv_len, dh, the dtype and the alignments of q, k and v.
+
+Why the result is bitwise invariant: a query's output depends only on its
+q row, its (row, head) cache prefix, ``kv_len``, its mask row and the kv
+tile width ``BKV`` (64, the same for every call; the C entry refuses any
+other). The plan may change the query rows of a block, the ring's stages
+and the copy widths, none of which changes a row's arithmetic.
 
 Shapes are the models' cache layout: queries ``[B, nq, H, dh]``, KV cache
 ``[B, L, H, dh]`` with the first ``kv_len`` positions valid, an optional
@@ -24,17 +34,73 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128  # csrc/decode_attention.cu's limit
+BKV = 64  # cache positions per kv tile; the C entry refuses any other
 _ENTRY = {torch.bfloat16: "hses_decode_attention_bf16", torch.float32: "hses_decode_attention_f32"}
 # q, k, v, mask, out; B, nq, H, dh, kv_len; strides of q, k, v (batch,
-# position, head), the mask's batch stride, out's strides; scale; stream
+# position, head), the mask's batch stride, out's strides; scale; the plan
+# (rows, bkv, stages, q_vec, k_vec, v_vec); stream
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 13
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
+class AttentionPlan(NamedTuple):
+    rows: int    # queries per block, 16 a warp: 16, 32, 64 or 128 (bf16); 64 (f32)
+    bkv: int     # cache positions per kv tile: BKV
+    stages: int  # kv tiles of the cp.async ring: 2 or 3 (bf16); 1 (f32, staged element by element)
+    q_vec: int   # elements of q per copy: 8 (16-byte cp.async), 4 (8-byte), 1 (element loads)
+    k_vec: int   # the same for the K cache
+    v_vec: int   # the same for the V cache
+
+
+def alignment(t: torch.Tensor) -> int:
+    """The largest of 16, 8, 4 and 2 bytes that divides ``t``'s address and
+    its first three strides in bytes (batch, position, head)."""
+    es = t.element_size()
+    bits = t.data_ptr() | 16
+    for s in t.stride()[:3]:
+        bits |= s * es
+    return bits & -bits
+
+
+def _copy_width(dh: int, align: int) -> int:
+    if dh % 8 == 0 and align >= 16:
+        return 8
+    if dh % 4 == 0 and align >= 8:
+        return 4
+    return 1
+
+
+def _plan(nq: int, kv_len: int, dh: int, dtype: torch.dtype,
+          alignments: Tuple[int, int, int] = (16, 16, 16)) -> AttentionPlan:
+    """The kernel's route for ``nq`` queries against ``kv_len`` cache
+    positions of head dim ``dh``; ``alignments`` are q's, k's and v's
+    (:func:`alignment`).
+
+    bf16: each warp owns 16 query rows, and a warp wholly past nq skips the
+    math and only helps stage the kv tiles, so a block's rows buy copy
+    threads, not work. The rule is the sweep's (``chip_smoke.k4_tile_sweep``,
+    PERF.md): 64 rows (4 warps) at nq ≤ 64; above, 128 (8 warps, each kv
+    tile staged once for twice the queries) where that pads no more rows
+    than 64 does (nq 100, 256), else 64 (nq 169: 192 rows, not 256). The
+    ring holds 3 kv tiles of ``BKV`` positions at 128 rows, where registers
+    already hold the SM to two blocks, and 2 otherwise, where a third stage
+    would cost a block an SM. A copy of 16 bytes needs dh % 8 and 16-byte
+    alignment, of 8 bytes dh % 4 and 8-byte alignment, else element copies.
+    f32 takes its one route: 64-query tiles staged element by element."""
+    if dtype == torch.float32:
+        return AttentionPlan(64, BKV, 1, 1, 1, 1)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"decode_attention takes bf16 or f32, got {dtype}")
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"decode_attention's kernel takes head dims up to {MAX_HEAD_DIM}, got {dh}")
+    rows = 128 if nq > 64 and -(-nq // 128) * 128 <= -(-nq // 64) * 64 else 64
+    return AttentionPlan(rows, BKV, 3 if rows == 128 else 2, *(_copy_width(dh, a) for a in alignments))
 
 
 def naive_masked_attention(
@@ -113,19 +179,28 @@ def decode_attention(
     mask = None
     if kv_mask is not None:
         mask = kv_mask if kv_mask.stride(-1) == 1 else kv_mask.contiguous()
-    from ._build import entry
-
-    fn = entry("decode_attention", _ENTRY[q.dtype], _ARGTYPES)
-    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-               mask.stride(0) if mask is not None else 0, *out.stride()[:3]]
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr() if mask is not None else None,
-                 out.data_ptr(), B, nq, H, dh, kv_len, *strides, float(sm_scale),
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
+    _launch(q, k, v, mask, out, kv_len, sm_scale,
+            _plan(nq, kv_len, dh, q.dtype, (alignment(q), alignment(k), alignment(v))))
     decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor], out: torch.Tensor,
+            kv_len: int, sm_scale: float, plan: AttentionPlan) -> None:
+    """One launch of the kernel by ``plan`` on q's device and current
+    stream, into ``out`` (q's shape and dtype); raises if it is refused."""
+    from ._build import entry
+
+    B, nq, H, dh = q.shape
+    fn = entry("decode_attention", _ENTRY[q.dtype], _ARGTYPES)
+    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               mask.stride(0) if mask is not None else 0, *out.stride()[:3]]
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr() if mask is not None else None,
+                 out.data_ptr(), B, nq, H, dh, kv_len, *strides, float(sm_scale), *plan,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")

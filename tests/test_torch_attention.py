@@ -120,14 +120,18 @@ def test_non_cpu_tensors_never_take_the_plain_version():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(4, 37, 200, 3, 64, 150, False), (2, 70, 130, 2, 128, 130, True)])
+@pytest.mark.parametrize("shape", [(4, 37, 200, 3, 64, 150, False), (2, 70, 130, 2, 128, 130, True),
+                                   (32, 256, 680, 16, 64, 680, False), (3, 9, 40, 2, 8, 23, True)])
 def test_kernel_matches_plain_version_on_the_card(dtype, shape):
+    """VAR-d16's last scale among the shapes, and the tiny VAR's dh 8; the
+    cache holds NaN past ``kv_len``, which the kernel must never read."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     B, nq, L, H, dh, kv_len, masked = shape
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(*s, generator=g, device="cuda").to(dt) for s in ((B, nq, H, dh), (B, L, H, dh), (B, L, H, dh)))
+    k[:, kv_len:], v[:, kv_len:] = float("nan"), float("nan")
     mask = (torch.rand(B, L, generator=g, device="cuda") > 0.3) if masked else None
     before = decode_attention.launches
     out = decode_attention(q, k, v, kv_len=kv_len, kv_mask=mask)
@@ -135,6 +139,7 @@ def test_kernel_matches_plain_version_on_the_card(dtype, shape):
     assert decode_attention.launches == before + 1
     ref = naive_masked_attention(q, k, v, kv_len, mask, 1.0 / math.sqrt(dh)).float()
     tol = 2 ** -7 if dt == torch.bfloat16 else 1e-5
+    assert bool(torch.isfinite(out).all())
     assert float((out.float() - ref).abs().max()) <= tol * float(ref.abs().max())
 
 

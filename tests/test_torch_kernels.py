@@ -167,23 +167,24 @@ def test_kernels_match_plain_versions_on_the_card(lanes, dtype):
 
 def test_kernel_build_hash_covers_included_headers(tmp_path, monkeypatch):
     """K2 and K3 include ``csrc/lora_chain.cuh``, K1 and K3 ``csrc/int8_tile.cuh``,
-    and both headers (and K2 itself) include ``int8_mma.cuh``: editing a
-    header must rebuild every kernel that includes it, and an installed
-    package must ship them."""
+    and both headers (and K2 and K4 themselves) include ``int8_mma.cuh``:
+    editing a header must rebuild every kernel that includes it, and an
+    installed package must ship them."""
     from hyperscalees_t2i_tpu_torch.ops import _build
 
-    for name in ("fused_qlora.cu", "lora_chain.cu", "int8_matmul.cu", "lora_chain.cuh", "int8_tile.cuh",
-                 "int8_mma.cuh"):
+    for name in ("fused_qlora.cu", "lora_chain.cu", "int8_matmul.cu", "decode_attention.cu", "lora_chain.cuh",
+                 "int8_tile.cuh", "int8_mma.cuh"):
         (tmp_path / name).write_bytes((_build.CSRC_DIR / name).read_bytes())
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
     assert [p.name for p in _build.source_files("fused_qlora")] == [
         "fused_qlora.cu", "lora_chain.cuh", "int8_mma.cuh", "int8_tile.cuh"]
     assert [p.name for p in _build.source_files("int8_matmul")] == ["int8_matmul.cu", "int8_tile.cuh", "int8_mma.cuh"]
     assert [p.name for p in _build.source_files("lora_chain")] == ["lora_chain.cu", "lora_chain.cuh", "int8_mma.cuh"]
-    names = ("fused_qlora", "lora_chain", "int8_matmul")
+    assert [p.name for p in _build.source_files("decode_attention")] == ["decode_attention.cu", "int8_mma.cuh"]
+    names = ("fused_qlora", "lora_chain", "int8_matmul", "decode_attention")
     for header, rebuilt in (("lora_chain.cuh", {"fused_qlora", "lora_chain"}),
                             ("int8_tile.cuh", {"fused_qlora", "int8_matmul"}),
-                            ("int8_mma.cuh", {"fused_qlora", "int8_matmul", "lora_chain"})):
+                            ("int8_mma.cuh", {"fused_qlora", "int8_matmul", "lora_chain", "decode_attention"})):
         before = {n: _build.library_path(n) for n in names}
         with open(tmp_path / header, "a") as f:
             f.write("\n// edited\n")
