@@ -57,7 +57,17 @@ result):
    then two timed epochs. Launch counters are set to 0 just before the
    timed epochs and read just after; K3 and K1 must have launched exactly
    the counts derived from the module trees. Reward rows must be ``[4, 4]``
-   and finite, θ′ finite, ‖Δθ‖ > 0.
+   and finite, θ′ finite, ‖Δθ‖ > 0;
+8. the trainer around the step: a tiny ``run_training`` (f32, int8 base)
+   on the card against the same run on the CPU (θ₀ and the draws made on
+   the CPU; θ and ``per_prompt_mean`` within 1e-4 after 2 epochs), then,
+   on the backend of 7, the flagship ``run_training`` with ``quality`` on
+   and a slot every 2 epochs: 4 epochs, a resume that must run exactly
+   epoch 4 from the epoch-4 slot's θ bitwise (the slot's sha256s
+   recomputed from its file), and one epoch with ``quality`` off. Each
+   run's K1-K4 launches must be the derived counts × its epochs;
+   ``metrics.jsonl`` must hold 5 rows with per-prompt quality. Prints
+   each epoch's ``step_time_s`` beside 7's epochs and each save's time.
 
 Output: the per-shape kernel tables and the path numbers on stdout, a JSON
 copy in ``build/chip_smoke.json``, then the card's name and power limit, a
@@ -743,25 +753,16 @@ def _es_parts(torch, scale, dev, trees):
     return backend, reward
 
 
-def phase_es_reference(torch, scale: str, int8: bool):
-    """One ES step of the ``scale`` rung in f32 (TF32 off, ``pop_fuse``) on
-    the card against the same step on the CPU: the same weights, θ, ES noise
-    and generation noise; θ′ and the step's own reward rows within 1e-4.
-    ``int8`` quantizes every kernel (min_size 0), so the adapted sites run
-    K3; a float base runs K2 there. The card's launches must be exactly the
-    counts derived from the module trees."""
-    from hyperscalees_t2i_tpu_torch.es.noiser import sample_noise
+def _es_trees(torch, scale: str, int8: bool, g):
+    """The ``scale`` rung's weight trees on the CPU, f32, drawn from ``g``
+    (every kernel quantized, min_size 0, with ``int8``), its CLIP text
+    tables and six prompts: what :func:`_es_parts` builds on a device."""
     from hyperscalees_t2i_tpu_torch.models import clip, dcae, sana
     from hyperscalees_t2i_tpu_torch.ops.quant import quantize_tree
     from hyperscalees_t2i_tpu_torch.rewards.suite import clip_text_embed_table, pickscore_text_embeds
-    from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, PROMPT_TOKEN_LEN, RUNG_PLAN, sana_rung_model
-    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
-    from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
-    from hyperscalees_t2i_tpu_torch.utils.pytree import tree_map
+    from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, PROMPT_TOKEN_LEN, sana_rung_model
 
-    _, pop, m, mb = RUNG_PLAN[scale]
     spec = sana_rung_model(scale, tower_dtype="float32")
-    g = torch.Generator().manual_seed(21)
     prompts = BENCH_PROMPT_SET[:6]
     cparams, pparams = clip.init_clip(spec["clip_b"], g), clip.init_clip(spec["clip_h"], g)
     ids = torch.randint(0, spec["clip_b"].vocab_size, (len(prompts) + 2, PROMPT_TOKEN_LEN), generator=g)
@@ -770,8 +771,26 @@ def phase_es_reference(torch, scale: str, int8: bool):
         table = clip_text_embed_table(clip.CLIPModel(spec["clip_b"], cparams), ids)
         ptable = pickscore_text_embeds(clip.CLIPModel(spec["clip_h"], pparams), pids)
     q = (lambda t: quantize_tree(t, min_size=0)) if int8 else (lambda t: t)  # noqa: E731
-    trees = dict(params=q(sana.init_sana(spec["bcfg"].model, g)), vae=q(dcae.init_decoder(spec["bcfg"].vae, g)),
-                 clip=q(cparams), pick=q(pparams), table=table, ptable=ptable, prompts=prompts)
+    return dict(params=q(sana.init_sana(spec["bcfg"].model, g)), vae=q(dcae.init_decoder(spec["bcfg"].vae, g)),
+                clip=q(cparams), pick=q(pparams), table=table, ptable=ptable, prompts=prompts)
+
+
+def phase_es_reference(torch, scale: str, int8: bool):
+    """One ES step of the ``scale`` rung in f32 (TF32 off, ``pop_fuse``) on
+    the card against the same step on the CPU: the same weights, θ, ES noise
+    and generation noise; θ′ and the step's own reward rows within 1e-4.
+    ``int8`` quantizes every kernel (min_size 0), so the adapted sites run
+    K3; a float base runs K2 there. The card's launches must be exactly the
+    counts derived from the module trees."""
+    from hyperscalees_t2i_tpu_torch.es.noiser import sample_noise
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+    from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
+    from hyperscalees_t2i_tpu_torch.utils.pytree import tree_map
+
+    _, pop, m, mb = RUNG_PLAN[scale]
+    g = torch.Generator().manual_seed(21)
+    trees = _es_trees(torch, scale, int8, g)
     tc = TrainConfig(pop_size=pop, sigma=0.01, egg_rank=4, member_batch=mb, pop_fuse=True)
     outs = {}
     for dev in (torch.device("cpu"), torch.device("cuda")):
@@ -1105,10 +1124,12 @@ def timed_epochs(torch, step, theta, flat_ids, reward, expected1, pop: int, call
     return theta, stats
 
 
-def phase_es_flagship(torch, base_quant=None):
+def phase_es_flagship(torch, base_quant=None, keep: bool = False):
     """The flagship ES epoch step: with the rung's int8 base (the main
     path: K3 at the adapted sites, K1 elsewhere) or, ``base_quant="off"``,
-    a bf16 base (K2's path: K2 at the adapted sites, no int8 site)."""
+    a bf16 base (K2's path: K2 at the adapted sites, no int8 site).
+    ``keep`` also returns the backend and the reward suite, for
+    :func:`phase_train_flagship`."""
     from hyperscalees_t2i_tpu_torch.backends.sana_backend import build_train_backend
     from hyperscalees_t2i_tpu_torch.es.noiser import sample_noise
     from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
@@ -1142,9 +1163,250 @@ def phase_es_flagship(torch, base_quant=None):
     breakdown = es_stage_breakdown(torch, backend, suite, theta, noise, tc, tag)
     stats = dict(plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s, per_call=per,
                  member_breakdown_ms=breakdown, **run)
-    del backend, suite, reward, step
+    del reward, step
+    if keep:
+        return stats, (backend, suite)
+    del backend, suite
     torch.cuda.empty_cache()
     return stats
+
+
+def _train(torch, backend, reward, tc, expected1, what: str, spy=None):
+    """``run_training`` on the card with the launch counters set to 0 just
+    before and read just after; they must be ``expected1`` per epoch run.
+    ``spy(epoch, θ)`` sees the θ each epoch starts from. Returns
+    ``(state, per-epoch scalars, launches, wall s)``."""
+    from hyperscalees_t2i_tpu_torch.train import trainer
+
+    history = []
+    real = trainer._epoch_draws
+
+    def draws(backend_, tc_, theta, epoch, count, dev):
+        spy(epoch, theta)
+        return real(backend_, tc_, theta, epoch, count, dev)
+
+    if spy is not None:
+        trainer._epoch_draws = draws
+    try:
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        state = trainer.run_training(backend, reward, tc, on_epoch_end=lambda e, s: history.append(s), device="cuda")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = _counters()
+    finally:
+        trainer._epoch_draws = real
+    expected = {k: v * len(history) for k, v in expected1.items()}
+    if launches != expected:
+        raise AssertionError(f"{what} launched {launches}, expected {expected}")
+    if not all(bool(torch.isfinite(t).all()) for d in state.theta.values() for t in d.values()):
+        raise AssertionError(f"{what}: θ not finite")
+    return state, history, launches, wall_s
+
+
+def _cpu_tree(torch, tree):
+    return {k: {f: t.detach().float().cpu().clone() for f, t in d.items()} for k, d in tree.items()}
+
+
+def phase_train_reference(torch):
+    """The trainer (``run_training``) on the tiny rung in f32 with an int8
+    base (K3, K1) on the card against the same run on the CPU: the same
+    weights, and θ₀ and each epoch's draws made on the CPU (the seams
+    ``_init_theta``/``_epoch_draws`` drawn there and moved). Two epochs:
+    θ and each epoch's ``per_prompt_mean`` within 1e-4, the card's
+    launches exactly as derived."""
+    import shutil
+
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN
+    from hyperscalees_t2i_tpu_torch.train import trainer
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+
+    _, pop, m, mb = RUNG_PLAN["tiny"]
+    trees = _es_trees(torch, "tiny", True, torch.Generator().manual_seed(31))
+    root = ROOT / "build" / "train_tiny"
+    shutil.rmtree(root, ignore_errors=True)
+    cpu = torch.device("cpu")
+    real_init, real_draws = trainer._init_theta, trainer._epoch_draws
+    trainer._init_theta = lambda b, tc, dev: {k: {f: t.to(dev) for f, t in d.items()}  # noqa: E731
+                                              for k, d in real_init(b, tc, cpu).items()}
+    trainer._epoch_draws = lambda b, tc, th, e, n, dev: real_draws(b, tc, th, e, n, cpu)  # noqa: E731
+    outs = {}
+    try:
+        for dev in (cpu, torch.device("cuda")):
+            backend, suite = _es_parts(torch, "tiny", dev, trees)
+            tc = TrainConfig(num_epochs=2, pop_size=pop, sigma=0.01, egg_rank=4, prompts_per_gen=m, member_batch=mb,
+                             pop_fuse=True, save_every=1, run_dir=str(root / dev.type), run_name="tiny", seed=7)
+            if dev.type == "cpu":
+                history = []
+                state = trainer.run_training(backend, suite, tc, on_epoch_end=lambda e, s: history.append(s),
+                                             device=cpu)
+            else:
+                expected1, _ = expected_es_launches(backend, suite, tc, m)
+                state, history, launches, _ = _train(torch, backend, suite, tc, expected1, "tiny run_training")
+            outs[dev.type] = (_cpu_tree(torch, state.theta), [h["per_prompt_mean"] for h in history])
+            del backend, suite
+    finally:
+        trainer._init_theta, trainer._epoch_draws = real_init, real_draws
+    th_err = max(float((outs["cuda"][0][k][f] - outs["cpu"][0][k][f]).abs().max())
+                 for k in outs["cpu"][0] for f in outs["cpu"][0][k])
+    pm_err = max(abs(a - b) for ec, eg in zip(outs["cpu"][1], outs["cuda"][1]) for a, b in zip(ec, eg))
+    log(f"[train-tiny] tiny run_training f32 int8 base, 2 epochs, card vs CPU: θ max abs diff {th_err:.3g}, "
+        f"per_prompt_mean max abs diff {pm_err:.3g} (tol 1e-4); launches {launches}")
+    if len(outs["cuda"][1]) != 2 or not (th_err <= 1e-4 and pm_err <= 1e-4):
+        raise AssertionError(f"card and CPU disagree on the tiny run_training: θ {th_err}, per_prompt_mean {pm_err}")
+    torch.cuda.empty_cache()
+    return {"theta_max_abs": th_err, "per_prompt_mean_max_abs": pm_err, "launches": launches}
+
+
+def phase_train_flagship(torch, backend, suite, es):
+    """The trainer around the flagship step, on the backend
+    :func:`phase_es_flagship` built (``RUNG_PLAN``/``RUNG_OPT["flagship"]``,
+    ``quality=True``, ``save_every=2``, traced): ``run_training`` for 4
+    epochs, then again with ``num_epochs=5`` and ``resume``, which must run
+    exactly epoch 4 from the epoch-4 slot's θ bitwise; then 1 epoch with
+    ``quality=False``. Each run's K1-K4 launches must be the derived counts
+    × its epochs (K3 164 and K1 329 per image, no K2 or K4);
+    ``metrics.jsonl`` must hold 5 rows with ``quality/combined/prompt_mean``;
+    the epoch-4 slot's sha256s are recomputed from its file and its digest
+    from a read-back. Prints each epoch's ``step_time_s`` beside the bare
+    step's epochs of ``es`` and each checkpoint save's time (its trace
+    span)."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    from hyperscalees_t2i_tpu_torch.obs.trace import load_events
+    from hyperscalees_t2i_tpu_torch.resilience.checkpoints import CheckpointStore, slot_theta_digest
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+    from hyperscalees_t2i_tpu_torch.utils.jsonl import read_jsonl_rows
+
+    _, pop, m, mb = RUNG_PLAN["flagship"]
+    opt = rung_opt("flagship")
+    root = ROOT / "build" / "train_flagship"
+    shutil.rmtree(root, ignore_errors=True)
+    base = dict(pop_size=pop, sigma=0.01, egg_rank=4, prompts_per_gen=m, batches_per_gen=1, member_batch=mb,
+                reward_tile=opt["reward_tile"], noise_dtype=opt["noise_dtype"], tower_dtype=opt["tower_dtype"],
+                pop_fuse=opt["pop_fuse"], base_quant=opt["base_quant"], quality=True, save_every=2,
+                run_dir=str(root), run_name="flagship", trace=True)
+    expected1, per = expected_es_launches(backend, suite, TrainConfig(**base), m)
+    if (per["k3_per_call"], per["k1_per_call"], per["k2_per_call"], per["calls"]) != (164, 329, 0, pop * m):
+        raise AssertionError(f"the flagship plan is not K3 164, K1 329 per image over {pop * m} images: {per}")
+    state, h1, l1, wall1 = _train(torch, backend, suite, TrainConfig(num_epochs=4, **base), expected1,
+                                  "4 flagship run_training epochs")
+    run_dir = root / "flagship"
+    slot = run_dir / "ckpt" / "step_00000004"
+    if [h["epoch"] for h in h1] != [0, 1, 2, 3] or state.epoch != 4 or not slot.is_dir():
+        raise AssertionError(f"the 4-epoch run logged {[h['epoch'] for h in h1]}, ended at {state.epoch}")
+    manifest = json.loads((slot / "manifest.json").read_text())
+    with np.load(slot / "theta.npz") as z:
+        slot_theta = {k: z[k] for k in z.files}
+    bad = [k for k, a in slot_theta.items()
+           if hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest() != manifest["arrays"][k]["sha256"]]
+    final = _cpu_tree(torch, state.theta)
+    if bad or any(not np.array_equal(final[k.rsplit("/", 1)[0]][k.rsplit("/", 1)[1]].numpy(), a)
+                  for k, a in slot_theta.items()):
+        raise AssertionError(f"slot step_00000004 disagrees with its manifest ({bad[:3]}) or with the run's θ")
+    digest = CheckpointStore(run_dir).verify_slot(4, state.theta)
+    if digest != slot_theta_digest(manifest):
+        raise AssertionError("the slot's read-back digest differs from its manifest's")
+
+    seen = {}
+    state2, h2, l2, wall2 = _train(torch, backend, suite, TrainConfig(num_epochs=5, resume=True, **base), expected1,
+                                   "the resumed flagship run",
+                                   spy=lambda e, th: seen.setdefault(e, _cpu_tree(torch, th)))
+    if list(seen) != [4] or [h["epoch"] for h in h2] != [4] or state2.epoch != 5:
+        raise AssertionError(f"the resumed run ran epochs {list(seen)}, logged {[h['epoch'] for h in h2]}")
+    if any(not np.array_equal(seen[4][k.rsplit("/", 1)[0]][k.rsplit("/", 1)[1]].numpy(), a)
+           for k, a in slot_theta.items()):
+        raise AssertionError("the resumed run did not start from the epoch-4 slot's θ bitwise")
+    rows = read_jsonl_rows(run_dir / "metrics.jsonl")
+    if [r["epoch"] for r in rows] != [0, 1, 2, 3, 4] or \
+            not all(len(r.get("quality/combined/prompt_mean", [])) == m for r in rows):
+        raise AssertionError(f"metrics.jsonl rows {[r['epoch'] for r in rows]} lack quality/combined/prompt_mean")
+
+    state3, h3, l3, wall3 = _train(torch, backend, suite,
+                                   TrainConfig(num_epochs=1, **{**base, "quality": False, "save_every": 0,
+                                                                "run_name": "flagship_quality_off"}),
+                                   expected1, "a flagship epoch with quality off")
+    if any(k.startswith("quality/") for k in h3[0]):
+        raise AssertionError("quality=False still logged quality/* metrics")
+    saves = [(ev["session"], ev["dur_s"]) for ev in load_events(run_dir) if ev["name"] == "checkpoint"]
+    step_s = [h["step_time_s"] for h in h1 + h2]
+    slot_mb = sum(p.stat().st_size for p in slot.iterdir()) / 2**20
+    log(f"[train] flagship run_training (int8 base, quality on): epochs {', '.join(f'{s:.3f}' for s in step_s)} s "
+        f"step_time_s (epoch 4 resumed; quality off: {h3[0]['step_time_s']:.3f} s) against the bare step's "
+        f"{', '.join(f'{s:.3f}' for s in es['epoch_s'])} s (warm-up {es['warmup_epoch_s']:.3f} s) in this call; "
+        f"checkpoint saves (session, s): {saves}; slot {slot_mb:.2f} MiB; runs {wall1:.2f} / {wall2:.2f} / "
+        f"{wall3:.2f} s wall; launches {l1} / {l2} / {l3}")
+    torch.cuda.empty_cache()
+    return dict(step_time_s=step_s, step_time_s_quality_off=h3[0]["step_time_s"], bare_epoch_s=es["epoch_s"],
+                checkpoint_save_s=[d for _, d in saves], slot_mib=slot_mb, wall_s=[wall1, wall2, wall3],
+                launches=[l1, l2, l3], epochs=[len(h1), len(h2), len(h3)], images_per_epoch=pop * m,
+                slot_digest=digest)
+
+
+def train_overhead(torch, pairs: int = 8):
+    """The training loop's host cost at the flagship, in turns on one card
+    (not part of :func:`main`): an epoch of the bare stateful step (host
+    clock to a synchronize, as :func:`timed_epochs`), then its scalars'
+    fetch to the host alone, and one ``run_training`` epoch resumed from
+    the previous one's slot (its ``step_time_s``), alternating which goes
+    first; the first pair warms up. Prints both series, the fetch times
+    and the difference of the medians."""
+    import shutil
+    import statistics
+
+    from hyperscalees_t2i_tpu_torch.backends.sana_backend import build_train_backend
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
+    from hyperscalees_t2i_tpu_torch.train import trainer
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+
+    _, pop, m, mb = RUNG_PLAN["flagship"]
+    opt = rung_opt("flagship")
+    root = ROOT / "build" / "train_overhead"
+    shutil.rmtree(root, ignore_errors=True)
+    base = dict(pop_size=pop, sigma=0.01, egg_rank=4, prompts_per_gen=m, member_batch=mb,
+                reward_tile=opt["reward_tile"], noise_dtype=opt["noise_dtype"], tower_dtype=opt["tower_dtype"],
+                pop_fuse=opt["pop_fuse"], base_quant=opt["base_quant"], save_every=1, run_dir=str(root),
+                run_name="overhead")
+    backend, suite = build_train_backend("flagship", device="cuda", seed=0)
+    step = trainer.make_es_step(backend, suite, TrainConfig(**base), m, 1, device="cuda", stateful_delta=True)
+    flat = backend.step_info(0, m, 1).flat_ids
+    theta = backend.init_theta(torch.Generator().manual_seed(1))
+    delta = {k: {f: torch.zeros_like(t) for f, t in d.items()} for k, d in theta.items()}
+    bare, fetch, loop = [], [], []
+    for i in range(pairs + 1):
+        for which in ((0, 1) if i % 2 == 0 else (1, 0)):
+            if which == 0:
+                t0 = time.perf_counter()
+                theta, delta, metrics, _ = step(theta, delta, flat, 100 + i)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                {k: (v.tolist() if v.ndim else float(v)) for k, v in metrics.items()}
+                t2 = time.perf_counter()
+                if i:
+                    bare.append(t1 - t0)
+                    fetch.append(t2 - t1)
+            else:
+                history = []
+                trainer.run_training(backend, suite, TrainConfig(num_epochs=i + 1, **base),
+                                     on_epoch_end=lambda e, s: history.append(s), device="cuda")
+                if [h["epoch"] for h in history] != [i]:
+                    raise AssertionError(f"run {i} logged epochs {[h['epoch'] for h in history]}")
+                if i:
+                    loop.append(history[0]["step_time_s"])
+    med = statistics.median
+    out = dict(bare_epoch_s=bare, loop_epoch_s=loop, fetch_s=fetch, median_difference_s=med(loop) - med(bare),
+               median_fetch_s=med(fetch), pairs=pairs)
+    log(f"[train-overhead] in turns, {pairs} pairs: bare step {', '.join(f'{s:.3f}' for s in bare)} s "
+        f"(median {med(bare):.4f}); run_training {', '.join(f'{s:.3f}' for s in loop)} s (median {med(loop):.4f}); "
+        f"difference of medians {out['median_difference_s'] * 1e3:.1f} ms; scalar fetch after a synchronize "
+        f"{med(fetch) * 1e3:.2f} ms (median)")
+    print(json.dumps({"train_overhead": out}))
+    return out
 
 
 def _k4_inputs(torch, g, B, nq, L, H, dh, dt, kv_len=None):
@@ -1573,19 +1835,26 @@ def main() -> int:
     small_err = phase_small_reference(torch)
     es_tiny = phase_es_reference(torch, "tiny", int8=True)
     es_small = phase_es_reference(torch, "small", int8=False)
+    train_tiny = phase_train_reference(torch)
     var_tiny = phase_var_reference(torch)
     es_float = phase_es_flagship(torch, base_quant="off")
     serve = phase_serve(torch)
     var_es = phase_var_es(torch)
-    es = phase_es_flagship(torch)
+    es, flagship = phase_es_flagship(torch, keep=True)
+    train = phase_train_flagship(torch, *flagship, es)
+    del flagship
 
+    train_launches = lambda k: sum(run[k] for run in train["launches"])  # noqa: E731
+    train_epochs = sum(train["epochs"])
     kernels = [
-        kernel_summary("int8_matmul", k1_rows, es["launches"]["int8_matmul"], "calls_per_es_image",
+        kernel_summary("int8_matmul", k1_rows, es["launches"]["int8_matmul"] + train_launches("int8_matmul"),
+                       "calls_per_es_image",
                        "hyperscalees_t2i_tpu/ops/quant_mm.py:86", "one flagship ES image (DiT, DC-AE, both towers)"),
         kernel_summary("lora_chain", chain_rows["lora_chain"], es_float["launches"]["lora_chain"],
                        "calls_per_image", "hyperscalees_t2i_tpu/ops/fused_lora.py:80",
                        "the LoRA deltas of one flagship ES image over a bf16 base"),
-        kernel_summary("fused_qlora", chain_rows["fused_qlora"], es["launches"]["fused_qlora"],
+        kernel_summary("fused_qlora", chain_rows["fused_qlora"],
+                       es["launches"]["fused_qlora"] + train_launches("fused_qlora"),
                        "calls_per_image", "hyperscalees_t2i_tpu/ops/fused_qlora.py:201",
                        "one flagship ES image's adapted sites"),
         kernel_summary("decode_attention", k4_rows, var_es["launches"]["decode_attention"], "calls_per_call",
@@ -1594,12 +1863,15 @@ def main() -> int:
     ]
     k1_serve = kernel_summary("int8_matmul", k1_rows, serve["launches"]["int8_matmul"], "calls_per_image",
                               "hyperscalees_t2i_tpu/ops/quant_mm.py:86", "one flagship served image")
-    for k, run in ((kernels[1], es_float), (kernels[2], es)):
+    for k, run, epochs in ((kernels[1], es_float, TIMED_EPOCHS), (kernels[2], es, TIMED_EPOCHS + train_epochs)):
         if k["launches"] != sum(r["calls_per_image"] for r in chain_rows[k["name"]]) * \
-                run["images_per_epoch"] * TIMED_EPOCHS:
+                run["images_per_epoch"] * epochs:
             raise AssertionError(f"{k['name']} table and launch count disagree")
-    if kernels[0]["launches"] != sum(r["calls_per_es_image"] for r in k1_rows) * es["images_per_epoch"] * TIMED_EPOCHS:
+    if kernels[0]["launches"] != sum(r["calls_per_es_image"] for r in k1_rows) * es["images_per_epoch"] * \
+            (TIMED_EPOCHS + train_epochs):
         raise AssertionError("K1 table and launch count disagree")
+    if train_launches("lora_chain") or train_launches("decode_attention"):
+        raise AssertionError("the flagship trainer launched K2 or K4")
     if kernels[3]["launches"] != sum(r["calls_per_call"] for r in k4_rows) * var_es["per_call"]["calls"] * TIMED_EPOCHS:
         raise AssertionError("K4 table and launch count disagree")
 
@@ -1613,7 +1885,8 @@ def main() -> int:
         k4_invariant_parts=k4_invariant,
         k1_shapes=k1_rows, chain_shapes=chain_rows, k4_shapes=k4_rows, k4_cases=k4_extra,
         small_reference_max_abs=small_err, es_tiny=es_tiny, es_small=es_small, var_tiny=var_tiny,
-        es_flagship_float=es_float, serve=serve, var_es=var_es, es_flagship=es, kernels=kernels, k1_serving=k1_serve,
+        es_flagship_float=es_float, serve=serve, var_es=var_es, es_flagship=es, train_tiny=train_tiny,
+        train_flagship=train, kernels=kernels, k1_serving=k1_serve,
         wall_s=wall_s,
     ), indent=1))
     for k in kernels + [k1_serve]:

@@ -13,7 +13,13 @@ package so each unit's counterpart is easy to find. What is ported so far:
   backend (K3 ``csrc/fused_qlora.cu``, K2 ``csrc/lora_chain.cu``) and over
   the VAR backend (``backends.var_backend`` → ``models.var`` →
   ``models.msvq``), whose KV-cache attention is K4
-  ``csrc/decode_attention.cu``.
+  ``csrc/decode_attention.cu``;
+- the single-process trainer around the step: ``train.trainer.run_training``
+  (``metrics.jsonl``, per-prompt quality attribution and ``quality.jsonl``
+  from ``obs.quality``, checkpoint slots from ``resilience.checkpoints``
+  in the JAX package's file format, resume, the non-finite rollback,
+  SIGTERM/SIGINT preemption) and its CLI, ``python -m
+  hyperscalees_t2i_tpu_torch.train.cli``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit CPU request they raise (:mod:`.device`).

@@ -13,7 +13,7 @@ and match the JAX package's exactly.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Union
 
 import numpy as np
 
@@ -49,6 +49,15 @@ def mix_seed(base: int, a: int, b: int) -> int:
 
 
 def epoch_seed(base_seed: int, epoch: int) -> int:
-    """The integer seed of one epoch (the port's counterpart of
-    ``epoch_key``)."""
+    """The integer seed of one epoch: the port's counterpart of the JAX
+    package's ``epoch_key`` (``fold_in(PRNGKey(base), epoch)``), which the
+    port does not reproduce (its draws come from ``torch.Generator``)."""
     return mix_seed(base_seed, epoch, 0)
+
+
+def parse_int_list(s: str) -> Union[str, List[int]]:
+    """``"1,2,3"`` → ``[1, 2, 3]``; ``""``/``"all"`` → ``"all"``."""
+    s = (s or "").strip()
+    if s.lower() == "all" or s == "":
+        return "all"
+    return [int(x.strip()) for x in s.split(",") if x.strip() != ""]

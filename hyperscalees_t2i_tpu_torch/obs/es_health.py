@@ -7,13 +7,14 @@ Metric names (``es/`` prefix), as the JAX package writes them:
 (cos(Δθ_t, Δθ_{t−1}), 0 without a previous update), ``es/cap_theta_scale``
 and ``es/cap_step_scale``, ``es/pair_asym`` (antithetic pair asymmetry) and
 ``es/leaf_delta_norm/<target>`` per LoRA target. Every value stays a tensor
-on the step's device; nothing here syncs with the host.
-``DegeneracyWatchdog`` comes with the training loop (``run_training``).
+on the step's device; nothing here syncs with the host, except
+:class:`DegeneracyWatchdog`, which the training loop feeds the fetched
+``es/fitness_zero`` once an epoch.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -99,3 +100,30 @@ def es_health_metrics(*, opt_scores: torch.Tensor, fitness: torch.Tensor, delta:
         out["es/pair_asym"] = asym
     out.update(delta_leaf_norms(delta))
     return out
+
+
+class DegeneracyWatchdog:
+    """Calls ``on_degenerate(consecutive)`` once when ``es/fitness_zero``
+    has read 1 for ``threshold`` consecutive observed generations (the ES
+    update has been a no-op: constant or all-NaN rewards); re-arms after a
+    healthy one. ``threshold <= 0`` disables it."""
+
+    def __init__(self, threshold: int, on_degenerate: Callable[[int], None]):
+        self.threshold = int(threshold)
+        self.on_degenerate = on_degenerate
+        self.consecutive = 0
+        self._fired = False
+
+    def update(self, degenerate: bool) -> int:
+        """Feed one generation; returns the consecutive count."""
+        if self.threshold <= 0:
+            return 0
+        if degenerate:
+            self.consecutive += 1
+            if not self._fired and self.consecutive >= self.threshold:
+                self._fired = True
+                self.on_degenerate(self.consecutive)
+        else:
+            self.consecutive = 0
+            self._fired = False
+        return self.consecutive

@@ -8,19 +8,21 @@
   zeros without them.
 - ``combined = 0.3·aesthetic + 0.3·align + 0.2·no_artifacts + 0.2·pick``.
 
-Text tables are built once, before the towers are quantized. Tokenizing
-real prompts (``tokenize_with_hf``) is not ported: no tokenizer is available
-offline, and the rungs build their tables from random token ids.
+Text tables are built once, before the towers are quantized. The rungs
+build theirs from random token ids; the train CLI tokenizes its prompts
+with :func:`tokenize_with_hf`'s deterministic hash fallback (the Hugging
+Face branch is not ported: no tokenizer is cached offline).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..models import clip as clip_mod
+from ..utils.seeding import stable_text_seed
 
 AESTHETIC_TEXT = "a high quality, professional, beautiful, aesthetically pleasing image"
 NEGATIVE_TEXT = "blurry, low resolution, noisy, pixelated, washed out colors, oversaturated "
@@ -37,6 +39,23 @@ class RewardWeights:
 def _normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     n = torch.linalg.vector_norm(x.to(torch.float32), dim=-1, keepdim=True)
     return x / n.clamp_min(eps)
+
+
+def tokenize_with_hf(prompts: Sequence[str], name: str = "openai/clip-vit-base-patch32"
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(input_ids [N, 77] int32, eot_index [N] int32, attention_mask [N,
+    77] bool)`` from the JAX package's hash fallback: word ``j`` of prompt
+    ``p`` is token ``stable_text_seed(f"{p}\\x00{j}") % 40000 + 2`` after a
+    BOS of 1, then EOT 49407, padding 1. ``name`` is the tokenizer the JAX
+    package tries first; the port always takes the fallback. Fine for
+    smoke runs, not for scoring parity with real CLIP."""
+    L = 77
+    ids = torch.ones((len(prompts), L), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        toks = [(stable_text_seed(f"{p}\x00{j}") % 40000) + 2 for j in range(min(len(p.split()), L - 2))]
+        ids[i, 1:1 + len(toks)] = torch.tensor(toks, dtype=torch.int32)
+        ids[i, 1 + len(toks)] = 49407  # EOT, the largest id of CLIP's vocabulary
+    return ids, ids.argmax(dim=-1).to(torch.int32), torch.ones((len(prompts), L), dtype=torch.bool)
 
 
 def clip_text_embed_table(model: clip_mod.CLIPModel, input_ids: torch.Tensor,

@@ -1,0 +1,257 @@
+"""The ES training CLI (port of ``hyperscalees_t2i_tpu/train/cli.py`` for
+the Sana one-step and VAR backends)::
+
+    python -m hyperscalees_t2i_tpu_torch.train.cli --backend sana_one_step \\
+        --model_scale tiny --device cpu --num_epochs 2 --run_dir runs
+
+Flag names and defaults are the JAX CLI's for every flag the port's loop
+reads, plus ``--device`` (default: the CUDA card; without one the CLI
+raises unless ``--device cpu`` is given). The generator's weights are
+random (``--weights`` raises: the converters are ROADMAP queue A item 10);
+the reward towers are random too, which above ``--model_scale tiny`` needs
+``--allow_random_rewards true``, and the PickScore tower is then dropped
+with the other weights renormalized, as the JAX CLI does without its
+Hugging Face weights. Prompts are tokenized with the hash fallback of
+``rewards.suite.tokenize_with_hf``. Exit codes: 0 done or preempted (a
+slot was saved; rerun to resume), 3 halted by the rollback policy.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+from pathlib import Path
+from typing import Any, List, Optional, Tuple
+
+import torch
+
+
+def str2bool(v: str) -> bool:
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("1", "true", "t", "yes", "y"):
+        return True
+    if v.lower() in ("0", "false", "f", "no", "n"):
+        return False
+    raise argparse.ArgumentTypeError(f"boolean expected, got {v!r}")
+
+
+def parse_resume(v: str) -> bool:
+    """``auto`` (resume from the newest valid slot when one exists) is an
+    alias of true."""
+    if isinstance(v, str) and v.lower() == "auto":
+        return True
+    return str2bool(v)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="EGGROLL-ES trainer (PyTorch port)")
+    p.add_argument("--backend", required=True, choices=["sana_one_step", "var"])
+    p.add_argument("--model_scale", default="full", choices=["tiny", "small", "full"])
+    p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
+    p.add_argument("--prompts_txt", default=None)
+    p.add_argument("--labels_path", default=None, help="ImageNet class names (var)")
+    p.add_argument("--var_classes", default=None, help="comma class pool, or 'all' (var)")
+    p.add_argument("--lora_r", type=int, default=8)
+    p.add_argument("--lora_alpha", type=float, default=16.0)
+    p.add_argument("--guidance_scale", type=float, default=None)
+    p.add_argument("--latent_size", type=int, default=None, help="latent grid (per side)")
+    p.add_argument("--weights", default=None, help="generator checkpoint (not ported yet)")
+    p.add_argument("--vae_weights", default=None, help="VAE checkpoint (not ported yet)")
+    p.add_argument("--pop_size", type=int, default=8)
+    p.add_argument("--sigma", type=float, default=0.01)
+    p.add_argument("--lr_scale", type=float, default=1.0)
+    p.add_argument("--egg_rank", type=int, default=4)
+    p.add_argument("--antithetic", type=str2bool, default=True)
+    p.add_argument("--promptnorm", type=str2bool, default=True)
+    p.add_argument("--num_epochs", type=int, default=100)
+    p.add_argument("--prompts_per_gen", type=int, default=2)
+    p.add_argument("--batches_per_gen", type=int, default=1)
+    p.add_argument("--member_batch", type=int, default=1)
+    p.add_argument("--reward_tile", type=int, default=0)
+    p.add_argument("--noise_dtype", default="float32", choices=["float32", "bfloat16", "bf16"])
+    p.add_argument("--tower_dtype", default="float32", choices=["float32", "bfloat16", "bf16"])
+    p.add_argument("--pop_fuse", type=str2bool, default=False)
+    p.add_argument("--base_quant", default="off", choices=["off", "int8"])
+    p.add_argument("--theta_max_norm", type=float, default=40.0)
+    p.add_argument("--max_step_norm", type=float, default=0.0)
+    p.add_argument("--w_aesthetic", type=float, default=0.3)
+    p.add_argument("--w_text", type=float, default=0.3)
+    p.add_argument("--w_noart", type=float, default=0.2)
+    p.add_argument("--w_pick", type=float, default=0.2)
+    p.add_argument("--use_pickscore", type=str2bool, default=True)
+    p.add_argument("--allow_random_rewards", type=str2bool, default=False,
+                   help="proceed with random-init reward towers (no tower weights are loaded yet)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--save_every", type=int, default=10)
+    p.add_argument("--trace", type=str2bool, nargs="?", const=True, default=False,
+                   help="write a host-side span timeline to run_dir/trace.jsonl")
+    p.add_argument("--es_degenerate_warn_epochs", type=int, default=5)
+    p.add_argument("--quality", type=str2bool, default=True)
+    p.add_argument("--quality_hack_window", type=int, default=4)
+    p.add_argument("--run_dir", default="runs")
+    p.add_argument("--run_name", default=None)
+    p.add_argument("--resume", type=parse_resume, default=True)
+    p.add_argument("--ckpt_keep", type=int, default=3)
+    p.add_argument("--ckpt_legacy_mirror", type=str2bool, default=True)
+    p.add_argument("--rollback_policy", default="sigma_shrink", choices=["sigma_shrink", "skip", "halt"])
+    p.add_argument("--max_rollbacks", type=int, default=3)
+    p.add_argument("--rollback_sigma_shrink", type=float, default=0.5)
+    p.add_argument("--theta_explode_norm", type=float, default=0.0)
+    return p
+
+
+def _scaled(args, full: dict, small: dict, tiny: dict) -> dict:
+    return {"full": full, "small": small, "tiny": tiny}[args.model_scale]
+
+
+def _dtype(name: str) -> str:
+    return "bfloat16" if name == "bf16" else name
+
+
+def _prompts(path: Optional[str]) -> List[str]:
+    """The prompt file's non-empty, non-``#`` lines (``a photo of a cat``
+    without one), as the JAX Sana backend reads it."""
+    prompts = ["a photo of a cat"]
+    if path and Path(path).exists():
+        lines = [l.strip() for l in Path(path).read_text().splitlines()]
+        prompts = [l for l in lines if l and not l.startswith("#")] or prompts
+    return prompts
+
+
+def build_backend(args, device: torch.device):
+    """The backend at the JAX CLI's geometry for ``--model_scale``, random
+    weights, ``--base_quant`` on the generator's trees."""
+    from ..device import generator_for
+    from ..ops.quant import maybe_quantize_tree
+
+    if args.weights or args.vae_weights:
+        raise NotImplementedError("--weights/--vae_weights: the checkpoint converters are not ported yet "
+                                  "(ROADMAP queue A item 10)")
+    f32 = torch.float32
+    if args.backend == "sana_one_step":
+        from ..backends.sana_backend import SanaBackend, SanaBackendConfig
+        from ..models import dcae, sana
+
+        mkw = _scaled(args, {}, dict(d_model=1120, n_layers=6, n_heads=35, cross_n_heads=10),
+                      dict(d_model=64, n_layers=2, n_heads=4, cross_n_heads=4, caption_dim=32,
+                           in_channels=4, out_channels=4, compute_dtype=f32))
+        vkw = _scaled(args, {}, dict(channels=(256, 256, 128, 128, 64, 32)),
+                      dict(latent_channels=4, channels=(16, 16), blocks_per_stage=(1, 1), attn_stages=(),
+                           compute_dtype=f32))
+        lat = args.latent_size or (32 if args.model_scale == "full" else 8)
+        cfg = SanaBackendConfig(
+            model=sana.SanaConfig(**mkw), vae=dcae.DCAEConfig(**vkw),
+            guidance_scale=args.guidance_scale if args.guidance_scale is not None else 1.0,
+            width_latent=lat, height_latent=lat, lora_r=args.lora_r, lora_alpha=args.lora_alpha)
+        # the weights SanaBackend.setup would draw, with the base_quant knob
+        params = maybe_quantize_tree(sana.init_sana(cfg.model, generator_for(device, cfg.seed_params)),
+                                     args.base_quant)
+        vae = maybe_quantize_tree(dcae.init_decoder(cfg.vae, generator_for(device, cfg.seed_params + 1)),
+                                  args.base_quant)
+        return SanaBackend(cfg, device, params=params, vae_params=vae, prompts=_prompts(args.prompts_txt))
+
+    from ..backends.var_backend import VarBackend, VarBackendConfig
+    from ..es.sampling import parse_int_list
+    from ..models import msvq, var as var_mod
+
+    vq_kw = _scaled(args, {}, dict(ch=80, ch_mult=(1, 2, 2, 4), num_res_blocks=1),
+                    dict(vocab_size=64, c_vae=8, patch_nums=(1, 2, 4), phi_partial=2, ch=8, ch_mult=(1, 1),
+                         num_res_blocks=1, compute_dtype=f32))
+    mkw = _scaled(args, {}, dict(depth=12, d_model=768, n_heads=12),
+                  dict(num_classes=10, depth=2, d_model=32, n_heads=4, ff_ratio=2.0, patch_nums=(1, 2, 4),
+                       compute_dtype=f32))
+    # the tiny geometry samples without top-k/top-p filtering, as the JAX CLI's
+    sampling = _scaled(args, {}, {}, dict(top_k=0, top_p=0.0))
+    model = var_mod.VARConfig(vq=msvq.MSVQConfig(**vq_kw), **mkw)
+    parsed = parse_int_list(args.var_classes) if args.var_classes else None
+    cfg = VarBackendConfig(model=model, class_pool=tuple(parsed) if isinstance(parsed, list) else None,
+                           labels_path=args.labels_path,
+                           cfg_scale=args.guidance_scale if args.guidance_scale is not None else 4.0,
+                           lora_r=args.lora_r, lora_alpha=args.lora_alpha, **sampling)
+    params = maybe_quantize_tree(var_mod.init_var(model, generator_for(device, cfg.seed_params)), args.base_quant)
+    return VarBackend(cfg, device, params=params)
+
+
+def build_reward_fn(args, backend, device: torch.device):
+    """Random CLIP towers (tiny: the JAX CLI's tiny tower; else CLIP-B/32 in
+    ``--tower_dtype``, behind ``--allow_random_rewards``), the text table
+    from the hash tokenizer, then ``--base_quant`` on the tower."""
+    from ..device import generator_for
+    from ..models import clip as clip_mod
+    from ..ops.quant import maybe_quantize_tree
+    from ..rewards.suite import (AESTHETIC_TEXT, NEGATIVE_TEXT, RewardWeights, clip_text_embed_table,
+                                 make_clip_reward_fn, tokenize_with_hf)
+    from ..utils.pytree import resolve_float_dtype
+
+    weights = RewardWeights(args.w_aesthetic, args.w_text, args.w_noart, args.w_pick)
+    if args.model_scale == "tiny":
+        tower = clip_mod.CLIPTowerConfig(16, 2, 2, 32)
+        ccfg = clip_mod.CLIPConfig(vision=tower, text=tower, image_size=32, patch_size=16, vocab_size=49408,
+                                   max_positions=77, projection_dim=16, compute_dtype=torch.float32)
+    else:
+        if not args.allow_random_rewards:
+            sys.exit("ERROR: CLIP weights unavailable (no converter is ported yet). Pass "
+                     "--allow_random_rewards true for a smoke run with random towers.")
+        print("[cli] WARNING: random-init CLIP reward tower (smoke mode)", flush=True)
+        ccfg = dataclasses.replace(clip_mod.CLIP_B32, compute_dtype=resolve_float_dtype(args.tower_dtype))
+        if args.use_pickscore:
+            rest = weights.aesthetic + weights.align + weights.no_artifacts
+            if rest > 0 and weights.pickscore > 0:
+                scale = (rest + weights.pickscore) / rest
+                weights = RewardWeights(aesthetic=weights.aesthetic * scale, align=weights.align * scale,
+                                        no_artifacts=weights.no_artifacts * scale, pickscore=0.0)
+            print(f"[cli] WARNING: PickScore tower unavailable → pickscore dropped, remaining reward weights "
+                  f"renormalized to {weights}", flush=True)
+    cparams = clip_mod.init_clip(ccfg, generator_for(device, 11))
+    ids, eot, mask = (t.to(device) for t in tokenize_with_hf(list(backend.texts) + [AESTHETIC_TEXT, NEGATIVE_TEXT]))
+    with torch.inference_mode():
+        table = clip_text_embed_table(clip_mod.CLIPModel(ccfg, cparams), ids, eot, mask)
+    return make_clip_reward_fn(clip_mod.CLIPModel(ccfg, maybe_quantize_tree(cparams, args.base_quant)), table,
+                               weights=weights)
+
+
+def train_config(args):
+    from .config import TrainConfig
+
+    return TrainConfig(
+        num_epochs=args.num_epochs, pop_size=args.pop_size, sigma=args.sigma, lr_scale=args.lr_scale,
+        egg_rank=args.egg_rank, antithetic=args.antithetic, promptnorm=args.promptnorm,
+        prompts_per_gen=args.prompts_per_gen, batches_per_gen=args.batches_per_gen,
+        member_batch=args.member_batch, reward_tile=args.reward_tile, pop_fuse=args.pop_fuse,
+        base_quant=args.base_quant, noise_dtype=_dtype(args.noise_dtype), tower_dtype=_dtype(args.tower_dtype),
+        theta_max_norm=args.theta_max_norm, max_step_norm=args.max_step_norm,
+        reward_weights=(args.w_aesthetic, args.w_text, args.w_noart, args.w_pick),
+        seed=args.seed, save_every=args.save_every, trace=args.trace,
+        es_degenerate_warn_epochs=args.es_degenerate_warn_epochs, quality=args.quality,
+        quality_hack_window=args.quality_hack_window, run_dir=args.run_dir, run_name=args.run_name,
+        resume=args.resume, ckpt_keep=args.ckpt_keep, ckpt_legacy_mirror=args.ckpt_legacy_mirror,
+        rollback_policy=args.rollback_policy, max_rollbacks=args.max_rollbacks,
+        rollback_sigma_shrink=args.rollback_sigma_shrink, theta_explode_norm=args.theta_explode_norm,
+    )
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    from ..device import resolve_device
+    from .trainer import run_training
+
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    backend = build_backend(args, device)
+    backend.setup()
+    reward_fn = build_reward_fn(args, backend, device)
+    state = run_training(backend, reward_fn, train_config(args), device=device)
+    if state.preempted:
+        print(f"[cli] preempted at epoch {state.epoch} — checkpoint saved; restart with --resume auto to "
+              "continue", flush=True)
+        sys.exit(0)
+    if state.halted:
+        print(f"[cli] HALTED by rollback policy at epoch {state.epoch} after {state.rollbacks} rollback(s) — "
+              "see halted.json in the run dir", flush=True)
+        sys.exit(3)
+    print(f"[cli] training done at epoch {state.epoch}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
-"""The EGGROLL-ES epoch step (port of ``_combine_and_update`` and
-``make_es_step`` from ``hyperscalees_t2i_tpu/train/trainer.py``).
+"""The EGGROLL-ES epoch step and the training loop around it (port of
+``_combine_and_update``, ``make_es_step`` and the single-process core of
+``run_training`` from ``hyperscalees_t2i_tpu/train/trainer.py``).
 
 One step: draw the factored ES noise and the epoch's generation noise,
 evaluate every member (perturb → generate → decode → reward, in chunks of
@@ -15,23 +16,45 @@ from its own ``torch.Generator`` on the step's device. The draws are not
 ``jax.random``'s; ``noise=``/``gen_noise=`` take given draws instead.
 
 ES needs no gradient: the step runs under ``torch.inference_mode()``.
+
+:func:`run_training` is the loop: one step per epoch, ``metrics.jsonl``,
+``quality.jsonl``, checkpoint slots and resume, the non-finite rollback,
+SIGTERM/SIGINT preemption. Its θ₀ and each epoch's draws come from
+:func:`_init_theta` and :func:`_epoch_draws`, so a test can put the JAX
+package's draws in their place. The pod machinery of the JAX loop
+(host-sharded programs, coordinated commit, elastic membership, the desync
+check, exporter, SLOs, anomaly watchdog, heartbeats, fault injection,
+chained dispatch, the XLA ledger, histograms, strips and snapshots) is not
+here; ``train.config.unported_settings`` names the ROADMAP item of each.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import dataclasses
+import sys
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..device import DeviceLike, generator_for, resolve_device
 from ..es.caps import cap_step_norm, cap_theta_norm, global_norm
 from ..es.noiser import es_update, sample_noise
-from ..es.sampling import mix_seed
+from ..es.sampling import epoch_seed, mix_seed
 from ..es.scoring import prompt_normalized_scores, standardize_fitness_masked
-from ..obs.es_health import es_health_metrics
+from ..obs.es_health import DegeneracyWatchdog, es_health_metrics
+from ..obs.metrics import MetricsRegistry, record_device_memory
+from ..obs.quality import QualityLedger, quality_metrics
+from ..obs.trace import Tracer
 from ..parallel.pop_eval import make_population_evaluator
+from ..resilience.checkpoints import CheckpointStore
+from ..resilience.preempt import HALT_MARKER, PREEMPT_MARKER, PreemptionHandler, write_marker
+from ..resilience.rollback import RollbackController
 from ..utils.pytree import tree_leaves, tree_map, tree_replace_leaves
-from .config import TrainConfig
+from .checkpoints import load_legacy_checkpoint, save_checkpoint
+from .config import TrainConfig, unported_settings
+from .logging import MetricsLogger
 
 REWARD_KEYS = ("clip_aesthetic", "clip_text", "no_artifacts", "pickscore", "combined")
 
@@ -69,6 +92,9 @@ def _combine_and_update(theta: Any, prev_delta: Any, noise: Any, rewards: Dict[s
         if k in rewards:
             metrics[f"reward/{k}_mean"] = rewards[k].mean()
     metrics["per_prompt_mean"] = S.mean(dim=0)
+    if tc.quality:
+        metrics.update(quality_metrics(rewards, pop=pop, num_unique=num_unique, repeats=repeats,
+                                       reward_keys=REWARD_KEYS))
     return theta_new, delta, metrics, opt_scores
 
 
@@ -80,17 +106,13 @@ def make_es_step(backend: Any, reward_fn: Any, tc: TrainConfig, num_unique: int,
     → (θ', metrics, opt_scores)``; with ``stateful_delta=True``,
     ``step(theta, prev_delta, flat_ids, seed, ...) → (θ', Δθ, metrics,
     opt_scores)``, which feeds ``es/update_cosine``. ``metrics`` is the JAX
-    package's dict without ``quality/*``, as tensors on the device.
+    package's dict (``quality/*`` with ``tc.quality``), as tensors on the
+    device.
 
     ``device`` must be the backend's device; ``None`` means the card and
     raises without one. ``noise`` (a tree from ``es.sample_noise``'s
     structure) and ``gen_noise`` (``[m·r, *backend.noise_shape]``) replace
     the step's own draws."""
-    if tc.quality:
-        raise NotImplementedError(
-            "quality=True needs the per-prompt quality attribution of obs/quality.py, which a "
-            "later slice of the port brings with the training loop; pass quality=False"
-        )
     dev = resolve_device(device)
     if dev != backend.device:
         raise ValueError(f"make_es_step on {dev}, but the backend lives on {backend.device}")
@@ -127,3 +149,227 @@ def make_es_step(backend: Any, reward_fn: Any, tc: TrainConfig, num_unique: int,
 
     return step
 
+
+
+@dataclasses.dataclass
+class TrainState:
+    theta: Any
+    epoch: int = 0
+    preempted: bool = False  # SIGTERM/SIGINT honored: slot saved, preempted.json written
+    halted: bool = False  # the rollback policy gave up: halted.json says why
+    rollbacks: int = 0
+
+
+# spans whose durations feed phase_<name>_seconds histograms
+_PHASES = frozenset(("compile", "dispatch", "plan", "log", "checkpoint"))
+
+
+def _init_theta(backend: Any, tc: TrainConfig, dev: torch.device) -> Any:
+    """θ₀ (the counterpart of the JAX package's ``fold_in(PRNGKey(seed),
+    17)`` draw)."""
+    return backend.init_theta(generator_for(dev, mix_seed(tc.seed, 17, 0)))
+
+
+def _epoch_draws(backend: Any, tc: TrainConfig, theta: Any, epoch: int, count: int,
+                 dev: torch.device) -> Tuple[Any, torch.Tensor]:
+    """One epoch's ES noise and generation noise ``[count, ...]``: the
+    draws ``make_es_step`` makes for the seed ``epoch_seed(tc.seed,
+    epoch)``."""
+    seed = epoch_seed(tc.seed, epoch)
+    noise = sample_noise(generator_for(dev, mix_seed(seed, 1, 0)), theta, tc.pop_size, tc.es_config())
+    return noise, backend.sample_gen_noise(generator_for(dev, mix_seed(seed, 2, 0)), count)
+
+
+def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
+                 on_epoch_end: Optional[Callable[[int, Dict[str, Any]], None]] = None,
+                 device: DeviceLike = None) -> TrainState:
+    """Train ``tc.num_epochs`` epochs of ES on one device (``None``: the
+    card) into ``tc.run_dir / tc.auto_run_name(backend.name)``.
+
+    Per epoch: the plan (``backend.step_info(epoch, …)``), the step (built
+    once per (m, r)), the scalars (the step's metrics plus ``epoch``,
+    ``incarnation``, ``epochs_chained``, ``step_time_s``,
+    ``images_scored``, ``images_per_sec``, ``prompts``), the degeneracy
+    watchdog, the quality ledger, the ``metrics.jsonl`` row with the
+    ``obs/`` and ``resilience/`` counters, the non-finite guard (restore
+    the last slot, then ``tc.rollback_policy``; ``halted.json`` when it
+    gives up), a slot every ``save_every`` epochs and at the last one,
+    ``on_epoch_end(epoch, scalars)``, and a checkpoint plus
+    ``preempted.json`` at the boundary after SIGTERM/SIGINT. With
+    ``tc.resume`` the newest valid slot (θ, Δθ, the spent rollbacks and a
+    shrunk σ), else the legacy mirror, sets the starting point."""
+    unported = unported_settings(tc)
+    if unported:
+        raise NotImplementedError("the port's run_training does not have this machinery yet: "
+                                  + "; ".join(unported))
+    dev = resolve_device(device)
+    backend.setup()
+    run_dir = Path(tc.run_dir) / tc.auto_run_name(backend.name)
+    registry = MetricsRegistry()
+    res_registry = MetricsRegistry(prefix="resilience/")
+    logger = MetricsLogger(run_dir, registry=res_registry)
+
+    def observe_phase(name: str, dur_s: float) -> None:
+        if name in _PHASES:
+            registry.observe(f"phase_{name}_seconds", dur_s)
+
+    tracer = Tracer(run_dir / "trace.jsonl" if tc.trace else None, on_span=observe_phase)
+    # the launch topology every slot records and a resume must match
+    topology = {"process_count": 1, "pop_shards": 1, "pop_size": tc.pop_size, "pop_host_shard": False}
+    store = CheckpointStore(run_dir, keep=tc.ckpt_keep, registry=res_registry)
+    rollback_ctrl = RollbackController(policy=tc.rollback_policy, max_rollbacks=tc.max_rollbacks,
+                                       sigma_shrink=tc.rollback_sigma_shrink, explode_norm=tc.theta_explode_norm)
+    for stale in (PREEMPT_MARKER, HALT_MARKER):  # this run is live now
+        (run_dir / stale).unlink(missing_ok=True)
+    quality_ledger = (QualityLedger(run_dir, reward_keys=REWARD_KEYS, hack_window=tc.quality_hack_window)
+                      if tc.quality else None)
+
+    def degenerate(consecutive: int) -> None:
+        registry.inc("es_degenerate_warnings")
+        print(f"[obs] WATCHDOG: fitness degenerate for {consecutive} consecutive logged generations — the ES "
+              "update is a no-op (constant or all-NaN rewards; see es/fitness_zero and es/reward_std in "
+              "metrics.jsonl)", file=sys.stderr, flush=True)
+
+    degen_watchdog = DegeneracyWatchdog(tc.es_degenerate_warn_epochs, degenerate)
+    to_dev = lambda t: t.to(dev)  # noqa: E731
+    tc_live = tc  # σ shrinks here after a sigma_shrink rollback
+    preempt = PreemptionHandler(registry=res_registry).install()
+    try:
+        with tracer.span("setup"):
+            theta = _init_theta(backend, tc, dev)
+            start_epoch, restored_delta = 0, None
+            if tc.resume:
+                res = store.restore(theta, with_delta=True, expect_topology=topology)
+                if res is not None:
+                    theta, start_epoch, restored_delta = res.theta, res.epoch, res.prev_delta
+                    logger.info(f"resumed from epoch {start_epoch} (slot {res.slot})")
+                    # a σ shrunk by rollbacks survives a restart, with the rollbacks spent
+                    slot_cfg = (res.meta or {}).get("config") or {}
+                    rollback_ctrl.rollbacks = int(slot_cfg.get("_rollbacks", 0) or 0)
+                    slot_sigma = slot_cfg.get("sigma")
+                    if rollback_ctrl.rollbacks > 0 and slot_sigma is not None and float(slot_sigma) != tc.sigma:
+                        tc_live = dataclasses.replace(tc, sigma=float(slot_sigma))
+                        logger.info(f"resuming with effective sigma={tc_live.sigma:g} from the checkpoint "
+                                    f"(config sigma={tc.sigma:g} was shrunk by {rollback_ctrl.rollbacks} "
+                                    "rollback(s))")
+                else:
+                    legacy = load_legacy_checkpoint(run_dir, theta, registry=res_registry)
+                    if legacy is not None:
+                        theta, start_epoch = legacy
+                        logger.info(f"resumed from epoch {start_epoch} (legacy checkpoint)")
+            # θ and Δθ_{t−1} live on the device from here on; a restored
+            # slot crosses once
+            theta = tree_map(to_dev, theta)
+            prev_delta = (tree_map(to_dev, restored_delta) if restored_delta is not None
+                          else tree_map(torch.zeros_like, theta))
+
+        state = TrainState(theta=theta, epoch=start_epoch, rollbacks=rollback_ctrl.rollbacks)
+        step_cache: Dict[Tuple[int, int], Callable] = {}
+        last_saved_boundary = -1
+
+        def do_save(boundary: int, reward: float) -> None:
+            """One slot at an epoch boundary, once (a preemption on a
+            save_every boundary writes one)."""
+            nonlocal last_saved_boundary
+            if last_saved_boundary == boundary:
+                return
+            with tracer.span("checkpoint"):
+                save_checkpoint(run_dir, state.theta, boundary, reward, backend.name,
+                                config={**dataclasses.asdict(tc_live), "_rollbacks": rollback_ctrl.rollbacks},
+                                prev_delta=prev_delta, keep=tc.ckpt_keep, legacy_mirror=tc.ckpt_legacy_mirror,
+                                topology=topology, registry=res_registry)
+            last_saved_boundary = boundary
+            res_registry.gauge("last_saved_epoch", boundary)
+
+        epoch = start_epoch
+        while epoch < tc.num_epochs:
+            with tracer.span("epoch", epoch=epoch):
+                t0 = time.perf_counter()
+                with tracer.span("plan"):
+                    info = backend.step_info(epoch, tc.prompts_per_gen, tc.batches_per_gen)
+                    m, r = len(info.unique_ids), info.repeats
+                if (m, r) not in step_cache:
+                    with tracer.span("compile", m=m, r=r):
+                        step_cache[(m, r)] = make_es_step(backend, reward_fn, tc_live, m, r, dev,
+                                                          stateful_delta=True)
+                    registry.inc("compiles")
+                with tracer.span("dispatch", epochs=1):
+                    noise, gen_noise = _epoch_draws(backend, tc_live, state.theta, epoch, len(info.flat_ids), dev)
+                    state.theta, prev_delta, metrics, _ = step_cache[(m, r)](
+                        state.theta, prev_delta, info.flat_ids, epoch_seed(tc.seed, epoch), noise=noise,
+                        gen_noise=gen_noise)
+                    scalars: Dict[str, Any] = {k: (v.tolist() if v.ndim else float(v)) for k, v in metrics.items()}
+                dt = time.perf_counter() - t0
+                registry.inc("dispatches")
+                registry.inc("epochs_dispatched")
+                registry.observe("train_step_time_seconds", dt)
+                record_device_memory(registry, dev)
+                n_images = tc.pop_size * m * r
+                scalars.update(epoch=epoch, incarnation=int(start_epoch), epochs_chained=1, step_time_s=dt,
+                               images_scored=n_images, images_per_sec=n_images / max(dt, 1e-9), prompts=info.texts)
+                degen_watchdog.update(float(scalars.get("es/fitness_zero", 0.0)) >= 0.5)
+                rollback_action = None
+                if rollback_ctrl.is_bad(scalars.get("theta_norm")):
+                    rollback_action = rollback_ctrl.next_action()
+                    state.rollbacks = rollback_ctrl.rollbacks
+                    res_registry.inc("rollbacks")
+                    print(f"[resilience] WATCHDOG: non-finite/diverged theta at epoch {epoch} "
+                          f"(theta_norm={scalars.get('theta_norm')}) — rollback #{rollback_ctrl.rollbacks}, "
+                          f"action={rollback_action}", file=sys.stderr, flush=True)
+                if quality_ledger is not None:
+                    scalars.update(quality_ledger.observe(epoch, scalars))
+                scalars.update(registry.snapshot())
+                scalars.update(res_registry.snapshot())
+                with tracer.span("log"):
+                    logger.log(epoch, scalars)
+
+                if rollback_action is not None:
+                    restored = None
+                    if rollback_action != "halt":
+                        restored = store.restore(state.theta, with_delta=True, expect_topology=topology)
+                        if restored is None:
+                            logger.info("rollback requested but no valid checkpoint slot — halting")
+                            rollback_action = "halt"
+                    if rollback_action == "halt":
+                        write_marker(run_dir, HALT_MARKER, {
+                            "epoch": int(epoch), "reason": "non-finite theta", "rollbacks": rollback_ctrl.rollbacks,
+                            "theta_norm": str(scalars.get("theta_norm")), "policy": rollback_ctrl.policy,
+                        })
+                        state.halted = True
+                        logger.info(f"HALT (non-finite theta) after {rollback_ctrl.rollbacks} rollback(s) at "
+                                    f"epoch {epoch} — see {HALT_MARKER}")
+                        break
+                    state.theta = tree_map(to_dev, restored.theta)
+                    prev_delta = (tree_map(to_dev, restored.prev_delta) if restored.prev_delta is not None
+                                  else tree_map(torch.zeros_like, state.theta))
+                    last_saved_boundary = -1
+                    res_registry.gauge("last_good_epoch", restored.epoch)
+                    if rollback_action == "sigma_shrink":
+                        tc_live = dataclasses.replace(tc_live, sigma=tc_live.sigma * rollback_ctrl.sigma_shrink)
+                        step_cache.clear()
+                        epoch = restored.epoch
+                        logger.info(f"rollback → slot {restored.slot}: replaying from epoch {epoch} with "
+                                    f"sigma={tc_live.sigma:g}")
+                    else:  # skip: keep the restored θ, fresh draws past the bad epoch
+                        logger.info(f"rollback → slot {restored.slot}: skipping past epoch {epoch}")
+                        epoch += 1
+                    state.epoch = epoch
+                    continue
+
+                if tc.save_every and ((epoch + 1) % tc.save_every == 0 or epoch + 1 == tc.num_epochs):
+                    do_save(epoch + 1, scalars["opt_score_mean"])
+                res_registry.gauge("last_good_epoch", epoch + 1)
+                if on_epoch_end is not None:
+                    on_epoch_end(epoch, scalars)
+                epoch += 1
+                state.epoch = epoch
+                if preempt.requested:
+                    do_save(epoch, scalars["opt_score_mean"])
+                    write_marker(run_dir, PREEMPT_MARKER, {"epoch": int(epoch), "reason": preempt.reason})
+                    res_registry.gauge("preempted", 1)
+                    state.preempted = True
+                    logger.info(f"preempted at epoch boundary {epoch} — checkpoint saved; resume with --resume auto")
+                    break
+        return state
+    finally:
+        preempt.uninstall()

@@ -1,15 +1,18 @@
-"""Nested-dict parameter trees: dtype knobs and leaf-wise maps.
+"""Nested-dict parameter trees: dtype knobs, leaf-wise maps, flat views.
 
 Parameter trees are plain nested ``dict``/``list`` structures of tensors, the
 same structure as the JAX package's pytrees (so weights move across leaf by
 leaf). Dict leaves are visited in sorted key order, the order JAX flattens
-dicts in.
+dicts in. The flat views (port of ``hyperscalees_t2i_tpu/utils/pytree.py``
+and of ``flatten_with_paths`` in its ``resilience/checkpoints.py``) serve
+norm logging and the checkpoint files.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 Tree = Any
@@ -97,3 +100,36 @@ def cast_floating(tree: Tree, dtype: torch.dtype) -> Tree:
         lambda x: x.to(dtype) if torch.is_tensor(x) and x.is_floating_point() else x,
         tree,
     )
+
+
+def tree_to_flat(tree: Tree) -> torch.Tensor:
+    """Every leaf, in flattening order, as one f32 vector."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return torch.zeros((0,), dtype=torch.float32)
+    return torch.cat([leaf.to(torch.float32).reshape(-1) for leaf in leaves])
+
+
+def flat_to_tree(flat: torch.Tensor, like: Tree) -> Tree:
+    """Inverse of :func:`tree_to_flat`: ``like``'s structure, shapes and
+    dtypes filled from ``flat``."""
+    leaves = tree_leaves(like)
+    need = sum(leaf.numel() for leaf in leaves)
+    if need != flat.shape[0]:
+        raise ValueError(f"flat vector has {flat.shape[0]} elems, tree needs {need}")
+    out, idx = [], 0
+    for leaf in leaves:
+        out.append(flat[idx:idx + leaf.numel()].reshape(leaf.shape).to(leaf.dtype))
+        idx += leaf.numel()
+    return tree_replace_leaves(like, out)
+
+
+def zero_like_theta(theta: Tree) -> Tree:
+    """θ = 0: every LoRA delta vanishes, so the adapted model is the base."""
+    return tree_map(torch.zeros_like, theta)
+
+
+def flatten_with_paths(tree: Tree) -> Dict[str, np.ndarray]:
+    """``{"a/b/c": ndarray}`` on the host, keys slash-joined with dict keys
+    sorted: the checkpoint files' layout, key for key the JAX package's."""
+    return {path: leaf.detach().cpu().contiguous().numpy() for path, leaf in tree_leaves_with_path(tree)}

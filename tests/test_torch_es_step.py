@@ -15,7 +15,10 @@ order, so the test also reads the ``[pop, B]`` reward rows of that program.
 
 Bound 3e-4 (the golden bound) on θ′, the opt scores, the reward rows and
 every metric shared by name; measured max abs error ≤ 1.0e-5. The metric
-names agree exactly (``quality/*`` is off on both sides). Within the port,
+names agree exactly with ``quality`` off and on: the JAX side of that check
+is the JAX ``_combine_and_update`` on the JAX program's own reward rows,
+its ES noise and θ, with the same ``quality`` (the ``quality/*`` vectors
+within 3e-4 too). Within the port,
 ``reward_tile`` 0/1 and ``member_batch`` 1/2/4 agree at rtol/atol 1e-5
 (measured ≤ 1.4e-5 abs, on opt scores of magnitude ~1).
 """
@@ -37,6 +40,7 @@ from hyperscalees_t2i_tpu.models import sana as jsana
 from hyperscalees_t2i_tpu.ops.quant import quantize_tree as jquantize_tree
 from hyperscalees_t2i_tpu.rewards import suite as jsuite
 from hyperscalees_t2i_tpu.train.config import TrainConfig as JTrainConfig
+from hyperscalees_t2i_tpu.train.trainer import _combine_and_update as jcombine_and_update
 from hyperscalees_t2i_tpu.train.trainer import make_es_step as jmake_es_step
 from hyperscalees_t2i_tpu_torch.backends.sana_backend import SanaBackend, build_train_backend
 from hyperscalees_t2i_tpu_torch.rewards.suite import make_clip_reward_fn
@@ -136,12 +140,17 @@ def variant(request):
     jrewards = {k: np.stack([c[k].reshape(M) for c in jreward.calls]) for k in jreward.calls[0]}
     jout = (jtheta, jmetrics, jopt, jrewards)
     noise = jsample_noise(k_noise, theta, POP, jtc.es_config())
+    zeros = jax.tree_util.tree_map(jnp.zeros_like, theta)
+    jcombine = {q: jcombine_and_update(theta, zeros, noise, {k: jnp.asarray(v) for k, v in jrewards.items()},
+                                       tc=dataclasses.replace(jtc, quality=q), es_cfg=jtc.es_config(), pop=POP,
+                                       num_unique=M, repeats=1)[2]
+                for q in (False, True)}
     gen = np.array(jsana._per_image_normal(k_gen, jnp.arange(M), M, (8, 8, 4)))
     tb, treward = _port_side(jb, towers)
     tc = TrainConfig(pop_size=POP, sigma=SIGMA, egg_rank=4, member_batch=1, pop_fuse=pop_fuse)
     inputs = dict(theta=adapter_from_jax(_np(theta), "cpu"), noise=tree_from_numpy(_np(noise), "cpu"),
                   gen=torch.from_numpy(gen), flat=info.flat_ids)
-    return dict(jout=jout, tb=tb, treward=treward, tc=tc, inputs=inputs)
+    return dict(jout=jout, jcombine=_np(jcombine), tb=tb, treward=treward, tc=tc, inputs=inputs)
 
 
 def _run_port(v, **overrides):
@@ -191,11 +200,17 @@ def test_step_matches_jax(variant):
     assert float(metrics["delta_norm"]) > 0
 
 
-def test_metric_names_match_jax(variant):
-    _, metrics, _, _ = _run_port(variant)
-    assert set(metrics) == set(variant["jout"][1])
-    assert not any(k.startswith("quality/") for k in metrics)
+@pytest.mark.parametrize("quality", [False, True], ids=["quality_off", "quality_on"])
+def test_metric_names_match_jax(variant, quality):
+    _, metrics, _, _ = _run_port(variant, quality=quality)
+    jmetrics = variant["jcombine"][quality]
+    assert set(variant["jout"][1]) == set(variant["jcombine"][False])  # the compiled program's names
+    assert set(metrics) == set(jmetrics)
+    assert any(k.startswith("quality/") for k in metrics) == quality
     assert "es/leaf_delta_norm/blocks/attn1/to_q" in metrics
+    for k in jmetrics:
+        np.testing.assert_allclose(np.asarray(metrics[k], np.float64), np.asarray(jmetrics[k], np.float64),
+                                   err_msg=k, **TOL)
 
 
 @pytest.mark.parametrize("overrides", [dict(reward_tile=1), dict(member_batch=4), dict(member_batch=2, reward_tile=2)])
@@ -223,10 +238,13 @@ def test_stateful_step_threads_the_update(variant):
     assert -1.0 <= float(m2["es/update_cosine"]) <= 1.0 and float(m2["es/update_cosine"]) != 0.0
 
 
-def test_step_refuses_quality_and_a_missing_card(variant, monkeypatch):
+@pytest.mark.parametrize("quality", [False, True], ids=["quality_off", "quality_on"])
+def test_step_refuses_quality_and_a_missing_card(variant, monkeypatch, quality):
+    """The step builds with ``quality`` off or on (it refused ``quality=True``
+    until ``obs/quality.py`` was ported) and refuses a missing card."""
     v = variant
-    with pytest.raises(NotImplementedError, match="obs/quality.py"):
-        make_es_step(v["tb"], v["treward"], dataclasses.replace(v["tc"], quality=True), M, 1, device="cpu")
+    tc = dataclasses.replace(v["tc"], quality=quality)
+    assert callable(make_es_step(v["tb"], v["treward"], tc, M, 1, device="cpu"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_es_step(v["tb"], v["treward"], v["tc"], M, 1)

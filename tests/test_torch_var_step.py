@@ -12,7 +12,8 @@ the test also reads that program's ``[pop, B]`` reward rows.
 
 Bound 3e-4 (the golden bound) on θ′, the opt scores, the reward rows and
 every metric shared by name; measured max abs error ≤ 9.6e-7. The metric
-names agree exactly. Within the port, member_batch 1, 2 and 4 agree at
+names agree exactly, ``quality/*`` included (on by default on both
+sides). Within the port, member_batch 1, 2 and 4 agree at
 rtol/atol 1e-5, and the step draws its own Gumbel noise when none is given.
 """
 
@@ -103,7 +104,7 @@ def variant(request, jax_parts, port_parts):
     jb = p["jb"]
     jreward = _HostRows(jsuite.make_clip_reward_fn(p["cparams"], p["ccfg"], p["table"]))
     jtc = JTrainConfig(pop_size=POP, sigma=SIGMA, egg_rank=4, prompts_per_gen=M, batches_per_gen=1,
-                       member_batch=mb, promptnorm=True, quality=False)
+                       member_batch=mb, promptnorm=True)
     info = jb.step_info(0, M, 1)
     key = jax.random.PRNGKey(2)
     k_noise, k_gen = jax.random.split(key)
