@@ -21,9 +21,12 @@ result):
    time under ``torch.profiler`` (``device_ms``, beside the plain version's)
    and its wrapper's host time a call (``host_us``);
    K4 at the ten VAR-d16 scale shapes (also by ``device_ms`` and
-   ``host_us``), plus a masked dh-128 cross-attention shape (Infinity's
-   geometry), a multi-tile kv case, NaN garbage past ``kv_len`` and an
-   all-masked row; K4's invariance, bitwise: a row range, query ranges and a
+   ``host_us``), plus a masked dh-128 cross-attention shape, a multi-tile
+   kv case, NaN garbage past ``kv_len`` and an all-masked row; K4 at
+   Infinity-2B's 14 scales on its 8 rows (dh-128 self-attention against up
+   to 9451 cache positions, masked cross-attention into 17 text positions
+   under the main path's mask; the plain version row by row); K4's
+   invariance, bitwise: a row range, query ranges and a
    single query of VAR-d16's last scale alone against the full call; K1's
    batch invariance, bitwise: rows
    of an M = 1024 call against the same rows alone; K3's batch and lane
@@ -50,6 +53,15 @@ result):
    (VAR-d16 at its published geometry, bf16, float base, pop 16, 4 classes,
    member_batch 4; CLIP-B/32 and CLIP-H/14 rewards): K4 must launch exactly
    2 × 4 × 160 times, reward rows ``[16, 4]`` finite, θ′ finite, ‖Δθ‖ > 0;
+   the Infinity path (K4 at dh 128 and under a key mask): the tiny
+   Infinity geometry in f32 on the card against the CPU with the released
+   attention flags off and on (``generate``: bits equal, images within
+   1e-4; one ES step: θ′ and rows within 1e-4; K4 launches exact), then
+   Infinity-2B (``inf_2b``: 14 scales to 1024×1024, 32-bit tokenizer,
+   bf16, random weights) built through the train CLI's ``build_backend``
+   with CLIP-B/32 and CLIP-H/14 rewards, ``run_training`` for 3 epochs (the
+   first warm): K4 exactly 896 launches per generate call and no K1-K3,
+   epoch s, images/s, peak memory, one generate call profiled;
 7. the Sana main path: one EGGROLL-ES epoch step of the flagship rung
    (``RUNG_PLAN``/``RUNG_OPT["flagship"]``: pop 4, 4 prompts, member_batch
    1, reward_tile 1, bf16 noise store, int8 DiT + DC-AE + CLIP-B/32 +
@@ -167,6 +179,14 @@ VAR_ROWS, VAR_HEADS, VAR_DH, VAR_DEPTH = 32, 16, 64, 16
 # measured it on an NVIDIA H100 80GB HBM3 at 700 W. A record, printed beside
 # this run's times.
 K4_BEFORE_MS = (0.0408, 0.0289, 0.0529, 0.0418, 0.0580, 0.0903, 0.1387, 0.3196, 0.7547, 1.5761)
+# K4 on the Infinity-2B path (the inf_2b rung, pn 1M): per scale, the
+# self-attention of pn² queries against the cache prefix of a 9451-position
+# cache and the masked cross-attention into 17 text positions (the null
+# token and 16), 16 heads of 128, each once per layer (32) per generate call
+# of 8 rows (1 lane × 4 images × cond/uncond)
+INF_PATCH_NUMS = (1, 2, 3, 4, 5, 7, 9, 12, 16, 21, 27, 36, 48, 64)
+INF_ROWS, INF_HEADS, INF_DH, INF_DEPTH, INF_TEXT = 8, 16, 128, 32, 17
+INF_EPOCHS = 3  # run_training epochs of phase_inf_es, the first one warm
 N_REQUESTS = 4
 TIMED_EPOCHS = 2
 
@@ -344,7 +364,7 @@ def phase_build():
         elif name == "decode_attention":
             route_smem = _build.entry(name, "hses_decode_attention_smem", [ctypes.c_int] * 4)
             smem = {f"bf16 {rows} rows dh {dh} {st} stages": route_smem(1, rows, dh, st)
-                    for dh, st in ((64, 2), (64, 3), (128, 3)) for rows in (16, 32, 64, 128)}
+                    for dh, st in ((64, 2), (64, 3), (128, 2), (128, 3)) for rows in (16, 32, 64, 128)}
             smem.update({f"f32 dh {dh}": route_smem(0, 64, dh, 1) for dh in (64, 128)})
         else:
             tile_smem = _build.entry(name, "hses_fused_qlora_smem", [ctypes.c_int, ctypes.c_int])
@@ -1424,17 +1444,67 @@ def _k4_inputs(torch, g, B, nq, L, H, dh, dt, kv_len=None):
     return q, k, v
 
 
-def phase_k4_check(torch):
-    """K4 at the VAR-d16 scale shapes (bf16, the main path, and f32): error
-    against the plain version, kernel / plain / library ms and the bound,
-    with NaN in the cache past ``kv_len``; ``device_ms`` (the kernel's
-    duration under ``torch.profiler``, beside the plain version's
-    ``plain_device_ms``) and ``host_us`` (the wrapper's host time a call)
-    as in ``phase_chain_check``, and beside the bf16 rows ``K4_BEFORE_MS``;
-    then the cases off the main path (masked dh-128 cross-attention, a
-    multi-tile kv prefix with ragged query tiles, an all-masked row)."""
+def _plain_rows(torch, q, k, v, kv_len, mask, sm_scale, max_logit_bytes=3e9):
+    """K4's plain version over row chunks whose f32 logits stay under
+    ``max_logit_bytes``: the same function (rows are independent), without
+    Infinity-2B's 2.5 GB-a-row logits at its last scale all on the card."""
+    from hyperscalees_t2i_tpu_torch.ops.attention import naive_masked_attention
+
+    B, nq, H, _ = q.shape
+    kv = k.shape[1] if kv_len is None else kv_len
+    step = max(1, min(B, int(max_logit_bytes // (nq * H * kv * 4))))
+    return torch.cat([naive_masked_attention(q[r:r + step], k[r:r + step], v[r:r + step], kv_len,
+                                             None if mask is None else mask[r:r + step], sm_scale)
+                      for r in range(0, B, step)])
+
+
+def _k4_row(torch, g, tag, *, B, nq, L, kv, H, dh, dt_name, mask=None, reps=20, **row):
+    """One K4 shape on main-path-like inputs (:func:`_k4_inputs`, NaN past
+    ``kv``; ``mask [B, kv]`` the key mask or None): error against the plain
+    version (:func:`_plain_rows`), kernel / plain / SDPA ms by ``time_ms``,
+    the kernel's and the plain version's ``device_ms``, the wrapper's
+    ``host_us`` and the bound, over enough input sets to hold 100 MB. The
+    bytes and operations count only the (row, key) pairs the mask lets
+    through. Returns the row dict, ``row`` merged in."""
     import torch.nn.functional as F
 
+    from hyperscalees_t2i_tpu_torch.ops.attention import decode_attention
+
+    dt = getattr(torch, dt_name)
+    needed = B * kv if mask is None else int(mask[:, :kv].sum())  # (row, key) pairs the softmax keeps
+    nbytes = (2 * B * nq * H * dh + 2 * needed * H * dh) * dt.itemsize + (0 if mask is None else B * kv)
+    flop = 4.0 * needed * nq * H * dh
+    sets = [_k4_inputs(torch, g, B, nq, L, H, dh, dt, kv) for _ in range(max(1, min(8, math.ceil(100e6 / nbytes))))]
+    kernel_fns = [lambda s=s: decode_attention(s[0], s[1], s[2], kv_len=kv, kv_mask=mask, sm_scale=1.0) for s in sets]
+    plain_fns = [lambda s=s: _plain_rows(torch, s[0], s[1], s[2], kv, mask, 1.0) for s in sets]
+    sdpa_mask = None if mask is None else mask[:, None, None, :kv]
+    lib_fns = [lambda s=s: F.scaled_dot_product_attention(
+        s[0].transpose(1, 2), s[1][:, :kv].transpose(1, 2), s[2][:, :kv].transpose(1, 2), attn_mask=sdpa_mask,
+        scale=1.0) for s in sets]
+    out = kernel_fns[0]()
+    torch.cuda.synchronize()
+    err, tol, ref_max = check_close(f"decode_attention {tag} nq={nq} kv={kv} {dt_name}", out, plain_fns[0](),
+                                    dt_name, torch, again=lambda: (kernel_fns[0](), plain_fns[0]()))
+    del out
+    ms, plain, lib = (time_ms(torch, fns, reps) for fns in (kernel_fns, plain_fns, lib_fns))
+    dev_ms = device_ms(torch, kernel_fns, reps, "decode_attention")
+    plain_dev_ms = device_ms(torch, plain_fns, reps)
+    h_us = host_us(torch, kernel_fns, reps)
+    b_ms, b_by = bound(dt_name, flop, nbytes)
+    log(f"[k4] {tag} nq={nq:4d} kv={kv:4d} B={B} dh={dh} {dt_name:8s} err={err:.3g} rel={err / ref_max:.3g} "
+        f"ms={ms:.4f} plain={plain:.4f} library={lib:.4f} bound={b_ms:.4f} ({b_by}) device_ms={dev_ms:.4f} "
+        f"plain_device_ms={plain_dev_ms:.4f} host_us={h_us:.1f} {nbytes / dev_ms / 1e6:.1f} GB/s (device)" +
+        (f"; before {row['before_ms']:.4f}" if "before_ms" in row else ""))
+    return dict(nq=nq, kv_len=kv, B=B, H=H, dh=dh, dtype=dt_name, max_abs_err=err, tol=tol, ref_max=ref_max,
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by, device_ms=dev_ms,
+                plain_device_ms=plain_dev_ms, host_us=h_us, gbytes_s=nbytes / ms / 1e6, **row)
+
+
+def phase_k4_check(torch):
+    """K4 at the VAR-d16 scale shapes (bf16, the main path, and f32) by
+    :func:`_k4_row`, beside the bf16 rows ``K4_BEFORE_MS``; then the cases
+    off the main path (masked dh-128 cross-attention, a multi-tile kv prefix
+    with ragged query tiles, an all-masked row)."""
     from hyperscalees_t2i_tpu_torch.ops.attention import decode_attention, naive_masked_attention
 
     g = torch.Generator(device="cuda").manual_seed(777)
@@ -1444,43 +1514,11 @@ def phase_k4_check(torch):
         nq, kv = pn * pn, pos + pn * pn
         pos = kv
         for dt_name in ("bfloat16", "float32"):
-            dt = getattr(torch, dt_name)
-            esize = dt.itemsize
-            nbytes = (2 * B * nq * H * dh + 2 * B * kv * H * dh) * esize
-            flop = 4.0 * B * H * nq * kv * dh
-            sets = [_k4_inputs(torch, g, B, nq, L, H, dh, dt, kv)
-                    for _ in range(max(1, min(8, math.ceil(100e6 / nbytes))))]
-            q, k, v = sets[0]
-            out = decode_attention(q, k, v, kv_len=kv, sm_scale=1.0)
-            torch.cuda.synchronize()
-            err, tol, ref_max = check_close(f"decode_attention at scale {si} nq={nq} kv={kv} {dt_name}", out,
-                                            naive_masked_attention(q, k, v, kv, None, 1.0), dt_name, torch)
-            reps = 20
-            kernel_fns = [lambda s=s: decode_attention(s[0], s[1], s[2], kv_len=kv, sm_scale=1.0) for s in sets]
-            plain_fns = [lambda s=s: naive_masked_attention(s[0], s[1], s[2], kv, None, 1.0) for s in sets]
-            ms = time_ms(torch, kernel_fns, reps)
-            plain = time_ms(torch, plain_fns, reps)
-            lib = time_ms(torch, [lambda s=s: F.scaled_dot_product_attention(
-                s[0].transpose(1, 2), s[1][:, :kv].transpose(1, 2), s[2][:, :kv].transpose(1, 2), scale=1.0)
-                for s in sets], reps)
-            dev_ms = device_ms(torch, kernel_fns, reps, "decode_attention")
-            plain_dev_ms = device_ms(torch, plain_fns, reps)
-            h_us = host_us(torch, kernel_fns, reps)
-            b_ms, b_by = bound(dt_name, flop, nbytes)
             main = dt_name == "bfloat16"
             before = dict(before_ms=K4_BEFORE_MS[si]) if main else {}
-            rows.append(dict(
-                site=f"scale {si} (pn {pn})", nq=nq, kv_len=kv, B=B, H=H, dh=dh, dtype=dt_name, main_path=main,
-                calls_per_call=VAR_DEPTH if main else 0, max_abs_err=err, tol=tol, ref_max=ref_max, ms=ms,
-                plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by, device_ms=dev_ms,
-                plain_device_ms=plain_dev_ms, host_us=h_us, gbytes_s=nbytes / ms / 1e6, **before,
-            ))
-            log(f"[k4] scale {si} nq={nq:4d} kv={kv:4d} {dt_name:8s} {'main' if main else '    '} "
-                f"err={err:.3g} rel={err / ref_max:.3g} ms={ms:.4f} plain={plain:.4f} library={lib:.4f} "
-                f"bound={b_ms:.4f} ({b_by}) device_ms={dev_ms:.4f} plain_device_ms={plain_dev_ms:.4f} "
-                f"host_us={h_us:.1f} {nbytes / dev_ms / 1e6:.1f} GB/s (device)" +
-                (f"; before {before['before_ms']:.4f}" if main else ""))
-            del sets, q, k, v, out
+            rows.append(_k4_row(torch, g, f"VAR-d16 scale {si}", B=B, nq=nq, L=L, kv=kv, H=H, dh=dh,
+                                dt_name=dt_name, site=f"scale {si} (pn {pn})", main_path=main,
+                                calls_per_call=VAR_DEPTH if main else 0, **before))
 
     extra = []
     for name, (Bx, nq, L2, Hx, dhx, kv, lens) in (
@@ -1510,34 +1548,48 @@ def phase_k4_check(torch):
 
 def phase_k4_invariance(torch):
     """Bitwise invariance of K4's bf16 route at VAR-d16's last scale (32
-    rows, 256 queries, 680 keys): a row range, a query range off the query
-    tiles' grid, a query range the plan tiles otherwise and a single query,
-    each alone, against the same outputs of the full call. Raises on any
-    difference."""
+    rows, 256 queries, 680 keys, dh 64) and at Infinity-2B's scale 12 (8
+    rows, 2304 queries, 5355 keys of a 9451-position cache, dh 128): a row
+    range, a query range off the query tiles' grid, a query range the plan
+    tiles otherwise and a single query, each alone, against the same
+    outputs of the full call. Raises on any difference."""
     from hyperscalees_t2i_tpu_torch.ops.attention import _plan, decode_attention
 
     g = torch.Generator(device="cuda").manual_seed(96)
-    L = sum(p * p for p in VAR_PATCH_NUMS)
-    nq = VAR_PATCH_NUMS[-1] ** 2
-    q, k, v = _k4_inputs(torch, g, VAR_ROWS, nq, L, VAR_HEADS, VAR_DH, torch.bfloat16, L)
-    full = decode_attention(q, k, v, kv_len=L, sm_scale=1.0)
-    plans = [("full", _plan(nq, L, VAR_DH, torch.bfloat16).rows)]
-    for what, rs, qs in (("rows 5:9", slice(5, 9), slice(None)), ("queries 37:137", slice(None), slice(37, 137)),
-                         ("queries 0:36", slice(None), slice(0, 36)), ("query 200", slice(None), slice(200, 201))):
-        part = decode_attention(q[rs, qs], k[rs], v[rs], kv_len=L, sm_scale=1.0)
-        if not torch.equal(part, full[rs, qs]):
-            diff = float((part.float() - full[rs, qs].float()).abs().max())
-            raise AssertionError(f"decode_attention {what} alone differs from the full scale-9 call (max abs {diff})")
-        plans.append((what, _plan(part.shape[1], L, VAR_DH, torch.bfloat16).rows))
-    torch.cuda.synchronize()
-    log(f"[k4] invariance: {len(plans) - 1} parts of the VAR-d16 scale-9 call bitwise equal to it alone; "
-        f"(part, rows per block): {plans}")
-    return len(plans) - 1
+    n_parts = 0
+    for name, rows, nq, kv, L, H, dh, parts in (
+        ("VAR-d16 scale 9", VAR_ROWS, VAR_PATCH_NUMS[-1] ** 2, sum(p * p for p in VAR_PATCH_NUMS),
+         sum(p * p for p in VAR_PATCH_NUMS), VAR_HEADS, VAR_DH,
+         (("rows 5:9", slice(5, 9), slice(None)), ("queries 37:137", slice(None), slice(37, 137)),
+          ("queries 0:36", slice(None), slice(0, 36)), ("query 200", slice(None), slice(200, 201)))),
+        ("Infinity-2B scale 12", INF_ROWS, INF_PATCH_NUMS[12] ** 2, sum(p * p for p in INF_PATCH_NUMS[:13]),
+         sum(p * p for p in INF_PATCH_NUMS), INF_HEADS, INF_DH,
+         (("rows 3:5", slice(3, 5), slice(None)), ("queries 100:1000", slice(None), slice(100, 1000)),
+          ("queries 0:40", slice(None), slice(0, 40)), ("query 2303", slice(None), slice(2303, 2304)))),
+    ):
+        q, k, v = _k4_inputs(torch, g, rows, nq, L, H, dh, torch.bfloat16, kv)
+        full = decode_attention(q, k, v, kv_len=kv, sm_scale=1.0)
+        plans = [("full", _plan(nq, kv, dh, torch.bfloat16).rows)]
+        for what, rs, qs in parts:
+            part = decode_attention(q[rs, qs], k[rs], v[rs], kv_len=kv, sm_scale=1.0)
+            if not torch.equal(part, full[rs, qs]):
+                diff = float((part.float() - full[rs, qs].float()).abs().max())
+                raise AssertionError(f"decode_attention {what} alone differs from the full {name} call "
+                                     f"(max abs {diff})")
+            plans.append((what, _plan(part.shape[1], kv, dh, torch.bfloat16).rows))
+        torch.cuda.synchronize()
+        log(f"[k4] invariance: {len(plans) - 1} parts of the {name} call bitwise equal to it alone; "
+            f"(part, rows per block): {plans}")
+        n_parts += len(plans) - 1
+        del q, k, v, full
+    return n_parts
 
 
-def k4_tile_sweep(torch):
-    """Every rows-per-block and ring depth of K4's bf16 route at each VAR-d16
-    scale, by device time (``device_ms``): the numbers behind
+def k4_tile_sweep(torch, geometry: str = "var"):
+    """Every rows-per-block and ring depth of K4's bf16 route at each scale
+    of the VAR-d16 self-attention (``geometry="var"``: 32 rows, dh 64) or
+    Infinity-2B's (``"infinity"``: 8 rows, dh 128, a 9451-position cache),
+    by device time (``device_ms``): the numbers behind
     ``ops.attention._plan``'s rule (PERF.md). Launched by the wrapper's own
     ``_launch`` with the plan overridden (not counted); each must give
     bitwise the planned output. Not part of ``main``; run it after
@@ -1545,9 +1597,11 @@ def k4_tile_sweep(torch):
     from hyperscalees_t2i_tpu_torch.ops import attention as at
 
     g = torch.Generator(device="cuda").manual_seed(79)
-    B, H, dh, L = VAR_ROWS, VAR_HEADS, VAR_DH, sum(p * p for p in VAR_PATCH_NUMS)
+    patch_nums, B, H, dh = {"var": (VAR_PATCH_NUMS, VAR_ROWS, VAR_HEADS, VAR_DH),
+                            "infinity": (INF_PATCH_NUMS, INF_ROWS, INF_HEADS, INF_DH)}[geometry]
+    L = sum(p * p for p in patch_nums)
     out, pos = [], 0
-    for si, pn in enumerate(VAR_PATCH_NUMS):
+    for si, pn in enumerate(patch_nums):
         nq, kv = pn * pn, pos + pn * pn
         pos = kv
         nbytes = 2 * (2 * B * nq * H * dh + 2 * B * kv * H * dh)
@@ -1570,32 +1624,280 @@ def k4_tile_sweep(torch):
                 times[f"{rows}x{stages}"] = device_ms(torch, [lambda i=i: call(i) for i in range(len(sets))], 20,
                                                       "decode_attention")
         planned = f"{plan.rows}x{plan.stages}"
-        out.append(dict(scale=si, nq=nq, kv_len=kv, plan=planned, device_ms=times))
-        log(f"[k4-tiles] scale {si} nq={nq:4d} kv={kv:4d} plan={planned} (rows x stages); device ms: " +
+        out.append(dict(geometry=geometry, scale=si, nq=nq, kv_len=kv, plan=planned, device_ms=times))
+        log(f"[k4-tiles] {geometry} scale {si} nq={nq:4d} kv={kv:4d} plan={planned} (rows x stages); device ms: " +
             " ".join(f"{name}={ms:.4f}" for name, ms in times.items()))
         del sets
     return out
 
 
-class _RecordIds:
-    """Wraps ``models.var.sample_top_k_top_p`` to keep every sampled id."""
+def inf_text_mask(torch):
+    """The main path's cross-attention key mask ``[8, 17]``: epoch 0's four
+    prompts of the ``inf_2b`` run (``step_info(0, 4, 1)`` over
+    ``BENCH_PROMPT_SET`` with hash-fallback text, prompt ``i``'s last ``i %
+    3`` positions padded), the null token first, rows ``[cond | uncond]``
+    as ``models.infinity.generate`` builds them (an uncond row sees only the
+    null token)."""
+    from hyperscalees_t2i_tpu_torch.backends.base import default_step_info
+    from hyperscalees_t2i_tpu_torch.backends.infinity_backend import hash_text_features
+    from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, RUNG_PLAN
 
-    def __init__(self):
-        from hyperscalees_t2i_tpu_torch.models import var as var_mod
+    _, _, m, _ = RUNG_PLAN["inf_2b"]
+    ids = default_step_info(0, len(BENCH_PROMPT_SET), m, 1).flat_ids
+    _, text = hash_text_features(BENCH_PROMPT_SET, 1)
+    cond = torch.cat([torch.ones(m, 1, dtype=torch.bool), text[ids]], dim=1)
+    uncond = torch.zeros_like(cond)
+    uncond[:, 0] = True
+    return torch.cat([cond, uncond]).cuda()
 
-        self.mod, self.orig, self.ids = var_mod, var_mod.sample_top_k_top_p, []
+
+def phase_k4_infinity(torch):
+    """K4 at the Infinity-2B shapes of its main path (bf16, its 8 rows) by
+    :func:`_k4_row`: at each of the 14 scales, the dh-128 self-attention
+    against the cache prefix (NaN past ``kv_len``) and the masked
+    cross-attention into the 17 text positions under the main path's own
+    mask (:func:`inf_text_mask`)."""
+    g = torch.Generator(device="cuda").manual_seed(778)
+    L = sum(p * p for p in INF_PATCH_NUMS)
+    text_mask = inf_text_mask(torch)
+    rows, pos = [], 0
+    for si, pn in enumerate(INF_PATCH_NUMS):
+        nq, kv = pn * pn, pos + pn * pn
+        pos = kv
+        for site in ("self", "cross"):
+            cache, kvl, mask = (L, kv, None) if site == "self" else (INF_TEXT, INF_TEXT, text_mask)
+            rows.append(_k4_row(torch, g, f"Infinity-2B {site} scale {si}", B=INF_ROWS, nq=nq, L=cache, kv=kvl,
+                                H=INF_HEADS, dh=INF_DH, dt_name="bfloat16", mask=mask,
+                                site=f"{site} scale {si} (pn {pn})", attention=site, main_path=True,
+                                calls_per_call=INF_DEPTH))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_inf_reference(torch):
+    """The tiny Infinity geometry in f32 on the card against the CPU, on the
+    same weights, once with the released attention flags off and once on
+    (QK-l2, 2D RoPE, QK-l2 cross-attention), with per-scale cfg/τ lists: one
+    ``generate`` (two lanes with different adapters, injected Gumbel
+    noise): bits equal, images within 1e-4; one ES step (pop 4, member_batch
+    2): θ′ and reward rows within 1e-4; K4 launches exactly 2 × scales ×
+    depth per generate call in both."""
+    import dataclasses
+
+    from hyperscalees_t2i_tpu_torch.backends.infinity_backend import InfinityBackend
+    from hyperscalees_t2i_tpu_torch.es.noiser import sample_noise
+    from hyperscalees_t2i_tpu_torch.lora import stack_adapters
+    from hyperscalees_t2i_tpu_torch.models import clip, infinity as inf_mod
+    from hyperscalees_t2i_tpu_torch.ops.sampling import gumbel_from_uniform
+    from hyperscalees_t2i_tpu_torch.rewards.suite import clip_text_embed_table, make_clip_reward_fn
+    from hyperscalees_t2i_tpu_torch.rungs import PROMPT_TOKEN_LEN, infinity_rung_model
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+    from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
+    from hyperscalees_t2i_tpu_torch.utils.pytree import tree_map
+
+    spec = infinity_rung_model("tiny")
+    ccfg = spec["clip_b"]
+    prompts = ["a red square", "a blue circle", "a green cat", "a woman reading"]
+    pop, m, mb = 4, 4, 2
+    tc = TrainConfig(pop_size=pop, sigma=0.01, egg_rank=4, member_batch=mb)
+    results = {}
+    for variant, flags in (("plain", {}), ("released", dict(attn_l2_norm=True, use_rope2d=True,
+                                                             cross_attn_l2_norm=True))):
+        bcfg = dataclasses.replace(spec["bcfg"], model=dataclasses.replace(spec["bcfg"].model, **flags),
+                                   cfg_list=(3.0, 2.0), tau_list=(0.7,))
+        g = torch.Generator().manual_seed(41)
+        params = inf_mod.init_infinity(bcfg.model, g)
+        cparams = clip.init_clip(ccfg, g)
+        tids = torch.randint(0, ccfg.vocab_size, (len(prompts) + 2, PROMPT_TOKEN_LEN), generator=g)
+        with torch.inference_mode():
+            table = clip_text_embed_table(clip.CLIPModel(ccfg, cparams), tids)
+        outs, launches = {}, {}
+        for dev in (torch.device("cpu"), torch.device("cuda")):
+            on = lambda t: tree_map(lambda a: a.to(dev), t)  # noqa: E731
+            backend = InfinityBackend(bcfg, dev, params=on(params), prompts=prompts)
+            backend.setup()
+            suite = RecordingReward(make_clip_reward_fn(clip.CLIPModel(ccfg, on(cparams)), table.to(dev)))
+            if dev.type == "cpu":
+                gen = torch.Generator().manual_seed(42)
+                thetas = []
+                for _ in range(2):
+                    th = backend.init_theta(gen)
+                    thetas.append({k: {f: v + 0.1 * torch.randn(v.shape, generator=gen) for f, v in d.items()}
+                                   for k, d in th.items()})
+                lanes_noise = gumbel_from_uniform(torch.rand(2, 2, *backend.noise_shape, generator=gen))
+                theta = thetas[0]
+                noise = sample_noise(torch.Generator().manual_seed(43), theta, pop, tc.es_config())
+                flat = backend.step_info(0, m, 1).flat_ids
+                gen_noise = backend.sample_gen_noise(gen, len(flat))
+            else:
+                torch.cuda.synchronize()
+                _reset_counters()
+            with torch.inference_mode(), _RecordCalls(inf_mod, "sample_bits") as rec:
+                images = backend.generate_p(on(stack_adapters(thetas)), [[0, 1], [2, 3]], None,
+                                            noise=lanes_noise.to(dev))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                launches["generate"] = _counters()
+                _reset_counters()
+            step = make_es_step(backend, suite, tc, m, 1, device=dev)
+            theta_new, metrics, _ = step(theta, flat, 0, noise=noise, gen_noise=gen_noise)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                launches["step"] = _counters()
+            rows = reward_rows(torch, suite.rows, 1, len(flat))
+            outs[dev.type] = (images.float().cpu(), torch.cat([b.reshape(-1) for b in rec.outs]),
+                              tree_map(lambda a: a.float().cpu(), theta_new), rows.float().cpu(),
+                              float(metrics["delta_norm"]))
+            del backend, suite, step
+        per_call = 2 * len(bcfg.model.patch_nums) * bcfg.model.depth
+        expected = {"generate": {"int8_matmul": 0, "lora_chain": 0, "fused_qlora": 0, "decode_attention": per_call},
+                    "step": {"int8_matmul": 0, "lora_chain": 0, "fused_qlora": 0,
+                             "decode_attention": -(-pop // mb) * per_call}}
+        img_err = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
+        bits_equal = bool(torch.equal(outs["cuda"][1], outs["cpu"][1]))
+        th_err = max(float((outs["cuda"][2][k][f] - outs["cpu"][2][k][f]).abs().max())
+                     for k in outs["cpu"][2] for f in outs["cpu"][2][k])
+        row_err = float((outs["cuda"][3] - outs["cpu"][3]).abs().max())
+        log(f"[inf-tiny] {variant} attention: generate, 2 lanes × 2 images, card vs CPU: bits equal {bits_equal} "
+            f"({outs['cpu'][1].numel()} bits), images max abs diff {img_err:.3g} (tol 1e-4); ES step: θ′ "
+            f"{th_err:.3g}, reward rows {tuple(outs['cuda'][3].shape)} {row_err:.3g} (tol 1e-4), ‖Δθ‖ "
+            f"{outs['cuda'][4]:.4g} (CPU {outs['cpu'][4]:.4g}); launches {launches} expected {expected}")
+        if not bits_equal or not img_err <= 1e-4:
+            raise AssertionError(f"card and CPU disagree on the tiny Infinity generate ({variant}): bits equal "
+                                 f"{bits_equal}, images {img_err}")
+        if tuple(outs["cuda"][3].shape) != (pop, len(flat)) or not (th_err <= 1e-4 and row_err <= 1e-4):
+            raise AssertionError(f"card and CPU disagree on the tiny Infinity ES step ({variant}): θ′ {th_err}, "
+                                 f"rows {row_err}")
+        if not outs["cuda"][4] > 0:
+            raise AssertionError("the tiny Infinity ES step made no update")
+        if launches != expected:
+            raise AssertionError(f"tiny Infinity ({variant}) launched {launches}, expected {expected}")
+        results[variant] = {"images_max_abs": img_err, "bits_equal": bits_equal, "bits": int(outs["cpu"][1].numel()),
+                            "theta_max_abs": th_err, "rows_max_abs": row_err, "delta_norm": outs["cuda"][4],
+                            "launches": launches}
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_inf_es(torch):
+    """Infinity-2B's ES run on the card: the ``inf_2b`` rung built through
+    the CLI's ``build_backend`` (``--backend infinity --infinity_variant 2b
+    --pn 1M``: 14 scales to 1024×1024, the 32-bit tokenizer, released
+    attention flags, bf16, random weights from seed 0) with the rung's
+    reward suite (CLIP-B/32 and CLIP-H/14 at their published widths), then
+    ``run_training`` for ``INF_EPOCHS`` epochs (pop 4, 4 prompts,
+    member_batch 1), the first one warm. K4 must launch 2 × 14 × 32 = 896
+    times per generate call and nothing else of K1-K3. Then one generate
+    call's stages and profile (:func:`call_breakdown`), with its launches
+    counted too; peak device memory."""
+    import shutil
+
+    from hyperscalees_t2i_tpu_torch.device import generator_for
+    from hyperscalees_t2i_tpu_torch.es.noiser import perturb_member, sample_noise
+    from hyperscalees_t2i_tpu_torch.models import bsq, infinity as inf_mod
+    from hyperscalees_t2i_tpu_torch.rewards.suite import build_random_reward_suite
+    from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, RUNG_PLAN, infinity_rung_model, rung_opt
+    from hyperscalees_t2i_tpu_torch.train import cli
+    from hyperscalees_t2i_tpu_torch.utils.pytree import resolve_float_dtype
+
+    scale, pop, m, mb = RUNG_PLAN["inf_2b"]
+    opt = rung_opt("inf_2b")
+    root = ROOT / "build" / "inf_es"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    (root / "prompts.txt").write_text("\n".join(BENCH_PROMPT_SET) + "\n")
+    args = cli.build_parser().parse_args([
+        "--backend", "infinity", "--infinity_variant", scale, "--pn", "1M", "--prompts_txt", str(root / "prompts.txt"),
+        "--pop_size", str(pop), "--prompts_per_gen", str(m), "--member_batch", str(mb),
+        "--num_epochs", str(INF_EPOCHS), "--run_dir", str(root), "--run_name", "inf_2b", "--resume", "false",
+        "--allow_random_rewards", "true", "--tower_dtype", opt["tower_dtype"]])
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    backend = cli.build_backend(args, dev)
+    backend.setup()
+    spec = infinity_rung_model(scale, tower_dtype=opt["tower_dtype"])
+    if backend.cfg.model != spec["bcfg"].model:
+        raise AssertionError(f"the CLI built {backend.cfg.model}, not the inf_2b model")
+    suite = build_random_reward_suite(spec["clip_b"], spec["clip_h"], backend.num_items, generator_for(dev, 2),
+                                      resolve_float_dtype(opt["tower_dtype"]))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    built_gib = torch.cuda.memory_allocated() / 2**30
+    mcfg = backend.cfg.model
+    per_call = 2 * len(mcfg.patch_nums) * mcfg.depth
+    calls = -(-pop // mb)
+    expected1 = {"int8_matmul": 0, "lora_chain": 0, "fused_qlora": 0, "decode_attention": per_call * calls}
+    tc = cli.train_config(args)
+    log(f"[inf] Infinity-2B ES backend (depth {mcfg.depth}, d {mcfg.d_model}, {mcfg.n_heads} heads of "
+        f"{mcfg.head_dim}, L {mcfg.seq_len}, {mcfg.vq.bits} bits, {mcfg.vq.grid}→"
+        f"{mcfg.vq.grid * 2 ** (len(mcfg.vq.dec_ch) - 1)} px) built in {build_s:.1f} s; device memory "
+        f"{built_gib:.2f} GiB; {calls} generate calls per epoch of {mb} lane × {m} images × 2 (CFG) = {2 * mb * m} "
+        f"rows; K4 {per_call} per call")
+    state, history, launches, wall_s = _train(torch, backend, suite, tc, expected1, "inf_2b run_training")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    step_s = [h["step_time_s"] for h in history]
+    if len(step_s) != INF_EPOCHS or not all(math.isfinite(h["theta_norm"]) for h in history):
+        raise AssertionError(f"inf_2b run_training ran {len(step_s)} epochs, θ norms "
+                             f"{[h['theta_norm'] for h in history]}")
+    # θ sits on theta_max_norm from epoch 0, so only ‖Δθ‖ shows an update
+    if not all(math.isfinite(h["delta_norm"]) and h["delta_norm"] > 0 for h in history):
+        raise AssertionError(f"inf_2b run_training made no update: ‖Δθ‖ {[h['delta_norm'] for h in history]}")
+    log(f"[inf] inf_2b run_training: epochs {', '.join(f'{s:.3f}' for s in step_s)} s step_time_s (the first "
+        f"warm) = {', '.join(f'{pop * m / s:.3f}' for s in step_s)} images/s; run {wall_s:.2f} s wall; peak device "
+        f"memory {peak_gib:.2f} GiB; launches {launches} (expected {expected1} × {INF_EPOCHS})")
+
+    ids = torch.as_tensor(backend.step_info(0, m, 1).flat_ids, device=dev)
+    if not torch.equal(backend.text_mask[ids], inf_text_mask(torch)[:m, 1:]):
+        raise AssertionError("phase_k4_infinity's text mask is not the inf_2b run's")
+    with torch.inference_mode():
+        noise = sample_noise(torch.Generator(device=dev).manual_seed(5), state.theta, pop, tc.es_config())
+        theta_k = perturb_member(state.theta, noise, 0, pop, tc.es_config())
+    gen_noise = backend.sample_gen_noise(torch.Generator(device=dev).manual_seed(6), len(ids))
+    cfg = backend.cfg
+    torch.cuda.synchronize()
+    _reset_counters()
+    reps = 2
+    breakdown = call_breakdown(
+        torch, "inf",
+        lambda: inf_mod.generate(backend.model, backend.text_emb[ids][None], backend.text_mask[ids][None],
+                                 gen_noise[None], cfg_list=cfg.cfg_list, tau_list=cfg.tau_list, lora=theta_k,
+                                 lora_scale=backend.lora_scale, decode=False),
+        lambda f_hat: bsq.decode_img(backend.model.vq, f_hat), suite, ids, reps)
+    torch.cuda.synchronize()
+    call_launches = _counters()
+    if call_launches != {k: v // calls * (reps + 2) for k, v in expected1.items()}:
+        raise AssertionError(f"{reps + 2} profiled-phase generate calls launched {call_launches}, expected "
+                             f"{per_call} K4 each")
+    stats = dict(plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s, built_gib=built_gib,
+                 peak_mem_gib=peak_gib, step_time_s=step_s, images_per_epoch=pop * m,
+                 images_per_s=[pop * m / s for s in step_s], wall_s=wall_s, launches=launches,
+                 expected_launches={k: v * INF_EPOCHS for k, v in expected1.items()},
+                 per_call={"k4_per_call": per_call, "calls": calls}, call_breakdown_ms=breakdown,
+                 theta_norm=[h["theta_norm"] for h in history], delta_norm=[h["delta_norm"] for h in history])
+    del backend, suite, state, theta_k, noise
+    torch.cuda.empty_cache()
+    return stats
+
+
+class _RecordCalls:
+    """Wraps ``module.name`` (a sampler) to keep every output on the CPU."""
+
+    def __init__(self, module, name: str):
+        self.mod, self.name, self.orig, self.outs = module, name, getattr(module, name), []
 
     def __enter__(self):
         def rec(*a, **kw):
             out = self.orig(*a, **kw)
-            self.ids.append(out.cpu())
+            self.outs.append(out.cpu())
             return out
 
-        self.mod.sample_top_k_top_p = rec
+        setattr(self.mod, self.name, rec)
         return self
 
     def __exit__(self, *exc):
-        self.mod.sample_top_k_top_p = self.orig
+        setattr(self.mod, self.name, self.orig)
 
 
 def phase_var_reference(torch):
@@ -1643,7 +1945,7 @@ def phase_var_reference(torch):
             noise = sample_noise(torch.Generator().manual_seed(33), theta, pop, tc.es_config())
             flat = backend.step_info(0, m, 1).flat_ids
             gen_noise = backend.sample_gen_noise(gen, len(flat))
-        with torch.inference_mode(), _RecordIds() as rec:
+        with torch.inference_mode(), _RecordCalls(var_mod, "sample_top_k_top_p") as rec:
             images = backend.generate_p(on(stack_adapters(thetas)), [[0, 1], [2, 3]], None, noise=lanes_noise.to(dev))
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -1654,7 +1956,7 @@ def phase_var_reference(torch):
             torch.cuda.synchronize()
             launches = _counters()
         rows = reward_rows(torch, suite.rows, 1, len(flat))
-        outs[dev.type] = (images.float().cpu(), torch.cat([i.reshape(-1) for i in rec.ids]),
+        outs[dev.type] = (images.float().cpu(), torch.cat([i.reshape(-1) for i in rec.outs]),
                           tree_map(lambda a: a.float().cpu(), theta_new), rows.float().cpu(),
                           float(metrics["delta_norm"]))
         del backend, suite, step
@@ -1684,40 +1986,32 @@ def phase_var_reference(torch):
             "expected": expected}
 
 
-def var_stage_breakdown(torch, backend, reward, theta, noise, tc, ids, gen_noise, reps: int = 2):
-    """One generate → decode → reward call of the epoch (a chunk of
-    ``member_batch`` members, each on the epoch's images). Stage times by
-    CUDA events (mean of ``reps`` warm runs): generation (transformer, K4,
-    sampling, VQ pyramid), decode (the CompVis decoder), reward (resize +
-    both towers). Then one run under ``torch.profiler``: device time per
-    kernel name, busy time, idle share, and K4's time in situ."""
+def call_breakdown(torch, tag: str, generate, decode, reward, ids, reps: int = 2):
+    """One generate → decode → reward call of an AR epoch: ``generate()``
+    gives f̂ ``[n, b, ...]``, ``decode`` maps f̂ ``[n·b, ...]`` to images,
+    ``reward`` scores them against ``ids`` repeated ``n`` times. Stage times
+    by CUDA events (mean of ``reps`` warm runs): generation (transformer,
+    K4, sampling, pyramid), decode, reward (resize + both towers). Then one
+    run under ``torch.profiler``: device time per kernel name, busy time,
+    idle share, and K4's time in situ."""
     from torch.profiler import ProfilerActivity, profile
 
-    from hyperscalees_t2i_tpu_torch.es.noiser import perturb_member
-    from hyperscalees_t2i_tpu_torch.lora import stack_adapters
-    from hyperscalees_t2i_tpu_torch.models import msvq, var as var_mod
-
-    n = tc.member_batch
-    cfg = backend.cfg
-    labels = backend._pool[ids].expand(n, -1)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     acc = [0.0, 0.0, 0.0]
+    n = []
 
     def one():
         ev[0].record()
-        f_hat = var_mod.generate(backend.model, labels, gen_noise.expand(n, *gen_noise.shape), cfg_scale=cfg.cfg_scale,
-                                 top_k=cfg.top_k, top_p=cfg.top_p, lora=theta_k, lora_scale=backend.lora_scale,
-                                 decode=False)
+        f_hat = generate()
         ev[1].record()
-        images = msvq.decode_img(backend.model.vq, f_hat.reshape(-1, *f_hat.shape[2:]))
+        images = decode(f_hat.reshape(-1, *f_hat.shape[2:]))
         ev[2].record()
-        reward(images, ids.repeat(n))
+        reward(images, ids.repeat(f_hat.shape[0]))
         ev[3].record()
         torch.cuda.synchronize()
+        n[:] = [f_hat.shape[0]]
 
     with torch.inference_mode():
-        theta_k = stack_adapters([perturb_member(theta, noise, k, tc.pop_size, tc.es_config()) for k in range(n)])
-        theta_k = {k: {f: t.to("cuda") for f, t in d.items()} for k, d in theta_k.items()}
         for i in range(reps + 1):
             one()
             if i:  # the first run warms up
@@ -1731,13 +2025,34 @@ def var_stage_breakdown(torch, backend, reward, theta, noise, tc, ids, gen_noise
            "idle_share": 1.0 - busy / sum(acc), "device_kernels": n_kernels,
            "k4_in_situ_ms": sum(ms for ms, _ in k4), "k4_in_situ_launches": sum(c for _, c in k4),
            "top_kernels": [dict(name=t, ms=m_, launches=c) for m_, c, t in top]}
-    log(f"[var] one generate call ({n} lanes × {ids.numel()} images), device time: generation {acc[0]:.2f} ms, "
-        f"decode {acc[1]:.2f} ms, reward {acc[2]:.2f} ms; {out['device_kernels']} kernels busy {busy:.2f} ms "
-        f"(profiled) = idle share {out['idle_share']:.3f}; K4 in situ {out['k4_in_situ_ms']:.2f} ms over "
-        f"{out['k4_in_situ_launches']} launches")
+    log(f"[{tag}] one generate call ({n[0]} lanes × {ids.numel()} images), device time: generation "
+        f"{acc[0]:.2f} ms, decode {acc[1]:.2f} ms, reward {acc[2]:.2f} ms; {out['device_kernels']} kernels busy "
+        f"{busy:.2f} ms (profiled) = idle share {out['idle_share']:.3f}; K4 in situ {out['k4_in_situ_ms']:.2f} ms "
+        f"over {out['k4_in_situ_launches']} launches")
     for m_, c, t in top:
-        log(f"[var]   {m_:9.3f} ms {c:5d} launches  {t}")
+        log(f"[{tag}]   {m_:9.3f} ms {c:5d} launches  {t}")
     return out
+
+
+def var_stage_breakdown(torch, backend, reward, theta, noise, tc, ids, gen_noise, reps: int = 2):
+    """:func:`call_breakdown` of one VAR generate call: a chunk of
+    ``member_batch`` members, each on the epoch's images."""
+    from hyperscalees_t2i_tpu_torch.es.noiser import perturb_member
+    from hyperscalees_t2i_tpu_torch.lora import stack_adapters
+    from hyperscalees_t2i_tpu_torch.models import msvq, var as var_mod
+
+    n = tc.member_batch
+    cfg = backend.cfg
+    labels = backend._pool[ids].expand(n, -1)
+    with torch.inference_mode():
+        theta_k = stack_adapters([perturb_member(theta, noise, k, tc.pop_size, tc.es_config()) for k in range(n)])
+        theta_k = {k: {f: t.to("cuda") for f, t in d.items()} for k, d in theta_k.items()}
+    return call_breakdown(
+        torch, "var",
+        lambda: var_mod.generate(backend.model, labels, gen_noise.expand(n, *gen_noise.shape), cfg_scale=cfg.cfg_scale,
+                                 top_k=cfg.top_k, top_p=cfg.top_p, lora=theta_k, lora_scale=backend.lora_scale,
+                                 decode=False),
+        lambda f_hat: msvq.decode_img(backend.model.vq, f_hat), reward, ids, reps)
 
 
 def phase_var_es(torch):
@@ -1832,14 +2147,17 @@ def main() -> int:
     k3_invariant = phase_k3_invariance(torch)
     k4_rows, k4_extra = phase_k4_check(torch)
     k4_invariant = phase_k4_invariance(torch)
+    k4_inf_rows = phase_k4_infinity(torch)
     small_err = phase_small_reference(torch)
     es_tiny = phase_es_reference(torch, "tiny", int8=True)
     es_small = phase_es_reference(torch, "small", int8=False)
     train_tiny = phase_train_reference(torch)
     var_tiny = phase_var_reference(torch)
+    inf_tiny = phase_inf_reference(torch)
     es_float = phase_es_flagship(torch, base_quant="off")
     serve = phase_serve(torch)
     var_es = phase_var_es(torch)
+    inf_es = phase_inf_es(torch)
     es, flagship = phase_es_flagship(torch, keep=True)
     train = phase_train_flagship(torch, *flagship, es)
     del flagship
@@ -1857,10 +2175,20 @@ def main() -> int:
                        es["launches"]["fused_qlora"] + train_launches("fused_qlora"),
                        "calls_per_image", "hyperscalees_t2i_tpu/ops/fused_qlora.py:201",
                        "one flagship ES image's adapted sites"),
-        kernel_summary("decode_attention", k4_rows, var_es["launches"]["decode_attention"], "calls_per_call",
-                       "hyperscalees_t2i_tpu/ops/attention.py:58",
+        kernel_summary("decode_attention", k4_rows,
+                       var_es["launches"]["decode_attention"] + inf_es["launches"]["decode_attention"],
+                       "calls_per_call", "hyperscalees_t2i_tpu/ops/attention.py:58",
                        "one VAR-d16 generate call (32 rows, 10 scales x 16 layers)"),
     ]
+    k4_inf = kernel_summary("decode_attention", k4_inf_rows, inf_es["launches"]["decode_attention"],
+                            "calls_per_call", "hyperscalees_t2i_tpu/ops/attention.py:58",
+                            f"one Infinity-2B generate call ({INF_ROWS} rows, 14 scales x 32 layers, self- and "
+                            "cross-attention)")
+    kernels[3]["launches_by_path"] = {"var_d16_es": var_es["launches"]["decode_attention"],
+                                      "inf_2b_run_training": inf_es["launches"]["decode_attention"]}
+    kernels[3]["infinity"] = {k: k4_inf[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                                     "device_ms", "max_abs_err", "scope")}
+    kernels[3]["infinity"]["in_situ_ms"] = inf_es["call_breakdown_ms"]["k4_in_situ_ms"]
     k1_serve = kernel_summary("int8_matmul", k1_rows, serve["launches"]["int8_matmul"], "calls_per_image",
                               "hyperscalees_t2i_tpu/ops/quant_mm.py:86", "one flagship served image")
     for k, run, epochs in ((kernels[1], es_float, TIMED_EPOCHS), (kernels[2], es, TIMED_EPOCHS + train_epochs)):
@@ -1872,8 +2200,12 @@ def main() -> int:
         raise AssertionError("K1 table and launch count disagree")
     if train_launches("lora_chain") or train_launches("decode_attention"):
         raise AssertionError("the flagship trainer launched K2 or K4")
-    if kernels[3]["launches"] != sum(r["calls_per_call"] for r in k4_rows) * var_es["per_call"]["calls"] * TIMED_EPOCHS:
-        raise AssertionError("K4 table and launch count disagree")
+    if var_es["launches"]["decode_attention"] != \
+            sum(r["calls_per_call"] for r in k4_rows) * var_es["per_call"]["calls"] * TIMED_EPOCHS:
+        raise AssertionError("K4's VAR table and launch count disagree")
+    if inf_es["launches"]["decode_attention"] != \
+            sum(r["calls_per_call"] for r in k4_inf_rows) * inf_es["per_call"]["calls"] * INF_EPOCHS:
+        raise AssertionError("K4's Infinity table and launch count disagree")
 
     wall_s = time.perf_counter() - t_start
     log(f"[done] every phase passed in {wall_s:.1f} s (kernel build included)")
@@ -1883,13 +2215,13 @@ def main() -> int:
         card=smi, device=torch.cuda.get_device_name(0), torch=torch.__version__, **build,
         k1_invariant_ranges=k1_invariant, k2_invariant_ranges=k2_invariant, k3_invariant_ranges=k3_invariant,
         k4_invariant_parts=k4_invariant,
-        k1_shapes=k1_rows, chain_shapes=chain_rows, k4_shapes=k4_rows, k4_cases=k4_extra,
-        small_reference_max_abs=small_err, es_tiny=es_tiny, es_small=es_small, var_tiny=var_tiny,
-        es_flagship_float=es_float, serve=serve, var_es=var_es, es_flagship=es, train_tiny=train_tiny,
-        train_flagship=train, kernels=kernels, k1_serving=k1_serve,
+        k1_shapes=k1_rows, chain_shapes=chain_rows, k4_shapes=k4_rows, k4_cases=k4_extra, k4_infinity_shapes=k4_inf_rows,
+        small_reference_max_abs=small_err, es_tiny=es_tiny, es_small=es_small, var_tiny=var_tiny, inf_tiny=inf_tiny,
+        es_flagship_float=es_float, serve=serve, var_es=var_es, inf_es=inf_es, es_flagship=es, train_tiny=train_tiny,
+        train_flagship=train, kernels=kernels, k1_serving=k1_serve, k4_infinity=k4_inf,
         wall_s=wall_s,
     ), indent=1))
-    for k in kernels + [k1_serve]:
+    for k in kernels + [k1_serve, k4_inf]:
         log(f"[done] {k['name']} ({k['scope']}): {k['ms']:.3f} ms kernel"
             + (f" ({k['device_ms']:.3f} ms device time)" if "device_ms" in k else "") + f", {k['plain_ms']:.3f} ms plain, "
             f"{k['library_ms']:.3f} ms library, {k['bound_ms']:.3f} ms bound ({k['bound_by']}); "

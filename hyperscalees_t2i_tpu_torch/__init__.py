@@ -12,8 +12,9 @@ package so each unit's counterpart is easy to find. What is ported so far:
 - the EGGROLL-ES epoch (``train.trainer.make_es_step``) over the Sana
   backend (K3 ``csrc/fused_qlora.cu``, K2 ``csrc/lora_chain.cu``) and over
   the VAR backend (``backends.var_backend`` → ``models.var`` →
-  ``models.msvq``), whose KV-cache attention is K4
-  ``csrc/decode_attention.cu``;
+  ``models.msvq``) and the Infinity backend (``backends.infinity_backend``
+  → ``models.infinity`` → ``models.bsq``), whose KV-cache and text
+  attention is K4 ``csrc/decode_attention.cu``;
 - the single-process trainer around the step: ``train.trainer.run_training``
   (``metrics.jsonl``, per-prompt quality attribution and ``quality.jsonl``
   from ``obs.quality``, checkpoint slots from ``resilience.checkpoints``

@@ -25,10 +25,9 @@ import torch
 from ..device import DeviceLike, generator_for, resolve_device
 from ..lora import LoRASpec, init_lora
 from ..models import var as var_mod
-from ..ops.sampling import gumbel_from_uniform
+from ..ops.sampling import gumbel_from_uniform, per_image_gumbel
 from ..rungs import rung_opt, var_rung_model
 from ..utils.pytree import cast_floating, resolve_float_dtype, tree_map
-from ..utils.seeding import item_seed
 from .base import StepInfo, default_step_info
 
 Params = Dict[str, Any]
@@ -56,17 +55,6 @@ def load_class_names(num_classes: int, labels_path: Optional[str]) -> List[str]:
         if len(names) >= num_classes:
             return names[:num_classes]
     return [f"class_{i}" for i in range(num_classes)]
-
-
-def per_image_gumbel(seed: int, item_index: Sequence[int], shape: Tuple[int, ...],
-                     device: torch.device) -> torch.Tensor:
-    """``[len(item_index), *shape]`` standard Gumbel draws; image ``i`` from a
-    CPU generator seeded by ``(seed, item_index[i])`` only."""
-    out = []
-    for idx in item_index:
-        g = torch.Generator(device="cpu").manual_seed(item_seed(seed, int(idx)))
-        out.append(gumbel_from_uniform(torch.rand(shape, generator=g)))
-    return torch.stack(out).to(device)
 
 
 class VarBackend:

@@ -132,6 +132,24 @@ def group_norm(x: torch.Tensor, p: Optional[Params] = None, groups: int = 32, ep
     return y.to(dtype)
 
 
+def slice_stacked(p: Params, i: int) -> Params:
+    """Layer ``i`` of a layer-stacked dense node (``[depth, din, dout]``
+    float kernel or int8 ``q8``/``scale``, ``[depth, dout]`` bias): views,
+    no copy."""
+    out: Params = {}
+    for k, v in p.items():
+        out[k] = {"q8": v["q8"][i], "scale": v["scale"][i]} if k == "kernel_q8" else v[i]
+    return out
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate interleaved pairs ``(x[2j], x[2j+1])`` of ``x [B, S, H, dh]``
+    by the angles whose ``cos``/``sin`` are ``[S, dh/2]``."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    c, s = cos[None, :, None, :], sin[None, :, None, :]
+    return torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).reshape(x.shape)
+
+
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """GELU with the tanh approximation (``jax.nn.gelu(approximate=True)``)."""
     return F.gelu(x, approximate="tanh")

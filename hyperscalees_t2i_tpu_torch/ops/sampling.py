@@ -9,7 +9,11 @@ the same filtered logits and the same noise give the same ids.
 
 from __future__ import annotations
 
+from typing import Sequence, Tuple
+
 import torch
+
+from ..utils.seeding import item_seed
 
 NEG_INF = -1e30
 
@@ -51,3 +55,14 @@ def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
     draws it."""
     u = u.to(torch.float32).clamp(min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
+
+
+def per_image_gumbel(seed: int, item_index: Sequence[int], shape: Tuple[int, ...],
+                     device: torch.device) -> torch.Tensor:
+    """``[len(item_index), *shape]`` standard Gumbel draws; image ``i`` from a
+    CPU generator seeded by ``(seed, item_index[i])`` only."""
+    out = []
+    for idx in item_index:
+        g = torch.Generator(device="cpu").manual_seed(item_seed(seed, int(idx)))
+        out.append(gumbel_from_uniform(torch.rand(shape, generator=g)))
+    return torch.stack(out).to(device)

@@ -1,8 +1,10 @@
 """Model geometries, ES plans, knobs and serving plans per rung (the port's
-copy of the Sana and VAR parts of ``hyperscalees_t2i_tpu/rungs.py``).
+copy of the Sana and VAR parts of ``hyperscalees_t2i_tpu/rungs.py``, plus
+the port's own ``ar_d16`` and ``inf_2b`` rungs).
 
-Module-level code is stdlib-only; :func:`sana_rung_model` and
-:func:`var_rung_model` import the model configs when called.
+Module-level code is stdlib-only; :func:`sana_rung_model`,
+:func:`var_rung_model` and :func:`infinity_rung_model` import the model
+configs when called.
 """
 
 from __future__ import annotations
@@ -31,6 +33,10 @@ RUNG_PLAN = {
     # package's "ar" plan (pop 16, 4 classes, member_batch 4) at VAR-d16's
     # published geometry instead of its cut ar_small one, hence its own key
     "ar_d16": ("d16", 16, 4, 4),
+    # Infinity-2B at its published 1024×1024 schedule (pn 1M, 14 scales),
+    # the path of K4 at dh 128 and of its masked cross-attention; the JAX
+    # package has no Infinity rung
+    "inf_2b": ("2b", 4, 4, 1),
 }
 
 # Per-rung knobs (the Sana part of the JAX package's RUNG_OPT): member-interior
@@ -51,6 +57,7 @@ RUNG_OPT = {
     "flagship": {**DEFAULT_OPT, **_BIG_OPT, "reward_tile": 1, "pop_fuse": True},
     "flagpop": {**DEFAULT_OPT, **_BIG_OPT, "reward_tile": 1, "pop_fuse": True},
     "ar_d16": dict(DEFAULT_OPT),  # the JAX package's "ar" knobs
+    "inf_2b": dict(DEFAULT_OPT),  # the JAX CLI's defaults: no pop_fuse, a float base
 }
 
 
@@ -162,3 +169,40 @@ def var_rung_model(scale: str, tower_dtype: str = "float32") -> Dict[str, Any]:
     else:
         raise ValueError(f"unknown var rung scale: {scale!r}")
     return {"bcfg": bcfg, "clip_b": clip_b, "clip_h": clip_h}
+
+
+def infinity_rung_model(scale: str, tower_dtype: str = "float32") -> Dict[str, Any]:
+    """``{"bcfg", "clip_b", "clip_h"}`` of an Infinity rung: ``tiny`` (the
+    JAX package's ``train/cli.py --model_scale tiny`` geometry: depth 2, d
+    16, 2 heads, text_dim 12, patch_nums (1, 2, 4), a 4-bit tokenizer, f32;
+    a tiny CLIP tower and no PickScore tower) or ``2b`` (Infinity-2B as its
+    released checkpoint is configured, ``infinity.released_config("2b",
+    "1M")``: depth 32, d 2048, 16 heads of 128, text_dim 2048, 14 scales to
+    64×64, L 9451, the 32-bit tokenizer, QK-l2, 2D RoPE and QK-l2
+    cross-attention, bf16; CLIP-B/32 and CLIP-H/14 at their published
+    widths)."""
+    import dataclasses
+
+    import torch
+
+    from .backends.infinity_backend import InfinityBackendConfig
+    from .models import bsq, clip, infinity
+    from .utils.pytree import resolve_float_dtype
+
+    tower = lambda cfg: dataclasses.replace(cfg, compute_dtype=resolve_float_dtype(tower_dtype))  # noqa: E731
+    if scale == "tiny":
+        pns = (1, 2, 4)
+        vq = bsq.BSQConfig(bits=4, patch_nums=pns, phi_partial=2, dec_ch=(8, 8), dec_blocks=1,
+                           compute_dtype=torch.float32)
+        model = infinity.InfinityConfig(depth=2, d_model=16, n_heads=2, ff_ratio=2.0, text_dim=12, patch_nums=pns,
+                                        vq=vq, compute_dtype=torch.float32)
+        t = clip.CLIPTowerConfig(16, 2, 2, 32)
+        clip_b = tower(clip.CLIPConfig(vision=t, text=t, image_size=32, patch_size=16, vocab_size=49408,
+                                       max_positions=77, projection_dim=16))
+        clip_h = None
+    elif scale == "2b":
+        model = infinity.released_config("2b", "1M")
+        clip_b, clip_h = tower(clip.CLIP_B32), tower(clip.CLIP_H14)
+    else:
+        raise ValueError(f"unknown infinity rung scale: {scale!r}")
+    return {"bcfg": InfinityBackendConfig(model=model), "clip_b": clip_b, "clip_h": clip_h}

@@ -1,13 +1,26 @@
 """The ES training CLI (port of ``hyperscalees_t2i_tpu/train/cli.py`` for
-the Sana one-step and VAR backends)::
+the Sana one-step, VAR and Infinity backends)::
 
     python -m hyperscalees_t2i_tpu_torch.train.cli --backend sana_one_step \\
         --model_scale tiny --device cpu --num_epochs 2 --run_dir runs
+    python -m hyperscalees_t2i_tpu_torch.train.cli --backend infinity \\
+        --infinity_variant 2b --pn 1M --allow_random_rewards true \\
+        --pop_size 4 --prompts_per_gen 4 --prompts_txt prompts.txt
 
 Flag names and defaults are the JAX CLI's for every flag the port's loop
 reads, plus ``--device`` (default: the CUDA card; without one the CLI
 raises unless ``--device cpu`` is given). The generator's weights are
-random (``--weights`` raises: the converters are ROADMAP queue A item 10);
+random (``--weights`` and ``--vae_weights`` raise: the converters are
+ROADMAP queue A item 10). ``--infinity_variant 2b`` is built as the
+released Infinity-2B checkpoint is configured
+(``models.infinity.released_config``: QK-l2, 2D RoPE, QK-l2
+cross-attention, the 32-bit tokenizer; with ``--pn 1M`` it is the
+``inf_2b`` rung), which is what the JAX CLI builds from that checkpoint
+with ``--weights``; without weights the JAX CLI keeps those flags off and
+16 bits. Every other variant has no recorded released configuration and
+is the JAX CLI's ``from_preset``. The Infinity float leaves are stored in
+the compute dtype. Infinity under ``--pop_fuse`` or ``--base_quant int8``
+raises (queue A item 8);
 the reward towers are random too, which above ``--model_scale tiny`` needs
 ``--allow_random_rewards true``, and the PickScore tower is then dropped
 with the other weights renormalized, as the JAX CLI does without its
@@ -47,16 +60,23 @@ def parse_resume(v: str) -> bool:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="EGGROLL-ES trainer (PyTorch port)")
-    p.add_argument("--backend", required=True, choices=["sana_one_step", "var"])
+    p.add_argument("--backend", required=True, choices=["sana_one_step", "var", "infinity"])
     p.add_argument("--model_scale", default="full", choices=["tiny", "small", "full"])
     p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     p.add_argument("--prompts_txt", default=None)
+    p.add_argument("--encoded_prompts", default=None, help="encoded-prompt cache, .pt or .npz (infinity)")
     p.add_argument("--labels_path", default=None, help="ImageNet class names (var)")
     p.add_argument("--var_classes", default=None, help="comma class pool, or 'all' (var)")
     p.add_argument("--lora_r", type=int, default=8)
     p.add_argument("--lora_alpha", type=float, default=16.0)
     p.add_argument("--guidance_scale", type=float, default=None)
     p.add_argument("--latent_size", type=int, default=None, help="latent grid (per side)")
+    p.add_argument("--cfg_list", default=None, help="per-scale guidance, comma list (infinity)")
+    p.add_argument("--tau_list", default=None, help="per-scale temperature, comma list (infinity)")
+    p.add_argument("--enable_positive_prompt", action="store_true",
+                   help="infinity: append the face-quality suffix to person prompts")
+    p.add_argument("--infinity_variant", default=None, help="model preset: 2b, 8b, layer12..layer48")
+    p.add_argument("--pn", default=None, help="scale-schedule preset: 0.06M, 0.25M, 1M")
     p.add_argument("--weights", default=None, help="generator checkpoint (not ported yet)")
     p.add_argument("--vae_weights", default=None, help="VAE checkpoint (not ported yet)")
     p.add_argument("--pop_size", type=int, default=8)
@@ -110,6 +130,13 @@ def _dtype(name: str) -> str:
     return "bfloat16" if name == "bf16" else name
 
 
+def parse_float_list(s: Optional[str]) -> Optional[Tuple[float, ...]]:
+    """``"3,2.5"`` → ``(3.0, 2.5)``; empty → ``None``."""
+    if not s:
+        return None
+    return tuple(float(x) for x in s.split(",") if x.strip())
+
+
 def _prompts(path: Optional[str]) -> List[str]:
     """The prompt file's non-empty, non-``#`` lines (``a photo of a cat``
     without one), as the JAX Sana backend reads it."""
@@ -151,6 +178,8 @@ def build_backend(args, device: torch.device):
         vae = maybe_quantize_tree(dcae.init_decoder(cfg.vae, generator_for(device, cfg.seed_params + 1)),
                                   args.base_quant)
         return SanaBackend(cfg, device, params=params, vae_params=vae, prompts=_prompts(args.prompts_txt))
+    if args.backend == "infinity":
+        return _infinity_backend(args, device)
 
     from ..backends.var_backend import VarBackend, VarBackendConfig
     from ..es.sampling import parse_int_list
@@ -172,6 +201,47 @@ def build_backend(args, device: torch.device):
                            lora_r=args.lora_r, lora_alpha=args.lora_alpha, **sampling)
     params = maybe_quantize_tree(var_mod.init_var(model, generator_for(device, cfg.seed_params)), args.base_quant)
     return VarBackend(cfg, device, params=params)
+
+
+def infinity_model(args):
+    """``--infinity_variant`` as released where that is recorded
+    (``infinity.RELEASED_BSQ_BITS``), else the JAX CLI's model: the
+    variant's preset, or the geometry for ``--model_scale`` (tiny:
+    ``infinity_rung_model("tiny")``); ``--pn`` sets the schedule of both the
+    transformer and the tokenizer."""
+    from ..models import infinity as inf_mod
+    from ..rungs import infinity_rung_model
+
+    if args.infinity_variant in inf_mod.RELEASED_BSQ_BITS:
+        return inf_mod.released_config(args.infinity_variant, args.pn)
+    if args.infinity_variant:
+        model = inf_mod.from_preset(args.infinity_variant)
+    elif args.model_scale == "tiny":
+        model = infinity_rung_model("tiny")["bcfg"].model
+    else:
+        model = inf_mod.InfinityConfig(**_scaled(args, {}, dict(depth=8, d_model=512, n_heads=8), {}))
+    if args.pn:
+        pns = inf_mod.PN_PRESETS[args.pn]
+        model = dataclasses.replace(model, patch_nums=pns, vq=dataclasses.replace(model.vq, patch_nums=pns))
+    return model
+
+
+def _infinity_backend(args, device: torch.device):
+    from ..backends.infinity_backend import InfinityBackend, InfinityBackendConfig
+    from ..device import generator_for
+    from ..models import infinity as inf_mod
+    from ..utils.pytree import cast_floating
+
+    if args.pop_fuse or args.base_quant != "off":
+        raise NotImplementedError("infinity with --pop_fuse or --base_quant int8 (K2/K3 at its widths) is not "
+                                  "ported yet (ROADMAP queue A item 8)")
+    model = infinity_model(args)
+    cfg = InfinityBackendConfig(
+        model=model, prompts_txt_path=args.prompts_txt, encoded_prompt_path=args.encoded_prompts,
+        enable_positive_prompt=args.enable_positive_prompt, cfg_list=parse_float_list(args.cfg_list),
+        tau_list=parse_float_list(args.tau_list), lora_r=args.lora_r, lora_alpha=args.lora_alpha)
+    params = cast_floating(inf_mod.init_infinity(model, generator_for(device, cfg.seed_params)), model.compute_dtype)
+    return InfinityBackend(cfg, device, params=params)
 
 
 def build_reward_fn(args, backend, device: torch.device):

@@ -24,7 +24,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..es.noiser import DenseNoise, LowRankNoise
 from ..lora import FactoredDelta
-from ..models import clip, dcae, msvq, sana, var
+from ..models import bsq, clip, dcae, infinity, msvq, sana, var
 
 _NODE_TYPES = {cls._fields: cls for cls in (LowRankNoise, DenseNoise, FactoredDelta)}
 
@@ -78,6 +78,17 @@ def var_from_jax(tree: Any, cfg: var.VARConfig, device: DeviceLike = None) -> va
 
 def msvq_from_jax(tree: Any, cfg: msvq.MSVQConfig, device: DeviceLike = None) -> msvq.MSVQ:
     return msvq.MSVQ(cfg, tree_from_numpy(tree, device))
+
+
+def infinity_from_jax(tree: Any, cfg: infinity.InfinityConfig, device: DeviceLike = None) -> infinity.InfinityTransformer:
+    """The Infinity tree (its ``"vq"`` subtree included) as the port's
+    module. The backend's frozen text features are plain arrays: pass them
+    through :func:`tree_from_numpy` to ``InfinityBackend(text=...)``."""
+    return infinity.InfinityTransformer(cfg, tree_from_numpy(tree, device))
+
+
+def bsq_from_jax(tree: Any, cfg: bsq.BSQConfig, device: DeviceLike = None) -> bsq.BSQ:
+    return bsq.BSQ(cfg, tree_from_numpy(tree, device))
 
 
 def adapter_from_jax(lora: Dict[str, Dict[str, Any]], device: DeviceLike = None) -> Dict[str, Dict[str, torch.Tensor]]:

@@ -35,13 +35,20 @@ bad = sorted(n for n in sys.modules
              or n.startswith("hyperscalees_t2i_tpu."))
 print("LOADED", len([n for n in sys.modules if n.startswith("hyperscalees_t2i_tpu_torch")]))
 print("BAD", bad)
+print("MISSING", sorted(set(sys.argv[1:]) - set(sys.modules)))
 """
+# modules the walk must reach (the slices' models, backends and caches among them)
+_REQUIRED = ["hyperscalees_t2i_tpu_torch." + m for m in (
+    "models.var", "models.msvq", "models.bsq", "models.infinity", "backends.var_backend",
+    "backends.infinity_backend", "utils.prompt_cache", "train.cli")]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    out = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", _CHECK, *_REQUIRED], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    assert "MISSING []" in out.stdout, out.stdout
     assert int(re.search(r"LOADED (\d+)", out.stdout).group(1)) >= 20
 
 
