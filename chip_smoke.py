@@ -58,8 +58,9 @@ result):
    attention flags off and on (``generate``: bits equal, images within
    1e-4; one ES step: θ′ and rows within 1e-4; K4 launches exact), then
    Infinity-2B (``inf_2b``: 14 scales to 1024×1024, 32-bit tokenizer,
-   bf16, random weights) built through the train CLI's ``build_backend``
-   with CLIP-B/32 and CLIP-H/14 rewards, ``run_training`` for 3 epochs (the
+   bf16, random weights) built by the rung's ``build_train_backend("2b")``
+   with CLIP-B/32 and CLIP-H/14 rewards (build time and peak memory; θ₀'s
+   norm against ``theta_max_norm``), ``run_training`` for 3 epochs (the
    first warm): K4 exactly 896 launches per generate call and no K1-K3,
    epoch s, images/s, peak memory, one generate call profiled;
 7. the Sana main path: one EGGROLL-ES epoch step of the flagship rung
@@ -79,7 +80,16 @@ result):
    recomputed from its file), and one epoch with ``quality`` off. Each
    run's K1-K4 launches must be the derived counts × its epochs;
    ``metrics.jsonl`` must hold 5 rows with per-prompt quality. Prints
-   each epoch's ``step_time_s`` beside 7's epochs and each save's time.
+   each epoch's ``step_time_s`` beside 7's epochs and each save's time;
+9. the JAX noise stream (``utils.threefry``, plain torch) at each path's
+   full-width draws (the flagship ES noise and latents, VAR-d16's Gumbel
+   slab, Infinity-2B's Gumbel noise and one whole stacked leaf): every
+   primitive draw re-drawn on the CPU over its ends, bits and uniforms
+   bitwise equal, normals and Gumbels within 1e-5; each draw's time, device
+   time, kernel count and share of its path's epoch (or call, or build).
+
+Every random number of the port is the JAX package's (the same keys, the
+same key tree); the phases draw from ``utils.threefry`` keys.
 
 Output: the per-shape kernel tables and the path numbers on stdout, a JSON
 copy in ``build/chip_smoke.json``, then the card's name and power limit, a
@@ -195,10 +205,21 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def _untimed(torch, fns) -> float:
+    """``reps`` = 0 in a timer: each of ``fns`` called once, nothing timed
+    (NaN), for runs that only check (:func:`kernel_checks_once`)."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    return math.nan
+
+
 def time_ms(torch, fns, reps: int) -> float:
     """Mean device time of one call, by CUDA events over ``reps`` calls that
     rotate over ``fns`` (distinct input copies, so weights larger than a
     fraction of L2 are read from device memory as on the main path)."""
+    if reps == 0:
+        return _untimed(torch, fns)
     for f in fns:
         f()
     torch.cuda.synchronize()
@@ -220,6 +241,8 @@ def device_ms(torch, fns, reps: int, marker=None) -> float:
     and divided by ``reps``."""
     from torch.profiler import ProfilerActivity, profile
 
+    if reps == 0:
+        return _untimed(torch, fns)
     for f in fns:
         f()
     torch.cuda.synchronize()
@@ -245,6 +268,8 @@ def device_ms(torch, fns, reps: int, marker=None) -> float:
 def host_us(torch, fns, reps: int) -> float:
     """Host time of one call, µs: the host clock around ``reps`` calls
     (rotating over ``fns``) that are only enqueued, after a synchronize."""
+    if reps == 0:
+        return _untimed(torch, fns)
     for f in fns:
         f()
     torch.cuda.synchronize()
@@ -403,7 +428,7 @@ def phase_k1_invariance(torch):
     return checked
 
 
-def phase_k1_check(torch):
+def phase_k1_check(torch, timed: bool = True):
     from hyperscalees_t2i_tpu_torch.ops.quant_mm import int8_matmul, int8_matmul_reference
 
     dev = torch.device("cuda")
@@ -427,7 +452,7 @@ def phase_k1_check(torch):
             err, tol, ref_max = check_close(
                 f"int8_matmul at {site} {T}x{din}x{dout} {dt_name}", out, int8_matmul_reference(x, q8, scale),
                 dt_name, torch, again=lambda: (int8_matmul(x, q8, scale), int8_matmul_reference(x, q8, scale)))
-            reps = 20 if T * din * dout < 5e9 else 10
+            reps = (20 if T * din * dout < 5e9 else 10) if timed else 0
             ms = time_ms(torch, [lambda s=s: int8_matmul(s[0], s[1], s[2]) for s in sets], reps)
             plain = time_ms(torch, [lambda s=s: int8_matmul_reference(s[0], s[1], s[2]) for s in sets], reps)
             lib = time_ms(torch, [lambda s=s: torch.matmul(s[0], s[3]) for s in sets], reps)
@@ -615,7 +640,7 @@ def phase_k2_invariance(torch):
                             lambda T, n, dt: _plan(T, n, 2240, 2240, dt).cols)
 
 
-def phase_chain_check(torch):
+def phase_chain_check(torch, timed: bool = True):
     """K2 and K3 at the flagship's adapted-site shapes: error against the
     plain version, kernel / plain / library ms, and the bound; K3 also with
     q8 = 0 against the plain chain (its error alone), and beside the
@@ -680,7 +705,7 @@ def phase_chain_check(torch):
                     extra = dict(chain_only_max_abs_err=c_err, chain_only_tol=c_tol)
                 if main:
                     extra["before_ms"] = (K2_BEFORE_MS if name == "lora_chain" else K3_BEFORE_MS)[site]
-                reps = 20 if T * din * dout < 5e9 else 10
+                reps = (20 if T * din * dout < 5e9 else 10) if timed else 0
                 kernel_fns = [lambda s=s: kernel(s) for s in sets]
                 plain_fns = [lambda s=s: plain(s) for s in sets]
                 ms = time_ms(torch, kernel_fns, reps)
@@ -719,6 +744,7 @@ def phase_small_reference(torch):
     from hyperscalees_t2i_tpu_torch.models import dcae, sana
     from hyperscalees_t2i_tpu_torch.ops.quant import quantize_tree
     from hyperscalees_t2i_tpu_torch.rungs import sana_rung_model
+    from hyperscalees_t2i_tpu_torch.utils import threefry
     from hyperscalees_t2i_tpu_torch.utils.pytree import tree_map
 
     bcfg = sana_rung_model("tiny")["bcfg"]
@@ -726,20 +752,20 @@ def phase_small_reference(torch):
         bcfg, model=dataclasses.replace(bcfg.model, compute_dtype=torch.float32),
         vae=dataclasses.replace(bcfg.vae, compute_dtype=torch.float32))
     cpu = torch.device("cpu")
-    params = quantize_tree(sana.init_sana(bcfg.model, torch.Generator().manual_seed(5)), min_size=0)
-    vae = quantize_tree(dcae.init_decoder(bcfg.vae, torch.Generator().manual_seed(6)), min_size=0)
+    params = quantize_tree(sana.init_sana(bcfg.model, threefry.prng_key(5, "cpu")), min_size=0)
+    vae = quantize_tree(dcae.init_decoder(bcfg.vae, threefry.prng_key(6, "cpu")), min_size=0)
     prompts = ["a red cube", "a blue sphere"]
     outs = {}
     for dev in (cpu, torch.device("cuda")):
         b = SanaBackend(bcfg, dev, params=tree_map(lambda t: t.to(dev), params),
                         vae_params=tree_map(lambda t: t.to(dev), vae), prompts=prompts)
         b.setup()
-        theta = b.init_theta(torch.Generator().manual_seed(7))
+        theta = b.init_theta(threefry.prng_key(7, "cpu"))
         gen = torch.Generator().manual_seed(8)
         theta = {k: {f: v + 0.05 * torch.randn(v.shape, generator=gen) for f, v in d.items()}
                  for k, d in theta.items()}
-        with torch.inference_mode():
-            outs[dev.type] = b.generate(theta, [0, 1], seed=11).float().cpu()
+        with torch.inference_mode():  # each device draws the request's latents from its own key
+            outs[dev.type] = b.generate(theta, [0, 1], threefry.prng_key(11, dev)).float().cpu()
     err = float((outs["cuda"] - outs["cpu"]).abs().max())
     log(f"[small] tiny rung served, f32 int8, card vs CPU: max abs diff {err:.3g} (tol 1e-4) "
         f"shape {tuple(outs['cuda'].shape)}")
@@ -773,25 +799,27 @@ def _es_parts(torch, scale, dev, trees):
     return backend, reward
 
 
-def _es_trees(torch, scale: str, int8: bool, g):
-    """The ``scale`` rung's weight trees on the CPU, f32, drawn from ``g``
-    (every kernel quantized, min_size 0, with ``int8``), its CLIP text
-    tables and six prompts: what :func:`_es_parts` builds on a device."""
+def _es_trees(torch, scale: str, int8: bool, key):
+    """The ``scale`` rung's weight trees on the CPU, f32, drawn from the CPU
+    ``key`` (every kernel quantized, min_size 0, with ``int8``), its CLIP
+    text tables and six prompts: what :func:`_es_parts` builds on a device."""
     from hyperscalees_t2i_tpu_torch.models import clip, dcae, sana
     from hyperscalees_t2i_tpu_torch.ops.quant import quantize_tree
     from hyperscalees_t2i_tpu_torch.rewards.suite import clip_text_embed_table, pickscore_text_embeds
     from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, PROMPT_TOKEN_LEN, sana_rung_model
+    from hyperscalees_t2i_tpu_torch.utils import threefry
 
     spec = sana_rung_model(scale, tower_dtype="float32")
     prompts = BENCH_PROMPT_SET[:6]
-    cparams, pparams = clip.init_clip(spec["clip_b"], g), clip.init_clip(spec["clip_h"], g)
-    ids = torch.randint(0, spec["clip_b"].vocab_size, (len(prompts) + 2, PROMPT_TOKEN_LEN), generator=g)
-    pids = torch.randint(0, spec["clip_h"].vocab_size, (len(prompts), PROMPT_TOKEN_LEN), generator=g)
+    kc, kp, ki, kpi, ks, kv = threefry.split(key, 6)
+    cparams, pparams = clip.init_clip(spec["clip_b"], kc), clip.init_clip(spec["clip_h"], kp)
+    ids = threefry.randint(ki, (len(prompts) + 2, PROMPT_TOKEN_LEN), 0, spec["clip_b"].vocab_size)
+    pids = threefry.randint(kpi, (len(prompts), PROMPT_TOKEN_LEN), 0, spec["clip_h"].vocab_size)
     with torch.inference_mode():
         table = clip_text_embed_table(clip.CLIPModel(spec["clip_b"], cparams), ids)
         ptable = pickscore_text_embeds(clip.CLIPModel(spec["clip_h"], pparams), pids)
     q = (lambda t: quantize_tree(t, min_size=0)) if int8 else (lambda t: t)  # noqa: E731
-    return dict(params=q(sana.init_sana(spec["bcfg"].model, g)), vae=q(dcae.init_decoder(spec["bcfg"].vae, g)),
+    return dict(params=q(sana.init_sana(spec["bcfg"].model, ks)), vae=q(dcae.init_decoder(spec["bcfg"].vae, kv)),
                 clip=q(cparams), pick=q(pparams), table=table, ptable=ptable, prompts=prompts)
 
 
@@ -806,29 +834,30 @@ def phase_es_reference(torch, scale: str, int8: bool):
     from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN
     from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
     from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
+    from hyperscalees_t2i_tpu_torch.utils import threefry
     from hyperscalees_t2i_tpu_torch.utils.pytree import tree_map
 
     _, pop, m, mb = RUNG_PLAN[scale]
     g = torch.Generator().manual_seed(21)
-    trees = _es_trees(torch, scale, int8, g)
+    trees = _es_trees(torch, scale, int8, threefry.prng_key(21, "cpu"))
     tc = TrainConfig(pop_size=pop, sigma=0.01, egg_rank=4, member_batch=mb, pop_fuse=True)
     outs = {}
     for dev in (torch.device("cpu"), torch.device("cuda")):
         backend, suite = _es_parts(torch, scale, dev, trees)
         reward = RecordingReward(suite)
         if dev.type == "cpu":
-            theta = backend.init_theta(torch.Generator().manual_seed(22))
+            theta = backend.init_theta(threefry.prng_key(22, "cpu"))
             theta = {k: {f: v + 0.05 * torch.randn(v.shape, generator=g) for f, v in d.items()}
                      for k, d in theta.items()}
-            noise = sample_noise(torch.Generator().manual_seed(23), theta, pop, tc.es_config())
+            noise = sample_noise(threefry.prng_key(23, "cpu"), theta, pop, tc.es_config())
             flat = backend.step_info(0, m, 1).flat_ids
-            gen_noise = torch.randn(len(flat), *backend.noise_shape, generator=g)
+            gen_noise = backend.sample_gen_noise(threefry.prng_key(24, "cpu"), range(len(flat)))
         else:
             expected, per = expected_es_launches(backend, suite, tc, len(flat))
             torch.cuda.synchronize()
             _reset_counters()
         step = make_es_step(backend, reward, tc, m, 1, device=dev)
-        theta_new, metrics, _ = step(theta, flat, 0, noise=noise, gen_noise=gen_noise)
+        theta_new, metrics, _ = step(theta, flat, threefry.prng_key(0, dev), noise=noise, gen_noise=gen_noise)
         if dev.type == "cuda":
             torch.cuda.synchronize()
             launches = _counters()
@@ -902,6 +931,7 @@ def stage_breakdown(torch, backend, theta, reps: int = 3):
     """Device time of one served image's two stages, DiT + one-step sampler
     and DC-AE decode, by CUDA events around each (mean of ``reps`` warm runs)."""
     from hyperscalees_t2i_tpu_torch.models import dcae, sana
+    from hyperscalees_t2i_tpu_torch.utils import threefry
 
     cfg = backend.cfg
     lora = {k: {f: t.to(backend.device)[None] for f, t in d.items()} for k, d in theta.items()}
@@ -911,7 +941,7 @@ def stage_breakdown(torch, backend, theta, reps: int = 3):
         for i in range(reps + 1):
             ev[0].record()
             lat = sana.one_step_generate(
-                backend.model, backend.prompt_embeds[:1], backend.prompt_mask[:1], seed=0,
+                backend.model, backend.prompt_embeds[:1], backend.prompt_mask[:1], threefry.prng_key(0, "cuda"),
                 guidance_scale=cfg.guidance_scale, latent_hw=(cfg.height_latent, cfg.width_latent),
                 lora=lora, lora_scale=backend.lora_scale,
             )
@@ -930,6 +960,7 @@ def phase_serve(torch):
     from hyperscalees_t2i_tpu_torch.backends.sana_backend import build_serve_backend
     from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, RUNG_BASE_QUANT, SERVE_PLAN, sana_rung_model
     from hyperscalees_t2i_tpu_torch.serve import ServeConfig, ServeEngine
+    from hyperscalees_t2i_tpu_torch.utils import threefry
 
     t0 = time.perf_counter()
     backend = build_serve_backend(sana_rung_model("flagship")["bcfg"], RUNG_BASE_QUANT["flagship"],
@@ -941,7 +972,7 @@ def phase_serve(torch):
     eng = ServeEngine(backend, ServeConfig(device="cuda", **plan))
     gen = torch.Generator().manual_seed(42)
     for i in range(2):
-        theta = backend.init_theta(gen)
+        theta = backend.init_theta(threefry.fold_in(threefry.prng_key(8, "cpu"), i))
         theta = {k: {"a": d["a"], "b": 0.05 * torch.randn(d["b"].shape, generator=gen)} for k, d in theta.items()}
         eng.put_adapter(f"tenant{i}", theta)
     t0 = time.perf_counter()
@@ -1049,11 +1080,12 @@ def es_stage_breakdown(torch, backend, reward, theta, noise, tc, tag: str, reps:
 
     from hyperscalees_t2i_tpu_torch.es.noiser import factored_member_theta
     from hyperscalees_t2i_tpu_torch.models import dcae, sana
+    from hyperscalees_t2i_tpu_torch.utils import threefry
 
     cfg = backend.cfg
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     acc = [0.0, 0.0, 0.0]
-    lat_noise = torch.randn(1, *backend.noise_shape, device="cuda")
+    lat_noise = backend.sample_gen_noise(threefry.prng_key(0, "cuda"), [0])
 
     def one():
         ev[0].record()
@@ -1101,12 +1133,14 @@ def timed_epochs(torch, step, theta, flat_ids, reward, expected1, pop: int, call
     timed ones (host clock around work that ends in a synchronize), with
     the launch counters set to 0 just before them and read just after.
     Checks the launches against ``expected1`` per epoch, the last epoch's
-    reward rows ``[pop, B]`` finite, θ′ finite and ‖Δθ‖ > 0. Returns
-    ``(θ′, stats)``."""
+    reward rows ``[pop, B]`` finite, θ′ finite and ‖Δθ‖ > 0. Epoch ``e``'s
+    key is ``epoch_key(0, e)`` on the card. Returns ``(θ′, stats)``."""
+    from hyperscalees_t2i_tpu_torch.es.sampling import epoch_key
+
     B = len(flat_ids)
     delta = {k: {f: torch.zeros_like(t) for f, t in d.items()} for k, d in theta.items()}
     t0 = time.perf_counter()
-    theta, delta, metrics, opt_scores = step(theta, delta, flat_ids, 100)
+    theta, delta, metrics, opt_scores = step(theta, delta, flat_ids, epoch_key(0, 100, "cuda"))
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
@@ -1115,7 +1149,7 @@ def timed_epochs(torch, step, theta, flat_ids, reward, expected1, pop: int, call
     for e in range(TIMED_EPOCHS):
         reward.rows.clear()
         t0 = time.perf_counter()
-        theta, delta, metrics, opt_scores = step(theta, delta, flat_ids, 101 + e)
+        theta, delta, metrics, opt_scores = step(theta, delta, flat_ids, epoch_key(0, 101 + e, "cuda"))
         torch.cuda.synchronize()
         epoch_s.append(time.perf_counter() - t0)
     launches = _counters()
@@ -1155,6 +1189,7 @@ def phase_es_flagship(torch, base_quant=None, keep: bool = False):
     from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
     from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
     from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
+    from hyperscalees_t2i_tpu_torch.utils import threefry
 
     _, pop, m, mb = RUNG_PLAN["flagship"]
     opt = rung_opt("flagship")
@@ -1176,10 +1211,11 @@ def phase_es_flagship(torch, base_quant=None, keep: bool = False):
     log(f"[{tag}] flagship ES backend ({opt['base_quant']} base) built in {build_s:.1f} s; device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; per generate→reward call: "
         f"K3 {per['k3_per_call']}, K1 {per['k1_per_call']}, K2 {per['k2_per_call']}; {per['calls']} calls per epoch")
-    theta = backend.init_theta(torch.Generator().manual_seed(1))  # a fresh run's θ: b = 0
+    # a fresh run's θ (b = 0) from bench.py's PRNGKey(1)
+    theta = backend.init_theta(threefry.prng_key(1, "cuda"))
     theta, run = timed_epochs(torch, step, theta, info.flat_ids, reward, expected1, pop,
                               per["calls"] // -(-pop // mb), tag, f"flagship ES epoch ({opt['base_quant']} base)")
-    noise = sample_noise(torch.Generator(device="cuda").manual_seed(5), theta, pop, tc.es_config())
+    noise = sample_noise(threefry.prng_key(5, "cuda"), theta, pop, tc.es_config())
     breakdown = es_stage_breakdown(torch, backend, suite, theta, noise, tc, tag)
     stats = dict(plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s, per_call=per,
                  member_breakdown_ms=breakdown, **run)
@@ -1241,9 +1277,10 @@ def phase_train_reference(torch):
     from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN
     from hyperscalees_t2i_tpu_torch.train import trainer
     from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+    from hyperscalees_t2i_tpu_torch.utils import threefry
 
     _, pop, m, mb = RUNG_PLAN["tiny"]
-    trees = _es_trees(torch, "tiny", True, torch.Generator().manual_seed(31))
+    trees = _es_trees(torch, "tiny", True, threefry.prng_key(31, "cpu"))
     root = ROOT / "build" / "train_tiny"
     shutil.rmtree(root, ignore_errors=True)
     cpu = torch.device("cpu")
@@ -1380,9 +1417,11 @@ def train_overhead(torch, pairs: int = 8):
     import statistics
 
     from hyperscalees_t2i_tpu_torch.backends.sana_backend import build_train_backend
+    from hyperscalees_t2i_tpu_torch.es.sampling import epoch_key
     from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
     from hyperscalees_t2i_tpu_torch.train import trainer
     from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+    from hyperscalees_t2i_tpu_torch.utils import threefry
 
     _, pop, m, mb = RUNG_PLAN["flagship"]
     opt = rung_opt("flagship")
@@ -1395,14 +1434,14 @@ def train_overhead(torch, pairs: int = 8):
     backend, suite = build_train_backend("flagship", device="cuda", seed=0)
     step = trainer.make_es_step(backend, suite, TrainConfig(**base), m, 1, device="cuda", stateful_delta=True)
     flat = backend.step_info(0, m, 1).flat_ids
-    theta = backend.init_theta(torch.Generator().manual_seed(1))
+    theta = backend.init_theta(threefry.prng_key(1, "cuda"))
     delta = {k: {f: torch.zeros_like(t) for f, t in d.items()} for k, d in theta.items()}
     bare, fetch, loop = [], [], []
     for i in range(pairs + 1):
         for which in ((0, 1) if i % 2 == 0 else (1, 0)):
             if which == 0:
                 t0 = time.perf_counter()
-                theta, delta, metrics, _ = step(theta, delta, flat, 100 + i)
+                theta, delta, metrics, _ = step(theta, delta, flat, epoch_key(0, 100 + i, "cuda"))
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
                 {k: (v.tolist() if v.ndim else float(v)) for k, v in metrics.items()}
@@ -1427,6 +1466,21 @@ def train_overhead(torch, pairs: int = 8):
         f"{med(fetch) * 1e3:.2f} ms (median)")
     print(json.dumps({"train_overhead": out}))
     return out
+
+
+def kernel_checks_once(torch, phases: str = "k1,chain,k4,k4inf"):
+    """K1-K4's checks against their plain versions (``phase_k1_check``,
+    ``phase_chain_check``, ``phase_k4_check``, ``phase_k4_infinity``)
+    untimed (``timed=False``: each timed function called once, no CUDA
+    events, no profiler): the form that runs under
+    ``compute-sanitizer`` (not part of :func:`main`). Build first, outside
+    the tool, then run e.g. ``compute-sanitizer --tool memcheck python3 -c
+    "import torch, chip_smoke; chip_smoke.kernel_checks_once(torch, 'k1')"``."""
+    run = {"k1": phase_k1_check, "chain": phase_chain_check, "k4": phase_k4_check, "k4inf": phase_k4_infinity}
+    for name in phases.split(","):
+        run[name](torch, timed=False)
+        torch.cuda.synchronize()
+        log(f"[checks-once] {name}: passed")
 
 
 def _k4_inputs(torch, g, B, nq, L, H, dh, dt, kv_len=None):
@@ -1500,7 +1554,7 @@ def _k4_row(torch, g, tag, *, B, nq, L, kv, H, dh, dt_name, mask=None, reps=20, 
                 plain_device_ms=plain_dev_ms, host_us=h_us, gbytes_s=nbytes / ms / 1e6, **row)
 
 
-def phase_k4_check(torch):
+def phase_k4_check(torch, timed: bool = True):
     """K4 at the VAR-d16 scale shapes (bf16, the main path, and f32) by
     :func:`_k4_row`, beside the bf16 rows ``K4_BEFORE_MS``; then the cases
     off the main path (masked dh-128 cross-attention, a multi-tile kv prefix
@@ -1518,7 +1572,7 @@ def phase_k4_check(torch):
             before = dict(before_ms=K4_BEFORE_MS[si]) if main else {}
             rows.append(_k4_row(torch, g, f"VAR-d16 scale {si}", B=B, nq=nq, L=L, kv=kv, H=H, dh=dh,
                                 dt_name=dt_name, site=f"scale {si} (pn {pn})", main_path=main,
-                                calls_per_call=VAR_DEPTH if main else 0, **before))
+                                calls_per_call=VAR_DEPTH if main else 0, reps=20 if timed else 0, **before))
 
     extra = []
     for name, (Bx, nq, L2, Hx, dhx, kv, lens) in (
@@ -1644,14 +1698,14 @@ def inf_text_mask(torch):
 
     _, _, m, _ = RUNG_PLAN["inf_2b"]
     ids = default_step_info(0, len(BENCH_PROMPT_SET), m, 1).flat_ids
-    _, text = hash_text_features(BENCH_PROMPT_SET, 1)
+    _, text = hash_text_features(BENCH_PROMPT_SET, 1, torch.device("cpu"))
     cond = torch.cat([torch.ones(m, 1, dtype=torch.bool), text[ids]], dim=1)
     uncond = torch.zeros_like(cond)
     uncond[:, 0] = True
     return torch.cat([cond, uncond]).cuda()
 
 
-def phase_k4_infinity(torch):
+def phase_k4_infinity(torch, timed: bool = True):
     """K4 at the Infinity-2B shapes of its main path (bf16, its 8 rows) by
     :func:`_k4_row`: at each of the 14 scales, the dh-128 self-attention
     against the cache prefix (NaN past ``kv_len``) and the masked
@@ -1669,7 +1723,7 @@ def phase_k4_infinity(torch):
             rows.append(_k4_row(torch, g, f"Infinity-2B {site} scale {si}", B=INF_ROWS, nq=nq, L=cache, kv=kvl,
                                 H=INF_HEADS, dh=INF_DH, dt_name="bfloat16", mask=mask,
                                 site=f"{site} scale {si} (pn {pn})", attention=site, main_path=True,
-                                calls_per_call=INF_DEPTH))
+                                calls_per_call=INF_DEPTH, reps=20 if timed else 0))
         torch.cuda.empty_cache()
     return rows
 
@@ -1688,11 +1742,11 @@ def phase_inf_reference(torch):
     from hyperscalees_t2i_tpu_torch.es.noiser import sample_noise
     from hyperscalees_t2i_tpu_torch.lora import stack_adapters
     from hyperscalees_t2i_tpu_torch.models import clip, infinity as inf_mod
-    from hyperscalees_t2i_tpu_torch.ops.sampling import gumbel_from_uniform
     from hyperscalees_t2i_tpu_torch.rewards.suite import clip_text_embed_table, make_clip_reward_fn
     from hyperscalees_t2i_tpu_torch.rungs import PROMPT_TOKEN_LEN, infinity_rung_model
     from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
     from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
+    from hyperscalees_t2i_tpu_torch.utils import threefry
     from hyperscalees_t2i_tpu_torch.utils.pytree import tree_map
 
     spec = infinity_rung_model("tiny")
@@ -1705,10 +1759,10 @@ def phase_inf_reference(torch):
                                                              cross_attn_l2_norm=True))):
         bcfg = dataclasses.replace(spec["bcfg"], model=dataclasses.replace(spec["bcfg"].model, **flags),
                                    cfg_list=(3.0, 2.0), tau_list=(0.7,))
-        g = torch.Generator().manual_seed(41)
-        params = inf_mod.init_infinity(bcfg.model, g)
-        cparams = clip.init_clip(ccfg, g)
-        tids = torch.randint(0, ccfg.vocab_size, (len(prompts) + 2, PROMPT_TOKEN_LEN), generator=g)
+        kp, kc, ki = threefry.split(threefry.prng_key(41, "cpu"), 3)
+        params = inf_mod.init_infinity(bcfg.model, kp)
+        cparams = clip.init_clip(ccfg, kc)
+        tids = threefry.randint(ki, (len(prompts) + 2, PROMPT_TOKEN_LEN), 0, ccfg.vocab_size)
         with torch.inference_mode():
             table = clip_text_embed_table(clip.CLIPModel(ccfg, cparams), tids)
         outs, launches = {}, {}
@@ -1720,15 +1774,16 @@ def phase_inf_reference(torch):
             if dev.type == "cpu":
                 gen = torch.Generator().manual_seed(42)
                 thetas = []
-                for _ in range(2):
-                    th = backend.init_theta(gen)
+                for i in range(2):
+                    th = backend.init_theta(threefry.fold_in(threefry.prng_key(42, "cpu"), i))
                     thetas.append({k: {f: v + 0.1 * torch.randn(v.shape, generator=gen) for f, v in d.items()}
                                    for k, d in th.items()})
-                lanes_noise = gumbel_from_uniform(torch.rand(2, 2, *backend.noise_shape, generator=gen))
+                # two lanes' Gumbel noise, drawn on the CPU so both devices sample from the same numbers
+                lanes_noise = backend.sample_gen_noise(threefry.split(threefry.prng_key(44, "cpu")), range(2))
                 theta = thetas[0]
-                noise = sample_noise(torch.Generator().manual_seed(43), theta, pop, tc.es_config())
+                noise = sample_noise(threefry.prng_key(43, "cpu"), theta, pop, tc.es_config())
                 flat = backend.step_info(0, m, 1).flat_ids
-                gen_noise = backend.sample_gen_noise(gen, len(flat))
+                gen_noise = backend.sample_gen_noise(threefry.prng_key(45, "cpu"), range(len(flat)))
             else:
                 torch.cuda.synchronize()
                 _reset_counters()
@@ -1740,7 +1795,7 @@ def phase_inf_reference(torch):
                 launches["generate"] = _counters()
                 _reset_counters()
             step = make_es_step(backend, suite, tc, m, 1, device=dev)
-            theta_new, metrics, _ = step(theta, flat, 0, noise=noise, gen_noise=gen_noise)
+            theta_new, metrics, _ = step(theta, flat, threefry.prng_key(0, dev), noise=noise, gen_noise=gen_noise)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
                 launches["step"] = _counters()
@@ -1780,61 +1835,59 @@ def phase_inf_reference(torch):
 
 
 def phase_inf_es(torch):
-    """Infinity-2B's ES run on the card: the ``inf_2b`` rung built through
-    the CLI's ``build_backend`` (``--backend infinity --infinity_variant 2b
-    --pn 1M``: 14 scales to 1024×1024, the 32-bit tokenizer, released
-    attention flags, bf16, random weights from seed 0) with the rung's
-    reward suite (CLIP-B/32 and CLIP-H/14 at their published widths), then
+    """Infinity-2B's ES run on the card: the ``inf_2b`` rung
+    (``infinity_backend.build_train_backend("2b")``: 14 scales to
+    1024×1024, the 32-bit tokenizer, released attention flags, bf16, random
+    weights and the rung's reward suite, CLIP-B/32 and CLIP-H/14 at their
+    published widths, from seed 0) with the train CLI's settings, then
     ``run_training`` for ``INF_EPOCHS`` epochs (pop 4, 4 prompts,
-    member_batch 1), the first one warm. K4 must launch 2 × 14 × 32 = 896
-    times per generate call and nothing else of K1-K3. Then one generate
-    call's stages and profile (:func:`call_breakdown`), with its launches
-    counted too; peak device memory."""
+    member_batch 1), the first one warm. θ₀'s norm (``fold_in(PRNGKey(seed),
+    17)``, the JAX package's θ₀) beside ``theta_max_norm``. K4 must launch
+    2 × 14 × 32 = 896 times per generate call and nothing else of K1-K3.
+    Then one generate call's stages and profile (:func:`call_breakdown`),
+    with its launches counted too; the build's time and peak device memory."""
     import shutil
 
-    from hyperscalees_t2i_tpu_torch.device import generator_for
+    from hyperscalees_t2i_tpu_torch.backends.infinity_backend import build_train_backend
+    from hyperscalees_t2i_tpu_torch.es.caps import global_norm
     from hyperscalees_t2i_tpu_torch.es.noiser import perturb_member, sample_noise
     from hyperscalees_t2i_tpu_torch.models import bsq, infinity as inf_mod
-    from hyperscalees_t2i_tpu_torch.rewards.suite import build_random_reward_suite
-    from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, RUNG_PLAN, infinity_rung_model, rung_opt
-    from hyperscalees_t2i_tpu_torch.train import cli
-    from hyperscalees_t2i_tpu_torch.utils.pytree import resolve_float_dtype
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, infinity_rung_model, rung_opt
+    from hyperscalees_t2i_tpu_torch.train import cli, trainer
+    from hyperscalees_t2i_tpu_torch.utils import threefry
 
     scale, pop, m, mb = RUNG_PLAN["inf_2b"]
     opt = rung_opt("inf_2b")
     root = ROOT / "build" / "inf_es"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
-    (root / "prompts.txt").write_text("\n".join(BENCH_PROMPT_SET) + "\n")
     args = cli.build_parser().parse_args([
-        "--backend", "infinity", "--infinity_variant", scale, "--pn", "1M", "--prompts_txt", str(root / "prompts.txt"),
-        "--pop_size", str(pop), "--prompts_per_gen", str(m), "--member_batch", str(mb),
+        "--backend", "infinity", "--pop_size", str(pop), "--prompts_per_gen", str(m), "--member_batch", str(mb),
         "--num_epochs", str(INF_EPOCHS), "--run_dir", str(root), "--run_name", "inf_2b", "--resume", "false",
-        "--allow_random_rewards", "true", "--tower_dtype", opt["tower_dtype"]])
+        "--tower_dtype", opt["tower_dtype"]])
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    backend = cli.build_backend(args, dev)
-    backend.setup()
-    spec = infinity_rung_model(scale, tower_dtype=opt["tower_dtype"])
-    if backend.cfg.model != spec["bcfg"].model:
-        raise AssertionError(f"the CLI built {backend.cfg.model}, not the inf_2b model")
-    suite = build_random_reward_suite(spec["clip_b"], spec["clip_h"], backend.num_items, generator_for(dev, 2),
-                                      resolve_float_dtype(opt["tower_dtype"]))
+    backend, suite = build_train_backend(scale, device=dev, seed=0)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    build_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if backend.cfg.model != infinity_rung_model(scale)["bcfg"].model:
+        raise AssertionError(f"the rung built {backend.cfg.model}, not the inf_2b model")
     built_gib = torch.cuda.memory_allocated() / 2**30
     mcfg = backend.cfg.model
     per_call = 2 * len(mcfg.patch_nums) * mcfg.depth
     calls = -(-pop // mb)
     expected1 = {"int8_matmul": 0, "lora_chain": 0, "fused_qlora": 0, "decode_attention": per_call * calls}
     tc = cli.train_config(args)
+    theta0_norm = float(global_norm(trainer._init_theta(backend, tc, dev)))
     log(f"[inf] Infinity-2B ES backend (depth {mcfg.depth}, d {mcfg.d_model}, {mcfg.n_heads} heads of "
         f"{mcfg.head_dim}, L {mcfg.seq_len}, {mcfg.vq.bits} bits, {mcfg.vq.grid}→"
-        f"{mcfg.vq.grid * 2 ** (len(mcfg.vq.dec_ch) - 1)} px) built in {build_s:.1f} s; device memory "
-        f"{built_gib:.2f} GiB; {calls} generate calls per epoch of {mb} lane × {m} images × 2 (CFG) = {2 * mb * m} "
-        f"rows; K4 {per_call} per call")
+        f"{mcfg.vq.grid * 2 ** (len(mcfg.vq.dec_ch) - 1)} px) built in {build_s:.1f} s (peak device memory "
+        f"{build_peak_gib:.2f} GiB); device memory {built_gib:.2f} GiB; {calls} generate calls per epoch of {mb} "
+        f"lane × {m} images × 2 (CFG) = {2 * mb * m} rows; K4 {per_call} per call; θ₀ = init_theta(fold_in("
+        f"PRNGKey({tc.seed}), 17)) norm {theta0_norm:.4f} against theta_max_norm {tc.theta_max_norm}")
     state, history, launches, wall_s = _train(torch, backend, suite, tc, expected1, "inf_2b run_training")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     step_s = [h["step_time_s"] for h in history]
@@ -1852,9 +1905,9 @@ def phase_inf_es(torch):
     if not torch.equal(backend.text_mask[ids], inf_text_mask(torch)[:m, 1:]):
         raise AssertionError("phase_k4_infinity's text mask is not the inf_2b run's")
     with torch.inference_mode():
-        noise = sample_noise(torch.Generator(device=dev).manual_seed(5), state.theta, pop, tc.es_config())
+        noise = sample_noise(threefry.prng_key(5, dev), state.theta, pop, tc.es_config())
         theta_k = perturb_member(state.theta, noise, 0, pop, tc.es_config())
-    gen_noise = backend.sample_gen_noise(torch.Generator(device=dev).manual_seed(6), len(ids))
+    gen_noise = backend.sample_gen_noise(threefry.prng_key(6, dev), range(len(ids)))
     cfg = backend.cfg
     torch.cuda.synchronize()
     _reset_counters()
@@ -1871,6 +1924,7 @@ def phase_inf_es(torch):
         raise AssertionError(f"{reps + 2} profiled-phase generate calls launched {call_launches}, expected "
                              f"{per_call} K4 each")
     stats = dict(plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s, built_gib=built_gib,
+                 build_peak_gib=build_peak_gib, theta0_norm=theta0_norm, theta_max_norm=tc.theta_max_norm,
                  peak_mem_gib=peak_gib, step_time_s=step_s, images_per_epoch=pop * m,
                  images_per_s=[pop * m / s for s in step_s], wall_s=wall_s, launches=launches,
                  expected_launches={k: v * INF_EPOCHS for k, v in expected1.items()},
@@ -1904,29 +1958,31 @@ def phase_var_reference(torch):
     """The tiny VAR geometry in f32 on the card against the CPU, on the same
     weights: one ``generate`` (two lanes with different adapters, injected
     Gumbel noise): token ids equal, images within 1e-4; one ES step (pop 4,
-    member_batch 2): θ′ and reward rows within 1e-4, K4 launches exactly
-    calls × scales × depth."""
+    member_batch 2, σ 0.1): θ′ and reward rows within 1e-4, ‖Δθ‖ > 0, K4
+    launches exactly calls × scales × depth."""
     from hyperscalees_t2i_tpu_torch.backends.var_backend import VarBackend
     from hyperscalees_t2i_tpu_torch.es.noiser import sample_noise
     from hyperscalees_t2i_tpu_torch.lora import stack_adapters
     from hyperscalees_t2i_tpu_torch.models import clip, var as var_mod
-    from hyperscalees_t2i_tpu_torch.ops.sampling import gumbel_from_uniform
     from hyperscalees_t2i_tpu_torch.rewards.suite import clip_text_embed_table, make_clip_reward_fn
     from hyperscalees_t2i_tpu_torch.rungs import PROMPT_TOKEN_LEN, var_rung_model
     from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
     from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
+    from hyperscalees_t2i_tpu_torch.utils import threefry
     from hyperscalees_t2i_tpu_torch.utils.pytree import tree_map
 
     spec = var_rung_model("tiny")
     bcfg, ccfg = spec["bcfg"], spec["clip_b"]
-    g = torch.Generator().manual_seed(31)
-    params = var_mod.init_var(bcfg.model, g)
-    cparams = clip.init_clip(ccfg, g)
-    tids = torch.randint(0, ccfg.vocab_size, (bcfg.model.num_classes + 2, PROMPT_TOKEN_LEN), generator=g)
+    kp, kc, ki = threefry.split(threefry.prng_key(31, "cpu"), 3)
+    params = var_mod.init_var(bcfg.model, kp)
+    cparams = clip.init_clip(ccfg, kc)
+    tids = threefry.randint(ki, (bcfg.model.num_classes + 2, PROMPT_TOKEN_LEN), 0, ccfg.vocab_size)
     with torch.inference_mode():
         table = clip_text_embed_table(clip.CLIPModel(ccfg, cparams), tids)
     pop, m, mb = 4, 4, 2
-    tc = TrainConfig(pop_size=pop, sigma=0.01, egg_rank=4, member_batch=mb)
+    # σ 0.1: at 0.01 no member's perturbation flips a token of this tiny
+    # model on these draws, every reward row is the same and the update is 0
+    tc = TrainConfig(pop_size=pop, sigma=0.1, egg_rank=4, member_batch=mb)
     outs = {}
     for dev in (torch.device("cpu"), torch.device("cuda")):
         on = lambda t: tree_map(lambda a: a.to(dev), t)  # noqa: E731
@@ -1937,21 +1993,22 @@ def phase_var_reference(torch):
             gen = torch.Generator().manual_seed(32)
             thetas = []
             for i in range(2):
-                th = backend.init_theta(gen)
+                th = backend.init_theta(threefry.fold_in(threefry.prng_key(32, "cpu"), i))
                 thetas.append({k: {f: v + 0.1 * torch.randn(v.shape, generator=gen) for f, v in d.items()}
                                for k, d in th.items()})
-            lanes_noise = gumbel_from_uniform(torch.rand(2, 2, *backend.noise_shape, generator=gen))
+            # two lanes' Gumbel noise, drawn on the CPU so both devices sample from the same numbers
+            lanes_noise = backend.sample_gen_noise(threefry.split(threefry.prng_key(34, "cpu")), range(2))
             theta = thetas[0]
-            noise = sample_noise(torch.Generator().manual_seed(33), theta, pop, tc.es_config())
+            noise = sample_noise(threefry.prng_key(33, "cpu"), theta, pop, tc.es_config())
             flat = backend.step_info(0, m, 1).flat_ids
-            gen_noise = backend.sample_gen_noise(gen, len(flat))
+            gen_noise = backend.sample_gen_noise(threefry.prng_key(35, "cpu"), range(len(flat)))
         with torch.inference_mode(), _RecordCalls(var_mod, "sample_top_k_top_p") as rec:
             images = backend.generate_p(on(stack_adapters(thetas)), [[0, 1], [2, 3]], None, noise=lanes_noise.to(dev))
         if dev.type == "cuda":
             torch.cuda.synchronize()
             _reset_counters()
         step = make_es_step(backend, suite, tc, m, 1, device=dev)
-        theta_new, metrics, _ = step(theta, flat, 0, noise=noise, gen_noise=gen_noise)
+        theta_new, metrics, _ = step(theta, flat, threefry.prng_key(0, dev), noise=noise, gen_noise=gen_noise)
         if dev.type == "cuda":
             torch.cuda.synchronize()
             launches = _counters()
@@ -2064,6 +2121,7 @@ def phase_var_es(torch):
     from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
     from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
     from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
+    from hyperscalees_t2i_tpu_torch.utils import threefry
 
     scale, pop, m, mb = RUNG_PLAN["ar_d16"]
     opt = rung_opt("ar_d16")
@@ -2085,17 +2143,156 @@ def phase_var_es(torch):
     log(f"[var] VAR-d16 ES backend built in {build_s:.1f} s; device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; {calls} generate calls per epoch of {mb} lanes × {B} "
         f"images × 2 (CFG) = {2 * mb * B} rows; K4 {per_call} per call")
-    theta = backend.init_theta(torch.Generator().manual_seed(1))  # a fresh run's θ: b = 0
+    theta = backend.init_theta(threefry.prng_key(1, "cuda"))  # a fresh run's θ: b = 0
     theta, run = timed_epochs(torch, step, theta, info.flat_ids, reward, expected1, pop, 1, "var", "VAR-d16 ES epoch")
-    noise = sample_noise(torch.Generator(device="cuda").manual_seed(5), theta, pop, tc.es_config())
+    noise = sample_noise(threefry.prng_key(5, "cuda"), theta, pop, tc.es_config())
     ids = torch.as_tensor(info.flat_ids, device="cuda")
-    gen_noise = backend.sample_gen_noise(torch.Generator(device="cuda").manual_seed(6), B)
+    gen_noise = backend.sample_gen_noise(threefry.prng_key(6, "cuda"), range(B))
     breakdown = var_stage_breakdown(torch, backend, suite, theta, noise, tc, ids, gen_noise)
     stats = dict(plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s,
                  per_call={"k4_per_call": per_call, "calls": calls}, call_breakdown_ms=breakdown, **run)
     del backend, suite, reward, step
     torch.cuda.empty_cache()
     return stats
+
+
+# card vs CPU on the normals and Gumbels of the stream: both apply the same
+# erf_inv polynomial and -log(-log u) to bitwise-equal uniforms; only the
+# devices' log1p/log/sqrt rounding differs
+THREEFRY_ATOL = 1e-5
+# flat elements per key that the CPU re-draws at each end of a card draw
+THREEFRY_CPU_SPAN = 1 << 18
+
+
+class _DrawLog:
+    """Records every whole draw ``utils.threefry._draw`` makes (key, shape,
+    converter, dtype) while active."""
+
+    def __init__(self, threefry):
+        self.tf, self.orig, self.calls = threefry, threefry._draw, []
+
+    def __enter__(self):
+        def rec(key, shape, convert, dtype):
+            self.calls.append((key.clone(), self.tf._shape(shape), convert, dtype))
+            return self.orig(key, shape, convert, dtype)
+
+        self.tf._draw = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.tf._draw = self.orig
+
+
+def phase_threefry(torch, flagship_backend):
+    """The JAX noise stream (``utils.threefry``) on the card at each path's
+    full-width draws: the flagship ES noise for the flagship θ (bf16 store),
+    the flagship Sana latents of one ES epoch, the VAR-d16 Gumbel slab of
+    one generate call (every scale, 4 images), Infinity-2B's Gumbel noise of
+    one generate call, and one whole stacked Infinity-2B leaf
+    (``blocks/ada_lin/kernel``, 805 M normals, drawn in chunks). Every
+    primitive draw that a path makes is re-drawn on the CPU over its first
+    and last ``THREEFRY_CPU_SPAN`` flat elements per key: the random bits
+    and the uniforms (on [0, 1), on normal's and on Gumbel's ranges) must be
+    bitwise equal, the normals and Gumbels within ``THREEFRY_ATOL``. Each
+    path's draw is timed by CUDA events (``time_ms``), by device time under
+    the profiler, with its kernel count. Returns one row per path."""
+    from hyperscalees_t2i_tpu_torch.es.noiser import sample_noise
+    from hyperscalees_t2i_tpu_torch.models import sana
+    from hyperscalees_t2i_tpu_torch.ops.sampling import per_scale_gumbel
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, infinity_rung_model, rung_opt, var_rung_model
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+    from hyperscalees_t2i_tpu_torch.utils import threefry
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    cpu = torch.device("cpu")
+    _, pop, m, _ = RUNG_PLAN["flagship"]
+    opt = rung_opt("flagship")
+    es_cfg = TrainConfig(pop_size=pop, egg_rank=4, noise_dtype=opt["noise_dtype"]).es_config()
+    theta = flagship_backend.init_theta(threefry.prng_key(1, dev))
+    var_m = var_rung_model("d16")["bcfg"].model
+    inf_m = infinity_rung_model("2b")["bcfg"].model
+    ada = (inf_m.depth, inf_m.d_model, 6 * inf_m.d_model)
+    paths = {
+        "flagship_es_noise": lambda: sample_noise(threefry.prng_key(5, dev), theta, pop, es_cfg),
+        "flagship_latents": lambda: flagship_backend.sample_gen_noise(threefry.prng_key(6, dev), range(m)),
+        "var_d16_gumbel": lambda: per_scale_gumbel(threefry.prng_key(6, dev), range(RUNG_PLAN["ar_d16"][2]),
+                                                   var_m.patch_nums, (var_m.vq.vocab_size,)),
+        "inf_2b_gumbel": lambda: per_scale_gumbel(threefry.prng_key(6, dev), range(RUNG_PLAN["inf_2b"][2]),
+                                                  inf_m.patch_nums, (inf_m.vq.bits, 2)),
+        "inf_2b_leaf": lambda: threefry.normal(threefry.prng_key(7, dev), ada),
+    }
+    los = {"unit": (0.0, 1.0), "normal": (threefry.NORMAL_LO, 1.0), "gumbel": (threefry.F32_TINY, 1.0)}
+    rows = []
+    for name, fn in paths.items():
+        with torch.inference_mode(), _DrawLog(threefry) as rec:
+            fn()
+        torch.cuda.synchronize()
+        ms = time_ms(torch, [fn], 3)
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        _, dev_ms, n_kernels, _ = device_kernels(torch, prof)
+        elements = sum(math.prod(k.shape[:-1]) * math.prod(shape) for k, shape, _, _ in rec.calls)
+        worst, checked = 0.0, 0
+        for key, shape, convert, dtype in rec.calls:
+            n = math.prod(shape)
+            span = max(1, THREEFRY_CPU_SPAN // max(1, math.prod(key.shape[:-1])))
+            ranges = [(0, min(n, span))] + ([(n - span, n)] if n > span else [])
+            for lo, hi in ranges:
+                both = [threefry.flat_bits(k, torch.arange(lo, hi, dtype=torch.int64, device=k.device))
+                        for k in (key, key.to(cpu))]
+                if not torch.equal(both[0].cpu(), both[1]):
+                    raise AssertionError(f"threefry {name}: card and CPU bits differ on {shape} [{lo}, {hi})")
+                for kind, (a, b) in los.items():
+                    u = [threefry.uniform_from_bits(x, a, b) for x in both]
+                    if not torch.equal(u[0].cpu(), u[1]):
+                        raise AssertionError(f"threefry {name}: card and CPU {kind} uniforms differ on {shape}")
+                vals = [convert(x) for x in both]
+                if dtype != torch.int64:
+                    err = float((vals[0].cpu() - vals[1]).abs().max())
+                    if not err <= THREEFRY_ATOL:
+                        raise AssertionError(f"threefry {name}: card and CPU values differ by {err} on {shape}")
+                    worst = max(worst, err)
+                checked += vals[1].numel()
+        row = dict(path=name, draws=len(rec.calls), elements=elements, ms=ms, device_ms=dev_ms,
+                   kernels=n_kernels, cpu_checked_elements=checked, max_abs_card_vs_cpu=worst,
+                   gelements_per_s=elements / ms / 1e6)
+        rows.append(row)
+        log(f"[threefry] {name}: {len(rec.calls)} draws, {elements} elements: {ms:.3f} ms (CUDA events), "
+            f"{dev_ms:.3f} ms device time over {n_kernels} kernels = {row['gelements_per_s']:.2f} G elements/s; "
+            f"card vs CPU on {checked} elements: bits and uniforms bitwise equal, values max abs {worst:.3g} "
+            f"(tol {THREEFRY_ATOL})")
+        torch.cuda.empty_cache()
+    del theta
+    return rows
+
+
+def threefry_shares(rows, es, var_es, inf_es):
+    """Each path's draw time as a share of the epoch (or call) that draws it
+    once, from this run's path phases: the flagship ES noise and latents
+    per flagship ES epoch, VAR-d16's Gumbel slab per VAR epoch and per one
+    generate call's generation stage, Infinity-2B's Gumbel per epoch and per
+    generation stage, its stacked leaf per backend build."""
+    import statistics
+
+    med = statistics.median
+    per = {
+        "flagship_es_noise": {"flagship_es_epoch_ms": med(es["epoch_s"]) * 1e3},
+        "flagship_latents": {"flagship_es_epoch_ms": med(es["epoch_s"]) * 1e3},
+        "var_d16_gumbel": {"var_d16_es_epoch_ms": med(var_es["epoch_s"]) * 1e3,
+                           "var_d16_generation_ms": var_es["call_breakdown_ms"]["generation"]},
+        "inf_2b_gumbel": {"inf_2b_epoch_ms": med(inf_es["step_time_s"][1:]) * 1e3,
+                          "inf_2b_generation_ms": inf_es["call_breakdown_ms"]["generation"]},
+        "inf_2b_leaf": {"inf_2b_build_ms": inf_es["build_s"] * 1e3},
+    }
+    for r in rows:
+        r["share"] = {k: r["ms"] / v for k, v in per[r["path"]].items()}
+        log(f"[threefry] {r['path']}: {r['ms']:.3f} ms = " +
+            ", ".join(f"{share:.4%} of {k[:-3]} ({per[r['path']][k]:.1f} ms)" for k, share in r["share"].items()))
+    return rows
 
 
 def kernel_summary(name, rows, launches, calls_key, replaces, scope):
@@ -2160,6 +2357,7 @@ def main() -> int:
     inf_es = phase_inf_es(torch)
     es, flagship = phase_es_flagship(torch, keep=True)
     train = phase_train_flagship(torch, *flagship, es)
+    threefry_rows = threefry_shares(phase_threefry(torch, flagship[0]), es, var_es, inf_es)
     del flagship
 
     train_launches = lambda k: sum(run[k] for run in train["launches"])  # noqa: E731
@@ -2218,6 +2416,7 @@ def main() -> int:
         k1_shapes=k1_rows, chain_shapes=chain_rows, k4_shapes=k4_rows, k4_cases=k4_extra, k4_infinity_shapes=k4_inf_rows,
         small_reference_max_abs=small_err, es_tiny=es_tiny, es_small=es_small, var_tiny=var_tiny, inf_tiny=inf_tiny,
         es_flagship_float=es_float, serve=serve, var_es=var_es, inf_es=inf_es, es_flagship=es, train_tiny=train_tiny,
+        threefry=threefry_rows,
         train_flagship=train, kernels=kernels, k1_serving=k1_serve, k4_infinity=k4_inf,
         wall_s=wall_s,
     ), indent=1))

@@ -20,7 +20,10 @@ package so each unit's counterpart is easy to find. What is ported so far:
   from ``obs.quality``, checkpoint slots from ``resilience.checkpoints``
   in the JAX package's file format, resume, the non-finite rollback,
   SIGTERM/SIGINT preemption) and its CLI, ``python -m
-  hyperscalees_t2i_tpu_torch.train.cli``.
+  hyperscalees_t2i_tpu_torch.train.cli``;
+- the JAX noise stream, ``utils.threefry`` (threefry2x32 keys, ``split``,
+  ``fold_in``, ``normal``, Gumbel, ``randint``): every draw of the port
+  follows the JAX package's key tree, so a seed gives its numbers.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit CPU request they raise (:mod:`.device`).

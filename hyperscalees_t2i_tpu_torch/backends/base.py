@@ -5,7 +5,7 @@ frozen arrays through a pure, jitted ``generate_p(frozen, theta, ids,
 key)``; eager PyTorch has no
 compiled program to keep constants out of, so the backend holds its frozen
 modules itself and ``generate_p`` takes a *lane-stacked* adapter batch
-instead: ``n`` adapters, each with its own ``b`` prompts and its own seed.
+instead: ``n`` adapters, each with its own ``b`` prompts and its own key.
 ``make_frozen`` has no counterpart: the backend's modules hold the frozen
 weights as buffers, and the reward suite holds the towers the same way.
 """
@@ -50,8 +50,9 @@ class GeneratorBackend(Protocol):
     name: str
     device: torch.device
 
-    def init_theta(self, generator: torch.Generator) -> Adapter:
-        """A fresh adapter tree (identity at init)."""
+    def init_theta(self, key: torch.Tensor) -> Adapter:
+        """A fresh adapter tree (identity at init) from a ``utils.threefry``
+        key, the JAX package's draws."""
         ...
 
     @property
@@ -75,21 +76,33 @@ class GeneratorBackend(Protocol):
         """Shape of one image's generation noise."""
         ...
 
-    def sample_gen_noise(self, generator: torch.Generator, count: int) -> torch.Tensor:
-        """One ES epoch's generation noise ``[count, *noise_shape]``, drawn
-        from ``generator`` on its device; every member shares it."""
+    def sample_gen_noise(self, key: torch.Tensor, item_index: Sequence[int]) -> torch.Tensor:
+        """Generation noise ``[..., len(item_index), *noise_shape]`` on the
+        key's device (a batch of keys ``[..., 2]`` draws each key's),
+        image ``i`` from the key folded with ``item_index[i]`` as the JAX
+        package's generator folds it. An ES epoch draws its global item
+        indices once and every member shares the noise."""
         ...
 
     def generate_p(
         self,
         stacked_theta: Optional[Adapter],
         flat_ids: torch.Tensor,
-        seeds: Optional[Sequence[int]],
+        keys: Optional[torch.Tensor],
         noise: Optional[torch.Tensor] = None,
         guidance_scale: Optional[float] = None,
     ) -> torch.Tensor:
-        """``flat_ids [n, b]`` catalog indices, one adapter and one seed per
-        lane → images ``[n, b, H, W, 3]`` in [0, 1]. Image ``j`` of lane
-        ``i`` draws its noise from ``(seeds[i], j)`` only, unless ``noise
-        [n, b, *noise_shape]`` is given."""
+        """``flat_ids [n, b]`` catalog indices, one adapter and one key
+        (``keys [n, 2]``) per lane → images ``[n, b, H, W, 3]`` in [0, 1].
+        Image ``j`` of lane ``i`` draws its noise from
+        ``sample_gen_noise(keys[i], [j])`` only, unless ``noise [n, b,
+        *noise_shape]`` is given."""
         ...
+
+
+def lane_keys(keys: Optional[torch.Tensor], n: int, device: torch.device) -> torch.Tensor:
+    """``keys [n, 2]`` on ``device``; raises unless there is one key a lane."""
+    if keys is None or tuple(keys.shape) != (n, 2):
+        raise ValueError(f"{n} lanes need keys [{n}, 2] or explicit noise, got "
+                         f"{None if keys is None else tuple(keys.shape)}")
+    return keys.to(device)

@@ -4,17 +4,15 @@ Port of ``hyperscalees_t2i_tpu/backends/infinity_backend.py``. The prompt
 catalog comes from an encoded-prompt cache (``utils/prompt_cache``'s
 Infinity kind) or, without one, from a prompt file (``a photo of a cat``
 without one) with hash-fallback text features: 16 positions of
-``text_dim`` standard-normal features a prompt, seeded by the prompt's
-text, and prompt ``i``'s last ``i % 3`` positions masked out. The JAX
-package draws those features with ``jax.random`` (threefry), which the
-port does not reproduce (ROADMAP queue A item 4): its draws come from a
-CPU ``torch.Generator`` seeded by ``item_seed(777, stable_text_seed(p))``,
-and the tests carry the JAX features across instead (``text=``).
+``text_dim`` standard-normal features a prompt, drawn as the JAX package
+draws them from ``fold_in(PRNGKey(777), stable_text_seed(p))``, and prompt
+``i``'s last ``i % 3`` positions masked out.
 
-Generation noise is Gumbel noise ``[L, bits, 2]`` per image: image ``j``
-of a served lane draws it from ``(seed, j)`` only, and an ES epoch draws
-one ``[B, L, bits, 2]`` block that every member shares
-(:meth:`InfinityBackend.sample_gen_noise`).
+Generation noise is Gumbel noise ``[L, bits, 2]`` per image, from the JAX
+package's per-scale ``jax.random.categorical`` keys
+(``ops.sampling.per_scale_gumbel``): a served lane draws it from the
+request's key, and an ES epoch draws one ``[B, L, bits, 2]`` block that
+every member shares (:meth:`InfinityBackend.sample_gen_noise`).
 
 :func:`build_train_backend` builds the backend and the reward suite of the
 ``inf_2b`` rung (``rungs.infinity_rung_model``).
@@ -28,17 +26,19 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..device import DeviceLike, generator_for, resolve_device
+from ..device import DeviceLike, resolve_device
 from ..lora import LoRASpec, init_lora
 from ..models import bsq, infinity as inf_mod
-from ..ops.sampling import gumbel_from_uniform, per_image_gumbel
+from ..ops.sampling import per_scale_gumbel
 from ..rungs import BENCH_PROMPT_SET, infinity_rung_model, rung_opt
+from ..utils import threefry
 from ..utils.pytree import cast_floating, resolve_float_dtype, tree_map
-from ..utils.seeding import item_seed, stable_text_seed
-from .base import StepInfo, default_step_info
+from ..utils.seeding import stable_text_seed
+from .base import StepInfo, default_step_info, lane_keys
 
 Params = Dict[str, Any]
 HASH_TEXT_LEN = 16  # positions of a hash-fallback prompt
+HASH_TEXT_SEED = 777
 
 
 @dataclasses.dataclass
@@ -57,15 +57,16 @@ class InfinityBackendConfig:
     seed_params: int = 0
 
 
-def hash_text_features(prompts: Sequence[str], text_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``([P, 16, text_dim] f32, [P, 16] bool)``: prompt ``i``'s features
-    from a CPU generator seeded by its text, its last ``i % 3`` positions
-    masked."""
-    emb = [torch.randn(HASH_TEXT_LEN, text_dim,
-                       generator=torch.Generator().manual_seed(item_seed(777, stable_text_seed(p))))
-           for p in prompts]
-    mask = torch.stack([torch.arange(HASH_TEXT_LEN) < HASH_TEXT_LEN - (i % 3) for i in range(len(prompts))])
-    return torch.stack(emb), mask
+def hash_text_features(prompts: Sequence[str], text_dim: int,
+                       device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``([P, 16, text_dim] f32, [P, 16] bool)`` on ``device``: prompt
+    ``p``'s features from ``fold_in(PRNGKey(777), stable_text_seed(p))``,
+    prompt ``i``'s last ``i % 3`` positions masked."""
+    seeds = torch.tensor([stable_text_seed(p) for p in prompts], device=device)
+    emb = threefry.normal(threefry.fold_in(threefry.prng_key(HASH_TEXT_SEED, device), seeds), (HASH_TEXT_LEN, text_dim))
+    mask = torch.stack([torch.arange(HASH_TEXT_LEN, device=device) < HASH_TEXT_LEN - (i % 3)
+                        for i in range(len(prompts))])
+    return emb, mask
 
 
 class InfinityBackend:
@@ -73,8 +74,8 @@ class InfinityBackend:
     its BSQ tokenizer) and the prompt catalog's text features on
     ``device``, and generates images for lane-stacked adapter batches.
     ``params`` is a tree in the JAX package's layout; a missing one is drawn
-    from ``cfg.seed_params`` by :meth:`setup`, and a tree without ``"vq"``
-    gets a random tokenizer. ``prompts`` replaces the prompt file and
+    from ``PRNGKey(cfg.seed_params)`` by :meth:`setup`, and a tree without
+    ``"vq"`` gets a random tokenizer from the same key. ``prompts`` replaces the prompt file and
     ``text = (text_emb [P, Lt, text_dim], text_mask [P, Lt])`` the
     catalog's features (the tests carry the JAX package's across)."""
 
@@ -99,13 +100,13 @@ class InfinityBackend:
     def setup(self) -> None:
         if self.model is None:
             params = self._params
+            key = threefry.prng_key(self.cfg.seed_params, self.device)
             if params is None:
-                params = inf_mod.init_infinity(self.cfg.model, generator_for(self.device, self.cfg.seed_params))
+                params = inf_mod.init_infinity(self.cfg.model, key)
             elif "vq" not in params:
                 print("[infinity] BSQ VAE is random-init (transformer-only tree): decoded pixels are not "
                       "meaningful", flush=True)
-                params = dict(params, vq=bsq.init_bsq(self.cfg.model.vq,
-                                                      generator_for(self.device, self.cfg.seed_params)))
+                params = dict(params, vq=bsq.init_bsq(self.cfg.model.vq, key))
             self.param_shapes = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), params)
             self.model = inf_mod.InfinityTransformer(self.cfg.model, params).to(self.device)
             self._params = None
@@ -132,12 +133,11 @@ class InfinityBackend:
         if self.cfg.enable_positive_prompt:
             prompts = [aug_with_positive_prompt(p) for p in prompts]
         self.prompts = prompts
-        emb, mask = hash_text_features(prompts, self.cfg.model.text_dim)
-        self.text_emb, self.text_mask = emb.to(self.device), mask.to(self.device)
+        self.text_emb, self.text_mask = hash_text_features(prompts, self.cfg.model.text_dim, self.device)
 
     # -- protocol ------------------------------------------------------------
-    def init_theta(self, generator: torch.Generator) -> Dict[str, Dict[str, torch.Tensor]]:
-        return init_lora(self.param_shapes, self._spec, generator, device=torch.device("cpu"))
+    def init_theta(self, key: torch.Tensor) -> Dict[str, Dict[str, torch.Tensor]]:
+        return init_lora(self.param_shapes, self._spec, key, device=torch.device("cpu"))
 
     @property
     def lora_scale(self) -> float:
@@ -158,51 +158,49 @@ class InfinityBackend:
     def noise_shape(self) -> Tuple[int, int, int]:
         return (self.cfg.model.seq_len, self.cfg.model.vq.bits, 2)
 
-    def sample_gen_noise(self, generator: torch.Generator, count: int) -> torch.Tensor:
-        """One ES epoch's sampling noise ``[count, L, bits, 2]``: standard
-        Gumbel ``-log(-log U)`` from ``generator``."""
-        u = torch.rand((count, *self.noise_shape), generator=generator, device=generator.device)
-        return gumbel_from_uniform(u)
+    def sample_gen_noise(self, key: torch.Tensor, item_index: Sequence[int]) -> torch.Tensor:
+        """Sampling noise ``[len(item_index), L, bits, 2]`` on the key's
+        device: the Gumbel noise of the JAX package's per-scale, per-image
+        keys."""
+        return per_scale_gumbel(key, item_index, self.cfg.model.patch_nums, (self.cfg.model.vq.bits, 2))
 
     def generate_p(
         self,
         stacked_theta: Optional[Params],
         flat_ids: Any,
-        seeds: Optional[Sequence[int]],
+        keys: Optional[torch.Tensor],
         noise: Optional[torch.Tensor] = None,
         guidance_scale: Optional[float] = None,
     ) -> torch.Tensor:
         """``[n, b]`` catalog indices with ``n`` lane-stacked adapters and
-        ``n`` seeds → images ``[n, b, H, W, 3]``. Image ``j`` of lane ``i`` draws its Gumbel
-        noise from ``(seeds[i], j)``; ``noise [n, b, L, bits, 2]`` replaces
-        the draw. ``guidance_scale`` replaces the CFG schedule by one
-        constant."""
+        ``n`` keys ``[n, 2]`` → images ``[n, b, H, W, 3]``. Image ``j`` of
+        lane ``i`` draws its Gumbel noise from ``keys[i]`` and ``j``;
+        ``noise [n, b, L, bits, 2]`` replaces the draw. ``guidance_scale``
+        replaces the CFG schedule by one constant."""
         cfg = self.cfg
         ids = torch.as_tensor(flat_ids, dtype=torch.long, device=self.device)
         n, b = ids.shape
         if noise is None:
-            if seeds is None or len(seeds) != n:
-                raise ValueError(f"{n} lanes need {n} seeds or explicit noise, got seeds {seeds}")
-            noise = torch.stack([per_image_gumbel(s, range(b), self.noise_shape, self.device) for s in seeds])
-        else:
-            noise = noise.reshape(n, b, *self.noise_shape)
+            noise = self.sample_gen_noise(lane_keys(keys, n, self.device), range(b))
+        noise = noise.reshape(n, b, *self.noise_shape)
         return inf_mod.generate(
             self.model, self.text_emb[ids], self.text_mask[ids], noise,
             cfg_list=cfg.cfg_list if guidance_scale is None else (guidance_scale,), tau_list=cfg.tau_list,
             lora=stacked_theta, lora_scale=self.lora_scale,
         )
 
-    def generate(self, theta: Optional[Params], flat_ids: Sequence[int], seed: int) -> torch.Tensor:
+    def generate(self, theta: Optional[Params], flat_ids: Sequence[int], key: torch.Tensor) -> torch.Tensor:
         """One adapter, one request: ``[b]`` catalog indices → ``[b, H, W, 3]``."""
         stacked = None
         if theta is not None:
             stacked = {k: {f: t.to(self.device)[None] for f, t in v.items()} for k, v in theta.items()}
-        return self.generate_p(stacked, [list(flat_ids)], [seed])[0]
+        return self.generate_p(stacked, [list(flat_ids)], key[None])[0]
 
 
 def build_train_backend(scale: str = "2b", device: DeviceLike = None, seed: int = 0):
     """The Infinity backend and the reward suite of the ``inf_2b`` rung:
-    random weights from ``seed`` on the device, their float leaves cast to
+    random weights from ``split(PRNGKey(seed))``'s first key on the device
+    (the reward suite from its second), their float leaves cast to
     the model's compute dtype (bf16 at ``"2b"``; ``"tiny"`` stays f32), the
     ``BENCH_PROMPT_SET`` catalog with hash-fallback text features, CLIP-B/32
     and the CLIP-H/14 PickScore tower at their published widths (``"2b"``)
@@ -215,9 +213,10 @@ def build_train_backend(scale: str = "2b", device: DeviceLike = None, seed: int 
     dev = resolve_device(device)
     spec = infinity_rung_model(scale, tower_dtype=opt["tower_dtype"])
     bcfg = spec["bcfg"]
-    params = cast_floating(inf_mod.init_infinity(bcfg.model, generator_for(dev, seed)), bcfg.model.compute_dtype)
+    kt, kc = threefry.split(threefry.prng_key(seed, dev))
+    params = cast_floating(inf_mod.init_infinity(bcfg.model, kt), bcfg.model.compute_dtype)
     backend = InfinityBackend(bcfg, dev, params=params, prompts=list(BENCH_PROMPT_SET))
     del params
     backend.setup()
-    return backend, build_random_reward_suite(spec["clip_b"], spec["clip_h"], backend.num_items,
-                                              generator_for(dev, seed + 2), resolve_float_dtype(opt["tower_dtype"]))
+    return backend, build_random_reward_suite(spec["clip_b"], spec["clip_h"], backend.num_items, kc,
+                                              resolve_float_dtype(opt["tower_dtype"]))

@@ -5,10 +5,12 @@ the catalog: catalog item ``i`` is class ``class_pool[i]``, prompted to the
 rewards as "a photo of {name}". Names come from a labels file (one per
 line) or fall back to ``class_{i}``; nothing is downloaded.
 
-Generation noise is Gumbel noise ``[L, V]`` per image (the JAX package's
-``jax.random.categorical`` keys): image ``j`` of a served lane draws it
-from ``(seed, j)`` only, and an ES epoch draws one ``[B, L, V]`` block that
-every member shares (:meth:`VarBackend.sample_gen_noise`).
+Generation noise is Gumbel noise ``[L, V]`` per image, drawn from the JAX
+package's ``jax.random.categorical`` keys (scale ``si`` of image ``j``:
+``fold_in(fold_in(key, si), j)``, ``ops.sampling.per_scale_gumbel``): a
+served lane draws it from the request's key, and an ES epoch draws one
+``[B, L, V]`` block that every member shares
+(:meth:`VarBackend.sample_gen_noise`).
 
 :func:`build_train_backend` builds the backend and the reward suite of the
 ``ar_d16`` rung (``rungs.var_rung_model``).
@@ -22,13 +24,14 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..device import DeviceLike, generator_for, resolve_device
+from ..device import DeviceLike, resolve_device
 from ..lora import LoRASpec, init_lora
 from ..models import var as var_mod
-from ..ops.sampling import gumbel_from_uniform, per_image_gumbel
+from ..ops.sampling import per_scale_gumbel
 from ..rungs import rung_opt, var_rung_model
+from ..utils import threefry
 from ..utils.pytree import cast_floating, resolve_float_dtype, tree_map
-from .base import StepInfo, default_step_info
+from .base import StepInfo, default_step_info, lane_keys
 
 Params = Dict[str, Any]
 
@@ -61,7 +64,7 @@ class VarBackend:
     """Holds the frozen :class:`~..models.var.VARTransformer` (with its VQ-VAE)
     on ``device`` and generates images for lane-stacked adapter batches.
     ``params`` is a tree in the JAX package's layout; a missing one is drawn
-    from ``cfg.seed_params`` by :meth:`setup`."""
+    from ``PRNGKey(cfg.seed_params)`` by :meth:`setup`."""
 
     def __init__(self, cfg: VarBackendConfig, device: DeviceLike = None, params: Optional[Params] = None):
         self.cfg = cfg
@@ -81,14 +84,14 @@ class VarBackend:
         if self.model is None:
             params = self._params
             if params is None:
-                params = var_mod.init_var(self.cfg.model, generator_for(self.device, self.cfg.seed_params))
+                params = var_mod.init_var(self.cfg.model, threefry.prng_key(self.cfg.seed_params, self.device))
             self.param_shapes = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), params)
             self.model = var_mod.VARTransformer(self.cfg.model, params).to(self.device)
             self._params = None
 
     # -- protocol ------------------------------------------------------------
-    def init_theta(self, generator: torch.Generator) -> Dict[str, Dict[str, torch.Tensor]]:
-        return init_lora(self.param_shapes, self._spec, generator, device=torch.device("cpu"))
+    def init_theta(self, key: torch.Tensor) -> Dict[str, Dict[str, torch.Tensor]]:
+        return init_lora(self.param_shapes, self._spec, key, device=torch.device("cpu"))
 
     @property
     def lora_scale(self) -> float:
@@ -109,51 +112,50 @@ class VarBackend:
     def noise_shape(self) -> Tuple[int, int]:
         return (self.cfg.model.seq_len, self.cfg.model.vq.vocab_size)
 
-    def sample_gen_noise(self, generator: torch.Generator, count: int) -> torch.Tensor:
-        """One ES epoch's sampling noise ``[count, L, V]``: standard Gumbel
-        ``-log(-log U)`` from ``generator``."""
-        u = torch.rand((count, *self.noise_shape), generator=generator, device=generator.device)
-        return gumbel_from_uniform(u)
+    def sample_gen_noise(self, key: torch.Tensor, item_index: Sequence[int]) -> torch.Tensor:
+        """Sampling noise ``[len(item_index), L, V]`` on the key's device:
+        the Gumbel noise of the JAX package's per-scale, per-image keys."""
+        return per_scale_gumbel(key, item_index, self.cfg.model.patch_nums, (self.cfg.model.vq.vocab_size,))
 
     def generate_p(
         self,
         stacked_theta: Optional[Params],
         flat_ids: Any,
-        seeds: Optional[Sequence[int]],
+        keys: Optional[torch.Tensor],
         noise: Optional[torch.Tensor] = None,
         guidance_scale: Optional[float] = None,
     ) -> torch.Tensor:
         """``[n, b]`` catalog indices with ``n`` lane-stacked adapters and
-        ``n`` seeds → images ``[n, b, H, W, 3]``. Image ``j`` of lane ``i``
-        draws its Gumbel noise from ``(seeds[i], j)``; ``noise [n, b, L,
-        V]`` replaces the draw. ``guidance_scale`` overrides the CFG scale."""
+        ``n`` keys ``[n, 2]`` → images ``[n, b, H, W, 3]``. Image ``j`` of
+        lane ``i`` draws its Gumbel noise from ``keys[i]`` and ``j``;
+        ``noise [n, b, L, V]`` replaces the draw. ``guidance_scale``
+        overrides the CFG scale."""
         cfg = self.cfg
         ids = torch.as_tensor(flat_ids, dtype=torch.long, device=self.device)
         n, b = ids.shape
         if noise is None:
-            if seeds is None or len(seeds) != n:
-                raise ValueError(f"{n} lanes need {n} seeds or explicit noise, got seeds {seeds}")
-            noise = torch.stack([per_image_gumbel(s, range(b), self.noise_shape, self.device) for s in seeds])
-        else:
-            noise = noise.reshape(n, b, *self.noise_shape)
+            noise = self.sample_gen_noise(lane_keys(keys, n, self.device), range(b))
+        noise = noise.reshape(n, b, *self.noise_shape)
         return var_mod.generate(
             self.model, self._pool[ids], noise,
             cfg_scale=cfg.cfg_scale if guidance_scale is None else guidance_scale,
             top_k=cfg.top_k, top_p=cfg.top_p, lora=stacked_theta, lora_scale=self.lora_scale,
         )
 
-    def generate(self, theta: Optional[Params], flat_ids: Sequence[int], seed: int) -> torch.Tensor:
+    def generate(self, theta: Optional[Params], flat_ids: Sequence[int], key: torch.Tensor) -> torch.Tensor:
         """One adapter, one request: ``[b]`` catalog indices → ``[b, H, W, 3]``."""
         stacked = None
         if theta is not None:
             stacked = {k: {f: t.to(self.device)[None] for f, t in v.items()} for k, v in theta.items()}
-        return self.generate_p(stacked, [list(flat_ids)], [seed])[0]
+        return self.generate_p(stacked, [list(flat_ids)], key[None])[0]
 
 
 def build_train_backend(scale: str = "d16", device: DeviceLike = None, seed: int = 0):
     """The VAR backend and the reward suite of the ``ar_d16`` rung, as the
     JAX package's ``bench.py`` and ``train/cli.py`` build them: random
-    weights from ``seed`` on the device, the transformer's and VQ-VAE's
+    weights from ``split(PRNGKey(seed))``'s first key on the device (the
+    reward suite from its second, ``bench.py``'s ``_build_ar``), the
+    transformer's and VQ-VAE's
     float leaves cast to bf16 (``"d16"``; ``"tiny"`` stays f32), a 16-class
     pool (``class_{i}`` names), CLIP-B/32 and the CLIP-H/14 PickScore tower
     at their published widths (``"d16"``) with text tables from random
@@ -166,9 +168,10 @@ def build_train_backend(scale: str = "d16", device: DeviceLike = None, seed: int
     dev = resolve_device(device)
     spec = var_rung_model(scale, tower_dtype=opt["tower_dtype"])
     bcfg = spec["bcfg"]
-    params = cast_floating(var_mod.init_var(bcfg.model, generator_for(dev, seed)), bcfg.model.compute_dtype)
+    kt, kc = threefry.split(threefry.prng_key(seed, dev))
+    params = cast_floating(var_mod.init_var(bcfg.model, kt), bcfg.model.compute_dtype)
     backend = VarBackend(bcfg, dev, params=params)
     del params
     backend.setup()
-    return backend, build_random_reward_suite(spec["clip_b"], spec["clip_h"], backend.num_items,
-                                              generator_for(dev, seed + 2), resolve_float_dtype(opt["tower_dtype"]))
+    return backend, build_random_reward_suite(spec["clip_b"], spec["clip_h"], backend.num_items, kc,
+                                              resolve_float_dtype(opt["tower_dtype"]))

@@ -30,10 +30,3 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
 
-
-def generator_for(device: torch.device, seed: int) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded with ``seed`` — the one way
-    the port draws random weights."""
-    g = torch.Generator(device=device)
-    g.manual_seed(int(seed))
-    return g

@@ -10,10 +10,9 @@ uses base sample ``b_k`` with sign ``s_k`` (antithetic layout
 ``ε_k = s_k·U_b V_bᵀ/√r``. The update contracts the fitness into the
 factors, so no ``[pop, D]`` matrix ever exists.
 
-Draws come from an explicit ``torch.Generator``: they are not
-``jax.random``'s numbers, so the tests hand the JAX package's draws to the
-port (``weights.from_jax.tree_from_numpy``). Every contraction upcasts the
-(possibly bf16) noise store to f32.
+Draws come from a ``utils.threefry`` key and are the JAX package's numbers
+(the same key tree, leaf by leaf). Every contraction upcasts the (possibly
+bf16) noise store to f32.
 
 The pod-sharded update (``es_partial_delta``/``apply_es_delta``) comes with
 multi-GPU training.
@@ -23,11 +22,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, List, NamedTuple, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..utils import threefry
 from ..utils.pytree import resolve_float_dtype, tree_leaves, tree_leaves_with_path, tree_map, tree_replace_leaves
 
 Index = Union[int, slice]
@@ -92,23 +92,37 @@ def member_signs_and_bases(pop_size: int, antithetic: bool) -> Tuple[np.ndarray,
     return signs, bases
 
 
-def sample_noise(generator: torch.Generator, theta: Any, pop_size: int, cfg: EggRollConfig) -> Any:
-    """Factored population noise for ``theta``: f32 standard normals from
-    ``generator`` (on its device), leaf by leaf in flattening order (``U``
-    then ``V``), cast to the store dtype."""
+def sample_noise(key: torch.Tensor, theta: Any, pop_size: int, cfg: EggRollConfig) -> Any:
+    """Factored population noise for ``theta``, the JAX package's draws:
+    ``key`` splits into one key per leaf in flattening order; a 2D or
+    stacked-3D leaf splits its key into ``(ku, kv)`` for ``U`` and ``V``,
+    any other leaf draws ``E`` from its own. f32 standard normals on the
+    key's device, cast to the store dtype. Draws of one shape are made
+    together, one batch of keys each."""
     base = base_pop_size(pop_size, cfg.antithetic)
-    dev, ndt = generator.device, cfg.noise_torch_dtype
-
-    def draw(shape):
-        return torch.randn(shape, generator=generator, device=dev, dtype=torch.float32).to(ndt)
-
-    def one(leaf: torch.Tensor):
+    ndt = cfg.noise_torch_dtype
+    leaves = tree_leaves(theta)
+    keys = threefry.split(key, max(len(leaves), 1))
+    uv = threefry.split(keys)  # [leaves, 2 (ku, kv), 2]; read for the factored leaves only
+    requests: List[Tuple[torch.Tensor, Tuple[int, ...]]] = []  # (key, shape) per draw, in leaf order
+    for i, leaf in enumerate(leaves):
         if leaf.ndim in (2, 3):
             *stack, m, n = leaf.shape
-            return LowRankNoise(U=draw((base, *stack, m, cfg.rank)), V=draw((base, *stack, n, cfg.rank)))
-        return DenseNoise(E=draw((base, *leaf.shape)))
-
-    return tree_map(one, theta)
+            requests.append((uv[i, 0], (base, *stack, m, cfg.rank)))
+            requests.append((uv[i, 1], (base, *stack, n, cfg.rank)))
+        else:
+            requests.append((keys[i], (base, *leaf.shape)))
+    draws: List[Any] = [None] * len(requests)
+    by_shape: Dict[Tuple[int, ...], List[int]] = {}
+    for r, (_, shape) in enumerate(requests):
+        by_shape.setdefault(shape, []).append(r)
+    for shape, rs in by_shape.items():
+        z = threefry.normal(torch.stack([requests[r][0] for r in rs]), shape).to(ndt)
+        for zi, r in zip(z, rs):
+            draws[r] = zi
+    it = iter(draws)
+    return tree_replace_leaves(theta, [LowRankNoise(U=next(it), V=next(it)) if leaf.ndim in (2, 3)
+                                       else DenseNoise(E=next(it)) for leaf in leaves])
 
 
 def _noise_pairs(theta: Any, noise: Any) -> List[Tuple[torch.Tensor, Any]]:

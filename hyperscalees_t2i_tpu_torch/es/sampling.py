@@ -1,14 +1,12 @@
 """Deterministic prompt sampling and seed plumbing (port of
 ``hyperscalees_t2i_tpu/es/sampling.py``).
 
-Common random numbers: every member of an epoch shares one generation seed,
+Common random numbers: every member of an epoch shares one generation key,
 and the prompt subset, generation noise and ES noise all derive from
-``(base seed, epoch)``. The JAX package folds the epoch into a PRNG key
-(``jax.random.fold_in``); the port derives an integer seed instead:
-:func:`epoch_seed` ``= mix_seed(base, epoch, 0)``, and the trainer splits it
-into its noise and generation seeds with :func:`mix_seed` (see
-``train/trainer.py``). The prompt subsets are numpy ``RandomState`` draws
-and match the JAX package's exactly.
+``(base seed, epoch)``: :func:`epoch_key` folds the epoch into the base
+seed's key as the JAX package does, and the trainer splits it into its
+noise and generation keys. The prompt subsets are numpy ``RandomState``
+draws and match the JAX package's exactly.
 """
 
 from __future__ import annotations
@@ -16,6 +14,10 @@ from __future__ import annotations
 from typing import List, Union
 
 import numpy as np
+import torch
+
+from ..device import DeviceLike
+from ..utils import threefry
 
 
 def sample_indices_unique(seed: int, total: int, k: int) -> List[int]:
@@ -48,11 +50,10 @@ def mix_seed(base: int, a: int, b: int) -> int:
     return int(x)
 
 
-def epoch_seed(base_seed: int, epoch: int) -> int:
-    """The integer seed of one epoch: the port's counterpart of the JAX
-    package's ``epoch_key`` (``fold_in(PRNGKey(base), epoch)``), which the
-    port does not reproduce (its draws come from ``torch.Generator``)."""
-    return mix_seed(base_seed, epoch, 0)
+def epoch_key(base_seed: int, epoch: int, device: DeviceLike = None) -> torch.Tensor:
+    """The key of one epoch, ``fold_in(prng_key(base), epoch)`` on
+    ``device`` (``None``: the card; the JAX package's ``epoch_key``)."""
+    return threefry.fold_in(threefry.prng_key(base_seed, device), int(epoch))
 
 
 def parse_int_list(s: str) -> Union[str, List[int]]:

@@ -22,6 +22,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from .utils import threefry
 from .utils.pytree import tree_leaves_with_path
 
 Adapter = Dict[str, Dict[str, torch.Tensor]]
@@ -115,15 +116,18 @@ def iter_kernel_paths(params: Any) -> List[Tuple[str, torch.Tensor]]:
             if torch.is_tensor(leaf) and leaf.ndim >= 2]
 
 
-def init_lora(params: Any, spec: LoRASpec, generator: torch.Generator,
+def init_lora(params: Any, spec: LoRASpec, key: torch.Tensor,
               device: Optional[torch.device] = None) -> Adapter:
     """The adapter tree for every targeted kernel (float ``kernel`` or int8
     ``kernel_q8/q8``): ``a ~ N(0, 1/fan_in)``, ``b = 0`` (identity at init,
-    as PEFT). Draws come from ``generator`` in path order."""
+    as PEFT). As in the JAX package, ``key`` splits into one key per kernel
+    path, targeted or not, in path order; the draws are made on the key's
+    device and land on ``device`` (default: the kernel's)."""
     kernels = [(p, leaf) for p, leaf in iter_kernel_paths(params)
                if p.endswith("kernel") or p.endswith("kernel_q8/q8")]
+    keys = threefry.split(key, max(len(kernels), 1))
     tree: Adapter = {}
-    for path, leaf in kernels:
+    for k, (path, leaf) in zip(keys, kernels):
         name = re.sub(r"/?(kernel|kernel_q8/q8)$", "", path)
         if not match_targets(name, spec.targets):
             continue
@@ -140,7 +144,7 @@ def init_lora(params: Any, spec: LoRASpec, generator: torch.Generator,
             a_shape, b_shape, fan = (kh, kw, cin, spec.rank), (spec.rank, cout), kh * kw * cin
         else:
             continue
-        a = torch.randn(a_shape, generator=generator, device=generator.device) / math.sqrt(fan)
+        a = threefry.normal(k, a_shape) / math.sqrt(fan)
         tree[name] = {"a": a.to(dev), "b": torch.zeros(b_shape, device=dev)}
     return tree
 

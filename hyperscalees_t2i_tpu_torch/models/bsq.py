@@ -23,8 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn as tnn
 
+from ..utils import threefry
 from . import nn
-from .msvq import CompVisDecoder, _conv_init, _norm_init, down_area, up_bicubic
+from .msvq import CompVisDecoder, down_area, up_bicubic
 
 Params = Dict[str, Any]
 
@@ -52,18 +53,20 @@ class BSQConfig:
         return self.patch_nums[-1]
 
 
-def init_bsq(cfg: BSQConfig, generator: torch.Generator) -> Params:
+def init_bsq(cfg: BSQConfig, key: torch.Tensor) -> Params:
     """Random f32 parameters in the JAX package's tree layout (φ blend convs
-    and the native decoder; no codebook: the code is the sign map), drawn
-    from ``generator`` on its device."""
-    g, C, dev = generator, cfg.bits, generator.device
+    and the native decoder; no codebook: the code is the sign map), drawn on
+    the key's device from its key tree (``init_bsq(key, cfg)``)."""
+    C = cfg.bits
+    ks = threefry.split(key, 3 + len(cfg.dec_ch) * (3 * cfg.dec_blocks + 1))
     params: Params = {
         "phi": {
-            "kernel": torch.randn((cfg.phi_partial, 3, 3, C, C), generator=g, device=dev) / math.sqrt(9 * C),
-            "bias": torch.zeros((cfg.phi_partial, C), device=dev),
+            "kernel": threefry.normal(ks[0], (cfg.phi_partial, 3, 3, C, C)) / math.sqrt(9 * C),
+            "bias": torch.zeros((cfg.phi_partial, C), device=key.device),
         }
     }
-    dec: Params = {"conv_in": _conv_init(g, 3, 3, C, cfg.dec_ch[0])}
+    dec: Params = {"conv_in": nn.conv_init(ks[1], 3, 3, C, cfg.dec_ch[0])}
+    ki = 2
     stages: List[Params] = []
     prev = cfg.dec_ch[0]
     for s, ch in enumerate(cfg.dec_ch):
@@ -71,17 +74,19 @@ def init_bsq(cfg: BSQConfig, generator: torch.Generator) -> Params:
         for b in range(cfg.dec_blocks):
             cin = prev if b == 0 else ch
             stage["blocks"].append({
-                "conv1": _conv_init(g, 3, 3, cin, ch),
-                "conv2": _conv_init(g, 3, 3, ch, ch),
-                "skip": {"kernel": _conv_init(g, 1, 1, cin, ch)["kernel"]} if cin != ch else None,
+                "conv1": nn.conv_init(ks[ki], 3, 3, cin, ch),
+                "conv2": nn.conv_init(ks[ki + 1], 3, 3, ch, ch),
+                "skip": nn.conv_init(ks[ki + 2], 1, 1, cin, ch, bias=False) if cin != ch else None,
             })
+            ki += 3
         if s < len(cfg.dec_ch) - 1:
-            stage["up"] = _conv_init(g, 3, 3, ch, ch)
+            stage["up"] = nn.conv_init(ks[ki], 3, 3, ch, ch)
+            ki += 1
         stages.append(stage)
         prev = ch
     dec["stages"] = stages
-    dec["norm_out"] = _norm_init(cfg.dec_ch[-1], dev)
-    dec["conv_out"] = _conv_init(g, 3, 3, cfg.dec_ch[-1], 3)
+    dec["norm_out"] = nn.norm_init(cfg.dec_ch[-1], key.device)
+    dec["conv_out"] = nn.conv_init(ks[ki], 3, 3, cfg.dec_ch[-1], 3)
     params["decoder"] = dec
     return params
 

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn as tnn
 
+from ..utils import threefry
 from ..utils.pytree import tree_map
 from . import nn
 from .resize import resize
@@ -74,51 +75,47 @@ def _act(name: str):
     return lambda x: F.gelu(x)
 
 
-def _normal(g: torch.Generator, shape, std: float) -> torch.Tensor:
-    return torch.randn(shape, generator=g, device=g.device) * std
-
-
-def _stacked_dense(g: torch.Generator, L: int, d_in: int, d_out: int) -> Params:
-    return {"kernel": _normal(g, (L, d_in, d_out), 1.0 / math.sqrt(d_in)),
-            "bias": torch.zeros(L, d_out, device=g.device)}
-
-
-def _encoder_init(g: torch.Generator, tower: CLIPTowerConfig) -> Params:
-    L, d, dm = tower.n_layers, tower.d_model, tower.d_mlp
-    ln = lambda: {"scale": torch.ones(L, d, device=g.device), "bias": torch.zeros(L, d, device=g.device)}  # noqa: E731
+def _encoder_layer_init(key: torch.Tensor, L: int, d: int, d_mlp: int) -> Params:
+    ks = threefry.split(key, 6)
+    dev = key.device
     return {
-        "ln1": ln(),
-        "q": _stacked_dense(g, L, d, d), "k": _stacked_dense(g, L, d, d),
-        "v": _stacked_dense(g, L, d, d), "out": _stacked_dense(g, L, d, d),
-        "ln2": ln(),
-        "fc1": _stacked_dense(g, L, d, dm), "fc2": _stacked_dense(g, L, dm, d),
+        "ln1": {"scale": torch.ones(L, d, device=dev), "bias": torch.zeros(L, d, device=dev)},
+        "q": nn.stacked_dense_init(ks[0], L, d, d),
+        "k": nn.stacked_dense_init(ks[1], L, d, d),
+        "v": nn.stacked_dense_init(ks[2], L, d, d),
+        "out": nn.stacked_dense_init(ks[3], L, d, d),
+        "ln2": {"scale": torch.ones(L, d, device=dev), "bias": torch.zeros(L, d, device=dev)},
+        "fc1": nn.stacked_dense_init(ks[4], L, d, d_mlp),
+        "fc2": nn.stacked_dense_init(ks[5], L, d_mlp, d),
     }
 
 
-def init_clip(cfg: CLIPConfig, generator: torch.Generator) -> Params:
-    """Random f32 parameters in the JAX package's tree layout, drawn from
-    ``generator`` on its device."""
-    g, v, t = generator, cfg.vision, cfg.text
-    dev = g.device
+def init_clip(cfg: CLIPConfig, key: torch.Tensor) -> Params:
+    """Random f32 parameters in the JAX package's tree layout, drawn on the
+    key's device from its key tree (``init_clip(key, cfg)``)."""
+    kv, kt, kp = threefry.split(key, 3)
+    v, t = cfg.vision, cfg.text
+    dev = key.device
     n_patches = (cfg.image_size // cfg.patch_size) ** 2
-    norm = lambda d: {"scale": torch.ones(d, device=dev), "bias": torch.zeros(d, device=dev)}  # noqa: E731
+    kvs = threefry.split(kv, 6)
+    kts = threefry.split(kt, 4)
     return {
         "vision": {
-            "patch_embed": {"kernel": _normal(g, (cfg.patch_size, cfg.patch_size, 3, v.d_model), 0.02)},
-            "class_embed": _normal(g, (v.d_model,), 0.02),
-            "pos_embed": _normal(g, (n_patches + 1, v.d_model), 0.02),
-            "pre_ln": norm(v.d_model),
-            "layers": _encoder_init(g, v),
-            "post_ln": norm(v.d_model),
+            "patch_embed": {"kernel": threefry.normal(kvs[0], (cfg.patch_size, cfg.patch_size, 3, v.d_model)) * 0.02},
+            "class_embed": threefry.normal(kvs[1], (v.d_model,)) * 0.02,
+            "pos_embed": threefry.normal(kvs[2], (n_patches + 1, v.d_model)) * 0.02,
+            "pre_ln": nn.norm_init(v.d_model, dev),
+            "layers": _encoder_layer_init(kvs[3], v.n_layers, v.d_model, v.d_mlp),
+            "post_ln": nn.norm_init(v.d_model, dev),
         },
         "text": {
-            "token_embed": _normal(g, (cfg.vocab_size, t.d_model), 0.02),
-            "pos_embed": _normal(g, (cfg.max_positions, t.d_model), 0.02),
-            "layers": _encoder_init(g, t),
-            "final_ln": norm(t.d_model),
+            "token_embed": threefry.normal(kts[0], (cfg.vocab_size, t.d_model)) * 0.02,
+            "pos_embed": threefry.normal(kts[1], (cfg.max_positions, t.d_model)) * 0.02,
+            "layers": _encoder_layer_init(kts[2], t.n_layers, t.d_model, t.d_mlp),
+            "final_ln": nn.norm_init(t.d_model, dev),
         },
-        "visual_projection": {"kernel": _normal(g, (v.d_model, cfg.projection_dim), 0.02)},
-        "text_projection": {"kernel": _normal(g, (t.d_model, cfg.projection_dim), 0.02)},
+        "visual_projection": {"kernel": threefry.normal(kp, (v.d_model, cfg.projection_dim)) * 0.02},
+        "text_projection": {"kernel": threefry.normal(kts[3], (t.d_model, cfg.projection_dim)) * 0.02},
         "logit_scale": torch.tensor(math.log(1 / 0.07), dtype=torch.float32, device=dev),
     }
 

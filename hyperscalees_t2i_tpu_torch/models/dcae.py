@@ -9,13 +9,13 @@ channel-repeating shortcuts, RMS norm and a conv head; NHWC throughout.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn as tnn
 
+from ..utils import threefry
 from . import nn
 
 Params = Dict[str, Any]
@@ -38,53 +38,38 @@ class DCAEConfig:
         return 2 ** (len(self.channels) - 1)
 
 
-def _conv_init(g: torch.Generator, kh, kw, cin, cout, bias=True, groups=1) -> Params:
-    fan_in = kh * kw * cin // groups
-    p = {"kernel": torch.randn((kh, kw, cin // groups, cout), generator=g, device=g.device) / math.sqrt(fan_in)}
-    if bias:
-        p["bias"] = torch.zeros(cout, device=g.device)
-    return p
-
-
-def _glumb_init(g: torch.Generator, dim: int, ratio: float) -> Params:
-    hidden = int(round(dim * ratio))
-    return {
-        "conv_inverted": _conv_init(g, 1, 1, dim, hidden * 2),
-        "conv_depth": _conv_init(g, 3, 3, hidden * 2, hidden * 2, groups=hidden * 2),
-        "conv_point": _conv_init(g, 1, 1, hidden, dim, bias=False),
-    }
-
-
-def init_decoder(cfg: DCAEConfig, generator: torch.Generator) -> Params:
-    """Random f32 decoder parameters in the JAX package's tree layout."""
-    g = generator
+def init_decoder(cfg: DCAEConfig, key: torch.Tensor) -> Params:
+    """Random f32 decoder parameters in the JAX package's tree layout, drawn
+    on the key's device from its key tree (``init_decoder(key, cfg)``)."""
     chs = cfg.channels
-    ones = lambda n: {"scale": torch.ones(n, device=g.device)}  # noqa: E731
-    params: Params = {"conv_in": _conv_init(g, 3, 3, cfg.latent_channels, chs[0])}
+    dev = key.device
+    ki = iter(threefry.split(key, 3 + len(chs) * (1 + max(cfg.blocks_per_stage))))
+    params: Params = {"conv_in": nn.conv_init(next(ki), 3, 3, cfg.latent_channels, chs[0])}
     stages = []
     for si, ch in enumerate(chs):
         stage: Params = {}
         if si > 0:
-            stage["up"] = _conv_init(g, 3, 3, chs[si - 1], ch * 4)
+            stage["up"] = nn.conv_init(next(ki), 3, 3, chs[si - 1], ch * 4)
         blocks = []
         for _ in range(cfg.blocks_per_stage[si]):
             if si in cfg.attn_stages:
+                k1, k2, k3 = threefry.split(next(ki), 3)
                 blocks.append({"mla": {
-                    "norm": ones(ch),
-                    "qkv": {"kernel": torch.randn((ch, 3 * ch), generator=g, device=g.device) / math.sqrt(ch)},
-                    "proj": {"kernel": torch.randn((ch, ch), generator=g, device=g.device) / math.sqrt(ch),
-                             "bias": torch.zeros(ch, device=g.device)},
-                    "ffn": _glumb_init(g, ch, 2.0),
-                    "ffn_norm": ones(ch),
+                    "norm": nn.norm_init(ch, dev, bias=False),
+                    "qkv": nn.dense_init(k1, ch, 3 * ch, bias=False),
+                    "proj": nn.dense_init(k2, ch, ch),
+                    "ffn": nn.glumb_conv_init(k3, ch, ratio=2.0),
+                    "ffn_norm": nn.norm_init(ch, dev, bias=False),
                 }})
             else:
-                blocks.append({"res": {"conv1": _conv_init(g, 3, 3, ch, ch),
-                                       "conv2": _conv_init(g, 3, 3, ch, ch)}})
+                k1, k2 = threefry.split(next(ki))
+                blocks.append({"res": {"conv1": nn.conv_init(k1, 3, 3, ch, ch),
+                                       "conv2": nn.conv_init(k2, 3, 3, ch, ch)}})
         stage["blocks"] = blocks
         stages.append(stage)
     params["stages"] = stages
-    params["norm_out"] = ones(chs[-1])
-    params["conv_out"] = _conv_init(g, 3, 3, chs[-1], 3)
+    params["norm_out"] = nn.norm_init(chs[-1], dev, bias=False)
+    params["conv_out"] = nn.conv_init(next(ki), 3, 3, chs[-1], 3)
     return params
 
 

@@ -38,8 +38,8 @@ from torch import nn as tnn
 
 from ..lora import lookup, slice_layer
 from ..ops.attention import decode_attention
+from ..utils import threefry
 from . import bsq, nn
-from .var import _dense_init, _normal
 
 Params = Dict[str, Any]
 
@@ -118,42 +118,44 @@ def released_config(variant: str, pn: Optional[str] = None) -> InfinityConfig:
     return from_preset(variant, attn_l2_norm=True, use_rope2d=True, cross_attn_l2_norm=True, patch_nums=pns, vq=vq)
 
 
-def init_infinity(cfg: InfinityConfig, generator: torch.Generator) -> Params:
-    """Random f32 parameters in the JAX package's tree layout, drawn from
-    ``generator`` on its device (the BSQ tree included)."""
-    g, d, D, H = generator, cfg.d_model, cfg.depth, cfg.n_heads
+def init_infinity(cfg: InfinityConfig, key: torch.Tensor) -> Params:
+    """Random f32 parameters in the JAX package's tree layout (the BSQ tree
+    included), drawn on the key's device from its key tree
+    (``init_infinity(key, cfg)``)."""
+    d, D, H = cfg.d_model, cfg.depth, cfg.n_heads
     hid = int(d * cfg.ff_ratio)
     S, L, C = len(cfg.patch_nums), cfg.seq_len, cfg.vq.bits
+    dev = key.device
     out_std = 0.02 / math.sqrt(2 * D)
+    ks = threefry.split(key, 20)
     params: Params = {
-        "text_proj": _dense_init(g, cfg.text_dim, d),
-        "null_text": _normal(g, (1, 1, d), 0.02),
-        "pool_proj": _dense_init(g, d, d),
-        "pos_start": _normal(g, (1, 1, d), 0.02),
-        "lvl_emb": _normal(g, (S, d), 0.02),
-        "pos_emb": _normal(g, (L, d), 0.02),
-        "word_embed": _dense_init(g, C, d),
+        "text_proj": nn.dense_init(ks[0], cfg.text_dim, d),
+        "null_text": threefry.normal(ks[1], (1, 1, d)) * 0.02,
+        "pool_proj": nn.dense_init(ks[2], d, d),
+        "pos_start": threefry.normal(ks[3], (1, 1, d)) * 0.02,
+        "lvl_emb": threefry.normal(ks[4], (S, d)) * 0.02,
+        # with 2D RoPE, RoPE carries all positional structure: no learned
+        # table on top (the JAX package draws one and zeroes it)
+        "pos_emb": torch.zeros((L, d), device=dev) if cfg.use_rope2d else threefry.normal(ks[5], (L, d)) * 0.02,
+        "word_embed": nn.dense_init(ks[6], C, d),
         "blocks": {
-            "ada_lin": _dense_init(g, d, 6 * d, std=0.02, stack=(D,)),
-            "qkv": _dense_init(g, d, 3 * d, stack=(D,)),
-            "attn_proj": _dense_init(g, d, d, std=out_std, stack=(D,)),
-            "cross_q": _dense_init(g, d, d, stack=(D,)),
-            "cross_kv": _dense_init(g, d, 2 * d, stack=(D,)),
-            "cross_proj": _dense_init(g, d, d, std=out_std, stack=(D,)),
-            "fc1": _dense_init(g, d, hid, stack=(D,)),
-            "fc2": _dense_init(g, hid, d, std=out_std, stack=(D,)),
+            "ada_lin": nn.stacked_dense_init(ks[7], D, d, 6 * d, std=0.02),
+            "qkv": nn.stacked_dense_init(ks[8], D, d, 3 * d),
+            "attn_proj": nn.stacked_dense_init(ks[9], D, d, d, std=out_std),
+            "cross_q": nn.stacked_dense_init(ks[10], D, d, d),
+            "cross_kv": nn.stacked_dense_init(ks[11], D, d, 2 * d),
+            "cross_proj": nn.stacked_dense_init(ks[12], D, d, d, std=out_std),
+            "fc1": nn.stacked_dense_init(ks[13], D, d, hid),
+            "fc2": nn.stacked_dense_init(ks[14], D, hid, d, std=out_std),
         },
-        "head_norm": {"scale": torch.ones(d, device=g.device), "bias": torch.zeros(d, device=g.device)},
-        "head": _dense_init(g, d, 2 * C, std=0.02),
-        "vq": bsq.init_bsq(cfg.vq, g),
+        "head_norm": nn.norm_init(d, dev),
+        "head": nn.dense_init(ks[15], d, 2 * C, std=0.02),
+        "vq": bsq.init_bsq(cfg.vq, ks[16]),
     }
-    if cfg.use_rope2d:
-        # RoPE carries all positional structure: no learned table on top
-        params["pos_emb"] = torch.zeros((L, d), device=g.device)
     if cfg.attn_l2_norm:
-        params["blocks"]["scale_mul"] = torch.full((D, H), math.log(4.0), device=g.device)
+        params["blocks"]["scale_mul"] = torch.full((D, H), math.log(4.0), device=dev)
     if cfg.cross_attn_l2_norm:
-        params["blocks"]["cross_scale_mul"] = torch.full((D, H), math.log(4.0), device=g.device)
+        params["blocks"]["cross_scale_mul"] = torch.full((D, H), math.log(4.0), device=dev)
     return params
 
 

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn as tnn
 
+from ..utils import threefry
 from . import nn
 from .resize import resize
 
@@ -64,68 +65,70 @@ class MSVQConfig:
         return self.patch_nums[-1]
 
 
-def _conv_init(g: torch.Generator, kh: int, kw: int, cin: int, cout: int) -> Params:
-    return {"kernel": torch.randn((kh, kw, cin, cout), generator=g, device=g.device) / math.sqrt(kh * kw * cin),
-            "bias": torch.zeros(cout, device=g.device)}
-
-
-def _norm_init(c: int, dev: torch.device) -> Params:
-    return {"scale": torch.ones(c, device=dev), "bias": torch.zeros(c, device=dev)}
-
-
-def _res_block_init(g: torch.Generator, cin: int, cout: int) -> Params:
+def _res_block_init(key: torch.Tensor, cin: int, cout: int) -> Params:
+    k1, k2, k3 = threefry.split(key, 3)
     p: Params = {
-        "norm1": _norm_init(cin, g.device), "conv1": _conv_init(g, 3, 3, cin, cout),
-        "norm2": _norm_init(cout, g.device), "conv2": _conv_init(g, 3, 3, cout, cout),
+        "norm1": nn.norm_init(cin, key.device),
+        "conv1": nn.conv_init(k1, 3, 3, cin, cout),
+        "norm2": nn.norm_init(cout, key.device),
+        "conv2": nn.conv_init(k2, 3, 3, cout, cout),
     }
     if cin != cout:
-        p["nin"] = _conv_init(g, 1, 1, cin, cout)
+        p["nin"] = nn.conv_init(k3, 1, 1, cin, cout)
     return p
 
 
-def _attn_block_init(g: torch.Generator, c: int) -> Params:
-    return {"norm": _norm_init(c, g.device), "qkv": _conv_init(g, 1, 1, c, 3 * c), "proj": _conv_init(g, 1, 1, c, c)}
+def _attn_block_init(key: torch.Tensor, c: int) -> Params:
+    k1, k2 = threefry.split(key)
+    return {
+        "norm": nn.norm_init(c, key.device),
+        "qkv": nn.conv_init(k1, 1, 1, c, 3 * c),
+        "proj": nn.conv_init(k2, 1, 1, c, c),
+    }
 
 
-def init_msvq(cfg: MSVQConfig, generator: torch.Generator) -> Params:
-    """Random f32 parameters in the JAX package's tree layout, drawn from
-    ``generator`` on its device."""
-    g, C = generator, cfg.c_vae
-    dev = g.device
+def init_msvq(cfg: MSVQConfig, key: torch.Tensor) -> Params:
+    """Random f32 parameters in the JAX package's tree layout, drawn on the
+    key's device from its key tree (``init_msvq(key, cfg)``)."""
+    C = cfg.c_vae
+    dev = key.device
+    n_levels = len(cfg.ch_mult)
+    ks = threefry.split(key, 16 + n_levels * (cfg.num_res_blocks + 1) * 4)
+    ki = iter(range(len(ks)))
     params: Params = {
-        "codebook": torch.randn((cfg.vocab_size, C), generator=g, device=dev) / math.sqrt(C),
+        "codebook": threefry.normal(ks[next(ki)], (cfg.vocab_size, C)) / math.sqrt(C),
         "phi": {
-            "kernel": torch.randn((cfg.phi_partial, 3, 3, C, C), generator=g, device=dev) / math.sqrt(9 * C),
+            "kernel": threefry.normal(ks[next(ki)], (cfg.phi_partial, 3, 3, C, C)) / math.sqrt(9 * C),
             "bias": torch.zeros((cfg.phi_partial, C), device=dev),
         },
     }
-    n_levels = len(cfg.ch_mult)
     block_in = cfg.ch * cfg.ch_mult[-1]
     dec: Params = {
-        "post_quant_conv": _conv_init(g, 3, 3, C, C),
-        "conv_in": _conv_init(g, 3, 3, C, block_in),
+        "post_quant_conv": nn.conv_init(ks[next(ki)], 3, 3, C, C),
+        "conv_in": nn.conv_init(ks[next(ki)], 3, 3, C, block_in),
         "mid": {
-            "block_1": _res_block_init(g, block_in, block_in),
-            "attn_1": _attn_block_init(g, block_in) if cfg.using_mid_sa else None,
-            "block_2": _res_block_init(g, block_in, block_in),
+            "block_1": _res_block_init(ks[next(ki)], block_in, block_in),
+            "attn_1": _attn_block_init(ks[next(ki)], block_in) if cfg.using_mid_sa else None,
+            "block_2": _res_block_init(ks[next(ki)], block_in, block_in),
         },
     }
+    # up[i_level] for i_level 0..n-1 (shallowest..deepest), drawn deepest-first
     up: List[Optional[Params]] = [None] * n_levels
     cin = block_in
     for i_level in reversed(range(n_levels)):
         cout = cfg.ch * cfg.ch_mult[i_level]
         level: Params = {"block": [], "attn": []}
         for _ in range(cfg.num_res_blocks + 1):
-            level["block"].append(_res_block_init(g, cin, cout))
+            level["block"].append(_res_block_init(ks[next(ki)], cin, cout))
             cin = cout
             if i_level == n_levels - 1 and cfg.using_sa:
-                level["attn"].append(_attn_block_init(g, cout))
+                level["attn"].append(_attn_block_init(ks[next(ki)], cout))
         if i_level != 0:
-            level["upsample"] = _conv_init(g, 3, 3, cout, cout)
+            level["upsample"] = nn.conv_init(ks[next(ki)], 3, 3, cout, cout)
         up[i_level] = level
     dec["up"] = up
-    dec["norm_out"] = _norm_init(cin, dev)
-    dec["conv_out"] = _conv_init(g, 3, 3, cin, 3)
+    dec["norm_out"] = nn.norm_init(cin, dev)
+    dec["conv_out"] = nn.conv_init(ks[next(ki)], 3, 3, cin, 3)
     params["decoder"] = dec
     return params
 

@@ -25,8 +25,64 @@ from ..lora import FactoredDelta, fused_lora_delta, lora_delta
 from ..ops.fused_qlora import conv_kernel_q8_matmul, fused_qlora_applies, fused_qlora_dense
 from ..ops.quant import dequantize_kernel
 from ..ops.quant_mm import dequant_matmul
+from ..utils import threefry
 
 Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Initializers: the JAX package's, key for key (a key is a ``utils.threefry``
+# key; the leaves land on its device)
+# ---------------------------------------------------------------------------
+
+def dense_init(key: torch.Tensor, d_in: int, d_out: int, bias: bool = True, std: Optional[float] = None) -> Params:
+    std = std if std is not None else 1.0 / math.sqrt(d_in)
+    p = {"kernel": threefry.normal(key, (d_in, d_out)) * std}
+    if bias:
+        p["bias"] = torch.zeros(d_out, device=key.device)
+    return p
+
+
+def stacked_dense_init(key: torch.Tensor, L: int, d_in: int, d_out: int, bias: bool = True,
+                       std: Optional[float] = None) -> Params:
+    std = std if std is not None else 1.0 / math.sqrt(d_in)
+    p = {"kernel": threefry.normal(key, (L, d_in, d_out)) * std}
+    if bias:
+        p["bias"] = torch.zeros(L, d_out, device=key.device)
+    return p
+
+
+def conv_init(key: torch.Tensor, kh: int, kw: int, c_in: int, c_out: int, bias: bool = True,
+              groups: int = 1) -> Params:
+    fan_in = kh * kw * c_in // groups
+    p = {"kernel": threefry.normal(key, (kh, kw, c_in // groups, c_out)) / math.sqrt(fan_in)}
+    if bias:
+        p["bias"] = torch.zeros(c_out, device=key.device)
+    return p
+
+
+def norm_init(dim: int, device: torch.device, scale: bool = True, bias: bool = True) -> Params:
+    p = {}
+    if scale:
+        p["scale"] = torch.ones(dim, device=device)
+    if bias:
+        p["bias"] = torch.zeros(dim, device=device)
+    return p
+
+
+def mlp_embedder_init(key: torch.Tensor, d_in: int, d_out: int) -> Params:
+    k1, k2 = threefry.split(key)
+    return {"linear_1": dense_init(k1, d_in, d_out), "linear_2": dense_init(k2, d_out, d_out)}
+
+
+def glumb_conv_init(key: torch.Tensor, dim: int, ratio: float = 2.5) -> Params:
+    hidden = int(round(dim * ratio))
+    k1, k2, k3 = threefry.split(key, 3)
+    return {
+        "conv_inverted": conv_init(k1, 1, 1, dim, hidden * 2),
+        "conv_depth": conv_init(k2, 3, 3, hidden * 2, hidden * 2, groups=hidden * 2),
+        "conv_point": conv_init(k3, 1, 1, hidden, dim, bias=False),
+    }
 
 
 # ---------------------------------------------------------------------------

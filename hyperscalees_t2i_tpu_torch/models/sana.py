@@ -12,7 +12,6 @@ is kept for parity and does nothing.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -20,8 +19,8 @@ import torch.nn.functional as F
 from torch import nn as tnn
 
 from ..lora import LoRASpec, lookup, slice_layer
+from ..utils import threefry
 from ..utils.pytree import tree_map
-from ..utils.seeding import item_seed
 from . import nn
 
 Params = Dict[str, Any]
@@ -61,77 +60,57 @@ class SanaConfig:
         return LoRASpec(rank=rank, alpha=alpha, targets=SANA_LORA_TARGETS)
 
 
-def _normal(g: torch.Generator, shape, std: float) -> torch.Tensor:
-    return torch.randn(shape, generator=g, device=g.device) * std
-
-
-def _dense_init(g, d_in, d_out, bias=True, stack: Tuple[int, ...] = ()) -> Params:
-    p = {"kernel": _normal(g, (*stack, d_in, d_out), 1.0 / math.sqrt(d_in))}
-    if bias:
-        p["bias"] = torch.zeros((*stack, d_out), device=g.device)
-    return p
-
-
-def init_sana(cfg: SanaConfig, generator: torch.Generator) -> Params:
-    """Random f32 parameters in the JAX package's tree layout, drawn from
-    ``generator`` on its device."""
-    g, d, L = generator, cfg.d_model, cfg.n_layers
-    dev = g.device
+def init_sana(cfg: SanaConfig, key: torch.Tensor) -> Params:
+    """Random f32 parameters in the JAX package's tree layout, drawn on the
+    key's device from the JAX package's key tree (``init_sana(key, cfg)``)."""
+    d, L = cfg.d_model, cfg.n_layers
+    dev = key.device
+    ks = threefry.split(key, 20)
     hidden2 = int(round(d * cfg.ff_ratio)) * 2
-    p = cfg.patch_size
     params: Params = {
-        "patch_embed": {
-            "kernel": _normal(g, (p, p, cfg.in_channels, d), 1.0 / math.sqrt(p * p * cfg.in_channels)),
-            "bias": torch.zeros(d, device=dev),
-        },
-        "caption_norm": {"scale": torch.ones(cfg.caption_dim, device=dev)},
+        "patch_embed": nn.conv_init(ks[0], cfg.patch_size, cfg.patch_size, cfg.in_channels, d),
+        "caption_norm": nn.norm_init(cfg.caption_dim, dev, bias=False),
         "caption_proj": {
-            "linear_1": _dense_init(g, cfg.caption_dim, d),
-            "linear_2": _dense_init(g, d, d),
+            "linear_1": nn.dense_init(ks[1], cfg.caption_dim, d),
+            "linear_2": nn.dense_init(ks[2], d, d),
         },
         "time_embed": {
-            "timestep": {
-                "linear_1": _dense_init(g, cfg.time_freq_dim, d),
-                "linear_2": _dense_init(g, d, d),
-            },
-            "linear": _dense_init(g, d, 6 * d),
+            "timestep": nn.mlp_embedder_init(ks[3], cfg.time_freq_dim, d),
+            "linear": nn.dense_init(ks[4], d, 6 * d),
         },
         "blocks": {
-            "scale_shift_table": _normal(g, (L, 6, d), 1.0 / math.sqrt(d)),
+            "scale_shift_table": threefry.normal(ks[5], (L, 6, d)) / d**0.5,
             "attn1": {
-                "to_q": _dense_init(g, d, d, bias=False, stack=(L,)),
-                "to_k": _dense_init(g, d, d, bias=False, stack=(L,)),
-                "to_v": _dense_init(g, d, d, bias=False, stack=(L,)),
-                "to_out": _dense_init(g, d, d, stack=(L,)),
+                "to_q": nn.stacked_dense_init(ks[6], L, d, d, bias=False),
+                "to_k": nn.stacked_dense_init(ks[7], L, d, d, bias=False),
+                "to_v": nn.stacked_dense_init(ks[8], L, d, d, bias=False),
+                "to_out": nn.stacked_dense_init(ks[9], L, d, d),
             },
             "attn2": {
-                "to_q": _dense_init(g, d, d, bias=False, stack=(L,)),
-                "to_k": _dense_init(g, d, d, bias=False, stack=(L,)),
-                "to_v": _dense_init(g, d, d, bias=False, stack=(L,)),
-                "to_out": _dense_init(g, d, d, stack=(L,)),
+                "to_q": nn.stacked_dense_init(ks[10], L, d, d, bias=False),
+                "to_k": nn.stacked_dense_init(ks[11], L, d, d, bias=False),
+                "to_v": nn.stacked_dense_init(ks[12], L, d, d, bias=False),
+                "to_out": nn.stacked_dense_init(ks[13], L, d, d),
             },
             "ff": {
                 "conv_inverted": {
-                    "kernel": _normal(g, (L, 1, 1, d, hidden2), 1.0 / math.sqrt(d)),
+                    "kernel": threefry.normal(ks[14], (L, 1, 1, d, hidden2)) / d**0.5,
                     "bias": torch.zeros(L, hidden2, device=dev),
                 },
                 "conv_depth": {
-                    "kernel": _normal(g, (L, 3, 3, 1, hidden2), 1.0 / 3.0),
+                    "kernel": threefry.normal(ks[15], (L, 3, 3, 1, hidden2)) / 3.0,
                     "bias": torch.zeros(L, hidden2, device=dev),
                 },
                 "conv_point": {
-                    "kernel": _normal(g, (L, 1, 1, hidden2 // 2, d), 1.0 / math.sqrt(hidden2 // 2)),
+                    "kernel": threefry.normal(ks[16], (L, 1, 1, hidden2 // 2, d)) / (hidden2 // 2) ** 0.5,
                 },
             },
         },
-        "scale_shift_table": _normal(g, (2, d), 1.0 / math.sqrt(d)),
-        "proj_out": _dense_init(g, d, p * p * cfg.out_channels),
+        "scale_shift_table": threefry.normal(ks[17], (2, d)) / d**0.5,
+        "proj_out": nn.dense_init(ks[18], d, cfg.patch_size * cfg.patch_size * cfg.out_channels),
     }
     if cfg.guidance_embeds:
-        params["time_embed"]["guidance"] = {
-            "linear_1": _dense_init(g, cfg.time_freq_dim, d),
-            "linear_2": _dense_init(g, d, d),
-        }
+        params["time_embed"]["guidance"] = nn.mlp_embedder_init(ks[19], cfg.time_freq_dim, d)
     return params
 
 
@@ -259,25 +238,19 @@ def sana_forward(model: SanaTransformer, *args, **kwargs) -> torch.Tensor:
     return model(*args, **kwargs)
 
 
-def per_image_normal(
-    seed: int, item_index: Sequence[int], shape: Tuple[int, ...], device: torch.device
-) -> torch.Tensor:
-    """``[len(item_index), *shape]`` standard normals; image ``i`` is drawn from
-    a CPU generator seeded by ``(seed, item_index[i])`` only, so it is the
-    same on every device and in every batch (the JAX package's
-    ``fold_in(key, item_index)`` contract)."""
-    out = []
-    for idx in item_index:
-        g = torch.Generator(device="cpu").manual_seed(item_seed(seed, int(idx)))
-        out.append(torch.randn(shape, generator=g, dtype=torch.float32))
-    return torch.stack(out).to(device)
+def per_image_normal(key: torch.Tensor, item_index: Sequence[int], shape: Tuple[int, ...]) -> torch.Tensor:
+    """``[..., len(item_index), *shape]`` standard normals on the key's
+    device: image ``i`` is ``normal(fold_in(key, item_index[i]), shape)``,
+    the JAX package's ``_per_image_normal``, so it is the same in every
+    batch; a batch of keys ``[..., 2]`` draws each key's images."""
+    return threefry.normal(threefry.fold_in(key[..., None, :], threefry.indices(item_index, key.device)), shape)
 
 
 def one_step_generate(
     model: SanaTransformer,
     prompt_embeds: torch.Tensor,  # [B, Ltxt, caption_dim]
     prompt_mask: Optional[torch.Tensor],
-    seed: Optional[int] = None,
+    key: Optional[torch.Tensor] = None,
     guidance_scale: float = 1.0,
     latent_hw: Tuple[int, int] = (32, 32),
     lora: Optional[Params] = None,
@@ -285,23 +258,24 @@ def one_step_generate(
     alpha_t: float = 0.267,
     sigma_t: float = 0.964,
     noise: Optional[torch.Tensor] = None,
+    item_index: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
     """One-step TrigFlow/SCM generation → latents divided by σ_d.
 
     The JAX package's sampler math: latents ~ N(0, σ_d²) (``noise`` given,
-    or drawn per image from ``(seed, item_index)``), the model evaluated at
-    t = 1.571 with SCM timestep sin t/(cos t + sin t), NaN/inf in the
-    ε-prediction zeroed, and the fixed α_t = 0.267, σ_t = 0.964 step.
-    Without ``noise``, image ``i`` draws from ``(seed, i)``."""
+    or image ``i`` drawn from ``fold_in(key, item_index[i])``, default
+    ``item_index = range(B)``), the model evaluated at t = 1.571 with SCM
+    timestep sin t/(cos t + sin t), NaN/inf in the ε-prediction zeroed, and
+    the fixed α_t = 0.267, σ_t = 0.964 step."""
     B = prompt_embeds.shape[0]
     h, w = latent_hw
     cfg = model.cfg
     sd = cfg.sigma_data
     dev = prompt_embeds.device
     if noise is None:
-        if seed is None:
-            raise ValueError("one_step_generate needs a seed or explicit noise")
-        noise = per_image_normal(seed, range(B), (h, w, cfg.in_channels), dev)
+        if key is None:
+            raise ValueError("one_step_generate needs a key or explicit noise")
+        noise = per_image_normal(key, range(B) if item_index is None else item_index, (h, w, cfg.in_channels))
     latents = noise.to(dev, torch.float32) * sd
     latent_in = latents / sd
 

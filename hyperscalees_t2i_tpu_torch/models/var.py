@@ -32,6 +32,7 @@ from torch import nn as tnn
 from ..lora import lookup, slice_layer
 from ..ops.attention import decode_attention
 from ..ops.sampling import sample_top_k_top_p
+from ..utils import threefry
 from ..utils.pytree import tree_map
 from . import msvq, nn
 
@@ -74,42 +75,34 @@ class VARConfig:
         return self.num_classes  # the extra class-table row (CFG null)
 
 
-def _normal(g: torch.Generator, shape, std: float) -> torch.Tensor:
-    return torch.randn(shape, generator=g, device=g.device) * std
-
-
-def _dense_init(g: torch.Generator, d_in: int, d_out: int, std: Optional[float] = None,
-                stack: Tuple[int, ...] = ()) -> Params:
-    std = 1.0 / math.sqrt(d_in) if std is None else std
-    return {"kernel": _normal(g, (*stack, d_in, d_out), std), "bias": torch.zeros((*stack, d_out), device=g.device)}
-
-
-def init_var(cfg: VARConfig, generator: torch.Generator) -> Params:
-    """Random f32 parameters in the JAX package's tree layout, drawn from
-    ``generator`` on its device (the VQ tree included)."""
-    g, d, D, H = generator, cfg.d_model, cfg.depth, cfg.n_heads
+def init_var(cfg: VARConfig, key: torch.Tensor) -> Params:
+    """Random f32 parameters in the JAX package's tree layout (the VQ tree
+    included), drawn on the key's device from its key tree
+    (``init_var(key, cfg)``)."""
+    d, D, H = cfg.d_model, cfg.depth, cfg.n_heads
     hid = int(d * cfg.ff_ratio)
     S, L = len(cfg.patch_nums), cfg.seq_len
+    ks = threefry.split(key, 16)
     params: Params = {
-        "class_emb": _normal(g, (cfg.num_classes + 1, d), 0.02),
-        "pos_start": _normal(g, (1, 1, d), 0.02),
-        "lvl_emb": _normal(g, (S, d), 0.02),
-        "pos_emb": _normal(g, (L, d), 0.02),
-        "word_embed": _dense_init(g, cfg.vq.c_vae, d),
+        "class_emb": threefry.normal(ks[0], (cfg.num_classes + 1, d)) * 0.02,
+        "pos_start": threefry.normal(ks[1], (1, 1, d)) * 0.02,
+        "lvl_emb": threefry.normal(ks[2], (S, d)) * 0.02,
+        "pos_emb": threefry.normal(ks[3], (L, d)) * 0.02,
+        "word_embed": nn.dense_init(ks[4], cfg.vq.c_vae, d),
         "blocks": {
-            "ada_lin": _dense_init(g, d, 6 * d, std=0.02, stack=(D,)),
-            "qkv": _dense_init(g, d, 3 * d, stack=(D,)),
-            "attn_proj": _dense_init(g, d, d, std=0.02 / math.sqrt(2 * D), stack=(D,)),
-            "fc1": _dense_init(g, d, hid, stack=(D,)),
-            "fc2": _dense_init(g, hid, d, std=0.02 / math.sqrt(2 * D), stack=(D,)),
+            "ada_lin": nn.stacked_dense_init(ks[5], D, d, 6 * d, std=0.02),
+            "qkv": nn.stacked_dense_init(ks[6], D, d, 3 * d),
+            "attn_proj": nn.stacked_dense_init(ks[7], D, d, d, std=0.02 / math.sqrt(2 * D)),
+            "fc1": nn.stacked_dense_init(ks[8], D, d, hid),
+            "fc2": nn.stacked_dense_init(ks[9], D, hid, d, std=0.02 / math.sqrt(2 * D)),
         },
-        "head_ada": _dense_init(g, d, 2 * d, std=0.02),
-        "head": _dense_init(g, d, cfg.vq.vocab_size, std=0.02),
-        "vq": msvq.init_msvq(cfg.vq, g),
+        "head_ada": nn.dense_init(ks[10], d, 2 * d, std=0.02),
+        "head": nn.dense_init(ks[11], d, cfg.vq.vocab_size, std=0.02),
+        "vq": msvq.init_msvq(cfg.vq, ks[12]),
     }
     if cfg.attn_l2_norm:
         # learned per-head log attention scale, init log 4
-        params["blocks"]["scale_mul"] = torch.full((D, H), math.log(4.0), device=g.device)
+        params["blocks"]["scale_mul"] = torch.full((D, H), math.log(4.0), device=key.device)
     return params
 
 

@@ -3,8 +3,9 @@
 Port of ``hyperscalees_t2i_tpu/ops/sampling.py``. The JAX package draws
 with ``jax.random.categorical(key, logits)``, which is
 ``argmax(logits + gumbel(key, logits.shape))``; here the Gumbel noise is an
-argument (the backends draw it, and the tests hand in ``jax.random``'s), so
-the same filtered logits and the same noise give the same ids.
+argument, drawn ahead by :func:`per_scale_gumbel` from the same keys, so the
+same filtered logits give the same ids (up to ``log`` rounding of the
+noise, ``utils.threefry``).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ..utils.seeding import item_seed
+from ..utils import threefry
 
 NEG_INF = -1e30
 
@@ -49,20 +50,15 @@ def sample_top_k_top_p(logits: torch.Tensor, gumbel: torch.Tensor, top_k: int = 
     return torch.argmax(lg + gumbel.to(torch.float32), dim=-1)
 
 
-def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
-    """Standard Gumbel ``-log(-log U)`` from uniforms in [0, 1), with U
-    clamped below at the smallest normal f32, as ``jax.random.gumbel``
-    draws it."""
-    u = u.to(torch.float32).clamp(min=torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
-
-
-def per_image_gumbel(seed: int, item_index: Sequence[int], shape: Tuple[int, ...],
-                     device: torch.device) -> torch.Tensor:
-    """``[len(item_index), *shape]`` standard Gumbel draws; image ``i`` from a
-    CPU generator seeded by ``(seed, item_index[i])`` only."""
-    out = []
-    for idx in item_index:
-        g = torch.Generator(device="cpu").manual_seed(item_seed(seed, int(idx)))
-        out.append(gumbel_from_uniform(torch.rand(shape, generator=g)))
-    return torch.stack(out).to(device)
+def per_scale_gumbel(key: torch.Tensor, item_index: Sequence[int], patch_nums: Sequence[int],
+                     tail: Tuple[int, ...]) -> torch.Tensor:
+    """``[..., len(item_index), L, *tail]`` standard Gumbel noise on the
+    key's device, ``L = Σ pn²``: image ``i``'s rows of scale ``si`` are
+    ``gumbel(fold_in(fold_in(key, si), item_index[i]), (pn², *tail))``, the
+    noise of the JAX package's per-scale ``jax.random.categorical`` keys
+    (VAR: ``tail = (V,)``; Infinity: ``(bits, 2)``). A batch of keys
+    ``[..., 2]`` draws each key's images."""
+    idx = threefry.indices(item_index, key.device)
+    parts = [threefry.gumbel(threefry.fold_in(threefry.fold_in(key, si)[..., None, :], idx), (pn * pn, *tail))
+             for si, pn in enumerate(patch_nums)]
+    return torch.cat(parts, dim=-1 - len(tail))

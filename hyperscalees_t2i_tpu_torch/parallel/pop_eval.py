@@ -5,7 +5,7 @@ variants come with multi-GPU training."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -88,15 +88,17 @@ def make_adapter_batch_generator(
     images_per_request: int,
     member_batch: int = 0,
 ) -> Callable[..., torch.Tensor]:
-    """``gen_batch(stacked_theta, flat_ids [n, B], seeds [n], noise=None,
+    """``gen_batch(stacked_theta, flat_ids [n, B], keys [n, 2], noise=None,
     guidance_scale=None) → images [n, B, H, W, C]`` for ``n <= adapter_batch``
-    lanes, each lane one request with its own adapter and seed.
+    lanes, each lane one request with its own adapter and ``utils.threefry``
+    key.
 
     Lanes run in chunks of ``member_batch`` (0 = all lanes in one chunk).
     Inside a chunk every base matmul takes all the chunk's rows at once and
     each lane's LoRA applies to its own rows (``lora.lora_delta``).
-    Image ``j`` of a lane draws its noise from (lane seed, ``j``) only, so a
-    request gives the same image served alone or in any batch."""
+    Image ``j`` of a lane draws its noise from (lane key, ``j``) only, the
+    JAX package's request-local ``item_index``, so a request gives the same
+    image served alone or in any batch."""
     A, B = adapter_batch, images_per_request
     if A < 1 or B < 1:
         raise ValueError(
@@ -106,7 +108,7 @@ def make_adapter_batch_generator(
     def gen_batch(
         stacked_theta: Optional[Any],
         flat_ids: Any,
-        seeds: Sequence[int],
+        keys: torch.Tensor,
         noise: Optional[torch.Tensor] = None,
         guidance_scale: Optional[float] = None,
     ) -> torch.Tensor:
@@ -120,7 +122,7 @@ def make_adapter_batch_generator(
             lanes = slice(k0, min(k0 + chunk, n))
             theta = None if stacked_theta is None else stacked_adapter_theta(stacked_theta, lanes)
             outs.append(generate_p(
-                theta, ids[lanes], list(seeds[lanes]),
+                theta, ids[lanes], keys[lanes],
                 noise=None if noise is None else noise[lanes],
                 guidance_scale=guidance_scale,
             ))

@@ -22,6 +22,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..models import clip as clip_mod
+from ..utils import threefry
 from ..utils.seeding import stable_text_seed
 
 AESTHETIC_TEXT = "a high quality, professional, beautiful, aesthetically pleasing image"
@@ -135,28 +136,31 @@ def make_clip_reward_fn(clip_model: clip_mod.CLIPModel, clip_text_table: torch.T
 
 
 def build_random_reward_suite(clip_b: clip_mod.CLIPConfig, clip_h: Optional[clip_mod.CLIPConfig],
-                              num_prompts: int, generator: torch.Generator, dtype: torch.dtype,
+                              num_prompts: int, key: torch.Tensor, dtype: torch.dtype,
                               base_quant: str = "off") -> RewardSuite:
-    """A benchmark rung's reward suite from random weights, in the JAX
-    package's ``bench.py`` order: CLIP-B drawn from ``generator`` and cast
-    to ``dtype``, its text table from random token ids (``num_prompts`` + 2
-    rows of ``rungs.PROMPT_TOKEN_LEN``); then, where there is one, the
-    PickScore tower and its text embeddings the same way. The tables are
-    built while the towers are still float; ``base_quant`` then applies to
-    both towers."""
+    """A benchmark rung's reward suite from random weights, drawn as the JAX
+    package's ``bench.py`` draws it (``_init_rewards``) on the key's device:
+    ``key`` splits into the CLIP-B, PickScore and PickScore-token keys; the
+    CLIP-B key splits again into its tower (cast to ``dtype``) and its text
+    table's random token ids (``num_prompts`` + 2 rows of
+    ``rungs.PROMPT_TOKEN_LEN``, ``randint``); where there is a PickScore
+    tower, it and its text embeddings the same way. The tables are built
+    while the towers are still float; ``base_quant`` then applies to both
+    towers."""
     from ..ops.quant import maybe_quantize_tree
     from ..rungs import PROMPT_TOKEN_LEN
     from ..utils.pytree import cast_floating
 
-    g, dev = generator, generator.device
-    cparams = cast_floating(clip_mod.init_clip(clip_b, g), dtype)
-    ids = torch.randint(0, clip_b.vocab_size, (num_prompts + 2, PROMPT_TOKEN_LEN), generator=g, device=dev)
+    kc, kp, ki = threefry.split(key, 3)
+    kc_tower, kc_ids = threefry.split(kc)
+    cparams = cast_floating(clip_mod.init_clip(clip_b, kc_tower), dtype)
+    ids = threefry.randint(kc_ids, (num_prompts + 2, PROMPT_TOKEN_LEN), 0, clip_b.vocab_size)
     with torch.inference_mode():
         table = clip_text_embed_table(clip_mod.CLIPModel(clip_b, cparams), ids)
     pick_model = ptable = None
     if clip_h is not None:
-        pparams = cast_floating(clip_mod.init_clip(clip_h, g), dtype)
-        pids = torch.randint(0, clip_h.vocab_size, (num_prompts, PROMPT_TOKEN_LEN), generator=g, device=dev)
+        pparams = cast_floating(clip_mod.init_clip(clip_h, kp), dtype)
+        pids = threefry.randint(ki, (num_prompts, PROMPT_TOKEN_LEN), 0, clip_h.vocab_size)
         with torch.inference_mode():
             ptable = pickscore_text_embeds(clip_mod.CLIPModel(clip_h, pparams), pids)
         pick_model = clip_mod.CLIPModel(clip_h, maybe_quantize_tree(pparams, base_quant))

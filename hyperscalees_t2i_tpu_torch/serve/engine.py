@@ -29,6 +29,7 @@ from ..backends.base import GeneratorBackend
 from ..device import DeviceLike, resolve_device
 from ..lora import stack_adapters
 from ..parallel.pop_eval import make_adapter_batch_generator
+from ..utils import threefry
 from ..utils.pytree import tree_map
 from .adapter_store import AdapterStore
 from .batcher import RequestQueue, ServeRequest, ServeResult
@@ -69,7 +70,7 @@ class ServeEngine:
         if backend.device != self.device:
             raise ValueError(f"backend is on {backend.device}, the engine on {self.device}")
         # the adapter structure every tenant must match (identity at init)
-        self.template = backend.init_theta(torch.Generator().manual_seed(0))
+        self.template = backend.init_theta(threefry.prng_key(0, self.device))
         self.store = AdapterStore(self.cfg.adapter_budget_bytes, template=self.template)
         self.queue = RequestQueue(self.cfg.max_queue)
         self._generators: Dict[int, Callable[..., torch.Tensor]] = {}
@@ -95,8 +96,10 @@ class ServeEngine:
     def _run(self, thetas: Sequence[Adapter], ids: List[List[int]], seeds: List[int],
              guidance: Optional[float]) -> np.ndarray:
         stacked = tree_map(lambda t: t.to(self.device, non_blocking=True), stack_adapters(list(thetas)))
+        # a request's key is PRNGKey(seed); its image j folds j in (the JAX engine's)
+        keys = torch.stack([threefry.prng_key(s, self.device) for s in seeds])
         with torch.inference_mode():
-            out = self._generator(len(ids[0]))(stacked, ids, seeds, guidance_scale=guidance)
+            out = self._generator(len(ids[0]))(stacked, ids, keys, guidance_scale=guidance)
             return out.to(torch.float32).cpu().numpy()
 
     def warmup(self, geometries: Optional[Sequence[Tuple[int, Optional[float]]]] = None) -> List[str]:

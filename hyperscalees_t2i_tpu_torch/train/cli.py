@@ -11,15 +11,11 @@ Flag names and defaults are the JAX CLI's for every flag the port's loop
 reads, plus ``--device`` (default: the CUDA card; without one the CLI
 raises unless ``--device cpu`` is given). The generator's weights are
 random (``--weights`` and ``--vae_weights`` raise: the converters are
-ROADMAP queue A item 10). ``--infinity_variant 2b`` is built as the
-released Infinity-2B checkpoint is configured
-(``models.infinity.released_config``: QK-l2, 2D RoPE, QK-l2
-cross-attention, the 32-bit tokenizer; with ``--pn 1M`` it is the
-``inf_2b`` rung), which is what the JAX CLI builds from that checkpoint
-with ``--weights``; without weights the JAX CLI keeps those flags off and
-16 bits. Every other variant has no recorded released configuration and
-is the JAX CLI's ``from_preset``. The Infinity float leaves are stored in
-the compute dtype. Infinity under ``--pop_fuse`` or ``--base_quant int8``
+ROADMAP queue A item 10). ``--infinity_variant`` is the JAX CLI's
+``from_preset`` for every variant, ``2b`` included (no QK-l2, no 2D RoPE,
+16 bits); the released Infinity-2B configuration is built through the
+``inf_2b`` rung (``backends.infinity_backend.build_train_backend("2b")``).
+The Infinity float leaves are stored in the compute dtype. Infinity under ``--pop_fuse`` or ``--base_quant int8``
 raises (queue A item 8);
 the reward towers are random too, which above ``--model_scale tiny`` needs
 ``--allow_random_rewards true``, and the PickScore tower is then dropped
@@ -150,8 +146,8 @@ def _prompts(path: Optional[str]) -> List[str]:
 def build_backend(args, device: torch.device):
     """The backend at the JAX CLI's geometry for ``--model_scale``, random
     weights, ``--base_quant`` on the generator's trees."""
-    from ..device import generator_for
     from ..ops.quant import maybe_quantize_tree
+    from ..utils import threefry
 
     if args.weights or args.vae_weights:
         raise NotImplementedError("--weights/--vae_weights: the checkpoint converters are not ported yet "
@@ -173,10 +169,9 @@ def build_backend(args, device: torch.device):
             guidance_scale=args.guidance_scale if args.guidance_scale is not None else 1.0,
             width_latent=lat, height_latent=lat, lora_r=args.lora_r, lora_alpha=args.lora_alpha)
         # the weights SanaBackend.setup would draw, with the base_quant knob
-        params = maybe_quantize_tree(sana.init_sana(cfg.model, generator_for(device, cfg.seed_params)),
-                                     args.base_quant)
-        vae = maybe_quantize_tree(dcae.init_decoder(cfg.vae, generator_for(device, cfg.seed_params + 1)),
-                                  args.base_quant)
+        kt, kv = threefry.split(threefry.prng_key(cfg.seed_params, device))
+        params = maybe_quantize_tree(sana.init_sana(cfg.model, kt), args.base_quant)
+        vae = maybe_quantize_tree(dcae.init_decoder(cfg.vae, kv), args.base_quant)
         return SanaBackend(cfg, device, params=params, vae_params=vae, prompts=_prompts(args.prompts_txt))
     if args.backend == "infinity":
         return _infinity_backend(args, device)
@@ -199,37 +194,38 @@ def build_backend(args, device: torch.device):
                            labels_path=args.labels_path,
                            cfg_scale=args.guidance_scale if args.guidance_scale is not None else 4.0,
                            lora_r=args.lora_r, lora_alpha=args.lora_alpha, **sampling)
-    params = maybe_quantize_tree(var_mod.init_var(model, generator_for(device, cfg.seed_params)), args.base_quant)
+    params = maybe_quantize_tree(var_mod.init_var(model, threefry.prng_key(cfg.seed_params, device)), args.base_quant)
     return VarBackend(cfg, device, params=params)
 
 
 def infinity_model(args):
-    """``--infinity_variant`` as released where that is recorded
-    (``infinity.RELEASED_BSQ_BITS``), else the JAX CLI's model: the
-    variant's preset, or the geometry for ``--model_scale`` (tiny:
-    ``infinity_rung_model("tiny")``); ``--pn`` sets the schedule of both the
-    transformer and the tokenizer."""
+    """The JAX CLI's Infinity model for ``--infinity_variant`` (its preset,
+    ``2b`` included), else for ``--model_scale``; ``--pn`` sets the schedule
+    of both the transformer and the tokenizer, and without it the tiny
+    scale takes the tiny 4-bit tokenizer. The released Infinity-2B
+    configuration is the ``inf_2b`` rung's (``rungs.infinity_rung_model``)."""
+    from ..models import bsq
     from ..models import infinity as inf_mod
-    from ..rungs import infinity_rung_model
 
-    if args.infinity_variant in inf_mod.RELEASED_BSQ_BITS:
-        return inf_mod.released_config(args.infinity_variant, args.pn)
     if args.infinity_variant:
         model = inf_mod.from_preset(args.infinity_variant)
-    elif args.model_scale == "tiny":
-        model = infinity_rung_model("tiny")["bcfg"].model
     else:
-        model = inf_mod.InfinityConfig(**_scaled(args, {}, dict(depth=8, d_model=512, n_heads=8), {}))
+        model = inf_mod.InfinityConfig(**_scaled(args, {}, dict(depth=8, d_model=512, n_heads=8),
+                                                 dict(depth=2, d_model=16, n_heads=2, ff_ratio=2.0, text_dim=12,
+                                                      patch_nums=(1, 2, 4), compute_dtype=torch.float32)))
     if args.pn:
         pns = inf_mod.PN_PRESETS[args.pn]
         model = dataclasses.replace(model, patch_nums=pns, vq=dataclasses.replace(model.vq, patch_nums=pns))
+    elif args.model_scale == "tiny":
+        model = dataclasses.replace(model, vq=bsq.BSQConfig(bits=4, patch_nums=model.patch_nums, phi_partial=2,
+                                                            dec_ch=(8, 8), dec_blocks=1, compute_dtype=torch.float32))
     return model
 
 
 def _infinity_backend(args, device: torch.device):
     from ..backends.infinity_backend import InfinityBackend, InfinityBackendConfig
-    from ..device import generator_for
     from ..models import infinity as inf_mod
+    from ..utils import threefry
     from ..utils.pytree import cast_floating
 
     if args.pop_fuse or args.base_quant != "off":
@@ -240,7 +236,8 @@ def _infinity_backend(args, device: torch.device):
         model=model, prompts_txt_path=args.prompts_txt, encoded_prompt_path=args.encoded_prompts,
         enable_positive_prompt=args.enable_positive_prompt, cfg_list=parse_float_list(args.cfg_list),
         tau_list=parse_float_list(args.tau_list), lora_r=args.lora_r, lora_alpha=args.lora_alpha)
-    params = cast_floating(inf_mod.init_infinity(model, generator_for(device, cfg.seed_params)), model.compute_dtype)
+    params = cast_floating(inf_mod.init_infinity(model, threefry.prng_key(cfg.seed_params, device)),
+                           model.compute_dtype)
     return InfinityBackend(cfg, device, params=params)
 
 
@@ -248,7 +245,6 @@ def build_reward_fn(args, backend, device: torch.device):
     """Random CLIP towers (tiny: the JAX CLI's tiny tower; else CLIP-B/32 in
     ``--tower_dtype``, behind ``--allow_random_rewards``), the text table
     from the hash tokenizer, then ``--base_quant`` on the tower."""
-    from ..device import generator_for
     from ..models import clip as clip_mod
     from ..ops.quant import maybe_quantize_tree
     from ..rewards.suite import (AESTHETIC_TEXT, NEGATIVE_TEXT, RewardWeights, clip_text_embed_table,
@@ -274,7 +270,9 @@ def build_reward_fn(args, backend, device: torch.device):
                                         no_artifacts=weights.no_artifacts * scale, pickscore=0.0)
             print(f"[cli] WARNING: PickScore tower unavailable → pickscore dropped, remaining reward weights "
                   f"renormalized to {weights}", flush=True)
-    cparams = clip_mod.init_clip(ccfg, generator_for(device, 11))
+    from ..utils import threefry
+
+    cparams = clip_mod.init_clip(ccfg, threefry.prng_key(11, device))
     ids, eot, mask = (t.to(device) for t in tokenize_with_hf(list(backend.texts) + [AESTHETIC_TEXT, NEGATIVE_TEXT]))
     with torch.inference_mode():
         table = clip_text_embed_table(clip_mod.CLIPModel(ccfg, cparams), ids, eot, mask)

@@ -8,12 +8,11 @@ evaluate every member (perturb → generate → decode → reward, in chunks of
 masked standardization, the EGGROLL update, the step cap and the θ cap.
 Every member shares the epoch's generation noise (common random numbers).
 
-Seeds: the JAX package splits the epoch key into a noise key and a
-generation key. The port derives two integer seeds from the step's
-``seed`` with ``es.sampling.mix_seed`` (``mix_seed(seed, 1, 0)`` for the ES
-noise, ``mix_seed(seed, 2, 0)`` for the generation noise) and draws each
-from its own ``torch.Generator`` on the step's device. The draws are not
-``jax.random``'s; ``noise=``/``gen_noise=`` take given draws instead.
+Keys: as in the JAX package, the step splits its epoch key
+(``es.sampling.epoch_key(seed, epoch)``) into a noise key and a generation
+key (:func:`es_draws`, which the loop's draws go through too), and θ₀ is drawn from ``fold_in(PRNGKey(seed), 17)``: the same seed
+draws the JAX package's numbers (``utils.threefry``), on the step's device.
+``noise=``/``gen_noise=`` take given draws instead.
 
 ES needs no gradient: the step runs under ``torch.inference_mode()``.
 
@@ -38,10 +37,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..device import DeviceLike, generator_for, resolve_device
+from ..device import DeviceLike, resolve_device
 from ..es.caps import cap_step_norm, cap_theta_norm, global_norm
 from ..es.noiser import es_update, sample_noise
-from ..es.sampling import epoch_seed, mix_seed
+from ..es.sampling import epoch_key
 from ..es.scoring import prompt_normalized_scores, standardize_fitness_masked
 from ..obs.es_health import DegeneracyWatchdog, es_health_metrics
 from ..obs.metrics import MetricsRegistry, record_device_memory
@@ -51,6 +50,7 @@ from ..parallel.pop_eval import make_population_evaluator
 from ..resilience.checkpoints import CheckpointStore
 from ..resilience.preempt import HALT_MARKER, PREEMPT_MARKER, PreemptionHandler, write_marker
 from ..resilience.rollback import RollbackController
+from ..utils import threefry
 from ..utils.pytree import tree_leaves, tree_map, tree_replace_leaves
 from .checkpoints import load_legacy_checkpoint, save_checkpoint
 from .config import TrainConfig, unported_settings
@@ -98,14 +98,31 @@ def _combine_and_update(theta: Any, prev_delta: Any, noise: Any, rewards: Dict[s
     return theta_new, delta, metrics, opt_scores
 
 
+def es_draws(backend: Any, theta: Any, key: torch.Tensor, pop: int, es_cfg: Any, count: int,
+             noise: Any = None, gen_noise: Optional[torch.Tensor] = None) -> Tuple[Any, torch.Tensor]:
+    """An epoch's draws from its key, as the JAX step makes them: ``key``
+    splits into (noise key, generation key); the ES noise for ``theta``, and
+    the generation noise of images ``range(count)`` (global positions).
+    ``noise``/``gen_noise``, where given, stand in for their draw."""
+    k_noise, k_gen = threefry.split(key)
+    if noise is None:
+        noise = sample_noise(k_noise, theta, pop, es_cfg)
+    if gen_noise is None:
+        gen_noise = backend.sample_gen_noise(k_gen, range(count))
+    return noise, gen_noise
+
+
 def make_es_step(backend: Any, reward_fn: Any, tc: TrainConfig, num_unique: int, repeats: int,
                  device: DeviceLike = None, *, stateful_delta: bool = False):
     """Build the epoch step for a fixed (m prompts, r repeats) plan.
 
-    Returns ``step(theta, flat_ids [m·r], seed, noise=None, gen_noise=None)
+    Returns ``step(theta, flat_ids [m·r], key, noise=None, gen_noise=None)
     → (θ', metrics, opt_scores)``; with ``stateful_delta=True``,
-    ``step(theta, prev_delta, flat_ids, seed, ...) → (θ', Δθ, metrics,
-    opt_scores)``, which feeds ``es/update_cosine``. ``metrics`` is the JAX
+    ``step(theta, prev_delta, flat_ids, key, ...) → (θ', Δθ, metrics,
+    opt_scores)``, which feeds ``es/update_cosine``. ``key`` is the epoch's
+    ``utils.threefry`` key; it splits into the ES noise key and the
+    generation key, and image ``i`` of every member draws from the
+    generation key folded with ``i``, its global position. ``metrics`` is the JAX
     package's dict (``quality/*`` with ``tc.quality``), as tensors on the
     device.
 
@@ -121,7 +138,7 @@ def make_es_step(backend: Any, reward_fn: Any, tc: TrainConfig, num_unique: int,
     eval_pop = make_population_evaluator(backend.generate_p, reward_fn, pop, es_cfg, tc.member_batch,
                                          reward_tile=tc.reward_tile, pop_fuse=tc.pop_fuse)
 
-    def core(theta, prev_delta, flat_ids, seed: int, noise=None, gen_noise=None):
+    def core(theta, prev_delta, flat_ids, key: torch.Tensor, noise=None, gen_noise=None):
         ids = torch.as_tensor(flat_ids, dtype=torch.long)
         if ids.numel() != num_unique * repeats:
             raise ValueError(f"{ids.numel()} prompt ids for a plan of {num_unique}×{repeats}")
@@ -129,12 +146,8 @@ def make_es_step(backend: Any, reward_fn: Any, tc: TrainConfig, num_unique: int,
         with torch.inference_mode():
             theta = tree_map(to_dev, theta)
             prev_delta = tree_map(to_dev, prev_delta)
-            if noise is None:
-                noise = sample_noise(generator_for(dev, mix_seed(seed, 1, 0)), theta, pop, es_cfg)
-            else:
-                noise = tree_map(to_dev, noise)
-            if gen_noise is None:
-                gen_noise = backend.sample_gen_noise(generator_for(dev, mix_seed(seed, 2, 0)), ids.numel())
+            noise, gen_noise = es_draws(backend, theta, key.to(dev), pop, es_cfg, ids.numel(),
+                                        noise=None if noise is None else tree_map(to_dev, noise), gen_noise=gen_noise)
             rewards = eval_pop(theta, noise, ids, gen_noise.to(dev, torch.float32))
             return _combine_and_update(theta, prev_delta, noise, rewards, tc=tc, es_cfg=es_cfg,
                                        pop=pop, num_unique=num_unique, repeats=repeats)
@@ -142,9 +155,9 @@ def make_es_step(backend: Any, reward_fn: Any, tc: TrainConfig, num_unique: int,
     if stateful_delta:
         return core
 
-    def step(theta, flat_ids, seed: int, noise=None, gen_noise=None):
+    def step(theta, flat_ids, key: torch.Tensor, noise=None, gen_noise=None):
         zeros = tree_map(torch.zeros_like, theta)
-        theta_new, _delta, metrics, opt_scores = core(theta, zeros, flat_ids, seed, noise, gen_noise)
+        theta_new, _delta, metrics, opt_scores = core(theta, zeros, flat_ids, key, noise, gen_noise)
         return theta_new, metrics, opt_scores
 
     return step
@@ -165,19 +178,16 @@ _PHASES = frozenset(("compile", "dispatch", "plan", "log", "checkpoint"))
 
 
 def _init_theta(backend: Any, tc: TrainConfig, dev: torch.device) -> Any:
-    """θ₀ (the counterpart of the JAX package's ``fold_in(PRNGKey(seed),
-    17)`` draw)."""
-    return backend.init_theta(generator_for(dev, mix_seed(tc.seed, 17, 0)))
+    """θ₀, drawn from ``fold_in(PRNGKey(seed), 17)`` on ``dev`` as in the
+    JAX package."""
+    return backend.init_theta(threefry.fold_in(threefry.prng_key(tc.seed, dev), 17))
 
 
 def _epoch_draws(backend: Any, tc: TrainConfig, theta: Any, epoch: int, count: int,
                  dev: torch.device) -> Tuple[Any, torch.Tensor]:
     """One epoch's ES noise and generation noise ``[count, ...]``: the
-    draws ``make_es_step`` makes for the seed ``epoch_seed(tc.seed,
-    epoch)``."""
-    seed = epoch_seed(tc.seed, epoch)
-    noise = sample_noise(generator_for(dev, mix_seed(seed, 1, 0)), theta, tc.pop_size, tc.es_config())
-    return noise, backend.sample_gen_noise(generator_for(dev, mix_seed(seed, 2, 0)), count)
+    draws ``make_es_step`` makes from ``epoch_key(tc.seed, epoch)``."""
+    return es_draws(backend, theta, epoch_key(tc.seed, epoch, dev), tc.pop_size, tc.es_config(), count)
 
 
 def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
@@ -296,7 +306,7 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                 with tracer.span("dispatch", epochs=1):
                     noise, gen_noise = _epoch_draws(backend, tc_live, state.theta, epoch, len(info.flat_ids), dev)
                     state.theta, prev_delta, metrics, _ = step_cache[(m, r)](
-                        state.theta, prev_delta, info.flat_ids, epoch_seed(tc.seed, epoch), noise=noise,
+                        state.theta, prev_delta, info.flat_ids, epoch_key(tc.seed, epoch, dev), noise=noise,
                         gen_noise=gen_noise)
                     scalars: Dict[str, Any] = {k: (v.tolist() if v.ndim else float(v)) for k, v in metrics.items()}
                 dt = time.perf_counter() - t0

@@ -1,1 +1,1 @@
-"""Small stateless helpers (seeding, tree casts)."""
+"""Small stateless helpers (seeding, the jax.random stream, tree casts)."""

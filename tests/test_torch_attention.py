@@ -28,7 +28,8 @@ from hyperscalees_t2i_tpu.ops.sampling import filter_top_k as jfilter_top_k
 from hyperscalees_t2i_tpu.ops.sampling import filter_top_p as jfilter_top_p
 from hyperscalees_t2i_tpu.ops.sampling import sample_top_k_top_p as jsample
 from hyperscalees_t2i_tpu_torch.ops.attention import MAX_HEAD_DIM, _check, decode_attention, naive_masked_attention
-from hyperscalees_t2i_tpu_torch.ops.sampling import filter_top_k, filter_top_p, gumbel_from_uniform, sample_top_k_top_p
+from hyperscalees_t2i_tpu_torch.ops.sampling import filter_top_k, filter_top_p, sample_top_k_top_p
+from hyperscalees_t2i_tpu_torch.utils import threefry
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -177,8 +178,13 @@ def test_injected_gumbel_sample_equals_jax_categorical(tk, tp):
 
 
 def test_gumbel_from_uniform_is_finite_at_the_ends():
-    u = torch.tensor([0.0, 1e-45, 0.5, 1.0 - 2 ** -24])
-    g = gumbel_from_uniform(u)
+    """The stream's Gumbel at the ends of its uniform: bits 0 give u = tiny,
+    all ones u = 1 − 2⁻²³, 2³¹ gives u = 0.5; all finite, as jax's."""
+    bits = torch.tensor([0, 2**31, 2**32 - 1], dtype=torch.int64)
+    g = threefry.gumbel_from_bits(bits)
     assert bool(torch.isfinite(g).all())
-    assert abs(float(g[2]) - (-math.log(-math.log(0.5)))) < 1e-6
-    assert u[0] == 0.0  # the input is not clamped in place
+    assert abs(float(g[1]) - (-math.log(-math.log(0.5)))) < 1e-6
+    u = threefry.uniform_from_bits(bits, torch.finfo(torch.float32).tiny, 1.0)
+    assert float(u[0]) == torch.finfo(torch.float32).tiny and float(u[2]) == 1.0 - 2 ** -23
+
+

@@ -21,7 +21,10 @@ from hyperscalees_t2i_tpu.ops.quant import quantize_tree as jquantize_tree
 from hyperscalees_t2i_tpu.rewards import suite as jsuite
 from hyperscalees_t2i_tpu_torch.models import clip as tclip
 from hyperscalees_t2i_tpu_torch.rewards import suite as tsuite
+from hyperscalees_t2i_tpu_torch.utils import threefry
 from hyperscalees_t2i_tpu_torch.weights.from_jax import clip_from_jax
+
+from test_torch_threefry import assert_tree_matches_jax
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -49,6 +52,30 @@ def test_published_tower_geometries_match_jax():
         assert dataclasses.asdict(t.text) == dataclasses.asdict(j.text)
         assert (t.image_size, t.patch_size, t.projection_dim, t.hidden_act) == \
             (j.image_size, j.patch_size, j.projection_dim, j.hidden_act)
+
+
+def test_init_clip_matches_jax_leaf_by_leaf():
+    jcfg, tcfg = _cfgs()
+    assert_tree_matches_jax(jclip.init_clip(jax.random.PRNGKey(4), jcfg), tclip.init_clip(tcfg, threefry.prng_key(4, "cpu")))
+
+
+def test_random_reward_suite_draws_bench_keys():
+    """``build_random_reward_suite(key)`` draws what the JAX ``bench.py``'s
+    ``_init_rewards(key)`` draws: the towers and the random token ids of
+    both text tables (here in f32, held against the JAX tables)."""
+    from hyperscalees_t2i_tpu.rungs import PROMPT_TOKEN_LEN
+
+    jcfg, tcfg = _cfgs()
+    M = 3
+    suite = tsuite.build_random_reward_suite(tcfg, tcfg, M, threefry.prng_key(1, "cpu"), torch.float32)
+    kc, kp, ki = jax.random.split(jax.random.PRNGKey(1), 3)
+    kc2, ki2 = jax.random.split(kc)
+    ids = jax.random.randint(ki2, (M + 2, PROMPT_TOKEN_LEN), 0, jcfg.vocab_size)
+    table = jsuite.clip_text_embed_table(jclip.init_clip(kc2, jcfg), jcfg, ids)
+    np.testing.assert_allclose(suite.clip_text_table.numpy(), np.asarray(table), **TOL)
+    pids = jax.random.randint(ki, (M, PROMPT_TOKEN_LEN), 0, jcfg.vocab_size)
+    ptable = jsuite.pickscore_text_embeds(jclip.init_clip(kp, jcfg), jcfg, pids)
+    np.testing.assert_allclose(suite.pick_text_embeds.numpy(), np.asarray(ptable), **TOL)
 
 
 @pytest.fixture(scope="module", params=["float-quick_gelu", "int8-gelu"])

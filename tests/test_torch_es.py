@@ -25,6 +25,7 @@ from hyperscalees_t2i_tpu_torch.es import caps, noiser, sampling, scoring
 from hyperscalees_t2i_tpu_torch.lora import FactoredDelta, slice_layer
 from hyperscalees_t2i_tpu_torch.models import nn as tnn
 from hyperscalees_t2i_tpu_torch.obs import es_health
+from hyperscalees_t2i_tpu_torch.utils import threefry
 from hyperscalees_t2i_tpu_torch.weights.from_jax import adapter_from_jax, tree_from_numpy
 
 torch.set_num_threads(1)
@@ -60,7 +61,7 @@ def test_sample_noise_shapes_and_dtypes(noise_dtype):
     theta = adapter_from_jax(_np(_theta()), "cpu")
     theta["conv"] = {"a": torch.zeros(3, 3, 4, 2), "b": torch.zeros(2, 5)}
     _, cfg = _cfgs(noise_dtype)
-    noise = noiser.sample_noise(torch.Generator().manual_seed(0), theta, POP, cfg)
+    noise = noiser.sample_noise(threefry.prng_key(0, "cpu"), theta, POP, cfg)
     base = noiser.base_pop_size(POP, True)
     dt = getattr(torch, noise_dtype)
     q = noise["blocks/attn1/to_q"]["a"]
@@ -70,6 +71,24 @@ def test_sample_noise_shapes_and_dtypes(noise_dtype):
     assert isinstance(noise["conv"]["a"], noiser.DenseNoise)
     assert tuple(noise["conv"]["a"].E.shape) == (base, 3, 3, 4, 2)
     assert all(t.dtype == dt for n in noise.values() for node in n.values() for t in node)
+
+
+@pytest.mark.parametrize("noise_dtype", ["float32", "bfloat16"])
+def test_sample_noise_matches_jax_from_the_same_key(noise_dtype):
+    """The JAX key tree, leaf by leaf: one key per θ leaf, split into
+    (ku, kv) for the factored leaves. f32 draws within 1e-6; the bf16 store
+    within one bf16 rounding of them (a draw 1e-6 from a rounding boundary
+    may round the other way)."""
+    jtheta = dict(_theta(), conv={"a": jnp.zeros((3, 3, 4, 2)), "b": jnp.zeros((2, 5))})
+    jcfg, cfg = _cfgs(noise_dtype)
+    j = jnoiser.sample_noise(jax.random.PRNGKey(4), jtheta, POP, jcfg)
+    t = noiser.sample_noise(threefry.prng_key(4, "cpu"), adapter_from_jax(_np(jtheta), "cpu"), POP, cfg)
+    jl = jax.tree_util.tree_leaves(j)
+    tl = [x for n in (t[k][f] for k in sorted(t) for f in sorted(t[k])) for x in n]
+    assert len(jl) == len(tl)
+    tol = dict(rtol=0, atol=1e-6) if noise_dtype == "float32" else dict(rtol=2 ** -8, atol=1e-6)
+    for a, b in zip(jl, tl):
+        np.testing.assert_allclose(b.float().numpy(), np.asarray(a, np.float32), **tol)
 
 
 @pytest.mark.parametrize("pop", [1, 4, 5])
@@ -188,6 +207,13 @@ def test_caps_match_jax(limit):
     t, ts = caps.cap_step_norm(tt, ta, limit)
     _assert_tree_close(t, j)
     np.testing.assert_allclose(float(ts), float(js), **TOL)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+def test_epoch_key_matches_jax(seed):
+    for epoch in (0, 1, 99):
+        np.testing.assert_array_equal(sampling.epoch_key(seed, epoch, "cpu").numpy(),
+                                      np.asarray(jax.random.key_data(jsampling.epoch_key(seed, epoch))))
 
 
 def test_prompt_sampling_and_seeds_match_jax():

@@ -6,7 +6,9 @@ Four variants: ``pop_fuse`` off and on, over a float base and an int8 base
 towers), so the plain versions of K2 (float base, factored leaves) and K3
 (int8 base, factored leaves) both run. Weights, prompt embeddings and text
 tables are the JAX package's, carried over; the JAX ES noise and the
-per-image generation latents are injected (``noise=``/``gen_noise=``).
+per-image generation latents are injected (``noise=``/``gen_noise=``), and,
+in ``test_step_with_nothing_injected_matches_jax``, drawn by the port from
+the JAX program's key.
 
 The JAX side of each variant is the JAX package's ``make_es_step`` itself
 (one compile per variant). Its reward suite hands each call's rewards to
@@ -47,6 +49,7 @@ from hyperscalees_t2i_tpu_torch.rewards.suite import make_clip_reward_fn
 from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, sana_rung_model
 from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
 from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
+from hyperscalees_t2i_tpu_torch.utils import threefry
 from hyperscalees_t2i_tpu_torch.weights.from_jax import (
     adapter_from_jax, clip_from_jax, tree_from_numpy,
 )
@@ -153,7 +156,7 @@ def variant(request):
     return dict(jout=jout, jcombine=_np(jcombine), tb=tb, treward=treward, tc=tc, inputs=inputs)
 
 
-def _run_port(v, **overrides):
+def _run_port(v, inject=True, **overrides):
     tc = dataclasses.replace(v["tc"], **overrides)
     rows = {}
     reward = v["treward"]
@@ -165,7 +168,8 @@ def _run_port(v, **overrides):
 
     step = make_es_step(v["tb"], recording_reward, tc, M, 1, device="cpu")
     i = v["inputs"]
-    theta, metrics, opt = step(i["theta"], i["flat"], 0, noise=i["noise"], gen_noise=i["gen"])
+    draws = dict(noise=i["noise"], gen_noise=i["gen"]) if inject else {}
+    theta, metrics, opt = step(i["theta"], i["flat"], threefry.prng_key(2, "cpu"), **draws)
     return theta, metrics, opt, rows["tiles"]
 
 
@@ -183,9 +187,18 @@ def _rows(tiles, tc):
 
 
 def test_step_matches_jax(variant):
-    v = variant
+    _assert_step_matches_jax(variant, _run_port(variant))
+
+
+def test_step_with_nothing_injected_matches_jax(variant):
+    """The port draws the ES noise and the latents from the JAX program's
+    key itself."""
+    _assert_step_matches_jax(variant, _run_port(variant, inject=False))
+
+
+def _assert_step_matches_jax(v, port):
     jtheta, jmetrics, jopt, jrewards = v["jout"]
-    theta, metrics, opt, tiles = _run_port(v)
+    theta, metrics, opt, tiles = port
     for p in jtheta:
         for f in jtheta[p]:
             np.testing.assert_allclose(theta[p][f].numpy(), np.asarray(jtheta[p][f]), **TOL)
@@ -232,9 +245,10 @@ def test_stateful_step_threads_the_update(variant):
     i = v["inputs"]
     step = make_es_step(v["tb"], v["treward"], v["tc"], M, 1, device="cpu", stateful_delta=True)
     zeros = {p: {f: torch.zeros_like(t) for f, t in d.items()} for p, d in i["theta"].items()}
-    theta1, delta1, m1, _ = step(i["theta"], zeros, i["flat"], 0, noise=i["noise"], gen_noise=i["gen"])
+    theta1, delta1, m1, _ = step(i["theta"], zeros, i["flat"], threefry.prng_key(2, "cpu"), noise=i["noise"],
+                                 gen_noise=i["gen"])
     assert float(m1["es/update_cosine"]) == 0.0
-    _, _, m2, _ = step(theta1, delta1, i["flat"], 0, noise=i["noise"], gen_noise=i["gen"])
+    _, _, m2, _ = step(theta1, delta1, i["flat"], threefry.prng_key(2, "cpu"), noise=i["noise"], gen_noise=i["gen"])
     assert -1.0 <= float(m2["es/update_cosine"]) <= 1.0 and float(m2["es/update_cosine"]) != 0.0
 
 
@@ -264,8 +278,9 @@ def test_build_train_backend_small_rung_step(base_quant):
     assert all(n > 0 for n in n_q8) if base_quant else not any(n_q8)
     tc = TrainConfig(pop_size=POP, sigma=SIGMA, egg_rank=4, member_batch=1, pop_fuse=True)
     info = backend.step_info(0, M, 1)
-    theta = backend.init_theta(torch.Generator().manual_seed(1))
-    theta_new, metrics, opt = make_es_step(backend, reward, tc, M, 1, device="cpu")(theta, info.flat_ids, 3)
+    theta = backend.init_theta(threefry.prng_key(1, "cpu"))
+    theta_new, metrics, opt = make_es_step(backend, reward, tc, M, 1, device="cpu")(theta, info.flat_ids,
+                                                                                    threefry.prng_key(3, "cpu"))
     assert opt.shape == (POP,) and bool(torch.isfinite(opt).all())
     assert all(bool(torch.isfinite(t).all()) for d in theta_new.values() for t in d.values())
     assert float(metrics["delta_norm"]) > 0

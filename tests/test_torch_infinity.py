@@ -45,7 +45,13 @@ from hyperscalees_t2i_tpu_torch.lora import stack_adapters
 from hyperscalees_t2i_tpu_torch.models import bsq, infinity, msvq, nn
 from hyperscalees_t2i_tpu_torch.rungs import infinity_rung_model
 from hyperscalees_t2i_tpu_torch.utils import prompt_cache as pc
+from hyperscalees_t2i_tpu_torch.backends.infinity_backend import hash_text_features
+from hyperscalees_t2i_tpu_torch.ops.sampling import per_scale_gumbel
+from hyperscalees_t2i_tpu_torch.utils import threefry
+from hyperscalees_t2i_tpu_torch.utils.seeding import stable_text_seed
 from hyperscalees_t2i_tpu_torch.weights.from_jax import adapter_from_jax, bsq_from_jax, infinity_from_jax
+
+from test_torch_threefry import assert_tree_matches_jax
 
 torch.set_num_threads(1)
 TOL = dict(rtol=3e-4, atol=3e-4)
@@ -214,6 +220,32 @@ def test_presets_schedules_and_released_config():
         infinity.released_config("8b", "1M")
     tiny = infinity_rung_model("tiny")["bcfg"].model
     assert tiny == port_cfg(tiny_cfg())
+
+
+@pytest.mark.parametrize("released", [False, True])
+def test_init_infinity_matches_jax_leaf_by_leaf(released):
+    kw = dict(attn_l2_norm=True, use_rope2d=True, cross_attn_l2_norm=True) if released else {}
+    j = tiny_cfg(**kw)
+    assert_tree_matches_jax(jinf.init_infinity(jax.random.PRNGKey(3), j), infinity.init_infinity(port_cfg(j),
+                                                                                              threefry.prng_key(3, "cpu")))
+
+
+def test_init_bsq_matches_jax_leaf_by_leaf():
+    j = jbsq.BSQConfig(bits=4, patch_nums=(1, 2, 4), phi_partial=2, dec_ch=(8, 4), dec_blocks=2,
+                       compute_dtype=jnp.float32)
+    assert_tree_matches_jax(jbsq.init_bsq(jax.random.PRNGKey(2), j), bsq.init_bsq(port_vq(j), threefry.prng_key(2, "cpu")))
+
+
+def test_gumbel_and_hash_text_features_are_the_jax_draws():
+    cfg = tiny_cfg()
+    g = per_scale_gumbel(threefry.prng_key(8, "cpu"), [0, 1, 2], cfg.patch_nums, (cfg.vq.bits, 2))
+    np.testing.assert_allclose(g.numpy(), jax_gumbel(jax.random.PRNGKey(8), cfg, 3), rtol=0, atol=1e-6)
+    prompts = ["a red square", "a blue circle", "", "a green cat"]
+    emb, mask = hash_text_features(prompts, 12, torch.device("cpu"))
+    for i, p in enumerate(prompts):  # the JAX backend's hash fallback
+        k = jax.random.fold_in(jax.random.PRNGKey(777), stable_text_seed(p))
+        np.testing.assert_allclose(emb[i].numpy(), np.asarray(jax.random.normal(k, (16, 12))), rtol=0, atol=1e-6)
+        assert mask[i].tolist() == [t < 16 - (i % 3) for t in range(16)]
 
 
 # -- BSQ -----------------------------------------------------------------------

@@ -36,12 +36,14 @@ from hyperscalees_t2i_tpu.train.config import TrainConfig as JTrainConfig
 from hyperscalees_t2i_tpu.train.trainer import make_es_step as jmake_es_step
 from hyperscalees_t2i_tpu.utils.prompt_cache import save_infinity_cache as jsave_infinity_cache
 from hyperscalees_t2i_tpu_torch.backends.infinity_backend import InfinityBackend, build_train_backend
+from hyperscalees_t2i_tpu_torch.models import infinity as tinf
 from hyperscalees_t2i_tpu_torch.resilience.checkpoints import CheckpointStore
 from hyperscalees_t2i_tpu_torch.rewards.suite import make_clip_reward_fn
 from hyperscalees_t2i_tpu_torch.rungs import RUNG_OPT, RUNG_PLAN, infinity_rung_model
 from hyperscalees_t2i_tpu_torch.train import cli
 from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
 from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
+from hyperscalees_t2i_tpu_torch.utils import threefry
 from hyperscalees_t2i_tpu_torch.utils.jsonl import read_jsonl_rows
 from hyperscalees_t2i_tpu_torch.weights.from_jax import adapter_from_jax, clip_from_jax, tree_from_numpy
 
@@ -99,7 +101,7 @@ def parts(tmp_path_factory):
     return dict(jb=jb, jout=(jtheta, jmetrics, jopt, jrows), backend=backend, reward=reward, inputs=inputs)
 
 
-def _run_port(p, member_batch):
+def _run_port(p, member_batch, inject=True):
     calls = []
 
     def recording_reward(images, ids):
@@ -109,15 +111,26 @@ def _run_port(p, member_batch):
 
     i = p["inputs"]
     tc = TrainConfig(pop_size=POP, sigma=SIGMA, egg_rank=4, member_batch=member_batch)
+    draws = dict(noise=i["noise"], gen_noise=i["gen"]) if inject else {}
     theta, metrics, opt = make_es_step(p["backend"], recording_reward, tc, M, 1, device="cpu")(
-        i["theta"], i["flat"], 0, noise=i["noise"], gen_noise=i["gen"])
+        i["theta"], i["flat"], threefry.prng_key(2, "cpu"), **draws)
     rows = {k: torch.cat([c[k].reshape(-1, M) for c in calls]).numpy() for k in calls[0]}
     return theta, metrics, opt, rows
 
 
 def test_infinity_step_matches_jax(parts):
+    _assert_step_matches_jax(parts, _run_port(parts, 2))
+
+
+def test_infinity_step_with_nothing_injected_matches_jax(parts):
+    """The port draws the ES noise and every image's per-scale Gumbel noise
+    from the JAX program's key itself."""
+    _assert_step_matches_jax(parts, _run_port(parts, 2, inject=False))
+
+
+def _assert_step_matches_jax(parts, port):
     jtheta, jmetrics, jopt, jrows = parts["jout"]
-    theta, metrics, opt, rows = _run_port(parts, 2)
+    theta, metrics, opt, rows = port
     for p in jtheta:
         for f in jtheta[p]:
             np.testing.assert_allclose(theta[p][f].numpy(), np.asarray(jtheta[p][f]), err_msg=p, **TOL)
@@ -147,12 +160,12 @@ def test_member_batch_lanes_equal_solo(parts, member_batch):
 def test_gen_noise_is_gumbel_and_seeded(parts):
     backend = parts["backend"]
     assert backend.noise_shape == (21, 4, 2)
-    noise = backend.sample_gen_noise(torch.Generator().manual_seed(0), 64)
+    noise = backend.sample_gen_noise(threefry.prng_key(0, "cpu"), range(64))
     assert noise.shape == (64, 21, 4, 2) and bool(torch.isfinite(noise).all())
     assert abs(float(noise.mean()) - 0.5772) < 0.03 and abs(float(noise.var()) - 1.6449) < 0.08
-    # a served image draws its noise from (seed, its position) only
-    one = backend.generate(None, [1], seed=3)
-    two = backend.generate(None, [1, 2], seed=3)
+    # a served image draws its noise from (key, its position) only
+    one = backend.generate(None, [1], threefry.prng_key(3, "cpu"))
+    two = backend.generate(None, [1, 2], threefry.prng_key(3, "cpu"))
     torch.testing.assert_close(one[0], two[0])
 
 
@@ -179,6 +192,8 @@ def test_hash_fallback_text_is_shaped_as_the_jax_package(parts):
     backend.setup()
     assert tuple(backend.text_emb.shape) == tuple(jb.text_emb.shape) == (4, 16, 12)
     np.testing.assert_array_equal(backend.text_mask.numpy(), np.array(jb.text_mask))
+    # the same features: fold_in(PRNGKey(777), stable_text_seed(p)) in both packages
+    np.testing.assert_allclose(backend.text_emb.numpy(), np.array(jb.text_emb), rtol=0, atol=1e-6)
 
 
 def test_rung_and_build_train_backend():
@@ -212,11 +227,14 @@ def test_cli_tiny_infinity_run(tmp_path, capsys):
 
 
 def test_cli_builds_the_inf_2b_model_and_refuses_what_is_not_ported():
+    # --infinity_variant means what it means in the JAX CLI, 2b included: the
+    # preset (no QK-l2, no 2D RoPE, a 16-bit tokenizer); the released
+    # Infinity-2B configuration is the inf_2b rung's
     args = cli.build_parser().parse_args(["--backend", "infinity", "--infinity_variant", "2b", "--pn", "1M"])
-    assert cli.infinity_model(args) == infinity_rung_model("2b")["bcfg"].model
-    # a variant without a recorded released configuration is the JAX CLI's preset
+    assert cli.infinity_model(args) != infinity_rung_model("2b")["bcfg"].model
+    assert infinity_rung_model("2b")["bcfg"].model == tinf.released_config("2b", "1M")
     pns = jinf.PN_PRESETS["1M"]
-    for variant in ("8b", "layer12"):
+    for variant in ("2b", "8b", "layer12"):
         j = jinf.from_preset(variant)
         j = dataclasses.replace(j, patch_nums=pns, vq=dataclasses.replace(j.vq, patch_nums=pns))
         m = cli.infinity_model(cli.build_parser().parse_args(["--backend", "infinity", "--infinity_variant", variant,
@@ -238,3 +256,64 @@ def test_infinity_entry_points_default_to_the_card(monkeypatch):
         build_train_backend("tiny")
     with pytest.raises(RuntimeError):
         InfinityBackend(infinity_rung_model("tiny")["bcfg"], "cuda")
+
+
+def test_run_training_from_a_seed_matches_jax(tmp_path):
+    """Nothing injected: the JAX ``run_training`` and the port's, each on the
+    tiny Infinity backend it builds from ``seed_params`` and the prompt
+    file (hash text features), from the same seed: every shared
+    ``metrics.jsonl`` value and the epoch-2 slot's θ within 3e-4."""
+    from hyperscalees_t2i_tpu.train.trainer import run_training as jrun_training
+    from hyperscalees_t2i_tpu_torch.train import trainer
+
+    from test_torch_trainer import _assert_rows_match, brightness, jax_brightness
+
+    path = tmp_path / "prompts.txt"
+    path.write_text("\n".join(PROMPTS) + "\n")
+    kw = dict(num_epochs=2, pop_size=POP, sigma=0.05, egg_rank=2, prompts_per_gen=2, member_batch=2, save_every=1,
+              quality=True, seed=3, run_name="seed")
+    jb = JBackend(JConfig(model=tiny_cfg(), prompts_txt_path=str(path)))
+    jb.setup()
+    jrun_training(jb, jax_brightness, JTrainConfig(run_dir=str(tmp_path / "jax"), **kw))
+    cfg = dataclasses.replace(infinity_rung_model("tiny")["bcfg"], prompts_txt_path=str(path))
+    trainer.run_training(InfinityBackend(cfg, "cpu"), brightness, TrainConfig(run_dir=str(tmp_path / "port"), **kw),
+                         device="cpu")
+    jdir, pdir = tmp_path / "jax" / "seed", tmp_path / "port" / "seed"
+    _assert_rows_match(read_jsonl_rows(jdir / "metrics.jsonl"), read_jsonl_rows(pdir / "metrics.jsonl"))
+    slot = "ckpt/step_00000002/theta.npz"
+    with np.load(jdir / slot) as jz, np.load(pdir / slot) as pz:
+        assert set(jz.files) == set(pz.files)
+        for k in jz.files:
+            np.testing.assert_allclose(pz[k], jz[k], err_msg=k, **TOL)
+
+
+def test_inf_2b_theta0_is_the_jax_theta0():
+    """The ``inf_2b`` rung's θ₀ at full size, ``init_theta(fold_in(PRNGKey(0),
+    17))`` over the released Infinity-2B tree, equals the JAX package's
+    ``init_lora`` from the same key (the shapes from ``jax.eval_shape``,
+    meta tensors in the port). Its norm, 42.33, is above the CLI's
+    ``theta_max_norm`` of 40: the JAX θ₀ starts capped too."""
+    from hyperscalees_t2i_tpu.es.caps import global_norm as jglobal_norm
+    from hyperscalees_t2i_tpu.lora import LoRASpec as JSpec
+    from hyperscalees_t2i_tpu.lora import init_lora as jinit_lora
+    from hyperscalees_t2i_tpu.models import bsq as jbsq
+    from hyperscalees_t2i_tpu_torch.es.caps import global_norm
+    from hyperscalees_t2i_tpu_torch.lora import LoRASpec, init_lora
+
+    pns = jinf.PN_PRESETS["1M"]
+    j = jinf.from_preset("2b", attn_l2_norm=True, use_rope2d=True, cross_attn_l2_norm=True, patch_nums=pns,
+                         vq=jbsq.BSQConfig(bits=32, patch_nums=pns))
+    assert port_cfg(j) == dataclasses.replace(tinf.released_config("2b", "1M"), compute_dtype=torch.float32,
+                                              vq=port_cfg(j).vq)
+    shapes = jax.eval_shape(lambda k: jinf.init_infinity(k, j), jax.random.PRNGKey(0))
+    c = infinity_rung_model("2b")["bcfg"]
+    jtheta = jinit_lora(jax.random.fold_in(jax.random.PRNGKey(0), 17), shapes, JSpec(c.lora_r, c.lora_alpha,
+                                                                                      c.lora_targets))
+    meta = jax.tree_util.tree_map(lambda s: torch.empty(s.shape, device="meta"), shapes)
+    theta = init_lora(meta, LoRASpec(c.lora_r, c.lora_alpha, c.lora_targets),
+                      threefry.fold_in(threefry.prng_key(0, "cpu"), 17), device=torch.device("cpu"))
+    assert sorted(theta) == sorted(jtheta)
+    for k in jtheta:
+        np.testing.assert_allclose(theta[k]["a"].numpy(), np.asarray(jtheta[k]["a"]), rtol=0, atol=1e-6)
+    norm, jnorm = float(global_norm(theta)), float(jglobal_norm(jtheta))
+    assert abs(norm - jnorm) < 1e-4 and norm > TrainConfig().theta_max_norm == 40.0, (norm, jnorm)

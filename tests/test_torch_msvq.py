@@ -23,7 +23,10 @@ import torch
 from hyperscalees_t2i_tpu.models import msvq as jmsvq
 from hyperscalees_t2i_tpu_torch.models import msvq
 from hyperscalees_t2i_tpu_torch.models.resize import resize_weights
+from hyperscalees_t2i_tpu_torch.utils import threefry
 from hyperscalees_t2i_tpu_torch.weights.from_jax import msvq_from_jax, tree_from_numpy
+
+from test_torch_threefry import assert_tree_matches_jax
 
 torch.set_num_threads(1)
 PATCH_NUMS = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
@@ -154,7 +157,8 @@ def test_init_msvq_builds_the_jax_tree_structure():
     for mid in (True, False):
         jcfg, tcfg = _cfgs(mid)
         jtree = jax.tree_util.tree_structure(jmsvq.init_msvq(jax.random.PRNGKey(0), jcfg))
-        ttree = msvq.init_msvq(tcfg, torch.Generator().manual_seed(0))
+        ttree = msvq.init_msvq(tcfg, threefry.prng_key(0, "cpu"))
+        assert_tree_matches_jax(jmsvq.init_msvq(jax.random.PRNGKey(0), jcfg), ttree)
         shapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), jmsvq.init_msvq(jax.random.PRNGKey(0), jcfg))
         tshapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), ttree)
         assert jax.tree_util.tree_structure(ttree) == jtree

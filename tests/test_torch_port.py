@@ -40,7 +40,7 @@ print("MISSING", sorted(set(sys.argv[1:]) - set(sys.modules)))
 # modules the walk must reach (the slices' models, backends and caches among them)
 _REQUIRED = ["hyperscalees_t2i_tpu_torch." + m for m in (
     "models.var", "models.msvq", "models.bsq", "models.infinity", "backends.var_backend",
-    "backends.infinity_backend", "utils.prompt_cache", "train.cli")]
+    "backends.infinity_backend", "utils.prompt_cache", "utils.threefry", "train.cli")]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

@@ -4,8 +4,10 @@ The tiny f32 config of tests/test_golden.py, with an int8 base
 (``quantize_tree(min_size=0)``: every kernel, the depthwise and patch convs
 included) and a non-zero adapter. JAX-initialized weights are carried over
 by ``weights/from_jax.py``; the sampler noise is the JAX package's
-``sana._per_image_normal``, injected. Bound 3e-4 (the golden bound);
-measured max abs error 1.4e-6 (DiT) and 6e-7 (decoder).
+``sana._per_image_normal``, injected, and, with nothing injected, the
+port's own draw from the same key. Bound 3e-4 (the golden bound);
+measured max abs error 1.4e-6 (DiT) and 6e-7 (decoder). The port's random
+inits equal the JAX inits from the same key within 1e-6, leaf by leaf.
 """
 
 import dataclasses
@@ -24,7 +26,10 @@ from hyperscalees_t2i_tpu_torch.lora import LoRASpec as TLoRASpec
 from hyperscalees_t2i_tpu_torch.lora import init_lora as tinit_lora
 from hyperscalees_t2i_tpu_torch.models import dcae as tdcae
 from hyperscalees_t2i_tpu_torch.models import sana as tsana
+from hyperscalees_t2i_tpu_torch.utils import threefry
 from hyperscalees_t2i_tpu_torch.weights.from_jax import adapter_from_jax, dcae_from_jax, sana_from_jax, tree_from_numpy
+
+from test_torch_threefry import assert_tree_matches_jax
 
 torch.set_num_threads(1)
 TOL = dict(rtol=3e-4, atol=3e-4)
@@ -85,22 +90,55 @@ def test_one_step_generate_matches_jax(sana_pair):
 
 
 def test_init_lora_has_the_jax_tree_structure(sana_pair):
-    """Same paths and factor shapes as the JAX package (so adapters move
-    across), including the time-embedder adapters the forward never reads."""
+    """Same paths, factor shapes and values as the JAX package's
+    ``init_lora`` from the same key (one key per kernel path, targeted or
+    not), including the time-embedder adapters the forward never reads."""
     s = sana_pair
     shapes = tree_from_numpy(_np_tree(s["params"]), "cpu")
-    t = tinit_lora(shapes, TLoRASpec(rank=8, alpha=16.0, targets=jsana.SANA_LORA_TARGETS),
-                   torch.Generator().manual_seed(0))
+    t = tinit_lora(shapes, TLoRASpec(rank=8, alpha=16.0, targets=jsana.SANA_LORA_TARGETS), threefry.prng_key(7, "cpu"))
     assert sorted(t) == sorted(s["lora"])
     for k, leaf in s["lora"].items():
         assert tuple(t[k]["a"].shape) == leaf["a"].shape and tuple(t[k]["b"].shape) == leaf["b"].shape
         assert float(t[k]["b"].abs().max()) == 0.0
+    assert_tree_matches_jax(jinit_lora(jax.random.PRNGKey(7), s["params"], s["spec"]), t)
 
 
 def test_per_image_noise_depends_only_on_seed_and_index():
-    a = tsana.per_image_normal(5, [0, 1, 2], (2, 2, 3), torch.device("cpu"))
-    b = tsana.per_image_normal(5, [2], (2, 2, 3), torch.device("cpu"))
+    key = threefry.prng_key(5, "cpu")
+    a = tsana.per_image_normal(key, [0, 1, 2], (2, 2, 3))
+    b = tsana.per_image_normal(key, [2], (2, 2, 3))
     assert torch.equal(a[2], b[0]) and not torch.equal(a[0], a[1])
+    j = np.asarray(jsana._per_image_normal(jax.random.PRNGKey(5), jnp.arange(3), 3, (2, 2, 3)))
+    np.testing.assert_allclose(a.numpy(), j, rtol=0, atol=1e-6)
+
+
+def test_init_sana_matches_jax_leaf_by_leaf():
+    for kw in (SANA_KW, dict(SANA_KW, guidance_embeds=True)):
+        jcfg = jsana.SanaConfig(**kw, compute_dtype=jnp.float32)
+        tcfg = tsana.SanaConfig(**kw, compute_dtype=torch.float32)
+        assert_tree_matches_jax(jsana.init_sana(jax.random.PRNGKey(11), jcfg), tsana.init_sana(tcfg, threefry.prng_key(11, "cpu")))
+
+
+@pytest.mark.parametrize("attn_stages", [(), (0,)])
+def test_init_decoder_matches_jax_leaf_by_leaf(attn_stages):
+    kw = dict(latent_channels=4, channels=(16, 16, 8), blocks_per_stage=(1, 2, 1), attn_stages=attn_stages)
+    assert_tree_matches_jax(jdcae.init_decoder(jax.random.PRNGKey(3), jdcae.DCAEConfig(**kw)),
+                            tdcae.init_decoder(tdcae.DCAEConfig(**kw), threefry.prng_key(3, "cpu")))
+
+
+def test_one_step_generate_from_a_key_matches_jax(sana_pair):
+    """Nothing injected: the port draws its latents from the same key."""
+    s = sana_pair
+    emb = jax.random.normal(jax.random.PRNGKey(12), (3, 6, 16))
+    key = jax.random.PRNGKey(13)
+    idx = jnp.array([4, 0, 9])
+    j = jsana.one_step_generate(s["params"], s["jcfg"], emb, jnp.ones((3, 6), bool), key,
+                                latent_hw=(4, 4), lora=s["lora"], lora_scale=s["spec"].scale, item_index=idx)
+    with torch.inference_mode():
+        out = tsana.one_step_generate(s["model"], torch.from_numpy(np.array(emb)), torch.ones(3, 6, dtype=torch.bool),
+                                      threefry.prng_key(13, "cpu"), latent_hw=(4, 4), lora=s["tlora"],
+                                      lora_scale=s["spec"].scale, item_index=[4, 0, 9])
+    np.testing.assert_allclose(out.numpy(), np.asarray(j), **TOL)
 
 
 @pytest.mark.parametrize("quant", [False, True])

@@ -6,6 +6,10 @@
   bound); measured max abs error 6.9e-7.
 - The port's ``ServeEngine`` on the CPU: 3 adapters, 5 requests; every
   request served in a batch equals the same request served alone.
+- Nothing injected: the port's engine and the JAX engine, each building the
+  tiny f32 backend from the same ``seed_params`` (weights, prompt
+  embeddings), serve the same adapter and request seed; the images agree
+  within 3e-4.
 - Store, batcher and adapter digests.
 """
 
@@ -23,6 +27,8 @@ from hyperscalees_t2i_tpu.models import sana as jsana
 from hyperscalees_t2i_tpu.ops.quant import quantize_tree as jquantize_tree
 from hyperscalees_t2i_tpu.parallel.pop_eval import make_adapter_batch_generator as jmake_gen
 from hyperscalees_t2i_tpu.rungs import sana_rung_model as jrung
+from hyperscalees_t2i_tpu.serve import ServeConfig as JServeConfig
+from hyperscalees_t2i_tpu.serve import ServeEngine as JServeEngine
 from hyperscalees_t2i_tpu.serve import adapter_digest as jdigest
 from hyperscalees_t2i_tpu_torch.backends.sana_backend import SanaBackend, build_serve_backend
 from hyperscalees_t2i_tpu_torch.lora import stack_adapters
@@ -31,6 +37,7 @@ from hyperscalees_t2i_tpu_torch.rungs import sana_rung_model
 from hyperscalees_t2i_tpu_torch.serve import (
     AdapterStore, QueueFullError, RequestQueue, ServeConfig, ServeEngine, ServeRequest, adapter_digest,
 )
+from hyperscalees_t2i_tpu_torch.utils import threefry
 from hyperscalees_t2i_tpu_torch.weights.from_jax import adapter_from_jax, tree_from_numpy
 
 torch.set_num_threads(1)
@@ -77,9 +84,30 @@ def test_adapter_batch_generator_matches_jax(member_batch):
     tback.prompt_embeds = torch.from_numpy(np.array(jback.prompt_embeds))
     gen = make_adapter_batch_generator(tback.generate_p, A, B, member_batch=member_batch)
     with torch.inference_mode():
-        out = gen(adapter_from_jax(_np_tree(stacked), "cpu"), flat_ids, [3, 4], noise=torch.from_numpy(noise))
+        out = gen(adapter_from_jax(_np_tree(stacked), "cpu"), flat_ids,
+                  torch.stack([threefry.prng_key(s, "cpu") for s in (3, 4)]), noise=torch.from_numpy(noise))
     assert out.shape == j.shape == (A, B, 32, 32, 3)
     np.testing.assert_allclose(out.numpy(), j, rtol=3e-4, atol=3e-4)
+
+
+def test_served_image_from_a_seed_matches_jax_engine():
+    jb, tb = _f32_bcfg_pair()
+    jback = JSanaBackend(jb)
+    jback.setup()
+    theta = jax.tree_util.tree_map(lambda x: x + 0.05 * jax.random.normal(jax.random.PRNGKey(31), x.shape),
+                                   jback.init_theta(jax.random.PRNGKey(30)))
+    jeng = JServeEngine(jback, JServeConfig(adapter_batch=2, images_per_request=2))
+    jeng.put_adapter("t", theta)
+    j = np.asarray(jeng.generate("t", [0, 0], seed=5))
+    tback = SanaBackend(tb, "cpu")
+    tback.setup()
+    eng = ServeEngine(tback, ServeConfig(adapter_batch=2, images_per_request=2, device="cpu"))
+    eng.put_adapter("t", adapter_from_jax(_np_tree(theta), "cpu"))
+    with torch.inference_mode():
+        t = eng.generate("t", [0, 0], seed=5)
+    assert t.shape == j.shape == (2, 32, 32, 3)
+    np.testing.assert_allclose(t, j, rtol=3e-4, atol=3e-4)
+    assert np.abs(t[0] - t[1]).max() > 1e-4  # image j of a request folds j into its key
 
 
 @pytest.fixture(scope="module")
@@ -92,7 +120,7 @@ def _adapters(backend, n):
     g = torch.Generator().manual_seed(9)
     out = {}
     for i in range(n):
-        th = backend.init_theta(g)
+        th = backend.init_theta(threefry.fold_in(threefry.prng_key(9, "cpu"), i))
         out[f"t{i}"] = {k: {f: v + 0.05 * torch.randn(v.shape, generator=g) for f, v in d.items()}
                         for k, d in th.items()}
     return out

@@ -9,7 +9,9 @@ around it, against the JAX package on the CPU.
   (``_init_theta``, ``_epoch_draws``). Every shared ``metrics.jsonl`` key
   (``quality/*`` included; wall-clock keys aside), the final θ and the
   epoch-2 slot's θ agree within 3e-4; measured max abs error 1.5e-5 over the
-  rows' values, 8.6e-7 on θ.
+  rows' values, 8.6e-7 on θ. The same holds with nothing injected: the
+  port's own run from the seed (weights, prompt embeddings, θ₀ and draws
+  from the JAX key tree) against the same JAX run.
 - Checkpoint slots cross both ways bitwise (θ and Δθ), with equal manifests
   apart from ``wall_time`` and equal ``slot_theta_digest``; a torn newest
   slot falls back; a topology mismatch raises.
@@ -176,8 +178,33 @@ def port_run(jax_run, tmp_path_factory):
     return dict(state=state, rows=read_jsonl_rows(run_dir / "metrics.jsonl"), run_dir=run_dir)
 
 
+@pytest.fixture(scope="module")
+def seed_run(tmp_path_factory):
+    """The port's ``run_training`` from the seed alone: its own weights,
+    prompt embeddings, θ₀ and draws, nothing injected."""
+    root = tmp_path_factory.mktemp("seed_run")
+    state = trainer.run_training(port_backend(), brightness, TrainConfig(run_dir=str(root / "runs"), **PARITY),
+                                 device="cpu")
+    run_dir = root / "runs" / "parity"
+    return dict(state=state, rows=read_jsonl_rows(run_dir / "metrics.jsonl"), run_dir=run_dir)
+
+
 def test_run_training_rows_match_jax(jax_run, port_run):
-    jrows, prows = jax_run["rows"], port_run["rows"]
+    _assert_rows_match(jax_run["rows"], port_run["rows"])
+
+
+def test_run_training_from_a_seed_matches_jax(jax_run, seed_run):
+    """Nothing injected: the same seed gives the JAX run (weights, prompt
+    embeddings, θ₀, ES noise and latents all drawn by the port)."""
+    _assert_rows_match(jax_run["rows"], seed_run["rows"])
+    slot = "ckpt/step_00000002/theta.npz"
+    with np.load(jax_run["run_dir"] / slot) as jz, np.load(seed_run["run_dir"] / slot) as pz:
+        assert set(jz.files) == set(pz.files)
+        for k in jz.files:
+            np.testing.assert_allclose(pz[k], jz[k], err_msg=k, **TOL)
+
+
+def _assert_rows_match(jrows, prows):
     assert [r["epoch"] for r in jrows] == [r["epoch"] for r in prows] == [0, 1]
     worst = 0.0
     for jr, pr in zip(jrows, prows):

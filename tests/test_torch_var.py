@@ -35,9 +35,12 @@ from hyperscalees_t2i_tpu.ops.sampling import filter_top_p as jfilter_top_p
 from hyperscalees_t2i_tpu_torch.backends.var_backend import VarBackend
 from hyperscalees_t2i_tpu_torch.lora import stack_adapters
 from hyperscalees_t2i_tpu_torch.models import msvq, var
-from hyperscalees_t2i_tpu_torch.ops.sampling import filter_top_k, filter_top_p
+from hyperscalees_t2i_tpu_torch.ops.sampling import filter_top_k, filter_top_p, per_scale_gumbel
 from hyperscalees_t2i_tpu_torch.rungs import var_rung_model
-from hyperscalees_t2i_tpu_torch.weights.from_jax import adapter_from_jax, var_from_jax
+from hyperscalees_t2i_tpu_torch.utils import threefry
+from hyperscalees_t2i_tpu_torch.weights.from_jax import adapter_from_jax, tree_from_numpy, var_from_jax
+
+from test_torch_threefry import assert_tree_matches_jax
 
 torch.set_num_threads(1)
 TOL = dict(rtol=3e-4, atol=3e-4)
@@ -192,6 +195,22 @@ def test_kv_cached_path_matches_forward_teacher(run):
     np.testing.assert_allclose(port_lg, mixed, rtol=1e-5, atol=1e-5)
 
 
+def test_backend_draws_the_jax_gumbel_and_images(setup):
+    """Nothing injected: the backend's Gumbel noise from a key is the JAX
+    generate's (within 1e-6), and so are its images."""
+    s = setup
+    g = per_scale_gumbel(threefry.prng_key(7, "cpu"), range(len(LABELS)), s["cfg"].patch_nums, (s["cfg"].vq.vocab_size,))
+    np.testing.assert_allclose(g.numpy(), s["gumbel"], rtol=0, atol=1e-6)
+    backend = VarBackend(var_rung_model("tiny")["bcfg"], "cpu", params=tree_from_numpy(_np(s["params"]), "cpu"))
+    backend.setup()
+    bc = backend.cfg
+    with torch.inference_mode():
+        timg = backend.generate(adapter_from_jax(_np(s["theta"]), "cpu"), LABELS.tolist(), threefry.prng_key(7, "cpu"))
+    jimg = jvar.generate(s["params"], s["cfg"], jnp.asarray(LABELS), s["key"], cfg_scale=bc.cfg_scale,
+                         top_k=bc.top_k, top_p=bc.top_p, lora=s["theta"], lora_scale=backend.lora_scale)
+    np.testing.assert_allclose(timg.numpy(), np.asarray(jimg), **TOL)
+
+
 def test_lanes_with_different_adapters_equal_each_alone(setup):
     s = setup
     tk, tp = SAMPLERS["top_k_top_p"]
@@ -212,16 +231,16 @@ def test_chunked_equals_whole(setup):
 
 
 def test_backend_seeded_noise_depends_on_seed_and_image_only():
-    """A served lane: image j draws its Gumbel noise from (seed, j) only, so
+    """A served lane: image j draws its Gumbel noise from (key, j) only, so
     two images of a request equal the first two of a longer one."""
     bcfg = var_rung_model("tiny")["bcfg"]
     backend = VarBackend(bcfg, "cpu")
     backend.setup()
-    theta = backend.init_theta(torch.Generator().manual_seed(0))
+    theta = backend.init_theta(threefry.prng_key(0, "cpu"))
     with torch.inference_mode():
-        four = backend.generate(theta, [0, 1, 2, 3], seed=5)
-        two = backend.generate(theta, [0, 1], seed=5)
-        other = backend.generate(theta, [0, 1], seed=6)
+        four = backend.generate(theta, [0, 1, 2, 3], threefry.prng_key(5, "cpu"))
+        two = backend.generate(theta, [0, 1], threefry.prng_key(5, "cpu"))
+        other = backend.generate(theta, [0, 1], threefry.prng_key(6, "cpu"))
     assert four.shape == (4, 8, 8, 3) and bool(torch.isfinite(four).all())
     np.testing.assert_allclose(four[:2].numpy(), two.numpy(), rtol=1e-5, atol=1e-5)
     assert float((other - two).abs().max()) > 0
@@ -232,6 +251,8 @@ def test_init_var_builds_the_jax_tree_structure():
     cfg = _jax_cfg()
     tcfg = var_rung_model("tiny")["bcfg"].model
     jshapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), jvar.init_var(jax.random.PRNGKey(0), cfg))
-    tshapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), var.init_var(tcfg, torch.Generator().manual_seed(0)))
+    ttree = var.init_var(tcfg, threefry.prng_key(0, "cpu"))
+    tshapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), ttree)
     assert jshapes == tshapes
+    assert_tree_matches_jax(jvar.init_var(jax.random.PRNGKey(0), cfg), ttree)
     assert tcfg.seq_len == cfg.seq_len and tcfg.head_dim == cfg.head_dim

@@ -40,6 +40,7 @@ from hyperscalees_t2i_tpu_torch.rewards.suite import make_clip_reward_fn
 from hyperscalees_t2i_tpu_torch.rungs import RUNG_OPT, RUNG_PLAN, var_rung_model
 from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
 from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
+from hyperscalees_t2i_tpu_torch.utils import threefry
 from hyperscalees_t2i_tpu_torch.weights.from_jax import adapter_from_jax, clip_from_jax, tree_from_numpy
 
 from test_torch_var import _jax_cfg, jax_gumbel
@@ -120,7 +121,7 @@ def variant(request, jax_parts, port_parts):
     return dict(jout=(jtheta, jmetrics, jopt, jrows), port=port_parts, tc=tc, inputs=inputs)
 
 
-def _run_port(v, **overrides):
+def _run_port(v, inject=True, **overrides):
     backend, reward = v["port"]
     tc = dataclasses.replace(v["tc"], **overrides)
     calls = []
@@ -131,15 +132,26 @@ def _run_port(v, **overrides):
         return out
 
     i = v["inputs"]
+    draws = dict(noise=i["noise"], gen_noise=i["gen"]) if inject else {}
     theta, metrics, opt = make_es_step(backend, recording_reward, tc, M, 1, device="cpu")(
-        i["theta"], i["flat"], 0, noise=i["noise"], gen_noise=i["gen"])
+        i["theta"], i["flat"], threefry.prng_key(2, "cpu"), **draws)
     rows = {k: torch.cat([c[k].reshape(-1, M) for c in calls]).numpy() for k in calls[0]}
     return theta, metrics, opt, rows
 
 
 def test_var_step_matches_jax(variant):
+    _assert_step_matches_jax(variant, _run_port(variant))
+
+
+def test_var_step_with_nothing_injected_matches_jax(variant):
+    """The port draws the ES noise and every image's per-scale Gumbel noise
+    from the JAX program's key itself."""
+    _assert_step_matches_jax(variant, _run_port(variant, inject=False))
+
+
+def _assert_step_matches_jax(variant, port):
     jtheta, jmetrics, jopt, jrows = variant["jout"]
-    theta, metrics, opt, rows = _run_port(variant)
+    theta, metrics, opt, rows = port
     for p in jtheta:
         for f in jtheta[p]:
             np.testing.assert_allclose(theta[p][f].numpy(), np.asarray(jtheta[p][f]), **TOL)
@@ -168,18 +180,18 @@ def test_member_batch_leaves_the_var_step_unchanged(variant, member_batch):
 
 def test_step_draws_gumbel_noise_and_is_seeded(port_parts):
     backend, reward = port_parts
-    g = torch.Generator().manual_seed(0)
-    noise = backend.sample_gen_noise(g, 3)
-    assert noise.shape == (3, *backend.noise_shape) and bool(torch.isfinite(noise).all())
-    # standard Gumbel: mean ≈ Euler-Mascheroni 0.5772, var ≈ π²/6
+    noise = backend.sample_gen_noise(threefry.prng_key(0, "cpu"), range(32))
+    assert noise.shape == (32, *backend.noise_shape) and bool(torch.isfinite(noise).all())
+    # standard Gumbel: mean ≈ Euler-Mascheroni 0.5772, var ≈ π²/6 (43008
+    # draws: the mean's standard error is 0.0062, the bound 0.02 is 3.2 of them)
     assert abs(float(noise.mean()) - 0.5772) < 0.02 and abs(float(noise.var()) - 1.6449) < 0.05
     tc = TrainConfig(pop_size=POP, sigma=0.1, egg_rank=4, member_batch=2)
     g = torch.Generator().manual_seed(1)
     theta = {k: {f: t + 0.1 * torch.randn(t.shape, generator=g) for f, t in d.items()}
-             for k, d in backend.init_theta(g).items()}
+             for k, d in backend.init_theta(threefry.prng_key(1, "cpu")).items()}
     flat = backend.step_info(0, M, 1).flat_ids
     step = make_es_step(backend, reward, tc, M, 1, device="cpu")
-    a, b = step(theta, flat, 3), step(theta, flat, 3)
+    a, b = step(theta, flat, threefry.prng_key(3, "cpu")), step(theta, flat, threefry.prng_key(3, "cpu"))
     torch.testing.assert_close(a[2], b[2])
     assert bool(torch.isfinite(a[2]).all()) and float(a[1]["delta_norm"]) > 0
 
@@ -209,3 +221,30 @@ def test_var_entry_points_default_to_the_card(monkeypatch):
         build_train_backend("tiny")
     with pytest.raises(RuntimeError):
         VarBackend(var_rung_model("tiny")["bcfg"], "cuda")
+
+
+def test_run_training_from_a_seed_matches_jax(tmp_path):
+    """Nothing injected: the JAX ``run_training`` and the port's, each on the
+    tiny VAR backend it builds from ``seed_params``, from the same seed:
+    every shared ``metrics.jsonl`` value and the epoch-2 slot's θ within
+    3e-4."""
+    from hyperscalees_t2i_tpu.train.trainer import run_training as jrun_training
+    from hyperscalees_t2i_tpu_torch.train import trainer
+    from hyperscalees_t2i_tpu_torch.utils.jsonl import read_jsonl_rows
+
+    from test_torch_trainer import _assert_rows_match, brightness, jax_brightness
+
+    kw = dict(num_epochs=2, pop_size=POP, sigma=0.05, egg_rank=2, prompts_per_gen=2, member_batch=2, save_every=1,
+              quality=True, seed=3, run_name="seed")
+    jb = JBackend(JConfig(model=_jax_cfg()))
+    jb.setup()
+    jrun_training(jb, jax_brightness, JTrainConfig(run_dir=str(tmp_path / "jax"), **kw))
+    trainer.run_training(VarBackend(var_rung_model("tiny")["bcfg"], "cpu"), brightness,
+                         TrainConfig(run_dir=str(tmp_path / "port"), **kw), device="cpu")
+    jdir, pdir = tmp_path / "jax" / "seed", tmp_path / "port" / "seed"
+    _assert_rows_match(read_jsonl_rows(jdir / "metrics.jsonl"), read_jsonl_rows(pdir / "metrics.jsonl"))
+    slot = "ckpt/step_00000002/theta.npz"
+    with np.load(jdir / slot) as jz, np.load(pdir / slot) as pz:
+        assert set(jz.files) == set(pz.files)
+        for k in jz.files:
+            np.testing.assert_allclose(pz[k], jz[k], err_msg=k, **TOL)
