@@ -6,6 +6,18 @@
 Phases (any failure raises, and the script exits non-zero before printing a
 result):
 
+Every ES step and served batch of the card's paths is one program: a CUDA
+graph per ES plan and per serving geometry (``utils.graphs``), captured at
+its first call. The flagship, VAR-d16 and serving phases run it against the
+eager program (``graph=False``) in turns in one process.
+
+Launches are counted two ways. A kernel wrapper adds one to its counter
+where it launches its kernel; a graph's replays run the kernels without the
+wrappers, so the counters see eager runs only (a program's first call is
+one). A replay's K1-K4 launches are counted on the device instead, by
+kernel name, from ``torch.profiler`` over one replayed epoch or flush
+(:func:`profiled_launches`), and held to the same derived counts.
+
 1. build every CUDA kernel from ``csrc/`` with ``nvcc`` (one process per
    source, all at once): K1 ``int8_matmul``, K2 ``lora_chain``, K3
    ``fused_qlora``, K4 ``decode_attention``; log each route's registers,
@@ -31,28 +43,38 @@ result):
    batch invariance, bitwise: rows
    of an M = 1024 call against the same rows alone; K3's batch and lane
    invariance, bitwise: rows and lanes of a 4-lane call against the same
-   rows and lanes alone, at T = 1024 and 32; K2's the same;
+   rows and lanes alone, at T = 1024 and 32; K2's the same. K1's first
+   check is preceded by a probe repeated ``K1_PROBE_REPS`` times (its
+   output filled with NaN before the launch, the plain version's inputs
+   fenced by canaries): no element unwritten, nothing disturbed;
 3. check the port end to end on small inputs against the same work on the
    CPU (the CPU path is the one the tests hold against the JAX package): the
    tiny rung served in f32 with an int8 base; one tiny-rung ES step in f32
    with an int8 base (K3 at the adapted sites) and one ``small``-rung ES
    step in f32 with a float base (K2 there), both with ``pop_fuse``: θ′ and
    reward rows, and the card's launches exactly as derived;
-4. K2's path: the flagship ES epoch step (as in 6) over a bf16 base, whose
-   164 adapted DiT sites per image run K2; one warm-up and two timed
-   epochs, K2 counted as in 6;
+4. K2's path: the flagship ES epoch step (as in 7) over a bf16 base, whose
+   164 adapted DiT sites per image run K2, as a CUDA graph and eagerly in
+   turns (:func:`timed_epochs`), K2 counted as in 7;
 5. the serving path: the flagship serving backend (Sana-Sprint 1.6B at full
    width, DC-AE to 1024×1024, bf16, int8 base, random weights from a seed)
-   behind ``ServeEngine``, four requests; K1 must launch the expected number
-   of times, images must be finite in [0, 1], differ between tenants, and
-   batched must equal solo;
+   behind two ``ServeEngine``s, a CUDA graph per geometry and eager, four
+   requests each in turns; K1's counted launches must be the expected
+   number for each eager flush and none for a replayed one, and on the
+   device, in a profiled flush of each engine, the expected number;
+   images must be finite in [0, 1], differ between tenants, equal between
+   graph and eager bitwise, and batched must equal solo (padded) bitwise; a
+   new tenant must leave ``serve_compiles`` flat;
 6. the VAR path (K4): the tiny VAR geometry in f32 on the card against the
    CPU (one ``generate`` with injected Gumbel noise: token ids equal, images
    within 1e-4; one ES step: θ′ and reward rows within 1e-4, K4 launches as
-   derived), then one warm-up and two timed ES epochs of ``RUNG_PLAN["ar_d16"]``
-   (VAR-d16 at its published geometry, bf16, float base, pop 16, 4 classes,
-   member_batch 4; CLIP-B/32 and CLIP-H/14 rewards): K4 must launch exactly
-   2 × 4 × 160 times, reward rows ``[16, 4]`` finite, θ′ finite, ‖Δθ‖ > 0;
+   derived), then ES epochs of ``RUNG_PLAN["ar_d16"]`` (VAR-d16 at its
+   published geometry, bf16, float base, pop 16, 4 classes, member_batch
+   4; CLIP-B/32 and CLIP-H/14 rewards) as a CUDA graph and eagerly in turns:
+   K4 counted exactly 4 × 160 times in each eager epoch and on the device
+   in a profiled epoch of each, every scale's token
+   ids equal between them, reward rows ``[16, 4]`` finite, θ′ finite,
+   ‖Δθ‖ > 0;
    the Infinity path (K4 at dh 128 and under a key mask): the tiny
    Infinity geometry in f32 on the card against the CPU with the released
    attention flags off and on (``generate``: bits equal, images within
@@ -66,11 +88,17 @@ result):
 7. the Sana main path: one EGGROLL-ES epoch step of the flagship rung
    (``RUNG_PLAN``/``RUNG_OPT["flagship"]``: pop 4, 4 prompts, member_batch
    1, reward_tile 1, bf16 noise store, int8 DiT + DC-AE + CLIP-B/32 +
-   CLIP-H/14 at their published widths, bf16 towers), one warm-up epoch
-   then two timed epochs. Launch counters are set to 0 just before the
-   timed epochs and read just after; K3 and K1 must have launched exactly
-   the counts derived from the module trees. Reward rows must be ``[4, 4]``
-   and finite, θ′ finite, ‖Δθ‖ > 0;
+   CLIP-H/14 at their published widths, bf16 towers), as a CUDA graph
+   (the main path) and eagerly, in turns (:func:`timed_epochs`: each
+   variant's first call warms up, the graph's captures; two timed epochs
+   each from the same θ and key; one profiled epoch each). Launch counters
+   are set to 0 just before each variant's epoch and read just after; K3
+   and K1 must have launched exactly the counts derived from the module
+   trees in each eager epoch, none in a replay, and exactly those counts on
+   the device in the profiled epoch of each. The graph's θ′, Δθ, metrics
+   and reward rows must equal the
+   eager step's bitwise (or within 1e-4, recorded). Reward rows must be
+   ``[4, 4]`` and finite, θ′ finite, ‖Δθ‖ > 0;
 8. the trainer around the step: a tiny ``run_training`` (f32, int8 base)
    on the card against the same run on the CPU (θ₀ and the draws made on
    the CPU; θ and ``per_prompt_mean`` within 1e-4 after 2 epochs), then,
@@ -78,9 +106,14 @@ result):
    and a slot every 2 epochs: 4 epochs, a resume that must run exactly
    epoch 4 from the epoch-4 slot's θ bitwise (the slot's sha256s
    recomputed from its file), and one epoch with ``quality`` off. Each
-   run's K1-K4 launches must be the derived counts × its epochs;
+   run's counted K1-K4 launches must be the derived counts × its eager
+   epochs (each program's warm-up; the other epochs replay its graph);
    ``metrics.jsonl`` must hold 5 rows with per-prompt quality. Prints
-   each epoch's ``step_time_s`` beside 7's epochs and each save's time;
+   each epoch's ``step_time_s`` beside 7's epochs and each save's time.
+   Then chained dispatch: 5 epochs with ``steps_per_dispatch`` 1 and 4
+   (epochs_chained [1, 4]), θ bitwise equal, both runs' ``step_time_s``;
+   then ``tools/dispatch_tax.py`` at the flagship (eager, single, chained,
+   fused, fused_qlora), its row;
 9. the JAX noise stream (``utils.threefry``, plain torch) at each path's
    full-width draws (the flagship ES noise and latents, VAR-d16's Gumbel
    slab, Infinity-2B's Gumbel noise and one whole stacked leaf): every
@@ -103,6 +136,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -428,6 +462,55 @@ def phase_k1_invariance(torch):
     return checked
 
 
+K1_PROBE_REPS = 20  # repeats of the probe of K1's first check
+
+
+def k1_first_check_probe(torch, x, q8, scale, reps: int = K1_PROBE_REPS):
+    """The probe of K1's unexplained first-check failure (ROADMAP queue C),
+    ``reps`` times in this process on the script's first K1 inputs: the
+    kernel launched (by the wrapper's plan, uncounted) into an output filled
+    with NaN, so an element it leaves unwritten shows; the plain version on
+    copies of its inputs laid inside canary-filled buffers, so a write
+    beside or into them shows. Raises on an unwritten element, a disturbed
+    canary or input, or a disagreement; returns the counts."""
+    from hyperscalees_t2i_tpu_torch.ops.quant_mm import _launch, _plan, int8_matmul_reference
+
+    T, din = x.shape
+    dout = q8.shape[1]
+    pad = 4096
+
+    def fenced(t, canary):
+        buf = torch.full((t.numel() + 2 * pad,), canary, dtype=t.dtype, device=t.device)
+        buf[pad:pad + t.numel()] = t.reshape(-1)
+        return buf, buf[pad:pad + t.numel()].view(t.shape)
+
+    unwritten = disturbed = mismatched = 0
+    worst = 0.0
+    plan = _plan(T, din, dout, x.dtype, x.data_ptr(), q8.data_ptr())
+    for _ in range(reps):
+        out = torch.full((T, dout), math.nan, dtype=x.dtype, device=x.device)
+        _launch(x, q8, scale, out, T, plan)
+        fences = [fenced(x, -7.0), fenced(q8, 77), fenced(scale, -3.0)]
+        ref = int8_matmul_reference(*(view for _, view in fences))
+        torch.cuda.synchronize()
+        unwritten += int(torch.isnan(out).sum())
+        for (buf, view), src, canary in zip(fences, (x, q8, scale), (-7.0, 77, -3.0)):
+            edges = torch.cat([buf[:pad], buf[pad + src.numel():]])
+            if not (bool((edges == canary).all()) and torch.equal(view, src)):
+                disturbed += 1
+        err = float((out.float() - ref.float()).abs().max())
+        worst = max(worst, err)
+        if not err <= 2 ** -7 * float(ref.float().abs().max()):
+            mismatched += 1
+    log(f"[k1] first-check probe, {reps} repeats at {T}x{din}x{dout} {x.dtype}: unwritten elements {unwritten}, "
+        f"disturbed plain inputs or canaries {disturbed}, disagreements {mismatched} (max abs {worst:.3g})")
+    if unwritten or disturbed or mismatched:
+        raise AssertionError(f"K1's first-check probe: {unwritten} unwritten, {disturbed} disturbed, "
+                             f"{mismatched} disagreeing of {reps}")
+    return {"reps": reps, "unwritten": unwritten, "disturbed": disturbed, "mismatched": mismatched,
+            "max_abs_err": worst, "shape": [T, din, dout], "dtype": str(x.dtype)}
+
+
 def phase_k1_check(torch, timed: bool = True):
     from hyperscalees_t2i_tpu_torch.ops.quant_mm import int8_matmul, int8_matmul_reference
 
@@ -447,6 +530,8 @@ def phase_k1_check(torch, timed: bool = True):
                 scale = torch.rand(1, dout, generator=g, device=dev) * (2.0 / (127 * math.sqrt(din)))
                 sets.append((x, q8, scale, (q8.to(torch.float32) * scale).to(dt)))
             x, q8, scale, _ = sets[0]
+            if not rows:  # the script's first K1 check
+                probe = k1_first_check_probe(torch, x, q8, scale)
             out = int8_matmul(x, q8, scale)
             torch.cuda.synchronize()
             err, tol, ref_max = check_close(
@@ -463,7 +548,7 @@ def phase_k1_check(torch, timed: bool = True):
                 site=site, T=T, din=din, dout=dout, dtype=dt_name, main_path=main,
                 calls_per_image=serve_calls if main else 0, calls_per_es_image=es_calls if main else 0,
                 max_abs_err=err, tol=tol, ref_max=ref_max, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=b_ms, bound_by=b_by, tflops=flop / ms / 1e9,
+                bound_ms=b_ms, bound_by=b_by, tflops=flop / ms / 1e9, **({"probe": probe} if not rows else {}),
             ))
             log(f"[k1] {site:34s} T={T:5d} {din:5d}x{dout:5d} {dt_name:8s} {'main' if main else '    '} "
                 f"err={err:.3g} rel={err / ref_max:.3g} ms={ms:.4f} plain={plain:.4f} library={lib:.4f} "
@@ -844,7 +929,7 @@ def phase_es_reference(torch, scale: str, int8: bool):
     outs = {}
     for dev in (torch.device("cpu"), torch.device("cuda")):
         backend, suite = _es_parts(torch, scale, dev, trees)
-        reward = RecordingReward(suite)
+        reward = RecordingReward(suite, -(-pop // mb))
         if dev.type == "cpu":
             theta = backend.init_theta(threefry.prng_key(22, "cpu"))
             theta = {k: {f: v + 0.05 * torch.randn(v.shape, generator=g) for f, v in d.items()}
@@ -910,8 +995,6 @@ def expected_es_launches(backend, reward, tc, batch: int):
     launches, per LoRA-read DiT site, K3 (int8 node) or K2 (float node),
     and K1 at every other int8 matmul site of the DiT, the decoder and the
     reward towers' image sides (their text sides ran once, at build)."""
-    from hyperscalees_t2i_tpu_torch.parallel.pop_eval import effective_reward_tile
-
     adapted = backend.model.lora_sites()
     modules = dict(backend.model.named_modules())
     k3 = sum(1 for n in adapted if hasattr(modules[n], "q8"))
@@ -922,7 +1005,7 @@ def expected_es_launches(backend, reward, tc, batch: int):
         if tower is not None:
             image_side = [tower.patch_embed, tower.vision, tower.visual_projection]
             k1 += sum(1 for part in image_side for m in part.modules() if hasattr(m, "q8"))
-    calls = -(-tc.pop_size // tc.member_batch) * (batch // (effective_reward_tile(batch, tc.reward_tile) or batch))
+    calls = reward_calls(tc, batch)
     return ({"int8_matmul": k1 * calls, "lora_chain": k2 * calls, "fused_qlora": k3 * calls, "decode_attention": 0},
             {"k1_per_call": k1, "k2_per_call": k2, "k3_per_call": k3, "calls": calls})
 
@@ -957,8 +1040,22 @@ def stage_breakdown(torch, backend, theta, reps: int = 3):
 
 
 def phase_serve(torch):
+    """Flagship serving (``SERVE_PLAN["flagship"]``, two tenants) through
+    two engines on one backend, a CUDA graph per geometry and eager
+    (``graph=False``), each warmed up, then ``N_REQUESTS`` requests served
+    by each in turns (eager, graph, graph, eager), the launch counters set
+    to 0 just before each flush and read just after: K1 exactly its sites ×
+    the lane chunks dispatched for the eager engine, none for the graph's (a
+    replay runs no wrapper); then one profiled flush of each, whose K1
+    launches on the device (:func:`profiled_launches`) must be that count
+    for both; the graph's images bitwise equal to the eager engine's; every
+    image finite in [0, 1], the tenants' different; a request alone (padded
+    to the geometry's lanes) equal to it batched, bitwise, under the graph;
+    a brand-new tenant served with ``serve_compiles`` flat."""
     from hyperscalees_t2i_tpu_torch.backends.sana_backend import build_serve_backend
     from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, RUNG_BASE_QUANT, SERVE_PLAN, sana_rung_model
+    from torch.profiler import ProfilerActivity, profile
+
     from hyperscalees_t2i_tpu_torch.serve import ServeConfig, ServeEngine
     from hyperscalees_t2i_tpu_torch.utils import threefry
 
@@ -969,66 +1066,127 @@ def phase_serve(torch):
     build_s = time.perf_counter() - t0
     routed = [m for m in list(backend.model.modules()) + list(backend.vae.modules()) if hasattr(m, "q8")]
     plan = SERVE_PLAN["flagship"]
-    eng = ServeEngine(backend, ServeConfig(device="cuda", **plan))
+    A, mb = plan["adapter_batch"], plan["member_batch"] or plan["adapter_batch"]
+    engines = {v: ServeEngine(backend, ServeConfig(device="cuda", **plan), graph=v == "graph")
+               for v in ("graph", "eager")}
     gen = torch.Generator().manual_seed(42)
-    for i in range(2):
+    tenants = []
+    for i in range(3):  # tenant2 arrives after the warm-up
         theta = backend.init_theta(threefry.fold_in(threefry.prng_key(8, "cpu"), i))
-        theta = {k: {"a": d["a"], "b": 0.05 * torch.randn(d["b"].shape, generator=gen)} for k, d in theta.items()}
-        eng.put_adapter(f"tenant{i}", theta)
-    t0 = time.perf_counter()
-    eng.warmup()
-    warm_s = time.perf_counter() - t0
-    log(f"[serve] flagship backend built in {build_s:.1f} s, warmup {warm_s:.1f} s; "
-        f"{len(routed)} int8 sites route to the kernel; "
-        f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-
-    torch.cuda.synchronize()
-    _reset_counters()
-    t0 = time.perf_counter()
-    reqs = [eng.submit(f"tenant{i % 2}", [i // 2], seed=i // 2) for i in range(N_REQUESTS)]
-    results = eng.flush()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = _counters()
+        tenants.append({k: {"a": d["a"], "b": 0.05 * torch.randn(d["b"].shape, generator=gen)}
+                        for k, d in theta.items()})
+    warm_s = {}
+    for v, eng in engines.items():
+        for i in range(2):
+            eng.put_adapter(f"tenant{i}", tenants[i])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+        warm_s[v] = time.perf_counter() - t0
+    entry = next(iter(engines["graph"].programs.stats().values()))
+    if not entry["pool_bytes"] > 0:
+        raise AssertionError(f"serving: the graph's pool holds {entry['pool_bytes']} bytes")
+    log(f"[serve] flagship backend built in {build_s:.1f} s, warmup graph {warm_s['graph']:.1f} s (capture "
+        f"{entry['capture_s']:.3f} s, instantiate {entry['instantiate_s']:.3f} s, pool "
+        f"{entry['pool_bytes'] / 2**30:.2f} GiB), eager {warm_s['eager']:.1f} s; {len(routed)} int8 sites route "
+        f"to the kernel; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
     images_per_req = plan["images_per_request"]
-    expected = {"int8_matmul": len(routed) * N_REQUESTS * images_per_req, "lora_chain": 0, "fused_qlora": 0,
-                "decode_attention": 0}
-    if launches != expected:
-        raise AssertionError(f"serving launched {launches}, expected {expected}")
-    if [r.request.request_id for r in results] != [r.request_id for r in reqs] or not all(r.ok for r in results):
-        raise AssertionError("not every request was served")
-    for r in results:
+    per_flush = len(routed) * -(-N_REQUESTS // A) * -(-A // mb)
+    expected = {"int8_matmul": per_flush, "lora_chain": 0, "fused_qlora": 0, "decode_attention": 0}
+    walls = {"graph": [], "eager": []}
+    counted = {v: [] for v in engines}
+    results = {}
+
+    def flush(eng):
+        reqs = [eng.submit(f"tenant{i % 2}", [i // 2], seed=i // 2) for i in range(N_REQUESTS)]
+        res = eng.flush()
+        if [r.request.request_id for r in res] != [r.request_id for r in reqs] or not all(r.ok for r in res):
+            raise AssertionError("not every request was served")
+        return res
+
+    for v in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        results[v] = flush(engines[v])
+        torch.cuda.synchronize()
+        walls[v].append(time.perf_counter() - t0)
+        counted[v].append(_counters())
+    nothing = {k: 0 for k in expected}
+    if any(c != expected for c in counted["eager"]) or any(c != nothing for c in counted["graph"]):
+        raise AssertionError(f"serving: the counters read {counted['eager']} over the eager flushes (expected "
+                             f"{expected} each), {counted['graph']} over the replays (expected none)")
+    profiled = {}
+    for v, eng in engines.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flush(eng)
+            torch.cuda.synchronize()
+        kernels, busy, n_kernels, _ = device_kernels(torch, prof)
+        profiled[v] = dict(launches=profiled_launches(kernels), busy_ms=busy, kernels=n_kernels)
+        if profiled[v]["launches"] != expected:
+            raise AssertionError(f"serving: the profiled {v} flush launched {profiled[v]['launches']} on the "
+                                 f"device, expected {expected}")
+    graph_vs_eager = max(float(abs(g.images - e.images).max()) for g, e in zip(results["graph"], results["eager"]))
+    if graph_vs_eager != 0.0:
+        raise AssertionError(f"served images: graph and eager differ by {graph_vs_eager}")
+    for r in results["graph"]:
         im = r.images
         if im.shape != (images_per_req, 1024, 1024, 3):
             raise AssertionError(f"image shape {im.shape}")
         if not (math.isfinite(float(im.sum())) and im.min() >= 0.0 and im.max() <= 1.0):
             raise AssertionError("image not finite or outside [0, 1]")
-    tenant_diff = float(abs(results[0].images - results[1].images).max())  # same seed, other adapter
+    res = results["graph"]
+    tenant_diff = float(abs(res[0].images - res[1].images).max())  # same seed, other adapter
     if not tenant_diff > 0:
         raise AssertionError("two tenants' adapters gave the same image")
-    solo = eng.generate(results[0].request.adapter_id, results[0].request.prompt_ids, results[0].request.seed)
-    solo_diff = float(abs(solo - results[0].images).max())
-    if not solo_diff <= 1e-2:
-        raise AssertionError(f"batched and solo results differ by {solo_diff}")
-    breakdown = stage_breakdown(torch, backend, eng.store.get("tenant0"))
+    geng = engines["graph"]
+    compiles = geng.registry.snapshot()["serve_compiles"]
+    t0 = time.perf_counter()
+    solo = geng.generate(res[0].request.adapter_id, res[0].request.prompt_ids, res[0].request.seed)
+    solo_s = time.perf_counter() - t0
+    solo_diff = float(abs(solo - res[0].images).max())
+    if solo_diff != 0.0:
+        raise AssertionError(f"batched and solo results differ by {solo_diff} under the graph")
+    geng.put_adapter("tenant2", tenants[2])
+    new_tenant = geng.generate("tenant2", [0], seed=0)
+    snap = geng.registry.snapshot()
+    if snap["serve_compiles"] != compiles or compiles != 1 or not np_isfinite(new_tenant):
+        raise AssertionError(f"a new tenant changed serve_compiles {compiles} → {snap['serve_compiles']}")
+    breakdown = stage_breakdown(torch, backend, geng.store.get("tenant0"))
+    images = N_REQUESTS * images_per_req
     stats = dict(
-        breakdown_ms=breakdown,
-        requests=N_REQUESTS, images=N_REQUESTS * images_per_req, wall_s=wall,
-        images_per_s=N_REQUESTS * images_per_req / wall,
-        batch_latency_s=eng.dispatch_seconds[:-1], solo_latency_s=eng.dispatch_seconds[-1],
-        build_s=build_s, warmup_s=warm_s, launches=launches, expected_launches=expected,
-        k1_calls_per_image=len(routed), batched_vs_solo_max_abs=solo_diff,
-        tenant_max_abs_diff=tenant_diff, plan=plan,
+        breakdown_ms=breakdown, requests=N_REQUESTS, images=images, wall_s=walls["graph"],
+        images_per_s=[images / w for w in walls["graph"]],
+        eager=dict(wall_s=walls["eager"], images_per_s=[images / w for w in walls["eager"]],
+                   warmup_s=warm_s["eager"], launches={k: 2 * n for k, n in expected.items()},
+                   profiled_flush=profiled["eager"]),
+        batch_latency_s=geng.dispatch_seconds, solo_s=solo_s,
+        build_s=build_s, warmup_s=warm_s["graph"], graph=entry, launches_counted=counted["graph"],
+        profiled_flush=profiled["graph"], launches_profiled=profiled["graph"]["launches"],
+        expected_launches_per_flush=expected,
+        k1_calls_per_image=len(routed), batched_vs_solo_max_abs=solo_diff, graph_vs_eager_max_abs=graph_vs_eager,
+        tenant_max_abs_diff=tenant_diff, plan=plan, serve_compiles=snap["serve_compiles"],
+        serve_padded_slots=snap.get("serve_padded_slots", 0),
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
-    log(f"[serve] {N_REQUESTS} requests in {wall:.3f} s = {stats['images_per_s']:.3f} images/s; "
-        f"per-batch latency {', '.join(f'{s:.3f}' for s in stats['batch_latency_s'])} s; "
-        f"solo {stats['solo_latency_s']:.3f} s; launches {launches} (expected {expected}); "
-        f"batched vs solo max abs {solo_diff:.3g}; tenants differ by {tenant_diff:.3g}")
-    del eng, backend
+    log(f"[serve] {N_REQUESTS} requests a flush, in turns: graph {', '.join(f'{x:.3f}' for x in stats['images_per_s'])} "
+        f"images/s, eager {', '.join(f'{x:.3f}' for x in stats['eager']['images_per_s'])} images/s; graph vs eager "
+        f"max abs {graph_vs_eager:.3g}; solo (padded to {A} lanes) {solo_s:.3f} s, batched vs solo max abs "
+        f"{solo_diff:.3g}; serve_compiles {snap['serve_compiles']} after a new tenant, padded slots "
+        f"{stats['serve_padded_slots']}; K1-K4 launches: counted {counted['eager']} a flush eager, graph none; on "
+        f"the device, a profiled flush: graph {profiled['graph']['launches']} (busy "
+        f"{profiled['graph']['busy_ms']:.1f} ms), eager {profiled['eager']['launches']} (busy "
+        f"{profiled['eager']['busy_ms']:.1f} ms); tenants differ by {tenant_diff:.3g}")
+    del engines, geng, backend
     torch.cuda.empty_cache()
     return stats
+
+
+def np_isfinite(a) -> bool:
+    return bool(math.isfinite(float(a.sum())))
 
 
 def reward_rows(torch, calls, calls_per_chunk: int, tile: int):
@@ -1043,16 +1201,31 @@ def reward_rows(torch, calls, calls_per_chunk: int, tile: int):
 
 
 class RecordingReward:
-    """The reward suite, keeping each call's ``combined`` row (the step's
-    ``[pop, B]`` rows, in call order)."""
+    """The reward suite, copying each call's ``combined`` row into a slot of
+    its own: ``calls`` slots, one per generate → reward call of a step, made
+    at the first step's calls. A CUDA graph captures the copies, so each
+    replay refreshes the slots as an eager step does; ``rows`` holds the
+    last step's rows in call order (the step's ``[pop, B]`` rows)."""
 
-    def __init__(self, suite):
-        self.suite, self.rows = suite, []
+    def __init__(self, suite, calls: int):
+        self.suite, self.calls, self.rows, self.n = suite, calls, [], 0
 
     def __call__(self, images, prompt_ids):
         out = self.suite(images, prompt_ids)
-        self.rows.append(out["combined"])
+        i = self.n % self.calls
+        self.n += 1
+        if len(self.rows) <= i:
+            self.rows.append(out["combined"].clone())
+        else:
+            self.rows[i].copy_(out["combined"])
         return out
+
+
+def reward_calls(tc, batch: int) -> int:
+    """Generate → reward calls of one ES step: member chunks × image tiles."""
+    from hyperscalees_t2i_tpu_torch.parallel.pop_eval import effective_reward_tile
+
+    return -(-tc.pop_size // tc.member_batch) * (batch // (effective_reward_tile(batch, tc.reward_tile) or batch))
 
 
 def device_kernels(torch, prof):
@@ -1066,6 +1239,34 @@ def device_kernels(torch, prof):
             kernels[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
     top = sorted(((ms, n, name[:100]) for name, (ms, n) in kernels.items()), reverse=True)[:12]
     return kernels, sum(ms for ms, _ in kernels.values()), sum(n for _, n in kernels.values()), top
+
+
+# the kernels each wrapper launches one of a call, by their names in csrc/
+WRAPPER_KERNELS = {
+    "int8_matmul": ("int8_mma_kernel", "f32_tile_kernel", "f32_rows_kernel"),
+    "lora_chain": ("lora_chain_mma_kernel", "lora_chain_f32_kernel"),
+    "fused_qlora": ("qlora_mma_kernel", "qlora_f32_tile_kernel", "qlora_f32_rows_kernel"),
+    "decode_attention": ("decode_attention_mma_kernel", "decode_attention_f32_kernel"),
+}
+
+
+def profiled_launches(kernels):
+    """K1-K4's launches on the device, from :func:`device_kernels`'s
+    ``{name: (ms, launches)}``: each kernel found by its whole name,
+    demangled or mangled. A CUDA graph's replays run the kernels without
+    their wrappers, so this is where a replay's launches are counted."""
+    import re
+
+    pats = {w: re.compile("|".join(rf"(?<!\w){n}(?!\w)|(?<!\d){len(n)}{n}" for n in names))
+            for w, names in WRAPPER_KERNELS.items()}
+    out = {w: 0 for w in WRAPPER_KERNELS}
+    for name, (_, n) in kernels.items():
+        hits = [w for w, pat in pats.items() if pat.search(name)]
+        if len(hits) > 1:
+            raise AssertionError(f"the kernel {name!r} matches {hits}")
+        if hits:
+            out[hits[0]] += n
+    return out
 
 
 def es_stage_breakdown(torch, backend, reward, theta, noise, tc, tag: str, reps: int = 2):
@@ -1127,36 +1328,137 @@ def es_stage_breakdown(torch, backend, reward, theta, noise, tc, tag: str, reps:
     return out
 
 
-def timed_epochs(torch, step, theta, flat_ids, reward, expected1, pop: int, calls_per_chunk: int, tag: str,
-                 what: str):
-    """One warm-up epoch of the stateful ``step``, then ``TIMED_EPOCHS``
-    timed ones (host clock around work that ends in a synchronize), with
-    the launch counters set to 0 just before them and read just after.
-    Checks the launches against ``expected1`` per epoch, the last epoch's
-    reward rows ``[pop, B]`` finite, θ′ finite and ‖Δθ‖ > 0. Epoch ``e``'s
-    key is ``epoch_key(0, e)`` on the card. Returns ``(θ′, stats)``."""
+def _clone_tree(tree):
+    return {k: {f: t.clone() for f, t in d.items()} for k, d in tree.items()}
+
+
+def _max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+class SlotRecorder:
+    """Patches ``module.name`` so each call's output is copied into a slot
+    of its own (``calls`` slots a step, made at the first step's calls): a
+    CUDA graph captures the copies, so ``slots`` holds the last step's
+    outputs whether it was replayed or ran eagerly."""
+
+    def __init__(self, module, name: str, calls: int):
+        self.mod, self.name, self.orig, self.calls, self.slots, self.n = module, name, getattr(module, name), calls, [], 0
+
+    def __enter__(self):
+        def rec(*a, **kw):
+            out = self.orig(*a, **kw)
+            i = self.n % self.calls
+            self.n += 1
+            if len(self.slots) <= i:
+                self.slots.append(out.clone())
+            else:
+                self.slots[i].copy_(out)
+            return out
+
+        setattr(self.mod, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+
+def profiled_epoch(torch, step, theta, ids, key):
+    """One epoch under ``torch.profiler`` (device activity only): the
+    device's busy ms (kernels' durations summed), the kernels it saw, K1-K4's
+    launches among them (:func:`profiled_launches`), and the CUDA-event ms
+    from the step's first launch to its last."""
+    from torch.profiler import ProfilerActivity, profile
+
+    delta = {k: {f: torch.zeros_like(t) for f, t in d.items()} for k, d in theta.items()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ev[0].record()
+        step(theta, delta, ids, key)
+        ev[1].record()
+        torch.cuda.synchronize()
+    kernels, busy, n, _ = device_kernels(torch, prof)
+    return {"busy_ms": busy, "kernels": n, "event_ms": ev[0].elapsed_time(ev[1]),
+            "launches": profiled_launches(kernels)}
+
+
+def timed_epochs(torch, make_step, theta, flat_ids, expected1, pop: int, calls_per_chunk: int, tag: str,
+                 what: str, record=None):
+    """The stateful step as a CUDA graph and eagerly, in turns in one
+    process: ``make_step(graph) → (step, RecordingReward)``, the step's
+    cache a ``GraphCache(graph=graph)``. Each variant's first call warms up
+    (the graph's also captures and instantiates it), then ``TIMED_EPOCHS``
+    epochs, each run by both variants from the same θ, Δθ and key (eager
+    first in even epochs, the graph first in odd ones; host clock around
+    work that ends in a synchronize), the launch counters set to 0 just
+    before each variant's epoch and read just after: the eager step's must
+    be ``expected1``, the graph's 0 (a replay runs no wrapper); then one
+    profiled epoch of each, whose K1-K4 launches on the device
+    (:func:`profiled_launches`) must be ``expected1`` for both. The graph's
+    θ′, Δθ, metrics, scores and reward rows (and ``record``'s slots: a
+    :class:`SlotRecorder` active around the whole) must equal the eager
+    step's bitwise, or within 1e-4 with the difference recorded; the last
+    rows ``[pop, B]`` finite, θ′ finite, ‖Δθ‖ > 0. Device memory: the eager
+    step's peak allocated; the graph's peak allocated under replay plus its
+    whole pool (which holds the replay's intermediates). Epoch ``e``'s key
+    is ``epoch_key(0, e)`` on the card. Returns ``(θ′, stats)``: the
+    graph's numbers at the top level, the eager step's under ``eager``."""
     from hyperscalees_t2i_tpu_torch.es.sampling import epoch_key
 
     B = len(flat_ids)
-    delta = {k: {f: torch.zeros_like(t) for f, t in d.items()} for k, d in theta.items()}
-    t0 = time.perf_counter()
-    theta, delta, metrics, opt_scores = step(theta, delta, flat_ids, epoch_key(0, 100, "cuda"))
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-
-    _reset_counters()
-    epoch_s = []
-    for e in range(TIMED_EPOCHS):
-        reward.rows.clear()
-        t0 = time.perf_counter()
-        theta, delta, metrics, opt_scores = step(theta, delta, flat_ids, epoch_key(0, 101 + e, "cuda"))
+    ids = torch.tensor(list(flat_ids), dtype=torch.long, device="cuda")
+    zeros = lambda th: {k: {f: torch.zeros_like(t) for f, t in d.items()} for k, d in th.items()}  # noqa: E731
+    runs = {v: make_step(v == "graph") for v in ("graph", "eager")}
+    warm_s = {}
+    for v, (step, _) in runs.items():
         torch.cuda.synchronize()
-        epoch_s.append(time.perf_counter() - t0)
-    launches = _counters()
-    expected = {k: v * TIMED_EPOCHS for k, v in expected1.items()}
-    if launches != expected:
-        raise AssertionError(f"{what} launched {launches}, expected {expected}")
-    rows = reward_rows(torch, reward.rows, calls_per_chunk, B // calls_per_chunk)
+        t0 = time.perf_counter()
+        step(_clone_tree(theta), zeros(theta), ids, epoch_key(0, 100, "cuda"))
+        torch.cuda.synchronize()
+        warm_s[v] = time.perf_counter() - t0
+    graph_entry = next(iter(runs["graph"][0].graphs.stats().values()))
+    if not graph_entry["pool_bytes"] > 0:
+        raise AssertionError(f"{what}: the graph's pool holds {graph_entry['pool_bytes']} bytes")
+
+    delta = zeros(theta)
+    epoch_s = {"graph": [], "eager": []}
+    counted = {v: [] for v in runs}
+    peak = {v: 0 for v in runs}
+    worst, record_worst = 0.0, 0.0
+    for e in range(TIMED_EPOCHS):
+        outs = {}
+        for v in (("eager", "graph") if e % 2 == 0 else ("graph", "eager")):
+            step, reward = runs[v]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counters()
+            t0 = time.perf_counter()
+            th, dl, metrics, opt_scores = step(theta, delta, ids, epoch_key(0, 101 + e, "cuda"))
+            torch.cuda.synchronize()
+            epoch_s[v].append(time.perf_counter() - t0)
+            counted[v].append(_counters())
+            peak[v] = max(peak[v], torch.cuda.max_memory_allocated())
+            outs[v] = dict(theta=_clone_tree(th), delta=_clone_tree(dl),
+                           metrics={k: t.clone() for k, t in metrics.items()}, opt_scores=opt_scores.clone(),
+                           rows=reward_rows(torch, reward.rows, calls_per_chunk, B // calls_per_chunk).clone(),
+                           record=[t.clone() for t in record.slots] if record is not None else [])
+        g, x = outs["graph"], outs["eager"]
+        pairs = [(g[n][k][f], x[n][k][f]) for n in ("theta", "delta") for k in g[n] for f in g[n][k]]
+        pairs += [(g["metrics"][k], x["metrics"][k]) for k in g["metrics"]]
+        pairs += [(g["opt_scores"], x["opt_scores"]), (g["rows"], x["rows"])]
+        worst = max([worst] + [_max_abs(a, b) for a, b in pairs])
+        record_worst = max([record_worst] + [_max_abs(a, b) for a, b in zip(g["record"], x["record"])])
+        if len(g["record"]) != len(x["record"]):
+            raise AssertionError(f"{what}: the graph recorded {len(g['record'])} calls, eager {len(x['record'])}")
+        theta, delta = g["theta"], g["delta"]
+        rows, metrics, opt_scores = g["rows"], g["metrics"], g["opt_scores"]
+    nothing = {k: 0 for k in expected1}
+    if any(c != expected1 for c in counted["eager"]) or any(c != nothing for c in counted["graph"]):
+        raise AssertionError(f"{what}: the counters read {counted['eager']} over the eager epochs (expected "
+                             f"{expected1} each), {counted['graph']} over the replays (expected none)")
+    if not (worst <= 1e-4 and record_worst == 0.0):
+        raise AssertionError(f"{what}: graph and eager differ by {worst} (outputs), {record_worst} (recorded)")
     if tuple(rows.shape) != (pop, B) or not bool(torch.isfinite(rows).all()):
         raise AssertionError(f"reward rows {tuple(rows.shape)} not [{pop}, {B}] and finite")
     if not all(bool(torch.isfinite(t).all()) for d in theta.values() for t in d.values()):
@@ -1164,17 +1466,46 @@ def timed_epochs(torch, step, theta, flat_ids, reward, expected1, pop: int, call
     delta_norm = float(metrics["delta_norm"])
     if not delta_norm > 0:
         raise AssertionError(f"the update is zero (delta_norm {delta_norm})")
+    prof = {v: profiled_epoch(torch, runs[v][0], theta, ids, epoch_key(0, 200, "cuda")) for v in runs}
+    for v, p in prof.items():
+        if p["launches"] != expected1:
+            raise AssertionError(f"{what}: the profiled {v} epoch launched {p['launches']} on the device, "
+                                 f"expected {expected1}")
+        p["idle_share"] = 1.0 - p["busy_ms"] / (1e3 * statistics.mean(epoch_s[v]))
+    del runs
+    torch.cuda.synchronize()
+    images = pop * B
+    memory = {"graph": (peak["graph"] + graph_entry["pool_bytes"]) / 2**30, "eager": peak["eager"] / 2**30}
+    eager_launches = {k: sum(c[k] for c in counted["eager"]) for k in expected1}
     stats = dict(
-        warmup_epoch_s=warm_s, epoch_s=epoch_s, images_per_epoch=pop * B,
-        images_per_s=[pop * B / s for s in epoch_s], peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-        launches=launches, expected_launches=expected, reward_rows=rows.float().cpu().tolist(),
+        warmup_epoch_s=warm_s["graph"], epoch_s=epoch_s["graph"], images_per_epoch=images,
+        images_per_s=[images / s for s in epoch_s["graph"]], peak_mem_gib=memory["graph"],
+        peak_allocated_gib=peak["graph"] / 2**30, launches_counted=counted["graph"],
+        launches_profiled=prof["graph"]["launches"], expected_launches_per_epoch=expected1,
+        reward_rows=rows.float().cpu().tolist(),
         opt_scores=[float(s) for s in opt_scores], delta_norm=delta_norm, theta_norm=float(metrics["theta_norm"]),
         metrics={k: (float(v) if v.numel() == 1 else v.float().cpu().tolist()) for k, v in metrics.items()},
+        graph_vs_eager_max_abs=worst, graph_vs_eager_bitwise=worst == 0.0,
+        recorded_bitwise=record_worst == 0.0, profile=prof["graph"],
+        graph=graph_entry,
+        eager=dict(epoch_s=epoch_s["eager"], images_per_s=[images / s for s in epoch_s["eager"]],
+                   warmup_epoch_s=warm_s["eager"], peak_mem_gib=memory["eager"],
+                   launches=eager_launches, launches_profiled=prof["eager"]["launches"], profile=prof["eager"]),
     )
-    log(f"[{tag}] {what}: epochs {', '.join(f'{s:.3f}' for s in epoch_s)} s (warm-up {warm_s:.3f} s) = "
-        f"{', '.join(f'{x:.3f}' for x in stats['images_per_s'])} images/s; peak device memory "
-        f"{stats['peak_mem_gib']:.2f} GiB; launches {launches} (expected {expected}); reward rows "
-        f"{tuple(rows.shape)}; delta_norm {delta_norm:.4g}, theta_norm {stats['theta_norm']:.4g}")
+    log(f"[{tag}] {what}, graph and eager in turns: epochs graph {', '.join(f'{t:.3f}' for t in epoch_s['graph'])} s, "
+        f"eager {', '.join(f'{t:.3f}' for t in epoch_s['eager'])} s (first calls: graph {warm_s['graph']:.3f} s "
+        f"incl. capture {graph_entry['capture_s']:.3f} s + instantiate {graph_entry['instantiate_s']:.3f} s, pool "
+        f"{graph_entry['pool_bytes'] / 2**30:.2f} GiB; eager {warm_s['eager']:.3f} s); profiled epoch: graph busy "
+        f"{prof['graph']['busy_ms']:.1f} ms over {prof['graph']['kernels']} kernels, events "
+        f"{prof['graph']['event_ms']:.1f} ms; eager busy {prof['eager']['busy_ms']:.1f} ms over "
+        f"{prof['eager']['kernels']} kernels, events {prof['eager']['event_ms']:.1f} ms; idle share graph "
+        f"{prof['graph']['idle_share']}, eager {prof['eager']['idle_share']}; device memory graph "
+        f"{memory['graph']:.2f} GiB (peak allocated {peak['graph'] / 2**30:.2f} + pool), eager {memory['eager']:.2f} "
+        f"GiB (peak allocated); K1-K4 launches: counted eager {eager_launches} over {TIMED_EPOCHS} epochs, graph "
+        f"none; on the device, a profiled epoch: graph {prof['graph']['launches']}, eager "
+        f"{prof['eager']['launches']} (expected {expected1}); graph vs eager max abs {worst:.3g}"
+        f"{' (bitwise)' if worst == 0 else ''}; reward rows {tuple(rows.shape)}; delta_norm {delta_norm:.4g}, "
+        f"theta_norm {stats['theta_norm']:.4g}")
     return theta, stats
 
 
@@ -1190,6 +1521,7 @@ def phase_es_flagship(torch, base_quant=None, keep: bool = False):
     from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
     from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
     from hyperscalees_t2i_tpu_torch.utils import threefry
+    from hyperscalees_t2i_tpu_torch.utils.graphs import GraphCache
 
     _, pop, m, mb = RUNG_PLAN["flagship"]
     opt = rung_opt("flagship")
@@ -1201,25 +1533,29 @@ def phase_es_flagship(torch, base_quant=None, keep: bool = False):
     backend, suite = build_train_backend("flagship", device="cuda", base_quant=opt["base_quant"], seed=0)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    reward = RecordingReward(suite)
     tc = TrainConfig(pop_size=pop, sigma=0.01, egg_rank=4, member_batch=mb, promptnorm=True,
                      reward_tile=opt["reward_tile"], noise_dtype=opt["noise_dtype"], pop_fuse=opt["pop_fuse"])
     info = backend.step_info(0, m, 1)
     B = len(info.flat_ids)
     expected1, per = expected_es_launches(backend, suite, tc, B)
-    step = make_es_step(backend, reward, tc, len(info.unique_ids), 1, device="cuda", stateful_delta=True)
+
+    def make_step(graph: bool):
+        reward = RecordingReward(suite, per["calls"])
+        return make_es_step(backend, reward, tc, len(info.unique_ids), 1, device="cuda", stateful_delta=True,
+                            graphs=GraphCache("cuda", graph=graph)), reward
+
     log(f"[{tag}] flagship ES backend ({opt['base_quant']} base) built in {build_s:.1f} s; device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; per generate→reward call: "
         f"K3 {per['k3_per_call']}, K1 {per['k1_per_call']}, K2 {per['k2_per_call']}; {per['calls']} calls per epoch")
     # a fresh run's θ (b = 0) from bench.py's PRNGKey(1)
     theta = backend.init_theta(threefry.prng_key(1, "cuda"))
-    theta, run = timed_epochs(torch, step, theta, info.flat_ids, reward, expected1, pop,
+    theta, run = timed_epochs(torch, make_step, theta, info.flat_ids, expected1, pop,
                               per["calls"] // -(-pop // mb), tag, f"flagship ES epoch ({opt['base_quant']} base)")
     noise = sample_noise(threefry.prng_key(5, "cuda"), theta, pop, tc.es_config())
     breakdown = es_stage_breakdown(torch, backend, suite, theta, noise, tc, tag)
     stats = dict(plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s, per_call=per,
                  member_breakdown_ms=breakdown, **run)
-    del reward, step
+    torch.cuda.empty_cache()
     if keep:
         return stats, (backend, suite)
     del backend, suite
@@ -1229,20 +1565,35 @@ def phase_es_flagship(torch, base_quant=None, keep: bool = False):
 
 def _train(torch, backend, reward, tc, expected1, what: str, spy=None):
     """``run_training`` on the card with the launch counters set to 0 just
-    before and read just after; they must be ``expected1`` per epoch run.
-    ``spy(epoch, θ)`` sees the θ each epoch starts from. Returns
-    ``(state, per-epoch scalars, launches, wall s)``."""
+    before and read just after. The counters see the epochs that ran
+    eagerly: each program's first call (its warm-up, before the capture) or
+    every epoch of a backend without graphs; they must be ``expected1`` per
+    such epoch. The other epochs are replays of a captured graph, which the
+    program cache counts (:func:`timed_epochs` counts a replay's launches on
+    the device). ``spy(epoch, θ)`` sees the θ each epoch's step is called
+    with (the step's inputs, before its program runs). Returns ``(state,
+    per-epoch scalars, launches, wall s, eager epochs)``."""
+    from hyperscalees_t2i_tpu_torch.es.sampling import epoch_key
     from hyperscalees_t2i_tpu_torch.train import trainer
 
-    history = []
-    real = trainer._epoch_draws
+    history, caches = [], []
+    real = trainer.make_es_step
 
-    def draws(backend_, tc_, theta, epoch, count, dev):
-        spy(epoch, theta)
-        return real(backend_, tc_, theta, epoch, count, dev)
+    def spying_make(*a, **kw):
+        step = real(*a, **kw)
+        if all(c is not step.graphs for c in caches):
+            caches.append(step.graphs)
+        if spy is None:
+            return step
 
-    if spy is not None:
-        trainer._epoch_draws = draws
+        def spied(theta, prev_delta, flat_ids, key, *rest, **kwr):
+            spy(next(e for e in range(64) if torch.equal(epoch_key(tc.seed, e, key.device), key)), theta)
+            return step(theta, prev_delta, flat_ids, key, *rest, **kwr)
+
+        spied.graphs = step.graphs
+        return spied
+
+    trainer.make_es_step = spying_make
     try:
         torch.cuda.synchronize()
         _reset_counters()
@@ -1252,13 +1603,19 @@ def _train(torch, backend, reward, tc, expected1, what: str, spy=None):
         wall_s = time.perf_counter() - t0
         launches = _counters()
     finally:
-        trainer._epoch_draws = real
-    expected = {k: v * len(history) for k, v in expected1.items()}
+        trainer.make_es_step = real
+    epochs = sum(h["epochs_chained"] for h in history)
+    replays = sum(st["replays"] for c in caches for st in c.stats().values())
+    graphed = sum(len(c.stats()) for c in caches)
+    eager_epochs = epochs - replays
+    if graphed and eager_epochs != graphed:
+        raise AssertionError(f"{what}: {epochs} epochs, {replays} replays of {graphed} graphs")
+    expected = {k: v * eager_epochs for k, v in expected1.items()}
     if launches != expected:
-        raise AssertionError(f"{what} launched {launches}, expected {expected}")
+        raise AssertionError(f"{what} launched {launches} over its {eager_epochs} eager epochs, expected {expected}")
     if not all(bool(torch.isfinite(t).all()) for d in state.theta.values() for t in d.values()):
         raise AssertionError(f"{what}: θ not finite")
-    return state, history, launches, wall_s
+    return state, history, launches, wall_s, eager_epochs
 
 
 def _cpu_tree(torch, tree):
@@ -1268,10 +1625,11 @@ def _cpu_tree(torch, tree):
 def phase_train_reference(torch):
     """The trainer (``run_training``) on the tiny rung in f32 with an int8
     base (K3, K1) on the card against the same run on the CPU: the same
-    weights, and θ₀ and each epoch's draws made on the CPU (the seams
-    ``_init_theta``/``_epoch_draws`` drawn there and moved). Two epochs:
-    θ and each epoch's ``per_prompt_mean`` within 1e-4, the card's
-    launches exactly as derived."""
+    weights and θ₀ (the seam ``_init_theta``, drawn on the CPU and moved);
+    each device draws the epochs' noise from the same keys (within 1e-5,
+    ``phase_threefry``), the card inside its step's graph. Two epochs: θ
+    and each epoch's ``per_prompt_mean`` within 1e-4, the card's launches
+    exactly as derived."""
     import shutil
 
     from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN
@@ -1284,10 +1642,9 @@ def phase_train_reference(torch):
     root = ROOT / "build" / "train_tiny"
     shutil.rmtree(root, ignore_errors=True)
     cpu = torch.device("cpu")
-    real_init, real_draws = trainer._init_theta, trainer._epoch_draws
+    real_init = trainer._init_theta
     trainer._init_theta = lambda b, tc, dev: {k: {f: t.to(dev) for f, t in d.items()}  # noqa: E731
                                               for k, d in real_init(b, tc, cpu).items()}
-    trainer._epoch_draws = lambda b, tc, th, e, n, dev: real_draws(b, tc, th, e, n, cpu)  # noqa: E731
     outs = {}
     try:
         for dev in (cpu, torch.device("cuda")):
@@ -1300,11 +1657,11 @@ def phase_train_reference(torch):
                                              device=cpu)
             else:
                 expected1, _ = expected_es_launches(backend, suite, tc, m)
-                state, history, launches, _ = _train(torch, backend, suite, tc, expected1, "tiny run_training")
+                state, history, launches, _, _ = _train(torch, backend, suite, tc, expected1, "tiny run_training")
             outs[dev.type] = (_cpu_tree(torch, state.theta), [h["per_prompt_mean"] for h in history])
             del backend, suite
     finally:
-        trainer._init_theta, trainer._epoch_draws = real_init, real_draws
+        trainer._init_theta = real_init
     th_err = max(float((outs["cuda"][0][k][f] - outs["cpu"][0][k][f]).abs().max())
                  for k in outs["cpu"][0] for f in outs["cpu"][0][k])
     pm_err = max(abs(a - b) for ec, eg in zip(outs["cpu"][1], outs["cuda"][1]) for a, b in zip(ec, eg))
@@ -1322,8 +1679,9 @@ def phase_train_flagship(torch, backend, suite, es):
     ``quality=True``, ``save_every=2``, traced): ``run_training`` for 4
     epochs, then again with ``num_epochs=5`` and ``resume``, which must run
     exactly epoch 4 from the epoch-4 slot's θ bitwise; then 1 epoch with
-    ``quality=False``. Each run's K1-K4 launches must be the derived counts
-    × its epochs (K3 164 and K1 329 per image, no K2 or K4);
+    ``quality=False``. Each run's counted K1-K4 launches must be the
+    derived counts × its eager epochs (its program's warm-up; the rest are
+    graph replays; K3 164 and K1 329 per image, no K2 or K4);
     ``metrics.jsonl`` must hold 5 rows with ``quality/combined/prompt_mean``;
     the epoch-4 slot's sha256s are recomputed from its file and its digest
     from a read-back. Prints each epoch's ``step_time_s`` beside the bare
@@ -1351,8 +1709,8 @@ def phase_train_flagship(torch, backend, suite, es):
     expected1, per = expected_es_launches(backend, suite, TrainConfig(**base), m)
     if (per["k3_per_call"], per["k1_per_call"], per["k2_per_call"], per["calls"]) != (164, 329, 0, pop * m):
         raise AssertionError(f"the flagship plan is not K3 164, K1 329 per image over {pop * m} images: {per}")
-    state, h1, l1, wall1 = _train(torch, backend, suite, TrainConfig(num_epochs=4, **base), expected1,
-                                  "4 flagship run_training epochs")
+    state, h1, l1, wall1, e1 = _train(torch, backend, suite, TrainConfig(num_epochs=4, **base), expected1,
+                                      "4 flagship run_training epochs")
     run_dir = root / "flagship"
     slot = run_dir / "ckpt" / "step_00000004"
     if [h["epoch"] for h in h1] != [0, 1, 2, 3] or state.epoch != 4 or not slot.is_dir():
@@ -1371,7 +1729,7 @@ def phase_train_flagship(torch, backend, suite, es):
         raise AssertionError("the slot's read-back digest differs from its manifest's")
 
     seen = {}
-    state2, h2, l2, wall2 = _train(torch, backend, suite, TrainConfig(num_epochs=5, resume=True, **base), expected1,
+    state2, h2, l2, wall2, e2 = _train(torch, backend, suite, TrainConfig(num_epochs=5, resume=True, **base), expected1,
                                    "the resumed flagship run",
                                    spy=lambda e, th: seen.setdefault(e, _cpu_tree(torch, th)))
     if list(seen) != [4] or [h["epoch"] for h in h2] != [4] or state2.epoch != 5:
@@ -1384,10 +1742,10 @@ def phase_train_flagship(torch, backend, suite, es):
             not all(len(r.get("quality/combined/prompt_mean", [])) == m for r in rows):
         raise AssertionError(f"metrics.jsonl rows {[r['epoch'] for r in rows]} lack quality/combined/prompt_mean")
 
-    state3, h3, l3, wall3 = _train(torch, backend, suite,
-                                   TrainConfig(num_epochs=1, **{**base, "quality": False, "save_every": 0,
-                                                                "run_name": "flagship_quality_off"}),
-                                   expected1, "a flagship epoch with quality off")
+    state3, h3, l3, wall3, e3 = _train(torch, backend, suite,
+                                       TrainConfig(num_epochs=1, **{**base, "quality": False, "save_every": 0,
+                                                                    "run_name": "flagship_quality_off"}),
+                                       expected1, "a flagship epoch with quality off")
     if any(k.startswith("quality/") for k in h3[0]):
         raise AssertionError("quality=False still logged quality/* metrics")
     saves = [(ev["session"], ev["dur_s"]) for ev in load_events(run_dir) if ev["name"] == "checkpoint"]
@@ -1397,12 +1755,74 @@ def phase_train_flagship(torch, backend, suite, es):
         f"step_time_s (epoch 4 resumed; quality off: {h3[0]['step_time_s']:.3f} s) against the bare step's "
         f"{', '.join(f'{s:.3f}' for s in es['epoch_s'])} s (warm-up {es['warmup_epoch_s']:.3f} s) in this call; "
         f"checkpoint saves (session, s): {saves}; slot {slot_mb:.2f} MiB; runs {wall1:.2f} / {wall2:.2f} / "
-        f"{wall3:.2f} s wall; launches {l1} / {l2} / {l3}")
+        f"{wall3:.2f} s wall; launches counted {l1} / {l2} / {l3} over {e1} / {e2} / {e3} eager epochs")
     torch.cuda.empty_cache()
     return dict(step_time_s=step_s, step_time_s_quality_off=h3[0]["step_time_s"], bare_epoch_s=es["epoch_s"],
                 checkpoint_save_s=[d for _, d in saves], slot_mib=slot_mb, wall_s=[wall1, wall2, wall3],
-                launches=[l1, l2, l3], epochs=[len(h1), len(h2), len(h3)], images_per_epoch=pop * m,
+                launches=[l1, l2, l3], epochs=[len(h1), len(h2), len(h3)], eager_epochs=[e1, e2, e3],
+                images_per_epoch=pop * m,
                 slot_digest=digest)
+
+
+def phase_train_chained(torch, backend, suite):
+    """Chained dispatch at the flagship: ``run_training`` on the backend
+    :func:`phase_es_flagship` built, 5 epochs with ``steps_per_dispatch``
+    1 and then 4 (quality on, no slots or histograms due): the chained run
+    logs epochs [0, 4] with ``epochs_chained`` [1, 4] and ends at the
+    unchained run's θ bitwise, its epoch-4 row's scores equal; each run's
+    counted K1/K3 launches the derived counts × its one eager epoch (the
+    program's warm-up; the other four are replays)."""
+    import shutil
+
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+
+    _, pop, m, mb = RUNG_PLAN["flagship"]
+    opt = rung_opt("flagship")
+    root = ROOT / "build" / "train_chained"
+    shutil.rmtree(root, ignore_errors=True)
+    base = dict(num_epochs=5, pop_size=pop, sigma=0.01, egg_rank=4, prompts_per_gen=m, batches_per_gen=1,
+                member_batch=mb, reward_tile=opt["reward_tile"], noise_dtype=opt["noise_dtype"],
+                tower_dtype=opt["tower_dtype"], pop_fuse=opt["pop_fuse"], base_quant=opt["base_quant"],
+                quality=True, save_every=0, log_hist_every=0, resume=False, run_dir=str(root))
+    expected1, _ = expected_es_launches(backend, suite, TrainConfig(**base), m)
+    runs = {}
+    for spd in (1, 4):
+        state, hist, launches, wall, eager_epochs = _train(
+            torch, backend, suite, TrainConfig(steps_per_dispatch=spd, run_name=f"spd{spd}", **base), expected1,
+            f"flagship run_training, steps_per_dispatch={spd}")
+        runs[spd] = dict(theta=_cpu_tree(torch, state.theta), rows={h["epoch"]: h for h in hist}, launches=launches,
+                         eager_epochs=eager_epochs, wall_s=wall, step_time_s=[h["step_time_s"] for h in hist],
+                         epochs_chained=[h["epochs_chained"] for h in hist], epochs=[h["epoch"] for h in hist])
+        torch.cuda.empty_cache()
+    one, four = runs[1], runs[4]
+    if four["epochs"] != [0, 4] or four["epochs_chained"] != [1, 4] or one["epochs"] != [0, 1, 2, 3, 4]:
+        raise AssertionError(f"chain layout: epochs {four['epochs']}, epochs_chained {four['epochs_chained']}")
+    theta_diff = max(float((four["theta"][k][f] - one["theta"][k][f]).abs().max())
+                     for k in one["theta"] for f in one["theta"][k])
+    score_keys = ("opt_score_mean", "theta_norm", "delta_norm", "es/update_cosine")
+    row_diff = max(abs(four["rows"][4][k] - one["rows"][4][k]) for k in score_keys)
+    if theta_diff != 0.0 or row_diff != 0.0:
+        raise AssertionError(f"steps_per_dispatch 4 against 1: θ differs by {theta_diff}, epoch 4's scores by "
+                             f"{row_diff}")
+    log(f"[train-chained] flagship run_training, 5 epochs: steps_per_dispatch 1 step_time_s "
+        f"{', '.join(f'{t:.3f}' for t in one['step_time_s'])} ({one['wall_s']:.2f} s wall); steps_per_dispatch 4 "
+        f"{', '.join(f'{t:.3f}' for t in four['step_time_s'])} (epochs_chained {four['epochs_chained']}, "
+        f"{four['wall_s']:.2f} s wall); θ and epoch 4's scores bitwise equal; launches counted {one['launches']} / "
+        f"{four['launches']} over {one['eager_epochs']} / {four['eager_epochs']} eager epochs")
+    return {spd: {k: v for k, v in r.items() if k not in ("theta", "rows")} for spd, r in runs.items()}
+
+
+def phase_dispatch_tax(torch, backend, suite):
+    """``tools/dispatch_tax.py`` at the flagship rung on the backend
+    :func:`phase_es_flagship` built: its row (eager, single, chained, fused,
+    fused_qlora)."""
+    from hyperscalees_t2i_tpu_torch.tools import dispatch_tax
+
+    row = dispatch_tax.run("flagship", steps=2, chain=3, device="cuda", built=(backend, suite))
+    torch.cuda.empty_cache()
+    log(f"[dispatch-tax] {json.dumps(row)}")
+    return row
 
 
 def train_overhead(torch, pairs: int = 8):
@@ -1770,7 +2190,8 @@ def phase_inf_reference(torch):
             on = lambda t: tree_map(lambda a: a.to(dev), t)  # noqa: E731
             backend = InfinityBackend(bcfg, dev, params=on(params), prompts=prompts)
             backend.setup()
-            suite = RecordingReward(make_clip_reward_fn(clip.CLIPModel(ccfg, on(cparams)), table.to(dev)))
+            suite = RecordingReward(make_clip_reward_fn(clip.CLIPModel(ccfg, on(cparams)), table.to(dev)),
+                                    -(-pop // mb))
             if dev.type == "cpu":
                 gen = torch.Generator().manual_seed(42)
                 thetas = []
@@ -1888,7 +2309,7 @@ def phase_inf_es(torch):
         f"{build_peak_gib:.2f} GiB); device memory {built_gib:.2f} GiB; {calls} generate calls per epoch of {mb} "
         f"lane × {m} images × 2 (CFG) = {2 * mb * m} rows; K4 {per_call} per call; θ₀ = init_theta(fold_in("
         f"PRNGKey({tc.seed}), 17)) norm {theta0_norm:.4f} against theta_max_norm {tc.theta_max_norm}")
-    state, history, launches, wall_s = _train(torch, backend, suite, tc, expected1, "inf_2b run_training")
+    state, history, launches, wall_s, _ = _train(torch, backend, suite, tc, expected1, "inf_2b run_training")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     step_s = [h["step_time_s"] for h in history]
     if len(step_s) != INF_EPOCHS or not all(math.isfinite(h["theta_norm"]) for h in history):
@@ -1988,7 +2409,8 @@ def phase_var_reference(torch):
         on = lambda t: tree_map(lambda a: a.to(dev), t)  # noqa: E731
         backend = VarBackend(bcfg, dev, params=on(params))
         backend.setup()
-        suite = RecordingReward(make_clip_reward_fn(clip.CLIPModel(ccfg, on(cparams)), table.to(dev)))
+        suite = RecordingReward(make_clip_reward_fn(clip.CLIPModel(ccfg, on(cparams)), table.to(dev)),
+                                -(-pop // mb))
         if dev.type == "cpu":
             gen = torch.Generator().manual_seed(32)
             thetas = []
@@ -2118,10 +2540,12 @@ def phase_var_es(torch):
     before and read just after; K4 must launch 160 times per generate call."""
     from hyperscalees_t2i_tpu_torch.backends.var_backend import build_train_backend
     from hyperscalees_t2i_tpu_torch.es.noiser import sample_noise
+    from hyperscalees_t2i_tpu_torch.models import var as var_mod
     from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
     from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
     from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
     from hyperscalees_t2i_tpu_torch.utils import threefry
+    from hyperscalees_t2i_tpu_torch.utils.graphs import GraphCache
 
     scale, pop, m, mb = RUNG_PLAN["ar_d16"]
     opt = rung_opt("ar_d16")
@@ -2130,7 +2554,6 @@ def phase_var_es(torch):
     backend, suite = build_train_backend(scale, device="cuda", seed=0)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    reward = RecordingReward(suite)
     tc = TrainConfig(pop_size=pop, sigma=0.01, egg_rank=4, member_batch=mb, promptnorm=True,
                      reward_tile=opt["reward_tile"], noise_dtype=opt["noise_dtype"], pop_fuse=opt["pop_fuse"])
     info = backend.step_info(0, m, 1)
@@ -2139,19 +2562,27 @@ def phase_var_es(torch):
     calls = -(-pop // mb)
     per_call = len(mcfg.patch_nums) * mcfg.depth
     expected1 = {"int8_matmul": 0, "lora_chain": 0, "fused_qlora": 0, "decode_attention": per_call * calls}
-    step = make_es_step(backend, reward, tc, len(info.unique_ids), 1, device="cuda", stateful_delta=True)
+
+    def make_step(graph: bool):
+        reward = RecordingReward(suite, calls)
+        return make_es_step(backend, reward, tc, len(info.unique_ids), 1, device="cuda", stateful_delta=True,
+                            graphs=GraphCache("cuda", graph=graph)), reward
+
     log(f"[var] VAR-d16 ES backend built in {build_s:.1f} s; device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; {calls} generate calls per epoch of {mb} lanes × {B} "
         f"images × 2 (CFG) = {2 * mb * B} rows; K4 {per_call} per call")
     theta = backend.init_theta(threefry.prng_key(1, "cuda"))  # a fresh run's θ: b = 0
-    theta, run = timed_epochs(torch, step, theta, info.flat_ids, reward, expected1, pop, 1, "var", "VAR-d16 ES epoch")
+    # every scale's sampled token ids, graph against eager
+    with SlotRecorder(var_mod, "sample_top_k_top_p", calls * len(mcfg.patch_nums)) as ids_rec:
+        theta, run = timed_epochs(torch, make_step, theta, info.flat_ids, expected1, pop, 1, "var",
+                                  "VAR-d16 ES epoch", record=ids_rec)
     noise = sample_noise(threefry.prng_key(5, "cuda"), theta, pop, tc.es_config())
     ids = torch.as_tensor(info.flat_ids, device="cuda")
     gen_noise = backend.sample_gen_noise(threefry.prng_key(6, "cuda"), range(B))
     breakdown = var_stage_breakdown(torch, backend, suite, theta, noise, tc, ids, gen_noise)
     stats = dict(plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s,
                  per_call={"k4_per_call": per_call, "calls": calls}, call_breakdown_ms=breakdown, **run)
-    del backend, suite, reward, step
+    del backend, suite
     torch.cuda.empty_cache()
     return stats
 
@@ -2357,24 +2788,30 @@ def main() -> int:
     inf_es = phase_inf_es(torch)
     es, flagship = phase_es_flagship(torch, keep=True)
     train = phase_train_flagship(torch, *flagship, es)
+    chained = phase_train_chained(torch, *flagship)
+    tax = phase_dispatch_tax(torch, *flagship)
     threefry_rows = threefry_shares(phase_threefry(torch, flagship[0]), es, var_es, inf_es)
     del flagship
 
+    # `launches`: the wrappers' counters over the main paths' eager epochs (the
+    # eager variant's timed epochs, each run_training program's warm-up);
+    # `launches_by_path` adds each graph path's launches on the device, from
+    # the profiler over one replayed epoch (or serving flush)
     train_launches = lambda k: sum(run[k] for run in train["launches"])  # noqa: E731
-    train_epochs = sum(train["epochs"])
+    train_eager_epochs = sum(train["eager_epochs"])
     kernels = [
-        kernel_summary("int8_matmul", k1_rows, es["launches"]["int8_matmul"] + train_launches("int8_matmul"),
+        kernel_summary("int8_matmul", k1_rows, es["eager"]["launches"]["int8_matmul"] + train_launches("int8_matmul"),
                        "calls_per_es_image",
                        "hyperscalees_t2i_tpu/ops/quant_mm.py:86", "one flagship ES image (DiT, DC-AE, both towers)"),
-        kernel_summary("lora_chain", chain_rows["lora_chain"], es_float["launches"]["lora_chain"],
+        kernel_summary("lora_chain", chain_rows["lora_chain"], es_float["eager"]["launches"]["lora_chain"],
                        "calls_per_image", "hyperscalees_t2i_tpu/ops/fused_lora.py:80",
                        "the LoRA deltas of one flagship ES image over a bf16 base"),
         kernel_summary("fused_qlora", chain_rows["fused_qlora"],
-                       es["launches"]["fused_qlora"] + train_launches("fused_qlora"),
+                       es["eager"]["launches"]["fused_qlora"] + train_launches("fused_qlora"),
                        "calls_per_image", "hyperscalees_t2i_tpu/ops/fused_qlora.py:201",
                        "one flagship ES image's adapted sites"),
         kernel_summary("decode_attention", k4_rows,
-                       var_es["launches"]["decode_attention"] + inf_es["launches"]["decode_attention"],
+                       var_es["eager"]["launches"]["decode_attention"] + inf_es["launches"]["decode_attention"],
                        "calls_per_call", "hyperscalees_t2i_tpu/ops/attention.py:58",
                        "one VAR-d16 generate call (32 rows, 10 scales x 16 layers)"),
     ]
@@ -2382,23 +2819,37 @@ def main() -> int:
                             "calls_per_call", "hyperscalees_t2i_tpu/ops/attention.py:58",
                             f"one Infinity-2B generate call ({INF_ROWS} rows, 14 scales x 32 layers, self- and "
                             "cross-attention)")
-    kernels[3]["launches_by_path"] = {"var_d16_es": var_es["launches"]["decode_attention"],
-                                      "inf_2b_run_training": inf_es["launches"]["decode_attention"]}
+    kernels[3]["launches_by_path"] = {
+        "var_d16_es_graph_profiled_epoch": var_es["launches_profiled"]["decode_attention"],
+        "var_d16_es_eager": var_es["eager"]["launches"]["decode_attention"],
+        "inf_2b_run_training": inf_es["launches"]["decode_attention"]}
+    chained_launches = lambda k: sum(run["launches"][k] for run in chained.values())  # noqa: E731
+    for kern in kernels[:3]:
+        name = kern["name"]
+        kern["launches_by_path"] = {
+            "es_flagship_graph_profiled_epoch": es["launches_profiled"][name],
+            "es_flagship_eager": es["eager"]["launches"][name],
+            "es_flagship_bf16_graph_profiled_epoch": es_float["launches_profiled"][name],
+            "es_flagship_bf16_eager": es_float["eager"]["launches"][name],
+            "serve_graph_profiled_flush": serve["launches_profiled"][name],
+            "serve_eager": serve["eager"]["launches"][name],
+            "train_flagship_warmups": train_launches(name), "train_chained_warmups": chained_launches(name),
+        }
     kernels[3]["infinity"] = {k: k4_inf[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                                      "device_ms", "max_abs_err", "scope")}
     kernels[3]["infinity"]["in_situ_ms"] = inf_es["call_breakdown_ms"]["k4_in_situ_ms"]
-    k1_serve = kernel_summary("int8_matmul", k1_rows, serve["launches"]["int8_matmul"], "calls_per_image",
+    k1_serve = kernel_summary("int8_matmul", k1_rows, serve["eager"]["launches"]["int8_matmul"], "calls_per_image",
                               "hyperscalees_t2i_tpu/ops/quant_mm.py:86", "one flagship served image")
-    for k, run, epochs in ((kernels[1], es_float, TIMED_EPOCHS), (kernels[2], es, TIMED_EPOCHS + train_epochs)):
+    for k, run, epochs in ((kernels[1], es_float, TIMED_EPOCHS), (kernels[2], es, TIMED_EPOCHS + train_eager_epochs)):
         if k["launches"] != sum(r["calls_per_image"] for r in chain_rows[k["name"]]) * \
                 run["images_per_epoch"] * epochs:
             raise AssertionError(f"{k['name']} table and launch count disagree")
     if kernels[0]["launches"] != sum(r["calls_per_es_image"] for r in k1_rows) * es["images_per_epoch"] * \
-            (TIMED_EPOCHS + train_epochs):
+            (TIMED_EPOCHS + train_eager_epochs):
         raise AssertionError("K1 table and launch count disagree")
     if train_launches("lora_chain") or train_launches("decode_attention"):
         raise AssertionError("the flagship trainer launched K2 or K4")
-    if var_es["launches"]["decode_attention"] != \
+    if var_es["eager"]["launches"]["decode_attention"] != \
             sum(r["calls_per_call"] for r in k4_rows) * var_es["per_call"]["calls"] * TIMED_EPOCHS:
         raise AssertionError("K4's VAR table and launch count disagree")
     if inf_es["launches"]["decode_attention"] != \
@@ -2416,7 +2867,7 @@ def main() -> int:
         k1_shapes=k1_rows, chain_shapes=chain_rows, k4_shapes=k4_rows, k4_cases=k4_extra, k4_infinity_shapes=k4_inf_rows,
         small_reference_max_abs=small_err, es_tiny=es_tiny, es_small=es_small, var_tiny=var_tiny, inf_tiny=inf_tiny,
         es_flagship_float=es_float, serve=serve, var_es=var_es, inf_es=inf_es, es_flagship=es, train_tiny=train_tiny,
-        threefry=threefry_rows,
+        threefry=threefry_rows, train_chained=chained, dispatch_tax=tax,
         train_flagship=train, kernels=kernels, k1_serving=k1_serve, k4_infinity=k4_inf,
         wall_s=wall_s,
     ), indent=1))

@@ -23,7 +23,11 @@ package so each unit's counterpart is easy to find. What is ported so far:
   hyperscalees_t2i_tpu_torch.train.cli``;
 - the JAX noise stream, ``utils.threefry`` (threefry2x32 keys, ``split``,
   ``fold_in``, ``normal``, Gumbel, ``randint``): every draw of the port
-  follows the JAX package's key tree, so a seed gives its numbers.
+  follows the JAX package's key tree, so a seed gives its numbers;
+- one program per step, ``utils.graphs``: a CUDA graph per ES plan and per
+  serving geometry on the card (the JAX package's AOT programs), and
+  chained dispatch (``steps_per_dispatch``) in ``run_training``;
+  ``tools/dispatch_tax.py`` times it against the eager step.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit CPU request they raise (:mod:`.device`).

@@ -79,6 +79,10 @@ class InfinityBackend:
     ``text = (text_emb [P, Lt, text_dim], text_mask [P, Lt])`` the
     catalog's features (the tests carry the JAX package's across)."""
 
+    # the ES step runs eagerly on the card: a graph's private pool would hold
+    # another copy of the 19.8 GB KV cache (ROADMAP queue A item 3)
+    cuda_graphs = False
+
     def __init__(self, cfg: InfinityBackendConfig, device: DeviceLike = None, params: Optional[Params] = None,
                  prompts: Optional[List[str]] = None, text: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         self.cfg = cfg

@@ -338,8 +338,7 @@ template <int DHP>
 int launch_mma_dhp(const Args& a, int B, int H, int rows, int stages, int q_vec, int k_vec, int v_vec,
                    void* stream) {
     const size_t smem = mma_smem_bytes(rows, DHP, stages);
-    cudaError_t err = cudaFuncSetAttribute(decode_attention_mma_kernel<DHP>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = hses::raise_smem_limit(decode_attention_mma_kernel<DHP>, (int)smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((a.nq + rows - 1) / rows, H, B);
     decode_attention_mma_kernel<DHP><<<grid, 2 * rows, smem, (cudaStream_t)stream>>>(a, stages, q_vec, k_vec,
@@ -511,8 +510,7 @@ decode_attention_f32_kernel(Args a) {
 template <int DPT>
 int launch_f32_dpt(const Args& a, int B, int H, void* stream) {
     const size_t smem = f32_smem_bytes(a.dh);
-    cudaError_t err = cudaFuncSetAttribute(decode_attention_f32_kernel<DPT>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = hses::raise_smem_limit(decode_attention_f32_kernel<DPT>, (int)smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((a.nq + BQ - 1) / BQ, H, B);
     decode_attention_f32_kernel<DPT><<<grid, THREADS, smem, (cudaStream_t)stream>>>(a);

@@ -288,10 +288,8 @@ template <class T, int NCOL, int AV, bool BV>
 int launch_mma(const Call& c) {
     auto kernel = qlora_mma_kernel<T, NCOL, AV, BV>;
     constexpr int smem = mma_smem<T, NCOL>();
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return (int)e;
-    }
+    const cudaError_t e = hses::raise_smem_limit(kernel, smem);
+    if (e != cudaSuccess) return (int)e;
     const dim3 grid((c.rows_per_lane + T::BM - 1) / T::BM, (c.N + T::BN - 1) / T::BN, c.lanes);
     if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidConfiguration;
     kernel<<<grid, T::THREADS, smem, c.stream>>>((const bf16*)c.x, (const int8_t*)c.q, (const float*)c.scale,

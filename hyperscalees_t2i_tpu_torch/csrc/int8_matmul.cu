@@ -122,10 +122,8 @@ int launch_mma(const void* x, const void* q, const void* scale, void* out, int M
                cudaStream_t stream) {
     auto kernel = int8_mma_kernel<T, AV, BV>;
     constexpr int smem = T::RING;
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return (int)e;
-    }
+    const cudaError_t e = hses::raise_smem_limit(kernel, smem);
+    if (e != cudaSuccess) return (int)e;
     const dim3 grid((M + T::BM - 1) / T::BM, (N + T::BN - 1) / T::BN);
     if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
     kernel<<<grid, T::THREADS, smem, stream>>>((const bf16*)x, (const int8_t*)q, (const float*)scale,

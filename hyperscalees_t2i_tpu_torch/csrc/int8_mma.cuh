@@ -6,9 +6,27 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <unordered_map>
+
 namespace hses {
+
+// Raise a kernel's dynamic shared memory limit above the default 48 KB once
+// per kernel and size: a launch that needs no more than an earlier one set
+// makes no call, so the launches a CUDA graph captures after its warm-up
+// make none (the limit is the function's, not the stream's).
+template <typename Kernel>
+inline cudaError_t raise_smem_limit(Kernel kernel, int bytes) {
+    static std::unordered_map<const void*, int> limit;  // per kernel, the bytes set so far
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    int& have = limit[reinterpret_cast<const void*>(kernel)];
+    if (bytes <= have) return cudaSuccess;
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e == cudaSuccess) have = bytes;
+    return e;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));

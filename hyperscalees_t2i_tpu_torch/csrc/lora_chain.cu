@@ -462,8 +462,7 @@ struct Call {
 
 template <typename K>
 int set_smem(K kernel, int bytes) {
-    if (bytes <= 48 * 1024) return (int)cudaSuccess;
-    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    return (int)hses::raise_smem_limit(kernel, bytes);
 }
 
 dim3 grid_of(const Call& c, int rows) {

@@ -8,7 +8,7 @@ caller names it (the tests do).
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Dict, Sequence, Tuple, Union
 
 import torch
 
@@ -30,3 +30,18 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
 
+
+_CONSTANTS: Dict[Tuple, torch.Tensor] = {}
+
+
+def constant(values: Sequence[float], dtype: torch.dtype, device: Union[str, torch.device]) -> torch.Tensor:
+    """A 1-D tensor of Python numbers on ``device``, made once per (values,
+    dtype, device) and shared after; callers must not write to it. A step
+    captured as a CUDA graph makes its constants at its warm-up, so the
+    capture and every replay read them with no host copy and no launch."""
+    key = (tuple(values), dtype, str(torch.device(device)))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = _CONSTANTS[key] = torch.tensor(key[0], dtype=dtype).to(device)
+    return t

@@ -27,6 +27,7 @@ from typing import Any, Dict, List, NamedTuple, Tuple, Union
 import numpy as np
 import torch
 
+from ..device import constant
 from ..utils import threefry
 from ..utils.pytree import resolve_float_dtype, tree_leaves, tree_leaves_with_path, tree_map, tree_replace_leaves
 
@@ -182,21 +183,23 @@ def factored_member_theta(theta: Any, noise: Any, k: Union[int, List[int]], pop_
 
     members = [k] if isinstance(k, int) else list(k)
     sb = [_member(pop_size, cfg, m) for m in members]
-    idx = torch.tensor([b for _, b in sb])
-    signs = torch.tensor([s for s, _ in sb], dtype=torch.float32)
-    c_scale = torch.tensor(cfg.sigma / math.sqrt(cfg.rank), dtype=torch.float32)
+    c_scale = float(np.float32(cfg.sigma / math.sqrt(cfg.rank)))  # σ/√r rounded to f32; ·(±1) is exact
+    pairs = _noise_pairs(theta, noise)
+    # made once on the device (no host copy: the step is captured whole)
+    dev = pairs[0][0].device if pairs else torch.device("cpu")
+    idx = constant([b for _, b in sb], torch.int64, dev)
+    signs = constant([s for s, _ in sb], torch.float32, dev)
+    c_lanes = constant([c_scale * s for s, _ in sb], torch.float32, dev)
     out = []
-    for t, fac in _noise_pairs(theta, noise):
-        dev = t.device
+    for t, fac in pairs:
         if isinstance(fac, LowRankNoise):
-            u, v = fac.U[idx.to(fac.U.device)], fac.V[idx.to(fac.V.device)]
-            c = (c_scale * signs).to(dev)
+            u, v, c = fac.U[idx], fac.V[idx], c_lanes
             if isinstance(k, int):
                 u, v, c = u[0], v[0], c[0]
             out.append(FactoredDelta(w=t, u=u, v=v, c=c))
         else:
-            e = fac.E[idx.to(fac.E.device)].to(torch.float32)
-            s = signs.to(dev).reshape(-1, *([1] * (e.ndim - 1)))
+            e = fac.E[idx].to(torch.float32)
+            s = signs.reshape(-1, *([1] * (e.ndim - 1)))
             val = t + (cfg.sigma * s * e).to(t.dtype)
             out.append(val[0] if isinstance(k, int) else val)
     return tree_replace_leaves(theta, out)
@@ -205,9 +208,10 @@ def factored_member_theta(theta: Any, noise: Any, k: Union[int, List[int]], pop_
 def fitness_coeffs(fitness: torch.Tensor, pop_size: int, cfg: EggRollConfig) -> torch.Tensor:
     """Per-base coefficients ``c_b = Σ_{k: b_k=b} f_k·s_k`` (f32)."""
     signs, bases = member_signs_and_bases(pop_size, cfg.antithetic)
-    w = fitness.to(torch.float32) * torch.from_numpy(signs).to(fitness.device)
-    c = torch.zeros(base_pop_size(pop_size, cfg.antithetic), dtype=torch.float32, device=fitness.device)
-    return c.index_add_(0, torch.from_numpy(bases).to(fitness.device), w)
+    dev = fitness.device
+    w = fitness.to(torch.float32) * constant(signs.tolist(), torch.float32, dev)
+    c = torch.zeros(base_pop_size(pop_size, cfg.antithetic), dtype=torch.float32, device=dev)
+    return c.index_add_(0, constant(bases.tolist(), torch.int64, dev), w)
 
 
 def es_update(theta: Any, noise: Any, fitness: torch.Tensor, pop_size: int, cfg: EggRollConfig) -> Any:

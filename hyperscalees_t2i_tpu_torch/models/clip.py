@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn as tnn
 
+from ..device import constant
 from ..utils import threefry
 from ..utils.pytree import tree_map
 from . import nn
@@ -203,8 +204,8 @@ def preprocess_images(images: torch.Tensor, cfg: CLIPConfig) -> torch.Tensor:
     dtype."""
     s, dt = cfg.image_size, cfg.compute_dtype
     images = resize(images.to(dt), s, s, "cubic")
-    mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=torch.float32, device=images.device)
-    std = torch.tensor(CLIP_IMAGE_STD, dtype=torch.float32, device=images.device)
+    mean = constant(CLIP_IMAGE_MEAN, torch.float32, images.device)  # no host copy: the step is captured whole
+    std = constant(CLIP_IMAGE_STD, torch.float32, images.device)
     return ((images.to(torch.float32) - mean) / std).to(dt)
 
 

@@ -13,7 +13,8 @@ and reads nothing past ``kv_len``. bf16 runs on the tensor cores
 - :func:`decode_attention` — the wrapper. A CPU tensor takes the plain
   version :func:`naive_masked_attention`; a CUDA tensor launches the kernel
   once by :func:`_plan` or raises. ``decode_attention.launches`` counts
-  kernel launches.
+  kernel launches (not a CUDA graph's capture, whose replays run the
+  kernel without the wrapper).
 - :func:`_plan` — the kernel's route for one call, a pure function of nq,
   kv_len, dh, the dtype and the alignments of q, k and v.
 
@@ -181,7 +182,8 @@ def decode_attention(
         mask = kv_mask if kv_mask.stride(-1) == 1 else kv_mask.contiguous()
     _launch(q, k, v, mask, out, kv_len, sm_scale,
             _plan(nq, kv_len, dh, q.dtype, (alignment(q), alignment(k), alignment(v))))
-    decode_attention.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a graph's replays run what a capture records
+        decode_attention.launches += 1
     return out
 
 

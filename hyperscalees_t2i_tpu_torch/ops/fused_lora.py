@@ -31,7 +31,8 @@ than its route's own, so the order the CPU tests check is the kernel's.
 - :func:`member_lora_delta` — the wrapper. A CPU tensor takes the plain
   version :func:`member_lora_delta_reference`; a CUDA tensor launches the
   kernel once or raises. ``member_lora_delta.launches`` counts kernel
-  launches.
+  launches (not a CUDA graph's capture, whose replays run the kernel
+  without the wrapper).
 - :func:`_plan` — the kernel's route for one call, a pure function of the
   rows per lane, lanes, din, dout, dtype and x's address.
 - :func:`chain_launch_args` — the checks and the C arguments of the factors,
@@ -225,7 +226,8 @@ def member_lora_delta(x: torch.Tensor, a: Any, b: Any, scale: float) -> torch.Te
         raise ValueError("member_lora_delta dimensions must fit in 32 bits")
     rows_per_lane, lanes = args[8:10]  # after the factors' 8 pointers
     _launch(x, out, args, ndt, scale, _plan(rows_per_lane, lanes, din, dout, x.dtype, x.data_ptr()))
-    member_lora_delta.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a graph's replays run what a capture records
+        member_lora_delta.launches += 1
     return out
 
 

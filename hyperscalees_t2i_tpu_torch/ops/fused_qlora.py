@@ -20,7 +20,8 @@ is always on.
 - :func:`fused_qlora_matmul` — the kernel's wrapper. A CPU tensor takes the
   plain version :func:`fused_qlora_reference`; a CUDA tensor launches the
   kernel once or raises. ``fused_qlora_matmul.launches`` counts kernel
-  launches.
+  launches (not a CUDA graph's capture, whose replays run the kernel
+  without the wrapper).
 - :func:`_plan` — the kernel's route for one call, a pure function of the
   shape, lanes, dtype and pointers, so that the CPU tests can hold it to the
   kernel's batch- and lane-invariance rule.
@@ -123,7 +124,8 @@ def fused_qlora_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
     rows_per_lane, lanes = args[8:10]  # after the factors' 8 pointers
     plan = _plan(rows_per_lane, lanes, din, dout, x.dtype, x.data_ptr(), q8.data_ptr())
     _launch(x, q8, scale, out, args, ndt, lora_scale, plan)
-    fused_qlora_matmul.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a graph's replays run what a capture records
+        fused_qlora_matmul.launches += 1
     return out
 
 

@@ -8,7 +8,8 @@ first use and called through ``ctypes`` on PyTorch's current stream.
 
 - :func:`int8_matmul` — the wrapper. A CPU tensor takes the plain version
   :func:`int8_matmul_reference`; a CUDA tensor launches the kernel or raises.
-  ``int8_matmul.launches`` counts kernel launches (and nothing else).
+  ``int8_matmul.launches`` counts kernel launches (and nothing else: not a
+  CUDA graph's capture, whose replays run the kernel without the wrapper).
 - :func:`_plan` — the kernel's route for one call (tile, depth of a stage of
   the k sum, copy widths), a pure function of the shape, dtype and pointers
   so that the CPU tests can hold it to the kernel's batch-invariance rule.
@@ -145,7 +146,8 @@ def int8_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch
     if rows >= 2**31 or din >= 2**31 or dout >= 2**31:
         raise ValueError("int8_matmul dimensions must fit in 32 bits")
     _launch(x, q8, scale, out, rows, _plan(rows, din, dout, x.dtype, x.data_ptr(), q8.data_ptr()))
-    int8_matmul.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a graph's replays run what a capture records
+        int8_matmul.launches += 1
     return out
 
 

@@ -35,8 +35,10 @@ def make_population_evaluator(
     reward_tile: int = 0,
     pop_fuse: bool = False,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
-    """``eval_pop(theta, noise, flat_ids [B], gen_noise [B, *noise_shape])
-    → rewards``, every reward leaf ``[pop_size, B]``.
+    """``eval_pop(theta, noise, ids [B], gen_noise [B, *noise_shape])
+    → rewards``, every reward leaf ``[pop_size, B]``. ``ids`` is an int64
+    tensor on the generator's device: nothing here copies from the host, so
+    a CUDA graph can capture the evaluation whole.
 
     Members run in chunks of ``member_batch`` lanes: one chunk's adapter is
     ``factored_member_theta`` over the chunk's members (``pop_fuse``: the
@@ -58,8 +60,7 @@ def make_population_evaluator(
         thetas = [perturb_member(theta, noise, k, pop_size, es_cfg) for k in members]
         return thetas[0] if len(thetas) == 1 else stack_adapters(thetas)
 
-    def eval_pop(theta, noise, flat_ids, gen_noise):
-        ids = torch.as_tensor(flat_ids, dtype=torch.long)
+    def eval_pop(theta, noise, ids, gen_noise):
         B = ids.shape[0]
         tile = effective_reward_tile(B, reward_tile) or B
         chunks = []
@@ -73,8 +74,7 @@ def make_population_evaluator(
                 t_noise = gen_noise[i0:i0 + tile]
                 images = generate_p(theta_k, t_ids.expand(n, -1), None,
                                     noise=t_noise.expand(n, *t_noise.shape))
-                r = reward_fn(images.reshape(n * t_ids.shape[0], *images.shape[2:]),
-                              t_ids.to(images.device).repeat(n))
+                r = reward_fn(images.reshape(n * t_ids.shape[0], *images.shape[2:]), t_ids.repeat(n))
                 tiles.append({k: v.reshape(n, -1) for k, v in r.items()})
             chunks.append({k: torch.cat([t[k] for t in tiles], dim=1) for k in tiles[0]})
         return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
@@ -88,10 +88,10 @@ def make_adapter_batch_generator(
     images_per_request: int,
     member_batch: int = 0,
 ) -> Callable[..., torch.Tensor]:
-    """``gen_batch(stacked_theta, flat_ids [n, B], keys [n, 2], noise=None,
+    """``gen_batch(stacked_theta, ids [n, B], keys [n, 2], noise=None,
     guidance_scale=None) → images [n, B, H, W, C]`` for ``n <= adapter_batch``
     lanes, each lane one request with its own adapter and ``utils.threefry``
-    key.
+    key; ``ids`` is an int64 tensor on the generator's device.
 
     Lanes run in chunks of ``member_batch`` (0 = all lanes in one chunk).
     Inside a chunk every base matmul takes all the chunk's rows at once and
@@ -107,12 +107,11 @@ def make_adapter_batch_generator(
 
     def gen_batch(
         stacked_theta: Optional[Any],
-        flat_ids: Any,
+        ids: torch.Tensor,
         keys: torch.Tensor,
         noise: Optional[torch.Tensor] = None,
         guidance_scale: Optional[float] = None,
     ) -> torch.Tensor:
-        ids = torch.as_tensor(flat_ids, dtype=torch.long)
         n = ids.shape[0]
         if not 1 <= n <= A or ids.shape[1] != B:
             raise ValueError(f"flat_ids {tuple(ids.shape)} does not fit the ({A}, {B}) serving geometry")

@@ -7,12 +7,19 @@ Port of the core of ``hyperscalees_t2i_tpu/serve/engine.py``:
 - requests sharing a geometry (prompt count, guidance) coalesce up to
   ``adapter_batch`` lanes (``serve/batcher.py``);
 - a batch runs through :func:`~..parallel.pop_eval.make_adapter_batch_generator`
-  under ``torch.inference_mode()``.
+  under ``torch.inference_mode()`` as one program per serving geometry
+  (adapter lanes × images per request × guidance), the JAX engine's AOT
+  pool: on the card a CUDA graph (``utils.graphs``), captured at the
+  geometry's first dispatch (or :meth:`ServeEngine.warmup`) and replayed
+  for every batch after. Adapters, prompt ids and keys are its inputs, so
+  a new tenant is a new argument value and the capture count
+  (``serve_compiles``) stays flat;
+- a partial batch pads to ``adapter_batch`` lanes with slot 0's adapter,
+  prompt ids and key, and drops the padded lanes' images
+  (``serve_padded_slots`` counts them), the JAX engine's convention.
 
-Eager PyTorch has no compiled program of fixed shape, so a partial batch
-simply runs fewer lanes: there is no slot-0 padding and no masking. The JAX
-engine's AOT program pool, compile cache, admission gate, overload governor,
-metrics exporter, SLOs and profiler are not ported yet.
+The JAX engine's admission gate, overload governor, metrics exporter, SLOs
+and profiler are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import sys
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,8 +35,10 @@ import torch
 from ..backends.base import GeneratorBackend
 from ..device import DeviceLike, resolve_device
 from ..lora import stack_adapters
+from ..obs.metrics import MetricsRegistry
 from ..parallel.pop_eval import make_adapter_batch_generator
 from ..utils import threefry
+from ..utils.graphs import GraphCache
 from ..utils.pytree import tree_map
 from .adapter_store import AdapterStore
 from .batcher import RequestQueue, ServeRequest, ServeResult
@@ -61,6 +70,7 @@ class ServeEngine:
         self,
         backend: GeneratorBackend,
         cfg: Optional[ServeConfig] = None,
+        graph: bool = True,
     ):
         self.backend = backend
         self.cfg = cfg or ServeConfig()
@@ -73,7 +83,14 @@ class ServeEngine:
         self.template = backend.init_theta(threefry.prng_key(0, self.device))
         self.store = AdapterStore(self.cfg.adapter_budget_bytes, template=self.template)
         self.queue = RequestQueue(self.cfg.max_queue)
-        self._generators: Dict[int, Callable[..., torch.Tensor]] = {}
+        # serve_compiles, serve_padded_slots and the programs gauge, under the JAX names
+        self.registry = MetricsRegistry(prefix="")
+        # one program per (adapter lanes, images per request, guidance);
+        # graph=False runs them eagerly on the card (A/B timing)
+        self.programs = GraphCache(self.device, graph=graph, registry=self.registry, counter="serve_compiles",
+                                   gauge="serve/programs_resident",
+                                   span_attrs=lambda k: {"adapter_batch": k[0], "images_per_request": k[1],
+                                                         "guidance": k[2]})
         self._undelivered: List[ServeResult] = []
         self.counters = {"requests": 0, "dispatches": 0, "refused": 0, "images": 0}
         self.dispatch_seconds: List[float] = []
@@ -83,24 +100,23 @@ class ServeEngine:
         """Register an in-memory adapter; returns its content version."""
         return self.store.put(adapter_id, theta).version
 
-    def _generator(self, images_per_request: int) -> Callable[..., torch.Tensor]:
-        gen = self._generators.get(images_per_request)
-        if gen is None:
-            gen = make_adapter_batch_generator(
-                self.backend.generate_p, self.cfg.adapter_batch, images_per_request,
-                member_batch=self.cfg.member_batch,
-            )
-            self._generators[images_per_request] = gen
-        return gen
-
     def _run(self, thetas: Sequence[Adapter], ids: List[List[int]], seeds: List[int],
              guidance: Optional[float]) -> np.ndarray:
-        stacked = tree_map(lambda t: t.to(self.device, non_blocking=True), stack_adapters(list(thetas)))
+        """One dispatch of ``n ≤ adapter_batch`` requests, padded to
+        ``adapter_batch`` lanes with slot 0's adapter, ids and seed; the
+        padded lanes' images are dropped."""
+        n, A = len(thetas), self.cfg.adapter_batch
+        lanes = list(range(n)) + [0] * (A - n)
+        stacked = tree_map(lambda t: t.to(self.device), stack_adapters([thetas[i] for i in lanes]))
+        ids_t = torch.tensor([ids[i] for i in lanes], dtype=torch.long).to(self.device)
         # a request's key is PRNGKey(seed); its image j folds j in (the JAX engine's)
-        keys = torch.stack([threefry.prng_key(s, self.device) for s in seeds])
-        with torch.inference_mode():
-            out = self._generator(len(ids[0]))(stacked, ids, keys, guidance_scale=guidance)
-            return out.to(torch.float32).cpu().numpy()
+        keys = torch.stack([threefry.prng_key(seeds[i], self.device) for i in lanes])
+        B = len(ids[0])
+        gen = make_adapter_batch_generator(self.backend.generate_p, A, B, member_batch=self.cfg.member_batch)
+        out = self.programs((A, B, guidance), lambda *args: gen(*args, guidance_scale=guidance),
+                            stacked, ids_t, keys)
+        self.registry.inc("serve_padded_slots", A - n)
+        return out[:n].to(torch.float32).cpu().numpy()
 
     def warmup(self, geometries: Optional[Sequence[Tuple[int, Optional[float]]]] = None) -> List[str]:
         """Run each ``(images_per_request, guidance)`` geometry once at full
@@ -210,4 +226,6 @@ class ServeEngine:
             "queue_depth": self.queue.depth,
             "device": str(self.device),
             "store": self.store.stats(),
+            **self.registry.snapshot(),
+            "programs": self.programs.stats(),
         }

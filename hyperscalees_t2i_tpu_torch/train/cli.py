@@ -85,6 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prompts_per_gen", type=int, default=2)
     p.add_argument("--batches_per_gen", type=int, default=1)
     p.add_argument("--member_batch", type=int, default=1)
+    p.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="epochs replayed per dispatch with one read-back (the step's CUDA graph on the card)")
     p.add_argument("--reward_tile", type=int, default=0)
     p.add_argument("--noise_dtype", default="float32", choices=["float32", "bfloat16", "bf16"])
     p.add_argument("--tower_dtype", default="float32", choices=["float32", "bfloat16", "bf16"])
@@ -287,7 +289,8 @@ def train_config(args):
         num_epochs=args.num_epochs, pop_size=args.pop_size, sigma=args.sigma, lr_scale=args.lr_scale,
         egg_rank=args.egg_rank, antithetic=args.antithetic, promptnorm=args.promptnorm,
         prompts_per_gen=args.prompts_per_gen, batches_per_gen=args.batches_per_gen,
-        member_batch=args.member_batch, reward_tile=args.reward_tile, pop_fuse=args.pop_fuse,
+        member_batch=args.member_batch, steps_per_dispatch=args.steps_per_dispatch,
+        reward_tile=args.reward_tile, pop_fuse=args.pop_fuse,
         base_quant=args.base_quant, noise_dtype=_dtype(args.noise_dtype), tower_dtype=_dtype(args.tower_dtype),
         theta_max_norm=args.theta_max_norm, max_step_norm=args.max_step_norm,
         reward_weights=(args.w_aesthetic, args.w_text, args.w_noart, args.w_pick),

@@ -104,7 +104,6 @@ class TrainConfig:
 
 # (field, is it set away from what the port runs?, the ROADMAP item that ports it)
 _UNPORTED = (
-    ("steps_per_dispatch", lambda v: v > 1, "queue A item 3 (chained dispatch)"),
     ("metrics_port", lambda v: v != 0, "queue A item 5 (the exporter)"),
     ("slo", lambda v: v is not None, "queue A item 5 (SLOs)"),
     ("heartbeat_interval_s", lambda v: v != 0, "queue A item 5 (heartbeats)"),

@@ -10,20 +10,25 @@ Every member shares the epoch's generation noise (common random numbers).
 
 Keys: as in the JAX package, the step splits its epoch key
 (``es.sampling.epoch_key(seed, epoch)``) into a noise key and a generation
-key (:func:`es_draws`, which the loop's draws go through too), and θ₀ is drawn from ``fold_in(PRNGKey(seed), 17)``: the same seed
-draws the JAX package's numbers (``utils.threefry``), on the step's device.
-``noise=``/``gen_noise=`` take given draws instead.
+key (:func:`es_draws`, inside the step), and θ₀ is drawn from
+``fold_in(PRNGKey(seed), 17)``: the same seed draws the JAX package's
+numbers (``utils.threefry``), on the step's device. ``noise=``/``gen_noise=``
+take given draws instead.
 
-ES needs no gradient: the step runs under ``torch.inference_mode()``.
+The step is one program (``utils.graphs``): on the card a CUDA graph per
+(m, r) plan, captured at its first call and replayed after, as the JAX
+package dispatches one AOT program per plan. ES needs no gradient: it runs
+under ``torch.inference_mode()``.
 
-:func:`run_training` is the loop: one step per epoch, ``metrics.jsonl``,
-``quality.jsonl``, checkpoint slots and resume, the non-finite rollback,
-SIGTERM/SIGINT preemption. Its θ₀ and each epoch's draws come from
-:func:`_init_theta` and :func:`_epoch_draws`, so a test can put the JAX
-package's draws in their place. The pod machinery of the JAX loop
-(host-sharded programs, coordinated commit, elastic membership, the desync
-check, exporter, SLOs, anomaly watchdog, heartbeats, fault injection,
-chained dispatch, the XLA ledger, histograms, strips and snapshots) is not
+:func:`run_training` is the loop: one dispatch per epoch, or a chain of
+``steps_per_dispatch`` replays with one read-back (the JAX loop's chained
+dispatch), ``metrics.jsonl``, ``quality.jsonl``, checkpoint slots and
+resume, the non-finite rollback, SIGTERM/SIGINT preemption. Its θ₀ comes
+from :func:`_init_theta` and each epoch's draws from :func:`es_draws`, so a
+test can put the JAX package's draws in their place. The pod machinery of
+the JAX loop (host-sharded programs, coordinated commit, elastic
+membership, the desync check, exporter, SLOs, anomaly watchdog, heartbeats,
+fault injection, the XLA ledger, histograms, strips and snapshots) is not
 here; ``train.config.unported_settings`` names the ROADMAP item of each.
 """
 
@@ -51,6 +56,7 @@ from ..resilience.checkpoints import CheckpointStore
 from ..resilience.preempt import HALT_MARKER, PREEMPT_MARKER, PreemptionHandler, write_marker
 from ..resilience.rollback import RollbackController
 from ..utils import threefry
+from ..utils.graphs import GraphCache
 from ..utils.pytree import tree_leaves, tree_map, tree_replace_leaves
 from .checkpoints import load_legacy_checkpoint, save_checkpoint
 from .config import TrainConfig, unported_settings
@@ -103,7 +109,8 @@ def es_draws(backend: Any, theta: Any, key: torch.Tensor, pop: int, es_cfg: Any,
     """An epoch's draws from its key, as the JAX step makes them: ``key``
     splits into (noise key, generation key); the ES noise for ``theta``, and
     the generation noise of images ``range(count)`` (global positions).
-    ``noise``/``gen_noise``, where given, stand in for their draw."""
+    ``noise``/``gen_noise``, where given, stand in for their draw. The step
+    calls it from inside its program (tests replace it here)."""
     k_noise, k_gen = threefry.split(key)
     if noise is None:
         noise = sample_noise(k_noise, theta, pop, es_cfg)
@@ -112,8 +119,23 @@ def es_draws(backend: Any, theta: Any, key: torch.Tensor, pop: int, es_cfg: Any,
     return noise, gen_noise
 
 
+def device_ids(flat_ids: Any, dev: torch.device) -> torch.Tensor:
+    """Prompt ids as an int64 tensor on ``dev`` (a list crosses once, before
+    any program runs)."""
+    if isinstance(flat_ids, torch.Tensor):
+        return flat_ids.to(device=dev, dtype=torch.long)
+    return torch.tensor(list(flat_ids), dtype=torch.long).to(dev)
+
+
+def program_cache(backend: Any, dev: torch.device, **kw: Any) -> GraphCache:
+    """The ES step's program cache on ``dev``: CUDA graphs on the card,
+    unless the backend's ``cuda_graphs`` is False (Infinity: its KV cache
+    would need a second home in a graph's pool), then eager."""
+    return GraphCache(dev, graph=getattr(backend, "cuda_graphs", True), **kw)
+
+
 def make_es_step(backend: Any, reward_fn: Any, tc: TrainConfig, num_unique: int, repeats: int,
-                 device: DeviceLike = None, *, stateful_delta: bool = False):
+                 device: DeviceLike = None, *, stateful_delta: bool = False, graphs: Optional[GraphCache] = None):
     """Build the epoch step for a fixed (m prompts, r repeats) plan.
 
     Returns ``step(theta, flat_ids [m·r], key, noise=None, gen_noise=None)
@@ -126,10 +148,21 @@ def make_es_step(backend: Any, reward_fn: Any, tc: TrainConfig, num_unique: int,
     package's dict (``quality/*`` with ``tc.quality``), as tensors on the
     device.
 
+    The step is one program of ``graphs`` (a ``utils.graphs.GraphCache``;
+    ``None``: a cache of its own, :func:`program_cache`), keyed ``(m, r)``
+    as the JAX package keys its AOT step: draws, member evaluation, scores,
+    update and caps, from θ, Δθ, the ids and the key, with nothing copied
+    from the host inside it. On the card its first call warms up and
+    captures a CUDA graph and every later call replays it; the outputs are
+    the graph's buffers, overwritten by the next call (pass them back in as
+    θ and Δθ, or clone them to keep them). A cache made with
+    ``graph=False`` runs it eagerly on the card. ``step.graphs`` is the
+    cache.
+
     ``device`` must be the backend's device; ``None`` means the card and
     raises without one. ``noise`` (a tree from ``es.sample_noise``'s
     structure) and ``gen_noise`` (``[m·r, *backend.noise_shape]``) replace
-    the step's own draws."""
+    the step's own draws (another entry of the cache)."""
     dev = resolve_device(device)
     if dev != backend.device:
         raise ValueError(f"make_es_step on {dev}, but the backend lives on {backend.device}")
@@ -137,31 +170,39 @@ def make_es_step(backend: Any, reward_fn: Any, tc: TrainConfig, num_unique: int,
     pop = tc.pop_size
     eval_pop = make_population_evaluator(backend.generate_p, reward_fn, pop, es_cfg, tc.member_batch,
                                          reward_tile=tc.reward_tile, pop_fuse=tc.pop_fuse)
+    count = num_unique * repeats
+    if graphs is None:
+        graphs = program_cache(backend, dev)
 
-    def core(theta, prev_delta, flat_ids, key: torch.Tensor, noise=None, gen_noise=None):
-        ids = torch.as_tensor(flat_ids, dtype=torch.long)
-        if ids.numel() != num_unique * repeats:
+    def core(theta, prev_delta, ids, key, noise, gen_noise):
+        noise, gen_noise = es_draws(backend, theta, key, pop, es_cfg, count, noise=noise, gen_noise=gen_noise)
+        rewards = eval_pop(theta, noise, ids, gen_noise.to(torch.float32))
+        return _combine_and_update(theta, prev_delta, noise, rewards, tc=tc, es_cfg=es_cfg,
+                                   pop=pop, num_unique=num_unique, repeats=repeats)
+
+    def run(theta, prev_delta, flat_ids, key: torch.Tensor, noise=None, gen_noise=None):
+        ids = device_ids(flat_ids, dev)
+        if ids.numel() != count:
             raise ValueError(f"{ids.numel()} prompt ids for a plan of {num_unique}×{repeats}")
         to_dev = lambda t: t.to(dev)  # noqa: E731
-        with torch.inference_mode():
-            theta = tree_map(to_dev, theta)
-            prev_delta = tree_map(to_dev, prev_delta)
-            noise, gen_noise = es_draws(backend, theta, key.to(dev), pop, es_cfg, ids.numel(),
-                                        noise=None if noise is None else tree_map(to_dev, noise), gen_noise=gen_noise)
-            rewards = eval_pop(theta, noise, ids, gen_noise.to(dev, torch.float32))
-            return _combine_and_update(theta, prev_delta, noise, rewards, tc=tc, es_cfg=es_cfg,
-                                       pop=pop, num_unique=num_unique, repeats=repeats)
+        args = (tree_map(to_dev, theta), tree_map(to_dev, prev_delta), ids, key.to(dev),
+                None if noise is None else tree_map(to_dev, noise),
+                None if gen_noise is None else gen_noise.to(dev))
+        plan = (num_unique, repeats) if noise is None and gen_noise is None else \
+            (num_unique, repeats, "draws given")
+        return graphs(plan, core, *args)
 
+    run.graphs = graphs
     if stateful_delta:
-        return core
+        return run
 
     def step(theta, flat_ids, key: torch.Tensor, noise=None, gen_noise=None):
         zeros = tree_map(torch.zeros_like, theta)
-        theta_new, _delta, metrics, opt_scores = core(theta, zeros, flat_ids, key, noise, gen_noise)
+        theta_new, _delta, metrics, opt_scores = run(theta, zeros, flat_ids, key, noise, gen_noise)
         return theta_new, metrics, opt_scores
 
+    step.graphs = graphs
     return step
-
 
 
 @dataclasses.dataclass
@@ -183,21 +224,18 @@ def _init_theta(backend: Any, tc: TrainConfig, dev: torch.device) -> Any:
     return backend.init_theta(threefry.fold_in(threefry.prng_key(tc.seed, dev), 17))
 
 
-def _epoch_draws(backend: Any, tc: TrainConfig, theta: Any, epoch: int, count: int,
-                 dev: torch.device) -> Tuple[Any, torch.Tensor]:
-    """One epoch's ES noise and generation noise ``[count, ...]``: the
-    draws ``make_es_step`` makes from ``epoch_key(tc.seed, epoch)``."""
-    return es_draws(backend, theta, epoch_key(tc.seed, epoch, dev), tc.pop_size, tc.es_config(), count)
-
-
 def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                  on_epoch_end: Optional[Callable[[int, Dict[str, Any]], None]] = None,
                  device: DeviceLike = None) -> TrainState:
     """Train ``tc.num_epochs`` epochs of ES on one device (``None``: the
     card) into ``tc.run_dir / tc.auto_run_name(backend.name)``.
 
-    Per epoch: the plan (``backend.step_info(epoch, …)``), the step (built
-    once per (m, r)), the scalars (the step's metrics plus ``epoch``,
+    Per dispatch: the plan (``backend.step_info(epoch, …)``), the step (one
+    program per (m, r)), run once, or ``K = min(steps_per_dispatch, epochs
+    left, epochs until the next due one)`` times with one read-back once the
+    plan has run (the chain's ids and keys staged on the device first; the
+    row is its last epoch's, with ``epochs_chained = K``, ``step_time_s`` the
+    dispatch's time over K), the scalars (the step's metrics plus ``epoch``,
     ``incarnation``, ``epochs_chained``, ``step_time_s``,
     ``images_scored``, ``images_per_sec``, ``prompts``), the degeneracy
     watchdog, the quality ledger, the ``metrics.jsonl`` row with the
@@ -275,6 +313,9 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
 
         state = TrainState(theta=theta, epoch=start_epoch, rollbacks=rollback_ctrl.rollbacks)
         step_cache: Dict[Tuple[int, int], Callable] = {}
+        # one program per (m, r) plan: a CUDA graph on the card
+        programs = program_cache(backend, dev, registry=registry, tracer=tracer,
+                                 span_attrs=lambda plan: {"m": plan[0], "r": plan[1]})
         last_saved_boundary = -1
 
         def do_save(boundary: int, reward: float) -> None:
@@ -291,6 +332,17 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
             last_saved_boundary = boundary
             res_registry.gauge("last_saved_epoch", boundary)
 
+        def _epochs_until_due(e: int) -> int:
+            """Epochs from ``e`` to the next one with host work of its own
+            (θ histograms, strips, a checkpoint, a snapshot): 0 means ``e``
+            itself is due. A chain does not cross one (the JAX loop's rule)."""
+            d = None
+            for every in (tc.log_hist_every, tc.log_images_every, tc.save_every, tc.snapshot_every):
+                if every:
+                    rr = (every - (e + 1) % every) % every
+                    d = rr if d is None else min(d, rr)
+            return 10**9 if d is None else d
+
         epoch = start_epoch
         while epoch < tc.num_epochs:
             with tracer.span("epoch", epoch=epoch):
@@ -298,24 +350,40 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                 with tracer.span("plan"):
                     info = backend.step_info(epoch, tc.prompts_per_gen, tc.batches_per_gen)
                     m, r = len(info.unique_ids), info.repeats
-                if (m, r) not in step_cache:
-                    with tracer.span("compile", m=m, r=r):
-                        step_cache[(m, r)] = make_es_step(backend, reward_fn, tc_live, m, r, dev,
-                                                          stateful_delta=True)
-                    registry.inc("compiles")
-                with tracer.span("dispatch", epochs=1):
-                    noise, gen_noise = _epoch_draws(backend, tc_live, state.theta, epoch, len(info.flat_ids), dev)
-                    state.theta, prev_delta, metrics, _ = step_cache[(m, r)](
-                        state.theta, prev_delta, info.flat_ids, epoch_key(tc.seed, epoch, dev), noise=noise,
-                        gen_noise=gen_noise)
+                warm = (m, r) in step_cache
+                if not warm:
+                    step_cache[(m, r)] = make_es_step(backend, reward_fn, tc_live, m, r, dev, stateful_delta=True,
+                                                      graphs=programs)
+                # epochs per dispatch: K > 1 only once the plan has run and
+                # nothing is due inside the chain (the JAX loop's rule)
+                K = 1
+                if tc.steps_per_dispatch > 1 and warm and _epochs_until_due(epoch) > 0:
+                    K = min(tc.steps_per_dispatch, tc.num_epochs - epoch, _epochs_until_due(epoch))
+                infos = [info]
+                if K > 1:
+                    infos += [backend.step_info(e, tc.prompts_per_gen, tc.batches_per_gen)
+                              for e in range(epoch + 1, epoch + K)]
+                    if any((len(i.unique_ids), i.repeats) != (m, r) for i in infos):
+                        K, infos = 1, [info]  # the geometry changed mid-chain
+                # the chain's ids and keys, staged on the device before any replay
+                ids_k = device_ids([f for i in infos for f in i.flat_ids], dev).reshape(K, m * r)
+                keys_k = torch.stack([epoch_key(tc.seed, epoch + j, dev) for j in range(K)])
+                with tracer.span("dispatch", epochs=K):
+                    # θ and Δθ carry through the program's buffers; one
+                    # read-back at the chain's end
+                    for j in range(K):
+                        state.theta, prev_delta, metrics, _ = step_cache[(m, r)](
+                            state.theta, prev_delta, ids_k[j], keys_k[j])
                     scalars: Dict[str, Any] = {k: (v.tolist() if v.ndim else float(v)) for k, v in metrics.items()}
+                info = infos[-1]  # a chain logs its last epoch's prompts
                 dt = time.perf_counter() - t0
+                epoch = epoch + K - 1  # the chain's last epoch from here on
                 registry.inc("dispatches")
-                registry.inc("epochs_dispatched")
-                registry.observe("train_step_time_seconds", dt)
+                registry.inc("epochs_dispatched", K)
+                registry.observe("train_step_time_seconds", dt / K)
                 record_device_memory(registry, dev)
-                n_images = tc.pop_size * m * r
-                scalars.update(epoch=epoch, incarnation=int(start_epoch), epochs_chained=1, step_time_s=dt,
+                n_images = tc.pop_size * m * r * K
+                scalars.update(epoch=epoch, incarnation=int(start_epoch), epochs_chained=K, step_time_s=dt / K,
                                images_scored=n_images, images_per_sec=n_images / max(dt, 1e-9), prompts=info.texts)
                 degen_watchdog.update(float(scalars.get("es/fitness_zero", 0.0)) >= 0.5)
                 rollback_action = None
@@ -357,6 +425,7 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                     if rollback_action == "sigma_shrink":
                         tc_live = dataclasses.replace(tc_live, sigma=tc_live.sigma * rollback_ctrl.sigma_shrink)
                         step_cache.clear()
+                        programs.clear()
                         epoch = restored.epoch
                         logger.info(f"rollback → slot {restored.slot}: replaying from epoch {epoch} with "
                                     f"sigma={tc_live.sigma:g}")

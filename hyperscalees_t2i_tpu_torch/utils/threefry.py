@@ -92,7 +92,7 @@ def prng_key(seed: int, device: DeviceLike = None) -> torch.Tensor:
     types: ``[0, seed mod 2³²]`` (so ``-1`` gives ``[0, 2³² − 1]``), on
     ``device`` (``None``: the card, raising without one)."""
     key = torch.zeros(2, dtype=torch.int64, device=resolve_device(device))
-    key[1] = int(seed) & MASK  # a fill on the device, no host-to-device copy
+    key[1:].fill_(int(seed) & MASK)  # a scalar fill on the device (``key[1] = v`` copies from the host)
     return key
 
 

@@ -134,7 +134,7 @@ def test_engine_batched_equals_solo(backend):
     reqs = [eng.submit(f"t{i % 3}", [i % 3], seed=100 + i) for i in range(5)]
     res = eng.flush()
     assert [r.request.request_id for r in res] == [r.request_id for r in reqs]
-    assert [r.batch_size for r in res] == [2, 2, 2, 2, 1]  # no padding of the partial batch
+    assert [r.batch_size for r in res] == [2, 2, 2, 2, 1]  # requests; the partial batch runs padded to 2 lanes
     for r in res:
         assert r.ok and r.images.shape == (1, 32, 32, 3)
         assert np.isfinite(r.images).all() and r.images.min() >= 0 and r.images.max() <= 1

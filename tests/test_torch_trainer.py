@@ -6,7 +6,7 @@ around it, against the JAX package on the CPU.
   geometry of ``tests/test_trainer.py``; weights and prompt embeddings
   carried across) with a brightness reward written once per framework. The
   port gets the JAX θ₀ and each epoch's JAX draws through its two seams
-  (``_init_theta``, ``_epoch_draws``). Every shared ``metrics.jsonl`` key
+  (``_init_theta``, ``es_draws``). Every shared ``metrics.jsonl`` key
   (``quality/*`` included; wall-clock keys aside), the final θ and the
   epoch-2 slot's θ agree within 3e-4; measured max abs error 1.5e-5 over the
   rows' values, 8.6e-7 on θ. The same holds with nothing injected: the
@@ -58,7 +58,7 @@ from hyperscalees_t2i_tpu.train.config import TrainConfig as JTrainConfig
 from hyperscalees_t2i_tpu.train.trainer import run_training as jrun_training
 from hyperscalees_t2i_tpu.utils import pytree as jpytree
 from hyperscalees_t2i_tpu_torch.backends.sana_backend import SanaBackend, SanaBackendConfig
-from hyperscalees_t2i_tpu_torch.es.sampling import parse_int_list
+from hyperscalees_t2i_tpu_torch.es.sampling import epoch_key, parse_int_list
 from hyperscalees_t2i_tpu_torch.models import dcae, sana
 from hyperscalees_t2i_tpu_torch.obs.es_health import DegeneracyWatchdog
 from hyperscalees_t2i_tpu_torch.obs.metrics import MetricsRegistry
@@ -79,8 +79,9 @@ from hyperscalees_t2i_tpu_torch.weights.from_jax import adapter_from_jax, tree_f
 torch.set_num_threads(1)
 TOL = dict(rtol=3e-4, atol=3e-4)
 PROMPTS = ["a red square", "a blue circle", "a green cat"]
-# keys whose values are wall-clock readings
-CLOCK_KEYS = {"ts", "step_time_s", "images_per_sec"}
+# keys whose values are wall-clock readings, and the JAX process's count of
+# jit cache entries (the port's gauge counts its own programs)
+CLOCK_KEYS = {"ts", "step_time_s", "images_per_sec", "obs/compile_cache_entries"}
 
 
 def _np(tree):
@@ -161,10 +162,20 @@ def jax_run(tmp_path_factory):
                 run_dir=run_dir)
 
 
-def _with_jax_draws(monkeypatch, theta0, draws):
+def _epoch_of(key, seed):
+    """The epoch whose ``epoch_key(seed, epoch)`` is ``key`` (the step draws
+    from its key inside its program; the tests' draws are by epoch)."""
+    return next(e for e in range(64) if torch.equal(epoch_key(seed, e, "cpu"), key.cpu()))
+
+
+def _with_jax_draws(monkeypatch, theta0, draws, seed=PARITY["seed"]):
     monkeypatch.setattr(trainer, "_init_theta", lambda backend, tc, dev: adapter_from_jax(theta0, dev))
-    monkeypatch.setattr(trainer, "_epoch_draws", lambda backend, tc, theta, epoch, count, dev: (
-        tree_from_numpy(draws[epoch][0], dev), torch.from_numpy(np.array(draws[epoch][1])).to(dev)))
+
+    def jax_draws(backend, theta, key, pop, es_cfg, count, noise=None, gen_noise=None):
+        e = _epoch_of(key, seed)
+        return (tree_from_numpy(draws[e][0], key.device), torch.from_numpy(np.array(draws[e][1])).to(key.device))
+
+    monkeypatch.setattr(trainer, "es_draws", jax_draws)
 
 
 @pytest.fixture(scope="module")
@@ -463,15 +474,15 @@ def test_interrupted_then_resumed_equals_uninterrupted_bitwise(tmp_path):
                 assert hs[k] == hr[k], k
 
 
-def _nan_from(epoch0, times=None):
-    """``_epoch_draws`` with NaN ES noise from ``epoch0`` on (the first
-    ``times`` such draws only, when given)."""
-    real = trainer._epoch_draws
+def _nan_from(epoch0, times=None, seed=5):
+    """``es_draws`` with NaN ES noise from ``epoch0`` on (the first
+    ``times`` such draws only, when given), for runs of ``seed``."""
+    real = trainer.es_draws
     left = [math.inf if times is None else times]
 
-    def draws(backend, tc, theta, epoch, count, dev):
-        noise, gen = real(backend, tc, theta, epoch, count, dev)
-        if epoch >= epoch0 and left[0] > 0:
+    def draws(backend, theta, key, pop, es_cfg, count, noise=None, gen_noise=None):
+        noise, gen = real(backend, theta, key, pop, es_cfg, count)
+        if _epoch_of(key, seed) >= epoch0 and left[0] > 0:
             left[0] -= 1
             noise = pytree.tree_map(lambda t: torch.full_like(t, math.nan), noise)
         return noise, gen
@@ -480,7 +491,7 @@ def _nan_from(epoch0, times=None):
 
 
 def test_non_finite_theta_rolls_back_then_halts(tmp_path, monkeypatch):
-    monkeypatch.setattr(trainer, "_epoch_draws", _nan_from(1))
+    monkeypatch.setattr(trainer, "es_draws", _nan_from(1))
     state, history = _run(_tc(tmp_path, num_epochs=4, max_rollbacks=3, rollback_sigma_shrink=0.5))
     assert state.halted and not state.preempted and state.rollbacks == 4 and state.epoch == 1
     halted = json.loads((tmp_path / "runs/r/halted.json").read_text())
@@ -494,7 +505,7 @@ def test_non_finite_theta_rolls_back_then_halts(tmp_path, monkeypatch):
 
 
 def test_skip_policy_keeps_the_restored_theta(tmp_path, monkeypatch):
-    monkeypatch.setattr(trainer, "_epoch_draws", _nan_from(1))
+    monkeypatch.setattr(trainer, "es_draws", _nan_from(1))
     state, _ = _run(_tc(tmp_path, num_epochs=3, rollback_policy="skip", max_rollbacks=3))
     assert not state.halted and state.epoch == 3 and state.rollbacks == 2
     slot1 = CheckpointStore(tmp_path / "runs/r").restore(state.theta)
@@ -503,7 +514,7 @@ def test_skip_policy_keeps_the_restored_theta(tmp_path, monkeypatch):
 
 
 def test_resume_keeps_a_shrunk_sigma(tmp_path, monkeypatch):
-    monkeypatch.setattr(trainer, "_epoch_draws", _nan_from(2, times=1))
+    monkeypatch.setattr(trainer, "es_draws", _nan_from(2, times=1))
     state, history = _run(_tc(tmp_path, num_epochs=3, max_rollbacks=2))  # epoch 2 trips once, replays at σ/2
     assert [h["epoch"] for h in history] == [0, 1, 2] and state.rollbacks == 1 and not state.halted
     monkeypatch.undo()
@@ -516,7 +527,7 @@ def test_resume_keeps_a_shrunk_sigma(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("field, value, item", [
-    ("steps_per_dispatch", 2, "item 3"), ("metrics_port", 9100, "item 5"), ("slo", "latency_p95=2s", "item 5"),
+    ("metrics_port", 9100, "item 5"), ("slo", "latency_p95=2s", "item 5"),
     ("heartbeat_interval_s", 5.0, "item 5"), ("faults", "preempt@1", "item 7"), ("pop_host_shard", "on", "item 7"),
     ("desync_check_every", 4, "item 7"), ("on_topology_mismatch", "reshard", "item 7"),
     ("elastic_action", "continue", "item 7"), ("profile_epochs", 1, "item 10"), ("snapshot_every", 2, "item 10"),
