@@ -119,7 +119,22 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
    slab, Infinity-2B's Gumbel noise and one whole stacked leaf): every
    primitive draw re-drawn on the CPU over its ends, bits and uniforms
    bitwise equal, normals and Gumbels within 1e-5; each draw's time, device
-   time, kernel count and share of its path's epoch (or call, or build).
+   time, kernel count and share of its path's epoch (or call, or build);
+10. the Sana pipeline mode (``PIPELINE_STEPS`` DiT passes an image): the
+    tiny rung in f32 with an int8 base on the card against the CPU
+    (:func:`phase_pipeline_reference`: one ``generate`` and one ES step
+    within 1e-4, launches as derived, the pipeline's draws bitwise); the
+    flagship ES rung in pipeline mode under ``run_training`` as a graph
+    (:func:`phase_pipeline_es`: 3 epochs, K3 2 × 164 an image counted and
+    on the device, epoch s beside 7's one-step epoch);
+11. the serving tier (:func:`phase_serve_tier`, on 5's backend): an engine
+    of ``TIER_LANES`` lanes with the overload layer, SLOs and the
+    ``/metrics`` exporter; the admission estimate beside the measured
+    bytes, and a refusal that runs nothing; a ``tools.loadgen`` sweep at
+    ``TIER_RATES`` × 5's images/s and its knee; ``/metrics`` scraped over
+    HTTP; ``run_degrade`` OFF against ON at 1.5 × (``not_resident`` 0 ON);
+    batched equal to solo bitwise; a pipeline-mode engine's flush, K1 on the
+    device as derived.
 
 Every random number of the port is the JAX package's (the same keys, the
 same key tree); the phases draw from ``utils.threefry`` keys.
@@ -994,12 +1009,15 @@ def expected_es_launches(backend, reward, tc, batch: int):
     generate → decode → reward call (one per member chunk and image tile)
     launches, per LoRA-read DiT site, K3 (int8 node) or K2 (float node),
     and K1 at every other int8 matmul site of the DiT, the decoder and the
-    reward towers' image sides (their text sides ran once, at build)."""
+    reward towers' image sides (their text sides ran once, at build). A
+    pipeline-mode backend runs the DiT ``num_inference_steps`` times a call
+    (:func:`dit_passes`), its decoder and towers once."""
     adapted = backend.model.lora_sites()
     modules = dict(backend.model.named_modules())
-    k3 = sum(1 for n in adapted if hasattr(modules[n], "q8"))
-    k2 = len(adapted) - k3
-    k1 = sum(1 for n, m in modules.items() if hasattr(m, "q8") and n not in adapted)
+    passes = dit_passes(backend)
+    k3 = sum(1 for n in adapted if hasattr(modules[n], "q8")) * passes
+    k2 = len(adapted) * passes - k3
+    k1 = sum(1 for n, m in modules.items() if hasattr(m, "q8") and n not in adapted) * passes
     k1 += sum(1 for m in backend.vae.modules() if hasattr(m, "q8"))
     for tower in (reward.clip_model, reward.pick_model):
         if tower is not None:
@@ -1007,7 +1025,14 @@ def expected_es_launches(backend, reward, tc, batch: int):
             k1 += sum(1 for part in image_side for m in part.modules() if hasattr(m, "q8"))
     calls = reward_calls(tc, batch)
     return ({"int8_matmul": k1 * calls, "lora_chain": k2 * calls, "fused_qlora": k3 * calls, "decode_attention": 0},
-            {"k1_per_call": k1, "k2_per_call": k2, "k3_per_call": k3, "calls": calls})
+            {"k1_per_call": k1, "k2_per_call": k2, "k3_per_call": k3, "calls": calls, "dit_passes": passes})
+
+
+def dit_passes(backend) -> int:
+    """DiT passes of one Sana generate call: ``num_inference_steps`` in
+    pipeline mode, else 1."""
+    cfg = backend.cfg
+    return int(cfg.num_inference_steps) if getattr(cfg, "backend_mode", "one_step") == "pipeline" else 1
 
 
 def stage_breakdown(torch, backend, theta, reps: int = 3):
@@ -1039,10 +1064,11 @@ def stage_breakdown(torch, backend, theta, reps: int = 3):
     return {"dit_and_sampler": gen_ms, "dcae_decode": dec_ms}
 
 
-def phase_serve(torch):
+def phase_serve(torch, keep: bool = False):
     """Flagship serving (``SERVE_PLAN["flagship"]``, two tenants) through
     two engines on one backend, a CUDA graph per geometry and eager
-    (``graph=False``), each warmed up, then ``N_REQUESTS`` requests served
+    (``graph=False``), each warmed up (its admission estimate printed beside
+    the built program's bytes), then ``N_REQUESTS`` requests served
     by each in turns (eager, graph, graph, eager), the launch counters set
     to 0 just before each flush and read just after: K1 exactly its sites ×
     the lane chunks dispatched for the eager engine, none for the graph's (a
@@ -1051,7 +1077,8 @@ def phase_serve(torch):
     for both; the graph's images bitwise equal to the eager engine's; every
     image finite in [0, 1], the tenants' different; a request alone (padded
     to the geometry's lanes) equal to it batched, bitwise, under the graph;
-    a brand-new tenant served with ``serve_compiles`` flat."""
+    a brand-new tenant served with ``serve_compiles`` flat. ``keep`` also
+    returns the backend, for :func:`phase_serve_tier`."""
     from hyperscalees_t2i_tpu_torch.backends.sana_backend import build_serve_backend
     from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, RUNG_BASE_QUANT, SERVE_PLAN, sana_rung_model
     from torch.profiler import ProfilerActivity, profile
@@ -1075,15 +1102,18 @@ def phase_serve(torch):
         theta = backend.init_theta(threefry.fold_in(threefry.prng_key(8, "cpu"), i))
         tenants.append({k: {"a": d["a"], "b": 0.05 * torch.randn(d["b"].shape, generator=gen)}
                         for k, d in theta.items()})
-    warm_s = {}
+    warm_s, admitted = {}, {}
     for v, eng in engines.items():
         for i in range(2):
             eng.put_adapter(f"tenant{i}", tenants[i])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.warmup()
+        (label,) = eng.warmup()
         torch.cuda.synchronize()
         warm_s[v] = time.perf_counter() - t0
+        admitted[v] = dict(eng.admission[label])
+        if not admitted[v]["armed"] or admitted[v].get("measured_bytes") is None:
+            raise AssertionError(f"serving: the {v} engine's admission did not arm or measure: {admitted[v]}")
     entry = next(iter(engines["graph"].programs.stats().values()))
     if not entry["pool_bytes"] > 0:
         raise AssertionError(f"serving: the graph's pool holds {entry['pool_bytes']} bytes")
@@ -1091,6 +1121,11 @@ def phase_serve(torch):
         f"{entry['capture_s']:.3f} s, instantiate {entry['instantiate_s']:.3f} s, pool "
         f"{entry['pool_bytes'] / 2**30:.2f} GiB), eager {warm_s['eager']:.1f} s; {len(routed)} int8 sites route "
         f"to the kernel; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    log("[serve] admission at adapter_batch " + str(A) + ": " + "; ".join(
+        f"{v} estimate {r['estimate_bytes'] / 2**30:.3f} GiB (probes "
+        f"{ {k: round(b / 2**30, 3) for k, b in r['probe_bytes'].items()} } GiB) against the built "
+        f"{r['measured_bytes'] / 2**30:.3f} GiB (base {r['base_bytes'] / 2**30:.3f}): estimate/measured "
+        f"{r['estimate_bytes'] / r['measured_bytes']:.4f}" for v, r in admitted.items()))
 
     images_per_req = plan["images_per_request"]
     per_flush = len(routed) * -(-N_REQUESTS // A) * -(-A // mb)
@@ -1169,7 +1204,7 @@ def phase_serve(torch):
         expected_launches_per_flush=expected,
         k1_calls_per_image=len(routed), batched_vs_solo_max_abs=solo_diff, graph_vs_eager_max_abs=graph_vs_eager,
         tenant_max_abs_diff=tenant_diff, plan=plan, serve_compiles=snap["serve_compiles"],
-        serve_padded_slots=snap.get("serve_padded_slots", 0),
+        serve_padded_slots=snap.get("serve_padded_slots", 0), admission=admitted,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
     log(f"[serve] {N_REQUESTS} requests a flush, in turns: graph {', '.join(f'{x:.3f}' for x in stats['images_per_s'])} "
@@ -1180,7 +1215,11 @@ def phase_serve(torch):
         f"the device, a profiled flush: graph {profiled['graph']['launches']} (busy "
         f"{profiled['graph']['busy_ms']:.1f} ms), eager {profiled['eager']['launches']} (busy "
         f"{profiled['eager']['busy_ms']:.1f} ms); tenants differ by {tenant_diff:.3g}")
-    del engines, geng, backend
+    del engines, geng
+    torch.cuda.empty_cache()
+    if keep:
+        return stats, backend
+    del backend
     torch.cuda.empty_cache()
     return stats
 
@@ -2726,6 +2765,444 @@ def threefry_shares(rows, es, var_es, inf_es):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the Sana pipeline mode and the serving tier
+# ---------------------------------------------------------------------------
+
+PIPELINE_STEPS = 2  # DiT passes an image in the pipeline phases (the JAX CLI's default)
+TIER_RATES = (0.25, 0.5, 0.75, 1.0, 1.5)  # the sweep's rates, × the graph engine's measured images/s
+TIER_WINDOW_S = 4.0
+TIER_LANES = 4
+
+
+def pipeline_draw_check(torch, steps: int = PIPELINE_STEPS, items: int = 16, shape=(32, 32, 32)):
+    """The pipeline's draws (``models.sana.pipeline_noise``) at the
+    flagship latent shape for one epoch's items, card against CPU: every key
+    of the ``split`` chain and every draw's bits equal, bitwise; the normals
+    within 1e-5 (``phase_threefry``'s bound)."""
+    from hyperscalees_t2i_tpu_torch.models import sana
+    from hyperscalees_t2i_tpu_torch.utils import threefry
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        key, keys, bits = threefry.prng_key(41, dev), [], []
+        for _ in range(steps + 1):
+            pair = threefry.split(key)
+            key, nkey = pair[0], pair[1]
+            keys.append(nkey.cpu())
+            bits.append(threefry.random_bits(threefry.fold_in(nkey[None], threefry.indices(range(items), dev)),
+                                             shape).cpu())
+        out[dev] = (torch.stack(keys), torch.stack(bits),
+                    sana.pipeline_noise(threefry.prng_key(41, dev), range(items), steps, shape).float().cpu())
+    keys_equal = torch.equal(out["cpu"][0], out["cuda"][0])
+    bits_equal = torch.equal(out["cpu"][1], out["cuda"][1])
+    normal_err = float((out["cpu"][2] - out["cuda"][2]).abs().max())
+    if not (keys_equal and bits_equal and normal_err <= 1e-5):
+        raise AssertionError(f"pipeline draws, card vs CPU: keys equal {keys_equal}, bits equal {bits_equal}, "
+                             f"normals max abs {normal_err}")
+    return {"keys_bitwise": keys_equal, "bits_bitwise": bits_equal, "normal_max_abs": normal_err,
+            "draws": int(out["cpu"][2].numel())}
+
+
+def phase_pipeline_reference(torch):
+    """The tiny Sana rung in ``pipeline`` mode (``PIPELINE_STEPS`` DiT
+    passes an image), f32, every kernel int8 (min_size 0), on the card
+    against the CPU on the same weights: one ``generate`` (a served request,
+    K1 at every int8 site, the DiT's ``PIPELINE_STEPS`` times) within 1e-4,
+    and one ES step (``pop_fuse``: K3 at the adapted sites of each DiT pass,
+    K1 elsewhere) with θ′ and the step's reward rows within 1e-4; the card's
+    launches exactly as derived from the module trees; the pipeline's draws
+    bitwise (:func:`pipeline_draw_check`)."""
+    from hyperscalees_t2i_tpu_torch.es.noiser import sample_noise
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+    from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
+    from hyperscalees_t2i_tpu_torch.utils import threefry
+    from hyperscalees_t2i_tpu_torch.utils.pytree import tree_map
+
+    _, pop, m, mb = RUNG_PLAN["tiny"]
+    g = torch.Generator().manual_seed(51)
+    trees = _es_trees(torch, "tiny", True, threefry.prng_key(51, "cpu"))
+    tc = TrainConfig(pop_size=pop, sigma=0.01, egg_rank=4, member_batch=mb, pop_fuse=True)
+    outs, launches = {}, {}
+    for dev in (torch.device("cpu"), torch.device("cuda")):
+        one_step, suite = _es_parts(torch, "tiny", dev, trees)
+        backend = one_step.with_mode("pipeline", PIPELINE_STEPS)
+        reward = RecordingReward(suite, -(-pop // mb))
+        if dev.type == "cpu":
+            theta = backend.init_theta(threefry.prng_key(52, "cpu"))
+            theta = {k: {f: v + 0.05 * torch.randn(v.shape, generator=g) for f, v in d.items()}
+                     for k, d in theta.items()}
+            noise = sample_noise(threefry.prng_key(53, "cpu"), theta, pop, tc.es_config())
+            flat = backend.step_info(0, m, 1).flat_ids
+            gen_noise = backend.sample_gen_noise(threefry.prng_key(54, "cpu"), range(len(flat)))
+        else:
+            sites = [mod for mod in backend.model.modules() if hasattr(mod, "q8")]
+            vae_sites = [mod for mod in backend.vae.modules() if hasattr(mod, "q8")]
+            expected_gen = {"int8_matmul": len(sites) * PIPELINE_STEPS + len(vae_sites), "lora_chain": 0,
+                            "fused_qlora": 0, "decode_attention": 0}
+            expected_step, per = expected_es_launches(backend, suite, tc, len(flat))
+            torch.cuda.synchronize()
+            _reset_counters()
+        with torch.inference_mode():
+            images = backend.generate(theta, [0, 1], threefry.prng_key(55, dev)).float().cpu()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launches["generate"] = _counters()
+            _reset_counters()
+        step = make_es_step(backend, reward, tc, m, 1, device=dev)
+        theta_new, _, _ = step(theta, flat, threefry.prng_key(0, dev), noise=noise, gen_noise=gen_noise)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launches["es_step"] = _counters()
+        calls_per_chunk = len(reward.rows) // -(-pop // mb)
+        rows = reward_rows(torch, reward.rows, calls_per_chunk, len(flat) // calls_per_chunk)
+        outs[dev.type] = (images, tree_map(lambda a: a.float().cpu(), theta_new), rows.float().cpu())
+        del one_step, backend, suite, reward, step
+    img_err = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
+    th_err = max(float((outs["cuda"][1][k][f] - outs["cpu"][1][k][f]).abs().max())
+                 for k in outs["cpu"][1] for f in outs["cpu"][1][k])
+    row_err = float((outs["cuda"][2] - outs["cpu"][2]).abs().max())
+    draws = pipeline_draw_check(torch)
+    log(f"[pipeline-tiny] tiny rung, pipeline mode ({PIPELINE_STEPS} DiT passes), f32 int8, card vs CPU: images "
+        f"{tuple(outs['cuda'][0].shape)} max abs diff {img_err:.3g}, ES step θ′ {th_err:.3g}, reward rows "
+        f"{tuple(outs['cuda'][2].shape)} {row_err:.3g} (tol 1e-4); launches generate {launches['generate']} "
+        f"(expected {expected_gen}), ES step {launches['es_step']} (expected {expected_step}: K3 "
+        f"{per['k3_per_call']}, K1 {per['k1_per_call']} a call); draws {draws}")
+    if tuple(outs["cuda"][2].shape) != (pop, len(flat)):
+        raise AssertionError(f"pipeline reward rows {tuple(outs['cuda'][2].shape)} are not [{pop}, {len(flat)}]")
+    if not (img_err <= 1e-4 and th_err <= 1e-4 and row_err <= 1e-4):
+        raise AssertionError(f"card and CPU disagree on the pipeline: images {img_err}, θ′ {th_err}, rows {row_err}")
+    if launches["generate"] != expected_gen or launches["es_step"] != expected_step or \
+            per["dit_passes"] != PIPELINE_STEPS or launches["es_step"]["fused_qlora"] == 0:
+        raise AssertionError(f"the pipeline launched {launches}, expected generate {expected_gen}, "
+                             f"ES step {expected_step}")
+    torch.cuda.empty_cache()
+    return {"images_max_abs": img_err, "theta_max_abs": th_err, "rows_max_abs": row_err, "launches": launches,
+            "expected": {"generate": expected_gen, "es_step": expected_step}, "per_call": per, "draws": draws}
+
+
+def phase_pipeline_es(torch, backend, suite, es):
+    """The flagship ES rung (``RUNG_PLAN``/``RUNG_OPT["flagship"]``, nothing
+    cut) in ``pipeline`` mode (``PIPELINE_STEPS`` DiT passes an image, the
+    one-step backend's modules shared: ``SanaBackend.with_mode``) under
+    ``run_training`` as a CUDA graph: 3 epochs, the first warm (its
+    warm-up and capture). Counted launches: the derived counts × the one
+    eager epoch (K3 ``PIPELINE_STEPS`` × 164 an image); then one profiled
+    replayed epoch, whose K1-K4 on the device must be the derived counts.
+    Reward rows ``[4, 4]`` finite, ‖Δθ‖ > 0. Prints the replayed epochs'
+    s and images/s, busy ms and idle share, peak memory (peak allocated +
+    the graph's pool) beside the one-step epoch of ``es``."""
+    import shutil
+
+    from hyperscalees_t2i_tpu_torch.es.sampling import epoch_key
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
+    from hyperscalees_t2i_tpu_torch.train import trainer
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+
+    _, pop, m, mb = RUNG_PLAN["flagship"]
+    opt = rung_opt("flagship")
+    pipe = backend.with_mode("pipeline", PIPELINE_STEPS)
+    root = ROOT / "build" / "train_pipeline"
+    shutil.rmtree(root, ignore_errors=True)
+    tc = TrainConfig(num_epochs=3, pop_size=pop, sigma=0.01, egg_rank=4, prompts_per_gen=m, batches_per_gen=1,
+                     member_batch=mb, reward_tile=opt["reward_tile"], noise_dtype=opt["noise_dtype"],
+                     tower_dtype=opt["tower_dtype"], pop_fuse=opt["pop_fuse"], base_quant=opt["base_quant"],
+                     quality=False, save_every=0, resume=False, run_dir=str(root), run_name="pipeline")
+    expected1, per = expected_es_launches(pipe, suite, tc, m)
+    if (per["k3_per_call"], per["calls"]) != (PIPELINE_STEPS * 164, pop * m):
+        raise AssertionError(f"the flagship pipeline plan is not K3 {PIPELINE_STEPS} x 164 per image: {per}")
+    reward = RecordingReward(suite, per["calls"])
+    steps = []
+    real = trainer.make_es_step
+
+    def recording_make(*a, **kw):
+        steps.append(real(*a, **kw))
+        return steps[-1]
+
+    trainer.make_es_step = recording_make
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        state, history, launches, wall_s, eager_epochs = _train(torch, pipe, reward, tc, expected1,
+                                                                "the flagship pipeline run_training")
+    finally:
+        trainer.make_es_step = real
+    peak_allocated = torch.cuda.max_memory_allocated()
+    graph = next(iter(steps[0].graphs.stats().values()))
+    rows = reward_rows(torch, reward.rows, per["calls"] // -(-pop // mb), 1).float()
+    delta_norms = [h["delta_norm"] for h in history]
+    if tuple(rows.shape) != (pop, m) or not bool(torch.isfinite(rows).all()) or not min(delta_norms) > 0:
+        raise AssertionError(f"pipeline rows {tuple(rows.shape)} finite {bool(torch.isfinite(rows).all())}, "
+                             f"delta_norm {delta_norms}")
+    ids = torch.tensor(pipe.step_info(0, m, 1).flat_ids, dtype=torch.long, device="cuda")
+    prof = profiled_epoch(torch, steps[0], state.theta, ids, epoch_key(tc.seed, 200, "cuda"))
+    if prof["launches"] != expected1:
+        raise AssertionError(f"the profiled pipeline epoch launched {prof['launches']} on the device, "
+                             f"expected {expected1}")
+    epoch_s = [h["step_time_s"] for h in history[1:]]
+    images = pop * m
+    prof["idle_share"] = 1.0 - prof["busy_ms"] / (1e3 * statistics.mean(epoch_s))
+    memory_gib = (peak_allocated + graph["pool_bytes"]) / 2**30
+    stats = dict(epoch_s=epoch_s, first_epoch_s=history[0]["step_time_s"], images_per_epoch=images,
+                 images_per_s=[images / s for s in epoch_s], one_step_epoch_s=es["epoch_s"], profile=prof,
+                 launches_counted=launches, eager_epochs=eager_epochs, launches_profiled=prof["launches"],
+                 expected_launches_per_epoch=expected1, per_call=per, graph=graph, peak_mem_gib=memory_gib,
+                 peak_allocated_gib=peak_allocated / 2**30, reward_rows=rows.cpu().tolist(), delta_norm=delta_norms,
+                 wall_s=wall_s, dit_passes=PIPELINE_STEPS)
+    log(f"[pipeline-es] flagship ES epoch, pipeline mode ({PIPELINE_STEPS} DiT passes), run_training as a graph: "
+        f"epochs {', '.join(f'{s:.3f}' for s in epoch_s)} s ({', '.join(f'{x:.3f}' for x in stats['images_per_s'])} "
+        f"images/s; first {history[0]['step_time_s']:.3f} s incl. capture {graph['capture_s']:.3f} s) against the "
+        f"one-step epoch {', '.join(f'{s:.3f}' for s in es['epoch_s'])} s in this call; profiled replay busy "
+        f"{prof['busy_ms']:.1f} ms over {prof['kernels']} kernels, idle share {prof['idle_share']:.4f}; memory "
+        f"{memory_gib:.2f} GiB (peak allocated {peak_allocated / 2**30:.2f} + pool {graph['pool_bytes'] / 2**30:.2f}); "
+        f"launches counted {launches} over {eager_epochs} eager epoch, on the device {prof['launches']} "
+        f"(K3 {per['k3_per_call']}, K1 {per['k1_per_call']} an image); rows {tuple(rows.shape)}, delta_norm "
+        f"{delta_norms}")
+    del steps, state, reward, pipe
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _scrape(port: int, path: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.read().decode()
+
+
+def phase_serve_tier(torch, backend, serve):
+    """The serving tier on the flagship serving backend :func:`phase_serve`
+    built: a ``ServeEngine`` of ``TIER_LANES`` lanes (member_batch 1, a CUDA
+    graph) with ``overload=OverloadConfig()``, SLOs ``latency_p95=2s,
+    availability=99.9`` and the exporter on 127.0.0.1, built by
+    ``tools.loadgen.build_engine`` (a store of 24 adapters).
+
+    - Admission: the estimate (probes at 1 and 2 lanes) beside the bytes the
+      built program holds and the replay's peak allocated + pool; then a
+      second engine with a budget below the estimate must raise
+      ``ServeAdmissionError`` naming both numbers, with no kernel launched,
+      nothing captured and ``serve_compiles`` absent.
+    - Load: a ``loadgen`` sweep at ``TIER_RATES`` × the images/s
+      :func:`phase_serve`'s graph engine measured (window ``TIER_WINDOW_S``,
+      Zipf 1.1 over 64 tenants, 1 image a request): each step's
+      p50/p95/p99, open-loop p99, goodput, store churn, and the knee. Every
+      served image is checked finite and in [0, 1].
+    - Telemetry: ``/metrics`` scraped over HTTP and parsed; the request
+      latency histogram's count and ``+Inf`` bucket equal the requests the
+      engine served; every ``serve_*_seconds`` histogram present;
+      ``/healthz`` answers.
+    - Overload: ``run_degrade`` at 1.5 × the measured images/s with the
+      layer OFF and ON (fresh engines, the client deadline the SLO):
+      sheds by reason and goodput; ``not_resident`` 0 with it ON.
+    - Bitwise: a request served alone equals it batched.
+    - Pipeline: one profiled flush of a ``pipeline``-mode engine sharing the
+      flagship modules; K1 on the device as derived (the DiT's sites
+      ``PIPELINE_STEPS`` times); its images differ from the one-step
+      engine's for the same (adapter, prompt, seed)."""
+    from hyperscalees_t2i_tpu_torch.serve import OverloadConfig, ServeEngine
+    from hyperscalees_t2i_tpu_torch.tools import loadgen
+    from hyperscalees_t2i_tpu_torch.utils import threefry
+
+    capacity_ips = statistics.mean(serve["images_per_s"])
+    template = backend.init_theta(threefry.prng_key(0, "cuda"))
+    engine, pop = loadgen.build_engine("flagship", 24, metrics_port=_free_port(), overload=OverloadConfig(),
+                                       backend=backend, template=template, adapter_batch=TIER_LANES,
+                                       slo="latency_p95=2s,availability=99.9")
+    if engine.exporter is None:
+        raise AssertionError("the exporter did not start")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (label,) = engine.warmup()
+    warm_s = time.perf_counter() - t0
+    rec = dict(engine.admission[label])
+    if not rec["armed"] or rec.get("measured_bytes") is None:
+        raise AssertionError(f"admission did not arm or measure: {rec}")
+    pool = next(iter(engine.programs.stats().values()))["pool_bytes"]
+
+    # every image the tier's engines serve (this one, the degrade run's OFF
+    # and ON engines) is checked finite and in [0, 1] as it is delivered
+    checked = {"images": 0}
+    real_flush = ServeEngine.flush
+
+    def checking_flush(self, *a, **kw):
+        res = real_flush(self, *a, **kw)
+        for r in res:
+            if r.ok:
+                lo, hi = float(r.images.min()), float(r.images.max())
+                if not (lo >= 0.0 and hi <= 1.0):
+                    raise AssertionError(f"served image outside [0, 1] or not finite: min {lo} max {hi}")
+                checked["images"] += 1
+        return res
+
+    ServeEngine.flush = checking_flush
+    try:
+        return _serve_tier(torch, backend, serve, engine, pop, template, rec, pool, warm_s, capacity_ips, checked)
+    finally:
+        ServeEngine.flush = real_flush
+
+
+def _serve_tier(torch, backend, serve, engine, pop, template, rec, pool, warm_s, capacity_ips, checked):
+    """:func:`phase_serve_tier` from its first flush on, with every delivered
+    image checked."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperscalees_t2i_tpu_torch.obs.exporter import parse_prometheus_text
+    from hyperscalees_t2i_tpu_torch.serve import ServeAdmissionError, ServeConfig, ServeEngine
+    from hyperscalees_t2i_tpu_torch.tools import loadgen
+
+    # the replay's peak allocated + pool (PERF.md's definition), over one full flush
+    for i in range(TIER_LANES):
+        pop.ensure(engine, i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = [engine.submit(pop.adapter_id(i), [i % backend.num_items], seed=i) for i in range(TIER_LANES)]
+    batched = {r.request.request_id: r for r in engine.flush()}
+    torch.cuda.synchronize()
+    replay_peak = torch.cuda.max_memory_allocated() + pool
+    est, meas = rec["estimate_bytes"], rec["measured_bytes"]
+    log(f"[serve-tier] admission at adapter_batch {TIER_LANES}: estimate {est / 2**30:.3f} GiB (base "
+        f"{rec['base_bytes'] / 2**30:.3f} + program {rec['estimate_program_bytes'] / 2**30:.3f}; probes "
+        f"{ {k: round(v / 2**30, 3) for k, v in rec['probe_bytes'].items()} } GiB at 1/2 lanes) against the built "
+        f"program's {meas / 2**30:.3f} GiB (program {rec['measured_program_bytes'] / 2**30:.3f}) and the replay's "
+        f"peak allocated + pool {replay_peak / 2**30:.3f} GiB: estimate/measured {est / meas:.4f}, "
+        f"estimate/replay {est / replay_peak:.4f}; budget {rec['budget_bytes'] / 2**30:.2f} GiB "
+        f"({rec['budget_source']}); warmup {warm_s:.2f} s")
+    # the refusal: a budget below the estimate, decided from the remembered estimate
+    budget = int(rec["base_bytes"] + 0.5 * rec["estimate_program_bytes"])
+    torch.cuda.synchronize()
+    _reset_counters()
+    refused = ServeEngine(backend, ServeConfig(adapter_batch=TIER_LANES, member_batch=1, hbm_budget_bytes=budget,
+                                               device="cuda"), theta_template=template)
+    refused.put_adapter("t0", template)
+    try:
+        refused.generate("t0", [0], seed=0)
+        raise AssertionError("a budget below the estimate was admitted")
+    except ServeAdmissionError as e:
+        refusal = str(e)
+        if not (e.peak_bytes > e.budget_bytes == float(budget)) or "GB" not in refusal:
+            raise AssertionError(f"the refusal does not name both numbers: {refusal}")
+    torch.cuda.synchronize()
+    refused_launches = _counters()
+    if any(refused_launches.values()) or refused.programs.entries or \
+            "serve_compiles" in refused.registry.snapshot():
+        raise AssertionError(f"the refused geometry ran: launches {refused_launches}, programs "
+                             f"{list(refused.programs.entries)}")
+    log(f"[serve-tier] refusal under a {budget / 2**30:.3f} GiB budget: {refusal}; launches {refused_launches}, "
+        "nothing captured")
+    del refused
+
+    rates = [round(f * capacity_ips, 3) for f in TIER_RATES]
+    sweep = loadgen.run_sweep("flagship", rates, window_s=TIER_WINDOW_S, zipf_s=1.1, population=64,
+                              store_adapters=24, slo_p99_s=2.0, engine=engine, pop=pop)
+    for row in sweep["steps"]:
+        log(f"[serve-tier] sweep {row['offered_rps']:.3f} req/s: completed {row['completed']}/{row['arrivals']}, "
+            f"p50 {row['p50_s']} p95 {row['p95_s']} p99 {row['p99_s']} s, open-loop p99 {row['p99_open_s']} s, "
+            f"goodput {row['goodput_rps']} req/s, end queue {row['queue_end_depth']}, store hits "
+            f"{row['store_hits']} misses {row['store_misses']} evictions {row['store_evictions']}, shed "
+            f"{row['shed_by_reason']}, not_resident {row['not_resident_refusals']}")
+    disp = engine.dispatch_seconds
+    occupancy = engine.registry.value("serve_requests") / max(len(disp), 1) / TIER_LANES
+    log(f"[serve-tier] knee {sweep['knee']}; capacity {sweep['capacity_rps']} req/s at open-loop p99 <= 2 s, "
+        f"goodput {sweep['goodput_rps']} req/s (graph engine measured {capacity_ips:.3f} images/s); {len(disp)} "
+        f"dispatches, mean {statistics.mean(disp):.4f} s (median {statistics.median(disp):.4f}), mean occupancy "
+        f"{occupancy:.3f}; {pop.materializations} adapters materialized")
+
+    served = int(engine.registry.value("serve_requests"))
+    parsed = parse_prometheus_text(_scrape(engine.exporter.port, "/metrics"))
+    count = parsed["serve_request_latency_seconds_count"][0][1]
+    inf = dict((lab["le"], v) for lab, v in parsed["serve_request_latency_seconds_bucket"])["+Inf"]
+    missing = [n for n in ("serve_queue_wait_seconds_count", "serve_batch_assembly_seconds_count",
+                           "serve_dispatch_seconds_count", "slo_latency_p95_burn_fast", "serve_adapter_hotness")
+               if n not in parsed]
+    health = json.loads(_scrape(engine.exporter.port, "/healthz"))
+    if count != served or inf != served or missing or health.get("status") != "ok":
+        raise AssertionError(f"/metrics: latency count {count}, +Inf {inf}, served {served}, missing {missing}; "
+                             f"/healthz {health.get('status')}")
+    log(f"[serve-tier] /metrics scraped over HTTP: {len(parsed)} series; serve_request_latency_seconds count "
+        f"{count:g} = +Inf bucket = {served} requests served; /healthz {health['status']}, pressure rung "
+        f"{health['pressure']['rung']}; latency percentiles {engine.latency_percentiles()}; images checked "
+        f"{checked['images']}")
+
+    # a request alone (padded to the lanes) equals it batched, bitwise
+    r0 = batched[first[0].request_id]
+    index = int(r0.request.adapter_id.split("-")[1])
+    pop.ensure(engine, index)  # the sweep's churn may have evicted it; its bytes are the same again
+    solo = engine.generate(r0.request.adapter_id, r0.request.prompt_ids, r0.request.seed)
+    solo_diff = float(np.abs(solo - r0.images).max())
+    if solo_diff != 0.0:
+        raise AssertionError(f"served alone and batched differ by {solo_diff}")
+    one_step_image = solo
+    one_step_request = (r0.request.adapter_id, r0.request.prompt_ids, r0.request.seed, pop.theta_for(index))
+    engine.close()
+    del engine, batched
+
+    degrade = loadgen.run_degrade("flagship", rates, window_s=TIER_WINDOW_S, zipf_s=1.1, population=64,
+                                  store_adapters=24, slo_p99_s=2.0, geometry_mix=((1, 1.0),),
+                                  overload_rate_rps=round(1.5 * capacity_ips, 3), backend=backend, template=template,
+                                  capacity=sweep, adapter_batch=TIER_LANES)
+    off, on = degrade["off"], degrade["on"]
+    log(f"[serve-tier] degrade at {degrade['overload_rate_rps']} req/s (images checked so far {checked['images']}): OFF completed {off['completed']}/"
+        f"{off['arrivals']} goodput {off['goodput_rps']} p99_open {off['p99_open_s']} not_resident "
+        f"{off['not_resident_refusals']} errors {off['errors']}; ON completed {on['completed']}/{on['arrivals']} "
+        f"goodput {on['goodput_rps']} p99 {on['p99_s']} p99_open {on['p99_open_s']} shed {on['shed_by_reason']} "
+        f"(client-expired {on['client_expired']}) not_resident {on['not_resident_refusals']} lease-blocked "
+        f"{on['lease_blocked_evictions']}; retention ON {degrade['goodput_retention']}, OFF "
+        f"{degrade['off_goodput_retention']}")
+    if on["not_resident_refusals"] != 0:
+        raise AssertionError(f"not_resident {on['not_resident_refusals']} with the overload layer on")
+
+    # the pipeline mode behind an engine, sharing the flagship modules
+    pipe = backend.with_mode("pipeline", PIPELINE_STEPS)
+    peng = ServeEngine(pipe, ServeConfig(adapter_batch=2, images_per_request=1, member_batch=1, device="cuda"))
+    aid, prompt_ids, seed, theta = one_step_request
+    peng.put_adapter(aid, theta)
+    peng.warmup()
+    sites = [mod for mod in backend.model.modules() if hasattr(mod, "q8")]
+    vae_sites = [mod for mod in backend.vae.modules() if hasattr(mod, "q8")]
+    expected = {"int8_matmul": (len(sites) * PIPELINE_STEPS + len(vae_sites)) * 2, "lora_chain": 0,
+                "fused_qlora": 0, "decode_attention": 0}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        peng.submit(aid, prompt_ids, seed)
+        (res,) = peng.flush()
+        torch.cuda.synchronize()
+    kernels, busy, n_kernels, _ = device_kernels(torch, prof)
+    pipe_launches = profiled_launches(kernels)
+    pipe_diff = float(np.abs(res.images - one_step_image).max())
+    lo, hi = float(res.images.min()), float(res.images.max())
+    log(f"[serve-tier] pipeline engine ({PIPELINE_STEPS} DiT passes, 2 lanes): a profiled flush launched "
+        f"{pipe_launches} on the device (expected {expected}), busy {busy:.1f} ms over {n_kernels} kernels; its image "
+        f"differs from the one-step image of the same request by {pipe_diff:.4g} (max abs), in [{lo:.4g}, {hi:.4g}]")
+    if pipe_launches != expected or not res.ok or not pipe_diff > 0 or not (lo >= 0.0 and hi <= 1.0):
+        raise AssertionError(f"pipeline serving: launches {pipe_launches} (expected {expected}), ok {res.ok}, "
+                             f"diff from one-step {pipe_diff}, range [{lo}, {hi}]")
+    del peng, pipe
+    torch.cuda.empty_cache()
+    return dict(capacity_images_per_s=capacity_ips, admission=rec, replay_peak_bytes=replay_peak,
+                estimate_over_measured=est / meas, estimate_over_replay_peak=est / replay_peak,
+                refusal=refusal, refusal_budget_bytes=budget, refused_launches=refused_launches,
+                sweep={k: sweep[k] for k in ("rates", "steps", "knee", "capacity_rps", "goodput_rps", "headline",
+                                             "store", "adapter_hotness")},
+                metrics_series=len(parsed), served=served, images_checked=checked["images"],
+                dispatch_s_mean=statistics.mean(disp), dispatches=len(disp), mean_occupancy=occupancy,
+                degrade={k: degrade[k] for k in ("overload_rate_rps", "off", "on", "on_overload",
+                                                 "goodput_retention", "off_goodput_retention")},
+                solo_vs_batched_max_abs=solo_diff, pipeline=dict(launches_profiled=pipe_launches, expected=expected,
+                                                                 busy_ms=busy, vs_one_step_max_abs=pipe_diff),
+                warmup_s=warm_s)
+
+
+
 def kernel_summary(name, rows, launches, calls_key, replaces, scope):
     """One entry per kernel: its main-path calls per unit of its path (one
     flagship image, one VAR generate call), summed."""
@@ -2780,13 +3257,17 @@ def main() -> int:
     es_tiny = phase_es_reference(torch, "tiny", int8=True)
     es_small = phase_es_reference(torch, "small", int8=False)
     train_tiny = phase_train_reference(torch)
+    pipeline_tiny = phase_pipeline_reference(torch)
     var_tiny = phase_var_reference(torch)
     inf_tiny = phase_inf_reference(torch)
     es_float = phase_es_flagship(torch, base_quant="off")
-    serve = phase_serve(torch)
+    serve, serve_backend = phase_serve(torch, keep=True)
+    tier = phase_serve_tier(torch, serve_backend, serve)
+    del serve_backend
     var_es = phase_var_es(torch)
     inf_es = phase_inf_es(torch)
     es, flagship = phase_es_flagship(torch, keep=True)
+    pipeline_es = phase_pipeline_es(torch, *flagship, es)
     train = phase_train_flagship(torch, *flagship, es)
     chained = phase_train_chained(torch, *flagship)
     tax = phase_dispatch_tax(torch, *flagship)
@@ -2834,6 +3315,9 @@ def main() -> int:
             "serve_graph_profiled_flush": serve["launches_profiled"][name],
             "serve_eager": serve["eager"]["launches"][name],
             "train_flagship_warmups": train_launches(name), "train_chained_warmups": chained_launches(name),
+            "pipeline_es_graph_profiled_epoch": pipeline_es["launches_profiled"][name],
+            "pipeline_es_warmup": pipeline_es["launches_counted"][name],
+            "serve_pipeline_graph_profiled_flush": tier["pipeline"]["launches_profiled"][name],
         }
     kernels[3]["infinity"] = {k: k4_inf[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                                      "device_ms", "max_abs_err", "scope")}
@@ -2867,7 +3351,8 @@ def main() -> int:
         k1_shapes=k1_rows, chain_shapes=chain_rows, k4_shapes=k4_rows, k4_cases=k4_extra, k4_infinity_shapes=k4_inf_rows,
         small_reference_max_abs=small_err, es_tiny=es_tiny, es_small=es_small, var_tiny=var_tiny, inf_tiny=inf_tiny,
         es_flagship_float=es_float, serve=serve, var_es=var_es, inf_es=inf_es, es_flagship=es, train_tiny=train_tiny,
-        threefry=threefry_rows, train_chained=chained, dispatch_tax=tax,
+        threefry=threefry_rows, train_chained=chained, dispatch_tax=tax, pipeline_tiny=pipeline_tiny,
+        pipeline_es=pipeline_es, serve_tier=tier,
         train_flagship=train, kernels=kernels, k1_serving=k1_serve, k4_infinity=k4_inf,
         wall_s=wall_s,
     ), indent=1))

@@ -1,11 +1,16 @@
-"""Sana one-step backend: prompt catalog, frozen DiT + DC-AE, adapter batches.
+"""Sana backend: prompt catalog, frozen DiT + DC-AE, adapter batches, in
+one-step and multi-step (``pipeline``) mode.
 
-Port of ``hyperscalees_t2i_tpu/backends/sana_backend.py`` (one-step mode).
-Every draw is the JAX package's (``utils.threefry`` keys): the frozen
-weights from ``PRNGKey(seed_params)``, each prompt's embedding from
-``fold_in(PRNGKey(1234), stable_text_seed(prompt))``, image ``i``'s latent
-noise from ``fold_in(key, i)``. Loading an encoded-prompt cache is not
-ported yet.
+Port of ``hyperscalees_t2i_tpu/backends/sana_backend.py``. Every draw is
+the JAX package's (``utils.threefry`` keys): the frozen weights from
+``PRNGKey(seed_params)``, each prompt's embedding from
+``fold_in(PRNGKey(1234), stable_text_seed(prompt))`` unless an
+encoded-prompt cache is given (``encoded_prompt_path``: the reference's
+``.pt`` or the ``.npz`` form, ``utils.prompt_cache.load_cache``), image
+``i``'s latent noise from ``fold_in(key, i)`` (one-step) or from the
+pipeline's key tree (``models.sana.pipeline_noise``). The mode is static
+config: :meth:`SanaBackend.with_mode` gives a backend in another mode that
+shares this one's modules.
 
 :func:`build_serve_backend` builds the serving backend;
 :func:`build_train_backend` the backend and the reward suite of one ES rung,
@@ -14,6 +19,7 @@ in the order the JAX package's ``bench.py`` builds them.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -35,9 +41,15 @@ PROMPT_EMBED_SEED = 1234
 
 @dataclasses.dataclass
 class SanaBackendConfig:
+    """``backend_mode``: ``"one_step"`` or ``"pipeline"`` (multi-step, with
+    ``num_inference_steps`` DiT passes an image)."""
+
+    backend_mode: str = "one_step"
     model: sana.SanaConfig = dataclasses.field(default_factory=sana.SanaConfig)
     vae: dcae.DCAEConfig = dataclasses.field(default_factory=dcae.DCAEConfig)
+    encoded_prompt_path: Optional[str] = None
     guidance_scale: float = 1.0
+    num_inference_steps: int = 2
     width_latent: int = 32
     height_latent: int = 32
     lora_r: int = 8
@@ -65,9 +77,10 @@ class SanaBackend:
         vae_params: Optional[Params] = None,
         prompts: Optional[Sequence[str]] = None,
     ):
+        if cfg.backend_mode not in ("one_step", "pipeline"):
+            raise ValueError(f"backend_mode must be 'one_step' or 'pipeline', got {cfg.backend_mode!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.name = "sana_one_step"
         self._params = params
         self._vae_params = vae_params
         self.prompts: List[str] = list(prompts) if prompts else []
@@ -98,7 +111,37 @@ class SanaBackend:
             self.vae = dcae.DCAEDecoder(self.cfg.vae, vp).to(self.device)
             self._vae_params = None
         if self.prompt_embeds is None:
-            self._synthesize_prompts()
+            if self.cfg.encoded_prompt_path:
+                self._load_prompt_cache(self.cfg.encoded_prompt_path)
+            else:
+                self._synthesize_prompts()
+
+    @property
+    def name(self) -> str:
+        return f"sana_{self.cfg.backend_mode}"
+
+    def with_mode(self, backend_mode: str, num_inference_steps: Optional[int] = None) -> "SanaBackend":
+        """This backend in another mode: a shallow copy sharing every module
+        and table, only the static config differs (as the JAX engine makes
+        a guidance variant)."""
+        if backend_mode not in ("one_step", "pipeline"):
+            raise ValueError(f"backend_mode must be 'one_step' or 'pipeline', got {backend_mode!r}")
+        other = copy.copy(self)
+        steps = self.cfg.num_inference_steps if num_inference_steps is None else int(num_inference_steps)
+        other.cfg = dataclasses.replace(self.cfg, backend_mode=backend_mode, num_inference_steps=steps)
+        return other
+
+    def _load_prompt_cache(self, path: str) -> None:
+        """The catalog from an encoded-prompt cache: its prompts, embeddings
+        ``[P, L, caption_dim]`` and mask; ``prompt_cache_sha`` is the file's
+        sha256."""
+        from ..utils.prompt_cache import load_cache
+
+        data = load_cache(path, "sana")
+        self.prompt_cache_sha = data["content_sha256"]
+        self.prompts = [str(p) for p in data["prompts"]]
+        self.prompt_embeds = torch.as_tensor(data["prompt_embeds"], dtype=torch.float32).to(self.device)
+        self.prompt_mask = torch.as_tensor(data["prompt_attention_mask"]).to(torch.bool).to(self.device)
 
     def _synthesize_prompts(self) -> None:
         """Deterministic placeholder embeddings, prompt ``p`` drawn from
@@ -137,13 +180,24 @@ class SanaBackend:
         return default_step_info(seed, self.num_items, num_unique, repeats, self.prompts)
 
     @property
-    def noise_shape(self) -> Tuple[int, int, int]:
+    def latent_shape(self) -> Tuple[int, int, int]:
         return (self.cfg.height_latent, self.cfg.width_latent, self.cfg.model.in_channels)
 
+    @property
+    def noise_shape(self) -> Tuple[int, ...]:
+        """One image's draw: its latents ``[h, w, C]`` (one-step), or every
+        draw of the pipeline ``[num_inference_steps + 1, h, w, C]``."""
+        if self.cfg.backend_mode == "pipeline":
+            return (self.cfg.num_inference_steps + 1, *self.latent_shape)
+        return self.latent_shape
+
     def sample_gen_noise(self, key: torch.Tensor, item_index: Sequence[int]) -> torch.Tensor:
-        """Latent noise ``[len(item_index), h, w, C]`` on the key's device,
-        image ``i`` from ``fold_in(key, item_index[i])``."""
-        return sana.per_image_normal(key, item_index, self.noise_shape)
+        """Generation noise ``[..., len(item_index), *noise_shape]`` on the
+        key's device: image ``i`` from ``fold_in(key, item_index[i])``
+        (one-step), or the pipeline's draws (``sana.pipeline_noise``)."""
+        if self.cfg.backend_mode == "pipeline":
+            return sana.pipeline_noise(key, item_index, self.cfg.num_inference_steps, self.latent_shape)
+        return sana.per_image_normal(key, item_index, self.latent_shape)
 
     def generate_p(
         self,
@@ -155,10 +209,10 @@ class SanaBackend:
     ) -> torch.Tensor:
         """``[n, b]`` prompt indices with ``n`` lane-stacked adapters and ``n``
         keys ``[n, 2]`` → images ``[n, b, H, W, 3]``. Image ``j`` of lane ``i``
-        draws its noise from ``fold_in(keys[i], j)``; ``noise [n, b, h, w,
-        C]`` replaces the draw (ES training shares one epoch noise across
-        members). The lanes' adapter may also be one ES member chunk:
-        ``lora.FactoredDelta`` leaves, laned or not."""
+        draws its noise from ``keys[i]`` and ``j`` (:meth:`sample_gen_noise`);
+        ``noise [n, b, *noise_shape]`` replaces the draw (ES training shares
+        one epoch noise across members). The lanes' adapter may also be one
+        ES member chunk: ``lora.FactoredDelta`` leaves, laned or not."""
         cfg = self.cfg
         ids = torch.as_tensor(flat_ids, dtype=torch.long, device=self.device)
         n, b = ids.shape
@@ -168,11 +222,18 @@ class SanaBackend:
             noise = self.sample_gen_noise(lane_keys(keys, n, self.device), range(b))
         noise = noise.reshape(n * b, *shape)
         flat = ids.reshape(-1)
-        latents = sana.one_step_generate(
-            self.model, self.prompt_embeds[flat], self.prompt_mask[flat],
-            guidance_scale=cfg.guidance_scale if guidance_scale is None else guidance_scale,
-            latent_hw=hw, lora=stacked_theta, lora_scale=self.lora_scale, noise=noise,
-        )
+        g = cfg.guidance_scale if guidance_scale is None else guidance_scale
+        if cfg.backend_mode == "pipeline":
+            latents = sana.multistep_generate(
+                self.model, self.prompt_embeds[flat], self.prompt_mask[flat], guidance_scale=g,
+                num_steps=cfg.num_inference_steps, latent_hw=hw, lora=stacked_theta, lora_scale=self.lora_scale,
+                noise=noise,
+            )
+        else:
+            latents = sana.one_step_generate(
+                self.model, self.prompt_embeds[flat], self.prompt_mask[flat], guidance_scale=g,
+                latent_hw=hw, lora=stacked_theta, lora_scale=self.lora_scale, noise=noise,
+            )
         images = dcae.decode(self.vae, latents / cfg.vae.scaling_factor)
         return images.reshape(n, b, *images.shape[1:])
 

@@ -1,9 +1,12 @@
-"""DC-AE deep-compression latent decoder (port of
-``hyperscalees_t2i_tpu/models/dcae.py``, decoder only).
+"""DC-AE deep-compression autoencoder (port of
+``hyperscalees_t2i_tpu/models/dcae.py``).
 
-Conv stem, per-stage residual conv blocks or ReLU-linear-attention (LiteMLA)
-blocks in the deepest stages, 2× depth-to-space upsampling with
-channel-repeating shortcuts, RMS norm and a conv head; NHWC throughout.
+Decoder: conv stem, per-stage residual conv blocks or ReLU-linear-attention
+(LiteMLA) blocks in the deepest stages, 2× depth-to-space upsampling with
+channel-repeating shortcuts, RMS norm and a conv head. Encoder (on no hot
+path; it completes the autoencoder): the mirror image, RGB → latents, with
+stride-2 convs down and residual blocks. NHWC throughout; an int8 conv node
+runs through the same ``nn.Conv`` either way.
 """
 
 from __future__ import annotations
@@ -152,3 +155,66 @@ class DCAEDecoder(tnn.Module):
 def decode(model: DCAEDecoder, latents: torch.Tensor) -> torch.Tensor:
     """Functional spelling of ``model(latents)`` (the JAX package's name)."""
     return model(latents)
+
+
+def init_encoder(cfg: DCAEConfig, key: torch.Tensor) -> Params:
+    """Random f32 encoder parameters in the JAX package's tree layout, drawn
+    from its key tree (``init_encoder(key, cfg)``): stage widths are the
+    decoder's reversed; stage ``i`` has ``blocks_per_stage[i]`` residual
+    blocks."""
+    chs = tuple(reversed(cfg.channels))
+    ki = iter(threefry.split(key, 3 + len(chs) * (1 + max(cfg.blocks_per_stage))))
+    params: Params = {"conv_in": nn.conv_init(next(ki), 3, 3, 3, chs[0])}
+    stages = []
+    for si, ch in enumerate(chs):
+        stage: Params = {}
+        if si > 0:
+            stage["down"] = nn.conv_init(next(ki), 3, 3, chs[si - 1], ch)
+        blocks = []
+        for _ in range(cfg.blocks_per_stage[si]):
+            k1, k2 = threefry.split(next(ki))
+            blocks.append({"res": {"conv1": nn.conv_init(k1, 3, 3, ch, ch), "conv2": nn.conv_init(k2, 3, 3, ch, ch)}})
+        stage["blocks"] = blocks
+        stages.append(stage)
+    params["stages"] = stages
+    params["conv_out"] = nn.conv_init(next(ki), 3, 3, chs[-1], cfg.latent_channels)
+    return params
+
+
+class EncoderStage(tnn.Module):
+    """Optional stride-2 conv down, then the stage's residual blocks."""
+
+    def __init__(self, p: Params):
+        super().__init__()
+        self.down = nn.Conv(p["down"], stride=2) if "down" in p else None
+        self.blocks = tnn.ModuleList(ResBlock(b["res"]) for b in p["blocks"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.down is not None:
+            x = self.down(x)
+        for block in self.blocks:
+            x = block(x)
+        return x
+
+
+class DCAEEncoder(tnn.Module):
+    def __init__(self, cfg: DCAEConfig, params: Params):
+        super().__init__()
+        self.cfg = cfg
+        self.conv_in = nn.Conv(params["conv_in"])
+        self.stages = tnn.ModuleList(EncoderStage(s) for s in params["stages"])
+        self.conv_out = nn.Conv(params["conv_out"])
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """RGB ``[B, H, W, 3]`` in [0, 1] → latents ``[B, H/f, W/f, C_lat]``
+        f32 (multiply by ``scaling_factor`` for the model's scale)."""
+        x = (images.to(self.cfg.compute_dtype) - 0.5) * 2.0
+        x = self.conv_in(x)
+        for stage in self.stages:
+            x = stage(x)
+        return self.conv_out(x).to(torch.float32)
+
+
+def encode(model: DCAEEncoder, images: torch.Tensor) -> torch.Tensor:
+    """Functional spelling of ``model(images)`` (the JAX package's name)."""
+    return model(images)

@@ -1,4 +1,5 @@
-"""Sana-Sprint text-conditional DiT and the one-step TrigFlow/SCM sampler.
+"""Sana-Sprint text-conditional DiT and its TrigFlow/SCM samplers (one step,
+and the multi-step pipeline mode).
 
 Port of ``hyperscalees_t2i_tpu/models/sana.py``: linear-attention DiT over
 DC-AE latents with AdaLN-single time conditioning, guidance embedding, cross
@@ -12,12 +13,13 @@ is kept for parity and does nothing.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn as tnn
 
+from ..device import constant
 from ..lora import LoRASpec, lookup, slice_layer
 from ..utils import threefry
 from ..utils.pytree import tree_map
@@ -293,3 +295,87 @@ def one_step_generate(
     noise_pred = noise_pred * sd
     pred_x0 = alpha_t * latents - sigma_t * noise_pred
     return pred_x0 / sd
+
+
+def pipeline_timesteps(num_steps: int, max_timestep: float = 1.57080) -> List[float]:
+    """``jnp.linspace(max_timestep, 0, num_steps + 1)`` in f32, computed as
+    XLA computes it: ``start·(1 − s) + stop·s`` with ``s = i·f32(1/div)``
+    (XLA turns the division by the constant ``div`` into a multiplication
+    by its reciprocal) for ``i < div``, then ``stop``. ``torch.linspace``
+    rounds differently. Python floats holding the f32 values."""
+    start = torch.tensor(max_timestep, dtype=torch.float32)
+    stop = torch.tensor(0.0, dtype=torch.float32)
+    div = int(num_steps)
+    if div < 1:
+        raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+    step = torch.arange(div, dtype=torch.float32) * (1 / torch.tensor(float(div), dtype=torch.float32))
+    out = start * (1 - step) + stop * step
+    return [float(v) for v in torch.cat([out, stop[None]])]
+
+
+def pipeline_noise(key: torch.Tensor, item_index: Sequence[int], num_steps: int,
+                   shape: Tuple[int, ...]) -> torch.Tensor:
+    """The pipeline's draws ``[..., len(item_index), num_steps + 1, *shape]``:
+    draw ``s`` of image ``i`` is ``normal(fold_in(n_s, item_index[i]))``
+    where ``key, n_0 = split(key)`` and each step ``key, n_s = split(key)``
+    (the JAX ``multistep_generate``'s key tree); draw 0 is the starting
+    latents, draw ``s ≥ 1`` the re-noise of step ``s``."""
+    draws = []
+    for _ in range(num_steps + 1):
+        pair = threefry.split(key)
+        key, nkey = pair[..., 0, :], pair[..., 1, :]
+        draws.append(per_image_normal(nkey, item_index, shape))
+    return torch.stack(draws, dim=-1 - len(shape))
+
+
+def multistep_generate(
+    model: SanaTransformer,
+    prompt_embeds: torch.Tensor,
+    prompt_mask: Optional[torch.Tensor],
+    key: Optional[torch.Tensor] = None,
+    guidance_scale: float = 4.5,
+    num_steps: int = 2,
+    max_timestep: float = 1.57080,
+    latent_hw: Tuple[int, int] = (32, 32),
+    lora: Optional[Params] = None,
+    lora_scale: float = 1.0,
+    noise: Optional[torch.Tensor] = None,
+    item_index: Optional[Sequence[int]] = None,
+) -> torch.Tensor:
+    """Multi-step TrigFlow consistency sampling (the JAX package's pipeline
+    mode) → latents divided by σ_d. At each of the ``num_steps`` timesteps
+    (:func:`pipeline_timesteps`, ``max_timestep`` down to 0) the ε-prediction
+    (NaN/inf zeroed) becomes the TrigFlow prediction F, x0 = cos(t)·x −
+    sin(t)·F, and x is re-noised to the next timestep with fresh noise;
+    cos and sin of a timestep are f32. ``noise [B, num_steps + 1, h, w, C]``
+    is every draw (:func:`pipeline_noise` of ``key`` over ``item_index``,
+    default ``range(B)``, when not given), so an ES epoch shares one draw
+    across its members."""
+    B = prompt_embeds.shape[0]
+    h, w = latent_hw
+    cfg = model.cfg
+    sd = cfg.sigma_data
+    dev = prompt_embeds.device
+    if noise is None:
+        if key is None:
+            raise ValueError("multistep_generate needs a key or explicit noise")
+        noise = pipeline_noise(key, range(B) if item_index is None else item_index, num_steps,
+                               (h, w, cfg.in_channels))
+    noise = noise.to(dev, torch.float32)
+    if tuple(noise.shape[:2]) != (B, num_steps + 1):
+        raise ValueError(f"pipeline noise {tuple(noise.shape)} is not [{B}, {num_steps + 1}, ...]")
+    ts = constant(pipeline_timesteps(num_steps, max_timestep), torch.float32, dev)
+    cos_ts, sin_ts = torch.cos(ts), torch.sin(ts)
+    guidance = torch.full((B,), guidance_scale * cfg.guidance_embeds_scale, dtype=torch.float32, device=dev)
+    x = noise[:, 0] * sd
+    for i in range(num_steps):
+        t = ts[i].expand(B)
+        scm_t = torch.sin(t) / (torch.cos(t) + torch.sin(t))
+        s = scm_t[:, None, None, None]
+        eps = model(x / sd, scm_t, prompt_embeds, prompt_mask, guidance, lora, lora_scale)
+        eps = torch.nan_to_num(eps, nan=0.0, posinf=0.0, neginf=0.0)
+        f = ((1 - 2 * s) * (x / sd) + (1 - 2 * s + 2 * s**2) * eps) / torch.sqrt(s**2 + (1 - s) ** 2)
+        f = f * sd
+        x0 = cos_ts[i] * x - sin_ts[i] * f
+        x = cos_ts[i + 1] * x0 + sin_ts[i + 1] * (noise[:, i + 1] * sd)
+    return x / sd

@@ -1,10 +1,14 @@
 """Counters, gauges and streaming histograms merged into ``metrics.jsonl``
-rows (port of the parts of ``hyperscalees_t2i_tpu/obs/metrics.py`` the
-training loop uses).
+rows and rendered on ``/metrics`` (port of
+``hyperscalees_t2i_tpu/obs/metrics.py``).
 
 ``run_training`` makes one :class:`MetricsRegistry` per run under the
 ``obs/`` prefix and one under ``resilience/``, and passes them to what
-ticks them; there is no process-global registry. Stdlib only, apart from
+ticks them; a ``ServeEngine`` keeps its own (``engine.registry``).
+:func:`get_registry`/:func:`set_registry` hold the process-global one, as
+in the JAX package, for callers without a handle. :meth:`MetricsRegistry.
+export` is the typed view the exporter renders and :meth:`MetricsRegistry.
+value` the cheap read the SLO evaluator polls. Stdlib only, apart from
 :func:`record_device_memory`.
 """
 
@@ -12,7 +16,7 @@ from __future__ import annotations
 
 import bisect
 import threading
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 # log-spaced latency buckets (seconds), 1 ms → ~131 s, factor 2: the JAX
 # package's layout, so histograms from both packages merge bucket for bucket
@@ -51,6 +55,17 @@ class Histogram:
         return {"hist": "le", "le": list(self.bounds), "buckets": self.cumulative(),
                 "sum": self.sum, "count": self.count}
 
+    def quantile(self, q: float) -> float:
+        from ..utils.stats import histogram_quantile
+
+        return histogram_quantile(self.bounds, self.cumulative(), q)
+
+
+def is_histogram_payload(v: Any) -> bool:
+    """True for a :meth:`Histogram.to_dict` value (readers must not take it
+    for a scalar)."""
+    return isinstance(v, dict) and v.get("hist") == "le" and "buckets" in v
+
 
 class MetricsRegistry:
     """Thread-safe named counters, gauges and histograms; :meth:`snapshot`
@@ -77,6 +92,15 @@ class MetricsRegistry:
             if cur is None or value > cur:
                 self._gauges[name] = value
 
+    def histogram(self, name: str, bounds: Sequence[float] = DEFAULT_BUCKETS) -> Histogram:
+        """The named histogram, made on first use (``bounds`` applies only
+        then)."""
+        with self._lock:
+            h = self._histograms.get(name)
+            if h is None:
+                h = self._histograms[name] = Histogram(bounds)
+            return h
+
     def observe(self, name: str, value: float) -> None:
         with self._lock:
             h = self._histograms.get(name)
@@ -84,12 +108,46 @@ class MetricsRegistry:
                 h = self._histograms[name] = Histogram()
             h.observe(value)
 
+    def value(self, name: str, default: Any = 0.0) -> Any:
+        """A counter's or gauge's value by its bare name (counters first;
+        ``default`` when neither exists)."""
+        with self._lock:
+            if name in self._counters:
+                return self._counters[name]
+            return self._gauges.get(name, default)
+
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:
             out = {f"{self.prefix}{k}": v for k, v in self._counters.items()}
             out.update({f"{self.prefix}{k}": v for k, v in self._gauges.items() if v is not None})
             out.update({f"{self.prefix}{k}": h.to_dict() for k, h in self._histograms.items() if h.count})
         return out
+
+    def export(self) -> Dict[str, Dict[str, Any]]:
+        """The exporter's typed view: counters and gauges under their
+        prefixed names, histograms under their bare names (``serve_request_
+        latency_seconds``)."""
+        with self._lock:
+            return {
+                "counters": {f"{self.prefix}{k}": v for k, v in self._counters.items()},
+                "gauges": {f"{self.prefix}{k}": v for k, v in self._gauges.items() if v is not None},
+                "histograms": {k: h.to_dict() for k, h in self._histograms.items()},
+            }
+
+
+_REGISTRY = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-global registry (prefix ``obs/``)."""
+    return _REGISTRY
+
+
+def set_registry(registry: Optional[MetricsRegistry]) -> MetricsRegistry:
+    """Install the process-global registry (``None``: a fresh one); returns it."""
+    global _REGISTRY
+    _REGISTRY = registry if registry is not None else MetricsRegistry()
+    return _REGISTRY
 
 
 def record_device_memory(registry: MetricsRegistry, device: Any) -> None:

@@ -4,8 +4,10 @@
 ``Tracer(path)`` appends one JSON line per completed span (children before
 their parent), timed with the monotonic clock; ``Tracer(None)`` writes
 nothing. ``on_span(name, dur_s)``, when given, sees every completed span
-whether or not a file is written: the loop's phase histograms read it. The
-file's lines are the JAX package's, so its trace readers take them.
+whether or not a file is written: the loop's phase histograms read it.
+:meth:`Tracer.event` writes a span whose start and end were stamped in
+different frames (a served request's submit → complete). The file's lines
+are the JAX package's, so its trace readers take them.
 """
 
 from __future__ import annotations
@@ -75,6 +77,20 @@ class Tracer:
                 if attrs:
                     ev["attrs"] = attrs
                 self._write(ev)
+
+
+    def event(self, name: str, t0_monotonic: float, t1_monotonic: float, parent: Optional[str] = None,
+              **attrs: Any) -> None:
+        """A completed span from two ``time.perf_counter()`` stamps, written
+        as a ``span`` line is."""
+        if not self.enabled:
+            return
+        ev = {"name": name, "t0_s": round(t0_monotonic - self._mono0, 6),
+              "dur_s": round(max(t1_monotonic - t0_monotonic, 0.0), 6), "depth": 0, "parent": parent,
+              "pid": os.getpid(), "tid": threading.get_ident(), "process_index": 0}
+        if attrs:
+            ev["attrs"] = attrs
+        self._write(ev)
 
 
 def load_events(path: Union[str, Path]) -> List[Dict[str, Any]]:

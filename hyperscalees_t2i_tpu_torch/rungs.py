@@ -20,6 +20,20 @@ SERVE_PLAN = {
     "flagship": {"adapter_batch": 2, "images_per_request": 1, "member_batch": 1},
 }
 
+# open-loop capacity sweep per serving rung (tools/loadgen.py): the offered
+# rate ladder (req/s), window, Zipf exponent, tenant population, store budget
+# in adapters and the open-loop p99 SLO defining capacity (the JAX package's)
+CAPACITY_PLAN = {
+    "tiny": {"rates": [4.0, 16.0, 64.0, 128.0, 256.0, 512.0], "window_s": 4.0,
+             "zipf_s": 1.1, "population": 64, "store_adapters": 24, "slo_p99_s": 2.0},
+    "small": {"rates": [1.0, 2.0, 4.0, 8.0, 16.0], "window_s": 10.0,
+              "zipf_s": 1.1, "population": 1000, "store_adapters": 128, "slo_p99_s": 5.0},
+    "mid": {"rates": [0.5, 1.0, 2.0, 4.0, 8.0], "window_s": 20.0,
+            "zipf_s": 1.1, "population": 10000, "store_adapters": 64, "slo_p99_s": 10.0},
+    "flagship": {"rates": [0.25, 0.5, 1.0, 2.0], "window_s": 30.0,
+                 "zipf_s": 1.1, "population": 100000, "store_adapters": 32, "slo_p99_s": 20.0},
+}
+
 # ES plan per rung: (scale, population, prompts per epoch, member_batch)
 RUNG_PLAN = {
     "tiny": ("tiny", 4, 4, 1),

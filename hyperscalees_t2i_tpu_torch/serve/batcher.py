@@ -1,10 +1,13 @@
 """Continuous batching: a bounded FIFO queue and geometry-keyed coalescing
-(port of ``hyperscalees_t2i_tpu/serve/batcher.py`` without the overload
-fields).
+(port of ``hyperscalees_t2i_tpu/serve/batcher.py``).
 
 Take the oldest pending request, then every queued request with the same
 geometry key (prompt count + guidance) in arrival order until the adapter
 axis is full; requests with another key keep their place for a later batch.
+A request carries the overload layer's fields (deadline, priority,
+degraded, finalized); :meth:`RequestQueue.prune` and
+:meth:`RequestQueue.drain` let the engine shed doomed requests and abandon
+the backlog, and own the accounting.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ _ids = itertools.count()
 
 
 class QueueFullError(RuntimeError):
-    """Backpressure refusal: the queue is at ``max_depth``."""
+    """Backpressure refusal: the queue is at ``max_depth``. Its own type, so
+    the engine and the load harness count rejections apart from other
+    submit refusals."""
 
 
 @dataclasses.dataclass
@@ -35,6 +40,19 @@ class ServeRequest:
     guidance: Optional[float] = None
     request_id: int = dataclasses.field(default_factory=lambda: next(_ids))
     t_submit: float = dataclasses.field(default_factory=time.perf_counter)
+    # when the request left the queue: queue wait = t_dequeue - t_submit
+    t_dequeue: float = 0.0
+    # queue depth at submit (requests ahead of this one)
+    queue_position: int = 0
+    # overload layer (inert when it is off): an absolute deadline on the
+    # t_submit clock (None waits forever); priorities below
+    # OverloadConfig.shed_below_priority are shed first under brownout;
+    # degraded once the ladder truncated the request; finalized once its
+    # terminal accounting ran (exactly once)
+    t_deadline: Optional[float] = None
+    priority: int = 1
+    degraded: bool = False
+    finalized: bool = False
 
     @property
     def geometry_key(self) -> Tuple[int, Optional[float]]:
@@ -44,7 +62,9 @@ class ServeRequest:
 @dataclasses.dataclass
 class ServeResult:
     """One finished request. ``error`` is set (and ``images`` is None) when
-    the request alone was refused, e.g. its adapter was evicted."""
+    the request alone was refused, e.g. its adapter was evicted, or shed
+    (``shed_reason``: ``deadline``, ``doomed``, ``brownout_priority`` or
+    ``breaker_open``). ``degraded``: the brownout ladder truncated it."""
 
     request: ServeRequest
     images: Optional[np.ndarray]  # [B, H, W, C]
@@ -53,6 +73,8 @@ class ServeResult:
     batch_occupancy: float  # batch_size / adapter_batch
     adapter_version: str = ""
     error: Optional[str] = None
+    degraded: bool = False
+    shed_reason: Optional[str] = None
 
     @property
     def ok(self) -> bool:
@@ -78,8 +100,28 @@ class RequestQueue:
             raise QueueFullError(
                 f"serve queue full ({len(self._q)} >= max_depth={self.max_depth}) — backpressure"
             )
+        req.queue_position = len(self._q)
         self._q.append(req)
         return req
+
+    def drain(self) -> List[ServeRequest]:
+        """Remove and return every queued request."""
+        out = list(self._q)
+        self._q.clear()
+        return out
+
+    def prune(self, predicate) -> List[ServeRequest]:
+        """Remove and return every queued request for which
+        ``predicate(req)`` is true; the others keep their order."""
+        if not self._q:
+            return []
+        shed: List[ServeRequest] = []
+        keep: Deque[ServeRequest] = deque()
+        for req in self._q:
+            (shed if predicate(req) else keep).append(req)
+        if shed:
+            self._q = keep
+        return shed
 
     def take_batch(self, max_n: int) -> List[ServeRequest]:
         """Up to ``max_n`` requests sharing the oldest request's geometry key,
@@ -89,9 +131,11 @@ class RequestQueue:
         key = self._q[0].geometry_key
         batch: List[ServeRequest] = []
         keep: Deque[ServeRequest] = deque()
+        now = time.perf_counter()
         while self._q:
             req = self._q.popleft()
             if len(batch) < max_n and req.geometry_key == key:
+                req.t_dequeue = now
                 batch.append(req)
             else:
                 keep.append(req)

@@ -1,8 +1,10 @@
 """The ES training CLI (port of ``hyperscalees_t2i_tpu/train/cli.py`` for
-the Sana one-step, VAR and Infinity backends)::
+the Sana one-step and pipeline, VAR and Infinity backends)::
 
     python -m hyperscalees_t2i_tpu_torch.train.cli --backend sana_one_step \\
         --model_scale tiny --device cpu --num_epochs 2 --run_dir runs
+    python -m hyperscalees_t2i_tpu_torch.train.cli --backend sana_pipeline \\
+        --num_inference_steps 2 --model_scale tiny --device cpu --run_dir runs
     python -m hyperscalees_t2i_tpu_torch.train.cli --backend infinity \\
         --infinity_variant 2b --pn 1M --allow_random_rewards true \\
         --pop_size 4 --prompts_per_gen 4 --prompts_txt prompts.txt
@@ -56,16 +58,17 @@ def parse_resume(v: str) -> bool:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="EGGROLL-ES trainer (PyTorch port)")
-    p.add_argument("--backend", required=True, choices=["sana_one_step", "var", "infinity"])
+    p.add_argument("--backend", required=True, choices=["sana_one_step", "sana_pipeline", "var", "infinity"])
     p.add_argument("--model_scale", default="full", choices=["tiny", "small", "full"])
     p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     p.add_argument("--prompts_txt", default=None)
-    p.add_argument("--encoded_prompts", default=None, help="encoded-prompt cache, .pt or .npz (infinity)")
+    p.add_argument("--encoded_prompts", default=None, help="encoded-prompt cache, .pt or .npz (sana, infinity)")
     p.add_argument("--labels_path", default=None, help="ImageNet class names (var)")
     p.add_argument("--var_classes", default=None, help="comma class pool, or 'all' (var)")
     p.add_argument("--lora_r", type=int, default=8)
     p.add_argument("--lora_alpha", type=float, default=16.0)
     p.add_argument("--guidance_scale", type=float, default=None)
+    p.add_argument("--num_inference_steps", type=int, default=None, help="DiT passes an image (sana_pipeline)")
     p.add_argument("--latent_size", type=int, default=None, help="latent grid (per side)")
     p.add_argument("--cfg_list", default=None, help="per-scale guidance, comma list (infinity)")
     p.add_argument("--tau_list", default=None, help="per-scale temperature, comma list (infinity)")
@@ -155,7 +158,7 @@ def build_backend(args, device: torch.device):
         raise NotImplementedError("--weights/--vae_weights: the checkpoint converters are not ported yet "
                                   "(ROADMAP queue A item 10)")
     f32 = torch.float32
-    if args.backend == "sana_one_step":
+    if args.backend in ("sana_one_step", "sana_pipeline"):
         from ..backends.sana_backend import SanaBackend, SanaBackendConfig
         from ..models import dcae, sana
 
@@ -167,8 +170,10 @@ def build_backend(args, device: torch.device):
                            compute_dtype=f32))
         lat = args.latent_size or (32 if args.model_scale == "full" else 8)
         cfg = SanaBackendConfig(
-            model=sana.SanaConfig(**mkw), vae=dcae.DCAEConfig(**vkw),
+            backend_mode="one_step" if args.backend == "sana_one_step" else "pipeline",
+            model=sana.SanaConfig(**mkw), vae=dcae.DCAEConfig(**vkw), encoded_prompt_path=args.encoded_prompts,
             guidance_scale=args.guidance_scale if args.guidance_scale is not None else 1.0,
+            num_inference_steps=args.num_inference_steps or 2,
             width_latent=lat, height_latent=lat, lora_r=args.lora_r, lora_alpha=args.lora_alpha)
         # the weights SanaBackend.setup would draw, with the base_quant knob
         kt, kv = threefry.split(threefry.prng_key(cfg.seed_params, device))

@@ -6,7 +6,7 @@ The port's ``run_training`` runs the single-process loop. The fields of
 machinery it does not have yet raise there when set away from their
 defaults (:func:`unported_settings`, naming the ROADMAP item that brings
 each). Three defaults are accepted although nothing reads them yet:
-``anomaly_detect`` (the ES-health anomaly watchdog, queue A item 5),
+``anomaly_detect`` (the ES-health anomaly watchdog, queue A item 5b),
 ``log_hist_every`` (θ/Δθ histograms, item 10) and the ``desync_*`` check
 (multi-process only, item 7). ``remat``, ``tower_dtype`` and
 ``base_quant`` are recorded for the checkpoint manifest; the backend's
@@ -104,10 +104,10 @@ class TrainConfig:
 
 # (field, is it set away from what the port runs?, the ROADMAP item that ports it)
 _UNPORTED = (
-    ("metrics_port", lambda v: v != 0, "queue A item 5 (the exporter)"),
-    ("slo", lambda v: v is not None, "queue A item 5 (SLOs)"),
-    ("heartbeat_interval_s", lambda v: v != 0, "queue A item 5 (heartbeats)"),
-    ("stall_cap_s", lambda v: v != 0, "queue A item 5 (the stall watchdog)"),
+    ("metrics_port", lambda v: v != 0, "queue A item 5b (the trainer's exporter)"),
+    ("slo", lambda v: v is not None, "queue A item 5b (the trainer's SLOs)"),
+    ("heartbeat_interval_s", lambda v: v != 0, "queue A item 5b (heartbeats)"),
+    ("stall_cap_s", lambda v: v != 0, "queue A item 5b (the stall watchdog)"),
     ("faults", lambda v: v is not None, "queue A item 7 (fault injection)"),
     ("pop_host_shard", lambda v: v == "on", "queue A item 7 (host-sharded population)"),
     ("pop_shard_update", lambda v: v == "on", "queue A item 7 (the pop-sharded update)"),

@@ -245,6 +245,12 @@ class GraphCache:
         """``{str(key): EntryStats as a dict}`` of the graphed entries."""
         return {str(k): dataclasses.asdict(e.stats) for k, e in self.entries.items() if e.graphed}
 
+    def drop(self, key: Hashable) -> None:
+        """Drop one entry (see :meth:`clear`)."""
+        del self.entries[key]
+        if self.registry is not None:
+            self.registry.gauge(self.gauge, len(self.entries))
+
     def clear(self) -> None:
         """Drop every entry (its graph, pool and buffers go with the last
         reference to its outputs)."""

@@ -1,16 +1,21 @@
 """Encoded-prompt caches: the prompt file, positive-prompt augmentation and
-the Infinity kv-compact cache (port of the Infinity part of
-``hyperscalees_t2i_tpu/utils/prompt_cache.py``; numpy and the standard
-library, plus ``torch.load`` for ``.pt`` payloads).
+the Sana and Infinity caches (port of ``hyperscalees_t2i_tpu/utils/
+prompt_cache.py``; numpy and the standard library, plus ``torch.load`` /
+``torch.save`` for ``.pt`` payloads).
 
-An Infinity cache is ``.npz`` (``prompts``, ``text_emb [P, L, D]``,
-``text_mask [P, L]``, as :func:`save_infinity_cache` writes it) or the
-reference's ``.pt`` payload ``{"prompts", "kv_compact_list": [Tensor [Li,
-D]], "lens_list"}``, padded to one table and a mask at load time.
-:func:`load_cache` stamps a payload with the file's sha256. The JAX
-package's warm memo (and its ``prompt_cache_warm_hits`` counter) is not
-kept: every call reads the file. The Sana and Z-Image cache kinds are
-ROADMAP queue A item 5.
+- A Sana cache is ``.npz`` (``prompts``, ``prompt_embeds [P, L, D]``,
+  ``prompt_attention_mask [P, L]``) or the reference's ``.pt`` payload with
+  the same keys (:func:`load_sana_cache`, :func:`save_sana_cache`).
+- An Infinity cache is ``.npz`` (``prompts``, ``text_emb [P, L, D]``,
+  ``text_mask [P, L]``, as :func:`save_infinity_cache` writes it) or the
+  reference's ``.pt`` payload ``{"prompts", "kv_compact_list": [Tensor
+  [Li, D]], "lens_list"}``, padded to one table and a mask at load time.
+
+:func:`load_cache` stamps a payload with the file's sha256 and keeps it in
+a warm memo keyed by content (backend kind, sha256, ``max_len``): a second
+load of the same bytes returns the same payload and ticks
+``prompt_cache_warm_hits`` on the process-global registry. The Z-Image
+kind is ROADMAP queue A item 9.
 """
 
 from __future__ import annotations
@@ -35,8 +40,10 @@ POSITIVE_PROMPT_SUFFIX = (
     ". very smooth faces, good looking faces, face to the camera, "
     "perfect facial features"
 )
-# backend family → cache format; only Infinity's is ported
+# backend family → cache format; Z-Image's is not ported
 _CACHE_KINDS = ("infinity", "sana", "zimage")
+# (kind, file sha256, max_len) → the loaded payload (callers must not mutate it)
+_WARM_CACHES: Dict[tuple, Dict[str, Any]] = {}
 
 
 def aug_with_positive_prompt(prompt: str) -> str:
@@ -78,6 +85,47 @@ def pad_ragged(arrs, lens=None, max_len: int = 0):
 
 def _to_np(x) -> np.ndarray:
     return np.asarray(x.float().numpy() if hasattr(x, "numpy") else x, np.float32)
+
+
+def _read_sana_cache(path: str) -> Dict[str, Any]:
+    p = Path(path)
+    if p.suffix == ".npz":
+        with np.load(p, allow_pickle=True) as z:
+            return {"prompts": list(z["prompts"]), "prompt_embeds": z["prompt_embeds"],
+                    "prompt_attention_mask": z["prompt_attention_mask"]}
+    import torch
+
+    data = torch.load(p, map_location="cpu", weights_only=True)
+    embeds, mask = data["prompt_embeds"], data["prompt_attention_mask"]
+    if hasattr(embeds, "numpy"):
+        embeds = embeds.float().numpy()
+    if hasattr(mask, "numpy"):
+        mask = mask.numpy()
+    return {"prompts": list(data["prompts"]), "prompt_embeds": np.asarray(embeds),
+            "prompt_attention_mask": np.asarray(mask)}
+
+
+def load_sana_cache(path: str) -> Dict[str, Any]:
+    """A Sana cache → ``{"prompts", "prompt_embeds", "prompt_attention_mask"}``."""
+    return call_with_retry(_read_sana_cache, (path,), site="prompt_cache")
+
+
+def save_sana_cache(path: str, prompts: Sequence[str], prompt_embeds: np.ndarray,
+                    prompt_attention_mask: np.ndarray) -> None:
+    """Write a Sana cache: ``.npz`` by suffix, else the ``.pt`` payload
+    (parent directories made)."""
+    p = Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    if p.suffix == ".npz":
+        np.savez(p, prompts=np.asarray(list(prompts), dtype=object),
+                 prompt_embeds=np.asarray(prompt_embeds, np.float32),
+                 prompt_attention_mask=np.asarray(prompt_attention_mask))
+        return
+    import torch
+
+    torch.save({"prompts": list(prompts),
+                "prompt_embeds": torch.from_numpy(np.asarray(prompt_embeds, np.float32)),
+                "prompt_attention_mask": torch.from_numpy(np.asarray(prompt_attention_mask))}, p)
 
 
 def _read_infinity_cache(path: str, max_len: int) -> Dict[str, Any]:
@@ -133,11 +181,25 @@ def file_sha256(path: str) -> str:
 def load_cache(path: str, backend: str, max_len: int = 0) -> Dict[str, Any]:
     """An encoded-prompt cache by backend family: the format's payload plus
     ``content_sha256`` (the file's digest) and ``cache_backend`` (the
-    format key). The Sana and Z-Image formats raise ``NotImplementedError``."""
+    format key), from the warm memo when the same bytes were loaded before
+    (``prompt_cache_warm_hits`` counts those). The Z-Image format raises
+    ``NotImplementedError``."""
     key = cache_backend_key(backend)
-    if key != "infinity":
-        raise NotImplementedError(f"the {key} prompt-cache format is not ported yet (ROADMAP queue A item 5)")
-    data = load_infinity_cache(path, max_len)
-    data["content_sha256"] = file_sha256(path)
+    if key == "zimage":
+        raise NotImplementedError("the zimage prompt-cache format is not ported yet (ROADMAP queue A item 9)")
+    sha = file_sha256(path)
+    memo_key = (key, sha, int(max_len))
+    hit = _WARM_CACHES.get(memo_key)
+    if hit is not None:
+        try:
+            from ..obs.metrics import get_registry
+
+            get_registry().inc("prompt_cache_warm_hits")
+        except Exception:
+            pass
+        return hit
+    data = dict(load_sana_cache(path) if key == "sana" else load_infinity_cache(path, max_len))
+    data["content_sha256"] = sha
     data["cache_backend"] = key
+    _WARM_CACHES[memo_key] = data
     return data

@@ -51,7 +51,7 @@ def test_train_config_from_the_command_line():
                                run_dir="runs/default") == TrainConfig()
 
 
-@pytest.mark.parametrize("backend", ["sana_one_step", "var"])
+@pytest.mark.parametrize("backend", ["sana_one_step", "sana_pipeline", "var"])
 def test_tiny_run_through_main(tmp_path, backend, capsys):
     prompts = tmp_path / "prompts.txt"
     prompts.write_text("# a comment\na red square\n\na blue circle\na green cat\n")

@@ -442,5 +442,5 @@ def test_prompt_helpers_match_jax(tmp_path):
         assert pc.cache_backend_key(name) == jpc.cache_backend_key(name)
     with pytest.raises(ValueError, match="class-conditional"):
         pc.cache_backend_key("var")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pc.load_cache(str(txt), "sana_one_step")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        pc.load_cache(str(txt), "zimage")

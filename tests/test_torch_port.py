@@ -40,7 +40,9 @@ print("MISSING", sorted(set(sys.argv[1:]) - set(sys.modules)))
 # modules the walk must reach (the slices' models, backends and caches among them)
 _REQUIRED = ["hyperscalees_t2i_tpu_torch." + m for m in (
     "models.var", "models.msvq", "models.bsq", "models.infinity", "backends.var_backend",
-    "backends.infinity_backend", "utils.prompt_cache", "utils.threefry", "train.cli")]
+    "backends.infinity_backend", "utils.prompt_cache", "utils.threefry", "train.cli",
+    "serve.admission", "serve.overload", "serve.engine", "obs.slo", "obs.exporter", "utils.stats",
+    "resilience.telemetry", "tools.loadgen", "tools.dispatch_tax")]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
