@@ -52,7 +52,10 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
    tiny rung served in f32 with an int8 base; one tiny-rung ES step in f32
    with an int8 base (K3 at the adapted sites) and one ``small``-rung ES
    step in f32 with a float base (K2 there), both with ``pop_fuse``: θ′ and
-   reward rows, and the card's launches exactly as derived;
+   reward rows, and the card's launches exactly as derived; one tiny fleet
+   tick (``FLEET_W`` jobs with their own σ, lr_scale and seed through one
+   ``make_fleet_step`` graph, int8 base) against the CPU, each job bitwise
+   the port's solo step on the card (:func:`phase_fleet_reference`);
 4. K2's path: the flagship ES epoch step (as in 7) over a bf16 base, whose
    164 adapted DiT sites per image run K2, as a CUDA graph and eagerly in
    turns (:func:`timed_epochs`), K2 counted as in 7;
@@ -110,10 +113,18 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
    epochs (each program's warm-up; the other epochs replay its graph);
    ``metrics.jsonl`` must hold 5 rows with per-prompt quality. Prints
    each epoch's ``step_time_s`` beside 7's epochs and each save's time.
+   Then one run with the live telemetry on (:func:`telemetry_run`: the
+   exporter scraped from a thread during the run, SLOs, heartbeats, the
+   stall and anomaly watchdogs), its epochs beside the bare step's.
    Then chained dispatch: 5 epochs with ``steps_per_dispatch`` 1 and 4
    (epochs_chained [1, 4]), θ bitwise equal, both runs' ``step_time_s``;
-   then ``tools/dispatch_tax.py`` at the flagship (eager, single, chained,
-   fused, fused_qlora), its row;
+   then fleet training at the flagship (:func:`phase_fleet_flagship`: a
+   ``FleetScheduler`` of width 2 over three jobs, a join, a swap to another
+   σ and the leaves on one captured program, K3 and K1 on the device in a
+   replayed tick exactly 2 × 16 × (164, 329), the swapped job bitwise its
+   solo steps, K3 at two of the fleet's launches against its plain
+   version); then ``tools/dispatch_tax.py`` at the flagship (eager,
+   single, chained, fused, fused_qlora, fleet2), its row;
 9. the JAX noise stream (``utils.threefry``, plain torch) at each path's
    full-width draws (the flagship ES noise and latents, VAR-d16's Gumbel
    slab, Infinity-2B's Gumbel noise and one whole stacked leaf): every
@@ -1787,6 +1798,8 @@ def phase_train_flagship(torch, backend, suite, es):
                                        expected1, "a flagship epoch with quality off")
     if any(k.startswith("quality/") for k in h3[0]):
         raise AssertionError("quality=False still logged quality/* metrics")
+    telemetry = telemetry_run(torch, backend, suite, base, expected1, es["epoch_s"],
+                              [h["step_time_s"] for h in h1[1:]])
     saves = [(ev["session"], ev["dur_s"]) for ev in load_events(run_dir) if ev["name"] == "checkpoint"]
     step_s = [h["step_time_s"] for h in h1 + h2]
     slot_mb = sum(p.stat().st_size for p in slot.iterdir()) / 2**20
@@ -1800,7 +1813,7 @@ def phase_train_flagship(torch, backend, suite, es):
                 checkpoint_save_s=[d for _, d in saves], slot_mib=slot_mb, wall_s=[wall1, wall2, wall3],
                 launches=[l1, l2, l3], epochs=[len(h1), len(h2), len(h3)], eager_epochs=[e1, e2, e3],
                 images_per_epoch=pop * m,
-                slot_digest=digest)
+                slot_digest=digest, telemetry=telemetry)
 
 
 def phase_train_chained(torch, backend, suite):
@@ -1855,12 +1868,17 @@ def phase_train_chained(torch, backend, suite):
 def phase_dispatch_tax(torch, backend, suite):
     """``tools/dispatch_tax.py`` at the flagship rung on the backend
     :func:`phase_es_flagship` built: its row (eager, single, chained, fused,
-    fused_qlora)."""
+    fused_qlora, fleet2)."""
     from hyperscalees_t2i_tpu_torch.tools import dispatch_tax
 
     row = dispatch_tax.run("flagship", steps=2, chain=3, device="cuda", built=(backend, suite))
     torch.cuda.empty_cache()
     log(f"[dispatch-tax] {json.dumps(row)}")
+    if not row.get("fleet2_amortization"):
+        raise AssertionError(f"dispatch_tax gave no fleet2 row: {row}")
+    log(f"[dispatch-tax] fleet2 at the flagship: two jobs through one W=2 program "
+        f"{row['step_time_fleet2_fused_s']:.4f} s a tick, through one solo program one after the other "
+        f"{row['step_time_fleet2_sequential_s']:.4f} s; fleet2_amortization {row['fleet2_amortization']}")
     return row
 
 
@@ -3203,6 +3221,424 @@ def _serve_tier(torch, backend, serve, engine, pop, template, rec, pool, warm_s,
 
 
 
+# ---------------------------------------------------------------------------
+# fleet training (W ES jobs through one program) and the trainer's telemetry
+# ---------------------------------------------------------------------------
+
+FLEET_W = 2
+# (σ, lr_scale, seed) of the tiny reference's jobs; σ/√r of the second is not an f32
+FLEET_REF_JOBS = ((0.01, 1.0, 41), (0.013, 1.5, 43))
+# the flagship fleet's jobs: id → (σ, lr_scale, seed, epochs); "c" joins after the first tick
+FLEET_JOBS = {"a": (0.01, 1.0, 61, 3), "b": (0.014, 0.8, 62, 2), "c": (0.007, 1.4, 63, 3)}
+
+
+def _flat_tree(torch, tree):
+    return torch.cat([t.reshape(-1) for d in tree.values() for t in d.values()])
+
+
+def _job_slice(tree, j):
+    return {k: {f: t[j] for f, t in d.items()} for k, d in tree.items()}
+
+
+def phase_fleet_reference(torch):
+    """Fleet training at the tiny rung in f32 over an int8 base (K3 at the
+    adapted sites, K1 elsewhere): ``FLEET_W`` jobs with their own σ,
+    lr_scale and seed through one ``make_fleet_step`` program, θ₀ from each
+    job's seed (drawn on the CPU, moved), the keys ``epoch_key(seed, 0)``.
+    The card's tick (its warm-up, then a replay of the captured graph)
+    against the same tick on the CPU: reward rows, θ′ and Δθ within 1e-4.
+    On the card each job's rows, θ′, Δθ, scores and metrics are bitwise the
+    port's solo step for that job (rows from ``make_solo_reward_rows``, the
+    update from ``make_es_step``'s graph), the replay bitwise the warm-up;
+    the warm-up's counted launches are ``FLEET_W`` × a job epoch's derived
+    counts, and a profiled replay's on the device the same."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperscalees_t2i_tpu_torch.es.sampling import epoch_key
+    from hyperscalees_t2i_tpu_torch.lora import stack_adapters
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN
+    from hyperscalees_t2i_tpu_torch.train import fleet, trainer
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+    from hyperscalees_t2i_tpu_torch.utils import threefry
+    from hyperscalees_t2i_tpu_torch.utils.pytree import tree_map
+
+    _, pop, m, mb = RUNG_PLAN["tiny"]
+    W = FLEET_W
+    trees = _es_trees(torch, "tiny", True, threefry.prng_key(51, "cpu"))
+    tcs = [TrainConfig(pop_size=pop, sigma=s, lr_scale=lr, seed=seed, egg_rank=4, prompts_per_gen=m,
+                       member_batch=mb, pop_fuse=True) for s, lr, seed in FLEET_REF_JOBS]
+    cpu = torch.device("cpu")
+    outs = {}
+    for dev in (cpu, torch.device("cuda")):
+        backend, suite = _es_parts(torch, "tiny", dev, trees)
+        ids = backend.step_info(0, m, 1).flat_ids
+        thetas = [tree_map(lambda t: t.to(dev), trainer._init_theta(backend, tc, cpu)) for tc in tcs]
+        zeros = [tree_map(torch.zeros_like, th) for th in thetas]
+        keys = torch.stack([epoch_key(tc.seed, 0, dev) for tc in tcs])
+        args = (stack_adapters(thetas), stack_adapters(zeros), torch.tensor([ids] * W, device=dev), keys,
+                *(torch.from_numpy(x).to(dev) for x in trainer.fleet_scalar_args(tcs)))
+        step = trainer.make_fleet_step(backend, suite, tcs[0], m, 1, W, dev)
+        if dev.type == "cpu":
+            out = step(*args)
+        else:
+            expected1, _ = expected_es_launches(backend, suite, tcs[0], len(ids))
+            expected = {k: W * v for k, v in expected1.items()}
+            torch.cuda.synchronize()
+            _reset_counters()
+            warm = step(*args)  # the warm-up's result, then the capture
+            torch.cuda.synchronize()
+            launches = _counters()
+            warm = torch.utils._pytree.tree_map(torch.clone, warm)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = step(*args)  # a replay
+                torch.cuda.synchronize()
+            profiled = profiled_launches(device_kernels(torch, prof)[0])
+            if launches != expected or profiled != expected:
+                raise AssertionError(f"the tiny fleet tick launched {launches} (warm-up, counted) and {profiled} "
+                                     f"(replay, on the device), expected {expected}")
+            if step.graphs.stats() == {} or step.traces != 2:
+                raise AssertionError(f"the tiny fleet tick was not captured: {step.graphs.stats()}, "
+                                     f"{step.traces} traces")
+            graph_eager = max(_max_abs(a, b) for a, b in zip(torch.utils._pytree.tree_leaves(out),
+                                                             torch.utils._pytree.tree_leaves(warm)))
+            # each job against the port's solo step, on the card
+            solo_bad = []
+            for j, tc in enumerate(tcs):
+                rows = fleet.make_solo_reward_rows(backend, suite, tc)(thetas[j], ids, keys[j])
+                th, dl, met, opt = trainer.make_es_step(backend, suite, tc, m, 1, dev, stateful_delta=True)(
+                    thetas[j], zeros[j], ids, keys[j])
+                pairs = [("rows", out[2]["fleet_reward_rows"][j], rows), ("opt_scores", out[3][j], opt),
+                         ("theta", _flat_tree(torch, _job_slice(out[0], j)), _flat_tree(torch, th)),
+                         ("delta", _flat_tree(torch, _job_slice(out[1], j)), _flat_tree(torch, dl))]
+                pairs += [(k, out[2][k][j], v) for k, v in met.items()]
+                solo_bad += [(j, name) for name, a, b in pairs if not torch.equal(a, b)]
+            if solo_bad or graph_eager != 0.0:
+                raise AssertionError(f"the card's fleet tick is not bitwise the solo steps ({solo_bad[:4]}) or "
+                                     f"its replay differs from its warm-up by {graph_eager}")
+        outs[dev.type] = [(out[2]["fleet_reward_rows"][j].float().cpu(),
+                           _flat_tree(torch, _job_slice(out[0], j)).float().cpu(),
+                           _flat_tree(torch, _job_slice(out[1], j)).float().cpu()) for j in range(W)]
+        del backend, suite, step
+    errs = [max(float((a - b).abs().max()) for a, b in zip(c, g)) for c, g in zip(outs["cpu"], outs["cuda"])]
+    log(f"[fleet-tiny] tiny fleet tick, {W} jobs (σ, lr_scale, seed) {FLEET_REF_JOBS}, f32 int8 base pop_fuse: "
+        f"card vs CPU max abs diff per job {[f'{e:.3g}' for e in errs]} (tol 1e-4); on the card each job bitwise "
+        f"its solo step (rows, θ′, Δθ, scores, metrics), the replay bitwise the warm-up; launches counted at the "
+        f"warm-up {launches}, on the device in a replay {profiled}")
+    if not max(errs) <= 1e-4:
+        raise AssertionError(f"card and CPU disagree on the tiny fleet tick: {errs}")
+    torch.cuda.empty_cache()
+    return {"max_abs_per_job": errs, "launches": launches, "launches_profiled": profiled,
+            "bitwise_solo": True, "jobs": FLEET_REF_JOBS}
+
+
+class K3Spy:
+    """Patches ``models.nn.fused_qlora_dense`` so the K3 calls numbered in
+    ``at`` (in call order, outside a capture) keep a copy of their inputs:
+    the fleet's launches of K3 as the path gives them, each lane's ``c``
+    its job's."""
+
+    def __init__(self, at):
+        self.at, self.n, self.calls = set(at), 0, []
+
+    def __enter__(self):
+        import torch
+
+        from hyperscalees_t2i_tpu_torch.lora import FactoredDelta
+        from hyperscalees_t2i_tpu_torch.models import nn as nn_mod
+
+        self.mod, self.orig = nn_mod, nn_mod.fused_qlora_dense
+
+        def spy(x, qk, leaf, lora_scale):
+            if not torch.cuda.is_current_stream_capturing():
+                if self.n in self.at:
+                    cp = lambda f: FactoredDelta(*(t.clone() for t in f))  # noqa: E731
+                    self.calls.append(dict(x=x.clone(), q8=qk["q8"], scale=qk["scale"], a=cp(leaf["a"]),
+                                           b=cp(leaf["b"]), lora_scale=lora_scale))
+                self.n += 1
+            return self.orig(x, qk, leaf, lora_scale)
+
+        nn_mod.fused_qlora_dense = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.fused_qlora_dense = self.orig
+
+
+def phase_fleet_flagship(torch, backend, suite, es):
+    """Fleet training at the flagship (``RUNG_PLAN``/``RUNG_OPT["flagship"]``,
+    quality on) on the backend :func:`phase_es_flagship` built: a
+    ``FleetScheduler`` with ``max_width`` ``FLEET_W`` over three jobs
+    (:data:`FLEET_JOBS`), "c" submitted after the first tick, so fair share
+    runs (a, b), (c, a), (b, c), (a, c): c takes b's place at the same width
+    with another σ, and b leaves. Every tick is at width 2: one program,
+    captured at the first tick (its warm-up's counted K1/K3 launches must be
+    2 × a job epoch's derived counts; every later tick counts none), and
+    ``fleet_compiles`` stays 1 across the join, the swap and the leave. One
+    replayed tick is profiled: K3 and K1 on the device exactly 2 × 16 ×
+    (164, 329), its busy ms and idle share. Job c's rows of every epoch
+    and its final θ and Δθ are bitwise its solo steps (``make_es_step``'s
+    graph from its θ₀). K3 at two of the fleet's launches (the first of
+    each job in the warm-up, copied by :class:`K3Spy`) against its plain
+    version, each ``c`` its job's ``f32(σ/√r)``. Prints the tick times, each
+    job's images/s, the tick against the bare solo epoch of ``es`` (this
+    call), peak allocated + the graph's pool."""
+    import shutil
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperscalees_t2i_tpu_torch.es.sampling import epoch_key
+    from hyperscalees_t2i_tpu_torch.obs.metrics import MetricsRegistry
+    from hyperscalees_t2i_tpu_torch.ops.fused_qlora import fused_qlora_matmul, fused_qlora_reference
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
+    from hyperscalees_t2i_tpu_torch.train import fleet, trainer
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+    from hyperscalees_t2i_tpu_torch.utils.pytree import tree_map
+
+    _, pop, m, mb = RUNG_PLAN["flagship"]
+    opt = rung_opt("flagship")
+    W = FLEET_W
+    root = ROOT / "build" / "fleet_flagship"
+    shutil.rmtree(root, ignore_errors=True)
+    base = dict(pop_size=pop, egg_rank=4, prompts_per_gen=m, batches_per_gen=1, member_batch=mb,
+                reward_tile=opt["reward_tile"], noise_dtype=opt["noise_dtype"], tower_dtype=opt["tower_dtype"],
+                pop_fuse=opt["pop_fuse"], base_quant=opt["base_quant"], quality=True, save_every=0)
+    jobs = {jid: TrainConfig(num_epochs=n, sigma=s, lr_scale=lr, seed=seed, **base)
+            for jid, (s, lr, seed, n) in FLEET_JOBS.items()}
+    expected1, per = expected_es_launches(backend, suite, jobs["a"], m)
+    if (per["k3_per_call"], per["k1_per_call"], per["calls"]) != (164, 329, pop * m):
+        raise AssertionError(f"the flagship plan is not K3 164, K1 329 per image over {pop * m} images: {per}")
+    expected = {k: W * v for k, v in expected1.items()}
+    reg = MetricsRegistry()
+    sched = fleet.FleetScheduler(backend, suite, jobs["a"], root, max_width=W, device="cuda", registry=reg)
+    k3_per_job = per["k3_per_call"] * per["calls"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ticks, counted, profiled = [], [], None
+    for jid in ("a", "b"):
+        sched.submit(fleet.FleetJobSpec(jid, jobs[jid]))
+    with K3Spy(at=(0, k3_per_job)) as spy:
+        _reset_counters()
+        t0 = time.perf_counter()
+        sched.tick()  # the warm-up (eager), then the capture
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        warm_launches = _counters()
+    sched.submit(fleet.FleetJobSpec("c", jobs["c"]))
+    prof_tick = 2
+    while True:
+        _reset_counters()
+        torch.cuda.synchronize()
+        if len(ticks) + 1 == prof_tick:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                more = sched.tick()
+                torch.cuda.synchronize()
+                prof_s = time.perf_counter() - t0
+            kernels, busy, n_kernels, top = device_kernels(torch, prof)
+            profiled = dict(launches=profiled_launches(kernels), busy_ms=busy, kernels=n_kernels, wall_s=prof_s,
+                            top_kernels=[dict(name=t, ms=ms, launches=n) for ms, n, t in top[:6]])
+            counted.append(_counters())
+            ticks.append(None)
+            continue
+        t0 = time.perf_counter()
+        more = sched.tick()
+        torch.cuda.synchronize()
+        if not more:
+            break
+        ticks.append(time.perf_counter() - t0)
+        counted.append(_counters())
+    peak = torch.cuda.max_memory_allocated()
+    stats = sched.programs.stats()
+    snap = reg.snapshot()
+    lines = [json.loads(ln) for ln in (root / "metrics.jsonl").read_text().splitlines() if ln.startswith("{")]
+    order = [sorted(ln[k] for k in ln if k.endswith("/job_id")) for ln in lines]
+    timed = [t for t in ticks if t is not None]
+    nothing = {k: 0 for k in expected}
+    if warm_launches != expected or any(c != nothing for c in counted):
+        raise AssertionError(f"the fleet's warm-up tick counted {warm_launches} (expected {expected}); the "
+                             f"replayed ticks counted {counted} (expected none)")
+    if profiled is None or profiled["launches"] != expected:
+        raise AssertionError(f"the profiled fleet tick launched {profiled and profiled['launches']} on the "
+                             f"device, expected {expected}")
+    if order != [["a", "b"], ["a", "c"], ["b", "c"], ["a", "c"]] or [ln["fleet_width"] for ln in lines] != [W] * 4:
+        raise AssertionError(f"fair share ran {order} at widths {[ln['fleet_width'] for ln in lines]}")
+    if snap.get("obs/fleet_compiles") != 1 or len(stats) != 1 or snap.get("obs/fleet_traces") != 2 or \
+            snap.get("obs/fleet_leaves") != 3:
+        raise AssertionError(f"join/swap/leave at width {W} built {snap.get('obs/fleet_compiles')} programs "
+                             f"({snap.get('obs/fleet_traces')} traces, {snap.get('obs/fleet_leaves')} leaves)")
+    for jid, tc in jobs.items():
+        st = sched.job_state(jid)
+        if not st["done"] or st["epoch"] != tc.num_epochs:
+            raise AssertionError(f"job {jid} ended at {st}")
+        if not all(np.isfinite(v) for v in st["scalars"].values() if isinstance(v, float)):
+            raise AssertionError(f"job {jid}'s scalars are not finite")
+
+    # job c (swapped in for b at width 2, its own σ) against its solo steps
+    tc = jobs["c"]
+    reward = RecordingReward(suite, per["calls"])
+    solo = trainer.make_es_step(backend, reward, tc, m, 1, "cuda", stateful_delta=True)
+    theta = trainer._init_theta(backend, tc, torch.device("cuda"))
+    delta = tree_map(torch.zeros_like, theta)
+    calls_per_chunk = per["calls"] // -(-pop // mb)
+    solo_digests = []
+    for e in range(tc.num_epochs):
+        ids = backend.step_info(e, m, 1).flat_ids
+        theta, delta, _, _ = solo(theta, delta, ids, epoch_key(tc.seed, e, "cuda"))
+        theta, delta = _clone_tree(theta), _clone_tree(delta)
+        solo_digests.append(fleet.reward_rows_digest(
+            reward_rows(torch, reward.rows, calls_per_chunk, len(ids) // calls_per_chunk)))
+    fleet_theta, fleet_delta = sched.job_theta("c")
+    c_bitwise = dict(rows=solo_digests == sched.job_state("c")["rows_digests"],
+                     theta=bool(torch.equal(_flat_tree(torch, fleet_theta), _flat_tree(torch, theta))),
+                     delta=bool(torch.equal(_flat_tree(torch, fleet_delta), _flat_tree(torch, delta))))
+    del solo, reward
+    if not all(c_bitwise.values()):
+        raise AssertionError(f"job c in the fleet is not bitwise its solo steps: {c_bitwise}")
+
+    # K3 at the fleet's launches, each lane's c its job's
+    k3_rows = []
+    c_want = [float(np.float32(FLEET_JOBS[j][0] / math.sqrt(4))) for j in ("a", "b")]
+    for j, call in enumerate(spy.calls):
+        args = (call["x"], call["q8"], call["scale"], call["a"], call["b"], call["lora_scale"])
+        out = fused_qlora_matmul(*args)
+        torch.cuda.synchronize()
+        T, din = call["x"].reshape(-1, call["x"].shape[-1]).shape
+        err, tol, _ = check_close(f"fused_qlora at a fleet launch (job {j}) {T}x{din}x{call['q8'].shape[1]}",
+                                  out, fused_qlora_reference(*args), "bfloat16", torch,
+                                  again=lambda: (fused_qlora_matmul(*args), fused_qlora_reference(*args)))
+        c = float(call["a"].c.abs().max())
+        k3_rows.append(dict(job=j, T=T, din=din, dout=int(call["q8"].shape[1]), c=c, max_abs_err=err, tol=tol))
+        if c != c_want[j]:
+            raise AssertionError(f"K3's c at job {j}'s fleet launch is {c}, not its job's {c_want[j]}")
+    if len(k3_rows) != 2:
+        raise AssertionError(f"the spy caught {len(k3_rows)} of the fleet's K3 launches, not one a job")
+    del spy
+
+    entry = next(iter(stats.values()))
+    mem_gib = (peak + entry["pool_bytes"]) / 2**30
+    images = W * pop * m
+    tick_mean = statistics.mean(timed)
+    idle = 1.0 - profiled["busy_ms"] / (1e3 * tick_mean)
+    out = dict(jobs=FLEET_JOBS, width=W, warmup_tick_s=warm_s, tick_s=timed, profiled_tick=profiled,
+               idle_share=idle, images_per_tick=images, job_images_per_s=[pop * m / t for t in timed],
+               solo_epoch_s=es["epoch_s"], tick_over_solo_epoch=tick_mean / statistics.mean(es["epoch_s"]),
+               peak_allocated_gib=peak / 2**30, pool_gib=entry["pool_bytes"] / 2**30, memory_gib=mem_gib,
+               graph=entry, warmup_launches=warm_launches, launches_profiled=profiled["launches"],
+               fleet_compiles=snap["obs/fleet_compiles"], fleet_traces=snap["obs/fleet_traces"],
+               tick_order=order, swap_bitwise=c_bitwise, k3_fleet_launches=k3_rows)
+    log(f"[fleet] flagship fleet, {W} of 3 jobs a tick (σ, lr_scale, seed, epochs) {FLEET_JOBS}, order {order}: "
+        f"warm-up tick {warm_s:.3f} s (capture {entry['capture_s']:.3f} s + instantiate "
+        f"{entry['instantiate_s']:.3f} s); replayed ticks {', '.join(f'{t:.3f}' for t in timed)} s = "
+        f"{images / tick_mean:.2f} images/s, {pop * m / tick_mean:.2f} a job; against the bare solo epoch "
+        f"{', '.join(f'{t:.3f}' for t in es['epoch_s'])} s in this call (tick / epoch "
+        f"{out['tick_over_solo_epoch']:.3f}); profiled tick busy {profiled['busy_ms']:.1f} ms over "
+        f"{profiled['kernels']} kernels, idle share {idle:.4f}; memory {mem_gib:.2f} GiB (peak allocated "
+        f"{peak / 2**30:.2f} + pool {entry['pool_bytes'] / 2**30:.2f}); fleet_compiles {snap['obs/fleet_compiles']} "
+        f"across the join, the swap and {snap['obs/fleet_leaves']} leaves; K1/K3 counted at the warm-up "
+        f"{warm_launches}, none in {len(counted)} replays, on the device in a replay {profiled['launches']} "
+        f"(expected {expected}); job c bitwise its solo steps {c_bitwise}; K3 at the fleet's launches "
+        + ", ".join(f"job {r['job']} c={r['c']:.6g} err {r['max_abs_err']:.3g} (tol {r['tol']:.3g})"
+                    for r in k3_rows))
+    del sched
+    torch.cuda.empty_cache()
+    return out
+
+
+def telemetry_run(torch, backend, suite, base, expected1, bare_epoch_s, loop_epoch_s):
+    """``run_training`` at the flagship with the live telemetry on: the
+    exporter on a free port, ``slo``, heartbeats every second with a stall
+    cap far above the first epoch's warm-up + capture, and the anomaly
+    watchdog ticking from its second epoch. A thread scrapes ``/metrics``
+    and ``/healthz`` while it runs. Counts the heartbeat lines and the
+    watchdog's ticks (one per logged dispatch), and prints the run's epochs
+    beside the bare step's ``bare_epoch_s`` and the replayed epochs of a
+    ``run_training`` without telemetry (``loop_epoch_s``), both of this
+    call."""
+    import threading
+
+    from hyperscalees_t2i_tpu_torch.obs import anomaly, heartbeat
+    from hyperscalees_t2i_tpu_torch.obs.exporter import parse_prometheus_text
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+
+    port = _free_port()
+    tc = TrainConfig(**{**base, "num_epochs": 4, "save_every": 2, "run_name": "flagship_telemetry",
+                        "trace": False, "resume": False},
+                     metrics_port=port, metrics_host="127.0.0.1", slo="latency_p95=5s,availability=99",
+                     heartbeat_interval_s=1.0, stall_cap_s=120.0, anomaly_min_epochs=2)
+    beats, ticks, scrapes = [], [], {"n": 0, "series": 0, "healthz": None, "errors": 0}
+    real_emit, real_observe = heartbeat.emit_heartbeat, anomaly.AnomalyWatchdog.observe
+
+    def counting_emit(name, phase, stream=None, **extra):
+        beats.append((name, phase))
+        return real_emit(name, phase, stream=stream, **extra)
+
+    def counting_observe(self, epoch, scalars):
+        ticks.append(epoch)
+        return real_observe(self, epoch, scalars)
+
+    stop = threading.Event()
+
+    def scrape():
+        while not stop.wait(0.25):
+            try:
+                fams = parse_prometheus_text(_scrape(port, "/metrics"))
+                hz = json.loads(_scrape(port, "/healthz"))
+            except OSError:
+                scrapes["errors"] += 1
+                continue
+            scrapes["n"] += 1
+            scrapes["series"] = len(fams)
+            scrapes["healthz"] = hz
+
+    heartbeat.emit_heartbeat = counting_emit
+    anomaly.AnomalyWatchdog.observe = counting_observe
+    scraper = threading.Thread(target=scrape, daemon=True)
+    scraper.start()
+    try:
+        state, hist, launches, wall, eager = _train(torch, backend, suite, tc, expected1,
+                                                    "flagship run_training with telemetry")
+    finally:
+        stop.set()
+        scraper.join(timeout=10)
+        heartbeat.emit_heartbeat = real_emit
+        anomaly.AnomalyWatchdog.observe = real_observe
+    hz = scrapes["healthz"] or {}
+    phases = sorted({p for n, p in beats if n == "train"})
+    step_s = [h["step_time_s"] for h in hist]
+    stalls = hist[-1].get("obs/stalls", 0)
+    anomaly_keys = sorted(k for k in hist[-1] if k.startswith("anomaly/"))
+    slo_keys = sorted(k for k in hist[-1] if k.startswith("slo/"))
+    spread = (min(bare_epoch_s), max(bare_epoch_s))
+    replays = step_s[1:]
+    out = dict(epochs=len(hist), step_time_s=step_s, bare_epoch_s=bare_epoch_s, loop_epoch_s=loop_epoch_s,
+               within_bare_spread=[spread[0] <= s <= spread[1] for s in replays],
+               median_over_loop=statistics.median(replays) / statistics.median(loop_epoch_s),
+               scrapes=scrapes["n"], scrape_errors=scrapes["errors"], series=scrapes["series"],
+               healthz_keys=sorted(hz), heartbeats=len(beats), heartbeat_phases=phases, anomaly_ticks=ticks,
+               anomaly_keys=anomaly_keys, slo_keys=slo_keys, stalls=stalls, launches=launches, eager_epochs=eager,
+               wall_s=wall)
+    log(f"[train-telemetry] flagship run_training with exporter, SLOs, heartbeats (1 s, stall cap 120 s) and the "
+        f"anomaly watchdog: epochs {', '.join(f'{s:.3f}' for s in step_s)} s step_time_s (the first warm) against "
+        f"the bare step's {', '.join(f'{s:.3f}' for s in bare_epoch_s)} s and run_training's without telemetry "
+        f"{', '.join(f'{s:.3f}' for s in loop_epoch_s)} s in this call (median ratio "
+        f"{out['median_over_loop']:.4f}); {scrapes['n']} scrapes "
+        f"during the run ({scrapes['series']} series on /metrics, /healthz keys {sorted(hz)}); {len(beats)} "
+        f"heartbeat lines (train phases {phases}); anomaly ticks at epochs {ticks}, {len(anomaly_keys)} anomaly/* "
+        f"gauges; slo/* {len(slo_keys)}; stalls {stalls}; launches {launches} over {eager} eager epoch(s)")
+    want_hz = {"backend", "run_dir", "topology", "membership", "resilience", "queue", "status"}
+    if scrapes["n"] == 0 or scrapes["series"] == 0 or not want_hz <= set(hz):
+        raise AssertionError(f"no live scrape of the run: {scrapes['n']} scrapes, {scrapes['series']} series, "
+                             f"healthz keys {sorted(hz)}")
+    if ticks != [h["epoch"] for h in hist] or not anomaly_keys or not slo_keys:
+        raise AssertionError(f"the watchdog ticked at {ticks} for rows {[h['epoch'] for h in hist]}; anomaly "
+                             f"gauges {anomaly_keys}, slo gauges {slo_keys}")
+    if "compile" not in phases or stalls:
+        raise AssertionError(f"heartbeat phases {phases}, stalls {stalls}")
+    return out
+
+
 def kernel_summary(name, rows, launches, calls_key, replaces, scope):
     """One entry per kernel: its main-path calls per unit of its path (one
     flagship image, one VAR generate call), summed."""
@@ -3257,6 +3693,7 @@ def main() -> int:
     es_tiny = phase_es_reference(torch, "tiny", int8=True)
     es_small = phase_es_reference(torch, "small", int8=False)
     train_tiny = phase_train_reference(torch)
+    fleet_tiny = phase_fleet_reference(torch)
     pipeline_tiny = phase_pipeline_reference(torch)
     var_tiny = phase_var_reference(torch)
     inf_tiny = phase_inf_reference(torch)
@@ -3270,6 +3707,7 @@ def main() -> int:
     pipeline_es = phase_pipeline_es(torch, *flagship, es)
     train = phase_train_flagship(torch, *flagship, es)
     chained = phase_train_chained(torch, *flagship)
+    fleet_run = phase_fleet_flagship(torch, *flagship, es)
     tax = phase_dispatch_tax(torch, *flagship)
     threefry_rows = threefry_shares(phase_threefry(torch, flagship[0]), es, var_es, inf_es)
     del flagship
@@ -3280,15 +3718,20 @@ def main() -> int:
     # the profiler over one replayed epoch (or serving flush)
     train_launches = lambda k: sum(run[k] for run in train["launches"])  # noqa: E731
     train_eager_epochs = sum(train["eager_epochs"])
+    # the fleet's warm-up tick runs FLEET_W job epochs eagerly
+    fleet_launches = lambda k: fleet_run["warmup_launches"][k]  # noqa: E731
     kernels = [
-        kernel_summary("int8_matmul", k1_rows, es["eager"]["launches"]["int8_matmul"] + train_launches("int8_matmul"),
+        kernel_summary("int8_matmul", k1_rows,
+                       es["eager"]["launches"]["int8_matmul"] + train_launches("int8_matmul")
+                       + fleet_launches("int8_matmul"),
                        "calls_per_es_image",
                        "hyperscalees_t2i_tpu/ops/quant_mm.py:86", "one flagship ES image (DiT, DC-AE, both towers)"),
         kernel_summary("lora_chain", chain_rows["lora_chain"], es_float["eager"]["launches"]["lora_chain"],
                        "calls_per_image", "hyperscalees_t2i_tpu/ops/fused_lora.py:80",
                        "the LoRA deltas of one flagship ES image over a bf16 base"),
         kernel_summary("fused_qlora", chain_rows["fused_qlora"],
-                       es["eager"]["launches"]["fused_qlora"] + train_launches("fused_qlora"),
+                       es["eager"]["launches"]["fused_qlora"] + train_launches("fused_qlora")
+                       + fleet_launches("fused_qlora"),
                        "calls_per_image", "hyperscalees_t2i_tpu/ops/fused_qlora.py:201",
                        "one flagship ES image's adapted sites"),
         kernel_summary("decode_attention", k4_rows,
@@ -3318,18 +3761,24 @@ def main() -> int:
             "pipeline_es_graph_profiled_epoch": pipeline_es["launches_profiled"][name],
             "pipeline_es_warmup": pipeline_es["launches_counted"][name],
             "serve_pipeline_graph_profiled_flush": tier["pipeline"]["launches_profiled"][name],
+            "fleet_flagship_warmup_tick": fleet_run["warmup_launches"][name],
+            "fleet_flagship_graph_profiled_tick": fleet_run["launches_profiled"][name],
+            "fleet_tiny_warmup_tick": fleet_tiny["launches"][name],
+            "fleet_tiny_graph_profiled_tick": fleet_tiny["launches_profiled"][name],
+            "train_telemetry_warmup": train["telemetry"]["launches"][name],
         }
     kernels[3]["infinity"] = {k: k4_inf[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                                      "device_ms", "max_abs_err", "scope")}
     kernels[3]["infinity"]["in_situ_ms"] = inf_es["call_breakdown_ms"]["k4_in_situ_ms"]
     k1_serve = kernel_summary("int8_matmul", k1_rows, serve["eager"]["launches"]["int8_matmul"], "calls_per_image",
                               "hyperscalees_t2i_tpu/ops/quant_mm.py:86", "one flagship served image")
-    for k, run, epochs in ((kernels[1], es_float, TIMED_EPOCHS), (kernels[2], es, TIMED_EPOCHS + train_eager_epochs)):
+    for k, run, epochs in ((kernels[1], es_float, TIMED_EPOCHS),
+                           (kernels[2], es, TIMED_EPOCHS + train_eager_epochs + FLEET_W)):
         if k["launches"] != sum(r["calls_per_image"] for r in chain_rows[k["name"]]) * \
                 run["images_per_epoch"] * epochs:
             raise AssertionError(f"{k['name']} table and launch count disagree")
     if kernels[0]["launches"] != sum(r["calls_per_es_image"] for r in k1_rows) * es["images_per_epoch"] * \
-            (TIMED_EPOCHS + train_eager_epochs):
+            (TIMED_EPOCHS + train_eager_epochs + FLEET_W):
         raise AssertionError("K1 table and launch count disagree")
     if train_launches("lora_chain") or train_launches("decode_attention"):
         raise AssertionError("the flagship trainer launched K2 or K4")
@@ -3353,7 +3802,8 @@ def main() -> int:
         es_flagship_float=es_float, serve=serve, var_es=var_es, inf_es=inf_es, es_flagship=es, train_tiny=train_tiny,
         threefry=threefry_rows, train_chained=chained, dispatch_tax=tax, pipeline_tiny=pipeline_tiny,
         pipeline_es=pipeline_es, serve_tier=tier,
-        train_flagship=train, kernels=kernels, k1_serving=k1_serve, k4_infinity=k4_inf,
+        train_flagship=train, fleet_tiny=fleet_tiny, fleet_flagship=fleet_run,
+        kernels=kernels, k1_serving=k1_serve, k4_infinity=k4_inf,
         wall_s=wall_s,
     ), indent=1))
     for k in kernels + [k1_serve, k4_inf]:

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, NamedTuple, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -161,15 +161,33 @@ def materialize_member_eps(theta: Any, noise: Any, k: int, pop_size: int, cfg: E
     return tree_replace_leaves(theta, out)
 
 
-def perturb_member(theta: Any, noise: Any, k: int, pop_size: int, cfg: EggRollConfig) -> Any:
-    """``θ_k = θ + σ·ε_k``, materialized (cast to θ's dtype before the add)."""
+Scale = Union[float, torch.Tensor]
+
+
+def scaled(s: Scale, x: torch.Tensor) -> torch.Tensor:
+    """``s·x`` in ``x``'s dtype, with ``s`` a Python float or an f32 scalar
+    tensor: either way ``s`` is rounded to f32 once, the product is taken in
+    f32 and rounded to ``x``'s dtype once (what torch does for a Python
+    scalar), so a tensor holding ``f32(s)`` gives the float's bits."""
+    if not isinstance(s, torch.Tensor):
+        return s * x
+    return x * s if x.dtype == torch.float32 else (x.to(torch.float32) * s).to(x.dtype)
+
+
+def perturb_member(theta: Any, noise: Any, k: int, pop_size: int, cfg: EggRollConfig,
+                   sigma: Optional[Scale] = None) -> Any:
+    """``θ_k = θ + σ·ε_k``, materialized (cast to θ's dtype before the add).
+    ``sigma`` (an f32 scalar tensor: the fleet's per-job σ) replaces
+    ``cfg.sigma``; ``f32(cfg.sigma)`` there gives the same bits."""
     eps = materialize_member_eps(theta, noise, k, pop_size, cfg)
-    leaves = [t + cfg.sigma * e.to(t.dtype) for t, e in zip(tree_leaves(theta), tree_leaves(eps))]
+    s = cfg.sigma if sigma is None else sigma
+    leaves = [t + scaled(s, e.to(t.dtype)) for t, e in zip(tree_leaves(theta), tree_leaves(eps))]
     return tree_replace_leaves(theta, leaves)
 
 
 def factored_member_theta(theta: Any, noise: Any, k: Union[int, List[int]], pop_size: int,
-                          cfg: EggRollConfig) -> Any:
+                          cfg: EggRollConfig, sigma: Optional[torch.Tensor] = None,
+                          c_scale: Optional[torch.Tensor] = None) -> Any:
     """Member ``k``'s adapter with the perturbation kept factored: each
     low-rank-noised leaf becomes ``lora.FactoredDelta(w=θ leaf, u=U[b],
     v=V[b], c=σ·s_k/√r)`` (``c`` computed in f32); dense-noised leaves are
@@ -178,18 +196,32 @@ def factored_member_theta(theta: Any, noise: Any, k: Union[int, List[int]], pop_
     ``k`` may be a list of members: ``u``, ``v`` and ``c`` then carry a
     leading lane axis (one lane per member, in order), dense-noised leaves
     a lane-stacked ``[lanes, ...]`` value, and the forward's rows must be
-    grouped lane-major."""
+    grouped lane-major.
+
+    ``sigma`` and ``c_scale`` (f32 scalar tensors on the device, given
+    together: the fleet's per-job σ_j and ``f32(σ_j/√r)`` from
+    ``train.trainer.fleet_scalar_args``) replace the σ of the dense leaves
+    and the ``f32(σ/√r)`` of ``c``, which the solo step makes once as
+    device constants. They are a program's inputs, so a captured program
+    serves any σ; the same values give the same bits as the constants."""
     from ..lora import FactoredDelta
 
+    if (sigma is None) != (c_scale is None):
+        raise ValueError("factored_member_theta: give sigma and c_scale together "
+                         "(c_scale = float32(sigma / sqrt(rank)), from fleet_scalar_args)")
     members = [k] if isinstance(k, int) else list(k)
     sb = [_member(pop_size, cfg, m) for m in members]
-    c_scale = float(np.float32(cfg.sigma / math.sqrt(cfg.rank)))  # σ/√r rounded to f32; ·(±1) is exact
     pairs = _noise_pairs(theta, noise)
     # made once on the device (no host copy: the step is captured whole)
     dev = pairs[0][0].device if pairs else torch.device("cpu")
     idx = constant([b for _, b in sb], torch.int64, dev)
     signs = constant([s for s, _ in sb], torch.float32, dev)
-    c_lanes = constant([c_scale * s for s, _ in sb], torch.float32, dev)
+    if c_scale is None:
+        c_f32 = float(np.float32(cfg.sigma / math.sqrt(cfg.rank)))  # σ/√r rounded to f32; ·(±1) is exact
+        c_lanes = constant([c_f32 * s for s, _ in sb], torch.float32, dev)
+        sigma = cfg.sigma
+    else:
+        c_lanes = c_scale * signs
     out = []
     for t, fac in pairs:
         if isinstance(fac, LowRankNoise):
@@ -200,7 +232,7 @@ def factored_member_theta(theta: Any, noise: Any, k: Union[int, List[int]], pop_
         else:
             e = fac.E[idx].to(torch.float32)
             s = signs.reshape(-1, *([1] * (e.ndim - 1)))
-            val = t + (cfg.sigma * s * e).to(t.dtype)
+            val = t + (sigma * s * e).to(t.dtype)
             out.append(val[0] if isinstance(k, int) else val)
     return tree_replace_leaves(theta, out)
 
@@ -214,11 +246,16 @@ def fitness_coeffs(fitness: torch.Tensor, pop_size: int, cfg: EggRollConfig) -> 
     return c.index_add_(0, constant(bases.tolist(), torch.int64, dev), w)
 
 
-def es_update(theta: Any, noise: Any, fitness: torch.Tensor, pop_size: int, cfg: EggRollConfig) -> Any:
+def es_update(theta: Any, noise: Any, fitness: torch.Tensor, pop_size: int, cfg: EggRollConfig,
+              lr: Optional[Scale] = None) -> Any:
     """``θ' = θ + lr·mean_k(f_k·ε_k)`` in factored form: per low-rank leaf
     ``Σ_b c_b U_b V_bᵀ/(pop·√r)``, per dense leaf ``Σ_b c_b E_b/pop``, the
     contractions in f32 over the upcast noise; the delta is cast to θ's
-    dtype before ``t + lr·delta``."""
+    dtype before ``t + lr·delta``. ``lr`` (an f32 scalar tensor: the
+    fleet's per-job ``f32(lr_scale·σ)``) replaces ``cfg.lr`` with the same
+    bits for the same value."""
+    if lr is None:
+        lr = cfg.lr
     c = fitness_coeffs(fitness, pop_size, cfg)
     inv = 1.0 / (pop_size * math.sqrt(cfg.rank))
     out = []
@@ -231,7 +268,7 @@ def es_update(theta: Any, noise: Any, fitness: torch.Tensor, pop_size: int, cfg:
         else:
             E = fac.E.to(torch.float32)
             delta = (E * cc.reshape(-1, *([1] * (E.ndim - 1)))).sum(0) / pop_size
-        out.append(t + cfg.lr * delta.to(t.dtype))
+        out.append(t + scaled(lr, delta.to(t.dtype)))
     return tree_replace_leaves(theta, out)
 
 

@@ -6,7 +6,9 @@
   non-finite members get fitness 0;
 - :func:`prompt_normalized_scores` — per-prompt means over the population,
   one global σ̄ (the RMS of every centered entry, ddof 0), z-scores
-  averaged per member.
+  averaged per member;
+- :func:`jobwise_prompt_normalized_scores` — the same per job of a
+  job-stacked ``[J, n, m]`` (fleet training).
 
 The degenerate-spread guards are relative to the reward magnitude
 (``std ≤ 1e-6·(1 + |scale|)``), so constant rewards give exactly zero
@@ -69,3 +71,14 @@ def prompt_normalized_scores(S: torch.Tensor, eps: float = 1e-8) -> Tuple[torch.
     sigma_bar = torch.where(bad, torch.ones_like(rms), rms).clamp_min(eps)
     scores = torch.where(bad, torch.zeros(S.shape[0], device=S.device), (centered / sigma_bar).mean(dim=1))
     return scores, mu_q, sigma_bar
+
+
+def jobwise_prompt_normalized_scores(S: torch.Tensor, eps: float = 1e-8
+                                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`prompt_normalized_scores` of each job of ``S [J, n, m]``,
+    never pooled across jobs: job ``j``'s slice is exactly the solo call on
+    ``S[j]``. Returns ``(scores [J, n], mu_q [J, m], sigma_bar [J])``."""
+    if S.ndim != 3:
+        raise ValueError(f"S must be [jobs, n, m], got {tuple(S.shape)}")
+    per_job = [prompt_normalized_scores(s, eps) for s in S]
+    return tuple(torch.stack([p[i] for p in per_job]) for i in range(3))

@@ -18,14 +18,12 @@ latency_p95 → 5% of requests may exceed the threshold) burns at
 (default 5 min) and the slow window (default 1 h) burn at or above the
 threshold (default 14.4: 2% of a 30-day budget in one hour).
 :func:`build_serve_evaluator` wires a serving engine's registry;
-:func:`build_trainer_evaluator` a training run's (the port's trainer does
-not call it yet).
+:func:`build_trainer_evaluator` a training run's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
 import re
 import sys
 import time
@@ -33,6 +31,7 @@ from bisect import bisect_left
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..utils.stats import window_anchor_index
+from .heartbeat import emit_heartbeat
 from .metrics import MetricsRegistry
 
 # () -> (bad_events_cumulative, total_events_cumulative)
@@ -144,20 +143,6 @@ def counter_source(
         )
 
     return read
-
-
-def _emit_heartbeat(name: str, phase: str, stream: Any = None, **extra: Any) -> None:
-    """One JSON liveness line on stderr (never stdout), mirrored onto the
-    ``/healthz`` blackboard: the JAX package's ``emit_heartbeat`` line for
-    one process."""
-    from .exporter import note_heartbeat
-
-    payload = {"hb": name, "phase": phase, "process_index": 0, **extra}
-    print(json.dumps(payload, default=str), file=stream or sys.stderr, flush=True)
-    try:
-        note_heartbeat(payload)
-    except Exception:
-        pass
 
 
 class SloEvaluator:
@@ -295,7 +280,7 @@ class SloEvaluator:
             f"(threshold {self.alert_burn:g}; budget {spec.budget:.4g})",
             file=self.stream or sys.stderr, flush=True,
         )
-        _emit_heartbeat(
+        emit_heartbeat(
             "slo", "burn_alert" if kind == "ALERT" else "burn_clear",
             stream=self.stream, slo=spec.name, burn_fast=fast, burn_slow=slow,
             alert_threshold=self.alert_burn,

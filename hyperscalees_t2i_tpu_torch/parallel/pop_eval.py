@@ -1,6 +1,7 @@
 """Member-batched evaluation on one device (port of
-``hyperscalees_t2i_tpu/parallel/pop_eval.py``): the ES population evaluator
-and the multi-tenant serving generator. The mesh-sharded and ``host_slice``
+``hyperscalees_t2i_tpu/parallel/pop_eval.py``): the ES population evaluator,
+the fleet evaluator (W jobs' populations against one base) and the
+multi-tenant serving generator. The mesh-sharded and ``host_slice``
 variants come with multi-GPU training."""
 
 from __future__ import annotations
@@ -49,25 +50,27 @@ def make_population_evaluator(
     noise ``gen_noise`` (common random numbers). ``reward_tile`` runs
     generate → decode → reward over image tiles of that size (rounded down
     to a divisor of ``B``); image ``i`` keeps its own noise row, so tiling
-    does not change a reward."""
+    does not change a reward. ``sigma``/``c_scale`` (f32 scalar tensors)
+    replace ``es_cfg``'s σ in the perturbation (``es.noiser``: the fleet's
+    per-job σ as program inputs)."""
     if member_batch < 1:
         raise ValueError(f"member_batch must be >= 1, got {member_batch}")
 
-    def chunk_theta(theta, noise, members):
+    def chunk_theta(theta, noise, members, sigma, c_scale):
         if pop_fuse:
             return factored_member_theta(theta, noise, members[0] if len(members) == 1 else members,
-                                         pop_size, es_cfg)
-        thetas = [perturb_member(theta, noise, k, pop_size, es_cfg) for k in members]
+                                         pop_size, es_cfg, sigma=sigma, c_scale=c_scale)
+        thetas = [perturb_member(theta, noise, k, pop_size, es_cfg, sigma=sigma) for k in members]
         return thetas[0] if len(thetas) == 1 else stack_adapters(thetas)
 
-    def eval_pop(theta, noise, ids, gen_noise):
+    def eval_pop(theta, noise, ids, gen_noise, sigma=None, c_scale=None):
         B = ids.shape[0]
         tile = effective_reward_tile(B, reward_tile) or B
         chunks = []
         for k0 in range(0, pop_size, member_batch):
             members = list(range(k0, min(k0 + member_batch, pop_size)))
             n = len(members)
-            theta_k = chunk_theta(theta, noise, members)
+            theta_k = chunk_theta(theta, noise, members, sigma, c_scale)
             tiles = []
             for i0 in range(0, B, tile):
                 t_ids = ids[i0:i0 + tile]
@@ -80,6 +83,52 @@ def make_population_evaluator(
         return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
 
     return eval_pop
+
+
+def make_fleet_evaluator(
+    generate_p: GenerateFn,
+    reward_fn: RewardFn,
+    width: int,
+    pop_size: int,
+    es_cfg: EggRollConfig,
+    member_batch: int,
+    reward_tile: int = 0,
+    pop_fuse: bool = False,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """``eval_fleet(thetas, noises, ids [W, B], gen_noise [W, B, ...],
+    sigmas [W], c_scales [W]) → rewards``, every reward leaf ``[W, pop, B]``:
+    ``width`` independent ES jobs against one resident base, job ``j`` with
+    its own adapter ``thetas[j]``, noise tree ``noises[j]``, prompts
+    ``ids[j]``, generation noise ``gen_noise[j]`` and σ (``sigmas[j]``,
+    ``c_scales[j] = f32(σ_j/√r)``, device tensors from
+    ``train.trainer.fleet_scalar_args``).
+
+    The member axis is a flat (job, member) lane axis: lane ``i`` is job
+    ``i // pop``, member ``i % pop``, and job ``j`` owns lanes
+    ``[j·pop, (j+1)·pop)`` (``train.fleet.job_lane_spans``). Lanes run in
+    chunks of ``member_batch`` that never cross a job boundary: each job's
+    lanes are chunked from its first lane exactly as the solo
+    :func:`make_population_evaluator` chunks a population. A chunk's
+    adapter is one 2D ``w`` per launch of K2/K3 (``ops.fused_lora`` refuses
+    a lane-stacked ``w``), so a chunk spanning two jobs would need a kernel
+    that K2/K3 are not. When ``member_batch`` divides ``pop`` this is the
+    JAX package's ``lax.map(batch_size=member_batch)`` over ``W·pop`` lanes;
+    when it does not, the JAX map's straddling chunk becomes the solo
+    chunking of each job, the one departure from it. Either way every job's
+    chunks are its solo chunks, so its reward rows are its solo rows."""
+    if width < 1 or pop_size < 1:
+        raise ValueError(f"width and pop_size must be >= 1, got ({width}, {pop_size})")
+    eval_pop = make_population_evaluator(generate_p, reward_fn, pop_size, es_cfg, member_batch,
+                                         reward_tile=reward_tile, pop_fuse=pop_fuse)
+
+    def eval_fleet(thetas, noises, ids, gen_noise, sigmas, c_scales):
+        if len(thetas) != width or ids.shape[0] != width:
+            raise ValueError(f"{len(thetas)} adapters and {ids.shape[0]} prompt rows for a fleet of {width}")
+        per_job = [eval_pop(thetas[j], noises[j], ids[j], gen_noise[j], sigma=sigmas[j], c_scale=c_scales[j])
+                   for j in range(width)]
+        return {k: torch.stack([r[k] for r in per_job]) for k in per_job[0]}
+
+    return eval_fleet
 
 
 def make_adapter_batch_generator(

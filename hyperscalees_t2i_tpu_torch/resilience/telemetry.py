@@ -1,6 +1,7 @@
-"""The process-global ``resilience/*`` registry (port of
-``hyperscalees_t2i_tpu/resilience/telemetry.py`` without the per-host
-snapshot files, which come with multi-process training).
+"""The process-global ``resilience/*`` registry and the host snapshot that
+``/healthz`` serves (port of ``hyperscalees_t2i_tpu/resilience/telemetry.py``
+without the per-host snapshot files, which come with multi-process
+training).
 
 Any resilience layer can tick it without a handle being passed down; the
 serving tier's exporter renders it beside the engine's registry. Standard
@@ -9,7 +10,8 @@ library only.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+import time
+from typing import Any, Dict, Optional
 
 from ..obs.metrics import MetricsRegistry
 
@@ -34,3 +36,17 @@ def inc(name: str, n: float = 1) -> None:
 
 def gauge(name: str, value: Any) -> None:
     _REGISTRY.gauge(name, value)
+
+
+def host_snapshot_payload(*, epoch: Optional[int] = None, extra: Optional[Dict[str, Any]] = None,
+                          registry: Optional[MetricsRegistry] = None) -> Dict[str, Any]:
+    """This process's resilience summary, the JAX payload's keys: process
+    identity (one process: index 0), the wall time, and every counter and
+    gauge of ``registry`` (default: the process-global one)."""
+    return {
+        "process_index": 0,
+        "wall_time": time.time(),
+        **({"epoch": int(epoch)} if epoch is not None else {}),
+        **(extra or {}),
+        **(registry if registry is not None else _REGISTRY).snapshot(),
+    }

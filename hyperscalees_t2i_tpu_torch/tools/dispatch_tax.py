@@ -19,9 +19,15 @@ Variants (same geometry, same weights, same keys):
 - ``fused``   — ``single`` with ``pop_fuse=True`` (the factored member
   path).
 - ``fused_qlora`` — ``fused`` over an int8 base (K3 at the adapted sites).
+- ``fleet2``  — two jobs (the rung's base and the fused path, two keys)
+  through one W=2 fleet program (``train.trainer.make_fleet_step``) against
+  the same two jobs stepped one after the other through one solo program,
+  θ and Δθ chained per job, one read-back at the end of each timed window.
+  ``fleet2_amortization`` = sequential s / fused s: what one program for
+  two jobs saves over two dispatches.
 
-The JAX tool's ``fleet2`` variant waits for the fleet step (ROADMAP queue A
-item 6). On the CPU only ``eager`` and ``chained`` run: there are no graphs.
+On the CPU only ``eager``, ``chained`` and ``fleet2`` run, eagerly: there
+are no graphs.
 
 Every read-back is of ``opt_score_mean``, which depends on every step
 before it (θ and Δθ chain through them), and every timed window ends in
@@ -156,11 +162,71 @@ def run(rung: str, steps: int, chain: int, device: Any = None,
             theta_q = tree_map(lambda t: t.to(dev), backend_q.init_theta(threefry.prng_key(1, dev)))
         rec["step_time_fused_qlora_s"], qlora = timed(make(backend_q, reward_q, True, "int8", graph=True), theta_q)
         graphs["fused_qlora"] = _stats(qlora)
+        del qlora
+    rec.update(fleet2(backend, reward, theta0, ids, key, num_unique, steps, pop, member_batch, opt, dev, graphs))
+    if cuda:
         rec["graphs"] = graphs
     for k, v in list(rec.items()):
         if k.endswith("_s") and isinstance(v, float):
             rec[k] = round(v, 6)
     return rec
+
+
+def fleet2(backend: Any, reward: Any, theta0: Any, ids: torch.Tensor, key: torch.Tensor, num_unique: int,
+           steps: int, pop: int, member_batch: int, opt: Dict[str, Any], dev: torch.device,
+           graphs: Dict[str, Any]) -> Dict[str, Any]:
+    """The ``fleet2`` fields: two jobs a tick through one W=2 fleet program
+    against the same two jobs through one solo program, one after the other
+    (the solo program's outputs are its graph's buffers, so each job's θ and
+    Δθ are cloned out before the other job replays it)."""
+    from ..lora import stack_adapters
+    from ..train.config import TrainConfig
+    from ..train.trainer import fleet_scalar_args, make_es_step, make_fleet_step
+    from ..utils import threefry
+    from ..utils.graphs import GraphCache, graphs_on
+    from ..utils.pytree import tree_map
+
+    tc = TrainConfig(pop_size=pop, sigma=0.01, egg_rank=4, prompts_per_gen=num_unique, batches_per_gen=1,
+                     member_batch=member_batch, promptnorm=True, reward_tile=opt["reward_tile"],
+                     noise_dtype=opt["noise_dtype"], tower_dtype=opt["tower_dtype"], pop_fuse=True,
+                     base_quant=opt["base_quant"])
+    graph = graphs_on(dev)
+    fleet = make_fleet_step(backend, reward, tc, num_unique, 1, 2, dev, graphs=GraphCache(dev, graph=graph))
+    stacked = stack_adapters([theta0, theta0])
+    ids2 = torch.stack([ids, ids])
+    rows = tuple(torch.from_numpy(x).to(dev) for x in fleet_scalar_args([tc, tc]))
+    jobs = (threefry.prng_key(2, dev), threefry.prng_key(4, dev))
+    th, dl, metrics, _ = fleet(tree_map(torch.clone, stacked), tree_map(torch.zeros_like, stacked), ids2,
+                               torch.stack([threefry.fold_in(k, 1000) for k in jobs]), *rows)
+    float(metrics["opt_score_mean"].sum())  # warm-up (the capture)
+    keys_e = [torch.stack([threefry.fold_in(k, e) for k in jobs]) for e in range(steps)]
+    t0 = time.perf_counter()
+    for e in range(steps):
+        th, dl, metrics, _ = fleet(th, dl, ids2, keys_e[e], *rows)
+    float(metrics["opt_score_mean"].sum())
+    fused_s = (time.perf_counter() - t0) / steps
+    if graph:
+        graphs["fleet2"] = _stats(fleet)
+    del fleet, th, dl, metrics
+
+    solo = make_es_step(backend, reward, tc, num_unique, 1, dev, stateful_delta=True,
+                        graphs=GraphCache(dev, graph=graph))
+    state = [(tree_map(torch.clone, theta0), tree_map(torch.zeros_like, theta0)) for _ in jobs]
+
+    def advance(j: int, k: torch.Tensor):
+        th_j, dl_j, m_j, _ = solo(*state[j], ids, k)
+        state[j] = (tree_map(torch.clone, th_j), tree_map(torch.clone, dl_j))
+        return m_j["opt_score_mean"].clone()
+
+    for j, k in enumerate(jobs):
+        float(advance(j, threefry.fold_in(k, 1000)))  # warm-up (the capture)
+    t0 = time.perf_counter()
+    for e in range(steps):
+        last = [advance(j, keys_e[e][j]) for j in range(len(jobs))]
+    float(sum(last))
+    seq_s = (time.perf_counter() - t0) / steps
+    return {"step_time_fleet2_fused_s": fused_s, "step_time_fleet2_sequential_s": seq_s,
+            "fleet2_amortization": round(seq_s / fused_s, 4) if fused_s > 0 else None}
 
 
 def _stats(step) -> Dict[str, Any]:

@@ -108,7 +108,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_every", type=int, default=10)
     p.add_argument("--trace", type=str2bool, nargs="?", const=True, default=False,
                    help="write a host-side span timeline to run_dir/trace.jsonl")
-    p.add_argument("--es_degenerate_warn_epochs", type=int, default=5)
+    p.add_argument("--metrics_port", type=int, default=0,
+                   help="live telemetry: serve /metrics (Prometheus) + /healthz (JSON) on this port from a "
+                        "daemon thread (0 = off)")
+    p.add_argument("--metrics_host", default="0.0.0.0",
+                   help="exporter bind address (default all interfaces; use 127.0.0.1 for loopback-only on "
+                        "shared machines: the endpoint is unauthenticated)")
+    p.add_argument("--metrics_linger_s", type=float, default=0.0,
+                   help="keep the exporter up this many seconds after the run ends so pull-based scrapers "
+                        "catch the final state of a short run (0 = stop with the run)")
+    p.add_argument("--slo", default=None,
+                   help="declarative SLOs evaluated per epoch, e.g. 'latency_p95=2s,availability=99.9' — "
+                        "burn-rate gauges under slo/* plus loud stderr alerts (obs/slo.py)")
+    p.add_argument("--heartbeat_interval_s", type=float, default=0.0,
+                   help="liveness lines on stderr every N seconds during compile (warm-up + capture), "
+                        "dispatch and checkpoint phases (0 = off)")
+    p.add_argument("--stall_cap_s", type=float, default=0.0,
+                   help="warn when a heartbeat-wrapped phase exceeds this many seconds (0 = off; needs "
+                        "--heartbeat_interval_s)")
+    p.add_argument("--stall_action", default="warn", choices=["warn", "checkpoint_exit"],
+                   help="stall-watchdog escalation: warn = stderr line only; checkpoint_exit = latch a "
+                        "graceful preemption (checkpoint at the next epoch boundary + exit 0)")
+    p.add_argument("--es_degenerate_warn_epochs", type=int, default=5,
+                   help="warn after N consecutive zero-fitness generations (0 = off)")
+    p.add_argument("--anomaly_detect", type=str2bool, default=True,
+                   help="ES-health anomaly watchdog: robust changepoint detection over es/* streams "
+                        "(update-cosine collapse, pair-asym spikes, cap saturation, reward-std collapse) → "
+                        "anomalies.jsonl + anomaly/* gauges + stderr ALERT/CLEAR + /healthz (obs/anomaly.py)")
+    p.add_argument("--anomaly_window", type=int, default=32,
+                   help="anomaly watchdog rolling-baseline window, in logged dispatches")
+    p.add_argument("--anomaly_min_epochs", type=int, default=8,
+                   help="observations required per stream before the watchdog issues any verdict (keeps "
+                        "short smoke runs structurally silent)")
+    p.add_argument("--anomaly_z", type=float, default=8.0,
+                   help="robust z-score magnitude that counts as anomalous")
     p.add_argument("--quality", type=str2bool, default=True)
     p.add_argument("--quality_hack_window", type=int, default=4)
     p.add_argument("--run_dir", default="runs")
@@ -300,6 +333,10 @@ def train_config(args):
         theta_max_norm=args.theta_max_norm, max_step_norm=args.max_step_norm,
         reward_weights=(args.w_aesthetic, args.w_text, args.w_noart, args.w_pick),
         seed=args.seed, save_every=args.save_every, trace=args.trace,
+        metrics_port=args.metrics_port, metrics_host=args.metrics_host, metrics_linger_s=args.metrics_linger_s,
+        slo=args.slo, heartbeat_interval_s=args.heartbeat_interval_s, stall_cap_s=args.stall_cap_s,
+        stall_action=args.stall_action, anomaly_detect=args.anomaly_detect, anomaly_window=args.anomaly_window,
+        anomaly_min_epochs=args.anomaly_min_epochs, anomaly_z=args.anomaly_z,
         es_degenerate_warn_epochs=args.es_degenerate_warn_epochs, quality=args.quality,
         quality_hack_window=args.quality_hack_window, run_dir=args.run_dir, run_name=args.run_name,
         resume=args.resume, ckpt_keep=args.ckpt_keep, ckpt_legacy_mirror=args.ckpt_legacy_mirror,

@@ -2,13 +2,13 @@
 every field with the JAX package's name, type and default, and the same
 ``auto_run_name``).
 
-The port's ``run_training`` runs the single-process loop. The fields of
-machinery it does not have yet raise there when set away from their
-defaults (:func:`unported_settings`, naming the ROADMAP item that brings
-each). Three defaults are accepted although nothing reads them yet:
-``anomaly_detect`` (the ES-health anomaly watchdog, queue A item 5b),
-``log_hist_every`` (θ/Δθ histograms, item 10) and the ``desync_*`` check
-(multi-process only, item 7). ``remat``, ``tower_dtype`` and
+The port's ``run_training`` runs the single-process loop with its live
+telemetry (exporter, SLOs, heartbeats, the stall and anomaly watchdogs).
+The fields of machinery it does not have yet raise there when set away
+from their defaults (:func:`unported_settings`, naming the ROADMAP item
+that brings each). Two defaults are accepted although nothing reads them
+yet: ``log_hist_every`` (θ/Δθ histograms, item 10) and the ``desync_*``
+check (multi-process only, item 7). ``remat``, ``tower_dtype`` and
 ``base_quant`` are recorded for the checkpoint manifest; the backend's
 and reward suite's trees carry the applied values.
 """
@@ -104,10 +104,6 @@ class TrainConfig:
 
 # (field, is it set away from what the port runs?, the ROADMAP item that ports it)
 _UNPORTED = (
-    ("metrics_port", lambda v: v != 0, "queue A item 5b (the trainer's exporter)"),
-    ("slo", lambda v: v is not None, "queue A item 5b (the trainer's SLOs)"),
-    ("heartbeat_interval_s", lambda v: v != 0, "queue A item 5b (heartbeats)"),
-    ("stall_cap_s", lambda v: v != 0, "queue A item 5b (the stall watchdog)"),
     ("faults", lambda v: v is not None, "queue A item 7 (fault injection)"),
     ("pop_host_shard", lambda v: v == "on", "queue A item 7 (host-sharded population)"),
     ("pop_shard_update", lambda v: v == "on", "queue A item 7 (the pop-sharded update)"),

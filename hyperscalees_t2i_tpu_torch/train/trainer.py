@@ -25,36 +25,51 @@ under ``torch.inference_mode()``.
 dispatch), ``metrics.jsonl``, ``quality.jsonl``, checkpoint slots and
 resume, the non-finite rollback, SIGTERM/SIGINT preemption. Its θ₀ comes
 from :func:`_init_theta` and each epoch's draws from :func:`es_draws`, so a
-test can put the JAX package's draws in their place. The pod machinery of
-the JAX loop (host-sharded programs, coordinated commit, elastic
-membership, the desync check, exporter, SLOs, anomaly watchdog, heartbeats,
-fault injection, the XLA ledger, histograms, strips and snapshots) is not
-here; ``train.config.unported_settings`` names the ROADMAP item of each.
+test can put the JAX package's draws in their place. Its live telemetry is
+the JAX loop's: ``/metrics`` and ``/healthz`` (``tc.metrics_port``), SLOs
+(``tc.slo``), heartbeats around the compile (warm-up and capture),
+dispatch and checkpoint phases with the stall watchdog, and the ES-health
+anomaly watchdog. The pod machinery of the JAX loop (host-sharded
+programs, coordinated commit, elastic membership, the desync check, fault
+injection, the XLA ledger, histograms, strips and snapshots) is not here;
+``train.config.unported_settings`` names the ROADMAP item of each.
+
+:func:`make_fleet_step` advances W independent jobs in one program
+(``train.fleet`` schedules them).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
 import sys
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
 from ..es.caps import cap_step_norm, cap_theta_norm, global_norm
-from ..es.noiser import es_update, sample_noise
+from ..es.noiser import es_update, lane_slice, sample_noise
 from ..es.sampling import epoch_key
 from ..es.scoring import prompt_normalized_scores, standardize_fitness_masked
+from ..lora import stack_adapters
+from ..obs.anomaly import AnomalyWatchdog
 from ..obs.es_health import DegeneracyWatchdog, es_health_metrics
+from ..obs.exporter import maybe_exporter, note_health, reset_health
+from ..obs.heartbeat import device_memory_gauges, emit_heartbeat, maybe_heartbeat
 from ..obs.metrics import MetricsRegistry, record_device_memory
 from ..obs.quality import QualityLedger, quality_metrics
+from ..obs.slo import build_trainer_evaluator
 from ..obs.trace import Tracer
-from ..parallel.pop_eval import make_population_evaluator
+from ..parallel.pop_eval import make_fleet_evaluator, make_population_evaluator
 from ..resilience.checkpoints import CheckpointStore
 from ..resilience.preempt import HALT_MARKER, PREEMPT_MARKER, PreemptionHandler, write_marker
 from ..resilience.rollback import RollbackController
+from ..resilience.telemetry import host_snapshot_payload
 from ..utils import threefry
 from ..utils.graphs import GraphCache
 from ..utils.pytree import tree_leaves, tree_map, tree_replace_leaves
@@ -66,9 +81,11 @@ REWARD_KEYS = ("clip_aesthetic", "clip_text", "no_artifacts", "pickscore", "comb
 
 
 def _combine_and_update(theta: Any, prev_delta: Any, noise: Any, rewards: Dict[str, torch.Tensor], *,
-                        tc: TrainConfig, es_cfg, pop: int, num_unique: int, repeats: int):
+                        tc: TrainConfig, es_cfg, pop: int, num_unique: int, repeats: int,
+                        lr: Optional[torch.Tensor] = None):
     """Rewards → scores → fitness → EGGROLL update → caps → metrics.
-    Returns ``(θ', Δθ, metrics, opt_scores)``."""
+    Returns ``(θ', Δθ, metrics, opt_scores)``. ``lr`` (the fleet's per-job
+    f32 ``lr_scale·σ`` as a device tensor) replaces ``es_cfg.lr``."""
     # S[k, j]: mean over repeats (grouped layout [r][m])
     S = rewards["combined"].reshape(pop, repeats, num_unique).mean(dim=1)
     if tc.promptnorm:
@@ -77,7 +94,7 @@ def _combine_and_update(theta: Any, prev_delta: Any, noise: Any, rewards: Dict[s
         opt_scores = S.mean(dim=1)
         sigma_bar = torch.zeros((), device=S.device)
     fitness, n_finite = standardize_fitness_masked(opt_scores)
-    theta_new = es_update(theta, noise, fitness, pop, es_cfg)
+    theta_new = es_update(theta, noise, fitness, pop, es_cfg, lr=lr)
     theta_new, step_scale = cap_step_norm(theta, theta_new, tc.max_step_norm)
     theta_new, theta_scale = cap_theta_norm(theta_new, tc.theta_max_norm)
     delta = tree_replace_leaves(theta, [a - b for a, b in zip(tree_leaves(theta_new), tree_leaves(theta))])
@@ -205,6 +222,102 @@ def make_es_step(backend: Any, reward_fn: Any, tc: TrainConfig, num_unique: int,
     return step
 
 
+def fleet_scalar_args(tc_list: Sequence[TrainConfig]) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-job ``(sigmas [W], c_scales [W], lrs [W])`` as float32 numpy rows,
+    each value rounded once from float64: ``f32(σ_j)``, ``f32(σ_j/√r_j)``,
+    ``f32(lr_scale_j·σ_j)``. These are the numbers the solo step uses (its
+    constants and its Python-float multiplies round the same float64 values
+    once), so a fleet job gets its solo bits; computing ``σ/√r`` on the
+    device from an f32 σ would round twice."""
+    sigmas, c_scales, lrs = [], [], []
+    for tcj in tc_list:
+        cfg = tcj.es_config()
+        sigmas.append(np.float32(cfg.sigma))
+        c_scales.append(np.float32(cfg.sigma / math.sqrt(cfg.rank)))
+        lrs.append(np.float32(cfg.lr))
+    return (np.asarray(sigmas, np.float32), np.asarray(c_scales, np.float32), np.asarray(lrs, np.float32))
+
+
+def make_fleet_step(backend: Any, reward_fn: Any, tc: TrainConfig, num_unique: int, repeats: int, width: int,
+                    device: DeviceLike = None, *, graphs: Optional[GraphCache] = None):
+    """Build the step that advances ``width`` independent ES jobs against
+    one resident base in one program (port of the JAX ``make_fleet_step``).
+
+    Returns ``fleet_step(stacked_theta, stacked_prev_delta, flat_ids
+    [W, m·r], keys [W, 2], sigmas [W], c_scales [W], lrs [W]) → (θ′
+    stacked, Δθ stacked, metrics, opt_scores [W, pop])``: θ and Δθ are
+    adapter trees whose leaves carry a leading job axis
+    (``lora.stack_adapters`` of W solo trees), every metric gains a leading
+    job axis, and ``metrics["fleet_reward_rows"]`` is the ``[W, pop, B]``
+    combined reward rows. ``sigmas``/``c_scales``/``lrs`` are
+    :func:`fleet_scalar_args`' rows on the device.
+
+    Job ``j`` is the solo step with its own hyperparameters: its key splits
+    as the solo step's (:func:`es_draws`), its noise is ``sample_noise``
+    under its own key, its members run through
+    ``parallel.pop_eval.make_fleet_evaluator`` (the solo chunks, σ_j as an
+    input), and its update is the solo :func:`_combine_and_update` on its
+    slice with ``lr=lrs[j]``, a loop over W inside the program: promptnorm
+    and standardization are per job (``es.jobwise_prompt_normalized_scores``),
+    never pooled. So job ``j``'s rows, θ′ and Δθ are bitwise the solo step's
+    for the same θ, Δθ, ids and key; the loop's W trips of small ops are
+    paid once, at the capture.
+
+    ``tc`` is the cohort (``train.fleet.COHORT_FIELDS``); its σ and lr are
+    not read. The step is one program of ``graphs`` (``None``: its own
+    :func:`program_cache`), keyed ``("fleet", W, m, r)``: the stacked θ and
+    Δθ, ids, keys and the three rows are its static inputs, so any job mix
+    at a width is an argument change, never a new capture. Outputs are the
+    graph's buffers (clone to keep). ``step.graphs`` is the cache;
+    ``step.traces`` counts the Python runs of the program body (on the card
+    a warm-up and a capture per program, on the CPU every call)."""
+    dev = resolve_device(device)
+    if dev != backend.device:
+        raise ValueError(f"make_fleet_step on {dev}, but the backend lives on {backend.device}")
+    W = int(width)
+    if W < 1:
+        raise ValueError(f"fleet width must be >= 1, got {width}")
+    es_cfg = tc.es_config()
+    pop = tc.pop_size
+    count = num_unique * repeats
+    eval_fleet = make_fleet_evaluator(backend.generate_p, reward_fn, W, pop, es_cfg, tc.member_batch,
+                                      reward_tile=tc.reward_tile, pop_fuse=tc.pop_fuse)
+    if graphs is None:
+        graphs = program_cache(backend, dev)
+
+    def core(stacked_theta, stacked_prev, ids, keys, sigmas, c_scales, lrs):
+        run.traces += 1
+        thetas = [lane_slice(stacked_theta, j) for j in range(W)]
+        draws = [es_draws(backend, thetas[j], keys[j], pop, es_cfg, count) for j in range(W)]
+        noises = [d[0] for d in draws]
+        gen_noise = torch.stack([d[1] for d in draws]).to(torch.float32)
+        rewards = eval_fleet(thetas, noises, ids, gen_noise, sigmas, c_scales)
+        outs = [_combine_and_update(thetas[j], lane_slice(stacked_prev, j), noises[j],
+                                    {k: v[j] for k, v in rewards.items()}, tc=tc, es_cfg=es_cfg, pop=pop,
+                                    num_unique=num_unique, repeats=repeats, lr=lrs[j])
+                for j in range(W)]
+        theta_new = stack_adapters([o[0] for o in outs])
+        delta = stack_adapters([o[1] for o in outs])
+        metrics = {k: torch.stack([o[2][k] for o in outs]) for k in outs[0][2]}
+        metrics["fleet_reward_rows"] = rewards["combined"]
+        return theta_new, delta, metrics, torch.stack([o[3] for o in outs])
+
+    def run(stacked_theta, stacked_prev_delta, flat_ids, keys, sigmas, c_scales, lrs):
+        ids = device_ids(flat_ids, dev).reshape(W, -1)
+        if ids.shape[1] != count:
+            raise ValueError(f"{ids.shape[1]} prompt ids a job for a plan of {num_unique}×{repeats}")
+        rows = [torch.as_tensor(x, dtype=torch.float32).to(dev) for x in (sigmas, c_scales, lrs)]
+        if any(tuple(r.shape) != (W,) for r in rows) or tuple(keys.shape) != (W, 2):
+            raise ValueError(f"a fleet of {W} takes keys [W, 2] and σ/c/lr rows [W]")
+        to_dev = lambda t: t.to(dev)  # noqa: E731
+        return graphs(("fleet", W, num_unique, repeats), core, tree_map(to_dev, stacked_theta),
+                      tree_map(to_dev, stacked_prev_delta), ids, keys.to(dev), *rows)
+
+    run.graphs = graphs
+    run.traces = 0
+    return run
+
+
 @dataclasses.dataclass
 class TrainState:
     theta: Any
@@ -245,7 +358,27 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
     ``on_epoch_end(epoch, scalars)``, and a checkpoint plus
     ``preempted.json`` at the boundary after SIGTERM/SIGINT. With
     ``tc.resume`` the newest valid slot (θ, Δθ, the spent rollbacks and a
-    shrunk σ), else the legacy mirror, sets the starting point."""
+    shrunk σ), else the legacy mirror, sets the starting point.
+
+    Telemetry, as the JAX loop wires it: each logged dispatch ticks the SLO
+    evaluator (``tc.slo``, ``obs.slo.build_trainer_evaluator``) and the
+    anomaly watchdog (``tc.anomaly_detect``: ``anomalies.jsonl`` and
+    ``anomaly/*``), both merged into the row, then publishes the row's
+    numbers to the exporter by reference swap. ``tc.metrics_port`` serves
+    ``/metrics`` (the run's registries, the SLO and anomaly registries and
+    the last row's scalars) and ``/healthz`` with the JAX keys
+    (``backend``, ``run_dir``, ``topology``, ``membership``,
+    ``resilience``, ``queue: None``, ``sentry_verdict`` when the run dir
+    holds one): ``membership`` and ``resilience`` carry the one-process
+    values (one incarnation, rank 0 live, no transitions; this run's
+    ``resilience/*`` counters), the pod's views being ROADMAP items 7 and
+    10. ``tc.heartbeat_interval_s`` wraps the compile (a plan's first
+    dispatch: warm-up and capture), each later dispatch and each checkpoint
+    in a heartbeat; a heartbeat reads only the allocator's counters, never
+    a CUDA call that could break a capture. ``tc.stall_cap_s`` arms the
+    stall watchdog: ``stall_action="checkpoint_exit"`` requests a
+    preemption, so the run saves at the next boundary and ends as
+    preempted."""
     unported = unported_settings(tc)
     if unported:
         raise NotImplementedError("the port's run_training does not have this machinery yet: "
@@ -274,6 +407,7 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
 
     def degenerate(consecutive: int) -> None:
         registry.inc("es_degenerate_warnings")
+        emit_heartbeat("train", "es_degenerate", consecutive=consecutive)
         print(f"[obs] WATCHDOG: fitness degenerate for {consecutive} consecutive logged generations — the ES "
               "update is a no-op (constant or all-NaN rewards; see es/fitness_zero and es/reward_std in "
               "metrics.jsonl)", file=sys.stderr, flush=True)
@@ -282,7 +416,64 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
     to_dev = lambda t: t.to(dev)  # noqa: E731
     tc_live = tc  # σ shrinks here after a sigma_shrink rollback
     preempt = PreemptionHandler(registry=res_registry).install()
+
+    # ---- live telemetry ----------------------------------------------------
+    reset_health()
+    # the last row's numbers, published to the exporter's thread by swapping
+    # the dict in this holder (never mutated while a scrape may iterate it)
+    latest_scalars_ref: Dict[str, Dict[str, Any]] = {"scalars": {}}
+    slo_eval = build_trainer_evaluator(tc.slo, registry, res_registry) if tc.slo else None
+    anomaly_watchdog = (AnomalyWatchdog(run_dir=run_dir, window=tc.anomaly_window,
+                                        min_history=tc.anomaly_min_epochs, z_thresh=tc.anomaly_z)
+                        if tc.anomaly_detect else None)
+    incarnation = {"id": "pending"}
+
+    def healthz() -> Dict[str, Any]:
+        payload: Dict[str, Any] = {
+            "backend": backend.name,
+            "run_dir": str(run_dir),
+            "topology": topology,
+            "membership": {"incarnation": incarnation["id"], "live_ranks": [0], "transitions": []},
+            "resilience": host_snapshot_payload(registry=res_registry),
+            "queue": None,  # the trainer has no serving queue; the key is shared
+        }
+        verdict = run_dir / "sentry_verdict.json"
+        try:
+            if verdict.exists():
+                vdoc = json.loads(verdict.read_text())
+                payload["sentry_verdict"] = {"path": str(verdict), "pass": bool(vdoc.get("pass")),
+                                             "breaches": len(vdoc.get("breaches") or []),
+                                             "checked": vdoc.get("checked")}
+        except Exception as e:
+            payload["sentry_verdict"] = {"error": repr(e)}
+        return payload
+
+    def stall_warn(name: str, phase: str, elapsed: float) -> None:
+        registry.inc("stalls")
+        print(f"[obs] WATCHDOG: {name}/{phase} still running after {elapsed:.0f}s (stall cap "
+              f"{tc.stall_cap_s:.0f}s)", file=sys.stderr, flush=True)
+        if tc.stall_action == "checkpoint_exit":
+            # on the heartbeat thread: request() only latches a flag, the
+            # loop saves at the next boundary and ends as preempted
+            preempt.request(f"stall escalation: {name}/{phase} exceeded {tc.stall_cap_s:.0f}s "
+                            "(stall_action checkpoint_exit)")
+
+    def hb(phase: str, gauges: Any = lambda: device_memory_gauges(dev)):
+        return maybe_heartbeat("train", phase, interval_s=tc.heartbeat_interval_s, stall_cap_s=tc.stall_cap_s,
+                               on_stall=stall_warn, stall_payload={"stall_action": tc.stall_action},
+                               gauges=gauges)
+
+    exporter = None
     try:
+        exporter = maybe_exporter(
+            tc.metrics_port, host=tc.metrics_host,
+            registries=[registry, res_registry] + ([slo_eval.registry] if slo_eval is not None else [])
+            + ([anomaly_watchdog.registry] if anomaly_watchdog is not None else []),
+            scalar_sources=[lambda: latest_scalars_ref["scalars"]],
+            healthz_source=healthz,
+        )
+        if exporter is not None:
+            logger.info(f"live telemetry: /metrics + /healthz on port {exporter.port}")
         with tracer.span("setup"):
             theta = _init_theta(backend, tc, dev)
             start_epoch, restored_delta = 0, None
@@ -311,6 +502,7 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
             prev_delta = (tree_map(to_dev, restored_delta) if restored_delta is not None
                           else tree_map(torch.zeros_like, theta))
 
+        incarnation["id"] = f"i{start_epoch}.n1"
         state = TrainState(theta=theta, epoch=start_epoch, rollbacks=rollback_ctrl.rollbacks)
         step_cache: Dict[Tuple[int, int], Callable] = {}
         # one program per (m, r) plan: a CUDA graph on the card
@@ -324,7 +516,7 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
             nonlocal last_saved_boundary
             if last_saved_boundary == boundary:
                 return
-            with tracer.span("checkpoint"):
+            with tracer.span("checkpoint"), hb("checkpoint"):
                 save_checkpoint(run_dir, state.theta, boundary, reward, backend.name,
                                 config={**dataclasses.asdict(tc_live), "_rollbacks": rollback_ctrl.rollbacks},
                                 prev_delta=prev_delta, keep=tc.ckpt_keep, legacy_mirror=tc.ckpt_legacy_mirror,
@@ -368,7 +560,9 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                 # the chain's ids and keys, staged on the device before any replay
                 ids_k = device_ids([f for i in infos for f in i.flat_ids], dev).reshape(K, m * r)
                 keys_k = torch.stack([epoch_key(tc.seed, epoch + j, dev) for j in range(K)])
-                with tracer.span("dispatch", epochs=K):
+                # a plan's first dispatch is its compile (warm-up and
+                # capture); no device gauges inside a timed dispatch
+                with tracer.span("dispatch", epochs=K), (hb("dispatch", gauges=None) if warm else hb("compile")):
                     # θ and Δθ carry through the program's buffers; one
                     # read-back at the chain's end
                     for j in range(K):
@@ -394,12 +588,23 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                     print(f"[resilience] WATCHDOG: non-finite/diverged theta at epoch {epoch} "
                           f"(theta_norm={scalars.get('theta_norm')}) — rollback #{rollback_ctrl.rollbacks}, "
                           f"action={rollback_action}", file=sys.stderr, flush=True)
+                if slo_eval is not None:
+                    slo_eval.tick()
+                    scalars.update(slo_eval.registry.snapshot())
+                if anomaly_watchdog is not None:
+                    anomaly_watchdog.observe(epoch, scalars)
+                    scalars.update(anomaly_watchdog.registry.snapshot())
                 if quality_ledger is not None:
                     scalars.update(quality_ledger.observe(epoch, scalars))
                 scalars.update(registry.snapshot())
                 scalars.update(res_registry.snapshot())
                 with tracer.span("log"):
                     logger.log(epoch, scalars)
+                latest_scalars_ref["scalars"] = {
+                    k: v for k, v in scalars.items()
+                    if isinstance(v, (int, float)) and not k.startswith(("obs/", "resilience/", "slo/", "anomaly/"))
+                }
+                note_health(last_completed_epoch=int(epoch))
 
                 if rollback_action is not None:
                     restored = None
@@ -451,4 +656,9 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                     break
         return state
     finally:
+        if exporter is not None:
+            if tc.metrics_linger_s > 0:
+                emit_heartbeat("train", "metrics_linger", linger_s=tc.metrics_linger_s)
+                time.sleep(tc.metrics_linger_s)
+            exporter.stop()
         preempt.uninstall()
