@@ -37,7 +37,12 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
    kv case, NaN garbage past ``kv_len`` and an all-masked row; K4 at
    Infinity-2B's 14 scales on its 8 rows (dh-128 self-attention against up
    to 9451 cache positions, masked cross-attention into 17 text positions
-   under the main path's mask; the plain version row by row); K4's
+   under the main path's mask; the plain version row by row); K1, K2 and
+   K3 at Infinity-2B's shapes in the main path's dtypes
+   (:func:`phase_inf_kernel_check`: K3 and K2 at every adapted block site
+   of each scale, 8 · pn² rows up to 32,768, K up to 8,192; K1 at the
+   int8 base's other sites, its f32 route at ``word_embed``,
+   ``text_proj``, ``pool_proj`` and the f32 towers); K4's
    invariance, bitwise: a row range, query ranges and a
    single query of VAR-d16's last scale alone against the full call; K1's
    batch invariance, bitwise: rows
@@ -81,13 +86,22 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
    the Infinity path (K4 at dh 128 and under a key mask): the tiny
    Infinity geometry in f32 on the card against the CPU with the released
    attention flags off and on (``generate``: bits equal, images within
-   1e-4; one ES step: θ′ and rows within 1e-4; K4 launches exact), then
-   Infinity-2B (``inf_2b``: 14 scales to 1024×1024, 32-bit tokenizer,
-   bf16, random weights) built by the rung's ``build_train_backend("2b")``
-   with CLIP-B/32 and CLIP-H/14 rewards (build time and peak memory; θ₀'s
-   norm against ``theta_max_norm``), ``run_training`` for 3 epochs (the
-   first warm): K4 exactly 896 launches per generate call and no K1-K3,
-   epoch s, images/s, peak memory, one generate call profiled;
+   1e-4; one ES step: θ′ and rows within 1e-4; K4 launches exact), and
+   with ``pop_fuse`` on an int8 and a float base (:func:`phase_inf_q8_reference`:
+   θ′ and rows within 1e-4, bits equal under the measured margin, K3, K1,
+   K4 and K2, K4 exact), then Infinity-2B (``inf_2b``: 14 scales to
+   1024×1024, 32-bit tokenizer, bf16, random weights) built by the rung's
+   ``build_train_backend("2b")`` with CLIP-B/32 and CLIP-H/14 rewards
+   (build time and peak memory; θ₀'s norm against ``theta_max_norm``),
+   ``run_training`` as a CUDA graph for 3 epochs (the first the warm-up
+   and capture): K4 exactly 896 launches per generate call and no K1-K3,
+   counted at the warm-up and on the device in a profiled replayed epoch,
+   epoch s, images/s, idle share, memory (weights, KV workspace, pool),
+   one eager generate call profiled, one eager generate call with
+   ``pop_fuse`` (K2 2,720); then Infinity-2B on the int8 base with
+   ``pop_fuse`` (:func:`phase_inf_q8_es`: ``run_training`` as a graph, K3
+   2,720, K4 896 and K1 as derived per generate call on the device, one
+   epoch against eager in turns, bitwise or within 1e-4);
 7. the Sana main path: one EGGROLL-ES epoch step of the flagship rung
    (``RUNG_PLAN``/``RUNG_OPT["flagship"]``: pop 4, 4 prompts, member_batch
    1, reward_tile 1, bf16 noise store, int8 DiT + DC-AE + CLIP-B/32 +
@@ -160,6 +174,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import math
 import statistics
@@ -256,7 +271,39 @@ K4_BEFORE_MS = (0.0408, 0.0289, 0.0529, 0.0418, 0.0580, 0.0903, 0.1387, 0.3196, 
 # of 8 rows (1 lane × 4 images × cond/uncond)
 INF_PATCH_NUMS = (1, 2, 3, 4, 5, 7, 9, 12, 16, 21, 27, 36, 48, 64)
 INF_ROWS, INF_HEADS, INF_DH, INF_DEPTH, INF_TEXT = 8, 16, 128, 32, 17
-INF_EPOCHS = 3  # run_training epochs of phase_inf_es, the first one warm
+INF_EPOCHS = 3  # run_training epochs of phase_inf_q8_es, the first one the warm-up and capture
+# run_training epochs of phase_inf_es (a float base, the earlier Infinity path):
+# cut from 3 to 2, so that the whole script keeps its margin to its time limit
+INF_FLOAT_EPOCHS = 2
+# Infinity-2B's adapted block sites (K3 over the int8 base, K2 over a bf16
+# one, with pop_fuse): (site, K, N, sites a layer), each run once a layer
+# (32) a scale on 8 · pn² rows (1 lane × 4 images × cond/uncond); cross_kv
+# once a layer a call, on the 8 × 17 text rows (16 hash-fallback positions
+# and the null token). Factors r_l 8, r_e 4, the noise f32 (inf_2b's knobs).
+INF_CHAIN_SITES = [("qkv", 2048, 6144, 1), ("attn_proj + cross_q + cross_proj", 2048, 2048, 3),
+                   ("fc1", 2048, 8192, 1), ("fc2", 8192, 2048, 1)]
+INF_CROSS_KV = ("cross_kv", 2048, 4096)
+INF_IMAGES = INF_ROWS // 2  # images a generate call (CFG doubles the rows)
+
+
+def inf_k1_shapes():
+    """K1's calls of one Infinity-2B generate → decode → reward call on the
+    int8 base: ``(site, rows, K, N, dtype on the main path, calls)``. The
+    text and pool projections and ``word_embed`` take f32 activations, as
+    in the JAX package; ``head`` bf16 once a scale; ``word_embed`` once a
+    scale but the last, on the next scale's 4 · pn² tokens; the BSQ
+    decoder's one int8 1×1 conv (stage 1's skip, 512 → 256 at 128 × 128;
+    its 3×3 convs dequantize for cuDNN, stage 3's skip is below the floor);
+    the towers' image sides in the rung's f32 over the call's 4 images
+    (their per-image shapes in ``K1_SHAPES``)."""
+    pns, imgs = INF_PATCH_NUMS, INF_IMAGES
+    out = [("text_proj", imgs * 16, 2048, 2048, "float32", 1), ("pool_proj", INF_ROWS, 2048, 2048, "float32", 1)]
+    out += [(f"head scale {si}", INF_ROWS * pn * pn, 2048, 64, "bfloat16", 1) for si, pn in enumerate(pns)]
+    out += [(f"word_embed scale {si + 1}", imgs * pn * pn, 32, 2048, "float32", 1) for si, pn in enumerate(pns[1:])]
+    out += [("bsq decoder stage 1 skip", imgs * 128 * 128, 512, 256, "bfloat16", 1)]
+    out += [(site, imgs * T, din, dout, "float32", es) for site, T, din, dout, _, _, es in K1_SHAPES
+            if site.startswith("clip")]
+    return out
 N_REQUESTS = 4
 TIMED_EPOCHS = 2
 
@@ -845,6 +892,124 @@ def phase_chain_check(torch, timed: bool = True):
     return rows
 
 
+def _inf_reps(flop: float, timed: bool) -> int:
+    return (20 if flop < 1e10 else 10 if flop < 1e11 else 5) if timed else 0
+
+
+def phase_inf_kernel_check(torch, timed: bool = True):
+    """K1, K2 and K3 at Infinity-2B's main-path shapes, in the main path's
+    dtypes, each against its plain version (bf16 within 2⁻⁷, f32 within
+    1e-5 of the largest output): K3 and K2 at every adapted block site at
+    each of the 14 scales (:data:`INF_CHAIN_SITES`, one lane, 8 · pn² rows
+    up to 32,768; ``cross_kv`` on the 136 text rows), K1 at every int8
+    matmul site of a call on the int8 base (:func:`inf_k1_shapes`: its f32
+    route at ``word_embed``, ``text_proj``, ``pool_proj`` and the f32
+    towers). Per shape: ``ms`` (CUDA events over ``_inf_reps`` calls
+    rotating over ≥ 100 MB of input copies), the plain version's ``ms``,
+    the kernel's ``device_ms`` under ``torch.profiler``, the library call's
+    ``ms`` (K1: ``torch.matmul`` on the pre-dequantized weight; K3: that
+    plus ``addmm`` with prebuilt ``a_k``, ``b_k``; K2: two ``torch.matmul``
+    with prebuilt ``a_k``, ``b_k``) and the bound. Returns ``{"int8_matmul",
+    "lora_chain", "fused_qlora": rows}`` with ``calls_per_call`` (calls of
+    one generate call)."""
+    from hyperscalees_t2i_tpu_torch.lora import effective_factor
+    from hyperscalees_t2i_tpu_torch.ops.fused_lora import member_lora_delta, member_lora_delta_reference
+    from hyperscalees_t2i_tpu_torch.ops.fused_qlora import fused_qlora_matmul, fused_qlora_reference
+    from hyperscalees_t2i_tpu_torch.ops.quant_mm import int8_matmul, int8_matmul_reference
+
+    g = torch.Generator(device="cuda").manual_seed(2048)
+    rows = {"int8_matmul": [], "lora_chain": [], "fused_qlora": []}
+
+    def sets_of(make, call_bytes):
+        return [make() for _ in range(max(1, min(8, math.ceil(100e6 / call_bytes))))]
+
+    def weight(din, dout):
+        q8 = torch.randint(-127, 128, (din, dout), generator=g, device="cuda", dtype=torch.int8)
+        return q8, torch.rand(1, dout, generator=g, device="cuda") * (2.0 / (127 * math.sqrt(din)))
+
+    def record(name, tag, site, T, din, dout, dt_name, calls, fns, flop, nbytes, marker, reps, **extra):
+        kernel, plain, lib, again = fns
+        out = kernel[0]()
+        torch.cuda.synchronize()
+        err, tol, ref_max = check_close(f"{name} at Infinity-2B {site} {T}x{din}x{dout} {dt_name}", out, plain[0](),
+                                        dt_name, torch, again=again)
+        ms = time_ms(torch, kernel, reps)
+        plain_ms = time_ms(torch, plain, reps)
+        lib_ms = time_ms(torch, lib, reps)
+        dev_ms = device_ms(torch, kernel, reps, marker)
+        b_ms, b_by = bound(dt_name, flop, nbytes)
+        rows[name].append(dict(site=site, T=T, din=din, dout=dout, dtype=dt_name, main_path=True,
+                               calls_per_call=calls, max_abs_err=err, tol=tol, ref_max=ref_max, ms=ms,
+                               plain_ms=plain_ms, library_ms=lib_ms, device_ms=dev_ms, bound_ms=b_ms, bound_by=b_by,
+                               tflops=flop / ms / 1e9 if reps else math.nan, **extra))
+        log(f"[{tag}-inf] {site:34s} T={T:5d} {din:5d}x{dout:5d} {dt_name:8s} calls {calls:4d} err={err:.3g} "
+            f"rel={err / ref_max:.3g} ms={ms:.4f} plain={plain_ms:.4f} library={lib_ms:.4f} device_ms={dev_ms:.4f} "
+            f"bound={b_ms:.4f} ({b_by})")
+
+    # K3 and K2 at the adapted block sites
+    ndt = torch.float32
+    chain = [(site, INF_ROWS * pn * pn, K, N, per * INF_DEPTH, si)
+             for site, K, N, per in INF_CHAIN_SITES for si, pn in enumerate(INF_PATCH_NUMS)]
+    chain.append((INF_CROSS_KV[0], INF_ROWS * INF_TEXT, INF_CROSS_KV[1], INF_CROSS_KV[2], INF_DEPTH, None))
+    for site, T, din, dout, calls, si in chain:
+        label = site if si is None else f"{site} scale {si}"
+        fac_bytes = 4 * (din * R_L + R_L * dout) + 4 * (din + 2 * R_L + dout) * R_E + 8
+        chain_flop = 2.0 * T * ((din + dout) * (R_L + R_E) + 2 * R_L * R_E)
+
+        def make(T=T, din=din, dout=dout):
+            x = torch.randn(T, din, generator=g, device="cuda").to(torch.bfloat16)
+            a, b = _factor(torch, g, din, R_L, ndt), _factor(torch, g, R_L, dout, ndt)
+            q8, scale = weight(din, dout)
+            return dict(x=x, a=a, b=b, q8=q8, scale=scale, w=(q8.float() * scale).to(torch.bfloat16),
+                        ak=effective_factor(a, torch.bfloat16), bk=effective_factor(b, torch.bfloat16))
+
+        k3_bytes = 2 * (T * din + T * dout) + din * dout + 4 * dout + fac_bytes
+        sets = sets_of(make, k3_bytes)
+        s0 = sets[0]
+        reps = _inf_reps(chain_flop + 2.0 * T * din * dout, timed)
+        k3 = lambda s: fused_qlora_matmul(s["x"], s["q8"], s["scale"], s["a"], s["b"], LORA_SCALE)  # noqa: E731
+        k3p = lambda s: fused_qlora_reference(s["x"], s["q8"], s["scale"], s["a"], s["b"], LORA_SCALE)  # noqa: E731
+        record("fused_qlora", "k3", label, T, din, dout, "bfloat16", calls,
+               ([lambda s=s: k3(s) for s in sets], [lambda s=s: k3p(s) for s in sets],
+                [lambda s=s: torch.addmm(torch.matmul(s["x"], s["w"]), torch.matmul(s["x"], s["ak"]), s["bk"],
+                                         alpha=LORA_SCALE) for s in sets], lambda: (k3(s0), k3p(s0))),
+               chain_flop + 2.0 * T * din * dout, k3_bytes, "::qlora_", reps, noise_dtype="float32")
+        k2 = lambda s: member_lora_delta(s["x"], s["a"], s["b"], LORA_SCALE)  # noqa: E731
+        k2p = lambda s: member_lora_delta_reference(s["x"], s["a"], s["b"], LORA_SCALE)  # noqa: E731
+        record("lora_chain", "k2", label, T, din, dout, "bfloat16", calls,
+               ([lambda s=s: k2(s) for s in sets], [lambda s=s: k2p(s) for s in sets],
+                [lambda s=s: torch.matmul(torch.matmul(s["x"], s["ak"]), s["bk"]) * LORA_SCALE for s in sets],
+                lambda: (k2(s0), k2p(s0))),
+               chain_flop, 2 * (T * din + T * dout) + fac_bytes, "::lora_chain_", _inf_reps(chain_flop, timed),
+               noise_dtype="float32")
+        del sets, s0
+        torch.cuda.empty_cache()
+
+    # K1 at the other int8 sites of a call on the int8 base
+    for site, T, din, dout, dt_name, calls in inf_k1_shapes():
+        dt = getattr(torch, dt_name)
+        esize = dt.itemsize
+        call_bytes = T * din * esize + din * dout + 4 * dout + T * dout * esize
+
+        def make(T=T, din=din, dout=dout, dt=dt):
+            x = torch.randn(T, din, generator=g, device="cuda").to(dt)
+            q8, scale = weight(din, dout)
+            return dict(x=x, q8=q8, scale=scale, w=(q8.float() * scale).to(dt))
+
+        sets = sets_of(make, call_bytes)
+        s0 = sets[0]
+        k1 = lambda s: int8_matmul(s["x"], s["q8"], s["scale"])  # noqa: E731
+        k1p = lambda s: int8_matmul_reference(s["x"], s["q8"], s["scale"])  # noqa: E731
+        flop = 2.0 * T * din * dout
+        record("int8_matmul", "k1", site, T, din, dout, dt_name, calls,
+               ([lambda s=s: k1(s) for s in sets], [lambda s=s: k1p(s) for s in sets],
+                [lambda s=s: torch.matmul(s["x"], s["w"]) for s in sets], lambda: (k1(s0), k1p(s0))),
+               flop, call_bytes, "::int8_mma_kernel" if dt_name == "bfloat16" else "::f32_", _inf_reps(flop, timed))
+        del sets, s0
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_small_reference(torch):
     """Tiny rung, f32, int8 base (every kernel quantized): the card's serving
     path (CUDA kernel, cuDNN convs with TF32 off) against the CPU's (plain
@@ -1300,22 +1465,23 @@ WRAPPER_KERNELS = {
 }
 
 
-def profiled_launches(kernels):
+def profiled_launches(kernels, what: int = 1):
     """K1-K4's launches on the device, from :func:`device_kernels`'s
     ``{name: (ms, launches)}``: each kernel found by its whole name,
     demangled or mangled. A CUDA graph's replays run the kernels without
-    their wrappers, so this is where a replay's launches are counted."""
+    their wrappers, so this is where a replay's launches are counted.
+    ``what=0`` sums their device ms instead."""
     import re
 
     pats = {w: re.compile("|".join(rf"(?<!\w){n}(?!\w)|(?<!\d){len(n)}{n}" for n in names))
             for w, names in WRAPPER_KERNELS.items()}
     out = {w: 0 for w in WRAPPER_KERNELS}
-    for name, (_, n) in kernels.items():
+    for name, counts in kernels.items():
         hits = [w for w, pat in pats.items() if pat.search(name)]
         if len(hits) > 1:
             raise AssertionError(f"the kernel {name!r} matches {hits}")
         if hits:
-            out[hits[0]] += n
+            out[hits[0]] += counts[what]
     return out
 
 
@@ -1945,15 +2111,17 @@ def train_overhead(torch, pairs: int = 8):
     return out
 
 
-def kernel_checks_once(torch, phases: str = "k1,chain,k4,k4inf"):
+def kernel_checks_once(torch, phases: str = "k1,chain,k4,k4inf,inf"):
     """K1-K4's checks against their plain versions (``phase_k1_check``,
-    ``phase_chain_check``, ``phase_k4_check``, ``phase_k4_infinity``)
+    ``phase_chain_check``, ``phase_k4_check``, ``phase_k4_infinity``,
+    ``phase_inf_kernel_check``)
     untimed (``timed=False``: each timed function called once, no CUDA
     events, no profiler): the form that runs under
     ``compute-sanitizer`` (not part of :func:`main`). Build first, outside
     the tool, then run e.g. ``compute-sanitizer --tool memcheck python3 -c
     "import torch, chip_smoke; chip_smoke.kernel_checks_once(torch, 'k1')"``."""
-    run = {"k1": phase_k1_check, "chain": phase_chain_check, "k4": phase_k4_check, "k4inf": phase_k4_infinity}
+    run = {"k1": phase_k1_check, "chain": phase_chain_check, "k4": phase_k4_check, "k4inf": phase_k4_infinity,
+           "inf": phase_inf_kernel_check}
     for name in phases.split(","):
         run[name](torch, timed=False)
         torch.cuda.synchronize()
@@ -2312,18 +2480,242 @@ def phase_inf_reference(torch):
     return results
 
 
+def expected_inf_launches(backend, reward, tc, batch: int):
+    """K1-K4 launches of one Infinity ES step, derived from the module
+    trees. A generate → decode → reward call runs each adapted block site
+    once a scale (``cross_kv`` once a call): with ``pop_fuse`` K3 over an
+    int8 node and K2 over a float one; without it K1 over an int8 node (the
+    adapter's delta in plain torch) and nothing over a float one. K1 also
+    at every other int8 matmul: ``text_proj`` and ``pool_proj`` once a call,
+    ``head`` once a scale, ``word_embed`` once a scale but the last, the BSQ
+    decoder's int8 1×1 convs and the towers' image sides once a call
+    (``ada_lin`` dequantizes in plain torch; ``reward=None``: generation
+    alone). K4 twice a layer a scale. Returns ``(per epoch, per call)`` as
+    :func:`expected_es_launches`."""
+    model = backend.model
+    S, depth = len(model.cfg.patch_nums), model.cfg.depth
+    modules = dict(model.named_modules())
+    adapted = model.lora_sites()
+    k1 = k2 = k3 = 0
+    for name in adapted:
+        per = 1 if name.endswith("cross_kv") else S
+        if hasattr(modules[name], "q8"):
+            k3, k1 = (k3 + per, k1) if tc.pop_fuse else (k3, k1 + per)
+        elif tc.pop_fuse:
+            k2 += per
+    once = {"text_proj": 1, "pool_proj": 1, "head": S, "word_embed": S - 1}
+    for name, mod in modules.items():
+        if name in adapted or name == "ada_lin" or not hasattr(mod, "q8"):
+            continue
+        if name not in once and not name.startswith("vq.decoder."):
+            raise AssertionError(f"an int8 matmul module {name} that the launch count does not know")
+        k1 += once.get(name, 1)
+    for tower in (reward.clip_model, reward.pick_model) if reward is not None else ():
+        if tower is not None:
+            image_side = [tower.patch_embed, tower.vision, tower.visual_projection]
+            k1 += sum(1 for part in image_side for m in part.modules() if hasattr(m, "q8"))
+    k4 = 2 * S * depth
+    calls = reward_calls(tc, batch)
+    return ({"int8_matmul": k1 * calls, "lora_chain": k2 * calls, "fused_qlora": k3 * calls,
+             "decode_attention": k4 * calls},
+            {"k1_per_call": k1, "k2_per_call": k2, "k3_per_call": k3, "k4_per_call": k4, "calls": calls})
+
+
+def _inf_cli_args(root, name: str, epochs: int, *extra: str):
+    """The train CLI's settings of the ``inf_2b`` run (pop 4, 4 prompts,
+    member_batch 1, ``epochs`` epochs, the rung's towers), plus ``extra``
+    flags."""
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
+    from hyperscalees_t2i_tpu_torch.train import cli
+
+    _, pop, m, mb = RUNG_PLAN["inf_2b"]
+    return cli.build_parser().parse_args([
+        "--backend", "infinity", "--pop_size", str(pop), "--prompts_per_gen", str(m), "--member_batch", str(mb),
+        "--num_epochs", str(epochs), "--run_dir", str(root), "--run_name", name, "--resume", "false",
+        "--tower_dtype", rung_opt("inf_2b")["tower_dtype"], *extra])
+
+
+def _recording_make(trainer, steps):
+    """``trainer.make_es_step`` that keeps every step it makes in ``steps``."""
+    real = trainer.make_es_step
+
+    def make(*a, **kw):
+        steps.append(real(*a, **kw))
+        return steps[-1]
+
+    return real, make
+
+
+def _inf_run(torch, backend, suite, tc, weights_bytes: int, what: str, against_eager: bool = False):
+    """``run_training`` of an ``inf_2b`` backend as a CUDA graph
+    (:func:`_train`: the warm-up epoch counted by the wrappers), then one
+    replayed epoch under ``torch.profiler`` whose K1-K4 on the device must
+    be the derived counts (busy ms, idle share against the replayed epochs'
+    ``step_time_s``). With ``against_eager``, the same step run eagerly
+    (``GraphCache(graph=False)``) first, from the same θ, Δθ, ids and key:
+    its launches counted by the wrappers, and the replay's θ′, Δθ, metrics,
+    scores and reward rows equal to its outputs bitwise, or within 1e-4
+    with the difference recorded. Memory as ``weights_bytes`` (allocated
+    after the build), the KV workspace and the graph's pool apart. Returns
+    ``(state, numbers)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperscalees_t2i_tpu_torch.es.sampling import epoch_key
+    from hyperscalees_t2i_tpu_torch.train import trainer
+    from hyperscalees_t2i_tpu_torch.utils.graphs import GraphCache
+
+    m = tc.prompts_per_gen
+    expected1, per = expected_inf_launches(backend, suite, tc, m)
+    reward = RecordingReward(suite, per["calls"])
+    steps = []
+    real, trainer.make_es_step = _recording_make(trainer, steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        state, history, launches, wall_s, eager_epochs = _train(torch, backend, reward, tc, expected1, what)
+    finally:
+        trainer.make_es_step = real
+    run_peak = torch.cuda.max_memory_allocated()
+    graph = next(iter(steps[0].graphs.stats().values()))
+    step_s = [h["step_time_s"] for h in history]
+    if len(step_s) != tc.num_epochs or eager_epochs != 1 or not all(math.isfinite(h["theta_norm"]) for h in history):
+        raise AssertionError(f"{what}: {len(step_s)} epochs, {eager_epochs} eager, θ norms "
+                             f"{[h['theta_norm'] for h in history]}")
+    # θ sits on theta_max_norm from epoch 0, so only ‖Δθ‖ shows an update
+    if not all(math.isfinite(h["delta_norm"]) and h["delta_norm"] > 0 for h in history):
+        raise AssertionError(f"{what} made no update: ‖Δθ‖ {[h['delta_norm'] for h in history]}")
+
+    def outputs(th, dl, metrics, opt_scores):
+        return dict(theta=_clone_tree(th), delta=_clone_tree(dl), metrics={k: t.clone() for k, t in metrics.items()},
+                    opt_scores=opt_scores.clone(), rows=reward_rows(torch, reward.rows, 1, m).float().clone())
+
+    ids = torch.as_tensor(backend.step_info(tc.num_epochs, m, 1).flat_ids, device="cuda")
+    theta = _clone_tree(state.theta)
+    delta = {k: {f: torch.zeros_like(t) for f, t in d.items()} for k, d in theta.items()}
+    key = epoch_key(tc.seed, 200, "cuda")
+    turns = {}
+    if against_eager:
+        eager = trainer.make_es_step(backend, reward, tc, m, 1, "cuda", stateful_delta=True,
+                                     graphs=GraphCache("cuda", graph=False))
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        x = outputs(*eager(theta, delta, ids, key))
+        torch.cuda.synchronize()
+        turns = dict(eager_epoch_s=time.perf_counter() - t0, eager_launches=_counters())
+        del eager
+        if turns["eager_launches"] != expected1:
+            raise AssertionError(f"{what}: the eager epoch counted {turns['eager_launches']}, expected {expected1}")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ev[0].record()
+        g = outputs(*steps[0](theta, delta, ids, key))
+        ev[1].record()
+        torch.cuda.synchronize()
+    replay_peak = torch.cuda.max_memory_allocated()
+    kernels, busy, n_kernels, _ = device_kernels(torch, prof)
+    prof_stats = dict(busy_ms=busy, kernels=n_kernels, event_ms=ev[0].elapsed_time(ev[1]),
+                      launches=profiled_launches(kernels), in_situ_ms=profiled_launches(kernels, what=0))
+    if prof_stats["launches"] != expected1 or _counters() != {k: 0 for k in expected1}:
+        raise AssertionError(f"{what}: a profiled replayed epoch launched {prof_stats['launches']} on the device "
+                             f"(expected {expected1}) and {_counters()} through the wrappers (expected none)")
+    if against_eager:
+        pairs = [(g[n][k][f], x[n][k][f]) for n in ("theta", "delta") for k in g[n] for f in g[n][k]]
+        pairs += [(g["metrics"][k], x["metrics"][k]) for k in g["metrics"]]
+        pairs += [(g["opt_scores"], x["opt_scores"]), (g["rows"], x["rows"])]
+        turns["graph_vs_eager_max_abs"] = worst = max(_max_abs(a, b) for a, b in pairs)
+        turns["graph_vs_eager_bitwise"] = worst == 0.0
+        if not worst <= 1e-4:
+            raise AssertionError(f"{what}: graph and eager differ by {worst}")
+    rows = g["rows"]
+    if tuple(rows.shape) != (tc.pop_size, m) or not bool(torch.isfinite(rows).all()):
+        raise AssertionError(f"{what}: reward rows {tuple(rows.shape)} not [{tc.pop_size}, {m}] and finite")
+    replayed = step_s[1:]
+    prof_stats["idle_share"] = 1.0 - busy / (1e3 * statistics.mean(replayed))
+    images = tc.pop_size * m
+    memory = dict(weights_gib=weights_bytes / 2**30, workspace_gib=graph["workspace_bytes"] / 2**30,
+                  pool_gib=graph["pool_bytes"] / 2**30, peak_allocated_gib=replay_peak / 2**30,
+                  run_peak_allocated_gib=run_peak / 2**30, total_gib=(replay_peak + graph["pool_bytes"]) / 2**30)
+    stats = dict(step_time_s=step_s, first_epoch_s=step_s[0], epoch_s=replayed, images_per_epoch=images,
+                 images_per_s=[images / s for s in replayed], wall_s=wall_s, launches=launches,
+                 eager_epochs=eager_epochs, launches_profiled=prof_stats["launches"],
+                 expected_launches_per_epoch=expected1, per_call=per, graph=graph, memory=memory, profile=prof_stats,
+                 reward_rows=rows.cpu().tolist(), theta_norm=[h["theta_norm"] for h in history],
+                 delta_norm=[h["delta_norm"] for h in history], **turns)
+    per_call_dev = {k: v // per["calls"] for k, v in prof_stats["launches"].items()}
+    log(f"[{what}] run_training as a CUDA graph: epochs {', '.join(f'{t:.3f}' for t in step_s)} s (the first: "
+        f"warm-up {graph['warmup_s']:.3f} s + capture {graph['capture_s']:.3f} s + instantiate "
+        f"{graph['instantiate_s']:.3f} s) = {', '.join(f'{x:.3f}' for x in stats['images_per_s'])} images/s replayed; "
+        f"a profiled replayed epoch busy {busy:.1f} ms over {n_kernels} kernels (K1-K4 in situ "
+        f"{ {k: round(v, 1) for k, v in prof_stats['in_situ_ms'].items()} } ms), idle share "
+        f"{prof_stats['idle_share']:.4f}; memory: weights {memory['weights_gib']:.2f} GiB, KV workspace "
+        f"{memory['workspace_gib']:.2f}, pool {memory['pool_gib']:.2f}, peak allocated under replay "
+        f"{memory['peak_allocated_gib']:.2f} (+ pool = {memory['total_gib']:.2f}); launches counted {launches} over "
+        f"{eager_epochs} eager epoch, on the device a replayed epoch {prof_stats['launches']} = {per_call_dev} a "
+        f"generate call (expected {per}); rows {tuple(rows.shape)}, delta_norm {stats['delta_norm']}" +
+        (f"; the same epoch eager {turns['eager_epoch_s']:.3f} s (launches {turns['eager_launches']}), graph against "
+         f"eager max abs {turns['graph_vs_eager_max_abs']:.3g}" if against_eager else ""))
+    del steps, reward, g
+    return state, stats
+
+
+def inf_fused_call(torch, backend, tc, theta, ids, gen_noise):
+    """One eager Infinity-2B generate call (decode included) over
+    ``backend``'s base with ``pop_fuse``: member 0's factored adapter
+    (``factored_member_theta``), the launch counters set to 0 just before
+    and read just after; K2 (a float base) or K3 (int8) at every adapted
+    block site a scale and K4 twice a layer a scale must be counted, as
+    :func:`expected_inf_launches` derives them for the generation. Its time
+    by CUDA events; images finite in [0, 1]."""
+    import dataclasses
+
+    from hyperscalees_t2i_tpu_torch.es.noiser import factored_member_theta, sample_noise
+    from hyperscalees_t2i_tpu_torch.utils import threefry
+
+    tcf = dataclasses.replace(tc, pop_fuse=True)
+    _, per = expected_inf_launches(backend, None, tcf, len(ids))
+    with torch.inference_mode():
+        noise = sample_noise(threefry.prng_key(7, "cuda"), theta, tcf.pop_size, tcf.es_config())
+        theta_k = factored_member_theta(theta, noise, 0, tcf.pop_size, tcf.es_config())
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        _reset_counters()
+        ev[0].record()
+        images = backend.generate_p(theta_k, ids[None], None, noise=gen_noise[None])
+        ev[1].record()
+        torch.cuda.synchronize()
+    counted = _counters()
+    want = {"int8_matmul": per["k1_per_call"], "lora_chain": per["k2_per_call"], "fused_qlora": per["k3_per_call"],
+            "decode_attention": per["k4_per_call"]}
+    if counted != want:
+        raise AssertionError(f"one pop_fuse generate call launched {counted}, expected {want}")
+    if not (bool(torch.isfinite(images).all()) and float(images.min()) >= 0.0 and float(images.max()) <= 1.0):
+        raise AssertionError("the pop_fuse generate call's images are not finite in [0, 1]")
+    out = dict(ms=ev[0].elapsed_time(ev[1]), launches=counted, images=tuple(images.shape))
+    log(f"[inf-fused] one eager Infinity-2B generate call with pop_fuse ({tuple(images.shape)}): {out['ms']:.1f} ms; "
+        f"launches {counted} (expected {want})")
+    return out
+
+
 def phase_inf_es(torch):
     """Infinity-2B's ES run on the card: the ``inf_2b`` rung
     (``infinity_backend.build_train_backend("2b")``: 14 scales to
     1024×1024, the 32-bit tokenizer, released attention flags, bf16, random
     weights and the rung's reward suite, CLIP-B/32 and CLIP-H/14 at their
-    published widths, from seed 0) with the train CLI's settings, then
-    ``run_training`` for ``INF_EPOCHS`` epochs (pop 4, 4 prompts,
-    member_batch 1), the first one warm. θ₀'s norm (``fold_in(PRNGKey(seed),
-    17)``, the JAX package's θ₀) beside ``theta_max_norm``. K4 must launch
-    2 × 14 × 32 = 896 times per generate call and nothing else of K1-K3.
-    Then one generate call's stages and profile (:func:`call_breakdown`),
-    with its launches counted too; the build's time and peak device memory."""
+    published widths, from seed 0) with the train CLI's settings (a float
+    base, no ``pop_fuse``), then ``run_training`` as a CUDA graph for
+    ``INF_FLOAT_EPOCHS`` epochs (pop 4, 4 prompts, member_batch 1), the
+    first one the warm-up and capture (:func:`_inf_run`: K4 2 × 14 × 32 = 896
+    launches a generate call and nothing else of K1-K3, counted at the
+    warm-up and on the device in a profiled replayed epoch). θ₀'s norm
+    (``fold_in(PRNGKey(seed), 17)``, the JAX package's θ₀) beside
+    ``theta_max_norm``. Then one eager generate call's stages and profile
+    (:func:`call_breakdown`), with its launches counted too, and K2's
+    Infinity path: one eager generate call over this bf16 base with
+    ``pop_fuse`` (:func:`inf_fused_call`: K2 2,720, K4 896)."""
     import shutil
 
     from hyperscalees_t2i_tpu_torch.backends.infinity_backend import build_train_backend
@@ -2339,10 +2731,7 @@ def phase_inf_es(torch):
     root = ROOT / "build" / "inf_es"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
-    args = cli.build_parser().parse_args([
-        "--backend", "infinity", "--pop_size", str(pop), "--prompts_per_gen", str(m), "--member_batch", str(mb),
-        "--num_epochs", str(INF_EPOCHS), "--run_dir", str(root), "--run_name", "inf_2b", "--resume", "false",
-        "--tower_dtype", opt["tower_dtype"]])
+    args = _inf_cli_args(root, "inf_2b", INF_FLOAT_EPOCHS)
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2353,31 +2742,21 @@ def phase_inf_es(torch):
     build_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if backend.cfg.model != infinity_rung_model(scale)["bcfg"].model:
         raise AssertionError(f"the rung built {backend.cfg.model}, not the inf_2b model")
-    built_gib = torch.cuda.memory_allocated() / 2**30
+    weights_bytes = torch.cuda.memory_allocated()
     mcfg = backend.cfg.model
-    per_call = 2 * len(mcfg.patch_nums) * mcfg.depth
-    calls = -(-pop // mb)
-    expected1 = {"int8_matmul": 0, "lora_chain": 0, "fused_qlora": 0, "decode_attention": per_call * calls}
     tc = cli.train_config(args)
+    _, per = expected_inf_launches(backend, suite, tc, m)
+    if (per["k1_per_call"], per["k2_per_call"], per["k3_per_call"], per["k4_per_call"]) != (0, 0, 0, 896):
+        raise AssertionError(f"the inf_2b float-base plan is not K4 896 alone a call: {per}")
     theta0_norm = float(global_norm(trainer._init_theta(backend, tc, dev)))
     log(f"[inf] Infinity-2B ES backend (depth {mcfg.depth}, d {mcfg.d_model}, {mcfg.n_heads} heads of "
         f"{mcfg.head_dim}, L {mcfg.seq_len}, {mcfg.vq.bits} bits, {mcfg.vq.grid}→"
         f"{mcfg.vq.grid * 2 ** (len(mcfg.vq.dec_ch) - 1)} px) built in {build_s:.1f} s (peak device memory "
-        f"{build_peak_gib:.2f} GiB); device memory {built_gib:.2f} GiB; {calls} generate calls per epoch of {mb} "
-        f"lane × {m} images × 2 (CFG) = {2 * mb * m} rows; K4 {per_call} per call; θ₀ = init_theta(fold_in("
-        f"PRNGKey({tc.seed}), 17)) norm {theta0_norm:.4f} against theta_max_norm {tc.theta_max_norm}")
-    state, history, launches, wall_s, _ = _train(torch, backend, suite, tc, expected1, "inf_2b run_training")
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    step_s = [h["step_time_s"] for h in history]
-    if len(step_s) != INF_EPOCHS or not all(math.isfinite(h["theta_norm"]) for h in history):
-        raise AssertionError(f"inf_2b run_training ran {len(step_s)} epochs, θ norms "
-                             f"{[h['theta_norm'] for h in history]}")
-    # θ sits on theta_max_norm from epoch 0, so only ‖Δθ‖ shows an update
-    if not all(math.isfinite(h["delta_norm"]) and h["delta_norm"] > 0 for h in history):
-        raise AssertionError(f"inf_2b run_training made no update: ‖Δθ‖ {[h['delta_norm'] for h in history]}")
-    log(f"[inf] inf_2b run_training: epochs {', '.join(f'{s:.3f}' for s in step_s)} s step_time_s (the first "
-        f"warm) = {', '.join(f'{pop * m / s:.3f}' for s in step_s)} images/s; run {wall_s:.2f} s wall; peak device "
-        f"memory {peak_gib:.2f} GiB; launches {launches} (expected {expected1} × {INF_EPOCHS})")
+        f"{build_peak_gib:.2f} GiB); device memory {weights_bytes / 2**30:.2f} GiB; {per['calls']} generate "
+        f"calls per epoch of {mb} lane × {m} images × 2 (CFG) = {2 * mb * m} rows; K4 {per['k4_per_call']} per "
+        f"call; θ₀ = init_theta(fold_in(PRNGKey({tc.seed}), 17)) norm {theta0_norm:.4f} against theta_max_norm "
+        f"{tc.theta_max_norm}")
+    state, run = _inf_run(torch, backend, suite, tc, weights_bytes, "inf_2b")
 
     ids = torch.as_tensor(backend.step_info(0, m, 1).flat_ids, device=dev)
     if not torch.equal(backend.text_mask[ids], inf_text_mask(torch)[:m, 1:]):
@@ -2389,40 +2768,189 @@ def phase_inf_es(torch):
     cfg = backend.cfg
     torch.cuda.synchronize()
     _reset_counters()
-    reps = 2
+    reps = 1
     breakdown = call_breakdown(
         torch, "inf",
         lambda: inf_mod.generate(backend.model, backend.text_emb[ids][None], backend.text_mask[ids][None],
                                  gen_noise[None], cfg_list=cfg.cfg_list, tau_list=cfg.tau_list, lora=theta_k,
-                                 lora_scale=backend.lora_scale, decode=False),
+                                 lora_scale=backend.lora_scale, decode=False, workspace=backend.kv_workspace(2 * m)),
         lambda f_hat: bsq.decode_img(backend.model.vq, f_hat), suite, ids, reps)
     torch.cuda.synchronize()
     call_launches = _counters()
-    if call_launches != {k: v // calls * (reps + 2) for k, v in expected1.items()}:
+    if call_launches != {k: v // per["calls"] * (reps + 2) for k, v in run["expected_launches_per_epoch"].items()}:
         raise AssertionError(f"{reps + 2} profiled-phase generate calls launched {call_launches}, expected "
-                             f"{per_call} K4 each")
-    stats = dict(plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s, built_gib=built_gib,
-                 build_peak_gib=build_peak_gib, theta0_norm=theta0_norm, theta_max_norm=tc.theta_max_norm,
-                 peak_mem_gib=peak_gib, step_time_s=step_s, images_per_epoch=pop * m,
-                 images_per_s=[pop * m / s for s in step_s], wall_s=wall_s, launches=launches,
-                 expected_launches={k: v * INF_EPOCHS for k, v in expected1.items()},
-                 per_call={"k4_per_call": per_call, "calls": calls}, call_breakdown_ms=breakdown,
-                 theta_norm=[h["theta_norm"] for h in history], delta_norm=[h["delta_norm"] for h in history])
+                             f"{per['k4_per_call']} K4 each")
+    fused = inf_fused_call(torch, backend, tc, state.theta, ids, gen_noise)
+    stats = dict(plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s,
+                 built_gib=weights_bytes / 2**30, build_peak_gib=build_peak_gib, theta0_norm=theta0_norm,
+                 theta_max_norm=tc.theta_max_norm, peak_mem_gib=run["memory"]["total_gib"],
+                 per_call={"k4_per_call": per["k4_per_call"], "calls": per["calls"]}, call_breakdown_ms=breakdown,
+                 fused_call=fused, **{k: v for k, v in run.items() if k != "per_call"})
     del backend, suite, state, theta_k, noise
+    gc.collect()  # the step's closures hold the backend (and its 19.8 GB workspace) in cycles
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_inf_q8_reference(torch):
+    """The tiny Infinity geometry in f32 (the released attention flags,
+    per-scale cfg/τ lists) with ``pop_fuse``, on the card against the CPU
+    on the same weights: on the int8 base (``quantize_tree(min_size=512)``
+    on both devices: the blocks, ``ada_lin`` and the decoder's wide convs
+    int8, φ float; the reward tower's image side int8 after its text table,
+    as the CLI does) and on the float base. One ES step each (pop 4,
+    member_batch 2, the draws made on the CPU), eager on both devices so
+    that every sampled bit is recorded: θ′ and reward rows within 1e-4;
+    every bit equal, with the smallest gap between a bit's two ``lg +
+    gumbel`` on the CPU beside the largest guided-logit difference between
+    the devices (the gap must exceed it); the card's launches counted by
+    the wrappers exactly as :func:`expected_inf_launches` derives them: K3,
+    K1 and K4 on the int8 base, K2 and K4 on the float one."""
+    import dataclasses
+
+    from hyperscalees_t2i_tpu_torch.backends.infinity_backend import InfinityBackend
+    from hyperscalees_t2i_tpu_torch.es.noiser import sample_noise
+    from hyperscalees_t2i_tpu_torch.models import clip, infinity as inf_mod
+    from hyperscalees_t2i_tpu_torch.ops.quant import quantize_tree
+    from hyperscalees_t2i_tpu_torch.rewards.suite import clip_text_embed_table, make_clip_reward_fn
+    from hyperscalees_t2i_tpu_torch.rungs import PROMPT_TOKEN_LEN, infinity_rung_model
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+    from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
+    from hyperscalees_t2i_tpu_torch.utils import threefry
+    from hyperscalees_t2i_tpu_torch.utils.graphs import GraphCache
+    from hyperscalees_t2i_tpu_torch.utils.pytree import tree_map
+
+    spec = infinity_rung_model("tiny")
+    ccfg = spec["clip_b"]
+    prompts = ["a red square", "a blue circle", "a green cat", "a woman reading"]
+    pop, m, mb = 4, 4, 2
+    tc = TrainConfig(pop_size=pop, sigma=0.01, egg_rank=4, member_batch=mb, pop_fuse=True)
+    bcfg = dataclasses.replace(spec["bcfg"], model=dataclasses.replace(
+        spec["bcfg"].model, attn_l2_norm=True, use_rope2d=True, cross_attn_l2_norm=True), cfg_list=(3.0, 2.0),
+        tau_list=(0.7,))
+    results = {}
+    for base in ("int8", "float"):
+        kp, kc, ki = threefry.split(threefry.prng_key(47, "cpu"), 3)
+        params = inf_mod.init_infinity(bcfg.model, kp)
+        cparams = clip.init_clip(ccfg, kc)
+        tids = threefry.randint(ki, (len(prompts) + 2, PROMPT_TOKEN_LEN), 0, ccfg.vocab_size)
+        with torch.inference_mode():
+            table = clip_text_embed_table(clip.CLIPModel(ccfg, cparams), tids)
+        if base == "int8":
+            params, cparams = quantize_tree(params, 512), quantize_tree(cparams, 512)
+        outs, launches, expected = {}, None, None
+        for dev in (torch.device("cpu"), torch.device("cuda")):
+            on = lambda t: tree_map(lambda a: a.to(dev), t)  # noqa: E731
+            backend = InfinityBackend(bcfg, dev, params=on(params), prompts=prompts)
+            backend.setup()
+            tower = make_clip_reward_fn(clip.CLIPModel(ccfg, on(cparams)), table.to(dev))
+            if dev.type == "cpu":
+                theta = backend.init_theta(threefry.prng_key(42, "cpu"))
+                theta = {k: {f: v + 0.05 for f, v in d.items()} for k, d in theta.items()}
+                noise = sample_noise(threefry.prng_key(43, "cpu"), theta, pop, tc.es_config())
+                flat = backend.step_info(0, m, 1).flat_ids
+                gen_noise = backend.sample_gen_noise(threefry.prng_key(45, "cpu"), range(len(flat)))
+            expected, per = expected_inf_launches(backend, tower, tc, len(flat))
+            suite = RecordingReward(tower, per["calls"])
+            step = make_es_step(backend, suite, tc, m, 1, device=dev, graphs=GraphCache(dev, graph=False))
+            torch.cuda.synchronize()
+            _reset_counters()
+            with _RecordCalls(inf_mod, "sample_bits") as rec:
+                theta_new, metrics, _ = step(on(theta), flat, threefry.prng_key(0, dev), noise=on(noise),
+                                             gen_noise=gen_noise.to(dev))
+            torch.cuda.synchronize()
+            if dev.type == "cuda":
+                launches = _counters()
+            outs[dev.type] = dict(theta=tree_map(lambda a: a.float().cpu(), theta_new),
+                                  rows=reward_rows(torch, suite.rows, 1, len(flat)).float().cpu(),
+                                  lg=torch.cat([lg.reshape(-1) for lg, _ in rec.ins]),
+                                  z=torch.cat([(lg + gumbel).reshape(-1, 2) for lg, gumbel in rec.ins]),
+                                  bits=torch.cat([b.reshape(-1) for b in rec.outs]),
+                                  delta_norm=float(metrics["delta_norm"]))
+            del backend, suite, step
+        c, g = outs["cpu"], outs["cuda"]
+        th_err = max(float((g["theta"][k][f] - c["theta"][k][f]).abs().max())
+                     for k in c["theta"] for f in c["theta"][k])
+        row_err = float((g["rows"] - c["rows"]).abs().max())
+        bits_equal = bool(torch.equal(g["bits"], c["bits"]))
+        logit_diff = float((g["lg"] - c["lg"]).abs().max())
+        gap = float((c["z"][:, 1] - c["z"][:, 0]).abs().min())
+        log(f"[inf-q8-tiny] {base} base, pop_fuse: ES step card vs CPU: θ′ {th_err:.3g}, reward rows "
+            f"{tuple(g['rows'].shape)} {row_err:.3g} (tol 1e-4); bits equal {bits_equal} ({c['bits'].numel()} bits), "
+            f"smallest gap {gap:.3g} against the largest logit difference {logit_diff:.3g}; ‖Δθ‖ {g['delta_norm']:.4g} "
+            f"(CPU {c['delta_norm']:.4g}); launches {launches} expected {expected}")
+        if not (bits_equal and gap > logit_diff):
+            raise AssertionError(f"tiny Infinity {base} pop_fuse: bits equal {bits_equal}, gap {gap}, logit "
+                                 f"difference {logit_diff}")
+        if tuple(g["rows"].shape) != (pop, m) or not (th_err <= 1e-4 and row_err <= 1e-4) or not g["delta_norm"] > 0:
+            raise AssertionError(f"tiny Infinity {base} pop_fuse: θ′ {th_err}, rows {row_err}, ‖Δθ‖ {g['delta_norm']}")
+        kinds = ("fused_qlora", "int8_matmul") if base == "int8" else ("lora_chain",)
+        if launches != expected or not all(expected[k] > 0 for k in kinds + ("decode_attention",)):
+            raise AssertionError(f"tiny Infinity {base} pop_fuse launched {launches}, expected {expected}")
+        results[base] = dict(theta_max_abs=th_err, rows_max_abs=row_err, bits_equal=bits_equal,
+                             bits=int(c["bits"].numel()), smallest_gap=gap, logit_max_abs=logit_diff,
+                             delta_norm=g["delta_norm"], launches=launches)
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_inf_q8_es(torch):
+    """Infinity-2B on the int8 base with ``pop_fuse``: the ``inf_2b`` rung
+    built by ``build_train_backend("2b", base_quant="int8")`` (the generator
+    tree, the BSQ tokenizer included, and both towers' image sides int8:
+    φ stays float at 36,864 elements), the train CLI's settings with
+    ``--pop_fuse true --base_quant int8``, ``run_training`` as a CUDA graph
+    for ``INF_EPOCHS`` epochs, the first the warm-up and capture
+    (:func:`_inf_run` with ``against_eager``: K3 6 × 14 × 32 + 32 = 2,720,
+    K4 896 and K1 as the module tree gives them, per generate call, counted
+    at the warm-up and on the device in a profiled replayed epoch, which
+    must equal the same epoch run eagerly just before it, bitwise or within
+    1e-4). Memory: weights, the KV workspace and the graph's pool apart."""
+    import shutil
+
+    from hyperscalees_t2i_tpu_torch.backends.infinity_backend import build_train_backend
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN
+    from hyperscalees_t2i_tpu_torch.train import cli
+
+    scale, pop, m, mb = RUNG_PLAN["inf_2b"]
+    root = ROOT / "build" / "inf_q8_es"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    tc = cli.train_config(_inf_cli_args(root, "inf_2b_q8", INF_EPOCHS, "--pop_fuse", "true",
+                                        "--base_quant", "int8"))
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    backend, suite = build_train_backend(scale, device=dev, seed=0, base_quant="int8")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weights_bytes = torch.cuda.memory_allocated()
+    _, per = expected_inf_launches(backend, suite, tc, m)
+    if (per["k2_per_call"], per["k3_per_call"], per["k4_per_call"]) != (0, 2720, 896) or not per["k1_per_call"]:
+        raise AssertionError(f"the inf_2b int8 pop_fuse plan is not K3 2720, K4 896 and K1 a call: {per}")
+    log(f"[inf-q8] Infinity-2B ES backend on the int8 base built in {build_s:.1f} s; device memory "
+        f"{weights_bytes / 2**30:.2f} GiB; per generate call K3 {per['k3_per_call']}, K1 "
+        f"{per['k1_per_call']}, K4 {per['k4_per_call']}; {per['calls']} calls an epoch")
+    state, run = _inf_run(torch, backend, suite, tc, weights_bytes, "inf_2b_q8", against_eager=True)
+    stats = dict(build_s=build_s, **run)
+    del backend, suite, state
+    gc.collect()  # the step's closures hold the backend (and its 19.8 GB workspace) in cycles
     torch.cuda.empty_cache()
     return stats
 
 
 class _RecordCalls:
-    """Wraps ``module.name`` (a sampler) to keep every output on the CPU."""
+    """Wraps ``module.name`` (a sampler) to keep every output, and every
+    call's tensor arguments, on the CPU (eager runs only)."""
 
     def __init__(self, module, name: str):
-        self.mod, self.name, self.orig, self.outs = module, name, getattr(module, name), []
+        self.mod, self.name, self.orig, self.outs, self.ins = module, name, getattr(module, name), [], []
 
     def __enter__(self):
         def rec(*a, **kw):
             out = self.orig(*a, **kw)
             self.outs.append(out.cpu())
+            self.ins.append([t.float().cpu() for t in a if hasattr(t, "cpu")])
             return out
 
         setattr(self.mod, self.name, rec)
@@ -2553,7 +3081,7 @@ def call_breakdown(torch, tag: str, generate, decode, reward, ids, reps: int = 2
             if i:  # the first run warms up
                 for j in range(3):
                     acc[j] += ev[j].elapsed_time(ev[j + 1]) / reps
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device kernels only: CPU events slow the trace
             one()
     kernels, busy, n_kernels, top = device_kernels(torch, prof)
     k4 = [(ms, cnt) for name, (ms, cnt) in kernels.items() if "decode_attention" in name]
@@ -2932,13 +3460,7 @@ def phase_pipeline_es(torch, backend, suite, es):
         raise AssertionError(f"the flagship pipeline plan is not K3 {PIPELINE_STEPS} x 164 per image: {per}")
     reward = RecordingReward(suite, per["calls"])
     steps = []
-    real = trainer.make_es_step
-
-    def recording_make(*a, **kw):
-        steps.append(real(*a, **kw))
-        return steps[-1]
-
-    trainer.make_es_step = recording_make
+    real, trainer.make_es_step = _recording_make(trainer, steps)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -3689,6 +4211,7 @@ def main() -> int:
     k4_rows, k4_extra = phase_k4_check(torch)
     k4_invariant = phase_k4_invariance(torch)
     k4_inf_rows = phase_k4_infinity(torch)
+    inf_rows = phase_inf_kernel_check(torch)
     small_err = phase_small_reference(torch)
     es_tiny = phase_es_reference(torch, "tiny", int8=True)
     es_small = phase_es_reference(torch, "small", int8=False)
@@ -3697,12 +4220,14 @@ def main() -> int:
     pipeline_tiny = phase_pipeline_reference(torch)
     var_tiny = phase_var_reference(torch)
     inf_tiny = phase_inf_reference(torch)
+    inf_q8_tiny = phase_inf_q8_reference(torch)
     es_float = phase_es_flagship(torch, base_quant="off")
     serve, serve_backend = phase_serve(torch, keep=True)
     tier = phase_serve_tier(torch, serve_backend, serve)
     del serve_backend
     var_es = phase_var_es(torch)
     inf_es = phase_inf_es(torch)
+    inf_q8 = phase_inf_q8_es(torch)
     es, flagship = phase_es_flagship(torch, keep=True)
     pipeline_es = phase_pipeline_es(torch, *flagship, es)
     train = phase_train_flagship(torch, *flagship, es)
@@ -3720,33 +4245,43 @@ def main() -> int:
     train_eager_epochs = sum(train["eager_epochs"])
     # the fleet's warm-up tick runs FLEET_W job epochs eagerly
     fleet_launches = lambda k: fleet_run["warmup_launches"][k]  # noqa: E731
+    # Infinity-2B's eager epochs: each run_training's warm-up, the int8 run's
+    # eager epoch in turns with the graph, and the bf16 pop_fuse call (K2)
+    inf_launches = lambda k: (inf_es["launches"][k] + inf_q8["launches"][k]  # noqa: E731
+                              + inf_q8["eager_launches"][k] + inf_es["fused_call"]["launches"][k])
     kernels = [
         kernel_summary("int8_matmul", k1_rows,
                        es["eager"]["launches"]["int8_matmul"] + train_launches("int8_matmul")
-                       + fleet_launches("int8_matmul"),
+                       + fleet_launches("int8_matmul") + inf_launches("int8_matmul"),
                        "calls_per_es_image",
                        "hyperscalees_t2i_tpu/ops/quant_mm.py:86", "one flagship ES image (DiT, DC-AE, both towers)"),
-        kernel_summary("lora_chain", chain_rows["lora_chain"], es_float["eager"]["launches"]["lora_chain"],
+        kernel_summary("lora_chain", chain_rows["lora_chain"],
+                       es_float["eager"]["launches"]["lora_chain"] + inf_launches("lora_chain"),
                        "calls_per_image", "hyperscalees_t2i_tpu/ops/fused_lora.py:80",
                        "the LoRA deltas of one flagship ES image over a bf16 base"),
         kernel_summary("fused_qlora", chain_rows["fused_qlora"],
                        es["eager"]["launches"]["fused_qlora"] + train_launches("fused_qlora")
-                       + fleet_launches("fused_qlora"),
+                       + fleet_launches("fused_qlora") + inf_launches("fused_qlora"),
                        "calls_per_image", "hyperscalees_t2i_tpu/ops/fused_qlora.py:201",
                        "one flagship ES image's adapted sites"),
         kernel_summary("decode_attention", k4_rows,
-                       var_es["eager"]["launches"]["decode_attention"] + inf_es["launches"]["decode_attention"],
+                       var_es["eager"]["launches"]["decode_attention"] + inf_launches("decode_attention"),
                        "calls_per_call", "hyperscalees_t2i_tpu/ops/attention.py:58",
                        "one VAR-d16 generate call (32 rows, 10 scales x 16 layers)"),
     ]
-    k4_inf = kernel_summary("decode_attention", k4_inf_rows, inf_es["launches"]["decode_attention"],
+    k4_inf = kernel_summary("decode_attention", k4_inf_rows, inf_launches("decode_attention"),
                             "calls_per_call", "hyperscalees_t2i_tpu/ops/attention.py:58",
                             f"one Infinity-2B generate call ({INF_ROWS} rows, 14 scales x 32 layers, self- and "
                             "cross-attention)")
     kernels[3]["launches_by_path"] = {
         "var_d16_es_graph_profiled_epoch": var_es["launches_profiled"]["decode_attention"],
         "var_d16_es_eager": var_es["eager"]["launches"]["decode_attention"],
-        "inf_2b_run_training": inf_es["launches"]["decode_attention"]}
+        "inf_2b_run_training_warmup": inf_es["launches"]["decode_attention"],
+        "inf_2b_graph_profiled_epoch": inf_es["launches_profiled"]["decode_attention"],
+        "inf_2b_q8_run_training_warmup": inf_q8["launches"]["decode_attention"],
+        "inf_2b_q8_graph_profiled_epoch": inf_q8["launches_profiled"]["decode_attention"],
+        "inf_2b_q8_eager_epoch": inf_q8["eager_launches"]["decode_attention"],
+        "inf_2b_bf16_pop_fuse_call": inf_es["fused_call"]["launches"]["decode_attention"]}
     chained_launches = lambda k: sum(run["launches"][k] for run in chained.values())  # noqa: E731
     for kern in kernels[:3]:
         name = kern["name"]
@@ -3766,7 +4301,22 @@ def main() -> int:
             "fleet_tiny_warmup_tick": fleet_tiny["launches"][name],
             "fleet_tiny_graph_profiled_tick": fleet_tiny["launches_profiled"][name],
             "train_telemetry_warmup": train["telemetry"]["launches"][name],
+            "inf_2b_q8_run_training_warmup": inf_q8["launches"][name],
+            "inf_2b_q8_graph_profiled_epoch": inf_q8["launches_profiled"][name],
+            "inf_2b_q8_eager_epoch": inf_q8["eager_launches"][name],
+            "inf_2b_bf16_pop_fuse_call": inf_es["fused_call"]["launches"][name],
         }
+        # the kernel at Infinity-2B's shapes: one generate call's calls (K1 on
+        # the int8 base, its f32 route included; K2 over a bf16 base; K3 over
+        # the int8 base), beside the flagship figures above
+        inf_k = kernel_summary(name, inf_rows[name], inf_launches(name), "calls_per_call", kern["replaces"],
+                               "one Infinity-2B generate call (8 rows, 14 scales x 32 layers)")
+        kern["infinity"] = {k: inf_k[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+                                                  "max_abs_err", "scope")}
+        if name == "int8_matmul":
+            f32 = [r for r in inf_rows[name] if r["dtype"] == "float32"]
+            kern["infinity"]["f32_route"] = {k: sum(r[k] * r["calls_per_call"] for r in f32)
+                                             for k in ("ms", "plain_ms", "library_ms", "device_ms", "bound_ms")}
     kernels[3]["infinity"] = {k: k4_inf[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                                      "device_ms", "max_abs_err", "scope")}
     kernels[3]["infinity"]["in_situ_ms"] = inf_es["call_breakdown_ms"]["k4_in_situ_ms"]
@@ -3774,20 +4324,26 @@ def main() -> int:
                               "hyperscalees_t2i_tpu/ops/quant_mm.py:86", "one flagship served image")
     for k, run, epochs in ((kernels[1], es_float, TIMED_EPOCHS),
                            (kernels[2], es, TIMED_EPOCHS + train_eager_epochs + FLEET_W)):
-        if k["launches"] != sum(r["calls_per_image"] for r in chain_rows[k["name"]]) * \
+        if k["launches"] - inf_launches(k["name"]) != sum(r["calls_per_image"] for r in chain_rows[k["name"]]) * \
                 run["images_per_epoch"] * epochs:
             raise AssertionError(f"{k['name']} table and launch count disagree")
-    if kernels[0]["launches"] != sum(r["calls_per_es_image"] for r in k1_rows) * es["images_per_epoch"] * \
-            (TIMED_EPOCHS + train_eager_epochs + FLEET_W):
+    if kernels[0]["launches"] - inf_launches("int8_matmul") != sum(r["calls_per_es_image"] for r in k1_rows) * \
+            es["images_per_epoch"] * (TIMED_EPOCHS + train_eager_epochs + FLEET_W):
         raise AssertionError("K1 table and launch count disagree")
+    # Infinity-2B: the int8 run's warm-up and its eager epoch (K1, K3), the bf16 pop_fuse call (K2)
+    q8_calls = inf_q8["per_call"]["calls"] * (inf_q8["eager_epochs"] + 1)
+    for name, want in (("int8_matmul", q8_calls), ("fused_qlora", q8_calls), ("lora_chain", 1)):
+        if inf_launches(name) != sum(r["calls_per_call"] for r in inf_rows[name]) * want:
+            raise AssertionError(f"{name}'s Infinity-2B table and launch count disagree")
     if train_launches("lora_chain") or train_launches("decode_attention"):
         raise AssertionError("the flagship trainer launched K2 or K4")
     if var_es["eager"]["launches"]["decode_attention"] != \
             sum(r["calls_per_call"] for r in k4_rows) * var_es["per_call"]["calls"] * TIMED_EPOCHS:
         raise AssertionError("K4's VAR table and launch count disagree")
     if inf_es["launches"]["decode_attention"] != \
-            sum(r["calls_per_call"] for r in k4_inf_rows) * inf_es["per_call"]["calls"] * INF_EPOCHS:
+            sum(r["calls_per_call"] for r in k4_inf_rows) * inf_es["per_call"]["calls"] * inf_es["eager_epochs"]:
         raise AssertionError("K4's Infinity table and launch count disagree")
+
 
     wall_s = time.perf_counter() - t_start
     log(f"[done] every phase passed in {wall_s:.1f} s (kernel build included)")
@@ -3799,6 +4355,7 @@ def main() -> int:
         k4_invariant_parts=k4_invariant,
         k1_shapes=k1_rows, chain_shapes=chain_rows, k4_shapes=k4_rows, k4_cases=k4_extra, k4_infinity_shapes=k4_inf_rows,
         small_reference_max_abs=small_err, es_tiny=es_tiny, es_small=es_small, var_tiny=var_tiny, inf_tiny=inf_tiny,
+        inf_q8_tiny=inf_q8_tiny, inf_q8_es=inf_q8, inf_kernel_shapes=inf_rows,
         es_flagship_float=es_float, serve=serve, var_es=var_es, inf_es=inf_es, es_flagship=es, train_tiny=train_tiny,
         threefry=threefry_rows, train_chained=chained, dispatch_tax=tax, pipeline_tiny=pipeline_tiny,
         pipeline_es=pipeline_es, serve_tier=tier,

@@ -14,8 +14,15 @@ package's per-scale ``jax.random.categorical`` keys
 request's key, and an ES epoch draws one ``[B, L, bits, 2]`` block that
 every member shares (:meth:`InfinityBackend.sample_gen_noise`).
 
+The backend owns the KV cache of its generate calls: one workspace per row
+count, allocated at the first call with that many rows and zeroed by every
+call (``models.infinity.generate``'s ``workspace``). A CUDA graph of the ES
+step then reads it as a static input outside the graph's private pool, and
+the graph's eager warm-up and its capture share it (at Infinity-2B's 8 rows
+it is 19.8 GB).
+
 :func:`build_train_backend` builds the backend and the reward suite of the
-``inf_2b`` rung (``rungs.infinity_rung_model``).
+``inf_2b`` rung (``rungs.infinity_rung_model``), on a float or an int8 base.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..lora import LoRASpec, init_lora
 from ..models import bsq, infinity as inf_mod
+from ..ops.quant import maybe_quantize_tree
 from ..ops.sampling import per_scale_gumbel
 from ..rungs import BENCH_PROMPT_SET, infinity_rung_model, rung_opt
 from ..utils import threefry
@@ -79,9 +87,9 @@ class InfinityBackend:
     ``text = (text_emb [P, Lt, text_dim], text_mask [P, Lt])`` the
     catalog's features (the tests carry the JAX package's across)."""
 
-    # the ES step runs eagerly on the card: a graph's private pool would hold
-    # another copy of the 19.8 GB KV cache (ROADMAP queue A item 3)
-    cuda_graphs = False
+    # the ES step is a CUDA graph on the card; the KV cache lives outside its
+    # pool, in the backend's workspace
+    cuda_graphs = True
 
     def __init__(self, cfg: InfinityBackendConfig, device: DeviceLike = None, params: Optional[Params] = None,
                  prompts: Optional[List[str]] = None, text: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
@@ -100,6 +108,7 @@ class InfinityBackend:
             self.text_emb = text[0].to(self.device, torch.float32)
             self.text_mask = text[1].to(self.device, torch.bool)
         self._spec = LoRASpec(rank=cfg.lora_r, alpha=cfg.lora_alpha, targets=cfg.lora_targets)
+        self._workspaces: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def setup(self) -> None:
         if self.model is None:
@@ -162,6 +171,29 @@ class InfinityBackend:
     def noise_shape(self) -> Tuple[int, int, int]:
         return (self.cfg.model.seq_len, self.cfg.model.vq.bits, 2)
 
+    def kv_workspace(self, rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The KV cache ``(kC, vC)``, each ``[depth, rows, L, H, dh]`` in the
+        compute dtype, of calls with ``rows`` CFG rows: allocated at the
+        first such call, never inside a CUDA graph's capture (a capture's
+        warm-up call allocates it first)."""
+        ws = self._workspaces.get(rows)
+        if ws is None:
+            if self.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"the KV workspace of {rows} rows would be allocated inside a CUDA graph's "
+                                   "capture: run the call once before capturing it")
+            m = self.cfg.model
+            shape = (m.depth, rows, m.seq_len, m.n_heads, m.head_dim)
+            with torch.inference_mode(False):  # written in place by calls in and out of inference mode
+                ws = (torch.empty(shape, dtype=m.compute_dtype, device=self.device),
+                      torch.empty(shape, dtype=m.compute_dtype, device=self.device))
+            self._workspaces[rows] = ws
+        return ws
+
+    @property
+    def workspace_bytes(self) -> int:
+        """Device bytes of the KV workspaces allocated so far."""
+        return sum(t.numel() * t.element_size() for ws in self._workspaces.values() for t in ws)
+
     def sample_gen_noise(self, key: torch.Tensor, item_index: Sequence[int]) -> torch.Tensor:
         """Sampling noise ``[len(item_index), L, bits, 2]`` on the key's
         device: the Gumbel noise of the JAX package's per-scale, per-image
@@ -190,7 +222,7 @@ class InfinityBackend:
         return inf_mod.generate(
             self.model, self.text_emb[ids], self.text_mask[ids], noise,
             cfg_list=cfg.cfg_list if guidance_scale is None else (guidance_scale,), tau_list=cfg.tau_list,
-            lora=stacked_theta, lora_scale=self.lora_scale,
+            lora=stacked_theta, lora_scale=self.lora_scale, workspace=self.kv_workspace(2 * n * b),
         )
 
     def generate(self, theta: Optional[Params], flat_ids: Sequence[int], key: torch.Tensor) -> torch.Tensor:
@@ -201,7 +233,8 @@ class InfinityBackend:
         return self.generate_p(stacked, [list(flat_ids)], key[None])[0]
 
 
-def build_train_backend(scale: str = "2b", device: DeviceLike = None, seed: int = 0):
+def build_train_backend(scale: str = "2b", device: DeviceLike = None, seed: int = 0,
+                        base_quant: Optional[str] = None):
     """The Infinity backend and the reward suite of the ``inf_2b`` rung:
     random weights from ``split(PRNGKey(seed))``'s first key on the device
     (the reward suite from its second), their float leaves cast to
@@ -209,18 +242,23 @@ def build_train_backend(scale: str = "2b", device: DeviceLike = None, seed: int 
     ``BENCH_PROMPT_SET`` catalog with hash-fallback text features, CLIP-B/32
     and the CLIP-H/14 PickScore tower at their published widths (``"2b"``)
     with text tables from random token ids, in the rung's ``tower_dtype``.
-    The float base is kept (``RUNG_OPT["inf_2b"]``). Returns ``(backend,
+    ``base_quant`` (default: the rung's ``RUNG_OPT``, a float base) is the
+    JAX CLI's knob: ``"int8"`` quantizes the generator's tree, the BSQ
+    tokenizer included, and the towers' image sides after their text tables
+    are built (``ops.quant.maybe_quantize_tree``). Returns ``(backend,
     reward_fn)``."""
     from ..rewards.suite import build_random_reward_suite
 
     opt = rung_opt("inf_2b")
+    base_quant = opt["base_quant"] if base_quant is None else base_quant
     dev = resolve_device(device)
     spec = infinity_rung_model(scale, tower_dtype=opt["tower_dtype"])
     bcfg = spec["bcfg"]
     kt, kc = threefry.split(threefry.prng_key(seed, dev))
     params = cast_floating(inf_mod.init_infinity(bcfg.model, kt), bcfg.model.compute_dtype)
-    backend = InfinityBackend(bcfg, dev, params=params, prompts=list(BENCH_PROMPT_SET))
+    backend = InfinityBackend(bcfg, dev, params=maybe_quantize_tree(params, base_quant),
+                              prompts=list(BENCH_PROMPT_SET))
     del params
     backend.setup()
     return backend, build_random_reward_suite(spec["clip_b"], spec["clip_h"], backend.num_items, kc,
-                                              resolve_float_dtype(opt["tower_dtype"]))
+                                              resolve_float_dtype(opt["tower_dtype"]), base_quant)

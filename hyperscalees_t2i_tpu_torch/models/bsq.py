@@ -10,7 +10,10 @@ quantizers); φ is picked by the nearest rounded tick ``round(si/(S-1)·(K-1))``
 :func:`init_bsq` builds the JAX package's tree (φ convs ``[K, 3, 3, C, C]``
 and the native norm-free decoder); :class:`BSQ` holds a tree as buffers.
 A decoder subtree that carries a ``mid`` stack is a converted CompVis
-decoder and runs through ``msvq.CompVisDecoder``.
+decoder and runs through ``msvq.CompVisDecoder``. Under the int8 base the
+decoder's convs at or above the quantization floor are int8 nodes
+(``nn.Conv``); φ must stay float, as the JAX package's ``phi_apply``
+reads its float kernel (:class:`BSQ` raises otherwise).
 """
 
 from __future__ import annotations
@@ -142,6 +145,12 @@ class BSQ(tnn.Module):
         super().__init__()
         self.cfg = cfg
         phi = params["phi"]
+        if "kernel" not in phi:
+            q8 = phi.get("kernel_q8", {}).get("q8")
+            raise ValueError(
+                f"the BSQ φ convs are stored int8 ({tuple(q8.shape) if q8 is not None else sorted(phi)}): φ must "
+                "stay float, as the JAX package's phi_apply reads params['phi']['kernel']; keep the base_quant "
+                f"min_size above φ's {q8.numel() if q8 is not None else 0} elements")
         self.phi = tnn.ModuleList(nn.Conv({"kernel": phi["kernel"][k], "bias": phi["bias"][k]})
                                   for k in range(phi["kernel"].shape[0]))
         dec = params["decoder"]

@@ -14,10 +14,22 @@ temperature ``τ(si)`` from per-scale schedules, then the BSQ pyramid
 :class:`InfinityBlock` per layer (``nn.slice_stacked`` views). In
 :func:`generate` the text K/V of every layer is projected once
 (:func:`precompute_cross_kv`), the self-attention cache ``[depth, rows, L,
-H, dh]`` is allocated once and written in place at each scale's static
-offset, and both attentions of every layer are the kernel K4
+H, dh]`` is zeroed once a call (a caller-owned workspace, or allocated by
+the call) and written in place at each scale's static offset, and both
+attentions of every layer are the kernel K4
 (``ops.attention.decode_attention``): against the cache prefix, and
 against the text under its key mask.
+
+Under the int8 base (``ops.quant.quantize_tree``) every stacked block
+projection is an int8 node: the adapted sites run K3 (``pop_fuse``) or K1
+plus the adapter's delta, ``text_proj``, ``pool_proj``, ``word_embed`` and
+``head`` run K1, and the AdaLN modulation dequantizes ``ada_lin`` one
+layer at a time, as the JAX package's ``resolve_kernel`` does for the
+whole stack.
+
+Nothing in :func:`generate` copies from the host: the 2D RoPE tables are
+the model's buffers (built once, :func:`rope2d_pyramid`), so a CUDA graph
+can capture a call whole.
 
 Lanes and CFG rows: as in ``models/var.py``, ``n`` lanes (adapters) of
 ``b`` images run together, rows ordered ``[lane][cond | uncond][image]``,
@@ -38,6 +50,7 @@ from torch import nn as tnn
 
 from ..lora import lookup, slice_layer
 from ..ops.attention import decode_attention
+from ..ops.quant import dequantize_kernel
 from ..utils import threefry
 from . import bsq, nn
 
@@ -184,7 +197,8 @@ def rope2d_pyramid(cfg: InfinityConfig, device: Any = None) -> Tuple[torch.Tenso
     pyramid: the head dim splits into a row band and a column band (dh/4
     pairs each), positions are patch centres normalized to the final grid,
     ``(r + 0.5) / pn · grid``, so a spatial location has one phase at every
-    scale. Built in float64 numpy, then cast."""
+    scale. Built in float64 numpy, then cast and copied to ``device``
+    (:class:`InfinityTransformer` does it once, for its buffers)."""
     dh = cfg.head_dim
     if dh % 4:
         raise ValueError(f"use_rope2d needs head_dim % 4 == 0, got {dh}")
@@ -275,6 +289,15 @@ class InfinityTransformer(tnn.Module):
             self.register_buffer("head_scale", params["head_norm"]["scale"])
             self.register_buffer("head_bias", params["head_norm"]["bias"])
         self.vq = bsq.BSQ(cfg.vq, params["vq"])
+        if cfg.use_rope2d:
+            cos, sin = rope2d_pyramid(cfg, self.pos_emb.device)
+            self.register_buffer("rope_cos", cos)
+            self.register_buffer("rope_sin", sin)
+
+    @property
+    def rope(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """``(cos, sin) [L, dh/2]`` of the 2D RoPE, or ``None`` without it."""
+        return (self.rope_cos, self.rope_sin) if self.cfg.use_rope2d else None
 
     def lora_sites(self) -> Dict[str, str]:
         """Module name → adapter path of every dense site that reads an adapter."""
@@ -282,11 +305,17 @@ class InfinityTransformer(tnn.Module):
 
     def cond6(self, c: torch.Tensor) -> List[torch.Tensor]:
         """AdaLN modulation of each layer from ``silu(cond)``, in f32: a
-        ``[rows, 6, d]`` tensor per layer."""
+        ``[rows, 6, d]`` tensor per layer. An int8 ``ada_lin`` is
+        dequantized one layer at a time (the numbers of the JAX package's
+        whole-stack ``resolve_kernel``, without an f32 copy of the stack)."""
         node = self.ada_lin.node()
-        d = self.cfg.d_model
-        return [(c @ node["kernel"][i].to(torch.float32) + node["bias"][i].to(torch.float32)).reshape(-1, 6, d)
-                for i in range(self.cfg.depth)]
+        d, f32 = self.cfg.d_model, torch.float32
+        out = []
+        for i in range(self.cfg.depth):
+            layer = nn.slice_stacked(node, i)
+            w = layer["kernel"].to(f32) if "kernel" in layer else dequantize_kernel(layer["kernel_q8"], f32)
+            out.append((c @ w + layer["bias"].to(f32)).reshape(-1, 6, d))
+        return out
 
     def head_logits(self, h: torch.Tensor, hs: Optional[torch.Tensor], hb: Optional[torch.Tensor]) -> torch.Tensor:
         """Head LayerNorm (AdaLN with ``head_ada``) and the bit head → f32."""
@@ -343,10 +372,16 @@ def generate(
     lora: Optional[Params] = None,
     lora_scale: float = 1.0,
     decode: bool = True,
+    workspace: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """KV-cached bitwise next-scale generation for ``n`` lanes of ``b``
     images → images ``[n, b, H, W, 3]`` in [0, 1] (f̂ ``[n, b, pN, pN,
     bits]`` f32 with ``decode=False``).
+
+    ``workspace`` is the KV cache ``(kC, vC)``, each ``[depth, 2·n·b, L,
+    H, dh]`` in the compute dtype on the model's device, owned by the
+    caller and zeroed here (as the JAX package's ``jnp.zeros``); without it
+    the call allocates its own. The outputs are the same either way.
 
     ``lora`` is one adapter, or ``n`` lane-stacked adapters. Scale ``si``
     samples image ``(i, j)``'s bits as ``argmax(lg + gumbel[i, j, pos_si :
@@ -383,10 +418,19 @@ def generate(
     if model.head_ada is not None:
         hs, hb = torch.chunk(model.head_ada(c), 2, dim=-1)
 
-    kC = torch.zeros((cfg.depth, R, L, H, dh), dtype=dt, device=dev)
-    vC = torch.zeros_like(kC)
+    shape = (cfg.depth, R, L, H, dh)
+    if workspace is None:
+        kC = torch.zeros(shape, dtype=dt, device=dev)
+        vC = torch.zeros_like(kC)
+    else:
+        kC, vC = workspace
+        for t in (kC, vC):
+            if tuple(t.shape) != shape or t.dtype != dt or t.device != dev:
+                raise ValueError(f"the KV workspace is {tuple(t.shape)} {t.dtype} on {t.device}, the call needs "
+                                 f"{shape} {dt} on {dev}")
+            t.zero_()
     f_hat = torch.zeros((n * b, cfg.vq.grid, cfg.vq.grid, C), dtype=f32, device=dev)
-    rope = rope2d_pyramid(cfg, dev) if cfg.use_rope2d else None
+    rope = model.rope
     ck, cv = precompute_cross_kv(model, txt2, lora, lora_scale)
     layer_lora = [_layer_lora(lora, i) for i in range(cfg.depth)]
 

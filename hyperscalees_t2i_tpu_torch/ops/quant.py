@@ -17,7 +17,8 @@ Odd ranks carry a leading stack axis whose layers keep their own scales.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import os
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -26,6 +27,8 @@ Params = Dict[str, Any]
 # Layers below this many parameters stay float (counted over the whole,
 # possibly stacked, tensor — as the JAX package counts them).
 DEFAULT_MIN_SIZE = 1 << 16
+# the environment variable that overrides DEFAULT_MIN_SIZE for the base_quant knob
+MIN_SIZE_ENV = "HSES_BASE_QUANT_MIN_SIZE"
 
 BASE_QUANT_MODES = ("off", "int8")
 
@@ -78,12 +81,21 @@ def quantize_tree(params: Params, min_size: int = DEFAULT_MIN_SIZE) -> Params:
     return params
 
 
-def maybe_quantize_tree(tree: Params, base_quant: str) -> Params:
+def resolve_base_quant_min_size(min_size: Optional[int] = None) -> int:
+    """The ``min_size`` the ``base_quant`` knob applies: an explicit value,
+    else ``HSES_BASE_QUANT_MIN_SIZE`` from the environment, else
+    :data:`DEFAULT_MIN_SIZE` (the JAX package's order)."""
+    if min_size is not None:
+        return min_size
+    return int(os.environ.get(MIN_SIZE_ENV, DEFAULT_MIN_SIZE))
+
+
+def maybe_quantize_tree(tree: Params, base_quant: str, min_size: Optional[int] = None) -> Params:
     """The ``base_quant`` knob on one frozen tree: ``off`` returns the tree
     unchanged (same object); ``int8`` quantizes every kernel node of at
-    least :data:`DEFAULT_MIN_SIZE` elements."""
+    least :func:`resolve_base_quant_min_size` elements."""
     if base_quant in (None, "", "off", False):
         return tree
     if base_quant != "int8":
         raise ValueError(f"base_quant must be one of {BASE_QUANT_MODES}, got {base_quant!r}")
-    return quantize_tree(tree)
+    return quantize_tree(tree, resolve_base_quant_min_size(min_size))

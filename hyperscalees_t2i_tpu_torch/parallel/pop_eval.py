@@ -46,7 +46,11 @@ def make_population_evaluator(
     perturbation stays factored, ``lora.FactoredDelta`` leaves with a lane
     axis when the chunk has several members) or the chunk's materialized
     ``perturb_member`` adapters, lane-stacked. Every base matmul of a chunk
-    takes all its lanes' rows at once. Each member sees the same epoch
+    takes all its lanes' rows at once. A chunk is whole lanes: its
+    generate call orders rows lane-major (Sana ``[lane][image]``; VAR and
+    Infinity ``[lane][cond|uncond][image]``), and K2 and K3 apply one 2D
+    ``w`` a launch to ``lanes`` equal row groups, so a lane is never split
+    across chunks or calls. Each member sees the same epoch
     noise ``gen_noise`` (common random numbers). ``reward_tile`` runs
     generate → decode → reward over image tiles of that size (rounded down
     to a divisor of ``B``); image ``i`` keeps its own noise row, so tiling

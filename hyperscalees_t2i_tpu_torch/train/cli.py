@@ -17,9 +17,11 @@ ROADMAP queue A item 10). ``--infinity_variant`` is the JAX CLI's
 ``from_preset`` for every variant, ``2b`` included (no QK-l2, no 2D RoPE,
 16 bits); the released Infinity-2B configuration is built through the
 ``inf_2b`` rung (``backends.infinity_backend.build_train_backend("2b")``).
-The Infinity float leaves are stored in the compute dtype. Infinity under ``--pop_fuse`` or ``--base_quant int8``
-raises (queue A item 8);
-the reward towers are random too, which above ``--model_scale tiny`` needs
+The Infinity float leaves are stored in the compute dtype; ``--base_quant
+int8`` quantizes every backend's generator tree (Infinity's BSQ tokenizer
+included) and the reward towers' image sides after their text table, as the
+JAX CLI does, and ``--pop_fuse`` takes the factored member path on every
+backend. The reward towers are random too, which above ``--model_scale tiny`` needs
 ``--allow_random_rewards true``, and the PickScore tower is then dropped
 with the other weights renormalized, as the JAX CLI does without its
 Hugging Face weights. Prompts are tokenized with the hash fallback of
@@ -265,20 +267,20 @@ def infinity_model(args):
 def _infinity_backend(args, device: torch.device):
     from ..backends.infinity_backend import InfinityBackend, InfinityBackendConfig
     from ..models import infinity as inf_mod
+    from ..ops.quant import maybe_quantize_tree
     from ..utils import threefry
     from ..utils.pytree import cast_floating
 
-    if args.pop_fuse or args.base_quant != "off":
-        raise NotImplementedError("infinity with --pop_fuse or --base_quant int8 (K2/K3 at its widths) is not "
-                                  "ported yet (ROADMAP queue A item 8)")
     model = infinity_model(args)
     cfg = InfinityBackendConfig(
         model=model, prompts_txt_path=args.prompts_txt, encoded_prompt_path=args.encoded_prompts,
         enable_positive_prompt=args.enable_positive_prompt, cfg_list=parse_float_list(args.cfg_list),
         tau_list=parse_float_list(args.tau_list), lora_r=args.lora_r, lora_alpha=args.lora_alpha)
+    # the weights InfinityBackend.setup would draw (the BSQ tokenizer
+    # included), stored in the compute dtype, with the base_quant knob
     params = cast_floating(inf_mod.init_infinity(model, threefry.prng_key(cfg.seed_params, device)),
                            model.compute_dtype)
-    return InfinityBackend(cfg, device, params=params)
+    return InfinityBackend(cfg, device, params=maybe_quantize_tree(params, args.base_quant))
 
 
 def build_reward_fn(args, backend, device: torch.device):

@@ -146,8 +146,10 @@ def device_ids(flat_ids: Any, dev: torch.device) -> torch.Tensor:
 
 def program_cache(backend: Any, dev: torch.device, **kw: Any) -> GraphCache:
     """The ES step's program cache on ``dev``: CUDA graphs on the card,
-    unless the backend's ``cuda_graphs`` is False (Infinity: its KV cache
-    would need a second home in a graph's pool), then eager."""
+    unless the backend's ``cuda_graphs`` is False, then eager. A backend
+    with a ``workspace_bytes`` (Infinity's KV cache, outside the graphs'
+    pools) has it reported in each entry's stats."""
+    kw.setdefault("workspace", (lambda: backend.workspace_bytes) if hasattr(backend, "workspace_bytes") else None)
     return GraphCache(dev, graph=getattr(backend, "cuda_graphs", True), **kw)
 
 

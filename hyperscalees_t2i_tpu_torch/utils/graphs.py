@@ -20,6 +20,14 @@ returns the output buffers, which the next replay of the entry overwrites:
 a caller that keeps outputs across calls clones them. Non-tensor inputs are
 part of the program and must not change between calls.
 
+Tensors the function reads or writes without taking them as inputs (the
+frozen weights, a backend's KV workspace) are the graph's static inputs:
+they must exist before the capture, since what a capture allocates lives
+in its private pool. The warm-up run makes them, and the capture and every
+replay use the same ones. ``workspace`` (a callable giving the bytes of
+such caller-owned scratch, e.g. ``InfinityBackend.workspace_bytes``) is
+read at the capture and reported apart from the pool.
+
 A kernel wrapper adds one to its ``launches`` counter where it launches its
 kernel, and nowhere else: not while a graph is captured (nothing runs
 then), and a replay, which runs the captured kernels without the wrappers,
@@ -37,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import time
 from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
@@ -102,12 +111,24 @@ class Captured:
 
 def capture(fn: Callable, static_args: Tuple[Any, ...], stream: Optional["torch.cuda.Stream"]) -> Captured:
     """Capture ``fn(*static_args)`` on ``stream`` into a new private pool;
-    the graph is instantiated separately, so both times are read."""
+    the graph is instantiated separately, so both times are read.
+
+    Python's cycle collector is run first and kept off during the capture:
+    a dead cycle that holds an earlier graph, collected mid-capture, would
+    destroy that graph's executable there, which the capture forbids
+    (``cudaErrorStreamCaptureUnsupported``, and the capture fails)."""
     g = torch.cuda.CUDAGraph(keep_graph=True)
-    t0 = time.perf_counter()
-    with torch.cuda.graph(g, stream=stream):
-        outputs = fn(*static_args)
-    t1 = time.perf_counter()
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        with torch.cuda.graph(g, stream=stream):
+            outputs = fn(*static_args)
+        t1 = time.perf_counter()
+    finally:
+        if collecting:
+            gc.enable()
     g.instantiate()
     torch.cuda.synchronize(stream.device)
     t2 = time.perf_counter()
@@ -130,6 +151,7 @@ class EntryStats:
     capture_s: float = 0.0
     instantiate_s: float = 0.0
     pool_bytes: int = 0  # device memory the graph's private pool holds
+    workspace_bytes: int = 0  # caller-owned scratch the graph uses outside its pool (at its capture)
     replays: int = 0
 
 
@@ -163,12 +185,16 @@ class GraphCache:
     ``registry``/``tracer`` (``obs.metrics.MetricsRegistry``,
     ``obs.trace.Tracer``), where given, see each new entry: a ``compile``
     span around the capture (attributes ``span_attrs(key)``), ``counter``
-    incremented and ``gauge`` set to the number of entries."""
+    incremented and ``gauge`` set to the number of entries. ``workspace``
+    gives the bytes of the caller-owned scratch the programs use outside
+    their pools (see the module note)."""
 
     def __init__(self, device: DeviceLike = None, *, graph: bool = True, registry: Any = None, tracer: Any = None,
                  counter: str = "compiles", gauge: str = "compile_cache_entries",
-                 span_attrs: Optional[Callable[[Hashable], Dict[str, Any]]] = None):
+                 span_attrs: Optional[Callable[[Hashable], Dict[str, Any]]] = None,
+                 workspace: Optional[Callable[[], int]] = None):
         self.device = resolve_device(device)
+        self.workspace = workspace
         self.graphed = bool(graph) and graphs_on(self.device)
         self.registry, self.tracer = registry, tracer
         self.counter, self.gauge = counter, gauge
@@ -238,6 +264,7 @@ class GraphCache:
         entry.stats.capture_s = entry.captured.capture_s
         entry.stats.instantiate_s = entry.captured.instantiate_s
         entry.stats.pool_bytes = entry.captured.pool_bytes
+        entry.stats.workspace_bytes = int(self.workspace()) if self.workspace is not None else 0
         self._count_entry()
         return outputs
 

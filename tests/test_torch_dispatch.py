@@ -198,7 +198,8 @@ def test_graph_cache_keys_and_launch_counts(stubbed):
     first = cache((2, 1), _program, {"w": torch.ones(4)}, ids)  # the warm-up's result, then the capture
     assert len(stubbed) == 1 and len(cache.entries) == 1 and counted() == (2, 1)  # the warm-up's launches
     assert torch.equal(first["images"], torch.full((4,), 3.0))
-    assert set(cache.stats()["(2, 1)"]) == {"warmup_s", "capture_s", "instantiate_s", "pool_bytes", "replays"}
+    assert set(cache.stats()["(2, 1)"]) == {"warmup_s", "capture_s", "instantiate_s", "pool_bytes",
+                                            "workspace_bytes", "replays"}
     # a new adapter value is a new argument: a replay, no new entry
     out = cache((2, 1), _program, {"w": torch.full((4,), 2.0)}, torch.tensor([1, 1, 1]))
     assert torch.equal(out["images"], torch.full((4,), 6.0)) and torch.equal(out["ids"], torch.tensor([2, 2, 2]))

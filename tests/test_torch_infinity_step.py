@@ -241,11 +241,49 @@ def test_cli_builds_the_inf_2b_model_and_refuses_what_is_not_ported():
                                                               "--pn", "1M"]))
         f32 = dict(compute_dtype=torch.float32)
         assert dataclasses.replace(m, vq=dataclasses.replace(m.vq, **f32), **f32) == port_cfg(j)
-    for extra, match in ((["--pop_fuse", "true"], "item 8"), (["--base_quant", "int8"], "item 8"),
-                         (["--vae_weights", "bsq.pth"], "item 10")):
-        with pytest.raises(NotImplementedError, match=match):
-            cli.build_backend(cli.build_parser().parse_args(["--backend", "infinity", "--model_scale", "tiny",
-                                                             *extra]), torch.device("cpu"))
+    # --pop_fuse and --base_quant int8 build the backend as the JAX CLI does
+    # (the int8 floor lowered so that the tiny blocks quantize); the
+    # checkpoint converters are still item 10
+    tiny = ["--backend", "infinity", "--model_scale", "tiny"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HSES_BASE_QUANT_MIN_SIZE", "512")
+        args = cli.build_parser().parse_args(tiny + ["--pop_fuse", "true", "--base_quant", "int8"])
+        backend = cli.build_backend(args, torch.device("cpu"))
+    backend.setup()
+    assert cli.train_config(args).pop_fuse and cli.train_config(args).base_quant == "int8"
+    assert all(hasattr(getattr(b, k), "q8") for b in backend.model.blocks for k in tinf.INFINITY_LORA_TARGETS)
+    assert hasattr(backend.model.ada_lin, "q8") and not hasattr(backend.model.vq.phi[0], "q8")
+    assert any(p.endswith("kernel_q8/q8") for p in _shape_paths(backend.param_shapes))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        cli.build_backend(cli.build_parser().parse_args(tiny + ["--vae_weights", "bsq.pth"]), torch.device("cpu"))
+
+
+def _shape_paths(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _shape_paths(v, f"{prefix}{k}/")
+        elif isinstance(v, (list, tuple)):
+            for i, w in enumerate(v):
+                if isinstance(w, dict):
+                    yield from _shape_paths(w, f"{prefix}{k}/{i}/")
+        else:
+            yield f"{prefix}{k}"
+
+
+def test_cli_tiny_infinity_run_int8_pop_fuse(tmp_path, monkeypatch, capsys):
+    """The tiny CLI with ``--pop_fuse true --base_quant int8`` (the int8
+    floor lowered so that the tiny blocks quantize) writes its metrics and
+    slots."""
+    monkeypatch.setenv("HSES_BASE_QUANT_MIN_SIZE", "512")
+    argv = ["--backend", "infinity", "--model_scale", "tiny", "--device", "cpu", "--num_epochs", "2", "--pop_size", "4",
+            "--prompts_per_gen", "2", "--member_batch", "2", "--save_every", "1", "--run_name", "q8", "--run_dir",
+            str(tmp_path), "--pop_fuse", "true", "--base_quant", "int8"]
+    assert cli.main(argv) is None
+    run_dir = tmp_path / "q8"
+    rows = read_jsonl_rows(run_dir / "metrics.jsonl")
+    assert [r["epoch"] for r in rows] == [0, 1] and all(np.isfinite(r["theta_norm"]) for r in rows)
+    assert [p.name for p in CheckpointStore(run_dir).slots()] == ["step_00000001", "step_00000002"]
+    assert "training done at epoch 2" in capsys.readouterr().out
 
 
 def test_infinity_entry_points_default_to_the_card(monkeypatch):
