@@ -96,6 +96,7 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
    ``run_training`` as a CUDA graph for 3 epochs (the first the warm-up
    and capture): K4 exactly 896 launches per generate call and no K1-K3,
    counted at the warm-up and on the device in a profiled replayed epoch,
+   which must equal the same epoch run eagerly, bitwise,
    epoch s, images/s, idle share, memory (weights, KV workspace, pool),
    one eager generate call profiled, one eager generate call with
    ``pop_fuse`` (K2 2,720); then Infinity-2B on the int8 base with
@@ -161,6 +162,22 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
     batched equal to solo bitwise; a pipeline-mode engine's flush, K1 on the
     device as derived.
 
+12. released checkpoints (:func:`phase_weights_var`, after 6's VAR-d16
+    epoch; :func:`phase_weights_sana`, after Infinity): a ``var_d16.pth``
+    + ``vae_ch160v4096z32.pth`` pair (f32) and a diffusers-layout
+    Sana-Sprint 1.6B safetensors file (bf16, the port's own writer), with
+    the released key names and shapes (:func:`released_var_keys`,
+    :func:`released_vqvae_keys`, :func:`released_sana_keys`) and seeded
+    numpy values, written into a temporary directory deleted afterwards,
+    then the train CLI's ``main --weights [--vae_weights]`` at the
+    ``ar_d16`` and ``flagship`` plans (the Sana run on the int8 base with
+    ``pop_fuse``): the inferred config the rung's, a warm-up and a replayed
+    epoch, K4 160 a VAR call and K3 164 a Sana image with K1 as derived,
+    counted and on the device, the graph against an eager epoch bitwise,
+    each stage's seconds (write, read, convert, to the card, build,
+    capture, epoch), the host's peak resident set and the device's peak;
+    then ``weights.validate --family sana`` on the same file.
+
 Every random number of the port is the JAX package's (the same keys, the
 same key tree); the phases draw from ``utils.threefry`` keys.
 
@@ -177,6 +194,7 @@ import ctypes
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2546,26 +2564,30 @@ def _recording_make(trainer, steps):
     return real, make
 
 
-def _inf_run(torch, backend, suite, tc, weights_bytes: int, what: str, against_eager: bool = False):
-    """``run_training`` of an ``inf_2b`` backend as a CUDA graph
-    (:func:`_train`: the warm-up epoch counted by the wrappers), then one
-    replayed epoch under ``torch.profiler`` whose K1-K4 on the device must
-    be the derived counts (busy ms, idle share against the replayed epochs'
+def _graph_run(torch, backend, suite, tc, weights_bytes: int, what: str, against_eager: bool = False,
+               bitwise: bool = False, expected=None):
+    """``run_training`` of a backend as a CUDA graph (:func:`_train`: the
+    warm-up epoch counted by the wrappers), then one replayed epoch under
+    ``torch.profiler`` whose K1-K4 on the device must be the derived counts
+    (``expected(backend, suite, tc, batch)``, :func:`expected_inf_launches`
+    by default; busy ms, idle share against the replayed epochs'
     ``step_time_s``). With ``against_eager``, the same step run eagerly
     (``GraphCache(graph=False)``) first, from the same θ, Δθ, ids and key:
     its launches counted by the wrappers, and the replay's θ′, Δθ, metrics,
-    scores and reward rows equal to its outputs bitwise, or within 1e-4
-    with the difference recorded. Memory as ``weights_bytes`` (allocated
-    after the build), the KV workspace and the graph's pool apart. Returns
-    ``(state, numbers)``."""
+    scores and reward rows equal to its outputs bitwise (``bitwise``), or
+    else within 1e-4 with the difference recorded. Memory as
+    ``weights_bytes`` (allocated after the build), the KV workspace and the
+    graph's pool apart. Returns ``(state, numbers)``."""
     from torch.profiler import ProfilerActivity, profile
 
     from hyperscalees_t2i_tpu_torch.es.sampling import epoch_key
+    from hyperscalees_t2i_tpu_torch.parallel.pop_eval import effective_reward_tile
     from hyperscalees_t2i_tpu_torch.train import trainer
     from hyperscalees_t2i_tpu_torch.utils.graphs import GraphCache
 
     m = tc.prompts_per_gen
-    expected1, per = expected_inf_launches(backend, suite, tc, m)
+    tile = effective_reward_tile(m, tc.reward_tile) or m
+    expected1, per = (expected or expected_inf_launches)(backend, suite, tc, m)
     reward = RecordingReward(suite, per["calls"])
     steps = []
     real, trainer.make_es_step = _recording_make(trainer, steps)
@@ -2587,7 +2609,7 @@ def _inf_run(torch, backend, suite, tc, weights_bytes: int, what: str, against_e
 
     def outputs(th, dl, metrics, opt_scores):
         return dict(theta=_clone_tree(th), delta=_clone_tree(dl), metrics={k: t.clone() for k, t in metrics.items()},
-                    opt_scores=opt_scores.clone(), rows=reward_rows(torch, reward.rows, 1, m).float().clone())
+                    opt_scores=opt_scores.clone(), rows=reward_rows(torch, reward.rows, m // tile, tile).float().clone())
 
     ids = torch.as_tensor(backend.step_info(tc.num_epochs, m, 1).flat_ids, device="cuda")
     theta = _clone_tree(state.theta)
@@ -2628,7 +2650,7 @@ def _inf_run(torch, backend, suite, tc, weights_bytes: int, what: str, against_e
         pairs += [(g["opt_scores"], x["opt_scores"]), (g["rows"], x["rows"])]
         turns["graph_vs_eager_max_abs"] = worst = max(_max_abs(a, b) for a, b in pairs)
         turns["graph_vs_eager_bitwise"] = worst == 0.0
-        if not worst <= 1e-4:
+        if not worst <= (0.0 if bitwise else 1e-4):
             raise AssertionError(f"{what}: graph and eager differ by {worst}")
     rows = g["rows"]
     if tuple(rows.shape) != (tc.pop_size, m) or not bool(torch.isfinite(rows).all()):
@@ -2708,9 +2730,10 @@ def phase_inf_es(torch):
     published widths, from seed 0) with the train CLI's settings (a float
     base, no ``pop_fuse``), then ``run_training`` as a CUDA graph for
     ``INF_FLOAT_EPOCHS`` epochs (pop 4, 4 prompts, member_batch 1), the
-    first one the warm-up and capture (:func:`_inf_run`: K4 2 × 14 × 32 = 896
+    first one the warm-up and capture (:func:`_graph_run`: K4 2 × 14 × 32 = 896
     launches a generate call and nothing else of K1-K3, counted at the
-    warm-up and on the device in a profiled replayed epoch). θ₀'s norm
+    warm-up and on the device in a profiled replayed epoch, which must
+    equal the same epoch run eagerly just before it, bitwise). θ₀'s norm
     (``fold_in(PRNGKey(seed), 17)``, the JAX package's θ₀) beside
     ``theta_max_norm``. Then one eager generate call's stages and profile
     (:func:`call_breakdown`), with its launches counted too, and K2's
@@ -2756,7 +2779,7 @@ def phase_inf_es(torch):
         f"calls per epoch of {mb} lane × {m} images × 2 (CFG) = {2 * mb * m} rows; K4 {per['k4_per_call']} per "
         f"call; θ₀ = init_theta(fold_in(PRNGKey({tc.seed}), 17)) norm {theta0_norm:.4f} against theta_max_norm "
         f"{tc.theta_max_norm}")
-    state, run = _inf_run(torch, backend, suite, tc, weights_bytes, "inf_2b")
+    state, run = _graph_run(torch, backend, suite, tc, weights_bytes, "inf_2b", against_eager=True, bitwise=True)
 
     ids = torch.as_tensor(backend.step_info(0, m, 1).flat_ids, device=dev)
     if not torch.equal(backend.text_mask[ids], inf_text_mask(torch)[:m, 1:]):
@@ -2901,7 +2924,7 @@ def phase_inf_q8_es(torch):
     φ stays float at 36,864 elements), the train CLI's settings with
     ``--pop_fuse true --base_quant int8``, ``run_training`` as a CUDA graph
     for ``INF_EPOCHS`` epochs, the first the warm-up and capture
-    (:func:`_inf_run` with ``against_eager``: K3 6 × 14 × 32 + 32 = 2,720,
+    (:func:`_graph_run` with ``against_eager``: K3 6 × 14 × 32 + 32 = 2,720,
     K4 896 and K1 as the module tree gives them, per generate call, counted
     at the warm-up and on the device in a profiled replayed epoch, which
     must equal the same epoch run eagerly just before it, bitwise or within
@@ -2931,7 +2954,7 @@ def phase_inf_q8_es(torch):
     log(f"[inf-q8] Infinity-2B ES backend on the int8 base built in {build_s:.1f} s; device memory "
         f"{weights_bytes / 2**30:.2f} GiB; per generate call K3 {per['k3_per_call']}, K1 "
         f"{per['k1_per_call']}, K4 {per['k4_per_call']}; {per['calls']} calls an epoch")
-    state, run = _inf_run(torch, backend, suite, tc, weights_bytes, "inf_2b_q8", against_eager=True)
+    state, run = _graph_run(torch, backend, suite, tc, weights_bytes, "inf_2b_q8", against_eager=True)
     stats = dict(build_s=build_s, **run)
     del backend, suite, state
     gc.collect()  # the step's closures hold the backend (and its 19.8 GB workspace) in cycles
@@ -4161,6 +4184,469 @@ def telemetry_run(torch, backend, suite, base, expected1, bare_epoch_s, loop_epo
     return out
 
 
+# ---------------------------------------------------------------------------
+# Released-layout checkpoints: the key inventories of the released files at a
+# config's geometry, seeded numpy values, and the phases that train from them
+# ---------------------------------------------------------------------------
+
+WEIGHTS_POOL = 1 << 22  # normals drawn per checkpoint; each tensor copies random windows of them
+RELEASED_BUFFERS = ("zero_k_bias", "lvl_1L", "attn_bias_for_masking", "ema_vocab_hit_SV")
+
+
+def released_var_keys(cfg):
+    """``[(name, torch shape)]`` of ``var_d*.pth`` at a ``VARConfig``'s
+    geometry: the embeddings, the position tables and the registered
+    buffers, per block the AdaLN linear, the fused qkv with its q/v biases,
+    zero-k buffer and QK-l2 scales, the projection and the FFN, then the
+    head's AdaLN and the head."""
+    C, L, S = cfg.d_model, cfg.seq_len, len(cfg.patch_nums)
+    hid, V, cv = int(round(C * cfg.ff_ratio)), cfg.vq.vocab_size, cfg.vq.c_vae
+    keys = [("pos_start", (1, 1, C)), ("pos_1LC", (1, L, C)), ("lvl_1L", (1, L)),
+            ("attn_bias_for_masking", (1, 1, L, L)), ("word_embed.weight", (C, cv)), ("word_embed.bias", (C,)),
+            ("class_emb.weight", (cfg.num_classes + 1, C)), ("lvl_embed.weight", (S, C))]
+    for i in range(cfg.depth):
+        b = f"blocks.{i}."
+        keys += [(b + "attn.scale_mul_1H11", (1, cfg.n_heads, 1, 1)), (b + "attn.q_bias", (C,)),
+                 (b + "attn.v_bias", (C,)), (b + "attn.zero_k_bias", (C,)), (b + "attn.mat_qkv.weight", (3 * C, C)),
+                 (b + "attn.proj.weight", (C, C)), (b + "attn.proj.bias", (C,)), (b + "ffn.fc1.weight", (hid, C)),
+                 (b + "ffn.fc1.bias", (hid,)), (b + "ffn.fc2.weight", (C, hid)), (b + "ffn.fc2.bias", (C,)),
+                 (b + "ada_lin.1.weight", (6 * C, C)), (b + "ada_lin.1.bias", (6 * C,))]
+    return keys + [("head_nm.ada_lin.1.weight", (2 * C, C)), ("head_nm.ada_lin.1.bias", (2 * C,)),
+                   ("head.weight", (V, C)), ("head.bias", (V,))]
+
+
+def _conv_keys(name, cout, cin, k):
+    return [(f"{name}.weight", (cout, cin, k, k)), (f"{name}.bias", (cout,))]
+
+
+def _res_keys(p, cin, cout):
+    keys = [(p + "norm1.weight", (cin,)), (p + "norm1.bias", (cin,)), *_conv_keys(p + "conv1", cout, cin, 3),
+            (p + "norm2.weight", (cout,)), (p + "norm2.bias", (cout,)), *_conv_keys(p + "conv2", cout, cout, 3)]
+    return keys + (_conv_keys(p + "nin_shortcut", cout, cin, 1) if cin != cout else [])
+
+
+def _attn_keys(p, c):
+    return [(p + "norm.weight", (c,)), (p + "norm.bias", (c,)), *_conv_keys(p + "qkv", 3 * c, c, 1),
+            *_conv_keys(p + "proj_out", c, c, 1)]
+
+
+def _mid_keys(p, c, attn: bool):
+    return _res_keys(p + "block_1.", c, c) + (_attn_keys(p + "attn_1.", c) if attn else []) + \
+        _res_keys(p + "block_2.", c, c)
+
+
+def released_vqvae_keys(vq):
+    """``[(name, torch shape)]`` of ``vae_ch160v4096z32.pth`` at an
+    ``MSVQConfig``'s geometry: the codebook and its EMA buffer, the φ convs,
+    ``quant_conv`` and ``post_quant_conv``, the CompVis encoder (which the
+    converters ignore) and decoder."""
+    z, ch, mult, nrb, n = vq.c_vae, vq.ch, tuple(vq.ch_mult), vq.num_res_blocks, len(vq.ch_mult)
+    keys = [("quantize.embedding.weight", (vq.vocab_size, z)),
+            ("quantize.ema_vocab_hit_SV", (len(vq.patch_nums), vq.vocab_size))]
+    for k in range(vq.phi_partial):
+        keys += _conv_keys(f"quantize.quant_resi.qresi_ls.{k}", z, z, 3)
+    keys += _conv_keys("quant_conv", z, z, 3) + _conv_keys("post_quant_conv", z, z, 3)
+    keys += _conv_keys("encoder.conv_in", ch, 3, 3)
+    block_in = ch
+    for i in range(n):
+        block_in, block_out = ch * ((1,) + mult)[i], ch * mult[i]
+        for j in range(nrb):
+            keys += _res_keys(f"encoder.down.{i}.block.{j}.", block_in, block_out)
+            block_in = block_out
+            if i == n - 1 and vq.using_sa:
+                keys += _attn_keys(f"encoder.down.{i}.attn.{j}.", block_in)
+        if i != n - 1:
+            keys += _conv_keys(f"encoder.down.{i}.downsample.conv", block_in, block_in, 3)
+    keys += _mid_keys("encoder.mid.", block_in, vq.using_mid_sa)
+    keys += [("encoder.norm_out.weight", (block_in,)), ("encoder.norm_out.bias", (block_in,)),
+             *_conv_keys("encoder.conv_out", z, block_in, 3)]
+    block_in = ch * mult[-1]
+    keys += _conv_keys("decoder.conv_in", block_in, z, 3) + _mid_keys("decoder.mid.", block_in, vq.using_mid_sa)
+    for i in reversed(range(n)):
+        for j in range(nrb + 1):
+            keys += _res_keys(f"decoder.up.{i}.block.{j}.", block_in, ch * mult[i])
+            block_in = ch * mult[i]
+            if i == n - 1 and vq.using_sa:
+                keys += _attn_keys(f"decoder.up.{i}.attn.{j}.", block_in)
+        if i != 0:
+            keys += _conv_keys(f"decoder.up.{i}.upsample.conv", block_in, block_in, 3)
+    return keys + [("decoder.norm_out.weight", (block_in,)), ("decoder.norm_out.bias", (block_in,)),
+                   *_conv_keys("decoder.conv_out", 3, block_in, 3)]
+
+
+def released_sana_keys(cfg):
+    """``[(name, torch shape)]`` of a diffusers ``SanaTransformer2DModel``
+    (the Sprint layout: the timestep and guidance embedders under
+    ``time_embed``) at a ``SanaConfig``'s geometry: q/k/v without bias, the
+    GLUMBConv's 1×1, depthwise 3×3 and bias-free 1×1 convs, the per-block
+    and final scale-shift tables."""
+    d, cap, p, hid = cfg.d_model, cfg.caption_dim, cfg.patch_size, int(round(cfg.d_model * cfg.ff_ratio))
+    out = p * p * cfg.out_channels
+    keys = _conv_keys("patch_embed.proj", d, cfg.in_channels, p)
+    for emb in ("timestep_embedder", "guidance_embedder")[:2 if cfg.guidance_embeds else 1]:
+        keys += [(f"time_embed.{emb}.linear_1.weight", (d, cfg.time_freq_dim)), (f"time_embed.{emb}.linear_1.bias", (d,)),
+                 (f"time_embed.{emb}.linear_2.weight", (d, d)), (f"time_embed.{emb}.linear_2.bias", (d,))]
+    keys += [("time_embed.linear.weight", (6 * d, d)), ("time_embed.linear.bias", (6 * d,)),
+             ("caption_norm.weight", (cap,)), ("caption_projection.linear_1.weight", (d, cap)),
+             ("caption_projection.linear_1.bias", (d,)), ("caption_projection.linear_2.weight", (d, d)),
+             ("caption_projection.linear_2.bias", (d,))]
+    for i in range(cfg.n_layers):
+        b = f"transformer_blocks.{i}."
+        keys.append((b + "scale_shift_table", (6, d)))
+        for a in ("attn1", "attn2"):
+            keys += [(f"{b}{a}.{w}.weight", (d, d)) for w in ("to_q", "to_k", "to_v")]
+            keys += [(f"{b}{a}.to_out.0.weight", (d, d)), (f"{b}{a}.to_out.0.bias", (d,))]
+        keys += [(b + "ff.conv_inverted.weight", (2 * hid, d, 1, 1)), (b + "ff.conv_inverted.bias", (2 * hid,)),
+                 (b + "ff.conv_depth.weight", (2 * hid, 1, 3, 3)), (b + "ff.conv_depth.bias", (2 * hid,)),
+                 (b + "ff.conv_point.weight", (d, hid, 1, 1))]
+    return keys + [("scale_shift_table", (2, d)), ("proj_out.weight", (out, d)), ("proj_out.bias", (out,))]
+
+
+class ReleasedValues:
+    """Seeded numpy values for a released-layout state dict: one pool of
+    ``WEIGHTS_POOL`` standard normals from ``default_rng(seed)``, each tensor
+    filled from random windows of it (so a multi-GB checkpoint is made at
+    copy speed) and scaled as a trained model's would be: ``1/√fan_in`` for
+    matrices and kernels, 0.02 for biases and position tables, 1 + 0.02·n
+    for norm weights, log 4 + 0.1·n for the QK-l2 scales, zeros for the
+    registered buffers."""
+
+    def __init__(self, seed: int):
+        import numpy as np
+
+        self.np = np
+        self.rng = np.random.default_rng(seed)
+        self.pool = self.rng.standard_normal(WEIGHTS_POOL, dtype=np.float32)
+
+    def __call__(self, name: str, shape) -> "object":
+        np = self.np
+        n = int(np.prod(shape, dtype=np.int64))
+        if name.split(".")[-1] in RELEASED_BUFFERS:
+            return np.zeros(shape, np.float32)
+        out = np.empty(n, np.float32)
+        done = 0
+        while done < n:
+            k = min(n - done, WEIGHTS_POOL // 2)
+            off = int(self.rng.integers(0, WEIGHTS_POOL - k + 1))
+            out[done:done + k] = self.pool[off:off + k]
+            done += k
+        out = out.reshape(shape)
+        last = name.split(".")[-1]
+        if last == "scale_mul_1H11":
+            out = out * np.float32(0.1) + np.float32(math.log(4.0))
+        elif len(shape) == 1 and "norm" in name and last == "weight":
+            out = out * np.float32(0.02) + np.float32(1.0)
+        elif len(shape) == 1 or last in ("pos_start", "pos_1LC"):
+            out *= np.float32(0.02)
+        else:
+            out *= np.float32(1.0 / math.sqrt(int(np.prod(shape[1:]))))
+        return out
+
+
+def released_state_dict(keys, seed: int):
+    """``{name: f32 ndarray}`` for ``keys`` from :class:`ReleasedValues`."""
+    values = ReleasedValues(seed)
+    return {name: values(name, shape) for name, shape in keys}
+
+
+def write_released_safetensors(path, keys, seed: int) -> int:
+    """``keys`` as a bf16 ``.safetensors`` file (the released dtype), each
+    tensor made when its bytes are written and cut to bf16 by truncation;
+    returns the bytes written."""
+    import numpy as np
+
+    from hyperscalees_t2i_tpu_torch.weights.io import save_safetensors
+
+    values = ReleasedValues(seed)
+    bf16 = lambda name, shape: (values(name, shape).view(np.uint32) >> 16).astype(np.uint16)  # noqa: E731
+    return save_safetensors(path, {name: ("BF16", shape, lambda n=name, s=shape: bf16(n, s)) for name, shape in keys},
+                            metadata={"format": "pt"})
+
+
+class HostPeak:
+    """The process's peak resident set over a block, the largest ``VmRSS``
+    a 20 ms sampler thread saw (``gib`` after the block), beside its
+    resident set when the block began (``start_gib``: what earlier phases
+    left resident)."""
+
+    def __enter__(self):
+        import threading
+
+        self.seen, self.stop = self._rss(), threading.Event()
+        self.start_gib = self.seen / 2**30
+
+        def sample():
+            while not self.stop.wait(0.02):
+                self.seen = max(self.seen, self._rss())
+
+        self.thread = threading.Thread(target=sample, daemon=True)
+        self.thread.start()
+        return self
+
+    @staticmethod
+    def _rss() -> int:
+        for line in Path("/proc/self/status").read_text().splitlines():
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+        return 0
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self.gib = max(self.seen, self._rss()) / 2**30
+
+
+def expected_var_launches(backend, reward, tc, batch: int):
+    """K4's launches of one VAR ES step over a float base (one a layer a
+    scale a generate call), the form of :func:`expected_es_launches`; a
+    base or tower with int8 nodes, or ``pop_fuse``, is not this phase's
+    path and raises."""
+    towers = [t for t in (reward.clip_model, reward.pick_model) if t is not None]
+    if tc.pop_fuse or any(hasattr(m, "q8") for part in [backend.model, *towers] for m in part.modules()):
+        raise AssertionError("the VAR checkpoint phase runs a float base without pop_fuse")
+    cfg = backend.cfg.model
+    k4, calls = len(cfg.patch_nums) * cfg.depth, reward_calls(tc, batch)
+    return ({"int8_matmul": 0, "lora_chain": 0, "fused_qlora": 0, "decode_attention": k4 * calls},
+            {"k1_per_call": 0, "k2_per_call": 0, "k3_per_call": 0, "k4_per_call": k4, "calls": calls})
+
+
+def _cli_graph_run(torch, argv, what: str, expected):
+    """The train CLI's ``main(argv)`` on the card, its ``run_training``
+    taken by :func:`_graph_run` (a CUDA graph, its warm-up counted, a
+    profiled replayed epoch, one epoch against eager, bitwise). Times each
+    stage of the checkpoint's way in: ``read_s`` (``weights.io.
+    load_state_dict``), ``convert_s`` (the converters), ``to_device_s``
+    (``tree_from_numpy``), ``rewards_s`` (``build_reward_fn``: the towers,
+    their text tables, the tokenizer), ``build_s`` (the rest from
+    ``build_backend`` to the loop: quantization, the random decoder, the
+    modules), with the host's peak resident set over the CLI's run and the
+    device's peak allocation over it (``device_peak_gib``; the graph's
+    pool apart, in ``memory``). Returns ``(numbers, backend, reward)``: the CLI's backend
+    and reward suite, still built."""
+    from hyperscalees_t2i_tpu_torch.train import cli, trainer
+    from hyperscalees_t2i_tpu_torch.weights import from_jax, io as wio, sana as wsana, var as wvar
+
+    stages = {"read_s": 0.0, "convert_s": 0.0, "to_device_s": 0.0, "rewards_s": 0.0}
+    rec = {}
+
+    def timed(fn, stage):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                stages[stage] += time.perf_counter() - t0
+        return call
+
+    patched = [(wio, "load_state_dict", "read_s"), (wvar, "convert_var_transformer", "convert_s"),
+               (wvar, "convert_vqvae", "convert_s"), (wsana, "convert_sana_transformer", "convert_s"),
+               (from_jax, "tree_from_numpy", "to_device_s"), (cli, "build_reward_fn", "rewards_s")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    real_build, real_run = cli.build_backend, trainer.run_training
+
+    def build(args, device):
+        rec["t_build"] = time.perf_counter()
+        rec["backend"] = real_build(args, device)
+        return rec["backend"]
+
+    def run(backend, reward, tc, device=None, **kw):
+        trainer.run_training = real_run
+        rec["t_run"] = time.perf_counter()
+        rec["build_peak"] = torch.cuda.max_memory_allocated()
+        state, rec["stats"] = _graph_run(torch, backend, reward, tc, torch.cuda.memory_allocated(), what,
+                                         against_eager=True, bitwise=True, expected=expected)
+        rec["reward"] = reward
+        return state
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for mod, name, stage in patched:
+            setattr(mod, name, timed(getattr(mod, name), stage))
+        cli.build_backend, trainer.run_training = build, run
+        with HostPeak() as host:
+            cli.main(argv)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        cli.build_backend, trainer.run_training = real_build, real_run
+    stats = rec["stats"]
+    graph = stats["graph"]
+    stages["build_s"] = rec["t_run"] - rec["t_build"] - sum(stages.values())
+    stages["capture_s"] = graph["warmup_s"] + graph["capture_s"] + graph["instantiate_s"]
+    stages["epoch_s"] = stats["epoch_s"]
+    mem = stats["memory"]
+    device_peak = max(rec["build_peak"] / 2**30, mem["run_peak_allocated_gib"], mem["peak_allocated_gib"])
+    numbers = dict(stages=stages, host_peak_rss_gib=host.gib, host_rss_start_gib=host.start_gib,
+                   device_peak_gib=device_peak, **stats)
+    return numbers, rec["backend"], rec["reward"]
+
+
+def _has(module: str) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(module) is not None
+
+
+def _checkpoint_dir():
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    return Path(tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build"))
+
+
+def phase_weights_var(torch):
+    """VAR-d16 trained from a ``.pth`` pair in the released layout: a
+    ``var_d16.pth`` at the ``ar_d16`` rung's geometry (f32) and a
+    ``vae_ch160v4096z32.pth`` with its encoder, ``quant_conv`` and codebook
+    EMA buffer (which the converter must ignore), seeded numpy values
+    (:class:`ReleasedValues`), written into a temporary directory deleted
+    afterwards. The train CLI's ``main`` with ``--backend var --weights
+    --vae_weights`` at the rung's plan (pop 16, 4 classes of its 16,
+    member_batch 4, its knobs; the CLI's CLIP-B/32 random tower, PickScore
+    dropped): a warm-up and capture epoch, then one replayed epoch
+    (:func:`_cli_graph_run`: K4 160 a generate call, counted at the warm-up
+    and on the device, the graph against an eager epoch bitwise). Checks:
+    ``infer_var_config`` gives the rung's ``VARConfig`` field by field; the
+    converted tree's structure, shapes and dtypes after the rung's bf16 cast
+    are ``init_var``'s; θ finite."""
+    import shutil
+
+    from hyperscalees_t2i_tpu_torch.models import var as var_mod
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt, var_rung_model
+    from hyperscalees_t2i_tpu_torch.utils import threefry
+    from hyperscalees_t2i_tpu_torch.utils.pytree import cast_floating, tree_map
+
+    scale, pop, m, mb = RUNG_PLAN["ar_d16"]
+    opt = rung_opt("ar_d16")
+    model = var_rung_model(scale, tower_dtype=opt["tower_dtype"])["bcfg"].model
+    tmp = _checkpoint_dir()
+    try:
+        t0 = time.perf_counter()
+        sd = released_state_dict(released_var_keys(model), seed=16)
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, tmp / "var_d16.pth")
+        vsd = released_state_dict(released_vqvae_keys(model.vq), seed=17)
+        torch.save({k: torch.from_numpy(v) for k, v in vsd.items()}, tmp / "vae_ch160v4096z32.pth")
+        write_s = time.perf_counter() - t0
+        sizes = {n: (tmp / n).stat().st_size for n in ("var_d16.pth", "vae_ch160v4096z32.pth")}
+        ignored = sum(1 for k in vsd if k.startswith(("encoder.", "quant_conv.", "quantize.ema")))
+        del sd, vsd
+        argv = ["--backend", "var", "--weights", str(tmp / "var_d16.pth"), "--vae_weights",
+                str(tmp / "vae_ch160v4096z32.pth"), "--var_classes", ",".join(str(c) for c in range(16)),
+                "--pop_size", str(pop), "--prompts_per_gen", str(m), "--member_batch", str(mb), "--num_epochs", "2",
+                "--reward_tile", str(opt["reward_tile"]), "--noise_dtype", opt["noise_dtype"],
+                "--tower_dtype", opt["tower_dtype"], "--pop_fuse", str(opt["pop_fuse"]).lower(),
+                "--base_quant", opt["base_quant"], "--allow_random_rewards", "true", "--run_dir", str(tmp),
+                "--run_name", "var_d16", "--resume", "false"]
+        run, backend, reward = _cli_graph_run(torch, argv, "weights_var", expected_var_launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = backend.cfg.model
+    if got != model:
+        diff = {f: (getattr(got, f), getattr(model, f)) for f in model.__dataclass_fields__
+                if getattr(got, f) != getattr(model, f)}
+        raise AssertionError(f"infer_var_config gave {diff} against the ar_d16 rung's VARConfig")
+    dt = model.compute_dtype
+    converted = tree_map(lambda t: (tuple(t.shape), dt if t.dtype.is_floating_point else t.dtype), backend.param_shapes)
+    init = tree_map(lambda t: (tuple(t.shape), t.dtype),
+                    cast_floating(var_mod.init_var(model, threefry.prng_key(0, "cuda")), dt))
+    if converted != init:
+        raise AssertionError("the converted VAR-d16 tree's structure, shapes or dtypes are not init_var's")
+    if run["per_call"]["k4_per_call"] != 160:
+        raise AssertionError(f"VAR-d16 from the checkpoint launched K4 {run['per_call']} a call, not 160")
+    del init
+    st = run["stages"]
+    log(f"[weights-var] var_d16.pth {sizes['var_d16.pth'] / 2**30:.3f} GiB + vae {sizes['vae_ch160v4096z32.pth'] / 2**30:.3f} "
+        f"GiB ({ignored} encoder/quant_conv/EMA tensors the converter ignores): write {write_s:.2f} s, read "
+        f"{st['read_s']:.2f} s, convert {st['convert_s']:.2f} s, to the card {st['to_device_s']:.2f} s, rewards "
+        f"{st['rewards_s']:.2f} s (transformers {'installed' if _has('transformers') else 'absent'}), build "
+        f"{st['build_s']:.2f} s, warm-up + capture {st['capture_s']:.2f} s, replayed epoch "
+        f"{', '.join(f'{t:.3f}' for t in st['epoch_s'])} s; host peak RSS {run['host_peak_rss_gib']:.2f} GiB (from "
+        f"{run['host_rss_start_gib']:.2f} at the start), device peak {run['device_peak_gib']:.2f} GiB + pool "
+        f"{run['memory']['pool_gib']:.2f}; K4 {run['per_call']['k4_per_call']} "
+        f"a call; graph against eager bitwise {run['graph_vs_eager_bitwise']}; VARConfig = the rung's, converted tree "
+        f"= init_var's after the bf16 cast")
+    stats = dict(files_bytes=sizes, write_s=write_s, ignored_tensors=ignored, **run)
+    del backend, reward
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_weights_sana(torch):
+    """Sana-Sprint 1.6B trained from a bf16 safetensors checkpoint in the
+    released diffusers layout (:func:`released_sana_keys` at the flagship
+    rung's ``SanaConfig``, d 2240, written by the port's own writer, which
+    needs no ``safetensors`` package) on the int8 base: the train
+    CLI's ``main`` with ``--backend sana_one_step --weights --base_quant
+    int8`` at the flagship plan (pop 4, 4 prompts of ``BENCH_PROMPT_SET``,
+    member_batch 1, the rung's knobs; the CLI's random DC-AE and CLIP-B/32
+    tower, PickScore dropped): a warm-up and capture epoch, then one
+    replayed epoch (:func:`_cli_graph_run`: K3 164 an image and K1 as the
+    module trees give them, counted at the warm-up and on the device in
+    the replay; the graph against eager bitwise). Then ``weights.validate
+    --family sana`` on the same file: its stats line, finite. The host's
+    peak resident set is read over the CLI's run (the f32 conversion)."""
+    import contextlib
+    import io as _io
+    import shutil
+
+    from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, RUNG_PLAN, rung_opt, sana_rung_model
+    from hyperscalees_t2i_tpu_torch.weights import validate
+
+    scale, pop, m, mb = RUNG_PLAN["flagship"]
+    opt = rung_opt("flagship")
+    model = sana_rung_model(scale, tower_dtype=opt["tower_dtype"])["bcfg"].model
+    keys = released_sana_keys(model)
+    tmp = _checkpoint_dir()
+    try:
+        ckpt = tmp / "diffusion_pytorch_model.safetensors"
+        t0 = time.perf_counter()
+        size = write_released_safetensors(ckpt, keys, seed=20)
+        write_s = time.perf_counter() - t0
+        (tmp / "prompts.txt").write_text("\n".join(BENCH_PROMPT_SET) + "\n")
+        argv = ["--backend", "sana_one_step", "--weights", str(ckpt), "--base_quant", "int8",
+                "--prompts_txt", str(tmp / "prompts.txt"), "--pop_size", str(pop), "--prompts_per_gen", str(m),
+                "--member_batch", str(mb), "--num_epochs", "2", "--reward_tile", str(opt["reward_tile"]),
+                "--noise_dtype", opt["noise_dtype"], "--tower_dtype", opt["tower_dtype"],
+                "--pop_fuse", str(opt["pop_fuse"]).lower(), "--allow_random_rewards", "true",
+                "--run_dir", str(tmp), "--run_name", "sana_1600m", "--resume", "false"]
+        run, backend, reward = _cli_graph_run(torch, argv, "weights_sana", expected_es_launches)
+        got = backend.cfg.model
+        if got != model:
+            raise AssertionError(f"infer_sana_config gave {got}, not the flagship's {model}")
+        per = run["per_call"]
+        if per["k3_per_call"] != 164 or not per["k1_per_call"]:
+            raise AssertionError(f"Sana-Sprint 1.6B from the checkpoint launched {per} an image, not K3 164 and K1")
+        del backend, reward
+        gc.collect()
+        torch.cuda.empty_cache()
+        out = _io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = validate.main(["--family", "sana", "--weights", str(ckpt), "--device", "cuda"])
+        validate_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line = next(l for l in out.getvalue().splitlines() if l.startswith("{"))
+    vstats = json.loads(line)
+    if rc != 0 or not all(math.isfinite(x) for k in ("mean", "std") for x in vstats[k]) or \
+            not all(math.isfinite(vstats[k]) for k in ("min", "max")):
+        raise AssertionError(f"weights.validate --family sana: rc {rc}, stats {line[:200]}")
+    log(f"[weights-sana] validate --family sana: {line}")
+    st = run["stages"]
+    log(f"[weights-sana] {len(keys)} tensors, {size / 2**30:.3f} GiB bf16: write {write_s:.2f} s, read "
+        f"{st['read_s']:.2f} s (bf16 → f32), convert {st['convert_s']:.2f} s, to the card {st['to_device_s']:.2f} s, "
+        f"rewards {st['rewards_s']:.2f} s, build {st['build_s']:.2f} s (int8 base, random DC-AE), warm-up + capture "
+        f"{st['capture_s']:.2f} s, replayed epoch {', '.join(f'{t:.3f}' for t in st['epoch_s'])} s; host peak RSS "
+        f"{run['host_peak_rss_gib']:.2f} GiB (from {run['host_rss_start_gib']:.2f} at the start), device peak "
+        f"{run['device_peak_gib']:.2f} GiB + "
+        f"pool {run['memory']['pool_gib']:.2f}; "
+        f"an image: K3 {per['k3_per_call']}, K1 {per['k1_per_call']}; graph against eager bitwise "
+        f"{run['graph_vs_eager_bitwise']}; validate {validate_s:.1f} s")
+    return dict(file_bytes=size, tensors=len(keys), write_s=write_s, validate=vstats, validate_s=validate_s, **run)
+
+
 def kernel_summary(name, rows, launches, calls_key, replaces, scope):
     """One entry per kernel: its main-path calls per unit of its path (one
     flagship image, one VAR generate call), summed."""
@@ -4195,6 +4681,9 @@ def main() -> int:
         print(f"chip_smoke: {ROOT} is not a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    # the reward towers and tokenizers are read from local files only
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4226,8 +4715,10 @@ def main() -> int:
     tier = phase_serve_tier(torch, serve_backend, serve)
     del serve_backend
     var_es = phase_var_es(torch)
+    weights_var = phase_weights_var(torch)
     inf_es = phase_inf_es(torch)
     inf_q8 = phase_inf_q8_es(torch)
+    weights_sana = phase_weights_sana(torch)
     es, flagship = phase_es_flagship(torch, keep=True)
     pipeline_es = phase_pipeline_es(torch, *flagship, es)
     train = phase_train_flagship(torch, *flagship, es)
@@ -4245,27 +4736,31 @@ def main() -> int:
     train_eager_epochs = sum(train["eager_epochs"])
     # the fleet's warm-up tick runs FLEET_W job epochs eagerly
     fleet_launches = lambda k: fleet_run["warmup_launches"][k]  # noqa: E731
-    # Infinity-2B's eager epochs: each run_training's warm-up, the int8 run's
-    # eager epoch in turns with the graph, and the bf16 pop_fuse call (K2)
-    inf_launches = lambda k: (inf_es["launches"][k] + inf_q8["launches"][k]  # noqa: E731
+    # Infinity-2B's eager epochs: each run_training's warm-up, each run's eager
+    # epoch in turns with the graph, and the bf16 pop_fuse call (K2)
+    inf_launches = lambda k: (inf_es["launches"][k] + inf_es["eager_launches"][k] + inf_q8["launches"][k]  # noqa: E731
                               + inf_q8["eager_launches"][k] + inf_es["fused_call"]["launches"][k])
+    # the checkpoint phases' eager epochs: each run_training's warm-up and its epoch against the graph
+    weights_launches = lambda k: sum(p["launches"][k] + p["eager_launches"][k]  # noqa: E731
+                                     for p in (weights_var, weights_sana))
+    extra_launches = lambda k: inf_launches(k) + weights_launches(k)  # noqa: E731
     kernels = [
         kernel_summary("int8_matmul", k1_rows,
                        es["eager"]["launches"]["int8_matmul"] + train_launches("int8_matmul")
-                       + fleet_launches("int8_matmul") + inf_launches("int8_matmul"),
+                       + fleet_launches("int8_matmul") + extra_launches("int8_matmul"),
                        "calls_per_es_image",
                        "hyperscalees_t2i_tpu/ops/quant_mm.py:86", "one flagship ES image (DiT, DC-AE, both towers)"),
         kernel_summary("lora_chain", chain_rows["lora_chain"],
-                       es_float["eager"]["launches"]["lora_chain"] + inf_launches("lora_chain"),
+                       es_float["eager"]["launches"]["lora_chain"] + extra_launches("lora_chain"),
                        "calls_per_image", "hyperscalees_t2i_tpu/ops/fused_lora.py:80",
                        "the LoRA deltas of one flagship ES image over a bf16 base"),
         kernel_summary("fused_qlora", chain_rows["fused_qlora"],
                        es["eager"]["launches"]["fused_qlora"] + train_launches("fused_qlora")
-                       + fleet_launches("fused_qlora") + inf_launches("fused_qlora"),
+                       + fleet_launches("fused_qlora") + extra_launches("fused_qlora"),
                        "calls_per_image", "hyperscalees_t2i_tpu/ops/fused_qlora.py:201",
                        "one flagship ES image's adapted sites"),
         kernel_summary("decode_attention", k4_rows,
-                       var_es["eager"]["launches"]["decode_attention"] + inf_launches("decode_attention"),
+                       var_es["eager"]["launches"]["decode_attention"] + extra_launches("decode_attention"),
                        "calls_per_call", "hyperscalees_t2i_tpu/ops/attention.py:58",
                        "one VAR-d16 generate call (32 rows, 10 scales x 16 layers)"),
     ]
@@ -4277,11 +4772,15 @@ def main() -> int:
         "var_d16_es_graph_profiled_epoch": var_es["launches_profiled"]["decode_attention"],
         "var_d16_es_eager": var_es["eager"]["launches"]["decode_attention"],
         "inf_2b_run_training_warmup": inf_es["launches"]["decode_attention"],
+        "inf_2b_eager_epoch": inf_es["eager_launches"]["decode_attention"],
         "inf_2b_graph_profiled_epoch": inf_es["launches_profiled"]["decode_attention"],
         "inf_2b_q8_run_training_warmup": inf_q8["launches"]["decode_attention"],
         "inf_2b_q8_graph_profiled_epoch": inf_q8["launches_profiled"]["decode_attention"],
         "inf_2b_q8_eager_epoch": inf_q8["eager_launches"]["decode_attention"],
-        "inf_2b_bf16_pop_fuse_call": inf_es["fused_call"]["launches"]["decode_attention"]}
+        "inf_2b_bf16_pop_fuse_call": inf_es["fused_call"]["launches"]["decode_attention"],
+        "weights_var_d16_run_training_warmup": weights_var["launches"]["decode_attention"],
+        "weights_var_d16_eager_epoch": weights_var["eager_launches"]["decode_attention"],
+        "weights_var_d16_graph_profiled_epoch": weights_var["launches_profiled"]["decode_attention"]}
     chained_launches = lambda k: sum(run["launches"][k] for run in chained.values())  # noqa: E731
     for kern in kernels[:3]:
         name = kern["name"]
@@ -4305,6 +4804,9 @@ def main() -> int:
             "inf_2b_q8_graph_profiled_epoch": inf_q8["launches_profiled"][name],
             "inf_2b_q8_eager_epoch": inf_q8["eager_launches"][name],
             "inf_2b_bf16_pop_fuse_call": inf_es["fused_call"]["launches"][name],
+            "weights_sana_run_training_warmup": weights_sana["launches"][name],
+            "weights_sana_eager_epoch": weights_sana["eager_launches"][name],
+            "weights_sana_graph_profiled_epoch": weights_sana["launches_profiled"][name],
         }
         # the kernel at Infinity-2B's shapes: one generate call's calls (K1 on
         # the int8 base, its f32 route included; K2 over a bf16 base; K3 over
@@ -4324,10 +4826,10 @@ def main() -> int:
                               "hyperscalees_t2i_tpu/ops/quant_mm.py:86", "one flagship served image")
     for k, run, epochs in ((kernels[1], es_float, TIMED_EPOCHS),
                            (kernels[2], es, TIMED_EPOCHS + train_eager_epochs + FLEET_W)):
-        if k["launches"] - inf_launches(k["name"]) != sum(r["calls_per_image"] for r in chain_rows[k["name"]]) * \
+        if k["launches"] - extra_launches(k["name"]) != sum(r["calls_per_image"] for r in chain_rows[k["name"]]) * \
                 run["images_per_epoch"] * epochs:
             raise AssertionError(f"{k['name']} table and launch count disagree")
-    if kernels[0]["launches"] - inf_launches("int8_matmul") != sum(r["calls_per_es_image"] for r in k1_rows) * \
+    if kernels[0]["launches"] - extra_launches("int8_matmul") != sum(r["calls_per_es_image"] for r in k1_rows) * \
             es["images_per_epoch"] * (TIMED_EPOCHS + train_eager_epochs + FLEET_W):
         raise AssertionError("K1 table and launch count disagree")
     # Infinity-2B: the int8 run's warm-up and its eager epoch (K1, K3), the bf16 pop_fuse call (K2)
@@ -4359,7 +4861,8 @@ def main() -> int:
         es_flagship_float=es_float, serve=serve, var_es=var_es, inf_es=inf_es, es_flagship=es, train_tiny=train_tiny,
         threefry=threefry_rows, train_chained=chained, dispatch_tax=tax, pipeline_tiny=pipeline_tiny,
         pipeline_es=pipeline_es, serve_tier=tier,
-        train_flagship=train, fleet_tiny=fleet_tiny, fleet_flagship=fleet_run,
+        train_flagship=train, fleet_tiny=fleet_tiny, fleet_flagship=fleet_run, weights_var=weights_var,
+        weights_sana=weights_sana,
         kernels=kernels, k1_serving=k1_serve, k4_infinity=k4_inf,
         wall_s=wall_s,
     ), indent=1))

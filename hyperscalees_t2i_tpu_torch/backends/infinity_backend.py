@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,6 +54,7 @@ class InfinityBackendConfig:
     model: inf_mod.InfinityConfig = dataclasses.field(default_factory=inf_mod.InfinityConfig)
     prompts_txt_path: Optional[str] = None
     encoded_prompt_path: Optional[str] = None
+    vae_weights: Optional[str] = None  # the BSQ tokenizer's checkpoint (weights.infinity.load_bsq_vae)
     # append the face-quality suffix to person prompts (hash-fallback
     # prompts only: an encoded cache is used as it was encoded)
     enable_positive_prompt: bool = False
@@ -82,8 +83,13 @@ class InfinityBackend:
     its BSQ tokenizer) and the prompt catalog's text features on
     ``device``, and generates images for lane-stacked adapter batches.
     ``params`` is a tree in the JAX package's layout; a missing one is drawn
-    from ``PRNGKey(cfg.seed_params)`` by :meth:`setup`, and a tree without
-    ``"vq"`` gets a random tokenizer from the same key. ``prompts`` replaces the prompt file and
+    from ``PRNGKey(cfg.seed_params)`` by :meth:`setup`. ``cfg.vae_weights``
+    replaces the tree's ``"vq"`` with the converted tokenizer checkpoint
+    (over a random one and over one the tree carries, as in the JAX
+    package), and a tree without ``"vq"`` otherwise gets a random tokenizer
+    from the same key. ``prepare(tree)``, applied to the whole tree before
+    the modules are built, is where the train CLI casts it and applies
+    ``--base_quant``. ``prompts`` replaces the prompt file and
     ``text = (text_emb [P, Lt, text_dim], text_mask [P, Lt])`` the
     catalog's features (the tests carry the JAX package's across)."""
 
@@ -92,8 +98,10 @@ class InfinityBackend:
     cuda_graphs = True
 
     def __init__(self, cfg: InfinityBackendConfig, device: DeviceLike = None, params: Optional[Params] = None,
-                 prompts: Optional[List[str]] = None, text: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                 prompts: Optional[List[str]] = None, text: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 prepare: Optional[Callable[[Params], Params]] = None):
         self.cfg = cfg
+        self._prepare = prepare
         self.device = resolve_device(device)
         self.name = "infinity"
         self._params = params
@@ -116,10 +124,19 @@ class InfinityBackend:
             key = threefry.prng_key(self.cfg.seed_params, self.device)
             if params is None:
                 params = inf_mod.init_infinity(self.cfg.model, key)
+            if self.cfg.vae_weights:
+                from ..weights.from_jax import tree_from_numpy
+                from ..weights.infinity import load_bsq_vae
+
+                params = dict(params, vq=tree_from_numpy(load_bsq_vae(self.cfg.vae_weights, self.cfg.model.vq),
+                                                         self.device))
+                print(f"[infinity] BSQ VAE loaded: {self.cfg.vae_weights}", flush=True)
             elif "vq" not in params:
                 print("[infinity] BSQ VAE is random-init (transformer-only tree): decoded pixels are not "
                       "meaningful", flush=True)
                 params = dict(params, vq=bsq.init_bsq(self.cfg.model.vq, key))
+            if self._prepare is not None:
+                params = self._prepare(params)
             self.param_shapes = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), params)
             self.model = inf_mod.InfinityTransformer(self.cfg.model, params).to(self.device)
             self._params = None

@@ -235,3 +235,61 @@ def text_features(model: CLIPModel, input_ids: torch.Tensor, eot_index: Optional
         eot_index = input_ids.argmax(dim=-1)
     pooled = x[torch.arange(x.shape[0], device=x.device), eot_index]
     return model.text_projection(pooled)
+
+
+def convert_hf_clip_state_dict(state_dict: Dict[str, Any], cfg: CLIPConfig) -> Params:
+    """A ``transformers.CLIPModel`` state dict (torch tensors or numpy
+    arrays) → the JAX package's tree of f32 numpy leaves, bitwise its
+    ``convert_hf_clip_state_dict``'s: Linear ``[out, in]`` → ``[in, out]``,
+    the patch conv OIHW → HWIO, layers stacked ``[L, ...]``. Works for
+    openai/clip-vit-base-patch32, PickScore v1's CLIP-H backbone and any
+    other HF CLIPModel geometry; ``weights.from_jax.clip_from_jax`` builds
+    the module from it."""
+    import numpy as np
+
+    def g(name: str) -> np.ndarray:
+        v = state_dict[name]
+        if hasattr(v, "detach"):
+            v = v.detach().cpu().float().numpy()
+        return np.asarray(v, np.float32)
+
+    def stack(fmt: str, L: int) -> Params:
+        out = {"kernel": np.stack([g(fmt.format(i) + ".weight") for i in range(L)]).transpose(0, 2, 1)}
+        if fmt.format(0) + ".bias" in state_dict:
+            out["bias"] = np.stack([g(fmt.format(i) + ".bias") for i in range(L)])
+        return out
+
+    def ln_stack(fmt: str, L: int) -> Params:
+        return {"scale": np.stack([g(fmt.format(i) + ".weight") for i in range(L)]),
+                "bias": np.stack([g(fmt.format(i) + ".bias") for i in range(L)])}
+
+    def ln(name: str) -> Params:
+        return {"scale": g(f"{name}.weight"), "bias": g(f"{name}.bias")}
+
+    def tower(prefix: str, L: int) -> Params:
+        enc = f"{prefix}.encoder.layers.{{}}"
+        return {"ln1": ln_stack(enc + ".layer_norm1", L), "q": stack(enc + ".self_attn.q_proj", L),
+                "k": stack(enc + ".self_attn.k_proj", L), "v": stack(enc + ".self_attn.v_proj", L),
+                "out": stack(enc + ".self_attn.out_proj", L), "ln2": ln_stack(enc + ".layer_norm2", L),
+                "fc1": stack(enc + ".mlp.fc1", L), "fc2": stack(enc + ".mlp.fc2", L)}
+
+    vm, tm = "vision_model", "text_model"
+    return {
+        "vision": {
+            "patch_embed": {"kernel": g(f"{vm}.embeddings.patch_embedding.weight").transpose(2, 3, 1, 0)},
+            "class_embed": g(f"{vm}.embeddings.class_embedding"),
+            "pos_embed": g(f"{vm}.embeddings.position_embedding.weight"),
+            "pre_ln": ln(f"{vm}.pre_layrnorm"),
+            "layers": tower(vm, cfg.vision.n_layers),
+            "post_ln": ln(f"{vm}.post_layernorm"),
+        },
+        "text": {
+            "token_embed": g(f"{tm}.embeddings.token_embedding.weight"),
+            "pos_embed": g(f"{tm}.embeddings.position_embedding.weight"),
+            "layers": tower(tm, cfg.text.n_layers),
+            "final_ln": ln(f"{tm}.final_layer_norm"),
+        },
+        "visual_projection": {"kernel": g("visual_projection.weight").T},
+        "text_projection": {"kernel": g("text_projection.weight").T},
+        "logit_scale": g("logit_scale"),
+    }

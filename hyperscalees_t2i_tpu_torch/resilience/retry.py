@@ -59,3 +59,20 @@ def call_with_retry(fn: Callable[..., Any], args: Tuple = (), kwargs: Optional[D
                   f"retrying in {delay:.2f}s", file=sys.stderr, flush=True)
             if delay > 0:
                 time.sleep(delay)
+
+
+def retry(fn: Optional[Callable] = None, *, site: str = "io", attempts: Optional[int] = None,
+          base_delay_s: Optional[float] = None, max_delay_s: float = 8.0) -> Callable:
+    """Decorator form of :func:`call_with_retry`, bare (``@retry``) or
+    configured (``@retry(site="weights")``)."""
+    import functools
+
+    def deco(f: Callable) -> Callable:
+        @functools.wraps(f)
+        def wrapper(*a, **k):
+            return call_with_retry(f, a, k, site=site, attempts=attempts, base_delay_s=base_delay_s,
+                                   max_delay_s=max_delay_s)
+
+        return wrapper
+
+    return deco(fn) if fn is not None else deco

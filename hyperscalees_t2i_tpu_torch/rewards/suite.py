@@ -45,12 +45,25 @@ def _normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 def tokenize_with_hf(prompts: Sequence[str], name: str = "openai/clip-vit-base-patch32"
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(input_ids [N, 77] int32, eot_index [N] int32, attention_mask [N,
-    77] bool)`` from the JAX package's hash fallback: word ``j`` of prompt
-    ``p`` is token ``stable_text_seed(f"{p}\\x00{j}") % 40000 + 2`` after a
-    BOS of 1, then EOT 49407, padding 1. ``name`` is the tokenizer the JAX
-    package tries first; the port always takes the fallback. Fine for
-    smoke runs, not for scoring parity with real CLIP."""
+    77] bool)``. With ``transformers`` installed and ``name`` a tokenizer
+    directory (or a model cached locally), the Hugging Face tokenizer pads
+    and truncates to 77 and the EOT is ``argmax(ids)``, as the JAX package
+    tokenizes; nothing is downloaded (``local_files_only``). Otherwise the
+    JAX package's hash fallback: word ``j`` of prompt ``p`` is token
+    ``stable_text_seed(f"{p}\\x00{j}") % 40000 + 2`` after a BOS of 1, then
+    EOT 49407, padding 1. Fine for smoke runs, not for scoring parity with
+    real CLIP."""
     L = 77
+    try:
+        from transformers import AutoTokenizer
+
+        tok = AutoTokenizer.from_pretrained(name, local_files_only=True)
+        out = tok(list(prompts), padding="max_length", truncation=True, max_length=L, return_tensors="np")
+    except Exception:
+        out = None
+    if out is not None:
+        ids = torch.from_numpy(out["input_ids"].astype("int32"))
+        return ids, ids.argmax(dim=-1).to(torch.int32), torch.from_numpy(out["attention_mask"].astype(bool))
     ids = torch.ones((len(prompts), L), dtype=torch.int32)
     for i, p in enumerate(prompts):
         toks = [(stable_text_seed(f"{p}\x00{j}") % 40000) + 2 for j in range(min(len(p.split()), L - 2))]

@@ -11,20 +11,32 @@ the Sana one-step and pipeline, VAR and Infinity backends)::
 
 Flag names and defaults are the JAX CLI's for every flag the port's loop
 reads, plus ``--device`` (default: the CUDA card; without one the CLI
-raises unless ``--device cpu`` is given). The generator's weights are
-random (``--weights`` and ``--vae_weights`` raise: the converters are
-ROADMAP queue A item 10). ``--infinity_variant`` is the JAX CLI's
-``from_preset`` for every variant, ``2b`` included (no QK-l2, no 2D RoPE,
-16 bits); the released Infinity-2B configuration is built through the
-``inf_2b`` rung (``backends.infinity_backend.build_train_backend("2b")``).
-The Infinity float leaves are stored in the compute dtype; ``--base_quant
-int8`` quantizes every backend's generator tree (Infinity's BSQ tokenizer
-included) and the reward towers' image sides after their text table, as the
-JAX CLI does, and ``--pop_fuse`` takes the factored member path on every
-backend. The reward towers are random too, which above ``--model_scale tiny`` needs
-``--allow_random_rewards true``, and the PickScore tower is then dropped
-with the other weights renormalized, as the JAX CLI does without its
-Hugging Face weights. Prompts are tokenized with the hash fallback of
+raises unless ``--device cpu`` is given). Without ``--weights`` the
+generator's weights are random, from the seed the JAX CLI draws them from.
+``--weights`` takes a released-layout checkpoint (a torch pickle, a
+``.safetensors`` file or a shard directory) through the converters of
+``weights/``, as the JAX CLI does: a diffusers ``SanaTransformer2DModel``
+(geometry inferred; ``--vae_weights`` is refused, no DC-AE converter
+exists), ``var_d*.pth`` with its ``vae_ch160v4096z32.pth`` as
+``--vae_weights`` (geometry inferred, ``--patch_nums`` for a non-canonical
+schedule), or an Infinity transformer (``module.`` stripped,
+``--infinity_variant`` and ``--pn`` applied before the conversion) with
+its BSQ tokenizer as ``--vae_weights`` (random without it).
+``--backend zimage`` is refused (ROADMAP queue A item 9).
+``--infinity_variant`` is the JAX CLI's ``from_preset`` for every variant,
+``2b`` included (no QK-l2, no 2D RoPE, 16 bits); the released Infinity-2B
+configuration is built through the ``inf_2b`` rung
+(``backends.infinity_backend.build_train_backend("2b")``). The Infinity
+float leaves are stored in the compute dtype; ``--base_quant int8``
+quantizes every backend's generator tree (Infinity's BSQ tokenizer
+included) and the reward towers' image sides after their text table, as
+the JAX CLI does, and ``--pop_fuse`` takes the factored member path on
+every backend. The reward towers are converted from a local Hugging Face
+``CLIPModel`` (``--clip_model``, ``--pickscore_model``: a directory or the
+local cache, nothing is downloaded); where a tower is unavailable it is
+random above ``--model_scale tiny`` only with ``--allow_random_rewards
+true``, and a missing PickScore tower is dropped with the other weights
+renormalized, as in the JAX CLI. Prompts are tokenized by
 ``rewards.suite.tokenize_with_hf``. Exit codes: 0 done or preempted (a
 slot was saved; rerun to resume), 3 halted by the rollback policy.
 """
@@ -34,6 +46,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import sys
+import time
 from pathlib import Path
 from typing import Any, List, Optional, Tuple
 
@@ -60,7 +73,7 @@ def parse_resume(v: str) -> bool:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="EGGROLL-ES trainer (PyTorch port)")
-    p.add_argument("--backend", required=True, choices=["sana_one_step", "sana_pipeline", "var", "infinity"])
+    p.add_argument("--backend", required=True, choices=["sana_one_step", "sana_pipeline", "var", "zimage", "infinity"])
     p.add_argument("--model_scale", default="full", choices=["tiny", "small", "full"])
     p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     p.add_argument("--prompts_txt", default=None)
@@ -78,8 +91,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="infinity: append the face-quality suffix to person prompts")
     p.add_argument("--infinity_variant", default=None, help="model preset: 2b, 8b, layer12..layer48")
     p.add_argument("--pn", default=None, help="scale-schedule preset: 0.06M, 0.25M, 1M")
-    p.add_argument("--weights", default=None, help="generator checkpoint (not ported yet)")
-    p.add_argument("--vae_weights", default=None, help="VAE checkpoint (not ported yet)")
+    p.add_argument("--patch_nums", default=None,
+                   help="explicit comma scale schedule of a non-canonical VAR checkpoint (the VQ pyramid follows)")
+    p.add_argument("--weights", default=None,
+                   help="generator checkpoint: a diffusers Sana transformer (file, directory or safetensors), "
+                        "var_d*.pth or an Infinity transformer; its geometry is inferred")
+    p.add_argument("--vae_weights", default=None,
+                   help="VAE checkpoint: vae_ch160v4096z32.pth for var, the BSQ tokenizer for infinity")
     p.add_argument("--pop_size", type=int, default=8)
     p.add_argument("--sigma", type=float, default=0.01)
     p.add_argument("--lr_scale", type=float, default=1.0)
@@ -103,9 +121,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--w_text", type=float, default=0.3)
     p.add_argument("--w_noart", type=float, default=0.2)
     p.add_argument("--w_pick", type=float, default=0.2)
+    p.add_argument("--clip_model", default="openai/clip-vit-base-patch32",
+                   help="a local Hugging Face CLIPModel (directory or cache) for the CLIP reward tower")
+    p.add_argument("--pickscore_model", default="yuvalkirstain/PickScore_v1",
+                   help="a local Hugging Face CLIPModel for the PickScore tower")
     p.add_argument("--use_pickscore", type=str2bool, default=True)
     p.add_argument("--allow_random_rewards", type=str2bool, default=False,
-                   help="proceed with random-init reward towers (no tower weights are loaded yet)")
+                   help="proceed with random-init reward towers when their Hugging Face weights are unavailable")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--save_every", type=int, default=10)
     p.add_argument("--trace", type=str2bool, nargs="?", const=True, default=False,
@@ -183,36 +205,69 @@ def _prompts(path: Optional[str]) -> List[str]:
     return prompts
 
 
+def _load_checkpoint(path: str):
+    from ..weights.io import load_state_dict
+
+    t0 = time.perf_counter()
+    sd = load_state_dict(path)
+    print(f"[cli] read {path}: {len(sd)} tensors in {time.perf_counter() - t0:.1f} s", flush=True)
+    return sd
+
+
 def build_backend(args, device: torch.device):
-    """The backend at the JAX CLI's geometry for ``--model_scale``, random
-    weights, ``--base_quant`` on the generator's trees."""
+    """The backend at the JAX CLI's geometry for ``--model_scale`` with
+    random weights, or at the geometry of the ``--weights`` checkpoint with
+    its converted weights; ``--base_quant`` on the generator's trees."""
     from ..ops.quant import maybe_quantize_tree
     from ..utils import threefry
+    from ..weights.from_jax import tree_from_numpy
 
-    if args.weights or args.vae_weights:
-        raise NotImplementedError("--weights/--vae_weights: the checkpoint converters are not ported yet "
-                                  "(ROADMAP queue A item 10)")
+    if args.backend == "zimage":
+        raise NotImplementedError("--backend zimage: the Z-Image model and its converters are not ported yet "
+                                  "(ROADMAP queue A item 9)")
     f32 = torch.float32
     if args.backend in ("sana_one_step", "sana_pipeline"):
         from ..backends.sana_backend import SanaBackend, SanaBackendConfig
         from ..models import dcae, sana
 
-        mkw = _scaled(args, {}, dict(d_model=1120, n_layers=6, n_heads=35, cross_n_heads=10),
-                      dict(d_model=64, n_layers=2, n_heads=4, cross_n_heads=4, caption_dim=32,
-                           in_channels=4, out_channels=4, compute_dtype=f32))
+        params = None
+        if args.weights:
+            from ..weights.sana import convert_sana_transformer, infer_sana_config
+
+            if args.vae_weights:
+                sys.exit("ERROR: no DC-AE (AutoencoderDC) converter exists yet — --vae_weights is not supported for "
+                         "the sana backends. Drop the flag (the DC-AE decoder will be random-init; pixel "
+                         "outputs/rewards are then NOT meaningful).")
+            sd = _load_checkpoint(args.weights)
+            model_cfg = infer_sana_config(sd)
+            t0 = time.perf_counter()
+            params = convert_sana_transformer(sd, model_cfg)
+            del sd
+            params = tree_from_numpy(params, device)
+            print(f"[cli] loaded sana weights: {model_cfg.n_layers}L d={model_cfg.d_model} "
+                  f"caption={model_cfg.caption_dim} (converted in {time.perf_counter() - t0:.1f} s)", flush=True)
+            print("[cli] WARNING: DC-AE decoder is random-init (no AutoencoderDC converter yet) — decoded pixels and "
+                  "pixel-space rewards are not meaningful until a converted VAE is supplied", flush=True)
+        else:
+            model_cfg = sana.SanaConfig(**_scaled(
+                args, {}, dict(d_model=1120, n_layers=6, n_heads=35, cross_n_heads=10),
+                dict(d_model=64, n_layers=2, n_heads=4, cross_n_heads=4, caption_dim=32, in_channels=4,
+                     out_channels=4, compute_dtype=f32)))
         vkw = _scaled(args, {}, dict(channels=(256, 256, 128, 128, 64, 32)),
                       dict(latent_channels=4, channels=(16, 16), blocks_per_stage=(1, 1), attn_stages=(),
                            compute_dtype=f32))
         lat = args.latent_size or (32 if args.model_scale == "full" else 8)
         cfg = SanaBackendConfig(
             backend_mode="one_step" if args.backend == "sana_one_step" else "pipeline",
-            model=sana.SanaConfig(**mkw), vae=dcae.DCAEConfig(**vkw), encoded_prompt_path=args.encoded_prompts,
+            model=model_cfg, vae=dcae.DCAEConfig(**vkw), encoded_prompt_path=args.encoded_prompts,
             guidance_scale=args.guidance_scale if args.guidance_scale is not None else 1.0,
             num_inference_steps=args.num_inference_steps or 2,
             width_latent=lat, height_latent=lat, lora_r=args.lora_r, lora_alpha=args.lora_alpha)
         # the weights SanaBackend.setup would draw, with the base_quant knob
         kt, kv = threefry.split(threefry.prng_key(cfg.seed_params, device))
-        params = maybe_quantize_tree(sana.init_sana(cfg.model, kt), args.base_quant)
+        if params is None:
+            params = sana.init_sana(cfg.model, kt)
+        params = maybe_quantize_tree(params, args.base_quant)
         vae = maybe_quantize_tree(dcae.init_decoder(cfg.vae, kv), args.base_quant)
         return SanaBackend(cfg, device, params=params, vae_params=vae, prompts=_prompts(args.prompts_txt))
     if args.backend == "infinity":
@@ -222,34 +277,64 @@ def build_backend(args, device: torch.device):
     from ..es.sampling import parse_int_list
     from ..models import msvq, var as var_mod
 
-    vq_kw = _scaled(args, {}, dict(ch=80, ch_mult=(1, 2, 2, 4), num_res_blocks=1),
-                    dict(vocab_size=64, c_vae=8, patch_nums=(1, 2, 4), phi_partial=2, ch=8, ch_mult=(1, 1),
-                         num_res_blocks=1, compute_dtype=f32))
-    mkw = _scaled(args, {}, dict(depth=12, d_model=768, n_heads=12),
-                  dict(num_classes=10, depth=2, d_model=32, n_heads=4, ff_ratio=2.0, patch_nums=(1, 2, 4),
-                       compute_dtype=f32))
-    # the tiny geometry samples without top-k/top-p filtering, as the JAX CLI's
-    sampling = _scaled(args, {}, {}, dict(top_k=0, top_p=0.0))
-    model = var_mod.VARConfig(vq=msvq.MSVQConfig(**vq_kw), **mkw)
+    gs = args.guidance_scale if args.guidance_scale is not None else 4.0
+    params = None
+    if args.weights:
+        from ..weights.var import convert_var_transformer, convert_vqvae, infer_var_config
+
+        if not args.vae_weights:
+            sys.exit("ERROR: --backend var --weights also needs --vae_weights (vae_ch160v4096z32.pth)")
+        sd = _load_checkpoint(args.weights)
+        overrides = dict(patch_nums=tuple(parse_int_list(args.patch_nums))) if args.patch_nums else {}
+        model = infer_var_config(sd, **overrides)
+        t0 = time.perf_counter()
+        params = convert_var_transformer(sd, model)
+        del sd
+        convert_s = time.perf_counter() - t0
+        sd = _load_checkpoint(args.vae_weights)
+        t0 = time.perf_counter()
+        params["vq"] = convert_vqvae(sd, model.vq)
+        del sd
+        params = tree_from_numpy(params, device)
+        print(f"[cli] loaded var weights: depth={model.depth} d={model.d_model} heads={model.n_heads} (converted in "
+              f"{convert_s + time.perf_counter() - t0:.1f} s)", flush=True)
+        sampling = {}
+    else:
+        vq_kw = _scaled(args, {}, dict(ch=80, ch_mult=(1, 2, 2, 4), num_res_blocks=1),
+                        dict(vocab_size=64, c_vae=8, patch_nums=(1, 2, 4), phi_partial=2, ch=8, ch_mult=(1, 1),
+                             num_res_blocks=1, compute_dtype=f32))
+        mkw = _scaled(args, {}, dict(depth=12, d_model=768, n_heads=12),
+                      dict(num_classes=10, depth=2, d_model=32, n_heads=4, ff_ratio=2.0, patch_nums=(1, 2, 4),
+                           compute_dtype=f32))
+        model = var_mod.VARConfig(vq=msvq.MSVQConfig(**vq_kw), **mkw)
+        # the tiny geometry samples without top-k/top-p filtering, as the JAX CLI's
+        sampling = _scaled(args, {}, {}, dict(top_k=0, top_p=0.0))
     parsed = parse_int_list(args.var_classes) if args.var_classes else None
     cfg = VarBackendConfig(model=model, class_pool=tuple(parsed) if isinstance(parsed, list) else None,
-                           labels_path=args.labels_path,
-                           cfg_scale=args.guidance_scale if args.guidance_scale is not None else 4.0,
-                           lora_r=args.lora_r, lora_alpha=args.lora_alpha, **sampling)
-    params = maybe_quantize_tree(var_mod.init_var(model, threefry.prng_key(cfg.seed_params, device)), args.base_quant)
-    return VarBackend(cfg, device, params=params)
+                           labels_path=args.labels_path, cfg_scale=gs, lora_r=args.lora_r,
+                           lora_alpha=args.lora_alpha, **sampling)
+    if params is None:
+        params = var_mod.init_var(model, threefry.prng_key(cfg.seed_params, device))
+    return VarBackend(cfg, device, params=maybe_quantize_tree(params, args.base_quant))
 
 
-def infinity_model(args):
-    """The JAX CLI's Infinity model for ``--infinity_variant`` (its preset,
-    ``2b`` included), else for ``--model_scale``; ``--pn`` sets the schedule
-    of both the transformer and the tokenizer, and without it the tiny
-    scale takes the tiny 4-bit tokenizer. The released Infinity-2B
-    configuration is the ``inf_2b`` rung's (``rungs.infinity_rung_model``)."""
+def infinity_model(args, sd=None):
+    """The JAX CLI's Infinity model: inferred from the transformer state
+    dict ``sd`` (``--infinity_variant``'s preset overriding), else
+    ``--infinity_variant``'s preset (``2b`` included), else for
+    ``--model_scale``; ``--pn`` sets the schedule of both the transformer
+    and the tokenizer, and without it the tiny random scale takes the tiny
+    4-bit tokenizer. The released Infinity-2B configuration is the
+    ``inf_2b`` rung's (``rungs.infinity_rung_model``)."""
     from ..models import bsq
     from ..models import infinity as inf_mod
 
-    if args.infinity_variant:
+    if sd is not None:
+        from ..weights.infinity import infer_infinity_config
+
+        overrides = dict(inf_mod.INFINITY_PRESETS[args.infinity_variant]) if args.infinity_variant else {}
+        model = infer_infinity_config(sd, **overrides)
+    elif args.infinity_variant:
         model = inf_mod.from_preset(args.infinity_variant)
     else:
         model = inf_mod.InfinityConfig(**_scaled(args, {}, dict(depth=8, d_model=512, n_heads=8),
@@ -258,7 +343,7 @@ def infinity_model(args):
     if args.pn:
         pns = inf_mod.PN_PRESETS[args.pn]
         model = dataclasses.replace(model, patch_nums=pns, vq=dataclasses.replace(model.vq, patch_nums=pns))
-    elif args.model_scale == "tiny":
+    elif args.model_scale == "tiny" and sd is None:
         model = dataclasses.replace(model, vq=bsq.BSQConfig(bits=4, patch_nums=model.patch_nums, phi_partial=2,
                                                             dec_ch=(8, 8), dec_blocks=1, compute_dtype=torch.float32))
     return model
@@ -267,44 +352,95 @@ def infinity_model(args):
 def _infinity_backend(args, device: torch.device):
     from ..backends.infinity_backend import InfinityBackend, InfinityBackendConfig
     from ..models import infinity as inf_mod
-    from ..ops.quant import maybe_quantize_tree
+    from ..ops.quant import maybe_quantize_tree, resolve_base_quant_min_size
     from ..utils import threefry
     from ..utils.pytree import cast_floating
 
-    model = infinity_model(args)
+    params = None
+    if args.weights:
+        from ..weights.infinity import convert_infinity_transformer
+        from ..weights.io import strip_prefix
+        from ..weights.from_jax import tree_from_numpy
+
+        sd = strip_prefix(_load_checkpoint(args.weights), "module")
+        model = infinity_model(args, sd)  # --pn before the conversion: lvl_emb is cut to its scales
+        t0 = time.perf_counter()
+        params = tree_from_numpy(convert_infinity_transformer(sd, model), device)
+        del sd
+        print(f"[cli] loaded infinity weights: depth={model.depth} d={model.d_model} bits={model.vq.bits} "
+              f"(converted in {time.perf_counter() - t0:.1f} s)", flush=True)
+    else:
+        model = infinity_model(args)
     cfg = InfinityBackendConfig(
         model=model, prompts_txt_path=args.prompts_txt, encoded_prompt_path=args.encoded_prompts,
-        enable_positive_prompt=args.enable_positive_prompt, cfg_list=parse_float_list(args.cfg_list),
-        tau_list=parse_float_list(args.tau_list), lora_r=args.lora_r, lora_alpha=args.lora_alpha)
-    # the weights InfinityBackend.setup would draw (the BSQ tokenizer
-    # included), stored in the compute dtype, with the base_quant knob
-    params = cast_floating(inf_mod.init_infinity(model, threefry.prng_key(cfg.seed_params, device)),
-                           model.compute_dtype)
-    return InfinityBackend(cfg, device, params=maybe_quantize_tree(params, args.base_quant))
+        vae_weights=args.vae_weights, enable_positive_prompt=args.enable_positive_prompt,
+        cfg_list=parse_float_list(args.cfg_list), tau_list=parse_float_list(args.tau_list), lora_r=args.lora_r,
+        lora_alpha=args.lora_alpha)
+    if params is None:  # the weights InfinityBackend.setup would draw, the BSQ tokenizer included
+        params = inf_mod.init_infinity(model, threefry.prng_key(cfg.seed_params, device))
+    # the whole tree (a --vae_weights tokenizer included) in the compute
+    # dtype, then --base_quant at the floor resolved now, as the JAX CLI
+    # quantizes after setup
+    floor = resolve_base_quant_min_size()
+    return InfinityBackend(cfg, device, params=params,
+                           prepare=lambda tree: maybe_quantize_tree(cast_floating(tree, model.compute_dtype),
+                                                                    args.base_quant, floor))
+
+
+def load_clip_tower(name: str, cfg, device: torch.device):
+    """A local Hugging Face ``CLIPModel`` (a directory, or a model in the
+    local cache; nothing is downloaded) converted to the tree of ``cfg``'s
+    geometry on ``device``; ``None`` when unavailable."""
+    try:
+        from transformers import CLIPModel
+    except Exception:
+        return None
+    from ..models.clip import convert_hf_clip_state_dict
+    from ..weights.from_jax import tree_from_numpy
+
+    try:
+        model = CLIPModel.from_pretrained(name, local_files_only=True)
+    except Exception:
+        return None
+    return tree_from_numpy(convert_hf_clip_state_dict(model.state_dict(), cfg), device)
 
 
 def build_reward_fn(args, backend, device: torch.device):
-    """Random CLIP towers (tiny: the JAX CLI's tiny tower; else CLIP-B/32 in
-    ``--tower_dtype``, behind ``--allow_random_rewards``), the text table
-    from the hash tokenizer, then ``--base_quant`` on the tower."""
+    """The reward towers as the JAX CLI builds them: tiny, the JAX CLI's
+    random tiny tower; else CLIP-B/32 and CLIP-H/14 (PickScore) in
+    ``--tower_dtype`` from ``--clip_model`` and ``--pickscore_model``
+    (:func:`load_clip_tower`), a random CLIP tower behind
+    ``--allow_random_rewards`` and a missing PickScore tower dropped with
+    the other weights renormalized. The text tables come from
+    :func:`tokenize_with_hf`, then ``--base_quant`` goes on the image
+    sides."""
     from ..models import clip as clip_mod
     from ..ops.quant import maybe_quantize_tree
     from ..rewards.suite import (AESTHETIC_TEXT, NEGATIVE_TEXT, RewardWeights, clip_text_embed_table,
-                                 make_clip_reward_fn, tokenize_with_hf)
+                                 make_clip_reward_fn, pickscore_text_embeds, tokenize_with_hf)
+    from ..utils import threefry
     from ..utils.pytree import resolve_float_dtype
 
     weights = RewardWeights(args.w_aesthetic, args.w_text, args.w_noart, args.w_pick)
+    pparams = pcfg = None
     if args.model_scale == "tiny":
         tower = clip_mod.CLIPTowerConfig(16, 2, 2, 32)
         ccfg = clip_mod.CLIPConfig(vision=tower, text=tower, image_size=32, patch_size=16, vocab_size=49408,
                                    max_positions=77, projection_dim=16, compute_dtype=torch.float32)
+        cparams = clip_mod.init_clip(ccfg, threefry.prng_key(11, device))
     else:
-        if not args.allow_random_rewards:
-            sys.exit("ERROR: CLIP weights unavailable (no converter is ported yet). Pass "
-                     "--allow_random_rewards true for a smoke run with random towers.")
-        print("[cli] WARNING: random-init CLIP reward tower (smoke mode)", flush=True)
-        ccfg = dataclasses.replace(clip_mod.CLIP_B32, compute_dtype=resolve_float_dtype(args.tower_dtype))
-        if args.use_pickscore:
+        dt = resolve_float_dtype(args.tower_dtype)
+        ccfg = dataclasses.replace(clip_mod.CLIP_B32, compute_dtype=dt)
+        cparams = load_clip_tower(args.clip_model, ccfg, device)
+        pcfg = dataclasses.replace(clip_mod.CLIP_H14, compute_dtype=dt)
+        pparams = load_clip_tower(args.pickscore_model, pcfg, device) if args.use_pickscore else None
+        if cparams is None:
+            if not args.allow_random_rewards:
+                sys.exit("ERROR: CLIP weights unavailable (no local Hugging Face model). Pass "
+                         "--allow_random_rewards true for a smoke run with random towers.")
+            print("[cli] WARNING: random-init CLIP reward tower (smoke mode)", flush=True)
+            cparams = clip_mod.init_clip(ccfg, threefry.prng_key(11, device))
+        if args.use_pickscore and pparams is None:
             rest = weights.aesthetic + weights.align + weights.no_artifacts
             if rest > 0 and weights.pickscore > 0:
                 scale = (rest + weights.pickscore) / rest
@@ -312,14 +448,18 @@ def build_reward_fn(args, backend, device: torch.device):
                                         no_artifacts=weights.no_artifacts * scale, pickscore=0.0)
             print(f"[cli] WARNING: PickScore tower unavailable → pickscore dropped, remaining reward weights "
                   f"renormalized to {weights}", flush=True)
-    from ..utils import threefry
-
-    cparams = clip_mod.init_clip(ccfg, threefry.prng_key(11, device))
-    ids, eot, mask = (t.to(device) for t in tokenize_with_hf(list(backend.texts) + [AESTHETIC_TEXT, NEGATIVE_TEXT]))
+    ids, eot, mask = (t.to(device) for t in tokenize_with_hf(list(backend.texts) + [AESTHETIC_TEXT, NEGATIVE_TEXT],
+                                                             args.clip_model))
+    pick_model = pick_embeds = None
     with torch.inference_mode():
         table = clip_text_embed_table(clip_mod.CLIPModel(ccfg, cparams), ids, eot, mask)
+        if pparams is not None:
+            pids, peot, pmask = (t.to(device) for t in tokenize_with_hf(list(backend.texts), args.pickscore_model))
+            pick_embeds = pickscore_text_embeds(clip_mod.CLIPModel(pcfg, pparams), pids, peot, pmask)
+    if pparams is not None:
+        pick_model = clip_mod.CLIPModel(pcfg, maybe_quantize_tree(pparams, args.base_quant))
     return make_clip_reward_fn(clip_mod.CLIPModel(ccfg, maybe_quantize_tree(cparams, args.base_quant)), table,
-                               weights=weights)
+                               weights=weights, pick_model=pick_model, pick_text_embeds=pick_embeds)
 
 
 def train_config(args):

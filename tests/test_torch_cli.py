@@ -73,9 +73,33 @@ def test_halt_exits_3(tmp_path):
     assert (tmp_path / "cli" / "halted.json").exists()
 
 
-def test_weights_raise():
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        cli.main(["--backend", "sana_one_step", "--weights", "x.safetensors", *TINY])
+def test_weights_raise(tmp_path, capsys):
+    """``--weights`` trains from a diffusers-layout Sana checkpoint (a bf16
+    safetensors file from ``chip_smoke.py``'s writer, at a width that keeps
+    the default head counts whole) with the JAX converter's tree as the
+    backend's; the Sana ``--vae_weights`` refusal (no DC-AE converter, as in
+    the JAX CLI) and ``--backend zimage`` (ROADMAP queue A item 9) stand."""
+    from hyperscalees_t2i_tpu.weights.io import load_state_dict as jload
+    from hyperscalees_t2i_tpu.weights.sana import convert_sana_transformer as jconvert, infer_sana_config as jinfer
+    from hyperscalees_t2i_tpu_torch.models import sana
+
+    from test_torch_weights_var import assert_trees_bitwise
+    from test_torch_weights_writers import SANA, cs
+
+    path = tmp_path / "diffusion_pytorch_model.safetensors"
+    cs.write_released_safetensors(path, cs.released_sana_keys(sana.SanaConfig(**SANA)), seed=0)
+    argv = ["--backend", "sana_one_step", "--weights", str(path), "--run_dir", str(tmp_path), *TINY]
+    backend = cli.build_backend(cli.build_parser().parse_args(argv), torch.device("cpu"))
+    sd = jload(str(path))
+    assert_trees_bitwise(backend._params, jconvert(sd, jinfer(sd)))
+    assert cli.main(argv) is None
+    out = capsys.readouterr().out
+    assert "loaded sana weights: 2L d=140 caption=8" in out and "training done at epoch 2" in out
+    assert len(read_jsonl_rows(tmp_path / "cli" / "metrics.jsonl")) == 2
+    with pytest.raises(SystemExit, match="DC-AE"):
+        cli.main(argv + ["--vae_weights", "vae.pth"])
+    with pytest.raises(NotImplementedError, match="queue A item 9"):
+        cli.main(["--backend", "zimage", "--weights", "z.gguf", *TINY])
 
 
 def test_entry_point_needs_a_card_or_the_cpu(tmp_path):

@@ -226,7 +226,7 @@ def test_cli_tiny_infinity_run(tmp_path, capsys):
     assert backend.cfg.model == infinity_rung_model("tiny")["bcfg"].model
 
 
-def test_cli_builds_the_inf_2b_model_and_refuses_what_is_not_ported():
+def test_cli_builds_the_inf_2b_model_and_refuses_what_is_not_ported(tmp_path, monkeypatch):
     # --infinity_variant means what it means in the JAX CLI, 2b included: the
     # preset (no QK-l2, no 2D RoPE, a 16-bit tokenizer); the released
     # Infinity-2B configuration is the inf_2b rung's
@@ -242,8 +242,7 @@ def test_cli_builds_the_inf_2b_model_and_refuses_what_is_not_ported():
         f32 = dict(compute_dtype=torch.float32)
         assert dataclasses.replace(m, vq=dataclasses.replace(m.vq, **f32), **f32) == port_cfg(j)
     # --pop_fuse and --base_quant int8 build the backend as the JAX CLI does
-    # (the int8 floor lowered so that the tiny blocks quantize); the
-    # checkpoint converters are still item 10
+    # (the int8 floor lowered so that the tiny blocks quantize)
     tiny = ["--backend", "infinity", "--model_scale", "tiny"]
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("HSES_BASE_QUANT_MIN_SIZE", "512")
@@ -254,8 +253,22 @@ def test_cli_builds_the_inf_2b_model_and_refuses_what_is_not_ported():
     assert all(hasattr(getattr(b, k), "q8") for b in backend.model.blocks for k in tinf.INFINITY_LORA_TARGETS)
     assert hasattr(backend.model.ada_lin, "q8") and not hasattr(backend.model.vq.phi[0], "q8")
     assert any(p.endswith("kernel_q8/q8") for p in _shape_paths(backend.param_shapes))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.build_backend(cli.build_parser().parse_args(tiny + ["--vae_weights", "bsq.pth"]), torch.device("cpu"))
+    # --vae_weights: a BSQ tokenizer checkpoint (the tiny tokenizer's 4 bits
+    # and 2 φ convs, CompVis layout) replaces the random one, as in the JAX CLI
+    from test_torch_weights_infinity import bsq_sd
+    from hyperscalees_t2i_tpu.weights.infinity import convert_bsq_vae as jconvert_bsq_vae
+
+    sd = bsq_sd(17)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, tmp_path / "bsq.pth")
+    backend = cli.build_backend(cli.build_parser().parse_args(tiny + ["--vae_weights", str(tmp_path / "bsq.pth")]),
+                                torch.device("cpu"))
+    built, real = [], tinf.InfinityTransformer
+    monkeypatch.setattr(tinf, "InfinityTransformer", lambda c, p: built.append(p) or real(c, p))
+    backend.setup()
+    want = jconvert_bsq_vae(sd, tiny_cfg().vq)
+    vq = built[0]["vq"]
+    assert "mid" in vq["decoder"] and np.array_equal(vq["phi"]["kernel"].numpy(), np.asarray(want["phi"]["kernel"]))
+    assert np.array_equal(vq["decoder"]["conv_out"]["kernel"].numpy(), np.asarray(want["decoder"]["conv_out"]["kernel"]))
 
 
 def _shape_paths(tree, prefix=""):
