@@ -72,7 +72,10 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
    device, in a profiled flush of each engine, the expected number;
    images must be finite in [0, 1], differ between tenants, equal between
    graph and eager bitwise, and batched must equal solo (padded) bitwise; a
-   new tenant must leave ``serve_compiles`` flat;
+   new tenant must leave ``serve_compiles`` flat; one flush of a third
+   engine under its own profile window (``ServeConfig(profile_dir,
+   profile_batches=1)``) must hold K1's expected number in its exported
+   trace (:func:`serve_profile_window`);
 6. the VAR path (K4): the tiny VAR geometry in f32 on the card against the
    CPU (one ``generate`` with injected Gumbel noise: token ids equal, images
    within 1e-4; one ES step: θ′ and reward rows within 1e-4, K4 launches as
@@ -119,7 +122,9 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
    ``[4, 4]`` and finite, θ′ finite, ‖Δθ‖ > 0;
 8. the trainer around the step: a tiny ``run_training`` (f32, int8 base)
    on the card against the same run on the CPU (θ₀ and the draws made on
-   the CPU; θ and ``per_prompt_mean`` within 1e-4 after 2 epochs), then,
+   the CPU; θ and ``per_prompt_mean`` within 1e-4 after 2 epochs,
+   ``regenerate_member_images`` within 1e-4, the plan's counted FLOPs and
+   bytes in ``programs.jsonl`` equal on the card and the CPU), then,
    on the backend of 7, the flagship ``run_training`` with ``quality`` on
    and a slot every 2 epochs: 4 epochs, a resume that must run exactly
    epoch 4 from the epoch-4 slot's θ bitwise (the slot's sha256s
@@ -133,6 +138,14 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
    stall and anomaly watchdogs), its epochs beside the bare step's.
    Then chained dispatch: 5 epochs with ``steps_per_dispatch`` 1 and 4
    (epochs_chained [1, 4]), θ bitwise equal, both runs' ``step_time_s``;
+   then the trainer's artifacts and profile window at the flagship
+   (:func:`phase_train_artifacts`: ``ART_EPOCHS`` epochs with θ/Δθ
+   histograms every epoch, member strips and snapshot grids every 2, a
+   ``torch.profiler`` window of ``ART_PROFILE_EPOCHS`` epochs; the rows'
+   ``hist/*``, ``mfu`` and ``roofline/*``, the strips' pixels against a
+   regeneration, ``programs.jsonl``, ``CALIB_train.json`` with K1 and K3
+   in the trace at the derived counts, ``QUALITY_train.json`` and the PEFT
+   export read back);
    then fleet training at the flagship (:func:`phase_fleet_flagship`: a
    ``FleetScheduler`` of width 2 over three jobs, a join, a swap to another
    σ and the leaves on one captured program, K3 and K1 on the device in a
@@ -202,6 +215,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+try:  # the trace readers live in the package; outside a checkout main() says so and exits
+    from hyperscalees_t2i_tpu_torch.obs.profile_trace import device_kernels, profiled_launches
+except ImportError:
+    device_kernels = profiled_launches = None
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside the
 # tensor cores, HBM bandwidth
@@ -324,6 +341,9 @@ def inf_k1_shapes():
     return out
 N_REQUESTS = 4
 TIMED_EPOCHS = 2
+# phase_train_artifacts: run_training epochs, the profile window's first epochs among them
+ART_EPOCHS = 4
+ART_PROFILE_EPOCHS = 2
 
 
 def log(msg: str) -> None:
@@ -1271,8 +1291,9 @@ def phase_serve(torch, keep: bool = False):
     for both; the graph's images bitwise equal to the eager engine's; every
     image finite in [0, 1], the tenants' different; a request alone (padded
     to the geometry's lanes) equal to it batched, bitwise, under the graph;
-    a brand-new tenant served with ``serve_compiles`` flat. ``keep`` also
-    returns the backend, for :func:`phase_serve_tier`."""
+    a brand-new tenant served with ``serve_compiles`` flat; one flush under
+    an engine's own profile window (:func:`serve_profile_window`). ``keep``
+    also returns the backend, for :func:`phase_serve_tier`."""
     from hyperscalees_t2i_tpu_torch.backends.sana_backend import build_serve_backend
     from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, RUNG_BASE_QUANT, SERVE_PLAN, sana_rung_model
     from torch.profiler import ProfilerActivity, profile
@@ -1358,6 +1379,7 @@ def phase_serve(torch, keep: bool = False):
         if profiled[v]["launches"] != expected:
             raise AssertionError(f"serving: the profiled {v} flush launched {profiled[v]['launches']} on the "
                                  f"device, expected {expected}")
+    window = serve_profile_window(torch, backend, plan, tenants, flush, expected)
     graph_vs_eager = max(float(abs(g.images - e.images).max()) for g, e in zip(results["graph"], results["eager"]))
     if graph_vs_eager != 0.0:
         raise AssertionError(f"served images: graph and eager differ by {graph_vs_eager}")
@@ -1395,7 +1417,7 @@ def phase_serve(torch, keep: bool = False):
         batch_latency_s=geng.dispatch_seconds, solo_s=solo_s,
         build_s=build_s, warmup_s=warm_s["graph"], graph=entry, launches_counted=counted["graph"],
         profiled_flush=profiled["graph"], launches_profiled=profiled["graph"]["launches"],
-        expected_launches_per_flush=expected,
+        profile_window=window, expected_launches_per_flush=expected,
         k1_calls_per_image=len(routed), batched_vs_solo_max_abs=solo_diff, graph_vs_eager_max_abs=graph_vs_eager,
         tenant_max_abs_diff=tenant_diff, plan=plan, serve_compiles=snap["serve_compiles"],
         serve_padded_slots=snap.get("serve_padded_slots", 0), admission=admitted,
@@ -1416,6 +1438,45 @@ def phase_serve(torch, keep: bool = False):
     del backend
     torch.cuda.empty_cache()
     return stats
+
+
+def serve_profile_window(torch, backend, plan, tenants, flush, expected):
+    """One flush through a graph engine with its own profile window
+    (``ServeConfig(profile_dir=…, profile_batches=…)``, the flush's
+    dispatches: ``N_REQUESTS`` over ``adapter_batch`` lanes), opened after
+    its warm-up: the exported trace's K1-K4 launches (``obs.profile_trace.
+    kernel_evidence``) must be the flush's derived counts."""
+    import shutil
+
+    from hyperscalees_t2i_tpu_torch.obs.profile_trace import kernel_evidence, load_trace
+    from hyperscalees_t2i_tpu_torch.serve import ServeConfig, ServeEngine
+
+    prof_dir = ROOT / "build" / "serve_profile"
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    batches = -(-N_REQUESTS // plan["adapter_batch"])
+    eng = ServeEngine(backend, ServeConfig(device="cuda", profile_dir=str(prof_dir), profile_batches=batches, **plan))
+    try:
+        for i in range(2):
+            eng.put_adapter(f"tenant{i}", tenants[i])
+        eng.warmup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flush(eng)
+        flush_s = time.perf_counter() - t0
+        if eng.profile_trace is None:
+            raise AssertionError("serving: the profile window did not close after its one batch")
+        evidence = {k: v["events"] for k, v in kernel_evidence(load_trace(eng.profile_trace)).items()}
+    finally:
+        eng.close()
+    mib = eng.profile_trace.stat().st_size / 2**20
+    log(f"[serve] profile window (one flush of {batches} batches, {flush_s:.3f} s with the window's export): K1-K4 "
+        f"in the trace "
+        f"{evidence} (expected {expected}); trace {mib:.1f} MiB")
+    if evidence != expected:
+        raise AssertionError(f"serving: the profile window's trace holds {evidence}, expected {expected}")
+    del eng
+    torch.cuda.empty_cache()
+    return {"launches": evidence, "flush_s": flush_s, "trace_mib": mib, "profile_batches": batches}
 
 
 def np_isfinite(a) -> bool:
@@ -1459,48 +1520,6 @@ def reward_calls(tc, batch: int) -> int:
     from hyperscalees_t2i_tpu_torch.parallel.pop_eval import effective_reward_tile
 
     return -(-tc.pop_size // tc.member_batch) * (batch // (effective_reward_tile(batch, tc.reward_tile) or batch))
-
-
-def device_kernels(torch, prof):
-    """Device time and launches per kernel name of a ``torch.profiler`` run:
-    ``({name: (ms, launches)}, busy ms, launches, the 12 largest as (ms,
-    launches, name))``."""
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, n = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
-    top = sorted(((ms, n, name[:100]) for name, (ms, n) in kernels.items()), reverse=True)[:12]
-    return kernels, sum(ms for ms, _ in kernels.values()), sum(n for _, n in kernels.values()), top
-
-
-# the kernels each wrapper launches one of a call, by their names in csrc/
-WRAPPER_KERNELS = {
-    "int8_matmul": ("int8_mma_kernel", "f32_tile_kernel", "f32_rows_kernel"),
-    "lora_chain": ("lora_chain_mma_kernel", "lora_chain_f32_kernel"),
-    "fused_qlora": ("qlora_mma_kernel", "qlora_f32_tile_kernel", "qlora_f32_rows_kernel"),
-    "decode_attention": ("decode_attention_mma_kernel", "decode_attention_f32_kernel"),
-}
-
-
-def profiled_launches(kernels, what: int = 1):
-    """K1-K4's launches on the device, from :func:`device_kernels`'s
-    ``{name: (ms, launches)}``: each kernel found by its whole name,
-    demangled or mangled. A CUDA graph's replays run the kernels without
-    their wrappers, so this is where a replay's launches are counted.
-    ``what=0`` sums their device ms instead."""
-    import re
-
-    pats = {w: re.compile("|".join(rf"(?<!\w){n}(?!\w)|(?<!\d){len(n)}{n}" for n in names))
-            for w, names in WRAPPER_KERNELS.items()}
-    out = {w: 0 for w in WRAPPER_KERNELS}
-    for name, counts in kernels.items():
-        hits = [w for w, pat in pats.items() if pat.search(name)]
-        if len(hits) > 1:
-            raise AssertionError(f"the kernel {name!r} matches {hits}")
-        if hits:
-            out[hits[0]] += counts[what]
-    return out
 
 
 def es_stage_breakdown(torch, backend, reward, theta, noise, tc, tag: str, reps: int = 2):
@@ -1863,7 +1882,9 @@ def phase_train_reference(torch):
     each device draws the epochs' noise from the same keys (within 1e-5,
     ``phase_threefry``), the card inside its step's graph. Two epochs: θ
     and each epoch's ``per_prompt_mean`` within 1e-4, the card's launches
-    exactly as derived."""
+    exactly as derived; ``regenerate_member_images`` of θ₀ (epoch 1, member
+    1) within 1e-4; the plan's ``programs.jsonl`` record, FLOPs and bytes
+    counted over its warm-up epoch, equal on the card and the CPU."""
     import shutil
 
     from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN
@@ -1892,19 +1913,31 @@ def phase_train_reference(torch):
             else:
                 expected1, _ = expected_es_launches(backend, suite, tc, m)
                 state, history, launches, _, _ = _train(torch, backend, suite, tc, expected1, "tiny run_training")
-            outs[dev.type] = (_cpu_tree(torch, state.theta), [h["per_prompt_mean"] for h in history])
+            theta0 = {k: {f: t.to(dev) for f, t in d.items()} for k, d in real_init(backend, tc, cpu).items()}
+            regen = trainer.regenerate_member_images(backend, theta0, tc, 1, 1, backend.step_info(1, m, 1))
+            (rec,) = [json.loads(x) for x in (root / dev.type / "tiny" / "programs.jsonl").read_text().splitlines()]
+            outs[dev.type] = (_cpu_tree(torch, state.theta), [h["per_prompt_mean"] for h in history], regen, rec)
             del backend, suite
     finally:
         trainer._init_theta = real_init
     th_err = max(float((outs["cuda"][0][k][f] - outs["cpu"][0][k][f]).abs().max())
                  for k in outs["cpu"][0] for f in outs["cpu"][0][k])
     pm_err = max(abs(a - b) for ec, eg in zip(outs["cpu"][1], outs["cuda"][1]) for a, b in zip(ec, eg))
+    regen_err = float(abs(outs["cuda"][2] - outs["cpu"][2]).max())
+    counts = {d: {k: outs[d][3][k] for k in ("flops", "bytes_accessed", "counted_ops", "kernels")} for d in outs}
     log(f"[train-tiny] tiny run_training f32 int8 base, 2 epochs, card vs CPU: θ max abs diff {th_err:.3g}, "
-        f"per_prompt_mean max abs diff {pm_err:.3g} (tol 1e-4); launches {launches}")
-    if len(outs["cuda"][1]) != 2 or not (th_err <= 1e-4 and pm_err <= 1e-4):
-        raise AssertionError(f"card and CPU disagree on the tiny run_training: θ {th_err}, per_prompt_mean {pm_err}")
+        f"per_prompt_mean max abs diff {pm_err:.3g}, regenerate_member_images max abs diff {regen_err:.3g} (tol "
+        f"1e-4); launches {launches}; counted warm-up: card {counts['cuda']['flops']} FLOP "
+        f"{counts['cuda']['bytes_accessed']} B over {counts['cuda']['counted_ops']} ops, CPU {counts['cpu']['flops']} "
+        f"FLOP {counts['cpu']['bytes_accessed']} B over {counts['cpu']['counted_ops']} ops")
+    if len(outs["cuda"][1]) != 2 or not (th_err <= 1e-4 and pm_err <= 1e-4 and regen_err <= 1e-4):
+        raise AssertionError(f"card and CPU disagree on the tiny run_training: θ {th_err}, per_prompt_mean {pm_err}, "
+                             f"regeneration {regen_err}")
+    if counts["cuda"] != counts["cpu"]:
+        raise AssertionError(f"the tiny plan's counted warm-up differs: card {counts['cuda']}, CPU {counts['cpu']}")
     torch.cuda.empty_cache()
-    return {"theta_max_abs": th_err, "per_prompt_mean_max_abs": pm_err, "launches": launches}
+    return {"theta_max_abs": th_err, "per_prompt_mean_max_abs": pm_err, "regenerate_max_abs": regen_err,
+            "counted": counts["cuda"], "launches": launches}
 
 
 def phase_train_flagship(torch, backend, suite, es):
@@ -1998,6 +2031,243 @@ def phase_train_flagship(torch, backend, suite, es):
                 launches=[l1, l2, l3], epochs=[len(h1), len(h2), len(h3)], eager_epochs=[e1, e2, e3],
                 images_per_epoch=pop * m,
                 slot_digest=digest, telemetry=telemetry)
+
+
+def read_png(path):
+    """An 8-bit RGB PNG with every row filter 0 (``utils.images.write_png``'s
+    files) → ``[H, W, 3]`` uint8, read with ``zlib`` alone."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path} is not a PNG")
+    pos, idat, shape = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", body[:10])
+            if (depth, color) != (8, 2):
+                raise AssertionError(f"{path}: not 8-bit RGB")
+            shape = (h, w)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    h, w = shape
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def phase_train_artifacts(torch, backend, suite):
+    """The trainer's artifacts and profile window at the flagship
+    (``RUNG_PLAN``/``RUNG_OPT["flagship"]``: int8 base, ``pop_fuse``, K3 and
+    K1), on :func:`phase_es_flagship`'s backend: ``run_training`` for
+    ``ART_EPOCHS`` epochs with ``log_hist_every`` 1, ``log_images_every`` and
+    ``snapshot_every`` 2 and ``profile_epochs`` ``ART_PROFILE_EPOCHS``.
+    Checks: every row's ``hist/*`` (64 bins, 4 scores, Δθ counted), ``mfu``
+    and ``roofline/bound``; the best, median and worst strips (4 × 256 by
+    256 pixels) of epochs 1 and 3 and two snapshot grids; epoch 3's best
+    member regenerated twice on the card bitwise equal, and its strip's
+    pixels (read back by :func:`read_png`) equal to ``make_prompt_strip`` of
+    that regeneration; the graph's pool unchanged by the regenerations;
+    one ``programs.jsonl`` record with counted FLOPs and bytes;
+    ``CALIB_train.json`` with the plan's row measured from the profile and
+    K1 and K3 in its kernel evidence at the derived counts (the wrappers'
+    counters over the window's eager work, the warm-up epoch and epoch 1's
+    regenerations, plus one replayed epoch, which runs the warm-up's
+    launches); ``QUALITY_train.json`` with a curve of every epoch over the
+    calibrated device seconds; no ``cleanup_errors``; the final θ through
+    ``export_peft_adapter`` read back (``weights.io``) equal to its factors
+    transposed, bitwise."""
+    import shutil
+
+    import numpy as np
+
+    from hyperscalees_t2i_tpu_torch.obs.calib import load_calib
+    from hyperscalees_t2i_tpu_torch.obs.trace import load_events
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
+    from hyperscalees_t2i_tpu_torch.train import trainer
+    from hyperscalees_t2i_tpu_torch.train.checkpoints import export_peft_adapter
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+    from hyperscalees_t2i_tpu_torch.utils.graphs import pool_bytes
+    from hyperscalees_t2i_tpu_torch.utils.images import make_prompt_strip
+    from hyperscalees_t2i_tpu_torch.utils.jsonl import read_jsonl_rows
+    from hyperscalees_t2i_tpu_torch.weights.io import load_state_dict
+
+    _, pop, m, mb = RUNG_PLAN["flagship"]
+    opt = rung_opt("flagship")
+    root = ROOT / "build" / "train_artifacts"
+    shutil.rmtree(root, ignore_errors=True)
+    tc = TrainConfig(num_epochs=ART_EPOCHS, pop_size=pop, sigma=0.01, egg_rank=4, prompts_per_gen=m,
+                     batches_per_gen=1, member_batch=mb, reward_tile=opt["reward_tile"],
+                     noise_dtype=opt["noise_dtype"], tower_dtype=opt["tower_dtype"], pop_fuse=opt["pop_fuse"],
+                     base_quant=opt["base_quant"], quality=True, save_every=0, log_hist_every=1, log_images_every=2,
+                     snapshot_every=2, profile_epochs=ART_PROFILE_EPOCHS, run_dir=str(root), run_name="artifacts",
+                     trace=True)
+    expected1, _ = expected_es_launches(backend, suite, tc, m)
+    last = ART_EPOCHS - 1
+    caches, counted, before_last = [], {}, {}
+    real = trainer.make_es_step
+
+    def spying_make(*a, **kw):
+        step = real(*a, **kw)
+        caches.append(step.graphs)
+
+        def spied(theta, prev_delta, flat_ids, key, *rest, **kwr):
+            if torch.equal(key, trainer.epoch_key(tc.seed, last, key.device)):  # θ before the last epoch
+                before_last.update({k: {f: t.detach().clone() for f, t in d.items()} for k, d in theta.items()})
+            return step(theta, prev_delta, flat_ids, key, *rest, **kwr)
+
+        spied.graphs = step.graphs
+        return spied
+
+    # the window's close, timed: the profiler's stop, the trace's export, the calibration
+    close_s = {}
+    real_stop, real_calibrate = trainer.stop_profile, trainer._calibrate
+
+    def timed_stop(prof, path):
+        t = time.perf_counter()
+        prof.stop()
+        close_s["stop_s"] = time.perf_counter() - t
+        path.parent.mkdir(parents=True, exist_ok=True)
+        t = time.perf_counter()
+        prof.export_chrome_trace(str(path))
+        close_s["export_s"] = time.perf_counter() - t
+        return path
+
+    def timed_calibrate(*a, **kw):
+        t = time.perf_counter()
+        real_calibrate(*a, **kw)
+        close_s["calibrate_s"] = time.perf_counter() - t
+
+    trainer.make_es_step, trainer.stop_profile, trainer._calibrate = spying_make, timed_stop, timed_calibrate
+    try:
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        state = trainer.run_training(backend, suite, tc, device="cuda",
+                                     on_epoch_end=lambda e, s: counted.setdefault(e, _counters()))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        trainer.make_es_step, trainer.stop_profile, trainer._calibrate = real, real_stop, real_calibrate
+    run_dir = root / "artifacts"
+    rows = read_jsonl_rows(run_dir / "metrics.jsonl")
+    if [r["epoch"] for r in rows] != list(range(ART_EPOCHS)) or counted.get(0) != expected1:
+        raise AssertionError(f"artifacts run: rows {[r['epoch'] for r in rows]}, warm-up launches {counted.get(0)} "
+                             f"(expected {expected1})")
+    for r in rows:
+        bad = [k for k in ("hist/theta", "hist/delta_theta") if len(r.get(k, {}).get("counts", [])) != 64]
+        if bad or len(r.get("hist/pop_scores", [])) != pop or not sum(r["hist/delta_theta"]["counts"]) > 0:
+            raise AssertionError(f"epoch {r['epoch']}: hist keys {bad} lack 64 bins, or pop_scores / Δθ is off")
+        if not (isinstance(r.get("mfu"), float) and r.get("roofline/bound") in ("compute", "bandwidth", "latency")):
+            raise AssertionError(f"epoch {r['epoch']}: mfu {r.get('mfu')}, roofline/bound {r.get('roofline/bound')}")
+    if rows[-1].get("obs/cleanup_errors", 0) != 0:
+        raise AssertionError(f"a best-effort step failed: obs/cleanup_errors {rows[-1]['obs/cleanup_errors']}")
+
+    # strips and snapshots; epoch 3's best member regenerated on the card
+    strips = {}
+    for e in (1, 3):
+        files = {p.name.split("_")[0]: p for p in (run_dir / f"epoch_{e:04d}").glob("*.png")}
+        shapes = {k: read_png(p).shape for k, p in files.items()}
+        if set(files) != {"best", "median", "worst"} or set(shapes.values()) != {(256, 256 * m, 3)}:
+            raise AssertionError(f"epoch_{e:04d}: strips {shapes}")
+        strips[e] = files
+    grids = sorted((run_dir / "snapshots").glob("*.png"))
+    if len(grids) != 2 or any(read_png(g).shape != (256, 256 * m, 3) for g in grids):
+        raise AssertionError(f"snapshots: {[g.name for g in grids]}")
+    best = int(strips[3]["best"].name.split("_member")[1].split("_")[0])
+    info = backend.step_info(last, m, 1)
+    (entry,) = [e for c in caches for e in c.entries.values()]
+    graph_pool = pool_bytes(entry.captured.replay.__self__.pool())
+    _reset_counters()
+    t0 = time.perf_counter()
+    regen = [trainer.regenerate_member_images(backend, before_last, tc, last, best, info) for _ in range(2)]
+    regen_s = (time.perf_counter() - t0) / 2
+    regen_launches = {k: v // 2 for k, v in _counters().items()}
+    if not np.array_equal(regen[0], regen[1]):
+        raise AssertionError("epoch 3's best member regenerated twice differs")
+    strip_png = read_png(strips[3]["best"])
+    if not np.array_equal(strip_png, make_prompt_strip(list(regen[0]), m)):
+        raise AssertionError("the best strip's pixels differ from make_prompt_strip of the regeneration")
+    if graph_pool != entry.stats.pool_bytes:
+        raise AssertionError(f"the graph's pool holds {graph_pool} bytes, {entry.stats.pool_bytes} at its capture")
+
+    # the ledger, the calibration and the quality artifact
+    (rec,) = [json.loads(x) for x in (run_dir / "programs.jsonl").read_text().splitlines()]
+    if not (rec["label"] == f"es_step_m{m}r1" and rec["flops"] > 0 and rec["bytes_accessed"] > 0):
+        raise AssertionError(f"programs.jsonl: {rec}")
+    payload = load_calib(run_dir / "CALIB_train.json")
+    (row,) = [r for r in payload["rows"] if r["key"] == f"train/es_step_m{m}r1"]
+    window_eager = counted[ART_PROFILE_EPOCHS - 1]
+    want = {k: window_eager[k] + expected1[k] * (ART_PROFILE_EPOCHS - 1) for k in expected1}
+    evidence = {k: v["events"] for k, v in payload["kernel_evidence"].items()}
+    if row["measured_source"] != "profile" or evidence != want:
+        raise AssertionError(f"CALIB_train.json: {row['measured_source']} row, kernel evidence {evidence} "
+                             f"(expected {want})")
+    quality = json.loads((run_dir / "QUALITY_train.json").read_text())
+    if len(quality["curve"]) != ART_EPOCHS or quality["device_s_source"] != "calib":
+        raise AssertionError(f"QUALITY_train.json: {len(quality['curve'])} points, {quality['device_s_source']}")
+
+    # the final θ as a PEFT adapter, read back
+    export_peft_adapter(run_dir / "peft", state.theta, rank=backend.cfg.lora_r, alpha=backend.cfg.lora_alpha,
+                        module_name_fn=lambda p, i: p.replace("/", ".") + ("" if i is None else f".{i}"))
+    sd = load_state_dict(run_dir / "peft" / "adapter_model.safetensors")
+    final = _cpu_tree(torch, state.theta)
+    n_checked = 0
+    for path, d in final.items():
+        a, b = d["a"].numpy(), d["b"].numpy()
+        layers = [(f".{i}", a[i], b[i]) for i in range(a.shape[0])] if a.ndim == 3 else [("", a, b)]
+        for suffix, ai, bi in layers:
+            name = f"base_model.model.{path.replace('/', '.')}{suffix}"
+            want_a = ai.transpose(3, 2, 0, 1) if ai.ndim == 4 else ai.T
+            want_b = bi.T[:, :, None, None] if ai.ndim == 4 else bi.T
+            if not (np.array_equal(sd[f"{name}.lora_A.weight"], want_a)
+                    and np.array_equal(sd[f"{name}.lora_B.weight"], want_b)):
+                raise AssertionError(f"PEFT export of {name} differs from θ's factors transposed")
+            n_checked += 1
+    if n_checked * 2 != len(sd):
+        raise AssertionError(f"the PEFT file holds {len(sd)} tensors, θ {n_checked} factor pairs")
+
+    spans = {}
+    for ev in load_events(run_dir):
+        spans.setdefault(ev["name"], []).append(ev["dur_s"])
+    window_s = sum(ev["dur_s"] for ev in load_events(run_dir)
+                   if ev["name"] == "epoch" and ev.get("attrs", {}).get("epoch", 99) < ART_PROFILE_EPOCHS)
+    trace_mib = sum(p.stat().st_size for p in (run_dir / "profile").glob("*")) / 2**20
+    out = dict(
+        step_time_s=[r["step_time_s"] for r in rows], mfu=[r["mfu"] for r in rows],
+        roofline=[{k: r.get(f"roofline/{k}") for k in ("bound", "intensity", "t_compute_s", "t_bandwidth_s",
+                                                        "t_roofline_s")} for r in rows],
+        record={k: rec[k] for k in ("flops", "bytes_accessed", "intensity", "counted_ops", "kernels", "warmup_s",
+                                    "capture_s", "instantiate_s", "pool_bytes")},
+        calib_row=row, kernel_evidence=evidence, quality={k: quality.get(k) for k in (
+            "device_s_total", "device_s_source", "final_reward", "reward_per_device_s")},
+        span_s={k: v for k, v in spans.items() if k in ("hist", "strip", "snapshot", "dispatch", "epoch")},
+        window_s=window_s, window_close_s=close_s, trace_mib=trace_mib, wall_s=wall_s, regen_s=regen_s, regen_launches=regen_launches,
+        launches_by_epoch=counted, graph_pool_bytes=graph_pool, peft_tensors=len(sd),
+        launches={k: counted[last][k] for k in expected1},
+    )
+    log(f"[train-artifacts] flagship run_training, {ART_EPOCHS} epochs (hist every 1, strips and snapshots every 2, "
+        f"profile window {ART_PROFILE_EPOCHS}): step_time_s {', '.join(f'{s:.3f}' for s in out['step_time_s'])}; "
+        f"mfu {', '.join(f'{u:.4f}' for u in out['mfu'])}; roofline {[x['bound'] for x in out['roofline']]} "
+        f"(intensity {rows[-1]['roofline/intensity']:.1f} FLOP/B, t_roofline {rows[-1]['roofline/t_roofline_s']:.4f} s); "
+        f"counted {rec['flops'] / 1e12:.2f} TFLOP, {rec['bytes_accessed'] / 1e9:.2f} GB over {rec['counted_ops']} "
+        f"ops an epoch (warm-up {rec['warmup_s']:.2f} s); calib measured {row['measured_s']:.4f} s over "
+        f"{row['occurrences']} dispatches against predicted {row['predicted_s']:.4f} s: measured/predicted "
+        f"{row['error_ratio']:.2f}, mfu measured {row['mfu_measured']:.4f}, claimed {row['mfu_claimed']:.4f}")
+    log(f"[train-artifacts] seconds: hist {spans.get('hist')}, strip {spans.get('strip')}, snapshot "
+        f"{spans.get('snapshot')}, profile window (epochs 0-{ART_PROFILE_EPOCHS - 1}) {window_s:.2f} s (closing it: "
+        f"{ {k: round(v, 2) for k, v in close_s.items()} }), trace {trace_mib:.1f} MiB, run {wall_s:.2f} s wall; one regeneration {regen_s:.3f} s, launches {regen_launches}; "
+        f"kernel evidence {evidence} = window's eager {window_eager} + a replay {expected1}; graph pool "
+        f"{graph_pool / 2**30:.2f} GiB unchanged; QUALITY {out['quality']}; PEFT {len(sd)} tensors read back bitwise")
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_train_chained(torch, backend, suite):
@@ -4723,6 +4993,7 @@ def main() -> int:
     pipeline_es = phase_pipeline_es(torch, *flagship, es)
     train = phase_train_flagship(torch, *flagship, es)
     chained = phase_train_chained(torch, *flagship)
+    artifacts = phase_train_artifacts(torch, *flagship)
     fleet_run = phase_fleet_flagship(torch, *flagship, es)
     tax = phase_dispatch_tax(torch, *flagship)
     threefry_rows = threefry_shares(phase_threefry(torch, flagship[0]), es, var_es, inf_es)
@@ -4743,7 +5014,8 @@ def main() -> int:
     # the checkpoint phases' eager epochs: each run_training's warm-up and its epoch against the graph
     weights_launches = lambda k: sum(p["launches"][k] + p["eager_launches"][k]  # noqa: E731
                                      for p in (weights_var, weights_sana))
-    extra_launches = lambda k: inf_launches(k) + weights_launches(k)  # noqa: E731
+    # the artifacts run's eager work: its warm-up and the strip and snapshot regenerations
+    extra_launches = lambda k: inf_launches(k) + weights_launches(k) + artifacts["launches"][k]  # noqa: E731
     kernels = [
         kernel_summary("int8_matmul", k1_rows,
                        es["eager"]["launches"]["int8_matmul"] + train_launches("int8_matmul")
@@ -4807,6 +5079,9 @@ def main() -> int:
             "weights_sana_run_training_warmup": weights_sana["launches"][name],
             "weights_sana_eager_epoch": weights_sana["eager_launches"][name],
             "weights_sana_graph_profiled_epoch": weights_sana["launches_profiled"][name],
+            "train_artifacts_eager": artifacts["launches"][name],
+            "train_artifacts_profile_window": artifacts["kernel_evidence"][name],
+            "serve_profile_window_flush": serve["profile_window"]["launches"][name],
         }
         # the kernel at Infinity-2B's shapes: one generate call's calls (K1 on
         # the int8 base, its f32 route included; K2 over a bf16 base; K3 over
@@ -4861,7 +5136,7 @@ def main() -> int:
         es_flagship_float=es_float, serve=serve, var_es=var_es, inf_es=inf_es, es_flagship=es, train_tiny=train_tiny,
         threefry=threefry_rows, train_chained=chained, dispatch_tax=tax, pipeline_tiny=pipeline_tiny,
         pipeline_es=pipeline_es, serve_tier=tier,
-        train_flagship=train, fleet_tiny=fleet_tiny, fleet_flagship=fleet_run, weights_var=weights_var,
+        train_flagship=train, train_artifacts=artifacts, fleet_tiny=fleet_tiny, fleet_flagship=fleet_run, weights_var=weights_var,
         weights_sana=weights_sana,
         kernels=kernels, k1_serving=k1_serve, k4_infinity=k4_inf,
         wall_s=wall_s,

@@ -39,6 +39,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..obs.program_cost import kernel_cost, tensor_bytes
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128  # csrc/decode_attention.cu's limit
 BKV = 64  # cache positions per kv tile; the C entry refuses any other
@@ -149,6 +150,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int, kv_ma
         raise ValueError(f"q, k, v and the mask lie on different devices: {sorted(map(str, devices))}")
 
 
+def decode_attention_cost(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, kv_len: Optional[int] = None,
+                          kv_mask: Optional[torch.Tensor] = None, sm_scale: Optional[float] = None) -> Tuple[int, int]:
+    """``(FLOPs, bytes)`` of one call: ``4·B·H·nq·kv_len·dh`` (QKᵀ and PV
+    over the valid prefix); q, the cache's and the mask's first ``kv_len``
+    positions read once, the output written once."""
+    B, nq, H, dh = q.shape
+    L = k_cache.shape[1] if kv_len is None else int(kv_len)
+    kv = 2 * B * L * H * dh * k_cache.element_size()
+    mask = B * L * kv_mask.element_size() if kv_mask is not None else 0
+    return 4 * B * H * nq * L * dh, 2 * tensor_bytes(q) + kv + mask
+
+
+@kernel_cost(decode_attention_cost)
 def decode_attention(
     q: torch.Tensor,  # [B, nq, H, dh]
     k_cache: torch.Tensor,  # [B, L, H, dh]

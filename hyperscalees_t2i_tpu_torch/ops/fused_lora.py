@@ -49,6 +49,7 @@ from typing import Any, List, NamedTuple, Tuple
 
 import torch
 
+from ..obs.program_cost import kernel_cost, tensor_bytes
 from .quant_mm import copy_widths
 
 MAX_RANK = 16  # r_l and r_e limits of csrc/lora_chain.cuh
@@ -202,6 +203,27 @@ def _launch(x: torch.Tensor, out: torch.Tensor, args: List[Any], ndt: torch.dtyp
         raise RuntimeError(f"lora_chain kernel launch failed: cudaError {err}")
 
 
+def chain_cost(x: torch.Tensor, a: Any, b: Any) -> Tuple[int, int, int]:
+    """``(FLOPs, bytes read, rows)`` of the chain ``(x@a_k)@b_k`` over all
+    of x's rows as :func:`chain_reference` orders it: ``x@a.w``,
+    ``x@a.u``, ``(x@a.u)@a.vᵀ``, then ``xa@b.w``, ``xa@b.u`` and
+    ``(xa@b.u)@b.vᵀ``, two FLOPs a multiply-add; x and the factors read
+    once."""
+    din, r_l = a.w.shape[-2:]
+    r_e, dout = a.u.shape[-1], b.w.shape[-1]
+    rows = x.numel() // din if din else 0
+    flops = 2 * rows * (din * r_l + din * r_e + r_e * r_l + r_l * dout + r_l * r_e + r_e * dout)
+    return flops, tensor_bytes(x, *a, *b), rows
+
+
+def member_lora_delta_cost(x: torch.Tensor, a: Any, b: Any, scale: float) -> Tuple[int, int]:
+    """``(FLOPs, bytes)`` of one call: the chain's (:func:`chain_cost`), the
+    output written once."""
+    flops, nbytes, rows = chain_cost(x, a, b)
+    return flops, nbytes + rows * b.w.shape[-1] * x.element_size()
+
+
+@kernel_cost(member_lora_delta_cost)
 def member_lora_delta(x: torch.Tensor, a: Any, b: Any, scale: float) -> torch.Tensor:
     """``scale·(x@a_k)@b_k`` for one member's (or a lane group's) factored
     2D adapter leaf. ``x``: ``[..., din]`` bf16 or f32; ``a.w [din, r_l]``,

@@ -34,11 +34,12 @@ ES needs no gradient, so there is no backward kernel: the step runs under
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from .fused_lora import CHAIN_ARGTYPES, DTYPE_NAMES, chain_launch_args, chain_reference
+from ..obs.program_cost import kernel_cost, tensor_bytes
+from .fused_lora import CHAIN_ARGTYPES, DTYPE_NAMES, chain_cost, chain_launch_args, chain_reference
 from .quant_mm import F32_ROWS8, F32_TILE, Plan, copy_widths, dequant_matmul, mma_tile
 
 
@@ -87,6 +88,17 @@ def _launch(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor, out: torch.T
         raise RuntimeError(f"fused_qlora kernel launch failed: cudaError {err}")
 
 
+def fused_qlora_cost(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
+                     a: Any, b: Any, lora_scale: float) -> Tuple[int, int]:
+    """``(FLOPs, bytes)`` of one call: K1's ``2·M·N·K`` plus the chain's
+    (``fused_lora.chain_cost``); x, q8, scale and the factors read once,
+    the output written once."""
+    din, dout = q8.shape[-2:]
+    flops, nbytes, rows = chain_cost(x, a, b)
+    return 2 * rows * din * dout + flops, nbytes + tensor_bytes(q8, scale) + rows * dout * x.element_size()
+
+
+@kernel_cost(fused_qlora_cost)
 def fused_qlora_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
                        a: Any, b: Any, lora_scale: float) -> torch.Tensor:
     """``x @ (q8·scale) + lora_scale·(x@a_k)@b_k`` for one 2D per-channel

@@ -23,10 +23,11 @@ first use and called through ``ctypes`` on PyTorch's current stream.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from ..obs.program_cost import kernel_cost, tensor_bytes
 from .quant import dequantize_kernel
 
 _KERNEL_SOURCE = "int8_matmul"
@@ -114,6 +115,15 @@ def _launch(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor, out: torch.T
         raise RuntimeError(f"int8_matmul kernel launch failed: cudaError {err}")
 
 
+def int8_matmul_cost(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> Tuple[int, int]:
+    """``(FLOPs, bytes)`` of one call: ``2·M·N·K``; x, q8 and scale read
+    once, the output written once."""
+    din, dout = q8.shape[-2:]
+    rows = x.numel() // din if din else 0
+    return 2 * rows * din * dout, tensor_bytes(x, q8, scale) + rows * dout * x.element_size()
+
+
+@kernel_cost(int8_matmul_cost)
 def int8_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """``x @ (q8 · scale)`` for one 2D per-output-channel int8 node.
 

@@ -12,6 +12,7 @@ import torch
 
 from ..es.noiser import EggRollConfig, factored_member_theta, perturb_member, stacked_adapter_theta
 from ..lora import stack_adapters
+from ..obs.program_cost import note_program_geometry, repeated
 
 GenerateFn = Callable[..., torch.Tensor]
 RewardFn = Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]
@@ -59,6 +60,8 @@ def make_population_evaluator(
     per-job σ as program inputs)."""
     if member_batch < 1:
         raise ValueError(f"member_batch must be >= 1, got {member_batch}")
+    # the ledger's record of the program this evaluator runs in
+    note_program_geometry(member_batch=member_batch, reward_tile=reward_tile, pop_fuse=pop_fuse)
 
     def chunk_theta(theta, noise, members, sigma, c_scale):
         if pop_fuse:
@@ -79,9 +82,11 @@ def make_population_evaluator(
             for i0 in range(0, B, tile):
                 t_ids = ids[i0:i0 + tile]
                 t_noise = gen_noise[i0:i0 + tile]
-                images = generate_p(theta_k, t_ids.expand(n, -1), None,
-                                    noise=t_noise.expand(n, *t_noise.shape))
-                r = reward_fn(images.reshape(n * t_ids.shape[0], *images.shape[2:]), t_ids.repeat(n))
+                # the same ops for every member tile of this shape (the program ledger counts two)
+                with repeated(("member_tile", n, t_ids.shape[0])):
+                    images = generate_p(theta_k, t_ids.expand(n, -1), None,
+                                        noise=t_noise.expand(n, *t_noise.shape))
+                    r = reward_fn(images.reshape(n * t_ids.shape[0], *images.shape[2:]), t_ids.repeat(n))
                 tiles.append({k: v.reshape(n, -1) for k, v in r.items()})
             chunks.append({k: torch.cat([t[k] for t in tiles], dim=1) for k in tiles[0]})
         return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}

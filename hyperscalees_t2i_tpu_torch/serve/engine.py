@@ -39,18 +39,25 @@ Port of ``hyperscalees_t2i_tpu/serve/engine.py``:
   the latency terms); ``metrics_port`` starts the ``/metrics`` +
   ``/healthz`` exporter and ``slo`` the burn-rate evaluator. A telemetry
   failure is retried, then dropped and counted (``serve_obs_dropped``): it
-  never fails a request.
+  never fails a request;
+- **profile window** (``profile_dir``): ``torch.profiler`` over the first
+  ``profile_batches`` dispatches (opened at the first dispatch, so a
+  warm-up stays out), its Chrome trace written under ``profile_dir``
+  (``obs/profile_trace.py`` reads it) when the window closes or at
+  :meth:`ServeEngine.close`. A profiler that does not start fails the
+  dispatch (the JAX engine warns and serves on unprofiled).
 
-``compile_cache_dir`` (a CUDA graph cannot be serialized) and
-``profile_dir`` (ROADMAP queue A item 10) are refused.
+``compile_cache_dir`` (a CUDA graph cannot be serialized) is refused.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 import sys
 import time
+from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,6 +67,7 @@ from ..backends.base import GeneratorBackend
 from ..device import DeviceLike, resolve_device
 from ..lora import stack_adapters
 from ..obs.metrics import MetricsRegistry
+from ..obs.profile_trace import start_profile, stop_profile
 from ..obs.trace import Tracer
 from ..parallel.pop_eval import make_adapter_batch_generator
 from ..utils import threefry
@@ -77,7 +85,6 @@ Adapter = Any
 _REFUSED = (
     ("compile_cache_dir", lambda v: v is not None,
      "a CUDA graph cannot be serialized; each process captures its own programs"),
-    ("profile_dir", lambda v: v is not None, "ROADMAP queue A item 10 (the profiler ledger)"),
 )
 
 
@@ -91,8 +98,10 @@ class ServeConfig:
     on the CPU the gate is then unarmed); ``metrics_port``: serve
     ``/metrics`` and ``/healthz`` on this port (0 = off) at
     ``metrics_host``; ``slo``: objectives in the ``obs/slo.py`` grammar,
-    evaluated after every dispatch; ``overload``: the overload layer (None
-    = off); ``device``: ``None`` = the CUDA card."""
+    evaluated after every dispatch; ``profile_dir``: trace the first
+    ``profile_batches`` dispatches into this directory (None = off);
+    ``overload``: the overload layer (None = off); ``device``: ``None`` =
+    the CUDA card."""
 
     adapter_batch: int = 4
     images_per_request: int = 1
@@ -105,6 +114,7 @@ class ServeConfig:
     metrics_host: str = "0.0.0.0"
     slo: Optional[str] = None
     profile_dir: Optional[str] = None
+    profile_batches: int = 8
     overload: Optional[OverloadConfig] = None
     device: DeviceLike = None
 
@@ -163,6 +173,11 @@ class ServeEngine:
         self._governor = OverloadGovernor(self.cfg.overload) if self.cfg.overload is not None else None
         self._not_resident = 0
         self.dispatch_seconds: List[float] = []
+        # the profile window (cfg.profile_dir): opened at the first dispatch,
+        # closed after cfg.profile_batches of them
+        self._profiler = None
+        self._profile_batches_seen = 0
+        self.profile_trace: Optional[Path] = None
         self.exporter = None
         self._slo = None
         if self.cfg.slo:
@@ -182,10 +197,37 @@ class ServeEngine:
             ).start()
 
     def close(self) -> None:
-        """Stop the exporter, if any."""
+        """Stop the exporter, if any, and write a still-open profile
+        window's trace."""
+        self._profile_stop()
         if self.exporter is not None:
             self.exporter.stop()
             self.exporter = None
+
+    def _profile_start_maybe(self) -> None:
+        """Open the window before the first dispatch; raises if the profiler
+        does not start."""
+        if not self.cfg.profile_dir or self._profiler is not None or self._profile_batches_seen:
+            return
+        self._profiler = start_profile(self.device)
+        print(f"[serve] profiling the first {self.cfg.profile_batches} batches -> {self.cfg.profile_dir}",
+              file=sys.stderr, flush=True)
+
+    def _profile_batch_done(self) -> None:
+        if self._profiler is None:
+            return
+        self._profile_batches_seen += 1
+        if self._profile_batches_seen >= max(int(self.cfg.profile_batches), 1):
+            self._profile_stop()
+
+    def _profile_stop(self) -> None:
+        if self._profiler is None:
+            return
+        prof, self._profiler = self._profiler, None
+        self._profile_batches_seen = max(self._profile_batches_seen, 1)  # one window an engine
+        name = f"serve_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.pt.trace.json"
+        self.profile_trace = stop_profile(prof, Path(self.cfg.profile_dir) / name)
+        print(f"[serve] profile window written -> {self.profile_trace}", file=sys.stderr, flush=True)
 
     def health(self) -> Dict[str, Any]:
         """The serve slice of ``/healthz``, with the overload layer's
@@ -601,6 +643,7 @@ class ServeEngine:
         occupancy = n / A
         assembly_s = time.perf_counter() - t_assemble0
         try:
+            self._profile_start_maybe()
             with self.tracer.span("serve/batch", requests=n, occupancy=occupancy,
                                   request_ids=[r.request_id for r in good]):
                 t_disp0 = time.perf_counter()
@@ -620,6 +663,7 @@ class ServeEngine:
                 self._finalize_request(r, reason="fault")
             raise
         t_done = time.perf_counter()
+        self._profile_batch_done()
         self.dispatch_seconds.append(t_done - t_disp0)
         self._last_occupancy = occupancy
         n_degraded = sum(1 for r in good if r.degraded)

@@ -130,6 +130,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="proceed with random-init reward towers when their Hugging Face weights are unavailable")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--save_every", type=int, default=10)
+    p.add_argument("--log_images_every", type=int, default=0,
+                   help="save best/median/worst member strips every N epochs")
+    p.add_argument("--log_hist_every", type=int, default=10,
+                   help="θ/Δθ/reward histograms in metrics.jsonl every N epochs")
+    p.add_argument("--profile_epochs", type=int, default=0,
+                   help="capture a torch.profiler trace of the first N epochs")
     p.add_argument("--trace", type=str2bool, nargs="?", const=True, default=False,
                    help="write a host-side span timeline to run_dir/trace.jsonl")
     p.add_argument("--metrics_port", type=int, default=0,
@@ -168,6 +174,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="robust z-score magnitude that counts as anomalous")
     p.add_argument("--quality", type=str2bool, default=True)
     p.add_argument("--quality_hack_window", type=int, default=4)
+    p.add_argument("--snapshot_every", type=int, default=0,
+                   help="save a decoded-image grid of the best member's prompts every N epochs under "
+                        "run_dir/snapshots/ (CRN-exact regeneration, host-side PNG; 0 = off)")
     p.add_argument("--run_dir", default="runs")
     p.add_argument("--run_name", default=None)
     p.add_argument("--resume", type=parse_resume, default=True)
@@ -474,7 +483,9 @@ def train_config(args):
         base_quant=args.base_quant, noise_dtype=_dtype(args.noise_dtype), tower_dtype=_dtype(args.tower_dtype),
         theta_max_norm=args.theta_max_norm, max_step_norm=args.max_step_norm,
         reward_weights=(args.w_aesthetic, args.w_text, args.w_noart, args.w_pick),
-        seed=args.seed, save_every=args.save_every, trace=args.trace,
+        seed=args.seed, save_every=args.save_every, log_images_every=args.log_images_every,
+        log_hist_every=args.log_hist_every, profile_epochs=args.profile_epochs, snapshot_every=args.snapshot_every,
+        trace=args.trace,
         metrics_port=args.metrics_port, metrics_host=args.metrics_host, metrics_linger_s=args.metrics_linger_s,
         slo=args.slo, heartbeat_interval_s=args.heartbeat_interval_s, stall_cap_s=args.stall_cap_s,
         stall_action=args.stall_action, anomaly_detect=args.anomaly_detect, anomaly_window=args.anomaly_window,

@@ -3,12 +3,13 @@ every field with the JAX package's name, type and default, and the same
 ``auto_run_name``).
 
 The port's ``run_training`` runs the single-process loop with its live
-telemetry (exporter, SLOs, heartbeats, the stall and anomaly watchdogs).
-The fields of machinery it does not have yet raise there when set away
-from their defaults (:func:`unported_settings`, naming the ROADMAP item
-that brings each). Two defaults are accepted although nothing reads them
-yet: ``log_hist_every`` (θ/Δθ histograms, item 10) and the ``desync_*``
-check (multi-process only, item 7). ``remat``, ``tower_dtype`` and
+telemetry (exporter, SLOs, heartbeats, the stall and anomaly watchdogs),
+its artifacts (``log_hist_every``: θ/Δθ histograms; ``log_images_every``:
+member strips; ``snapshot_every``: quality snapshots) and its profile
+window (``profile_epochs``). The fields of the multi-process machinery it
+does not have yet (ROADMAP queue A item 7) raise there when set away from
+their defaults (:func:`unported_settings`); the default ``desync_*``
+check is accepted and is multi-process only. ``remat``, ``tower_dtype`` and
 ``base_quant`` are recorded for the checkpoint manifest; the backend's
 and reward suite's trees carry the applied values.
 """
@@ -111,9 +112,6 @@ _UNPORTED = (
     ("desync_action", lambda v: v != "rollback", "queue A item 7 (the desync check)"),
     ("on_topology_mismatch", lambda v: v == "reshard", "queue A item 7 (reshard on restore)"),
     ("elastic_action", lambda v: v != "checkpoint_exit", "queue A item 7 (elastic membership)"),
-    ("profile_epochs", lambda v: v != 0, "queue A item 10 (the profiler ledger)"),
-    ("log_images_every", lambda v: v != 0, "queue A item 10 (member strips)"),
-    ("snapshot_every", lambda v: v != 0, "queue A item 10 (quality snapshots)"),
 )
 
 

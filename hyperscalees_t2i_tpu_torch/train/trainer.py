@@ -29,9 +29,18 @@ test can put the JAX package's draws in their place. Its live telemetry is
 the JAX loop's: ``/metrics`` and ``/healthz`` (``tc.metrics_port``), SLOs
 (``tc.slo``), heartbeats around the compile (warm-up and capture),
 dispatch and checkpoint phases with the stall watchdog, and the ES-health
-anomaly watchdog. The pod machinery of the JAX loop (host-sharded
-programs, coordinated commit, elastic membership, the desync check, fault
-injection, the XLA ledger, histograms, strips and snapshots) is not here;
+anomaly watchdog. Its artifacts are the JAX loop's too: θ/Δθ histograms
+and the population's scores in the rows (``tc.log_hist_every``), the
+best/median/worst member strips (``tc.log_images_every``) and the best
+member's snapshot grid (``tc.snapshot_every``), each member regenerated
+from (seed, epoch, member) (:func:`regenerate_member_images`), the program
+ledger ``programs.jsonl`` (``obs.program_cost``: each plan's FLOPs and
+bytes counted over its warm-up epoch), ``mfu`` and the ``roofline/*``
+verdict per dispatch, the ``torch.profiler`` window of the first
+``tc.profile_epochs`` epochs with its calibration ``CALIB_train.json``
+(``obs.calib``), and ``QUALITY_train.json`` at the run's end. The pod
+machinery of the JAX loop (host-sharded programs, coordinated commit,
+elastic membership, the desync check, fault injection) is not here;
 ``train.config.unported_settings`` names the ROADMAP item of each.
 
 :func:`make_fleet_step` advances W independent jobs in one program
@@ -40,6 +49,7 @@ injection, the XLA ledger, histograms, strips and snapshots) is not here;
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -53,7 +63,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..es.caps import cap_step_norm, cap_theta_norm, global_norm
-from ..es.noiser import es_update, lane_slice, sample_noise
+from ..es.noiser import es_update, lane_slice, perturb_member, sample_noise
 from ..es.sampling import epoch_key
 from ..es.scoring import prompt_normalized_scores, standardize_fitness_masked
 from ..lora import stack_adapters
@@ -62,6 +72,8 @@ from ..obs.es_health import DegeneracyWatchdog, es_health_metrics
 from ..obs.exporter import maybe_exporter, note_health, reset_health
 from ..obs.heartbeat import device_memory_gauges, emit_heartbeat, maybe_heartbeat
 from ..obs.metrics import MetricsRegistry, record_device_memory
+from ..obs.profile_trace import start_profile, stop_profile
+from ..obs.program_cost import ProgramLedger, record_program, roofline, set_ledger
 from ..obs.quality import QualityLedger, quality_metrics
 from ..obs.slo import build_trainer_evaluator
 from ..obs.trace import Tracer
@@ -72,6 +84,8 @@ from ..resilience.rollback import RollbackController
 from ..resilience.telemetry import host_snapshot_payload
 from ..utils import threefry
 from ..utils.graphs import GraphCache
+from ..utils.images import make_prompt_strip, resize_lanczos, to_uint8, write_png
+from ..utils.mfu import device_hbm_bandwidth, device_peak_flops, mfu
 from ..utils.pytree import tree_leaves, tree_map, tree_replace_leaves
 from .checkpoints import load_legacy_checkpoint, save_checkpoint
 from .config import TrainConfig, unported_settings
@@ -330,7 +344,7 @@ class TrainState:
 
 
 # spans whose durations feed phase_<name>_seconds histograms
-_PHASES = frozenset(("compile", "dispatch", "plan", "log", "checkpoint"))
+_PHASES = frozenset(("compile", "dispatch", "plan", "log", "checkpoint", "hist", "strip", "snapshot"))
 
 
 def _init_theta(backend: Any, tc: TrainConfig, dev: torch.device) -> Any:
@@ -361,6 +375,26 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
     ``preempted.json`` at the boundary after SIGTERM/SIGINT. With
     ``tc.resume`` the newest valid slot (θ, Δθ, the spent rollbacks and a
     shrunk σ), else the legacy mirror, sets the starting point.
+
+    Artifacts, as the JAX loop makes them: a plan's first dispatch writes
+    its ``programs.jsonl`` record (site ``train``, label
+    ``es_step_m{m}r{r}``; FLOPs and bytes counted over the warm-up epoch,
+    ``utils.graphs.GraphCache(count_cost=True)``); each row carries ``mfu``
+    and ``roofline/*`` from that record and the dispatch's time per epoch
+    where the card's peaks are known. At an unchained epoch due for it, θ
+    is copied before the dispatch (the step's outputs are the graph's
+    buffers, overwritten by the next replay) and the row gains
+    ``hist/theta``, ``hist/delta_theta`` and ``hist/pop_scores``
+    (``tc.log_hist_every``); ``epoch_XXXX/`` gets the best, median and
+    worst members' strips (``tc.log_images_every``) and ``snapshots/``
+    the best member's grid (``tc.snapshot_every``; a failure is counted
+    under ``cleanup_errors`` and warned about). ``tc.profile_epochs``
+    runs ``torch.profiler`` from the first epoch for that many epochs,
+    unchained, each dispatch inside a ``train/<label>`` range; at its end
+    the trace goes to ``profile/train.pt.trace.json`` and
+    ``obs.calib.calibrate_run`` writes ``CALIB_train.json`` and the
+    ``calib/*`` gauges. A profiler that does not start raises. At the end
+    (``tc.quality``) ``QUALITY_train.json`` is written, best-effort.
 
     Telemetry, as the JAX loop wires it: each logged dispatch ticks the SLO
     evaluator (``tc.slo``, ``obs.slo.build_trainer_evaluator``) and the
@@ -466,6 +500,7 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                                gauges=gauges)
 
     exporter = None
+    profiler = None  # the open profile window, stopped in `finally` if the run ends inside it
     try:
         exporter = maybe_exporter(
             tc.metrics_port, host=tc.metrics_host,
@@ -505,11 +540,21 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                           else tree_map(torch.zeros_like, theta))
 
         incarnation["id"] = f"i{start_epoch}.n1"
+        set_ledger(ProgramLedger(run_dir / "programs.jsonl"))
         state = TrainState(theta=theta, epoch=start_epoch, rollbacks=rollback_ctrl.rollbacks)
         step_cache: Dict[Tuple[int, int], Callable] = {}
-        # one program per (m, r) plan: a CUDA graph on the card
-        programs = program_cache(backend, dev, registry=registry, tracer=tracer,
+        # one program per (m, r) plan: a CUDA graph on the card, its warm-up counted
+        programs = program_cache(backend, dev, registry=registry, tracer=tracer, count_cost=True,
                                  span_attrs=lambda plan: {"m": plan[0], "r": plan[1]})
+        # each plan's ledger record (the MFU and roofline inputs), and the
+        # host's wall seconds of its latest dispatch (the calibration's
+        # fallback where the profile has no device time)
+        step_cost: Dict[Tuple[int, int], Dict[str, Any]] = {}
+        host_step_s: Dict[str, float] = {}
+        peak_flops, hbm_bw = device_peak_flops(dev), device_hbm_bandwidth(dev)
+        if tc.profile_epochs > 0:
+            profiler = start_profile(dev)
+            logger.info(f"profiler trace on for {tc.profile_epochs} epochs → {run_dir / 'profile'}")
         last_saved_boundary = -1
 
         def do_save(boundary: int, reward: float) -> None:
@@ -548,10 +593,12 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                 if not warm:
                     step_cache[(m, r)] = make_es_step(backend, reward_fn, tc_live, m, r, dev, stateful_delta=True,
                                                       graphs=programs)
-                # epochs per dispatch: K > 1 only once the plan has run and
-                # nothing is due inside the chain (the JAX loop's rule)
+                # epochs per dispatch: K > 1 only once the plan has run,
+                # outside the profile window, and with nothing due inside
+                # the chain (the JAX loop's rule)
                 K = 1
-                if tc.steps_per_dispatch > 1 and warm and _epochs_until_due(epoch) > 0:
+                in_window = profiler is not None and epoch - start_epoch < tc.profile_epochs
+                if tc.steps_per_dispatch > 1 and warm and not in_window and _epochs_until_due(epoch) > 0:
                     K = min(tc.steps_per_dispatch, tc.num_epochs - epoch, _epochs_until_due(epoch))
                 infos = [info]
                 if K > 1:
@@ -562,17 +609,37 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                 # the chain's ids and keys, staged on the device before any replay
                 ids_k = device_ids([f for i in infos for f in i.flat_ids], dev).reshape(K, m * r)
                 keys_k = torch.stack([epoch_key(tc.seed, epoch + j, dev) for j in range(K)])
+                due = [bool(every) and K == 1 and (epoch + 1) % every == 0
+                       for every in (tc.log_hist_every, tc.log_images_every, tc.snapshot_every)]
+                hist_due, strips_due, snapshot_due = due
+                # θ before the update, for Δθ and the member regenerations:
+                # a copy, since the step's outputs are the graph's buffers
+                theta_before = tree_map(torch.clone, state.theta) if any(due) else None
+                label = f"es_step_m{m}r{r}"
                 # a plan's first dispatch is its compile (warm-up and
                 # capture); no device gauges inside a timed dispatch
-                with tracer.span("dispatch", epochs=K), (hb("dispatch", gauges=None) if warm else hb("compile")):
+                with tracer.span("dispatch", epochs=K), (hb("dispatch", gauges=None) if warm else hb("compile")), \
+                        (torch.profiler.record_function(f"train/{label}") if in_window else contextlib.nullcontext()):
                     # θ and Δθ carry through the program's buffers; one
                     # read-back at the chain's end
                     for j in range(K):
-                        state.theta, prev_delta, metrics, _ = step_cache[(m, r)](
+                        state.theta, prev_delta, metrics, opt_scores = step_cache[(m, r)](
                             state.theta, prev_delta, ids_k[j], keys_k[j])
                     scalars: Dict[str, Any] = {k: (v.tolist() if v.ndim else float(v)) for k, v in metrics.items()}
                 info = infos[-1]  # a chain logs its last epoch's prompts
                 dt = time.perf_counter() - t0
+                opt_np = opt_scores.float().cpu().numpy() if theta_before is not None else None
+                if not warm:
+                    entry = programs.entries[(m, r)]
+                    step_cost[(m, r)] = record_program(
+                        site="train", label=label, stats=entry.stats, cost=entry.cost, device=dev,
+                        geometry={"m": m, "r": r, "pop": tc.pop_size, "member_batch": tc.member_batch,
+                                  "remat": tc_live.remat, "noise_dtype": tc_live.noise_dtype,
+                                  "tower_dtype": tc_live.tower_dtype, "pop_fuse": tc_live.pop_fuse,
+                                  "base_quant": tc_live.base_quant, "mesh_shape": None, "n_devices": 1})
+                prog = step_cost.get((m, r), {})
+                if K == 1:
+                    host_step_s[f"train/{label}"] = dt
                 epoch = epoch + K - 1  # the chain's last epoch from here on
                 registry.inc("dispatches")
                 registry.inc("epochs_dispatched", K)
@@ -581,6 +648,19 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                 n_images = tc.pop_size * m * r * K
                 scalars.update(epoch=epoch, incarnation=int(start_epoch), epochs_chained=K, step_time_s=dt / K,
                                images_scored=n_images, images_per_sec=n_images / max(dt, 1e-9), prompts=info.texts)
+                u = mfu(prog.get("flops"), dt / K, device=dev)
+                if u is not None:
+                    scalars["mfu"] = u
+                # which resource binds the step (obs.program_cost.roofline);
+                # absent where the peaks are unknown (the CPU)
+                rf = roofline(prog.get("flops"), prog.get("bytes_accessed"), dt / K, peak_flops=peak_flops,
+                              hbm_bw=hbm_bw)
+                if rf["bound"] is not None:
+                    scalars["roofline/bound"] = rf["bound"]
+                    scalars["roofline/intensity"] = rf["intensity"]
+                    for rk in ("t_compute_s", "t_bandwidth_s", "t_roofline_s"):
+                        if rf[rk] is not None:
+                            scalars[f"roofline/{rk}"] = rf[rk]
                 degen_watchdog.update(float(scalars.get("es/fitness_zero", 0.0)) >= 0.5)
                 rollback_action = None
                 if rollback_ctrl.is_bad(scalars.get("theta_norm")):
@@ -590,6 +670,9 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                     print(f"[resilience] WATCHDOG: non-finite/diverged theta at epoch {epoch} "
                           f"(theta_norm={scalars.get('theta_norm')}) — rollback #{rollback_ctrl.rollbacks}, "
                           f"action={rollback_action}", file=sys.stderr, flush=True)
+                if hist_due and rollback_action is None:
+                    with tracer.span("hist"):
+                        scalars.update(_histograms(theta_before, state.theta, opt_np))
                 if slo_eval is not None:
                     slo_eval.tick()
                     scalars.update(slo_eval.registry.snapshot())
@@ -642,6 +725,24 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                     state.epoch = epoch
                     continue
 
+                if strips_due:
+                    with tracer.span("strip"):
+                        _save_member_strips(backend, theta_before, tc_live, epoch, info, opt_np, run_dir)
+                if snapshot_due:
+                    # the best member's decoded grid; best-effort: a decode or
+                    # PNG failure never ends the run
+                    with tracer.span("snapshot"):
+                        try:
+                            _save_quality_snapshot(backend, theta_before, tc_live, epoch, info, opt_np, run_dir)
+                        except Exception as e:
+                            registry.inc("cleanup_errors")
+                            print(f"[quality] WARNING: snapshot failed ({type(e).__name__}: {e})",
+                                  file=sys.stderr, flush=True)
+                theta_before = None
+                if profiler is not None and epoch + 1 - start_epoch >= tc.profile_epochs:
+                    prof, profiler = profiler, None
+                    stop_profile(prof, run_dir / "profile" / "train.pt.trace.json")
+                    _calibrate(run_dir, host_step_s, registry, logger)
                 if tc.save_every and ((epoch + 1) % tc.save_every == 0 or epoch + 1 == tc.num_epochs):
                     do_save(epoch + 1, scalars["opt_score_mean"])
                 res_registry.gauge("last_good_epoch", epoch + 1)
@@ -658,9 +759,140 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                     break
         return state
     finally:
+        if profiler is not None:
+            try:
+                stop_profile(profiler, run_dir / "profile" / "train.pt.trace.json")
+            except Exception as e:  # never masks the run's own failure, never silent
+                registry.inc("cleanup_errors")
+                print(f"[obs] WARNING: cleanup swallowed {e!r} from the profiler's stop", file=sys.stderr, flush=True)
+        if tc.quality:
+            _write_quality(run_dir, registry, logger)
+        set_ledger(None)
         if exporter is not None:
             if tc.metrics_linger_s > 0:
                 emit_heartbeat("train", "metrics_linger", linger_s=tc.metrics_linger_s)
                 time.sleep(tc.metrics_linger_s)
             exporter.stop()
         preempt.uninstall()
+
+
+def _calibrate(run_dir: Path, host_step_s: Dict[str, float], registry: MetricsRegistry,
+               logger: MetricsLogger) -> None:
+    """The profile window's measured-against-predicted rows →
+    ``CALIB_train.json`` and the ``calib/*`` gauges; best-effort."""
+    from ..obs import calib
+
+    try:
+        payload = calib.calibrate_run(run_dir, host_measured=host_step_s, registry=registry)
+        if payload["rows"]:
+            calib.write_calib(payload, run_dir / "CALIB_train.json")
+            logger.info(f"calibration: {payload['headline']['rows']} row(s), "
+                        f"{payload['headline']['device_rows']} with device time → CALIB_train.json")
+    except Exception as e:
+        registry.inc("cleanup_errors")
+        print(f"[obs] WARNING: calibration failed ({type(e).__name__}: {e})", file=sys.stderr, flush=True)
+
+
+def _write_quality(run_dir: Path, registry: MetricsRegistry, logger: MetricsLogger) -> None:
+    """The run's ``QUALITY_train.json`` (``obs.quality``); best-effort."""
+    from ..obs.quality import build_quality_artifact, write_quality
+
+    try:
+        payload = build_quality_artifact(run_dir)
+        if payload["curve"]:
+            write_quality(payload, run_dir / "QUALITY_train.json")
+            logger.info(f"quality: {payload['epochs']} epoch(s), final reward {payload.get('final_reward'):.6g}, "
+                        f"{payload['images_total']:.0f} images ({payload['device_s_source']} device-seconds) → "
+                        "QUALITY_train.json")
+    except Exception as e:
+        registry.inc("cleanup_errors")
+        print(f"[quality] WARNING: artifact build failed ({type(e).__name__}: {e})", file=sys.stderr, flush=True)
+
+
+def _subsample_flat(theta: Any, limit: int = 50_000) -> np.ndarray:
+    """θ's values flattened on the host (leaves in the JAX package's order,
+    as f32), evenly subsampled to ``limit``."""
+    leaves = [t.detach().to("cpu", torch.float32).numpy().ravel() for t in tree_leaves(theta)]
+    flat = np.concatenate(leaves) if leaves else np.zeros((0,), np.float32)
+    if flat.size > limit:
+        idx = np.linspace(0, flat.size - 1, limit).astype(np.int64)
+        flat = flat[idx]
+    return flat
+
+
+def _hist_payload(values: np.ndarray, bins: int = 64) -> Dict[str, Any]:
+    counts, edges = np.histogram(values, bins=bins)
+    return {"counts": counts.tolist(), "edges": edges.tolist()}
+
+
+def _histograms(theta_before: Any, theta_after: Any, opt_scores: np.ndarray) -> Dict[str, Any]:
+    """θ and Δθ value distributions and the population's raw scores, as
+    JSONL payloads."""
+    t0 = _subsample_flat(theta_before)
+    t1 = _subsample_flat(theta_after)
+    return {
+        "hist/theta": _hist_payload(t1),
+        "hist/delta_theta": _hist_payload(t1 - t0),
+        "hist/pop_scores": opt_scores.tolist(),
+    }
+
+
+def regenerate_member_images(backend: Any, theta: Any, tc: TrainConfig, epoch: int, member: int,
+                             info: Any) -> np.ndarray:
+    """Member ``member``'s images of ``epoch``, ``[b, H, W, 3]`` f32 on the
+    host, regenerated on the backend's device: the member's perturbation
+    and the generation key follow from (seed, epoch, member), as the step
+    draws them (``epoch_key`` → split → ``sample_noise`` →
+    ``perturb_member`` → ``backend.generate``), so nothing of the
+    population is kept between epochs."""
+    dev = backend.device
+    es_cfg = tc.es_config()
+    with torch.inference_mode():
+        k_noise, k_gen = threefry.split(epoch_key(tc.seed, epoch, dev))
+        theta = tree_map(lambda t: t.to(dev), theta)
+        noise = sample_noise(k_noise, theta, tc.pop_size, es_cfg)
+        theta_k = perturb_member(theta, noise, member, tc.pop_size, es_cfg)
+        images = backend.generate(theta_k, list(info.flat_ids), k_gen)
+    return images.to(torch.float32).cpu().numpy()
+
+
+def _save_member_strips(backend: Any, theta_before: Any, tc: TrainConfig, epoch: int, info: Any,
+                        opt_scores: np.ndarray, run_dir: Path) -> None:
+    """The best, median and worst members' per-prompt strips under
+    ``epoch_XXXX/``, each member regenerated (:func:`regenerate_member_images`)."""
+    finite = np.where(np.isfinite(opt_scores))[0]
+    if finite.size == 0:
+        return
+    order = finite[np.argsort(opt_scores[finite])]
+    members = {"worst": int(order[0]), "median": int(order[len(order) // 2]), "best": int(order[-1])}
+    out_dir = run_dir / f"epoch_{epoch:04d}"
+    for name, member in members.items():
+        imgs = regenerate_member_images(backend, theta_before, tc, epoch, member, info)
+        strip = make_prompt_strip(list(imgs), len(info.texts))
+        if strip is not None:
+            write_png(out_dir / f"{name}_member{member}_score{opt_scores[member]:.4f}.png", strip)
+
+
+def _save_quality_snapshot(backend: Any, theta_before: Any, tc: TrainConfig, epoch: int, info: Any,
+                           opt_scores: np.ndarray, run_dir: Path) -> Optional[Path]:
+    """The best member's whole batch as one grid under ``snapshots/``: a
+    row per repeat, a column per unique prompt, 256-pixel tiles (the
+    grouped layout ``[repeat][prompt]``)."""
+    finite = np.where(np.isfinite(opt_scores))[0]
+    if finite.size == 0:
+        return None
+    best = int(finite[np.argmax(opt_scores[finite])])
+    imgs = regenerate_member_images(backend, theta_before, tc, epoch, best, info)
+    m = len(info.texts)
+    if m <= 0 or len(imgs) == 0:
+        return None
+    rows = max(1, len(imgs) // m)
+    tile = 256
+    grid = np.zeros((tile * rows, tile * m, 3), np.uint8)
+    for r_i in range(rows):
+        for p_i in range(m):
+            j = r_i * m + p_i
+            if j < len(imgs):
+                grid[r_i * tile:(r_i + 1) * tile, p_i * tile:(p_i + 1) * tile] = \
+                    resize_lanczos(to_uint8(imgs[j]), (tile, tile))
+    return write_png(run_dir / "snapshots" / f"epoch_{epoch:05d}_member{best}_score{opt_scores[best]:.4f}.png", grid)

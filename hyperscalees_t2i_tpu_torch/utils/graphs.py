@@ -34,6 +34,11 @@ then), and a replay, which runs the captured kernels without the wrappers,
 adds nothing. A replay's kernels are counted on the device, by name, from a
 ``torch.profiler`` trace (``chip_smoke.py``).
 
+``count_cost=True`` counts each entry's warm-up (the eager run its graph
+then captures; on the CPU its first call) under an
+``obs.program_cost.CostCounter``: FLOPs and bytes land in the entry's
+``cost``. The counter is off during the capture and every replay.
+
 Programs run under ``torch.inference_mode()``: the ES step and serving need
 no gradient. On the CPU there are no graphs: an entry runs its function
 eagerly at every call (the rule of the kernel wrappers: CPU tensors take the
@@ -164,6 +169,7 @@ class _Entry:
         self.static: List[torch.Tensor] = []
         self.captured: Optional[Captured] = None
         self.stats = EntryStats()
+        self.cost: Optional[Dict[str, Any]] = None  # the warm-up's counted FLOPs and bytes (``count_cost``)
 
     def replay(self, args: Tuple[Any, ...]) -> Any:
         leaves, spec = _flatten(args)
@@ -187,13 +193,15 @@ class GraphCache:
     span around the capture (attributes ``span_attrs(key)``), ``counter``
     incremented and ``gauge`` set to the number of entries. ``workspace``
     gives the bytes of the caller-owned scratch the programs use outside
-    their pools (see the module note)."""
+    their pools; ``count_cost`` counts each warm-up's FLOPs and bytes (see
+    the module note)."""
 
     def __init__(self, device: DeviceLike = None, *, graph: bool = True, registry: Any = None, tracer: Any = None,
                  counter: str = "compiles", gauge: str = "compile_cache_entries",
                  span_attrs: Optional[Callable[[Hashable], Dict[str, Any]]] = None,
-                 workspace: Optional[Callable[[], int]] = None):
+                 workspace: Optional[Callable[[], int]] = None, count_cost: bool = False):
         self.device = resolve_device(device)
+        self.count_cost = count_cost
         self.workspace = workspace
         self.graphed = bool(graph) and graphs_on(self.device)
         self.registry, self.tracer = registry, tracer
@@ -223,14 +231,28 @@ class GraphCache:
             self.registry.inc(self.counter)
             self.registry.gauge(self.gauge, len(self.entries))
 
+    def _warmup(self, entry: _Entry, fn: Callable, args: Tuple[Any, ...]) -> Any:
+        """The entry's first run of ``fn``, counted when ``count_cost``."""
+        if not self.count_cost:
+            return fn(*args)
+        from ..obs.program_cost import CostCounter
+
+        with CostCounter() as counter:
+            outputs = fn(*args)
+        entry.cost = counter.summary()
+        return outputs
+
     def _build(self, key: Hashable, fn: Callable, args: Tuple[Any, ...]) -> Any:
         entry = _Entry(fn, self.graphed)
         if not self.graphed:
             with self._span(key):
                 self.entries[key] = entry
             self._count_entry()
+            t0 = time.perf_counter()
             with torch.inference_mode():
-                return fn(*args)
+                outputs = self._warmup(entry, fn, args)
+            entry.stats.warmup_s = time.perf_counter() - t0
+            return outputs
         dev = self.device
         cuda = dev.type == "cuda"  # False only where a test stands in for the capture
         leaves, entry.spec = _flatten(args)
@@ -246,7 +268,7 @@ class GraphCache:
             side, main = self._stream, torch.cuda.current_stream(dev)
             side.wait_stream(main)
         with torch.inference_mode(), (torch.cuda.stream(side) if cuda else contextlib.nullcontext()):
-            outputs = fn(*args)  # the warm-up: this call's result
+            outputs = self._warmup(entry, fn, args)  # the warm-up: this call's result
         if cuda:
             main.wait_stream(side)
             for t in _flatten(outputs)[0]:
@@ -269,7 +291,8 @@ class GraphCache:
         return outputs
 
     def stats(self) -> Dict[str, Dict[str, Any]]:
-        """``{str(key): EntryStats as a dict}`` of the graphed entries."""
+        """``{str(key): EntryStats as a dict}`` of the graphed entries (an
+        eager entry's are in ``entries[key].stats``)."""
         return {str(k): dataclasses.asdict(e.stats) for k, e in self.entries.items() if e.graphed}
 
     def drop(self, key: Hashable) -> None:

@@ -504,8 +504,11 @@ def test_abandon_and_refusal_accounting(backend):
     assert not eng._finalize_request(gone[0], "abandon") and eng.registry.snapshot()["serve_finalize_duplicates"] == 1
     with pytest.raises(NotImplementedError, match="cannot be serialized"):
         ServeConfig(compile_cache_dir="x")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ServeConfig(profile_dir="x")
+    # a profile window is taken, not refused; it opens at the first dispatch
+    windowed = ServeEngine(backend, ServeConfig(profile_dir="x", profile_batches=2, device="cpu"))
+    assert windowed.cfg.profile_batches == 2 and windowed._profiler is None
+    windowed.close()
+    assert windowed.profile_trace is None
 
 
 def test_load_adapter_from_a_training_runs_slot(backend, tmp_path):
