@@ -14,7 +14,9 @@ package so each unit's counterpart is easy to find. What is ported so far:
   the VAR backend (``backends.var_backend`` → ``models.var`` →
   ``models.msvq``) and the Infinity backend (``backends.infinity_backend``
   → ``models.infinity`` → ``models.bsq``), whose KV-cache and text
-  attention is K4 ``csrc/decode_attention.cu``;
+  attention is K4 ``csrc/decode_attention.cu``, and the Z-Image backend
+  (``backends.zimage_backend`` → ``models.zimage`` → ``models.vaekl``,
+  the dual adapter with conv LoRA on the decoder; K3 and K1);
 - the single-process trainer around the step: ``train.trainer.run_training``
   (``metrics.jsonl``, per-prompt quality attribution and ``quality.jsonl``
   from ``obs.quality``, checkpoint slots from ``resilience.checkpoints``

@@ -23,7 +23,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from .utils import threefry
-from .utils.pytree import tree_leaves_with_path
+from .utils.pytree import tree_leaves, tree_leaves_with_path, tree_replace_leaves
 
 Adapter = Dict[str, Dict[str, torch.Tensor]]
 
@@ -57,7 +57,7 @@ def effective_factor(f: Any, dtype: torch.dtype) -> torch.Tensor:
     return (f.w.to(torch.float32) + c * d).to(dtype)
 
 
-def _lane_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def lane_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for a 2D ``w``, or lane ``i``'s ``w[i]`` applied to the
     ``i``-th of ``lanes`` equal row groups of ``x`` for a ``[lanes, m, n]``
     ``w``."""
@@ -73,7 +73,7 @@ def _lane_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def matmul_factored(x: torch.Tensor, f: Any) -> torch.Tensor:
     """``x @ f`` for a raw factor or a :class:`FactoredDelta` (applied through
     :func:`effective_factor`, in x's dtype)."""
-    return _lane_matmul(x, effective_factor(f, x.dtype))
+    return lane_matmul(x, effective_factor(f, x.dtype))
 
 
 def fused_lora_delta(x: torch.Tensor, leaf: Dict[str, Any], scale: float) -> torch.Tensor:
@@ -182,28 +182,28 @@ def lora_delta(x: torch.Tensor, leaf: Optional[Dict[str, torch.Tensor]], scale: 
     matmul."""
     if leaf is None:
         return None
-    return _lane_matmul(_lane_matmul(x, leaf["a"].to(x.dtype)), leaf["b"].to(x.dtype)) * scale
+    return lane_matmul(lane_matmul(x, leaf["a"].to(x.dtype)), leaf["b"].to(x.dtype)) * scale
 
 
-def stack_adapters(trees: Sequence[Adapter]) -> Adapter:
+def stack_adapters(trees: Sequence[Any]) -> Any:
     """N same-structure adapters → one adapter whose every leaf has a leading
-    ``[N]`` axis (the serving batch). A structure or shape mismatch raises
-    naming the adapter."""
+    ``[N]`` axis (the serving batch, a chunk of ES members). Adapters may be
+    nested (Z-Image's ``{"transformer", "vae_decoder"}``). A structure or
+    shape mismatch raises naming the adapter."""
     if not trees:
         raise ValueError("stack_adapters needs at least one adapter tree")
-    ref = trees[0]
+    ref = list(tree_leaves_with_path(trees[0]))
     for i, tree in enumerate(trees[1:], start=1):
-        if tree.keys() != ref.keys() or any(tree[k].keys() != ref[k].keys() for k in ref):
+        leaves = list(tree_leaves_with_path(tree))
+        if [p for p, _ in leaves] != [p for p, _ in ref]:
             raise ValueError(
                 f"adapter {i} has a different tree structure than adapter 0 "
                 "(was it trained against a different target list / rank?)"
             )
-        for k in ref:
-            for f in ref[k]:
-                t, r = tree[k][f], ref[k][f]
-                if t.shape != r.shape or t.dtype != r.dtype:
-                    raise ValueError(
-                        f"adapter {i} leaf {k}/{f}: shape/dtype {tuple(t.shape)}/{t.dtype} "
-                        f"!= adapter 0's {tuple(r.shape)}/{r.dtype}"
-                    )
-    return {k: {f: torch.stack([t[k][f] for t in trees]) for f in ref[k]} for k in ref}
+        for (path, t), (_, r) in zip(leaves, ref):
+            if t.shape != r.shape or t.dtype != r.dtype:
+                raise ValueError(
+                    f"adapter {i} leaf {path}: shape/dtype {tuple(t.shape)}/{t.dtype} "
+                    f"!= adapter 0's {tuple(r.shape)}/{r.dtype}"
+                )
+    return tree_replace_leaves(trees[0], [torch.stack(ls) for ls in zip(*(tree_leaves(t) for t in trees))])

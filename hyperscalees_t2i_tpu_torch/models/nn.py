@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..lora import FactoredDelta, fused_lora_delta, lora_delta
+from ..lora import FactoredDelta, fused_lora_delta, lane_matmul, lora_delta, matmul_factored
 from ..ops.fused_qlora import conv_kernel_q8_matmul, fused_qlora_applies, fused_qlora_dense
 from ..ops.quant import dequantize_kernel
 from ..ops.quant_mm import dequant_matmul
@@ -139,10 +139,37 @@ def hwio_to_oihw(w: torch.Tensor) -> torch.Tensor:
     return w.permute(3, 2, 0, 1).contiguous()
 
 
-def conv2d(p: Params, x: torch.Tensor, stride: int = 1, groups: int = 1) -> torch.Tensor:
-    """NHWC conv with an HWIO kernel node, float or int8, ``"SAME"`` padding:
-    :class:`Conv` built for ``p`` and applied once."""
-    return Conv(p, stride=stride, groups=groups)(x)
+def conv2d(p: Params, x: torch.Tensor, stride: int = 1, groups: int = 1, lora: Optional[Params] = None,
+           lora_scale: float = 1.0) -> torch.Tensor:
+    """NHWC conv with an HWIO kernel node, float or int8, ``"SAME"`` padding,
+    and an optional conv LoRA (:func:`conv_lora_delta`): :class:`Conv` built
+    for ``p`` and applied once."""
+    return Conv(p, stride=stride, groups=groups)(x, lora, lora_scale)
+
+
+def conv_lora_delta(x: torch.Tensor, leaf: Dict[str, Any], scale: float, stride: int = 1) -> torch.Tensor:
+    """PEFT's conv LoRA: an r-channel conv with ``a [kh, kw, cin, r]`` (HWIO,
+    ``"SAME"``), then the 1×1 projection ``b [r, cout]``, times ``scale``, in
+    x's dtype. ``a`` carries dense ES noise, so it arrives materialized; a
+    lane-stacked ``a [n, kh, kw, cin, r]`` applies lane ``i``'s factor to
+    the ``i``-th of ``n`` equal row groups of ``x`` (one grouped conv). ``b``
+    may be raw, lane-stacked ``[n, r, cout]`` or a ``lora.FactoredDelta``
+    (laned or not)."""
+    a, b = leaf["a"].to(x.dtype), leaf["b"]
+    if a.ndim == 4:
+        h = conv_oihw(x, hwio_to_oihw(a), stride)
+    else:
+        n, kh, kw, cin, r = a.shape
+        R, H, W, C = x.shape
+        if R % n:
+            raise ValueError(f"{R} rows do not split into {n} lanes")
+        xg = x.reshape(n, R // n, H, W, C).permute(1, 2, 3, 0, 4).reshape(R // n, H, W, n * C)
+        hg = conv_oihw(xg, a.permute(0, 4, 3, 1, 2).reshape(n * r, cin, kh, kw), stride, groups=n)
+        Ho, Wo = hg.shape[1:3]
+        h = hg.reshape(R // n, Ho, Wo, n, r).permute(3, 0, 1, 2, 4).reshape(R, Ho, Wo, r)
+    if isinstance(b, FactoredDelta):
+        return matmul_factored(h, b) * scale
+    return lane_matmul(h, b.to(x.dtype)) * scale
 
 
 def layer_norm(x: torch.Tensor, p: Optional[Params] = None, eps: float = 1e-6) -> torch.Tensor:
@@ -364,7 +391,10 @@ class Conv(nn.Module):
         if "bias" in node:
             self.register_buffer("bias", node["bias"])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lora: Optional[Params] = None, lora_scale: float = 1.0) -> torch.Tensor:
+        """The conv of ``x``, plus the conv LoRA ``lora`` (``{"a", "b"}``,
+        :func:`conv_lora_delta`) where given and the conv is not grouped,
+        before the bias (the JAX package's order)."""
         y = None
         if hasattr(self, "q8"):
             y = conv_kernel_q8_matmul(
@@ -378,6 +408,8 @@ class Conv(nn.Module):
             else:  # a patch conv whose grid the patch does not divide
                 w = hwio_to_oihw(dequantize_kernel({"q8": self.q8, "scale": self.scale}, x.dtype))
             y = conv_oihw(x, w, self.stride, self.groups)
+        if lora is not None and self.groups == 1:
+            y = y + conv_lora_delta(x, lora, lora_scale, self.stride)
         if hasattr(self, "bias"):
             y = y + self.bias.to(x.dtype)
         return y

@@ -43,7 +43,17 @@ def _scale_axes(ndim: int) -> Tuple[int, ...]:
 
 
 def quantize_kernel(w: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """float kernel → ``{"q8": int8, "scale": f32}`` (layouts above)."""
+    """float kernel → ``{"q8": int8, "scale": f32}`` (layouts above). A
+    stacked kernel is quantized one layer at a time (the same numbers, with
+    one layer's f32 temporaries instead of the stack's)."""
+    if w.ndim % 2:
+        q8 = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        scales = []
+        for i in range(w.shape[0]):
+            layer = quantize_kernel(w[i])
+            q8[i] = layer["q8"]
+            scales.append(layer["scale"])
+        return {"q8": q8, "scale": torch.stack(scales)}
     w32 = w.to(torch.float32)
     amax = w32.abs().amax(dim=_scale_axes(w.ndim), keepdim=True)
     scale = amax.clamp_min(1e-8) / 127.0

@@ -1,5 +1,5 @@
 """The ES training CLI (port of ``hyperscalees_t2i_tpu/train/cli.py`` for
-the Sana one-step and pipeline, VAR and Infinity backends)::
+the Sana one-step and pipeline, VAR, Infinity and Z-Image backends)::
 
     python -m hyperscalees_t2i_tpu_torch.train.cli --backend sana_one_step \\
         --model_scale tiny --device cpu --num_epochs 2 --run_dir runs
@@ -8,6 +8,9 @@ the Sana one-step and pipeline, VAR and Infinity backends)::
     python -m hyperscalees_t2i_tpu_torch.train.cli --backend infinity \\
         --infinity_variant 2b --pn 1M --allow_random_rewards true \\
         --pop_size 4 --prompts_per_gen 4 --prompts_txt prompts.txt
+    python -m hyperscalees_t2i_tpu_torch.train.cli --backend zimage \\
+        --model_scale tiny --device cpu --train_vae_decoder_lora true \\
+        --base_quant int8 --pop_fuse true --run_dir runs
 
 Flag names and defaults are the JAX CLI's for every flag the port's loop
 reads, plus ``--device`` (default: the CUDA card; without one the CLI
@@ -21,8 +24,14 @@ exists), ``var_d*.pth`` with its ``vae_ch160v4096z32.pth`` as
 ``--vae_weights`` (geometry inferred, ``--patch_nums`` for a non-canonical
 schedule), or an Infinity transformer (``module.`` stripped,
 ``--infinity_variant`` and ``--pn`` applied before the conversion) with
-its BSQ tokenizer as ``--vae_weights`` (random without it).
-``--backend zimage`` is refused (ROADMAP queue A item 9).
+its BSQ tokenizer as ``--vae_weights`` (random without it), or a Z-Image
+transformer (a ``.gguf`` file too; ``model.`` stripped, geometry inferred)
+with a diffusers ``AutoencoderKL`` as ``--vae_weights`` (geometry inferred;
+without it the KL-VAE decoder is random at ``blocks_per_stage=3``).
+``--backend zimage`` trains the dual adapter with
+``--train_vae_decoder_lora true`` (conv LoRA on the decoder beside the
+transformer's LoRA) and ``--quantize_transformer true`` stores the
+transformer int8 as the reference's GGUF path does.
 ``--infinity_variant`` is the JAX CLI's ``from_preset`` for every variant,
 ``2b`` included (no QK-l2, no 2D RoPE, 16 bits); the released Infinity-2B
 configuration is built through the ``inf_2b`` rung
@@ -52,6 +61,7 @@ from typing import Any, List, Optional, Tuple
 
 import torch
 
+from ..backends import BACKEND_MODULES
 
 def str2bool(v: str) -> bool:
     if isinstance(v, bool):
@@ -73,17 +83,23 @@ def parse_resume(v: str) -> bool:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="EGGROLL-ES trainer (PyTorch port)")
-    p.add_argument("--backend", required=True, choices=["sana_one_step", "sana_pipeline", "var", "zimage", "infinity"])
+    p.add_argument("--backend", required=True, choices=list(BACKEND_MODULES))
     p.add_argument("--model_scale", default="full", choices=["tiny", "small", "full"])
     p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     p.add_argument("--prompts_txt", default=None)
-    p.add_argument("--encoded_prompts", default=None, help="encoded-prompt cache, .pt or .npz (sana, infinity)")
+    p.add_argument("--encoded_prompts", default=None,
+                   help="encoded-prompt cache, .pt or .npz (sana, infinity, zimage)")
     p.add_argument("--labels_path", default=None, help="ImageNet class names (var)")
     p.add_argument("--var_classes", default=None, help="comma class pool, or 'all' (var)")
     p.add_argument("--lora_r", type=int, default=8)
     p.add_argument("--lora_alpha", type=float, default=16.0)
     p.add_argument("--guidance_scale", type=float, default=None)
-    p.add_argument("--num_inference_steps", type=int, default=None, help="DiT passes an image (sana_pipeline)")
+    p.add_argument("--num_inference_steps", type=int, default=None,
+                   help="DiT passes an image (sana_pipeline; zimage's Euler steps, default 8)")
+    p.add_argument("--train_vae_decoder_lora", type=str2bool, default=False,
+                   help="zimage: evolve a conv LoRA on the KL-VAE decoder beside the transformer's")
+    p.add_argument("--quantize_transformer", type=str2bool, default=False,
+                   help="zimage: store the transformer int8 (the reference's GGUF path)")
     p.add_argument("--latent_size", type=int, default=None, help="latent grid (per side)")
     p.add_argument("--cfg_list", default=None, help="per-scale guidance, comma list (infinity)")
     p.add_argument("--tau_list", default=None, help="per-scale temperature, comma list (infinity)")
@@ -95,9 +111,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="explicit comma scale schedule of a non-canonical VAR checkpoint (the VQ pyramid follows)")
     p.add_argument("--weights", default=None,
                    help="generator checkpoint: a diffusers Sana transformer (file, directory or safetensors), "
-                        "var_d*.pth or an Infinity transformer; its geometry is inferred")
+                        "var_d*.pth, an Infinity transformer or a Z-Image transformer (.gguf too); its geometry is "
+                        "inferred")
     p.add_argument("--vae_weights", default=None,
-                   help="VAE checkpoint: vae_ch160v4096z32.pth for var, the BSQ tokenizer for infinity")
+                   help="VAE checkpoint: vae_ch160v4096z32.pth for var, the BSQ tokenizer for infinity, a diffusers "
+                        "AutoencoderKL for zimage")
     p.add_argument("--pop_size", type=int, default=8)
     p.add_argument("--sigma", type=float, default=0.01)
     p.add_argument("--lr_scale", type=float, default=1.0)
@@ -232,8 +250,7 @@ def build_backend(args, device: torch.device):
     from ..weights.from_jax import tree_from_numpy
 
     if args.backend == "zimage":
-        raise NotImplementedError("--backend zimage: the Z-Image model and its converters are not ported yet "
-                                  "(ROADMAP queue A item 9)")
+        return _zimage_backend(args, device)
     f32 = torch.float32
     if args.backend in ("sana_one_step", "sana_pipeline"):
         from ..backends.sana_backend import SanaBackend, SanaBackendConfig
@@ -394,6 +411,69 @@ def _infinity_backend(args, device: torch.device):
     return InfinityBackend(cfg, device, params=params,
                            prepare=lambda tree: maybe_quantize_tree(cast_floating(tree, model.compute_dtype),
                                                                     args.base_quant, floor))
+
+
+def _zimage_backend(args, device: torch.device):
+    """The JAX CLI's Z-Image backend: from ``--weights`` (and the KL-VAE
+    decoder from ``--vae_weights``, else random at ``blocks_per_stage=3``)
+    with their inferred geometry, else at ``--model_scale``'s, built by
+    :func:`zimage_backend`."""
+    from ..models import vaekl, zimage
+    from ..weights.from_jax import tree_from_numpy
+
+    f32 = torch.float32
+    params = vae_params = None
+    if args.weights:
+        from ..weights.io import strip_prefix
+        from ..weights.zimage import (convert_kl_decoder, convert_zimage_transformer, infer_kl_decoder_config,
+                                      infer_zimage_config)
+
+        sd = strip_prefix(_load_checkpoint(args.weights), "model")
+        model_cfg = infer_zimage_config(sd)
+        t0 = time.perf_counter()
+        params = tree_from_numpy(convert_zimage_transformer(sd, model_cfg), device)
+        del sd
+        print(f"[cli] loaded zimage weights: {model_cfg.n_layers}L d={model_cfg.d_model} "
+              f"caption={model_cfg.caption_dim} (converted in {time.perf_counter() - t0:.1f} s)", flush=True)
+        vae_cfg = vaekl.VAEDecoderConfig(blocks_per_stage=3)  # the diffusers AutoencoderKL layout
+        if args.vae_weights:
+            sd = _load_checkpoint(args.vae_weights)
+            vae_cfg = infer_kl_decoder_config(sd)
+            vae_params = tree_from_numpy(convert_kl_decoder(sd, vae_cfg), device)
+            del sd
+            print(f"[cli] loaded KL-VAE decoder weights (ch={vae_cfg.ch})", flush=True)
+        else:
+            print("[cli] WARNING: KL-VAE decoder is random-init — decoded pixels and pixel-space rewards are not "
+                  "meaningful until --vae_weights supplies the AutoencoderKL checkpoint", flush=True)
+    else:
+        model_cfg = zimage.ZImageConfig(**_scaled(
+            args, {}, dict(d_model=512, n_layers=6, n_heads=8),
+            dict(in_channels=4, d_model=24, n_layers=2, n_heads=2, caption_dim=12, ff_ratio=2.0, compute_dtype=f32)))
+        vae_cfg = vaekl.VAEDecoderConfig(**_scaled(
+            args, {}, dict(ch=(256, 128, 64)),
+            dict(latent_channels=4, ch=(8, 8), blocks_per_stage=1, compute_dtype=f32)))
+    return zimage_backend(args, model_cfg, vae_cfg, device, params=params, vae_params=vae_params)
+
+
+def zimage_backend(args, model_cfg, vae_cfg, device: torch.device, params=None, vae_params=None):
+    """The train CLI's Z-Image backend at ``model_cfg``/``vae_cfg``'s
+    geometry: the flags' latent size, steps, guidance, prompts and adapters;
+    ``params``/``vae_params`` (``None``: drawn by ``setup``, node by node)
+    go through ``--quantize_transformer`` and then ``--base_quant`` on both
+    trees (the floor resolved now), as the JAX CLI quantizes after setup."""
+    from ..backends.zimage_backend import ZImageBackend, ZImageBackendConfig
+    from ..ops.quant import maybe_quantize_tree, resolve_base_quant_min_size
+
+    lat = args.latent_size or (16 if args.model_scale != "tiny" else 4)
+    cfg = ZImageBackendConfig(
+        model=model_cfg, vae=vae_cfg, prompts_txt_path=args.prompts_txt, encoded_prompt_path=args.encoded_prompts,
+        num_steps=args.num_inference_steps or 8,
+        guidance_scale=args.guidance_scale if args.guidance_scale is not None else 0.0,
+        width_latent=lat, height_latent=lat, quantize_transformer=args.quantize_transformer,
+        lora_r=args.lora_r, lora_alpha=args.lora_alpha, train_vae_decoder_lora=args.train_vae_decoder_lora)
+    floor = resolve_base_quant_min_size()
+    return ZImageBackend(cfg, device, params=params, vae_params=vae_params,
+                         prepare=lambda tree: maybe_quantize_tree(tree, args.base_quant, floor))
 
 
 def load_clip_tower(name: str, cfg, device: torch.device):

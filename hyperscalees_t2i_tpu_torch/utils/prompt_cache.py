@@ -10,12 +10,15 @@ prompt_cache.py``; numpy and the standard library, plus ``torch.load`` /
   ``text_mask [P, L]``, as :func:`save_infinity_cache` writes it) or the
   reference's ``.pt`` payload ``{"prompts", "kv_compact_list": [Tensor
   [Li, D]], "lens_list"}``, padded to one table and a mask at load time.
+- A Z-Image cache is ``.npz`` (``prompts``, ``prompt_embeds [P, L, D]``,
+  ``prompt_mask [P, L]``, as :func:`save_zimage_cache` writes it) or the
+  reference's ``.pt`` payload ``{"prompts", "prompt_embeds": [Tensor [Li,
+  D]]}``, padded to one table and a mask at load time (``max_len`` caps it).
 
 :func:`load_cache` stamps a payload with the file's sha256 and keeps it in
 a warm memo keyed by content (backend kind, sha256, ``max_len``): a second
 load of the same bytes returns the same payload and ticks
-``prompt_cache_warm_hits`` on the process-global registry. The Z-Image
-kind is ROADMAP queue A item 9.
+``prompt_cache_warm_hits`` on the process-global registry.
 """
 
 from __future__ import annotations
@@ -128,6 +131,31 @@ def save_sana_cache(path: str, prompts: Sequence[str], prompt_embeds: np.ndarray
                 "prompt_attention_mask": torch.from_numpy(np.asarray(prompt_attention_mask))}, p)
 
 
+def _read_zimage_cache(path: str, max_len: int) -> Dict[str, Any]:
+    p = Path(path)
+    if p.suffix == ".npz":
+        z = np.load(p, allow_pickle=True)
+        return {"prompts": list(z["prompts"]), "prompt_embeds": z["prompt_embeds"], "prompt_mask": z["prompt_mask"]}
+    import torch
+
+    data = torch.load(p, map_location="cpu", weights_only=True)
+    embeds, mask = pad_ragged([_to_np(e) for e in data["prompt_embeds"]], max_len=max_len)
+    return {"prompts": list(data["prompts"]), "prompt_embeds": embeds, "prompt_mask": mask}
+
+
+def load_zimage_cache(path: str, max_len: int = 0) -> Dict[str, Any]:
+    """A Z-Image cache → ``{"prompts", "prompt_embeds", "prompt_mask"}``."""
+    return call_with_retry(_read_zimage_cache, (path, max_len), site="prompt_cache")
+
+
+def save_zimage_cache(path: str, prompts: Sequence[str], prompt_embeds: np.ndarray, prompt_mask: np.ndarray) -> None:
+    """Write the ``.npz`` form of a Z-Image cache (parent directories made)."""
+    p = Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(p, prompts=np.asarray(list(prompts), dtype=object),
+             prompt_embeds=np.asarray(prompt_embeds, np.float32), prompt_mask=np.asarray(prompt_mask, bool))
+
+
 def _read_infinity_cache(path: str, max_len: int) -> Dict[str, Any]:
     p = Path(path)
     if p.suffix == ".npz":
@@ -182,11 +210,8 @@ def load_cache(path: str, backend: str, max_len: int = 0) -> Dict[str, Any]:
     """An encoded-prompt cache by backend family: the format's payload plus
     ``content_sha256`` (the file's digest) and ``cache_backend`` (the
     format key), from the warm memo when the same bytes were loaded before
-    (``prompt_cache_warm_hits`` counts those). The Z-Image format raises
-    ``NotImplementedError``."""
+    (``prompt_cache_warm_hits`` counts those)."""
     key = cache_backend_key(backend)
-    if key == "zimage":
-        raise NotImplementedError("the zimage prompt-cache format is not ported yet (ROADMAP queue A item 9)")
     sha = file_sha256(path)
     memo_key = (key, sha, int(max_len))
     hit = _WARM_CACHES.get(memo_key)
@@ -198,7 +223,9 @@ def load_cache(path: str, backend: str, max_len: int = 0) -> Dict[str, Any]:
         except Exception:
             pass
         return hit
-    data = dict(load_sana_cache(path) if key == "sana" else load_infinity_cache(path, max_len))
+    readers = {"sana": lambda: load_sana_cache(path), "zimage": lambda: load_zimage_cache(path, max_len),
+               "infinity": lambda: load_infinity_cache(path, max_len)}
+    data = dict(readers[key]())
     data["content_sha256"] = sha
     data["cache_backend"] = key
     _WARM_CACHES[memo_key] = data

@@ -21,8 +21,9 @@ bf16 and f16 tensors come out as f32 on both routes (numpy has no
 bfloat16). The JAX reference reads safetensors through the
 ``safetensors`` package's numpy route, which keeps f16 and raises
 ``TypeError`` on bf16; the converters cast every tensor to f32, so the
-trees are the same wherever the reference reads the file. ``.gguf`` files
-are ROADMAP queue A item 9 (Z-Image) and raise.
+trees are the same wherever the reference reads the file. ``.gguf`` single
+files go to ``weights/gguf.py`` (F32/F16/Q8_0 tensors dequantized to f32,
+torch layout).
 
 :func:`save_safetensors` writes the same format, streaming tensors that are
 made while the file is written.
@@ -215,8 +216,9 @@ def load_state_dict(path) -> StateDict:
     if p.suffix == ".safetensors":
         return _load_safetensors(p)
     if p.suffix == ".gguf":
-        raise NotImplementedError(f"{p}: GGUF checkpoints (the Z-Image transformer's container) are not ported yet "
-                                  "(ROADMAP queue A item 9)")
+        from .gguf import load_gguf_state_dict
+
+        return load_gguf_state_dict(p)
     return _load_torch(p)
 
 

@@ -12,7 +12,8 @@ delta), prints one JSON line of summary statistics, and with ``--expect``
 compares them against a stored stats file within ``--atol``, exiting 1 on a
 mismatch. ``--write_expected`` records this run's stats. The schema is the
 JAX package's (``generation_stats``), so a stats file either package wrote
-is checked by the other; ``family`` ``zimage`` is ROADMAP queue A item 9.
+is checked by the other. ``--family zimage`` takes a Z-Image transformer
+(``.gguf`` too) and, as ``--vae_weights``, its ``AutoencoderKL``.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--family", required=True, choices=FAMILIES)
     p.add_argument("--weights", required=True, help="checkpoint file/dir to validate")
     p.add_argument("--vae_weights", default=None,
-                   help="VAE / tokenizer checkpoint (var requires it; infinity optional)")
+                   help="VAE / tokenizer checkpoint (var requires it; infinity and zimage optional)")
     p.add_argument("--prompts_txt", default=None, help="prompt list; defaults to the backend's built-in prompt")
     p.add_argument("--encoded_prompts", default=None, help="encoded-prompt cache (families that need real text embeds)")
     p.add_argument("--images", type=int, default=4, help="images to generate (≤ prompts)")

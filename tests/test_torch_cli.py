@@ -78,7 +78,9 @@ def test_weights_raise(tmp_path, capsys):
     safetensors file from ``chip_smoke.py``'s writer, at a width that keeps
     the default head counts whole) with the JAX converter's tree as the
     backend's; the Sana ``--vae_weights`` refusal (no DC-AE converter, as in
-    the JAX CLI) and ``--backend zimage`` (ROADMAP queue A item 9) stand."""
+    the JAX CLI) stands. ``--backend zimage --weights`` trains from a GGUF
+    file of a Z-Image-layout transformer (Q8_0 tensors, the JAX writer's)
+    with a diffusers-layout KL-VAE decoder as ``--vae_weights``."""
     from hyperscalees_t2i_tpu.weights.io import load_state_dict as jload
     from hyperscalees_t2i_tpu.weights.sana import convert_sana_transformer as jconvert, infer_sana_config as jinfer
     from hyperscalees_t2i_tpu_torch.models import sana
@@ -98,8 +100,22 @@ def test_weights_raise(tmp_path, capsys):
     assert len(read_jsonl_rows(tmp_path / "cli" / "metrics.jsonl")) == 2
     with pytest.raises(SystemExit, match="DC-AE"):
         cli.main(argv + ["--vae_weights", "vae.pth"])
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        cli.main(["--backend", "zimage", "--weights", "z.gguf", *TINY])
+    from hyperscalees_t2i_tpu.weights.gguf import write_gguf
+
+    import test_weights_zimage as twz
+
+    torch.manual_seed(6)
+    sd = {k: v.detach().numpy() for k, v in twz.TZImage().state_dict().items()}
+    write_gguf(tmp_path / "z.gguf", sd, tensor_types={k: "q8_0" for k, v in sd.items()
+                                                     if v.ndim == 2 and v.shape[-1] % 32 == 0})
+    torch.save(twz.TKLDecoder().state_dict(), tmp_path / "vae.pt")
+    capsys.readouterr()
+    assert cli.main(["--backend", "zimage", "--weights", str(tmp_path / "z.gguf"), "--vae_weights",
+                     str(tmp_path / "vae.pt"), "--train_vae_decoder_lora", "true", "--run_dir", str(tmp_path / "z"),
+                     *TINY]) is None
+    out = capsys.readouterr().out
+    assert "loaded zimage weights: 2L d=16 caption=12" in out and "loaded KL-VAE decoder weights (ch=(8, 8))" in out
+    assert "training done at epoch 2" in out and len(read_jsonl_rows(tmp_path / "z" / "cli" / "metrics.jsonl")) == 2
 
 
 def test_entry_point_needs_a_card_or_the_cpu(tmp_path):

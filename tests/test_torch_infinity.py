@@ -442,5 +442,10 @@ def test_prompt_helpers_match_jax(tmp_path):
         assert pc.cache_backend_key(name) == jpc.cache_backend_key(name)
     with pytest.raises(ValueError, match="class-conditional"):
         pc.cache_backend_key("var")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pc.load_cache(str(txt), "zimage")
+    # the zimage kind: a cache either package wrote loads the same in both
+    zc = tmp_path / "zimage.npz"
+    pc.save_zimage_cache(str(zc), ["one", "two"], np.ones((2, 3, 4), np.float32), np.ones((2, 3), bool))
+    got, want = pc.load_cache(str(zc), "zimage"), jpc.load_cache(str(zc), "zimage")
+    assert got["prompts"] == want["prompts"] == ["one", "two"] and got["content_sha256"] == want["content_sha256"]
+    for k in ("prompt_embeds", "prompt_mask"):
+        np.testing.assert_array_equal(got[k], want[k])

@@ -158,10 +158,20 @@ def test_strip_prefix_matches_jax():
 
 
 def test_gguf_raises_naming_item_9(tmp_path):
+    """``.gguf`` paths go to ``weights/gguf.py`` (ROADMAP queue A item 9, done):
+    a truncated file raises as the JAX reader does, a whole one loads the
+    JAX reader's state dict."""
+    from hyperscalees_t2i_tpu.weights.gguf import write_gguf
+
     path = tmp_path / "z.gguf"
     path.write_bytes(b"GGUF")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pio.load_state_dict(path)
+    for load in (pio.load_state_dict, jio.load_state_dict):
+        with pytest.raises(ValueError, match="truncated GGUF"):
+            load(path)
+    write_gguf(path, {"w.weight": np.arange(64, dtype=np.float32).reshape(2, 32)}, tensor_types={"w.weight": "q8_0"})
+    got, want = pio.load_state_dict(path), jio.load_state_dict(path)
+    assert list(got) == list(want) == ["w.weight"]
+    np.testing.assert_array_equal(got["w.weight"], want["w.weight"])
 
 
 def test_missing_path_raises_at_once(monkeypatch):
