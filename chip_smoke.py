@@ -19,10 +19,12 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
 (:func:`profiled_launches`), and held to the same derived counts.
 
 1. build every CUDA kernel from ``csrc/`` with ``nvcc`` (one process per
-   source, all at once): K1 ``int8_matmul``, K2 ``lora_chain``, K3
-   ``fused_qlora``, K4 ``decode_attention``; log each route's registers,
-   spills and shared memory, and count the tensor-core instructions
-   (``HMMA``) in each kernel's SASS (none in a bf16 route fails);
+   source and per part of a source built in parts, all at once): K1
+   ``int8_matmul``, K2 ``lora_chain``, K3 ``fused_qlora`` (seven parts: the
+   bf16 kernels of each tile and thin width apart), K4 ``decode_attention``; log each source's
+   (and part's) compile seconds, each route's registers, spills and shared
+   memory, and count the tensor-core instructions (``HMMA``) in each
+   kernel's SASS (none in a bf16 route fails);
 2. hold each kernel against its plain PyTorch version on the card at every
    shape its main path gives it, in the main-path dtype and in f32, and time
    the kernel, the plain version, one PyTorch library call computing the
@@ -94,18 +96,19 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
    θ′ and rows within 1e-4, bits equal under the measured margin, K3, K1,
    K4 and K2, K4 exact), then Infinity-2B (``inf_2b``: 14 scales to
    1024×1024, 32-bit tokenizer, bf16, random weights) built by the rung's
-   ``build_train_backend("2b")`` with CLIP-B/32 and CLIP-H/14 rewards
-   (build time and peak memory; θ₀'s norm against ``theta_max_norm``),
-   ``run_training`` as a CUDA graph for 3 epochs (the first the warm-up
-   and capture): K4 exactly 896 launches per generate call and no K1-K3,
-   counted at the warm-up and on the device in a profiled replayed epoch,
-   which must equal the same epoch run eagerly, bitwise,
-   epoch s, images/s, idle share, memory (weights, KV workspace, pool),
-   one eager generate call profiled, one eager generate call with
-   ``pop_fuse`` (K2 2,720); then Infinity-2B on the int8 base with
-   ``pop_fuse`` (:func:`phase_inf_q8_es`: ``run_training`` as a graph, K3
-   2,720, K4 896 and K1 as derived per generate call on the device, one
-   epoch against eager in turns, bitwise or within 1e-4);
+   ``build_train_backend("2b", depth=INF_FLOAT_DEPTH)`` (a float base at
+   every width and 8 of its 32 blocks) with CLIP-B/32 and CLIP-H/14
+   rewards (build time and peak memory; θ₀'s norm against
+   ``theta_max_norm``), ``run_training`` as a CUDA graph (the warm-up and
+   capture): K4 exactly 28 launches a block per generate call and no
+   K1-K3, counted at the warm-up and on the device in a profiled replayed
+   epoch, which must equal the same epoch run eagerly, bitwise, epoch s,
+   images/s, idle share, memory (weights, KV workspace, pool), one eager
+   generate call with ``pop_fuse`` (K2 85 a block); then Infinity-2B at
+   its full depth on the int8 base with ``pop_fuse``
+   (:func:`phase_inf_q8_es`: ``run_training`` as a graph, K3 2,720, K4 896
+   and K1 as derived per generate call on the device, one epoch against
+   eager in turns, bitwise or within 1e-4);
 7. the Sana main path: one EGGROLL-ES epoch step of the flagship rung
    (``RUNG_PLAN``/``RUNG_OPT["flagship"]``: pop 4, 4 prompts, member_batch
    1, reward_tile 1, bf16 noise store, int8 DiT + DC-AE + CLIP-B/32 +
@@ -151,8 +154,16 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
    σ and the leaves on one captured program, K3 and K1 on the device in a
    replayed tick exactly 2 × 16 × (164, 329), the swapped job bitwise its
    solo steps, K3 at two of the fleet's launches against its plain
-   version); then ``tools/dispatch_tax.py`` at the flagship (eager,
-   single, chained, fused, fused_qlora, fleet2), its row;
+   version); then the run tools over those run dirs
+   (:func:`phase_run_tools`: ``trace_report`` with coverage ≥ 0.90 and the
+   Chrome export, ``run_report`` with the roofline, predicted-vs-measured
+   and Fleet panels, ``sentry`` exiting 0 on a same-plan run and 2 on a
+   copy with ``step_time_s`` ×3, the verdict on a resumed run's
+   ``/healthz``, and ``tools.preflight`` in child processes: the flagship
+   a no-fit at ``RUN_TOOLS_HBM_GB``, its measured peak within 15% of 7's
+   memory, its warm-up K1 329 and K3 164 an image, ``--serve`` and
+   ``--fleet`` exiting 0). ``tools/dispatch_tax.py`` runs alone
+   (:func:`phase_dispatch_tax`), outside the default run;
 9. the JAX noise stream (``utils.threefry``, plain torch) at each path's
    full-width draws (the flagship ES noise and latents, VAR-d16's Gumbel
    slab, Infinity-2B's Gumbel noise and one whole stacked leaf): every
@@ -178,14 +189,15 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
 12. released checkpoints (:func:`phase_weights_var`, after 6's VAR-d16
     epoch; :func:`phase_weights_sana`, after Infinity): a ``var_d16.pth``
     + ``vae_ch160v4096z32.pth`` pair (f32) and a diffusers-layout
-    Sana-Sprint 1.6B safetensors file (bf16, the port's own writer), with
+    safetensors file at Sana-Sprint 1.6B's widths and ``WEIGHTS_SANA_LAYERS``
+    of its 20 blocks (bf16, the port's own writer), with
     the released key names and shapes (:func:`released_var_keys`,
     :func:`released_vqvae_keys`, :func:`released_sana_keys`) and seeded
     numpy values, written into a temporary directory deleted afterwards,
     then the train CLI's ``main --weights [--vae_weights]`` at the
     ``ar_d16`` and ``flagship`` plans (the Sana run on the int8 base with
     ``pop_fuse``): the inferred config the rung's, a warm-up and a replayed
-    epoch, K4 160 a VAR call and K3 164 a Sana image with K1 as derived,
+    epoch, K4 160 a VAR call and K3 8 a block + 4 a Sana image with K1 as derived,
     counted and on the device, the graph against an eager epoch bitwise,
     each stage's seconds (write, read, convert, to the card, build,
     capture, epoch), the host's peak resident set and the device's peak;
@@ -211,6 +223,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -312,6 +325,13 @@ INF_ROWS, INF_HEADS, INF_DH, INF_DEPTH, INF_TEXT = 8, 16, 128, 32, 17
 # _graph_run's profiled one
 INF_EPOCHS = 1
 INF_FLOAT_EPOCHS = 1
+# phase_inf_es's blocks: the float-base run at every width and a quarter of
+# the depth (the int8 run, the main path, keeps all 32; K4 at every Infinity
+# shape is phase_k4_infinity's)
+INF_FLOAT_DEPTH = 8
+# phase_weights_sana's transformer blocks in the released-layout file (d 2240
+# and every key name kept; the reader and converter are the same at any depth)
+WEIGHTS_SANA_LAYERS = 4
 # Infinity-2B's adapted block sites (K3 over the int8 base, K2 over a bf16
 # one, with pop_fuse): (site, K, N, sites a layer), each run once a layer
 # (32) a scale on 8 · pn² rows (1 lane × 4 images × cond/uncond); cross_kv
@@ -525,12 +545,15 @@ def phase_build():
     from hyperscalees_t2i_tpu_torch.ops import quant_mm as qm
 
     t0 = time.perf_counter()
-    logs = _build.build_all(["int8_matmul", "lora_chain", "fused_qlora", "decode_attention"])
+    nvcc_s = {}
+    logs = _build.build_all(["int8_matmul", "lora_chain", "fused_qlora", "decode_attention"], seconds=nvcc_s)
     dt = time.perf_counter() - t0
+    for name, sec in sorted(nvcc_s.items(), key=lambda kv: -kv[1]):
+        log(f"[build] {name}: nvcc {sec:.1f} s")
     routed = {"int8_matmul": "int8_mma_kernel", "lora_chain": "lora_chain_mma_kernel",
               "fused_qlora": "qlora_mma_kernel", "decode_attention": "decode_attention_mma_kernel"}
     tiles = (("128x128", qm.MMA_128x128), ("64x64", qm.MMA_64x64), ("16x64", qm.MMA_16x64))
-    out = dict(build_s=dt)
+    out = dict(build_s=dt, nvcc_s=nvcc_s)
     sass = sass_hmma(list(routed))
     for name, mma_kernel in routed.items():
         tag = {"int8_matmul": "k1", "lora_chain": "k2", "fused_qlora": "k3", "decode_attention": "k4"}[name]
@@ -1805,6 +1828,7 @@ def phase_es_flagship(torch, base_quant=None, keep: bool = False):
         opt["base_quant"] = base_quant
     tag = "es" if opt["base_quant"] == "int8" else f"es-{opt['base_quant']}"
     torch.cuda.reset_peak_memory_stats()
+    left_before = torch.cuda.memory_allocated()  # what earlier phases of the process still hold
     t0 = time.perf_counter()
     backend, suite = build_train_backend("flagship", device="cuda", base_quant=opt["base_quant"], seed=0)
     torch.cuda.synchronize()
@@ -1830,7 +1854,7 @@ def phase_es_flagship(torch, base_quant=None, keep: bool = False):
     noise = sample_noise(threefry.prng_key(5, "cuda"), theta, pop, tc.es_config())
     breakdown = es_stage_breakdown(torch, backend, suite, theta, noise, tc, tag)
     stats = dict(plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s, per_call=per,
-                 member_breakdown_ms=breakdown, **run)
+                 member_breakdown_ms=breakdown, allocated_before_gib=left_before / 2**30, **run)
     torch.cuda.empty_cache()
     if keep:
         return stats, (backend, suite)
@@ -1967,6 +1991,20 @@ def phase_train_reference(torch):
             "counted": counts["cuda"], "launches": launches}
 
 
+def flagship_train_base(root):
+    """The ``TrainConfig`` fields of :func:`phase_train_flagship`'s runs
+    (``RUNG_PLAN``/``RUNG_OPT["flagship"]``, quality on, a slot every 2
+    epochs, traced) under ``root``."""
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
+
+    _, pop, m, mb = RUNG_PLAN["flagship"]
+    opt = rung_opt("flagship")
+    return dict(pop_size=pop, sigma=0.01, egg_rank=4, prompts_per_gen=m, batches_per_gen=1, member_batch=mb,
+                reward_tile=opt["reward_tile"], noise_dtype=opt["noise_dtype"], tower_dtype=opt["tower_dtype"],
+                pop_fuse=opt["pop_fuse"], base_quant=opt["base_quant"], quality=True, save_every=2,
+                run_dir=str(root), run_name="flagship", trace=True)
+
+
 def phase_train_flagship(torch, backend, suite, es):
     """The trainer around the flagship step, on the backend
     :func:`phase_es_flagship` built (``RUNG_PLAN``/``RUNG_OPT["flagship"]``,
@@ -1988,18 +2026,14 @@ def phase_train_flagship(torch, backend, suite, es):
 
     from hyperscalees_t2i_tpu_torch.obs.trace import load_events
     from hyperscalees_t2i_tpu_torch.resilience.checkpoints import CheckpointStore, slot_theta_digest
-    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN
     from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
     from hyperscalees_t2i_tpu_torch.utils.jsonl import read_jsonl_rows
 
     _, pop, m, mb = RUNG_PLAN["flagship"]
-    opt = rung_opt("flagship")
     root = ROOT / "build" / "train_flagship"
     shutil.rmtree(root, ignore_errors=True)
-    base = dict(pop_size=pop, sigma=0.01, egg_rank=4, prompts_per_gen=m, batches_per_gen=1, member_batch=mb,
-                reward_tile=opt["reward_tile"], noise_dtype=opt["noise_dtype"], tower_dtype=opt["tower_dtype"],
-                pop_fuse=opt["pop_fuse"], base_quant=opt["base_quant"], quality=True, save_every=2,
-                run_dir=str(root), run_name="flagship", trace=True)
+    base = flagship_train_base(root)
     expected1, per = expected_es_launches(backend, suite, TrainConfig(**base), m)
     if (per["k3_per_call"], per["k1_per_call"], per["k2_per_call"], per["calls"]) != (164, 329, 0, pop * m):
         raise AssertionError(f"the flagship plan is not K3 164, K1 329 per image over {pop * m} images: {per}")
@@ -3057,16 +3091,18 @@ def phase_inf_es(torch):
     1024×1024, the 32-bit tokenizer, released attention flags, bf16, random
     weights and the rung's reward suite, CLIP-B/32 and CLIP-H/14 at their
     published widths, from seed 0) with the train CLI's settings (a float
-    base, no ``pop_fuse``), then ``run_training`` as a CUDA graph for
+    base, no ``pop_fuse``) cut to ``INF_FLOAT_DEPTH`` of its 32 blocks (every
+    width kept), then ``run_training`` as a CUDA graph for
     ``INF_FLOAT_EPOCHS`` epochs (pop 4, 4 prompts, member_batch 1), the
-    first one the warm-up and capture (:func:`_graph_run`: K4 2 × 14 × 32 = 896
-    launches a generate call and nothing else of K1-K3, counted at the
+    first one the warm-up and capture (:func:`_graph_run`: K4 2 × 14 ×
+    ``INF_FLOAT_DEPTH`` launches a generate call and nothing else of K1-K3, counted at the
     warm-up and on the device in a profiled replayed epoch, which must
     equal the same epoch run eagerly just before it, bitwise; K4's in-situ
     ms a call from that epoch's profile). θ₀'s norm (``fold_in(PRNGKey(seed),
     17)``, the JAX package's θ₀) beside ``theta_max_norm``. Then K2's
     Infinity path: one eager generate call over this bf16 base with
-    ``pop_fuse`` (:func:`inf_fused_call`: K2 2,720, K4 896)."""
+    ``pop_fuse`` (:func:`inf_fused_call`: K2 85 and K4 28 a block)."""
+    import dataclasses
     import shutil
 
     from hyperscalees_t2i_tpu_torch.backends.infinity_backend import build_train_backend
@@ -3085,18 +3121,19 @@ def phase_inf_es(torch):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    backend, suite = build_train_backend(scale, device=dev, seed=0)
+    backend, suite = build_train_backend(scale, device=dev, seed=0, depth=INF_FLOAT_DEPTH)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    if backend.cfg.model != infinity_rung_model(scale)["bcfg"].model:
-        raise AssertionError(f"the rung built {backend.cfg.model}, not the inf_2b model")
+    if backend.cfg.model != dataclasses.replace(infinity_rung_model(scale)["bcfg"].model, depth=INF_FLOAT_DEPTH):
+        raise AssertionError(f"the rung built {backend.cfg.model}, not the inf_2b model at depth {INF_FLOAT_DEPTH}")
     weights_bytes = torch.cuda.memory_allocated()
     mcfg = backend.cfg.model
     tc = cli.train_config(args)
     _, per = expected_inf_launches(backend, suite, tc, m)
-    if (per["k1_per_call"], per["k2_per_call"], per["k3_per_call"], per["k4_per_call"]) != (0, 0, 0, 896):
-        raise AssertionError(f"the inf_2b float-base plan is not K4 896 alone a call: {per}")
+    k4_call = 2 * len(INF_PATCH_NUMS) * INF_FLOAT_DEPTH
+    if (per["k1_per_call"], per["k2_per_call"], per["k3_per_call"], per["k4_per_call"]) != (0, 0, 0, k4_call):
+        raise AssertionError(f"the inf_2b float-base plan is not K4 {k4_call} alone a call: {per}")
     theta0_norm = float(global_norm(trainer._init_theta(backend, tc, dev)))
     log(f"[inf] Infinity-2B ES backend (depth {mcfg.depth}, d {mcfg.d_model}, {mcfg.n_heads} heads of "
         f"{mcfg.head_dim}, L {mcfg.seq_len}, {mcfg.vq.bits} bits, {mcfg.vq.grid}→"
@@ -3105,14 +3142,15 @@ def phase_inf_es(torch):
         f"calls per epoch of {mb} lane × {m} images × 2 (CFG) = {2 * mb * m} rows; K4 {per['k4_per_call']} per "
         f"call; θ₀ = init_theta(fold_in(PRNGKey({tc.seed}), 17)) norm {theta0_norm:.4f} against theta_max_norm "
         f"{tc.theta_max_norm}")
-    state, run = _graph_run(torch, backend, suite, tc, weights_bytes, "inf_2b", against_eager=True, bitwise=True)
+    state, run = _graph_run(torch, backend, suite, tc, weights_bytes, f"inf_2b_depth{INF_FLOAT_DEPTH}",
+                            against_eager=True, bitwise=True)
 
     ids = torch.as_tensor(backend.step_info(0, m, 1).flat_ids, device=dev)
     if not torch.equal(backend.text_mask[ids], inf_text_mask(torch)[:m, 1:]):
         raise AssertionError("phase_k4_infinity's text mask is not the inf_2b run's")
     gen_noise = backend.sample_gen_noise(threefry.prng_key(6, dev), range(len(ids)))
     fused = inf_fused_call(torch, backend, tc, state.theta, ids, gen_noise)
-    stats = dict(plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s,
+    stats = dict(plan=dict(pop=pop, prompts=m, member_batch=mb, depth=INF_FLOAT_DEPTH, **opt), build_s=build_s,
                  built_gib=weights_bytes / 2**30, build_peak_gib=build_peak_gib, theta0_norm=theta0_norm,
                  theta_max_norm=tc.theta_max_norm, peak_mem_gib=run["memory"]["total_gib"],
                  per_call={"k4_per_call": per["k4_per_call"], "calls": per["calls"]},
@@ -4130,12 +4168,13 @@ def phase_threefry(torch, flagship_backend):
     return rows
 
 
-def threefry_shares(rows, es, var_es, inf_es):
+def threefry_shares(rows, es, var_es, inf_q8):
     """Each path's draw time as a share of the epoch (or call) that draws it
     once, from this run's path phases: the flagship ES noise and latents
     per flagship ES epoch, VAR-d16's Gumbel slab per VAR epoch and per one
     generate call's generation stage, Infinity-2B's Gumbel per epoch and per
-    generate call of a replayed epoch, its stacked leaf per backend build."""
+    generate call of a replayed epoch (the int8 run, at the full depth), its
+    stacked leaf per backend build."""
     import statistics
 
     med = statistics.median
@@ -4144,9 +4183,9 @@ def threefry_shares(rows, es, var_es, inf_es):
         "flagship_latents": {"flagship_es_epoch_ms": med(es["epoch_s"]) * 1e3},
         "var_d16_gumbel": {"var_d16_es_epoch_ms": med(var_es["epoch_s"]) * 1e3,
                            "var_d16_generation_ms": var_es["call_breakdown_ms"]["generation"]},
-        "inf_2b_gumbel": {"inf_2b_epoch_ms": med(inf_es["epoch_s"]) * 1e3,
-                          "inf_2b_call_ms": med(inf_es["epoch_s"]) * 1e3 / inf_es["per_call"]["calls"]},
-        "inf_2b_leaf": {"inf_2b_build_ms": inf_es["build_s"] * 1e3},
+        "inf_2b_gumbel": {"inf_2b_epoch_ms": med(inf_q8["epoch_s"]) * 1e3,
+                          "inf_2b_call_ms": med(inf_q8["epoch_s"]) * 1e3 / inf_q8["per_call"]["calls"]},
+        "inf_2b_leaf": {"inf_2b_build_ms": inf_q8["build_s"] * 1e3},
     }
     for r in rows:
         r["share"] = {k: r["ms"] / v for k, v in per[r["path"]].items()}
@@ -4160,7 +4199,7 @@ def threefry_shares(rows, es, var_es, inf_es):
 # ---------------------------------------------------------------------------
 
 PIPELINE_STEPS = 2  # DiT passes an image in the pipeline phases (the JAX CLI's default)
-TIER_RATES = (0.25, 0.5, 0.75, 1.0, 1.5)  # the sweep's rates, × the graph engine's measured images/s
+TIER_RATES = (0.25, 0.5, 1.0, 1.5)  # the sweep's rates, × the graph engine's measured images/s
 TIER_WINDOW_S = 4.0
 TIER_LANES = 4
 
@@ -5006,6 +5045,224 @@ def telemetry_run(torch, backend, suite, base, expected1, bare_epoch_s, loop_epo
 
 
 # ---------------------------------------------------------------------------
+# The run tools over the trainer's run dirs, and preflight on the card
+# ---------------------------------------------------------------------------
+
+RUN_TOOLS_HBM_GB = 4  # the preflight child's target capacity: the flagship must not fit
+PREFLIGHT_PEAK_TOL = 0.15  # preflight's flagship peak against phase_es_flagship's memory
+PREFLIGHT_MFUS = (0.10, 0.25)  # the predicted step times logged beside the measured epoch
+
+
+def _preflight_child(out_dir, *argv_lists):
+    """A fresh process (its own CUDA context) running ``tools.preflight.main``
+    once per argument list; exits with the largest exit code. Its output goes
+    to ``out_dir/log.txt``."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    code = ("import sys; from hyperscalees_t2i_tpu_torch.tools import preflight; "
+            f"sys.exit(max(preflight.main(a) for a in {[list(a) for a in argv_lists]!r}))")
+    log_file = open(out_dir / "log.txt", "w")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT)
+    return proc, log_file
+
+
+def phase_run_tools(torch, backend, suite, es):
+    """The run tools of the port over the run dirs the trainer phases wrote,
+    and preflight on the card:
+
+    - ``tools.trace_report`` over :func:`phase_train_flagship`'s traced run
+      dir: the phase table, top-level coverage ≥ 0.90, the Chrome export.
+    - ``tools.run_report`` over :func:`phase_train_artifacts`'s run dir and
+      :func:`phase_fleet_flagship`'s: HTML with the roofline,
+      predicted-against-measured and Fleet panels, no external asset.
+    - ``tools.sentry``: a baseline from the artifacts run (4 epochs), a check
+      of the telemetry run (4 epochs of the same plan and seed) exits 0; a
+      copy of it with every ``step_time_s`` ×3 exits 2 naming the metric;
+      then the checked run dir resumed for one epoch with the exporter on,
+      whose ``/healthz`` must carry ``sentry_verdict`` (K1 and K3 counted
+      over that epoch's warm-up as derived).
+    - ``tools.preflight`` in two child processes started first, each a fresh
+      CUDA context: ``--rungs tiny,flagship --hbm-gb RUN_TOOLS_HBM_GB`` exits
+      1 naming the flagship as a no-fit, its flagship record's peak within
+      ``PREFLIGHT_PEAK_TOL`` of ``es``'s measured memory (less what earlier
+      phases of this process held when it began: the child starts empty) and its warm-up's
+      launches K1 329 and K3 164 an image; the other runs ``--serve
+      flagship:2`` and ``--fleet tiny:2`` and exits 0.
+
+    Returns the numbers, the parent's counted launches under ``launches``
+    and the flagship preflight's under ``preflight_launches``."""
+    import contextlib
+    import io
+    import shutil
+    import urllib.request
+
+    from hyperscalees_t2i_tpu_torch.obs.program_cost import load_programs
+    from hyperscalees_t2i_tpu_torch.obs.regress import VERDICT_FILE
+    from hyperscalees_t2i_tpu_torch.obs.trace import load_events
+    from hyperscalees_t2i_tpu_torch.tools import run_report, sentry, trace_report
+    from hyperscalees_t2i_tpu_torch.train import trainer
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+    from hyperscalees_t2i_tpu_torch.utils.jsonl import read_jsonl_rows
+    from hyperscalees_t2i_tpu_torch.utils.mfu import device_hbm_bandwidth, device_peak_flops
+
+    root = ROOT / "build" / "run_tools"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t_children = time.perf_counter()
+    nofit = _preflight_child(root / "preflight_rungs", ["--rungs", "tiny,flagship", "--hbm-gb", str(RUN_TOOLS_HBM_GB),
+                                                        "--out", str(root / "preflight_rungs")])
+    modes = _preflight_child(root / "preflight_modes", ["--serve", "flagship:2", "--out", str(root / "preflight_modes")],
+                             ["--fleet", "tiny:2", "--out", str(root / "preflight_modes")])
+    out = {}
+    try:
+        # trace_report: the flagship trainer's traced run
+        run_dir = ROOT / "build" / "train_flagship" / "flagship"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = trace_report.main([str(run_dir), "--chrome"])
+        text = buf.getvalue()
+        events = trace_report.latest_session(load_events(run_dir))
+        cov = trace_report.coverage(events)
+        chrome = json.loads((run_dir / "trace_chrome.json").read_text())
+        table = [line for line in text.splitlines() if line.startswith("| ")]
+        if rc != 0 or cov < 0.90 or not chrome["traceEvents"] or not any(r.startswith("| dispatch |") for r in table):
+            raise AssertionError(f"trace_report on {run_dir}: rc {rc}, coverage {cov:.4f}, "
+                                 f"{len(chrome['traceEvents'])} Chrome events, table {table[:3]}")
+        out["trace_report"] = dict(coverage=cov, spans=len(events), chrome_events=len(chrome["traceEvents"]),
+                                   phases=len(table) - 2)
+        log(f"[run-tools] trace_report {run_dir.name}: coverage {100 * cov:.1f}% over {len(events)} spans, "
+            f"{len(chrome['traceEvents'])} Chrome events; the phase table's top rows: {table[2:6]}")
+
+        # run_report: the artifacts run and the fleet's
+        reports = {}
+        for tag, d, needles in (("artifacts", ROOT / "build" / "train_artifacts" / "artifacts",
+                                 ("Roofline &amp; programs", "Predicted vs measured", "Host-side phase times")),
+                                ("fleet", ROOT / "build" / "fleet_flagship", ("Fleet", "Jobs seen"))):
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = run_report.main([str(d), "-o", str(root / f"run_report_{tag}.html")])
+            page = (root / f"run_report_{tag}.html").read_text()
+            external = [n for n in ("http://", "https://", "<script", "@import") if n in page]
+            missing = [n for n in needles if n not in page]
+            if rc != 0 or missing or external:
+                raise AssertionError(f"run_report {tag}: rc {rc}, missing {missing}, external {external}")
+            reports[tag] = len(page)
+        out["run_report_bytes"] = reports
+        log(f"[run-tools] run_report: artifacts {reports['artifacts']} bytes (roofline, predicted vs measured, "
+            f"phase table), fleet {reports['fleet']} bytes (Fleet panel); no external asset")
+
+        # sentry: the artifacts run as the baseline, the telemetry run checked
+        base_dir = ROOT / "build" / "train_artifacts" / "artifacts"
+        cand = ROOT / "build" / "train_flagship" / "flagship_telemetry"
+        manifest = root / "sentry_baseline.json"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc_base = sentry.main(["baseline", "--out", str(manifest), str(base_dir)])
+            rc_pass = sentry.main(["check", str(cand), "--manifest", str(manifest)])
+        verdict = json.loads((cand / VERDICT_FILE).read_text())
+        doctored = root / "doctored"
+        shutil.copytree(cand, doctored, ignore=shutil.ignore_patterns("ckpt"))
+        rows = read_jsonl_rows(doctored / "metrics.jsonl")
+        (doctored / "metrics.jsonl").write_text("".join(
+            json.dumps({**r, "step_time_s": 3 * r["step_time_s"]} if "step_time_s" in r else r) + "\n" for r in rows))
+        buf2 = io.StringIO()
+        with contextlib.redirect_stdout(buf2):
+            rc_breach = sentry.main(["check", str(doctored), "--manifest", str(manifest)])
+        breached = [b["metric"] for b in json.loads((doctored / VERDICT_FILE).read_text())["breaches"]]
+        if rc_base != 0 or rc_pass != 0 or rc_breach != 2 or breached != ["step_time_s"] or \
+                "BREACH step_time_s[run]" not in buf2.getvalue():
+            raise AssertionError(f"sentry: baseline rc {rc_base}, same-plan check rc {rc_pass} ({verdict['breaches']}), "
+                                 f"doctored rc {rc_breach} breaching {breached}:\n{buf.getvalue()}{buf2.getvalue()}")
+        out["sentry"] = dict(checked=verdict["checked"], skipped=len(verdict["skipped"]), pass_rc=rc_pass,
+                             doctored_rc=rc_breach, breached=breached)
+        log(f"[run-tools] sentry: check of {cand.name} against a baseline of {base_dir.name} exits {rc_pass} "
+            f"({verdict['checked']} checked, {len(verdict['skipped'])} skipped); the copy with step_time_s x3 exits "
+            f"{rc_breach} breaching {breached}")
+
+        # /healthz of the checked run dir, resumed for one epoch
+        port = _free_port()
+        tc = TrainConfig(**{**flagship_train_base(cand.parent), "num_epochs": 5, "run_name": cand.name,
+                            "trace": False, "resume": True}, metrics_port=port, metrics_host="127.0.0.1")
+        expected1, _ = expected_es_launches(backend, suite, tc, tc.prompts_per_gen)
+        seen = {}
+
+        def scrape(epoch, _row):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as r:
+                seen[epoch] = json.loads(r.read())
+
+        torch.cuda.synchronize()
+        _reset_counters()
+        trainer.run_training(backend, suite, tc, on_epoch_end=scrape, device="cuda")
+        torch.cuda.synchronize()
+        launches = _counters()
+        hz = seen.get(4, {}).get("sentry_verdict")
+        if not hz or hz.get("pass") is not True or hz.get("checked") != verdict["checked"] or launches != expected1:
+            raise AssertionError(f"/healthz of the resumed {cand.name}: sentry_verdict {hz}; launches {launches}, "
+                                 f"expected {expected1}")
+        out["healthz_sentry_verdict"] = hz
+        out["launches"] = launches
+        log(f"[run-tools] /healthz of {cand.name} resumed for epoch 4: sentry_verdict {hz}; launches {launches}")
+
+        # the preflight children
+        for proc, log_file in (nofit, modes):
+            proc.wait(timeout=600)
+            log_file.close()
+        children_s = time.perf_counter() - t_children
+        text_nofit = (root / "preflight_rungs" / "log.txt").read_text()
+        text_modes = (root / "preflight_modes" / "log.txt").read_text()
+        recs = {r["label"]: r for r in load_programs(root / "preflight_rungs")}
+        flag = recs.get("flagship", {})
+        peak_gib = (flag.get("peak_bytes") or 0) / 2**30
+        # the plan's own memory in the epoch phase: its graph memory less what the
+        # process's earlier phases still held when it started (the child starts empty)
+        plan_gib = es["peak_mem_gib"] - es["allocated_before_gib"]
+        ratio = peak_gib / plan_gib
+        images = es["images_per_epoch"]
+        want = {"int8_matmul": 329 * images, "lora_chain": 0, "fused_qlora": 164 * images, "decode_attention": 0}
+        if nofit[0].returncode != 1 or "VERDICT: NO-FIT" not in text_nofit or "flagship (peak" not in text_nofit \
+                or "tiny (peak" in text_nofit:
+            raise AssertionError(f"preflight --rungs tiny,flagship --hbm-gb {RUN_TOOLS_HBM_GB} exited "
+                                 f"{nofit[0].returncode}:\n{text_nofit[-3000:]}")
+        if abs(ratio - 1) > PREFLIGHT_PEAK_TOL or flag.get("warmup_launches") != want:
+            raise AssertionError(f"preflight's flagship: peak {peak_gib:.3f} GiB against phase_es_flagship's "
+                                 f"{plan_gib:.3f} (ratio {ratio:.4f}); warm-up launches "
+                                 f"{flag.get('warmup_launches')}, expected {want}")
+        if modes[0].returncode != 0:
+            raise AssertionError(f"preflight --serve / --fleet exited {modes[0].returncode}:\n{text_modes[-3000:]}")
+        peak_f, bw = device_peak_flops(), device_hbm_bandwidth()
+        predicted = {f"{u:.2f}": max(flag["flops"] / (peak_f * u), flag["bytes_accessed"] / bw) for u in PREFLIGHT_MFUS}
+        modes_recs = load_programs(root / "preflight_modes")
+        out["preflight"] = dict(
+            children_s=children_s, nofit_rc=nofit[0].returncode, modes_rc=modes[0].returncode,
+            flagship_peak_gib=peak_gib, es_peak_mem_gib=es["peak_mem_gib"], es_plan_gib=plan_gib, peak_ratio=ratio,
+            flagship_base_gib=flag["base_bytes"] / 2**30, flagship_program_gib=flag["program_bytes"] / 2**30,
+            tiny_peak_gib=recs["tiny"]["peak_bytes"] / 2**30, flagship_tflop=flag["flops"] / 1e12,
+            flagship_gb_moved=flag["bytes_accessed"] / 1e9, warmup_s=flag["warmup_s"], capture_s=flag["capture_s"],
+            predicted_step_s=predicted, measured_epoch_s=es["epoch_s"],
+            modes={r["label"]: r["peak_bytes"] / 2**30 for r in modes_recs})
+        out["preflight_launches"] = flag["warmup_launches"]
+        log(f"[run-tools] preflight --rungs tiny,flagship --hbm-gb {RUN_TOOLS_HBM_GB}: exit 1, flagship a no-fit; "
+            f"flagship peak {peak_gib:.3f} GiB (resident {flag['base_bytes'] / 2**30:.3f} + program "
+            f"{flag['program_bytes'] / 2**30:.3f}) against phase_es_flagship's {plan_gib:.3f} GiB (its "
+            f"{es['peak_mem_gib']:.3f} GiB less the {es['allocated_before_gib']:.3f} earlier phases held): ratio "
+            f"{ratio:.4f}; counted {flag['flops'] / 1e12:.2f} TFLOP, {flag['bytes_accessed'] / 1e9:.1f} GB; warm-up "
+            f"launches {flag['warmup_launches']}; predicted step "
+            + ", ".join(f"{v:.4f} s at MFU {k}" for k, v in predicted.items())
+            + f" against the measured epochs {', '.join(f'{t:.3f}' for t in es['epoch_s'])} s; --serve flagship:2 "
+            f"and --fleet tiny:2 exit 0 ({ {k: round(v, 3) for k, v in out['preflight']['modes'].items()} } GiB); "
+            f"children {children_s:.1f} s")
+        for line in text_nofit.splitlines():
+            if line.startswith(("VERDICT", "    flagship", "     tiny")):
+                log(f"[run-tools]   {line.strip()}")
+    finally:
+        for proc, log_file in (nofit, modes):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_file.close()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Released-layout checkpoints: the key inventories of the released files at a
 # config's geometry, seeded numpy values, and the phases that train from them
 # ---------------------------------------------------------------------------
@@ -5325,9 +5582,10 @@ def phase_weights_var(torch):
     afterwards. The train CLI's ``main`` with ``--backend var --weights
     --vae_weights`` at the rung's plan (pop 16, 4 classes of its 16,
     member_batch 4, its knobs; the CLI's CLIP-B/32 random tower, PickScore
-    dropped): a warm-up and capture epoch, then one replayed epoch
-    (:func:`_cli_graph_run`: K4 160 a generate call, counted at the warm-up
-    and on the device, the graph against an eager epoch bitwise). Checks:
+    dropped): one run_training epoch, the warm-up and capture, then
+    :func:`_cli_graph_run`'s profiled replayed epoch (K4 160 a generate
+    call, counted at the warm-up and on the device, the graph against an
+    eager epoch bitwise). Checks:
     ``infer_var_config`` gives the rung's ``VARConfig`` field by field; the
     converted tree's structure, shapes and dtypes after the rung's bf16 cast
     are ``init_var``'s; θ finite."""
@@ -5354,7 +5612,7 @@ def phase_weights_var(torch):
         del sd, vsd
         argv = ["--backend", "var", "--weights", str(tmp / "var_d16.pth"), "--vae_weights",
                 str(tmp / "vae_ch160v4096z32.pth"), "--var_classes", ",".join(str(c) for c in range(16)),
-                "--pop_size", str(pop), "--prompts_per_gen", str(m), "--member_batch", str(mb), "--num_epochs", "2",
+                "--pop_size", str(pop), "--prompts_per_gen", str(m), "--member_batch", str(mb), "--num_epochs", "1",
                 "--reward_tile", str(opt["reward_tile"]), "--noise_dtype", opt["noise_dtype"],
                 "--tower_dtype", opt["tower_dtype"], "--pop_fuse", str(opt["pop_fuse"]).lower(),
                 "--base_quant", opt["base_quant"], "--allow_random_rewards", "true", "--run_dir", str(tmp),
@@ -5395,20 +5653,22 @@ def phase_weights_var(torch):
 
 
 def phase_weights_sana(torch):
-    """Sana-Sprint 1.6B trained from a bf16 safetensors checkpoint in the
-    released diffusers layout (:func:`released_sana_keys` at the flagship
-    rung's ``SanaConfig``, d 2240, written by the port's own writer, which
+    """Sana-Sprint 1.6B's widths trained from a bf16 safetensors checkpoint in
+    the released diffusers layout (:func:`released_sana_keys` at the flagship
+    rung's ``SanaConfig`` cut to ``WEIGHTS_SANA_LAYERS`` of its 20 blocks, d
+    2240 and every key name kept, written by the port's own writer, which
     needs no ``safetensors`` package) on the int8 base: the train
     CLI's ``main`` with ``--backend sana_one_step --weights --base_quant
     int8`` at the flagship plan (pop 4, 4 prompts of ``BENCH_PROMPT_SET``,
     member_batch 1, the rung's knobs; the CLI's random DC-AE and CLIP-B/32
     tower, PickScore dropped): a warm-up and capture epoch, then one
-    replayed epoch (:func:`_cli_graph_run`: K3 164 an image and K1 as the
+    replayed epoch (:func:`_cli_graph_run`: K3 8 a block + 4 an image and K1 as the
     module trees give them, counted at the warm-up and on the device in
     the replay; the graph against eager bitwise). Then ``weights.validate
     --family sana`` on the same file: its stats line, finite. The host's
     peak resident set is read over the CLI's run (the f32 conversion)."""
     import contextlib
+    import dataclasses
     import io as _io
     import shutil
 
@@ -5417,7 +5677,8 @@ def phase_weights_sana(torch):
 
     scale, pop, m, mb = RUNG_PLAN["flagship"]
     opt = rung_opt("flagship")
-    model = sana_rung_model(scale, tower_dtype=opt["tower_dtype"])["bcfg"].model
+    model = dataclasses.replace(sana_rung_model(scale, tower_dtype=opt["tower_dtype"])["bcfg"].model,
+                                n_layers=WEIGHTS_SANA_LAYERS)
     keys = released_sana_keys(model)
     tmp = _checkpoint_dir()
     try:
@@ -5431,14 +5692,17 @@ def phase_weights_sana(torch):
                 "--member_batch", str(mb), "--num_epochs", "2", "--reward_tile", str(opt["reward_tile"]),
                 "--noise_dtype", opt["noise_dtype"], "--tower_dtype", opt["tower_dtype"],
                 "--pop_fuse", str(opt["pop_fuse"]).lower(), "--allow_random_rewards", "true",
-                "--run_dir", str(tmp), "--run_name", "sana_1600m", "--resume", "false"]
+                "--run_dir", str(tmp), "--run_name", f"sana_d2240_l{WEIGHTS_SANA_LAYERS}", "--resume", "false"]
         run, backend, reward = _cli_graph_run(torch, argv, "weights_sana", expected_es_launches)
         got = backend.cfg.model
         if got != model:
-            raise AssertionError(f"infer_sana_config gave {got}, not the flagship's {model}")
+            raise AssertionError(f"infer_sana_config gave {got}, not the flagship's cut to {WEIGHTS_SANA_LAYERS} "
+                                 f"blocks: {model}")
         per = run["per_call"]
-        if per["k3_per_call"] != 164 or not per["k1_per_call"]:
-            raise AssertionError(f"Sana-Sprint 1.6B from the checkpoint launched {per} an image, not K3 164 and K1")
+        # 8 adapted sites a block and 4 outside them (164 at the full 20 blocks)
+        k3_image = 8 * WEIGHTS_SANA_LAYERS + 4
+        if per["k3_per_call"] != k3_image or not per["k1_per_call"]:
+            raise AssertionError(f"Sana from the checkpoint launched {per} an image, not K3 {k3_image} and K1")
         del backend, reward
         gc.collect()
         torch.cuda.empty_cache()
@@ -5456,7 +5720,7 @@ def phase_weights_sana(torch):
         raise AssertionError(f"weights.validate --family sana: rc {rc}, stats {line[:200]}")
     log(f"[weights-sana] validate --family sana: {line}")
     st = run["stages"]
-    log(f"[weights-sana] {len(keys)} tensors, {size / 2**30:.3f} GiB bf16: write {write_s:.2f} s, read "
+    log(f"[weights-sana] d 2240, {WEIGHTS_SANA_LAYERS} blocks: {len(keys)} tensors, {size / 2**30:.3f} GiB bf16: write {write_s:.2f} s, read "
         f"{st['read_s']:.2f} s (bf16 → f32), convert {st['convert_s']:.2f} s, to the card {st['to_device_s']:.2f} s, "
         f"rewards {st['rewards_s']:.2f} s, build {st['build_s']:.2f} s (int8 base, random DC-AE), warm-up + capture "
         f"{st['capture_s']:.2f} s, replayed epoch {', '.join(f'{t:.3f}' for t in st['epoch_s'])} s; host peak RSS "
@@ -5465,7 +5729,8 @@ def phase_weights_sana(torch):
         f"pool {run['memory']['pool_gib']:.2f}; "
         f"an image: K3 {per['k3_per_call']}, K1 {per['k1_per_call']}; graph against eager bitwise "
         f"{run['graph_vs_eager_bitwise']}; validate {validate_s:.1f} s")
-    return dict(file_bytes=size, tensors=len(keys), write_s=write_s, validate=vstats, validate_s=validate_s, **run)
+    return dict(file_bytes=size, tensors=len(keys), layers=WEIGHTS_SANA_LAYERS, write_s=write_s, validate=vstats,
+                validate_s=validate_s, **run)
 
 
 def kernel_summary(name, rows, launches, calls_key, replaces, scope):
@@ -5521,7 +5786,15 @@ def main() -> int:
         log(f"[phase] {name}: {phase_s[name]:.1f} s")
         return result
 
+    # the reward path's first Hugging Face tokenizer lookup imports transformers (≈ 15 s on the card's
+    # host, phase_weights_var's "rewards" stage): run it beside the kernel build, whose nvcc processes
+    # leave the interpreter idle
+    from hyperscalees_t2i_tpu_torch.rewards.suite import tokenize_with_hf
+
+    warm = threading.Thread(target=tokenize_with_hf, args=(["a photo"],), daemon=True)
+    warm.start()
     build = timed("build", phase_build)
+    warm.join()
     k1_rows = timed("k1_check", phase_k1_check, torch)
     k1_invariant = timed("k1_invariance", phase_k1_invariance, torch)
     chain_rows = timed("chain_check", phase_chain_check, torch)
@@ -5558,8 +5831,8 @@ def main() -> int:
     chained = timed("train_chained", phase_train_chained, torch, *flagship)
     artifacts = timed("train_artifacts", phase_train_artifacts, torch, *flagship)
     fleet_run = timed("fleet_flagship", phase_fleet_flagship, torch, *flagship, es)
-    tax = timed("dispatch_tax", phase_dispatch_tax, torch, *flagship)
-    threefry_rows = threefry_shares(timed("threefry", phase_threefry, torch, flagship[0]), es, var_es, inf_es)
+    run_tools = timed("run_tools", phase_run_tools, torch, *flagship, es)
+    threefry_rows = threefry_shares(timed("threefry", phase_threefry, torch, flagship[0]), es, var_es, inf_q8)
     del flagship
 
     # `launches`: the wrappers' counters over the main paths' eager epochs (the
@@ -5581,9 +5854,10 @@ def main() -> int:
     # graph and the bf16 pop_fuse call (K2)
     zimage_launches = lambda k: (zimage["launches"][k] + zimage["eager_launches"][k]  # noqa: E731
                                  + zimage["fused_call"]["launches"][k])
-    # the artifacts run's eager work: its warm-up and the strip and snapshot regenerations
+    # the artifacts run's eager work: its warm-up and the strip and snapshot regenerations; the
+    # run tools' resumed epoch (its warm-up) and the flagship preflight's warm-up (in its own process)
     extra_launches = lambda k: (inf_launches(k) + weights_launches(k) + artifacts["launches"][k]  # noqa: E731
-                                + zimage_launches(k))
+                                + zimage_launches(k) + run_tools["launches"][k] + run_tools["preflight_launches"][k])
     kernels = [
         kernel_summary("int8_matmul", k1_rows,
                        es["eager"]["launches"]["int8_matmul"] + train_launches("int8_matmul")
@@ -5611,13 +5885,13 @@ def main() -> int:
     kernels[3]["launches_by_path"] = {
         "var_d16_es_graph_profiled_epoch": var_es["launches_profiled"]["decode_attention"],
         "var_d16_es_eager": var_es["eager"]["launches"]["decode_attention"],
-        "inf_2b_run_training_warmup": inf_es["launches"]["decode_attention"],
-        "inf_2b_eager_epoch": inf_es["eager_launches"]["decode_attention"],
-        "inf_2b_graph_profiled_epoch": inf_es["launches_profiled"]["decode_attention"],
+        f"inf_2b_depth{INF_FLOAT_DEPTH}_run_training_warmup": inf_es["launches"]["decode_attention"],
+        f"inf_2b_depth{INF_FLOAT_DEPTH}_eager_epoch": inf_es["eager_launches"]["decode_attention"],
+        f"inf_2b_depth{INF_FLOAT_DEPTH}_graph_profiled_epoch": inf_es["launches_profiled"]["decode_attention"],
         "inf_2b_q8_run_training_warmup": inf_q8["launches"]["decode_attention"],
         "inf_2b_q8_graph_profiled_epoch": inf_q8["launches_profiled"]["decode_attention"],
         "inf_2b_q8_eager_epoch": inf_q8["eager_launches"]["decode_attention"],
-        "inf_2b_bf16_pop_fuse_call": inf_es["fused_call"]["launches"]["decode_attention"],
+        f"inf_2b_depth{INF_FLOAT_DEPTH}_bf16_pop_fuse_call": inf_es["fused_call"]["launches"]["decode_attention"],
         "weights_var_d16_run_training_warmup": weights_var["launches"]["decode_attention"],
         "weights_var_d16_eager_epoch": weights_var["eager_launches"]["decode_attention"],
         "weights_var_d16_graph_profiled_epoch": weights_var["launches_profiled"]["decode_attention"]}
@@ -5643,13 +5917,15 @@ def main() -> int:
             "inf_2b_q8_run_training_warmup": inf_q8["launches"][name],
             "inf_2b_q8_graph_profiled_epoch": inf_q8["launches_profiled"][name],
             "inf_2b_q8_eager_epoch": inf_q8["eager_launches"][name],
-            "inf_2b_bf16_pop_fuse_call": inf_es["fused_call"]["launches"][name],
+            f"inf_2b_depth{INF_FLOAT_DEPTH}_bf16_pop_fuse_call": inf_es["fused_call"]["launches"][name],
             "weights_sana_run_training_warmup": weights_sana["launches"][name],
             "weights_sana_eager_epoch": weights_sana["eager_launches"][name],
             "weights_sana_graph_profiled_epoch": weights_sana["launches_profiled"][name],
             "train_artifacts_eager": artifacts["launches"][name],
             "train_artifacts_profile_window": artifacts["kernel_evidence"][name],
             "serve_profile_window_flush": serve["profile_window"]["launches"][name],
+            "run_tools_resumed_epoch_warmup": run_tools["launches"][name],
+            "preflight_flagship_warmup_child": run_tools["preflight_launches"][name],
         }
         # the kernel at Infinity-2B's shapes: one generate call's calls (K1 on
         # the int8 base, its f32 route included; K2 over a bf16 base; K3 over
@@ -5675,7 +5951,9 @@ def main() -> int:
                                               "max_abs_err", "scope")}
     kernels[3]["infinity"] = {k: k4_inf[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                                      "device_ms", "max_abs_err", "scope")}
-    kernels[3]["infinity"]["in_situ_ms"] = inf_es["k4_in_situ_ms_per_call"]
+    # K4 in situ a call at the full depth: the int8 run's profiled replayed epoch
+    kernels[3]["infinity"]["in_situ_ms"] = (inf_q8["profile"]["in_situ_ms"]["decode_attention"]
+                                            / inf_q8["per_call"]["calls"])
     k1_serve = kernel_summary("int8_matmul", k1_rows, serve["eager"]["launches"]["int8_matmul"], "calls_per_image",
                               "hyperscalees_t2i_tpu/ops/quant_mm.py:86", "one flagship served image")
     for k, run, epochs in ((kernels[1], es_float, TIMED_EPOCHS),
@@ -5686,9 +5964,10 @@ def main() -> int:
     if kernels[0]["launches"] - extra_launches("int8_matmul") != sum(r["calls_per_es_image"] for r in k1_rows) * \
             es["images_per_epoch"] * (TIMED_EPOCHS + train_eager_epochs + FLEET_W):
         raise AssertionError("K1 table and launch count disagree")
-    # Infinity-2B: the int8 run's warm-up and its eager epoch (K1, K3), the bf16 pop_fuse call (K2)
+    # Infinity-2B: the int8 run's warm-up and its eager epoch (K1, K3), the bf16 pop_fuse call (K2) at
+    # INF_FLOAT_DEPTH of the INF_DEPTH blocks the kernel tables count
     q8_calls = inf_q8["per_call"]["calls"] * (inf_q8["eager_epochs"] + 1)
-    for name, want in (("int8_matmul", q8_calls), ("fused_qlora", q8_calls), ("lora_chain", 1)):
+    for name, want in (("int8_matmul", q8_calls), ("fused_qlora", q8_calls), ("lora_chain", INF_FLOAT_DEPTH / INF_DEPTH)):
         if inf_launches(name) != sum(r["calls_per_call"] for r in inf_rows[name]) * want:
             raise AssertionError(f"{name}'s Infinity-2B table and launch count disagree")
     # Z-Image: the int8 run's warm-up and its eager epoch (K1, K3), the bf16 pop_fuse call (K2)
@@ -5701,8 +5980,8 @@ def main() -> int:
     if var_es["eager"]["launches"]["decode_attention"] != \
             sum(r["calls_per_call"] for r in k4_rows) * var_es["per_call"]["calls"] * TIMED_EPOCHS:
         raise AssertionError("K4's VAR table and launch count disagree")
-    if inf_es["launches"]["decode_attention"] != \
-            sum(r["calls_per_call"] for r in k4_inf_rows) * inf_es["per_call"]["calls"] * inf_es["eager_epochs"]:
+    if inf_es["launches"]["decode_attention"] != sum(r["calls_per_call"] for r in k4_inf_rows) * INF_FLOAT_DEPTH \
+            // INF_DEPTH * inf_es["per_call"]["calls"] * inf_es["eager_epochs"]:
         raise AssertionError("K4's Infinity table and launch count disagree")
 
 
@@ -5718,7 +5997,7 @@ def main() -> int:
         small_reference_max_abs=small_err, es_tiny=es_tiny, es_small=es_small, var_tiny=var_tiny, inf_tiny=inf_tiny,
         inf_q8_tiny=inf_q8_tiny, inf_q8_es=inf_q8, inf_kernel_shapes=inf_rows,
         es_flagship_float=es_float, serve=serve, var_es=var_es, inf_es=inf_es, es_flagship=es, train_tiny=train_tiny,
-        threefry=threefry_rows, train_chained=chained, dispatch_tax=tax, pipeline_tiny=pipeline_tiny,
+        threefry=threefry_rows, train_chained=chained, run_tools=run_tools, pipeline_tiny=pipeline_tiny,
         pipeline_es=pipeline_es, serve_tier=tier,
         train_flagship=train, train_artifacts=artifacts, fleet_tiny=fleet_tiny, fleet_flagship=fleet_run, weights_var=weights_var,
         weights_sana=weights_sana, zimage_kernel_shapes=zimage_rows, zimage_tiny=zimage_tiny, zimage_es=zimage,

@@ -251,7 +251,7 @@ class InfinityBackend:
 
 
 def build_train_backend(scale: str = "2b", device: DeviceLike = None, seed: int = 0,
-                        base_quant: Optional[str] = None):
+                        base_quant: Optional[str] = None, depth: Optional[int] = None):
     """The Infinity backend and the reward suite of the ``inf_2b`` rung:
     random weights from ``split(PRNGKey(seed))``'s first key on the device
     (the reward suite from its second), their float leaves cast to
@@ -262,7 +262,8 @@ def build_train_backend(scale: str = "2b", device: DeviceLike = None, seed: int 
     ``base_quant`` (default: the rung's ``RUNG_OPT``, a float base) is the
     JAX CLI's knob: ``"int8"`` quantizes the generator's tree, the BSQ
     tokenizer included, and the towers' image sides after their text tables
-    are built (``ops.quant.maybe_quantize_tree``). Returns ``(backend,
+    are built (``ops.quant.maybe_quantize_tree``). ``depth`` cuts the
+    transformer to that many blocks, every width kept. Returns ``(backend,
     reward_fn)``."""
     from ..rewards.suite import build_random_reward_suite
 
@@ -271,6 +272,8 @@ def build_train_backend(scale: str = "2b", device: DeviceLike = None, seed: int 
     dev = resolve_device(device)
     spec = infinity_rung_model(scale, tower_dtype=opt["tower_dtype"])
     bcfg = spec["bcfg"]
+    if depth is not None:
+        bcfg = dataclasses.replace(bcfg, model=dataclasses.replace(bcfg.model, depth=int(depth)))
     kt, kc = threefry.split(threefry.prng_key(seed, dev))
     params = cast_floating(inf_mod.init_infinity(bcfg.model, kt), bcfg.model.compute_dtype)
     backend = InfinityBackend(bcfg, dev, params=maybe_quantize_tree(params, base_quant),

@@ -62,9 +62,33 @@
 // f32: 32-deep FMA chunks added in ascending order, in both f32 layouts),
 // and the chain's sums run in one order whatever the tile. K is never split
 // across blocks.
+//
+// Build parts: ops/_build.py compiles this file HSES_PARTS times at once,
+// each with -DHSES_PART=k, and links the objects into one library. The 36
+// bf16 tensor-core kernels take most of the compiler's time, so the 6
+// instances of each (tile, thin width) pair (three x copies x two q8
+// copies) build in a part of their own behind a C function (1, 2: 128x128
+// at NCOL 24, 64; 3, 4: 64x64; 5, 6: 16x64); part 0 holds the entry points,
+// the dispatch and the f32 route. The kernels are the same code as in one
+// compilation.
+// HSES_PARTS 7
 
 #include "int8_tile.cuh"
 #include "lora_chain.cuh"
+
+#ifndef HSES_PART
+#error "fused_qlora.cu is built in parts: compile with -DHSES_PART=0..6 (ops/_build.py)"
+#endif
+
+// the bf16 kernels of one tile at one thin width, defined in parts 1-6 (the
+// call is a Call*)
+#define HSES_QLORA_TILE_DECL(NAME) extern "C" int NAME(const void* call, int a_vec, int b_vec);
+HSES_QLORA_TILE_DECL(hses_fused_qlora_128x128_n24)
+HSES_QLORA_TILE_DECL(hses_fused_qlora_128x128_n64)
+HSES_QLORA_TILE_DECL(hses_fused_qlora_64x64_n24)
+HSES_QLORA_TILE_DECL(hses_fused_qlora_64x64_n64)
+HSES_QLORA_TILE_DECL(hses_fused_qlora_16x64_n24)
+HSES_QLORA_TILE_DECL(hses_fused_qlora_16x64_n64)
 
 namespace {
 
@@ -310,12 +334,6 @@ int launch_widths(const Call& c, int a_vec, int b_vec) {
     return launch_mma<T, NCOL, 1, false>(c);
 }
 
-// NCOL 24 holds r_l + r_e <= 12 (the main path's 8 + 4); 64 every rank pair
-template <class T>
-int launch_tile(const Call& c, int a_vec, int b_vec) {
-    if (2 * (c.f.r_l + c.f.r_e) <= 24) return launch_widths<T, 24>(c, a_vec, b_vec);
-    return launch_widths<T, 64>(c, a_vec, b_vec);
-}
 
 // ----------------------------------------------------------------- f32 route
 
@@ -540,10 +558,12 @@ int launch_bf16(const Call& c, int tile, int bk, int a_vec, int b_vec) {
                       (a_vec == 4 && c.K % 4 == 0 && xa % 8 == 0);
     const bool b_ok = b_vec == 1 || (b_vec == 16 && c.N % 16 == 0 && qa % 16 == 0);
     if (!a_ok || !b_ok) return (int)cudaErrorInvalidValue;
+    // NCOL 24 holds r_l + r_e <= 12 (the main path's 8 + 4); 64 every rank pair
+    const bool wide = 2 * (c.f.r_l + c.f.r_e) > 24;
     switch (tile) {
-        case MMA_128x128: return launch_tile<TileL>(c, a_vec, b_vec);
-        case MMA_64x64: return launch_tile<TileM>(c, a_vec, b_vec);
-        case MMA_16x64: return launch_tile<TileS>(c, a_vec, b_vec);
+        case MMA_128x128: return (wide ? hses_fused_qlora_128x128_n64 : hses_fused_qlora_128x128_n24)(&c, a_vec, b_vec);
+        case MMA_64x64: return (wide ? hses_fused_qlora_64x64_n64 : hses_fused_qlora_64x64_n24)(&c, a_vec, b_vec);
+        case MMA_16x64: return (wide ? hses_fused_qlora_16x64_n64 : hses_fused_qlora_16x64_n24)(&c, a_vec, b_vec);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -588,6 +608,8 @@ int launch(const void* x, const void* q, const void* scale, void* out, const voi
 
 }  // namespace
 
+#if HSES_PART == 0
+
 // x [lanes * rows_per_lane, K] and out [.., N] in x's dtype; q [K, N] s8;
 // scale [N] f32; a.w [K, r_l] and b.w [r_l, N] f32; a.u [K, r_e],
 // a.v [r_l, r_e], b.u [r_l, r_e], b.v [N, r_e] per lane (lane strides in
@@ -623,3 +645,23 @@ extern "C" int hses_fused_qlora_smem(int tile, int wide) {
         default: return -1;
     }
 }
+
+#else
+#define HSES_QLORA_TILE(NAME, T, NCOL)                                      \
+    extern "C" int NAME(const void* call, int a_vec, int b_vec) {          \
+        return launch_widths<T, NCOL>(*static_cast<const Call*>(call), a_vec, b_vec); \
+    }
+#if HSES_PART == 1
+HSES_QLORA_TILE(hses_fused_qlora_128x128_n24, TileL, 24)
+#elif HSES_PART == 2
+HSES_QLORA_TILE(hses_fused_qlora_128x128_n64, TileL, 64)
+#elif HSES_PART == 3
+HSES_QLORA_TILE(hses_fused_qlora_64x64_n24, TileM, 24)
+#elif HSES_PART == 4
+HSES_QLORA_TILE(hses_fused_qlora_64x64_n64, TileM, 64)
+#elif HSES_PART == 5
+HSES_QLORA_TILE(hses_fused_qlora_16x64_n24, TileS, 24)
+#elif HSES_PART == 6
+HSES_QLORA_TILE(hses_fused_qlora_16x64_n64, TileS, 64)
+#endif
+#endif

@@ -7,7 +7,9 @@ nothing. ``on_span(name, dur_s)``, when given, sees every completed span
 whether or not a file is written: the loop's phase histograms read it.
 :meth:`Tracer.event` writes a span whose start and end were stamped in
 different frames (a served request's submit → complete). The file's lines
-are the JAX package's, so its trace readers take them.
+are the JAX package's, so its trace readers take them. :func:`to_chrome`
+turns the events into Chrome trace-event JSON (``chrome://tracing``,
+Perfetto).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import threading
 import time
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
 
 class Tracer:
@@ -116,3 +118,14 @@ def load_events(path: Union[str, Path]) -> List[Dict[str, Any]]:
             ev["session"] = max(session, 0)
             events.append(ev)
     return events
+
+
+def to_chrome(events: Iterable[Dict[str, Any]]) -> Dict[str, Any]:
+    """Chrome trace-event JSON: one complete ``"ph": "X"`` event per span,
+    in microseconds, its attrs under ``args``."""
+    trace_events = []
+    for ev in sorted(events, key=lambda e: (e["t0_s"], -e["dur_s"])):
+        trace_events.append({"name": ev["name"], "cat": ev.get("parent") or "root", "ph": "X",
+                             "ts": round(ev["t0_s"] * 1e6, 3), "dur": round(ev["dur_s"] * 1e6, 3),
+                             "pid": ev.get("pid", 0), "tid": ev.get("tid", 0), "args": ev.get("attrs", {})})
+    return {"traceEvents": trace_events, "displayTimeUnit": "ms"}

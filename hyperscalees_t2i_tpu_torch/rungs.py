@@ -52,6 +52,8 @@ RUNG_PLAN = {
     # package has no Infinity rung
     "inf_2b": ("2b", 4, 4, 1),
 }
+# the ladder the preflight walks by default, tiny first (the JAX package's)
+RUNG_ORDER = ["tiny", "small", "popscale", "mid", "flagship"]
 
 # Per-rung knobs (the Sana part of the JAX package's RUNG_OPT): member-interior
 # reward tiling, the factored-noise store dtype, the reward towers' compute

@@ -29,6 +29,8 @@ versions of the same program:
   instead of predicting it, and refuses after it.
 - :func:`check_fit` compares the resident base plus the estimate with the
   budget and raises :class:`ServeAdmissionError` naming both numbers.
+- :func:`analyze_serve_geometry` gives that answer for a rung's geometry
+  before any engine serves it (``tools/preflight.py --serve``).
 
 The engine runs the probes, checks, and only then builds the full-width
 program; after it is built it records the same quantity measured beside the
@@ -177,6 +179,56 @@ def program_bytes(build, args: Tuple[Any, ...], device: torch.device,
     return out, int(torch.cuda.memory_allocated(device) - base) + int(pool_bytes())
 
 
+def analyze_serve_geometry(rung: str, adapter_batch: int, images_per_request: Optional[int] = None,
+                           rank: Optional[int] = None, member_batch: Optional[int] = None,
+                           device: Optional[torch.device] = None, ledger: Any = None, seed: int = 0) -> Dict[str, Any]:
+    """The admission gate's answer for one serving geometry, before an
+    engine serves it: a rung's serving backend (``SERVE_PLAN``, random
+    weights from ``seed``; ``rank`` overrides the LoRA rank) and an engine
+    of ``adapter_batch`` lanes, whose program is measured at
+    the lanes of :func:`probe_lanes` and extrapolated, as the engine's gate
+    does (at ``adapter_batch`` 1, the build itself is measured). Returns the
+    ``site="serve"`` record (``base_bytes``, ``program_bytes``, ``peak_bytes``
+    their sum, ``probe_bytes``), written to ``ledger`` when given."""
+    import dataclasses
+    import time
+
+    from ..backends.sana_backend import build_serve_backend
+    from ..device import resolve_device
+    from ..rungs import RUNG_BASE_QUANT, RUNG_PLAN, SERVE_PLAN, sana_rung_model
+    from ..utils.mfu import device_kind
+    from .engine import ServeConfig, ServeEngine
+
+    if rung not in SERVE_PLAN:
+        raise ValueError(f"unknown serving rung {rung!r} (have: {sorted(SERVE_PLAN)})")
+    plan = SERVE_PLAN[rung]
+    A = int(adapter_batch)
+    B = int(images_per_request if images_per_request is not None else plan["images_per_request"])
+    mb = int(member_batch if member_batch is not None else plan["member_batch"])
+    base_quant = RUNG_BASE_QUANT[rung]
+    dev = resolve_device(device)
+    bcfg = sana_rung_model(RUNG_PLAN[rung][0])["bcfg"]
+    if rank is not None:
+        bcfg = dataclasses.replace(bcfg, lora_r=int(rank))
+    t0 = time.perf_counter()
+    backend = build_serve_backend(bcfg, base_quant, dev, seed=seed)
+    engine = ServeEngine(backend, ServeConfig(adapter_batch=A, images_per_request=B, member_batch=mb, device=dev))
+    base = resident_bytes(backend, dev)
+    probes = {n: float(engine._probe(n, B, None)) for n in (probe_lanes(A) or (A,))}
+    used = extrapolate(probes, A) if probe_lanes(A) else probes[A]
+    rec = {"ts": time.time(), "site": "serve", "label": f"serve-{rung}-a{A}", "rung": rung,
+           "platform": dev.type, "device_kind": device_kind(dev), "n_devices": 1,
+           "geometry": {"rung": rung, "adapter_batch": A, "images_per_request": B, "member_batch": mb,
+                        "lora_rank": rank, "base_quant": base_quant, "graph": engine.programs.graphed},
+           "imgs_per_dispatch": A * B, "base_bytes": float(base), "probe_bytes": probes,
+           "program_bytes": float(used), "peak_bytes": float(base + used),
+           "build_s": time.perf_counter() - t0}
+    del engine, backend
+    if ledger is not None:
+        ledger.write(rec)
+    return rec
+
+
 # backend -> {geometry: program bytes estimated at adapter_batch lanes}
 _ESTIMATES: "weakref.WeakKeyDictionary[Any, Dict[Hashable, Dict[str, Any]]]" = weakref.WeakKeyDictionary()
 
@@ -191,6 +243,7 @@ def remember_estimate(backend: Any, geometry: Hashable, estimate: Dict[str, Any]
 
 __all__ = [
     "ServeAdmissionError",
+    "analyze_serve_geometry",
     "ServeShedError",
     "check_fit",
     "extrapolate",

@@ -42,7 +42,8 @@ _REQUIRED = ["hyperscalees_t2i_tpu_torch." + m for m in (
     "models.var", "models.msvq", "models.bsq", "models.infinity", "backends.var_backend",
     "backends.infinity_backend", "utils.prompt_cache", "utils.threefry", "train.cli",
     "serve.admission", "serve.overload", "serve.engine", "obs.slo", "obs.exporter", "utils.stats",
-    "resilience.telemetry", "tools.loadgen", "tools.dispatch_tax")]
+    "resilience.telemetry", "tools.loadgen", "tools.dispatch_tax", "obs.trace", "obs.regress", "tools.trace_report",
+    "tools.run_report", "tools.sentry", "tools.preflight")]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -97,3 +98,32 @@ def test_kernel_build_is_keyed_by_source_and_lands_in_an_ignored_dir():
     assert re.fullmatch(r"libint8_matmul-[0-9a-f]{12}\.so", lib.name)
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_a_source_in_parts_builds_each_part_apart_and_links_one_library(tmp_path, monkeypatch):
+    """``csrc/fused_qlora.cu`` says ``// HSES_PARTS 7``: ``build_all`` starts
+    one compilation per part (``-c -DHSES_PART=k``) beside the other
+    sources' whole builds, all at once, links the parts into the one library
+    and times each. A stand-in compiler records the commands."""
+    calls = tmp_path / "calls.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho \"$@\" >> " + str(calls) + "\n"
+                    "while [ $# -gt 0 ]; do if [ \"$1\" = -o ]; then echo built > \"$2\"; fi; shift; done\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    n = _build.parts("fused_qlora")
+    assert (n, _build.parts("int8_matmul")) == (7, 1)
+    seconds = {}
+    logs = _build.build_all(["fused_qlora", "int8_matmul"], seconds=seconds)
+    lines = calls.read_text().splitlines()
+    compiles = sorted(line.split("-DHSES_PART=")[1][0] for line in lines if " -c " in f" {line} ")
+    links = [line for line in lines if "-c" not in line.split() and ".part0.o" in line]
+    assert compiles == [str(k) for k in range(n)] and len(links) == 1 and "-shared" in links[0].split()
+    assert all(f".part{k}.o" in links[0] for k in range(n))
+    assert sum(" -c " in f" {line} " for line in lines) == n and len(lines) == n + 2
+    assert set(seconds) == {"fused_qlora", "int8_matmul", *(f"fused_qlora[{k}]" for k in range(n))}
+    assert sorted(p.name for p in (tmp_path / "kernels").iterdir()) == sorted(
+        _build.library_path(n).name for n in ("fused_qlora", "int8_matmul"))
+    assert _build.build_all(["fused_qlora"]) == {"fused_qlora": "(cached)"} and set(logs) == {"fused_qlora",
+                                                                                               "int8_matmul"}
