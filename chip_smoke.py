@@ -203,6 +203,19 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
     capture, epoch), the host's peak resident set and the device's peak;
     then ``weights.validate --family sana`` on the same file.
 
+13. the evaluation harness and the user tools (:func:`phase_evaluate`, on
+    7's backend and reward suite, after the run tools): ``run_benchmark``'s
+    ``generate_folder`` over ``data/parti_prompts_sample.tsv`` at the
+    flagship, base and LoRA (a slot saved and read back), one CUDA graph
+    for both folders, a replayed batch bitwise the eager one, K1 counted
+    and on the device as derived; ``score_folder`` over both folders with
+    the suite's towers, the PNG files scoring bitwise the in-memory uint8
+    arrays; the blind A/B demo (``EVAL_TRIALS`` pairs, one dispatch each,
+    the pair's base image bitwise the solo one) and its vote report; at
+    tiny, the card against the CPU (generation, scores, ``encode_hf``
+    within ``EVAL_TOL``), a two-config sweep, and the benchmark's command
+    line in a child process.
+
 Every random number of the port is the JAX package's (the same keys, the
 same key tree); the phases draw from ``utils.threefry`` keys.
 
@@ -228,10 +241,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-try:  # the trace readers live in the package; outside a checkout main() says so and exits
+try:  # the trace readers and the PNG reader live in the package; outside a checkout main() says so and exits
     from hyperscalees_t2i_tpu_torch.obs.profile_trace import device_kernels, profiled_launches
+    from hyperscalees_t2i_tpu_torch.utils.images import read_png
 except ImportError:
-    device_kernels = profiled_launches = None
+    device_kernels = profiled_launches = read_png = None
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside the
 # tensor cores, HBM bandwidth
@@ -2094,36 +2108,6 @@ def phase_train_flagship(torch, backend, suite, es):
                 slot_digest=digest, telemetry=telemetry)
 
 
-def read_png(path):
-    """An 8-bit RGB PNG with every row filter 0 (``utils.images.write_png``'s
-    files) → ``[H, W, 3]`` uint8, read with ``zlib`` alone."""
-    import struct
-    import zlib
-
-    import numpy as np
-
-    data = Path(path).read_bytes()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise AssertionError(f"{path} is not a PNG")
-    pos, idat, shape = 8, b"", None
-    while pos < len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        if kind == b"IHDR":
-            w, h, depth, color = struct.unpack(">IIBB", body[:10])
-            if (depth, color) != (8, 2):
-                raise AssertionError(f"{path}: not 8-bit RGB")
-            shape = (h, w)
-        elif kind == b"IDAT":
-            idat += body
-        pos += 12 + n
-    h, w = shape
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    if rows[:, 0].any():
-        raise AssertionError(f"{path}: a row filter other than 0")
-    return rows[:, 1:].reshape(h, w, 3)
-
-
 def phase_train_artifacts(torch, backend, suite):
     """The trainer's artifacts and profile window at the flagship
     (``RUNG_PLAN``/``RUNG_OPT["flagship"]``: int8 base, ``pop_fuse``, K3 and
@@ -2134,7 +2118,7 @@ def phase_train_artifacts(torch, backend, suite):
     and ``roofline/bound``; the best, median and worst strips (4 × 256 by
     256 pixels) of epochs 1 and 3 and two snapshot grids; epoch 3's best
     member regenerated twice on the card bitwise equal, and its strip's
-    pixels (read back by :func:`read_png`) equal to ``make_prompt_strip`` of
+    pixels (read back by ``utils.images.read_png``) equal to ``make_prompt_strip`` of
     that regeneration; the graph's pool unchanged by the regenerations;
     one ``programs.jsonl`` record with counted FLOPs and bytes;
     ``CALIB_train.json`` with the plan's row measured from the profile and
@@ -5263,6 +5247,340 @@ def phase_run_tools(torch, backend, suite, es):
 
 
 # ---------------------------------------------------------------------------
+# The evaluation harness and the user tools around a trained adapter
+# ---------------------------------------------------------------------------
+
+EVAL_TSV = ROOT / "data" / "parti_prompts_sample.tsv"
+EVAL_BATCH = 4  # prompts a generate_folder batch at the flagship
+EVAL_TRIALS = 4  # blind A/B pairs of the demo
+EVAL_TOL = 1e-4  # card against CPU at tiny, f32
+
+
+def _q8_sites(*modules) -> int:
+    """The int8 dense sites (K1's, where no factored adapter reaches them) of
+    ``modules``."""
+    return sum(1 for root in modules for m in root.modules() if hasattr(m, "q8"))
+
+
+def _tiny_encoder(root, prompts):
+    """A BERT-style Hugging Face encoder (2 layers, width 32, seeded) with a
+    ``vocab.txt`` of the prompts' words, written to ``root``."""
+    import torch
+    from transformers import BertConfig, BertModel, BertTokenizer
+
+    root.mkdir(parents=True)
+    words = sorted({w for p in prompts for w in p.lower().replace(",", " ").replace(".", " ").split()})
+    (root / "vocab.txt").write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *words]) + "\n")
+    torch.manual_seed(0)
+    BertModel(BertConfig(vocab_size=len(words) + 5, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+                         intermediate_size=64, max_position_embeddings=64)).save_pretrained(root)
+    BertTokenizer(str(root / "vocab.txt")).save_pretrained(root)
+    return root
+
+
+def phase_evaluate(torch, backend, suite):
+    """The evaluation harness and the user tools on :func:`phase_es_flagship`'s
+    flagship backend and reward suite (no second 1.6 B model):
+
+    - ``evaluate.run_benchmark.generate_folder`` over the 8 prompts of
+      ``data/parti_prompts_sample.tsv`` (encoded by ``tools.encode_prompts``'
+      hash fallback at the DiT's caption width into a Sana cache the backend
+      loads), ``EVAL_BATCH`` a batch, once with θ = 0 (``--mode base``) and
+      once with a θ saved by ``save_checkpoint`` and read back by
+      ``run_benchmark.load_theta`` (``--mode lora``): 16 PNGs from one CUDA
+      graph (the first batch its warm-up and capture, the 3 others replays);
+      a replayed batch bitwise equal to the same batch run eagerly, and K1 on
+      the device in a profiled replay as derived;
+    - ``evaluate.score_folder`` over both folders with the suite's towers
+      (CLIP-B/32 and CLIP-H/14, int8), text tables for the TSV's prompts:
+      the files read back (``read_png`` + ``resize_bicubic``) score bitwise
+      the same uint8 arrays resized in memory; per-category means, base
+      against LoRA;
+    - ``tools.demo``: a ``DemoEngine`` on the backend runs ``EVAL_TRIALS``
+      blind trials through ``run_cli_trials`` (scripted votes, a seeded
+      ``random.Random``), each pair one flush and one dispatch, its base
+      image bitwise ``generate_one("base")`` at the same seed; then
+      ``tools.vote_report`` (``main --out_json --fitness_out``) over its
+      ``votes.jsonl``;
+    - at tiny, on the card against ``--device cpu``: ``run_benchmark`` and
+      ``score_folder --tiny_towers`` (images and report means within
+      ``EVAL_TOL``), ``encode_prompts.encode_hf`` on a tiny encoder
+      directory written here (within ``EVAL_TOL``), and a two-config
+      ``tools.sweep`` through the train CLI on the card;
+    - ``python -m hyperscalees_t2i_tpu_torch.evaluate.run_benchmark`` at
+      tiny in a child process (started first; 8 PNGs, exit 0).
+
+    The K1-K4 counters are set to 0 before each flagship part and read after:
+    K1 exactly its derived sites × the eager calls (the graph's warm-up, the
+    eager batch, the text tables, the scoring batches, the demo engine's
+    admission probe and warm-up), K2-K4 none (a plain adapter reaches an
+    int8 site through K1 and the plain LoRA delta: K3 is the factored ES
+    member's route). Returns the numbers; ``launches`` sums the counted
+    launches and ``launches_by_path`` splits them."""
+    import copy
+    import dataclasses
+    import random
+    import shutil
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyperscalees_t2i_tpu_torch.evaluate import run_benchmark, score_folder
+    from hyperscalees_t2i_tpu_torch.lora import stack_adapters
+    from hyperscalees_t2i_tpu_torch.tools import demo, encode_prompts, sweep, vote_report
+    from hyperscalees_t2i_tpu_torch.train.checkpoints import save_checkpoint
+    from hyperscalees_t2i_tpu_torch.utils import threefry
+    from hyperscalees_t2i_tpu_torch.utils.graphs import GraphCache
+    from hyperscalees_t2i_tpu_torch.utils.images import to_uint8
+    from hyperscalees_t2i_tpu_torch.utils.prompt_cache import save_sana_cache
+    from hyperscalees_t2i_tpu_torch.utils.pytree import tree_map
+
+    root = ROOT / "build" / "evaluate"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rows = score_folder.load_parti_tsv(str(EVAL_TSV))
+    prompts = [r["Prompt"] for r in rows]
+    (root / "prompts.txt").write_text("\n".join(prompts) + "\n")
+    tiny = ["--backend", "sana_one_step", "--model_scale", "tiny", "--prompts_txt", str(root / "prompts.txt"),
+            "--lora_r", "2", "--lora_alpha", "4", "--batch_size", "4"]
+    child_log = open(root / "child.txt", "w")
+    child = subprocess.Popen([sys.executable, "-m", "hyperscalees_t2i_tpu_torch.evaluate.run_benchmark", *tiny,
+                              "--out_dir", str(root / "child")], cwd=ROOT, stdout=child_log, stderr=subprocess.STDOUT)
+    out, counted = {}, {}
+    nothing = {"int8_matmul": 0, "lora_chain": 0, "fused_qlora": 0, "decode_attention": 0}
+    quiet = lambda msg: None  # noqa: E731
+    try:
+        # the TSV's prompts through the encoder's hash fallback into a Sana cache the backend's copy loads
+        t0 = time.perf_counter()
+        cfg = backend.cfg
+        embeds, mask = encode_prompts.encode_hash_fallback(prompts, cfg.model.caption_dim, cfg.prompt_embed_len,
+                                                           device="cuda")
+        save_sana_cache(str(root / "parti.npz"), prompts, embeds, mask)
+        ev = copy.copy(backend)  # shares every module; its own catalog
+        ev.cfg = dataclasses.replace(cfg, encoded_prompt_path=str(root / "parti.npz"))
+        ev.prompt_embeds = None
+        ev.setup()
+        if ev.texts != prompts or ev.model is not backend.model:
+            raise AssertionError("evaluate: the cache did not become the backend copy's catalog")
+        gen_sites = _q8_sites(ev.model, ev.vae)
+        # the adapter: θ₀ with every b drawn, saved as a slot and read back
+        template = ev.init_theta(threefry.prng_key(0, "cpu"))
+        theta = ev.init_theta(threefry.prng_key(1, "cpu"))
+        for i, (k, leaf) in enumerate(sorted(theta.items())):
+            leaf["b"] = 0.05 * threefry.normal(threefry.fold_in(threefry.prng_key(2, "cpu"), i), leaf["b"].shape)
+        save_checkpoint(root / "adapter", theta, 7, 0.5, ev.name)
+        lora = run_benchmark.load_theta(ev, "lora", str(root / "adapter"))
+        if any(not torch.equal(lora[k][f], theta[k][f]) for k in theta for f in theta[k]):
+            raise AssertionError("evaluate: the adapter read back differs from the one saved")
+        base = run_benchmark.load_theta(ev, "base", None)
+        setup_s = time.perf_counter() - t0
+
+        # generation: one graph for both folders
+        programs = GraphCache("cuda")
+        sinks, walls = {"base": [], "lora": []}, {}
+        _reset_counters()
+        for mode, th in (("base", base), ("lora", lora)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_benchmark.generate_folder(ev, th, root / mode, EVAL_BATCH, programs=programs, sink=sinks[mode],
+                                          log=quiet)
+            walls[mode] = time.perf_counter() - t0
+        stacked = tree_map(lambda t: t.to("cuda"), stack_adapters([lora]))
+        ids0 = torch.tensor([list(range(EVAL_BATCH))], dtype=torch.long).to("cuda")
+        key0 = threefry.prng_key(0, "cuda")[None]
+        key = ("benchmark", EVAL_BATCH)
+        with torch.inference_mode():
+            eager = GraphCache("cuda", graph=False)("eager", ev.generate_p, stacked, ids0, key0).clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            replay = programs(key, ev.generate_p, stacked, ids0, key0).clone()
+            torch.cuda.synchronize()
+            replay_s = time.perf_counter() - t0
+        counted["generate"] = _counters()
+        graph_vs_eager = _max_abs(replay, eager)
+        folder_vs_eager = float(np.abs(np.stack(sinks["lora"][:EVAL_BATCH]) - eager[0].float().cpu().numpy()).max())
+        if graph_vs_eager != 0.0 or folder_vs_eager != 0.0:
+            raise AssertionError(f"evaluate: a replayed batch differs from the eager batch by {graph_vs_eager} "
+                                 f"(the folder's by {folder_vs_eager})")
+        with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            programs(key, ev.generate_p, stacked, ids0, key0)
+            torch.cuda.synchronize()
+        kernels, busy_ms, _, _ = device_kernels(torch, prof)
+        replay_launches = profiled_launches(kernels)
+        gen_expected = dict(nothing, int8_matmul=gen_sites * 2)  # the graph's warm-up and the eager batch
+        if counted["generate"] != gen_expected or replay_launches != dict(nothing, int8_matmul=gen_sites):
+            raise AssertionError(f"evaluate: generation counted {counted['generate']} (expected {gen_expected}), "
+                                 f"a profiled replay {replay_launches} (expected K1 {gen_sites})")
+        stats = programs.stats()[str(key)]
+        if stats["replays"] != 5 or len(programs.entries) != 1:  # 3 in the folders, the checked and the profiled
+            raise AssertionError(f"evaluate: {len(programs.entries)} programs, {stats['replays']} replays")
+        files = {m: sorted((root / m).glob("*.png")) for m in ("base", "lora")}
+        names = [f"{i:04d}_{run_benchmark.slugify(p)}.png" for i, p in enumerate(prompts)]
+        if any([f.name for f in files[m]] != names for m in files):
+            raise AssertionError(f"evaluate: the folders hold {[[f.name for f in v] for v in files.values()]}")
+        for m, imgs in sinks.items():
+            if any(im.shape != (1024, 1024, 3) or not np.isfinite(im).all() for im in imgs):
+                raise AssertionError(f"evaluate: a {m} image is not finite [1024, 1024, 3]")
+        base_vs_lora = max(float(np.abs(a - b).max()) for a, b in zip(sinks["base"], sinks["lora"]))
+        if not base_vs_lora > 0:
+            raise AssertionError("evaluate: the adapter did not change the images")
+        out["generate"] = dict(
+            images=2 * len(prompts), batch=EVAL_BATCH, k1_sites_per_call=gen_sites,
+            k1_per_image=gen_sites / EVAL_BATCH, folder_s=walls, images_per_s={m: len(prompts) / w for m, w in
+                                                                                walls.items()},
+            replayed_batch_s=replay_s, replayed_batch_busy_ms=busy_ms, warmup_s=stats["warmup_s"],
+            capture_s=stats["capture_s"], pool_gib=stats["pool_bytes"] / 2**30, graph_vs_eager_max_abs=graph_vs_eager,
+            base_vs_lora_max_abs=base_vs_lora, setup_s=setup_s, launches_profiled_replay=replay_launches)
+        log(f"[evaluate] generate_folder at the flagship: 2 × {len(prompts)} images, batch {EVAL_BATCH}; base "
+            f"{walls['base']:.3f} s (warm-up {stats['warmup_s']:.3f} s, capture {stats['capture_s']:.3f} s), lora "
+            f"{walls['lora']:.3f} s ({len(prompts) / walls['lora']:.3f} images/s with PNG writes); a replayed batch "
+            f"{replay_s:.3f} s, busy {busy_ms:.1f} ms on the device; graph vs eager max abs {graph_vs_eager}; K1 "
+            f"{gen_sites} a call ({gen_sites / EVAL_BATCH:.2f} an image), counted {counted['generate']}, a profiled "
+            f"replay {replay_launches}")
+
+        # scoring: the TSV's text tables through the suite's towers, both folders, files against memory
+        _reset_counters()
+        t0 = time.perf_counter()
+        reward = score_folder.reward_for_prompts(suite.clip_model, prompts, "openai/clip-vit-base-patch32",
+                                                 suite.pick_model, "yuvalkirstain/PickScore_v1")
+        table_s = time.perf_counter() - t0
+        towers = [t for t in (suite.clip_model, suite.pick_model) if t is not None]
+        image_sites = sum(_q8_sites(t.patch_embed, t.vision, t.visual_projection) for t in towers)
+        text_sites = sum(_q8_sites(t) for t in towers) - image_sites
+        reports, score_s = {}, {}
+        for m in ("base", "lora"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            per_file, order = score_folder.score_images(reward, score_folder.index_folder(root / m), len(prompts),
+                                                        len(prompts), 224, torch.device("cuda"), log=quiet)
+            score_s[m] = time.perf_counter() - t0
+            arrays = [(i, to_uint8(im)) for i, im in enumerate(sinks[m])]
+            per_mem, _ = score_folder.score_images(reward, arrays, len(prompts), len(prompts), 224,
+                                                   torch.device("cuda"), load=score_folder.prepare_images, log=quiet)
+            diff = max(float(np.abs(per_file[k] - per_mem[k]).max()) for k in per_file)
+            if diff != 0.0 or order != list(range(len(prompts))):
+                raise AssertionError(f"evaluate: {m} scores of the PNG files differ from the in-memory arrays' by "
+                                     f"{diff}")
+            reports[m] = score_folder.build_report(per_file, order, rows)
+            if not all(np.isfinite(v).all() for v in per_file.values()):
+                raise AssertionError(f"evaluate: {m} scores not finite")
+        counted["score"] = _counters()
+        score_expected = dict(nothing, int8_matmul=text_sites + image_sites * 4)  # 2 folders × (files, memory)
+        if counted["score"] != score_expected:
+            raise AssertionError(f"evaluate: scoring counted {counted['score']}, expected {score_expected}")
+        cats = sorted(g for g in reports["base"] if g.startswith("category/"))
+        out["score"] = dict(reports=reports, folder_s=score_s, s_per_image={m: s / len(prompts)
+                                                                              for m, s in score_s.items()},
+                            text_tables_s=table_s, k1_text_sites=text_sites, k1_image_sites_per_call=image_sites,
+                            png_round_trip_max_abs=0.0)
+        log(f"[evaluate] score_folder, {len(prompts)} images a folder in one batch: base {score_s['base']:.3f} s, lora "
+            f"{score_s['lora']:.3f} s ({score_s['lora'] / len(prompts):.3f} s an image: read, bicubic, towers); PNG "
+            f"round trip bitwise; K1 {text_sites} text + {image_sites} image sites a call, counted {counted['score']}; "
+            f"combined base {reports['base']['overall']['combined']:.6f} against lora "
+            f"{reports['lora']['overall']['combined']:.6f}; by category "
+            + ", ".join(f"{c[9:]} {reports['base'][c]['combined']:.4f}/{reports['lora'][c]['combined']:.4f}"
+                        for c in cats))
+
+        # the demo: blind pairs through the serving engine, then the vote report
+        _reset_counters()
+        eng = demo.DemoEngine(ev, lora, theta_template=template)
+        session = demo.BlindABSession(eng, rng=random.Random(0), record_dir=root / "demo")
+        trials = []
+        new_trial = session.new_trial
+        session.new_trial = lambda g=None: trials.append(new_trial(g)) or trials[-1]
+        votes = iter("ABBA")
+        dispatches = eng.serve.registry.value("serve_dispatches", 0)
+        t0 = time.perf_counter()
+        scores = demo.run_cli_trials(session, EVAL_TRIALS, root / "demo" / "trials", input_fn=lambda _: next(votes))
+        demo_s = time.perf_counter() - t0
+        pairs = eng.serve.registry.value("serve_dispatches", 0) - dispatches
+        (label,) = eng.serve.admission
+        probes = len(eng.serve.admission[label].get("probe_bytes", {}))
+        counted["demo"] = _counters()
+        demo_expected = dict(nothing, int8_matmul=gen_sites * (1 + probes))  # the admission probes and the warm-up
+        solo = []
+        for t in trials:
+            pair_base = t.img_a if t.mapping["A"] == "base" else t.img_b
+            solo.append(int(np.abs(pair_base.astype(int) - eng.generate_one("base", t.prompt_index, t.seed)).max()))
+        if pairs != EVAL_TRIALS or any(solo) or counted["demo"] != demo_expected or scores["n_trials"] != EVAL_TRIALS:
+            raise AssertionError(f"demo: {pairs} dispatches for {EVAL_TRIALS} pairs, solo differences {solo}, "
+                                 f"counted {counted['demo']} (expected {demo_expected}), scores {scores}")
+        pair_s = eng.serve.dispatch_seconds[:EVAL_TRIALS]
+        votes_path = root / "demo" / "votes.jsonl"
+        vote_report.main([str(votes_path), "--out_json", str(root / "demo" / "report.json"),
+                          "--fitness_out", str(root / "demo" / "fitness.jsonl")])
+        rep = json.loads((root / "demo" / "report.json").read_text())
+        fit = [json.loads(l) for l in (root / "demo" / "fitness.jsonl").read_text().splitlines()]
+        if rep != vote_report.report(vote_report.load_votes(votes_path)) or rep["overall"]["n"] != EVAL_TRIALS or \
+                [r["adapter"] for r in fit] != ["lora", "base"]:
+            raise AssertionError(f"vote_report: {rep['overall']}, fitness {[r['adapter'] for r in fit]}")
+        out["demo"] = dict(trials=EVAL_TRIALS, wall_s=demo_s, pair_dispatch_s=pair_s, admission_probes=probes,
+                           scores=scores, report=rep["overall"], serve_compiles=eng.serve.registry.value(
+                               "serve_compiles", 0),
+                           draws=[(t.prompt_index, t.seed, t.mapping["A"]) for t in trials])
+        log(f"[evaluate] demo: {EVAL_TRIALS} blind pairs in {demo_s:.3f} s, one dispatch each "
+            f"({', '.join(f'{s:.3f}' for s in pair_s)} s), base image bitwise the solo generate_one; admission "
+            f"probes {probes}; K1 counted {counted['demo']}; vote report {rep['overall']}")
+        del eng, session, trials
+
+        # card against CPU at tiny: run_benchmark + score_folder, the encoder, then a sweep on the card
+        t0 = time.perf_counter()
+        tiny_imgs, tiny_reports = {}, {}
+        _reset_counters()
+        for dev in ("cuda", "cpu"):
+            args = run_benchmark.build_parser().parse_args([*tiny, "--out_dir", str(root / f"tiny_{dev}"),
+                                                            "--device", dev])
+            b = run_benchmark.make_backend(args)
+            tiny_imgs[dev] = []
+            run_benchmark.generate_folder(b, run_benchmark.load_theta(b, "base", None), args.out_dir, args.batch_size,
+                                          sink=tiny_imgs[dev], log=quiet)
+            tiny_reports[dev] = score_folder.main(["--folder", args.out_dir, "--parti_tsv", str(EVAL_TSV),
+                                                   "--tiny_towers", "--image_size", "32", "--batch_size", "4",
+                                                   "--device", dev])
+        img_err = max(float(np.abs(a - b).max()) for a, b in zip(tiny_imgs["cuda"], tiny_imgs["cpu"]))
+        mean_err = max(abs(tiny_reports["cuda"][g][k] - tiny_reports["cpu"][g][k])
+                       for g in tiny_reports["cpu"] if g != "num_images" for k in tiny_reports["cpu"][g])
+        enc = _tiny_encoder(root / "encoder", prompts)
+        encoded = {dev: encode_prompts.encode_hf(prompts, str(enc), 16, 4, device=dev) for dev in ("cuda", "cpu")}
+        enc_err = float(np.abs(encoded["cuda"][0] - encoded["cpu"][0]).max())
+        if img_err > EVAL_TOL or mean_err > EVAL_TOL or enc_err > EVAL_TOL or \
+                not np.array_equal(encoded["cuda"][1], encoded["cpu"][1]) or len(tiny_imgs["cuda"]) != len(prompts):
+            raise AssertionError(f"evaluate at tiny: card against CPU images {img_err}, report means {mean_err}, "
+                                 f"encoder {enc_err} (tolerance {EVAL_TOL})")
+        ranked = sweep.run_sweep([{"sigma": 0.05, "num_epochs": 1}, {"sigma": 0.01, "num_epochs": 1}], root / "sweep",
+                                 ["--backend", "sana_one_step", "--model_scale", "tiny", "--device", "cuda",
+                                  "--prompts_txt", str(root / "prompts.txt"), "--lora_r", "2", "--pop_size", "4",
+                                  "--prompts_per_gen", "2", "--save_every", "1", "--quality", "false"])
+        if len(ranked) != 2 or any("error" in r or not math.isfinite(r["summary_mean_reward"]) for r in ranked):
+            raise AssertionError(f"sweep: {ranked}")
+        counted["tiny"] = _counters()
+        if counted["tiny"] != nothing:
+            raise AssertionError(f"evaluate at tiny launched {counted['tiny']} (a float base: none)")
+        out["tiny"] = dict(image_max_abs=img_err, report_mean_max_abs=mean_err, encoder_max_abs=enc_err,
+                           sweep=[{k: r[k] for k in ("run_name", "summary_mean_reward", "epoch")} for r in ranked],
+                           wall_s=time.perf_counter() - t0)
+        log(f"[evaluate] tiny, card against CPU: images {img_err:.3g}, report means {mean_err:.3g}, encode_hf "
+            f"{enc_err:.3g} (tolerance {EVAL_TOL}); sweep on the card {out['tiny']['sweep']}; "
+            f"{out['tiny']['wall_s']:.1f} s")
+        rc = child.wait(timeout=300)
+        child_pngs = sorted(p.name for p in (root / "child").glob("*.png"))
+        if rc != 0 or child_pngs != names:
+            raise AssertionError(f"run_benchmark's command line exited {rc} with {child_pngs} "
+                                 f"({(root / 'child.txt').read_text()[-2000:]})")
+        out["child"] = dict(rc=rc, images=len(child_pngs))
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        child_log.close()
+    out["launches"] = {k: sum(c[k] for c in counted.values()) for k in nothing}
+    out["launches_by_path"] = {"evaluate_generate": counted["generate"], "evaluate_score": counted["score"],
+                               "demo_pairs": counted["demo"], "evaluate_generate_profiled_replay": replay_launches}
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Released-layout checkpoints: the key inventories of the released files at a
 # config's geometry, seeded numpy values, and the phases that train from them
 # ---------------------------------------------------------------------------
@@ -5832,6 +6150,7 @@ def main() -> int:
     artifacts = timed("train_artifacts", phase_train_artifacts, torch, *flagship)
     fleet_run = timed("fleet_flagship", phase_fleet_flagship, torch, *flagship, es)
     run_tools = timed("run_tools", phase_run_tools, torch, *flagship, es)
+    evaluate = timed("evaluate", phase_evaluate, torch, *flagship)
     threefry_rows = threefry_shares(timed("threefry", phase_threefry, torch, flagship[0]), es, var_es, inf_q8)
     del flagship
 
@@ -5855,9 +6174,11 @@ def main() -> int:
     zimage_launches = lambda k: (zimage["launches"][k] + zimage["eager_launches"][k]  # noqa: E731
                                  + zimage["fused_call"]["launches"][k])
     # the artifacts run's eager work: its warm-up and the strip and snapshot regenerations; the
-    # run tools' resumed epoch (its warm-up) and the flagship preflight's warm-up (in its own process)
+    # run tools' resumed epoch (its warm-up) and the flagship preflight's warm-up (in its own process);
+    # the evaluation tools' eager calls (generation, scoring, the demo's probe and warm-up)
     extra_launches = lambda k: (inf_launches(k) + weights_launches(k) + artifacts["launches"][k]  # noqa: E731
-                                + zimage_launches(k) + run_tools["launches"][k] + run_tools["preflight_launches"][k])
+                                + zimage_launches(k) + run_tools["launches"][k] + run_tools["preflight_launches"][k]
+                                + evaluate["launches"][k])
     kernels = [
         kernel_summary("int8_matmul", k1_rows,
                        es["eager"]["launches"]["int8_matmul"] + train_launches("int8_matmul")
@@ -5926,6 +6247,7 @@ def main() -> int:
             "serve_profile_window_flush": serve["profile_window"]["launches"][name],
             "run_tools_resumed_epoch_warmup": run_tools["launches"][name],
             "preflight_flagship_warmup_child": run_tools["preflight_launches"][name],
+            **{path: counts[name] for path, counts in evaluate["launches_by_path"].items()},
         }
         # the kernel at Infinity-2B's shapes: one generate call's calls (K1 on
         # the int8 base, its f32 route included; K2 over a bf16 base; K3 over
@@ -6001,6 +6323,7 @@ def main() -> int:
         pipeline_es=pipeline_es, serve_tier=tier,
         train_flagship=train, train_artifacts=artifacts, fleet_tiny=fleet_tiny, fleet_flagship=fleet_run, weights_var=weights_var,
         weights_sana=weights_sana, zimage_kernel_shapes=zimage_rows, zimage_tiny=zimage_tiny, zimage_es=zimage,
+        evaluate=evaluate,
         phase_seconds=phase_s, kernels=kernels, k1_serving=k1_serve, k4_infinity=k4_inf,
         wall_s=wall_s,
     ), indent=1))

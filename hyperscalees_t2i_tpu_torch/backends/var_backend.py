@@ -3,7 +3,9 @@
 Port of ``hyperscalees_t2i_tpu/backends/var_backend.py``. A class pool is
 the catalog: catalog item ``i`` is class ``class_pool[i]``, prompted to the
 rewards as "a photo of {name}". Names come from a labels file (one per
-line) or fall back to ``class_{i}``; nothing is downloaded.
+line), at 1000 classes from the ImageNet list at
+``utils.imagenet_labels.DEFAULT_LABELS_PATH``, or fall back to
+``class_{i}``; nothing is downloaded.
 
 Generation noise is Gumbel noise ``[L, V]`` per image, drawn from the JAX
 package's ``jax.random.categorical`` keys (scale ``si`` of image ``j``:
@@ -51,12 +53,22 @@ class VarBackendConfig:
 
 
 def load_class_names(num_classes: int, labels_path: Optional[str]) -> List[str]:
-    """Class names for the reward prompts: ``labels_path`` when it holds at
-    least ``num_classes`` names, else ``class_{i}`` placeholders."""
+    """Class names for the reward prompts, in the JAX package's order:
+    ``labels_path`` when it holds at least ``num_classes`` names; at 1000
+    classes the ImageNet list at ``utils.imagenet_labels.DEFAULT_LABELS_PATH``
+    (a warning where it is missing or malformed); else ``class_{i}``
+    placeholders."""
     if labels_path and Path(labels_path).exists():
         names = [l.strip() for l in Path(labels_path).read_text().splitlines() if l.strip()]
         if len(names) >= num_classes:
             return names[:num_classes]
+    if num_classes == 1000:
+        from ..utils.imagenet_labels import get_imagenet_labels
+
+        try:
+            return get_imagenet_labels(labels_path=None)[:num_classes]
+        except (RuntimeError, FileNotFoundError) as e:
+            print(f"[var] WARNING: {e}; using class_<i> placeholder names", flush=True)
     return [f"class_{i}" for i in range(num_classes)]
 
 

@@ -81,8 +81,10 @@ def parse_resume(v: str) -> bool:
     return str2bool(v)
 
 
-def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="EGGROLL-ES trainer (PyTorch port)")
+def add_backend_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The flags :func:`build_backend` reads, plus ``--device``: shared by
+    every command that builds a backend (the trainer, ``evaluate.
+    run_benchmark``, ``tools.demo``), as the JAX CLI's ``add_backend_flags``."""
     p.add_argument("--backend", required=True, choices=list(BACKEND_MODULES))
     p.add_argument("--model_scale", default="full", choices=["tiny", "small", "full"])
     p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
@@ -116,6 +118,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vae_weights", default=None,
                    help="VAE checkpoint: vae_ch160v4096z32.pth for var, the BSQ tokenizer for infinity, a diffusers "
                         "AutoencoderKL for zimage")
+    return p
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="EGGROLL-ES trainer (PyTorch port)")
+    add_backend_flags(p)
     p.add_argument("--pop_size", type=int, default=8)
     p.add_argument("--sigma", type=float, default=0.01)
     p.add_argument("--lr_scale", type=float, default=1.0)
@@ -241,6 +249,12 @@ def _load_checkpoint(path: str):
     return sd
 
 
+def _base_quant(args) -> str:
+    """``--base_quant``; the eval harness's parsers (backend flags only) have
+    none, and their base stays float, as the JAX harness's does."""
+    return getattr(args, "base_quant", "off")
+
+
 def build_backend(args, device: torch.device):
     """The backend at the JAX CLI's geometry for ``--model_scale`` with
     random weights, or at the geometry of the ``--weights`` checkpoint with
@@ -293,8 +307,8 @@ def build_backend(args, device: torch.device):
         kt, kv = threefry.split(threefry.prng_key(cfg.seed_params, device))
         if params is None:
             params = sana.init_sana(cfg.model, kt)
-        params = maybe_quantize_tree(params, args.base_quant)
-        vae = maybe_quantize_tree(dcae.init_decoder(cfg.vae, kv), args.base_quant)
+        params = maybe_quantize_tree(params, _base_quant(args))
+        vae = maybe_quantize_tree(dcae.init_decoder(cfg.vae, kv), _base_quant(args))
         return SanaBackend(cfg, device, params=params, vae_params=vae, prompts=_prompts(args.prompts_txt))
     if args.backend == "infinity":
         return _infinity_backend(args, device)
@@ -341,7 +355,7 @@ def build_backend(args, device: torch.device):
                            lora_alpha=args.lora_alpha, **sampling)
     if params is None:
         params = var_mod.init_var(model, threefry.prng_key(cfg.seed_params, device))
-    return VarBackend(cfg, device, params=maybe_quantize_tree(params, args.base_quant))
+    return VarBackend(cfg, device, params=maybe_quantize_tree(params, _base_quant(args)))
 
 
 def infinity_model(args, sd=None):
@@ -410,7 +424,7 @@ def _infinity_backend(args, device: torch.device):
     floor = resolve_base_quant_min_size()
     return InfinityBackend(cfg, device, params=params,
                            prepare=lambda tree: maybe_quantize_tree(cast_floating(tree, model.compute_dtype),
-                                                                    args.base_quant, floor))
+                                                                    _base_quant(args), floor))
 
 
 def _zimage_backend(args, device: torch.device):
@@ -473,7 +487,7 @@ def zimage_backend(args, model_cfg, vae_cfg, device: torch.device, params=None, 
         lora_r=args.lora_r, lora_alpha=args.lora_alpha, train_vae_decoder_lora=args.train_vae_decoder_lora)
     floor = resolve_base_quant_min_size()
     return ZImageBackend(cfg, device, params=params, vae_params=vae_params,
-                         prepare=lambda tree: maybe_quantize_tree(tree, args.base_quant, floor))
+                         prepare=lambda tree: maybe_quantize_tree(tree, _base_quant(args), floor))
 
 
 def load_clip_tower(name: str, cfg, device: torch.device):

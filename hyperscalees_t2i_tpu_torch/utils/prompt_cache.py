@@ -230,3 +230,14 @@ def load_cache(path: str, backend: str, max_len: int = 0) -> Dict[str, Any]:
     data["cache_backend"] = key
     _WARM_CACHES[memo_key] = data
     return data
+
+
+def load_partiprompts_tsv(path: str, column: str = "Prompt") -> List[str]:
+    """The non-empty ``column`` cells of a PartiPrompts-style TSV
+    (Prompt/Category/Challenge header), in row order: the order
+    ``evaluate.score_folder`` joins images against."""
+    import csv
+
+    with open(path, newline="", encoding="utf-8") as f:
+        rows = list(csv.DictReader(f, delimiter="\t"))
+    return [r[column] for r in rows if r.get(column, "").strip()]
