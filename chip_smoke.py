@@ -57,8 +57,8 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
 3. check the port end to end on small inputs against the same work on the
    CPU (the CPU path is the one the tests hold against the JAX package): the
    tiny rung served in f32 with an int8 base; one tiny-rung ES step in f32
-   with an int8 base (K3 at the adapted sites) and one ``small``-rung ES
-   step in f32 with a float base (K2 there), both with ``pop_fuse``: θ′ and
+   with an int8 base (K3 at the adapted sites) and one with a float base
+   (K2 there), both with ``pop_fuse``: θ′ and
    reward rows, and the card's launches exactly as derived; one tiny fleet
    tick (``FLEET_W`` jobs with their own σ, lr_scale and seed through one
    ``make_fleet_step`` graph, int8 base) against the CPU, each job bitwise
@@ -139,8 +139,9 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
    Then one run with the live telemetry on (:func:`telemetry_run`: the
    exporter scraped from a thread during the run, SLOs, heartbeats, the
    stall and anomaly watchdogs), its epochs beside the bare step's.
-   Then chained dispatch: 5 epochs with ``steps_per_dispatch`` 1 and 4
-   (epochs_chained [1, 4]), θ bitwise equal, both runs' ``step_time_s``;
+   Then chained dispatch: ``CHAINED_EPOCHS`` epochs with
+   ``steps_per_dispatch`` 1 and ``CHAINED_EPOCHS - 1`` (epochs_chained
+   [1, 2]), θ bitwise equal, both runs' ``step_time_s``;
    then the trainer's artifacts and profile window at the flagship
    (:func:`phase_train_artifacts`: ``ART_EPOCHS`` epochs with θ/Δθ
    histograms every epoch, member strips and snapshot grids every 2, a
@@ -215,6 +216,22 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
     tiny, the card against the CPU (generation, scores, ``encode_hf``
     within ``EVAL_TOL``), a two-config sweep, and the benchmark's command
     line in a child process.
+
+14. multi-process training (:func:`phase_multiproc_es`, last): the train
+    CLI at ``--model_scale full`` on the int8 base with the flagship rung's
+    knobs and plan, the population host-sharded, first as one process (in
+    this process), then as two processes on the one card through
+    ``tools.launch_local`` (each its own CUDA context, ``--pop_shard_update
+    on``: each evaluates 2 of the 4 members, the reward rows cross through
+    the launch's TCPStore, the update's partial sums through one gloo
+    all-reduce), then one process from the launch's θ′ after its first
+    epoch (the witness), one run at a time on the card: each child's K3
+    and K1 counted exactly as its slice derives, both ranks' θ′ bitwise
+    equal after every epoch, the first epoch's gathered reward rows bitwise
+    the one-process run's and its update's θ′ within ``MULTIPROC_TOL`` of
+    it, the later epochs' rows bitwise the witness's and their replayed
+    split update's θ′ within ``MULTIPROC_TOL`` of its replicated one, each
+    run's replayed epoch printed with the card's name and power limit.
 
 Every random number of the port is the JAX package's (the same keys, the
 same key tree); the phases draw from ``utils.threefry`` keys.
@@ -379,6 +396,7 @@ N_REQUESTS = 4
 TIMED_EPOCHS = 2
 # phase_train_artifacts: run_training epochs, the profile window's first epochs among them
 ART_EPOCHS = 4
+CHAINED_EPOCHS = 3  # phase_train_chained: 1, then CHAINED_EPOCHS - 1, epochs a dispatch
 ART_PROFILE_EPOCHS = 2
 
 
@@ -2317,12 +2335,13 @@ def phase_train_artifacts(torch, backend, suite):
 
 def phase_train_chained(torch, backend, suite):
     """Chained dispatch at the flagship: ``run_training`` on the backend
-    :func:`phase_es_flagship` built, 5 epochs with ``steps_per_dispatch``
-    1 and then 4 (quality on, no slots or histograms due): the chained run
-    logs epochs [0, 4] with ``epochs_chained`` [1, 4] and ends at the
-    unchained run's θ bitwise, its epoch-4 row's scores equal; each run's
+    :func:`phase_es_flagship` built, ``CHAINED_EPOCHS`` epochs with
+    ``steps_per_dispatch`` 1 and then ``CHAINED_EPOCHS - 1`` (quality on, no
+    slots or histograms due): the chained run logs its first epoch and its
+    last, with ``epochs_chained`` [1, CHAINED_EPOCHS - 1], and ends at the
+    unchained run's θ bitwise, its last row's scores equal; each run's
     counted K1/K3 launches the derived counts × its one eager epoch (the
-    program's warm-up; the other four are replays)."""
+    program's warm-up; the others are replays)."""
     import shutil
 
     from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
@@ -2332,13 +2351,14 @@ def phase_train_chained(torch, backend, suite):
     opt = rung_opt("flagship")
     root = ROOT / "build" / "train_chained"
     shutil.rmtree(root, ignore_errors=True)
-    base = dict(num_epochs=5, pop_size=pop, sigma=0.01, egg_rank=4, prompts_per_gen=m, batches_per_gen=1,
+    last, chain = CHAINED_EPOCHS - 1, CHAINED_EPOCHS - 1
+    base = dict(num_epochs=CHAINED_EPOCHS, pop_size=pop, sigma=0.01, egg_rank=4, prompts_per_gen=m, batches_per_gen=1,
                 member_batch=mb, reward_tile=opt["reward_tile"], noise_dtype=opt["noise_dtype"],
                 tower_dtype=opt["tower_dtype"], pop_fuse=opt["pop_fuse"], base_quant=opt["base_quant"],
                 quality=True, save_every=0, log_hist_every=0, resume=False, run_dir=str(root))
     expected1, _ = expected_es_launches(backend, suite, TrainConfig(**base), m)
     runs = {}
-    for spd in (1, 4):
+    for spd in (1, chain):
         state, hist, launches, wall, eager_epochs = _train(
             torch, backend, suite, TrainConfig(steps_per_dispatch=spd, run_name=f"spd{spd}", **base), expected1,
             f"flagship run_training, steps_per_dispatch={spd}")
@@ -2346,20 +2366,21 @@ def phase_train_chained(torch, backend, suite):
                          eager_epochs=eager_epochs, wall_s=wall, step_time_s=[h["step_time_s"] for h in hist],
                          epochs_chained=[h["epochs_chained"] for h in hist], epochs=[h["epoch"] for h in hist])
         torch.cuda.empty_cache()
-    one, four = runs[1], runs[4]
-    if four["epochs"] != [0, 4] or four["epochs_chained"] != [1, 4] or one["epochs"] != [0, 1, 2, 3, 4]:
+    one, four = runs[1], runs[chain]
+    if four["epochs"] != [0, last] or four["epochs_chained"] != [1, chain] or \
+            one["epochs"] != list(range(CHAINED_EPOCHS)):
         raise AssertionError(f"chain layout: epochs {four['epochs']}, epochs_chained {four['epochs_chained']}")
     theta_diff = max(float((four["theta"][k][f] - one["theta"][k][f]).abs().max())
                      for k in one["theta"] for f in one["theta"][k])
     score_keys = ("opt_score_mean", "theta_norm", "delta_norm", "es/update_cosine")
-    row_diff = max(abs(four["rows"][4][k] - one["rows"][4][k]) for k in score_keys)
+    row_diff = max(abs(four["rows"][last][k] - one["rows"][last][k]) for k in score_keys)
     if theta_diff != 0.0 or row_diff != 0.0:
-        raise AssertionError(f"steps_per_dispatch 4 against 1: θ differs by {theta_diff}, epoch 4's scores by "
-                             f"{row_diff}")
-    log(f"[train-chained] flagship run_training, 5 epochs: steps_per_dispatch 1 step_time_s "
-        f"{', '.join(f'{t:.3f}' for t in one['step_time_s'])} ({one['wall_s']:.2f} s wall); steps_per_dispatch 4 "
+        raise AssertionError(f"steps_per_dispatch {chain} against 1: θ differs by {theta_diff}, epoch {last}'s "
+                             f"scores by {row_diff}")
+    log(f"[train-chained] flagship run_training, {CHAINED_EPOCHS} epochs: steps_per_dispatch 1 step_time_s "
+        f"{', '.join(f'{t:.3f}' for t in one['step_time_s'])} ({one['wall_s']:.2f} s wall); steps_per_dispatch {chain} "
         f"{', '.join(f'{t:.3f}' for t in four['step_time_s'])} (epochs_chained {four['epochs_chained']}, "
-        f"{four['wall_s']:.2f} s wall); θ and epoch 4's scores bitwise equal; launches counted {one['launches']} / "
+        f"{four['wall_s']:.2f} s wall); θ and epoch {last}'s scores bitwise equal; launches counted {one['launches']} / "
         f"{four['launches']} over {one['eager_epochs']} / {four['eager_epochs']} eager epochs")
     return {spd: {k: v for k, v in r.items() if k not in ("theta", "rows")} for spd, r in runs.items()}
 
@@ -6051,6 +6072,288 @@ def phase_weights_sana(torch):
                 validate_s=validate_s, **run)
 
 
+MULTIPROC_N = 2  # processes of the multi-process phase, all on the one card
+MULTIPROC_EPOCHS = 2  # run_training epochs: the first warms up and captures, the second replays
+MULTIPROC_TOL = 3e-4  # θ′ of the two-process run against the one-process run
+
+
+def _multiproc_argv(root):
+    """The train CLI's command line of :func:`phase_multiproc_es`: the Sana
+    one-step backend at ``--model_scale full`` (Sana-Sprint 1.6B's widths,
+    DC-AE to 1024×1024, random weights from the seed) on the int8 base with
+    the flagship rung's knobs (``pop_fuse``, ``reward_tile`` 1, bf16 noise and
+    towers: the settings under which :func:`phase_es_flagship` runs K3 and
+    K1), the rung's plan (pop 4, 4 prompts, member_batch 1), the population
+    host-sharded in every run (one process: the gather is the identity)."""
+    from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, RUNG_PLAN, rung_opt
+
+    _, pop, m, mb = RUNG_PLAN["flagship"]
+    opt = rung_opt("flagship")
+    (root / "prompts.txt").write_text("\n".join(BENCH_PROMPT_SET) + "\n")
+    return ["--backend", "sana_one_step", "--model_scale", "full", "--base_quant", opt["base_quant"],
+            "--prompts_txt", str(root / "prompts.txt"), "--pop_size", str(pop), "--prompts_per_gen", str(m),
+            "--member_batch", str(mb), "--num_epochs", str(MULTIPROC_EPOCHS), "--reward_tile",
+            str(opt["reward_tile"]), "--noise_dtype", opt["noise_dtype"], "--tower_dtype", opt["tower_dtype"],
+            "--pop_fuse", str(opt["pop_fuse"]).lower(), "--allow_random_rewards", "true", "--save_every", "0",
+            "--resume", "false", "--pop_host_shard", "on", "--run_dir", str(root)]
+
+
+def multiproc_cli_run(argv, theta1=None):
+    """The train CLI's ``main(argv)`` in this process, recorded: the kernel
+    wrappers' counters from 0 just before its ``run_training`` (the eager
+    warm-up epoch of each program; replays are not counted) read just after,
+    the launches :func:`expected_es_launches` derives for this process's
+    member slice, every gathered ``[pop, B]`` reward-row dict
+    (``train.trainer.host_allgather_rows``), each epoch's row
+    ``step_time_s``, each epoch's θ′ and the final θ flat, and the
+    process's rank and device. ``theta1`` (a flat f32 θ in the same leaf
+    order), where given, replaces θ′ after the first epoch (copied into its
+    leaves in place, after it was recorded): the later epochs run from it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from hyperscalees_t2i_tpu_torch.parallel.collectives import process_count, process_rank
+    from hyperscalees_t2i_tpu_torch.train import cli, trainer
+
+    rec = {"rows": [], "step_time_s": [], "thetas": []}
+    real_gather, real_run, real_step = trainer.host_allgather_rows, trainer.run_training, trainer._host_step
+    flat = lambda tree: torch.cat([t.float().reshape(-1) for t in trainer.tree_leaves(tree)]).cpu().numpy()  # noqa: E731
+
+    def gather(rows):
+        full = real_gather(rows)
+        rec["rows"].append({k: np.array(v) for k, v in full.items()})
+        return full
+
+    def host_step(eval_slice, update):
+        step = real_step(eval_slice, update)
+
+        def recorded(*args):
+            out = step(*args)
+            rec["thetas"].append(flat(out[0]))  # each epoch's θ′
+            if theta1 is not None and len(rec["thetas"]) == 1:
+                src, at = torch.from_numpy(theta1), 0
+                with torch.inference_mode():  # the step's outputs are inference tensors
+                    for leaf in trainer.tree_leaves(out[0]):
+                        leaf.copy_(src[at:at + leaf.numel()].reshape(leaf.shape))
+                        at += leaf.numel()
+                if at != src.numel():
+                    raise ValueError(f"theta1 holds {src.numel()} values, θ {at}")
+            return out
+
+        return recorded
+
+    def run(backend, reward, tc, device=None, **kw):
+        info = backend.step_info(0, tc.prompts_per_gen, tc.batches_per_gen)
+        mine = dataclasses.replace(tc, pop_size=tc.pop_size // process_count())
+        rec["expected"], rec["per_call"] = expected_es_launches(backend, reward, mine, len(info.flat_ids))
+        _reset_counters()
+        state = real_run(backend, reward, tc, device=device,
+                         on_epoch_end=lambda e, sc: rec["step_time_s"].append(float(sc["step_time_s"])))
+        rec["launches"] = _counters()
+        rec["theta"] = flat(state.theta)
+        rec["rank"], rec["processes"], rec["device"] = process_rank(), process_count(), str(backend.device)
+        return state
+
+    trainer.host_allgather_rows, trainer.run_training, trainer._host_step = gather, run, host_step
+    try:
+        cli.main(argv)
+    finally:
+        trainer.host_allgather_rows, trainer.run_training, trainer._host_step = real_gather, real_run, real_step
+    return rec
+
+
+def multiproc_child(out_dir):
+    """One process of :func:`phase_multiproc_es`'s launch: its host start
+    (the imports, the first ``transformers`` import) while the one-process
+    run has the card, then, once ``out_dir/go`` says ``go``, the CLI on this
+    process's arguments (``tools.launch_local`` gives the launch's flags),
+    its record written to ``out_dir/rank<i>.npz`` and ``.json``. ``stop``
+    in that file (the one-process run failed), or no word in 300 s, exits
+    without touching the card."""
+    import numpy as np
+    import torch
+
+    from hyperscalees_t2i_tpu_torch.rewards.suite import tokenize_with_hf
+
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the first tokenizer lookup imports transformers (≈ 15 s): beside the
+    # CUDA context and the backend's build, as main() runs it beside the build
+    threading.Thread(target=tokenize_with_hf, args=(["a photo"],), daemon=True).start()
+    out = Path(out_dir)
+    go, deadline = out / "go", time.monotonic() + 300
+    while not go.exists():  # written whole (a rename)
+        if time.monotonic() > deadline:
+            sys.exit("no word from the one-process run in 300 s")
+        time.sleep(0.05)
+    if go.read_text() != "go":
+        sys.exit("the one-process run failed: the launch stops before the card")
+    rec = multiproc_cli_run(sys.argv[1:])
+    np.savez(out / f"rank{rec['rank']}.npz", theta=rec["theta"],
+             **{f"theta{e}": t for e, t in enumerate(rec["thetas"])},
+             **{f"rows{e}_{k}": v for e, rows in enumerate(rec["rows"]) for k, v in rows.items()})
+    (out / f"rank{rec['rank']}.json").write_text(json.dumps({k: rec[k] for k in (
+        "rank", "processes", "device", "launches", "expected", "per_call", "step_time_s")}))
+
+
+def phase_multiproc_es(torch):
+    """Two processes train on the one card through ``tools.launch_local``
+    (``run_pod``), each with its own CUDA context on ``cuda:0`` and the
+    command line of :func:`_multiproc_argv` with ``--pop_shard_update on``:
+    each evaluates its 2 of the 4 members (K3 and K1), the reward rows cross
+    through the launch's store, the update is split over the two processes
+    (``update_partial``, one all-reduce of the partial sums on gloo through
+    the host, ``update_apply``; from the second epoch on, replayed graphs).
+    Three runs, one at a time on the card: the same command line as one
+    process in this process (``--pop_shard_update auto``: alone, the
+    replicated update), while the launch's children start on the host and
+    wait for it; the launch; then one process again, its θ′ after the
+    first epoch replaced by the launch's (the witness).
+
+    Checks: each child exits 0 (a child that fails fails the phase); each
+    child's counted K3 and K1 launches are exactly what its member slice
+    derives (its eval program's warm-up epoch); both ranks' θ′ after every
+    epoch bitwise equal; the first epoch's gathered ``[4, 4]`` reward rows
+    bitwise those of the one-process run, and that first update's θ′ within
+    ``MULTIPROC_TOL`` of the one-process θ′ (the partial sums' order). The
+    second epoch starts from θ′ that differ in their last bits, so it is
+    held against the witness, which starts from the launch's own θ′: its
+    second epoch's gathered rows bitwise the launch's, and the launch's
+    replayed split update within ``MULTIPROC_TOL`` of the witness's
+    replicated one. How far the witness's second epoch lies from the first
+    one-process run's (θ′, rows) measures what those last bits alone do.
+    Prints each run's replayed epoch (its second row's ``step_time_s``; the
+    launch's is the mean over its processes) with the card's name and power
+    limit."""
+    import shutil
+
+    import numpy as np
+
+    from hyperscalees_t2i_tpu_torch.tools import launch_local
+
+    root = ROOT / "build" / "multiproc_es"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    argv = _multiproc_argv(root)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    # the launch starts first; its children do their host start and wait on
+    # `go` while the one-process run has the card
+    code = f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; chip_smoke.multiproc_child({str(root)!r})"
+    pod = {}
+
+    def launch():
+        t = time.perf_counter()
+        pod["rc"] = launch_local.run_pod(MULTIPROC_N, argv + ["--run_name", "pod", "--pop_shard_update", "on"],
+                                         timeout_s=400, entry=["-c", code])
+        pod["s"] = time.perf_counter() - t
+
+    def tell(word):
+        (root / "go.tmp").write_text(word)
+        (root / "go.tmp").replace(root / "go")
+
+    launcher = threading.Thread(target=launch)
+    launcher.start()
+    word = "stop"
+    try:
+        t0 = time.perf_counter()
+        one = multiproc_cli_run(argv + ["--run_name", "one", "--pop_shard_update", "auto"])
+        one_s = time.perf_counter() - t0
+        word = "go"
+    finally:
+        tell(word)
+        launcher.join()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rc, pod_s = pod.get("rc"), pod.get("s", 0.0)
+    if rc != 0:
+        raise AssertionError(f"the {MULTIPROC_N}-process launch exited {rc} (a child failed; its lines are above, "
+                             "prefixed [p<i>])")
+    ranks = [json.loads((root / f"rank{r}.json").read_text()) for r in range(MULTIPROC_N)]
+    arrays = [np.load(root / f"rank{r}.npz") for r in range(MULTIPROC_N)]
+    for r, rec in enumerate(ranks):
+        got, want = rec["launches"], rec["expected"]
+        if rec["processes"] != MULTIPROC_N or got != want or not (got["fused_qlora"] and got["int8_matmul"]):
+            raise AssertionError(f"rank {r} of {rec['processes']} on {rec['device']}: launched {got}, expected {want} "
+                                 "(K3 and K1 in its eval slice's warm-up)")
+    for name in ["theta"] + [f"theta{e}" for e in range(MULTIPROC_EPOCHS)]:
+        if any(a[name].tobytes() != arrays[0][name].tobytes() for a in arrays[1:]):
+            raise AssertionError(f"the ranks left with different {name}")
+    if one["launches"] != one["expected"]:
+        raise AssertionError(f"the one-process run launched {one['launches']}, expected {one['expected']}")
+    if not all(np.isfinite(a["theta"]).all() for a in arrays):
+        raise AssertionError("θ′ is not finite")
+
+    def rows_apart(e, ref, exact):
+        worst = 0.0
+        for k, want in ref["rows"][e].items():
+            for r, a in enumerate(arrays):
+                got = a[f"rows{e}_{k}"]
+                if got.shape != want.shape:
+                    raise AssertionError(f"epoch {e} rows {k}: {got.shape} on rank {r}, {want.shape} in one process")
+                if exact and got.tobytes() != want.tobytes():
+                    raise AssertionError(f"epoch {e} gathered rows {k} on rank {r} differ from the one-process run's "
+                                         f"(max abs {float(np.abs(got - want).max()):.3g})")
+                worst = max(worst, float(np.abs(got - want).max()))
+        return worst
+
+    def theta_apart(e, ref):
+        return max(float(np.abs(a[f"theta{e}"] - ref["thetas"][e]).max()) for a in arrays)
+
+    # the first update takes bitwise-equal rows in both runs: split over the
+    # processes it is the replicated update up to the partial sums' order
+    rows_apart(0, one, exact=True)
+    theta_err = [theta_apart(e, one) for e in range(MULTIPROC_EPOCHS)]
+    if theta_err[0] > MULTIPROC_TOL:
+        raise AssertionError(f"two-process θ′ after epoch 0 is {theta_err[0]:.3g} from the one-process θ′ (bound "
+                             f"{MULTIPROC_TOL})")
+    # the witness: one process from the launch's θ′ after epoch 0, so every
+    # later epoch of the launch (replayed eval slices, the gather, the
+    # replayed split update) is held against one process on the same input
+    t0 = time.perf_counter()
+    wit = multiproc_cli_run(argv + ["--run_name", "witness", "--pop_shard_update", "auto"],
+                            theta1=arrays[0]["theta0"])
+    wit_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    if wit["launches"] != wit["expected"]:
+        raise AssertionError(f"the witness launched {wit['launches']}, expected {wit['expected']}")
+    wit_theta_err = [theta_apart(e, wit) for e in range(1, MULTIPROC_EPOCHS)]
+    for e in range(1, MULTIPROC_EPOCHS):
+        rows_apart(e, wit, exact=True)
+    if max(wit_theta_err) > MULTIPROC_TOL:
+        raise AssertionError(f"the launch's replayed split update is {max(wit_theta_err):.3g} from the replicated "
+                             f"update of one process on the same θ and rows (bound {MULTIPROC_TOL})")
+    # what θ′'s last bits after epoch 0 alone do to the next epoch, in one process
+    alone = dict(
+        theta0_start=float(np.abs(arrays[0]["theta0"] - one["thetas"][0]).max()),
+        witness_theta0_vs_one=float(np.abs(wit["thetas"][0] - one["thetas"][0]).max()),
+        theta=[float(np.abs(wit["thetas"][e] - one["thetas"][e]).max()) for e in range(1, MULTIPROC_EPOCHS)],
+        rows=[max(float(np.abs(wit["rows"][e][k] - v).max()) for k, v in one["rows"][e].items())
+              for e in range(1, MULTIPROC_EPOCHS)])
+    pod_epoch = [rec["step_time_s"] for rec in ranks]
+    pod_replayed = float(np.mean([t[-1] for t in pod_epoch]))
+    log(f"[multiproc] {smi}: {MULTIPROC_N} processes on one card (K3 {ranks[0]['launches']['fused_qlora']}, K1 "
+        f"{ranks[0]['launches']['int8_matmul']} counted in each process's warm-up, as derived); θ′ after every "
+        f"epoch bitwise equal on every rank; against one process: epoch-0 rows bitwise, θ′ after epoch 0 max abs "
+        f"{theta_err[0]:.3g}, after the last {theta_err[-1]:.3g}; against the witness (one process from the "
+        f"launch's θ′ after epoch 0): later rows bitwise, the replayed split update's θ′ max abs "
+        f"{max(wit_theta_err):.3g}; the witness against the first one-process run (θ′ after epoch 0 "
+        f"{alone['theta0_start']:.3g} apart): θ′ after the last epoch {alone['theta'][-1]:.3g}, later rows "
+        f"{max(alone['rows']):.3g}; replayed epoch: one process {one['step_time_s'][-1]:.3f} s, witness "
+        f"{wit['step_time_s'][-1]:.3f} s, {MULTIPROC_N} processes {pod_replayed:.3f} s (mean of the processes); "
+        f"runs {one_s:.1f} s alone, {pod_s:.1f} s launched, {wit_s:.1f} s the witness")
+    return dict(card=smi, processes=MULTIPROC_N, launches=[rec["launches"] for rec in ranks],
+                expected=[rec["expected"] for rec in ranks], one_launches=one["launches"], theta_err=theta_err,
+                witness_theta_err=wit_theta_err, last_bits_alone=alone, one_step_time_s=one["step_time_s"],
+                witness_step_time_s=wit["step_time_s"], pod_step_time_s=pod_epoch, one_run_s=one_s,
+                pod_run_s=pod_s, witness_run_s=wit_s)
+
+
 def kernel_summary(name, rows, launches, calls_key, replaces, scope):
     """One entry per kernel: its main-path calls per unit of its path (one
     flagship image, one VAR generate call), summed."""
@@ -6125,7 +6428,7 @@ def main() -> int:
     zimage_rows = timed("zimage_kernel_check", phase_zimage_kernel_check, torch)
     small_err = timed("small_reference", phase_small_reference, torch)
     es_tiny = timed("es_reference_tiny", phase_es_reference, torch, "tiny", int8=True)
-    es_small = timed("es_reference_small", phase_es_reference, torch, "small", int8=False)
+    es_float_tiny = timed("es_reference_tiny_float", phase_es_reference, torch, "tiny", int8=False)
     train_tiny = timed("train_reference", phase_train_reference, torch)
     fleet_tiny = timed("fleet_reference", phase_fleet_reference, torch)
     pipeline_tiny = timed("pipeline_reference", phase_pipeline_reference, torch)
@@ -6153,6 +6456,9 @@ def main() -> int:
     evaluate = timed("evaluate", phase_evaluate, torch, *flagship)
     threefry_rows = threefry_shares(timed("threefry", phase_threefry, torch, flagship[0]), es, var_es, inf_q8)
     del flagship
+    gc.collect()
+    torch.cuda.empty_cache()
+    multiproc = timed("multiproc_es", phase_multiproc_es, torch)
 
     # `launches`: the wrappers' counters over the main paths' eager epochs (the
     # eager variant's timed epochs, each run_training program's warm-up);
@@ -6316,14 +6622,14 @@ def main() -> int:
         k1_invariant_ranges=k1_invariant, k2_invariant_ranges=k2_invariant, k3_invariant_ranges=k3_invariant,
         k4_invariant_parts=k4_invariant,
         k1_shapes=k1_rows, chain_shapes=chain_rows, k4_shapes=k4_rows, k4_cases=k4_extra, k4_infinity_shapes=k4_inf_rows,
-        small_reference_max_abs=small_err, es_tiny=es_tiny, es_small=es_small, var_tiny=var_tiny, inf_tiny=inf_tiny,
+        small_reference_max_abs=small_err, es_tiny=es_tiny, es_tiny_float=es_float_tiny, var_tiny=var_tiny, inf_tiny=inf_tiny,
         inf_q8_tiny=inf_q8_tiny, inf_q8_es=inf_q8, inf_kernel_shapes=inf_rows,
         es_flagship_float=es_float, serve=serve, var_es=var_es, inf_es=inf_es, es_flagship=es, train_tiny=train_tiny,
         threefry=threefry_rows, train_chained=chained, run_tools=run_tools, pipeline_tiny=pipeline_tiny,
         pipeline_es=pipeline_es, serve_tier=tier,
         train_flagship=train, train_artifacts=artifacts, fleet_tiny=fleet_tiny, fleet_flagship=fleet_run, weights_var=weights_var,
         weights_sana=weights_sana, zimage_kernel_shapes=zimage_rows, zimage_tiny=zimage_tiny, zimage_es=zimage,
-        evaluate=evaluate,
+        evaluate=evaluate, multiproc_es=multiproc,
         phase_seconds=phase_s, kernels=kernels, k1_serving=k1_serve, k4_infinity=k4_inf,
         wall_s=wall_s,
     ), indent=1))

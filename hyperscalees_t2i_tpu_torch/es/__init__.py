@@ -6,12 +6,15 @@ from .noiser import (
     DenseNoise,
     EggRollConfig,
     LowRankNoise,
+    apply_es_delta,
     base_pop_size,
+    es_partial_delta,
     es_update,
     factored_member_theta,
     fitness_coeffs,
     lane_slice,
     materialize_member_eps,
+    member_maps,
     member_signs_and_bases,
     perturb_member,
     sample_noise,
@@ -26,10 +29,10 @@ from .scoring import (
 )
 
 __all__ = [
-    "DenseNoise", "EggRollConfig", "LowRankNoise", "base_pop_size", "cap_step_norm", "cap_theta_norm",
-    "epoch_key", "es_update", "factored_member_theta", "fitness_coeffs", "global_norm",
+    "DenseNoise", "EggRollConfig", "LowRankNoise", "apply_es_delta", "base_pop_size", "cap_step_norm", "cap_theta_norm",
+    "epoch_key", "es_partial_delta", "es_update", "factored_member_theta", "fitness_coeffs", "global_norm",
     "jobwise_prompt_normalized_scores", "lane_slice",
-    "materialize_member_eps", "member_signs_and_bases", "mix_seed", "parse_int_list", "perturb_member",
+    "materialize_member_eps", "member_maps", "member_signs_and_bases", "mix_seed", "parse_int_list", "perturb_member",
     "prompt_normalized_scores", "repeat_batches", "sample_indices_unique", "sample_noise",
     "stacked_adapter_theta", "standardize_fitness", "standardize_fitness_masked",
 ]

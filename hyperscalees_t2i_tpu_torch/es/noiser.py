@@ -14,8 +14,10 @@ Draws come from a ``utils.threefry`` key and are the JAX package's numbers
 (the same key tree, leaf by leaf). Every contraction upcasts the (possibly
 bf16) noise store to f32.
 
-The pod-sharded update (``es_partial_delta``/``apply_es_delta``) comes with
-multi-GPU training.
+The pop-sharded update splits the contraction over the processes of a
+launch (``parallel.pop_update``): each contracts its slice of base samples
+(:func:`es_partial_delta`), one all-reduce sums the partials, and
+:func:`apply_es_delta` applies the sum with :func:`es_update`'s scaling.
 """
 
 from __future__ import annotations
@@ -91,6 +93,14 @@ def member_signs_and_bases(pop_size: int, antithetic: bool) -> Tuple[np.ndarray,
     signs[half:2 * half] = -1.0
     bases = np.concatenate([np.arange(half), np.arange(half), np.full(pop_size % 2, half)]).astype(np.int64)
     return signs, bases
+
+
+def member_maps(pop_size: int, antithetic: bool, device: Union[str, torch.device]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`member_signs_and_bases` as tensors on ``device`` (f32 signs,
+    int64 bases), made once per (geometry, device) and shared after:
+    callers must not write to them."""
+    signs, bases = member_signs_and_bases(pop_size, antithetic)
+    return constant(signs.tolist(), torch.float32, device), constant(bases.tolist(), torch.int64, device)
 
 
 def sample_noise(key: torch.Tensor, theta: Any, pop_size: int, cfg: EggRollConfig) -> Any:
@@ -269,6 +279,43 @@ def es_update(theta: Any, noise: Any, fitness: torch.Tensor, pop_size: int, cfg:
             E = fac.E.to(torch.float32)
             delta = (E * cc.reshape(-1, *([1] * (E.ndim - 1)))).sum(0) / pop_size
         out.append(t + scaled(lr, delta.to(t.dtype)))
+    return tree_replace_leaves(theta, out)
+
+
+def es_partial_delta(theta: Any, noise: Any, coeffs: torch.Tensor, lo: int, n_slice: int, pop_size: int,
+                     cfg: EggRollConfig) -> Any:
+    """One shard's unnormalized share of the update: the coefficient-weighted
+    noise summed over base samples ``[lo, lo + n_slice)`` only, a θ-shaped
+    tree of f32 sums (low-rank leaves ``Σ c_b U_b V_bᵀ``, not yet divided by
+    ``pop·√r``; dense leaves ``Σ c_b E_b``, not yet by ``pop``), contracted
+    as :func:`es_update` contracts. The partials of a disjoint cover of
+    ``[0, base)`` sum to :func:`es_update`'s contraction up to f32
+    summation order (one shard over the whole range: bitwise)."""
+    cs = coeffs[lo:lo + n_slice].to(torch.float32)
+    out = []
+    for _, fac in _noise_pairs(theta, noise):
+        if isinstance(fac, LowRankNoise):
+            U = fac.U[lo:lo + n_slice].to(torch.float32)
+            V = fac.V[lo:lo + n_slice].to(torch.float32)
+            part = ((U * cs.reshape(-1, *([1] * (U.ndim - 1)))) @ V.transpose(-1, -2)).sum(0)
+        else:
+            E = fac.E[lo:lo + n_slice].to(torch.float32)
+            part = (E * cs.reshape(-1, *([1] * (E.ndim - 1)))).sum(0)
+        out.append(part)
+    return tree_replace_leaves(theta, out)
+
+
+def apply_es_delta(theta: Any, delta_sums: Any, noise: Any, pop_size: int, cfg: EggRollConfig) -> Any:
+    """``θ' = θ + lr·delta`` from the summed :func:`es_partial_delta` trees:
+    low-rank leaves scaled by ``1/(pop·√r)``, dense leaves divided by
+    ``pop``, as :func:`es_update` scales them, the delta cast to θ's dtype
+    before the add. Which leaves are low-rank is read from the ``noise``
+    tree's node types, the one authority."""
+    inv = 1.0 / (pop_size * math.sqrt(cfg.rank))
+    out = []
+    for (t, fac), d in zip(_noise_pairs(theta, noise), tree_leaves(delta_sums)):
+        delta = d * inv if isinstance(fac, LowRankNoise) else d / pop_size
+        out.append(t + scaled(cfg.lr, delta.to(t.dtype)))
     return tree_replace_leaves(theta, out)
 
 

@@ -16,7 +16,7 @@ The reference jits one program per batch with θ as an argument; here
 one for a shorter last batch, θ, prompt ids and key copied in as inputs, the
 frozen weights read from the backend's buffers. Base and LoRA are the same
 program. ``--tp`` above 1 (the reference's tensor-parallel mesh) raises:
-multi-GPU is ROADMAP queue A item 7.
+tensor parallelism is ROADMAP queue A item 7 part 4.
 """
 
 from __future__ import annotations
@@ -73,7 +73,7 @@ def make_backend(args):
 
     if args.tp and args.tp > 1:
         raise NotImplementedError(f"--tp {args.tp}: sharding the generator over several GPUs is ROADMAP queue A "
-                                  "item 7 (multi-GPU); run with --tp 0")
+                                  "item 7 part 4 (tensor parallelism); run with --tp 0")
     ns = add_backend_flags(argparse.ArgumentParser()).parse_args(["--backend", args.backend])
     for k, v in vars(args).items():
         if hasattr(ns, k):

@@ -1,6 +1,8 @@
 """Live pull telemetry: ``/metrics`` (Prometheus text) and ``/healthz``
 (JSON) on a daemon thread (a copy of ``hyperscalees_t2i_tpu/obs/
-exporter.py`` for one process; standard library only).
+exporter.py``; standard library only). Each process of a launch runs its
+own, on its own port (``obs.multihost.exporter_port``), and ``/healthz``
+says which process answered.
 
 - ``GET /metrics``: every counter and gauge of the wired registries, every
   streaming :class:`~.metrics.Histogram` as ``_bucket``/``_sum``/``_count``
@@ -26,6 +28,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 from .metrics import MetricsRegistry, is_histogram_payload
+from .multihost import safe_process_index
 
 # ---------------------------------------------------------------------------
 # process-global health blackboard (fed by the SLO evaluator and serving)
@@ -286,7 +289,7 @@ class MetricsExporter:
         payload: Dict[str, Any] = {
             "status": "ok",
             "wall_time": time.time(),
-            "process_index": 0,
+            "process_index": safe_process_index(),
         }
         payload.update(health_snapshot())
         if payload.get("stall_active"):

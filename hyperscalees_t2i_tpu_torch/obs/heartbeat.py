@@ -3,7 +3,7 @@
 allocator's counters).
 
 - One JSON object per line on stderr, never stdout (scripts print their
-  result as the last stdout line): ``{"hb": name, "phase": ..., "process_index": 0,
+  result as the last stdout line): ``{"hb": name, "phase": ..., "process_index": i,
   "elapsed_s": ...}`` plus the card's memory gauges when CUDA is up.
 - :class:`Heartbeat` wraps a long blocking phase (a capture, a dispatch, a
   checkpoint): a daemon thread prints a line every ``interval_s``.
@@ -30,6 +30,8 @@ import threading
 import time
 from contextlib import nullcontext
 from typing import Any, Callable, Dict, Optional, TextIO
+
+from .multihost import safe_process_index
 
 
 def device_memory_gauges(device: Any = None) -> Dict[str, int]:
@@ -58,8 +60,9 @@ def device_memory_gauges(device: Any = None) -> Dict[str, int]:
 
 def emit_heartbeat(name: str, phase: str, stream: Optional[TextIO] = None, **extra: Any) -> None:
     """One liveness line (stderr by default, never stdout), mirrored onto
-    the ``/healthz`` blackboard. One process: ``process_index`` is 0."""
-    payload = {"hb": name, "phase": phase, "process_index": 0, **extra}
+    the ``/healthz`` blackboard, tagged with this process's
+    ``process_index`` (``obs.multihost.safe_process_index``)."""
+    payload = {"hb": name, "phase": phase, "process_index": safe_process_index(), **extra}
     print(json.dumps(payload, default=str), file=stream or sys.stderr, flush=True)
     try:
         from .exporter import note_heartbeat

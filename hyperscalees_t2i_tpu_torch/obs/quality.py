@@ -78,11 +78,13 @@ def _finite(v: Any) -> Optional[float]:
 
 class QualityLedger:
     """One host-side tick per logged epoch, appending to
-    ``run_dir/quality.jsonl``."""
+    ``run_dir/quality.jsonl``; ``run_dir=None`` keeps the gauges and the
+    alerts and writes no file (the processes of a launch other than
+    process 0)."""
 
-    def __init__(self, run_dir: Union[str, Path], *,
+    def __init__(self, run_dir: Optional[Union[str, Path]], *,
                  reward_keys: Sequence[str] = DEFAULT_REWARD_KEYS, hack_window: int = 4, top_k: int = 5):
-        self.path = Path(run_dir) / QUALITY_LEDGER
+        self.path = Path(run_dir) / QUALITY_LEDGER if run_dir is not None else None
         self.reward_keys = tuple(reward_keys)
         self.hack_window = int(hack_window)
         self.top_k = int(top_k)
@@ -161,12 +163,13 @@ class QualityLedger:
             v = scalars.get(key)
             if isinstance(v, (list, tuple)):
                 row[key] = list(v)
-        try:
-            self.path.parent.mkdir(parents=True, exist_ok=True)
-            with self.path.open("a") as f:
-                f.write(json.dumps(row) + "\n")
-        except OSError as e:
-            print(f"[quality] WARNING: ledger append failed ({e!r})", file=sys.stderr, flush=True)
+        if self.path is not None:
+            try:
+                self.path.parent.mkdir(parents=True, exist_ok=True)
+                with self.path.open("a") as f:
+                    f.write(json.dumps(row) + "\n")
+            except OSError as e:
+                print(f"[quality] WARNING: ledger append failed ({e!r})", file=sys.stderr, flush=True)
         return gauges
 
 

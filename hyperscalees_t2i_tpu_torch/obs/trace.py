@@ -22,6 +22,8 @@ from contextlib import contextmanager
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
+from .multihost import safe_process_index
+
 
 class Tracer:
     def __init__(self, path: Optional[Union[str, Path]] = None,
@@ -34,7 +36,8 @@ class Tracer:
         self._mono0 = time.perf_counter()
         if self.path is not None:
             self.path.parent.mkdir(parents=True, exist_ok=True)
-            self._write({"meta": "trace_start", "wall_time": self._wall0, "pid": os.getpid(), "process_index": 0})
+            self._write({"meta": "trace_start", "wall_time": self._wall0, "pid": os.getpid(),
+                         "process_index": safe_process_index()})
 
     @property
     def enabled(self) -> bool:
@@ -75,7 +78,8 @@ class Tracer:
                 self.on_span(name, t1 - t0)
             if self.enabled:
                 ev = {"name": name, "t0_s": round(t0, 6), "dur_s": round(t1 - t0, 6), "depth": len(stack),
-                      "parent": parent, "pid": os.getpid(), "tid": threading.get_ident(), "process_index": 0}
+                      "parent": parent, "pid": os.getpid(), "tid": threading.get_ident(),
+                      "process_index": safe_process_index()}
                 if attrs:
                     ev["attrs"] = attrs
                 self._write(ev)
@@ -89,7 +93,7 @@ class Tracer:
             return
         ev = {"name": name, "t0_s": round(t0_monotonic - self._mono0, 6),
               "dur_s": round(max(t1_monotonic - t0_monotonic, 0.0), 6), "depth": 0, "parent": parent,
-              "pid": os.getpid(), "tid": threading.get_ident(), "process_index": 0}
+              "pid": os.getpid(), "tid": threading.get_ident(), "process_index": safe_process_index()}
         if attrs:
             ev["attrs"] = attrs
         self._write(ev)

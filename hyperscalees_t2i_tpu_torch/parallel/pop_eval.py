@@ -1,12 +1,14 @@
 """Member-batched evaluation on one device (port of
-``hyperscalees_t2i_tpu/parallel/pop_eval.py``): the ES population evaluator,
-the fleet evaluator (W jobs' populations against one base) and the
-multi-tenant serving generator. The mesh-sharded and ``host_slice``
-variants come with multi-GPU training."""
+``hyperscalees_t2i_tpu/parallel/pop_eval.py``): the ES population evaluator
+(the whole population, or one process's member slice, ``host_slice``), the
+fleet evaluator (W jobs' populations against one base) and the
+multi-tenant serving generator. The port shards the population over
+processes, not over devices of one program, so the mesh-sharded variant
+has no counterpart (``parallel.mesh``)."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -36,9 +38,14 @@ def make_population_evaluator(
     member_batch: int,
     reward_tile: int = 0,
     pop_fuse: bool = False,
+    host_slice: Optional[Tuple[int, int]] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``eval_pop(theta, noise, ids [B], gen_noise [B, *noise_shape])
-    → rewards``, every reward leaf ``[pop_size, B]``. ``ids`` is an int64
+    → rewards``, every reward leaf ``[pop_size, B]``; with ``host_slice=(lo,
+    n)`` the members ``[lo, lo + n)`` only, every leaf ``[n, B]`` (one
+    process's slice of a host-sharded population: member ids and the
+    perturbation stay global, against the global ``pop_size``, so each
+    member's rewards are the whole population's rows). ``ids`` is an int64
     tensor on the generator's device: nothing here copies from the host, so
     a CUDA graph can capture the evaluation whole.
 
@@ -60,8 +67,12 @@ def make_population_evaluator(
     per-job σ as program inputs)."""
     if member_batch < 1:
         raise ValueError(f"member_batch must be >= 1, got {member_batch}")
+    slice_lo, slice_n = host_slice if host_slice is not None else (0, pop_size)
+    if not (0 <= slice_lo and slice_lo + slice_n <= pop_size and slice_n >= 1):
+        raise ValueError(f"host_slice={host_slice} out of range for pop_size={pop_size}")
     # the ledger's record of the program this evaluator runs in
-    note_program_geometry(member_batch=member_batch, reward_tile=reward_tile, pop_fuse=pop_fuse)
+    note_program_geometry(member_batch=member_batch, reward_tile=reward_tile, pop_fuse=pop_fuse,
+                          **({"host_slice": list(host_slice)} if host_slice is not None else {}))
 
     def chunk_theta(theta, noise, members, sigma, c_scale):
         if pop_fuse:
@@ -74,8 +85,8 @@ def make_population_evaluator(
         B = ids.shape[0]
         tile = effective_reward_tile(B, reward_tile) or B
         chunks = []
-        for k0 in range(0, pop_size, member_batch):
-            members = list(range(k0, min(k0 + member_batch, pop_size)))
+        for k0 in range(slice_lo, slice_lo + slice_n, member_batch):
+            members = list(range(k0, min(k0 + member_batch, slice_lo + slice_n)))
             n = len(members)
             theta_k = chunk_theta(theta, noise, members, sigma, c_scale)
             tiles = []

@@ -41,7 +41,7 @@ cannot be judged (or a geometry is malformed), 0 when everything fits.
 
 Flags of the JAX preflight with no meaning here raise, naming why:
 ``--devices`` above 1 and ``--pop_shard_update`` (the sharded programs and
-the update isolation are ROADMAP item 7), ``--remat`` (nothing is
+the update isolation are ROADMAP item 7 part 4), ``--remat`` (nothing is
 differentiated), ``--fused_qlora`` (the int8 base always runs the fused
 kernel K3) and ``--chip`` naming a TPU.
 """
@@ -355,10 +355,10 @@ def render_fleet_report(pairs: List[Tuple[Dict[str, Any], Dict[str, Any]]], targ
 
 def _refuse(args: argparse.Namespace) -> None:
     if args.devices and args.devices > 1:
-        raise NotImplementedError("--devices > 1: the sharded programs and the update isolation are ROADMAP item 7 "
+        raise NotImplementedError("--devices > 1: the sharded programs and the update isolation are ROADMAP item 7 part 4 "
                                   "(the port runs one process on one card)")
     if args.pop_shard_update is not None:
-        raise NotImplementedError("--pop_shard_update: the pop-sharded update is ROADMAP item 7")
+        raise NotImplementedError("--pop_shard_update: preflight of the pop-sharded update is ROADMAP item 7 part 4")
     if args.remat is not None:
         raise NotImplementedError("--remat: the port differentiates nothing, so it has no rematerialization")
     if args.fused_qlora is not None:
@@ -395,8 +395,8 @@ def main(argv=None) -> int:
     ap.add_argument("--base_quant", default=None, choices=["off", "int8"], help="override the frozen base's storage")
     ap.add_argument("--remat", default=None, help="refused: nothing is differentiated")
     ap.add_argument("--fused_qlora", default=None, help="refused: the int8 base always runs K3")
-    ap.add_argument("--pop_shard_update", default=None, help="refused: ROADMAP item 7")
-    ap.add_argument("--devices", type=int, default=0, help="refused above 1: ROADMAP item 7")
+    ap.add_argument("--pop_shard_update", default=None, help="refused: ROADMAP item 7 part 4")
+    ap.add_argument("--devices", type=int, default=0, help="refused above 1: ROADMAP item 7 part 4")
     ap.add_argument("--serve", action="append", default=None, metavar="RUNG:ADAPTERS[:RANK]",
                     help="serving-admission mode (repeatable): measure this serving geometry's program instead of "
                          "the training rungs")

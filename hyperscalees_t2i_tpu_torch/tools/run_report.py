@@ -35,10 +35,10 @@ assets) from a run dir's artifacts:
   p50/p95/p99, max, % wall).
 
 The JAX report's Pod panel reads a multi-process run's per-host trace
-segments through ``obs/podtrace.py``, which is ROADMAP item 7: a run dir with
+segments through ``obs/podtrace.py``, which is ROADMAP item 7 part 4: a run dir with
 such segments raises (``trace_report.trace_path``). The elastic-membership
 and per-host resilience tables read ``elastic.json`` and
-``resilience.host<i>.json``, which only item 7's multi-process loop writes.
+``resilience.host<i>.json``, tables that are item 7 part 4 too.
 
 Series colors have fixed slots, text never wears a series color, a chart of
 one series names it in its title, a chart of several has a legend, and every

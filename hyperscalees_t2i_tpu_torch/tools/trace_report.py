@@ -17,7 +17,7 @@ Chrome trace-event JSON (default ``trace_chrome.json`` beside the input).
 
 A run dir holds one ``trace.jsonl``. Per-host segments (``trace.<i>.jsonl``)
 are a multi-process run's, read by a pod merge that the port does not have
-yet (ROADMAP item 7, ``obs/podtrace.py``): such a dir raises instead of
+yet (ROADMAP item 7 part 4, ``obs/podtrace.py``): such a dir raises instead of
 being read as one host.
 """
 
@@ -43,7 +43,7 @@ def trace_path(src: Union[str, Path]) -> Path:
     if segments:
         raise NotImplementedError(
             f"{src} holds per-host trace segments ({', '.join(segments)}): the pod merge that reads them is "
-            "ROADMAP item 7 (obs/podtrace.py), not yet in the port")
+            "ROADMAP item 7 part 4 (obs/podtrace.py), not yet in the port")
     return src / "trace.jsonl"
 
 

@@ -48,6 +48,15 @@ true``, and a missing PickScore tower is dropped with the other weights
 renormalized, as in the JAX CLI. Prompts are tokenized by
 ``rewards.suite.tokenize_with_hf``. Exit codes: 0 done or preempted (a
 slot was saved; rerun to resume), 3 halted by the rollback policy.
+
+A launch of N processes (``tools.launch_local`` starts one on a machine)
+gives each process ``--coordinator host:port --num_processes N
+--process_id i`` (or the launcher's variables, ``parallel.mesh``): the
+processes join one process group, each takes ``cuda:{i % cards}`` (or the
+``--device`` named), evaluates its slice of the population
+(``--pop_host_shard``, ``auto`` or ``on``; ``off`` with N > 1 is refused,
+as is a ``--pop_size`` that N does not divide) and shares the update,
+split over the processes with ``--pop_shard_update``.
 """
 
 from __future__ import annotations
@@ -141,6 +150,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tower_dtype", default="float32", choices=["float32", "bfloat16", "bf16"])
     p.add_argument("--pop_fuse", type=str2bool, default=False)
     p.add_argument("--base_quant", default="off", choices=["off", "int8"])
+    p.add_argument("--pop_shard_update", default="auto", choices=["auto", "on", "off"],
+                   help="pop-sharded EGGROLL update: each process contracts its slice of the base samples and one "
+                        "all-reduce of the partial sums rebuilds Δθ. auto = whenever the base-sample count tiles "
+                        "the processes; on = required (error otherwise); off = the replicated update")
     p.add_argument("--theta_max_norm", type=float, default=40.0)
     p.add_argument("--max_step_norm", type=float, default=0.0)
     p.add_argument("--w_aesthetic", type=float, default=0.3)
@@ -154,6 +167,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_pickscore", type=str2bool, default=True)
     p.add_argument("--allow_random_rewards", type=str2bool, default=False,
                    help="proceed with random-init reward towers when their Hugging Face weights are unavailable")
+    # a launch of several processes (parallel.mesh.initialize_multihost): the
+    # flags win over the launcher's variables
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0's store (enables the multi-process launch)")
+    p.add_argument("--num_processes", type=int, default=None, help="processes in the launch (with --coordinator)")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank in [0, num_processes) (with --coordinator)")
+    p.add_argument("--pop_host_shard", default="auto", choices=["auto", "on", "off"],
+                   help="multi-process population split: auto/on = each process evaluates its member slice and "
+                        "the reward rows are gathered on the host; off = one program spanning the processes, "
+                        "which the port does not have (refused above one process)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--save_every", type=int, default=10)
     p.add_argument("--log_images_every", type=int, default=0,
@@ -573,8 +597,9 @@ def train_config(args):
         egg_rank=args.egg_rank, antithetic=args.antithetic, promptnorm=args.promptnorm,
         prompts_per_gen=args.prompts_per_gen, batches_per_gen=args.batches_per_gen,
         member_batch=args.member_batch, steps_per_dispatch=args.steps_per_dispatch,
-        reward_tile=args.reward_tile, pop_fuse=args.pop_fuse,
-        base_quant=args.base_quant, noise_dtype=_dtype(args.noise_dtype), tower_dtype=_dtype(args.tower_dtype),
+        reward_tile=args.reward_tile, pop_fuse=args.pop_fuse, pop_shard_update=args.pop_shard_update,
+        pop_host_shard=args.pop_host_shard, base_quant=args.base_quant, noise_dtype=_dtype(args.noise_dtype),
+        tower_dtype=_dtype(args.tower_dtype),
         theta_max_norm=args.theta_max_norm, max_step_norm=args.max_step_norm,
         reward_weights=(args.w_aesthetic, args.w_text, args.w_noart, args.w_pick),
         seed=args.seed, save_every=args.save_every, log_images_every=args.log_images_every,
@@ -593,11 +618,23 @@ def train_config(args):
 
 
 def main(argv: Optional[List[str]] = None) -> None:
-    from ..device import resolve_device
+    from ..parallel.collectives import process_count
+    from ..parallel.mesh import initialize_multihost, process_device
     from .trainer import run_training
 
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    if args.coordinator and (args.num_processes is None or args.process_id is None):
+        sys.exit("ERROR: --coordinator needs --num_processes and --process_id")
+    initialize_multihost(args.coordinator, args.num_processes, args.process_id)
+    pc = process_count()
+    if pc > 1 and args.pop_host_shard == "off":
+        sys.exit(f"ERROR: --pop_host_shard off with {pc} processes asks for one program spanning the processes, "
+                 "which the port does not have; pass --pop_host_shard auto or on")
+    host_shard = args.pop_host_shard == "on" or (pc > 1 and args.pop_host_shard != "off")
+    if host_shard and args.pop_size % pc:
+        sys.exit(f"ERROR: host-sharded population needs --pop_size divisible by the process count "
+                 f"({args.pop_size} % {pc} != 0); adjust --pop_size")
+    device = process_device(args.device)
     backend = build_backend(args, device)
     backend.setup()
     reward_fn = build_reward_fn(args, backend, device)

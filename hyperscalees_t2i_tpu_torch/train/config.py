@@ -2,14 +2,16 @@
 every field with the JAX package's name, type and default, and the same
 ``auto_run_name``).
 
-The port's ``run_training`` runs the single-process loop with its live
-telemetry (exporter, SLOs, heartbeats, the stall and anomaly watchdogs),
-its artifacts (``log_hist_every``: θ/Δθ histograms; ``log_images_every``:
-member strips; ``snapshot_every``: quality snapshots) and its profile
-window (``profile_epochs``). The fields of the multi-process machinery it
-does not have yet (ROADMAP queue A item 7) raise there when set away from
-their defaults (:func:`unported_settings`); the default ``desync_*``
-check is accepted and is multi-process only. ``remat``, ``tower_dtype`` and
+The port's ``run_training`` runs the loop with its live telemetry
+(exporter, SLOs, heartbeats, the stall and anomaly watchdogs), its
+artifacts (``log_hist_every``: θ/Δθ histograms; ``log_images_every``:
+member strips; ``snapshot_every``: quality snapshots), its profile window
+(``profile_epochs``) and, in a launch of several processes, the
+host-sharded population (``pop_host_shard``) with the pop-sharded update
+(``pop_shard_update``). The fields of the pod resilience it does not have
+yet (ROADMAP queue A item 7 part 3) raise there when set away from their
+defaults (:func:`unported_settings`); the default ``desync_*`` check is
+accepted and does nothing yet. ``remat``, ``tower_dtype`` and
 ``base_quant`` are recorded for the checkpoint manifest; the backend's
 and reward suite's trees carry the applied values.
 """
@@ -105,13 +107,11 @@ class TrainConfig:
 
 # (field, is it set away from what the port runs?, the ROADMAP item that ports it)
 _UNPORTED = (
-    ("faults", lambda v: v is not None, "queue A item 7 (fault injection)"),
-    ("pop_host_shard", lambda v: v == "on", "queue A item 7 (host-sharded population)"),
-    ("pop_shard_update", lambda v: v == "on", "queue A item 7 (the pop-sharded update)"),
-    ("desync_check_every", lambda v: v != 8, "queue A item 7 (the desync check)"),
-    ("desync_action", lambda v: v != "rollback", "queue A item 7 (the desync check)"),
-    ("on_topology_mismatch", lambda v: v == "reshard", "queue A item 7 (reshard on restore)"),
-    ("elastic_action", lambda v: v != "checkpoint_exit", "queue A item 7 (elastic membership)"),
+    ("faults", lambda v: v is not None, "queue A item 7 part 3 (fault injection)"),
+    ("desync_check_every", lambda v: v != 8, "queue A item 7 part 3 (the desync check)"),
+    ("desync_action", lambda v: v != "rollback", "queue A item 7 part 3 (the desync check)"),
+    ("on_topology_mismatch", lambda v: v == "reshard", "queue A item 7 part 3 (reshard on restore)"),
+    ("elastic_action", lambda v: v != "checkpoint_exit", "queue A item 7 part 3 (elastic membership)"),
 )
 
 

@@ -35,22 +35,29 @@ def _console_fmt(v: Any) -> str:
 
 
 class MetricsLogger:
-    """``registry`` (the run's ``resilience/`` one) counts the retries."""
+    """``registry`` (the run's ``resilience/`` one) counts the retries.
+    ``run_dir=None`` is a silent logger that writes nothing (the processes
+    of a launch other than process 0)."""
 
-    def __init__(self, run_dir: Path, registry: Optional[Any] = None):
+    def __init__(self, run_dir: Optional[Path], registry: Optional[Any] = None):
         self.registry = registry
-        self.run_dir = Path(run_dir)
-        self.run_dir.mkdir(parents=True, exist_ok=True)
-        self.path = self.run_dir / "metrics.jsonl"
+        self.run_dir = self.path = None
+        if run_dir is not None:
+            self.run_dir = Path(run_dir)
+            self.run_dir.mkdir(parents=True, exist_ok=True)
+            self.path = self.run_dir / "metrics.jsonl"
 
     def info(self, msg: str) -> None:
-        print(f"[train] {msg}", file=sys.stderr, flush=True)
+        if self.path is not None:
+            print(f"[train] {msg}", file=sys.stderr, flush=True)
 
     def _append_line(self, line: str) -> None:
         with self.path.open("a") as f:
             f.write(line)
 
     def log(self, epoch: int, scalars: Dict[str, Any]) -> None:
+        if self.path is None:
+            return
         line = json.dumps({"ts": time.time(), **scalars}, default=_json_default) + "\n"
         try:
             call_with_retry(self._append_line, (line,), site="obs_write", base_delay_s=0.05, max_delay_s=1.0,

@@ -1,6 +1,6 @@
 """The EGGROLL-ES epoch step and the training loop around it (port of
-``_combine_and_update``, ``make_es_step`` and the single-process core of
-``run_training`` from ``hyperscalees_t2i_tpu/train/trainer.py``).
+``_combine_and_update``, ``make_es_step``, ``make_host_sharded_programs``
+and ``run_training`` from ``hyperscalees_t2i_tpu/train/trainer.py``).
 
 One step: draw the factored ES noise and the epoch's generation noise,
 evaluate every member (perturb → generate → decode → reward, in chunks of
@@ -38,10 +38,18 @@ ledger ``programs.jsonl`` (``obs.program_cost``: each plan's FLOPs and
 bytes counted over its warm-up epoch), ``mfu`` and the ``roofline/*``
 verdict per dispatch, the ``torch.profiler`` window of the first
 ``tc.profile_epochs`` epochs with its calibration ``CALIB_train.json``
-(``obs.calib``), and ``QUALITY_train.json`` at the run's end. The pod
-machinery of the JAX loop (host-sharded programs, coordinated commit,
-elastic membership, the desync check, fault injection) is not here;
-``train.config.unported_settings`` names the ROADMAP item of each.
+(``obs.calib``), and ``QUALITY_train.json`` at the run's end.
+
+A launch of N processes (``parallel.mesh``, ``tools.launch_local``) runs
+the host-sharded population (:func:`make_host_sharded_programs`): each
+process evaluates its contiguous member slice, only the ``[pop, B]`` reward
+rows cross processes (``collectives.host_allgather_rows``), and every
+process applies the same update, so θ stays replicated. Process 0 writes
+the shared files; each process writes its own trace segment, profile
+directory and ``resilience.host<i>.json``, and serves its own exporter. The
+JAX loop's pod resilience (coordinated commit, elastic membership, the
+desync check, fault injection) is not here yet;
+``train.config.unported_settings`` names the ROADMAP item.
 
 :func:`make_fleet_step` advances W independent jobs in one program
 (``train.fleet`` schedules them).
@@ -72,16 +80,21 @@ from ..obs.es_health import DegeneracyWatchdog, es_health_metrics
 from ..obs.exporter import maybe_exporter, note_health, reset_health
 from ..obs.heartbeat import device_memory_gauges, emit_heartbeat, maybe_heartbeat
 from ..obs.metrics import MetricsRegistry, record_device_memory
+from ..obs.multihost import exporter_port, profile_segment_path, trace_segment_path
 from ..obs.profile_trace import start_profile, stop_profile
 from ..obs.program_cost import ProgramLedger, record_program, roofline, set_ledger
 from ..obs.quality import QualityLedger, quality_metrics
 from ..obs.slo import build_trainer_evaluator
 from ..obs.trace import Tracer
+from ..parallel.collectives import (host_allgather_rows, host_scalar_allgather, is_master, live_ranks, process_count,
+                                    process_rank, set_gather_grace, set_live_ranks)
+from ..parallel.mesh import host_slices, initialize_multihost, process_device
 from ..parallel.pop_eval import make_fleet_evaluator, make_population_evaluator
+from ..parallel.pop_update import make_sharded_es_update, pop_shard_update_plan
 from ..resilience.checkpoints import CheckpointStore
 from ..resilience.preempt import HALT_MARKER, PREEMPT_MARKER, PreemptionHandler, write_marker
 from ..resilience.rollback import RollbackController
-from ..resilience.telemetry import host_snapshot_payload
+from ..resilience.telemetry import host_snapshot_payload, write_host_snapshot
 from ..utils import threefry
 from ..utils.graphs import GraphCache
 from ..utils.images import make_prompt_strip, resize_lanczos, to_uint8, write_png
@@ -94,12 +107,10 @@ from .logging import MetricsLogger
 REWARD_KEYS = ("clip_aesthetic", "clip_text", "no_artifacts", "pickscore", "combined")
 
 
-def _combine_and_update(theta: Any, prev_delta: Any, noise: Any, rewards: Dict[str, torch.Tensor], *,
-                        tc: TrainConfig, es_cfg, pop: int, num_unique: int, repeats: int,
-                        lr: Optional[torch.Tensor] = None):
-    """Rewards → scores → fitness → EGGROLL update → caps → metrics.
-    Returns ``(θ', Δθ, metrics, opt_scores)``. ``lr`` (the fleet's per-job
-    f32 ``lr_scale·σ`` as a device tensor) replaces ``es_cfg.lr``."""
+def _scores(rewards: Dict[str, torch.Tensor], *, tc: TrainConfig, pop: int, num_unique: int,
+            repeats: int) -> Tuple[torch.Tensor, ...]:
+    """Rewards → ``(S [pop, m], opt_scores, sigma_bar, fitness, n_finite)``:
+    the repeat means, promptnorm and the masked standardization."""
     # S[k, j]: mean over repeats (grouped layout [r][m])
     S = rewards["combined"].reshape(pop, repeats, num_unique).mean(dim=1)
     if tc.promptnorm:
@@ -108,7 +119,26 @@ def _combine_and_update(theta: Any, prev_delta: Any, noise: Any, rewards: Dict[s
         opt_scores = S.mean(dim=1)
         sigma_bar = torch.zeros((), device=S.device)
     fitness, n_finite = standardize_fitness_masked(opt_scores)
-    theta_new = es_update(theta, noise, fitness, pop, es_cfg, lr=lr)
+    return S, opt_scores, sigma_bar, fitness, n_finite
+
+
+def _combine_and_update(theta: Any, prev_delta: Any, noise: Any, rewards: Dict[str, torch.Tensor], *,
+                        tc: TrainConfig, es_cfg, pop: int, num_unique: int, repeats: int,
+                        lr: Optional[torch.Tensor] = None):
+    """Rewards → scores → fitness → EGGROLL update → caps → metrics.
+    Returns ``(θ', Δθ, metrics, opt_scores)``. ``lr`` (the fleet's per-job
+    f32 ``lr_scale·σ`` as a device tensor) replaces ``es_cfg.lr``."""
+    scores = _scores(rewards, tc=tc, pop=pop, num_unique=num_unique, repeats=repeats)
+    theta_new = es_update(theta, noise, scores[3], pop, es_cfg, lr=lr)
+    return _capped(theta, theta_new, prev_delta, rewards, scores, tc=tc, es_cfg=es_cfg, pop=pop,
+                   num_unique=num_unique, repeats=repeats)
+
+
+def _capped(theta: Any, theta_new: Any, prev_delta: Any, rewards: Dict[str, torch.Tensor],
+            scores: Tuple[torch.Tensor, ...], *, tc: TrainConfig, es_cfg, pop: int, num_unique: int, repeats: int):
+    """The step cap, the θ cap and the metrics after the update:
+    ``(θ', Δθ, metrics, opt_scores)``."""
+    S, opt_scores, sigma_bar, fitness, n_finite = scores
     theta_new, step_scale = cap_step_norm(theta, theta_new, tc.max_step_norm)
     theta_new, theta_scale = cap_theta_norm(theta_new, tc.theta_max_norm)
     delta = tree_replace_leaves(theta, [a - b for a, b in zip(tree_leaves(theta_new), tree_leaves(theta))])
@@ -195,10 +225,18 @@ def make_es_step(backend: Any, reward_fn: Any, tc: TrainConfig, num_unique: int,
     ``device`` must be the backend's device; ``None`` means the card and
     raises without one. ``noise`` (a tree from ``es.sample_noise``'s
     structure) and ``gen_noise`` (``[m·r, *backend.noise_shape]``) replace
-    the step's own draws (another entry of the cache)."""
+    the step's own draws (another entry of the cache).
+
+    The update is replicated: ``tc.pop_shard_update="on"`` raises here, as
+    the JAX step does without a pop axis to shard over; across the
+    processes of a launch the sharded update runs in
+    :func:`make_host_sharded_programs`."""
     dev = resolve_device(device)
     if dev != backend.device:
         raise ValueError(f"make_es_step on {dev}, but the backend lives on {backend.device}")
+    if _resolve_update_fn(tc, tc.es_config()) is not None:
+        raise ValueError("make_es_step is one process's whole-population program; the pop-sharded update over "
+                         f"{process_count()} processes runs in make_host_sharded_programs")
     es_cfg = tc.es_config()
     pop = tc.pop_size
     eval_pop = make_population_evaluator(backend.generate_p, reward_fn, pop, es_cfg, tc.member_batch,
@@ -236,6 +274,101 @@ def make_es_step(backend: Any, reward_fn: Any, tc: TrainConfig, num_unique: int,
 
     step.graphs = graphs
     return step
+
+
+def _resolve_update_fn(tc: TrainConfig, es_cfg) -> Optional[Callable]:
+    """``tc.pop_shard_update`` against the launch's pop axis (its process
+    count): the sharded update, or ``None`` for the replicated one (off,
+    one process, or ``auto`` with a base that does not tile the processes).
+    ``on`` where the sharding cannot exist raises (``parallel.pop_update``
+    names why)."""
+    enabled, _reason = pop_shard_update_plan(tc.pop_shard_update, tc.pop_size, es_cfg.antithetic)
+    return make_sharded_es_update(tc.pop_size, es_cfg) if enabled else None
+
+
+def make_host_sharded_programs(backend: Any, reward_fn: Any, tc: TrainConfig, num_unique: int, repeats: int,
+                               host_slice: Tuple[int, int], device: DeviceLike = None, *,
+                               graphs: Optional[GraphCache] = None):
+    """The epoch split at the EGGROLL seam for a host-sharded launch: two
+    programs with the pod's reward gather between them on the host.
+
+    - ``eval_slice(theta, flat_ids, key) → rewards [n, B]``: this process's
+      members ``host_slice = (lo, n)``, generated and rewarded here (global
+      member ids, the global ``pop_size``, ``make_population_evaluator``'s
+      chunks of whole lanes), from the epoch's draws (:func:`es_draws`).
+    - ``update(theta, prev_delta, rewards_full, key) → (θ', Δθ, metrics,
+      opt_scores)``: the update every process computes from the gathered
+      ``[pop, B]`` rows (``collectives.host_allgather_rows``), the ES noise
+      drawn again from the same key (common random numbers: the eval's draw
+      bitwise).
+
+    Each is an entry of ``graphs`` (``None``: :func:`program_cache`), a CUDA
+    graph on the card, keyed ``(m, r, "eval_slice")`` and ``(m, r,
+    "update")``. With the pop-sharded update on (``tc.pop_shard_update``,
+    ``parallel.pop_update``), the update is two entries, ``(m, r,
+    "update_partial")`` (scores, fitness and this process's partial sums)
+    and ``(m, r, "update_apply")`` (the sum applied, caps and metrics),
+    with the one all-reduce of the flat partial buffer between them on the
+    host: a graph cannot hold the host copy gloo needs.
+
+    Within a launch every process computes the same θ' (the same update
+    from the same gathered bytes). Against one process running
+    :func:`make_es_step`: bitwise with the replicated update when
+    ``member_batch`` divides the slice (the same chunks), within f32
+    rounding with the sharded one (the sum order)."""
+    dev = resolve_device(device)
+    if dev != backend.device:
+        raise ValueError(f"make_host_sharded_programs on {dev}, but the backend lives on {backend.device}")
+    es_cfg = tc.es_config()
+    pop = tc.pop_size
+    count = num_unique * repeats
+    eval_pop = make_population_evaluator(backend.generate_p, reward_fn, pop, es_cfg, tc.member_batch,
+                                         reward_tile=tc.reward_tile, pop_fuse=tc.pop_fuse, host_slice=host_slice)
+    update_fn = _resolve_update_fn(tc, es_cfg)
+    sharded = update_fn is not None
+    if graphs is None:
+        graphs = program_cache(backend, dev)
+    plan = dict(tc=tc, es_cfg=es_cfg, pop=pop, num_unique=num_unique, repeats=repeats)
+    to_dev = lambda t: t.to(dev)  # noqa: E731
+
+    def es_noise(theta, key):
+        k_noise, _ = threefry.split(key)
+        return sample_noise(k_noise, theta, pop, es_cfg)
+
+    def eval_core(theta, ids, key):
+        noise, gen_noise = es_draws(backend, theta, key, pop, es_cfg, count)
+        return eval_pop(theta, noise, ids, gen_noise.to(torch.float32))
+
+    def update_core(theta, prev_delta, rewards, key):
+        return _combine_and_update(theta, prev_delta, es_noise(theta, key), rewards, **plan)
+
+    def partial_core(theta, rewards, key):
+        scores = _scores(rewards, tc=tc, pop=pop, num_unique=num_unique, repeats=repeats)
+        return update_fn.partial(theta, es_noise(theta, key), scores[3]), scores
+
+    def apply_core(theta, prev_delta, rewards, key, total, scores):
+        theta_new = update_fn.apply(theta, total, es_noise(theta, key))
+        return _capped(theta, theta_new, prev_delta, rewards, scores, **plan)
+
+    def eval_slice(theta, flat_ids, key: torch.Tensor):
+        ids = device_ids(flat_ids, dev)
+        if ids.numel() != count:
+            raise ValueError(f"{ids.numel()} prompt ids for a plan of {num_unique}×{repeats}")
+        return graphs((num_unique, repeats, "eval_slice"), eval_core, tree_map(to_dev, theta), ids, key.to(dev))
+
+    def update(theta, prev_delta, rewards: Dict[str, Any], key: torch.Tensor):
+        rewards = {k: torch.as_tensor(v).to(dev) for k, v in rewards.items()}
+        theta, prev_delta, key = tree_map(to_dev, theta), tree_map(to_dev, prev_delta), key.to(dev)
+        if not sharded:
+            return graphs((num_unique, repeats, "update"), update_core, theta, prev_delta, rewards, key)
+        partial, scores = graphs((num_unique, repeats, "update_partial"), partial_core, theta, rewards, key)
+        total = update_fn.reduce(partial)  # the one all-reduce, through the host
+        return graphs((num_unique, repeats, "update_apply"), apply_core, theta, prev_delta, rewards, key, total,
+                      scores)
+
+    eval_slice.graphs = update.graphs = graphs
+    update.sharded = sharded
+    return eval_slice, update
 
 
 def fleet_scalar_args(tc_list: Sequence[TrainConfig]) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -353,11 +486,25 @@ def _init_theta(backend: Any, tc: TrainConfig, dev: torch.device) -> Any:
     return backend.init_theta(threefry.fold_in(threefry.prng_key(tc.seed, dev), 17))
 
 
+def _host_step(eval_slice: Callable, update: Callable) -> Callable:
+    """A host-sharded epoch with the stateful step's signature: this
+    process's reward rows, the gather of every process's rows (the only
+    data that crosses processes), then the update."""
+
+    def step(theta, prev_delta, flat_ids, key):
+        rows = {k: v.cpu().numpy() for k, v in eval_slice(theta, flat_ids, key).items()}
+        return update(theta, prev_delta, host_allgather_rows(rows), key)
+
+    return step
+
+
 def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                  on_epoch_end: Optional[Callable[[int, Dict[str, Any]], None]] = None,
                  device: DeviceLike = None) -> TrainState:
     """Train ``tc.num_epochs`` epochs of ES on one device (``None``: the
-    card) into ``tc.run_dir / tc.auto_run_name(backend.name)``.
+    card; in a launch of several processes ``cuda:{rank % cards}``,
+    ``parallel.mesh.process_device``) into ``tc.run_dir /
+    tc.auto_run_name(backend.name)``.
 
     Per dispatch: the plan (``backend.step_info(epoch, …)``), the step (one
     program per (m, r)), run once, or ``K = min(steps_per_dispatch, epochs
@@ -414,32 +561,62 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
     a CUDA call that could break a capture. ``tc.stall_cap_s`` arms the
     stall watchdog: ``stall_action="checkpoint_exit"`` requests a
     preemption, so the run saves at the next boundary and ends as
-    preempted."""
+    preempted.
+
+    In a launch of N processes (``parallel.mesh.initialize_multihost``, run
+    here too) the population is host-sharded (``tc.pop_host_shard`` auto or
+    on; off with N > 1 raises: the port has no program spanning processes):
+    each epoch is :func:`make_host_sharded_programs`' two programs around the
+    reward gather, and is never chained. Process 0 writes ``metrics.jsonl``,
+    ``quality.jsonl``, ``programs.jsonl``, the slots, the markers and the
+    artifacts; every process writes its trace segment
+    (``obs.multihost.trace_segment_path``), its profile directory and
+    ``resilience.host<i>.json`` (at each save and at the end), and serves
+    its exporter on ``tc.metrics_port + rank``. One host gather an epoch
+    carries the means of the wall-clock and ``es/*`` scalars (the row says
+    ``process_count``), a preemption requested on any process (every
+    process saves and stops at the same boundary) and the non-finite verdict
+    (any process's bad θ rolls every process back). Each slot records the
+    launch's topology, and a resume under another process count raises
+    ``TopologyMismatch``."""
     unported = unported_settings(tc)
     if unported:
         raise NotImplementedError("the port's run_training does not have this machinery yet: "
                                   + "; ".join(unported))
-    dev = resolve_device(device)
+    initialize_multihost()
+    master, pc = is_master(), process_count()
+    host_shard = tc.pop_host_shard == "on" or (pc > 1 and tc.pop_host_shard != "off")
+    if pc > 1 and not host_shard:
+        raise ValueError(f"--pop_host_shard off with {pc} processes asks for one program spanning the processes, "
+                         "which the port does not have: it shards the population over processes only "
+                         "(--pop_host_shard auto or on)")
+    host_lo, host_lpop = host_slices(tc.pop_size, pc)[process_rank()] if host_shard else (0, tc.pop_size)
+    dev = process_device(device)
     backend.setup()
     run_dir = Path(tc.run_dir) / tc.auto_run_name(backend.name)
     registry = MetricsRegistry()
     res_registry = MetricsRegistry(prefix="resilience/")
-    logger = MetricsLogger(run_dir, registry=res_registry)
+    logger = MetricsLogger(run_dir if master else None, registry=res_registry)
 
     def observe_phase(name: str, dur_s: float) -> None:
         if name in _PHASES:
             registry.observe(f"phase_{name}_seconds", dur_s)
 
-    tracer = Tracer(run_dir / "trace.jsonl" if tc.trace else None, on_span=observe_phase)
-    # the launch topology every slot records and a resume must match
-    topology = {"process_count": 1, "pop_shards": 1, "pop_size": tc.pop_size, "pop_host_shard": False}
+    tracer = Tracer(trace_segment_path(run_dir) if tc.trace else None, on_span=observe_phase)
+    # the launch topology every slot records and a resume must match (one
+    # device a process: no pop axis inside a program)
+    topology = {"process_count": pc, "pop_shards": 1, "pop_size": tc.pop_size, "pop_host_shard": bool(host_shard)}
+    if host_shard:
+        for r in range(pc):
+            logger.info(f"host pop slices: process {r} -> members [{r * host_lpop}..{(r + 1) * host_lpop - 1}]")
     store = CheckpointStore(run_dir, keep=tc.ckpt_keep, registry=res_registry)
     rollback_ctrl = RollbackController(policy=tc.rollback_policy, max_rollbacks=tc.max_rollbacks,
                                        sigma_shrink=tc.rollback_sigma_shrink, explode_norm=tc.theta_explode_norm)
-    for stale in (PREEMPT_MARKER, HALT_MARKER):  # this run is live now
-        (run_dir / stale).unlink(missing_ok=True)
-    quality_ledger = (QualityLedger(run_dir, reward_keys=REWARD_KEYS, hack_window=tc.quality_hack_window)
-                      if tc.quality else None)
+    if master:
+        for stale in (PREEMPT_MARKER, HALT_MARKER):  # this run is live now
+            (run_dir / stale).unlink(missing_ok=True)
+    quality_ledger = (QualityLedger(run_dir if master else None, reward_keys=REWARD_KEYS,
+                                    hack_window=tc.quality_hack_window) if tc.quality else None)
 
     def degenerate(consecutive: int) -> None:
         registry.inc("es_degenerate_warnings")
@@ -459,7 +636,7 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
     # the dict in this holder (never mutated while a scrape may iterate it)
     latest_scalars_ref: Dict[str, Dict[str, Any]] = {"scalars": {}}
     slo_eval = build_trainer_evaluator(tc.slo, registry, res_registry) if tc.slo else None
-    anomaly_watchdog = (AnomalyWatchdog(run_dir=run_dir, window=tc.anomaly_window,
+    anomaly_watchdog = (AnomalyWatchdog(run_dir=run_dir if master else None, window=tc.anomaly_window,
                                         min_history=tc.anomaly_min_epochs, z_thresh=tc.anomaly_z)
                         if tc.anomaly_detect else None)
     incarnation = {"id": "pending"}
@@ -469,7 +646,7 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
             "backend": backend.name,
             "run_dir": str(run_dir),
             "topology": topology,
-            "membership": {"incarnation": incarnation["id"], "live_ranks": [0], "transitions": []},
+            "membership": {"incarnation": incarnation["id"], "live_ranks": live_ranks(), "transitions": []},
             "resilience": host_snapshot_payload(registry=res_registry),
             "queue": None,  # the trainer has no serving queue; the key is shared
         }
@@ -501,9 +678,10 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
 
     exporter = None
     profiler = None  # the open profile window, stopped in `finally` if the run ends inside it
+    state = None
     try:
         exporter = maybe_exporter(
-            tc.metrics_port, host=tc.metrics_host,
+            exporter_port(tc.metrics_port), host=tc.metrics_host,
             registries=[registry, res_registry] + ([slo_eval.registry] if slo_eval is not None else [])
             + ([anomaly_watchdog.registry] if anomaly_watchdog is not None else []),
             scalar_sources=[lambda: latest_scalars_ref["scalars"]],
@@ -539,13 +717,14 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
             prev_delta = (tree_map(to_dev, restored_delta) if restored_delta is not None
                           else tree_map(torch.zeros_like, theta))
 
-        incarnation["id"] = f"i{start_epoch}.n1"
-        set_ledger(ProgramLedger(run_dir / "programs.jsonl"))
+        incarnation["id"] = f"i{start_epoch}.n{pc}"
+        set_ledger(ProgramLedger(run_dir / "programs.jsonl" if master else None))
         state = TrainState(theta=theta, epoch=start_epoch, rollbacks=rollback_ctrl.rollbacks)
         step_cache: Dict[Tuple[int, int], Callable] = {}
         # one program per (m, r) plan: a CUDA graph on the card, its warm-up counted
         programs = program_cache(backend, dev, registry=registry, tracer=tracer, count_cost=True,
                                  span_attrs=lambda plan: {"m": plan[0], "r": plan[1]})
+        profile_dir = profile_segment_path(run_dir)
         # each plan's ledger record (the MFU and roofline inputs), and the
         # host's wall seconds of its latest dispatch (the calibration's
         # fallback where the profile has no device time)
@@ -554,22 +733,25 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
         peak_flops, hbm_bw = device_peak_flops(dev), device_hbm_bandwidth(dev)
         if tc.profile_epochs > 0:
             profiler = start_profile(dev)
-            logger.info(f"profiler trace on for {tc.profile_epochs} epochs → {run_dir / 'profile'}")
+            logger.info(f"profiler trace on for {tc.profile_epochs} epochs → {profile_dir}")
         last_saved_boundary = -1
 
         def do_save(boundary: int, reward: float) -> None:
             """One slot at an epoch boundary, once (a preemption on a
-            save_every boundary writes one)."""
+            save_every boundary writes one), written by process 0 (θ is
+            replicated); every process then writes its host snapshot."""
             nonlocal last_saved_boundary
             if last_saved_boundary == boundary:
                 return
-            with tracer.span("checkpoint"), hb("checkpoint"):
-                save_checkpoint(run_dir, state.theta, boundary, reward, backend.name,
-                                config={**dataclasses.asdict(tc_live), "_rollbacks": rollback_ctrl.rollbacks},
-                                prev_delta=prev_delta, keep=tc.ckpt_keep, legacy_mirror=tc.ckpt_legacy_mirror,
-                                topology=topology, registry=res_registry)
+            if master:
+                with tracer.span("checkpoint"), hb("checkpoint"):
+                    save_checkpoint(run_dir, state.theta, boundary, reward, backend.name,
+                                    config={**dataclasses.asdict(tc_live), "_rollbacks": rollback_ctrl.rollbacks},
+                                    prev_delta=prev_delta, keep=tc.ckpt_keep, legacy_mirror=tc.ckpt_legacy_mirror,
+                                    topology=topology, registry=res_registry)
+                res_registry.gauge("last_saved_epoch", boundary)
             last_saved_boundary = boundary
-            res_registry.gauge("last_saved_epoch", boundary)
+            write_host_snapshot(run_dir, epoch=boundary, extra={"committed": master}, registry=res_registry)
 
         def _epochs_until_due(e: int) -> int:
             """Epochs from ``e`` to the next one with host work of its own
@@ -590,15 +772,25 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                     info = backend.step_info(epoch, tc.prompts_per_gen, tc.batches_per_gen)
                     m, r = len(info.unique_ids), info.repeats
                 warm = (m, r) in step_cache
+                if pc > 1:
+                    # an epoch that builds programs gives its gathers the
+                    # compile grace: the peers are building the same ones
+                    set_gather_grace(not warm)
                 if not warm:
-                    step_cache[(m, r)] = make_es_step(backend, reward_fn, tc_live, m, r, dev, stateful_delta=True,
-                                                      graphs=programs)
+                    if host_shard:
+                        step_cache[(m, r)] = _host_step(*make_host_sharded_programs(
+                            backend, reward_fn, tc_live, m, r, (host_lo, host_lpop), dev, graphs=programs))
+                    else:
+                        step_cache[(m, r)] = make_es_step(backend, reward_fn, tc_live, m, r, dev,
+                                                          stateful_delta=True, graphs=programs)
                 # epochs per dispatch: K > 1 only once the plan has run,
                 # outside the profile window, and with nothing due inside
-                # the chain (the JAX loop's rule)
+                # the chain (the JAX loop's rule); never host-sharded, where
+                # the reward gather splits every epoch
                 K = 1
                 in_window = profiler is not None and epoch - start_epoch < tc.profile_epochs
-                if tc.steps_per_dispatch > 1 and warm and not in_window and _epochs_until_due(epoch) > 0:
+                if tc.steps_per_dispatch > 1 and warm and not in_window and not host_shard and \
+                        _epochs_until_due(epoch) > 0:
                     K = min(tc.steps_per_dispatch, tc.num_epochs - epoch, _epochs_until_due(epoch))
                 infos = [info]
                 if K > 1:
@@ -609,7 +801,7 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                 # the chain's ids and keys, staged on the device before any replay
                 ids_k = device_ids([f for i in infos for f in i.flat_ids], dev).reshape(K, m * r)
                 keys_k = torch.stack([epoch_key(tc.seed, epoch + j, dev) for j in range(K)])
-                due = [bool(every) and K == 1 and (epoch + 1) % every == 0
+                due = [master and bool(every) and K == 1 and (epoch + 1) % every == 0
                        for every in (tc.log_hist_every, tc.log_images_every, tc.snapshot_every)]
                 hist_due, strips_due, snapshot_due = due
                 # θ before the update, for Δθ and the member regenerations:
@@ -630,13 +822,24 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                 dt = time.perf_counter() - t0
                 opt_np = opt_scores.float().cpu().numpy() if theta_before is not None else None
                 if not warm:
-                    entry = programs.entries[(m, r)]
-                    step_cost[(m, r)] = record_program(
-                        site="train", label=label, stats=entry.stats, cost=entry.cost, device=dev,
-                        geometry={"m": m, "r": r, "pop": tc.pop_size, "member_batch": tc.member_batch,
-                                  "remat": tc_live.remat, "noise_dtype": tc_live.noise_dtype,
-                                  "tower_dtype": tc_live.tower_dtype, "pop_fuse": tc_live.pop_fuse,
-                                  "base_quant": tc_live.base_quant, "mesh_shape": None, "n_devices": 1})
+                    geometry = {"m": m, "r": r, "pop": tc.pop_size, "member_batch": tc.member_batch,
+                                "remat": tc_live.remat, "noise_dtype": tc_live.noise_dtype,
+                                "tower_dtype": tc_live.tower_dtype, "pop_fuse": tc_live.pop_fuse,
+                                "base_quant": tc_live.base_quant, "mesh_shape": None, "n_devices": 1}
+                    if host_shard:
+                        # the eval slice holds nearly all the FLOPs the MFU line reports
+                        entry = programs.entries[(m, r, "eval_slice")]
+                        step_cost[(m, r)] = record_program(
+                            site="train", label=f"es_eval_slice_m{m}r{r}", stats=entry.stats, cost=entry.cost,
+                            device=dev, geometry={**geometry, "host_slice": [host_lo, host_lpop]})
+                        for key in [k for k in programs.entries if k[:2] == (m, r) and k[2].startswith("update")]:
+                            entry = programs.entries[key]
+                            record_program(site="train", label=f"es_{key[2]}_m{m}r{r}", stats=entry.stats,
+                                           cost=entry.cost, device=dev, geometry=geometry)
+                    else:
+                        entry = programs.entries[(m, r)]
+                        step_cost[(m, r)] = record_program(site="train", label=label, stats=entry.stats,
+                                                           cost=entry.cost, device=dev, geometry=geometry)
                 prog = step_cost.get((m, r), {})
                 if K == 1:
                     host_step_s[f"train/{label}"] = dt
@@ -662,8 +865,27 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                         if rf[rk] is not None:
                             scalars[f"roofline/{rk}"] = rf[rk]
                 degen_watchdog.update(float(scalars.get("es/fitness_zero", 0.0)) >= 0.5)
+                # one host gather an epoch carries the pod's agreement: the
+                # means of the host-local numbers, the preemption broadcast
+                # (every process leaves at the same boundary) and the
+                # non-finite verdict (every process takes the same branch)
+                local_bad = rollback_ctrl.is_bad(scalars.get("theta_norm"))
+                bad_theta, preempt_now = local_bad, preempt.requested
+                if pc > 1:
+                    reduce_keys = [k for k in scalars if k in ("step_time_s", "images_per_sec", "mfu")
+                                   or (k.startswith("es/") and not k.startswith("es/leaf_"))]
+                    payload = {k: scalars[k] for k in reduce_keys}
+                    payload["_preempt_req"] = 1.0 if preempt.requested else 0.0
+                    payload["_bad_theta"] = 1.0 if local_bad else 0.0
+                    gathered = host_scalar_allgather(payload)
+                    scalars.update({k: float(gathered[k].mean()) for k in reduce_keys})
+                    scalars["process_count"] = pc
+                    preempt_now = bool(gathered["_preempt_req"].max() > 0)
+                    if preempt_now and not preempt.requested:
+                        preempt.request("preemption broadcast from a peer host")
+                    bad_theta = bool(gathered["_bad_theta"].max() > 0)
                 rollback_action = None
-                if rollback_ctrl.is_bad(scalars.get("theta_norm")):
+                if bad_theta:
                     rollback_action = rollback_ctrl.next_action()
                     state.rollbacks = rollback_ctrl.rollbacks
                     res_registry.inc("rollbacks")
@@ -699,10 +921,12 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                             logger.info("rollback requested but no valid checkpoint slot — halting")
                             rollback_action = "halt"
                     if rollback_action == "halt":
-                        write_marker(run_dir, HALT_MARKER, {
-                            "epoch": int(epoch), "reason": "non-finite theta", "rollbacks": rollback_ctrl.rollbacks,
-                            "theta_norm": str(scalars.get("theta_norm")), "policy": rollback_ctrl.policy,
-                        })
+                        if master:
+                            write_marker(run_dir, HALT_MARKER, {
+                                "epoch": int(epoch), "reason": "non-finite theta",
+                                "rollbacks": rollback_ctrl.rollbacks, "theta_norm": str(scalars.get("theta_norm")),
+                                "policy": rollback_ctrl.policy,
+                            })
                         state.halted = True
                         logger.info(f"HALT (non-finite theta) after {rollback_ctrl.rollbacks} rollback(s) at "
                                     f"epoch {epoch} — see {HALT_MARKER}")
@@ -741,8 +965,9 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                 theta_before = None
                 if profiler is not None and epoch + 1 - start_epoch >= tc.profile_epochs:
                     prof, profiler = profiler, None
-                    stop_profile(prof, run_dir / "profile" / "train.pt.trace.json")
-                    _calibrate(run_dir, host_step_s, registry, logger)
+                    stop_profile(prof, profile_dir / "train.pt.trace.json")
+                    if master:
+                        _calibrate(run_dir, host_step_s, registry, logger)
                 if tc.save_every and ((epoch + 1) % tc.save_every == 0 or epoch + 1 == tc.num_epochs):
                     do_save(epoch + 1, scalars["opt_score_mean"])
                 res_registry.gauge("last_good_epoch", epoch + 1)
@@ -750,9 +975,13 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                     on_epoch_end(epoch, scalars)
                 epoch += 1
                 state.epoch = epoch
-                if preempt.requested:
+                # a launch leaves on the gathered verdict, so every process
+                # stops at the same boundary; a request after the gather
+                # waits for the next epoch's
+                if preempt_now if pc > 1 else preempt.requested:
                     do_save(epoch, scalars["opt_score_mean"])
-                    write_marker(run_dir, PREEMPT_MARKER, {"epoch": int(epoch), "reason": preempt.reason})
+                    if master:
+                        write_marker(run_dir, PREEMPT_MARKER, {"epoch": int(epoch), "reason": preempt.reason})
                     res_registry.gauge("preempted", 1)
                     state.preempted = True
                     logger.info(f"preempted at epoch boundary {epoch} — checkpoint saved; resume with --resume auto")
@@ -761,11 +990,16 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
     finally:
         if profiler is not None:
             try:
-                stop_profile(profiler, run_dir / "profile" / "train.pt.trace.json")
+                stop_profile(profiler, profile_dir / "train.pt.trace.json")
             except Exception as e:  # never masks the run's own failure, never silent
                 registry.inc("cleanup_errors")
                 print(f"[obs] WARNING: cleanup swallowed {e!r} from the profiler's stop", file=sys.stderr, flush=True)
-        if tc.quality:
+        if state is not None:
+            # this process's resilience summary: the only record of a
+            # process other than 0, whose counters never reach metrics.jsonl
+            write_host_snapshot(run_dir, epoch=state.epoch, registry=res_registry, extra={
+                "preempted": state.preempted, "halted": state.halted, "rollbacks": state.rollbacks})
+        if tc.quality and master:
             _write_quality(run_dir, registry, logger)
         set_ledger(None)
         if exporter is not None:
@@ -773,6 +1007,10 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                 emit_heartbeat("train", "metrics_linger", linger_s=tc.metrics_linger_s)
                 time.sleep(tc.metrics_linger_s)
             exporter.stop()
+        # the gather deadline and the membership are process-global: a
+        # later run in this process starts from the defaults
+        set_gather_grace(False)
+        set_live_ranks(None)
         preempt.uninstall()
 
 
