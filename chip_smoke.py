@@ -3328,7 +3328,7 @@ ZIMAGE_LATENT = 64
 # the ES plan: pop 8 (antithetic), 2 prompts, one chunk of 8 lanes, r_l 8 on
 # the transformer and r 4 on the decoder, noise f32, towers bf16, int8 base
 ZIMAGE_POP, ZIMAGE_PROMPTS, ZIMAGE_MB = 8, 2, 8
-ZIMAGE_EPOCHS = 3  # run_training epochs of phase_zimage_es, the first the warm-up and capture
+ZIMAGE_EPOCHS = 2  # run_training epochs of phase_zimage_es, the first the warm-up and capture
 ZIMAGE_TEXT = 24  # synthetic prompt positions (backends.zimage_backend.SYNTH_TEXT_LEN)
 
 
@@ -4571,6 +4571,7 @@ def _serve_tier(torch, backend, serve, engine, pop, template, rec, pool, warm_s,
         raise AssertionError(f"served alone and batched differ by {solo_diff}")
     one_step_image = solo
     one_step_request = (r0.request.adapter_id, r0.request.prompt_ids, r0.request.seed, pop.theta_for(index))
+    faults = _serve_faults(engine, pop, backend)
     engine.close()
     del engine, batched
 
@@ -4627,7 +4628,75 @@ def _serve_tier(torch, backend, serve, engine, pop, template, rec, pool, warm_s,
                                                  "goodput_retention", "off_goodput_retention")},
                 solo_vs_batched_max_abs=solo_diff, pipeline=dict(launches_profiled=pipe_launches, expected=expected,
                                                                  busy_ms=busy, vs_one_step_max_abs=pipe_diff),
-                warmup_s=warm_s)
+                warmup_s=warm_s, faults=faults)
+
+
+SERVE_SLOW_FAULT_S = 0.5  # HYPERSCALEES_SLOW_FAULT_S of the serving faults
+
+
+def _serve_faults(engine, pop, backend):
+    """The serving faults on the tier's engine (``resilience.faultinject``):
+    ``store_io*1`` over one full flush of ``TIER_LANES`` requests must fail
+    exactly one request (the first's ``AdapterStore.get``) while the others
+    of the batch complete, in one dispatch; ``slow_dispatch*2`` over three
+    one-request flushes must give the first two dispatches a ``dispatch_s``
+    of at least the sleep ``SERVE_SLOW_FAULT_S`` plus 0.8 × the engine's
+    fastest undisturbed dispatch, and the overload layer's EWMA for the
+    geometry must take those ``dispatch_s`` (its update rule, to 1 ms) and
+    rise at both."""
+    from hyperscalees_t2i_tpu_torch.resilience import faultinject
+
+    for i in range(TIER_LANES):
+        pop.ensure(engine, i)
+    dispatches = engine.stats()["dispatches"]
+    faultinject.set_fault_plan(faultinject.FaultPlan.parse("store_io*1"))
+    reqs = [engine.submit(pop.adapter_id(i), [i % backend.num_items], seed=1000 + i) for i in range(TIER_LANES)]
+    res = engine.flush()
+    failed = [r for r in res if not r.ok]
+    if len(res) != TIER_LANES or len(failed) != 1 or failed[0].request.request_id != reqs[0].request_id or \
+            "injected store_io fault" not in (failed[0].error or "") or \
+            engine.stats()["dispatches"] != dispatches + 1:
+        raise AssertionError(f"store_io*1: {len(failed)} of {len(res)} requests failed "
+                             f"({[r.error for r in failed]}), {engine.stats()['dispatches'] - dispatches} dispatches")
+    ewma, old = engine._governor.ewma, os.environ.get("HYPERSCALEES_SLOW_FAULT_S")
+    before = ewma.get(reqs[1].geometry_key)
+    os.environ["HYPERSCALEES_SLOW_FAULT_S"] = str(SERVE_SLOW_FAULT_S)
+    try:
+        faultinject.set_fault_plan(faultinject.FaultPlan.parse("slow_dispatch*2"))
+        n0, preds = len(engine.dispatch_seconds), []
+        for i in range(3):
+            engine.submit(pop.adapter_id(0), [0], seed=2000 + i)
+            (r,) = engine.flush()
+            if not r.ok:
+                raise AssertionError(f"slow_dispatch: a request failed: {r.error}")
+            preds.append(ewma.get(r.request.geometry_key))
+        slow, steady = engine.dispatch_seconds[n0:n0 + 2], engine.dispatch_seconds[n0 + 2]
+    finally:
+        faultinject.set_fault_plan(None)
+        if old is None:
+            os.environ.pop("HYPERSCALEES_SLOW_FAULT_S", None)
+        else:
+            os.environ["HYPERSCALEES_SLOW_FAULT_S"] = old
+    # the sleep is inside the timed dispatch: a slowed dispatch_s holds the
+    # sleep and a dispatch's own work (at least 0.8 × the fastest undisturbed
+    # dispatch of this engine: a replay after an idle sleep can run faster
+    # than any in the sweep); the EWMA takes those dispatch_s (its own
+    # reading ends a few µs before the engine's dispatch_seconds entry)
+    fastest = min(engine.dispatch_seconds[:n0] + [steady])
+    a = ewma.alpha
+    want = [a * slow[0] + (1 - a) * before]
+    want += [a * slow[1] + (1 - a) * want[0], a * steady + (1 - a) * preds[1]]
+    if min(slow) < SERVE_SLOW_FAULT_S + 0.8 * fastest or max(abs(p - w) for p, w in zip(preds, want)) > 1e-3 \
+            or not before < preds[0] < preds[1]:
+        raise AssertionError(f"slow_dispatch*2: dispatch_s {slow} against {steady} (fastest {fastest}, sleep "
+                             f"{SERVE_SLOW_FAULT_S}); EWMA {before} then {preds} (want {want})")
+    log(f"[serve-tier] faults: store_io*1 failed 1 of {TIER_LANES} requests in one dispatch, the others served; "
+        f"slow_dispatch*2 ({SERVE_SLOW_FAULT_S} s): dispatch_s {slow[0]:.4f}, {slow[1]:.4f} s against {steady:.4f} "
+        f"s undisturbed (the engine's fastest {fastest:.4f} s), the EWMA {before:.4f} → {preds[0]:.4f} → "
+        f"{preds[1]:.4f} → {preds[2]:.4f} s")
+    return dict(store_io_failed=1, requests=TIER_LANES, slow_dispatch_s=slow, steady_dispatch_s=steady,
+                fastest_dispatch_s=fastest,
+                ewma=[before] + preds, sleep_s=SERVE_SLOW_FAULT_S)
 
 
 
@@ -6075,6 +6144,20 @@ def phase_weights_sana(torch):
 MULTIPROC_N = 2  # processes of the multi-process phase, all on the one card
 MULTIPROC_EPOCHS = 2  # run_training epochs: the first warms up and captures, the second replays
 MULTIPROC_TOL = 3e-4  # θ′ of the two-process run against the one-process run
+# the chaos launch (phase_chaos_es): its epochs, each fault's place, and the
+# store deadlines that make a death cost seconds (the compile grace still
+# covers the warm-up and capture epoch)
+CHAOS_EPOCHS = 6
+CHAOS_LAYERS = 4  # of Sana-Sprint 1.6B's 20 blocks: the recovery logic does not depend on depth
+CHAOS_FAULTS = "desync@1:host1;torn_write@3:host1;die@4:host1"
+CHAOS_KV_ENV = {"HYPERSCALEES_KV_TIMEOUT_MS": "3000", "HYPERSCALEES_KV_PROBE_MS": "500",
+                "HYPERSCALEES_ELASTIC_ROLLCALL_MS": "1000"}
+# the epochs whose θ′ the chaos launch computes, in order: epoch 2's first
+# pass runs on host 1's forked θ and is rolled back, epochs 1-2 replay (the
+# torn slot is the replay's last, slot 3), host 1 dies after epoch 4, and
+# the one-process relaunch runs epoch 5
+CHAOS_POD_STEPS = [0, 1, 2, 1, 2, 3, 4]
+CHAOS_FORKED_STEP = 2  # the index in CHAOS_POD_STEPS of the rolled-back pass
 
 
 def _multiproc_argv(root):
@@ -6098,28 +6181,54 @@ def _multiproc_argv(root):
             "--resume", "false", "--pop_host_shard", "on", "--run_dir", str(root)]
 
 
-def multiproc_cli_run(argv, theta1=None):
+def multiproc_cli_run(argv, theta1=None, on_epoch=None, before_training=None, layers=None):
     """The train CLI's ``main(argv)`` in this process, recorded: the kernel
     wrappers' counters from 0 just before its ``run_training`` (the eager
     warm-up epoch of each program; replays are not counted) read just after,
     the launches :func:`expected_es_launches` derives for this process's
     member slice, every gathered ``[pop, B]`` reward-row dict
-    (``train.trainer.host_allgather_rows``), each epoch's row
-    ``step_time_s``, each epoch's θ′ and the final θ flat, and the
-    process's rank and device. ``theta1`` (a flat f32 θ in the same leaf
-    order), where given, replaces θ′ after the first epoch (copied into its
-    leaves in place, after it was recorded): the later epochs run from it."""
+    (``train.trainer.host_allgather_rows``), each logged epoch's row
+    ``step_time_s``, each step's θ′ (in call order: a rolled-back epoch's
+    too) and the final θ flat, the process's rank and device, the CLI's exit
+    code (``exit``: an elastic exit is ``sys.exit(0)``), and the seconds of
+    each roll-call, survivors' commit and slot restore (``timings``).
+    ``theta1`` (a flat f32 θ in the same leaf order), where given, replaces
+    θ′ after the first epoch (copied into its leaves in place, after it was
+    recorded): the later epochs run from it. ``on_epoch(rec)`` is called
+    after every logged epoch; ``before_training()`` once the CLI has built
+    the backend and the rewards, just before ``run_training``; ``wall``
+    holds the wall clock when the CLI had built (``built``), started and
+    ended ``run_training`` (``train``, ``trained``). ``layers``
+    cuts the Sana transformer the CLI builds to that many blocks (its
+    ``SanaConfig`` default), the widths unchanged."""
     import dataclasses
+    import functools
 
     import numpy as np
     import torch
 
+    from hyperscalees_t2i_tpu_torch.models import sana
     from hyperscalees_t2i_tpu_torch.parallel.collectives import process_count, process_rank
+    from hyperscalees_t2i_tpu_torch.resilience import elastic
+    from hyperscalees_t2i_tpu_torch.resilience.checkpoints import CheckpointStore
     from hyperscalees_t2i_tpu_torch.train import cli, trainer
 
-    rec = {"rows": [], "step_time_s": [], "thetas": []}
+    rec = {"rows": [], "step_time_s": [], "thetas": [], "exit": 0, "wall": {},
+           "timings": {"roll_call": [], "survivor_commit": [], "restore": []}}
     real_gather, real_run, real_step = trainer.host_allgather_rows, trainer.run_training, trainer._host_step
+    real_roll, real_commit, real_restore = elastic.roll_call, elastic.survivor_commit, CheckpointStore.restore
+    real_cfg = sana.SanaConfig
     flat = lambda tree: torch.cat([t.float().reshape(-1) for t in trainer.tree_leaves(tree)]).cpu().numpy()  # noqa: E731
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                rec["timings"][name].append(time.perf_counter() - t)
+
+        return call
 
     def gather(rows):
         full = real_gather(rows)
@@ -6144,34 +6253,73 @@ def multiproc_cli_run(argv, theta1=None):
 
         return recorded
 
+    def epoch_end(e, sc):
+        rec["step_time_s"].append(float(sc["step_time_s"]))
+        rec["launches"] = _counters()
+        if on_epoch is not None:
+            on_epoch(rec)
+
     def run(backend, reward, tc, device=None, **kw):
         info = backend.step_info(0, tc.prompts_per_gen, tc.batches_per_gen)
         mine = dataclasses.replace(tc, pop_size=tc.pop_size // process_count())
         rec["expected"], rec["per_call"] = expected_es_launches(backend, reward, mine, len(info.flat_ids))
+        rec["rank"], rec["processes"], rec["device"] = process_rank(), process_count(), str(backend.device)
+        rec["wall"]["built"] = time.time()
+        if before_training is not None:
+            before_training()
+        rec["wall"]["train"] = time.time()
         _reset_counters()
-        state = real_run(backend, reward, tc, device=device,
-                         on_epoch_end=lambda e, sc: rec["step_time_s"].append(float(sc["step_time_s"])))
+        state = real_run(backend, reward, tc, device=device, on_epoch_end=epoch_end)
+        rec["wall"]["trained"] = time.time()
         rec["launches"] = _counters()
         rec["theta"] = flat(state.theta)
-        rec["rank"], rec["processes"], rec["device"] = process_rank(), process_count(), str(backend.device)
         return state
 
     trainer.host_allgather_rows, trainer.run_training, trainer._host_step = gather, run, host_step
+    elastic.roll_call, elastic.survivor_commit = timed("roll_call", real_roll), timed("survivor_commit", real_commit)
+    CheckpointStore.restore = timed("restore", real_restore)
+    if layers is not None:
+        sana.SanaConfig = functools.partial(real_cfg, n_layers=layers)
     try:
         cli.main(argv)
+    except SystemExit as e:
+        rec["exit"] = e.code if isinstance(e.code, int) else 1
     finally:
         trainer.host_allgather_rows, trainer.run_training, trainer._host_step = real_gather, real_run, real_step
+        elastic.roll_call, elastic.survivor_commit, CheckpointStore.restore = real_roll, real_commit, real_restore
+        sana.SanaConfig = real_cfg
     return rec
 
 
-def multiproc_child(out_dir):
-    """One process of :func:`phase_multiproc_es`'s launch: its host start
-    (the imports, the first ``transformers`` import) while the one-process
-    run has the card, then, once ``out_dir/go`` says ``go``, the CLI on this
-    process's arguments (``tools.launch_local`` gives the launch's flags),
-    its record written to ``out_dir/rank<i>.npz`` and ``.json``. ``stop``
-    in that file (the one-process run failed), or no word in 300 s, exits
-    without touching the card."""
+_REC_KEYS = ("rank", "processes", "device", "launches", "expected", "per_call", "step_time_s", "exit", "timings",
+             "wall")
+
+
+def _wait_word(go, what):
+    """Wait for the file ``go`` (written whole, by a rename) and leave unless
+    it says ``go``; no word in 400 s also leaves."""
+    deadline = time.monotonic() + 400
+    while not go.exists():
+        if time.monotonic() > deadline:
+            sys.exit(f"no word {what} in 400 s")
+        time.sleep(0.05)
+    if go.read_text() != "go":
+        sys.exit(f"an earlier run failed: stopping {what}")
+
+
+def multiproc_child(out_dir, go=None, train_go=None, layers=None):
+    """One process of a launch of :func:`phase_multiproc_es` or
+    :func:`start_chaos_launches`: its host start (the imports, the first
+    ``transformers`` import) while another run has the card, then, once
+    ``go`` (default ``out_dir/go``) says ``go``, the CLI on this process's
+    arguments (``tools.launch_local`` gives the launch's flags), its record
+    written to ``out_dir/rank<i>.npz`` and ``.json`` (the ``.json`` after
+    every epoch too, so a process that dies leaves its counts). With
+    ``train_go`` the CLI builds the backend and the rewards and then waits
+    for that file's word before it trains; ``layers`` is
+    :func:`multiproc_cli_run`'s. ``stop`` in either file (an earlier run
+    failed), or no word in 400 s, exits before the card's work. The process
+    exits with the CLI's code."""
     import numpy as np
     import torch
 
@@ -6185,50 +6333,75 @@ def multiproc_child(out_dir):
     # CUDA context and the backend's build, as main() runs it beside the build
     threading.Thread(target=tokenize_with_hf, args=(["a photo"],), daemon=True).start()
     out = Path(out_dir)
-    go, deadline = out / "go", time.monotonic() + 300
-    while not go.exists():  # written whole (a rename)
-        if time.monotonic() > deadline:
-            sys.exit("no word from the one-process run in 300 s")
-        time.sleep(0.05)
-    if go.read_text() != "go":
-        sys.exit("the one-process run failed: the launch stops before the card")
-    rec = multiproc_cli_run(sys.argv[1:])
+    _wait_word(Path(go) if go else out / "go", "to start")
+    started = time.time()
+
+    def write_json(rec):
+        (out / f"rank{rec['rank']}.json").write_text(json.dumps({k: rec[k] for k in _REC_KEYS if k in rec}))
+
+    rec = multiproc_cli_run(sys.argv[1:], on_epoch=write_json, layers=layers,
+                            before_training=None if train_go is None else lambda: _wait_word(Path(train_go), "to train"))
+    rec["wall"]["go"] = started
     np.savez(out / f"rank{rec['rank']}.npz", theta=rec["theta"],
              **{f"theta{e}": t for e, t in enumerate(rec["thetas"])},
              **{f"rows{e}_{k}": v for e, rows in enumerate(rec["rows"]) for k, v in rows.items()})
-    (out / f"rank{rec['rank']}.json").write_text(json.dumps({k: rec[k] for k in (
-        "rank", "processes", "device", "launches", "expected", "per_call", "step_time_s")}))
+    write_json(rec)
+    if rec["exit"]:
+        sys.exit(rec["exit"])
+
+
+def _tell(root, word):
+    (root / "go.tmp").write_text(word)
+    (root / "go.tmp").replace(root / "go")
+
+
+def _child_code(root, go=None, train_go=None, layers=None):
+    return (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+            f"chip_smoke.multiproc_child({str(root)!r}, {str(go) if go else None!r}, "
+            f"{str(train_go) if train_go else None!r}, {layers!r})")
+
+
+def _card():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def phase_multiproc_es(torch):
     """Two processes train on the one card through ``tools.launch_local``
     (``run_pod``), each with its own CUDA context on ``cuda:0`` and the
-    command line of :func:`_multiproc_argv` with ``--pop_shard_update on``:
-    each evaluates its 2 of the 4 members (K3 and K1), the reward rows cross
-    through the launch's store, the update is split over the two processes
-    (``update_partial``, one all-reduce of the partial sums on gloo through
-    the host, ``update_apply``; from the second epoch on, replayed graphs).
-    Three runs, one at a time on the card: the same command line as one
-    process in this process (``--pop_shard_update auto``: alone, the
-    replicated update), while the launch's children start on the host and
-    wait for it; the launch; then one process again, its θ′ after the
-    first epoch replaced by the launch's (the witness).
+    command line of :func:`_multiproc_argv` with ``--pop_shard_update on``,
+    ``--save_every 1`` and ``--desync_check_every 1``: each evaluates its 2
+    of the 4 members (K3 and K1), the reward rows cross through the launch's
+    store, the update is split over the two processes (``update_partial``,
+    one all-reduce of the partial sums on gloo through the host,
+    ``update_apply``; from the second epoch on, replayed graphs), each
+    boundary's slot goes through the two-phase commit and θ's fingerprint
+    through every epoch's gather. Three runs, one at a time on the card: the
+    same command line as one process in this process (``--pop_shard_update
+    auto``: alone, the replicated update), while the launch's children start
+    on the host and wait for it; the launch; then one process again, its θ′
+    after the first epoch replaced by the launch's (the witness), while
+    :func:`start_chaos_launches`' children start on the host.
 
     Checks: each child exits 0 (a child that fails fails the phase); each
     child's counted K3 and K1 launches are exactly what its member slice
     derives (its eval program's warm-up epoch); both ranks' θ′ after every
-    epoch bitwise equal; the first epoch's gathered ``[4, 4]`` reward rows
-    bitwise those of the one-process run, and that first update's θ′ within
-    ``MULTIPROC_TOL`` of the one-process θ′ (the partial sums' order). The
-    second epoch starts from θ′ that differ in their last bits, so it is
-    held against the witness, which starts from the launch's own θ′: its
-    second epoch's gathered rows bitwise the launch's, and the launch's
-    replayed split update within ``MULTIPROC_TOL`` of the witness's
+    epoch bitwise equal; every boundary committed by a unanimous vote
+    (``resilience/ckpt_commits`` ``MULTIPROC_EPOCHS`` on both processes, no
+    ``ckpt_commit_failed``, both stores' slots with the same sha256s) and
+    ``resilience/desync`` 0 on both; the first epoch's gathered ``[4, 4]``
+    reward rows bitwise those of the one-process run, and that first
+    update's θ′ within ``MULTIPROC_TOL`` of the one-process θ′ (the partial
+    sums' order). The second epoch starts from θ′ that differ in their last
+    bits, so it is held against the witness, which starts from the launch's
+    own θ′: its second epoch's gathered rows bitwise the launch's, and the
+    launch's replayed split update within ``MULTIPROC_TOL`` of the witness's
     replicated one. How far the witness's second epoch lies from the first
     one-process run's (θ′, rows) measures what those last bits alone do.
     Prints each run's replayed epoch (its second row's ``step_time_s``; the
     launch's is the mean over its processes) with the card's name and power
-    limit."""
+    limit. Returns its record and the chaos launches for
+    :func:`phase_chaos_es`."""
     import shutil
 
     import numpy as np
@@ -6239,22 +6412,17 @@ def phase_multiproc_es(torch):
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     argv = _multiproc_argv(root)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = _card()
     # the launch starts first; its children do their host start and wait on
     # `go` while the one-process run has the card
-    code = f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; chip_smoke.multiproc_child({str(root)!r})"
     pod = {}
 
     def launch():
         t = time.perf_counter()
-        pod["rc"] = launch_local.run_pod(MULTIPROC_N, argv + ["--run_name", "pod", "--pop_shard_update", "on"],
-                                         timeout_s=400, entry=["-c", code])
+        pod["rc"] = launch_local.run_pod(MULTIPROC_N, argv + ["--run_name", "pod", "--pop_shard_update", "on",
+                                                              "--save_every", "1", "--desync_check_every", "1"],
+                                         timeout_s=400, entry=["-c", _child_code(root)])
         pod["s"] = time.perf_counter() - t
-
-    def tell(word):
-        (root / "go.tmp").write_text(word)
-        (root / "go.tmp").replace(root / "go")
 
     launcher = threading.Thread(target=launch)
     launcher.start()
@@ -6265,7 +6433,7 @@ def phase_multiproc_es(torch):
         one_s = time.perf_counter() - t0
         word = "go"
     finally:
-        tell(word)
+        _tell(root, word)
         launcher.join()
     gc.collect()
     torch.cuda.empty_cache()
@@ -6287,6 +6455,7 @@ def phase_multiproc_es(torch):
         raise AssertionError(f"the one-process run launched {one['launches']}, expected {one['expected']}")
     if not all(np.isfinite(a["theta"]).all() for a in arrays):
         raise AssertionError("θ′ is not finite")
+    commit = _check_commits(root / "pod", MULTIPROC_EPOCHS)
 
     def rows_apart(e, ref, exact):
         worst = 0.0
@@ -6311,6 +6480,21 @@ def phase_multiproc_es(torch):
     if theta_err[0] > MULTIPROC_TOL:
         raise AssertionError(f"two-process θ′ after epoch 0 is {theta_err[0]:.3g} from the one-process θ′ (bound "
                              f"{MULTIPROC_TOL})")
+    # the chaos launches' children start on the host now, and wait for the witness
+    chaos = start_chaos_launches(argv)
+    try:
+        return _multiproc_witness(torch, argv, smi, ranks, arrays, one, one_s, pod_s, theta_err, commit,
+                                  rows_apart, theta_apart), chaos
+    except BaseException:
+        stop_chaos_launches(chaos)
+        raise
+
+
+def _multiproc_witness(torch, argv, smi, ranks, arrays, one, one_s, pod_s, theta_err, commit, rows_apart,
+                       theta_apart):
+    """:func:`phase_multiproc_es` from the witness on."""
+    import numpy as np
+
     # the witness: one process from the launch's θ′ after epoch 0, so every
     # later epoch of the launch (replayed eval slices, the gather, the
     # replayed split update) is held against one process on the same input
@@ -6344,14 +6528,254 @@ def phase_multiproc_es(torch):
         f"launch's θ′ after epoch 0): later rows bitwise, the replayed split update's θ′ max abs "
         f"{max(wit_theta_err):.3g}; the witness against the first one-process run (θ′ after epoch 0 "
         f"{alone['theta0_start']:.3g} apart): θ′ after the last epoch {alone['theta'][-1]:.3g}, later rows "
-        f"{max(alone['rows']):.3g}; replayed epoch: one process {one['step_time_s'][-1]:.3f} s, witness "
+        f"{max(alone['rows']):.3g}; replayed epoch: one process {one['step_time_s'][1]:.3f} s, witness "
         f"{wit['step_time_s'][-1]:.3f} s, {MULTIPROC_N} processes {pod_replayed:.3f} s (mean of the processes); "
-        f"runs {one_s:.1f} s alone, {pod_s:.1f} s launched, {wit_s:.1f} s the witness")
-    return dict(card=smi, processes=MULTIPROC_N, launches=[rec["launches"] for rec in ranks],
-                expected=[rec["expected"] for rec in ranks], one_launches=one["launches"], theta_err=theta_err,
-                witness_theta_err=wit_theta_err, last_bits_alone=alone, one_step_time_s=one["step_time_s"],
-                witness_step_time_s=wit["step_time_s"], pod_step_time_s=pod_epoch, one_run_s=one_s,
-                pod_run_s=pod_s, witness_run_s=wit_s)
+        f"every slot committed unanimously ({commit['commits']} a process, sha256s equal in ckpt/ and "
+        f"ckpt.host1/), resilience/desync 0 with the check every epoch, commit {commit['save_s']} s a boundary "
+        f"(the checkpoint span, process 0); runs {one_s:.1f} s alone, {pod_s:.1f} s "
+        f"launched, {wit_s:.1f} s the witness")
+    record = dict(card=smi, processes=MULTIPROC_N, launches=[rec["launches"] for rec in ranks],
+                  expected=[rec["expected"] for rec in ranks], one_launches=one["launches"], theta_err=theta_err,
+                  witness_theta_err=wit_theta_err, last_bits_alone=alone, one_step_time_s=one["step_time_s"],
+                  witness_step_time_s=wit["step_time_s"], pod_step_time_s=pod_epoch, one_run_s=one_s,
+                  pod_run_s=pod_s, witness_run_s=wit_s, commit=commit)
+    return record
+
+
+def _check_commits(run, boundaries):
+    """A launch's run dir after every boundary committed: each process's
+    ``resilience/ckpt_commits`` is ``boundaries`` with no failed vote and
+    ``resilience/desync`` 0, and both stores hold every slot with the same
+    sha256s. Returns the counts and the checkpoint spans' seconds."""
+    snaps = [json.loads((run / f"resilience.host{r}.json").read_text()) for r in range(MULTIPROC_N)]
+    for r, snap in enumerate(snaps):
+        if snap.get("resilience/ckpt_commits") != boundaries or snap.get("resilience/ckpt_commit_failed") or \
+                snap.get("resilience/desync", 0) != 0:
+            raise AssertionError(f"process {r}'s commits: {snap}")
+    for e in range(1, boundaries + 1):
+        sums = [{k: v["sha256"] for k, v in json.loads((run / store / f"step_{e:08d}/manifest.json").read_text())[
+            "arrays"].items()} for store in ("ckpt", "ckpt.host1")]
+        if sums[0] != sums[1]:
+            raise AssertionError(f"slot {e} differs between ckpt/ and ckpt.host1/")
+    rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    if any(row.get("resilience/desync", 0) for row in rows):
+        raise AssertionError("a desync was reported on an undisturbed launch")
+    save = rows[-1].get("obs/phase_checkpoint_seconds") or {}
+    return dict(commits=boundaries, desync=0, slots_equal=True,
+                save_s=round(save.get("sum", float("nan")) / max(save.get("count", 1), 1), 4))
+
+
+def _chaos_argv(argv, root):
+    """The chaos launch's command line: :func:`_multiproc_argv`'s run in
+    ``root``, ``CHAOS_EPOCHS`` epochs, a slot and a desync check every
+    epoch, the replicated update (two processes bitwise one). Its processes
+    cut the transformer to ``CHAOS_LAYERS`` blocks."""
+    return argv + ["--run_dir", str(root), "--num_epochs", str(CHAOS_EPOCHS), "--save_every", "1",
+                   "--desync_check_every", "1", "--pop_shard_update", "off", "--run_name", "chaos"]
+
+
+def start_chaos_launches(argv):
+    """The two launches of :func:`phase_chaos_es`, started on threads: the
+    children do their host start now and wait on their ``go`` file. The
+    two-process launch carries ``--faults CHAOS_FAULTS`` and the store
+    deadlines ``CHAOS_KV_ENV``; the one-process relaunch resumes its run dir
+    with ``--on_topology_mismatch reshard``: it starts with the launch and
+    builds its backend beside it, then waits on ``relaunch/go`` to train."""
+    import shutil
+
+    from hyperscalees_t2i_tpu_torch.tools import launch_local
+
+    root = ROOT / "build" / "chaos_es"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "relaunch").mkdir(parents=True)
+    pod_argv = _chaos_argv(argv, root) + ["--faults", CHAOS_FAULTS]
+    re_argv = _chaos_argv(argv, root) + ["--resume", "true", "--on_topology_mismatch", "reshard"]
+    out = {"root": root, "argv": _chaos_argv(argv, root)}
+
+    def pod():
+        t = time.perf_counter()
+        out["pod_rc"] = launch_local.run_pod(MULTIPROC_N, pod_argv, timeout_s=600, grace_s=120,
+                                             entry=["-c", _child_code(root, layers=CHAOS_LAYERS)], env=CHAOS_KV_ENV)
+        out["pod_s"] = time.perf_counter() - t
+
+    def relaunch():
+        t = time.perf_counter()
+        out["relaunch_rc"] = launch_local.run_pod(1, re_argv, timeout_s=600, entry=["-c", _child_code(
+            root / "relaunch", go=root / "go", train_go=root / "relaunch" / "go", layers=CHAOS_LAYERS)])
+        out["relaunch_s"] = time.perf_counter() - t
+
+    out["threads"] = [threading.Thread(target=pod), threading.Thread(target=relaunch)]
+    for t in out["threads"]:
+        t.start()
+    return out
+
+
+def stop_chaos_launches(chaos):
+    """Tell both launches' children to leave without touching the card."""
+    _tell(chaos["root"], "stop")
+    _tell(chaos["root"] / "relaunch", "stop")
+    for t in chaos["threads"]:
+        t.join()
+
+
+def phase_chaos_es(torch, chaos):
+    """Chaos at Sana-Sprint 1.6B's widths (``CHAOS_LAYERS`` of its 20
+    blocks), int8, the flagship knobs (:func:`_multiproc_argv`), on the one
+    card: two processes with
+    ``--pop_shard_update off`` (two processes bitwise one), ``CHAOS_EPOCHS``
+    epochs, a slot and a desync check every epoch, and host-scoped faults
+    (``CHAOS_FAULTS``) placed so that each recovery ends before the next
+    fires: ``desync@1:host1`` (host 1's θ × 1.001 after epoch 1's gather),
+    ``torn_write@3:host1`` (host 1's slot 3, the replay's last, truncated
+    before its vote) and ``die@4:host1`` (host 1 exits hard after epoch 4).
+    Then one process resumes the run dir with ``--on_topology_mismatch
+    reshard`` and runs epoch 5; it builds its backend beside the launch and
+    waits to train until the launch has ended. The reference is one process
+    on the same command line without faults or slots, run in this process
+    first (the launches' children wait on the host meanwhile).
+
+    Checks: the commit at boundary 2 refuses the fork and the fingerprint
+    at epoch 2 disagrees on both processes (one check interval;
+    ``resilience/desync`` 1), both restore slot 1 and replay epochs 1-2,
+    whose θ′ and gathered rows are bitwise the reference's (so is every
+    other step but the forked pass); slot 3 is refused on both processes
+    and invalidated in both stores; host 0's commit at boundary 5 times out
+    (the store deadline ``CHAOS_KV_ENV``), the roll-call's verdict is
+    ``[0]`` (``elastic.json``'s ``rollcall`` transition), host 0 commits
+    slot 5 alone and exits 0; the relaunch restores it (a
+    ``reshard_restore`` transition) and its epoch 5's rows and θ′, and its
+    final θ, are bitwise the reference's; K3 and K1 counted in each process
+    (the reference's, each chaos child's and the relaunch's warm-up) as
+    derived. Prints each
+    recovery's cost with the card's name and power limit: the detection to
+    the verdict (the deadline and the roll-call), the survivors' commit, the
+    reshard restore, and the replayed epochs against the undisturbed ones."""
+    import numpy as np
+
+    root = chaos["root"]
+    smi = _card()
+    try:
+        t0 = time.perf_counter()
+        one = multiproc_cli_run(chaos["argv"] + ["--run_name", "reference", "--save_every", "0"],
+                                layers=CHAOS_LAYERS)
+        ref_s = time.perf_counter() - t0
+    except BaseException:
+        stop_chaos_launches(chaos)
+        raise
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = {"go": time.time()}
+    _tell(root, "go")
+    pod_thread, re_thread = chaos["threads"]
+    pod_thread.join()
+    wall["pod_end"] = time.time()
+    # the relaunch trains once the launch is over: the survivor's slot is its input
+    pod_ok = chaos.get("pod_rc") == 1 and (root / "rank0.npz").exists()
+    _tell(root / "relaunch", "go" if pod_ok else "stop")
+    re_thread.join()
+    wall["relaunch_end"] = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not pod_ok:
+        raise AssertionError(f"the chaos launch exited {chaos.get('pod_rc')} (want 1, host 1's death) or process 0 "
+                             "left no record; its lines are above, prefixed [p<i>]")
+    if chaos.get("relaunch_rc") != 0:
+        raise AssertionError(f"the reshard relaunch exited {chaos.get('relaunch_rc')}")
+    run = root / "chaos"
+    r0, r1 = (json.loads((root / f"rank{r}.json").read_text()) for r in (0, 1))
+    re = json.loads((root / "relaunch" / "rank0.json").read_text())
+    a0, are = np.load(root / "rank0.npz"), np.load(root / "relaunch" / "rank0.npz")
+    if r0["exit"] != 0:
+        raise AssertionError(f"process 0 exited {r0['exit']} after the roll-call")
+    for name, rec in (("the reference", one), ("process 0", r0), ("process 1", r1), ("the relaunch", re)):
+        got, want = rec["launches"], rec["expected"]
+        if got != want or not (got["fused_qlora"] and got["int8_matmul"]):
+            raise AssertionError(f"{name} launched {got}, expected {want} (K3 and K1 in its warm-up)")
+    ref_theta, ref_rows = one["thetas"], one["rows"]
+    if len(ref_theta) != CHAOS_EPOCHS:
+        raise AssertionError(f"the reference ran {len(ref_theta)} epochs, want {CHAOS_EPOCHS}")
+    n_steps = len([k for k in a0.files if k.startswith("theta") and k[5:].isdigit()])
+    if n_steps != len(CHAOS_POD_STEPS):
+        raise AssertionError(f"process 0 ran {n_steps} steps, want {len(CHAOS_POD_STEPS)} ({CHAOS_POD_STEPS})")
+
+    def same(got, want):
+        return got.tobytes() == want.tobytes()
+
+    forked = []
+    for i, e in enumerate(CHAOS_POD_STEPS):
+        th = same(a0[f"theta{i}"], ref_theta[e])
+        rows = all(same(a0[f"rows{i}_{k}"], v) for k, v in ref_rows[e].items())
+        if i == CHAOS_FORKED_STEP:
+            forked.append((th, rows))
+            continue
+        if not (th and rows):
+            raise AssertionError(f"chaos step {i} (epoch {e}): θ′ bitwise {th}, rows bitwise {rows} against the "
+                                 "one-process run")
+    if any(forked[0]):
+        raise AssertionError("the forked pass of epoch 2 equals the undisturbed epoch: no fork was injected")
+    last = CHAOS_EPOCHS - 1
+    if not (same(are["theta0"], ref_theta[last]) and same(are["theta"], ref_theta[last])
+            and all(same(are[f"rows0_{k}"], v) for k, v in ref_rows[last].items())):
+        raise AssertionError(f"the relaunch's epoch {last} is not bitwise the one-process run's")
+    # the markers and counters of each recovery
+    snap0 = json.loads((run / "resilience.host0.json").read_text())  # the relaunch's, written last
+    rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    pod_rows = [r for r in rows if r["incarnation"] == 0]
+    if [r["epoch"] for r in pod_rows] != CHAOS_POD_STEPS or \
+            [r.get("resilience/desync", 0) for r in pod_rows] != [0, 0] + [1] * (len(CHAOS_POD_STEPS) - 2):
+        raise AssertionError(f"the launch's rows: epochs {[r['epoch'] for r in pod_rows]}, desync "
+                             f"{[r.get('resilience/desync', 0) for r in pod_rows]}")
+    end = pod_rows[-1]
+    if (end.get("resilience/ckpt_commit_failed"), end.get("resilience/rollbacks")) != (2, 1):
+        raise AssertionError(f"commit refusals {end.get('resilience/ckpt_commit_failed')} (want 2: the fork at 2, "
+                             f"the torn slot at 3), rollbacks {end.get('resilience/rollbacks')} (want 1)")
+    invalid = {s: sorted(p.name.rsplit("-", 1)[0] for p in (run / s).iterdir() if p.name.startswith(".invalid-"))
+               for s in ("ckpt", "ckpt.host1")}
+    want_invalid = [".invalid-step_00000002", ".invalid-step_00000003"]
+    if invalid != {"ckpt": want_invalid, "ckpt.host1": want_invalid}:
+        raise AssertionError(f"invalidated slots {invalid}, want {want_invalid} in both stores")
+    rollcall, reshard = json.loads((run / "elastic.json").read_text())
+    if (rollcall["kind"], rollcall["survivors"], rollcall["dead"], rollcall["action"], rollcall["epoch"]) != \
+            ("rollcall", [0], [1], "checkpoint_exit", CHAOS_EPOCHS - 1):
+        raise AssertionError(f"the roll-call transition: {rollcall}")
+    if (reshard["kind"], reshard["epoch"], reshard["slot"]) != ("reshard_restore", last, f"step_{last:08d}") or \
+            snap0.get("resilience/elastic_reshard_restores") != 1:
+        raise AssertionError(f"the reshard transition: {reshard}, counters {snap0}")
+    detect_s, rollcall_s = rollcall["detect_s"], r0["timings"]["roll_call"][0]
+    commit_s, restore_s = r0["timings"]["survivor_commit"][0], re["timings"]["restore"][0]
+    # the logged epochs of process 0 in order: 0, 1, [2 rolled back: no row end], 1, 2, 3, 4
+    t0 = r0["step_time_s"]
+    undisturbed, replayed = t0[1], t0[2]
+    # where the launches' time went, s: process 0 from the word to its CLI's
+    # build, its run_training, then its exit and the launch's end; the
+    # relaunch's run_training (it built beside the launch) and its end
+    w0, wr = r0["wall"], re["wall"]
+    spans = dict(pod_build=w0["built"] - wall["go"], pod_train=w0["trained"] - w0["train"],
+                 pod_exit=wall["pod_end"] - w0["trained"], relaunch_train=wr["trained"] - wr["train"],
+                 relaunch_exit=wall["relaunch_end"] - wr["trained"])
+    log(f"[chaos] {smi}: two processes, Sana-Sprint 1.6B's widths at {CHAOS_LAYERS} of its 20 blocks, int8, "
+        f"{CHAOS_EPOCHS} epochs, faults "
+        f"{CHAOS_FAULTS}; every step's θ′ and gathered rows but the forked pass bitwise the one-process run's; the "
+        f"fork caught at epoch 2 (one interval) by the fingerprint and the commit digest, rolled back to slot 1 and "
+        f"replayed bitwise; slots 2 and 3 refused and invalidated in ckpt/ and ckpt.host1/; the roll-call verdict "
+        f"[0], survivor slot {last} committed; the relaunch's epoch {last} and θ bitwise; K3 "
+        f"{r0['launches']['fused_qlora']} "
+        f"and K1 {r0['launches']['int8_matmul']} counted in each process, {re['launches']['fused_qlora']} and "
+        f"{re['launches']['int8_matmul']} in the relaunch, as derived. Costs: detection to verdict {detect_s:.3f} s "
+        f"(the {int(CHAOS_KV_ENV['HYPERSCALEES_KV_TIMEOUT_MS']) / 1e3:g} s deadline + roll-call "
+        f"{rollcall_s:.3f} s), survivors' commit {commit_s:.3f} s, reshard restore {restore_s:.3f} s; a replayed "
+        f"epoch after the rollback {replayed:.3f} s against the undisturbed epoch 1's {undisturbed:.3f} s "
+        f"(process 0); the reference {ref_s:.1f} s; the launch from the word: process 0's build "
+        f"{spans['pod_build']:.1f} s, its run_training {spans['pod_train']:.1f} s, its exit and the launch's end "
+        f"{spans['pod_exit']:.1f} s; the relaunch's run_training {spans['relaunch_train']:.1f} s, its end "
+        f"{spans['relaunch_exit']:.1f} s")
+    return dict(card=smi, faults=CHAOS_FAULTS, epochs=CHAOS_EPOCHS, layers=CHAOS_LAYERS, reference_s=ref_s,
+                reference_launches=one["launches"], launches=[r0["launches"], r1["launches"]],
+                relaunch_launches=re["launches"], detect_s=detect_s, rollcall_s=rollcall_s,
+                survivor_commit_s=commit_s, reshard_restore_s=restore_s, replayed_epoch_s=replayed,
+                undisturbed_epoch_s=undisturbed, step_time_s=t0, relaunch_step_time_s=re["step_time_s"],
+                pod_s=chaos.get("pod_s"), relaunch_s=chaos.get("relaunch_s"), spans_s=spans, invalid=invalid,
+                transitions=[rollcall, reshard])
 
 
 def kernel_summary(name, rows, launches, calls_key, replaces, scope):
@@ -6458,7 +6882,8 @@ def main() -> int:
     del flagship
     gc.collect()
     torch.cuda.empty_cache()
-    multiproc = timed("multiproc_es", phase_multiproc_es, torch)
+    multiproc, chaos_launches = timed("multiproc_es", phase_multiproc_es, torch)
+    chaos = timed("chaos_es", phase_chaos_es, torch, chaos_launches)
 
     # `launches`: the wrappers' counters over the main paths' eager epochs (the
     # eager variant's timed epochs, each run_training program's warm-up);
@@ -6629,7 +7054,7 @@ def main() -> int:
         pipeline_es=pipeline_es, serve_tier=tier,
         train_flagship=train, train_artifacts=artifacts, fleet_tiny=fleet_tiny, fleet_flagship=fleet_run, weights_var=weights_var,
         weights_sana=weights_sana, zimage_kernel_shapes=zimage_rows, zimage_tiny=zimage_tiny, zimage_es=zimage,
-        evaluate=evaluate, multiproc_es=multiproc,
+        evaluate=evaluate, multiproc_es=multiproc, chaos_es=chaos,
         phase_seconds=phase_s, kernels=kernels, k1_serving=k1_serve, k4_infinity=k4_inf,
         wall_s=wall_s,
     ), indent=1))

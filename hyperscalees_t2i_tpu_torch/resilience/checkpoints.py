@@ -1,7 +1,7 @@
 """Versioned checkpoint slots with atomic commit and checksummed restore
-(port of ``hyperscalees_t2i_tpu/resilience/checkpoints.py``, single
-process). The files are the JAX package's, so a slot either package
-writes restores in the other::
+(port of ``hyperscalees_t2i_tpu/resilience/checkpoints.py``). The files
+are the JAX package's, so a slot either package writes restores in the
+other::
 
     run_dir/ckpt/step_00000012/theta.npz      θ, one f32 array per slash-joined path
     run_dir/ckpt/step_00000012/delta.npz      Δθ_{t−1} (optional)
@@ -11,12 +11,20 @@ writes restores in the other::
 Commit: write into ``ckpt/.tmp-<slot>-<pid>/``, fsync each file and the
 dir, ``os.replace`` to the slot's name, fsync ``ckpt/``, then move
 ``latest`` (tmp → replace). Retention keeps the newest ``keep`` slots (0:
-all). Restore scans slots newest first and falls back past a slot that is
-torn, mis-shaped or fails its sha256 (logged, ``restore_rejected`` ticked),
-skips a slot newer than ``latest``, and raises :class:`TopologyMismatch`
-for a slot written under another launch topology. The cross-host commit
-vote (``invalidate_slot``) and reshard-on-restore come with multi-GPU
-training.
+all). ``torn_write@K`` (``faultinject``) truncates the slot's θ between the
+rename and the publication. A launch of several processes splits the commit
+(``resilience.coord``): each process writes its own store (``dirname``:
+``ckpt/`` for rank 0, ``ckpt.host<i>/`` for the others) with
+``publish_latest=False``, reads it back (:meth:`CheckpointStore.verify_slot`),
+votes with the digest, and then publishes (:meth:`CheckpointStore.publish_latest`)
+or invalidates (:meth:`CheckpointStore.invalidate_slot`) on every process.
+
+Restore scans slots newest first and falls back past a slot that is torn,
+mis-shaped or fails its sha256 (logged, ``restore_rejected`` ticked), skips
+a slot newer than ``latest``, and raises :class:`TopologyMismatch` for a
+slot written under another launch topology, unless ``on_mismatch="reshard"``
+accepts another process count (θ and Δθ are replicated; the caller re-splits
+its member slices). A ``pop_size`` change always raises, naming both values.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ import numpy as np
 import torch
 
 from ..utils.pytree import flatten_with_paths, tree_leaves_with_path, tree_replace_leaves
+from . import telemetry
+from .faultinject import fault_epoch
 from .retry import call_with_retry
 
 SCHEMA_VERSION = 1
@@ -101,18 +111,25 @@ class RestoreResult:
     prev_delta: Optional[Any]
     slot: str
     meta: Dict[str, Any]
+    # the slot's topology differed and restore(on_mismatch="reshard")
+    # accepted it: the caller re-splits its member slices
+    resharded: bool = False
 
 
 class CheckpointStore:
-    """The slot store of one run dir. With a ``registry`` (the run's
-    ``resilience/`` one), a rejected slot ticks ``restore_rejected`` and
-    the I/O retries tick theirs."""
+    """The slot store ``run_dir/dirname`` (the canonical ``ckpt/`` by
+    default). A rejected slot ticks ``restore_rejected``, a reshard restore
+    ``elastic_reshard_restores``, and the I/O retries tick theirs, in
+    ``registry`` (default: the process-global ``resilience/`` registry)."""
 
-    def __init__(self, run_dir, keep: int = 3, registry: Optional[Any] = None):
+    def __init__(self, run_dir, keep: int = 3, registry: Optional[Any] = None, dirname: str = "ckpt"):
         self.run_dir = Path(run_dir)
-        self.dir = self.run_dir / "ckpt"
+        self.dir = self.run_dir / dirname
         self.keep = int(keep)
         self.registry = registry
+
+    def _inc(self, name: str) -> None:
+        (self.registry if self.registry is not None else telemetry.get_resilience_registry()).inc(name)
 
     def slot_path(self, epoch: int) -> Path:
         return self.dir / f"{_SLOT_PREFIX}{int(epoch):08d}"
@@ -129,14 +146,17 @@ class CheckpointStore:
 
     def save(self, theta: Any, epoch: int, *, prev_delta: Optional[Any] = None, summary_reward: float = 0.0,
              backend_name: str = "", config: Optional[Dict[str, Any]] = None,
-             topology: Optional[Dict[str, Any]] = None) -> Path:
-        """Commit a slot and publish it as ``latest`` (θ on any device; it
-        is copied to the host)."""
+             topology: Optional[Dict[str, Any]] = None, publish_latest: bool = True) -> Path:
+        """Commit a slot (θ on any device; it is copied to the host) and
+        publish it as ``latest``. ``publish_latest=False`` defers the
+        pointer and the retention (which must not reap a slot a vote is
+        still deciding on) to :meth:`publish_latest`."""
         return call_with_retry(self._save_once, (theta, int(epoch), prev_delta, summary_reward, backend_name,
-                                                 config, topology),
+                                                 config, topology, publish_latest),
                                site="ckpt_write", registry=self.registry)
 
-    def _save_once(self, theta, epoch, prev_delta, summary_reward, backend_name, config, topology) -> Path:
+    def _save_once(self, theta, epoch, prev_delta, summary_reward, backend_name, config, topology,
+                   publish_latest) -> Path:
         final = self.slot_path(epoch)
         self.dir.mkdir(parents=True, exist_ok=True)
         tmp = self.dir / f".tmp-{final.name}-{os.getpid()}"
@@ -165,12 +185,44 @@ class CheckpointStore:
             shutil.rmtree(final)
         os.replace(tmp, final)
         _fsync_dir(self.dir)
+        # the torn write lands between the rename and the publication: the
+        # window a coordinated commit's read-back must catch
+        if fault_epoch("torn_write", epoch):
+            p = final / _THETA
+            data = p.read_bytes()
+            p.write_bytes(data[: max(1, len(data) // 2)])
+            print(f"[resilience] FAULT torn_write: truncated {p}", file=sys.stderr, flush=True)
+        if publish_latest:
+            self._publish_latest_once(epoch)
+            self._retain()
+        return final
+
+    def publish_latest(self, epoch: int) -> None:
+        """The second half of a deferred commit: ``latest`` names the slot,
+        then the retention runs. Only after the slot verified."""
+        call_with_retry(self._publish_latest_once, (int(epoch),), site="ckpt_write", registry=self.registry)
+        self._retain()
+
+    def _publish_latest_once(self, epoch: int) -> None:
         latest_tmp = self.dir / (_LATEST + ".tmp")
-        _write_bytes_fsync(latest_tmp, (final.name + "\n").encode())
+        _write_bytes_fsync(latest_tmp, (self.slot_path(epoch).name + "\n").encode())
         os.replace(latest_tmp, self.dir / _LATEST)
         _fsync_dir(self.dir)
-        self._retain()
-        return final
+
+    def invalidate_slot(self, epoch: int) -> Optional[Path]:
+        """Take a slot out of the restore scan: renamed to ``.invalid-…``
+        (kept for post-mortems, invisible to :meth:`slots`). A refused
+        commit vote does this on every process."""
+        slot = self.slot_path(epoch)
+        if not slot.exists():
+            return None
+        dst = self.dir / f".invalid-{slot.name}-{os.getpid()}"
+        if dst.exists():
+            shutil.rmtree(dst)
+        os.replace(slot, dst)
+        _fsync_dir(self.dir)
+        print(f"[resilience] COMMIT: invalidated slot {slot.name} -> {dst.name}", file=sys.stderr, flush=True)
+        return dst
 
     def verify_slot(self, epoch: int, theta_template: Any) -> str:
         """Read a written slot back, re-check its structure and every sha256
@@ -202,14 +254,22 @@ class CheckpointStore:
         return None
 
     def restore(self, theta_template: Any, *, with_delta: bool = False,
-                expect_topology: Optional[Dict[str, Any]] = None) -> Optional[RestoreResult]:
+                expect_topology: Optional[Dict[str, Any]] = None,
+                on_mismatch: str = "raise") -> Optional[RestoreResult]:
         """The newest valid slot as CPU tensors shaped and typed like
         ``theta_template`` (θ, epoch and, with ``with_delta``, Δθ), or
-        ``None`` when no slot validates."""
-        return call_with_retry(self._restore_once, (theta_template, with_delta, expect_topology),
+        ``None`` when no slot validates. ``expect_topology`` (process
+        count, pop shards, pop size) raises :class:`TopologyMismatch` for a
+        slot written under another; ``on_mismatch="reshard"`` accepts a
+        process-count or pop-shard change (``resharded`` set,
+        ``elastic_reshard_restores`` ticked) and still raises for another
+        ``pop_size``."""
+        if on_mismatch not in ("raise", "reshard"):
+            raise ValueError(f"on_mismatch={on_mismatch!r} (expected 'raise' or 'reshard')")
+        return call_with_retry(self._restore_once, (theta_template, with_delta, expect_topology, on_mismatch),
                                site="ckpt_read", registry=self.registry)
 
-    def _restore_once(self, theta_template, with_delta, expect_topology) -> Optional[RestoreResult]:
+    def _restore_once(self, theta_template, with_delta, expect_topology, on_mismatch) -> Optional[RestoreResult]:
         published = self.latest_epoch()
         for slot in reversed(self.slots()):
             if published is not None and int(slot.name[len(_SLOT_PREFIX):]) > published:
@@ -218,7 +278,7 @@ class CheckpointStore:
                     "committed; refusing to resume an unratified slot"))
                 continue
             try:
-                return self._load_slot(slot, theta_template, with_delta, expect_topology)
+                return self._load_slot(slot, theta_template, with_delta, expect_topology, on_mismatch)
             except TopologyMismatch:
                 raise
             except (FileNotFoundError, IsADirectoryError, NotADirectoryError) as e:
@@ -230,26 +290,38 @@ class CheckpointStore:
         return None
 
     def _reject(self, slot: Path, e: Exception) -> None:
-        if self.registry is not None:
-            self.registry.inc("restore_rejected")
+        self._inc("restore_rejected")
         print(f"[resilience] RESTORE: rejecting slot {slot.name}: {e}", file=sys.stderr, flush=True)
 
-    def _load_slot(self, slot: Path, theta_template, with_delta, expect_topology) -> RestoreResult:
+    def _load_slot(self, slot: Path, theta_template, with_delta, expect_topology, on_mismatch) -> RestoreResult:
         manifest = json.loads((slot / _MANIFEST).read_text())
+        resharded = False
         if expect_topology:
             stored = manifest.get("topology") or {}
             for k in ("process_count", "pop_shards", "pop_size"):
                 if k in stored and k in expect_topology and int(stored[k]) != int(expect_topology[k]):
+                    if on_mismatch == "reshard" and k != "pop_size":
+                        resharded = True
+                        print(f"[resilience] RESHARD: slot {slot.name} was written with {k}={int(stored[k])}, this "
+                              f"launch has {k}={int(expect_topology[k])} — restoring the replicated arrays and "
+                              "resharding the member-slice plan to the new geometry (stored topology "
+                              f"{stored}, current {expect_topology})", file=sys.stderr, flush=True)
+                        continue
                     raise TopologyMismatch(
                         f"checkpoint slot {slot.name} was written with {k}={int(stored[k])} but this launch has "
                         f"{k}={int(expect_topology[k])} (stored topology {stored}, current {expect_topology}) — "
-                        "resuming would replay a wrong population split; relaunch with the matching geometry "
-                        "or start a fresh run_dir")
+                        "resuming would replay a wrong population split; "
+                        + ("pop_size is the one axis reshard-on-restore cannot absorb: a different population is "
+                           "a different run, not a new topology" if on_mismatch == "reshard" else
+                           "relaunch with the matching geometry, start a fresh run_dir, or resume with "
+                           "on_mismatch='reshard' (--on_topology_mismatch reshard) to reshard the slice plan"))
+        if resharded:
+            self._inc("elastic_reshard_restores")
         theta = load_validated(slot / _THETA, theta_template, "theta", manifest.get("arrays"))
         prev_delta = None
         if with_delta and (slot / _DELTA).exists():
             prev_delta = load_validated(slot / _DELTA, theta_template, "delta", manifest.get("delta_arrays"))
-        return RestoreResult(theta, int(manifest["epoch"]), prev_delta, slot.name, manifest)
+        return RestoreResult(theta, int(manifest["epoch"]), prev_delta, slot.name, manifest, resharded=resharded)
 
 
 def load_validated(path: Path, template: Any, label: str,

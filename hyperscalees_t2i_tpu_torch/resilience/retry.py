@@ -1,13 +1,15 @@
 """Bounded exponential-backoff retry for host-side I/O (port of
-``hyperscalees_t2i_tpu/resilience/retry.py`` without its fault-injection
-hooks and its multi-host jitter).
+``hyperscalees_t2i_tpu/resilience/retry.py`` without its multi-host
+jitter).
 
 ``OSError`` is retried, except the clearly permanent kinds (missing file,
 wrong path kind). Delays are ``base · 2^i`` capped at ``max_delay_s``, with
 no jitter. ``HYPERSCALEES_RETRY_ATTEMPTS`` and ``HYPERSCALEES_RETRY_BASE_S``
-override the attempts and the base delay (0 makes retries sleep-free). With
-a ``registry``, each retry ticks ``retries`` and ``retry/<site>``, and an
-exhausted retry ``retry_exhausted``.
+override the attempts and the base delay (0 makes retries sleep-free). Each
+attempt first consults the fault plan (``faultinject.maybe_io_error(site)``:
+``io_error:SITE*N``). Each retry ticks ``retries`` and ``retry/<site>``, and
+an exhausted retry ``retry_exhausted``, in ``registry`` (default: the
+process-global ``resilience/`` registry).
 """
 
 from __future__ import annotations
@@ -16,6 +18,9 @@ import os
 import sys
 import time
 from typing import Any, Callable, Dict, Optional, Tuple, Type
+
+from . import telemetry
+from .faultinject import maybe_io_error
 
 _DEF_ATTEMPTS = 3
 _DEF_BASE_S = 0.25
@@ -41,20 +46,21 @@ def call_with_retry(fn: Callable[..., Any], args: Tuple = (), kwargs: Optional[D
     base = _env_number("HYPERSCALEES_RETRY_BASE_S", float)
     if base is None:
         base = _DEF_BASE_S if base_delay_s is None else base_delay_s
+    if registry is None:
+        registry = telemetry.get_resilience_registry()
     for attempt in range(1, n + 1):
         try:
+            maybe_io_error(site)
             return fn(*args, **kwargs)
         except _NO_RETRY:
             raise
         except OSError as e:
             if attempt >= n:
-                if registry is not None:
-                    registry.inc("retry_exhausted")
+                registry.inc("retry_exhausted")
                 raise
             delay = min(max_delay_s, base * (2 ** (attempt - 1)))
-            if registry is not None:
-                registry.inc("retries")
-                registry.inc(f"retry/{site}")
+            registry.inc("retries")
+            registry.inc(f"retry/{site}")
             print(f"[resilience] RETRY {site}: attempt {attempt}/{n} failed with {e!r}; "
                   f"retrying in {delay:.2f}s", file=sys.stderr, flush=True)
             if delay > 0:

@@ -11,6 +11,9 @@ After rolling θ back to the last good slot the policy is one of:
 - ``halt``: stop. The other two also halt once ``max_rollbacks`` recoveries
   are spent.
 
+The desync check's rollback (``train.trainer``) replays from the last
+agreed slot with σ unchanged (``replay``) and draws on the same budget.
+
 Host-side floats only; the trainer does the restore.
 """
 
@@ -45,10 +48,13 @@ class RollbackController:
             return True
         return self.explode_norm > 0 and v > self.explode_norm
 
-    def next_action(self) -> str:
-        """Count one trip and return what to do now: the policy, or
-        ``halt`` once ``max_rollbacks`` are spent."""
+    def next_action(self, action: "str | None" = None) -> str:
+        """Count one trip and return what to do now: the policy (or
+        ``action``: the desync check's ``replay``, σ untouched), or
+        ``halt`` once ``max_rollbacks`` are spent. Every trip draws on the
+        same budget."""
         self.rollbacks += 1
-        if self.policy == "halt" or self.rollbacks > self.max_rollbacks:
+        a = self.policy if action is None else action
+        if a == "halt" or self.rollbacks > self.max_rollbacks:
             return "halt"
-        return self.policy
+        return a

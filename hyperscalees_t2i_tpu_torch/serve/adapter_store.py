@@ -21,6 +21,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..resilience.faultinject import maybe_serve_fault
 from ..utils.pytree import tree_leaves, tree_map, tree_structure
 
 Adapter = Any
@@ -225,7 +226,11 @@ class AdapterStore:
         return entry
 
     def get(self, adapter_id: str) -> Adapter:
-        """The adapter's host tree; marks it most recently used."""
+        """The adapter's host tree; marks it most recently used. The
+        ``store_io*N`` fault raises ``OSError`` here, so a store I/O
+        failure fails one request at batch assembly, never its batch."""
+        if maybe_serve_fault("store_io"):
+            raise OSError(f"injected store_io fault reading adapter {adapter_id!r}")
         entry = self._entries.get(adapter_id)
         if entry is None:
             self.misses += 1

@@ -45,7 +45,11 @@ Port of ``hyperscalees_t2i_tpu/serve/engine.py``:
   warm-up stays out), its Chrome trace written under ``profile_dir``
   (``obs/profile_trace.py`` reads it) when the window closes or at
   :meth:`ServeEngine.close`. A profiler that does not start fails the
-  dispatch (the JAX engine warns and serves on unprofiled).
+  dispatch (the JAX engine warns and serves on unprofiled);
+- **faults** (``resilience.faultinject``): ``slow_dispatch*N`` sleeps inside
+  the next N timed dispatches (their ``dispatch_s`` and the overload EWMA
+  grow by it); ``store_io*N`` fails the next N ``AdapterStore.get`` calls,
+  each one request of its batch.
 
 ``compile_cache_dir`` (a CUDA graph cannot be serialized) is refused.
 """
@@ -70,6 +74,7 @@ from ..obs.metrics import MetricsRegistry
 from ..obs.profile_trace import start_profile, stop_profile
 from ..obs.trace import Tracer
 from ..parallel.pop_eval import make_adapter_batch_generator
+from ..resilience.faultinject import maybe_serve_fault, slow_fault_seconds
 from ..utils import threefry
 from ..utils.graphs import GraphCache
 from ..utils.pytree import tree_map
@@ -647,6 +652,10 @@ class ServeEngine:
             with self.tracer.span("serve/batch", requests=n, occupancy=occupancy,
                                   request_ids=[r.request_id for r in good]):
                 t_disp0 = time.perf_counter()
+                # slow_dispatch*N: a straggling device inside the timed
+                # dispatch, so dispatch_s and the overload EWMA see it
+                if maybe_serve_fault("slow_dispatch"):
+                    time.sleep(slow_fault_seconds())
                 images = self._run(thetas, [list(r.prompt_ids) for r in good], [r.seed for r in good],
                                    good[0].guidance)
                 dispatch_s = time.perf_counter() - t_disp0

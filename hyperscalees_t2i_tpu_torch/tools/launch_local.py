@@ -48,7 +48,7 @@ import subprocess
 import sys
 import threading
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 CLI = ("-m", "hyperscalees_t2i_tpu_torch.train.cli")
 
@@ -76,23 +76,25 @@ def run_pod(
     clear_faults: bool = False,
     port: int = 0,
     entry: Sequence[str] = CLI,
+    env: Optional[Dict[str, str]] = None,
 ) -> int:
     """One coordinated launch of ``num_processes`` children, each ``python
     <entry> --coordinator 127.0.0.1:<port> --num_processes N --process_id i
     <fwd>`` (``entry``: the train CLI's module; another entry must run the
-    CLI's ``main`` on those arguments); returns the launch's exit status."""
+    CLI's ``main`` on those arguments) in this process's environment plus
+    ``env``; returns the launch's exit status."""
     port = port or _free_port()
     procs: List[subprocess.Popen] = []
     pumps: List[threading.Thread] = []
     killer: Optional[threading.Timer] = None
     try:
         for pid in range(num_processes):
-            env = dict(os.environ)
+            child_env = {**os.environ, **(env or {})}
             if clear_faults:  # a relaunch replays armed epochs: faults would fire again
-                env.pop("HYPERSCALEES_FAULTS", None)
+                child_env.pop("HYPERSCALEES_FAULTS", None)
             cmd = [sys.executable, *entry, "--coordinator", f"127.0.0.1:{port}",
                    "--num_processes", str(num_processes), "--process_id", str(pid), *fwd]
-            procs.append(subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            procs.append(subprocess.Popen(cmd, env=child_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                           text=True))
             t = threading.Thread(target=_pump, args=(procs[-1], f"[p{pid}]"), daemon=True)
             t.start()

@@ -46,8 +46,11 @@ local cache, nothing is downloaded); where a tower is unavailable it is
 random above ``--model_scale tiny`` only with ``--allow_random_rewards
 true``, and a missing PickScore tower is dropped with the other weights
 renormalized, as in the JAX CLI. Prompts are tokenized by
-``rewards.suite.tokenize_with_hf``. Exit codes: 0 done or preempted (a
-slot was saved; rerun to resume), 3 halted by the rollback policy.
+``rewards.suite.tokenize_with_hf``. Exit codes: 0 done, preempted (a
+slot was saved; rerun to resume) or an elastic exit (the survivors
+committed a slot: relaunch at the new process count with ``--resume auto
+--on_topology_mismatch reshard``; or this process was voted out), 3 halted
+by the rollback policy or the desync check.
 
 A launch of N processes (``tools.launch_local`` starts one on a machine)
 gives each process ``--coordinator host:port --num_processes N
@@ -56,7 +59,10 @@ processes join one process group, each takes ``cuda:{i % cards}`` (or the
 ``--device`` named), evaluates its slice of the population
 (``--pop_host_shard``, ``auto`` or ``on``; ``off`` with N > 1 is refused,
 as is a ``--pop_size`` that N does not divide) and shares the update,
-split over the processes with ``--pop_shard_update``.
+split over the processes with ``--pop_shard_update``. ``--faults`` arms
+the fault plan (``resilience.faultinject``); ``--desync_check_every``,
+``--desync_action``, ``--on_topology_mismatch`` and ``--elastic_action``
+are the launch's resilience (``train.trainer.run_training``).
 """
 
 from __future__ import annotations
@@ -236,6 +242,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_rollbacks", type=int, default=3)
     p.add_argument("--rollback_sigma_shrink", type=float, default=0.5)
     p.add_argument("--theta_explode_norm", type=float, default=0.0)
+    p.add_argument("--faults", default=None,
+                   help="deterministic fault-injection spec, e.g. 'preempt@1;io_error:ckpt_write*2'; tokens take an "
+                        "optional :hostI scope ('torn_write@2:host1') (resilience/faultinject.py; chaos testing "
+                        "only)")
+    # the launch's resilience (resilience/coord.py, resilience/elastic.py; active with several processes)
+    p.add_argument("--desync_check_every", type=int, default=8,
+                   help="cross-host theta-fingerprint agreement check every N epochs (0 = off; rides the per-epoch "
+                        "host gather; no-op single-process)")
+    p.add_argument("--desync_action", default="rollback", choices=["rollback", "halt"],
+                   help="on cross-host divergence: rollback = every host restores the last agreed slot and replays "
+                        "(sigma unchanged, draws on --max_rollbacks), halt = stop the launch with halted.json")
+    p.add_argument("--on_topology_mismatch", default="raise", choices=["raise", "reshard"],
+                   help="resume into a different process count: raise = refuse with TopologyMismatch (default); "
+                        "reshard = restore the replicated theta anyway and re-split the member slices over the new "
+                        "geometry (pop_size must be unchanged)")
+    p.add_argument("--elastic_action", default="checkpoint_exit", choices=["checkpoint_exit", "continue"],
+                   help="survivors' action after a hard host failure (gather timeout + roll-call confirms dead "
+                        "peers): checkpoint_exit = commit one survivor-voted slot and exit 0 for a relaunch at the "
+                        "new topology; continue = adopt the lost members from the last ratified slot and keep "
+                        "training with the survivor set")
     return p
 
 
@@ -614,6 +640,8 @@ def train_config(args):
         resume=args.resume, ckpt_keep=args.ckpt_keep, ckpt_legacy_mirror=args.ckpt_legacy_mirror,
         rollback_policy=args.rollback_policy, max_rollbacks=args.max_rollbacks,
         rollback_sigma_shrink=args.rollback_sigma_shrink, theta_explode_norm=args.theta_explode_norm,
+        faults=args.faults, desync_check_every=args.desync_check_every, desync_action=args.desync_action,
+        on_topology_mismatch=args.on_topology_mismatch, elastic_action=args.elastic_action,
     )
 
 
@@ -639,6 +667,21 @@ def main(argv: Optional[List[str]] = None) -> None:
     backend.setup()
     reward_fn = build_reward_fn(args, backend, device)
     state = run_training(backend, reward_fn, train_config(args), device=device)
+    if state.elastic_exit:
+        # exit 0: an elastic membership change is a successful shutdown
+        if state.elastic_evicted:
+            # voted out: this process committed nothing
+            if args.elastic_action == "continue":
+                print(f"[cli] voted out of the pod at epoch {state.epoch} — standing down; the survivors continue "
+                      "IN-PLACE in this run dir. Do NOT relaunch into it (see elastic.json)", flush=True)
+            else:
+                print(f"[cli] voted out of the pod at epoch {state.epoch} — standing down; the survivors commit "
+                      "and exit for a relaunch at the new process count (see elastic.json)", flush=True)
+        else:
+            print(f"[cli] elastic membership change at epoch {state.epoch} — survivor checkpoint committed; "
+                  "relaunch at the new process count with --resume auto --on_topology_mismatch reshard (see "
+                  "elastic.json)", flush=True)
+        sys.exit(0)
     if state.preempted:
         print(f"[cli] preempted at epoch {state.epoch} — checkpoint saved; restart with --resume auto to "
               "continue", flush=True)

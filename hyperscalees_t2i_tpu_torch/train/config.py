@@ -6,20 +6,20 @@ The port's ``run_training`` runs the loop with its live telemetry
 (exporter, SLOs, heartbeats, the stall and anomaly watchdogs), its
 artifacts (``log_hist_every``: θ/Δθ histograms; ``log_images_every``:
 member strips; ``snapshot_every``: quality snapshots), its profile window
-(``profile_epochs``) and, in a launch of several processes, the
-host-sharded population (``pop_host_shard``) with the pop-sharded update
-(``pop_shard_update``). The fields of the pod resilience it does not have
-yet (ROADMAP queue A item 7 part 3) raise there when set away from their
-defaults (:func:`unported_settings`); the default ``desync_*`` check is
-accepted and does nothing yet. ``remat``, ``tower_dtype`` and
-``base_quant`` are recorded for the checkpoint manifest; the backend's
-and reward suite's trees carry the applied values.
+(``profile_epochs``), fault injection (``faults``) and, in a launch of
+several processes, the host-sharded population (``pop_host_shard``) with
+the pop-sharded update (``pop_shard_update``), the two-phase commit, the
+desync check (``desync_check_every``, ``desync_action``), reshard-on-restore
+(``on_topology_mismatch``) and elastic membership (``elastic_action``).
+``remat``, ``tower_dtype`` and ``base_quant`` are recorded for the
+checkpoint manifest; the backend's and reward suite's trees carry the
+applied values.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 from ..es.noiser import EggRollConfig
 
@@ -104,18 +104,3 @@ class TrainConfig:
             f"{'_anti' if self.antithetic else ''}{'_pn' if self.promptnorm else ''}"
         )
 
-
-# (field, is it set away from what the port runs?, the ROADMAP item that ports it)
-_UNPORTED = (
-    ("faults", lambda v: v is not None, "queue A item 7 part 3 (fault injection)"),
-    ("desync_check_every", lambda v: v != 8, "queue A item 7 part 3 (the desync check)"),
-    ("desync_action", lambda v: v != "rollback", "queue A item 7 part 3 (the desync check)"),
-    ("on_topology_mismatch", lambda v: v == "reshard", "queue A item 7 part 3 (reshard on restore)"),
-    ("elastic_action", lambda v: v != "checkpoint_exit", "queue A item 7 part 3 (elastic membership)"),
-)
-
-
-def unported_settings(tc: TrainConfig) -> List[str]:
-    """``"field=value (ROADMAP item)"`` for every field of ``tc`` that asks
-    for machinery the port does not have yet."""
-    return [f"{name}={getattr(tc, name)!r} ({item})" for name, off, item in _UNPORTED if off(getattr(tc, name))]

@@ -46,10 +46,13 @@ process evaluates its contiguous member slice, only the ``[pop, B]`` reward
 rows cross processes (``collectives.host_allgather_rows``), and every
 process applies the same update, so θ stays replicated. Process 0 writes
 the shared files; each process writes its own trace segment, profile
-directory and ``resilience.host<i>.json``, and serves its own exporter. The
-JAX loop's pod resilience (coordinated commit, elastic membership, the
-desync check, fault injection) is not here yet;
-``train.config.unported_settings`` names the ROADMAP item.
+directory and ``resilience.host<i>.json``, and serves its own exporter.
+The JAX loop's pod resilience runs here too: fault injection
+(``resilience.faultinject``), the two-phase commit
+(``resilience.coord.CoordinatedCheckpoint``), the desync check on the
+per-epoch gather with its coordinated rollback, elastic membership after a
+hard death (``resilience.elastic``: ``checkpoint_exit`` or ``continue``)
+and reshard-on-restore.
 
 :func:`make_fleet_step` advances W independent jobs in one program
 (``train.fleet`` schedules them).
@@ -61,6 +64,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import sys
 import time
 from pathlib import Path
@@ -86,22 +90,27 @@ from ..obs.program_cost import ProgramLedger, record_program, roofline, set_ledg
 from ..obs.quality import QualityLedger, quality_metrics
 from ..obs.slo import build_trainer_evaluator
 from ..obs.trace import Tracer
-from ..parallel.collectives import (host_allgather_rows, host_scalar_allgather, is_master, live_ranks, process_count,
-                                    process_rank, set_gather_grace, set_live_ranks)
+from ..parallel.collectives import (GatherTimeout, host_allgather_rows, host_flag_any, host_scalar_allgather, is_master,
+                                    kv_client, live_count, live_ranks, process_count, process_rank, set_gather_grace,
+                                    set_live_ranks)
 from ..parallel.mesh import host_slices, initialize_multihost, process_device
 from ..parallel.pop_eval import make_fleet_evaluator, make_population_evaluator
 from ..parallel.pop_update import make_sharded_es_update, pop_shard_update_plan
+from ..resilience import elastic
 from ..resilience.checkpoints import CheckpointStore
+from ..resilience.coord import CoordinatedCheckpoint, fingerprint_payload, fingerprints_agree
+from ..resilience.faultinject import (SimulatedCrash, fault_epoch, get_fault_plan, install_fault_plan, set_fault_plan,
+                                      slow_fault_seconds)
 from ..resilience.preempt import HALT_MARKER, PREEMPT_MARKER, PreemptionHandler, write_marker
 from ..resilience.rollback import RollbackController
-from ..resilience.telemetry import host_snapshot_payload, write_host_snapshot
+from ..resilience.telemetry import host_snapshot_payload, set_resilience_registry, write_host_snapshot
 from ..utils import threefry
 from ..utils.graphs import GraphCache
 from ..utils.images import make_prompt_strip, resize_lanczos, to_uint8, write_png
 from ..utils.mfu import device_hbm_bandwidth, device_peak_flops, mfu
 from ..utils.pytree import tree_leaves, tree_map, tree_replace_leaves
-from .checkpoints import load_legacy_checkpoint, save_checkpoint
-from .config import TrainConfig, unported_settings
+from .checkpoints import load_legacy_checkpoint
+from .config import TrainConfig
 from .logging import MetricsLogger
 
 REWARD_KEYS = ("clip_aesthetic", "clip_text", "no_artifacts", "pickscore", "combined")
@@ -281,7 +290,11 @@ def _resolve_update_fn(tc: TrainConfig, es_cfg) -> Optional[Callable]:
     count): the sharded update, or ``None`` for the replicated one (off,
     one process, or ``auto`` with a base that does not tile the processes).
     ``on`` where the sharding cannot exist raises (``parallel.pop_update``
-    names why)."""
+    names why). After an elastic roll-call shrank the launch the update is
+    replicated: the gloo group still counts the dead process, and its
+    all-reduce would wait on it."""
+    if live_count() < process_count():
+        return None
     enabled, _reason = pop_shard_update_plan(tc.pop_shard_update, tc.pop_size, es_cfg.antithetic)
     return make_sharded_es_update(tc.pop_size, es_cfg) if enabled else None
 
@@ -474,6 +487,11 @@ class TrainState:
     preempted: bool = False  # SIGTERM/SIGINT honored: slot saved, preempted.json written
     halted: bool = False  # the rollback policy gave up: halted.json says why
     rollbacks: int = 0
+    # a hard death shrank the launch and the survivors took checkpoint_exit:
+    # survivor slot committed, clean exit for a relaunch at the new size
+    elastic_exit: bool = False
+    # this process was voted out by the roll-call: it committed nothing
+    elastic_evicted: bool = False
 
 
 # spans whose durations feed phase_<name>_seconds histograms
@@ -552,10 +570,10 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
     the last row's scalars) and ``/healthz`` with the JAX keys
     (``backend``, ``run_dir``, ``topology``, ``membership``,
     ``resilience``, ``queue: None``, ``sentry_verdict`` when the run dir
-    holds one): ``membership`` and ``resilience`` carry the one-process
-    values (one incarnation, rank 0 live, no transitions; this run's
-    ``resilience/*`` counters), the pod's views being ROADMAP items 7 and
-    10. ``tc.heartbeat_interval_s`` wraps the compile (a plan's first
+    holds one): ``membership`` is ``resilience.elastic.membership_view()``
+    (the incarnation, the live ranks, every roll-call verdict and reshard
+    restore), ``resilience`` this process's ``resilience/*`` counters.
+    ``tc.heartbeat_interval_s`` wraps the compile (a plan's first
     dispatch: warm-up and capture), each later dispatch and each checkpoint
     in a heartbeat; a heartbeat reads only the allocator's counters, never
     a CUDA call that could break a capture. ``tc.stall_cap_s`` arms the
@@ -568,21 +586,41 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
     on; off with N > 1 raises: the port has no program spanning processes):
     each epoch is :func:`make_host_sharded_programs`' two programs around the
     reward gather, and is never chained. Process 0 writes ``metrics.jsonl``,
-    ``quality.jsonl``, ``programs.jsonl``, the slots, the markers and the
-    artifacts; every process writes its trace segment
-    (``obs.multihost.trace_segment_path``), its profile directory and
-    ``resilience.host<i>.json`` (at each save and at the end), and serves
-    its exporter on ``tc.metrics_port + rank``. One host gather an epoch
-    carries the means of the wall-clock and ``es/*`` scalars (the row says
-    ``process_count``), a preemption requested on any process (every
-    process saves and stops at the same boundary) and the non-finite verdict
-    (any process's bad θ rolls every process back). Each slot records the
-    launch's topology, and a resume under another process count raises
-    ``TopologyMismatch``."""
-    unported = unported_settings(tc)
-    if unported:
-        raise NotImplementedError("the port's run_training does not have this machinery yet: "
-                                  + "; ".join(unported))
+    ``quality.jsonl``, ``programs.jsonl``, the markers and the artifacts;
+    every process writes its trace segment
+    (``obs.multihost.trace_segment_path``), its profile directory,
+    ``resilience.host<i>.json`` (at each save and at the end) and its slot
+    store, and serves its exporter on ``tc.metrics_port + rank``. One host
+    gather an epoch carries the means of the wall-clock and ``es/*``
+    scalars (the row says ``process_count``), a preemption requested on any
+    process (every process saves and stops at the same boundary), the
+    non-finite verdict (any process's bad θ rolls every process back) and,
+    every ``tc.desync_check_every`` epochs, θ's fingerprint (the step's own
+    ``theta_norm`` and ``delta_norm``): a disagreement ticks
+    ``resilience/desync`` and every process restores the last agreed slot
+    and replays with the same σ and keys (``tc.desync_action="rollback"``,
+    on the ``max_rollbacks`` budget) or halts (``halted.json``). Slots go
+    through ``resilience.coord.CoordinatedCheckpoint``: every process writes
+    its own store (``ckpt/``, ``ckpt.host<i>/``), reads it back and votes;
+    a slot without a unanimous vote is invalidated everywhere. Each slot
+    records the launch's topology; a resume under another process count
+    raises ``TopologyMismatch`` unless ``tc.on_topology_mismatch`` is
+    ``reshard`` (the member slices re-split, an ``elastic.json``
+    transition). A gather that times out (a dead process) runs the
+    roll-call; the survivors then commit a slot among themselves and leave
+    (``tc.elastic_action="checkpoint_exit"``, ``TrainState.elastic_exit``;
+    a process voted out leaves with ``elastic_evicted``) or adopt the lost
+    members' slices from the last ratified slot and go on
+    (``continue``: the update replicated from then on). An epoch that
+    builds programs (warm-up and capture) gives its gathers the compile
+    grace (``HYPERSCALEES_KV_COMPILE_GRACE_MS``).
+
+    The fault plan (``tc.faults`` or ``$HYPERSCALEES_FAULTS``,
+    ``resilience.faultinject``) fires at the JAX loop's sites: ``slow``
+    inside the dispatch, ``preempt`` and ``nan_theta`` before the epoch's
+    gather, ``desync`` after it, ``die`` then ``crash`` before the periodic
+    slot, ``torn_write`` inside the slot's commit, ``io_error`` in the
+    retries."""
     initialize_multihost()
     master, pc = is_master(), process_count()
     host_shard = tc.pop_host_shard == "on" or (pc > 1 and tc.pop_host_shard != "off")
@@ -590,12 +628,15 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
         raise ValueError(f"--pop_host_shard off with {pc} processes asks for one program spanning the processes, "
                          "which the port does not have: it shards the population over processes only "
                          "(--pop_host_shard auto or on)")
-    host_lo, host_lpop = host_slices(tc.pop_size, pc)[process_rank()] if host_shard else (0, tc.pop_size)
+    rank = process_rank()
+    host_lo, host_lpop = host_slices(tc.pop_size, pc)[rank] if host_shard else (0, tc.pop_size)
     dev = process_device(device)
     backend.setup()
     run_dir = Path(tc.run_dir) / tc.auto_run_name(backend.name)
     registry = MetricsRegistry()
-    res_registry = MetricsRegistry(prefix="resilience/")
+    # the run's resilience/ registry is the process-global one while it runs:
+    # the fault sites, the commit and the roll-call tick it without a handle
+    res_registry = set_resilience_registry(MetricsRegistry(prefix="resilience/"))
     logger = MetricsLogger(run_dir if master else None, registry=res_registry)
 
     def observe_phase(name: str, dur_s: float) -> None:
@@ -609,7 +650,10 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
     if host_shard:
         for r in range(pc):
             logger.info(f"host pop slices: process {r} -> members [{r * host_lpop}..{(r + 1) * host_lpop - 1}]")
+    # the canonical store every process restores from; slots are written
+    # through the launch's two-phase commit (one process: the plain save)
     store = CheckpointStore(run_dir, keep=tc.ckpt_keep, registry=res_registry)
+    coord_ckpt = CoordinatedCheckpoint(run_dir, keep=tc.ckpt_keep)
     rollback_ctrl = RollbackController(policy=tc.rollback_policy, max_rollbacks=tc.max_rollbacks,
                                        sigma_shrink=tc.rollback_sigma_shrink, explode_norm=tc.theta_explode_norm)
     if master:
@@ -617,6 +661,9 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
             (run_dir / stale).unlink(missing_ok=True)
     quality_ledger = (QualityLedger(run_dir if master else None, reward_keys=REWARD_KEYS,
                                     hack_window=tc.quality_hack_window) if tc.quality else None)
+    # the membership view /healthz serves: every rank live, the incarnation
+    # stamped once resume has fixed the start epoch
+    elastic.reset_membership("pending", list(range(pc)))
 
     def degenerate(consecutive: int) -> None:
         registry.inc("es_degenerate_warnings")
@@ -639,14 +686,13 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
     anomaly_watchdog = (AnomalyWatchdog(run_dir=run_dir if master else None, window=tc.anomaly_window,
                                         min_history=tc.anomaly_min_epochs, z_thresh=tc.anomaly_z)
                         if tc.anomaly_detect else None)
-    incarnation = {"id": "pending"}
 
     def healthz() -> Dict[str, Any]:
         payload: Dict[str, Any] = {
             "backend": backend.name,
             "run_dir": str(run_dir),
             "topology": topology,
-            "membership": {"incarnation": incarnation["id"], "live_ranks": live_ranks(), "transitions": []},
+            "membership": elastic.membership_view(),
             "resilience": host_snapshot_payload(registry=res_registry),
             "queue": None,  # the trainer has no serving queue; the key is shared
         }
@@ -689,14 +735,25 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
         )
         if exporter is not None:
             logger.info(f"live telemetry: /metrics + /healthz on port {exporter.port}")
+        install_fault_plan(tc.faults)
         with tracer.span("setup"):
             theta = _init_theta(backend, tc, dev)
             start_epoch, restored_delta = 0, None
             if tc.resume:
-                res = store.restore(theta, with_delta=True, expect_topology=topology)
+                res = store.restore(theta, with_delta=True, expect_topology=topology,
+                                    on_mismatch=tc.on_topology_mismatch)
                 if res is not None:
                     theta, start_epoch, restored_delta = res.theta, res.epoch, res.prev_delta
                     logger.info(f"resumed from epoch {start_epoch} (slot {res.slot})")
+                    if res.resharded:
+                        # the restore ticked resilience/elastic_reshard_restores
+                        transition = {"kind": "reshard_restore", "epoch": int(start_epoch),
+                                      "from": (res.meta or {}).get("topology") or {}, "to": topology}
+                        logger.info(f"reshard-on-restore: slot topology {transition['from']} -> {topology}; this "
+                                    f"host now evaluates members [{host_lo}..{host_lo + host_lpop - 1}]")
+                        elastic.note_membership(list(range(pc)), transition=transition)
+                        if master:
+                            elastic.write_transition(run_dir, {**transition, "slot": res.slot})
                     # a σ shrunk by rollbacks survives a restart, with the rollbacks spent
                     slot_cfg = (res.meta or {}).get("config") or {}
                     rollback_ctrl.rollbacks = int(slot_cfg.get("_rollbacks", 0) or 0)
@@ -717,7 +774,10 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
             prev_delta = (tree_map(to_dev, restored_delta) if restored_delta is not None
                           else tree_map(torch.zeros_like, theta))
 
-        incarnation["id"] = f"i{start_epoch}.n{pc}"
+        # the incarnation every process agrees on (start epoch and launch
+        # size): a liveness key of another incarnation counts as dead
+        incarnation = f"i{start_epoch}.n{pc}"
+        elastic.set_incarnation(incarnation)
         set_ledger(ProgramLedger(run_dir / "programs.jsonl" if master else None))
         state = TrainState(theta=theta, epoch=start_epoch, rollbacks=rollback_ctrl.rollbacks)
         step_cache: Dict[Tuple[int, int], Callable] = {}
@@ -735,256 +795,449 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
             profiler = start_profile(dev)
             logger.info(f"profiler trace on for {tc.profile_epochs} epochs → {profile_dir}")
         last_saved_boundary = -1
+        # epochs fully applied to state.theta: the boundary a survivors'
+        # commit stamps when a gather times out inside a later epoch
+        completed_boundary = start_epoch
 
         def do_save(boundary: int, reward: float) -> None:
             """One slot at an epoch boundary, once (a preemption on a
-            save_every boundary writes one), written by process 0 (θ is
-            replicated); every process then writes its host snapshot."""
+            save_every boundary writes one), through the two-phase commit:
+            a collective with several processes, every one of which reaches
+            the same boundaries. A refused commit leaves the boundary
+            unsaved, so the next due one tries again; every process then
+            writes its host snapshot."""
             nonlocal last_saved_boundary
             if last_saved_boundary == boundary:
                 return
-            if master:
-                with tracer.span("checkpoint"), hb("checkpoint"):
-                    save_checkpoint(run_dir, state.theta, boundary, reward, backend.name,
-                                    config={**dataclasses.asdict(tc_live), "_rollbacks": rollback_ctrl.rollbacks},
-                                    prev_delta=prev_delta, keep=tc.ckpt_keep, legacy_mirror=tc.ckpt_legacy_mirror,
-                                    topology=topology, registry=res_registry)
+            with tracer.span("checkpoint"), hb("checkpoint"):
+                committed = coord_ckpt.save(
+                    state.theta, boundary, prev_delta=prev_delta, summary_reward=reward, backend_name=backend.name,
+                    config={**dataclasses.asdict(tc_live), "_rollbacks": rollback_ctrl.rollbacks},
+                    topology=topology, legacy_mirror=tc.ckpt_legacy_mirror)
+            if committed:
+                last_saved_boundary = boundary
                 res_registry.gauge("last_saved_epoch", boundary)
-            last_saved_boundary = boundary
-            write_host_snapshot(run_dir, epoch=boundary, extra={"committed": master}, registry=res_registry)
+            write_host_snapshot(run_dir, epoch=boundary, extra={"committed": bool(committed)}, registry=res_registry)
 
         def _epochs_until_due(e: int) -> int:
             """Epochs from ``e`` to the next one with host work of its own
-            (θ histograms, strips, a checkpoint, a snapshot): 0 means ``e``
-            itself is due. A chain does not cross one (the JAX loop's rule)."""
+            (θ histograms, strips, a checkpoint, a snapshot, the desync
+            check of a launch, an armed fault): 0 means ``e`` itself is due.
+            A chain does not cross one (the JAX loop's rule)."""
             d = None
-            for every in (tc.log_hist_every, tc.log_images_every, tc.save_every, tc.snapshot_every):
+            periods = [tc.log_hist_every, tc.log_images_every, tc.save_every, tc.snapshot_every]
+            if pc > 1:
+                periods.append(tc.desync_check_every)
+            for every in periods:
                 if every:
                     rr = (every - (e + 1) % every) % every
                     d = rr if d is None else min(d, rr)
+            plan = get_fault_plan()
+            nxt = plan.next_armed_epoch(e) if plan is not None else None
+            if nxt is not None:
+                d = (nxt - e) if d is None else min(d, nxt - e)
             return 10**9 if d is None else d
+
+        def adopt_restored(restored: Any, *, clear_programs: bool) -> None:
+            """A restored slot becomes the live state (the rollback's and the
+            elastic continue's one discipline): θ and Δθ (zeros without one)
+            onto the device, where the next step copies them into its
+            programs' static inputs; ``clear_programs`` drops every program
+            when σ or the member slice changed (they are built again at the
+            next epoch); the boundary dedup resets."""
+            nonlocal prev_delta, last_saved_boundary
+            state.theta = tree_map(to_dev, restored.theta)
+            prev_delta = (tree_map(to_dev, restored.prev_delta) if restored.prev_delta is not None
+                          else tree_map(torch.zeros_like, state.theta))
+            if clear_programs:
+                step_cache.clear()
+                programs.clear()
+                step_cost.clear()
+            last_saved_boundary = -1
+
+        def checkpoint_exit(survivors, round_id: str) -> str:
+            """The survivors commit one last slot among themselves
+            (``elastic.survivor_commit``) and leave for a relaunch at the new
+            process count; a refused commit still exits cleanly (the last
+            ratified slot stands)."""
+            committed = elastic.survivor_commit(
+                run_dir, state.theta, int(completed_boundary), client=kv_client(), rank=rank, survivors=survivors,
+                round_id=round_id, incarnation=incarnation, keep=tc.ckpt_keep, prev_delta=prev_delta,
+                backend_name=backend.name, topology=topology,
+                config={**dataclasses.asdict(tc_live), "_rollbacks": rollback_ctrl.rollbacks})
+            res_registry.inc("elastic_checkpoint_exits")
+            state.epoch = int(completed_boundary)
+            state.elastic_exit = True
+            logger.info(f"elastic checkpoint_exit at epoch {completed_boundary} (survivor slot "
+                        f"{'committed' if committed else 'REFUSED — last ratified slot stands'}); relaunch at "
+                        f"{len(survivors)} process(es) with --resume auto --on_topology_mismatch reshard")
+            return "exit"
+
+        def on_gather_timeout(gt: GatherTimeout) -> str:
+            """A host gather timed out: a peer died, or is slower than the
+            deadline. One bounded roll-call (``elastic.roll_call``) decides,
+            then the survivors take ``tc.elastic_action``. Returns ``exit``
+            (leave the loop) or ``continue`` (re-enter at the updated epoch).
+            A roll-call that finds every rank alive raises."""
+            nonlocal epoch, host_lo, host_lpop, completed_boundary
+            res_registry.inc("elastic_gather_timeouts")
+            print(f"[resilience] ELASTIC: {gt} — starting roll-call", file=sys.stderr, flush=True)
+            rc_res = elastic.roll_call(kv_client(), rank=rank, ranks=live_ranks(), incarnation=incarnation,
+                                       round_id=f"g{gt.seq}")
+            if rc_res.all_alive:
+                raise RuntimeError(
+                    f"host gather hg{gt.seq} timed out but roll-call found every rank alive (ranks "
+                    f"{rc_res.survivors}) — a straggler beyond the KV deadline ({gt.timeout_ms} ms); raise "
+                    "HYPERSCALEES_KV_TIMEOUT_MS or fix the slow host") from gt
+            if rc_res.evicted:
+                # voted out by the peers: stand down, the survivors own the run
+                print(f"[resilience] ELASTIC: this host (rank {rank}) was voted OUT by roll-call {rc_res.round_id} "
+                      f"(survivors {rc_res.survivors}) — standing down cleanly", file=sys.stderr, flush=True)
+                res_registry.inc("elastic_evicted")
+                state.epoch = int(completed_boundary)
+                state.elastic_exit = state.elastic_evicted = True
+                return "exit"
+            survivors = rc_res.survivors
+            action = tc.elastic_action
+            print(f"[resilience] ELASTIC: roll-call {rc_res.round_id} verdict — dead host(s) {rc_res.dead}, "
+                  f"survivors {survivors} (roll-call took {rc_res.duration_s * 1e3:.0f} ms); action={action}",
+                  file=sys.stderr, flush=True)
+            if action == "continue" and tc.pop_size % len(survivors):
+                print(f"[resilience] ELASTIC: cannot re-split pop_size={tc.pop_size} over {len(survivors)} "
+                      "survivor(s) — falling back to checkpoint_exit", file=sys.stderr, flush=True)
+                action = "checkpoint_exit"
+            transition = {"kind": "rollcall", "round": rc_res.round_id, "epoch": int(completed_boundary),
+                          "dead": rc_res.dead, "survivors": survivors, "action": action, "incarnation": incarnation,
+                          # detection: the deadline that fired plus the roll-call
+                          "detect_s": round(gt.timeout_ms / 1e3 + rc_res.duration_s, 3)}
+            elastic.note_membership(survivors, transition=transition)
+            if rank == survivors[0]:
+                elastic.write_transition(run_dir, transition)
+            write_host_snapshot(run_dir, epoch=int(completed_boundary), extra={"elastic": transition},
+                                registry=res_registry)
+            if action == "checkpoint_exit":
+                return checkpoint_exit(survivors, rc_res.round_id)
+
+            # continue: the survivors adopt the lost members' slices from the
+            # last ratified slot; every later host gather is theirs alone
+            set_live_ranks(survivors)
+            if 0 not in survivors:
+                print("[resilience] ELASTIC WARNING: rank 0 (the observability master) is among the dead — "
+                      "metrics.jsonl/markers/report artifacts stop; per-host /metrics exporters and host snapshots "
+                      "continue. Prefer checkpoint_exit + relaunch to restore full telemetry",
+                      file=sys.stderr, flush=True)
+            restored = None
+            try:
+                restored = store.restore(state.theta, with_delta=True, expect_topology=topology)
+            except OSError as e:
+                logger.info(f"elastic restore failed after retries ({e!r})")
+            if restored is None:
+                print("[resilience] ELASTIC: continue requested but no ratified slot to adopt from — falling back "
+                      "to checkpoint_exit (never a silent wrong-split replay)", file=sys.stderr, flush=True)
+                return checkpoint_exit(survivors, rc_res.round_id)
+            host_lo, host_lpop = host_slices(tc.pop_size, len(survivors))[survivors.index(rank)]
+            # the eval slice's programs hold the old slice: built again
+            adopt_restored(restored, clear_programs=True)
+            epoch = completed_boundary = int(restored.epoch)
+            state.epoch = epoch
+            res_registry.inc("elastic_continues")
+            res_registry.gauge("elastic_live_hosts", len(survivors))
+            logger.info(f"elastic continue: survivors {survivors} adopt the lost member slices — this host now "
+                        f"evaluates members [{host_lo}..{host_lo + host_lpop - 1}]; replaying from ratified slot "
+                        f"{restored.slot} (epoch {epoch})")
+            return "continue"
 
         epoch = start_epoch
         while epoch < tc.num_epochs:
-            with tracer.span("epoch", epoch=epoch):
-                t0 = time.perf_counter()
-                with tracer.span("plan"):
-                    info = backend.step_info(epoch, tc.prompts_per_gen, tc.batches_per_gen)
-                    m, r = len(info.unique_ids), info.repeats
-                warm = (m, r) in step_cache
-                if pc > 1:
-                    # an epoch that builds programs gives its gathers the
-                    # compile grace: the peers are building the same ones
-                    set_gather_grace(not warm)
-                if not warm:
-                    if host_shard:
-                        step_cache[(m, r)] = _host_step(*make_host_sharded_programs(
-                            backend, reward_fn, tc_live, m, r, (host_lo, host_lpop), dev, graphs=programs))
-                    else:
-                        step_cache[(m, r)] = make_es_step(backend, reward_fn, tc_live, m, r, dev,
-                                                          stateful_delta=True, graphs=programs)
-                # epochs per dispatch: K > 1 only once the plan has run,
-                # outside the profile window, and with nothing due inside
-                # the chain (the JAX loop's rule); never host-sharded, where
-                # the reward gather splits every epoch
-                K = 1
-                in_window = profiler is not None and epoch - start_epoch < tc.profile_epochs
-                if tc.steps_per_dispatch > 1 and warm and not in_window and not host_shard and \
-                        _epochs_until_due(epoch) > 0:
-                    K = min(tc.steps_per_dispatch, tc.num_epochs - epoch, _epochs_until_due(epoch))
-                infos = [info]
-                if K > 1:
-                    infos += [backend.step_info(e, tc.prompts_per_gen, tc.batches_per_gen)
-                              for e in range(epoch + 1, epoch + K)]
-                    if any((len(i.unique_ids), i.repeats) != (m, r) for i in infos):
-                        K, infos = 1, [info]  # the geometry changed mid-chain
-                # the chain's ids and keys, staged on the device before any replay
-                ids_k = device_ids([f for i in infos for f in i.flat_ids], dev).reshape(K, m * r)
-                keys_k = torch.stack([epoch_key(tc.seed, epoch + j, dev) for j in range(K)])
-                due = [master and bool(every) and K == 1 and (epoch + 1) % every == 0
-                       for every in (tc.log_hist_every, tc.log_images_every, tc.snapshot_every)]
-                hist_due, strips_due, snapshot_due = due
-                # θ before the update, for Δθ and the member regenerations:
-                # a copy, since the step's outputs are the graph's buffers
-                theta_before = tree_map(torch.clone, state.theta) if any(due) else None
-                label = f"es_step_m{m}r{r}"
-                # a plan's first dispatch is its compile (warm-up and
-                # capture); no device gauges inside a timed dispatch
-                with tracer.span("dispatch", epochs=K), (hb("dispatch", gauges=None) if warm else hb("compile")), \
-                        (torch.profiler.record_function(f"train/{label}") if in_window else contextlib.nullcontext()):
-                    # θ and Δθ carry through the program's buffers; one
-                    # read-back at the chain's end
-                    for j in range(K):
-                        state.theta, prev_delta, metrics, opt_scores = step_cache[(m, r)](
-                            state.theta, prev_delta, ids_k[j], keys_k[j])
-                    scalars: Dict[str, Any] = {k: (v.tolist() if v.ndim else float(v)) for k, v in metrics.items()}
-                info = infos[-1]  # a chain logs its last epoch's prompts
-                dt = time.perf_counter() - t0
-                opt_np = opt_scores.float().cpu().numpy() if theta_before is not None else None
-                if not warm:
-                    geometry = {"m": m, "r": r, "pop": tc.pop_size, "member_batch": tc.member_batch,
-                                "remat": tc_live.remat, "noise_dtype": tc_live.noise_dtype,
-                                "tower_dtype": tc_live.tower_dtype, "pop_fuse": tc_live.pop_fuse,
-                                "base_quant": tc_live.base_quant, "mesh_shape": None, "n_devices": 1}
-                    if host_shard:
-                        # the eval slice holds nearly all the FLOPs the MFU line reports
-                        entry = programs.entries[(m, r, "eval_slice")]
-                        step_cost[(m, r)] = record_program(
-                            site="train", label=f"es_eval_slice_m{m}r{r}", stats=entry.stats, cost=entry.cost,
-                            device=dev, geometry={**geometry, "host_slice": [host_lo, host_lpop]})
-                        for key in [k for k in programs.entries if k[:2] == (m, r) and k[2].startswith("update")]:
-                            entry = programs.entries[key]
-                            record_program(site="train", label=f"es_{key[2]}_m{m}r{r}", stats=entry.stats,
-                                           cost=entry.cost, device=dev, geometry=geometry)
-                    else:
-                        entry = programs.entries[(m, r)]
-                        step_cost[(m, r)] = record_program(site="train", label=label, stats=entry.stats,
-                                                           cost=entry.cost, device=dev, geometry=geometry)
-                prog = step_cost.get((m, r), {})
-                if K == 1:
-                    host_step_s[f"train/{label}"] = dt
-                epoch = epoch + K - 1  # the chain's last epoch from here on
-                registry.inc("dispatches")
-                registry.inc("epochs_dispatched", K)
-                registry.observe("train_step_time_seconds", dt / K)
-                record_device_memory(registry, dev)
-                n_images = tc.pop_size * m * r * K
-                scalars.update(epoch=epoch, incarnation=int(start_epoch), epochs_chained=K, step_time_s=dt / K,
-                               images_scored=n_images, images_per_sec=n_images / max(dt, 1e-9), prompts=info.texts)
-                u = mfu(prog.get("flops"), dt / K, device=dev)
-                if u is not None:
-                    scalars["mfu"] = u
-                # which resource binds the step (obs.program_cost.roofline);
-                # absent where the peaks are unknown (the CPU)
-                rf = roofline(prog.get("flops"), prog.get("bytes_accessed"), dt / K, peak_flops=peak_flops,
-                              hbm_bw=hbm_bw)
-                if rf["bound"] is not None:
-                    scalars["roofline/bound"] = rf["bound"]
-                    scalars["roofline/intensity"] = rf["intensity"]
-                    for rk in ("t_compute_s", "t_bandwidth_s", "t_roofline_s"):
-                        if rf[rk] is not None:
-                            scalars[f"roofline/{rk}"] = rf[rk]
-                degen_watchdog.update(float(scalars.get("es/fitness_zero", 0.0)) >= 0.5)
-                # one host gather an epoch carries the pod's agreement: the
-                # means of the host-local numbers, the preemption broadcast
-                # (every process leaves at the same boundary) and the
-                # non-finite verdict (every process takes the same branch)
-                local_bad = rollback_ctrl.is_bad(scalars.get("theta_norm"))
-                bad_theta, preempt_now = local_bad, preempt.requested
-                if pc > 1:
-                    reduce_keys = [k for k in scalars if k in ("step_time_s", "images_per_sec", "mfu")
-                                   or (k.startswith("es/") and not k.startswith("es/leaf_"))]
-                    payload = {k: scalars[k] for k in reduce_keys}
-                    payload["_preempt_req"] = 1.0 if preempt.requested else 0.0
-                    payload["_bad_theta"] = 1.0 if local_bad else 0.0
-                    gathered = host_scalar_allgather(payload)
-                    scalars.update({k: float(gathered[k].mean()) for k in reduce_keys})
-                    scalars["process_count"] = pc
-                    preempt_now = bool(gathered["_preempt_req"].max() > 0)
-                    if preempt_now and not preempt.requested:
-                        preempt.request("preemption broadcast from a peer host")
-                    bad_theta = bool(gathered["_bad_theta"].max() > 0)
-                rollback_action = None
-                if bad_theta:
-                    rollback_action = rollback_ctrl.next_action()
-                    state.rollbacks = rollback_ctrl.rollbacks
-                    res_registry.inc("rollbacks")
-                    print(f"[resilience] WATCHDOG: non-finite/diverged theta at epoch {epoch} "
-                          f"(theta_norm={scalars.get('theta_norm')}) — rollback #{rollback_ctrl.rollbacks}, "
-                          f"action={rollback_action}", file=sys.stderr, flush=True)
-                if hist_due and rollback_action is None:
-                    with tracer.span("hist"):
-                        scalars.update(_histograms(theta_before, state.theta, opt_np))
-                if slo_eval is not None:
-                    slo_eval.tick()
-                    scalars.update(slo_eval.registry.snapshot())
-                if anomaly_watchdog is not None:
-                    anomaly_watchdog.observe(epoch, scalars)
-                    scalars.update(anomaly_watchdog.registry.snapshot())
-                if quality_ledger is not None:
-                    scalars.update(quality_ledger.observe(epoch, scalars))
-                scalars.update(registry.snapshot())
-                scalars.update(res_registry.snapshot())
-                with tracer.span("log"):
-                    logger.log(epoch, scalars)
-                latest_scalars_ref["scalars"] = {
-                    k: v for k, v in scalars.items()
-                    if isinstance(v, (int, float)) and not k.startswith(("obs/", "resilience/", "slo/", "anomaly/"))
-                }
-                note_health(last_completed_epoch=int(epoch))
-
-                if rollback_action is not None:
-                    restored = None
-                    if rollback_action != "halt":
-                        restored = store.restore(state.theta, with_delta=True, expect_topology=topology)
-                        if restored is None:
-                            logger.info("rollback requested but no valid checkpoint slot — halting")
-                            rollback_action = "halt"
-                    if rollback_action == "halt":
-                        if master:
-                            write_marker(run_dir, HALT_MARKER, {
-                                "epoch": int(epoch), "reason": "non-finite theta",
-                                "rollbacks": rollback_ctrl.rollbacks, "theta_norm": str(scalars.get("theta_norm")),
-                                "policy": rollback_ctrl.policy,
-                            })
-                        state.halted = True
-                        logger.info(f"HALT (non-finite theta) after {rollback_ctrl.rollbacks} rollback(s) at "
-                                    f"epoch {epoch} — see {HALT_MARKER}")
-                        break
-                    state.theta = tree_map(to_dev, restored.theta)
-                    prev_delta = (tree_map(to_dev, restored.prev_delta) if restored.prev_delta is not None
-                                  else tree_map(torch.zeros_like, state.theta))
-                    last_saved_boundary = -1
-                    res_registry.gauge("last_good_epoch", restored.epoch)
-                    if rollback_action == "sigma_shrink":
-                        tc_live = dataclasses.replace(tc_live, sigma=tc_live.sigma * rollback_ctrl.sigma_shrink)
-                        step_cache.clear()
-                        programs.clear()
-                        epoch = restored.epoch
-                        logger.info(f"rollback → slot {restored.slot}: replaying from epoch {epoch} with "
-                                    f"sigma={tc_live.sigma:g}")
-                    else:  # skip: keep the restored θ, fresh draws past the bad epoch
-                        logger.info(f"rollback → slot {restored.slot}: skipping past epoch {epoch}")
-                        epoch += 1
-                    state.epoch = epoch
-                    continue
-
-                if strips_due:
-                    with tracer.span("strip"):
-                        _save_member_strips(backend, theta_before, tc_live, epoch, info, opt_np, run_dir)
-                if snapshot_due:
-                    # the best member's decoded grid; best-effort: a decode or
-                    # PNG failure never ends the run
-                    with tracer.span("snapshot"):
-                        try:
-                            _save_quality_snapshot(backend, theta_before, tc_live, epoch, info, opt_np, run_dir)
-                        except Exception as e:
-                            registry.inc("cleanup_errors")
-                            print(f"[quality] WARNING: snapshot failed ({type(e).__name__}: {e})",
+            try:
+                with tracer.span("epoch", epoch=epoch):
+                    t0 = time.perf_counter()
+                    with tracer.span("plan"):
+                        info = backend.step_info(epoch, tc.prompts_per_gen, tc.batches_per_gen)
+                        m, r = len(info.unique_ids), info.repeats
+                    warm = (m, r) in step_cache
+                    if pc > 1:
+                        # an epoch that builds programs gives its gathers the
+                        # compile grace: the peers are building the same ones
+                        set_gather_grace(not warm)
+                    if not warm:
+                        if host_shard:
+                            step_cache[(m, r)] = _host_step(*make_host_sharded_programs(
+                                backend, reward_fn, tc_live, m, r, (host_lo, host_lpop), dev, graphs=programs))
+                        else:
+                            step_cache[(m, r)] = make_es_step(backend, reward_fn, tc_live, m, r, dev,
+                                                              stateful_delta=True, graphs=programs)
+                    # epochs per dispatch: K > 1 only once the plan has run,
+                    # outside the profile window, and with nothing due inside
+                    # the chain (the JAX loop's rule); never host-sharded, where
+                    # the reward gather splits every epoch
+                    K = 1
+                    in_window = profiler is not None and epoch - start_epoch < tc.profile_epochs
+                    if tc.steps_per_dispatch > 1 and warm and not in_window and not host_shard and \
+                            _epochs_until_due(epoch) > 0:
+                        K = min(tc.steps_per_dispatch, tc.num_epochs - epoch, _epochs_until_due(epoch))
+                    infos = [info]
+                    if K > 1:
+                        infos += [backend.step_info(e, tc.prompts_per_gen, tc.batches_per_gen)
+                                  for e in range(epoch + 1, epoch + K)]
+                        if any((len(i.unique_ids), i.repeats) != (m, r) for i in infos):
+                            K, infos = 1, [info]  # the geometry changed mid-chain
+                    # the chain's ids and keys, staged on the device before any replay
+                    ids_k = device_ids([f for i in infos for f in i.flat_ids], dev).reshape(K, m * r)
+                    keys_k = torch.stack([epoch_key(tc.seed, epoch + j, dev) for j in range(K)])
+                    due = [master and bool(every) and K == 1 and (epoch + 1) % every == 0
+                           for every in (tc.log_hist_every, tc.log_images_every, tc.snapshot_every)]
+                    hist_due, strips_due, snapshot_due = due
+                    # θ before the update, for Δθ and the member regenerations:
+                    # a copy, since the step's outputs are the graph's buffers
+                    theta_before = tree_map(torch.clone, state.theta) if any(due) else None
+                    label = f"es_step_m{m}r{r}"
+                    # a plan's first dispatch is its compile (warm-up and
+                    # capture); no device gauges inside a timed dispatch
+                    with tracer.span("dispatch", epochs=K), \
+                            (hb("dispatch", gauges=None) if warm else hb("compile")), \
+                            (torch.profiler.record_function(f"train/{label}") if in_window
+                             else contextlib.nullcontext()):
+                        # slow@K (host-scopable): a straggle inside the timed
+                        # dispatch, so this host reaches the epoch's gathers late
+                        if fault_epoch("slow", epoch):
+                            time.sleep(slow_fault_seconds())
+                        # θ and Δθ carry through the program's buffers; one
+                        # read-back at the chain's end
+                        for j in range(K):
+                            state.theta, prev_delta, metrics, opt_scores = step_cache[(m, r)](
+                                state.theta, prev_delta, ids_k[j], keys_k[j])
+                        scalars: Dict[str, Any] = {k: (v.tolist() if v.ndim else float(v))
+                                                   for k, v in metrics.items()}
+                    info = infos[-1]  # a chain logs its last epoch's prompts
+                    dt = time.perf_counter() - t0
+                    opt_np = opt_scores.float().cpu().numpy() if theta_before is not None else None
+                    if not warm:
+                        geometry = {"m": m, "r": r, "pop": tc.pop_size, "member_batch": tc.member_batch,
+                                    "remat": tc_live.remat, "noise_dtype": tc_live.noise_dtype,
+                                    "tower_dtype": tc_live.tower_dtype, "pop_fuse": tc_live.pop_fuse,
+                                    "base_quant": tc_live.base_quant, "mesh_shape": None, "n_devices": 1}
+                        if host_shard:
+                            # the eval slice holds nearly all the FLOPs the MFU line reports
+                            entry = programs.entries[(m, r, "eval_slice")]
+                            step_cost[(m, r)] = record_program(
+                                site="train", label=f"es_eval_slice_m{m}r{r}", stats=entry.stats, cost=entry.cost,
+                                device=dev, geometry={**geometry, "host_slice": [host_lo, host_lpop]})
+                            for key in [k for k in programs.entries if k[:2] == (m, r) and k[2].startswith("update")]:
+                                entry = programs.entries[key]
+                                record_program(site="train", label=f"es_{key[2]}_m{m}r{r}", stats=entry.stats,
+                                               cost=entry.cost, device=dev, geometry=geometry)
+                        else:
+                            entry = programs.entries[(m, r)]
+                            step_cost[(m, r)] = record_program(site="train", label=label, stats=entry.stats,
+                                                               cost=entry.cost, device=dev, geometry=geometry)
+                    prog = step_cost.get((m, r), {})
+                    if K == 1:
+                        host_step_s[f"train/{label}"] = dt
+                    epoch = epoch + K - 1  # the chain's last epoch from here on
+                    # epochs [start, completed_boundary) are in state.theta; a
+                    # gather that times out inside the dispatch never gets here
+                    completed_boundary = epoch + 1
+                    registry.inc("dispatches")
+                    registry.inc("epochs_dispatched", K)
+                    registry.observe("train_step_time_seconds", dt / K)
+                    record_device_memory(registry, dev)
+                    n_images = tc.pop_size * m * r * K
+                    scalars.update(epoch=epoch, incarnation=int(start_epoch), epochs_chained=K, step_time_s=dt / K,
+                                   images_scored=n_images, images_per_sec=n_images / max(dt, 1e-9),
+                                   prompts=info.texts)
+                    u = mfu(prog.get("flops"), dt / K, device=dev)
+                    if u is not None:
+                        scalars["mfu"] = u
+                    # which resource binds the step (obs.program_cost.roofline);
+                    # absent where the peaks are unknown (the CPU)
+                    rf = roofline(prog.get("flops"), prog.get("bytes_accessed"), dt / K, peak_flops=peak_flops,
+                                  hbm_bw=hbm_bw)
+                    if rf["bound"] is not None:
+                        scalars["roofline/bound"] = rf["bound"]
+                        scalars["roofline/intensity"] = rf["intensity"]
+                        for rk in ("t_compute_s", "t_bandwidth_s", "t_roofline_s"):
+                            if rf[rk] is not None:
+                                scalars[f"roofline/{rk}"] = rf[rk]
+                    degen_watchdog.update(float(scalars.get("es/fitness_zero", 0.0)) >= 0.5)
+                    # preempt and nan_theta fire before the gather, so a
+                    # host-scoped one rides this epoch's rows and every process
+                    # takes the same branch
+                    if fault_epoch("preempt", epoch):
+                        preempt.request(f"fault-injection preempt@{epoch}")
+                    if fault_epoch("nan_theta", epoch):
+                        state.theta = tree_map(lambda t: torch.full_like(t, float("nan")), state.theta)
+                        scalars["theta_norm"] = float("nan")
+                    # one host gather an epoch carries the pod's agreement: the
+                    # means of the host-local numbers, the preemption broadcast
+                    # (every process leaves at the same boundary), the
+                    # non-finite verdict (every process takes the same branch)
+                    # and, every desync_check_every epochs, θ's fingerprint
+                    local_bad = rollback_ctrl.is_bad(scalars.get("theta_norm"))
+                    bad_theta, preempt_now, desync_detected = local_bad, preempt.requested, False
+                    if pc > 1:
+                        reduce_keys = [k for k in scalars if k in ("step_time_s", "images_per_sec", "mfu")
+                                       or (k.startswith("es/") and not k.startswith("es/leaf_"))]
+                        desync_due = tc.desync_check_every > 0 and (epoch + 1) % tc.desync_check_every == 0
+                        payload = {k: scalars[k] for k in reduce_keys}
+                        payload["_preempt_req"] = 1.0 if preempt.requested else 0.0
+                        payload["_bad_theta"] = 1.0 if local_bad else 0.0
+                        if desync_due:
+                            payload.update(fingerprint_payload(scalars))
+                        gathered = host_scalar_allgather(payload)
+                        scalars.update({k: float(gathered[k].mean()) for k in reduce_keys})
+                        scalars["process_count"] = pc
+                        preempt_now = bool(gathered["_preempt_req"].max() > 0)
+                        if preempt_now and not preempt.requested:
+                            preempt.request("preemption broadcast from a peer host")
+                        bad_theta = bool(gathered["_bad_theta"].max() > 0)
+                        if desync_due and not fingerprints_agree(gathered):
+                            desync_detected = True
+                            res_registry.inc("desync")
+                            print(f"[resilience] WATCHDOG: cross-host theta fingerprint DISAGREES at epoch {epoch} "
+                                  f"(theta_norm rows: {[float(v) for v in gathered['_desync_fp/theta_norm']]}) — "
+                                  f"hosts have silently forked; action={tc.desync_action}",
                                   file=sys.stderr, flush=True)
-                theta_before = None
-                if profiler is not None and epoch + 1 - start_epoch >= tc.profile_epochs:
-                    prof, profiler = profiler, None
-                    stop_profile(prof, profile_dir / "train.pt.trace.json")
-                    if master:
-                        _calibrate(run_dir, host_step_s, registry, logger)
-                if tc.save_every and ((epoch + 1) % tc.save_every == 0 or epoch + 1 == tc.num_epochs):
-                    do_save(epoch + 1, scalars["opt_score_mean"])
-                res_registry.gauge("last_good_epoch", epoch + 1)
-                if on_epoch_end is not None:
-                    on_epoch_end(epoch, scalars)
-                epoch += 1
-                state.epoch = epoch
-                # a launch leaves on the gathered verdict, so every process
-                # stops at the same boundary; a request after the gather
-                # waits for the next epoch's
-                if preempt_now if pc > 1 else preempt.requested:
-                    do_save(epoch, scalars["opt_score_mean"])
-                    if master:
-                        write_marker(run_dir, PREEMPT_MARKER, {"epoch": int(epoch), "reason": preempt.reason})
-                    res_registry.gauge("preempted", 1)
-                    state.preempted = True
-                    logger.info(f"preempted at epoch boundary {epoch} — checkpoint saved; resume with --resume auto")
+                    # desync: a finite fork of this host's θ, after the gather:
+                    # only the next due fingerprint (or commit digest) sees it
+                    if fault_epoch("desync", epoch):
+                        state.theta = tree_map(lambda t: (t * 1.001).to(t.dtype), state.theta)
+                    rollback_action = None
+                    if bad_theta:
+                        rollback_action = rollback_ctrl.next_action()
+                        state.rollbacks = rollback_ctrl.rollbacks
+                        res_registry.inc("rollbacks")
+                        print(f"[resilience] WATCHDOG: non-finite/diverged theta at epoch {epoch} "
+                              f"(theta_norm={scalars.get('theta_norm')}) — rollback #{rollback_ctrl.rollbacks}, "
+                              f"action={rollback_action}", file=sys.stderr, flush=True)
+                    elif desync_detected:
+                        # a fork is a hardware or I/O event: replay from the last
+                        # agreed slot with σ unchanged, or halt
+                        rollback_action = rollback_ctrl.next_action(
+                            "replay" if tc.desync_action == "rollback" else "halt")
+                        state.rollbacks = rollback_ctrl.rollbacks
+                        res_registry.inc("rollbacks")
+                    guard_tripped = bad_theta or desync_detected
+                    if hist_due and not guard_tripped:
+                        with tracer.span("hist"):
+                            scalars.update(_histograms(theta_before, state.theta, opt_np))
+                    if slo_eval is not None:
+                        slo_eval.tick()
+                        scalars.update(slo_eval.registry.snapshot())
+                    if anomaly_watchdog is not None:
+                        anomaly_watchdog.observe(epoch, scalars)
+                        scalars.update(anomaly_watchdog.registry.snapshot())
+                    if quality_ledger is not None:
+                        scalars.update(quality_ledger.observe(epoch, scalars))
+                    scalars.update(registry.snapshot())
+                    scalars.update(res_registry.snapshot())
+                    with tracer.span("log"):
+                        logger.log(epoch, scalars)
+                    latest_scalars_ref["scalars"] = {
+                        k: v for k, v in scalars.items()
+                        if isinstance(v, (int, float)) and not k.startswith(("obs/", "resilience/", "slo/", "anomaly/"))
+                    }
+                    note_health(last_completed_epoch=int(epoch))
+
+                    if guard_tripped:
+                        kind = "non-finite theta" if bad_theta else "cross-host desync"
+                        restored = None
+                        if rollback_action != "halt":
+                            try:
+                                # every process reads the canonical, published-only
+                                # store: the launch re-syncs onto the same bytes
+                                restored = store.restore(state.theta, with_delta=True, expect_topology=topology)
+                            except OSError as e:  # the transient-I/O retries ran out
+                                logger.info(f"rollback restore failed after retries ({e!r})")
+                            # one process without a slot halts every process
+                            restore_failed = restored is None
+                            if pc > 1:
+                                restore_failed = host_flag_any(restore_failed)
+                            if restore_failed:
+                                logger.info("a peer host has no valid checkpoint slot — halting together"
+                                            if restored is not None
+                                            else "rollback requested but no valid checkpoint slot — halting")
+                                restored, rollback_action = None, "halt"
+                        if rollback_action == "halt":
+                            if master:
+                                write_marker(run_dir, HALT_MARKER, {
+                                    "epoch": int(epoch), "reason": kind, "rollbacks": rollback_ctrl.rollbacks,
+                                    "theta_norm": str(scalars.get("theta_norm")),
+                                    "policy": rollback_ctrl.policy if bad_theta else f"desync_{tc.desync_action}",
+                                })
+                            state.halted = True
+                            logger.info(f"HALT ({kind}) after {rollback_ctrl.rollbacks} rollback(s) at epoch {epoch} "
+                                        f"— see {HALT_MARKER}")
+                            break
+                        # the programs are built again only when σ changes
+                        adopt_restored(restored, clear_programs=rollback_action == "sigma_shrink")
+                        res_registry.gauge("last_good_epoch", restored.epoch)
+                        if rollback_action == "sigma_shrink":
+                            tc_live = dataclasses.replace(tc_live, sigma=tc_live.sigma * rollback_ctrl.sigma_shrink)
+                            epoch = completed_boundary = restored.epoch
+                            logger.info(f"rollback → slot {restored.slot}: replaying from epoch {epoch} with "
+                                        f"sigma={tc_live.sigma:g}")
+                        elif rollback_action == "replay":
+                            # the desync re-sync: the same σ, keys and programs
+                            epoch = completed_boundary = restored.epoch
+                            logger.info(f"desync rollback → slot {restored.slot}: every host replaying from epoch "
+                                        f"{epoch} (sigma unchanged)")
+                        else:  # skip: keep the restored θ, fresh draws past the bad epoch
+                            logger.info(f"rollback → slot {restored.slot}: skipping past epoch {epoch}")
+                            epoch += 1
+                            completed_boundary = restored.epoch
+                        state.epoch = epoch
+                        continue
+
+                    if strips_due:
+                        with tracer.span("strip"):
+                            _save_member_strips(backend, theta_before, tc_live, epoch, info, opt_np, run_dir)
+                    if snapshot_due:
+                        # the best member's decoded grid; best-effort: a decode or
+                        # PNG failure never ends the run
+                        with tracer.span("snapshot"):
+                            try:
+                                _save_quality_snapshot(backend, theta_before, tc_live, epoch, info, opt_np, run_dir)
+                            except Exception as e:
+                                registry.inc("cleanup_errors")
+                                print(f"[quality] WARNING: snapshot failed ({type(e).__name__}: {e})",
+                                      file=sys.stderr, flush=True)
+                    theta_before = None
+                    if profiler is not None and epoch + 1 - start_epoch >= tc.profile_epochs:
+                        prof, profiler = profiler, None
+                        stop_profile(prof, profile_dir / "train.pt.trace.json")
+                        if master:
+                            _calibrate(run_dir, host_step_s, registry, logger)
+                    # die: a hard death with no broadcast; the peers find out
+                    # when their next gather times out
+                    if fault_epoch("die", epoch):
+                        print(f"[resilience] FAULT die@{epoch}: hard exit (os._exit, no broadcast)",
+                              file=sys.stderr, flush=True)
+                        os._exit(1)
+                    # crash: an unclean death before the periodic slot
+                    if fault_epoch("crash", epoch):
+                        raise SimulatedCrash(f"injected crash at epoch {epoch}")
+                    if tc.save_every and ((epoch + 1) % tc.save_every == 0 or epoch + 1 == tc.num_epochs):
+                        do_save(epoch + 1, scalars["opt_score_mean"])
+                    res_registry.gauge("last_good_epoch", epoch + 1)
+                    if on_epoch_end is not None:
+                        on_epoch_end(epoch, scalars)
+                    epoch += 1
+                    state.epoch = epoch
+                    # a launch leaves on the gathered verdict, so every process
+                    # stops at the same boundary; a request after the gather
+                    # waits for the next epoch's
+                    if preempt_now if pc > 1 else preempt.requested:
+                        do_save(epoch, scalars["opt_score_mean"])
+                        if master:
+                            write_marker(run_dir, PREEMPT_MARKER, {"epoch": int(epoch), "reason": preempt.reason})
+                        res_registry.gauge("preempted", 1)
+                        state.preempted = True
+                        logger.info(f"preempted at epoch boundary {epoch} — checkpoint saved; resume with --resume "
+                                    "auto")
+                        break
+            except GatherTimeout as gt:
+                if on_gather_timeout(gt) == "exit":
                     break
         return state
     finally:
@@ -1007,10 +1260,13 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                 emit_heartbeat("train", "metrics_linger", linger_s=tc.metrics_linger_s)
                 time.sleep(tc.metrics_linger_s)
             exporter.stop()
-        # the gather deadline and the membership are process-global: a
-        # later run in this process starts from the defaults
+        # the gather deadline, the membership, the fault plan and the
+        # resilience registry are process-global: a later run in this
+        # process starts from the defaults
         set_gather_grace(False)
         set_live_ranks(None)
+        set_fault_plan(None)
+        set_resilience_registry(None)
         preempt.uninstall()
 
 

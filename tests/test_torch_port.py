@@ -45,7 +45,8 @@ _REQUIRED = ["hyperscalees_t2i_tpu_torch." + m for m in (
     "resilience.telemetry", "tools.loadgen", "tools.dispatch_tax", "obs.trace", "obs.regress", "tools.trace_report",
     "tools.run_report", "tools.sentry", "tools.preflight", "evaluate.run_benchmark", "evaluate.score_folder",
     "tools.demo", "tools.vote_report", "tools.encode_prompts", "tools.sweep", "utils.imagenet_labels",
-    "parallel.mesh", "parallel.collectives", "parallel.pop_update", "obs.multihost", "tools.launch_local")]
+    "parallel.mesh", "parallel.collectives", "parallel.pop_update", "obs.multihost", "tools.launch_local",
+    "resilience.faultinject", "resilience.coord", "resilience.elastic", "resilience.checkpoints", "resilience.retry")]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

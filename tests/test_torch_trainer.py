@@ -18,7 +18,8 @@ around it, against the JAX package on the CPU.
 - Port-only counterparts of ``tests/test_trainer.py`` and the loop's
   resilience: ES improves a brightness reward, the promptnorm path, resume,
   a NaN member, SIGTERM, rollback and halt, an interrupted run resumed
-  bitwise equal to an uninterrupted one, unported settings refused.
+  bitwise equal to an uninterrupted one, the launch's resilience settings
+  parsed and refused as the JAX CLI and trainer do.
 - The host-side pieces against the JAX functions on the same inputs:
   ``quality_metrics`` (1e-6), ``QualityLedger``, ``DegeneracyWatchdog``,
   ``RollbackController``, ``TrainConfig``, the hash tokenizer, the flat
@@ -526,19 +527,57 @@ def test_resume_keeps_a_shrunk_sigma(tmp_path, monkeypatch):
     assert cfg["sigma"] == 0.025 and cfg["_rollbacks"] == 1
 
 
-@pytest.mark.parametrize("field, value, item", [
-    ("desync_action", "halt", "item 7"),
-    ("elastic_action", "abort", "item 7"), ("faults", "preempt@1", "item 7"),
-    ("desync_check_every", 4, "item 7"), ("on_topology_mismatch", "reshard", "item 7"),
-    ("elastic_action", "continue", "item 7"),
-])
-def test_unported_settings_raise(tmp_path, field, value, item):
-    """The pod resilience still to port (queue A item 7 part 3); the
-    host-sharded population and the pop-sharded update run since item 7
-    parts 1-2 (``tests/test_torch_host_shard.py``)."""
-    with pytest.raises(NotImplementedError, match=f"{field}=.*{item} part 3"):
-        trainer.run_training(port_backend(), brightness, _tc(tmp_path, **{field: value}), device="cpu")
-    assert not (tmp_path / "runs").exists()
+# (field, value, what the JAX CLI does with --field value, what the JAX
+# run_training does with the setting: None runs, else the exception it raises)
+RESILIENCE_SETTINGS = [
+    ("desync_action", "halt", "parses", None),
+    ("desync_action", "shrug", "refuses", None),
+    ("elastic_action", "abort", "refuses", None),
+    ("elastic_action", "continue", "parses", None),
+    ("faults", "preempt@1", "parses", None),
+    ("faults", "dye@1", "parses", ValueError),
+    ("desync_check_every", 4, "parses", None),
+    ("on_topology_mismatch", "reshard", "parses", None),
+    ("on_topology_mismatch", "shrug", "refuses", ValueError),
+]
+
+
+@pytest.mark.parametrize("field, value, jax_cli, jax_run", RESILIENCE_SETTINGS)
+def test_resilience_settings_as_jax(tmp_path, field, value, jax_cli, jax_run):
+    """The launch's resilience settings (queue A item 7 part 3), each held
+    against what the JAX CLI and trainer do with it: the CLI parses or
+    refuses the flag as the JAX CLI does; a setting the JAX
+    ``run_training`` refuses raises the same error before any epoch runs
+    (checked against the JAX trainer, which refuses it before its
+    compile); one it accepts runs a one-process epoch in the port (the JAX
+    trainer consults none of them in one process but ``faults``)."""
+    from hyperscalees_t2i_tpu.train.cli import build_parser as jbuild_parser
+    from hyperscalees_t2i_tpu_torch.train.cli import build_parser
+
+    argv = ["--backend", "sana_one_step", f"--{field}", str(value)]
+    outcomes = []
+    for parser in (build_parser(), jbuild_parser()):
+        try:
+            outcomes.append(getattr(parser.parse_args(argv), field))
+        except SystemExit:
+            outcomes.append("refuses")
+    assert outcomes[0] == outcomes[1] == ("refuses" if jax_cli == "refuses" else value)
+    for parser in (build_parser(), jbuild_parser()):
+        assert parser.get_default(field) == getattr(JTrainConfig(), field) == getattr(TrainConfig(), field)
+    tc = _tc(tmp_path, num_epochs=2, **{field: value})
+    if jax_run is not None:
+        jb = _jax_backend(tmp_path)
+        jtc = JTrainConfig(run_dir=str(tmp_path / "jax"), num_epochs=1, pop_size=4, prompts_per_gen=2,
+                           member_batch=2, **{field: value})
+        with pytest.raises(jax_run) as jerr:
+            jrun_training(jb, jax_brightness, jtc)
+        with pytest.raises(jax_run) as err:
+            trainer.run_training(port_backend(), brightness, tc, device="cpu")
+        assert str(err.value) == str(jerr.value)
+        return
+    state = trainer.run_training(port_backend(), brightness, tc, device="cpu")
+    assert state.epoch == 2 and state.preempted == (value == "preempt@1")
+    assert getattr(tc, field) == value
 
 
 def test_trace_spans_read_by_the_jax_reader(tmp_path):

@@ -39,7 +39,7 @@ from hyperscalees_t2i_tpu.train.trainer import run_training as jrun_training
 from hyperscalees_t2i_tpu_torch.obs import anomaly
 from hyperscalees_t2i_tpu_torch.obs.exporter import parse_prometheus_text
 from hyperscalees_t2i_tpu_torch.train import cli, trainer
-from hyperscalees_t2i_tpu_torch.train.config import TrainConfig, unported_settings
+from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
 from hyperscalees_t2i_tpu_torch.utils.jsonl import read_jsonl_rows
 
 from test_torch_trainer import _jax_backend, brightness, jax_brightness, port_backend
@@ -209,7 +209,10 @@ def test_anomaly_detect_off_writes_nothing(tmp_path):
                                           ("heartbeat_interval_s", 5.0), ("stall_cap_s", 30.0),
                                           ("stall_action", "checkpoint_exit"), ("metrics_linger_s", 0.5)])
 def test_telemetry_settings_are_accepted(field, value):
-    assert unported_settings(TrainConfig(**{field: value})) == []
+    """Every setting is the JAX TrainConfig's field, with its default."""
+    tc = TrainConfig(**{field: value})
+    assert getattr(tc, field) == value == getattr(JTrainConfig(**{field: value}), field)
+    assert getattr(TrainConfig(), field) == getattr(JTrainConfig(), field)
 
 
 def test_cli_telemetry_flags_parse_as_jax():
@@ -232,4 +235,3 @@ def test_cli_telemetry_flags_parse_as_jax():
     assert (tc.metrics_port, tc.metrics_host, tc.slo, tc.heartbeat_interval_s, tc.stall_cap_s, tc.stall_action,
             tc.anomaly_detect, tc.anomaly_window, tc.anomaly_min_epochs, tc.anomaly_z, tc.metrics_linger_s) == (
         9101, "127.0.0.1", "latency_p95=2s", 5.0, 60.0, "checkpoint_exit", False, 16, 4, 6.0, 1.5)
-    assert unported_settings(tc) == []
