@@ -3329,6 +3329,9 @@ ZIMAGE_LATENT = 64
 # the transformer and r 4 on the decoder, noise f32, towers bf16, int8 base
 ZIMAGE_POP, ZIMAGE_PROMPTS, ZIMAGE_MB = 8, 2, 8
 ZIMAGE_EPOCHS = 2  # run_training epochs of phase_zimage_es, the first the warm-up and capture
+# the ES run's depth, of Z-Image-Turbo's 30 blocks: its kernels' shapes and the
+# per-layer work do not depend on it (phase_zimage_kernel_check keeps all 30)
+ZIMAGE_ES_LAYERS = 6
 ZIMAGE_TEXT = 24  # synthetic prompt positions (backends.zimage_backend.SYNTH_TEXT_LEN)
 
 
@@ -3653,8 +3656,8 @@ def zimage_fused_call(torch, backend, tc, theta, ids, gen_noise):
     ``backend``'s base with ``pop_fuse``: members ``0..member_batch-1``'s
     factored adapter, the launch counters set to 0 just before and read
     just after, as :func:`expected_zimage_launches` derives them for the
-    generation (over a bf16 base: K2 at every adapted site, 4 × 30 × 8 =
-    960, nothing else). Under ``torch.profiler``: the kernels' in-situ
+    generation (over a bf16 base: K2 at every adapted site, 4 × layers × 8,
+    nothing else). Under ``torch.profiler``: the kernels' in-situ
     device ms. Images finite in [0, 1]."""
     import dataclasses
 
@@ -3696,7 +3699,8 @@ def zimage_fused_call(torch, backend, tc, theta, ids, gen_noise):
 
 
 def phase_zimage_es(torch):
-    """Z-Image's ES run on the card at :data:`ZIMAGE_TURBO`'s widths, the
+    """Z-Image's ES run on the card at :data:`ZIMAGE_TURBO`'s widths
+    (``ZIMAGE_ES_LAYERS`` of its 30 blocks), the
     KL-VAE decoder, CLIP-B/32 and CLIP-H/14 (bf16, int8 image sides), 512²
     images, every backend built by the train CLI's builder (``cli.
     zimage_backend``) from the CLI's flags (``--backend zimage --pop_fuse
@@ -3706,11 +3710,11 @@ def phase_zimage_es(torch):
     seed 0 as ``setup`` draws them, each node cast to bf16 as it is drawn,
     so the f32 tree of ≈ 8.0 B values is never whole): one eager
     ``pop_fuse`` generate call of one chunk (:func:`zimage_fused_call`: K2
-    960, in situ). Then ``--base_quant int8``, the weights drawn by
+    4 × layers × 8, in situ). Then ``--base_quant int8``, the weights drawn by
     ``setup`` and quantized node by node as the CLI does without
     ``--weights``: ``run_training`` as a CUDA graph for ``ZIMAGE_EPOCHS``
     epochs, the first the warm-up and capture (:func:`_graph_run` with
-    ``against_eager``: K3 4 × 30 × 8 = 960 and K1 as the module tree gives
+    ``against_eager``: K3 4 × layers × 8 and K1 as the module tree gives
     them, per generate call, counted at the warm-up and on the device in a
     profiled replayed epoch, which must equal the same epoch run eagerly,
     bitwise). The eager epoch's stages by CUDA events: the DiT
@@ -3744,7 +3748,8 @@ def phase_zimage_es(torch):
             "--train_vae_decoder_lora", "true", "--tower_dtype", "bfloat16", "--latent_size", str(ZIMAGE_LATENT),
             "--prompts_txt", str(prompts_txt)])
 
-    model_cfg, vae_cfg = zimage.ZImageConfig(**ZIMAGE_TURBO), vaekl.VAEDecoderConfig(**ZIMAGE_VAE)
+    model_cfg = zimage.ZImageConfig(**{**ZIMAGE_TURBO, "n_layers": ZIMAGE_ES_LAYERS})
+    vae_cfg = vaekl.VAEDecoderConfig(**ZIMAGE_VAE)
     tc = cli.train_config(flags("int8"))
     m = tc.prompts_per_gen
     gc.collect()
@@ -3789,7 +3794,8 @@ def phase_zimage_es(torch):
     int8_peak = (torch.cuda.max_memory_allocated() - base0) / 2**30
     weights_bytes = torch.cuda.memory_allocated()
     _, per = expected_zimage_launches(backend, suite, tc, m)
-    _, _, steps, d, _, L = zimage_geometry()
+    _, _, steps, d, _, _ = zimage_geometry()
+    L = ZIMAGE_ES_LAYERS
     if (per["k2_per_call"], per["k3_per_call"], per["calls"]) != (0, 4 * L * steps, 1) or not per["k1_per_call"]:
         raise AssertionError(f"the Z-Image int8 pop_fuse plan is not K3 {4 * L * steps} and K1 in one call: {per}")
     ada_tmp = d * 6 * d * 4
@@ -6186,7 +6192,8 @@ def multiproc_cli_run(argv, theta1=None, on_epoch=None, before_training=None, la
     wrappers' counters from 0 just before its ``run_training`` (the eager
     warm-up epoch of each program; replays are not counted) read just after,
     the launches :func:`expected_es_launches` derives for this process's
-    member slice, every gathered ``[pop, B]`` reward-row dict
+    member slice (with a host mesh: its pop shard's members on its data
+    shard's images), every gathered ``[pop, B]`` reward-row dict
     (``train.trainer.host_allgather_rows``), each logged epoch's row
     ``step_time_s``, each step's θ′ (in call order: a rolled-back epoch's
     too) and the final θ flat, the process's rank and device, the CLI's exit
@@ -6235,8 +6242,8 @@ def multiproc_cli_run(argv, theta1=None, on_epoch=None, before_training=None, la
         rec["rows"].append({k: np.array(v) for k, v in full.items()})
         return full
 
-    def host_step(eval_slice, update):
-        step = real_step(eval_slice, update)
+    def host_step(eval_slice, update, *args):
+        step = real_step(eval_slice, update, *args)
 
         def recorded(*args):
             out = step(*args)
@@ -6261,15 +6268,22 @@ def multiproc_cli_run(argv, theta1=None, on_epoch=None, before_training=None, la
 
     def run(backend, reward, tc, device=None, **kw):
         info = backend.step_info(0, tc.prompts_per_gen, tc.batches_per_gen)
-        mine = dataclasses.replace(tc, pop_size=tc.pop_size // process_count())
-        rec["expected"], rec["per_call"] = expected_es_launches(backend, reward, mine, len(info.flat_ids))
+        members, images = tc.pop_size // process_count(), len(info.flat_ids)
+        mesh = kw.get("mesh")
+        if mesh is not None and mesh.size > 1:
+            # a host of mesh.size processes: its slice over the pop axis, its images over the data axis
+            hosts = process_count() // mesh.size
+            members = -(-tc.pop_size // hosts // mesh.shape["pop"])
+            images = -(-images // mesh.shape["data"])
+        mine = dataclasses.replace(tc, pop_size=members)
+        rec["expected"], rec["per_call"] = expected_es_launches(backend, reward, mine, images)
         rec["rank"], rec["processes"], rec["device"] = process_rank(), process_count(), str(backend.device)
         rec["wall"]["built"] = time.time()
         if before_training is not None:
             before_training()
         rec["wall"]["train"] = time.time()
         _reset_counters()
-        state = real_run(backend, reward, tc, device=device, on_epoch_end=epoch_end)
+        state = real_run(backend, reward, tc, device=device, on_epoch_end=epoch_end, **kw)
         rec["wall"]["trained"] = time.time()
         rec["launches"] = _counters()
         rec["theta"] = flat(state.theta)
@@ -6476,6 +6490,7 @@ def phase_multiproc_es(torch):
     # the first update takes bitwise-equal rows in both runs: split over the
     # processes it is the replicated update up to the partial sums' order
     rows_apart(0, one, exact=True)
+    np.savez(root / "one_rows0.npz", **one["rows"][0])  # phase_pod_es's reference
     theta_err = [theta_apart(e, one) for e in range(MULTIPROC_EPOCHS)]
     if theta_err[0] > MULTIPROC_TOL:
         raise AssertionError(f"two-process θ′ after epoch 0 is {theta_err[0]:.3g} from the one-process θ′ (bound "
@@ -6778,6 +6793,337 @@ def phase_chaos_es(torch, chaos):
                 transitions=[rollcall, reshard])
 
 
+# pod parallelism (phase_pod_es, phase_tp_sp): one host of two processes on
+# the one card, each a "device" of a JAX host
+POD_TOL = 3e-4  # the data axis's first-epoch rows against one process's, where a site breaks bitwise
+POD_LINGER_S = 3  # the pod launch's exporter after the merge: the pod/* gauges are scraped in it
+TP_N = 2  # processes of phase_tp_sp's launch: tp 2 and sp 2
+TP_DIT_LAYERS = 4  # of Sana-Sprint 1.6B's 20 blocks in the f32 DiT check (the rules do not depend on depth)
+TP_TOL = 1e-4  # the f32 DiT output (of its max) and the ring attention against one process
+TP_PROMPTS = 2  # run_benchmark --tp 2's images (one batch)
+
+
+def start_pod_launches():
+    """The launches of :func:`phase_pod_es` and :func:`phase_tp_sp`, started on
+    threads: their children do their host start now and wait on their
+    ``go`` files. The pod launch is one host of two processes
+    (``launch_local`` ``devices_per_process=2``) on :func:`_multiproc_argv`'s
+    command line with ``--pop_shards 1`` (pop 1 × data 2), traced, a slot
+    every epoch, its exporter lingering ``POD_LINGER_S``; the tp launch is
+    two processes of :func:`tp_child`."""
+    import shutil
+
+    from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET
+    from hyperscalees_t2i_tpu_torch.tools import launch_local
+
+    root = ROOT / "build" / "pod_es"
+    tp_root = ROOT / "build" / "tp_sp"
+    for d in (root, tp_root):
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+    port = _free_port()
+    pod_argv = _multiproc_argv(root) + ["--run_dir", str(root), "--run_name", "pod", "--pop_shards", "1", "--pop_shard_update", "off",
+                       "--trace", "true", "--save_every", "1", "--metrics_port", str(port),
+                       "--metrics_linger_s", str(POD_LINGER_S)]
+    (tp_root / "prompts.txt").write_text("\n".join(BENCH_PROMPT_SET[:TP_PROMPTS]) + "\n")
+    tp_argv = ["--backend", "sana_one_step", "--model_scale", "full", "--prompts_txt", str(tp_root / "prompts.txt"),
+               "--batch_size", str(TP_PROMPTS), "--out_dir", str(tp_root / "tp2"), "--tp", str(TP_N)]
+    out = {"root": root, "tp_root": tp_root, "port": port, "argv": pod_argv}
+
+    def pod():
+        t = time.perf_counter()
+        out["pod_rc"] = launch_local.run_pod(1, pod_argv, timeout_s=900, entry=["-c", _child_code(root)],
+                                             devices_per_process=2)
+        out["pod_s"] = time.perf_counter() - t
+
+    def tp():
+        t = time.perf_counter()
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                f"chip_smoke.tp_child({str(tp_root)!r})")
+        out["tp_rc"] = launch_local.run_pod(TP_N, tp_argv, timeout_s=900, entry=["-c", code])
+        out["tp_s"] = time.perf_counter() - t
+
+    out["threads"] = [threading.Thread(target=pod), threading.Thread(target=tp)]
+    for t in out["threads"]:
+        t.start()
+    return out
+
+
+def stop_pod_launches(pods):
+    """Tell both launches' children to leave without touching the card."""
+    for d in (pods["root"], pods["tp_root"]):
+        _tell(d, "stop")
+    for t in pods["threads"]:
+        t.join()
+
+
+def phase_pod_es(torch, pods):
+    """The data axis over processes (``launch_local --num_processes 1
+    --devices_per_process 2``: one host of two processes on the one card,
+    ``--pop_shards 1`` → pop 1 × data 2) on :func:`_multiproc_argv`'s
+    command line: Sana-Sprint 1.6B's widths, int8, the flagship knobs and
+    plan (pop 4, 4 prompts, member_batch 1), 2 epochs, traced, a slot every
+    epoch. Each process evaluates all 4 members on its 2 of the 4 images
+    (the global image positions' noise), and the rows are gathered over the
+    data group (gloo, through the host), then across hosts through the
+    store.
+
+    Checks: both children exit 0; each counts K3 and K1 as its 4 members × 2
+    images derive; both ranks' θ′ after every epoch bitwise equal; every
+    process's gathered rows the same; the first epoch's ``[4, 4]`` rows
+    bitwise those of :func:`phase_multiproc_es`'s one-process run on the same
+    command line (else within ``POD_TOL``, the gap printed); every boundary
+    committed by both processes (``_check_commits``); ``pod_summary.json``
+    with ``n_hosts`` 2 and an aligned epoch; the ``pod/*`` gauges served on
+    process 0's exporter after the merge; ``trace_report``'s Pod section and
+    ``run_report``'s Pod panel over the run dir. Prints the replayed epoch
+    and the gathers' anchor spans with the card's name and power limit."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from hyperscalees_t2i_tpu_torch.tools import run_report, trace_report
+
+    root, port = pods["root"], pods["port"]
+    smi = _card()
+    scraped = {}
+    done = threading.Event()
+
+    def scrape():  # the pod/* gauges appear after rank 0's merge, inside its exporter's linger window
+        while not done.is_set():
+            try:
+                text = _scrape(port, "/metrics")
+                if "pod_hosts" in text:
+                    scraped["text"] = text
+                    return
+            except Exception:
+                pass
+            time.sleep(0.2)
+
+    scraper = threading.Thread(target=scrape, daemon=True)
+    scraper.start()
+    wall = {"go": time.time()}
+    _tell(root, "go")
+    pods["threads"][0].join()
+    wall["end"] = time.time()
+    done.set()
+    scraper.join(timeout=5)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if pods.get("pod_rc") != 0:
+        raise AssertionError(f"the data-axis launch exited {pods.get('pod_rc')} (its lines are above, prefixed [p<i>])")
+    ranks = [json.loads((root / f"rank{r}.json").read_text()) for r in range(2)]
+    arrays = [np.load(root / f"rank{r}.npz") for r in range(2)]
+    for r, rec in enumerate(ranks):
+        got, want = rec["launches"], rec["expected"]
+        if rec["processes"] != 2 or got != want or not (got["fused_qlora"] and got["int8_matmul"]):
+            raise AssertionError(f"rank {r} of {rec['processes']}: launched {got}, expected {want} (K3 and K1 on its "
+                                 "4 members × 2 images)")
+    for name in ["theta"] + [f"theta{e}" for e in range(MULTIPROC_EPOCHS)]:
+        if arrays[1][name].tobytes() != arrays[0][name].tobytes():
+            raise AssertionError(f"the ranks left with different {name}")
+    ref = np.load(ROOT / "build" / "multiproc_es" / "one_rows0.npz")
+    gap, bitwise = 0.0, True
+    for k in ref.files:
+        blocks = [a[f"rows0_{k}"] for a in arrays]
+        if any(b.tobytes() != blocks[0].tobytes() for b in blocks[1:]):
+            raise AssertionError(f"the ranks gathered different rows {k}")
+        per_proc = blocks[0].reshape(2, *ref[k].shape)  # each process posts its host's rows
+        if per_proc[1].tobytes() != per_proc[0].tobytes():
+            raise AssertionError(f"the two processes of the host posted different rows {k}")
+        bitwise &= per_proc[0].tobytes() == ref[k].tobytes()
+        gap = max(gap, float(np.abs(per_proc[0] - ref[k]).max()))
+    if gap > POD_TOL:
+        raise AssertionError(f"the data axis's first-epoch rows are {gap:.3g} from one process's (bound {POD_TOL})")
+    run = root / "pod"
+    commit = _check_commits(run, MULTIPROC_EPOCHS)
+    summary = json.loads((run / "pod_summary.json").read_text())
+    if summary.get("n_hosts") != 2 or summary.get("n_epochs_aligned", 0) < 1:
+        raise AssertionError(f"pod_summary.json: {summary.get('n_hosts')} hosts, "
+                             f"{summary.get('n_epochs_aligned')} aligned epochs")
+    gauges = sorted({line.split()[0].split("{")[0] for line in scraped.get("text", "").splitlines()
+                     if line.startswith("pod_")})
+    if "pod_hosts" not in gauges:
+        raise AssertionError("no pod/* gauge was served on process 0's exporter after the merge")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_t = trace_report.main([str(run)])
+        rc_r = run_report.main([str(run), "--out", str(root / "run_report.html")])
+    text = buf.getvalue()
+    html_text = (root / "run_report.html").read_text() if rc_r == 0 else ""
+    if rc_t != 0 or "## pod" not in text or rc_r != 0 or "<h2>Pod</h2>" not in html_text:
+        raise AssertionError(f"trace_report exit {rc_t} (Pod section {'## pod' in text}), run_report exit {rc_r} "
+                             f"(Pod panel {'<h2>Pod</h2>' in html_text})")
+    pod_section = text[text.index("## pod"):].strip()
+    epochs = [rec["step_time_s"] for rec in ranks]
+    spans = dict(build=ranks[0]["wall"]["built"] - wall["go"],
+                 train=ranks[0]["wall"]["trained"] - ranks[0]["wall"]["train"],
+                 end=wall["end"] - ranks[0]["wall"]["trained"])
+    log(f"[pod-es] {smi}: one host of two processes on the one card, pop 1 × data 2 (Sana-Sprint 1.6B's widths, "
+        f"int8, the flagship plan); K3 {ranks[0]['launches']['fused_qlora']}, K1 {ranks[0]['launches']['int8_matmul']} "
+        f"counted in each process (its 4 members × 2 images, as derived); θ′ bitwise on both ranks; the first "
+        f"epoch's rows {'bitwise' if bitwise else f'within {gap:.3g} of'} the one-process run's; every slot committed "
+        f"by both; epochs {epochs[0]} s (process 0), {epochs[1]} s (process 1); pod_summary.json {summary['n_hosts']} "
+        f"hosts, {summary['n_epochs_aligned']} aligned epochs, straggler {summary.get('straggler_host')}; gauges "
+        f"served {gauges}; the launch from the word: build {spans['build']:.1f} s, run_training {spans['train']:.1f} "
+        f"s, merge, linger and exit {spans['end']:.1f} s\n{pod_section}")
+    return dict(card=smi, launches=[rec["launches"] for rec in ranks], expected=[rec["expected"] for rec in ranks],
+                rows_bitwise=bitwise, rows_gap=gap, step_time_s=epochs, commit=commit, gauges=gauges,
+                pod_summary={k: summary.get(k) for k in ("n_hosts", "n_epochs_aligned", "straggler_host",
+                                                          "epoch_spread_mean_s", "clock_offsets_s")},
+                spans_s=spans, pod_s=pods.get("pod_s"))
+
+
+def tp_child(out_dir):
+    """One process of :func:`phase_tp_sp`'s launch, once ``out_dir/go`` says
+    ``go``: ``run_benchmark``'s backend at ``--model_scale full`` (Sana-Sprint
+    1.6B, bf16, DC-AE to 1024²; rank 0 first generates the ``--tp 0``
+    images, eagerly), the generator sharded over the launch
+    (``run_benchmark.shard_generator``) and the folder generated eagerly,
+    rank 0 writing it; then an f32 Sana-Sprint DiT at ``TP_DIT_LAYERS``
+    blocks, its output unsharded, then sharded (``parallel.tp``); then ring
+    attention at Z-Image-Turbo's shape (30 heads, dh 128, the 1,048-token
+    joint sequence with a ragged text key mask) over the launch against
+    ``models.zimage.joint_attention`` in this process. Rank 0 writes
+    ``out_dir/tp.json``."""
+    import argparse
+
+    import torch
+
+    from hyperscalees_t2i_tpu_torch.evaluate import run_benchmark as rb
+    from hyperscalees_t2i_tpu_torch.models import sana, zimage
+    from hyperscalees_t2i_tpu_torch.ops import ring_attention as ra
+    from hyperscalees_t2i_tpu_torch.parallel import tp
+    from hyperscalees_t2i_tpu_torch.parallel.collectives import process_rank
+    from hyperscalees_t2i_tpu_torch.parallel.mesh import initialize_multihost
+    from hyperscalees_t2i_tpu_torch.utils import threefry
+    from hyperscalees_t2i_tpu_torch.utils.graphs import GraphCache
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = Path(out_dir)
+    _wait_word(out / "go", "to start")
+    args = rb.build_parser().parse_args(sys.argv[1:])
+    initialize_multihost(args.coordinator, args.num_processes, args.process_id)
+    rank = process_rank()
+    res = {}
+    t0 = time.perf_counter()
+    backend = rb.make_backend(argparse.Namespace(**{**vars(args), "tp": 0}))
+    res["build_s"] = time.perf_counter() - t0
+    theta = rb.load_theta(backend, "base", None)
+    quiet = lambda m: None  # noqa: E731
+    ref, got = [], []
+    if rank == 0:
+        t0 = time.perf_counter()
+        rb.generate_folder(backend, theta, out / "tp0", args.batch_size, args.limit,
+                           programs=GraphCache(backend.device, graph=False), sink=ref, log=quiet)
+        res["tp0_s"] = time.perf_counter() - t0
+    res["sharded_leaves"] = rb.shard_generator(backend, args.backend, args.tp)
+    for v in tp.TP_STATS.values():
+        v[:] = [0, 0.0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths = rb.generate_folder(backend, theta, args.out_dir, args.batch_size, args.limit,
+                               programs=GraphCache(backend.device, graph=False), sink=got, log=quiet,
+                               save=rank == 0)
+    torch.cuda.synchronize()
+    res["tp2_s"] = time.perf_counter() - t0
+    res["generate_collectives"] = {k: list(v) for k, v in tp.TP_STATS.items()}
+    if rank == 0:
+        res["images"] = len(paths)
+        res["image_gap"] = max(float(abs(a - b).max()) for a, b in zip(ref, got))
+        res["images_finite"] = all(bool(torch.isfinite(torch.as_tensor(g)).all()) for g in got)
+    del backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the f32 DiT at Sana-Sprint 1.6B's widths
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = sana.SanaConfig(n_layers=TP_DIT_LAYERS, compute_dtype=torch.float32)
+    model = sana.SanaTransformer(cfg, sana.init_sana(cfg, threefry.prng_key(0, dev))).to(dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    lat = torch.randn(2, 32, 32, cfg.in_channels, device=dev, generator=g)
+    cap = torch.randn(2, 300, cfg.caption_dim, device=dev, generator=g)
+    mask = torch.arange(300, device=dev)[None] < torch.tensor([[300], [171]], device=dev)
+    t = torch.tensor([0.6, 1.2], device=dev)
+    with torch.inference_mode():
+        plain = model(lat, t, cap, mask)
+        res["dit_sharded_leaves"] = tp.shard_module_tp(model, "sana")
+        for v in tp.TP_STATS.values():
+            v[:] = [0, 0.0]
+        sharded = model(lat, t, cap, mask)
+        torch.cuda.synchronize()
+    res["dit_collectives"] = {k: list(v) for k, v in tp.TP_STATS.items()}
+    res["dit_rel_err"] = float((sharded - plain).abs().max() / plain.abs().max())
+    res["dit_finite"] = bool(torch.isfinite(sharded).all())
+    del model, plain, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ring attention at Z-Image-Turbo's joint sequence: 24 text + 32² image tokens
+    R, S, H, dh = 2, ZIMAGE_TEXT + (ZIMAGE_LATENT // 2) ** 2, ZIMAGE_TURBO["n_heads"], 128
+    q, k, v = (torch.randn(R, S, H, dh, device=dev, generator=g) for _ in range(3))
+    kmask = torch.cat([torch.arange(ZIMAGE_TEXT, device=dev)[None] < torch.tensor([[ZIMAGE_TEXT], [13]], device=dev),
+                       torch.ones(R, S - ZIMAGE_TEXT, dtype=torch.bool, device=dev)], dim=1)
+    with torch.inference_mode():
+        want = zimage.joint_attention(q, k, v, kmask, torch.float32)
+        for val in ra.RING_STATS.values():
+            val[:] = [0, 0.0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ring = zimage.joint_attention(q, k, v, kmask, torch.float32, sp_group=torch.distributed.group.WORLD)
+        torch.cuda.synchronize()
+    res["ring_s"] = time.perf_counter() - t0
+    res["ring_collectives"] = {key: list(val) for key, val in ra.RING_STATS.items()}
+    res["ring_rel_err"] = float((ring - want).abs().max() / want.abs().max())
+    res["ring_abs_err"] = float((ring - want).abs().max())
+    res["ring_shape"] = [R, S, H, dh]
+    if rank == 0:
+        (out / "tp.json").write_text(json.dumps(res))
+
+
+def phase_tp_sp(torch, pods):
+    """Tensor and sequence parallelism on the one card: one launch of
+    ``TP_N`` processes (:func:`tp_child`) pays one CLI start for both checks.
+    ``run_benchmark --tp 2`` at Sana-Sprint 1.6B's widths (bf16, the
+    sharded generate eager, gloo collectives through the host): the images
+    against the one-process ``--tp 0`` images, their largest gap printed;
+    the f32 DiT (``TP_DIT_LAYERS`` of 20 blocks) within ``TP_TOL`` of its
+    largest output of the one-process output; ring attention at
+    Z-Image-Turbo's shape over sp 2 within ``TP_TOL`` of the one-process
+    ``joint_attention``. K1-K4 are on neither path (a float base; the plain
+    LoRA delta; ring attention is plain torch). Prints each collective's
+    count and host seconds: the cost of a correctness path with two
+    processes on one card, not a speed figure."""
+    root = pods["tp_root"]
+    smi = _card()
+    _tell(root, "go")
+    pods["threads"][1].join()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if pods.get("tp_rc") != 0 or not (root / "tp.json").exists():
+        raise AssertionError(f"the tp launch exited {pods.get('tp_rc')} (its lines are above, prefixed [p<i>])")
+    res = json.loads((root / "tp.json").read_text())
+    pngs = sorted((root / "tp2").glob("*.png"))
+    if res["images"] != TP_PROMPTS or len(pngs) != TP_PROMPTS or not res["images_finite"]:
+        raise AssertionError(f"run_benchmark --tp {TP_N} wrote {len(pngs)} images, finite {res['images_finite']}")
+    if not res["sharded_leaves"] or not res["dit_sharded_leaves"] or not res["dit_finite"]:
+        raise AssertionError(f"sharded leaves {res['sharded_leaves']} (generator), {res['dit_sharded_leaves']} (DiT)")
+    if res["dit_rel_err"] > TP_TOL or res["ring_rel_err"] > TP_TOL:
+        raise AssertionError(f"tp {TP_N}: the f32 DiT {res['dit_rel_err']:.3g} of its max from one process; ring "
+                             f"attention {res['ring_rel_err']:.3g} (bound {TP_TOL})")
+    fmt = lambda c: ", ".join(f"{k} {int(n)} calls {s:.3f} s" for k, (n, s) in c.items())  # noqa: E731
+    log(f"[tp-sp] {smi}: run_benchmark --tp {TP_N} at Sana-Sprint 1.6B's widths (bf16, {res['sharded_leaves']} "
+        f"leaves sharded): {TP_PROMPTS} images in {res['tp2_s']:.2f} s against {res['tp0_s']:.2f} s at --tp 0 "
+        f"(eager both), largest gap of the f32 images {res['image_gap']:.4g}; collectives "
+        f"{fmt(res['generate_collectives'])}; the f32 DiT at {TP_DIT_LAYERS} of 20 blocks: "
+        f"{res['dit_rel_err']:.3g} of its max from one process ({fmt(res['dit_collectives'])}); ring attention "
+        f"{res['ring_shape']} over sp {TP_N}: {res['ring_rel_err']:.3g} of its max ({res['ring_abs_err']:.3g} abs) "
+        f"from joint_attention in {res['ring_s']:.3f} s ({fmt(res['ring_collectives'])}); the backend built in "
+        f"{res['build_s']:.1f} s. Two processes sharing one card through the host: a correctness path, not a speed "
+        "figure")
+    return dict(card=smi, **res, tp_s=pods.get("tp_s"))
+
+
 def kernel_summary(name, rows, launches, calls_key, replaces, scope):
     """One entry per kernel: its main-path calls per unit of its path (one
     flagship image, one VAR generate call), summed."""
@@ -6883,7 +7229,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     multiproc, chaos_launches = timed("multiproc_es", phase_multiproc_es, torch)
-    chaos = timed("chaos_es", phase_chaos_es, torch, chaos_launches)
+    # the pod phases' children do their host start during the chaos phase
+    pods = start_pod_launches()
+    try:
+        chaos = timed("chaos_es", phase_chaos_es, torch, chaos_launches)
+        pod = timed("pod_es", phase_pod_es, torch, pods)
+    except BaseException:
+        stop_pod_launches(pods)
+        raise
+    tp_sp = timed("tp_sp", phase_tp_sp, torch, pods)
 
     # `launches`: the wrappers' counters over the main paths' eager epochs (the
     # eager variant's timed epochs, each run_training program's warm-up);
@@ -7023,9 +7377,11 @@ def main() -> int:
     for name, want in (("int8_matmul", q8_calls), ("fused_qlora", q8_calls), ("lora_chain", INF_FLOAT_DEPTH / INF_DEPTH)):
         if inf_launches(name) != sum(r["calls_per_call"] for r in inf_rows[name]) * want:
             raise AssertionError(f"{name}'s Infinity-2B table and launch count disagree")
-    # Z-Image: the int8 run's warm-up and its eager epoch (K1, K3), the bf16 pop_fuse call (K2)
+    # Z-Image: the int8 run's warm-up and its eager epoch (K1, K3), the bf16 pop_fuse call (K2); the
+    # block sites' calls at ZIMAGE_ES_LAYERS of the 30 layers the kernel table counts
     z_calls = zimage["per_call"]["calls"] * (zimage["eager_epochs"] + 1)
-    for name, want in (("int8_matmul", z_calls), ("fused_qlora", z_calls), ("lora_chain", 1)):
+    depth = ZIMAGE_ES_LAYERS / ZIMAGE_TURBO["n_layers"]
+    for name, want in (("int8_matmul", z_calls), ("fused_qlora", z_calls * depth), ("lora_chain", depth)):
         if zimage_launches(name) != sum(r["calls_per_call"] for r in zimage_rows[name]) * want:
             raise AssertionError(f"{name}'s Z-Image table and launch count disagree")
     if train_launches("lora_chain") or train_launches("decode_attention"):
@@ -7036,7 +7392,11 @@ def main() -> int:
     if inf_es["launches"]["decode_attention"] != sum(r["calls_per_call"] for r in k4_inf_rows) * INF_FLOAT_DEPTH \
             // INF_DEPTH * inf_es["per_call"]["calls"] * inf_es["eager_epochs"]:
         raise AssertionError("K4's Infinity table and launch count disagree")
-
+    # the data axis's processes: each one's eval-program warm-up (K3, K1)
+    for kern in (kernels[0], kernels[2]):
+        per_process = [launches[kern["name"]] for launches in pod["launches"]]
+        kern["launches_by_path"]["pod_es_data_axis_warmup_per_process"] = per_process
+        kern["launches"] += sum(per_process)
 
     wall_s = time.perf_counter() - t_start
     log(f"[done] every phase passed in {wall_s:.1f} s (kernel build included)")
@@ -7054,7 +7414,7 @@ def main() -> int:
         pipeline_es=pipeline_es, serve_tier=tier,
         train_flagship=train, train_artifacts=artifacts, fleet_tiny=fleet_tiny, fleet_flagship=fleet_run, weights_var=weights_var,
         weights_sana=weights_sana, zimage_kernel_shapes=zimage_rows, zimage_tiny=zimage_tiny, zimage_es=zimage,
-        evaluate=evaluate, multiproc_es=multiproc, chaos_es=chaos,
+        evaluate=evaluate, multiproc_es=multiproc, chaos_es=chaos, pod_es=pod, tp_sp=tp_sp,
         phase_seconds=phase_s, kernels=kernels, k1_serving=k1_serve, k4_infinity=k4_inf,
         wall_s=wall_s,
     ), indent=1))

@@ -89,17 +89,30 @@ def glumb_conv_init(key: torch.Tensor, dim: int, ratio: float = 2.5) -> Params:
 # Primitives
 # ---------------------------------------------------------------------------
 
-def dense(p: Params, x: torch.Tensor, lora: Optional[Params] = None, lora_scale: float = 1.0) -> torch.Tensor:
+def dense(p: Params, x: torch.Tensor, lora: Optional[Params] = None, lora_scale: float = 1.0,
+          tp: Optional[Any] = None) -> torch.Tensor:
     """``y = x @ W (+ b) (+ lora_scale·(x@A)@B)``; ``W`` float or int8, the
     adapter one ``{"a", "b"}`` leaf or a lane-stacked batch
     (:func:`~..lora.lora_delta`).
+
+    ``tp`` is the node's tensor-parallel plan (``parallel.tp.TPShard``):
+    ``p`` holds this rank's chunk of a sharded kernel or bias. A
+    column-parallel kernel's product is gathered on the feature axis; a
+    row-parallel one takes the local input slice, multiplied in f32, and
+    its partial sums are all-reduced and rounded to x's dtype once; a
+    sharded bias is gathered. The output is whole either way, and the
+    adapter applies to the whole x.
 
     Under ES training (``pop_fuse``) the factors arrive as
     ``lora.FactoredDelta``: an int8 per-channel node with both factors
     factored runs the fused kernel K3 (``ops.fused_qlora``), a float node
     the chain kernel K2 for the delta (``lora.fused_lora_delta``); other
     mixes compose the dequant or float matmul with ``matmul_factored``."""
-    if "kernel" in p:
+    if tp is not None and tp.kernel == -1:
+        y = tp.gather(x @ p["kernel"].to(x.dtype))
+    elif tp is not None and tp.kernel == -2:
+        y = tp.reduce(tp.local_in(x).to(torch.float32) @ p["kernel"].to(torch.float32)).to(x.dtype)
+    elif "kernel" in p:
         y = x @ p["kernel"].to(x.dtype)
     elif lora is not None and fused_qlora_applies(lora):
         y = fused_qlora_dense(x, p["kernel_q8"], lora, lora_scale)
@@ -112,7 +125,7 @@ def dense(p: Params, x: torch.Tensor, lora: Optional[Params] = None, lora_scale:
         else:
             y = y + lora_delta(x, lora, lora_scale)
     if "bias" in p:
-        y = y + p["bias"].to(x.dtype)
+        y = y + (p["bias"] if tp is None else tp.full_bias(p["bias"])).to(x.dtype)
     return y
 
 
@@ -336,10 +349,13 @@ def depth_to_space(x: torch.Tensor, factor: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class Dense(nn.Module):
-    """One dense node (``[din, dout]`` float kernel or int8 ``q8``/``scale``)."""
+    """One dense node (``[din, dout]`` float kernel or int8 ``q8``/``scale``);
+    ``tp`` its tensor-parallel plan once ``parallel.tp.shard_module_tp`` has
+    sharded it."""
 
     def __init__(self, node: Params):
         super().__init__()
+        self.tp = None
         if "kernel" in node:
             self.register_buffer("kernel", node["kernel"])
         else:
@@ -360,7 +376,7 @@ class Dense(nn.Module):
         return p
 
     def forward(self, x: torch.Tensor, lora: Optional[Params] = None, lora_scale: float = 1.0) -> torch.Tensor:
-        return dense(self.node(), x, lora, lora_scale)
+        return dense(self.node(), x, lora, lora_scale, tp=self.tp)
 
 
 class Conv(nn.Module):
@@ -368,11 +384,13 @@ class Conv(nn.Module):
     fixed per call site. An int8 1×1 stride-1 or p×p stride-p conv keeps its
     HWIO ``q8`` for the dequant-matmul route; every other conv keeps its
     kernel in OIHW (int8 ``q8`` + ``scale [cout,1,1,1]``, or float) for
-    ``F.conv2d``."""
+    ``F.conv2d``. ``tp`` is its tensor-parallel plan (:func:`dense`'s; a
+    grouped conv's column-parallel kernel takes its own input channels)."""
 
     def __init__(self, node: Params, stride: int = 1, groups: int = 1):
         super().__init__()
         self.stride, self.groups = stride, groups
+        self.tp = None
         if "kernel" in node:
             kh, kw = node["kernel"].shape[:2]
             self.register_buffer("kernel_oihw", hwio_to_oihw(node["kernel"]))
@@ -396,7 +414,16 @@ class Conv(nn.Module):
         :func:`conv_lora_delta`) where given and the conv is not grouped,
         before the bias (the JAX package's order)."""
         y = None
-        if hasattr(self, "q8"):
+        tp = self.tp
+        if tp is not None and tp.kernel is not None:
+            w = self.kernel_oihw
+            if tp.kernel == -1:  # the local output channels; a grouped conv's own input channels
+                xin = tp.local_in(x) if self.groups > 1 else x
+                y = tp.gather(conv_oihw(xin, w.to(x.dtype), self.stride, self.groups))
+            else:
+                y = tp.reduce(conv_oihw(tp.local_in(x).to(torch.float32), w.to(torch.float32), self.stride,
+                                        self.groups)).to(x.dtype)
+        elif hasattr(self, "q8"):
             y = conv_kernel_q8_matmul(
                 x, {"q8": self.q8, "scale": self.scale}, self.stride, "SAME", self.groups
             )
@@ -411,7 +438,7 @@ class Conv(nn.Module):
         if lora is not None and self.groups == 1:
             y = y + conv_lora_delta(x, lora, lora_scale, self.stride)
         if hasattr(self, "bias"):
-            y = y + self.bias.to(x.dtype)
+            y = y + (self.bias if tp is None else tp.full_bias(self.bias)).to(x.dtype)
         return y
 
 

@@ -136,12 +136,19 @@ def axial_rope(Lt: int, gh: int, gw: int, dh: int, theta: float,
 
 
 def joint_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kmask: torch.Tensor,
-                    dtype: torch.dtype) -> torch.Tensor:
+                    dtype: torch.dtype, sp_group: Optional[Any] = None) -> torch.Tensor:
     """``softmax(q·kᵀ/√dh)`` over the keys ``kmask [R, S]`` lets through
     (others get ``-1e30``), f32 logits and softmax (q, k f32 ``[R, S, H,
     dh]``), the probabilities cast to ``dtype`` against v in ``dtype`` →
-    ``[R, S, H·dh]``."""
+    ``[R, S, H·dh]``. With ``sp_group`` (a process group) the sequence is
+    sharded over it and the attention is exact ring attention
+    (``ops.ring_attention``; S must divide by the group's size), in f32."""
     R, S, H, dh = q.shape
+    if sp_group is not None:
+        from ..ops.ring_attention import ring_attention
+
+        # v stays in the compute dtype: the ring accumulates PV in f32
+        return ring_attention(q, k, v, sp_group, kv_mask=kmask).reshape(R, S, H * dh)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh)
     logits = logits.masked_fill(~kmask[:, None, None, :], NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(dtype)
@@ -163,7 +170,7 @@ class ZImageBlock(tnn.Module):
 
     def forward(self, x: torch.Tensor, cond6: torch.Tensor, kmask: torch.Tensor,
                 rope: Tuple[torch.Tensor, torch.Tensor], cfg: ZImageConfig, lora: Dict[str, Any],
-                lora_scale: float) -> torch.Tensor:
+                lora_scale: float, sp_group: Optional[Any] = None) -> torch.Tensor:
         """``x [R, S, d]`` in the compute dtype, ``cond6 [R, 6, d]`` f32 in
         the (gate, scale, shift) × (attention, FFN) order."""
         R, S, d = x.shape
@@ -176,7 +183,7 @@ class ZImageBlock(tnn.Module):
             k = nn.rms_norm(k, eps=eps) * self.k_norm.to(k.dtype)
         q = nn.apply_rope(q.to(torch.float32), *rope)
         k = nn.apply_rope(k.to(torch.float32), *rope)
-        out = joint_attention(q, k, v, kmask, dt).to(dt)
+        out = joint_attention(q, k, v, kmask, dt, sp_group).to(dt)
         x = x + g1 * self.attn_proj(out, lora.get("attn_proj"), lora_scale)
         h = nn.layer_norm(x, eps=eps) * (1.0 + s2) + b2
         gate, up = torch.chunk(self.fc1(h, lora.get("fc1"), lora_scale), 2, dim=-1)
@@ -220,11 +227,14 @@ class ZImageTransformer(tnn.Module):
 
     def forward(self, latents: torch.Tensor, t: torch.Tensor, text_emb: torch.Tensor, text_mask: torch.Tensor,
                 lora: Optional[Params] = None, lora_scale: float = 1.0,
-                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                sp_group: Optional[Any] = None) -> torch.Tensor:
         """Velocity ``v(x_t, t)`` → ``[R, h, w, C]`` f32. ``latents [R, h, w,
         C]``, ``t [R]`` flow times, ``text_emb [R, Lt, caption_dim]``,
         ``text_mask [R, Lt]`` bool; ``rope`` the :func:`axial_rope` tables
-        of this geometry (made here when not given)."""
+        of this geometry (made here when not given); ``sp_group`` shards the
+        joint sequence's attention over a process group
+        (:func:`joint_attention`)."""
         cfg = self.cfg
         R, h, w, C = latents.shape
         p, dt, f32 = cfg.patch_size, cfg.compute_dtype, torch.float32
@@ -247,7 +257,7 @@ class ZImageTransformer(tnn.Module):
                 for i in range(len(self.blocks)):
                     layer_lora[i][k] = slice_layer(leaf, i)
         for i, blk in enumerate(self.blocks):
-            seq = blk(seq, cond6[i], kmask, rope, cfg, layer_lora[i], lora_scale)
+            seq = blk(seq, cond6[i], kmask, rope, cfg, layer_lora[i], lora_scale, sp_group)
         img = seq[:, Lt:]
         fs, fb = torch.chunk(self.final_ada(F.silu(temb)), 2, dim=-1)
         img = nn.layer_norm(img, eps=cfg.norm_eps) * (1.0 + fs[:, None, :].to(dt)) + fb[:, None, :].to(dt)
@@ -275,12 +285,14 @@ def generate_latents(
     guidance_scale: Optional[float] = None,
     lora: Optional[Params] = None,
     lora_scale: float = 1.0,
+    sp_group: Optional[Any] = None,
 ) -> torch.Tensor:
     """Rectified-flow Euler sampling from ``noise`` → final latents ``[R, h,
     w, C]`` f32: ``num_steps`` velocity passes over :func:`shifted_times`,
     ``x ← x + (σ_{i+1} − σ_i)·v``; with ``guidance_scale > 0`` each pass
     also runs with zero text under an all-masked text mask and takes ``(1 +
-    g)·v − g·v_uncond``."""
+    g)·v − g·v_uncond``. ``sp_group``: the ring attention's process group
+    (:func:`joint_attention`)."""
     cfg = model.cfg
     steps = cfg.num_steps if num_steps is None else num_steps
     g = cfg.guidance_scale if guidance_scale is None else guidance_scale
@@ -292,9 +304,10 @@ def generate_latents(
     x = noise.to(torch.float32)
     for i in range(steps):
         t = constant([sig[i]], torch.float32, dev).expand(R)
-        v = model(x, t, text_emb, text_mask, lora, lora_scale, rope)
+        v = model(x, t, text_emb, text_mask, lora, lora_scale, rope, sp_group)
         if g > 0.0:
-            v_un = model(x, t, torch.zeros_like(text_emb), torch.zeros_like(text_mask), lora, lora_scale, rope)
+            v_un = model(x, t, torch.zeros_like(text_emb), torch.zeros_like(text_mask), lora, lora_scale, rope,
+                         sp_group)
             v = (1.0 + g) * v - g * v_un
         x = x + float(np.float32(sig[i + 1]) - np.float32(sig[i])) * v.to(torch.float32)
     return x

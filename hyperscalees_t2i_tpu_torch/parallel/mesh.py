@@ -26,18 +26,28 @@ card's one-card host could not test it. With no coordinator configured the
 run is one process; a configured launch whose store or group cannot be
 reached raises and never carries on alone.
 
+The JAX mesh's axes are axes over processes here (:class:`ProcessMesh`):
+:func:`make_mesh` lays ranks on a grid as ``make_mesh`` lays devices (the
+last axis innermost, ``data`` inside ``pop``), :func:`gcd_pop_data_mesh` is
+the bench's pop × data plan, and :func:`make_axis_groups` makes one gloo
+sub-group per line of each axis, once a launch. A JAX host with D local
+devices is D processes of the port: the launcher sets
+``HYPERSCALEES_PROCESSES_PER_HOST`` (:func:`processes_per_host`), the host
+split (:func:`host_slices`) is over the launch's hosts and a host's mesh is
+over its D processes.
+
 Not ported: ``shard_map``, ``replicate_to_mesh`` and
 ``mesh_spans_processes`` (device-mesh plumbing with no meaning when one
-process holds one card), and ``make_mesh``'s ``data`` axis with
-``gcd_pop_data_mesh`` (one member's batch sharded across devices: queue A
-item 7 part 4, with ``tp``).
+process holds one card).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import math
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -185,3 +195,159 @@ def pop_slice_plan(pop_size: int, n_pop: Optional[int] = None) -> Dict[str, obje
               for p in range(n)]
     return {"n_pop": n, "lpop": lpop, "pop_size": int(pop_size), "process_count": process_count(),
             "shards": shards}
+
+
+# --------------------------------------------------------------------------
+# meshes over processes
+# --------------------------------------------------------------------------
+
+PROCESSES_PER_HOST_ENV = "HYPERSCALEES_PROCESSES_PER_HOST"
+
+# the gloo sub-group of each mesh line, made once a launch (by ranks)
+_AXIS_GROUPS: Dict[Tuple[int, ...], Any] = {}
+
+
+def processes_per_host() -> int:
+    """Processes of one host group (the JAX host's local device count):
+    ``$HYPERSCALEES_PROCESSES_PER_HOST`` (``tools.launch_local
+    --devices_per_process`` sets it), 1 when unset."""
+    v = os.environ.get(PROCESSES_PER_HOST_ENV, "").strip()
+    n = int(v) if v else 1
+    if n < 1:
+        raise ValueError(f"{PROCESSES_PER_HOST_ENV}={v!r} must be >= 1")
+    return n
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessMesh:
+    """A named grid of ranks: ``names``/``sizes`` outermost first, ``ranks``
+    in grid order (row-major, the last axis innermost), as a JAX mesh holds
+    devices."""
+
+    names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    ranks: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
+        """``{axis: index}`` of ``rank`` (default: this process) on the grid."""
+        from .collectives import process_rank
+
+        rank = process_rank() if rank is None else int(rank)
+        if rank not in self.ranks:
+            raise ValueError(f"rank {rank} is not on the mesh {self.shape} (ranks {list(self.ranks)})")
+        return dict(zip(self.names, (int(i) for i in _unravel(self.ranks.index(rank), self.sizes))))
+
+    def index(self, axis: str, rank: Optional[int] = None) -> int:
+        """``rank``'s index along ``axis`` (0 for an axis the mesh lacks)."""
+        return self.coords(rank).get(axis, 0)
+
+    def line(self, axis: str, rank: Optional[int] = None) -> Tuple[int, ...]:
+        """The ranks that share every coordinate but ``axis`` with ``rank``,
+        in ``axis`` order (``rank`` alone for an axis the mesh lacks)."""
+        from .collectives import process_rank
+
+        rank = process_rank() if rank is None else int(rank)
+        if axis not in self.names:
+            return (rank,)
+        c = self.coords(rank)
+        a = self.names.index(axis)
+        out = []
+        for i in range(self.sizes[a]):
+            idx = [c[n] for n in self.names]
+            idx[a] = i
+            out.append(self.ranks[_ravel(idx, self.sizes)])
+        return tuple(out)
+
+    def lines(self, axis: str) -> List[Tuple[int, ...]]:
+        """Every line of ``axis`` over the grid, in grid order."""
+        seen: Dict[Tuple[int, ...], None] = {}
+        for r in self.ranks:
+            seen.setdefault(self.line(axis, r), None)
+        return list(seen)
+
+    def group(self, axis: str, rank: Optional[int] = None) -> Any:
+        """The gloo sub-group of ``rank``'s line along ``axis``
+        (:func:`make_axis_groups`); ``None`` for a line of one process."""
+        line = self.line(axis, rank)
+        if len(line) <= 1:
+            return None
+        if line not in _AXIS_GROUPS:
+            raise RuntimeError(f"no process group for the {axis} line {list(line)}: make_axis_groups has not run")
+        return _AXIS_GROUPS[line]
+
+
+def _unravel(i: int, sizes: Sequence[int]) -> List[int]:
+    out = []
+    for s in reversed(sizes):
+        out.append(i % s)
+        i //= s
+    return out[::-1]
+
+
+def _ravel(idx: Sequence[int], sizes: Sequence[int]) -> int:
+    i = 0
+    for x, s in zip(idx, sizes):
+        i = i * s + x
+    return i
+
+
+def make_mesh(axes: Optional[Dict[str, int]] = None, *, ranks: Optional[Sequence[int]] = None) -> ProcessMesh:
+    """A named mesh over ``ranks`` (default: every process of the launch).
+    ``axes`` maps axis name → size; one ``-1`` entry absorbs the remaining
+    ranks. ``make_mesh()`` is the 1-D pop mesh over every rank."""
+    from .collectives import process_count
+
+    rks = [int(r) for r in ranks] if ranks is not None else list(range(process_count()))
+    if not axes:
+        axes = {POP_AXIS: len(rks)}
+    names = list(axes.keys())
+    sizes = [int(s) for s in axes.values()]
+    n_wild = sum(1 for s in sizes if s == -1)
+    if n_wild > 1:
+        raise ValueError("at most one mesh axis may be -1")
+    fixed = math.prod(s for s in sizes if s != -1)
+    if n_wild:
+        if len(rks) % fixed:
+            raise ValueError(f"{len(rks)} devices not divisible by {fixed}")
+        sizes = [len(rks) // fixed if s == -1 else s for s in sizes]
+    total = math.prod(sizes)
+    if total > len(rks):
+        raise ValueError(f"mesh {dict(zip(names, sizes))} needs {total} devices, have {len(rks)}")
+    return ProcessMesh(tuple(names), tuple(sizes), tuple(rks[:total]))
+
+
+def gcd_pop_data_mesh(pop_size: int, n_devices: int, *, ranks: Optional[Sequence[int]] = None) -> ProcessMesh:
+    """The bench's slice-filling plan at ``n_devices`` processes: the pop
+    axis takes ``gcd(pop, n)`` of them and the rest shard each member's
+    image batch over the data axis (``parallel.pop_eval`` pads both)."""
+    n_pop = math.gcd(pop_size, n_devices)
+    return make_mesh({POP_AXIS: n_pop, DATA_AXIS: n_devices // n_pop}, ranks=ranks)
+
+
+def host_meshes(axes: Dict[str, int], n_hosts: int) -> List[ProcessMesh]:
+    """One mesh of ``axes`` a host group: host ``h`` holds the consecutive
+    ranks ``[h·size, (h + 1)·size)``."""
+    size = math.prod(axes.values())
+    return [make_mesh(axes, ranks=range(h * size, (h + 1) * size)) for h in range(n_hosts)]
+
+
+def make_axis_groups(meshes: Sequence[ProcessMesh]) -> None:
+    """Make the gloo sub-group of every line of every axis longer than one
+    of ``meshes`` (every host's mesh of the launch), once a launch. Every
+    process calls it with the same meshes: ``new_group`` is collective over
+    the launch's group."""
+    import torch.distributed as dist
+
+    for mesh in meshes:
+        for axis in mesh.names:
+            for line in mesh.lines(axis):
+                if len(line) > 1 and line not in _AXIS_GROUPS:
+                    _AXIS_GROUPS[line] = dist.new_group(list(line), backend="gloo")

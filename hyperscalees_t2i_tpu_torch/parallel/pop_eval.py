@@ -2,19 +2,25 @@
 ``hyperscalees_t2i_tpu/parallel/pop_eval.py``): the ES population evaluator
 (the whole population, or one process's member slice, ``host_slice``), the
 fleet evaluator (W jobs' populations against one base) and the
-multi-tenant serving generator. The port shards the population over
-processes, not over devices of one program, so the mesh-sharded variant
-has no counterpart (``parallel.mesh``)."""
+multi-tenant serving generator. The JAX package's mesh-sharded variant
+shards the population over processes here: with a ``parallel.mesh``
+``ProcessMesh`` each process evaluates its pop shard's members on its data
+shard's images inside its program, and the rows are gathered over the data
+group, then the pop group, on the host (a gloo collective cannot be
+captured in a CUDA graph)."""
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..es.noiser import EggRollConfig, factored_member_theta, perturb_member, stacked_adapter_theta
 from ..lora import stack_adapters
 from ..obs.program_cost import note_program_geometry, repeated
+from .collectives import all_gather_tree
+from .mesh import DATA_AXIS, POP_AXIS
 
 GenerateFn = Callable[..., torch.Tensor]
 RewardFn = Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]
@@ -39,6 +45,7 @@ def make_population_evaluator(
     reward_tile: int = 0,
     pop_fuse: bool = False,
     host_slice: Optional[Tuple[int, int]] = None,
+    mesh: Optional[Any] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``eval_pop(theta, noise, ids [B], gen_noise [B, *noise_shape])
     → rewards``, every reward leaf ``[pop_size, B]``; with ``host_slice=(lo,
@@ -64,15 +71,37 @@ def make_population_evaluator(
     to a divisor of ``B``); image ``i`` keeps its own noise row, so tiling
     does not change a reward. ``sigma``/``c_scale`` (f32 scalar tensors)
     replace ``es_cfg``'s σ in the perturbation (``es.noiser``: the fleet's
-    per-job σ as program inputs)."""
+    per-job σ as program inputs).
+
+    With ``mesh`` (a ``parallel.mesh.ProcessMesh`` holding this process,
+    ``pop`` and ``data`` axes) the slice is split as the JAX mesh splits
+    it: the members pad to a multiple of ``n_pop`` (padded members wrap
+    within the slice) and the images to a multiple of ``n_data`` (padded
+    slots generate prompt 0 at their own global position), and this
+    process evaluates its ``lpop`` members on its ``B_pad/n_data`` images,
+    each with its global image position's noise row (``gen_noise`` holds
+    ``B_pad`` rows or more, :func:`padded_batch`). ``eval_pop`` then returns
+    this process's block ``[lpop, B_pad/n_data]`` and ``eval_pop.gather``
+    (host side, outside any graph) assembles ``[n, B]``: every process
+    calls it with its block."""
     if member_batch < 1:
         raise ValueError(f"member_batch must be >= 1, got {member_batch}")
     slice_lo, slice_n = host_slice if host_slice is not None else (0, pop_size)
     if not (0 <= slice_lo and slice_lo + slice_n <= pop_size and slice_n >= 1):
         raise ValueError(f"host_slice={host_slice} out of range for pop_size={pop_size}")
+    n_pop = mesh.shape.get(POP_AXIS, 1) if mesh is not None else 1
+    n_data = mesh.shape.get(DATA_AXIS, 1) if mesh is not None else 1
+    if n_data > 1 and getattr(generate_p, "ignores_item_index", False):
+        raise ValueError(
+            "data-axis sharding needs a generator that folds item_index into "
+            "its per-image noise keys; this backend's generate() does not "
+            "accept item_index, so shard-local positions would silently "
+            "change the noise. Use a pop-only mesh for it."
+        )
     # the ledger's record of the program this evaluator runs in
     note_program_geometry(member_batch=member_batch, reward_tile=reward_tile, pop_fuse=pop_fuse,
-                          **({"host_slice": list(host_slice)} if host_slice is not None else {}))
+                          **({"host_slice": list(host_slice)} if host_slice is not None else {}),
+                          **({"n_pop": n_pop, "n_data": n_data} if mesh is not None else {}))
 
     def chunk_theta(theta, noise, members, sigma, c_scale):
         if pop_fuse:
@@ -81,12 +110,12 @@ def make_population_evaluator(
         thetas = [perturb_member(theta, noise, k, pop_size, es_cfg, sigma=sigma) for k in members]
         return thetas[0] if len(thetas) == 1 else stack_adapters(thetas)
 
-    def eval_pop(theta, noise, ids, gen_noise, sigma=None, c_scale=None):
+    def eval_members(theta, noise, members_all, ids, gen_noise, sigma, c_scale):
         B = ids.shape[0]
         tile = effective_reward_tile(B, reward_tile) or B
         chunks = []
-        for k0 in range(slice_lo, slice_lo + slice_n, member_batch):
-            members = list(range(k0, min(k0 + member_batch, slice_lo + slice_n)))
+        for c0 in range(0, len(members_all), member_batch):
+            members = members_all[c0:c0 + member_batch]
             n = len(members)
             theta_k = chunk_theta(theta, noise, members, sigma, c_scale)
             tiles = []
@@ -102,7 +131,46 @@ def make_population_evaluator(
             chunks.append({k: torch.cat([t[k] for t in tiles], dim=1) for k in tiles[0]})
         return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
 
+    if n_pop == 1 and n_data == 1:
+        def eval_pop(theta, noise, ids, gen_noise, sigma=None, c_scale=None):
+            members = list(range(slice_lo, slice_lo + slice_n))
+            return eval_members(theta, noise, members, ids, gen_noise, sigma, c_scale)
+
+        eval_pop.gather = lambda local, B: {k: v[:slice_n, :B] for k, v in local.items()}
+        return eval_pop
+
+    pop_pad = -(-slice_n // n_pop) * n_pop
+    lpop = pop_pad // n_pop
+    p_idx, d_idx = mesh.index(POP_AXIS), mesh.index(DATA_AXIS)
+    # padded members re-evaluate an existing member, wrapping within the slice
+    members = [slice_lo + (i % slice_n) for i in range(p_idx * lpop, (p_idx + 1) * lpop)]
+
+    def eval_pop(theta, noise, ids, gen_noise, sigma=None, c_scale=None):
+        B = ids.shape[0]
+        B_pad = padded_batch(B, n_data)
+        if gen_noise.shape[0] < B_pad:
+            raise ValueError(f"{gen_noise.shape[0]} noise rows for a batch padded to {B_pad}")
+        bl = B_pad // n_data
+        ids_p = F.pad(ids, (0, B_pad - B))  # padded slots generate prompt 0
+        lo = d_idx * bl
+        return eval_members(theta, noise, members, ids_p[lo:lo + bl], gen_noise[lo:lo + bl], sigma, c_scale)
+
+    def gather(local: Dict[str, torch.Tensor], B: int) -> Dict[str, torch.Tensor]:
+        """This process's block → the slice's rows ``[n, B]``: gathered over
+        the data group (image axis), then over the pop group (member axis),
+        the padding cut away."""
+        rows = all_gather_tree(local, axis=1, group=mesh.group(DATA_AXIS)) if n_data > 1 else local
+        if n_pop > 1:
+            rows = all_gather_tree(rows, axis=0, group=mesh.group(POP_AXIS))
+        return {k: v[:slice_n, :B] for k, v in rows.items()}
+
+    eval_pop.gather = gather
     return eval_pop
+
+
+def padded_batch(B: int, n_data: int) -> int:
+    """The image batch padded to a multiple of the data axis."""
+    return -(-B // n_data) * n_data
 
 
 def make_fleet_evaluator(

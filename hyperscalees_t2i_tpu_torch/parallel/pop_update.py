@@ -78,8 +78,8 @@ def _unflat(flat: torch.Tensor, theta: Pytree) -> Pytree:
     return tree_replace_leaves(theta, out)
 
 
-def make_sharded_es_update(pop_size: int, cfg: EggRollConfig,
-                           group: Any = None) -> Callable[[Pytree, Pytree, torch.Tensor], Pytree]:
+def make_sharded_es_update(pop_size: int, cfg: EggRollConfig, group: Any = None,
+                           shards: Optional[Tuple[int, int]] = None) -> Callable[[Pytree, Pytree, torch.Tensor], Pytree]:
     """``update(theta, noise, fitness) → θ'`` with the fitness-weighted noise
     contraction split over the processes of ``group`` (default: the launch).
 
@@ -89,20 +89,25 @@ def make_sharded_es_update(pop_size: int, cfg: EggRollConfig,
     (one all-reduce), and ``update.apply`` applies the sum
     (``es.noiser.apply_es_delta``). ``update`` is the three in order; a
     caller that captures the first and last as programs runs ``reduce``
-    between them on the host."""
-    n_pop = axis_size(group)
+    between them on the host. ``shards = (n, i)`` plans share ``i`` of
+    ``n`` for a process outside such a launch (``tools.preflight``
+    measures one process's share); its ``reduce`` sums nothing."""
+    n_pop = axis_size(group) if shards is None else int(shards[0])
     base = base_pop_size(pop_size, cfg.antithetic)
     if base % n_pop:
         raise ValueError(f"base sample count {base} does not tile the pop axis ({n_pop})")
     lslice = base // n_pop
-    lo = (process_rank() if group is None else torch.distributed.get_rank(group)) * lslice
+    if shards is not None:
+        lo = int(shards[1]) * lslice
+    else:
+        lo = (process_rank() if group is None else torch.distributed.get_rank(group)) * lslice
 
     def partial(theta: Pytree, noise: Pytree, fitness: torch.Tensor) -> torch.Tensor:
         coeffs = fitness_coeffs(fitness, pop_size, cfg)  # tiny [base], the same on every rank
         return _flat(es_partial_delta(theta, noise, coeffs, lo, lslice, pop_size, cfg))
 
     def reduce(flat: torch.Tensor) -> torch.Tensor:
-        return psum_tree(flat, group)
+        return psum_tree(flat, group) if shards is None else flat.clone()
 
     def apply(theta: Pytree, flat: torch.Tensor, noise: Pytree) -> Pytree:
         return apply_es_delta(theta, _unflat(flat, theta), noise, pop_size, cfg)

@@ -33,8 +33,13 @@ peers got when the launch was stopped), else the highest signal death
   ``--relaunch_args`` appended and ``HYPERSCALEES_FAULTS`` cleared, and
   return that launch's status.
 
-The JAX tool's ``--devices_per_process`` has no counterpart (a process
-drives one device) and raises.
+``--devices_per_process D``: a JAX process of D local devices is D
+processes of the port (a process drives one device), so the launch starts
+``num_processes × D`` children with ``HYPERSCALEES_PROCESSES_PER_HOST=D``:
+the trainer groups them into ``num_processes`` hosts of D consecutive ranks,
+each host one member slice split over a pop × data mesh of its D processes
+(``train.cli --pop_shards``). ``--kill_host I`` then kills every process of
+host ``I``.
 """
 
 from __future__ import annotations
@@ -77,19 +82,26 @@ def run_pod(
     port: int = 0,
     entry: Sequence[str] = CLI,
     env: Optional[Dict[str, str]] = None,
+    devices_per_process: int = 1,
 ) -> int:
-    """One coordinated launch of ``num_processes`` children, each ``python
-    <entry> --coordinator 127.0.0.1:<port> --num_processes N --process_id i
+    """One coordinated launch of ``num_processes`` hosts of
+    ``devices_per_process`` children each, every child ``python <entry>
+    --coordinator 127.0.0.1:<port> --num_processes N·D --process_id i
     <fwd>`` (``entry``: the train CLI's module; another entry must run the
     CLI's ``main`` on those arguments) in this process's environment plus
-    ``env``; returns the launch's exit status."""
+    ``env`` and ``HYPERSCALEES_PROCESSES_PER_HOST=D``; returns the launch's
+    exit status. ``kill_host`` names a host: all its children are killed."""
+    if devices_per_process < 1:
+        raise ValueError(f"--devices_per_process must be >= 1, got {devices_per_process}")
+    per_host = devices_per_process
+    num_processes = num_processes * per_host
     port = port or _free_port()
     procs: List[subprocess.Popen] = []
     pumps: List[threading.Thread] = []
     killer: Optional[threading.Timer] = None
     try:
         for pid in range(num_processes):
-            child_env = {**os.environ, **(env or {})}
+            child_env = {**os.environ, **(env or {}), "HYPERSCALEES_PROCESSES_PER_HOST": str(per_host)}
             if clear_faults:  # a relaunch replays armed epochs: faults would fire again
                 child_env.pop("HYPERSCALEES_FAULTS", None)
             cmd = [sys.executable, *entry, "--coordinator", f"127.0.0.1:{port}",
@@ -99,14 +111,16 @@ def run_pod(
             t = threading.Thread(target=_pump, args=(procs[-1], f"[p{pid}]"), daemon=True)
             t.start()
             pumps.append(t)
-        if kill_host is not None and 0 <= kill_host < len(procs):
-            victim = procs[kill_host]
+        if kill_host is not None and 0 <= kill_host * per_host < len(procs):
+            victims = procs[kill_host * per_host:(kill_host + 1) * per_host]
 
             def _kill():
-                if victim.poll() is None:
+                if any(v.poll() is None for v in victims):
                     print(f"[launch_local] KILL: SIGKILL host {kill_host} after {kill_after_s:.1f}s",
                           file=sys.stderr, flush=True)
-                    victim.kill()
+                    for v in victims:
+                        if v.poll() is None:
+                            v.kill()
 
             killer = threading.Timer(max(0.0, kill_after_s), _kill)
             killer.daemon = True
@@ -167,7 +181,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Launch N coordinated local trainer processes")
     ap.add_argument("--num_processes", type=int, default=2)
     ap.add_argument("--devices_per_process", type=int, default=1,
-                    help="refused above 1: a process drives one device")
+                    help="devices of each launched host: D processes of one device each")
     ap.add_argument("--coordinator_port", type=int, default=0, help="0 = pick a free one")
     ap.add_argument("--timeout_s", type=float, default=900.0)
     ap.add_argument("--kill_host", type=int, default=None,
@@ -182,20 +196,18 @@ def main(argv=None) -> int:
     ap.add_argument("--relaunch_args", default="", help="extra train.cli flags for the relaunch only")
     ap.add_argument("cli_args", nargs=argparse.REMAINDER, help="arguments after -- go to train.cli")
     args = ap.parse_args(argv)
-    if args.devices_per_process != 1:
-        raise NotImplementedError(f"--devices_per_process {args.devices_per_process}: a process of the port "
-                                  "drives one device; launch more processes instead")
     fwd = args.cli_args
     if fwd and fwd[0] == "--":
         fwd = fwd[1:]
 
     rc = run_pod(args.num_processes, fwd, timeout_s=args.timeout_s, grace_s=args.grace_s,
-                 kill_host=args.kill_host, kill_after_s=args.kill_after_s, port=args.coordinator_port)
+                 kill_host=args.kill_host, kill_after_s=args.kill_after_s, port=args.coordinator_port,
+                 devices_per_process=args.devices_per_process)
     if args.relaunch_num_processes > 0:
         print(f"[launch_local] first launch exited rc={rc} — relaunching at {args.relaunch_num_processes} "
               "process(es)", file=sys.stderr, flush=True)
         rc = run_pod(args.relaunch_num_processes, fwd + shlex.split(args.relaunch_args),
-                     timeout_s=args.timeout_s, clear_faults=True)
+                     timeout_s=args.timeout_s, clear_faults=True, devices_per_process=args.devices_per_process)
     return rc
 
 

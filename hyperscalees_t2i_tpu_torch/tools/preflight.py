@@ -36,14 +36,22 @@ through ``train.fleet.analyze_fleet_geometry`` beside the rung's own.
 (``site="preflight"``, ``"serve"``, ``"fleet"``); ``--report`` writes the
 text too.
 
+``--devices N`` measures one process's program of the
+``parallel.mesh.gcd_pop_data_mesh(pop, N)`` plan (the port's N processes,
+one card each): its pop shard's members on its data shard's images, the
+reward rows' gathers stood in for by the block tiled to ``[pop, B]``, and
+the update, whole or (``--pop_shard_update on``/``auto`` where the base
+samples tile the N processes) this process's share of it. Its peak is the
+per-device peak. ``--pop_shard_update`` without ``--devices`` above 1
+resolves as the trainer does: ``on`` raises, ``auto`` and ``off`` are the
+whole update.
+
 Exit codes (the reference's): 1 when a program does not fit, 2 when the fit
 cannot be judged (or a geometry is malformed), 0 when everything fits.
 
 Flags of the JAX preflight with no meaning here raise, naming why:
-``--devices`` above 1 and ``--pop_shard_update`` (the sharded programs and
-the update isolation are ROADMAP item 7 part 4), ``--remat`` (nothing is
-differentiated), ``--fused_qlora`` (the int8 base always runs the fused
-kernel K3) and ``--chip`` naming a TPU.
+``--remat`` (nothing is differentiated), ``--fused_qlora`` (the int8 base
+always runs the fused kernel K3) and ``--chip`` naming a TPU.
 """
 
 from __future__ import annotations
@@ -111,13 +119,60 @@ def rung_train_config(rung: str, opt: Dict[str, Any], seed: int = 0):
                        base_quant=opt["base_quant"], seed=seed)
 
 
+def per_device_step(backend: Any, reward_fn: Any, tc: Any, m: int, devices: int, sharded: bool, dev: Any,
+                    graphs: Any):
+    """One process's epoch program of the ``gcd_pop_data_mesh(pop,
+    devices)`` plan, as rank 0 of such a launch runs it, in one entry of
+    ``graphs``: the draws of the padded batch, its block of members × images
+    (``parallel.pop_eval``), the block tiled to the ``[pop, B]`` rows the
+    gathers would give, and the update (``sharded``: rank 0's share of the
+    contraction, ``parallel.pop_update``, its all-reduce left out). Returns
+    ``(step, plan)``; ``step(theta, prev_delta, ids, key)`` is the stateful
+    step's signature."""
+    from ..parallel.mesh import DATA_AXIS, gcd_pop_data_mesh
+    from ..parallel.pop_eval import make_population_evaluator, padded_batch
+    from ..parallel.pop_update import make_sharded_es_update
+    from ..train.trainer import _capped, _combine_and_update, _scores, es_draws
+
+    es_cfg = tc.es_config()
+    pop = tc.pop_size
+    plan = gcd_pop_data_mesh(pop, devices, ranks=range(devices))
+    eval_pop = make_population_evaluator(backend.generate_p, reward_fn, pop, es_cfg, tc.member_batch,
+                                         reward_tile=tc.reward_tile, pop_fuse=tc.pop_fuse, mesh=plan)
+    count_pad = padded_batch(m, plan.shape[DATA_AXIS])
+    update = make_sharded_es_update(pop, es_cfg, shards=(devices, 0)) if sharded else None
+    geo = dict(tc=tc, es_cfg=es_cfg, pop=pop, num_unique=m, repeats=1)
+
+    def core(theta, prev_delta, ids, key):
+        noise, gen_noise = es_draws(backend, theta, key, pop, es_cfg, count_pad)
+        block = eval_pop(theta, noise, ids, gen_noise.to(torch.float32))
+        reps = lambda n, k: -(-n // k)  # noqa: E731
+        rows = {k: v.repeat(reps(pop, v.shape[0]), reps(m, v.shape[1]))[:pop, :m] for k, v in block.items()}
+        if update is None:
+            return _combine_and_update(theta, prev_delta, noise, rows, **geo)
+        scores = _scores(rows, tc=tc, pop=pop, num_unique=m, repeats=1)
+        theta_new = update.apply(theta, update.partial(theta, noise, scores[3]), noise)
+        return _capped(theta, theta_new, prev_delta, rows, scores, **geo)
+
+    def step(theta, prev_delta, ids, key):
+        return graphs((m, 1), core, theta, prev_delta, ids, key)
+
+    return step, plan
+
+
 def analyze_rung(rung: str, device: Any = None, ledger: Optional[ProgramLedger] = None,
-                 opt_override: Optional[Dict[str, Any]] = None, seed: int = 0) -> Dict[str, Any]:
+                 opt_override: Optional[Dict[str, Any]] = None, seed: int = 0, devices: int = 0,
+                 pop_shard_update: Optional[str] = None) -> Dict[str, Any]:
     """Build one rung and its ES program on ``device`` and return its
     ``site="preflight"`` record: the counted FLOPs and bytes, the build's
     stats, ``base_bytes`` + ``program_bytes`` = ``peak_bytes``, the kernel
     launches of the warm-up (``warmup_launches``). On an out-of-memory error
-    the record has ``oom`` and ``oom_requested_bytes`` instead of a peak."""
+    the record has ``oom`` and ``oom_requested_bytes`` instead of a peak.
+    ``devices`` above 1 measures one process's program of the
+    ``gcd_pop_data_mesh(pop, devices)`` plan (:func:`per_device_step`; the
+    record's ``mesh_shape`` and ``n_devices`` name it), with this process's
+    share of the update where ``pop_shard_update`` shards it."""
+    from ..parallel.pop_update import pop_shard_update_plan
     from ..backends.sana_backend import build_train_backend
     from ..serve.admission import program_bytes, resident_bytes
     from ..train.trainer import _init_theta, device_ids, epoch_key, make_es_step, program_cache
@@ -130,7 +185,12 @@ def analyze_rung(rung: str, device: Any = None, ledger: Optional[ProgramLedger] 
     opt.update({k: v for k, v in (opt_override or {}).items() if v is not None})
     dev = resolve_device(device)
     tc = rung_train_config(rung, opt, seed)
+    n_dev = devices if devices and devices > 1 else 1
+    # antithetic is the TrainConfig default at every preflight geometry
+    sharded, _ = pop_shard_update_plan(pop_shard_update or "off", pop, True, n_pop=n_dev)
     geometry = {"scale": scale, "pop": pop, "m": m, "r": 1, "member_batch": member_batch, **opt}
+    if n_dev > 1:
+        geometry.update(n_devices=n_dev, pop_shard_update=sharded)
     extra = {"rung": rung, "imgs_per_step": pop * m}
     _free(dev)
     t0 = time.perf_counter()
@@ -138,7 +198,11 @@ def analyze_rung(rung: str, device: Any = None, ledger: Optional[ProgramLedger] 
     try:
         backend, reward_fn = build_train_backend(scale, dev, base_quant=opt["base_quant"], seed=seed)
         cache = program_cache(backend, dev, count_cost=True)
-        step = make_es_step(backend, reward_fn, tc, m, 1, dev, stateful_delta=True, graphs=cache)
+        if n_dev > 1:
+            step, plan = per_device_step(backend, reward_fn, tc, m, n_dev, sharded, dev, cache)
+            geometry["mesh_shape"] = plan.shape
+        else:
+            step = make_es_step(backend, reward_fn, tc, m, 1, dev, stateful_delta=True, graphs=cache)
         theta = _init_theta(backend, tc, dev)
         args = (theta, tree_map(torch.zeros_like, theta), device_ids(backend.step_info(0, m, 1).flat_ids, dev),
                 epoch_key(seed, 0, dev))
@@ -221,6 +285,12 @@ def render_report(records: List[Dict[str, Any]], target_chip: str,
     lines = ["# Preflight — each rung's ES program built and measured on the card (warm-up counted, then captured)",
              f"# target: {target_chip}  ·  peak = resident bytes + the program's measured bytes "
              "(serve.admission.program_bytes)", ""]
+    for r in records:
+        g = r.get("geometry", {})
+        if g.get("mesh_shape"):
+            lines.append(f"# {r.get('rung', '?')}: one process's program of the {g['mesh_shape']} plan over "
+                         f"{g['n_devices']} processes (per-device peak; update "
+                         f"{'sharded: its share' if g.get('pop_shard_update') else 'whole'})")
     lines.append("## Program cost (per ES step)")
     lines.append("# knobs = t<reward tile>/n-<noise dtype>/w-<tower dtype>[/fuse][/q8]; FLOPs and bytes counted over "
                  "the warm-up (obs/program_cost.py)")
@@ -354,11 +424,6 @@ def render_fleet_report(pairs: List[Tuple[Dict[str, Any], Dict[str, Any]]], targ
 
 
 def _refuse(args: argparse.Namespace) -> None:
-    if args.devices and args.devices > 1:
-        raise NotImplementedError("--devices > 1: the sharded programs and the update isolation are ROADMAP item 7 part 4 "
-                                  "(the port runs one process on one card)")
-    if args.pop_shard_update is not None:
-        raise NotImplementedError("--pop_shard_update: preflight of the pop-sharded update is ROADMAP item 7 part 4")
     if args.remat is not None:
         raise NotImplementedError("--remat: the port differentiates nothing, so it has no rematerialization")
     if args.fused_qlora is not None:
@@ -395,8 +460,11 @@ def main(argv=None) -> int:
     ap.add_argument("--base_quant", default=None, choices=["off", "int8"], help="override the frozen base's storage")
     ap.add_argument("--remat", default=None, help="refused: nothing is differentiated")
     ap.add_argument("--fused_qlora", default=None, help="refused: the int8 base always runs K3")
-    ap.add_argument("--pop_shard_update", default=None, help="refused: ROADMAP item 7 part 4")
-    ap.add_argument("--devices", type=int, default=0, help="refused above 1: ROADMAP item 7 part 4")
+    ap.add_argument("--pop_shard_update", default=None, choices=["auto", "on", "off"],
+                    help="with --devices N: measure this process's share of the pop-sharded update (on/auto) or the "
+                         "whole update (off, the default)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="measure one process's program of the gcd_pop_data_mesh(pop, N) plan over N processes")
     ap.add_argument("--serve", action="append", default=None, metavar="RUNG:ADAPTERS[:RANK]",
                     help="serving-admission mode (repeatable): measure this serving geometry's program instead of "
                          "the training rungs")
@@ -468,7 +536,8 @@ def main(argv=None) -> int:
     for rung in rungs:
         print(f"[preflight] {rung}: building and measuring ...", file=sys.stderr, flush=True)
         t0 = time.perf_counter()
-        records.append(analyze_rung(rung, dev, ledger, opt_override, args.seed))
+        records.append(analyze_rung(rung, dev, ledger, opt_override, args.seed, devices=args.devices,
+                                    pop_shard_update=args.pop_shard_update))
         print(f"[preflight] {rung}: done in {time.perf_counter() - t0:.1f}s", file=sys.stderr, flush=True)
     report, rc = render_report(records, target, hbm_override)
     _emit(report, args.report)

@@ -34,11 +34,11 @@ assets) from a run dir's artifacts:
 - the phase table of ``tools/trace_report.py`` (count, total, mean,
   p50/p95/p99, max, % wall).
 
-The JAX report's Pod panel reads a multi-process run's per-host trace
-segments through ``obs/podtrace.py``, which is ROADMAP item 7 part 4: a run dir with
-such segments raises (``trace_report.trace_path``). The elastic-membership
-and per-host resilience tables read ``elastic.json`` and
-``resilience.host<i>.json``, tables that are item 7 part 4 too.
+- the Pod panel of a multi-process run's per-host trace segments
+  (``obs/podtrace.py``): straggler tiles, the per-host phase waterfall,
+  the per-epoch barrier-wait timeline and the phase-spread table; the
+  Resilience panel also holds the membership transitions (``elastic.json``)
+  and the per-host table of ``resilience.host<i>.json``.
 
 Series colors have fixed slots, text never wears a series color, a chart of
 one series names it in its title, a chart of several has a legend, and every
@@ -740,11 +740,114 @@ def _fleet_panel(rows: List[Dict[str, Any]]) -> str:
     return "".join(parts)
 
 
+def _pod_panel(pod: Dict[str, Any]) -> str:
+    """The flight-recorder panel (obs/podtrace.py summary): straggler
+    tiles, a per-host phase waterfall (stacked totals), the per-epoch
+    barrier-wait timeline, and the cross-host phase-spread table. Empty
+    string for single-host summaries — the no-op merge renders nothing."""
+    if not pod or pod.get("n_hosts", 1) < 2:
+        return ""
+    parts = ["<h2>Pod</h2>"]
+    tiles = [
+        _tile("Hosts", str(pod["n_hosts"])),
+        _tile("Aligned epochs", str(pod.get("n_epochs_aligned", 0))),
+    ]
+    strag = pod.get("straggler_host")
+    if strag is not None:
+        share = pod["critical_path_share"].get(strag, 0.0)
+        tiles.append(_tile("Straggler host", str(strag),
+                           f"{100.0 * share:.0f}% of epochs on the critical path"))
+        tiles.append(_tile("Barrier wait / epoch",
+                           f"{pod['epoch_spread_mean_s'] * 1e3:.1f} ms"))
+    offs = [abs(v) for v in (pod.get("clock_offsets_s") or {}).values()
+            if isinstance(v, (int, float))]
+    if offs:
+        tiles.append(_tile("Max clock offset", f"{max(offs):.3f} s"))
+    if pod.get("unaligned_hosts"):
+        tiles.append(_tile("Unaligned hosts",
+                           ", ".join(map(str, pod["unaligned_hosts"]))))
+    parts.append(f'<div class="tiles">{"".join(tiles)}</div>')
+
+    # per-host phase waterfall: one stacked bar of phase totals per host —
+    # the at-a-glance answer to "where did each host's wall clock go"
+    phase_rows = pod.get("phase") or []
+    hosts = pod.get("hosts") or []
+    if phase_rows and hosts:
+        pod_totals: Dict[str, float] = {}
+        for r in phase_rows:
+            pod_totals[r["phase"]] = pod_totals.get(r["phase"], 0.0) + r["total_s"]
+        top = [p for p, _ in sorted(pod_totals.items(), key=lambda kv: -kv[1])][:4]
+        per_host: Dict[Any, Dict[str, float]] = {h: {} for h in hosts}
+        for r in phase_rows:
+            key = r["phase"] if r["phase"] in top else "other"
+            per_host[r["host"]][key] = per_host[r["host"]].get(key, 0.0) + r["total_s"]
+        segments = top + (["other"] if any("other" in d for d in per_host.values()) else [])
+        colors = {p: (_SLOT[i] if i < len(_SLOT) else _CONTEXT)
+                  for i, p in enumerate(segments)}
+        max_total = max((sum(d.values()) for d in per_host.values()), default=0.0)
+        bar_h, gap, pad_l, width = 18, 10, 52, 460
+        height = len(hosts) * (bar_h + gap) + 8
+        svg = [f'<svg viewBox="0 0 {width} {height}" width="100%" role="img">']
+        for i, h in enumerate(hosts):
+            y = 4 + i * (bar_h + gap)
+            svg.append(f'<text x="{pad_l - 6}" y="{y + bar_h - 5}" '
+                       f'text-anchor="end">host {h}</text>')
+            x = float(pad_l)
+            for p in segments:
+                v = per_host[h].get(p, 0.0)
+                if v <= 0 or max_total <= 0:
+                    continue
+                w = (width - pad_l - 10) * v / max_total
+                svg.append(
+                    f'<rect x="{x:.1f}" y="{y}" width="{max(w, 0.5):.1f}" '
+                    f'height="{bar_h}" fill="{colors[p]}">'
+                    f"<title>host {h} — {html.escape(p)}: {v:.3f}s</title></rect>"
+                )
+                x += w
+        svg.append("</svg>")
+        parts.append(_figure(
+            "Per-host phase waterfall (total seconds per phase; bars share "
+            "one scale)",
+            "".join(svg),
+            _legend([(p, colors[p]) for p in segments]),
+        ))
+
+    # straggler timeline: per-epoch barrier wait per host (ms) — the host
+    # pinned at ~0 is the one everyone else waits for
+    per_epoch = pod.get("per_epoch") or []
+    if per_epoch:
+        wait_hosts = sorted(per_epoch[0].get("waits_s", {}))
+        series = [
+            (f"host {h}", [(float(e["epoch"]), 1e3 * float(e["waits_s"][h]))
+                           for e in per_epoch if h in e.get("waits_s", {})])
+            for h in wait_hosts
+        ]
+        parts.append(_figure(
+            "Straggler timeline — per-epoch barrier wait (ms): a host near "
+            "zero arrived last (the straggler), its peers show the wait it "
+            "caused",
+            svg_line_chart(series, _SLOT),
+            _legend([(f"host {h}", _SLOT[i % len(_SLOT)])
+                     for i, h in enumerate(wait_hosts)]),
+        ))
+
+    spread = pod.get("phase_spread") or {}
+    if spread:
+        parts.append(_table(
+            ["phase", "hosts", "mean spread s", "p95 spread s", "slowest host"],
+            [[html.escape(p), str(s["hosts"]), _fmt(s["mean_spread_s"]),
+              _fmt(s["p95_spread_s"]), str(s["slowest_host"])]
+             for p, s in sorted(spread.items())],
+        ))
+    return "".join(parts)
+
+
 def render_report(run_dir: Path, rows: List[Dict[str, Any]],
                   trace_rows: Optional[List[Dict[str, Any]]],
                   coverage_pct: Optional[float],
                   programs: Optional[List[Dict[str, Any]]] = None,
                   trace_events: Optional[List[Dict[str, Any]]] = None,
+                  pod: Optional[Dict[str, Any]] = None,
                   capacity: Optional[List[Tuple[str, Dict[str, Any]]]] = None,
                   calib: Optional[List[Tuple[str, Dict[str, Any]]]] = None,
                   quality: Optional[List[Tuple[str, Dict[str, Any]]]] = None,
@@ -986,9 +1089,84 @@ def render_report(run_dir: Path, rows: List[Dict[str, Any]],
                 ["counter / gauge", "value"],
                 [[html.escape(k), _fmt(v, 0)] for k, v in extra],
             )
+    # membership transitions (elastic.json, resilience/elastic.py): every
+    # roll-call verdict (hard-failed hosts voted out) and reshard restore
+    # (relaunch at a new process count) this run dir accumulated — the
+    # elastic-topology half of the panel
+    elastic_path = run_dir / "elastic.json"
+    if elastic_path.exists():
+        try:
+            transitions = json.loads(elastic_path.read_text())
+        except (OSError, json.JSONDecodeError):
+            transitions = []
+        trows = []
+        for t in transitions if isinstance(transitions, list) else []:
+            if t.get("kind") == "reshard_restore":
+                frm = (t.get("from") or {}).get("process_count", "?")
+                to = (t.get("to") or {}).get("process_count", "?")
+                detail = f"{frm} → {to} process(es)"
+            else:
+                detail = (f"dead {t.get('dead')} → survivors "
+                          f"{t.get('survivors')}")
+            trows.append([
+                html.escape(str(t.get("kind", "?"))),
+                _fmt(t.get("epoch"), 0),
+                html.escape(detail),
+                html.escape(str(t.get("action", "—"))),
+                (_fmt(float(t["detect_s"]) * 1e3, 0) + " ms")
+                if isinstance(t.get("detect_s"), (int, float)) else "—",
+                html.escape(str(t.get("incarnation", "—"))),
+            ])
+        if trows:
+            res_parts += "<h3>Membership transitions</h3>"
+            res_parts += _table(
+                ["kind", "epoch", "membership", "action", "detection",
+                 "incarnation"],
+                trows,
+            )
+    # per-host rows (resilience.host<i>.json — written by EVERY process at
+    # save boundaries and exit, since metrics.jsonl is master-only and a
+    # pod's non-master counters would otherwise be invisible)
+    host_rows = []
+    # numeric host order (lexicographic filename sort puts host10 before
+    # host2 — wrong for exactly the pod sizes the panel exists for)
+    for hp in sorted(
+        run_dir.glob("resilience.host*.json"),
+        key=lambda p: (int(p.stem[len("resilience.host"):])
+                       if p.stem[len("resilience.host"):].isdigit()
+                       else 1 << 30, p.name),
+    ):
+        try:
+            payload = json.loads(hp.read_text())
+        except (OSError, json.JSONDecodeError):
+            continue
+        host_rows.append([
+            str(payload.get("process_index", hp.name)),
+            _fmt(payload.get("epoch"), 0),
+            _fmt(payload.get("resilience/preempt_requests", 0), 0),
+            _fmt(payload.get("resilience/rollbacks", 0), 0),
+            _fmt(payload.get("resilience/desync", 0), 0),
+            _fmt(payload.get("resilience/retries", 0), 0),
+            _fmt(payload.get("resilience/ckpt_commits", 0), 0),
+            _fmt(payload.get("resilience/ckpt_commit_failed", 0), 0),
+            _fmt(payload.get("resilience/faults_injected", 0), 0),
+            {True: "yes", False: "—"}.get(bool(payload.get("preempted")), "—"),
+            {True: "yes", False: "—"}.get(bool(payload.get("halted")), "—"),
+        ])
+    if host_rows:
+        res_parts += "<h3>Per-host resilience</h3>"
+        res_parts += _table(
+            ["host", "epoch", "preempt req", "rollbacks", "desync", "retries",
+             "commits", "commit fails", "faults", "preempted", "halted"],
+            host_rows,
+        )
     if res_parts:
         parts.append("<h2>Resilience</h2>")
         parts.append(res_parts)
+
+    # ---- Pod panel (flight recorder, obs/podtrace.py) ----------
+    if pod:
+        parts.append(_pod_panel(pod))
 
     # ---- Serving panel (per-request trace spans) ----
     if trace_events:
@@ -1107,12 +1285,24 @@ def main(argv=None) -> int:
 
     trace_rows = coverage_pct = None
     trace_events = None
+    pod = None
+    from ..obs.podtrace import discover_trace_segments, load_pod_events, pod_summary
     from ..obs.trace import load_events
-    from .trace_report import aggregate, coverage, latest_session, trace_path
+    from .trace_report import aggregate, coverage, latest_session
 
-    path = trace_path(run_dir)
-    if path.exists():
-        events = latest_session(load_events(path))
+    segments = discover_trace_segments(run_dir)
+    if len(segments) > 1:
+        # every segment parsed once: the merge reads them all, and the lowest
+        # rank's slice feeds the phase table and the Serving panel
+        pod_events = load_pod_events(run_dir)
+        pod = pod_summary(run_dir, events=pod_events)
+        events = [e for e in pod_events if e["host"] == min(segments)]
+        if events:
+            trace_rows = aggregate(events)
+            coverage_pct = 100.0 * coverage(events)
+            trace_events = events
+    elif (run_dir / "trace.jsonl").exists():
+        events = latest_session(load_events(run_dir / "trace.jsonl"))
         if events:
             trace_rows = aggregate(events)
             coverage_pct = 100.0 * coverage(events)
@@ -1120,7 +1310,7 @@ def main(argv=None) -> int:
 
     out = Path(args.out) if args.out else run_dir / "run_report.html"
     out.write_text(render_report(run_dir, rows, trace_rows, coverage_pct,
-                                 programs, trace_events,
+                                 programs, trace_events, pod,
                                  capacity=capacity, calib=calib,
                                  quality=quality,
                                  quality_ledger=quality_ledger))

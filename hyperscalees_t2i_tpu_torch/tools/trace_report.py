@@ -15,10 +15,14 @@ section (latency percentiles, queue and occupancy means) from the
 ``serve/request`` spans the serving engine writes. ``--chrome`` also writes
 Chrome trace-event JSON (default ``trace_chrome.json`` beside the input).
 
-A run dir holds one ``trace.jsonl``. Per-host segments (``trace.<i>.jsonl``)
-are a multi-process run's, read by a pod merge that the port does not have
-yet (ROADMAP item 7 part 4, ``obs/podtrace.py``): such a dir raises instead of
-being read as one host.
+A run dir is read through the pod flight recorder (``obs/podtrace.py``):
+every per-process segment is found (``trace.<i>.jsonl``, a dir of segments
+only included, e.g. when rank 0 died), and with more than one the report
+gives the pooled and per-host tables and a Pod section with the
+anchor-aligned straggler analytics (clock offsets, the slowest host, each
+host's barrier wait, critical-path share); ``--chrome`` then writes the
+pod-aligned timeline. One segment, or a bare file, keeps the one-host
+report.
 """
 
 from __future__ import annotations
@@ -27,24 +31,11 @@ import argparse
 import json
 import sys
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional
 
+from ..obs import podtrace
 from ..obs.trace import load_events, to_chrome
 from ..utils.stats import percentiles
-
-
-def trace_path(src: Union[str, Path]) -> Path:
-    """The trace file of ``src`` (a run dir or the file itself). Raises
-    ``NotImplementedError`` for a dir with per-host segments."""
-    src = Path(src)
-    if not src.is_dir():
-        return src
-    segments = sorted(p.name for p in src.glob("trace.*.jsonl") if p.name[6:-6].isdigit())
-    if segments:
-        raise NotImplementedError(
-            f"{src} holds per-host trace segments ({', '.join(segments)}): the pod merge that reads them is "
-            "ROADMAP item 7 part 4 (obs/podtrace.py), not yet in the port")
-    return src / "trace.jsonl"
 
 
 def latest_session(events: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
@@ -132,14 +123,105 @@ def serving_summary(events: List[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
             "assembly_mean_s": _mean("assembly_s"), "occupancy_mean": _mean("occupancy")}
 
 
+def render_pod_section(summary: Dict[str, Any]) -> List[str]:
+    """Text lines of the Pod section (the straggler analytics of the
+    anchor-aligned merge)."""
+    lines = ["\n## pod"]
+    hosts = summary.get("hosts", [])
+    lines.append(f"{summary.get('n_hosts', 0)} hosts ({', '.join(map(str, hosts))}); "
+                 f"{summary.get('n_epochs_aligned', 0)} anchor-aligned epochs")
+    offs = summary.get("clock_offsets_s") or {}
+    if offs:
+        lines.append("clock offsets vs reference host: " + "  ".join(
+            f"host{h}={offs[h]:+.4f}s" if isinstance(offs.get(h), (int, float)) else f"host{h}=UNALIGNED"
+            for h in sorted(offs)))
+    strag = summary.get("straggler_host")
+    if strag is not None:
+        share = summary["critical_path_share"].get(strag, 0.0)
+        lines.append(f"straggler: host {strag} (on the critical path {100.0 * share:.0f}% of epochs; cross-host "
+                     f"spread {summary['epoch_spread_mean_s'] * 1e3:.1f} ms/epoch mean, "
+                     f"{summary['epoch_spread_total_s']:.3f}s total barrier wait)")
+        waits = summary.get("barrier_wait_mean_s") or {}
+        lines.append("mean barrier wait (time spent waiting on peers): "
+                     + "  ".join(f"host{h}={waits[h] * 1e3:.1f}ms" for h in sorted(waits)))
+    spread = summary.get("phase_spread") or {}
+    if spread:
+        lines.append("\n| phase | hosts | mean spread s | p95 spread s | slowest host |\n|---|---|---|---|---|")
+        for phase in sorted(spread):
+            sp = spread[phase]
+            lines.append(f"| {phase} | {sp['hosts']} | {sp['mean_spread_s']:.4f} | {sp['p95_spread_s']:.4f} "
+                         f"| {sp['slowest_host']} |")
+    return lines
+
+
+def _pod_main(src: Path, segments: Dict[int, Path], args) -> int:
+    """A dir of several segments: pooled and per-host tables and the Pod
+    section."""
+    events = podtrace.load_pod_events(src)
+    if not events:
+        print(f"no span events in the segments of {src}", file=sys.stderr)
+        return 1
+    hosts = sorted(segments)
+    by_host = {h: [e for e in events if e["host"] == h] for h in hosts}
+    print(f"# pod trace report: {src}")
+    print(f"{len(hosts)} host segments: " + ", ".join(f"host{h}={segments[h].name}" for h in hosts))
+    total_wall = 0.0
+    for h in hosts:
+        evs = by_host[h]
+        if not evs:
+            print(f"host {h}: no span events")
+            continue
+        wall = wall_clock_s(evs)
+        total_wall += wall
+        print(f"host {h}: wall clock {wall:.3f}s over {len(evs)} spans, top-level coverage "
+              f"{100.0 * coverage(evs):.1f}%")
+
+    print("\n## pooled (all hosts; % wall is share of summed host time)")
+    print(render(aggregate(events, wall=total_wall or None)))
+    for h in hosts:
+        if not by_host[h]:
+            continue
+        print(f"\n## host {h}")
+        print(render(aggregate(by_host[h])))
+
+    summary = podtrace.pod_summary(src, events=events)
+    if summary is not None:
+        print("\n".join(render_pod_section(summary)))
+
+    serving = serving_summary(events)
+    if serving:
+        print("\n## serving (pooled)")
+        print(f"{serving['requests']} requests — latency p50 {serving['latency_p50_s']:.4f}s / "
+              f"p95 {serving['latency_p95_s']:.4f}s / p99 {serving['latency_p99_s']:.4f}s")
+
+    if args.chrome is not None:
+        # on the reference host's clock; hosts that cannot be aligned are
+        # dropped, not drawn at made-up positions
+        anchors = podtrace.epoch_anchors(events)
+        aligned = podtrace.align_events(events, podtrace.host_clock_offsets(anchors))
+        out = Path(args.chrome) if args.chrome else src / "trace_chrome.json"
+        out.write_text(json.dumps(to_chrome(aligned)))
+        print(f"\nchrome trace → {out} (pod-aligned; load in chrome://tracing or Perfetto)")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("path", help="run dir holding trace.jsonl, or the trace file itself")
+    ap.add_argument("path", help="run dir holding trace segment(s), or a trace.jsonl file itself")
     ap.add_argument("--chrome", nargs="?", const="", default=None, metavar="OUT",
                     help="also write Chrome trace-event JSON (default: trace_chrome.json beside the input)")
     args = ap.parse_args(argv)
 
-    path = trace_path(args.path)
+    path = Path(args.path)
+    if path.is_dir():
+        segments = podtrace.discover_trace_segments(path)
+        if not segments:
+            print(f"no trace file at {path / 'trace.jsonl'}", file=sys.stderr)
+            return 1
+        if len(segments) > 1:
+            return _pod_main(path, segments, args)
+        # one segment, even a bare trace.<i>.jsonl: the one-host report
+        path = next(iter(segments.values()))
     if not path.exists():
         print(f"no trace file at {path}", file=sys.stderr)
         return 1

@@ -59,7 +59,12 @@ processes join one process group, each takes ``cuda:{i % cards}`` (or the
 ``--device`` named), evaluates its slice of the population
 (``--pop_host_shard``, ``auto`` or ``on``; ``off`` with N > 1 is refused,
 as is a ``--pop_size`` that N does not divide) and shares the update,
-split over the processes with ``--pop_shard_update``. ``--faults`` arms
+split over the processes with ``--pop_shard_update``. A launch with
+``HYPERSCALEES_PROCESSES_PER_HOST=D`` (``tools.launch_local
+--devices_per_process D``) groups its processes into hosts of D: each
+host takes one member slice, split over a pop × data mesh of its D
+processes (``--pop_shards``, 0 = ``gcd(pop / hosts, D)``; the JAX CLI's
+mesh over a host's D devices). ``--faults`` arms
 the fault plan (``resilience.faultinject``); ``--desync_check_every``,
 ``--desync_action``, ``--on_topology_mismatch`` and ``--elastic_action``
 are the launch's resilience (``train.trainer.run_training``).
@@ -184,6 +189,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi-process population split: auto/on = each process evaluates its member slice and "
                         "the reward rows are gathered on the host; off = one program spanning the processes, "
                         "which the port does not have (refused above one process)")
+    # parallelism
+    p.add_argument("--pop_shards", type=int, default=0,
+                   help="processes of a host on the pop axis (0 = auto: gcd(pop / hosts, processes per host)); "
+                        "the rest shard each member's image batch (data axis)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--save_every", type=int, default=10)
     p.add_argument("--log_images_every", type=int, default=0,
@@ -647,7 +656,8 @@ def train_config(args):
 
 def main(argv: Optional[List[str]] = None) -> None:
     from ..parallel.collectives import process_count
-    from ..parallel.mesh import initialize_multihost, process_device
+    from ..parallel.mesh import DATA_AXIS, POP_AXIS, initialize_multihost, make_mesh, process_device, \
+        processes_per_host
     from .trainer import run_training
 
     args = build_parser().parse_args(argv)
@@ -659,14 +669,40 @@ def main(argv: Optional[List[str]] = None) -> None:
         sys.exit(f"ERROR: --pop_host_shard off with {pc} processes asks for one program spanning the processes, "
                  "which the port does not have; pass --pop_host_shard auto or on")
     host_shard = args.pop_host_shard == "on" or (pc > 1 and args.pop_host_shard != "off")
-    if host_shard and args.pop_size % pc:
+    # a host is D processes, the JAX host's D local devices
+    n_dev = processes_per_host()
+    if pc % n_dev:
+        sys.exit(f"ERROR: a launch of {pc} process(es) does not split into hosts of {n_dev} "
+                 "(HYPERSCALEES_PROCESSES_PER_HOST)")
+    hosts = pc // n_dev
+    if host_shard and args.pop_size % hosts:
         sys.exit(f"ERROR: host-sharded population needs --pop_size divisible by the process count "
-                 f"({args.pop_size} % {pc} != 0); adjust --pop_size")
+                 f"({args.pop_size} % {hosts} != 0); adjust --pop_size")
+    # the pop rows a host's mesh shards: its slice
+    mesh_pop = args.pop_size // hosts if host_shard else args.pop_size
+    shards = args.pop_shards
+    if shards == 0:
+        import math
+
+        shards = math.gcd(mesh_pop, n_dev)
+    mesh = None
+    if n_dev > 1 and shards >= 1:
+        if shards > n_dev:
+            sys.exit(f"ERROR: --pop_shards {shards} > {n_dev} available devices")
+        n_data = n_dev // shards
+        if shards * n_data < n_dev:
+            print(f"[cli] WARNING: pop_shards={shards} does not divide {n_dev} devices; "
+                  f"{n_dev - shards * n_data} devices idle", flush=True)
+            sys.exit(f"ERROR: --pop_shards {shards} leaves {n_dev - shards * n_data} of a host's {n_dev} processes "
+                     "without work, and a process of the port cannot sit a launch out; pick a divisor of "
+                     f"{n_dev}")
+        mesh = make_mesh({POP_AXIS: shards, DATA_AXIS: n_data}, ranks=range(n_dev))
+        print(f"[cli] mesh: {mesh.shape} over {n_dev} local processes", flush=True)
     device = process_device(args.device)
     backend = build_backend(args, device)
     backend.setup()
     reward_fn = build_reward_fn(args, backend, device)
-    state = run_training(backend, reward_fn, train_config(args), device=device)
+    state = run_training(backend, reward_fn, train_config(args), device=device, mesh=mesh)
     if state.elastic_exit:
         # exit 0: an elastic membership change is a successful shutdown
         if state.elastic_evicted:

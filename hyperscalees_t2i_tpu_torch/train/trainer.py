@@ -93,8 +93,9 @@ from ..obs.trace import Tracer
 from ..parallel.collectives import (GatherTimeout, host_allgather_rows, host_flag_any, host_scalar_allgather, is_master,
                                     kv_client, live_count, live_ranks, process_count, process_rank, set_gather_grace,
                                     set_live_ranks)
-from ..parallel.mesh import host_slices, initialize_multihost, process_device
-from ..parallel.pop_eval import make_fleet_evaluator, make_population_evaluator
+from ..parallel.mesh import (DATA_AXIS, POP_AXIS, host_meshes, host_slices, initialize_multihost, make_axis_groups,
+                             process_device)
+from ..parallel.pop_eval import make_fleet_evaluator, make_population_evaluator, padded_batch
 from ..parallel.pop_update import make_sharded_es_update, pop_shard_update_plan
 from ..resilience import elastic
 from ..resilience.checkpoints import CheckpointStore
@@ -301,7 +302,7 @@ def _resolve_update_fn(tc: TrainConfig, es_cfg) -> Optional[Callable]:
 
 def make_host_sharded_programs(backend: Any, reward_fn: Any, tc: TrainConfig, num_unique: int, repeats: int,
                                host_slice: Tuple[int, int], device: DeviceLike = None, *,
-                               graphs: Optional[GraphCache] = None):
+                               graphs: Optional[GraphCache] = None, mesh: Optional[Any] = None):
     """The epoch split at the EGGROLL seam for a host-sharded launch: two
     programs with the pod's reward gather between them on the host.
 
@@ -309,6 +310,11 @@ def make_host_sharded_programs(backend: Any, reward_fn: Any, tc: TrainConfig, nu
       members ``host_slice = (lo, n)``, generated and rewarded here (global
       member ids, the global ``pop_size``, ``make_population_evaluator``'s
       chunks of whole lanes), from the epoch's draws (:func:`es_draws`).
+      With ``mesh`` (this process's host mesh, ``parallel.mesh``) the
+      program evaluates this process's pop × data block of the slice
+      (``parallel.pop_eval``) from draws of the padded batch, and the block
+      is gathered over the mesh's data and pop groups on the host, after
+      the program.
     - ``update(theta, prev_delta, rewards_full, key) → (θ', Δθ, metrics,
       opt_scores)``: the update every process computes from the gathered
       ``[pop, B]`` rows (``collectives.host_allgather_rows``), the ES noise
@@ -336,7 +342,9 @@ def make_host_sharded_programs(backend: Any, reward_fn: Any, tc: TrainConfig, nu
     pop = tc.pop_size
     count = num_unique * repeats
     eval_pop = make_population_evaluator(backend.generate_p, reward_fn, pop, es_cfg, tc.member_batch,
-                                         reward_tile=tc.reward_tile, pop_fuse=tc.pop_fuse, host_slice=host_slice)
+                                         reward_tile=tc.reward_tile, pop_fuse=tc.pop_fuse, host_slice=host_slice,
+                                         mesh=mesh)
+    count_pad = padded_batch(count, mesh.shape.get(DATA_AXIS, 1) if mesh is not None else 1)
     update_fn = _resolve_update_fn(tc, es_cfg)
     sharded = update_fn is not None
     if graphs is None:
@@ -349,7 +357,7 @@ def make_host_sharded_programs(backend: Any, reward_fn: Any, tc: TrainConfig, nu
         return sample_noise(k_noise, theta, pop, es_cfg)
 
     def eval_core(theta, ids, key):
-        noise, gen_noise = es_draws(backend, theta, key, pop, es_cfg, count)
+        noise, gen_noise = es_draws(backend, theta, key, pop, es_cfg, count_pad)
         return eval_pop(theta, noise, ids, gen_noise.to(torch.float32))
 
     def update_core(theta, prev_delta, rewards, key):
@@ -367,7 +375,8 @@ def make_host_sharded_programs(backend: Any, reward_fn: Any, tc: TrainConfig, nu
         ids = device_ids(flat_ids, dev)
         if ids.numel() != count:
             raise ValueError(f"{ids.numel()} prompt ids for a plan of {num_unique}×{repeats}")
-        return graphs((num_unique, repeats, "eval_slice"), eval_core, tree_map(to_dev, theta), ids, key.to(dev))
+        local = graphs((num_unique, repeats, "eval_slice"), eval_core, tree_map(to_dev, theta), ids, key.to(dev))
+        return eval_pop.gather(local, count)
 
     def update(theta, prev_delta, rewards: Dict[str, Any], key: torch.Tensor):
         rewards = {k: torch.as_tensor(v).to(dev) for k, v in rewards.items()}
@@ -504,21 +513,32 @@ def _init_theta(backend: Any, tc: TrainConfig, dev: torch.device) -> Any:
     return backend.init_theta(threefry.fold_in(threefry.prng_key(tc.seed, dev), 17))
 
 
-def _host_step(eval_slice: Callable, update: Callable) -> Callable:
+def _host_step(eval_slice: Callable, update: Callable, anchor: Optional[Dict[str, Any]] = None,
+               per_host: int = 1) -> Callable:
     """A host-sharded epoch with the stateful step's signature: this
     process's reward rows, the gather of every process's rows (the only
-    data that crosses processes), then the update."""
+    data that crosses hosts), then the update. With ``per_host`` processes
+    a host, each process of a host holds its host's rows after the mesh
+    gathers, and the first one's copy is kept. ``anchor["t"]`` receives the
+    gather's entry and exit stamps (the epoch's anchor, ``obs.podtrace``)."""
 
     def step(theta, prev_delta, flat_ids, key):
         rows = {k: v.cpu().numpy() for k, v in eval_slice(theta, flat_ids, key).items()}
-        return update(theta, prev_delta, host_allgather_rows(rows), key)
+        t0 = time.perf_counter()
+        full = host_allgather_rows(rows)
+        if anchor is not None:
+            anchor["t"] = (t0, time.perf_counter())
+        if per_host > 1:
+            full = {k: v.reshape(-1, per_host, *rows[k].shape)[:, 0].reshape(-1, *v.shape[1:])
+                    for k, v in full.items()}
+        return update(theta, prev_delta, full, key)
 
     return step
 
 
 def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                  on_epoch_end: Optional[Callable[[int, Dict[str, Any]], None]] = None,
-                 device: DeviceLike = None) -> TrainState:
+                 device: DeviceLike = None, mesh: Optional[Any] = None) -> TrainState:
     """Train ``tc.num_epochs`` epochs of ES on one device (``None``: the
     card; in a launch of several processes ``cuda:{rank % cards}``,
     ``parallel.mesh.process_device``) into ``tc.run_dir /
@@ -585,7 +605,15 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
     here too) the population is host-sharded (``tc.pop_host_shard`` auto or
     on; off with N > 1 raises: the port has no program spanning processes):
     each epoch is :func:`make_host_sharded_programs`' two programs around the
-    reward gather, and is never chained. Process 0 writes ``metrics.jsonl``,
+    reward gather, and is never chained. ``mesh`` (a ``parallel.mesh``
+    ``ProcessMesh`` of D processes, the JAX CLI's local mesh) makes the
+    launch hosts of D consecutive processes: each host evaluates one member
+    slice, split inside the host over the mesh's pop and data axes (the
+    axes' gloo groups made here, once), and the slot topology records its
+    ``pop_shards``. Every process stamps an ``epoch_anchor`` event into its
+    trace segment each epoch, and with ``tc.trace`` rank 0 merges the
+    segments after the loop into ``pod_summary.json`` and the ``pod/*``
+    gauges (``obs.podtrace``). Process 0 writes ``metrics.jsonl``,
     ``quality.jsonl``, ``programs.jsonl``, the markers and the artifacts;
     every process writes its trace segment
     (``obs.multihost.trace_segment_path``), its profile directory,
@@ -629,7 +657,18 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                          "which the port does not have: it shards the population over processes only "
                          "(--pop_host_shard auto or on)")
     rank = process_rank()
-    host_lo, host_lpop = host_slices(tc.pop_size, pc)[rank] if host_shard else (0, tc.pop_size)
+    # a host is a group of ``per_host`` processes (its mesh's), each host
+    # one member slice
+    per_host = mesh.size if mesh is not None else 1
+    if pc % per_host:
+        raise ValueError(f"a launch of {pc} process(es) does not split into hosts of {per_host}")
+    n_hosts = pc // per_host
+    if mesh is not None and per_host > 1:
+        # the mesh's sub-groups, made once by every process of the launch
+        meshes = host_meshes(mesh.shape, n_hosts)
+        make_axis_groups(meshes)
+        mesh = meshes[rank // per_host]
+    host_lo, host_lpop = host_slices(tc.pop_size, n_hosts)[rank // per_host] if host_shard else (0, tc.pop_size)
     dev = process_device(device)
     backend.setup()
     run_dir = Path(tc.run_dir) / tc.auto_run_name(backend.name)
@@ -644,12 +683,15 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
             registry.observe(f"phase_{name}_seconds", dur_s)
 
     tracer = Tracer(trace_segment_path(run_dir) if tc.trace else None, on_span=observe_phase)
-    # the launch topology every slot records and a resume must match (one
-    # device a process: no pop axis inside a program)
-    topology = {"process_count": pc, "pop_shards": 1, "pop_size": tc.pop_size, "pop_host_shard": bool(host_shard)}
+    # the launch topology every slot records and a resume must match
+    # (pop_shards: the host mesh's pop axis)
+    topology = {"process_count": pc, "pop_shards": mesh.shape.get(POP_AXIS, 1) if mesh is not None else 1,
+                "pop_size": tc.pop_size, "pop_host_shard": bool(host_shard)}
     if host_shard:
-        for r in range(pc):
-            logger.info(f"host pop slices: process {r} -> members [{r * host_lpop}..{(r + 1) * host_lpop - 1}]")
+        for h in range(n_hosts):
+            who = f"process {h}" if per_host == 1 else \
+                f"host {h} (processes {list(range(h * per_host, (h + 1) * per_host))}, mesh {mesh.shape})"
+            logger.info(f"host pop slices: {who} -> members [{h * host_lpop}..{(h + 1) * host_lpop - 1}]")
     # the canonical store every process restores from; slots are written
     # through the launch's two-phase commit (one process: the plain save)
     store = CheckpointStore(run_dir, keep=tc.ckpt_keep, registry=res_registry)
@@ -682,6 +724,11 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
     # the last row's numbers, published to the exporter's thread by swapping
     # the dict in this holder (never mutated while a scrape may iterate it)
     latest_scalars_ref: Dict[str, Dict[str, Any]] = {"scalars": {}}
+    # the pod flight recorder's gauges (obs.podtrace), published by rank 0's
+    # merge after the loop and served through the linger window
+    pod_gauges_ref: Dict[str, Dict[str, Any]] = {"gauges": {}}
+    # the epoch's anchor stamps from inside the host-sharded step
+    anchor_cell: Dict[str, Any] = {}
     slo_eval = build_trainer_evaluator(tc.slo, registry, res_registry) if tc.slo else None
     anomaly_watchdog = (AnomalyWatchdog(run_dir=run_dir if master else None, window=tc.anomaly_window,
                                         min_history=tc.anomaly_min_epochs, z_thresh=tc.anomaly_z)
@@ -730,7 +777,7 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
             exporter_port(tc.metrics_port), host=tc.metrics_host,
             registries=[registry, res_registry] + ([slo_eval.registry] if slo_eval is not None else [])
             + ([anomaly_watchdog.registry] if anomaly_watchdog is not None else []),
-            scalar_sources=[lambda: latest_scalars_ref["scalars"]],
+            scalar_sources=[lambda: latest_scalars_ref["scalars"], lambda: pod_gauges_ref["gauges"]],
             healthz_source=healthz,
         )
         if exporter is not None:
@@ -879,7 +926,7 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
             then the survivors take ``tc.elastic_action``. Returns ``exit``
             (leave the loop) or ``continue`` (re-enter at the updated epoch).
             A roll-call that finds every rank alive raises."""
-            nonlocal epoch, host_lo, host_lpop, completed_boundary
+            nonlocal epoch, host_lo, host_lpop, completed_boundary, per_host, mesh
             res_registry.inc("elastic_gather_timeouts")
             print(f"[resilience] ELASTIC: {gt} — starting roll-call", file=sys.stderr, flush=True)
             rc_res = elastic.roll_call(kv_client(), rank=rank, ranks=live_ranks(), incarnation=incarnation,
@@ -936,6 +983,9 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                       "to checkpoint_exit (never a silent wrong-split replay)", file=sys.stderr, flush=True)
                 return checkpoint_exit(survivors, rc_res.round_id)
             host_lo, host_lpop = host_slices(tc.pop_size, len(survivors))[survivors.index(rank)]
+            # each survivor is a host of its own from here: the mesh's groups
+            # still count the dead process
+            per_host, mesh = 1, None
             # the eval slice's programs hold the old slice: built again
             adopt_restored(restored, clear_programs=True)
             epoch = completed_boundary = int(restored.epoch)
@@ -963,7 +1013,8 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                     if not warm:
                         if host_shard:
                             step_cache[(m, r)] = _host_step(*make_host_sharded_programs(
-                                backend, reward_fn, tc_live, m, r, (host_lo, host_lpop), dev, graphs=programs))
+                                backend, reward_fn, tc_live, m, r, (host_lo, host_lpop), dev, graphs=programs,
+                                mesh=mesh if per_host > 1 else None), anchor_cell, per_host)
                         else:
                             step_cache[(m, r)] = make_es_step(backend, reward_fn, tc_live, m, r, dev,
                                                               stateful_delta=True, graphs=programs)
@@ -1075,6 +1126,12 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                     # and, every desync_check_every epochs, θ's fingerprint
                     local_bad = rollback_ctrl.is_bad(scalars.get("theta_norm"))
                     bad_theta, preempt_now, desync_detected = local_bad, preempt.requested, False
+                    # epoch_anchor (obs.podtrace): entry = this process's
+                    # arrival at the epoch's first cross-process barrier (the
+                    # fitness gather inside a host-sharded step, else the
+                    # scalar gather below), exit = its release; one process
+                    # stamps a zero-width event
+                    t_anchor0 = t_anchor1 = time.perf_counter()
                     if pc > 1:
                         reduce_keys = [k for k in scalars if k in ("step_time_s", "images_per_sec", "mfu")
                                        or (k.startswith("es/") and not k.startswith("es/leaf_"))]
@@ -1084,7 +1141,10 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                         payload["_bad_theta"] = 1.0 if local_bad else 0.0
                         if desync_due:
                             payload.update(fingerprint_payload(scalars))
+                        t_g0 = time.perf_counter()
                         gathered = host_scalar_allgather(payload)
+                        t_g1 = time.perf_counter()
+                        t_anchor0, t_anchor1 = anchor_cell.pop("t", (t_g0, t_g1))
                         scalars.update({k: float(gathered[k].mean()) for k in reduce_keys})
                         scalars["process_count"] = pc
                         preempt_now = bool(gathered["_preempt_req"].max() > 0)
@@ -1098,6 +1158,9 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                                   f"(theta_norm rows: {[float(v) for v in gathered['_desync_fp/theta_norm']]}) — "
                                   f"hosts have silently forked; action={tc.desync_action}",
                                   file=sys.stderr, flush=True)
+                    # every process stamps its anchor into its own trace
+                    # segment; the pod merge aligns the segments on them
+                    tracer.event("epoch_anchor", t_anchor0, t_anchor1, epoch=int(epoch))
                     # desync: a finite fork of this host's θ, after the gather:
                     # only the next due fingerprint (or commit digest) sees it
                     if fault_epoch("desync", epoch):
@@ -1254,6 +1317,8 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                 "preempted": state.preempted, "halted": state.halted, "rollbacks": state.rollbacks})
         if tc.quality and master:
             _write_quality(run_dir, registry, logger)
+        if master and tc.trace and pc > 1:
+            _merge_pod_trace(run_dir, pod_gauges_ref, logger)
         set_ledger(None)
         if exporter is not None:
             if tc.metrics_linger_s > 0:
@@ -1285,6 +1350,26 @@ def _calibrate(run_dir: Path, host_step_s: Dict[str, float], registry: MetricsRe
     except Exception as e:
         registry.inc("cleanup_errors")
         print(f"[obs] WARNING: calibration failed ({type(e).__name__}: {e})", file=sys.stderr, flush=True)
+
+
+def _merge_pod_trace(run_dir: Path, gauges_ref: Dict[str, Dict[str, Any]], logger: MetricsLogger) -> None:
+    """Rank 0's merge of every process's trace segment on the epoch anchors
+    (``obs.podtrace``): ``pod_summary.json`` and the ``pod/*`` gauges;
+    best-effort, a failure warns."""
+    try:
+        from ..obs.podtrace import pod_gauges, pod_summary, write_pod_summary
+
+        summary = pod_summary(run_dir)
+        if summary is not None and summary.get("n_hosts", 1) > 1:
+            write_pod_summary(run_dir, summary)
+            gauges_ref["gauges"] = pod_gauges(summary)
+            strag = summary.get("straggler_host")
+            if strag is not None:
+                logger.info(f"pod merge: straggler host {strag} (critical-path share "
+                            f"{summary['critical_path_share'][strag]:.2f}, barrier wait "
+                            f"{summary['epoch_spread_mean_s'] * 1e3:.0f} ms/epoch) — pod_summary.json")
+    except Exception as e:
+        print(f"[obs] WARNING: pod trace merge failed ({e!r})", file=sys.stderr, flush=True)
 
 
 def _write_quality(run_dir: Path, registry: MetricsRegistry, logger: MetricsLogger) -> None:

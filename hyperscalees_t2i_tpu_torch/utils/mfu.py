@@ -6,8 +6,9 @@ counted over the plan's eager warm-up epoch); the peaks are NVIDIA's
 published dense figures per card, keyed by ``torch.cuda.get_device_name()``:
 bf16 tensor-core FLOP/s, HBM bandwidth (the roofline's second axis) and HBM
 capacity. Unknown cards and the CPU give ``None``, so every consumer says
-"cannot say" instead of inventing a peak. The interconnect table of a pod's
-roofline is ROADMAP queue A item 7 part 4.
+"cannot say" instead of inventing a peak. The JAX module's interconnect
+table (``ici_bw_for_kind``) is not copied: the port's program ledger counts
+no collective bytes for it to divide.
 """
 
 from __future__ import annotations

@@ -15,8 +15,9 @@ the CPU, at the tiny Sana geometry in f32.
 - The bundled ``data/parti_prompts_sample.tsv`` through generate → score in
   each package: per-Category and per-Challenge means within 3e-4 (measured
   ≤ 7.2e-7).
-- ``--tp 2`` raises naming ROADMAP queue A item 7; every entry point without
-  a card and without ``--device cpu`` raises.
+- ``--tp 2`` outside a launch of 2 processes raises by name before it
+  builds anything (``tests/test_torch_tp.py`` runs it in one); every entry
+  point without a card and without ``--device cpu`` raises.
 """
 
 import csv
@@ -188,9 +189,10 @@ def test_bundled_tsv_drives_the_eval_pipeline_as_jax(tmp_path):
     assert err <= TOL, err
 
 
-def test_tp_above_one_raises_naming_item_7(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+def test_tp_outside_a_launch_of_its_size_raises_by_name(tmp_path):
+    with pytest.raises(ValueError, match="--tp 2 shards the generator over a launch of 2 processes"):
         run_benchmark.main([*TINY, "--out_dir", str(tmp_path), "--device", "cpu", "--tp", "2"])
+    assert not (tmp_path / "0000_a-red-cube.png").exists()
 
 
 @pytest.mark.parametrize("entry", ["run_benchmark", "score_folder"])

@@ -16,7 +16,17 @@ its settings in one process, against the JAX package on the CPU.
   raises (no pop axis to shard over), as the JAX plan does.
 - The launch's refusals through ``tools.launch_local`` at 2 CPU
   processes: a population that 2 does not divide (both numbers named) and
-  ``--pop_host_shard off``; ``--devices_per_process`` above 1.
+  ``--pop_host_shard off``.
+- Hosts of several processes (``launch_local --devices_per_process 2``):
+  one host of two processes on the data axis trains bitwise as one
+  process (three images padded to four), two hosts of two within 3e-4 of
+  it (chunks of one member where one process runs two); both commit every
+  process's slot store with the topology's ``pop_shards``, write a trace
+  segment a process, ``pod_summary.json`` and the reports' Pod section and
+  panel; the data-axis slot reshards into one process; ``--pop_shards``
+  above a host's processes or not dividing them (the JAX CLI's warning,
+  then a refusal: a process cannot sit out) and a population the hosts do
+  not divide are refused with the JAX CLI's texts.
 """
 
 import json
@@ -146,6 +156,105 @@ def test_two_process_refusals(tmp_path, capfd, extra, want):
     assert not (tmp_path / "sana_one_step_pop5_sig0.01_lr1.0_r4_m2x1_anti_pn").exists()
 
 
-def test_devices_per_process_has_no_counterpart():
-    with pytest.raises(NotImplementedError, match="drives one device"):
-        launch_local.main(["--devices_per_process", "2", "--", *TINY])
+# --devices_per_process: hosts of several processes (the data axis)
+HOSTS_ARGV = ["--backend", "sana_one_step", "--model_scale", "tiny", "--device", "cpu", "--num_epochs", "2",
+              "--allow_random_rewards", "true", "--pop_size", "4", "--prompts_per_gen", "3", "--member_batch", "2",
+              "--save_every", "1", "--run_name", "cli", "--resume", "false", "--trace", "true",
+              "--pop_shard_update", "off"]
+# name: (hosts, processes a host, extra flags)
+HOST_LAUNCHES = {"one": (1, 1, []), "data2": (1, 2, ["--pop_shards", "1"]), "hosts2x2": (2, 2, [])}
+SLOT2 = "ckpt/step_00000002"
+
+
+def _npz(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.fixture(scope="module")
+def host_launches(tmp_path_factory):
+    """One process, one host of two processes on the data axis (``--pop_shards
+    1``: pop 1 × data 2, three images padded to four) and two hosts of two
+    (pop 2 × data 1 each), at once, each with a time limit; then one process
+    resumes the data-axis launch's slot for a third epoch (``--resume auto
+    --on_topology_mismatch reshard``)."""
+    import threading
+
+    root = tmp_path_factory.mktemp("hosts")
+    rcs = {}
+
+    def run(name, hosts, per_host, extra):
+        rcs[name] = launch_local.run_pod(hosts, [*HOSTS_ARGV, "--run_dir", str(root / name), *extra],
+                                         timeout_s=150, devices_per_process=per_host)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        threads = [threading.Thread(target=run, args=(name, *spec)) for name, spec in HOST_LAUNCHES.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+        assert all(not t.is_alive() for t in threads)
+        assert rcs == {name: 0 for name in HOST_LAUNCHES}, rcs
+        resumed = list(HOSTS_ARGV)
+        resumed[resumed.index("--num_epochs") + 1] = "3"
+        resumed[resumed.index("--resume") + 1] = "auto"
+        rcs["resume"] = launch_local.run_pod(1, [*resumed, "--run_dir", str(root / "data2"), "--on_topology_mismatch",
+                                                 "reshard"], timeout_s=120)
+    assert rcs["resume"] == 0
+    return root
+
+
+@pytest.mark.parametrize("name", ["data2", "hosts2x2"])
+def test_hosts_of_processes_train_as_one_process(host_launches, name):
+    one = _npz(host_launches / "one" / "cli" / SLOT2 / "theta.npz")
+    got = _npz(host_launches / name / "cli" / SLOT2 / "theta.npz")
+    assert set(got) == set(one)
+    gap = max(float(np.abs(got[k] - one[k]).max()) for k in one)
+    print(f"{name}: θ after 2 epochs, max |launch - one process| {gap:.3g}")
+    if name == "data2":  # the same member chunks; each image in its global position
+        assert all(got[k].tobytes() == one[k].tobytes() for k in one)
+    else:  # one member a process: chunks of one lane where one process runs two
+        for k in one:
+            np.testing.assert_allclose(got[k], one[k], err_msg=k, **TOL)
+
+
+@pytest.mark.parametrize("name, procs, pop_shards", [("data2", 2, 1), ("hosts2x2", 4, 2)])
+def test_hosts_of_processes_commit_trace_and_report(host_launches, capsys, name, procs, pop_shards):
+    from hyperscalees_t2i_tpu_torch.tools import run_report, trace_report
+
+    run = host_launches / name / "cli"
+    topo = json.loads((run / SLOT2 / "manifest.json").read_text())["topology"]
+    assert topo["process_count"] == procs and topo["pop_shards"] == pop_shards
+    # the coordinated commit: every process's store
+    assert all((run / (f"ckpt.host{i}" if i else "ckpt") / "step_00000002").is_dir() for i in range(procs))
+    assert (run / SLOT2).is_dir()
+    assert sorted(p.name for p in run.glob("trace*.jsonl")) == sorted(
+        ["trace.jsonl"] + [f"trace.{i}.jsonl" for i in range(1, procs)])
+    summary = json.loads((run / "pod_summary.json").read_text())
+    assert summary["n_hosts"] == procs and summary["n_epochs_aligned"] >= 2
+    assert trace_report.main([str(run)]) == 0
+    assert "## pod" in capsys.readouterr().out
+    assert run_report.main([str(run), "--out", str(run.parent / "report.html")]) == 0
+    assert "<h2>Pod</h2>" in (run.parent / "report.html").read_text()
+
+
+def test_a_data_axis_slot_reshards_into_one_process(host_launches):
+    run = host_launches / "data2" / "cli"
+    assert json.loads((run / "ckpt/step_00000003/manifest.json").read_text())["topology"]["process_count"] == 1
+    transitions = json.loads((run / "elastic.json").read_text())
+    assert transitions[-1]["kind"] == "reshard_restore"
+    assert transitions[-1]["from"]["process_count"] == 2 and transitions[-1]["to"]["process_count"] == 1
+    assert [r["epoch"] for r in read_jsonl_rows(run / "metrics.jsonl")][-1] == 2
+
+
+@pytest.mark.parametrize("hosts, per_host, extra, want", [
+    (1, 2, ["--pop_shards", "3"], "ERROR: --pop_shards 3 > 2 available devices"),
+    (1, 3, ["--pop_shards", "2"], "WARNING: pop_shards=2 does not divide 3 devices; 1 devices idle"),
+    (2, 2, ["--pop_size", "5"], "needs --pop_size divisible by the process count (5 % 2 != 0)"),
+])
+def test_hosts_of_processes_refusals(tmp_path, capfd, hosts, per_host, extra, want):
+    rc = launch_local.main(["--num_processes", str(hosts), "--devices_per_process", str(per_host), "--timeout_s",
+                            "100", "--", *TINY, "--run_dir", str(tmp_path), *extra])
+    err = capfd.readouterr().err
+    assert rc == 1 and want in err, err[-2000:]

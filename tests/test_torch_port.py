@@ -46,7 +46,8 @@ _REQUIRED = ["hyperscalees_t2i_tpu_torch." + m for m in (
     "tools.run_report", "tools.sentry", "tools.preflight", "evaluate.run_benchmark", "evaluate.score_folder",
     "tools.demo", "tools.vote_report", "tools.encode_prompts", "tools.sweep", "utils.imagenet_labels",
     "parallel.mesh", "parallel.collectives", "parallel.pop_update", "obs.multihost", "tools.launch_local",
-    "resilience.faultinject", "resilience.coord", "resilience.elastic", "resilience.checkpoints", "resilience.retry")]
+    "resilience.faultinject", "resilience.coord", "resilience.elastic", "resilience.checkpoints", "resilience.retry",
+    "parallel.pop_eval", "parallel.tp", "ops.ring_attention", "obs.podtrace")]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

@@ -13,15 +13,20 @@ so the verdict needs ``--hbm-gb``.
 - ``--serve`` (``serve.admission.analyze_serve_geometry``: probes at 1 and 2
   lanes, extrapolated) and ``--fleet`` (``train.fleet.analyze_fleet_geometry``
   beside the solo rung).
+- ``--devices N`` measures one process's program of the
+  ``gcd_pop_data_mesh(pop, N)`` plan (fewer counted FLOPs than the whole
+  population's), with its share of the update under ``--pop_shard_update
+  on``; ``on`` without a pop axis raises as the trainer's plan does.
 - An out-of-memory build is a no-fit with the bytes asked for; flags with
   no meaning in the port raise naming why.
 - Ported from ``tests/test_preflight.py``: the fit verdict, the no-fit exit,
   non-display target cards, unknown rungs, the report file, ``--base_quant``
   below and above the size floor. Not ported: the abstract-input and
   StableHLO-identity tests (nothing is lowered; the counted-equals-trainer
-  test holds the same program instead), ``--devices`` and the update
-  isolation (ROADMAP item 7), ``test_int8_dequant_stats_parser`` (an XLA:CPU
-  HLO parser).
+  test holds the same program instead), the update isolation's two
+  lowered update programs (the port measures the update inside the
+  per-process program), ``test_int8_dequant_stats_parser`` (an XLA:CPU HLO
+  parser).
 """
 
 import dataclasses
@@ -122,8 +127,31 @@ def test_main_rejects_unknown_rungs(capsys):
     assert preflight.main(["--rungs", "ar_d16", "--device", "cpu"]) == 2
 
 
-@pytest.mark.parametrize("argv,why", [(["--devices", "2"], "item 7"), (["--pop_shard_update", "on"], "item 7"),
-                                      (["--remat", "blocks"], "differentiates nothing"),
+@pytest.mark.parametrize("devices, mode, mesh, sharded", [(2, "on", {"pop": 2, "data": 1}, True),
+                                                          (8, "off", {"pop": 4, "data": 2}, False)])
+def test_devices_measure_one_process_of_the_plan(tiny, tmp_path, capsys, devices, mode, mesh, sharded):
+    """One process's program of gcd_pop_data_mesh(pop, N): its members on its
+    images, its share of the update where it is sharded; fewer FLOPs than
+    the whole population's program."""
+    rc = preflight.main(["--rungs", "tiny", "--device", "cpu", "--hbm-gb", "80", "--out", str(tmp_path),
+                         "--devices", str(devices), "--pop_shard_update", mode])
+    out = capsys.readouterr().out
+    assert rc == 0
+    (rec,) = load_programs(tmp_path)
+    g = rec["geometry"]
+    assert g["mesh_shape"] == mesh and g["n_devices"] == devices and g["pop_shard_update"] is sharded
+    assert f"one process's program of the {mesh} plan over {devices} processes" in out
+    whole = tiny[1]
+    print(f"--devices {devices}: {rec['flops']:.4g} FLOPs a process against {whole['flops']:.4g} for one")
+    assert 0 < rec["flops"] < whole["flops"] and rec["peak_bytes"] > 0
+
+
+def test_pop_shard_update_on_without_devices_raises_as_the_trainer():
+    with pytest.raises(ValueError, match="pop_shard_update=on needs a pop axis of size > 1"):
+        preflight.main(["--rungs", "tiny", "--device", "cpu", "--hbm-gb", "80", "--pop_shard_update", "on"])
+
+
+@pytest.mark.parametrize("argv,why", [(["--remat", "blocks"], "differentiates nothing"),
                                       (["--fused_qlora", "off"], "fused kernel"), (["--chip", "v5e"], "TPU")])
 def test_flags_without_meaning_raise(argv, why):
     with pytest.raises(NotImplementedError, match=why):

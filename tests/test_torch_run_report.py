@@ -12,7 +12,7 @@ run dir, against the JAX package's report.
 - The port's own program table: counted FLOPs and bytes, intensity, pool,
   warm-up and capture seconds and kernel calls from the port's
   ``programs.jsonl`` (no StableHLO or donation columns); a dir with
-  per-host trace segments raises, naming ROADMAP item 7.
+  per-host trace segments renders the JAX report's Pod panel.
 - Ported from ``tests/test_run_report.py``: the synthetic report, a report
   without trace or ``es/`` keys, no metrics, a custom output path, the
   tick and format helpers, a real CPU run, the predicted-vs-measured panel.
@@ -279,8 +279,11 @@ def test_program_table_has_the_ports_columns(port_run):
     assert run_report._fmt(rec["flops"] / 1e12, 3) in html_text
 
 
-def test_per_host_segments_raise_naming_item_7(tmp_path):
+def test_per_host_segments_render_the_jax_pod_panel(tmp_path):
     d = _dir(tmp_path, "synthetic")
     (d / "trace.1.jsonl").write_text((d / "trace.jsonl").read_text())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        run_report.main([str(d)])
+    assert jrun_report.main([str(d), "--out", str(tmp_path / "j.html")]) == 0
+    assert run_report.main([str(d), "--out", str(tmp_path / "p.html")]) == 0
+    ours = (tmp_path / "p.html").read_text()
+    assert ours == (tmp_path / "j.html").read_text()
+    assert "<h2>Pod</h2>" in ours

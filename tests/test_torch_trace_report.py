@@ -14,8 +14,10 @@ the JAX package's on the same events.
   Not ported: ``_p95`` itself (the port calls ``utils.stats.nearest_rank``
   directly; the case is kept on it), the decorator and global tracer of
   ``test_disabled_tracer_is_noop_and_decorator_resolves_late`` (the port's
-  tracer is passed, not global), the multi-host segment test (ROADMAP item
-  7: a dir with segments raises, below).
+  tracer is passed, not global).
+- Per-host segments (``trace.<i>.jsonl``, with or without rank 0's): the
+  port prints the JAX pod report (``tests/test_torch_podtrace.py`` holds
+  the pod merge itself).
 """
 
 import json
@@ -193,11 +195,14 @@ def test_serving_section(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("segments", [("trace.1.jsonl",), ("trace.jsonl", "trace.1.jsonl", "trace.2.jsonl")])
-def test_per_host_segments_raise_naming_item_7(tmp_path, segments):
+def test_per_host_segments_read_as_the_jax_report(tmp_path, capsys, segments):
     for name in segments:
         _write(tmp_path / name, SYNTHETIC)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trace_report.main([str(tmp_path)])
     # not a segment: a Chrome export beside the trace is ignored
     (tmp_path / "trace_chrome.json").write_text("{}")
-    assert trace_report.trace_path(tmp_path / "trace.jsonl") == tmp_path / "trace.jsonl"
+    assert jtrace_report.main([str(tmp_path)]) == 0
+    theirs = capsys.readouterr().out
+    assert trace_report.main([str(tmp_path)]) == 0
+    ours = capsys.readouterr().out
+    assert ours == theirs
+    assert ("## pod" in ours) == (len(segments) > 1)
