@@ -97,18 +97,20 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
    K4 and K2, K4 exact), then Infinity-2B (``inf_2b``: 14 scales to
    1024×1024, 32-bit tokenizer, bf16, random weights) built by the rung's
    ``build_train_backend("2b", depth=INF_FLOAT_DEPTH)`` (a float base at
-   every width and 8 of its 32 blocks) with CLIP-B/32 and CLIP-H/14
+   every width and 4 of its 32 blocks) with CLIP-B/32 and CLIP-H/14
    rewards (build time and peak memory; θ₀'s norm against
    ``theta_max_norm``), ``run_training`` as a CUDA graph (the warm-up and
    capture): K4 exactly 28 launches a block per generate call and no
    K1-K3, counted at the warm-up and on the device in a profiled replayed
    epoch, which must equal the same epoch run eagerly, bitwise, epoch s,
    images/s, idle share, memory (weights, KV workspace, pool), one eager
-   generate call with ``pop_fuse`` (K2 85 a block); then Infinity-2B at
-   its full depth on the int8 base with ``pop_fuse``
-   (:func:`phase_inf_q8_es`: ``run_training`` as a graph, K3 2,720, K4 896
-   and K1 as derived per generate call on the device, one epoch against
-   eager in turns, bitwise or within 1e-4);
+   generate call with ``pop_fuse`` (K2 85 a block); then Infinity-2B on
+   the int8 base with ``pop_fuse`` at ``INF_Q8_DEPTH`` of its 32 blocks
+   (:func:`phase_inf_q8_es`: ``run_training`` as a graph, K3 85 a block, K4
+   28 a block and K1 as derived per generate call on the device, one epoch
+   against eager in turns, bitwise or within 1e-4); then the same program at
+   the full depth from released-layout files (:func:`phase_weights_infinity`,
+   item 12 below);
 7. the Sana main path: one EGGROLL-ES epoch step of the flagship rung
    (``RUNG_PLAN``/``RUNG_OPT["flagship"]``: pop 4, 4 prompts, member_batch
    1, reward_tile 1, bf16 noise store, int8 DiT + DC-AE + CLIP-B/32 +
@@ -139,9 +141,10 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
    Then one run with the live telemetry on (:func:`telemetry_run`: the
    exporter scraped from a thread during the run, SLOs, heartbeats, the
    stall and anomaly watchdogs), its epochs beside the bare step's.
-   Then chained dispatch: ``CHAINED_EPOCHS`` epochs with
-   ``steps_per_dispatch`` 1 and ``CHAINED_EPOCHS - 1`` (epochs_chained
-   [1, 2]), θ bitwise equal, both runs' ``step_time_s``;
+   Then chained dispatch at ``FLAGSHIP_CUT_LAYERS`` of the 20 blocks:
+   ``CHAINED_EPOCHS`` epochs with ``steps_per_dispatch`` 1 and
+   ``CHAINED_EPOCHS - 1`` (epochs_chained [1, 2]), θ bitwise equal, both
+   runs' ``step_time_s``;
    then the trainer's artifacts and profile window at the flagship
    (:func:`phase_train_artifacts`: ``ART_EPOCHS`` epochs with θ/Δθ
    histograms every epoch, member strips and snapshot grids every 2, a
@@ -175,9 +178,10 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
     tiny rung in f32 with an int8 base on the card against the CPU
     (:func:`phase_pipeline_reference`: one ``generate`` and one ES step
     within 1e-4, launches as derived, the pipeline's draws bitwise); the
-    flagship ES rung in pipeline mode under ``run_training`` as a graph
-    (:func:`phase_pipeline_es`: 3 epochs, K3 2 × 164 an image counted and
-    on the device, epoch s beside 7's one-step epoch);
+    flagship ES rung in pipeline mode at ``FLAGSHIP_CUT_LAYERS`` of its 20
+    blocks under ``run_training`` as a graph (:func:`phase_pipeline_es`: 3
+    epochs, K3 2 × (8 a block + 4) an image counted and on the device, epoch
+    s beside 7's one-step epoch);
 11. the serving tier (:func:`phase_serve_tier`, on 5's backend): an engine
     of ``TIER_LANES`` lanes with the overload layer, SLOs and the
     ``/metrics`` exporter; the admission estimate beside the measured
@@ -202,7 +206,17 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
     counted and on the device, the graph against an eager epoch bitwise,
     each stage's seconds (write, read, convert, to the card, build,
     capture, epoch), the host's peak resident set and the device's peak;
-    then ``weights.validate --family sana`` on the same file.
+    then ``weights.validate --family sana`` on the same file. Infinity-2B
+    at its full width and depth (:func:`phase_weights_infinity`, after
+    ``phase_inf_q8_es``): a bf16 transformer ``.pth`` (≈ 2.0 B values) and
+    a BSQ tokenizer ``.pth`` (:func:`released_infinity_keys`,
+    :func:`released_bsq_keys`, :func:`write_released_pth`) through ``main
+    --backend infinity --infinity_variant 2b --pn 1M --weights --vae_weights
+    --base_quant int8 --pop_fuse true``: the inferred ``InfinityConfig``
+    the ``inf_2b`` rung's, K3 2,720, K4 896 and K1 as derived a call at the
+    warm-up and on the device in a replayed epoch, each stage's seconds,
+    the host's peak beside ``MemTotal``, the device's build peak and the
+    memory split.
 
 13. the evaluation harness and the user tools (:func:`phase_evaluate`, on
     7's backend and reward suite, after the run tools): ``run_benchmark``'s
@@ -250,6 +264,8 @@ import gc
 import json
 import math
 import os
+import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -259,10 +275,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 try:  # the trace readers and the PNG reader live in the package; outside a checkout main() says so and exits
-    from hyperscalees_t2i_tpu_torch.obs.profile_trace import device_kernels, profiled_launches
+    from hyperscalees_t2i_tpu_torch.obs.profile_trace import device_kernels, live_events, profiled_launches
     from hyperscalees_t2i_tpu_torch.utils.images import read_png
 except ImportError:
-    device_kernels = profiled_launches = read_png = None
+    device_kernels = live_events = profiled_launches = read_png = None
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside the
 # tensor cores, HBM bandwidth
@@ -356,10 +372,15 @@ INF_ROWS, INF_HEADS, INF_DH, INF_DEPTH, INF_TEXT = 8, 16, 128, 32, 17
 # _graph_run's profiled one
 INF_EPOCHS = 1
 INF_FLOAT_EPOCHS = 1
-# phase_inf_es's blocks: the float-base run at every width and a quarter of
-# the depth (the int8 run, the main path, keeps all 32; K4 at every Infinity
-# shape is phase_k4_infinity's)
-INF_FLOAT_DEPTH = 8
+# phase_inf_es's blocks: the float-base run at every width and an eighth of
+# the depth (K2 6 × 14 × 4 + 4 = 340 and K4 112 a call; the main path's full
+# depth runs from the released-layout files in phase_weights_infinity; K4 at
+# every Infinity shape is phase_k4_infinity's)
+INF_FLOAT_DEPTH = 4
+# phase_inf_q8_es's blocks: the int8 run against eager at a quarter of the
+# depth (K3 6 × 14 × 8 + 8 = 680 and K4 224 a call); the 32-block int8
+# epoch, K3 and K4 in situ and the threefry share are phase_weights_infinity's
+INF_Q8_DEPTH = 8
 # phase_weights_sana's transformer blocks in the released-layout file (d 2240
 # and every key name kept; the reader and converter are the same at any depth)
 WEIGHTS_SANA_LAYERS = 4
@@ -397,11 +418,35 @@ TIMED_EPOCHS = 2
 # phase_train_artifacts: run_training epochs, the profile window's first epochs among them
 ART_EPOCHS = 4
 CHAINED_EPOCHS = 3  # phase_train_chained: 1, then CHAINED_EPOCHS - 1, epochs a dispatch
+# the DiT blocks, of Sana-Sprint 1.6B's 20, of phase_pipeline_es and
+# phase_train_chained (cut_flagship_backend): their K3/K1 count rules depend
+# on depth only through the block count, and the chain's bitwise check not at all
+FLAGSHIP_CUT_LAYERS = 4
 ART_PROFILE_EPOCHS = 2
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def die_with_parent(parent: int) -> None:
+    """Make this child of the script die with it: the kernel sends SIGKILL
+    when the thread that started the child ends (Linux
+    ``PR_SET_PDEATHSIG``), whatever ended it; a child whose parent
+    ``parent`` had already gone leaves at once."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(1, signal.SIGKILL, 0, 0, 0) != 0:  # PR_SET_PDEATHSIG
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_PDEATHSIG) failed")
+    if os.getppid() != parent:
+        os._exit(1)
+
+
+def child_prelude() -> str:
+    """The first statements of every Python child the script starts
+    (``python -c``): the checkout on the path and :func:`die_with_parent`
+    with this process as the parent."""
+    return (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+            f"chip_smoke.die_with_parent({os.getpid()}); ")
 
 
 def _untimed(torch, fns) -> float:
@@ -453,9 +498,9 @@ def device_ms(torch, fns, reps: int, marker=None) -> float:
                 fns[i % len(fns)]()
             torch.cuda.synchronize()
         total, n = 0.0, 0
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA and (marker is None or marker in e.name):
-                total += (e.time_range.end - e.time_range.start) / 1e3
+        for name, ms in live_events(torch, prof):
+            if marker is None or marker in name:
+                total += ms
                 n += 1
         if marker is None and n:
             return total / reps
@@ -535,91 +580,145 @@ def kernel_routes(text: str):
     return dict(zip(_demangle(list(routes)), (" | ".join(v) for v in routes.values())))
 
 
-def sass_hmma(sources):
-    """Tensor-core instructions (``HMMA``) per kernel in the built library of
-    each ``csrc/<source>.cu``'s SASS, by ``cuobjdump`` from the toolkit that
-    built it, one process a library, all started together: ``{source:
-    {kernel: count}}``."""
+def start_sass_dumps(sources):
+    """Start one ``cuobjdump -sass`` a library of each ``csrc/<source>.cu``,
+    by the toolkit that built it, all together, each into its own file;
+    :func:`sass_hmma` waits for them."""
     import tempfile
 
     from hyperscalees_t2i_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).parent / "cuobjdump"
-    out = {}
-    with tempfile.TemporaryDirectory(dir=_build.library_path(sources[0]).parent) as tmp:
-        # each dump to a file, so that no process waits on a full pipe
-        files = {source: open(Path(tmp, source), "w+") for source in sources}
-        procs = {source: subprocess.Popen([str(tool), "-sass", str(_build.library_path(source))], stdout=files[source],
-                                          stderr=subprocess.STDOUT, text=True) for source in sources}
-        dumps = {}
+    tmp = Path(tempfile.mkdtemp(dir=_build.library_path(sources[0]).parent))
+    # each dump to a file, so that no process waits on a full pipe
+    files = {source: open(tmp / source, "w+") for source in sources}
+    procs = {source: subprocess.Popen([str(tool), "-sass", str(_build.library_path(source))], stdout=files[source],
+                                      stderr=subprocess.STDOUT, text=True) for source in sources}
+    return {"tmp": tmp, "files": files, "procs": procs, "t0": time.perf_counter()}
+
+
+def stop_sass_dumps(dumps):
+    """End :func:`start_sass_dumps`' processes now and remove their files."""
+    import shutil
+
+    for source, proc in dumps["procs"].items():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        dumps["files"][source].close()
+    shutil.rmtree(dumps["tmp"], ignore_errors=True)
+
+
+def sass_hmma(dumps):
+    """Tensor-core instructions (``HMMA``) per kernel in the SASS of
+    :func:`start_sass_dumps`' dumps, once they end: ``{source: {kernel:
+    count}}``."""
+    procs, files, t0 = dumps["procs"], dumps["files"], dumps["t0"]
+    texts, t_wait = {}, time.perf_counter()
+    try:
+        while any(proc.poll() is None for proc in procs.values()):
+            if time.perf_counter() - t0 > 300:
+                raise subprocess.TimeoutExpired("cuobjdump", 300)
+            time.sleep(0.05)
+        waited = time.perf_counter() - t_wait
         for source, proc in procs.items():
-            proc.wait(timeout=300)
             files[source].seek(0)
-            dumps[source] = files[source].read()
-            files[source].close()
+            texts[source] = files[source].read()
             if proc.returncode:
-                raise subprocess.CalledProcessError(proc.returncode, proc.args, dumps[source])
-    for source, sass in dumps.items():
+                raise subprocess.CalledProcessError(proc.returncode, proc.args, texts[source])
+    finally:
+        stop_sass_dumps(dumps)
+    t1, out = time.perf_counter(), {}
+    for source, sass in texts.items():
         counts, name = {}, None
-        for line in sass.splitlines():
-            if "Function :" in line:
-                name = line.split("Function :", 1)[1].strip()
+        for m in re.finditer(r"Function : (\S+)|HMMA", sass):
+            if m.group(1):
+                name = m.group(1)
                 counts[name] = 0
-            elif name and "HMMA" in line:
+            elif name:
                 counts[name] += 1
         out[source] = dict(zip(_demangle(list(counts)), counts.values()))
+    log(f"[build] SASS dumps {', '.join(f'{k} {len(v) / 2**20:.0f} MiB' for k, v in texts.items())}: waited "
+        f"{waited:.1f} s for them, {t_wait - t0:.1f} s after they started; counted in {time.perf_counter() - t1:.1f} s")
     return out
 
 
-def phase_build():
+# each source's bf16 tensor-core kernel, whose SASS must hold HMMA
+ROUTED_KERNELS = {"int8_matmul": "int8_mma_kernel", "lora_chain": "lora_chain_mma_kernel",
+                  "fused_qlora": "qlora_mma_kernel", "decode_attention": "decode_attention_mma_kernel"}
+KERNEL_TAGS = {"int8_matmul": "k1", "lora_chain": "k2", "fused_qlora": "k3", "decode_attention": "k4"}
+
+
+def phase_build(defer_sass: bool = False):
+    """Build the four kernels' libraries (one ``nvcc`` a source, all
+    started together), log each kernel's registers and spills and each
+    route's dynamic shared memory, and check that every bf16 route's SASS
+    holds tensor-core instructions (:func:`phase_build_sass`). With
+    ``defer_sass`` the SASS dumps only start here, and the caller runs
+    :func:`phase_build_sass` on the result later (``main`` does so after
+    the kernel checks, which the dumps run beside)."""
     from hyperscalees_t2i_tpu_torch.ops import _build
     from hyperscalees_t2i_tpu_torch.ops import fused_lora as fl
     from hyperscalees_t2i_tpu_torch.ops import quant_mm as qm
 
     t0 = time.perf_counter()
     nvcc_s = {}
-    logs = _build.build_all(["int8_matmul", "lora_chain", "fused_qlora", "decode_attention"], seconds=nvcc_s)
+    logs = _build.build_all(list(ROUTED_KERNELS), seconds=nvcc_s)
     dt = time.perf_counter() - t0
     for name, sec in sorted(nvcc_s.items(), key=lambda kv: -kv[1]):
         log(f"[build] {name}: nvcc {sec:.1f} s")
-    routed = {"int8_matmul": "int8_mma_kernel", "lora_chain": "lora_chain_mma_kernel",
-              "fused_qlora": "qlora_mma_kernel", "decode_attention": "decode_attention_mma_kernel"}
     tiles = (("128x128", qm.MMA_128x128), ("64x64", qm.MMA_64x64), ("16x64", qm.MMA_16x64))
     out = dict(build_s=dt, nvcc_s=nvcc_s)
-    sass = sass_hmma(list(routed))
-    for name, mma_kernel in routed.items():
-        tag = {"int8_matmul": "k1", "lora_chain": "k2", "fused_qlora": "k3", "decode_attention": "k4"}[name]
-        if logs[name] == "(cached)":
-            log(f"[build] {name}: (cached)")
-        routes = kernel_routes(logs[name])
-        for fn, line in routes.items():
-            log(f"[build] {name} {fn}: {line}")
+    dumps = start_sass_dumps(list(ROUTED_KERNELS))
+    try:
+        for name in ROUTED_KERNELS:
+            tag = KERNEL_TAGS[name]
+            if logs[name] == "(cached)":
+                log(f"[build] {name}: (cached)")
+            routes = kernel_routes(logs[name])
+            for fn, line in routes.items():
+                log(f"[build] {name} {fn}: {line}")
+            if name == "int8_matmul":
+                tile_smem = _build.entry(name, "hses_int8_matmul_smem", [ctypes.c_int])
+                smem = {t: tile_smem(tid) for t, tid in tiles}
+            elif name == "lora_chain":
+                route_smem = _build.entry(name, "hses_lora_chain_smem", [ctypes.c_int, ctypes.c_int])
+                smem = {"bf16 32 rows": route_smem(fl.MMA_ROWS32, 0),
+                        "bf16 32 rows wide": route_smem(fl.MMA_ROWS32, 1),
+                        "f32 8 rows (most)": route_smem(fl.F32_ROWS8, 0)}
+            elif name == "decode_attention":
+                route_smem = _build.entry(name, "hses_decode_attention_smem", [ctypes.c_int] * 4)
+                smem = {f"bf16 {rows} rows dh {dh} {st} stages": route_smem(1, rows, dh, st)
+                        for dh, st in ((64, 2), (64, 3), (128, 2), (128, 3)) for rows in (16, 32, 64, 128)}
+                smem.update({f"f32 dh {dh}": route_smem(0, 64, dh, 1) for dh in (64, 128)})
+            else:
+                tile_smem = _build.entry(name, "hses_fused_qlora_smem", [ctypes.c_int, ctypes.c_int])
+                smem = {f"{t}{' wide' if wide else ''}": tile_smem(tid, wide) for t, tid in tiles for wide in (0, 1)}
+            log(f"[build] {name} dynamic shared memory per block: {smem} bytes")
+            out.update({f"{tag}_ptxas": routes, f"{tag}_smem_bytes": smem})
+    except BaseException:
+        stop_sass_dumps(dumps)
+        raise
+    log(f"[build] four kernels built in {dt:.1f} s (one nvcc per source, in parallel)")
+    out["sass_dumps"] = dumps
+    return out if defer_sass else phase_build_sass(out)
+
+
+def phase_build_sass(build):
+    """Wait for :func:`phase_build`'s SASS dumps, log each kernel's HMMA
+    count, and fail unless every bf16 route's kernels hold HMMA. Returns
+    ``build`` with the counts (``k1_hmma`` …)."""
+    sass = sass_hmma(build.pop("sass_dumps"))
+    for name, mma_kernel in ROUTED_KERNELS.items():
         hmma = sass[name]
         for fn, n in hmma.items():
             log(f"[build] {name} SASS {fn}: {n} HMMA")
         mma = {fn: n for fn, n in hmma.items() if mma_kernel in fn}
         if not mma or min(mma.values()) == 0:
             raise AssertionError(f"{name}'s bf16 route has no tensor-core (HMMA) instruction in its SASS: {hmma}")
-        if name == "int8_matmul":
-            tile_smem = _build.entry(name, "hses_int8_matmul_smem", [ctypes.c_int])
-            smem = {t: tile_smem(tid) for t, tid in tiles}
-        elif name == "lora_chain":
-            route_smem = _build.entry(name, "hses_lora_chain_smem", [ctypes.c_int, ctypes.c_int])
-            smem = {"bf16 32 rows": route_smem(fl.MMA_ROWS32, 0), "bf16 32 rows wide": route_smem(fl.MMA_ROWS32, 1),
-                    "f32 8 rows (most)": route_smem(fl.F32_ROWS8, 0)}
-        elif name == "decode_attention":
-            route_smem = _build.entry(name, "hses_decode_attention_smem", [ctypes.c_int] * 4)
-            smem = {f"bf16 {rows} rows dh {dh} {st} stages": route_smem(1, rows, dh, st)
-                    for dh, st in ((64, 2), (64, 3), (128, 2), (128, 3)) for rows in (16, 32, 64, 128)}
-            smem.update({f"f32 dh {dh}": route_smem(0, 64, dh, 1) for dh in (64, 128)})
-        else:
-            tile_smem = _build.entry(name, "hses_fused_qlora_smem", [ctypes.c_int, ctypes.c_int])
-            smem = {f"{t}{' wide' if wide else ''}": tile_smem(tid, wide) for t, tid in tiles for wide in (0, 1)}
-        log(f"[build] {name} dynamic shared memory per block: {smem} bytes; "
-            f"SASS: {sum(mma.values())} HMMA over {len(mma)} bf16 kernels")
-        out.update({f"{tag}_ptxas": routes, f"{tag}_hmma": hmma, f"{tag}_smem_bytes": smem})
-    log(f"[build] four kernels built in {dt:.1f} s (one nvcc per source, in parallel)")
-    return out
+        log(f"[build] {name} SASS: {sum(mma.values())} HMMA over {len(mma)} bf16 kernels")
+        build[f"{KERNEL_TAGS[name]}_hmma"] = hmma
+    return build
 
 
 def phase_k1_invariance(torch):
@@ -1726,7 +1825,8 @@ def timed_epochs(torch, make_step, theta, flat_ids, expected1, pop: int, calls_p
     before each variant's epoch and read just after: the eager step's must
     be ``expected1``, the graph's 0 (a replay runs no wrapper); then one
     profiled epoch of each, whose K1-K4 launches on the device
-    (:func:`profiled_launches`) must be ``expected1`` for both. The graph's
+    (:func:`profiled_launches`) must be ``expected1`` for both (a miss is
+    profiled again to count, up to ``PROFILE_ATTEMPTS`` in all). The graph's
     θ′, Δθ, metrics, scores and reward rows (and ``record``'s slots: a
     :class:`SlotRecorder` active around the whole) must equal the eager
     step's bitwise, or within 1e-4 with the difference recorded; the last
@@ -1797,10 +1897,20 @@ def timed_epochs(torch, make_step, theta, flat_ids, expected1, pop: int, calls_p
     delta_norm = float(metrics["delta_norm"])
     if not delta_norm > 0:
         raise AssertionError(f"the update is zero (delta_norm {delta_norm})")
-    prof = {v: profiled_epoch(torch, runs[v][0], theta, ids, epoch_key(0, 200, "cuda")) for v in runs}
+    prof = {}
+    for v in runs:  # a miss profiles the same epoch again to count (PROFILE_ATTEMPTS); the first keeps its times
+        attempts = []
+        while not attempts or (attempts[-1] != expected1 and len(attempts) < PROFILE_ATTEMPTS):
+            if attempts:
+                log(f"[{tag}] the profiler saw {attempts[-1]} in profiled {v} epoch {len(attempts)} of "
+                    f"{PROFILE_ATTEMPTS}, expected {expected1}: profiling it again to count")
+            p = profiled_epoch(torch, runs[v][0], theta, ids, epoch_key(0, 200, "cuda"))
+            prof.setdefault(v, p)
+            attempts.append(p["launches"])
+        prof[v]["attempts"], prof[v]["launches"] = attempts, attempts[-1]
     for v, p in prof.items():
         if p["launches"] != expected1:
-            raise AssertionError(f"{what}: the profiled {v} epoch launched {p['launches']} on the device, "
+            raise AssertionError(f"{what}: the profiled {v} epochs launched {p['attempts']} on the device, "
                                  f"expected {expected1}")
         p["idle_share"] = 1.0 - p["busy_ms"] / (1e3 * statistics.mean(epoch_s[v]))
     del runs
@@ -2333,9 +2443,11 @@ def phase_train_artifacts(torch, backend, suite):
     return out
 
 
-def phase_train_chained(torch, backend, suite):
-    """Chained dispatch at the flagship: ``run_training`` on the backend
-    :func:`phase_es_flagship` built, ``CHAINED_EPOCHS`` epochs with
+def phase_train_chained(torch, suite):
+    """Chained dispatch at the flagship: ``run_training`` on the flagship
+    rung with its DiT cut to ``FLAGSHIP_CUT_LAYERS`` of 20 blocks
+    (:func:`cut_flagship_backend`; the flagship reward suite ``suite``),
+    ``CHAINED_EPOCHS`` epochs with
     ``steps_per_dispatch`` 1 and then ``CHAINED_EPOCHS - 1`` (quality on, no
     slots or histograms due): the chained run logs its first epoch and its
     last, with ``epochs_chained`` [1, CHAINED_EPOCHS - 1], and ends at the
@@ -2351,6 +2463,7 @@ def phase_train_chained(torch, backend, suite):
     opt = rung_opt("flagship")
     root = ROOT / "build" / "train_chained"
     shutil.rmtree(root, ignore_errors=True)
+    backend = cut_flagship_backend(torch, FLAGSHIP_CUT_LAYERS, opt["base_quant"])
     last, chain = CHAINED_EPOCHS - 1, CHAINED_EPOCHS - 1
     base = dict(num_epochs=CHAINED_EPOCHS, pop_size=pop, sigma=0.01, egg_rank=4, prompts_per_gen=m, batches_per_gen=1,
                 member_batch=mb, reward_tile=opt["reward_tile"], noise_dtype=opt["noise_dtype"],
@@ -2377,7 +2490,11 @@ def phase_train_chained(torch, backend, suite):
     if theta_diff != 0.0 or row_diff != 0.0:
         raise AssertionError(f"steps_per_dispatch {chain} against 1: θ differs by {theta_diff}, epoch {last}'s "
                              f"scores by {row_diff}")
-    log(f"[train-chained] flagship run_training, {CHAINED_EPOCHS} epochs: steps_per_dispatch 1 step_time_s "
+    del backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train-chained] flagship run_training at {FLAGSHIP_CUT_LAYERS} of 20 blocks, {CHAINED_EPOCHS} epochs: "
+        f"steps_per_dispatch 1 step_time_s "
         f"{', '.join(f'{t:.3f}' for t in one['step_time_s'])} ({one['wall_s']:.2f} s wall); steps_per_dispatch {chain} "
         f"{', '.join(f'{t:.3f}' for t in four['step_time_s'])} (epochs_chained {four['epochs_chained']}, "
         f"{four['wall_s']:.2f} s wall); θ and epoch {last}'s scores bitwise equal; launches counted {one['launches']} / "
@@ -2842,6 +2959,7 @@ def expected_inf_launches(backend, reward, tc, batch: int):
     int8 node and K2 over a float one; without it K1 over an int8 node (the
     adapter's delta in plain torch) and nothing over a float one. K1 also
     at every other int8 matmul: ``text_proj`` and ``pool_proj`` once a call,
+    ``head_ada`` (the head's AdaLN of a converted checkpoint) once a call,
     ``head`` once a scale, ``word_embed`` once a scale but the last, the BSQ
     decoder's int8 1×1 convs and the towers' image sides once a call
     (``ada_lin`` dequantizes in plain torch; ``reward=None``: generation
@@ -2858,7 +2976,7 @@ def expected_inf_launches(backend, reward, tc, batch: int):
             k3, k1 = (k3 + per, k1) if tc.pop_fuse else (k3, k1 + per)
         elif tc.pop_fuse:
             k2 += per
-    once = {"text_proj": 1, "pool_proj": 1, "head": S, "word_embed": S - 1}
+    once = {"text_proj": 1, "pool_proj": 1, "head_ada": 1, "head": S, "word_embed": S - 1}
     for name, mod in modules.items():
         if name in adapted or name == "ada_lin" or not hasattr(mod, "q8"):
             continue
@@ -2901,14 +3019,15 @@ def _recording_make(trainer, steps):
     return real, make
 
 
-# profiled replays of one epoch that _graph_run may take to hold the device's
-# launch count to the derived one. The first is the measured one: its busy
-# ms, idle share, in-situ ms and top kernels are kept whatever it counted.
-# The profiler has once dropped a stretch of kernel records from a replay
-# (74 of a Sana epoch's 2,160 K1, one CLIP-B call's; cause not found),
-# which a replay of the same graph cannot do, so a miss replays the graph
-# again under the profiler to count its launches only; every attempt's
-# count is logged and returned
+# profiled epochs that _graph_run and timed_epochs may take to hold the
+# device's launch count to the derived one. The first is the measured one:
+# its busy ms, idle share, in-situ ms and top kernels are kept whatever it
+# counted. The profiler has dropped a stretch of kernel records from a
+# replay twice (74 of a Sana epoch's 2,160 K1, one CLIP-B call's; 133 of
+# the flagship ES epoch's 5,264 K1; cause not found), which a replay of the
+# same graph cannot do, so a miss runs the same epoch again under the
+# profiler to count its launches only; every attempt's count is logged and
+# returned
 PROFILE_ATTEMPTS = 3
 
 
@@ -3273,14 +3392,16 @@ def phase_inf_q8_es(torch):
     """Infinity-2B on the int8 base with ``pop_fuse``: the ``inf_2b`` rung
     built by ``build_train_backend("2b", base_quant="int8")`` (the generator
     tree, the BSQ tokenizer included, and both towers' image sides int8:
-    φ stays float at 36,864 elements), the train CLI's settings with
-    ``--pop_fuse true --base_quant int8``, ``run_training`` as a CUDA graph
-    for ``INF_EPOCHS`` epochs, the first the warm-up and capture
-    (:func:`_graph_run` with ``against_eager``: K3 6 × 14 × 32 + 32 = 2,720,
-    K4 896 and K1 as the module tree gives them, per generate call, counted
+    φ stays float at 36,864 elements) cut to ``INF_Q8_DEPTH`` of its 32
+    blocks (every width kept), the train CLI's settings with ``--pop_fuse
+    true --base_quant int8``, ``run_training`` as a CUDA graph for
+    ``INF_EPOCHS`` epochs, the first the warm-up and capture
+    (:func:`_graph_run` with ``against_eager``: K3 6 × 14 × 8 + 8 = 680,
+    K4 224 and K1 as the module tree gives them, per generate call, counted
     at the warm-up and on the device in a profiled replayed epoch, which
     must equal the same epoch run eagerly just before it, bitwise or within
-    1e-4). Memory: weights, the KV workspace and the graph's pool apart."""
+    1e-4). Memory: weights, the KV workspace and the graph's pool apart.
+    The 32-block int8 run is :func:`phase_weights_infinity`'s."""
     import shutil
 
     from hyperscalees_t2i_tpu_torch.backends.infinity_backend import build_train_backend
@@ -3296,18 +3417,22 @@ def phase_inf_q8_es(torch):
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    backend, suite = build_train_backend(scale, device=dev, seed=0, base_quant="int8")
+    backend, suite = build_train_backend(scale, device=dev, seed=0, base_quant="int8", depth=INF_Q8_DEPTH)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     weights_bytes = torch.cuda.memory_allocated()
     _, per = expected_inf_launches(backend, suite, tc, m)
-    if (per["k2_per_call"], per["k3_per_call"], per["k4_per_call"]) != (0, 2720, 896) or not per["k1_per_call"]:
-        raise AssertionError(f"the inf_2b int8 pop_fuse plan is not K3 2720, K4 896 and K1 a call: {per}")
-    log(f"[inf-q8] Infinity-2B ES backend on the int8 base built in {build_s:.1f} s; device memory "
-        f"{weights_bytes / 2**30:.2f} GiB; per generate call K3 {per['k3_per_call']}, K1 "
-        f"{per['k1_per_call']}, K4 {per['k4_per_call']}; {per['calls']} calls an epoch")
-    state, run = _graph_run(torch, backend, suite, tc, weights_bytes, "inf_2b_q8", against_eager=True)
-    stats = dict(build_s=build_s, **run)
+    S = len(INF_PATCH_NUMS)
+    k3_call, k4_call = (6 * S + 1) * INF_Q8_DEPTH, 2 * S * INF_Q8_DEPTH
+    if (per["k2_per_call"], per["k3_per_call"], per["k4_per_call"]) != (0, k3_call, k4_call) or not per["k1_per_call"]:
+        raise AssertionError(f"the inf_2b int8 pop_fuse plan at {INF_Q8_DEPTH} blocks is not K3 {k3_call}, K4 "
+                             f"{k4_call} and K1 a call: {per}")
+    log(f"[inf-q8] Infinity-2B ES backend on the int8 base at {INF_Q8_DEPTH} of {INF_DEPTH} blocks built in "
+        f"{build_s:.1f} s; device memory {weights_bytes / 2**30:.2f} GiB; per generate call K3 {per['k3_per_call']}, "
+        f"K1 {per['k1_per_call']}, K4 {per['k4_per_call']}; {per['calls']} calls an epoch")
+    state, run = _graph_run(torch, backend, suite, tc, weights_bytes, f"inf_2b_q8_depth{INF_Q8_DEPTH}",
+                            against_eager=True)
+    stats = dict(build_s=build_s, depth=INF_Q8_DEPTH, **run)
     del backend, suite, state
     gc.collect()  # the step's closures hold the backend (and its 19.8 GB workspace) in cycles
     torch.cuda.empty_cache()
@@ -4179,13 +4304,15 @@ def phase_threefry(torch, flagship_backend):
     return rows
 
 
-def threefry_shares(rows, es, var_es, inf_q8):
+def threefry_shares(rows, es, var_es, inf_full, inf_q8):
     """Each path's draw time as a share of the epoch (or call) that draws it
     once, from this run's path phases: the flagship ES noise and latents
     per flagship ES epoch, VAR-d16's Gumbel slab per VAR epoch and per one
     generate call's generation stage, Infinity-2B's Gumbel per epoch and per
-    generate call of a replayed epoch (the int8 run, at the full depth), its
-    stacked leaf per backend build."""
+    generate call of a replayed epoch (``inf_full``: the int8 run at the
+    full depth, from the released-layout files), its stacked leaf per
+    random backend build (``inf_q8``: the int8 rung at ``INF_Q8_DEPTH``
+    blocks, the only random Infinity-2B int8 build left)."""
     import statistics
 
     med = statistics.median
@@ -4194,9 +4321,9 @@ def threefry_shares(rows, es, var_es, inf_q8):
         "flagship_latents": {"flagship_es_epoch_ms": med(es["epoch_s"]) * 1e3},
         "var_d16_gumbel": {"var_d16_es_epoch_ms": med(var_es["epoch_s"]) * 1e3,
                            "var_d16_generation_ms": var_es["call_breakdown_ms"]["generation"]},
-        "inf_2b_gumbel": {"inf_2b_epoch_ms": med(inf_q8["epoch_s"]) * 1e3,
-                          "inf_2b_call_ms": med(inf_q8["epoch_s"]) * 1e3 / inf_q8["per_call"]["calls"]},
-        "inf_2b_leaf": {"inf_2b_build_ms": inf_q8["build_s"] * 1e3},
+        "inf_2b_gumbel": {"inf_2b_epoch_ms": med(inf_full["epoch_s"]) * 1e3,
+                          "inf_2b_call_ms": med(inf_full["epoch_s"]) * 1e3 / inf_full["per_call"]["calls"]},
+        "inf_2b_leaf": {f"inf_2b_depth{INF_Q8_DEPTH}_build_ms": inf_q8["build_s"] * 1e3},
     }
     for r in rows:
         r["share"] = {k: r["ms"] / v for k, v in per[r["path"]].items()}
@@ -4322,17 +4449,45 @@ def phase_pipeline_reference(torch):
             "expected": {"generate": expected_gen, "es_step": expected_step}, "per_call": per, "draws": draws}
 
 
-def phase_pipeline_es(torch, backend, suite, es):
-    """The flagship ES rung (``RUNG_PLAN``/``RUNG_OPT["flagship"]``, nothing
-    cut) in ``pipeline`` mode (``PIPELINE_STEPS`` DiT passes an image, the
-    one-step backend's modules shared: ``SanaBackend.with_mode``) under
-    ``run_training`` as a CUDA graph: 3 epochs, the first warm (its
-    warm-up and capture). Counted launches: the derived counts × the one
-    eager epoch (K3 ``PIPELINE_STEPS`` × 164 an image); then one profiled
+def cut_flagship_backend(torch, layers: int, base_quant: str, seed: int = 0):
+    """The flagship rung's Sana backend as ``sana_backend.build_train_backend``
+    builds it from ``PRNGKey(seed)`` (the same keys for the DiT, the DC-AE
+    decoder and the prompt embeddings, bf16, ``base_quant``), its DiT cut to
+    ``layers`` blocks, every width kept; no reward suite (the caller's)."""
+    import dataclasses
+
+    from hyperscalees_t2i_tpu_torch.backends.sana_backend import SanaBackend
+    from hyperscalees_t2i_tpu_torch.models import dcae, sana
+    from hyperscalees_t2i_tpu_torch.ops.quant import maybe_quantize_tree
+    from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, rung_opt, sana_rung_model
+    from hyperscalees_t2i_tpu_torch.utils import threefry
+    from hyperscalees_t2i_tpu_torch.utils.pytree import cast_floating
+
+    bcfg = sana_rung_model("flagship", tower_dtype=rung_opt("flagship")["tower_dtype"])["bcfg"]
+    bcfg = dataclasses.replace(bcfg, model=dataclasses.replace(bcfg.model, n_layers=layers))
+    kt, kv, ke = threefry.split(threefry.prng_key(seed, "cuda"), 3)
+    params = maybe_quantize_tree(cast_floating(sana.init_sana(bcfg.model, kt), torch.bfloat16), base_quant)
+    vae = maybe_quantize_tree(cast_floating(dcae.init_decoder(bcfg.vae, kv), torch.bfloat16), base_quant)
+    prompts = list(BENCH_PROMPT_SET)
+    backend = SanaBackend(bcfg, "cuda", params=params, vae_params=vae, prompts=prompts)
+    del params, vae
+    backend.set_prompt_embeds(threefry.normal(ke, (len(prompts), bcfg.prompt_embed_len, bcfg.model.caption_dim)))
+    backend.setup()
+    return backend
+
+
+def phase_pipeline_es(torch, suite, es):
+    """The flagship ES rung (``RUNG_PLAN``/``RUNG_OPT["flagship"]``) with its
+    DiT cut to ``FLAGSHIP_CUT_LAYERS`` of 20 blocks (:func:`cut_flagship_backend`;
+    the flagship's reward suite ``suite``) in ``pipeline`` mode (``PIPELINE_STEPS`` DiT
+    passes an image: ``SanaBackend.with_mode``) under ``run_training`` as a
+    CUDA graph: 3 epochs, the first warm (its warm-up and capture). Counted
+    launches: the derived counts × the one eager epoch (K3
+    ``PIPELINE_STEPS`` × (8 a block + 4) an image); then one profiled
     replayed epoch, whose K1-K4 on the device must be the derived counts.
     Reward rows ``[4, 4]`` finite, ‖Δθ‖ > 0. Prints the replayed epochs'
     s and images/s, busy ms and idle share, peak memory (peak allocated +
-    the graph's pool) beside the one-step epoch of ``es``."""
+    the graph's pool) beside the one-step epoch of ``es`` (20 blocks)."""
     import shutil
 
     from hyperscalees_t2i_tpu_torch.es.sampling import epoch_key
@@ -4342,7 +4497,9 @@ def phase_pipeline_es(torch, backend, suite, es):
 
     _, pop, m, mb = RUNG_PLAN["flagship"]
     opt = rung_opt("flagship")
-    pipe = backend.with_mode("pipeline", PIPELINE_STEPS)
+    t0 = time.perf_counter()
+    pipe = cut_flagship_backend(torch, FLAGSHIP_CUT_LAYERS, opt["base_quant"]).with_mode("pipeline", PIPELINE_STEPS)
+    build_s = time.perf_counter() - t0
     root = ROOT / "build" / "train_pipeline"
     shutil.rmtree(root, ignore_errors=True)
     tc = TrainConfig(num_epochs=3, pop_size=pop, sigma=0.01, egg_rank=4, prompts_per_gen=m, batches_per_gen=1,
@@ -4350,8 +4507,10 @@ def phase_pipeline_es(torch, backend, suite, es):
                      tower_dtype=opt["tower_dtype"], pop_fuse=opt["pop_fuse"], base_quant=opt["base_quant"],
                      quality=False, save_every=0, resume=False, run_dir=str(root), run_name="pipeline")
     expected1, per = expected_es_launches(pipe, suite, tc, m)
-    if (per["k3_per_call"], per["calls"]) != (PIPELINE_STEPS * 164, pop * m):
-        raise AssertionError(f"the flagship pipeline plan is not K3 {PIPELINE_STEPS} x 164 per image: {per}")
+    k3_image = PIPELINE_STEPS * (8 * FLAGSHIP_CUT_LAYERS + 4)
+    if (per["k3_per_call"], per["calls"]) != (k3_image, pop * m):
+        raise AssertionError(f"the flagship pipeline plan at {FLAGSHIP_CUT_LAYERS} blocks is not K3 {k3_image} per "
+                             f"image: {per}")
     reward = RecordingReward(suite, per["calls"])
     steps = []
     real, trainer.make_es_step = _recording_make(trainer, steps)
@@ -4383,17 +4542,19 @@ def phase_pipeline_es(torch, backend, suite, es):
                  launches_counted=launches, eager_epochs=eager_epochs, launches_profiled=prof["launches"],
                  expected_launches_per_epoch=expected1, per_call=per, graph=graph, peak_mem_gib=memory_gib,
                  peak_allocated_gib=peak_allocated / 2**30, reward_rows=rows.cpu().tolist(), delta_norm=delta_norms,
-                 wall_s=wall_s, dit_passes=PIPELINE_STEPS)
-    log(f"[pipeline-es] flagship ES epoch, pipeline mode ({PIPELINE_STEPS} DiT passes), run_training as a graph: "
+                 wall_s=wall_s, dit_passes=PIPELINE_STEPS, layers=FLAGSHIP_CUT_LAYERS, build_s=build_s)
+    log(f"[pipeline-es] flagship ES epoch at {FLAGSHIP_CUT_LAYERS} of 20 blocks (built in {build_s:.1f} s), pipeline mode "
+        f"({PIPELINE_STEPS} DiT passes), run_training as a graph: "
         f"epochs {', '.join(f'{s:.3f}' for s in epoch_s)} s ({', '.join(f'{x:.3f}' for x in stats['images_per_s'])} "
         f"images/s; first {history[0]['step_time_s']:.3f} s incl. capture {graph['capture_s']:.3f} s) against the "
-        f"one-step epoch {', '.join(f'{s:.3f}' for s in es['epoch_s'])} s in this call; profiled replay busy "
+        f"one-step epoch at 20 blocks {', '.join(f'{s:.3f}' for s in es['epoch_s'])} s in this call; profiled replay busy "
         f"{prof['busy_ms']:.1f} ms over {prof['kernels']} kernels, idle share {prof['idle_share']:.4f}; memory "
         f"{memory_gib:.2f} GiB (peak allocated {peak_allocated / 2**30:.2f} + pool {graph['pool_bytes'] / 2**30:.2f}); "
         f"launches counted {launches} over {eager_epochs} eager epoch, on the device {prof['launches']} "
         f"(K3 {per['k3_per_call']}, K1 {per['k1_per_call']} an image); rows {tuple(rows.shape)}, delta_norm "
         f"{delta_norms}")
     del steps, state, reward, pipe
+    gc.collect()
     torch.cuda.empty_cache()
     return stats
 
@@ -5133,19 +5294,56 @@ PREFLIGHT_PEAK_TOL = 0.15  # preflight's flagship peak against phase_es_flagship
 PREFLIGHT_MFUS = (0.10, 0.25)  # the predicted step times logged beside the measured epoch
 
 
-def _preflight_child(out_dir, *argv_lists):
-    """A fresh process (its own CUDA context) running ``tools.preflight.main``
-    once per argument list; exits with the largest exit code. Its output goes
-    to ``out_dir/log.txt``."""
+def _preflight_child(out_dir, go, *argv_lists):
+    """A fresh process (its own CUDA context) that does its host start (the
+    imports, the first tokenizer lookup, which imports ``transformers``),
+    waits for the file ``go`` to say ``go`` (:func:`_wait_word`), then runs
+    ``tools.preflight.main`` once per argument list; exits with the largest
+    exit code. Its output goes to ``out_dir/log.txt``."""
     out_dir.mkdir(parents=True, exist_ok=True)
-    code = ("import sys; from hyperscalees_t2i_tpu_torch.tools import preflight; "
+    code = (child_prelude() + "from pathlib import Path; from hyperscalees_t2i_tpu_torch.tools import preflight; "
+            "from hyperscalees_t2i_tpu_torch.rewards.suite import tokenize_with_hf; tokenize_with_hf(['a photo']); "
+            f"chip_smoke._wait_word(Path({str(go)!r}), 'to start'); "
             f"sys.exit(max(preflight.main(a) for a in {[list(a) for a in argv_lists]!r}))")
     log_file = open(out_dir / "log.txt", "w")
     proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT)
     return proc, log_file
 
 
-def phase_run_tools(torch, backend, suite, es):
+def start_preflight_children():
+    """:func:`phase_run_tools`' two preflight children, started early: they
+    do their host start while the trainer phases have the card and wait on
+    ``build/run_tools/go``. One runs ``--rungs tiny,flagship`` under a
+    ``RUN_TOOLS_HBM_GB`` GB budget, the other ``--serve flagship:2`` and
+    ``--fleet tiny:2``."""
+    import shutil
+
+    root = ROOT / "build" / "run_tools"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    go = root / "go"
+    nofit = _preflight_child(root / "preflight_rungs", go, ["--rungs", "tiny,flagship", "--hbm-gb",
+                                                            str(RUN_TOOLS_HBM_GB), "--out", str(root / "preflight_rungs")])
+    modes = _preflight_child(root / "preflight_modes", go,
+                             ["--serve", "flagship:2", "--out", str(root / "preflight_modes")],
+                             ["--fleet", "tiny:2", "--out", str(root / "preflight_modes")])
+    return {"root": root, "nofit": nofit, "modes": modes}
+
+
+def stop_preflight_children(children):
+    """Tell the preflight children to leave without touching the card, and
+    wait for them."""
+    _tell(children["root"], "stop")
+    for proc, log_file in (children["nofit"], children["modes"]):
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log_file.close()
+
+
+def phase_run_tools(torch, backend, suite, es, children):
     """The run tools of the port over the run dirs the trainer phases wrote,
     and preflight on the card:
 
@@ -5160,8 +5358,9 @@ def phase_run_tools(torch, backend, suite, es):
       then the checked run dir resumed for one epoch with the exporter on,
       whose ``/healthz`` must carry ``sentry_verdict`` (K1 and K3 counted
       over that epoch's warm-up as derived).
-    - ``tools.preflight`` in two child processes started first, each a fresh
-      CUDA context: ``--rungs tiny,flagship --hbm-gb RUN_TOOLS_HBM_GB`` exits
+    - ``tools.preflight`` in the two child processes of
+      :func:`start_preflight_children` (``children``), told to start first,
+      each a fresh CUDA context: ``--rungs tiny,flagship --hbm-gb RUN_TOOLS_HBM_GB`` exits
       1 naming the flagship as a no-fit, its flagship record's peak within
       ``PREFLIGHT_PEAK_TOL`` of ``es``'s measured memory (less what earlier
       phases of this process held when it began: the child starts empty) and its warm-up's
@@ -5184,14 +5383,9 @@ def phase_run_tools(torch, backend, suite, es):
     from hyperscalees_t2i_tpu_torch.utils.jsonl import read_jsonl_rows
     from hyperscalees_t2i_tpu_torch.utils.mfu import device_hbm_bandwidth, device_peak_flops
 
-    root = ROOT / "build" / "run_tools"
-    shutil.rmtree(root, ignore_errors=True)
-    root.mkdir(parents=True)
+    root, nofit, modes = children["root"], children["nofit"], children["modes"]
     t_children = time.perf_counter()
-    nofit = _preflight_child(root / "preflight_rungs", ["--rungs", "tiny,flagship", "--hbm-gb", str(RUN_TOOLS_HBM_GB),
-                                                        "--out", str(root / "preflight_rungs")])
-    modes = _preflight_child(root / "preflight_modes", ["--serve", "flagship:2", "--out", str(root / "preflight_modes")],
-                             ["--fleet", "tiny:2", "--out", str(root / "preflight_modes")])
+    _tell(root, "go")
     out = {}
     try:
         # trace_report: the flagship trainer's traced run
@@ -5440,8 +5634,9 @@ def phase_evaluate(torch, backend, suite):
     tiny = ["--backend", "sana_one_step", "--model_scale", "tiny", "--prompts_txt", str(root / "prompts.txt"),
             "--lora_r", "2", "--lora_alpha", "4", "--batch_size", "4"]
     child_log = open(root / "child.txt", "w")
-    child = subprocess.Popen([sys.executable, "-m", "hyperscalees_t2i_tpu_torch.evaluate.run_benchmark", *tiny,
-                              "--out_dir", str(root / "child")], cwd=ROOT, stdout=child_log, stderr=subprocess.STDOUT)
+    code = (child_prelude() + "from hyperscalees_t2i_tpu_torch.evaluate import run_benchmark; "
+            f"run_benchmark.main({tiny + ['--out_dir', str(root / 'child')]!r})")
+    child = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=child_log, stderr=subprocess.STDOUT)
     out, counted = {}, {}
     nothing = {"int8_matmul": 0, "lora_chain": 0, "fused_qlora": 0, "decode_attention": 0}
     quiet = lambda msg: None  # noqa: E731
@@ -5727,43 +5922,119 @@ def _mid_keys(p, c, attn: bool):
         _res_keys(p + "block_2.", c, c)
 
 
-def released_vqvae_keys(vq):
-    """``[(name, torch shape)]`` of ``vae_ch160v4096z32.pth`` at an
-    ``MSVQConfig``'s geometry: the codebook and its EMA buffer, the φ convs,
-    ``quant_conv`` and ``post_quant_conv``, the CompVis encoder (which the
-    converters ignore) and decoder."""
-    z, ch, mult, nrb, n = vq.c_vae, vq.ch, tuple(vq.ch_mult), vq.num_res_blocks, len(vq.ch_mult)
-    keys = [("quantize.embedding.weight", (vq.vocab_size, z)),
-            ("quantize.ema_vocab_hit_SV", (len(vq.patch_nums), vq.vocab_size))]
-    for k in range(vq.phi_partial):
-        keys += _conv_keys(f"quantize.quant_resi.qresi_ls.{k}", z, z, 3)
-    keys += _conv_keys("quant_conv", z, z, 3) + _conv_keys("post_quant_conv", z, z, 3)
-    keys += _conv_keys("encoder.conv_in", ch, 3, 3)
+def _compvis_keys(z, ch, mult, nrb, using_sa: bool, using_mid_sa: bool):
+    """The CompVis encoder's and decoder's ``[(name, torch shape)]`` for a
+    ``z``-channel latent: ``nrb`` blocks a down level, ``nrb + 1`` an up
+    level, attention at the deepest level where ``using_sa``."""
+    n = len(mult)
+    keys = _conv_keys("encoder.conv_in", ch, 3, 3)
     block_in = ch
     for i in range(n):
         block_in, block_out = ch * ((1,) + mult)[i], ch * mult[i]
         for j in range(nrb):
             keys += _res_keys(f"encoder.down.{i}.block.{j}.", block_in, block_out)
             block_in = block_out
-            if i == n - 1 and vq.using_sa:
+            if i == n - 1 and using_sa:
                 keys += _attn_keys(f"encoder.down.{i}.attn.{j}.", block_in)
         if i != n - 1:
             keys += _conv_keys(f"encoder.down.{i}.downsample.conv", block_in, block_in, 3)
-    keys += _mid_keys("encoder.mid.", block_in, vq.using_mid_sa)
+    keys += _mid_keys("encoder.mid.", block_in, using_mid_sa)
     keys += [("encoder.norm_out.weight", (block_in,)), ("encoder.norm_out.bias", (block_in,)),
              *_conv_keys("encoder.conv_out", z, block_in, 3)]
     block_in = ch * mult[-1]
-    keys += _conv_keys("decoder.conv_in", block_in, z, 3) + _mid_keys("decoder.mid.", block_in, vq.using_mid_sa)
+    keys += _conv_keys("decoder.conv_in", block_in, z, 3) + _mid_keys("decoder.mid.", block_in, using_mid_sa)
     for i in reversed(range(n)):
         for j in range(nrb + 1):
             keys += _res_keys(f"decoder.up.{i}.block.{j}.", block_in, ch * mult[i])
             block_in = ch * mult[i]
-            if i == n - 1 and vq.using_sa:
+            if i == n - 1 and using_sa:
                 keys += _attn_keys(f"decoder.up.{i}.attn.{j}.", block_in)
         if i != 0:
             keys += _conv_keys(f"decoder.up.{i}.upsample.conv", block_in, block_in, 3)
     return keys + [("decoder.norm_out.weight", (block_in,)), ("decoder.norm_out.bias", (block_in,)),
                    *_conv_keys("decoder.conv_out", 3, block_in, 3)]
+
+
+def released_vqvae_keys(vq):
+    """``[(name, torch shape)]`` of ``vae_ch160v4096z32.pth`` at an
+    ``MSVQConfig``'s geometry: the codebook and its EMA buffer, the φ convs,
+    ``quant_conv`` and ``post_quant_conv``, the CompVis encoder (which the
+    converters ignore) and decoder."""
+    z = vq.c_vae
+    keys = [("quantize.embedding.weight", (vq.vocab_size, z)),
+            ("quantize.ema_vocab_hit_SV", (len(vq.patch_nums), vq.vocab_size))]
+    for k in range(vq.phi_partial):
+        keys += _conv_keys(f"quantize.quant_resi.qresi_ls.{k}", z, z, 3)
+    keys += _conv_keys("quant_conv", z, z, 3) + _conv_keys("post_quant_conv", z, z, 3)
+    return keys + _compvis_keys(z, vq.ch, tuple(vq.ch_mult), vq.num_res_blocks, vq.using_sa, vq.using_mid_sa)
+
+
+# the released Infinity transformer's scale table (lvl_embed) is longer than
+# the 1M schedule's 14 scales: the converter keeps the schedule's first rows
+RELEASED_INF_LEVELS = 15
+# the released T5 null sequence (cfg_uncond) is a full text length of rows;
+# the converter folds their mean into one null token
+RELEASED_INF_TEXT_LEN = 512
+
+
+def released_infinity_keys(cfg, shared_aln: bool = True):
+    """``[(name, torch shape)]`` of an Infinity transformer ``.pth`` at an
+    ``InfinityConfig``'s geometry, every tensor that ``weights/infinity.py``'s
+    table reads: the bit-label embedding, the scale table
+    (``RELEASED_INF_LEVELS`` rows), ``pos_start``, both text projections and
+    the null text sequence; per block the fused qkv with its q/v biases and
+    the zero-k buffer, the QK-l2 scales of self-attention (and of
+    cross-attention where ``cross_attn_l2_norm``: ``infer_infinity_config``
+    reads the heads off their ``(1, H, 1, 1)`` shape), the projections, the
+    cross-attention's q and kv, the FFN, and the AdaLN: with
+    ``shared_aln`` (the released Infinity-2B's, ≈ 2.2 B values at its
+    geometry) one ``shared_ada_lin.1`` and a ``ada_gss`` table a block, else
+    an ``ada_lin.1`` linear a block; the head's AdaLN and the head; and the
+    registered buffers ``lvl_1L`` and ``attn_bias_for_masking`` (which the
+    converter ignores by name)."""
+    C, L, H, D = cfg.d_model, cfg.seq_len, cfg.n_heads, cfg.depth
+    hid, bits, T = int(round(C * cfg.ff_ratio)), cfg.vq.bits, cfg.text_dim
+    keys = [("word_embed.weight", (C, bits)), ("word_embed.bias", (C,)),
+            ("lvl_embed.weight", (max(RELEASED_INF_LEVELS, len(cfg.patch_nums)), C)), ("pos_start", (1, 1, C)),
+            ("text_proj_for_ca.weight", (C, T)), ("text_proj_for_ca.bias", (C,)),
+            ("text_proj_for_sos.weight", (C, C)), ("text_proj_for_sos.bias", (C,)),
+            ("cfg_uncond", (RELEASED_INF_TEXT_LEN, T)), ("lvl_1L", (1, L)), ("attn_bias_for_masking", (1, 1, L, L))]
+    if shared_aln:
+        keys += [("shared_ada_lin.1.weight", (6 * C, C)), ("shared_ada_lin.1.bias", (6 * C,))]
+    for i in range(D):
+        b = f"blocks.{i}."
+        keys += [(b + "sa.mat_qkv.weight", (3 * C, C)), (b + "sa.q_bias", (C,)), (b + "sa.v_bias", (C,)),
+                 (b + "sa.zero_k_bias", (C,)), (b + "sa.proj.weight", (C, C)), (b + "sa.proj.bias", (C,))]
+        if cfg.attn_l2_norm:
+            keys.append((b + "sa.scale_mul_1H11", (1, H, 1, 1)))
+        keys += [(b + "ca.mat_q.weight", (C, C)), (b + "ca.mat_q.bias", (C,)), (b + "ca.mat_kv.weight", (2 * C, C)),
+                 (b + "ca.mat_kv.bias", (2 * C,)), (b + "ca.proj.weight", (C, C)), (b + "ca.proj.bias", (C,))]
+        if cfg.cross_attn_l2_norm:
+            keys.append((b + "ca.scale_mul_1H11", (1, H, 1, 1)))
+        keys += [(b + "ffn.fc1.weight", (hid, C)), (b + "ffn.fc1.bias", (hid,)), (b + "ffn.fc2.weight", (C, hid)),
+                 (b + "ffn.fc2.bias", (C,))]
+        keys += [(b + "ada_gss", (1, 1, 6, C))] if shared_aln else \
+            [(b + "ada_lin.1.weight", (6 * C, C)), (b + "ada_lin.1.bias", (6 * C,))]
+    return keys + [("head_nm.ada_lin.1.weight", (2 * C, C)), ("head_nm.ada_lin.1.bias", (2 * C,)),
+                   ("head.weight", (2 * bits, C)), ("head.bias", (2 * bits,))]
+
+
+def released_bsq_keys(vq):
+    """``[(name, torch shape)]`` of a BSQ tokenizer ``.pth`` at a
+    ``BSQConfig``'s geometry: its ``phi_partial`` φ convs
+    (``quantize.quant_resi.qresi_ls.*``), ``quant_conv`` and
+    ``post_quant_conv``, and a CompVis encoder (which the converter ignores)
+    and decoder at the config's decoder widths: ``ch`` the shallowest of
+    ``dec_ch``, one level per width, ``dec_blocks`` + 1 blocks an up level,
+    mid attention, so the decoder upsamples the grid as the native one does
+    (the released tokenizer's own widths are not in this repository)."""
+    z, ch = vq.bits, vq.dec_ch[-1]
+    mult = tuple(c // ch for c in reversed(vq.dec_ch))
+    keys = []
+    for k in range(vq.phi_partial):
+        keys += _conv_keys(f"quantize.quant_resi.qresi_ls.{k}", z, z, 3)
+    keys += _conv_keys("quant_conv", z, z, 3) + _conv_keys("post_quant_conv", z, z, 3)
+    return keys + _compvis_keys(z, ch, mult, vq.dec_blocks, False, True)
 
 
 def released_sana_keys(cfg):
@@ -5855,6 +6126,18 @@ def write_released_safetensors(path, keys, seed: int) -> int:
                             metadata={"format": "pt"})
 
 
+def write_released_pth(path, keys, seed: int) -> int:
+    """``keys`` as a bf16 torch pickle (the released dtype of a ``.pth``),
+    each tensor made from :class:`ReleasedValues` and rounded to bf16 as it
+    is added, so the host holds the f32 values of one tensor at a time;
+    returns the file's bytes."""
+    import torch
+
+    values = ReleasedValues(seed)
+    torch.save({name: torch.from_numpy(values(name, shape)).to(torch.bfloat16) for name, shape in keys}, path)
+    return Path(path).stat().st_size
+
+
 class HostPeak:
     """The process's peak resident set over a block, the largest ``VmRSS``
     a 20 ms sampler thread saw (``gib`` after the block), beside its
@@ -5902,21 +6185,25 @@ def expected_var_launches(backend, reward, tc, batch: int):
             {"k1_per_call": 0, "k2_per_call": 0, "k3_per_call": 0, "k4_per_call": k4, "calls": calls})
 
 
-def _cli_graph_run(torch, argv, what: str, expected):
+def _cli_graph_run(torch, argv, what: str, expected, against_eager: bool = True):
     """The train CLI's ``main(argv)`` on the card, its ``run_training``
     taken by :func:`_graph_run` (a CUDA graph, its warm-up counted, a
-    profiled replayed epoch, one epoch against eager, bitwise). Times each
-    stage of the checkpoint's way in: ``read_s`` (``weights.io.
-    load_state_dict``), ``convert_s`` (the converters), ``to_device_s``
+    profiled replayed epoch, and with ``against_eager`` one epoch against
+    eager, bitwise). Times each stage of the checkpoint's way in:
+    ``read_s`` (``weights.io.load_state_dict``, a tokenizer read inside the
+    backend's ``setup`` included), ``convert_s`` (the converters), ``to_device_s``
     (``tree_from_numpy``), ``rewards_s`` (``build_reward_fn``: the towers,
     their text tables, the tokenizer), ``build_s`` (the rest from
     ``build_backend`` to the loop: quantization, the random decoder, the
     modules), with the host's peak resident set over the CLI's run and the
     device's peak allocation over it (``device_peak_gib``; the graph's
-    pool apart, in ``memory``). Returns ``(numbers, backend, reward)``: the CLI's backend
-    and reward suite, still built."""
+    pool apart, in ``memory``) and up to the loop (``build_peak_gib``: the
+    converted tree's transient), and whether the run's θ is finite. Returns
+    ``(numbers, backend, reward)``: the CLI's backend and reward suite,
+    still built."""
     from hyperscalees_t2i_tpu_torch.train import cli, trainer
-    from hyperscalees_t2i_tpu_torch.weights import from_jax, io as wio, sana as wsana, var as wvar
+    from hyperscalees_t2i_tpu_torch.utils.pytree import tree_leaves
+    from hyperscalees_t2i_tpu_torch.weights import from_jax, infinity as winf, io as wio, sana as wsana, var as wvar
 
     stages = {"read_s": 0.0, "convert_s": 0.0, "to_device_s": 0.0, "rewards_s": 0.0}
     rec = {}
@@ -5932,6 +6219,7 @@ def _cli_graph_run(torch, argv, what: str, expected):
 
     patched = [(wio, "load_state_dict", "read_s"), (wvar, "convert_var_transformer", "convert_s"),
                (wvar, "convert_vqvae", "convert_s"), (wsana, "convert_sana_transformer", "convert_s"),
+               (winf, "convert_infinity_transformer", "convert_s"), (winf, "convert_bsq_vae", "convert_s"),
                (from_jax, "tree_from_numpy", "to_device_s"), (cli, "build_reward_fn", "rewards_s")]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
     real_build, real_run = cli.build_backend, trainer.run_training
@@ -5946,8 +6234,9 @@ def _cli_graph_run(torch, argv, what: str, expected):
         rec["t_run"] = time.perf_counter()
         rec["build_peak"] = torch.cuda.max_memory_allocated()
         state, rec["stats"] = _graph_run(torch, backend, reward, tc, torch.cuda.memory_allocated(), what,
-                                         against_eager=True, bitwise=True, expected=expected)
+                                         against_eager=against_eager, bitwise=True, expected=expected)
         rec["reward"] = reward
+        rec["theta_finite"] = all(bool(torch.isfinite(t).all()) for t in tree_leaves(state.theta))
         return state
 
     torch.cuda.empty_cache()
@@ -5970,7 +6259,8 @@ def _cli_graph_run(torch, argv, what: str, expected):
     mem = stats["memory"]
     device_peak = max(rec["build_peak"] / 2**30, mem["run_peak_allocated_gib"], mem["peak_allocated_gib"])
     numbers = dict(stages=stages, host_peak_rss_gib=host.gib, host_rss_start_gib=host.start_gib,
-                   device_peak_gib=device_peak, **stats)
+                   device_peak_gib=device_peak, build_peak_gib=rec["build_peak"] / 2**30,
+                   theta_finite=rec["theta_finite"], **stats)
     return numbers, rec["backend"], rec["reward"]
 
 
@@ -6147,9 +6437,116 @@ def phase_weights_sana(torch):
                 validate_s=validate_s, **run)
 
 
+def _mem_total_gib() -> float:
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemTotal:"):
+            return int(line.split()[1]) * 1024 / 2**30
+    return float("nan")
+
+
+def phase_weights_infinity(torch):
+    """Infinity-2B at its full width and depth trained from a ``.pth`` pair
+    in the released layout: the transformer (:func:`released_infinity_keys`
+    at the ``inf_2b`` rung's ``InfinityConfig``, 32 blocks, QK-l2 scales of
+    both attentions, ≈ 2.0 B values) and the BSQ tokenizer
+    (:func:`released_bsq_keys`: φ convs, a CompVis decoder and an encoder
+    the converter ignores), each written as a bf16 torch pickle
+    (:func:`write_released_pth`) into a temporary directory deleted
+    afterwards. The train CLI's ``main`` with ``--backend infinity
+    --infinity_variant 2b --pn 1M --weights --vae_weights --base_quant int8
+    --pop_fuse true`` at the ``inf_2b`` plan (pop 4, 4 prompts of
+    ``BENCH_PROMPT_SET``, member_batch 1, the rung's tower dtype; the CLI's
+    random CLIP-B/32 tower alone, PickScore dropped): one run_training
+    epoch, the warm-up and capture, then :func:`_cli_graph_run`'s profiled
+    replayed epoch (K3 6 × 14 × 32 + 32 = 2,720, K4 896 and K1 as the
+    module tree gives them a generate call, counted at the warm-up and on
+    the device; no eager epoch: ``phase_inf_q8_es`` holds this program's
+    graph against eager). Checks: the inferred ``InfinityConfig`` is the
+    rung's field by field; the converters consumed every tensor of both
+    files but the ignored buffers and encoder (they are strict); θ and the
+    reward rows finite. Logs the files' sizes, each stage's seconds, the
+    host's peak RSS beside its start and ``MemTotal``, the device's peak
+    over the build (the f32 tree beside its bf16 cast and int8) and the
+    memory as weights + KV workspace + pool."""
+    import shutil
+
+    from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, RUNG_PLAN, infinity_rung_model, rung_opt
+
+    scale, pop, m, mb = RUNG_PLAN["inf_2b"]
+    opt = rung_opt("inf_2b")
+    model = infinity_rung_model(scale)["bcfg"].model
+    keys, vkeys = released_infinity_keys(model), released_bsq_keys(model.vq)
+    names = {"transformer": "infinity_2b_reg.pth", "tokenizer": "infinity_vae_d32reg.pth"}
+    ignored = sum(1 for k, _ in keys if k.split(".")[-1] in RELEASED_BUFFERS) + \
+        sum(1 for k, _ in vkeys if k.startswith(("encoder.", "quant_conv.")))
+    values = sum(math.prod(s) for _, s in keys)
+    gc.collect()  # the previous phase's step closures hold its backend in cycles
+    torch.cuda.empty_cache()
+    mem_total = _mem_total_gib()
+    tmp = _checkpoint_dir()
+    try:
+        t0 = time.perf_counter()
+        sizes = {"transformer": write_released_pth(tmp / names["transformer"], keys, seed=24),
+                 "tokenizer": write_released_pth(tmp / names["tokenizer"], vkeys, seed=25)}
+        write_s = time.perf_counter() - t0
+        (tmp / "prompts.txt").write_text("\n".join(BENCH_PROMPT_SET) + "\n")
+        argv = ["--backend", "infinity", "--infinity_variant", scale, "--pn", "1M",
+                "--weights", str(tmp / names["transformer"]), "--vae_weights", str(tmp / names["tokenizer"]),
+                "--base_quant", "int8", "--pop_fuse", "true", "--prompts_txt", str(tmp / "prompts.txt"),
+                "--pop_size", str(pop), "--prompts_per_gen", str(m), "--member_batch", str(mb), "--num_epochs", "1",
+                "--tower_dtype", opt["tower_dtype"], "--allow_random_rewards", "true", "--run_dir", str(tmp),
+                "--run_name", "inf_2b_ckpt", "--resume", "false"]
+        log(f"[weights-inf] {len(keys)} + {len(vkeys)} tensors written in {write_s:.2f} s ({values} transformer "
+            f"values); host MemTotal {mem_total:.2f} GiB before the read")
+        run, backend, reward = _cli_graph_run(torch, argv, "weights_inf_2b", expected_inf_launches,
+                                              against_eager=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = backend.cfg.model
+    if got != model:
+        diff = {f: (getattr(got, f), getattr(model, f)) for f in model.__dataclass_fields__
+                if getattr(got, f) != getattr(model, f)}
+        raise AssertionError(f"infer_infinity_config + --infinity_variant 2b --pn 1M gave {diff} against the inf_2b "
+                             f"rung's InfinityConfig")
+    if reward.pick_model is not None:
+        raise AssertionError("the CLI's reward has a PickScore tower: the phase expects CLIP-B/32 alone")
+    per = run["per_call"]
+    if (per["k2_per_call"], per["k3_per_call"], per["k4_per_call"]) != (0, 2720, 896) or not per["k1_per_call"]:
+        raise AssertionError(f"Infinity-2B from the checkpoint launched {per} a call, not K3 2720, K4 896 and K1")
+    if not (run["theta_finite"] and all(math.isfinite(x) for x in run["theta_norm"] + run["delta_norm"])):
+        raise AssertionError(f"Infinity-2B from the checkpoint: θ norms {run['theta_norm']}, ‖Δθ‖ {run['delta_norm']}")
+    st, mem = run["stages"], run["memory"]
+    startup_s = sum(st[k] for k in ("read_s", "convert_s", "to_device_s", "rewards_s", "build_s"))
+    log(f"[weights-inf] Infinity-2B ({model.depth} blocks, d {model.d_model}, {len(model.patch_nums)} scales to "
+        f"{model.vq.grid}², {model.vq.bits}-bit BSQ): {names['transformer']} {sizes['transformer'] / 2**30:.3f} GiB + "
+        f"{names['tokenizer']} {sizes['tokenizer'] / 2**30:.3f} GiB bf16 ({ignored} buffers and encoder tensors "
+        f"the converters ignore): write {write_s:.2f} s, read {st['read_s']:.2f} s (bf16 → f32), convert "
+        f"{st['convert_s']:.2f} s, to the card {st['to_device_s']:.2f} s, rewards {st['rewards_s']:.2f} s, build "
+        f"{st['build_s']:.2f} s (bf16 cast, int8), start-up {startup_s:.2f} s; warm-up + capture "
+        f"{st['capture_s']:.2f} s, replayed epoch {', '.join(f'{t:.3f}' for t in st['epoch_s'])} s, busy "
+        f"{run['profile']['busy_ms']:.1f} ms, idle share {run['profile']['idle_share']:.4f}; K3 "
+        f"{run['profile']['in_situ_ms']['fused_qlora'] / per['calls']:.1f} ms and K4 "
+        f"{run['profile']['in_situ_ms']['decode_attention'] / per['calls']:.1f} ms in situ a call; memory weights "
+        f"{mem['weights_gib']:.2f} + KV workspace {mem['workspace_gib']:.2f} + pool {mem['pool_gib']:.2f} GiB "
+        f"(peak allocated + pool {mem['total_gib']:.2f}); device peak over the build {run['build_peak_gib']:.2f} "
+        f"GiB; host peak RSS {run['host_peak_rss_gib']:.2f} GiB (from {run['host_rss_start_gib']:.2f} at the start, "
+        f"MemTotal {mem_total:.2f}); a call K3 {per['k3_per_call']}, K4 {per['k4_per_call']}, K1 "
+        f"{per['k1_per_call']}; InfinityConfig = the rung's")
+    stats = dict(files_bytes=sizes, tensors=len(keys) + len(vkeys), transformer_values=values, write_s=write_s,
+                 ignored_tensors=ignored, mem_total_gib=mem_total, startup_s=startup_s, **run)
+    del backend, reward
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
 MULTIPROC_N = 2  # processes of the multi-process phase, all on the one card
 MULTIPROC_EPOCHS = 2  # run_training epochs: the first warms up and captures, the second replays
 MULTIPROC_TOL = 3e-4  # θ′ of the two-process run against the one-process run
+# the transformer blocks, of Sana-Sprint 1.6B's 20, of phase_multiproc_es's
+# runs and phase_pod_es's launch (whose rows are held against them): the
+# launch counts depend on depth only through the block count
+MULTIPROC_LAYERS = 4
 # the chaos launch (phase_chaos_es): its epochs, each fault's place, and the
 # store deadlines that make a death cost seconds (the compile grace still
 # covers the warm-up and capture epoch)
@@ -6370,8 +6767,7 @@ def _tell(root, word):
 
 
 def _child_code(root, go=None, train_go=None, layers=None):
-    return (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
-            f"chip_smoke.multiproc_child({str(root)!r}, {str(go) if go else None!r}, "
+    return (child_prelude() + f"chip_smoke.multiproc_child({str(root)!r}, {str(go) if go else None!r}, "
             f"{str(train_go) if train_go else None!r}, {layers!r})")
 
 
@@ -6380,10 +6776,49 @@ def _card():
                           capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def phase_multiproc_es(torch):
+def start_multiproc_launches():
+    """The launches of :func:`phase_multiproc_es` and :func:`phase_chaos_es`,
+    started on threads: their children do their host start (the imports,
+    the first ``transformers`` import) now, while earlier phases have the
+    card, and wait on their ``go`` files. The first is
+    :func:`_multiproc_argv`'s command line as ``MULTIPROC_N`` processes with
+    ``--pop_shard_update on``, a slot and a desync check every epoch; the
+    others are :func:`start_chaos_launches`'."""
+    import shutil
+
+    from hyperscalees_t2i_tpu_torch.tools import launch_local
+
+    root = ROOT / "build" / "multiproc_es"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    argv = _multiproc_argv(root)
+    pod = {}
+
+    def launch():
+        pod["rc"] = launch_local.run_pod(MULTIPROC_N, argv + ["--run_name", "pod", "--pop_shard_update", "on",
+                                                              "--save_every", "1", "--desync_check_every", "1"],
+                                         timeout_s=400, entry=["-c", _child_code(root, layers=MULTIPROC_LAYERS)])
+        pod["end"] = time.perf_counter()
+
+    launcher = threading.Thread(target=launch)
+    launcher.start()
+    return {"root": root, "argv": argv, "pod": pod, "launcher": launcher, "chaos": start_chaos_launches(argv)}
+
+
+def stop_multiproc_launches(launches):
+    """Tell every child of :func:`start_multiproc_launches` to leave without
+    touching the card (a child that has its word already runs on)."""
+    _tell(launches["root"], "stop")
+    launches["launcher"].join()
+    stop_chaos_launches(launches["chaos"])
+
+
+def phase_multiproc_es(torch, launches):
     """Two processes train on the one card through ``tools.launch_local``
-    (``run_pod``), each with its own CUDA context on ``cuda:0`` and the
-    command line of :func:`_multiproc_argv` with ``--pop_shard_update on``,
+    (``run_pod``, started by :func:`start_multiproc_launches`), each with its
+    own CUDA context on ``cuda:0`` and the command line of
+    :func:`_multiproc_argv`, the transformer cut to ``MULTIPROC_LAYERS``
+    blocks, with ``--pop_shard_update on``,
     ``--save_every 1`` and ``--desync_check_every 1``: each evaluates its 2
     of the 4 members (K3 and K1), the reward rows cross through the launch's
     store, the update is split over the two processes (``update_partial``,
@@ -6392,10 +6827,9 @@ def phase_multiproc_es(torch):
     boundary's slot goes through the two-phase commit and θ's fingerprint
     through every epoch's gather. Three runs, one at a time on the card: the
     same command line as one process in this process (``--pop_shard_update
-    auto``: alone, the replicated update), while the launch's children start
-    on the host and wait for it; the launch; then one process again, its θ′
-    after the first epoch replaced by the launch's (the witness), while
-    :func:`start_chaos_launches`' children start on the host.
+    auto``: alone, the replicated update), while the launch's children wait
+    for it; the launch; then one process again, its θ′ after the first epoch
+    replaced by the launch's (the witness).
 
     Checks: each child exits 0 (a child that fails fails the phase); each
     child's counted K3 and K1 launches are exactly what its member slice
@@ -6414,44 +6848,24 @@ def phase_multiproc_es(torch):
     one-process run's (θ′, rows) measures what those last bits alone do.
     Prints each run's replayed epoch (its second row's ``step_time_s``; the
     launch's is the mean over its processes) with the card's name and power
-    limit. Returns its record and the chaos launches for
-    :func:`phase_chaos_es`."""
-    import shutil
-
+    limit (the launch's seconds from its word). Returns its record."""
     import numpy as np
 
-    from hyperscalees_t2i_tpu_torch.tools import launch_local
-
-    root = ROOT / "build" / "multiproc_es"
-    shutil.rmtree(root, ignore_errors=True)
-    root.mkdir(parents=True)
-    argv = _multiproc_argv(root)
+    root, argv, pod = launches["root"], launches["argv"], launches["pod"]
     smi = _card()
-    # the launch starts first; its children do their host start and wait on
-    # `go` while the one-process run has the card
-    pod = {}
-
-    def launch():
-        t = time.perf_counter()
-        pod["rc"] = launch_local.run_pod(MULTIPROC_N, argv + ["--run_name", "pod", "--pop_shard_update", "on",
-                                                              "--save_every", "1", "--desync_check_every", "1"],
-                                         timeout_s=400, entry=["-c", _child_code(root)])
-        pod["s"] = time.perf_counter() - t
-
-    launcher = threading.Thread(target=launch)
-    launcher.start()
     word = "stop"
     try:
         t0 = time.perf_counter()
-        one = multiproc_cli_run(argv + ["--run_name", "one", "--pop_shard_update", "auto"])
+        one = multiproc_cli_run(argv + ["--run_name", "one", "--pop_shard_update", "auto"], layers=MULTIPROC_LAYERS)
         one_s = time.perf_counter() - t0
         word = "go"
     finally:
+        pod["go"] = time.perf_counter()
         _tell(root, word)
-        launcher.join()
+        launches["launcher"].join()
     gc.collect()
     torch.cuda.empty_cache()
-    rc, pod_s = pod.get("rc"), pod.get("s", 0.0)
+    rc, pod_s = pod.get("rc"), pod.get("end", pod["go"]) - pod["go"]
     if rc != 0:
         raise AssertionError(f"the {MULTIPROC_N}-process launch exited {rc} (a child failed; its lines are above, "
                              "prefixed [p<i>])")
@@ -6495,14 +6909,8 @@ def phase_multiproc_es(torch):
     if theta_err[0] > MULTIPROC_TOL:
         raise AssertionError(f"two-process θ′ after epoch 0 is {theta_err[0]:.3g} from the one-process θ′ (bound "
                              f"{MULTIPROC_TOL})")
-    # the chaos launches' children start on the host now, and wait for the witness
-    chaos = start_chaos_launches(argv)
-    try:
-        return _multiproc_witness(torch, argv, smi, ranks, arrays, one, one_s, pod_s, theta_err, commit,
-                                  rows_apart, theta_apart), chaos
-    except BaseException:
-        stop_chaos_launches(chaos)
-        raise
+    return _multiproc_witness(torch, argv, smi, ranks, arrays, one, one_s, pod_s, theta_err, commit, rows_apart,
+                              theta_apart)
 
 
 def _multiproc_witness(torch, argv, smi, ranks, arrays, one, one_s, pod_s, theta_err, commit, rows_apart,
@@ -6515,7 +6923,7 @@ def _multiproc_witness(torch, argv, smi, ranks, arrays, one, one_s, pod_s, theta
     # replayed split update) is held against one process on the same input
     t0 = time.perf_counter()
     wit = multiproc_cli_run(argv + ["--run_name", "witness", "--pop_shard_update", "auto"],
-                            theta1=arrays[0]["theta0"])
+                            theta1=arrays[0]["theta0"], layers=MULTIPROC_LAYERS)
     wit_s = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
@@ -6536,7 +6944,8 @@ def _multiproc_witness(torch, argv, smi, ranks, arrays, one, one_s, pod_s, theta
               for e in range(1, MULTIPROC_EPOCHS)])
     pod_epoch = [rec["step_time_s"] for rec in ranks]
     pod_replayed = float(np.mean([t[-1] for t in pod_epoch]))
-    log(f"[multiproc] {smi}: {MULTIPROC_N} processes on one card (K3 {ranks[0]['launches']['fused_qlora']}, K1 "
+    log(f"[multiproc] {smi}: {MULTIPROC_N} processes on one card at {MULTIPROC_LAYERS} of Sana-Sprint 1.6B's 20 "
+        f"blocks (K3 {ranks[0]['launches']['fused_qlora']}, K1 "
         f"{ranks[0]['launches']['int8_matmul']} counted in each process's warm-up, as derived); θ′ after every "
         f"epoch bitwise equal on every rank; against one process: epoch-0 rows bitwise, θ′ after epoch 0 max abs "
         f"{theta_err[0]:.3g}, after the last {theta_err[-1]:.3g}; against the witness (one process from the "
@@ -6548,8 +6957,8 @@ def _multiproc_witness(torch, argv, smi, ranks, arrays, one, one_s, pod_s, theta
         f"every slot committed unanimously ({commit['commits']} a process, sha256s equal in ckpt/ and "
         f"ckpt.host1/), resilience/desync 0 with the check every epoch, commit {commit['save_s']} s a boundary "
         f"(the checkpoint span, process 0); runs {one_s:.1f} s alone, {pod_s:.1f} s "
-        f"launched, {wit_s:.1f} s the witness")
-    record = dict(card=smi, processes=MULTIPROC_N, launches=[rec["launches"] for rec in ranks],
+        f"launched (from its word), {wit_s:.1f} s the witness")
+    record = dict(card=smi, processes=MULTIPROC_N, layers=MULTIPROC_LAYERS, launches=[rec["launches"] for rec in ranks],
                   expected=[rec["expected"] for rec in ranks], one_launches=one["launches"], theta_err=theta_err,
                   witness_theta_err=wit_theta_err, last_bits_alone=alone, one_step_time_s=one["step_time_s"],
                   witness_step_time_s=wit["step_time_s"], pod_step_time_s=pod_epoch, one_run_s=one_s,
@@ -6808,7 +7217,8 @@ def start_pod_launches():
     threads: their children do their host start now and wait on their
     ``go`` files. The pod launch is one host of two processes
     (``launch_local`` ``devices_per_process=2``) on :func:`_multiproc_argv`'s
-    command line with ``--pop_shards 1`` (pop 1 × data 2), traced, a slot
+    command line at ``MULTIPROC_LAYERS`` blocks with ``--pop_shards 1`` (pop
+    1 × data 2), traced, a slot
     every epoch, its exporter lingering ``POD_LINGER_S``; the tp launch is
     two processes of :func:`tp_child`."""
     import shutil
@@ -6832,14 +7242,14 @@ def start_pod_launches():
 
     def pod():
         t = time.perf_counter()
-        out["pod_rc"] = launch_local.run_pod(1, pod_argv, timeout_s=900, entry=["-c", _child_code(root)],
+        out["pod_rc"] = launch_local.run_pod(1, pod_argv, timeout_s=900,
+                                             entry=["-c", _child_code(root, layers=MULTIPROC_LAYERS)],
                                              devices_per_process=2)
         out["pod_s"] = time.perf_counter() - t
 
     def tp():
         t = time.perf_counter()
-        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
-                f"chip_smoke.tp_child({str(tp_root)!r})")
+        code = child_prelude() + f"chip_smoke.tp_child({str(tp_root)!r})"
         out["tp_rc"] = launch_local.run_pod(TP_N, tp_argv, timeout_s=900, entry=["-c", code])
         out["tp_s"] = time.perf_counter() - t
 
@@ -6861,9 +7271,9 @@ def phase_pod_es(torch, pods):
     """The data axis over processes (``launch_local --num_processes 1
     --devices_per_process 2``: one host of two processes on the one card,
     ``--pop_shards 1`` → pop 1 × data 2) on :func:`_multiproc_argv`'s
-    command line: Sana-Sprint 1.6B's widths, int8, the flagship knobs and
-    plan (pop 4, 4 prompts, member_batch 1), 2 epochs, traced, a slot every
-    epoch. Each process evaluates all 4 members on its 2 of the 4 images
+    command line: Sana-Sprint 1.6B's widths at ``MULTIPROC_LAYERS`` of its 20
+    blocks, int8, the flagship knobs and plan (pop 4, 4 prompts,
+    member_batch 1), 2 epochs, traced, a slot every epoch. Each process evaluates all 4 members on its 2 of the 4 images
     (the global image positions' noise), and the rows are gathered over the
     data group (gloo, through the host), then across hosts through the
     store.
@@ -6960,8 +7370,8 @@ def phase_pod_es(torch, pods):
     spans = dict(build=ranks[0]["wall"]["built"] - wall["go"],
                  train=ranks[0]["wall"]["trained"] - ranks[0]["wall"]["train"],
                  end=wall["end"] - ranks[0]["wall"]["trained"])
-    log(f"[pod-es] {smi}: one host of two processes on the one card, pop 1 × data 2 (Sana-Sprint 1.6B's widths, "
-        f"int8, the flagship plan); K3 {ranks[0]['launches']['fused_qlora']}, K1 {ranks[0]['launches']['int8_matmul']} "
+    log(f"[pod-es] {smi}: one host of two processes on the one card, pop 1 × data 2 (Sana-Sprint 1.6B's widths "
+        f"at {MULTIPROC_LAYERS} of its 20 blocks, int8, the flagship plan); K3 {ranks[0]['launches']['fused_qlora']}, K1 {ranks[0]['launches']['int8_matmul']} "
         f"counted in each process (its 4 members × 2 images, as derived); θ′ bitwise on both ranks; the first "
         f"epoch's rows {'bitwise' if bitwise else f'within {gap:.3g} of'} the one-process run's; every slot committed "
         f"by both; epochs {epochs[0]} s (process 0), {epochs[1]} s (process 1); pod_summary.json {summary['n_hosts']} "
@@ -7184,18 +7594,24 @@ def main() -> int:
 
     warm = threading.Thread(target=tokenize_with_hf, args=(["a photo"],), daemon=True)
     warm.start()
-    build = timed("build", phase_build)
+    # the SASS dumps run beside the kernel checks
+    build = timed("build", phase_build, defer_sass=True)
     warm.join()
-    k1_rows = timed("k1_check", phase_k1_check, torch)
-    k1_invariant = timed("k1_invariance", phase_k1_invariance, torch)
-    chain_rows = timed("chain_check", phase_chain_check, torch)
-    k2_invariant = timed("k2_invariance", phase_k2_invariance, torch)
-    k3_invariant = timed("k3_invariance", phase_k3_invariance, torch)
-    k4_rows, k4_extra = timed("k4_check", phase_k4_check, torch)
-    k4_invariant = timed("k4_invariance", phase_k4_invariance, torch)
-    k4_inf_rows = timed("k4_infinity", phase_k4_infinity, torch)
-    inf_rows = timed("inf_kernel_check", phase_inf_kernel_check, torch)
-    zimage_rows = timed("zimage_kernel_check", phase_zimage_kernel_check, torch)
+    try:
+        k1_rows = timed("k1_check", phase_k1_check, torch)
+        k1_invariant = timed("k1_invariance", phase_k1_invariance, torch)
+        chain_rows = timed("chain_check", phase_chain_check, torch)
+        k2_invariant = timed("k2_invariance", phase_k2_invariance, torch)
+        k3_invariant = timed("k3_invariance", phase_k3_invariance, torch)
+        k4_rows, k4_extra = timed("k4_check", phase_k4_check, torch)
+        k4_invariant = timed("k4_invariance", phase_k4_invariance, torch)
+        k4_inf_rows = timed("k4_infinity", phase_k4_infinity, torch)
+        inf_rows = timed("inf_kernel_check", phase_inf_kernel_check, torch)
+        zimage_rows = timed("zimage_kernel_check", phase_zimage_kernel_check, torch)
+    except BaseException:
+        stop_sass_dumps(build["sass_dumps"])
+        raise
+    build = timed("build_sass", phase_build_sass, build)
     small_err = timed("small_reference", phase_small_reference, torch)
     es_tiny = timed("es_reference_tiny", phase_es_reference, torch, "tiny", int8=True)
     es_float_tiny = timed("es_reference_tiny_float", phase_es_reference, torch, "tiny", int8=False)
@@ -7214,21 +7630,36 @@ def main() -> int:
     weights_var = timed("weights_var", phase_weights_var, torch)
     inf_es = timed("inf_es", phase_inf_es, torch)
     inf_q8 = timed("inf_q8_es", phase_inf_q8_es, torch)
+    weights_inf = timed("weights_infinity", phase_weights_infinity, torch)
     zimage = timed("zimage_es", phase_zimage_es, torch)
     weights_sana = timed("weights_sana", phase_weights_sana, torch)
     es, flagship = timed("es_flagship", phase_es_flagship, torch, keep=True)
-    pipeline_es = timed("pipeline_es", phase_pipeline_es, torch, *flagship, es)
-    train = timed("train_flagship", phase_train_flagship, torch, *flagship, es)
-    chained = timed("train_chained", phase_train_chained, torch, *flagship)
-    artifacts = timed("train_artifacts", phase_train_artifacts, torch, *flagship)
-    fleet_run = timed("fleet_flagship", phase_fleet_flagship, torch, *flagship, es)
-    run_tools = timed("run_tools", phase_run_tools, torch, *flagship, es)
-    evaluate = timed("evaluate", phase_evaluate, torch, *flagship)
-    threefry_rows = threefry_shares(timed("threefry", phase_threefry, torch, flagship[0]), es, var_es, inf_q8)
-    del flagship
-    gc.collect()
-    torch.cuda.empty_cache()
-    multiproc, chaos_launches = timed("multiproc_es", phase_multiproc_es, torch)
+    pipeline_es = timed("pipeline_es", phase_pipeline_es, torch, flagship[1], es)
+    # the preflight children do their host start during the trainer phases
+    children = start_preflight_children()
+    try:
+        train = timed("train_flagship", phase_train_flagship, torch, *flagship, es)
+        chained = timed("train_chained", phase_train_chained, torch, flagship[1])
+        artifacts = timed("train_artifacts", phase_train_artifacts, torch, *flagship)
+        fleet_run = timed("fleet_flagship", phase_fleet_flagship, torch, *flagship, es)
+    except BaseException:
+        stop_preflight_children(children)
+        raise
+    run_tools = timed("run_tools", phase_run_tools, torch, *flagship, es, children)
+    # the multi-process phases' children do their host start during the evaluation and threefry phases
+    launches = start_multiproc_launches()
+    try:
+        evaluate = timed("evaluate", phase_evaluate, torch, *flagship)
+        threefry_rows = threefry_shares(timed("threefry", phase_threefry, torch, flagship[0]), es, var_es,
+                                        weights_inf, inf_q8)
+        del flagship
+        gc.collect()
+        torch.cuda.empty_cache()
+        multiproc = timed("multiproc_es", phase_multiproc_es, torch, launches)
+    except BaseException:
+        stop_multiproc_launches(launches)
+        raise
+    chaos_launches = launches["chaos"]
     # the pod phases' children do their host start during the chaos phase
     pods = start_pod_launches()
     try:
@@ -7252,8 +7683,9 @@ def main() -> int:
     inf_launches = lambda k: (inf_es["launches"][k] + inf_es["eager_launches"][k] + inf_q8["launches"][k]  # noqa: E731
                               + inf_q8["eager_launches"][k] + inf_es["fused_call"]["launches"][k])
     # the checkpoint phases' eager epochs: each run_training's warm-up and its epoch against the graph
-    weights_launches = lambda k: sum(p["launches"][k] + p["eager_launches"][k]  # noqa: E731
-                                     for p in (weights_var, weights_sana))
+    # (Infinity-2B's has none: phase_inf_q8_es holds that program against eager)
+    weights_launches = lambda k: sum(p["launches"][k] + p.get("eager_launches", {}).get(k, 0)  # noqa: E731
+                                     for p in (weights_var, weights_sana, weights_inf))
     # Z-Image's eager work: its run_training warm-up, its eager epoch against the
     # graph and the bf16 pop_fuse call (K2)
     zimage_launches = lambda k: (zimage["launches"][k] + zimage["eager_launches"][k]  # noqa: E731
@@ -7294,9 +7726,11 @@ def main() -> int:
         f"inf_2b_depth{INF_FLOAT_DEPTH}_run_training_warmup": inf_es["launches"]["decode_attention"],
         f"inf_2b_depth{INF_FLOAT_DEPTH}_eager_epoch": inf_es["eager_launches"]["decode_attention"],
         f"inf_2b_depth{INF_FLOAT_DEPTH}_graph_profiled_epoch": inf_es["launches_profiled"]["decode_attention"],
-        "inf_2b_q8_run_training_warmup": inf_q8["launches"]["decode_attention"],
-        "inf_2b_q8_graph_profiled_epoch": inf_q8["launches_profiled"]["decode_attention"],
-        "inf_2b_q8_eager_epoch": inf_q8["eager_launches"]["decode_attention"],
+        f"inf_2b_q8_depth{INF_Q8_DEPTH}_run_training_warmup": inf_q8["launches"]["decode_attention"],
+        f"inf_2b_q8_depth{INF_Q8_DEPTH}_graph_profiled_epoch": inf_q8["launches_profiled"]["decode_attention"],
+        f"inf_2b_q8_depth{INF_Q8_DEPTH}_eager_epoch": inf_q8["eager_launches"]["decode_attention"],
+        "weights_inf_2b_run_training_warmup": weights_inf["launches"]["decode_attention"],
+        "weights_inf_2b_graph_profiled_epoch": weights_inf["launches_profiled"]["decode_attention"],
         f"inf_2b_depth{INF_FLOAT_DEPTH}_bf16_pop_fuse_call": inf_es["fused_call"]["launches"]["decode_attention"],
         "weights_var_d16_run_training_warmup": weights_var["launches"]["decode_attention"],
         "weights_var_d16_eager_epoch": weights_var["eager_launches"]["decode_attention"],
@@ -7320,9 +7754,11 @@ def main() -> int:
             "fleet_tiny_warmup_tick": fleet_tiny["launches"][name],
             "fleet_tiny_graph_profiled_tick": fleet_tiny["launches_profiled"][name],
             "train_telemetry_warmup": train["telemetry"]["launches"][name],
-            "inf_2b_q8_run_training_warmup": inf_q8["launches"][name],
-            "inf_2b_q8_graph_profiled_epoch": inf_q8["launches_profiled"][name],
-            "inf_2b_q8_eager_epoch": inf_q8["eager_launches"][name],
+            f"inf_2b_q8_depth{INF_Q8_DEPTH}_run_training_warmup": inf_q8["launches"][name],
+            f"inf_2b_q8_depth{INF_Q8_DEPTH}_graph_profiled_epoch": inf_q8["launches_profiled"][name],
+            f"inf_2b_q8_depth{INF_Q8_DEPTH}_eager_epoch": inf_q8["eager_launches"][name],
+            "weights_inf_2b_run_training_warmup": weights_inf["launches"][name],
+            "weights_inf_2b_graph_profiled_epoch": weights_inf["launches_profiled"][name],
             f"inf_2b_depth{INF_FLOAT_DEPTH}_bf16_pop_fuse_call": inf_es["fused_call"]["launches"][name],
             "weights_sana_run_training_warmup": weights_sana["launches"][name],
             "weights_sana_eager_epoch": weights_sana["eager_launches"][name],
@@ -7358,9 +7794,9 @@ def main() -> int:
                                               "max_abs_err", "scope")}
     kernels[3]["infinity"] = {k: k4_inf[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                                      "device_ms", "max_abs_err", "scope")}
-    # K4 in situ a call at the full depth: the int8 run's profiled replayed epoch
-    kernels[3]["infinity"]["in_situ_ms"] = (inf_q8["profile"]["in_situ_ms"]["decode_attention"]
-                                            / inf_q8["per_call"]["calls"])
+    # K4 in situ a call at the full depth: the int8 run's profiled replayed epoch, from the released-layout files
+    kernels[3]["infinity"]["in_situ_ms"] = (weights_inf["profile"]["in_situ_ms"]["decode_attention"]
+                                            / weights_inf["per_call"]["calls"])
     k1_serve = kernel_summary("int8_matmul", k1_rows, serve["eager"]["launches"]["int8_matmul"], "calls_per_image",
                               "hyperscalees_t2i_tpu/ops/quant_mm.py:86", "one flagship served image")
     for k, run, epochs in ((kernels[1], es_float, TIMED_EPOCHS),
@@ -7371,10 +7807,11 @@ def main() -> int:
     if kernels[0]["launches"] - extra_launches("int8_matmul") != sum(r["calls_per_es_image"] for r in k1_rows) * \
             es["images_per_epoch"] * (TIMED_EPOCHS + train_eager_epochs + FLEET_W):
         raise AssertionError("K1 table and launch count disagree")
-    # Infinity-2B: the int8 run's warm-up and its eager epoch (K1, K3), the bf16 pop_fuse call (K2) at
-    # INF_FLOAT_DEPTH of the INF_DEPTH blocks the kernel tables count
+    # Infinity-2B: the int8 run's warm-up and its eager epoch (K1, K3; K3 at INF_Q8_DEPTH of the INF_DEPTH
+    # blocks the kernel tables count), the bf16 pop_fuse call (K2) at INF_FLOAT_DEPTH of them
     q8_calls = inf_q8["per_call"]["calls"] * (inf_q8["eager_epochs"] + 1)
-    for name, want in (("int8_matmul", q8_calls), ("fused_qlora", q8_calls), ("lora_chain", INF_FLOAT_DEPTH / INF_DEPTH)):
+    for name, want in (("int8_matmul", q8_calls), ("fused_qlora", q8_calls * INF_Q8_DEPTH / INF_DEPTH),
+                       ("lora_chain", INF_FLOAT_DEPTH / INF_DEPTH)):
         if inf_launches(name) != sum(r["calls_per_call"] for r in inf_rows[name]) * want:
             raise AssertionError(f"{name}'s Infinity-2B table and launch count disagree")
     # Z-Image: the int8 run's warm-up and its eager epoch (K1, K3), the bf16 pop_fuse call (K2); the
@@ -7408,7 +7845,7 @@ def main() -> int:
         k4_invariant_parts=k4_invariant,
         k1_shapes=k1_rows, chain_shapes=chain_rows, k4_shapes=k4_rows, k4_cases=k4_extra, k4_infinity_shapes=k4_inf_rows,
         small_reference_max_abs=small_err, es_tiny=es_tiny, es_tiny_float=es_float_tiny, var_tiny=var_tiny, inf_tiny=inf_tiny,
-        inf_q8_tiny=inf_q8_tiny, inf_q8_es=inf_q8, inf_kernel_shapes=inf_rows,
+        inf_q8_tiny=inf_q8_tiny, inf_q8_es=inf_q8, weights_infinity=weights_inf, inf_kernel_shapes=inf_rows,
         es_flagship_float=es_float, serve=serve, var_es=var_es, inf_es=inf_es, es_flagship=es, train_tiny=train_tiny,
         threefry=threefry_rows, train_chained=chained, run_tools=run_tools, pipeline_tiny=pipeline_tiny,
         pipeline_es=pipeline_es, serve_tier=tier,

@@ -30,8 +30,8 @@ Three layers, as in the reference:
 :func:`start_profile` and :func:`stop_profile` open and close a window
 (the host's and, on the card, the device's activity) and write its trace.
 
-:func:`device_kernels` and :func:`profiled_launches` read a live
-``torch.profiler`` object the same way (``chip_smoke.py`` uses them).
+:func:`live_events`, :func:`device_kernels` and :func:`profiled_launches`
+read a live ``torch.profiler`` object the same way (``chip_smoke.py`` uses them).
 :func:`build_trace` writes synthetic traces for tests. Stdlib-only at
 import.
 """
@@ -54,6 +54,7 @@ __all__ = [
     "find_trace_files",
     "join_ledger",
     "kernel_evidence",
+    "live_events",
     "load_trace",
     "normalize_program_name",
     "op_durations",
@@ -215,15 +216,48 @@ def kernel_evidence(trace: Dict[str, Any], patterns: Sequence[str] = tuple(WRAPP
     return evidence
 
 
+# the host ops that ``prof.events()`` leaves out
+_FILTERED_EVENTS = frozenset(("[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+                              "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+                              "aten::is_leaf", "aten::output_nr", "aten::_version"))
+
+
+def live_events(torch, prof, device_type=None) -> Iterable[Tuple[str, float]]:
+    """``(name, ms)`` of each event of a finished live ``torch.profiler``
+    run on ``device_type`` (default the CUDA device), named and timed as
+    ``prof.events()`` names and times them (demangled). Read from the
+    profiler's raw results: ``prof.events()`` builds an event tree first,
+    which costs tens of µs an event (seconds for an epoch's 10⁵ kernels);
+    where the raw results are missing, from ``prof.events()``."""
+    dt = torch.autograd.DeviceType.CUDA if device_type is None else device_type
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if raw is None:
+        for e in prof.events():
+            if e.device_type == dt:
+                yield e.name, (e.time_range.end - e.time_range.start) / 1e3
+        return
+    names: Dict[str, str] = {}
+    for e in raw.events():
+        if e.device_type() != dt:
+            continue
+        name = e.name()
+        if name in _FILTERED_EVENTS or (hasattr(e, "is_hidden_event") and e.is_hidden_event()):
+            continue
+        shown = names.get(name)
+        if shown is None:
+            shown = names[name] = ("ProfilerStep*" if name.startswith("ProfilerStep#") else
+                                   torch._C._demangle(name) if len(name) > 1 else name)
+        yield shown, (e.end_ns() - e.start_ns()) / 1e6
+
+
 def device_kernels(torch, prof):
     """Device time and launches per kernel name of a live ``torch.profiler``
     run: ``({name: (ms, launches)}, busy ms, launches, the 12 largest as
     (ms, launches, name))``."""
     kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, n = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    for name, dur in live_events(torch, prof):
+        ms, n = kernels.get(name, (0.0, 0))
+        kernels[name] = (ms + dur, n + 1)
     top = sorted(((ms, n, name[:100]) for name, (ms, n) in kernels.items()), reverse=True)[:12]
     return kernels, sum(ms for ms, _ in kernels.values()), sum(n for _, n in kernels.values()), top
 

@@ -43,7 +43,7 @@ POSITIVE_PROMPT_SUFFIX = (
     ". very smooth faces, good looking faces, face to the camera, "
     "perfect facial features"
 )
-# backend family → cache format; Z-Image's is not ported
+# backend family → cache format (each with its reader below)
 _CACHE_KINDS = ("infinity", "sana", "zimage")
 # (kind, file sha256, max_len) → the loaded payload (callers must not mutate it)
 _WARM_CACHES: Dict[tuple, Dict[str, Any]] = {}

@@ -30,8 +30,15 @@ _NODE_TYPES = {cls._fields: cls for cls in (LowRankNoise, DenseNoise, FactoredDe
 
 
 def tensor_from_numpy(arr: Any, device: torch.device) -> torch.Tensor:
-    """One numpy leaf → tensor on ``device`` (ml_dtypes bfloat16 included)."""
+    """One numpy leaf → tensor on ``device`` (ml_dtypes bfloat16 included).
+    A leaf bound for the card crosses in its own memory order and is made
+    contiguous there: a converter's stack of transposed kernels is not
+    C-contiguous, and numpy's strided copy of such a leaf into C order on
+    the host is many times slower than the copy to the card."""
     arr = np.asarray(arr)
+    if (torch.device(device).type != "cpu" and arr.dtype.name != "bfloat16" and arr.dtype.isnative
+            and arr.flags.writeable and all(s >= 0 for s in arr.strides)):
+        return torch.from_numpy(arr).to(device).contiguous()
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(np.array(arr, order="C").view(np.uint16)).view(torch.bfloat16)
     else:
