@@ -63,9 +63,11 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
    tick (``FLEET_W`` jobs with their own σ, lr_scale and seed through one
    ``make_fleet_step`` graph, int8 base) against the CPU, each job bitwise
    the port's solo step on the card (:func:`phase_fleet_reference`);
-4. K2's path: the flagship ES epoch step (as in 7) over a bf16 base, whose
-   164 adapted DiT sites per image run K2, as a CUDA graph and eagerly in
-   turns (:func:`timed_epochs`), K2 counted as in 7;
+4. K2's path: the flagship ES epoch step (as in 7) over a bf16 base, its
+   DiT at ``FLAGSHIP_CUT_LAYERS`` of its 20 blocks (the rung runner's
+   flagship epoch, 15, keeps the full depth), whose 8 · blocks + 4 adapted
+   DiT sites per image run K2, as a CUDA graph and eagerly in turns
+   (:func:`timed_epochs`), K2 counted as in 7;
 5. the serving path: the flagship serving backend (Sana-Sprint 1.6B at full
    width, DC-AE to 1024×1024, bf16, int8 base, random weights from a seed)
    behind two ``ServeEngine``s, a CUDA graph per geometry and eager, four
@@ -82,9 +84,11 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
    CPU (one ``generate`` with injected Gumbel noise: token ids equal, images
    within 1e-4; one ES step: θ′ and reward rows within 1e-4, K4 launches as
    derived), then ES epochs of ``RUNG_PLAN["ar_d16"]`` (VAR-d16 at its
-   published geometry, bf16, float base, pop 16, 4 classes, member_batch
-   4; CLIP-B/32 and CLIP-H/14 rewards) as a CUDA graph and eagerly in turns:
-   K4 counted exactly 4 × 160 times in each eager epoch and on the device
+   published widths, its transformer at ``VAR_ES_LAYERS`` of 16 blocks
+   (the rung runner's ``ar_d16``, 15, runs all 16), bf16, float base, pop
+   16, 4 classes, member_batch 4; CLIP-B/32 and CLIP-H/14 rewards) as a
+   CUDA graph and eagerly in turns: K4 counted exactly 4 × 10 ×
+   ``VAR_ES_LAYERS`` times in each eager epoch and on the device
    in a profiled epoch of each, every scale's token
    ids equal between them, reward rows ``[16, 4]`` finite, θ′ finite,
    ‖Δθ‖ > 0;
@@ -247,6 +251,27 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
     split update's θ′ within ``MULTIPROC_TOL`` of its replicated one, each
     run's replayed epoch printed with the card's name and power limit.
 
+15. the rung runner as a user runs it (:func:`phase_bench`, after the
+    others; its scaling run and its one-item window start with the script,
+    :func:`start_bench_early`, and run on the card while the kernels build,
+    since the tiny rung launches none): ``python -m
+    hyperscalees_t2i_tpu_torch.tools.bench`` at ``BENCH_RUNGS`` =
+    ``BENCH_LADDER`` (parent and child, ``BENCH_STEPS`` = 2), ``--serve --rung
+    flagship --batches 2`` (its command line in this process),
+    ``--scaling --rungs tiny --devices 1,2``, the records rendered by
+    ``tools.bench_report`` and a ``tools.window`` of one item
+    (``--items bench_ladder --rungs tiny``). Each rung's record carries the
+    card's name and power limit, an MFU at most 1 and a step above its
+    physical floor, and the K1-K4 launches of its warm-up epoch as its plan
+    derives them (the flagship's those of ``phase_es_flagship``'s epoch,
+    ``flaggen``'s its K3 and the DiT's K1 at the flagship's tiling,
+    ``ar_d16``'s K4 those of ``phase_var_es``'s); ``ar_d16``'s K4 parity
+    within 2⁻⁷ of a call's largest output (:func:`check_close`'s bf16
+    bound); the served
+    images bitwise across the three serving paths; the scaling digests
+    equal at 1 and 2 processes. The runner's flagship and ``ar_d16`` epochs
+    are printed beside this script's own.
+
 Every random number of the port is the JAX package's (the same keys, the
 same key tree); the phases draw from ``utils.threefry`` keys.
 
@@ -265,7 +290,6 @@ import json
 import math
 import os
 import re
-import signal
 import statistics
 import subprocess
 import sys
@@ -354,6 +378,9 @@ K2_BEFORE_MS = {
 # shape runs once per layer (16) per generate call
 VAR_PATCH_NUMS = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
 VAR_ROWS, VAR_HEADS, VAR_DH, VAR_DEPTH = 32, 16, 64, 16
+# the blocks, of VAR-d16's 16, of phase_var_es (K4's count is scales × blocks a
+# call); the rung runner's ar_d16 (phase_bench) keeps the full depth
+VAR_ES_LAYERS = 4
 # K4's bf16 ms per call at each VAR-d16 scale before its redesign for Hopper:
 # the f32-FMA kernel of commit 44078f4, as this script's phase_k4_check
 # measured it on an NVIDIA H100 80GB HBM3 at 700 W. A record, printed beside
@@ -422,31 +449,21 @@ CHAINED_EPOCHS = 3  # phase_train_chained: 1, then CHAINED_EPOCHS - 1, epochs a 
 # phase_train_chained (cut_flagship_backend): their K3/K1 count rules depend
 # on depth only through the block count, and the chain's bitwise check not at all
 FLAGSHIP_CUT_LAYERS = 4
-ART_PROFILE_EPOCHS = 2
+ART_PROFILE_EPOCHS = 1
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def die_with_parent(parent: int) -> None:
-    """Make this child of the script die with it: the kernel sends SIGKILL
-    when the thread that started the child ends (Linux
-    ``PR_SET_PDEATHSIG``), whatever ended it; a child whose parent
-    ``parent`` had already gone leaves at once."""
-    libc = ctypes.CDLL(None, use_errno=True)
-    if libc.prctl(1, signal.SIGKILL, 0, 0, 0) != 0:  # PR_SET_PDEATHSIG
-        raise OSError(ctypes.get_errno(), "prctl(PR_SET_PDEATHSIG) failed")
-    if os.getppid() != parent:
-        os._exit(1)
-
-
 def child_prelude() -> str:
     """The first statements of every Python child the script starts
-    (``python -c``): the checkout on the path and :func:`die_with_parent`
-    with this process as the parent."""
-    return (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
-            f"chip_smoke.die_with_parent({os.getpid()}); ")
+    (``python -c``): the checkout on the path, the port's
+    ``tools.launch_local.die_with_parent`` with this process as the parent
+    (the child dies with the script), then ``import chip_smoke``."""
+    return (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            "from hyperscalees_t2i_tpu_torch.tools.launch_local import die_with_parent; "
+            f"die_with_parent({os.getpid()}); import chip_smoke; ")
 
 
 def _untimed(torch, fns) -> float:
@@ -1106,7 +1123,7 @@ def phase_chain_check(torch, timed: bool = True):
 
 
 def _inf_reps(flop: float, timed: bool) -> int:
-    return (20 if flop < 1e10 else 10 if flop < 1e11 else 5) if timed else 0
+    return (3 if flop < 1e10 else 2 if flop < 1e11 else 1) if timed else 0
 
 
 def phase_inf_kernel_check(torch, timed: bool = True):
@@ -1950,15 +1967,18 @@ def timed_epochs(torch, make_step, theta, flat_ids, expected1, pop: int, calls_p
     return theta, stats
 
 
-def phase_es_flagship(torch, base_quant=None, keep: bool = False):
+def phase_es_flagship(torch, base_quant=None, keep: bool = False, layers: int = 0):
     """The flagship ES epoch step: with the rung's int8 base (the main
     path: K3 at the adapted sites, K1 elsewhere) or, ``base_quant="off"``,
     a bf16 base (K2's path: K2 at the adapted sites, no int8 site).
     ``keep`` also returns the backend and the reward suite, for
-    :func:`phase_train_flagship`."""
+    :func:`phase_train_flagship`. ``layers`` cuts the DiT to that many of
+    its 20 blocks (:func:`cut_flagship_backend`; the reward suite from the
+    same key as the full build's)."""
     from hyperscalees_t2i_tpu_torch.backends.sana_backend import build_train_backend
     from hyperscalees_t2i_tpu_torch.es.noiser import sample_noise
-    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN, rung_opt
+    from hyperscalees_t2i_tpu_torch.rewards.suite import build_random_reward_suite
+    from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, RUNG_PLAN, rung_opt, sana_rung_model
     from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
     from hyperscalees_t2i_tpu_torch.train.trainer import make_es_step
     from hyperscalees_t2i_tpu_torch.utils import threefry
@@ -1972,7 +1992,13 @@ def phase_es_flagship(torch, base_quant=None, keep: bool = False):
     torch.cuda.reset_peak_memory_stats()
     left_before = torch.cuda.memory_allocated()  # what earlier phases of the process still hold
     t0 = time.perf_counter()
-    backend, suite = build_train_backend("flagship", device="cuda", base_quant=opt["base_quant"], seed=0)
+    if layers:
+        backend = cut_flagship_backend(torch, layers, opt["base_quant"])
+        spec = sana_rung_model("flagship", tower_dtype=opt["tower_dtype"])
+        suite = build_random_reward_suite(spec["clip_b"], spec["clip_h"], len(BENCH_PROMPT_SET),
+                                          threefry.prng_key(1, "cuda"), torch.bfloat16, opt["base_quant"])
+    else:
+        backend, suite = build_train_backend("flagship", device="cuda", base_quant=opt["base_quant"], seed=0)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     tc = TrainConfig(pop_size=pop, sigma=0.01, egg_rank=4, member_batch=mb, promptnorm=True,
@@ -1986,7 +2012,8 @@ def phase_es_flagship(torch, base_quant=None, keep: bool = False):
         return make_es_step(backend, reward, tc, len(info.unique_ids), 1, device="cuda", stateful_delta=True,
                             graphs=GraphCache("cuda", graph=graph)), reward
 
-    log(f"[{tag}] flagship ES backend ({opt['base_quant']} base) built in {build_s:.1f} s; device memory "
+    log(f"[{tag}] flagship ES backend ({opt['base_quant']} base{f', {layers} of 20 blocks' if layers else ''}) built "
+        f"in {build_s:.1f} s; device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; per generate→reward call: "
         f"K3 {per['k3_per_call']}, K1 {per['k1_per_call']}, K2 {per['k2_per_call']}; {per['calls']} calls per epoch")
     # a fresh run's θ (b = 0) from bench.py's PRNGKey(1)
@@ -1996,7 +2023,7 @@ def phase_es_flagship(torch, base_quant=None, keep: bool = False):
     noise = sample_noise(threefry.prng_key(5, "cuda"), theta, pop, tc.es_config())
     breakdown = es_stage_breakdown(torch, backend, suite, theta, noise, tc, tag)
     stats = dict(plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s, per_call=per,
-                 member_breakdown_ms=breakdown, allocated_before_gib=left_before / 2**30, **run)
+                 member_breakdown_ms=breakdown, allocated_before_gib=left_before / 2**30, layers=layers or 20, **run)
     torch.cuda.empty_cache()
     if keep:
         return stats, (backend, suite)
@@ -2822,6 +2849,9 @@ def inf_text_mask(torch):
     return torch.cat([cond, uncond]).cuda()
 
 
+INF_K4_REPS = 3  # phase_k4_infinity's timed repetitions a row
+
+
 def phase_k4_infinity(torch, timed: bool = True):
     """K4 at the Infinity-2B shapes of its main path (bf16, its 8 rows) by
     :func:`_k4_row`: at each of the 14 scales, the dh-128 self-attention
@@ -2840,7 +2870,7 @@ def phase_k4_infinity(torch, timed: bool = True):
             rows.append(_k4_row(torch, g, f"Infinity-2B {site} scale {si}", B=INF_ROWS, nq=nq, L=cache, kv=kvl,
                                 H=INF_HEADS, dh=INF_DH, dt_name="bfloat16", mask=mask,
                                 site=f"{site} scale {si} (pn {pn})", attention=site, main_path=True,
-                                calls_per_call=INF_DEPTH, reps=20 if timed else 0))
+                                calls_per_call=INF_DEPTH, reps=INF_K4_REPS if timed else 0))
         torch.cuda.empty_cache()
     return rows
 
@@ -4138,9 +4168,11 @@ def var_stage_breakdown(torch, backend, reward, theta, noise, tc, ids, gen_noise
 
 
 def phase_var_es(torch):
-    """The VAR-d16 ES epoch step (``RUNG_PLAN``/``RUNG_OPT["ar_d16"]``): one
-    warm-up, then two timed epochs with the launch counters set to 0 just
-    before and read just after; K4 must launch 160 times per generate call."""
+    """The VAR-d16 ES epoch step (``RUNG_PLAN``/``RUNG_OPT["ar_d16"]``) at
+    ``VAR_ES_LAYERS`` of its 16 blocks, every width kept: one warm-up, then
+    two timed epochs with the launch counters set to 0 just before and read
+    just after; K4 must launch 10 × ``VAR_ES_LAYERS`` times per generate
+    call."""
     from hyperscalees_t2i_tpu_torch.backends.var_backend import build_train_backend
     from hyperscalees_t2i_tpu_torch.es.noiser import sample_noise
     from hyperscalees_t2i_tpu_torch.models import var as var_mod
@@ -4154,7 +4186,7 @@ def phase_var_es(torch):
     opt = rung_opt("ar_d16")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    backend, suite = build_train_backend(scale, device="cuda", seed=0)
+    backend, suite = build_train_backend(scale, device="cuda", seed=0, depth=VAR_ES_LAYERS)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     tc = TrainConfig(pop_size=pop, sigma=0.01, egg_rank=4, member_batch=mb, promptnorm=True,
@@ -4171,7 +4203,7 @@ def phase_var_es(torch):
         return make_es_step(backend, reward, tc, len(info.unique_ids), 1, device="cuda", stateful_delta=True,
                             graphs=GraphCache("cuda", graph=graph)), reward
 
-    log(f"[var] VAR-d16 ES backend built in {build_s:.1f} s; device memory "
+    log(f"[var] VAR-d16 ES backend ({VAR_ES_LAYERS} of {VAR_DEPTH} blocks) built in {build_s:.1f} s; device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; {calls} generate calls per epoch of {mb} lanes × {B} "
         f"images × 2 (CFG) = {2 * mb * B} rows; K4 {per_call} per call")
     theta = backend.init_theta(threefry.prng_key(1, "cuda"))  # a fresh run's θ: b = 0
@@ -4183,7 +4215,7 @@ def phase_var_es(torch):
     ids = torch.as_tensor(info.flat_ids, device="cuda")
     gen_noise = backend.sample_gen_noise(threefry.prng_key(6, "cuda"), range(B))
     breakdown = var_stage_breakdown(torch, backend, suite, theta, noise, tc, ids, gen_noise)
-    stats = dict(plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s,
+    stats = dict(plan=dict(pop=pop, prompts=m, member_batch=mb, **opt), build_s=build_s, layers=VAR_ES_LAYERS,
                  per_call={"k4_per_call": per_call, "calls": calls}, call_breakdown_ms=breakdown, **run)
     del backend, suite
     torch.cuda.empty_cache()
@@ -4319,8 +4351,8 @@ def threefry_shares(rows, es, var_es, inf_full, inf_q8):
     per = {
         "flagship_es_noise": {"flagship_es_epoch_ms": med(es["epoch_s"]) * 1e3},
         "flagship_latents": {"flagship_es_epoch_ms": med(es["epoch_s"]) * 1e3},
-        "var_d16_gumbel": {"var_d16_es_epoch_ms": med(var_es["epoch_s"]) * 1e3,
-                           "var_d16_generation_ms": var_es["call_breakdown_ms"]["generation"]},
+        "var_d16_gumbel": {f"var_d16_depth{VAR_ES_LAYERS}_es_epoch_ms": med(var_es["epoch_s"]) * 1e3,
+                           f"var_d16_depth{VAR_ES_LAYERS}_generation_ms": var_es["call_breakdown_ms"]["generation"]},
         "inf_2b_gumbel": {"inf_2b_epoch_ms": med(inf_full["epoch_s"]) * 1e3,
                           "inf_2b_call_ms": med(inf_full["epoch_s"]) * 1e3 / inf_full["per_call"]["calls"]},
         "inf_2b_leaf": {f"inf_2b_depth{INF_Q8_DEPTH}_build_ms": inf_q8["build_s"] * 1e3},
@@ -7534,6 +7566,201 @@ def phase_tp_sp(torch, pods):
     return dict(card=smi, **res, tp_s=pods.get("tp_s"))
 
 
+BENCH_LADDER = "tiny,flaggen,flagship,ar_d16"  # phase_bench's rungs
+BENCH_DIR = ROOT / "build" / "bench"
+# K4 against its plain version at ar_d16's shapes: a call's largest difference
+# over its largest plain output, check_close's bf16 bound
+BENCH_PARITY_REL = 2.0 ** -7
+BENCH_EARLY_NICE = 10  # the early children's niceness beside the build
+BENCH_STEPS = 2  # the ladder's single-dispatch epochs a rung (the runner's default is 3)
+
+
+def _bench_child(argv, log_name, env=None, nice=False):
+    """``tools.bench.cli(argv)`` (or ``tools.window.main``, ``argv[0] ==
+    "window"``) in a child of the script, as ``python -m`` runs it, its
+    output in ``BENCH_DIR/log_name``; ``nice``: at ``BENCH_EARLY_NICE``
+    (its children inherit it), so the kernel build keeps the host's cores."""
+    BENCH_DIR.mkdir(parents=True, exist_ok=True)
+    mod, args = ("window", argv[1:]) if argv and argv[0] == "window" else ("bench", argv)
+    call = "main" if mod == "window" else "cli"
+    code = (child_prelude() + (f"import os; os.nice({BENCH_EARLY_NICE}); " if nice else "")
+            + f"from hyperscalees_t2i_tpu_torch.tools import {mod}; sys.exit({mod}.{call}({list(args)!r}))")
+    log_file = open(BENCH_DIR / log_name, "w")
+    full_env = {**os.environ, "BENCH_PROGRAMS_JSONL": str(BENCH_DIR / "programs.jsonl"), **(env or {})}
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT,
+                            env=full_env)
+    return proc, log_file
+
+
+def start_bench_early():
+    """The runner's scaling run (``--scaling --rungs tiny --devices 1,2``: a
+    one-process and a two-process launch) and a window of one item
+    (``--items bench_ladder --rungs tiny``), started with the script: the
+    tiny rung launches no kernel, so they run on the card while the
+    kernels build."""
+    import shutil
+
+    shutil.rmtree(BENCH_DIR, ignore_errors=True)
+    BENCH_DIR.mkdir(parents=True)
+    scaling = _bench_child(["--scaling", "--rungs", "tiny", "--devices", "1,2", "--out",
+                            str(BENCH_DIR / "SCALING.json")], "scaling.log",
+                           {"BENCH_SCALING_DIR": str(BENCH_DIR / "scaling")}, nice=True)
+    window = _bench_child(["window", "--budget_s", "900", "--out_dir", str(BENCH_DIR / "window"), "--items",
+                           "bench_ladder", "--rungs", "tiny", "--round", "1", "--fresh"], "window.log", nice=True)
+    return {"scaling": scaling, "window": window, "t0": time.perf_counter()}
+
+
+def stop_bench_early(early):
+    for proc, log_file in (early["scaling"], early["window"]):
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log_file.close()
+
+
+def finish_bench_early(early):
+    """Wait for :func:`start_bench_early`'s children (before the kernel
+    checks time anything) and check them: the scaling digests equal at 1
+    and 2 processes on the one card, the window's item completed with the
+    tiny rung's record."""
+    _bench_wait(early["scaling"], "--scaling", 300)
+    scaling = json.loads((BENCH_DIR / "SCALING.json").read_text())
+    _bench_wait(early["window"], "the window", 300)
+    rollup = json.loads((BENCH_DIR / "window" / "WINDOW_r01.json").read_text())
+    window_bench = json.loads((BENCH_DIR / "window" / "BENCH_window.json").read_text())
+    digests = {s["devices"]: s["opt_scores_digest"] for s in scaling["summary"]}
+    if sorted(digests) != [1, 2] or len(set(digests.values())) != 1 or not scaling["processes_on_one_card"]:
+        raise AssertionError(f"--scaling: digests {digests}, one card {scaling['processes_on_one_card']}")
+    if rollup["completed"] != ["bench_ladder"] or "imgs_per_sec" not in window_bench["rungs"]["tiny"]:
+        raise AssertionError(f"the window: {rollup['completed']}, {window_bench['rungs']}")
+    seconds = time.perf_counter() - early["t0"]
+    log(f"[bench] scaling at 1 and 2 processes on one card: "
+        + ", ".join(f"{s['devices']}: {s['imgs_per_sec']} images/s, digest {s['opt_scores_digest']}"
+                    for s in scaling["summary"])
+        + f"; the window: {rollup['completed']} in {rollup['spent_s']:.1f} s, tiny "
+          f"{window_bench['rungs']['tiny']['imgs_per_sec']} images/s; both ended {seconds:.1f} s after they started")
+    return {"scaling": scaling, "window": rollup, "digests": digests, "seconds": seconds}
+
+
+def _bench_wait(child, what, timeout_s):
+    proc, log_file = child
+    try:
+        rc = proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"{what} did not end in {timeout_s} s")
+    log_file.close()
+    text = (BENCH_DIR / Path(log_file.name).name).read_text()
+    if rc != 0:
+        raise AssertionError(f"{what} exited {rc}: {text[-3000:]}")
+    return text
+
+
+def _last_json(text):
+    return json.loads([l for l in text.splitlines() if l.startswith("{")][-1])
+
+
+def phase_bench(torch, early, es, var_es):
+    """The rung runner, its serve mode and its report, as a user runs them
+    (see the module note, 15): the ladder's parent and child at
+    ``BENCH_LADDER``, then ``--serve --rung flagship --batches 2``; every
+    record checked, the runner's flagship and ``ar_d16`` epochs beside
+    ``es``'s and ``var_es``'s; ``early`` is :func:`finish_bench_early`'s
+    record (the scaling document is rendered with the rest)."""
+    import contextlib
+    import io
+
+    from hyperscalees_t2i_tpu_torch.tools import bench, bench_report
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = _card()
+    t0 = time.perf_counter()
+    ladder_text = _bench_wait(_bench_child([], "ladder.log", {"BENCH_RUNGS": BENCH_LADDER, "BENCH_BUDGET_S": "600",
+                                                              "BENCH_STEPS": str(BENCH_STEPS)}), "the ladder", 660)
+    ladder_s = time.perf_counter() - t0
+    ladder = _last_json(ladder_text)
+    (BENCH_DIR / "BENCH.json").write_text(json.dumps(ladder) + "\n")
+    # the serving bench through the runner's command line, in this process (no second CUDA start)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.cli(["--serve", "--rung", "flagship", "--batches", "2", "--out", str(BENCH_DIR / "SERVE.json")])
+    if rc != 0:
+        raise AssertionError(f"--serve exited {rc}")
+    serve = _last_json(buf.getvalue())
+    serve_s = time.perf_counter() - t0
+
+    name, _, limit = card.rpartition(",")
+    rungs = ladder["rungs"]
+    from hyperscalees_t2i_tpu_torch.rungs import RUNG_PLAN
+
+    # flaggen: the flagship's DiT sites once a generate call (K3 at the adapted
+    # ones, K1 at the DiT's other int8 ones), at the flagship's tiling
+    from hyperscalees_t2i_tpu_torch.rungs import rung_opt
+    from hyperscalees_t2i_tpu_torch.train.config import TrainConfig
+
+    dit_k1 = sum(r[-1] for r in K1_SHAPES if not r[0].startswith(("dcae", "clip")))
+    _, pop, m, mb = RUNG_PLAN["flaggen"]
+    calls = reward_calls(TrainConfig(pop_size=pop, member_batch=mb, reward_tile=rung_opt("flaggen")["reward_tile"]), m)
+    expected = {
+        "tiny": {k: 0 for k in KERNEL_TAGS},
+        "flagship": es["expected_launches_per_epoch"],
+        "flaggen": {"int8_matmul": dit_k1 * calls, "lora_chain": 0,
+                    "fused_qlora": es["per_call"]["k3_per_call"] * calls, "decode_attention": 0},
+        "ar_d16": {"int8_matmul": 0, "lora_chain": 0, "fused_qlora": 0,
+                   "decode_attention": len(VAR_PATCH_NUMS) * VAR_DEPTH * var_es["per_call"]["calls"]},
+    }
+    for rung in BENCH_LADDER.split(","):
+        r = rungs[rung]
+        if "imgs_per_sec" not in r:
+            raise AssertionError(f"the ladder's {rung} failed: {r.get('error')}")
+        if (r.get("device_name"), r.get("power_limit")) != (name.strip(), limit.strip()):
+            raise AssertionError(f"{rung}'s record is stamped {r.get('device_name')!r}, {r.get('power_limit')!r}, "
+                                 f"the card is {card!r}")
+        if r["mfu"] is None or not 0 < r["mfu"] <= 1 or r["physical_floor_s"] is None or \
+                r["step_time_s"] < r["physical_floor_s"]:
+            raise AssertionError(f"{rung}: mfu {r['mfu']}, step {r['step_time_s']} s, floor {r['physical_floor_s']} s")
+        if r["kernel_launches"] != expected[rung]:
+            raise AssertionError(f"{rung} launched {r['kernel_launches']} over its warm-up epoch, expected "
+                                 f"{expected[rung]}")
+        log(f"[bench] {rung}: {r['imgs_per_sec']} images/s, step {r['step_time_s']} s (single-dispatch "
+            f"{r['step_time_single_dispatch_s']} s, chain {r['chain']}), mfu {r['mfu']}, floor "
+            f"{r['physical_floor_s']} s, {r['roofline_bound']}-bound (predicted {r['predicted_step_time_s']} s), "
+            f"compile {r['compile_s']} s (capture {r['capture_s']} s, pool {r['graph_pool_bytes'] / 2**30:.2f} GiB), "
+            f"peak {(r['peak_bytes_est'] or 0) / 2**30:.2f} GiB, build {r['build_s']} s, launches "
+            f"{r['kernel_launches']}; {r['device_name']}, {r['power_limit']}")
+    ar = rungs["ar_d16"]
+    parity, rel = ar["kernel_parity_maxdiff"], ar.get("kernel_parity_rel")
+    if not isinstance(parity, float) or not isinstance(rel, float) or not rel <= BENCH_PARITY_REL:
+        raise AssertionError(f"ar_d16's K4 parity {parity} at |plain| {ar.get('kernel_parity_ref_abs')}: "
+                             f"{rel} of the call's largest output, bound {BENCH_PARITY_REL}")
+    if ladder["value"] != rungs["flagship"]["imgs_per_sec"] or ladder["vs_baseline"] is None:
+        raise AssertionError(f"the ladder's headline {ladder['value']} is not the flagship's")
+    if not (serve["parity_bitwise"] and serve["parity_max_abs_diff"] == 0.0 and serve["hot_swap_effective"]):
+        raise AssertionError(f"--serve parity {serve['parity_max_abs_diff']} (bitwise {serve['parity_bitwise']}), "
+                             f"hot swap {serve['hot_swap_effective']}")
+    report = bench_report.render(bench_report.iter_rungs([str(BENCH_DIR / "BENCH.json")], [])) + "\n\n" + \
+        bench_report.render_trend([str(BENCH_DIR / n) for n in ("BENCH.json", "SCALING.json", "SERVE.json")])
+    (BENCH_DIR / "REPORT.md").write_text(report + "\n")
+    log("[bench] bench_report:\n" + report)
+    fl = rungs["flagship"]
+    log(f"[bench] the runner's flagship epoch {fl['step_time_s']} s ({fl['imgs_per_sec']} images/s) against "
+        f"phase_es_flagship's replayed epochs {', '.join(f'{t:.3f}' for t in es['epoch_s'])} s; ar_d16 "
+        f"{ar['step_time_s']} s at 16 blocks (phase_var_es at {var_es['layers']}: "
+        f"{', '.join(f'{t:.3f}' for t in var_es['epoch_s'])} s); "
+        f"flagship − flaggen {fl['step_time_s'] - rungs['flaggen']['step_time_s']:.4f} s an epoch (decode and "
+        f"rewards, both at reward_tile {rung_opt('flaggen')['reward_tile']}); K4 parity {parity:.3g} at |plain| "
+        f"{ar['kernel_parity_ref_abs']:.3g} ({rel:.3g} of the call's largest output); serve {serve['batched_imgs_per_sec']} images/s batched, "
+        f"{serve['sequential_imgs_per_sec']} naive, {serve['sequential_aot_imgs_per_sec']} one-slot, bitwise; "
+        f"ladder {ladder_s:.1f} s, serve {serve_s:.1f} s")
+    return {"ladder": ladder, "serve": serve, **early, "report": report,
+            "seconds": {"ladder": ladder_s, "serve": serve_s, "early_children": early["seconds"]},
+            "launches": {k: sum(rungs[r]["kernel_launches"][k] for r in BENCH_LADDER.split(","))
+                         for k in KERNEL_TAGS}}
+
+
 def kernel_summary(name, rows, launches, calls_key, replaces, scope):
     """One entry per kernel: its main-path calls per unit of its path (one
     flagship image, one VAR generate call), summed."""
@@ -7594,8 +7821,15 @@ def main() -> int:
 
     warm = threading.Thread(target=tokenize_with_hf, args=(["a photo"],), daemon=True)
     warm.start()
+    # the runner's scaling run and one-item window use the card beside the build (the tiny rung runs no kernel)
+    bench_early = start_bench_early()
     # the SASS dumps run beside the kernel checks
-    build = timed("build", phase_build, defer_sass=True)
+    try:
+        build = timed("build", phase_build, defer_sass=True)
+        bench_early = timed("bench_early", finish_bench_early, bench_early)
+    except BaseException:
+        stop_bench_early(bench_early)
+        raise
     warm.join()
     try:
         k1_rows = timed("k1_check", phase_k1_check, torch)
@@ -7622,7 +7856,7 @@ def main() -> int:
     inf_tiny = timed("inf_reference", phase_inf_reference, torch)
     inf_q8_tiny = timed("inf_q8_reference", phase_inf_q8_reference, torch)
     zimage_tiny = timed("zimage_reference", phase_zimage_reference, torch)
-    es_float = timed("es_flagship_float", phase_es_flagship, torch, base_quant="off")
+    es_float = timed("es_flagship_float", phase_es_flagship, torch, base_quant="off", layers=FLAGSHIP_CUT_LAYERS)
     serve, serve_backend = timed("serve", phase_serve, torch, keep=True)
     tier = timed("serve_tier", phase_serve_tier, torch, serve_backend, serve)
     del serve_backend
@@ -7669,6 +7903,7 @@ def main() -> int:
         stop_pod_launches(pods)
         raise
     tp_sp = timed("tp_sp", phase_tp_sp, torch, pods)
+    bench = timed("bench", phase_bench, torch, bench_early, es, var_es)
 
     # `launches`: the wrappers' counters over the main paths' eager epochs (the
     # eager variant's timed epochs, each run_training program's warm-up);
@@ -7799,10 +8034,13 @@ def main() -> int:
                                             / weights_inf["per_call"]["calls"])
     k1_serve = kernel_summary("int8_matmul", k1_rows, serve["eager"]["launches"]["int8_matmul"], "calls_per_image",
                               "hyperscalees_t2i_tpu/ops/quant_mm.py:86", "one flagship served image")
+    # the adapted sites of an image: 8 a DiT block and 4 outside them (the tables count 20 blocks;
+    # the bf16-base phase runs es_float["layers"] of them)
     for k, run, epochs in ((kernels[1], es_float, TIMED_EPOCHS),
                            (kernels[2], es, TIMED_EPOCHS + train_eager_epochs + FLEET_W)):
-        if k["launches"] - extra_launches(k["name"]) != sum(r["calls_per_image"] for r in chain_rows[k["name"]]) * \
-                run["images_per_epoch"] * epochs:
+        table = sum(r["calls_per_image"] for r in chain_rows[k["name"]])
+        if table != 8 * 20 + 4 or k["launches"] - extra_launches(k["name"]) != \
+                (8 * run.get("layers", 20) + 4) * run["images_per_epoch"] * epochs:
             raise AssertionError(f"{k['name']} table and launch count disagree")
     if kernels[0]["launches"] - extra_launches("int8_matmul") != sum(r["calls_per_es_image"] for r in k1_rows) * \
             es["images_per_epoch"] * (TIMED_EPOCHS + train_eager_epochs + FLEET_W):
@@ -7823,8 +8061,8 @@ def main() -> int:
             raise AssertionError(f"{name}'s Z-Image table and launch count disagree")
     if train_launches("lora_chain") or train_launches("decode_attention"):
         raise AssertionError("the flagship trainer launched K2 or K4")
-    if var_es["eager"]["launches"]["decode_attention"] != \
-            sum(r["calls_per_call"] for r in k4_rows) * var_es["per_call"]["calls"] * TIMED_EPOCHS:
+    if var_es["eager"]["launches"]["decode_attention"] != sum(r["calls_per_call"] for r in k4_rows) \
+            * VAR_ES_LAYERS // VAR_DEPTH * var_es["per_call"]["calls"] * TIMED_EPOCHS:
         raise AssertionError("K4's VAR table and launch count disagree")
     if inf_es["launches"]["decode_attention"] != sum(r["calls_per_call"] for r in k4_inf_rows) * INF_FLOAT_DEPTH \
             // INF_DEPTH * inf_es["per_call"]["calls"] * inf_es["eager_epochs"]:
@@ -7834,6 +8072,10 @@ def main() -> int:
         per_process = [launches[kern["name"]] for launches in pod["launches"]]
         kern["launches_by_path"]["pod_es_data_axis_warmup_per_process"] = per_process
         kern["launches"] += sum(per_process)
+    # the rung runner's ladder child: each rung's warm-up epoch
+    for kern in kernels:
+        kern["launches_by_path"]["bench_ladder_child_warmups"] = bench["launches"][kern["name"]]
+        kern["launches"] += bench["launches"][kern["name"]]
 
     wall_s = time.perf_counter() - t_start
     log(f"[done] every phase passed in {wall_s:.1f} s (kernel build included)")
@@ -7851,7 +8093,7 @@ def main() -> int:
         pipeline_es=pipeline_es, serve_tier=tier,
         train_flagship=train, train_artifacts=artifacts, fleet_tiny=fleet_tiny, fleet_flagship=fleet_run, weights_var=weights_var,
         weights_sana=weights_sana, zimage_kernel_shapes=zimage_rows, zimage_tiny=zimage_tiny, zimage_es=zimage,
-        evaluate=evaluate, multiproc_es=multiproc, chaos_es=chaos, pod_es=pod, tp_sp=tp_sp,
+        evaluate=evaluate, multiproc_es=multiproc, chaos_es=chaos, pod_es=pod, tp_sp=tp_sp, bench=bench,
         phase_seconds=phase_s, kernels=kernels, k1_serving=k1_serve, k4_infinity=k4_inf,
         wall_s=wall_s,
     ), indent=1))

@@ -35,6 +35,15 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no CUDA device and no explicit CPU request they raise (:mod:`.device`).
 """
 
-from .device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # the package imports torch only when a module needs it: the rung
+    # runner's parent process (tools/bench.py) and the window queue import
+    # the package's stdlib-only modules and never load torch
+    if name == "resolve_device":
+        from .device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -42,7 +42,8 @@ PROMPT_EMBED_SEED = 1234
 @dataclasses.dataclass
 class SanaBackendConfig:
     """``backend_mode``: ``"one_step"`` or ``"pipeline"`` (multi-step, with
-    ``num_inference_steps`` DiT passes an image)."""
+    ``num_inference_steps`` DiT passes an image). ``decode_images=False``
+    generates latents only: no DC-AE decoder is built or run."""
 
     backend_mode: str = "one_step"
     model: sana.SanaConfig = dataclasses.field(default_factory=sana.SanaConfig)
@@ -52,6 +53,7 @@ class SanaBackendConfig:
     num_inference_steps: int = 2
     width_latent: int = 32
     height_latent: int = 32
+    decode_images: bool = True
     lora_r: int = 8
     lora_alpha: float = 16.0
     lora_targets: Tuple[str, ...] = sana.SANA_LORA_TARGETS
@@ -104,7 +106,7 @@ class SanaBackend:
             )
             self.model = sana.SanaTransformer(self.cfg.model, params).to(self.device)
             self._params = None
-        if self.vae is None:
+        if self.vae is None and self.cfg.decode_images:
             vp = self._vae_params
             if vp is None:
                 vp = dcae.init_decoder(self.cfg.vae, kv)
@@ -208,7 +210,8 @@ class SanaBackend:
         guidance_scale: Optional[float] = None,
     ) -> torch.Tensor:
         """``[n, b]`` prompt indices with ``n`` lane-stacked adapters and ``n``
-        keys ``[n, 2]`` → images ``[n, b, H, W, 3]``. Image ``j`` of lane ``i``
+        keys ``[n, 2]`` → images ``[n, b, H, W, 3]`` (the latents ``[n, b,
+        h, w, C]`` with ``decode_images=False``). Image ``j`` of lane ``i``
         draws its noise from ``keys[i]`` and ``j`` (:meth:`sample_gen_noise`);
         ``noise [n, b, *noise_shape]`` replaces the draw (ES training shares
         one epoch noise across members). The lanes' adapter may also be one
@@ -234,6 +237,8 @@ class SanaBackend:
                 self.model, self.prompt_embeds[flat], self.prompt_mask[flat], guidance_scale=g,
                 latent_hw=hw, lora=stacked_theta, lora_scale=self.lora_scale, noise=noise,
             )
+        if not cfg.decode_images:
+            return latents.reshape(n, b, *latents.shape[1:])
         images = dcae.decode(self.vae, latents / cfg.vae.scaling_factor)
         return images.reshape(n, b, *images.shape[1:])
 
@@ -272,6 +277,13 @@ def build_serve_backend(
     return backend
 
 
+def latent_mean_reward(latents: torch.Tensor, prompt_ids: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The ``flaggen`` rung's reward: each latent's mean, ``{"combined":
+    [N]}`` in f32 (the JAX ``bench.py``'s latent-only reward, a statistic of
+    negligible cost, so the rung times generation and the ES step alone)."""
+    return {"combined": latents.to(torch.float32).mean(dim=(1, 2, 3))}
+
+
 def build_train_backend(scale: str, device: DeviceLike = None, base_quant: Optional[str] = None, seed: int = 0):
     """The generator backend and the reward suite of one ES rung, built as
     the JAX package's ``bench.py`` builds them over ``BENCH_PROMPT_SET``:
@@ -283,10 +295,13 @@ def build_train_backend(scale: str, device: DeviceLike = None, base_quant: Optio
     rung's ``tower_dtype``); then the ``base_quant`` knob on the DiT, the
     DC-AE decoder and both CLIP trees. ``base_quant`` defaults to the rung's
     ``RUNG_OPT``; ``"off"`` keeps a float base, whose adapted sites run K2
-    instead of K3. Returns ``(backend, reward_fn)``."""
+    instead of K3. ``"flagship_gen"`` (the ``flaggen`` rung) builds the
+    flagship's DiT and prompt embeddings from the same keys, with the
+    flagship's base, and no decoder and no towers: the reward is
+    :func:`latent_mean_reward`. Returns ``(backend, reward_fn)``."""
     from ..rewards.suite import build_random_reward_suite
 
-    opt = rung_opt(scale)
+    opt = rung_opt("flagship" if scale == "flagship_gen" else scale)
     base_quant = opt["base_quant"] if base_quant is None else base_quant
     dev = resolve_device(device)
     spec = sana_rung_model(scale, tower_dtype=opt["tower_dtype"])
@@ -295,12 +310,14 @@ def build_train_backend(scale: str, device: DeviceLike = None, base_quant: Optio
     prompts = list(BENCH_PROMPT_SET)
 
     kt, kv, ke = threefry.split(threefry.prng_key(seed, dev), 3)
-    params = cast_floating(sana.init_sana(bcfg.model, kt), dtype)
-    vae = cast_floating(dcae.init_decoder(bcfg.vae, kv), dtype)
-    reward = build_random_reward_suite(spec["clip_b"], spec["clip_h"], len(prompts),
-                                       threefry.prng_key(seed + 1, dev), dtype, base_quant)
-    backend = SanaBackend(bcfg, dev, params=maybe_quantize_tree(params, base_quant),
-                          vae_params=maybe_quantize_tree(vae, base_quant), prompts=prompts)
+    params = maybe_quantize_tree(cast_floating(sana.init_sana(bcfg.model, kt), dtype), base_quant)
+    if spec["latent_only"]:
+        vae, reward = None, latent_mean_reward
+    else:
+        vae = maybe_quantize_tree(cast_floating(dcae.init_decoder(bcfg.vae, kv), dtype), base_quant)
+        reward = build_random_reward_suite(spec["clip_b"], spec["clip_h"], len(prompts),
+                                           threefry.prng_key(seed + 1, dev), dtype, base_quant)
+    backend = SanaBackend(bcfg, dev, params=params, vae_params=vae, prompts=prompts)
     del params, vae
     backend.set_prompt_embeds(threefry.normal(ke, (len(prompts), bcfg.prompt_embed_len, bcfg.model.caption_dim)))
     backend.setup()

@@ -162,7 +162,7 @@ class VarBackend:
         return self.generate_p(stacked, [list(flat_ids)], key[None])[0]
 
 
-def build_train_backend(scale: str = "d16", device: DeviceLike = None, seed: int = 0):
+def build_train_backend(scale: str = "d16", device: DeviceLike = None, seed: int = 0, depth: Optional[int] = None):
     """The VAR backend and the reward suite of the ``ar_d16`` rung, as the
     JAX package's ``bench.py`` and ``train/cli.py`` build them: random
     weights from ``split(PRNGKey(seed))``'s first key on the device (the
@@ -173,6 +173,7 @@ def build_train_backend(scale: str = "d16", device: DeviceLike = None, seed: int
     at their published widths (``"d16"``) with text tables from random
     token ids, both towers' weights and compute in the rung's
     ``tower_dtype`` (f32). The float base is kept (``RUNG_OPT["ar_d16"]``).
+    ``depth`` cuts the transformer to that many blocks, every width kept.
     Returns ``(backend, reward_fn)``."""
     from ..rewards.suite import build_random_reward_suite
 
@@ -180,6 +181,8 @@ def build_train_backend(scale: str = "d16", device: DeviceLike = None, seed: int
     dev = resolve_device(device)
     spec = var_rung_model(scale, tower_dtype=opt["tower_dtype"])
     bcfg = spec["bcfg"]
+    if depth is not None:
+        bcfg = dataclasses.replace(bcfg, model=dataclasses.replace(bcfg.model, depth=int(depth)))
     kt, kc = threefry.split(threefry.prng_key(seed, dev))
     params = cast_floating(var_mod.init_var(bcfg.model, kt), bcfg.model.compute_dtype)
     backend = VarBackend(bcfg, dev, params=params)

@@ -7,8 +7,9 @@ that ``torch.profiler.profile.export_chrome_trace`` writes: a
 ``traceEvents`` list of complete events (``"ph": "X"``) with ``ts`` and
 ``dur`` in microseconds on one clock for the host and the card. Each
 dispatch runs inside a ``torch.profiler.record_function`` range named
-``<site>/<label>`` (``train/es_step_m4r1``), a host event of category
-``user_annotation``; the card's events are the categories ``kernel``,
+``<site>/<label>`` (``train/es_step_m4r1``; the rung runner's
+``bench/<rung>``), a host event of category ``user_annotation``; the
+card's events are the categories ``kernel``,
 ``gpu_memcpy`` and ``gpu_memset``.
 
 Three layers, as in the reference:
@@ -67,7 +68,7 @@ __all__ = [
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 RANGE_CATEGORY = "user_annotation"
-PROGRAM_SITES = ("train/", "serve/")
+PROGRAM_SITES = ("train/", "serve/", "bench/")
 US_PER_S = 1e6
 
 # the kernels each wrapper launches one of a call, by their names in csrc/

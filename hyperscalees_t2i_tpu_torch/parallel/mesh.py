@@ -43,6 +43,7 @@ process holds one card).
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import datetime
 import math
@@ -124,7 +125,18 @@ def initialize_multihost(coordinator: Optional[str] = None, num_processes: Optio
         raise RuntimeError(f"multi-process launch configured (coordinator {coord}, {n} process(es), this rank "
                            f"{rank}) but its store or process group could not be reached: {e}") from e
     _STORE = store
+    atexit.register(_leave_launch)
     return n > 1
+
+
+def _leave_launch() -> None:
+    """At exit, destroy the process groups before the interpreter's own
+    teardown: a gloo group left to it can still hold running threads, and
+    the process then aborts after its work is done (exit -6)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def process_device(device: DeviceLike = None) -> torch.device:

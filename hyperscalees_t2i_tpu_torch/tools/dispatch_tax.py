@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -49,32 +48,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-REPO = Path(__file__).resolve().parents[2]
-
-
-def build_rung(rung: str, device: torch.device, base_quant: Optional[str] = None):
-    """The rung's backend and reward suite, as ``build_train_backend``
-    builds them (``base_quant`` overrides the rung's)."""
-    from ..backends.sana_backend import build_train_backend
-
-    return build_train_backend(rung, device=device, base_quant=base_quant, seed=0)
-
-
-def _git_sha() -> Optional[str]:
-    try:
-        out = subprocess.run(["git", "rev-parse", "HEAD"], cwd=REPO, capture_output=True, text=True, timeout=30)
-    except OSError:
-        return None
-    return out.stdout.strip() or None if out.returncode == 0 else None
-
-
-def _power_limit() -> Optional[str]:
-    try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                             capture_output=True, text=True, timeout=60)
-    except OSError:
-        return None
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else None
+from .bench import build_rung, card_stamp, git_sha
 
 
 def run(rung: str, steps: int, chain: int, device: Any = None,
@@ -127,8 +101,8 @@ def run(rung: str, steps: int, chain: int, device: Any = None,
         "base_quant": opt["base_quant"], "steps_timed": steps, "chain": chain,
         "platform": "gpu" if cuda else "cpu",
         "device_kind": torch.cuda.get_device_name(dev) if cuda else "cpu",
-        "card": _power_limit() if cuda else None,
-        "sync": "read-back", "torch_version": torch.__version__, "git_sha": _git_sha(),
+        "card": ", ".join(v for v in card_stamp().values() if v) or None if cuda else None,
+        "sync": "read-back", "torch_version": torch.__version__, "git_sha": git_sha(),
     }
     graphs: Dict[str, Any] = {}
     rec["step_time_eager_s"], single = timed(make(backend, reward, False, opt["base_quant"], graph=False))

@@ -40,11 +40,15 @@ the trainer groups them into ``num_processes`` hosts of D consecutive ranks,
 each host one member slice split over a pop × data mesh of its D processes
 (``train.cli --pop_shards``). ``--kill_host I`` then kills every process of
 host ``I``.
+
+:func:`die_with_parent` is the first call of a child that must not outlive
+the process that started it (the rung runner's children, ``chip_smoke.py``'s).
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import os
 import shlex
 import signal
@@ -56,6 +60,18 @@ import time
 from typing import Dict, List, Optional, Sequence
 
 CLI = ("-m", "hyperscalees_t2i_tpu_torch.train.cli")
+
+
+def die_with_parent(parent: int) -> None:
+    """Have the kernel SIGKILL this process when the thread that started it
+    ends (Linux ``PR_SET_PDEATHSIG``), however it ended; leave at once if
+    ``parent``, the process that started it, has already gone. Raises
+    where the call fails."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(1, signal.SIGKILL, 0, 0, 0) != 0:  # PR_SET_PDEATHSIG
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_PDEATHSIG) failed")
+    if os.getppid() != parent:
+        os._exit(1)
 
 
 def _free_port() -> int:

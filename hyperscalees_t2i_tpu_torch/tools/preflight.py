@@ -68,8 +68,9 @@ import torch
 
 from ..device import resolve_device
 from ..obs.program_cost import ProgramLedger, get_ledger, record_program, roofline, set_ledger
-from ..rungs import RUNG_ORDER, RUNG_PLAN, rung_opt
+from ..rungs import RUNG_ORDER, RUNG_PLAN, knobs_str, rung_opt
 from ..utils.mfu import device_kind, hbm_bw_for_kind, hbm_bytes_for_kind, peak_flops_for_kind
+from ..ops import kernel_launches
 
 # card kinds in the fit table (rows resolve through utils/mfu.py's tables)
 CARDS = ("NVIDIA H100 80GB HBM3", "NVIDIA H100 PCIe")
@@ -81,18 +82,6 @@ _TPU_KIND = re.compile(r"^(tpu|v[2-9])", re.IGNORECASE)
 _OOM_ASK = re.compile(r"Tried to allocate ([0-9.]+) ([KMGT]i?B|B)")
 _UNITS = {"B": 1, "KiB": 2**10, "MiB": 2**20, "GiB": 2**30, "TiB": 2**40,
           "KB": 1e3, "MB": 1e6, "GB": 1e9, "TB": 1e12}
-
-
-def _launches() -> Dict[str, int]:
-    """The kernel wrappers' launch counters (kernels launched on the card;
-    the CPU's plain versions count nothing)."""
-    from ..ops.attention import decode_attention
-    from ..ops.fused_lora import member_lora_delta
-    from ..ops.fused_qlora import fused_qlora_matmul
-    from ..ops.quant_mm import int8_matmul
-
-    return {"int8_matmul": int8_matmul.launches, "lora_chain": member_lora_delta.launches,
-            "fused_qlora": fused_qlora_matmul.launches, "decode_attention": decode_attention.launches}
 
 
 def oom_requested_bytes(err: BaseException) -> Optional[float]:
@@ -194,7 +183,7 @@ def analyze_rung(rung: str, device: Any = None, ledger: Optional[ProgramLedger] 
     extra = {"rung": rung, "imgs_per_step": pop * m}
     _free(dev)
     t0 = time.perf_counter()
-    before = _launches()
+    before = kernel_launches()
     try:
         backend, reward_fn = build_train_backend(scale, dev, base_quant=opt["base_quant"], seed=seed)
         cache = program_cache(backend, dev, count_cost=True)
@@ -220,7 +209,7 @@ def analyze_rung(rung: str, device: Any = None, ledger: Optional[ProgramLedger] 
             ledger.write(rec)
         _free(dev)
         return rec
-    after = _launches()
+    after = kernel_launches()
     entry = cache.entries[(m, 1)]
     extra.update(build_s=build_s, base_bytes=float(base), program_bytes=float(used), peak_bytes=float(base + used),
                  warmup_launches={k: after[k] - before[k] for k in after})
@@ -234,17 +223,6 @@ def analyze_rung(rung: str, device: Any = None, ledger: Optional[ProgramLedger] 
     del step, cache, args, theta, backend, reward_fn
     _free(dev)
     return rec
-
-
-def knobs_str(g: Dict[str, Any]) -> str:
-    """The knobs of a geometry in one token, ``t<tile>/n-<dt>/w-<dt>`` plus
-    ``/fuse`` and ``/q8`` (the reference's, less its remat field)."""
-    def dt(v: Any) -> str:
-        return "bf16" if str(v).startswith("bf") else "f32"
-
-    marks = "".join(m for m, on in (("/fuse", g.get("pop_fuse")), ("/q8", g.get("base_quant") == "int8")) if on)
-    return (f"t{g.get('reward_tile', 0)}/n-{dt(g.get('noise_dtype', 'float32'))}"
-            f"/w-{dt(g.get('tower_dtype', 'float32'))}{marks}")
 
 
 def _gb(v: Optional[float]) -> str:
@@ -292,8 +270,8 @@ def render_report(records: List[Dict[str, Any]], target_chip: str,
                          f"{g['n_devices']} processes (per-device peak; update "
                          f"{'sharded: its share' if g.get('pop_shard_update') else 'whole'})")
     lines.append("## Program cost (per ES step)")
-    lines.append("# knobs = t<reward tile>/n-<noise dtype>/w-<tower dtype>[/fuse][/q8]; FLOPs and bytes counted over "
-                 "the warm-up (obs/program_cost.py)")
+    lines.append("# knobs = <remat>/t<reward tile>/n-<noise dtype>/w-<tower dtype>[/fuse][/q8] (rungs.knobs_str; the "
+                 "port rematerializes nothing); FLOPs and bytes counted over the warm-up (obs/program_cost.py)")
     head = ("rung", "geometry", "pop", "knobs", "TFLOP", "GB moved", "base GB", "program GB", "peak GB", "K1", "K3",
             "build s", "warmup s", "capture s")
     lines.append(" ".join(_col(h, 24 if h == "knobs" else 10 if "GB" in h else 9) for h in head))

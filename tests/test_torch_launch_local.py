@@ -22,10 +22,17 @@ runs the same command line meanwhile.
   ``[p<i>]`` prefixes and the launch flags, a failed child's code,
   ``--kill_host``, ``--grace_s``, the relaunch with ``HYPERSCALEES_FAULTS``
   cleared.
+- ``die_with_parent``: a child dies when the process that started it ends,
+  and leaves at once when that process had already gone.
 """
 
 import json
+import os
+import subprocess
+import sys
 import threading
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -175,3 +182,40 @@ def test_relaunch_clears_the_faults_and_appends_its_args(monkeypatch):
                               "--resume true", "--", "--pop_size", "6"]) == 7
     assert [(n, fwd, kw.get("clear_faults", False)) for n, fwd, kw in calls] == [
         (3, ["--pop_size", "6"], False), (2, ["--pop_size", "6", "--resume", "true"], True)]
+
+
+ROOT = Path(__file__).resolve().parents[1]
+_GUARDED = ("import sys, time; from hyperscalees_t2i_tpu_torch.tools.launch_local import die_with_parent; "
+            "die_with_parent({parent}); print('up', flush=True); time.sleep(60)")
+# a parent that starts a guarded child, prints its pid and leaves it asleep
+_PARENT = ("import os, subprocess, sys; code = sys.argv[1].format(parent=os.getpid()); "
+           "child = subprocess.Popen([sys.executable, '-c', code], stdout=subprocess.PIPE, text=True); "
+           "assert child.stdout.readline().strip() == 'up'; print(child.pid, flush=True)")
+
+
+def _alive(pid: int) -> bool:
+    try:
+        state = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0]
+    except (FileNotFoundError, ProcessLookupError):
+        return False
+    return state not in ("Z", "X")
+
+
+def test_die_with_parent_dies_with_the_parent():
+    out = subprocess.run([sys.executable, "-c", _PARENT, _GUARDED], cwd=ROOT, capture_output=True, text=True,
+                         timeout=60, check=True)
+    pid = int(out.stdout.split()[-1])
+    deadline = time.monotonic() + 20
+    while _alive(pid) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    assert not _alive(pid)
+
+
+def test_die_with_parent_leaves_if_the_parent_is_gone():
+    # pid 1 is never this child's parent: the child leaves before its work
+    out = subprocess.run([sys.executable, "-c", _GUARDED.format(parent=1)], cwd=ROOT, capture_output=True,
+                         text=True, timeout=60)
+    assert out.returncode == 1 and "up" not in out.stdout
+    out = subprocess.run([sys.executable, "-c", _GUARDED.replace("time.sleep(60)", "pass").format(
+        parent=os.getpid())], cwd=ROOT, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0 and out.stdout.strip() == "up"

@@ -47,7 +47,8 @@ _REQUIRED = ["hyperscalees_t2i_tpu_torch." + m for m in (
     "tools.demo", "tools.vote_report", "tools.encode_prompts", "tools.sweep", "utils.imagenet_labels",
     "parallel.mesh", "parallel.collectives", "parallel.pop_update", "obs.multihost", "tools.launch_local",
     "resilience.faultinject", "resilience.coord", "resilience.elastic", "resilience.checkpoints", "resilience.retry",
-    "parallel.pop_eval", "parallel.tp", "ops.ring_attention", "obs.podtrace")]
+    "parallel.pop_eval", "parallel.tp", "ops.ring_attention", "obs.podtrace", "tools.bench", "tools.bench_report",
+    "tools.window")]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

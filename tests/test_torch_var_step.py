@@ -197,8 +197,10 @@ def test_step_draws_gumbel_noise_and_is_seeded(port_parts):
 
 
 def test_build_train_backend_tiny_and_the_ar_rung():
-    # the JAX package's "ar" plan and knobs, at VAR-d16's geometry under a key of its own
-    assert "ar" not in RUNG_PLAN and "ar" not in RUNG_OPT
+    # the JAX package's "ar" plan and knobs: as "ar" at its cut ar_small geometry (the
+    # rung runner's), and at VAR-d16's geometry under a key of its own
+    assert RUNG_PLAN["ar"] == JRUNG_PLAN["ar"] == ("ar_small", 16, 4, 4)
+    assert RUNG_OPT["ar"] == {k: JRUNG_OPT["ar"][k] for k in RUNG_OPT["ar"]}
     assert RUNG_PLAN["ar_d16"] == ("d16", *JRUNG_PLAN["ar"][1:]) == ("d16", 16, 4, 4)
     assert RUNG_OPT["ar_d16"] == {k: JRUNG_OPT["ar"][k] for k in RUNG_OPT["ar_d16"]}
     assert not RUNG_OPT["ar_d16"]["pop_fuse"] and RUNG_OPT["ar_d16"]["base_quant"] == "off"
@@ -209,6 +211,9 @@ def test_build_train_backend_tiny_and_the_ar_rung():
     m = spec["bcfg"].model
     assert (m.depth, m.d_model, m.n_heads, m.seq_len, m.vq.vocab_size) == (16, 1024, 16, 680, 4096)
     assert spec["bcfg"].class_pool == tuple(range(16)) and spec["clip_h"] is not None
+    m = var_rung_model("ar_small")["bcfg"].model
+    assert (m.depth, m.d_model, m.n_heads, m.num_classes, m.vq.ch, m.vq.ch_mult) == (6, 512, 8, 16, 32, (1, 2, 2))
+    assert build_train_backend("tiny", device="cpu", seed=0, depth=1)[0].cfg.model.depth == 1
 
 
 def test_var_entry_points_default_to_the_card(monkeypatch):
