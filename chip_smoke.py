@@ -270,7 +270,20 @@ kernel name, from ``torch.profiler`` over one replayed epoch or flush
     bound); the served
     images bitwise across the three serving paths; the scaling digests
     equal at 1 and 2 processes. The runner's flagship and ``ar_d16`` epochs
-    are printed beside this script's own.
+    are printed beside this script's own. Then ``--fleet --rung flagship
+    --widths 1,2`` (:func:`bench_fleet`: rows bitwise solo at each width,
+    each width's tick) and ``--profile`` on ``flagship`` in a ladder child of
+    its own (:func:`bench_profile`: the ``bench/flagship`` ranges joined to
+    the rung's ledger record by ``obs/calib.py``, their device time by
+    kernel family).
+
+The span tree (the port has the JAX package's process-global tracer): the
+traced flagship ``run_training`` of 7 writes the JAX parents
+(``TRAIN_SPANS``: ``trace/pop_eval`` in ``compile``, twice, and
+``obs/pop_eval_traces`` 2, the warm-up and the capture), and 5's serving
+writes ``SERVE_SPANS`` (``serve/compile`` ⊃ ``trace/serve_batch``,
+``serve/batch`` ⊃ ``serve/dispatch``) with ``obs/serve_traces`` flat over
+hot swaps between replays.
 
 Every random number of the port is the JAX package's (the same keys, the
 same key tree); the phases draw from ``utils.threefry`` keys.
@@ -1484,9 +1497,17 @@ def phase_serve(torch, keep: bool = False):
     image finite in [0, 1], the tenants' different; a request alone (padded
     to the geometry's lanes) equal to it batched, bitwise, under the graph;
     a brand-new tenant served with ``serve_compiles`` flat; one flush under
-    an engine's own profile window (:func:`serve_profile_window`). ``keep``
-    also returns the backend, for :func:`phase_serve_tier`."""
+    an engine's own profile window (:func:`serve_profile_window`). The
+    warm-ups and the four flushes run under the process's tracer: the
+    trace holds the JAX package's serving spans under their JAX parents
+    (``SERVE_SPANS``), the graph engine's warm-up counted ``serve_traces``
+    twice a build (its warm-up and its capture), and the hot swaps after it
+    (the graph flushes, the solo request, the new tenant) leave
+    ``obs/serve_traces`` flat. ``keep`` also returns the backend, for
+    :func:`phase_serve_tier`."""
     from hyperscalees_t2i_tpu_torch.backends.sana_backend import build_serve_backend
+    from hyperscalees_t2i_tpu_torch.obs.metrics import MetricsRegistry, set_registry
+    from hyperscalees_t2i_tpu_torch.obs.trace import load_events, process_tracer
     from hyperscalees_t2i_tpu_torch.rungs import BENCH_PROMPT_SET, RUNG_BASE_QUANT, SERVE_PLAN, sana_rung_model
     from torch.profiler import ProfilerActivity, profile
 
@@ -1509,95 +1530,118 @@ def phase_serve(torch, keep: bool = False):
         theta = backend.init_theta(threefry.fold_in(threefry.prng_key(8, "cpu"), i))
         tenants.append({k: {"a": d["a"], "b": 0.05 * torch.randn(d["b"].shape, generator=gen)}
                         for k, d in theta.items()})
-    warm_s, admitted = {}, {}
-    for v, eng in engines.items():
-        for i in range(2):
-            eng.put_adapter(f"tenant{i}", tenants[i])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        (label,) = eng.warmup()
-        torch.cuda.synchronize()
-        warm_s[v] = time.perf_counter() - t0
-        admitted[v] = dict(eng.admission[label])
-        if not admitted[v]["armed"] or admitted[v].get("measured_bytes") is None:
-            raise AssertionError(f"serving: the {v} engine's admission did not arm or measure: {admitted[v]}")
-    entry = next(iter(engines["graph"].programs.stats().values()))
-    if not entry["pool_bytes"] > 0:
-        raise AssertionError(f"serving: the graph's pool holds {entry['pool_bytes']} bytes")
-    log(f"[serve] flagship backend built in {build_s:.1f} s, warmup graph {warm_s['graph']:.1f} s (capture "
-        f"{entry['capture_s']:.3f} s, instantiate {entry['instantiate_s']:.3f} s, pool "
-        f"{entry['pool_bytes'] / 2**30:.2f} GiB), eager {warm_s['eager']:.1f} s; {len(routed)} int8 sites route "
-        f"to the kernel; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    log("[serve] admission at adapter_batch " + str(A) + ": " + "; ".join(
-        f"{v} estimate {r['estimate_bytes'] / 2**30:.3f} GiB (probes "
-        f"{ {k: round(b / 2**30, 3) for k, b in r['probe_bytes'].items()} } GiB) against the built "
-        f"{r['measured_bytes'] / 2**30:.3f} GiB (base {r['base_bytes'] / 2**30:.3f}): estimate/measured "
-        f"{r['estimate_bytes'] / r['measured_bytes']:.4f}" for v, r in admitted.items()))
+    warm_s, admitted, serve_traces = {}, {}, {}
+    trace_path = ROOT / "build" / "serve_trace.jsonl"
+    trace_path.unlink(missing_ok=True)
+    registry = set_registry(MetricsRegistry())
+    try:
+        with process_tracer(trace_path):
+            for v, eng in engines.items():
+                for i in range(2):
+                    eng.put_adapter(f"tenant{i}", tenants[i])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                traces0 = registry.value("serve_traces", 0)
+                (label,) = eng.warmup()
+                torch.cuda.synchronize()
+                warm_s[v] = time.perf_counter() - t0
+                serve_traces[v] = registry.value("serve_traces", 0) - traces0
+                admitted[v] = dict(eng.admission[label])
+                if not admitted[v]["armed"] or admitted[v].get("measured_bytes") is None:
+                    raise AssertionError(f"serving: the {v} engine's admission did not arm or measure: {admitted[v]}")
+            # the graph engine's builds (its probes and its program) ran the body at the warm-up and the capture
+            builds = len(admitted["graph"].get("probe_bytes", {})) + 1
+            if serve_traces["graph"] != 2 * builds:
+                raise AssertionError(f"serving: the graph engine's warm-up counted serve_traces "
+                                     f"{serve_traces['graph']}, expected 2 a build over {builds} builds")
+            traces_warm = registry.value("serve_traces", 0)
+            entry = next(iter(engines["graph"].programs.stats().values()))
+            if not entry["pool_bytes"] > 0:
+                raise AssertionError(f"serving: the graph's pool holds {entry['pool_bytes']} bytes")
+            log(f"[serve] flagship backend built in {build_s:.1f} s, warmup graph {warm_s['graph']:.1f} s (capture "
+                f"{entry['capture_s']:.3f} s, instantiate {entry['instantiate_s']:.3f} s, pool "
+                f"{entry['pool_bytes'] / 2**30:.2f} GiB), eager {warm_s['eager']:.1f} s; {len(routed)} int8 sites "
+                f"route to the kernel; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+            log("[serve] admission at adapter_batch " + str(A) + ": " + "; ".join(
+                f"{v} estimate {r['estimate_bytes'] / 2**30:.3f} GiB (probes "
+                f"{ {k: round(b / 2**30, 3) for k, b in r['probe_bytes'].items()} } GiB) against the built "
+                f"{r['measured_bytes'] / 2**30:.3f} GiB (base {r['base_bytes'] / 2**30:.3f}): estimate/measured "
+                f"{r['estimate_bytes'] / r['measured_bytes']:.4f}" for v, r in admitted.items()))
 
-    images_per_req = plan["images_per_request"]
-    per_flush = len(routed) * -(-N_REQUESTS // A) * -(-A // mb)
-    expected = {"int8_matmul": per_flush, "lora_chain": 0, "fused_qlora": 0, "decode_attention": 0}
-    walls = {"graph": [], "eager": []}
-    counted = {v: [] for v in engines}
-    results = {}
+            images_per_req = plan["images_per_request"]
+            per_flush = len(routed) * -(-N_REQUESTS // A) * -(-A // mb)
+            expected = {"int8_matmul": per_flush, "lora_chain": 0, "fused_qlora": 0, "decode_attention": 0}
+            walls = {"graph": [], "eager": []}
+            counted = {v: [] for v in engines}
+            results = {}
 
-    def flush(eng):
-        reqs = [eng.submit(f"tenant{i % 2}", [i // 2], seed=i // 2) for i in range(N_REQUESTS)]
-        res = eng.flush()
-        if [r.request.request_id for r in res] != [r.request_id for r in reqs] or not all(r.ok for r in res):
-            raise AssertionError("not every request was served")
-        return res
+            def flush(eng):
+                reqs = [eng.submit(f"tenant{i % 2}", [i // 2], seed=i // 2) for i in range(N_REQUESTS)]
+                res = eng.flush()
+                if [r.request.request_id for r in res] != [r.request_id for r in reqs] or not all(r.ok for r in res):
+                    raise AssertionError("not every request was served")
+                return res
 
-    for v in ("eager", "graph", "graph", "eager"):
-        torch.cuda.synchronize()
-        _reset_counters()
-        t0 = time.perf_counter()
-        results[v] = flush(engines[v])
-        torch.cuda.synchronize()
-        walls[v].append(time.perf_counter() - t0)
-        counted[v].append(_counters())
-    nothing = {k: 0 for k in expected}
-    if any(c != expected for c in counted["eager"]) or any(c != nothing for c in counted["graph"]):
-        raise AssertionError(f"serving: the counters read {counted['eager']} over the eager flushes (expected "
-                             f"{expected} each), {counted['graph']} over the replays (expected none)")
-    profiled = {}
-    for v, eng in engines.items():
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            flush(eng)
+            for v in ("eager", "graph", "graph", "eager"):
+                torch.cuda.synchronize()
+                _reset_counters()
+                t0 = time.perf_counter()
+                results[v] = flush(engines[v])
+                torch.cuda.synchronize()
+                walls[v].append(time.perf_counter() - t0)
+                counted[v].append(_counters())
+        span_counts = span_tree_check(load_events(trace_path), SERVE_SPANS, "the serving trace")
+        nothing = {k: 0 for k in expected}
+        if any(c != expected for c in counted["eager"]) or any(c != nothing for c in counted["graph"]):
+            raise AssertionError(f"serving: the counters read {counted['eager']} over the eager flushes (expected "
+                                 f"{expected} each), {counted['graph']} over the replays (expected none)")
+        profiled = {}
+        for v, eng in engines.items():
             torch.cuda.synchronize()
-        kernels, busy, n_kernels, _ = device_kernels(torch, prof)
-        profiled[v] = dict(launches=profiled_launches(kernels), busy_ms=busy, kernels=n_kernels)
-        if profiled[v]["launches"] != expected:
-            raise AssertionError(f"serving: the profiled {v} flush launched {profiled[v]['launches']} on the "
-                                 f"device, expected {expected}")
-    window = serve_profile_window(torch, backend, plan, tenants, flush, expected)
-    graph_vs_eager = max(float(abs(g.images - e.images).max()) for g, e in zip(results["graph"], results["eager"]))
-    if graph_vs_eager != 0.0:
-        raise AssertionError(f"served images: graph and eager differ by {graph_vs_eager}")
-    for r in results["graph"]:
-        im = r.images
-        if im.shape != (images_per_req, 1024, 1024, 3):
-            raise AssertionError(f"image shape {im.shape}")
-        if not (math.isfinite(float(im.sum())) and im.min() >= 0.0 and im.max() <= 1.0):
-            raise AssertionError("image not finite or outside [0, 1]")
-    res = results["graph"]
-    tenant_diff = float(abs(res[0].images - res[1].images).max())  # same seed, other adapter
-    if not tenant_diff > 0:
-        raise AssertionError("two tenants' adapters gave the same image")
-    geng = engines["graph"]
-    compiles = geng.registry.snapshot()["serve_compiles"]
-    t0 = time.perf_counter()
-    solo = geng.generate(res[0].request.adapter_id, res[0].request.prompt_ids, res[0].request.seed)
-    solo_s = time.perf_counter() - t0
-    solo_diff = float(abs(solo - res[0].images).max())
-    if solo_diff != 0.0:
-        raise AssertionError(f"batched and solo results differ by {solo_diff} under the graph")
-    geng.put_adapter("tenant2", tenants[2])
-    new_tenant = geng.generate("tenant2", [0], seed=0)
-    snap = geng.registry.snapshot()
-    if snap["serve_compiles"] != compiles or compiles != 1 or not np_isfinite(new_tenant):
-        raise AssertionError(f"a new tenant changed serve_compiles {compiles} → {snap['serve_compiles']}")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                flush(eng)
+                torch.cuda.synchronize()
+            kernels, busy, n_kernels, _ = device_kernels(torch, prof)
+            profiled[v] = dict(launches=profiled_launches(kernels), busy_ms=busy, kernels=n_kernels)
+            if profiled[v]["launches"] != expected:
+                raise AssertionError(f"serving: the profiled {v} flush launched {profiled[v]['launches']} on the "
+                                     f"device, expected {expected}")
+        flushed = registry.value("serve_traces", 0)
+        window = serve_profile_window(torch, backend, plan, tenants, flush, expected)  # another engine: its build
+        traces_window = registry.value("serve_traces", 0)
+        graph_vs_eager = max(float(abs(g.images - e.images).max()) for g, e in zip(results["graph"], results["eager"]))
+        if graph_vs_eager != 0.0:
+            raise AssertionError(f"served images: graph and eager differ by {graph_vs_eager}")
+        for r in results["graph"]:
+            im = r.images
+            if im.shape != (images_per_req, 1024, 1024, 3):
+                raise AssertionError(f"image shape {im.shape}")
+            if not (math.isfinite(float(im.sum())) and im.min() >= 0.0 and im.max() <= 1.0):
+                raise AssertionError("image not finite or outside [0, 1]")
+        res = results["graph"]
+        tenant_diff = float(abs(res[0].images - res[1].images).max())  # same seed, other adapter
+        if not tenant_diff > 0:
+            raise AssertionError("two tenants' adapters gave the same image")
+        geng = engines["graph"]
+        compiles = geng.registry.snapshot()["serve_compiles"]
+        t0 = time.perf_counter()
+        solo = geng.generate(res[0].request.adapter_id, res[0].request.prompt_ids, res[0].request.seed)
+        solo_s = time.perf_counter() - t0
+        solo_diff = float(abs(solo - res[0].images).max())
+        if solo_diff != 0.0:
+            raise AssertionError(f"batched and solo results differ by {solo_diff} under the graph")
+        geng.put_adapter("tenant2", tenants[2])
+        new_tenant = geng.generate("tenant2", [0], seed=0)
+        snap = geng.registry.snapshot()
+        if snap["serve_compiles"] != compiles or compiles != 1 or not np_isfinite(new_tenant):
+            raise AssertionError(f"a new tenant changed serve_compiles {compiles} → {snap['serve_compiles']}")
+        # the hot swaps between replays (tenants 0 and 1 in each flush, the solo request, tenant 2) traced nothing
+        traces_end = registry.value("serve_traces", 0)
+    finally:
+        set_registry(None)
+    if flushed != traces_warm or traces_end != traces_window:
+        raise AssertionError(f"hot swaps between replays moved obs/serve_traces {traces_warm} → {flushed} (the "
+                             f"flushes), {traces_window} → {traces_end} (the solo request, a new tenant)")
     breakdown = stage_breakdown(torch, backend, geng.store.get("tenant0"))
     images = N_REQUESTS * images_per_req
     stats = dict(
@@ -1613,8 +1657,13 @@ def phase_serve(torch, keep: bool = False):
         k1_calls_per_image=len(routed), batched_vs_solo_max_abs=solo_diff, graph_vs_eager_max_abs=graph_vs_eager,
         tenant_max_abs_diff=tenant_diff, plan=plan, serve_compiles=snap["serve_compiles"],
         serve_padded_slots=snap.get("serve_padded_slots", 0), admission=admitted,
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, spans=span_counts,
+        serve_traces_warmup=serve_traces,
+        serve_traces_after_hot_swaps=flushed - traces_warm + traces_end - traces_window,
     )
+    log(f"[serve] spans under their JAX parents: {span_counts}; serve_traces over the warm-ups {serve_traces} "
+        f"({builds} graph builds: probes and program), +{flushed - traces_warm + traces_end - traces_window} over "
+        f"the hot swaps after them (the profile window's engine built apart: +{traces_window - flushed})")
     log(f"[serve] {N_REQUESTS} requests a flush, in turns: graph {', '.join(f'{x:.3f}' for x in stats['images_per_s'])} "
         f"images/s, eager {', '.join(f'{x:.3f}' for x in stats['eager']['images_per_s'])} images/s; graph vs eager "
         f"max abs {graph_vs_eager:.3g}; solo (padded to {A} lanes) {solo_s:.3f} s, batched vs solo max abs "
@@ -2160,6 +2209,33 @@ def phase_train_reference(torch):
             "counted": counts["cuda"], "launches": launches}
 
 
+# the JAX parents of the spans a traced run_training writes (tests/test_obs.py's tree)
+TRAIN_SPANS = {"setup": None, "epoch": None, "plan": "epoch", "compile": "epoch", "trace/pop_eval": "compile",
+               "dispatch": "epoch", "log": "epoch", "checkpoint": "epoch"}
+# ... and of a serving engine's spans (tests/test_serve.py's chain and the JAX warm-up)
+SERVE_SPANS = {"serve/compile": None, "trace/serve_batch": "serve/compile", "serve/warmup": None,
+               "serve/submit": None, "serve/coalesce": None, "serve/batch": None, "serve/dispatch": "serve/batch",
+               "serve/request": "serve/batch"}
+
+
+def span_tree_check(events, want, what):
+    """Every span name of ``want`` is in ``events``, and each of its events
+    has the parent ``want`` gives (the JAX package's); returns each name's
+    count."""
+    counts = {name: 0 for name in want}
+    wrong = []
+    for e in events:
+        if e["name"] in want:
+            counts[e["name"]] += 1
+            if e["parent"] != want[e["name"]]:
+                wrong.append((e["name"], e["parent"]))
+    missing = [n for n, c in counts.items() if not c]
+    if missing or wrong:
+        raise AssertionError(f"{what}: spans missing {missing}, under other parents than the JAX package's "
+                             f"{sorted(set(wrong))}")
+    return counts
+
+
 def flagship_train_base(root):
     """The ``TrainConfig`` fields of :func:`phase_train_flagship`'s runs
     (``RUNG_PLAN``/``RUNG_OPT["flagship"]``, quality on, a slot every 2
@@ -2212,6 +2288,17 @@ def phase_train_flagship(torch, backend, suite, es):
     slot = run_dir / "ckpt" / "step_00000004"
     if [h["epoch"] for h in h1] != [0, 1, 2, 3] or state.epoch != 4 or not slot.is_dir():
         raise AssertionError(f"the 4-epoch run logged {[h['epoch'] for h in h1]}, ended at {state.epoch}")
+    # the first run's trace: the JAX span tree, the pop evaluator's body run at its build only (the warm-up
+    # and the capture)
+    events = [e for e in load_events(run_dir) if e["session"] == 0]
+    spans = span_tree_check(events, TRAIN_SPANS, "the traced flagship run_training")
+    pops = {(e["attrs"]["pop"], e["attrs"]["member_batch"]) for e in events if e["name"] == "trace/pop_eval"}
+    compiles = [e["attrs"] for e in events if e["name"] == "compile"]
+    pop_eval_traces = read_jsonl_rows(run_dir / "metrics.jsonl")[3].get("obs/pop_eval_traces")
+    if pops != {(pop, mb)} or compiles != [{"m": m, "r": 1}] or spans["trace/pop_eval"] != 2 or \
+            pop_eval_traces != 2 or spans["epoch"] != 4 or spans["dispatch"] != 4:
+        raise AssertionError(f"the flagship trace: trace/pop_eval {pops} x{spans['trace/pop_eval']}, compile "
+                             f"{compiles}, obs/pop_eval_traces {pop_eval_traces}, spans {spans}")
     manifest = json.loads((slot / "manifest.json").read_text())
     with np.load(slot / "theta.npz") as z:
         slot_theta = {k: z[k] for k in z.files}
@@ -2249,6 +2336,14 @@ def phase_train_flagship(torch, backend, suite, es):
                               [h["step_time_s"] for h in h1[1:]])
     saves = [(ev["session"], ev["dur_s"]) for ev in load_events(run_dir) if ev["name"] == "checkpoint"]
     step_s = [h["step_time_s"] for h in h1 + h2]
+    # the traced run's replayed epochs against the bare step's spread in this call (PERF.md §2)
+    spread = (min(es["epoch_s"]), max(es["epoch_s"]))
+    replayed = [h["step_time_s"] for h in h1[1:]]
+    within = [spread[0] <= t <= spread[1] for t in replayed]
+    log(f"[train] the traced run's span tree is the JAX package's ({spans}); trace/pop_eval (pop {pop}) twice "
+        f"in compile, obs/pop_eval_traces {pop_eval_traces}; replayed epochs "
+        f"{', '.join(f'{t:.4f}' for t in replayed)} s against the bare step's {spread[0]:.4f}-{spread[1]:.4f} s: "
+        f"inside {within}")
     slot_mb = sum(p.stat().st_size for p in slot.iterdir()) / 2**20
     log(f"[train] flagship run_training (int8 base, quality on): epochs {', '.join(f'{s:.3f}' for s in step_s)} s "
         f"step_time_s (epoch 4 resumed; quality off: {h3[0]['step_time_s']:.3f} s) against the bare step's "
@@ -2259,7 +2354,8 @@ def phase_train_flagship(torch, backend, suite, es):
     return dict(step_time_s=step_s, step_time_s_quality_off=h3[0]["step_time_s"], bare_epoch_s=es["epoch_s"],
                 checkpoint_save_s=[d for _, d in saves], slot_mib=slot_mb, wall_s=[wall1, wall2, wall3],
                 launches=[l1, l2, l3], epochs=[len(h1), len(h2), len(h3)], eager_epochs=[e1, e2, e3],
-                images_per_epoch=pop * m,
+                images_per_epoch=pop * m, spans=spans, pop_eval_traces=pop_eval_traces,
+                traced_within_bare_spread=within,
                 slot_digest=digest, telemetry=telemetry)
 
 
@@ -4369,7 +4465,7 @@ def threefry_shares(rows, es, var_es, inf_full, inf_q8):
 # ---------------------------------------------------------------------------
 
 PIPELINE_STEPS = 2  # DiT passes an image in the pipeline phases (the JAX CLI's default)
-TIER_RATES = (0.25, 0.5, 1.0, 1.5)  # the sweep's rates, × the graph engine's measured images/s
+TIER_RATES = (0.5, 1.5)  # the sweep's rates, × the graph engine's measured images/s
 TIER_WINDOW_S = 4.0
 TIER_LANES = 4
 
@@ -7573,6 +7669,25 @@ BENCH_DIR = ROOT / "build" / "bench"
 BENCH_PARITY_REL = 2.0 ** -7
 BENCH_EARLY_NICE = 10  # the early children's niceness beside the build
 BENCH_STEPS = 2  # the ladder's single-dispatch epochs a rung (the runner's default is 3)
+BENCH_FLEET_BATCHES = 1  # --fleet's timed rounds a width (the runner's default is 3)
+# the library kernels' families in the profiled flagship epoch, by their names (the first match); K1-K4 go by
+# profile_trace.wrapper_of
+KERNEL_FAMILIES = (("convolution (DC-AE)", ("conv", "implicit", "winograd", "cudnn")),
+                   ("attention", ("flash", "fmha", "attention", "softmax")),
+                   ("other GEMM", ("gemm", "cutlass", "sm90_", "cublas", "nvjet")),
+                   ("copies and fills", ("memcpy", "memset", "copy")))
+WRAPPER_FAMILIES = {"fused_qlora": "K3 (DiT adapted sites)", "int8_matmul": "K1 (int8 sites: DiT, DC-AE, towers)",
+                    "lora_chain": "K2", "decode_attention": "K4"}
+
+
+def kernel_family(name):
+    from hyperscalees_t2i_tpu_torch.obs.profile_trace import wrapper_of
+
+    wrapper = wrapper_of(name)
+    if wrapper is not None:
+        return WRAPPER_FAMILIES[wrapper]
+    low = name.lower()
+    return next((fam for fam, keys in KERNEL_FAMILIES if any(k in low for k in keys)), "elementwise and other")
 
 
 def _bench_child(argv, log_name, env=None, nice=False):
@@ -7664,7 +7779,8 @@ def _last_json(text):
 def phase_bench(torch, early, es, var_es):
     """The rung runner, its serve mode and its report, as a user runs them
     (see the module note, 15): the ladder's parent and child at
-    ``BENCH_LADDER``, then ``--serve --rung flagship --batches 2``; every
+    ``BENCH_LADDER``, then ``--serve --rung flagship --batches 2``,
+    :func:`bench_fleet` and :func:`bench_profile`; every
     record checked, the runner's flagship and ``ar_d16`` epochs beside
     ``es``'s and ``var_es``'s; ``early`` is :func:`finish_bench_early`'s
     record (the scaling document is rendered with the rest)."""
@@ -7691,6 +7807,8 @@ def phase_bench(torch, early, es, var_es):
         raise AssertionError(f"--serve exited {rc}")
     serve = _last_json(buf.getvalue())
     serve_s = time.perf_counter() - t0
+    fleet, fleet_launches, fleet_s = bench_fleet(torch, bench, es)
+    prof = bench_profile(es)
 
     name, _, limit = card.rpartition(",")
     rungs = ladder["rungs"]
@@ -7755,10 +7873,102 @@ def phase_bench(torch, early, es, var_es):
         f"{ar['kernel_parity_ref_abs']:.3g} ({rel:.3g} of the call's largest output); serve {serve['batched_imgs_per_sec']} images/s batched, "
         f"{serve['sequential_imgs_per_sec']} naive, {serve['sequential_aot_imgs_per_sec']} one-slot, bitwise; "
         f"ladder {ladder_s:.1f} s, serve {serve_s:.1f} s")
-    return {"ladder": ladder, "serve": serve, **early, "report": report,
-            "seconds": {"ladder": ladder_s, "serve": serve_s, "early_children": early["seconds"]},
+    return {"ladder": ladder, "serve": serve, **early, "report": report, "fleet": fleet, "profile": prof,
+            "seconds": {"ladder": ladder_s, "serve": serve_s, "early_children": early["seconds"], "fleet": fleet_s,
+                        "profile": prof["seconds"]},
             "launches": {k: sum(rungs[r]["kernel_launches"][k] for r in BENCH_LADDER.split(","))
-                         for k in KERNEL_TAGS}}
+                         for k in KERNEL_TAGS},
+            "fleet_launches": fleet_launches, "profile_launches": prof["record"]["kernel_launches"]}
+
+
+def bench_fleet(torch, bench, es):
+    """The runner's ``--fleet --rung flagship --widths 1,2`` in this process,
+    the launch counters set to 0 just before and read just after: its rows
+    bitwise the solo step's at each width (the runner's parity), the K1 and
+    K3 launches a whole number of flagship epochs' (its eager warm-ups and
+    solo rows) and no K2 or K4; prints each width's tick beside the
+    sequential solo steps'."""
+    import contextlib
+    import io
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    _reset_counters()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.cli(["--fleet", "--rung", "flagship", "--widths", "1,2", "--batches", str(BENCH_FLEET_BATCHES),
+                        "--out", str(BENCH_DIR / "FLEET.json")])
+    torch.cuda.synchronize()
+    launches = _counters()
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"--fleet exited {rc}")
+    fleet = _last_json(buf.getvalue())
+    widths = fleet["widths"]
+    per = es["expected_launches_per_epoch"]
+    epochs = launches["fused_qlora"] / per["fused_qlora"]
+    if [w["width"] for w in widths] != [1, 2] or not fleet["parity_bitwise"] or \
+            any(w["reward_rows_sha256"] != w["solo_rows_sha256"] for w in widths):
+        raise AssertionError(f"--fleet: widths {[w['width'] for w in widths]}, rows against solo "
+                             f"{[(w['reward_rows_sha256'], w['solo_rows_sha256']) for w in widths]}")
+    if epochs != int(epochs) or not epochs or launches != {k: int(epochs) * v for k, v in per.items()}:
+        raise AssertionError(f"--fleet launched {launches}, not a whole number of flagship epochs' {per}")
+    log("[bench] --fleet --rung flagship: " + "; ".join(
+        f"width {w['width']}: tick {w['fused_step_s']} s fused against {w['sequential_step_s']} s for the "
+        f"{w['width']} solo step(s) ({w['fused_vs_sequential']}x), rows bitwise solo, compile {w['compile_s']} s, "
+        f"pool {w['graph_pool_bytes'] / 2**30:.2f} GiB" for w in widths)
+        + f"; launches {launches} ({int(epochs)} eager flagship epochs); {seconds:.1f} s")
+    return fleet, launches, seconds
+
+
+def bench_profile(es):
+    """The runner's ``--profile DIR`` on the ``flagship`` rung in a ladder
+    child of its own (its chained window off): the profile holds one
+    ``bench/flagship`` range a timed replay, ``obs.calib.calibrate_run``
+    joins their device time to the rung's ledger record
+    (``measured_source`` ``profile``), and the range's largest kernels are
+    printed by family (``KERNEL_FAMILIES``)."""
+    from hyperscalees_t2i_tpu_torch.obs import calib, profile_trace
+
+    prof_dir = BENCH_DIR / "profile"
+    t0 = time.perf_counter()
+    text = _bench_wait(_bench_child(["--profile", str(prof_dir)], "profile.log",
+                                    {"BENCH_RUNGS": "flagship", "BENCH_BUDGET_S": "300", "BENCH_CHAIN": "0",
+                                     "BENCH_STEPS": str(BENCH_STEPS),
+                                     "BENCH_PROGRAMS_JSONL": str(prof_dir / "programs.jsonl")}), "--profile", 360)
+    seconds = time.perf_counter() - t0
+    rec = _last_json(text)["rungs"]["flagship"]
+    if "imgs_per_sec" not in rec or rec["kernel_launches"] != es["expected_launches_per_epoch"]:
+        raise AssertionError(f"--profile's flagship rung: {rec.get('error')}, launches {rec.get('kernel_launches')}")
+    (trace_file,) = profile_trace.find_trace_files(prof_dir / "flagship")
+    trace = profile_trace.load_trace(trace_file)
+    ranges = profile_trace.program_durations(trace, ("bench/",))
+    payload = calib.calibrate_run(prof_dir, host_measured={"bench/flagship": rec["step_time_single_dispatch_s"]})
+    rows = [r for r in payload["rows"] if r["key"] == "bench/flagship"]
+    if list(ranges) != ["bench/flagship"] or ranges["bench/flagship"]["count"] != BENCH_STEPS or \
+            len(rows) != 1 or rows[0]["measured_source"] != "profile":
+        raise AssertionError(f"--profile: ranges {ranges}, calib rows {payload['rows']}")
+    ops = profile_trace.op_durations(trace)
+    total_us = sum(o["total_us"] for o in ops.values())
+    families = {}
+    for name, o in ops.items():
+        families[kernel_family(name)] = families.get(kernel_family(name), 0.0) + o["total_us"]
+    largest = sorted(ops.items(), key=lambda kv: -kv[1]["total_us"])[:8]
+    range_ms = ranges["bench/flagship"]["total_us"] / 1e3 / BENCH_STEPS
+    row = rows[0]
+    log(f"[bench] --profile flagship: bench/flagship {range_ms:.2f} ms device time a replay "
+        f"({BENCH_STEPS} ranges), host {rec['step_time_single_dispatch_s']} s; calib joined it to the ledger "
+        f"record: measured {row['measured_s']:.4f} s against predicted {row['predicted_s']} s; device time by family: "
+        + ", ".join(f"{f} {us / 1e3 / BENCH_STEPS:.2f} ms ({us / total_us:.1%})"
+                    for f, us in sorted(families.items(), key=lambda kv: -kv[1]))
+        + "; largest kernels: " + "; ".join(f"{n[:80]} {o['total_us'] / 1e3 / BENCH_STEPS:.2f} ms x"
+                                            f"{o['count'] // BENCH_STEPS}" for n, o in largest)
+        + f"; {seconds:.1f} s")
+    return {"record": {k: rec.get(k) for k in ("step_time_s", "step_time_single_dispatch_s", "imgs_per_sec", "mfu",
+                                               "kernel_launches", "device_name", "power_limit")},
+            "range_ms": range_ms, "calib_row": row, "families_ms": {f: us / 1e3 / BENCH_STEPS
+                                                                    for f, us in families.items()},
+            "largest_ms": {n: o["total_us"] / 1e3 / BENCH_STEPS for n, o in largest}, "seconds": seconds}
 
 
 def kernel_summary(name, rows, launches, calls_key, replaces, scope):
@@ -8072,10 +8282,14 @@ def main() -> int:
         per_process = [launches[kern["name"]] for launches in pod["launches"]]
         kern["launches_by_path"]["pod_es_data_axis_warmup_per_process"] = per_process
         kern["launches"] += sum(per_process)
-    # the rung runner's ladder child: each rung's warm-up epoch
+    # the rung runner's ladder child: each rung's warm-up epoch; its --fleet (warm-ups and solo rows) and
+    # its --profile child's flagship warm-up
     for kern in kernels:
-        kern["launches_by_path"]["bench_ladder_child_warmups"] = bench["launches"][kern["name"]]
-        kern["launches"] += bench["launches"][kern["name"]]
+        name = kern["name"]
+        kern["launches_by_path"]["bench_ladder_child_warmups"] = bench["launches"][name]
+        kern["launches_by_path"]["bench_fleet_flagship_eager"] = bench["fleet_launches"][name]
+        kern["launches_by_path"]["bench_profile_child_warmup"] = bench["profile_launches"][name]
+        kern["launches"] += bench["launches"][name] + bench["fleet_launches"][name] + bench["profile_launches"][name]
 
     wall_s = time.perf_counter() - t_start
     log(f"[done] every phase passed in {wall_s:.1f} s (kernel build included)")

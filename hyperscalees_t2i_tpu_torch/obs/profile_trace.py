@@ -64,6 +64,7 @@ __all__ = [
     "range_events",
     "start_profile",
     "stop_profile",
+    "wrapper_of",
 ]
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -192,7 +193,9 @@ def op_durations(trace: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:
 
 
 @functools.lru_cache(maxsize=4096)
-def _wrapper_of(name: str) -> Optional[str]:
+def wrapper_of(name: str) -> Optional[str]:
+    """The K1-K4 wrapper whose kernel ``name`` is (by its whole name in
+    :data:`WRAPPER_KERNELS`, demangled or mangled), or None."""
     hits = [w for w, pat in _WRAPPER_PATTERNS.items() if pat.search(name)]
     if len(hits) > 1:
         raise AssertionError(f"the kernel {name!r} matches {hits}")
@@ -207,7 +210,7 @@ def kernel_evidence(trace: Dict[str, Any], patterns: Sequence[str] = tuple(WRAPP
     evidence = {p: {"pattern": p, "events": 0, "total_us": 0.0, "names": []} for p in patterns}
     for ev in device_events(trace):
         name = str(ev.get("name", ""))
-        w = _wrapper_of(name)
+        w = wrapper_of(name)
         if w in evidence:
             slot = evidence[w]
             slot["events"] += 1
@@ -271,7 +274,7 @@ def profiled_launches(kernels, what: int = 1):
     ``what=0`` sums their device ms instead."""
     out = {w: 0 for w in WRAPPER_KERNELS}
     for name, counts in kernels.items():
-        w = _wrapper_of(name)
+        w = wrapper_of(name)
         if w is not None:
             out[w] += counts[what]
     return out

@@ -349,6 +349,14 @@ def note_program_geometry(**attrs: Any) -> None:
     _GEOMETRY_CONTEXT.update(attrs)
 
 
+def take_program_geometry() -> Dict[str, Any]:
+    """The noted geometry context, cleared: :func:`record_program` takes
+    it, and a build that writes no record drops it."""
+    global _GEOMETRY_CONTEXT
+    noted, _GEOMETRY_CONTEXT = _GEOMETRY_CONTEXT, {}
+    return noted
+
+
 def record_program(
     *,
     site: str,
@@ -366,8 +374,7 @@ def record_program(
     Never raises."""
     from ..utils.mfu import device_kind
 
-    global _GEOMETRY_CONTEXT
-    noted, _GEOMETRY_CONTEXT = _GEOMETRY_CONTEXT, {}
+    noted = take_program_geometry()
     try:
         dev = torch.device(device)
         rec: Dict[str, Any] = {

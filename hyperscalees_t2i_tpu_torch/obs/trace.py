@@ -1,19 +1,26 @@
-"""Nested host-side spans written to ``trace.jsonl`` (port of the parts of
-``hyperscalees_t2i_tpu/obs/trace.py`` the training loop uses).
+"""Nested host-side spans written to ``trace.jsonl`` (port of
+``hyperscalees_t2i_tpu/obs/trace.py``).
 
 ``Tracer(path)`` appends one JSON line per completed span (children before
 their parent), timed with the monotonic clock; ``Tracer(None)`` writes
-nothing. ``on_span(name, dur_s)``, when given, sees every completed span
-whether or not a file is written: the loop's phase histograms read it.
-:meth:`Tracer.event` writes a span whose start and end were stamped in
-different frames (a served request's submit → complete). The file's lines
-are the JAX package's, so its trace readers take them. :func:`to_chrome`
-turns the events into Chrome trace-event JSON (``chrome://tracing``,
-Perfetto).
+nothing. :meth:`Tracer.event` writes a span whose start and end were
+stamped in different frames (a served request's submit → complete). The
+file's lines are the JAX package's, so its trace readers take them.
+:func:`to_chrome` turns the events into Chrome trace-event JSON
+(``chrome://tracing``, Perfetto).
+
+One tracer is the process's (:func:`set_tracer`, :func:`get_tracer`): the
+layers that open spans without a handle (``parallel/pop_eval.py``'s
+``trace/*`` spans, the engine, a program cache's build span) write to it
+through the module-level :func:`span` and :func:`traced`, resolved at call
+time. :func:`set_span_observer` installs one observer of every completed
+span's ``(name, dur_s)``, called whether or not a file is written (the
+trainer's phase histograms read it); an observer that raises is ignored.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import threading
@@ -26,10 +33,8 @@ from .multihost import safe_process_index
 
 
 class Tracer:
-    def __init__(self, path: Optional[Union[str, Path]] = None,
-                 on_span: Optional[Callable[[str, float], None]] = None):
+    def __init__(self, path: Optional[Union[str, Path]] = None):
         self.path = Path(path) if path is not None else None
-        self.on_span = on_span
         self._lock = threading.Lock()
         self._local = threading.local()
         self._wall0 = time.time()
@@ -61,8 +66,10 @@ class Tracer:
     def span(self, name: str, **attrs: Any):
         """Time a phase; the line carries ``t0_s``/``dur_s`` (offsets from
         the tracer's monotonic origin), ``depth``, ``parent``, pid/tid and
-        ``attrs``."""
-        if not self.enabled and self.on_span is None:
+        ``attrs``. The process's span observer sees every completed span,
+        on a disabled tracer too; with neither a file nor an observer the
+        span costs nothing."""
+        if not self.enabled and _OBSERVER is None:
             yield
             return
         stack = self._stack()
@@ -74,8 +81,12 @@ class Tracer:
         finally:
             stack.pop()
             t1 = time.perf_counter() - self._mono0
-            if self.on_span is not None:
-                self.on_span(name, t1 - t0)
+            observer = _OBSERVER
+            if observer is not None:
+                try:
+                    observer(name, t1 - t0)
+                except Exception:
+                    pass  # a broken observer must not stop the traced phase
             if self.enabled:
                 ev = {"name": name, "t0_s": round(t0, 6), "dur_s": round(t1 - t0, 6), "depth": len(stack),
                       "parent": parent, "pid": os.getpid(), "tid": threading.get_ident(),
@@ -97,6 +108,66 @@ class Tracer:
         if attrs:
             ev["attrs"] = attrs
         self._write(ev)
+
+
+_NULL = Tracer(None)
+_GLOBAL: Tracer = _NULL
+# (name, dur_s) -> None of every completed span, or None; installed per run
+# by run_training
+_OBSERVER: Optional[Callable[[str, float], None]] = None
+
+
+def set_tracer(tracer: Optional[Tracer]) -> Tracer:
+    """Install the process's tracer (``None``: the disabled one). Returns it."""
+    global _GLOBAL
+    _GLOBAL = tracer if tracer is not None else _NULL
+    return _GLOBAL
+
+
+def get_tracer() -> Tracer:
+    return _GLOBAL
+
+
+def set_span_observer(observer: Optional[Callable[[str, float], None]]) -> None:
+    """Install the process's span observer (``None``: off)."""
+    global _OBSERVER
+    _OBSERVER = observer
+
+
+@contextmanager
+def process_tracer(path: Optional[Union[str, Path]]):
+    """``Tracer(path)`` as the process's tracer for the block, the disabled
+    one after it."""
+    tracer = set_tracer(Tracer(path))
+    try:
+        yield tracer
+    finally:
+        set_tracer(None)
+
+
+@contextmanager
+def span(name: str, **attrs: Any):
+    """A span on the process's tracer (nothing until :func:`set_tracer`)."""
+    with get_tracer().span(name, **attrs):
+        yield
+
+
+def traced(name: Optional[str] = None, **attrs: Any):
+    """Decorator: each call in a span on the process's tracer, looked up at
+    the call, so a function decorated at import traces once a tracer is
+    installed."""
+
+    def deco(fn):
+        label = name or fn.__qualname__
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with get_tracer().span(label, **attrs):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco
 
 
 def load_events(path: Union[str, Path]) -> List[Dict[str, Any]]:

@@ -7,10 +7,24 @@ shards the population over processes here: with a ``parallel.mesh``
 ``ProcessMesh`` each process evaluates its pop shard's members on its data
 shard's images inside its program, and the rows are gathered over the data
 group, then the pop group, on the host (a gloo collective cannot be
-captured in a CUDA graph)."""
+captured in a CUDA graph).
+
+Trace time, as in the JAX package: a run of an evaluator's body while a
+program is built (``utils.graphs.building``: its warm-up and its capture,
+the runs jax's tracing stands for) counts ``pop_eval_traces``
+(``serve_traces`` for the serving generator) on the process's registry,
+opens ``trace/pop_eval`` (``trace/fleet_eval``, ``trace/serve_batch``) on
+the process's tracer and notes its geometry for the program's ledger
+record (``obs.program_cost.note_program_geometry``). On the card a build
+counts two (the warm-up and the capture) and a replay, which runs no
+Python, nothing; on the CPU an entry's first call is its build and counts
+one, as jax traces once; later calls, and calls outside any program, count
+nothing. (``fleet_traces`` is the fleet step's own count of every run.)"""
 
 from __future__ import annotations
 
+import contextlib
+import sys
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -18,7 +32,10 @@ import torch.nn.functional as F
 
 from ..es.noiser import EggRollConfig, factored_member_theta, perturb_member, stacked_adapter_theta
 from ..lora import stack_adapters
+from ..obs.metrics import get_registry
 from ..obs.program_cost import note_program_geometry, repeated
+from ..obs.trace import span
+from ..utils.graphs import building
 from .collectives import all_gather_tree
 from .mesh import DATA_AXIS, POP_AXIS
 
@@ -34,6 +51,66 @@ def effective_reward_tile(batch: int, reward_tile: int) -> int:
     while batch % tile:
         tile -= 1
     return tile
+
+
+def _note_effective_tile(batch: int, reward_tile: int) -> int:
+    """The tile a ``batch`` runs at, with a warning on stderr where the
+    divisor rounding degraded it (tile 2 on a batch of 7 runs 1-image
+    tiles)."""
+    eff = effective_reward_tile(batch, reward_tile)
+    if 0 < eff < reward_tile < batch:
+        print(f"[pop_eval] WARNING: reward_tile={reward_tile} does not divide the per-member batch B={batch}; "
+              f"degraded to tile={eff} (pick a divisor of prompts_per_gen*batches_per_gen to avoid "
+              "over-serializing the decode→reward pipeline)", file=sys.stderr, flush=True)
+    return eff
+
+
+def _trace_time(counter: Optional[str], name: str, attrs: Dict[str, Any], geometry: Callable[[], Dict[str, Any]]):
+    """A run of a program body: inside a build, ``counter`` counted (when
+    given), the geometry noted and the ``name`` span opened."""
+    if not building():
+        return contextlib.nullcontext()
+    if counter is not None:
+        get_registry().inc(counter)
+    note_program_geometry(**geometry())
+    return span(name, **attrs)
+
+
+def _member_evaluator(generate_p: GenerateFn, reward_fn: RewardFn, pop_size: int, es_cfg: EggRollConfig,
+                      member_batch: int, reward_tile: int, pop_fuse: bool) -> Callable[..., Dict[str, torch.Tensor]]:
+    """``eval_members(theta, noise, members, ids, gen_noise, sigma,
+    c_scale)``: the rewards of the listed members, in chunks of
+    ``member_batch`` (see :func:`make_population_evaluator`)."""
+
+    def chunk_theta(theta, noise, members, sigma, c_scale):
+        if pop_fuse:
+            return factored_member_theta(theta, noise, members[0] if len(members) == 1 else members,
+                                         pop_size, es_cfg, sigma=sigma, c_scale=c_scale)
+        thetas = [perturb_member(theta, noise, k, pop_size, es_cfg, sigma=sigma) for k in members]
+        return thetas[0] if len(thetas) == 1 else stack_adapters(thetas)
+
+    def eval_members(theta, noise, members_all, ids, gen_noise, sigma, c_scale):
+        B = ids.shape[0]
+        tile = effective_reward_tile(B, reward_tile) or B
+        chunks = []
+        for c0 in range(0, len(members_all), member_batch):
+            members = members_all[c0:c0 + member_batch]
+            n = len(members)
+            theta_k = chunk_theta(theta, noise, members, sigma, c_scale)
+            tiles = []
+            for i0 in range(0, B, tile):
+                t_ids = ids[i0:i0 + tile]
+                t_noise = gen_noise[i0:i0 + tile]
+                # the same ops for every member tile of this shape (the program ledger counts two)
+                with repeated(("member_tile", n, t_ids.shape[0])):
+                    images = generate_p(theta_k, t_ids.expand(n, -1), None,
+                                        noise=t_noise.expand(n, *t_noise.shape))
+                    r = reward_fn(images.reshape(n * t_ids.shape[0], *images.shape[2:]), t_ids.repeat(n))
+                tiles.append({k: v.reshape(n, -1) for k, v in r.items()})
+            chunks.append({k: torch.cat([t[k] for t in tiles], dim=1) for k in tiles[0]})
+        return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+
+    return eval_members
 
 
 def make_population_evaluator(
@@ -98,43 +175,20 @@ def make_population_evaluator(
             "accept item_index, so shard-local positions would silently "
             "change the noise. Use a pop-only mesh for it."
         )
-    # the ledger's record of the program this evaluator runs in
-    note_program_geometry(member_batch=member_batch, reward_tile=reward_tile, pop_fuse=pop_fuse,
-                          **({"host_slice": list(host_slice)} if host_slice is not None else {}),
-                          **({"n_pop": n_pop, "n_data": n_data} if mesh is not None else {}))
+    eval_members = _member_evaluator(generate_p, reward_fn, pop_size, es_cfg, member_batch, reward_tile, pop_fuse)
 
-    def chunk_theta(theta, noise, members, sigma, c_scale):
-        if pop_fuse:
-            return factored_member_theta(theta, noise, members[0] if len(members) == 1 else members,
-                                         pop_size, es_cfg, sigma=sigma, c_scale=c_scale)
-        thetas = [perturb_member(theta, noise, k, pop_size, es_cfg, sigma=sigma) for k in members]
-        return thetas[0] if len(thetas) == 1 else stack_adapters(thetas)
-
-    def eval_members(theta, noise, members_all, ids, gen_noise, sigma, c_scale):
-        B = ids.shape[0]
-        tile = effective_reward_tile(B, reward_tile) or B
-        chunks = []
-        for c0 in range(0, len(members_all), member_batch):
-            members = members_all[c0:c0 + member_batch]
-            n = len(members)
-            theta_k = chunk_theta(theta, noise, members, sigma, c_scale)
-            tiles = []
-            for i0 in range(0, B, tile):
-                t_ids = ids[i0:i0 + tile]
-                t_noise = gen_noise[i0:i0 + tile]
-                # the same ops for every member tile of this shape (the program ledger counts two)
-                with repeated(("member_tile", n, t_ids.shape[0])):
-                    images = generate_p(theta_k, t_ids.expand(n, -1), None,
-                                        noise=t_noise.expand(n, *t_noise.shape))
-                    r = reward_fn(images.reshape(n * t_ids.shape[0], *images.shape[2:]), t_ids.repeat(n))
-                tiles.append({k: v.reshape(n, -1) for k, v in r.items()})
-            chunks.append({k: torch.cat([t[k] for t in tiles], dim=1) for k in tiles[0]})
-        return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+    def geometry(B_local: int) -> Callable[[], Dict[str, Any]]:
+        return lambda: dict(pop=pop_size, member_batch=member_batch, n_pop=n_pop, n_data=n_data,
+                            reward_tile=reward_tile, host_slice=list(host_slice) if host_slice is not None else None,
+                            pop_fuse=pop_fuse, fused_qlora=True,
+                            reward_tile_effective=_note_effective_tile(B_local, reward_tile))
 
     if n_pop == 1 and n_data == 1:
         def eval_pop(theta, noise, ids, gen_noise, sigma=None, c_scale=None):
-            members = list(range(slice_lo, slice_lo + slice_n))
-            return eval_members(theta, noise, members, ids, gen_noise, sigma, c_scale)
+            with _trace_time("pop_eval_traces", "trace/pop_eval", {"pop": pop_size, "member_batch": member_batch},
+                             geometry(ids.shape[0])):
+                members = list(range(slice_lo, slice_lo + slice_n))
+                return eval_members(theta, noise, members, ids, gen_noise, sigma, c_scale)
 
         eval_pop.gather = lambda local, B: {k: v[:slice_n, :B] for k, v in local.items()}
         return eval_pop
@@ -151,9 +205,12 @@ def make_population_evaluator(
         if gen_noise.shape[0] < B_pad:
             raise ValueError(f"{gen_noise.shape[0]} noise rows for a batch padded to {B_pad}")
         bl = B_pad // n_data
-        ids_p = F.pad(ids, (0, B_pad - B))  # padded slots generate prompt 0
-        lo = d_idx * bl
-        return eval_members(theta, noise, members, ids_p[lo:lo + bl], gen_noise[lo:lo + bl], sigma, c_scale)
+        with _trace_time("pop_eval_traces", "trace/pop_eval",
+                         {"pop": pop_size, "member_batch": member_batch, "n_pop": n_pop, "n_data": n_data},
+                         geometry(bl)):
+            ids_p = F.pad(ids, (0, B_pad - B))  # padded slots generate prompt 0
+            lo = d_idx * bl
+            return eval_members(theta, noise, members, ids_p[lo:lo + bl], gen_noise[lo:lo + bl], sigma, c_scale)
 
     def gather(local: Dict[str, torch.Tensor], B: int) -> Dict[str, torch.Tensor]:
         """This process's block → the slice's rows ``[n, B]``: gathered over
@@ -206,14 +263,20 @@ def make_fleet_evaluator(
     chunks are its solo chunks, so its reward rows are its solo rows."""
     if width < 1 or pop_size < 1:
         raise ValueError(f"width and pop_size must be >= 1, got ({width}, {pop_size})")
-    eval_pop = make_population_evaluator(generate_p, reward_fn, pop_size, es_cfg, member_batch,
-                                         reward_tile=reward_tile, pop_fuse=pop_fuse)
+    eval_members = _member_evaluator(generate_p, reward_fn, pop_size, es_cfg, member_batch, reward_tile, pop_fuse)
+    members = list(range(pop_size))
 
     def eval_fleet(thetas, noises, ids, gen_noise, sigmas, c_scales):
         if len(thetas) != width or ids.shape[0] != width:
             raise ValueError(f"{len(thetas)} adapters and {ids.shape[0]} prompt rows for a fleet of {width}")
-        per_job = [eval_pop(thetas[j], noises[j], ids[j], gen_noise[j], sigma=sigmas[j], c_scale=c_scales[j])
-                   for j in range(width)]
+        # fleet_traces is the step's count (train.trainer.make_fleet_step)
+        attrs = {"fleet_width": width, "pop": pop_size, "member_batch": member_batch}
+        with _trace_time(None, "trace/fleet_eval", attrs,
+                         lambda: dict(fleet_width=width, pop=pop_size, member_batch=member_batch, n_pop=1, n_data=1,
+                                      reward_tile=reward_tile, pop_fuse=pop_fuse, fused_qlora=True,
+                                      reward_tile_effective=_note_effective_tile(ids.shape[1], reward_tile))):
+            per_job = [eval_members(thetas[j], noises[j], members, ids[j], gen_noise[j], sigmas[j], c_scales[j])
+                       for j in range(width)]
         return {k: torch.stack([r[k] for r in per_job]) for k in per_job[0]}
 
     return eval_fleet
@@ -254,14 +317,17 @@ def make_adapter_batch_generator(
             raise ValueError(f"flat_ids {tuple(ids.shape)} does not fit the ({A}, {B}) serving geometry")
         chunk = min(member_batch, n) if member_batch > 0 else n
         outs = []
-        for k0 in range(0, n, chunk):
-            lanes = slice(k0, min(k0 + chunk, n))
-            theta = None if stacked_theta is None else stacked_adapter_theta(stacked_theta, lanes)
-            outs.append(generate_p(
-                theta, ids[lanes], keys[lanes],
-                noise=None if noise is None else noise[lanes],
-                guidance_scale=guidance_scale,
-            ))
-        return torch.cat(outs)
+        with _trace_time("serve_traces", "trace/serve_batch", {"adapter_batch": A, "images": B},
+                         lambda: dict(adapter_batch=A, images_per_request=B, member_batch=member_batch,
+                                      fused_qlora=True)):
+            for k0 in range(0, n, chunk):
+                lanes = slice(k0, min(k0 + chunk, n))
+                theta = None if stacked_theta is None else stacked_adapter_theta(stacked_theta, lanes)
+                outs.append(generate_p(
+                    theta, ids[lanes], keys[lanes],
+                    noise=None if noise is None else noise[lanes],
+                    guidance_scale=guidance_scale,
+                ))
+            return torch.cat(outs)
 
     return gen_batch

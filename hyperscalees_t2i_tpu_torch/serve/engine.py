@@ -72,7 +72,8 @@ from ..device import DeviceLike, resolve_device
 from ..lora import stack_adapters
 from ..obs.metrics import MetricsRegistry
 from ..obs.profile_trace import start_profile, stop_profile
-from ..obs.trace import Tracer
+from ..obs.program_cost import take_program_geometry
+from ..obs.trace import get_tracer, span
 from ..parallel.pop_eval import make_adapter_batch_generator
 from ..resilience.faultinject import maybe_serve_fault, slow_fault_seconds
 from ..utils import threefry
@@ -134,8 +135,12 @@ class ServeEngine:
     geometry over a set-up backend. ``graph=False`` runs the programs
     eagerly on the card (A/B timing); ``theta_template`` is the adapter
     structure every tenant must match (default: the backend's
-    ``init_theta``); ``tracer`` receives the request spans (default: one
-    that writes nothing)."""
+    ``init_theta``). Spans go to the process's tracer
+    (``obs.trace.set_tracer``), as in the JAX engine: ``serve/compile``
+    (``label``) around a geometry's build, ``serve/warmup``,
+    ``serve/submit``, ``serve/coalesce``, ``serve/batch`` (``program``)
+    holding ``serve/dispatch`` (``program``), and a ``serve/request`` event
+    per request."""
 
     def __init__(
         self,
@@ -143,7 +148,6 @@ class ServeEngine:
         cfg: Optional[ServeConfig] = None,
         graph: bool = True,
         theta_template: Optional[Adapter] = None,
-        tracer: Optional[Tracer] = None,
     ):
         self.backend = backend
         self.cfg = cfg or ServeConfig()
@@ -154,7 +158,6 @@ class ServeEngine:
             raise ValueError(f"backend is on {backend.device}, the engine on {self.device}")
         # serve_* counters, gauges and histograms under the JAX names
         self.registry = MetricsRegistry(prefix="")
-        self.tracer = tracer if tracer is not None else Tracer(None)
         # the adapter structure every tenant must match (identity at init)
         if theta_template is None:
             theta_template = backend.init_theta(threefry.prng_key(0, self.device))
@@ -163,9 +166,8 @@ class ServeEngine:
         self.queue = RequestQueue(self.cfg.max_queue)
         # one program per (adapter lanes, images per request, guidance)
         self.programs = GraphCache(self.device, graph=graph, registry=self.registry, counter="serve_compiles",
-                                   gauge="serve/programs_resident", tracer=self.tracer,
-                                   span_attrs=lambda k: {"adapter_batch": k[0], "images_per_request": k[1],
-                                                         "guidance": k[2]})
+                                   gauge="serve/programs_resident", span="serve/compile",
+                                   span_attrs=lambda k: {"label": self._label(k)})
         # guidance -> a backend copy with that guidance (None: the backend's own)
         self._variants: Dict[Optional[float], Any] = {self.default_guidance_key(None): backend}
         self._budget, self._budget_source = resolve_hbm_budget(self.cfg.hbm_budget_bytes, self.device)
@@ -296,12 +298,16 @@ class ServeEngine:
         return self._variants[key]
 
     # -- programs ------------------------------------------------------------
+    @staticmethod
+    def _label(key: Tuple) -> str:
+        lanes, B, g_key = key
+        return f"serve_a{lanes}b{B}" + (f"_g{g_key:g}" if g_key is not None else "")
+
     def _program(self, lanes: int, B: int, guidance: Optional[float]) -> Tuple[Tuple, str, Callable]:
-        g_key = self.default_guidance_key(guidance)
+        key = (lanes, B, self.default_guidance_key(guidance))
         gen = make_adapter_batch_generator(self._variant(guidance).generate_p, lanes, B,
                                            member_batch=self.cfg.member_batch)
-        label = f"serve_a{lanes}b{B}" + (f"_g{g_key:g}" if g_key is not None else "")
-        return (lanes, B, g_key), label, gen
+        return key, self._label(key), gen
 
     def _inputs(self, thetas: Sequence[Adapter], ids: Sequence[Sequence[int]], seeds: Sequence[int]):
         stacked = tree_map(lambda t: t.to(self.device), stack_adapters(list(thetas)))
@@ -314,8 +320,9 @@ class ServeEngine:
         """What the geometry's program holds above the resident base at
         ``lanes`` lanes (zero adapters), built in a scratch cache that
         counts nothing and is dropped after."""
-        _key, _label, fn = self._program(lanes, B, guidance)
-        cache = GraphCache(self.device, graph=self.programs.graphed)
+        _key, label, fn = self._program(lanes, B, guidance)
+        cache = GraphCache(self.device, graph=self.programs.graphed, span="serve/compile",
+                           span_attrs=lambda k: {"label": label})
         zeros = tree_map(torch.zeros_like, self.template)
         args = self._inputs([zeros] * lanes, [[0] * B] * lanes, [0] * lanes)
         pool = (lambda: cache.entries["probe"].stats.pool_bytes) if cache.graphed else None
@@ -335,8 +342,8 @@ class ServeEngine:
         """The fit gate of one new geometry, before its program is built:
         estimate (from probes below ``adapter_batch`` lanes, or this
         backend's remembered estimate), check, record. At ``adapter_batch``
-        1 there is no probe: the record carries no estimate and :meth:`_run`
-        checks the build's measured bytes."""
+        1 there is no probe: the record carries no estimate and
+        :meth:`_ensure_program` checks the build's measured bytes."""
         A = self.cfg.adapter_batch
         rec: Dict[str, Any] = {"label": label, "budget_bytes": self._budget, "budget_source": self._budget_source,
                                "armed": False}
@@ -355,50 +362,57 @@ class ServeEngine:
             rec["armed"] = check_fit(label, rec["estimate_bytes"], self._budget, self._budget_source)
         return rec
 
-    def _run(self, thetas: Sequence[Adapter], ids: List[List[int]], seeds: List[int],
-             guidance: Optional[float]) -> np.ndarray:
-        """One dispatch of ``n ≤ adapter_batch`` requests, padded to
-        ``adapter_batch`` lanes with slot 0's adapter, ids and seed; the
-        padded lanes' images are dropped. A geometry's first call passes
-        the admission gate, then builds its program."""
+    def _padded(self, thetas: Sequence[Adapter], ids: List[List[int]], seeds: List[int]):
+        """The program's inputs for ``n ≤ adapter_batch`` requests, padded
+        to ``adapter_batch`` lanes with slot 0's adapter, ids and seed."""
         n, A = len(thetas), self.cfg.adapter_batch
         lanes = list(range(n)) + [0] * (A - n)
-        B = len(ids[0])
+        return self._inputs([thetas[i] for i in lanes], [ids[i] for i in lanes], [seeds[i] for i in lanes])
+
+    def _ensure_program(self, B: int, guidance: Optional[float], args: Tuple) -> Tuple[Tuple, str, Callable, Any]:
+        """``(key, label, fn, built)``: the geometry's program at
+        ``adapter_batch`` lanes. At its first use it passes the admission
+        gate, then is built on ``args`` (warm-up and capture, in its
+        ``serve/compile`` span), as the JAX engine compiles before the first
+        execution; ``built`` is that build's output, the program's run on
+        ``args`` (None once built: run it)."""
+        A = self.cfg.adapter_batch
         key, label, fn = self._program(A, B, guidance)
-        if key not in self.programs.entries:
-            rec = self._admit(label, B, guidance)
-            args = self._inputs([thetas[i] for i in lanes], [ids[i] for i in lanes], [seeds[i] for i in lanes])
-            pool = (lambda: self.programs.entries[key].stats.pool_bytes) if self.programs.graphed else None
-            out, used = program_bytes(lambda *a: self.programs(key, fn, *a), args, self.device, pool)
-            if rec.get("base_bytes") is not None:
-                rec.update(measured_program_bytes=used, measured_bytes=rec["base_bytes"] + used)
-                if "estimate_bytes" not in rec:  # adapter_batch 1: the gate measures
-                    remember_estimate(self.backend, self._geometry(B, guidance),
-                                      {"probes": {}, "program_bytes": float(used)})
-                    try:
-                        rec["armed"] = check_fit(label, rec["measured_bytes"], self._budget, self._budget_source)
-                    except ServeAdmissionError:
-                        self.programs.drop(key)
-                        raise
-        else:
-            args = self._inputs([thetas[i] for i in lanes], [ids[i] for i in lanes], [seeds[i] for i in lanes])
-            out = self.programs(key, fn, *args)
-        self.registry.inc("serve_padded_slots", A - n)
-        return out[:n].to(torch.float32).cpu().numpy()
+        if key in self.programs.entries:
+            return key, label, fn, None
+        rec = self._admit(label, B, guidance)
+        pool = (lambda: self.programs.entries[key].stats.pool_bytes) if self.programs.graphed else None
+        built, used = program_bytes(lambda *a: self.programs(key, fn, *a), args, self.device, pool)
+        take_program_geometry()  # the engine writes no ledger record: no later record takes this one's
+        if rec.get("base_bytes") is not None:
+            rec.update(measured_program_bytes=used, measured_bytes=rec["base_bytes"] + used)
+            if "estimate_bytes" not in rec:  # adapter_batch 1: the gate measures
+                remember_estimate(self.backend, self._geometry(B, guidance),
+                                  {"probes": {}, "program_bytes": float(used)})
+                try:
+                    rec["armed"] = check_fit(label, rec["measured_bytes"], self._budget, self._budget_source)
+                except ServeAdmissionError:
+                    self.programs.drop(key)
+                    raise
+        return key, label, fn, built
 
     def warmup(self, geometries: Optional[Sequence[Tuple[int, Optional[float]]]] = None) -> List[str]:
-        """Admit, build and run each ``(images_per_request, guidance)``
-        geometry once at full ``adapter_batch`` with zero adapters. Returns
-        a label per geometry."""
+        """Admit and build each ``(images_per_request, guidance)`` geometry
+        at full ``adapter_batch`` with zero adapters; ``serve/warmup`` reads
+        the build's images back (a geometry already built runs once more).
+        Returns a label per geometry."""
         geoms = list(geometries) if geometries else [(self.cfg.images_per_request, None)]
         zeros = tree_map(torch.zeros_like, self.template)
         labels = []
         A = self.cfg.adapter_batch
         for B, g in geoms:
-            with self.tracer.span("serve/warmup", images_per_request=B, guidance=g):
-                self._run([zeros] * A, [[0] * B] * A, [0] * A, g)
+            args = self._inputs([zeros] * A, [[0] * B] * A, [0] * A)
+            key, label, fn, built = self._ensure_program(B, g, args)
+            with span("serve/warmup", label=label):
+                (built if built is not None else self.programs(key, fn, *args)).to(torch.float32).cpu()
+            del args, built
             self.registry.inc("serve_warmups")
-            labels.append(self._program(A, B, g)[1])
+            labels.append(label)
         return labels
 
     # -- request path --------------------------------------------------------
@@ -465,7 +479,7 @@ class ServeEngine:
         self._hotness[adapter_id] = self._hotness.get(adapter_id, 0) + 1
 
         def emit() -> None:
-            with self.tracer.span("serve/submit", request_id=req.request_id, adapter=adapter_id,
+            with span("serve/submit", request_id=req.request_id, adapter=adapter_id,
                                   adapter_sha=entry.version, queue_position=req.queue_position,
                                   geometry=list(req.geometry_key)):
                 pass
@@ -523,8 +537,8 @@ class ServeEngine:
             self.registry.inc("serve_shed_total")
             if self._slo is not None:
                 self._slo.tick()
-            self.tracer.event("serve/request", r.t_submit, t_now, request_id=r.request_id, adapter=r.adapter_id,
-                              shed=reason)
+            get_tracer().event("serve/request", r.t_submit, t_now, request_id=r.request_id, adapter=r.adapter_id,
+                               shed=reason)
 
         self._safe_obs(emit)
         return ServeResult(request=r, images=None, latency_s=t_now - r.t_submit, batch_size=0,
@@ -598,8 +612,8 @@ class ServeEngine:
             self.registry.inc("serve_adapter_faults")
             if self._slo is not None:
                 self._slo.tick()
-            self.tracer.event("serve/request", r.t_submit, t_now, request_id=r.request_id, adapter=r.adapter_id,
-                              error=repr(exc))
+            get_tracer().event("serve/request", r.t_submit, t_now, request_id=r.request_id, adapter=r.adapter_id,
+                               error=repr(exc))
 
         self._safe_obs(emit)
         print(f"[serve] REFUSED request {r.request_id} (adapter {r.adapter_id!r}): {exc}", file=sys.stderr,
@@ -649,15 +663,21 @@ class ServeEngine:
         assembly_s = time.perf_counter() - t_assemble0
         try:
             self._profile_start_maybe()
-            with self.tracer.span("serve/batch", requests=n, occupancy=occupancy,
-                                  request_ids=[r.request_id for r in good]):
+            args = self._padded(thetas, [list(r.prompt_ids) for r in good], [r.seed for r in good])
+            # a geometry's first batch builds its program on this batch's
+            # inputs, in its own serve/compile span; the build's run is the
+            # batch's, so the dispatch then holds its read-back alone
+            key, label, fn, built = self._ensure_program(len(good[0].prompt_ids), good[0].guidance, args)
+            with span("serve/batch", program=label, requests=n, occupancy=occupancy,
+                      request_ids=[r.request_id for r in good]), span("serve/dispatch", program=label):
                 t_disp0 = time.perf_counter()
                 # slow_dispatch*N: a straggling device inside the timed
                 # dispatch, so dispatch_s and the overload EWMA see it
                 if maybe_serve_fault("slow_dispatch"):
                     time.sleep(slow_fault_seconds())
-                images = self._run(thetas, [list(r.prompt_ids) for r in good], [r.seed for r in good],
-                                   good[0].guidance)
+                out = built if built is not None else self.programs(key, fn, *args)
+                images = out[:n].to(torch.float32).cpu().numpy()
+                self.registry.inc("serve_padded_slots", A - n)
                 dispatch_s = time.perf_counter() - t_disp0
         except Exception:
             # a failed dispatch fails every request of the batch; no breaker
@@ -702,11 +722,12 @@ class ServeEngine:
                 queue_wait = max((r.t_dequeue or t_assemble0) - r.t_submit, 0.0)
                 reg.observe("serve_queue_wait_seconds", queue_wait)
                 reg.observe("serve_request_latency_seconds", results[i].latency_s)
-                self.tracer.event("serve/request", r.t_submit, t_done, parent="serve/batch",
-                                  request_id=r.request_id, adapter=r.adapter_id, adapter_sha=versions[i],
-                                  geometry=list(r.geometry_key), batch_size=n, occupancy=occupancy,
-                                  queue_position=r.queue_position, queue_wait_s=round(queue_wait, 6),
-                                  assembly_s=round(assembly_s, 6), dispatch_s=round(dispatch_s, 6))
+                get_tracer().event("serve/request", r.t_submit, t_done, parent="serve/batch",
+                                   request_id=r.request_id, adapter=r.adapter_id, adapter_sha=versions[i],
+                                   geometry=list(r.geometry_key), program=label, batch_size=n,
+                                   occupancy=occupancy, queue_position=r.queue_position,
+                                   queue_wait_s=round(queue_wait, 6), assembly_s=round(assembly_s, 6),
+                                   dispatch_s=round(dispatch_s, 6))
 
         self._safe_obs(emit)
         if self._slo is not None:
@@ -730,7 +751,7 @@ class ServeEngine:
                 self._pressure_eval()
                 if not self.queue.depth:
                     break
-            with self.tracer.span("serve/coalesce", queue_depth=self.queue.depth):
+            with span("serve/coalesce", queue_depth=self.queue.depth):
                 batch = self.queue.take_batch(self.cfg.adapter_batch)
             if not batch:
                 break

@@ -777,6 +777,7 @@ def run_serve_bench(rung: str, adapters: int = 0, images: int = 0, batches: int 
     import torch
 
     from ..backends.sana_backend import build_serve_backend
+    from ..obs.metrics import get_registry
     from ..rungs import sana_rung_model
     from ..serve import ServeConfig, ServeEngine
     from ..utils import threefry
@@ -831,6 +832,9 @@ def run_serve_bench(rung: str, adapters: int = 0, images: int = 0, batches: int 
         out = backend.generate(thetas[i], prompts(i), threefry.prng_key(seed, dev))
         return out.to(torch.float32).cpu().numpy()
 
+    # the serving program body's runs at trace time (a warm-up and a capture
+    # a program on the card, its first call on the CPU)
+    traces0 = get_registry().value("serve_traces", 0)
     _log(f"serve[{rung}]: warming all three paths")
     with Heartbeat(f"serve:{rung}", "compile"), torch.inference_mode():
         eng_b.warmup()
@@ -891,7 +895,7 @@ def run_serve_bench(rung: str, adapters: int = 0, images: int = 0, batches: int 
         "adapter_store": {"resident": stats_b["store"]["resident"],
                           "resident_bytes": stats_b["store"]["resident_bytes"]},
         "serve_compiles": stats_b.get("serve_compiles"),
-        "serve_traces": None,
+        "serve_traces": get_registry().value("serve_traces", 0) - traces0,
         "serve_dispatches": stats_b.get("serve_dispatches"),
         "build_s": round(build_s, 2),
         "n_devices": 1,

@@ -39,6 +39,7 @@ with torch's version, the git sha and the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -458,8 +459,7 @@ def _stamp(device: Optional[torch.device] = None) -> Dict[str, Any]:
 
 def build_engine(rung: str, store_adapters: int, *, metrics_port: int = 0, max_queue: int = 1024,
                  overload: Any = None, backend: Any = None, template: Any = None, device: Any = None,
-                 adapter_batch: Optional[int] = None, slo: Optional[str] = None,
-                 tracer: Any = None) -> Tuple[Any, Any]:
+                 adapter_batch: Optional[int] = None, slo: Optional[str] = None) -> Tuple[Any, Any]:
     """``(engine, population)`` for the rung's ``SERVE_PLAN`` geometry
     (``adapter_batch`` overrides its lanes), the store budget given in
     adapters (bytes from the rung's real adapter size, so the Zipf tail
@@ -485,7 +485,7 @@ def build_engine(rung: str, store_adapters: int, *, metrics_port: int = 0, max_q
         metrics_port=int(metrics_port), metrics_host="127.0.0.1", slo=slo, overload=overload,
         device=backend.device,
     )
-    engine = ServeEngine(backend, cfg, theta_template=template, tracer=tracer)
+    engine = ServeEngine(backend, cfg, theta_template=template)
     return engine, SyntheticAdapterPopulation(template, seed=0, device=backend.device)
 
 
@@ -774,45 +774,48 @@ def main(argv=None) -> int:
     else:
         rates = [args.rate if args.rate is not None else plan["rates"][0]]
     run_dir = Path(args.run_dir) if args.run_dir else None
-    tracer = None
+    tracing = contextlib.nullcontext()
     if run_dir is not None:
-        from ..obs.trace import Tracer
+        from ..obs.trace import process_tracer
 
         run_dir.mkdir(parents=True, exist_ok=True)
-        tracer = Tracer(run_dir / "trace.jsonl")
-    traffic = dict(seed=args.seed, window_s=window_s, process=args.process, burst_factor=args.burst_factor,
-                   burst_dwell_s=args.burst_dwell_s, zipf_s=zipf_s, population=population,
-                   store_adapters=store_adapters, slo_p99_s=slo, geometry_mix=mix, max_queue=args.max_queue,
-                   topk=args.topk, device=device, adapter_batch=args.adapter_batch)
-    if args.degrade:
-        doc = run_degrade(args.rung, rates, metrics_port=args.metrics_port, deadline_s=args.deadline_s,
-                          overload_rate_rps=args.overload_rate, **traffic)
-        print(json.dumps({k: doc[k] for k in ("mode", "rung", "overload_rate_rps", "goodput_retention",
-                                              "off_goodput_retention", "on_p99_s", "on_not_resident_refusals",
-                                              "headline")}))
-    else:
-        from ..serve import OverloadConfig
+        # the engine's request spans land in the run dir, for run_report's
+        # Serving and Capacity panels
+        tracing = process_tracer(run_dir / "trace.jsonl")
+    with tracing:
+        traffic = dict(seed=args.seed, window_s=window_s, process=args.process, burst_factor=args.burst_factor,
+                       burst_dwell_s=args.burst_dwell_s, zipf_s=zipf_s, population=population,
+                       store_adapters=store_adapters, slo_p99_s=slo, geometry_mix=mix, max_queue=args.max_queue,
+                       topk=args.topk, device=device, adapter_batch=args.adapter_batch)
+        if args.degrade:
+            doc = run_degrade(args.rung, rates, metrics_port=args.metrics_port, deadline_s=args.deadline_s,
+                              overload_rate_rps=args.overload_rate, **traffic)
+            print(json.dumps({k: doc[k] for k in ("mode", "rung", "overload_rate_rps", "goodput_retention",
+                                                  "off_goodput_retention", "on_p99_s", "on_not_resident_refusals",
+                                                  "headline")}))
+        else:
+            from ..serve import OverloadConfig
 
-        overload = (OverloadConfig(deadline_default_s=float(args.deadline_s) if args.deadline_s is not None else 0.0)
-                    if args.overload else None)
-        engine, pop = build_engine(args.rung, store_adapters, metrics_port=args.metrics_port,
-                                   max_queue=args.max_queue, overload=overload, device=device,
-                                   adapter_batch=args.adapter_batch, tracer=tracer)
-        engine.warmup([(int(b), None) for b, _ in mix])
-        try:
-            doc = run_sweep(args.rung, rates, engine=engine, pop=pop, deadline_s=args.deadline_s, **traffic)
-        finally:
-            engine.close()
-        print(json.dumps({k: doc[k] for k in ("mode", "rung", "capacity_rps", "goodput_rps", "knee", "headline")}))
-    payload = json.dumps(doc, indent=2) + "\n"
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(payload)
-        print(f"[loadgen] {doc['mode']} artifact -> {args.out}", file=sys.stderr)
-    if run_dir is not None:
-        name = Path(args.out).name if args.out else ("DEGRADE_run.json" if args.degrade else "CAPACITY_run.json")
-        (run_dir / name).write_text(payload)
-    return 0
+            overload = (OverloadConfig(deadline_default_s=float(args.deadline_s or 0.0)) if args.overload
+                        else None)
+            engine, pop = build_engine(args.rung, store_adapters, metrics_port=args.metrics_port,
+                                       max_queue=args.max_queue, overload=overload, device=device,
+                                       adapter_batch=args.adapter_batch)
+            engine.warmup([(int(b), None) for b, _ in mix])
+            try:
+                doc = run_sweep(args.rung, rates, engine=engine, pop=pop, deadline_s=args.deadline_s, **traffic)
+            finally:
+                engine.close()
+            print(json.dumps({k: doc[k] for k in ("mode", "rung", "capacity_rps", "goodput_rps", "knee", "headline")}))
+        payload = json.dumps(doc, indent=2) + "\n"
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(payload)
+            print(f"[loadgen] {doc['mode']} artifact -> {args.out}", file=sys.stderr)
+        if run_dir is not None:
+            name = Path(args.out).name if args.out else ("DEGRADE_run.json" if args.degrade else "CAPACITY_run.json")
+            (run_dir / name).write_text(payload)
+        return 0
 
 
 if __name__ == "__main__":

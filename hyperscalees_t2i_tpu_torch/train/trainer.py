@@ -83,13 +83,13 @@ from ..obs.anomaly import AnomalyWatchdog
 from ..obs.es_health import DegeneracyWatchdog, es_health_metrics
 from ..obs.exporter import maybe_exporter, note_health, reset_health
 from ..obs.heartbeat import device_memory_gauges, emit_heartbeat, maybe_heartbeat
-from ..obs.metrics import MetricsRegistry, record_device_memory
+from ..obs.metrics import MetricsRegistry, record_device_memory, set_registry
 from ..obs.multihost import exporter_port, profile_segment_path, trace_segment_path
 from ..obs.profile_trace import start_profile, stop_profile
 from ..obs.program_cost import ProgramLedger, record_program, roofline, set_ledger
 from ..obs.quality import QualityLedger, quality_metrics
 from ..obs.slo import build_trainer_evaluator
-from ..obs.trace import Tracer
+from ..obs.trace import Tracer, set_span_observer, set_tracer
 from ..parallel.collectives import (GatherTimeout, host_allgather_rows, host_flag_any, host_scalar_allgather, is_master,
                                     kv_client, live_count, live_ranks, process_count, process_rank, set_gather_grace,
                                     set_live_ranks)
@@ -581,6 +581,17 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
     ``calib/*`` gauges. A profiler that does not start raises. At the end
     (``tc.quality``) ``QUALITY_train.json`` is written, best-effort.
 
+    Spans, as the JAX loop writes them: the run installs its tracer
+    (``trace.jsonl``, or this process's segment, with ``tc.trace``; else a
+    disabled one), its ``obs/`` registry and the ``phase_*_seconds``
+    histograms' span observer as the process's (``obs.trace.set_tracer``,
+    ``obs.metrics.set_registry``, ``obs.trace.set_span_observer``) and
+    resets all three however it ends. An epoch holds ``plan``; a plan's
+    first epoch ``compile`` (``m``, ``r``: the program's warm-up, which is
+    that epoch's step, and its capture, holding ``trace/pop_eval``); then
+    ``dispatch`` (``epochs``: a plan's first holds the read-back only),
+    ``log`` and ``checkpoint``.
+
     Telemetry, as the JAX loop wires it: each logged dispatch ticks the SLO
     evaluator (``tc.slo``, ``obs.slo.build_trainer_evaluator``) and the
     anomaly watchdog (``tc.anomaly_detect``: ``anomalies.jsonl`` and
@@ -682,7 +693,9 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
         if name in _PHASES:
             registry.observe(f"phase_{name}_seconds", dur_s)
 
-    tracer = Tracer(trace_segment_path(run_dir) if tc.trace else None, on_span=observe_phase)
+    # installed as the process's tracer, registry and span observer inside
+    # the try below, and reset in its finally
+    tracer = Tracer(trace_segment_path(run_dir) if tc.trace else None)
     # the launch topology every slot records and a resume must match
     # (pop_shards: the host mesh's pop axis)
     topology = {"process_count": pc, "pop_shards": mesh.shape.get(POP_AXIS, 1) if mesh is not None else 1,
@@ -773,6 +786,12 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
     profiler = None  # the open profile window, stopped in `finally` if the run ends inside it
     state = None
     try:
+        # the layers without a handle (pop_eval's trace-time spans and
+        # counters, the program cache's compile span) write to these; the
+        # phase histograms stream whether or not a trace file is written
+        set_tracer(tracer)
+        set_registry(registry)
+        set_span_observer(observe_phase)
         exporter = maybe_exporter(
             exporter_port(tc.metrics_port), host=tc.metrics_host,
             registries=[registry, res_registry] + ([slo_eval.registry] if slo_eval is not None else [])
@@ -829,7 +848,7 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
         state = TrainState(theta=theta, epoch=start_epoch, rollbacks=rollback_ctrl.rollbacks)
         step_cache: Dict[Tuple[int, int], Callable] = {}
         # one program per (m, r) plan: a CUDA graph on the card, its warm-up counted
-        programs = program_cache(backend, dev, registry=registry, tracer=tracer, count_cost=True,
+        programs = program_cache(backend, dev, registry=registry, count_cost=True, span="compile",
                                  span_attrs=lambda plan: {"m": plan[0], "r": plan[1]})
         profile_dir = profile_segment_path(run_dir)
         # each plan's ledger record (the MFU and roofline inputs), and the
@@ -1043,19 +1062,31 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                     # a copy, since the step's outputs are the graph's buffers
                     theta_before = tree_map(torch.clone, state.theta) if any(due) else None
                     label = f"es_step_m{m}r{r}"
-                    # a plan's first dispatch is its compile (warm-up and
-                    # capture); no device gauges inside a timed dispatch
-                    with tracer.span("dispatch", epochs=K), \
-                            (hb("dispatch", gauges=None) if warm else hb("compile")), \
-                            (torch.profiler.record_function(f"train/{label}") if in_window
-                             else contextlib.nullcontext()):
+
+                    def in_range():
+                        return (torch.profiler.record_function(f"train/{label}") if in_window
+                                else contextlib.nullcontext())
+
+                    # a plan's first call builds its program (warm-up and
+                    # capture) in the cache's compile span, beside the
+                    # dispatch as in the JAX loop; the warm-up is this
+                    # epoch's step, so its dispatch holds the read-back
+                    built = None
+                    if not warm:
+                        with hb("compile"), in_range():
+                            built = step_cache[(m, r)](state.theta, prev_delta, ids_k[0], keys_k[0])
+                    # no device gauges inside a timed dispatch
+                    with tracer.span("dispatch", epochs=K), hb("dispatch", gauges=None), \
+                            (in_range() if warm else contextlib.nullcontext()):
                         # slow@K (host-scopable): a straggle inside the timed
                         # dispatch, so this host reaches the epoch's gathers late
                         if fault_epoch("slow", epoch):
                             time.sleep(slow_fault_seconds())
+                        if built is not None:
+                            state.theta, prev_delta, metrics, opt_scores = built
                         # θ and Δθ carry through the program's buffers; one
                         # read-back at the chain's end
-                        for j in range(K):
+                        for j in range(K if built is None else 0):
                             state.theta, prev_delta, metrics, opt_scores = step_cache[(m, r)](
                                 state.theta, prev_delta, ids_k[j], keys_k[j])
                         scalars: Dict[str, Any] = {k: (v.tolist() if v.ndim else float(v))
@@ -1304,6 +1335,9 @@ def run_training(backend: Any, reward_fn: Any, tc: TrainConfig,
                     break
         return state
     finally:
+        set_span_observer(None)
+        set_tracer(None)
+        set_registry(None)
         if profiler is not None:
             try:
                 stop_profile(profiler, profile_dir / "train.pt.trace.json")

@@ -12,10 +12,15 @@ warm-up: the function runs eagerly with the call's own inputs on the side
 stream the capture then uses, and that run's outputs are the call's result
 (the kernels' ``nvcc`` builds, their ``_plan`` runs and the allocator's
 first blocks all happen here). The entry then allocates a static buffer for
-every tensor input and captures one graph in a private memory pool, inside
-the tracer's ``compile`` span, counted under the registry's ``compiles``
-counter and ``compile_cache_entries`` gauge (or the names the cache is
-given). Every later call copies its inputs into the buffers, replays, and
+every tensor input and captures one graph in a private memory pool. The
+build (the warm-up and the capture) runs inside the cache's span on the
+process's tracer (``span``, e.g. the trainer's ``compile`` or the engine's
+``serve/compile``, when one is named) and is counted under the registry's
+``compiles`` counter and ``compile_cache_entries`` gauge (or the names the
+cache is given). While a build runs, :func:`building` is true: it is the
+port's trace time, when the program body's Python runs (``parallel/
+pop_eval.py`` opens its ``trace/*`` spans then, as the JAX body does while
+jax traces it). Every later call copies its inputs into the buffers, replays, and
 returns the output buffers, which the next replay of the entry overwrites:
 a caller that keeps outputs across calls clones them. Non-tensor inputs are
 part of the program and must not change between calls.
@@ -51,6 +56,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import threading
 import time
 from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
@@ -95,6 +101,24 @@ def _unflatten(spec: Any, leaves: List[torch.Tensor]) -> Any:
         return kind(*items) if hasattr(kind, "_fields") else kind(items)
 
     return build(spec)
+
+
+_BUILD = threading.local()
+
+
+def building() -> bool:
+    """Whether this thread is inside a program's build (its warm-up or its
+    capture; on the CPU, an entry's first call)."""
+    return getattr(_BUILD, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def _building():
+    _BUILD.depth = getattr(_BUILD, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _BUILD.depth -= 1
 
 
 def graphs_on(device: torch.device) -> bool:
@@ -188,23 +212,23 @@ class _Entry:
 class GraphCache:
     """Captured programs by key on one device (see the module note).
 
-    ``registry``/``tracer`` (``obs.metrics.MetricsRegistry``,
-    ``obs.trace.Tracer``), where given, see each new entry: a ``compile``
-    span around the capture (attributes ``span_attrs(key)``), ``counter``
-    incremented and ``gauge`` set to the number of entries. ``workspace``
+    Each new entry's build runs in the span ``span`` on the process's
+    tracer (attributes ``span_attrs(key)``; no span when ``span`` is None);
+    ``registry`` (``obs.metrics.MetricsRegistry``), where given, has
+    ``counter`` incremented and ``gauge`` set to the number of entries. ``workspace``
     gives the bytes of the caller-owned scratch the programs use outside
     their pools; ``count_cost`` counts each warm-up's FLOPs and bytes (see
     the module note)."""
 
-    def __init__(self, device: DeviceLike = None, *, graph: bool = True, registry: Any = None, tracer: Any = None,
-                 counter: str = "compiles", gauge: str = "compile_cache_entries",
+    def __init__(self, device: DeviceLike = None, *, graph: bool = True, registry: Any = None,
+                 span: Optional[str] = None, counter: str = "compiles", gauge: str = "compile_cache_entries",
                  span_attrs: Optional[Callable[[Hashable], Dict[str, Any]]] = None,
                  workspace: Optional[Callable[[], int]] = None, count_cost: bool = False):
         self.device = resolve_device(device)
         self.count_cost = count_cost
         self.workspace = workspace
         self.graphed = bool(graph) and graphs_on(self.device)
-        self.registry, self.tracer = registry, tracer
+        self.registry, self.span = registry, span
         self.counter, self.gauge = counter, gauge
         self.span_attrs = span_attrs or (lambda key: {"key": str(key)})
         self.entries: Dict[Hashable, _Entry] = {}
@@ -222,9 +246,11 @@ class GraphCache:
         return entry.replay(args)
 
     def _span(self, key: Hashable):
-        if self.tracer is None:
+        if self.span is None:
             return contextlib.nullcontext()
-        return self.tracer.span("compile", **self.span_attrs(key))
+        from ..obs.trace import span
+
+        return span(self.span, **self.span_attrs(key))
 
     def _count_entry(self) -> None:
         if self.registry is not None:
@@ -243,10 +269,13 @@ class GraphCache:
         return outputs
 
     def _build(self, key: Hashable, fn: Callable, args: Tuple[Any, ...]) -> Any:
+        with self._span(key), _building():
+            return self._build_entry(key, fn, args)
+
+    def _build_entry(self, key: Hashable, fn: Callable, args: Tuple[Any, ...]) -> Any:
         entry = _Entry(fn, self.graphed)
         if not self.graphed:
-            with self._span(key):
-                self.entries[key] = entry
+            self.entries[key] = entry
             self._count_entry()
             t0 = time.perf_counter()
             with torch.inference_mode():
@@ -279,10 +308,9 @@ class GraphCache:
         with torch.inference_mode():  # the buffers start as this call's inputs
             entry.static = [t.clone() for t in leaves]
         static_args = _unflatten(entry.spec, entry.static)
-        with self._span(key):
-            with torch.inference_mode():
-                entry.captured = capture(fn, static_args, side)
-            self.entries[key] = entry
+        with torch.inference_mode():
+            entry.captured = capture(fn, static_args, side)
+        self.entries[key] = entry
         entry.stats.capture_s = entry.captured.capture_s
         entry.stats.instantiate_s = entry.captured.instantiate_s
         entry.stats.pool_bytes = entry.captured.pool_bytes

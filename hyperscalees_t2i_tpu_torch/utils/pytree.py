@@ -102,6 +102,11 @@ def cast_floating(tree: Tree, dtype: torch.dtype) -> Tree:
     )
 
 
+def tree_size(tree: Tree) -> int:
+    """The number of scalars in the tree's leaves."""
+    return sum(int(leaf.numel()) for leaf in tree_leaves(tree))
+
+
 def tree_to_flat(tree: Tree) -> torch.Tensor:
     """Every leaf, in flattening order, as one f32 vector."""
     leaves = tree_leaves(tree)
@@ -127,6 +132,14 @@ def flat_to_tree(flat: torch.Tensor, like: Tree) -> Tree:
 def zero_like_theta(theta: Tree) -> Tree:
     """θ = 0: every LoRA delta vanishes, so the adapted model is the base."""
     return tree_map(torch.zeros_like, theta)
+
+
+def tree_norms(tree: Tree) -> Dict[str, torch.Tensor]:
+    """The global L2 norm and the mean of |x| over the f32 flat vector (the
+    reference's per-epoch θ diagnostics)."""
+    flat = tree_to_flat(tree)
+    n = max(flat.shape[0], 1)
+    return {"norm": torch.linalg.vector_norm(flat), "mean_abs": flat.abs().sum() / n}
 
 
 def flatten_with_paths(tree: Tree) -> Dict[str, np.ndarray]:

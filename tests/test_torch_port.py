@@ -48,7 +48,8 @@ _REQUIRED = ["hyperscalees_t2i_tpu_torch." + m for m in (
     "parallel.mesh", "parallel.collectives", "parallel.pop_update", "obs.multihost", "tools.launch_local",
     "resilience.faultinject", "resilience.coord", "resilience.elastic", "resilience.checkpoints", "resilience.retry",
     "parallel.pop_eval", "parallel.tp", "ops.ring_attention", "obs.podtrace", "tools.bench", "tools.bench_report",
-    "tools.window")]
+    "tools.window", "obs", "obs.program_cost", "utils", "utils.pytree", "utils.graphs", "train.trainer",
+    "train.fleet")]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

@@ -16,8 +16,10 @@ run dir, against the JAX package's report.
 - Ported from ``tests/test_run_report.py``: the synthetic report, a report
   without trace or ``es/`` keys, no metrics, a custom output path, the
   tick and format helpers, a real CPU run, the predicted-vs-measured panel.
-  Not ported: ``test_bench_report_trend_renders_calib_table``
-  (``tools/bench_report.py`` is ROADMAP item 2).
+  ``test_bench_report_trend_renders_calib_table`` came with
+  ``tools/bench_report.py`` (ROADMAP item 2 part 1):
+  ``tests/test_torch_bench_report.py`` holds its trend and calibration
+  tables against the JAX report's.
 """
 
 import json

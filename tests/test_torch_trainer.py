@@ -64,7 +64,7 @@ from hyperscalees_t2i_tpu_torch.models import dcae, sana
 from hyperscalees_t2i_tpu_torch.obs.es_health import DegeneracyWatchdog
 from hyperscalees_t2i_tpu_torch.obs.metrics import MetricsRegistry
 from hyperscalees_t2i_tpu_torch.obs.quality import QualityLedger, quality_metrics
-from hyperscalees_t2i_tpu_torch.obs.trace import Tracer
+from hyperscalees_t2i_tpu_torch.obs.trace import Tracer, set_span_observer
 from hyperscalees_t2i_tpu_torch.resilience.checkpoints import CheckpointStore, TopologyMismatch, slot_theta_digest
 from hyperscalees_t2i_tpu_torch.resilience.preempt import PreemptionHandler
 from hyperscalees_t2i_tpu_torch.resilience.retry import call_with_retry
@@ -749,10 +749,14 @@ def test_preemption_handler_latches_and_restores():
 
 def test_tracer_writes_nothing_when_off(tmp_path):
     seen = []
-    tr = Tracer(None, on_span=lambda n, d: seen.append(n))
-    with tr.span("a"):
-        with tr.span("b"):
-            pass
+    tr = Tracer(None)
+    set_span_observer(lambda n, d: seen.append(n))
+    try:
+        with tr.span("a"):
+            with tr.span("b"):
+                pass
+    finally:
+        set_span_observer(None)
     assert seen == ["b", "a"] and not list(tmp_path.iterdir())
     tr = Tracer(tmp_path / "trace.jsonl")
     with tr.span("outer", k=1):
